@@ -1,0 +1,5 @@
+"""Inference entry points."""
+
+from tmar_torch.eval.inference import full_slice_eval, make_inference_fn, tiled_eval
+
+__all__ = ["full_slice_eval", "make_inference_fn", "tiled_eval"]

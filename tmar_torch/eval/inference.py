@@ -1,0 +1,84 @@
+"""Inference paths: full-slice and overlapping tiled evaluation (the
+counterpart of ``tmar.eval.inference``).
+
+* full-slice: the generator pads H, W to multiples of 32 internally and
+  crops back, so a 416² slice runs as one 448²-padded forward;
+* tiled: overlapping tiles (default 64 px, stride 32) batched through the
+  forward, accumulated on the host and averaged by coverage weight.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List
+
+import numpy as np
+import torch
+
+from tmar_torch.device import resolve_device
+
+
+def make_inference_fn(model: torch.nn.Module, device="cuda") -> Callable[[np.ndarray], np.ndarray]:
+    """An NHWC numpy -> numpy forward closure running ``model`` on ``device``
+    with autograd off.  Moves the model there and sets it to eval mode."""
+    dev = resolve_device(device)
+    model = model.to(dev).eval()
+
+    @torch.no_grad()
+    def forward(x: np.ndarray) -> np.ndarray:
+        t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float32)).to(dev)
+        return model(t).float().cpu().numpy()
+
+    return forward
+
+
+def full_slice_eval(forward: Callable[[np.ndarray], np.ndarray], ct: np.ndarray) -> np.ndarray:
+    """ct: [B, H, W, 1] in [-1, 1] -> restored [B, H, W, 1]."""
+    return forward(ct)
+
+
+def _tile_positions(size: int, tile: int, stride: int) -> List[int]:
+    if size <= tile:
+        return [0]
+    pos = list(range(0, size - tile + 1, stride))
+    if pos[-1] != size - tile:
+        pos.append(size - tile)
+    return pos
+
+
+def tiled_eval(
+    forward: Callable[[np.ndarray], np.ndarray],
+    ct: np.ndarray,
+    tile: int = 64,
+    stride: int = 32,
+    tile_batch: int = 64,
+) -> np.ndarray:
+    """Overlapping tiled inference with coverage-weight averaging.  ct
+    [B, H, W, 1]; tiles go through ``forward`` ``tile_batch`` at a time
+    (the last batch zero-padded, so every call has one shape)."""
+    B, H, W, C = ct.shape
+    rows = _tile_positions(H, tile, stride)
+    cols = _tile_positions(W, tile, stride)
+
+    out = np.zeros_like(ct, dtype=np.float64)
+    weight = np.zeros((1, H, W, 1), dtype=np.float64)
+
+    coords = [(r, c) for r in rows for c in cols]
+    tiles = np.stack(
+        [ct[b, r : r + tile, c : c + tile, :] for b in range(B) for (r, c) in coords]
+    )
+    n = tiles.shape[0]
+    pad = (-n) % tile_batch
+    if pad:
+        tiles = np.concatenate([tiles, np.zeros((pad,) + tiles.shape[1:], tiles.dtype)])
+    results = np.concatenate(
+        [forward(tiles[i : i + tile_batch]) for i in range(0, tiles.shape[0], tile_batch)]
+    )[:n]
+
+    k = 0
+    for b in range(B):
+        for r, c in coords:
+            out[b, r : r + tile, c : c + tile, :] += results[k]
+            k += 1
+    for r, c in coords:
+        weight[0, r : r + tile, c : c + tile, :] += 1.0
+    return (out / weight).astype(np.float32)
