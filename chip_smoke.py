@@ -19,7 +19,24 @@ Phases, each of which fails the run if it fails:
    before and read just after (20 launches of each kernel per forward);
 4. correctness: outputs finite and in [-1, 1]; a float32 run on the card
    against the port's CPU (plain) run at 1x128²; bfloat16 against float32 on
-   the card at 8x512²; then the median request time at 8x512².
+   the card at 8x512²; then the median request time at 8x512²;
+5. the training kernels (window attention and residual FFN, forward and
+   backward) against their plain versions' autograd on the card, forward and
+   every cotangent, at the shapes of the 8x128² train step (2048 windows of
+   64 tokens with 6 heads, with and without the shift mask; 512 with 4
+   heads; 2048 and 512 n-gram windows of 4 tokens; 131,072 FFN rows), at
+   float32 (TF32 off) and bfloat16, each backward run twice and compared bit
+   for bit; then each kernel's time beside its plain version's and its bound;
+6. the training path: the full-width NGswin in its training form and the
+   3-scale spectral-norm PatchGAN, from a seed, take 3 warm-up and 20 timed
+   GAN steps in bfloat16 on a fixed seeded 8x128² batch (the recipe without
+   the sinogram term, ``fused_pairs``, TTUR Adam, EMA), with the launch
+   counts reset just before and read just after; every metric finite at
+   every step and ``g_rec`` falling; steps/s, and one step's breakdown;
+7. training correctness: one float32 step at 1x128² on the card against the
+   same step on the CPU (plain versions) from the same state, loss terms and
+   the gradients of both networks; then the trained generator, loaded into
+   the inference form, serves one request.
 
 It prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card, exits non-zero
@@ -30,6 +47,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -46,6 +64,12 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 F32_TOL = 1e-4     # x max(1, max|ref|): summation order and libm rounding
 BF16_TOL = 2.0**-7  # x max|ref|: one bf16 rounding of the output, twice over
+# The training kernels keep parameters and parameter cotangents in float32 at
+# either activation dtype (held to F32_TOL); activations and their cotangents
+# take the activation dtype's tolerance.  At bfloat16 the reference is the
+# plain version in float32 on the same bf16-rounded activations.
+STEP_TOL = 2e-3     # card vs CPU, one f32 train step: x max|ref| per tensor
+TRAIN_BATCH, TRAIN_PATCH = 8, 128
 
 
 def card_line() -> str:
@@ -323,9 +347,9 @@ def serve(sd, card):
     return launches
 
 
-def profile_request(request, card):
-    """Where one request's time goes: device time by kernel from
-    torch.profiler, and the device's idle share of the request's wall time."""
+def profile_request(request, card, label="full-slice 8x512² bf16 request"):
+    """Where one request's (or step's) time goes: device time by kernel from
+    torch.profiler, and the device's idle share of its wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -337,16 +361,406 @@ def profile_request(request, card):
     rows = []
     for e in prof.key_averages():
         dev_us = getattr(e, "self_device_time_total", 0.0)
-        if dev_us > 0 and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA:
-            rows.append((dev_us, e.count, e.key))
+        if dev_us <= 0 or getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        if getattr(e, "is_user_annotation", False) or e.key.startswith(("Optimizer.", "ProfilerStep")):
+            continue  # a range over kernels that are listed themselves
+        rows.append((dev_us, e.count, e.key))
     busy = sum(r[0] for r in rows)
     if not rows:
         print("[profile] torch.profiler recorded no device time: breakdown not measured")
         return
-    print(f"[profile] full-slice 8x512² bf16 request under torch.profiler: wall {wall_us / 1e3:.1f} ms, "
-          f"device busy {busy / 1e3:.1f} ms, idle share {1 - busy / wall_us:.3f} on {card}")
+    print(f"[profile] {label} under torch.profiler: wall {wall_us / 1e3:.1f} ms, "
+          f"device busy {busy / 1e3:.1f} ms in {sum(r[1] for r in rows)} kernels and copies, "
+          f"idle share {1 - busy / wall_us:.3f} on {card}")
     for dev_us, count, key in sorted(rows, reverse=True)[:15]:
         print(f"[profile]   {dev_us / 1e3:9.3f} ms {100 * dev_us / busy:5.1f}% x{count:<4d} {key[:110]}")
+    by_count = sorted(rows, key=lambda r: r[1], reverse=True)[:6]
+    print("[profile]   most launched: " + "; ".join(f"x{c} {k[:60]}" for _, c, k in by_count))
+
+
+def attention_work(nwin, N, D, nh, hd, itemsize, backward):
+    """(FLOPs, bytes) window attention needs.  Forward: qkv, scores, AV,
+    projection; x read, the output and the row-wise lse written, parameters
+    read.  Backward, recomputing from x: qkv, scores and AV again, then the
+    cotangents of the projection (2 products), of AV (2), of the scores (2)
+    and of qkv (2); x, g and lse read, dx and the parameter cotangents
+    written."""
+    A = nh * hd
+    rows = nwin * N
+    params = 4 * (D * 3 * A + 3 * A + nh + nh * N * N + A * D + D)
+    if not backward:
+        flops = rows * 2 * (D * 3 * A + 2 * N * A + A * D)
+        return flops, rows * 2 * D * itemsize + rows * nh * 4 + params
+    flops = rows * 2 * (3 * D * 3 * A + 6 * N * A + 2 * A * D)
+    return flops, rows * 3 * D * itemsize + rows * nh * 4 + 2 * params
+
+
+def ffn_work(M, itemsize, backward):
+    """(FLOPs, bytes) the residual FFN needs (D = 64, hidden 128).  Forward:
+    fc1, fc2; x and attn_out read, z written.  Backward, recomputing: fc1 and
+    fc2 again, then two products each for their cotangents; x, attn_out and
+    dz read, dx and d attn_out written."""
+    D, H = 64, 128
+    params = 4 * (2 * D * H + H + 5 * D)
+    if not backward:
+        return M * 2 * 2 * D * H, M * 3 * D * itemsize + params
+    return M * 2 * 6 * D * H, M * 5 * D * itemsize + 2 * params
+
+
+ATTN_NAMES = ["out", "dx", "dwqkv", "dbqkv", "dlogit_scale", "dbias", "dwproj", "dbproj"]
+FFN_NAMES = ["out", "dx", "dattn_out", "dg1", "db1", "dw1", "dbw1", "dw2", "dbw2", "dg2", "db2"]
+# (label, windows, N, D, heads, head_dim, window grid of the shift mask)
+ATTN_CASES = (
+    ("stage1", 2048, 64, 64, 6, 10, None),
+    ("stage1 shift", 2048, 64, 64, 6, 10, (16, 16)),
+    ("stage2 shift", 512, 64, 64, 4, 16, (8, 8)),
+    ("ngram stage1", 2048, 4, 32, 6, 5, None),
+    ("ngram stage2", 512, 4, 32, 4, 8, None),
+)
+FFN_ROWS = 131072
+
+
+def check_train_kernels(dev, card):
+    """Phase 5: the four training kernels against their plain versions'
+    autograd, forward and every cotangent, then timed.  Returns the kernel
+    records for the JSON line (without launches)."""
+    import torch
+
+    from tmar_torch.ops.attention import window_attention_math
+    from tmar_torch.ops.cuda_attention import fused_window_attention
+    from tmar_torch.ops.cuda_ffn import fused_residual_ffn
+    from tmar_torch.ops.ffn import ffn_math
+    from tmar_torch.ops.window import shift_mask_components
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    failures = []
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale + shift
+
+    def attention_inputs(nwin, N, D, nh, hd):
+        A = nh * hd
+        ls = torch.rand(nh, 1, 1, generator=gen, device=dev) * 1.8 + 0.5
+        return [randn(nwin, N, D)], [
+            randn(D, 3 * A, scale=0.1), randn(3 * A, scale=0.1), ls, randn(nh, N, N, scale=0.2),
+            randn(A, D, scale=0.1), randn(D, scale=0.1)], randn(nwin, N, D)
+
+    def ffn_inputs(M):
+        D, H = 64, 128
+        return [randn(M, D), randn(M, D)], [
+            randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1), randn(D, H, scale=0.1),
+            randn(H, scale=0.1), randn(H, D, scale=0.1), randn(D, scale=0.1),
+            randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1)], randn(M, D)
+
+    def run(fn, acts, params, g):
+        leaves = [a.clone().requires_grad_() for a in acts] + [p.clone().requires_grad_() for p in params]
+        out = fn(*leaves)
+        return [out.detach()] + list(torch.autograd.grad(out, leaves, g.to(out.dtype)))
+
+    def hold(kernel, label, names, n_acts, fused, plain, acts, params, g, errs):
+        """forward (index 0) feeds the forward kernel's record, the
+        cotangents the backward kernel's; errs[kernel half][dtype]."""
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            a = [t.to(dtype) for t in acts]
+            got = run(fused, a, params, g.to(dtype))
+            again = run(fused, a, params, g.to(dtype))
+            ref = run(plain, [t.float() for t in a], params, g.to(dtype).float())
+            torch.cuda.synchronize()
+            worst, bad = ("", 0.0, 0.0), []
+            for i, (name, x, y, z) in enumerate(zip(names, got, ref, again)):
+                err, tol = err_and_tol(x, y, dtype if i <= n_acts else torch.float32)
+                half = "fwd" if i == 0 else "bwd"
+                errs[half][dn] = max(errs[half][dn], err)
+                if err / tol >= worst[1]:
+                    worst = (name, err / tol, err)
+                if not (err <= tol and bool(torch.isfinite(x).all())):
+                    bad.append(f"{name} err {err:.3e} > tol {tol:.3e}")
+                if not torch.equal(x, z):
+                    bad.append(f"{name} differs between two runs")
+            print(f"[kernel] {kernel} {label} {dn}: forward max_abs_err "
+                  f"{float((got[0].float() - ref[0]).abs().max()):.3e}; {len(names) - 1} cotangents, "
+                  f"worst {worst[0]} at {worst[1]:.3f} of its tolerance (max_abs_err {worst[2]:.3e}); "
+                  f"two backward runs bit-identical: {not any('differs' in b for b in bad)} "
+                  f"{'ok' if not bad else 'FAIL ' + '; '.join(bad)}")
+            if bad:
+                failures.append(f"{kernel} {label} {dn}")
+            del got, again, ref
+        torch.cuda.empty_cache()
+
+    def time_pair(fused, plain, acts, params, g, dtype):
+        """(kernel fwd, kernel bwd, plain fwd, plain bwd) in ms.  The plain
+        version runs in the activation dtype, as it would in the model."""
+        a = [t.to(dtype) for t in acts]
+        gg = g.to(dtype)
+        out = []
+        for fn in (fused, plain):
+            leaves = [t.clone().requires_grad_() for t in a] + [p.clone().requires_grad_() for p in params]
+            with torch.no_grad():
+                fwd = cuda_ms(lambda: fn(*leaves))
+            y = fn(*leaves)
+            bwd = cuda_ms(lambda: torch.autograd.grad(y, leaves, gg, retain_graph=True))
+            out += [fwd, bwd]
+            del y, leaves
+        torch.cuda.empty_cache()
+        return out[0], out[1], out[2], out[3]
+
+    # ---- K3 / K4: window attention ------------------------------------------
+    errs = {h: {"float32": 0.0, "bfloat16": 0.0} for h in ("fwd", "bwd")}
+    for label, nwin, N, D, nh, hd, grid in ATTN_CASES:
+        acts, params, g = attention_inputs(nwin, N, D, nh, hd)
+        mc = None if grid is None else (*shift_mask_components(8, 4), *grid)
+        hold("window_attention", f"{label} x=[{nwin}, {N}, {D}] heads={nh}x{hd} "
+             f"mask={'on' if grid else 'off'}", ATTN_NAMES, 1,
+             lambda *a: fused_window_attention(*a, nh, mask_components=mc),
+             lambda *a: window_attention_math(
+                 a[0], a[1].to(a[0].dtype), a[2].to(a[0].dtype), a[3], a[4], a[5].to(a[0].dtype),
+                 a[6].to(a[0].dtype), nh, mask_components=mc),
+             acts, params, g, errs)
+    times = {}
+    for label, nwin, N, D, nh, hd, grid in (ATTN_CASES[1], ATTN_CASES[3]):
+        acts, params, g = attention_inputs(nwin, N, D, nh, hd)
+        mc = None if grid is None else (*shift_mask_components(8, 4), *grid)
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            t = time_pair(
+                lambda *a: fused_window_attention(*a, nh, mask_components=mc),
+                lambda *a: window_attention_math(
+                    a[0], a[1].to(a[0].dtype), a[2].to(a[0].dtype), a[3], a[4],
+                    a[5].to(a[0].dtype), a[6].to(a[0].dtype), nh, mask_components=mc),
+                acts, params, g, dtype)
+            bounds = [bound_ms(*attention_work(nwin, N, D, nh, hd, acts[0].to(dtype).element_size(), b), dn)
+                      for b in (False, True)]
+            times[(N, dn)] = (t, bounds)
+            for half, k_ms, p_ms, (b_ms, b_by) in (("fwd", t[0], t[2], bounds[0]), ("bwd", t[1], t[3], bounds[1])):
+                print(f"[time] window_attention_{half} {label} x=[{nwin}, {N}, {D}] heads={nh} {dn}: "
+                      f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
+                      f"library: none (no single PyTorch call computes it) on {card}")
+    records = {}
+    for i, half in enumerate(("fwd", "bwd")):
+        t, bounds = times[(64, "bfloat16")]
+        t32, _ = times[(64, "float32")]
+        t4, b4 = times[(4, "bfloat16")]
+        records[f"window_attention_{half}"] = {
+            "name": f"window_attention_{half}", "route": "cuda",
+            "source": f"tmar_torch/csrc/window_attention_{half}.cu",
+            "replaces": ("tmar/ops/pallas_attention.py:1143 and :1175" if half == "fwd"
+                         else "tmar/ops/pallas_attention.py:568 and :704"),
+            "max_abs_err": errs[half]["float32"], "max_abs_err_bf16": errs[half]["bfloat16"],
+            "ms": t[i], "plain_ms": t[2 + i], "bound_ms": bounds[i][0], "bound_by": bounds[i][1],
+            "library_ms": None, "ms_f32": t32[i], "plain_ms_f32": t32[2 + i],
+            "ms_n4": t4[i], "plain_ms_n4": t4[2 + i], "bound_ms_n4": b4[i][0],
+            "shape": "x [2048, 64, 64] bf16, 6 heads, shift mask on (n4: x [2048, 4, 32], 6 heads)",
+        }
+
+    # ---- K5 / K6: residual FFN ---------------------------------------------
+    errs = {h: {"float32": 0.0, "bfloat16": 0.0} for h in ("fwd", "bwd")}
+    acts, params, g = ffn_inputs(FFN_ROWS)
+    hold("residual_ffn", f"x=[{FFN_ROWS}, 64]", FFN_NAMES, 2, fused_residual_ffn, ffn_math,
+         acts, params, g, errs)
+    racts, rparams, rg = ffn_inputs(1000)
+    hold("residual_ffn", "x=[1000, 64] (ragged last tile)", FFN_NAMES, 2, fused_residual_ffn,
+         ffn_math, racts, rparams, rg, errs)
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        t = time_pair(fused_residual_ffn, ffn_math, acts, params, g, dtype)
+        bounds = [bound_ms(*ffn_work(FFN_ROWS, acts[0].to(dtype).element_size(), b), dn)
+                  for b in (False, True)]
+        times[dn] = (t, bounds)
+        for half, k_ms, p_ms, (b_ms, b_by) in (("fwd", t[0], t[2], bounds[0]), ("bwd", t[1], t[3], bounds[1])):
+            print(f"[time] residual_ffn_{half} x=[{FFN_ROWS}, 64] {dn}: kernel {k_ms:.4f} ms, "
+                  f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
+                  f"library: none (no single PyTorch call computes it) on {card}")
+    for i, half in enumerate(("fwd", "bwd")):
+        t, bounds = times["bfloat16"]
+        records[f"residual_ffn_{half}"] = {
+            "name": f"residual_ffn_{half}", "route": "cuda",
+            "source": f"tmar_torch/csrc/residual_ffn_{half}.cu",
+            "replaces": "tmar/ops/pallas_ffn.py:352" if half == "fwd" else "tmar/ops/pallas_ffn.py:249",
+            "max_abs_err": errs[half]["float32"], "max_abs_err_bf16": errs[half]["bfloat16"],
+            "ms": t[i], "plain_ms": t[2 + i], "bound_ms": bounds[i][0], "bound_by": bounds[i][1],
+            "library_ms": None, "ms_f32": times["float32"][0][i],
+            "plain_ms_f32": times["float32"][0][2 + i],
+            "shape": f"x [{FFN_ROWS}, 64] bf16",
+        }
+    if failures:
+        raise SystemExit(f"training kernel checks failed: {failures}")
+    return records
+
+
+def _train_counters():
+    from tmar_torch.ops import cuda_attention, cuda_ffn, cuda_ngram, cuda_nstb
+
+    return {
+        "window_attention_fwd": (cuda_attention.fused_window_attention, "launches"),
+        "window_attention_bwd": (cuda_attention.fused_window_attention, "backward_launches"),
+        "residual_ffn_fwd": (cuda_ffn.fused_residual_ffn, "launches"),
+        "residual_ffn_bwd": (cuda_ffn.fused_residual_ffn, "backward_launches"),
+        "ngram_context": (cuda_ngram.fused_ngram_context, "launches"),
+        "nstb_map": (cuda_nstb.fused_nstb_map, "launches"),
+    }
+
+
+def _gan(dtype, device, seed, batch_size):
+    """Full-width generator (training form) and discriminator from a seed,
+    their optimizers, state and step, and a fixed seeded batch (input uniform
+    in [-1, 1], so the metal mask at 0.6 is non-empty)."""
+    import torch
+
+    from tmar_torch import (LossWeights, MultiScaleDiscriminator, NGswin, create_train_state,
+                            make_train_step)
+
+    gen = NGswin(dtype=dtype, attn_backward="pallas", device=device)
+    disc = MultiScaleDiscriminator(dtype=dtype, device=device)
+    g_opt = torch.optim.Adam(gen.parameters(), 1e-4, betas=(0.5, 0.999), eps=1e-8)
+    d_opt = torch.optim.Adam(disc.parameters(), 2e-4, betas=(0.5, 0.999), eps=1e-8)
+    state = create_train_state(torch.Generator().manual_seed(seed), gen, disc, g_opt, d_opt,
+                               ema_decay=0.999)
+    step = make_train_step(gen, disc, g_opt, d_opt, LossWeights(phys=0.0), fused_pairs=True,
+                           ema_decay=0.999, device=device)
+    rng = np.random.default_rng(0)
+    shape = (batch_size, TRAIN_PATCH, TRAIN_PATCH, 1)
+    ct = rng.uniform(-1, 1, shape).astype(np.float32)
+    # The target is a function of the input, so that there is something to
+    # learn in a few steps: half the input, minus the pixels above the metal
+    # threshold.  (A target of independent noise leaves the reconstruction
+    # term at its floor, mean |w·gt|, from the first step on.)
+    gt = np.where(ct > 0.6, -0.5, 0.5 * ct).astype(np.float32)
+    return state, step, {"ct": ct, "gt": gt}
+
+
+def train(card):
+    """Phase 6: GAN steps at full width in bfloat16.  Returns the launch
+    counts of the run and the trained generator."""
+    import torch
+
+    failures = []
+
+    def check(cond, what):
+        print(f"[check] {what}: {'ok' if cond else 'FAIL'}")
+        if not cond:
+            failures.append(what)
+
+    dev = torch.device("cuda")
+    state, step, batch = _gan(torch.bfloat16, "cuda", seed=0, batch_size=TRAIN_BATCH)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    n_g = sum(p.numel() for p in state.generator.parameters())
+    n_d = sum(p.numel() for p in state.discriminator.parameters())
+    print(f"[train] generator {n_g} parameters (training form), discriminator {n_d} "
+          f"(3 scales, spectral norm); batch {TRAIN_BATCH}x{TRAIN_PATCH}² bf16, fused_pairs, "
+          f"phys=0, Adam 1e-4/2e-4 b1 0.5, EMA 0.999")
+    check(n_g == 990_811, "generator has the full-width 990,811 parameters")
+
+    counters = _train_counters()
+    warmup, timed = 3, 20
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+    history, times = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(warmup + timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        history.append({k: float(v) for k, v in metrics.items()})
+    launches = {name: getattr(f, attr) for name, (f, attr) in counters.items()}
+    steps = warmup + timed
+    for i in (0, 1, warmup, steps - 1):
+        print(f"[train] step {i + 1}: " + " ".join(f"{k} {v:.5f}" for k, v in history[i].items())
+              + f" ({times[i] * 1e3:.1f} ms)")
+    print("[train] g_rec by step: " + " ".join(f"{h['g_rec']:.5f}" for h in history))
+    want = {"loss_d", "loss_g", "g_adv", "g_fm", "g_rec", "g_edge", "g_metal"}
+    check(all(want <= set(h) for h in history), "every metric of the step is reported")
+    check(all(np.isfinite(v) for h in history for v in h.values()),
+          f"every metric finite at each of the {steps} steps")
+    check(history[-1]["g_rec"] < history[0]["g_rec"],
+          f"g_rec falls on the fixed batch: {history[0]['g_rec']:.5f} -> {history[-1]['g_rec']:.5f}")
+    per_step = {k: v / steps for k, v in launches.items()}
+    print("[train] launches per step: " + ", ".join(f"{k} {v:g}" for k, v in per_step.items())
+          + f" (totals over {steps} steps: {launches})")
+    check([per_step[k] for k in counters] == [60, 60, 20, 20, 0, 0],
+          "60 attention and 20 FFN launches, forward and backward, per step; none of the "
+          "forward-only kernels")
+    check(state.step == steps, "the state counts its steps")
+    med = statistics.median(times[warmup:])
+    print(f"[time] train step {TRAIN_BATCH}x{TRAIN_PATCH}² bf16 (A1_no_physics recipe, composition "
+          f"n-gram, batch on the card): median {med * 1e3:.2f} ms of {timed} steps "
+          f"(min {min(times[warmup:]) * 1e3:.2f}, max {max(times[warmup:]) * 1e3:.2f}), "
+          f"{1 / med:.3f} steps/s, {TRAIN_BATCH / med:.1f} patches/s on {card}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile_request(lambda: step(state, batch), card,
+                    label=f"train step {TRAIN_BATCH}x{TRAIN_PATCH}² bf16")
+    if failures:
+        raise SystemExit(f"training checks failed: {failures}")
+    return launches, state.generator
+
+
+def train_correctness(trained, card):
+    """Phase 7: one float32 step on the card against the same step on the
+    CPU; then the trained generator serves in its inference form."""
+    import torch
+
+    from tmar_torch import NGswin, make_inference_fn
+
+    failures = []
+
+    def check(cond, what):
+        print(f"[check] {what}: {'ok' if cond else 'FAIL'}")
+        if not cond:
+            failures.append(what)
+
+    cpu_state, cpu_step, batch = _gan(torch.float32, "cpu", seed=1, batch_size=1)
+    gpu_state, gpu_step, _ = _gan(torch.float32, "cuda", seed=2, batch_size=1)
+    gpu_state.generator.load_state_dict(cpu_state.generator.state_dict())
+    gpu_state.discriminator.load_state_dict(cpu_state.discriminator.state_dict())
+    gpu_state.g_ema = {k: v.detach().clone() for k, v in gpu_state.generator.named_parameters()}
+    _, cpu_m = cpu_step(cpu_state, batch)
+    _, gpu_m = gpu_step(gpu_state, batch)
+    worst = 0.0
+    for k in cpu_m:
+        a, b = float(gpu_m[k]), float(cpu_m[k])
+        worst = max(worst, abs(a - b) / max(1.0, abs(b)))
+    print(f"[check] f32 step at 1x{TRAIN_PATCH}², card vs CPU plain, {len(cpu_m)} loss terms: worst "
+          f"|diff| / max(1, |ref|) {worst:.3e} tol 1e-4")
+    check(worst <= 1e-4, "f32 step loss terms, card vs CPU plain")
+    for name, a_net, b_net in (("generator", gpu_state.generator, cpu_state.generator),
+                               ("discriminator", gpu_state.discriminator, cpu_state.discriminator)):
+        worst, where, n = 0.0, "", 0
+        b_grads = dict(b_net.named_parameters())
+        # a tensor's scale is its own largest gradient, but not less than
+        # 1e-3 of the network's: a gradient that is zero in exact arithmetic
+        # (the hinge loss's in a logit bias) is rounding noise on both sides
+        floor = 1e-3 * max(float(p.grad.abs().max()) for p in b_grads.values())
+        for k, p in a_net.named_parameters():
+            ref = b_grads[k].grad
+            rel = float((p.grad.cpu() - ref).abs().max()) / max(float(ref.abs().max()), floor)
+            n += 1
+            if rel > worst:
+                worst, where = rel, k
+        print(f"[check] f32 step gradients of the {name}, card vs CPU plain, {n} tensors: worst "
+              f"max|diff| / max(max|ref|, 1e-3 of the network's) {worst:.3e} at {where} "
+              f"tol {STEP_TOL:g}")
+        check(worst <= STEP_TOL, f"f32 step gradients of the {name}, card vs CPU plain")
+    del cpu_state, gpu_state
+    torch.cuda.empty_cache()
+
+    # the trained generator in the inference form, on the same state_dict
+    served = NGswin(dtype=torch.bfloat16)
+    served.load_state_dict(trained.state_dict())
+    x = np.random.default_rng(3).uniform(-1, 1, (TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH, 1)).astype(np.float32)
+    y = make_inference_fn(served)(x)
+    y_train = make_inference_fn(trained)(x)
+    d = float(np.abs(y - y_train).max())
+    print(f"[serve] trained generator in the inference form: out {list(y.shape)} range "
+          f"[{y.min():.4f}, {y.max():.4f}]; max |diff| to its training form {d:.3e} (tol 0.1, bf16)")
+    check(bool(np.isfinite(y).all()) and y.min() >= -1 and y.max() <= 1,
+          "trained generator serves finite values in [-1, 1]")
+    check(d <= 0.1, "inference and training forms agree on the trained weights")
+    if failures:
+        raise SystemExit(f"training correctness checks failed: {failures}")
 
 
 def main() -> int:
@@ -375,9 +789,10 @@ def main() -> int:
     print(f"[build] {', '.join(kernels.KERNELS)} in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(kernels.NVCC_FLAGS)})")
     for name, log in kernels.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+        regs = [int(m) for m in re.findall(r"Used (\d+) registers", log)]
+        spills = [int(m) for m in re.findall(r"(\d+) bytes spill stores", log)]
+        print(f"[build] {name}: {len(regs)} kernel instantiations, at most {max(regs, default=0)} "
+              f"registers, {sum(spills)} bytes of spill stores in all")
 
     sd = load_pth(CKPT)
     dev = torch.device("cuda")
@@ -389,8 +804,14 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches = serve(sd, card)
+    launches = {k.replace("fused_", ""): v for k, v in launches.items()}
+
+    records.update(check_train_kernels(dev, card))
+    train_launches, trained = train(card)
+    launches.update({k: v for k, v in train_launches.items() if k not in launches})
+    train_correctness(trained, card)
     for name, rec in records.items():
-        rec["launches"] = launches[f"fused_{name}"]
+        rec["launches"] = launches[name]
         rec["card"] = card
     print(json.dumps({"kernels": list(records.values())}))
     print(f"{card}")

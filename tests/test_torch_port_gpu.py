@@ -10,13 +10,20 @@ only in summation order and libm rounding, so max |err| <= 1e-4·max(1, max|ref|
 At bfloat16 the kernel computes in float32 and rounds once on output, so it
 is held against the plain version run in float32 on the same bf16-rounded
 inputs and weights: max |err| <= 2^-7·max|ref| (twice the bf16 half-ulp).
+The training kernels (window attention and residual FFN, forward and
+backward) keep their parameters and parameter cotangents in float32 at
+either activation dtype, so those cotangents are held to the float32
+tolerance in both cases.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from tmar_torch.ops import cuda_ngram, cuda_nstb
+from tmar_torch.ops import cuda_attention, cuda_ffn, cuda_ngram, cuda_nstb
+from tmar_torch.ops.attention import window_attention_math
+from tmar_torch.ops.ffn import ffn_math
+from tmar_torch.ops.window import shift_mask_components
 
 pytestmark = pytest.mark.gpu
 
@@ -137,5 +144,119 @@ def test_nstb_map_kernel_finite_at_saturated_logit_scale(cuda):
 def test_ngram_kernel_rejects_grid_below_2x2(cuda):
     rng = np.random.default_rng(3)
     u, params = ngram_inputs(rng, 6, 1, 1, 4)
-    with pytest.raises(NotImplementedError, match="_attn_kernel"):
+    with pytest.raises(NotImplementedError, match="2x2 window grid"):
         cuda_ngram.fused_ngram_context(u.to(cuda), *_to(tuple(params), cuda), 6)
+
+
+# ---- the training kernels: forward and every cotangent ----------------------
+ATTN_NAMES = ["out", "dx", "dwqkv", "dbqkv", "dlogit_scale", "dbias", "dwproj", "dbproj"]
+FFN_NAMES = ["out", "dx", "dattn_out", "dg1", "db1", "dw1", "dbw1", "dw2", "dbw2", "dg2", "db2"]
+
+
+def attention_inputs(rng, nwin, N, D, nh, hd):
+    A = nh * hd
+    acts = [_t(rng, nwin, N, D), _t(rng, nwin, N, D)]  # x, output cotangent
+    params = [
+        _t(rng, D, 3 * A, scale=0.1), _t(rng, 3 * A, scale=0.1),
+        torch.from_numpy(rng.uniform(0.5, 2.3, (nh, 1, 1)).astype(np.float32)),
+        _t(rng, nh, N, N, scale=0.2), _t(rng, A, D, scale=0.1), _t(rng, D, scale=0.1),
+    ]
+    return acts, params
+
+
+def ffn_inputs(rng, M):
+    D, H = 64, 128
+    acts = [_t(rng, M, D), _t(rng, M, D), _t(rng, M, D)]  # x, attn_out, output cotangent
+    params = [
+        1 + _t(rng, D, scale=0.1), _t(rng, D, scale=0.1), _t(rng, D, H, scale=0.1),
+        _t(rng, H, scale=0.1), _t(rng, H, D, scale=0.1), _t(rng, D, scale=0.1),
+        1 + _t(rng, D, scale=0.1), _t(rng, D, scale=0.1),
+    ]
+    return acts, params
+
+
+def _forward_and_cotangents(fn, acts, params, g):
+    leaves = [a.clone().requires_grad_() for a in acts] + [p.clone().requires_grad_() for p in params]
+    out = fn(*leaves)
+    return [out.detach()] + list(torch.autograd.grad(out, leaves, g.to(out.dtype)))
+
+
+def _hold(names, n_acts, got, ref, dtype):
+    """Activations and their cotangents at the I/O dtype's tolerance, the
+    float32 parameter cotangents at the float32 tolerance."""
+    for i, (name, a, b) in enumerate(zip(names, got, ref)):
+        tol = _tol(b, dtype if i <= n_acts else torch.float32)
+        err = float((a.float() - b).abs().max())
+        assert a.shape == b.shape and err <= tol, f"{name}: {err} > {tol}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nwin,N,D,nh,hd,grid", [
+    (24, 64, 64, 6, 10, None), (24, 64, 64, 6, 10, (3, 4)), (24, 64, 64, 4, 16, (2, 3)),
+    (37, 4, 32, 6, 5, None), (512, 4, 32, 4, 8, None),
+])
+def test_window_attention_kernels_match_plain(cuda, dtype, nwin, N, D, nh, hd, grid):
+    rng = np.random.default_rng(4)
+    (x, g), params = attention_inputs(rng, nwin, N, D, nh, hd)
+    x, g = x.to(cuda, dtype), g.to(cuda, dtype)
+    params = [p.to(cuda) for p in params]
+    mc = None if grid is None else (*shift_mask_components(8, 4), *grid)
+    f = cuda_attention.fused_window_attention
+    before = (f.launches, f.backward_launches)
+    got = _forward_and_cotangents(lambda *a: f(*a, nh, mask_components=mc), [x], params, g)
+    again = _forward_and_cotangents(lambda *a: f(*a, nh, mask_components=mc), [x], params, g)
+    torch.cuda.synchronize()
+    assert (f.launches, f.backward_launches) == (before[0] + 2, before[1] + 2)
+    ref = _forward_and_cotangents(
+        lambda *a: window_attention_math(*a, nh, mask_components=mc), [x.float()], params, g.float())
+    assert got[0].dtype == dtype and got[1].dtype == dtype and got[2].dtype == torch.float32
+    _hold(ATTN_NAMES, 1, got, ref, dtype)
+    for name, a, b in zip(ATTN_NAMES, got, again):
+        assert torch.equal(a, b), f"{name} differs between two runs"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M", [64, 1000, 20000])
+def test_residual_ffn_kernels_match_plain(cuda, dtype, M):
+    rng = np.random.default_rng(5)
+    (x, ao, g), params = ffn_inputs(rng, M)
+    x, ao, g = (t.to(cuda, dtype) for t in (x, ao, g))
+    params = [p.to(cuda) for p in params]
+    f = cuda_ffn.fused_residual_ffn
+    before = (f.launches, f.backward_launches)
+    got = _forward_and_cotangents(f, [x, ao], params, g)
+    again = _forward_and_cotangents(f, [x, ao], params, g)
+    torch.cuda.synchronize()
+    assert (f.launches, f.backward_launches) == (before[0] + 2, before[1] + 2)
+    ref = _forward_and_cotangents(ffn_math, [x.float(), ao.float()], params, g.float())
+    assert got[0].dtype == dtype and got[3].dtype == torch.float32
+    _hold(FFN_NAMES, 2, got, ref, dtype)
+    for name, a, b in zip(FFN_NAMES, got, again):
+        assert torch.equal(a, b), f"{name} differs between two runs"
+
+
+def test_window_attention_kernels_at_saturated_logit_scale(cuda):
+    """exp(clip(10, ln 100)) = 100: the softmax keeps its max subtraction,
+    and the logit-scale cotangent is zero above the clip."""
+    rng = np.random.default_rng(6)
+    (x, g), params = attention_inputs(rng, 8, 64, 64, 4, 16)
+    params[2] = torch.tensor([10.0, 1.0, 10.0, 2.0]).reshape(4, 1, 1)
+    x, g = x.to(cuda), g.to(cuda)
+    params = [p.to(cuda) for p in params]
+    got = _forward_and_cotangents(
+        lambda *a: cuda_attention.fused_window_attention(*a, 4), [x], params, g)
+    ref = _forward_and_cotangents(lambda *a: window_attention_math(*a, 4), [x], params, g)
+    assert all(torch.isfinite(t).all() for t in got)
+    assert got[4].flatten()[0] == 0 and got[4].flatten()[2] == 0 and got[4].flatten()[1] != 0
+    _hold(ATTN_NAMES, 1, got, ref, torch.float32)
+
+
+def test_training_kernels_refuse_other_geometries(cuda):
+    rng = np.random.default_rng(7)
+    (x, _), params = attention_inputs(rng, 4, 16, 32, 2, 16)
+    with pytest.raises(NotImplementedError, match="window attention kernels"):
+        cuda_attention.fused_window_attention(x.to(cuda), *[p.to(cuda) for p in params], 2)
+    z = torch.zeros(8, 32, device=cuda)
+    with pytest.raises(NotImplementedError, match="residual FFN kernels"):
+        cuda_ffn.fused_residual_ffn(z, z, *[torch.zeros(s, device=cuda) for s in
+                                            ((32,), (32,), (32, 64), (64,), (64, 32), (32,), (32,), (32,))])

@@ -1,6 +1,7 @@
 """The port stands alone and stays off the CPU unless asked: tmar_torch
 imports no JAX, flax or tmar module; its entry points default to CUDA and
-raise without a card; CPU tensors take the plain versions and launch nothing."""
+raise without a card; CPU tensors take the plain versions and launch nothing;
+the forward-only kernels refuse to run where autograd would record them."""
 
 import ast
 import pathlib
@@ -14,7 +15,8 @@ import torch
 import tmar_torch
 from tmar_torch import NGswin, make_inference_fn
 from tmar_torch import kernels
-from tmar_torch.ops import cuda_ngram, cuda_nstb
+from tmar_torch.device import refuse_grad
+from tmar_torch.ops import cuda_attention, cuda_ffn, cuda_ngram, cuda_nstb
 
 PKG = pathlib.Path(tmar_torch.__file__).parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tmar")
@@ -83,3 +85,56 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_nstb.fused_nstb_map(torch.zeros(1, 8, 8, 64, device="meta"), None, *([None] * 10),
                                  6, 8)
+
+
+def test_cpu_training_form_takes_plain_versions_and_launches_nothing(monkeypatch):
+    wrappers = (cuda_attention.fused_window_attention, cuda_ffn.fused_residual_ffn)
+    for f in wrappers:
+        monkeypatch.setattr(f, "launches", 0)
+        monkeypatch.setattr(f, "backward_launches", 0)
+    model = NGswin(embed_dim=32, depths=(2, 2, 2), num_heads=(2, 2, 2), dec_dim=32,
+                   dec_depths=2, dec_num_heads=2, attn_backward="pallas", device="cpu")
+    x = torch.from_numpy(np.random.default_rng(0).uniform(-1, 1, (1, 64, 64, 1)).astype(np.float32))
+    model(x).square().mean().backward()
+    assert all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+    assert all(f.launches == 0 and f.backward_launches == 0 for f in wrappers)
+    assert not kernels._libs
+
+
+def test_training_wrappers_refuse_other_devices():
+    x = torch.zeros(1, 64, 64, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_attention.fused_window_attention(x, *([None] * 6), 6)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_ffn.fused_residual_ffn(x[0], x[0], *([None] * 8))
+
+
+class _CudaStandIn:
+    """What the wrappers look at before they touch the card: a CUDA device
+    and ``requires_grad``."""
+
+    device = torch.device("cuda")
+    requires_grad = True
+
+
+@pytest.mark.parametrize("call", [
+    lambda t: cuda_ngram.fused_ngram_context(t, *([None] * 8), 6),
+    lambda t: cuda_nstb.fused_nstb_map(t, None, *([None] * 6), *([(None, None)] * 4), 6, 8),
+], ids=["fused_ngram_context", "fused_nstb_map"])
+def test_forward_only_kernels_refuse_a_graphless_result_under_grad(call):
+    """On a CUDA tensor with autograd on and an argument that requires grad,
+    the forward-only wrappers raise and name the training form; with
+    autograd off they go on (here: to a stand-in's missing shape)."""
+    with torch.enable_grad(), pytest.raises(RuntimeError, match="training form"):
+        call(_CudaStandIn())
+    with torch.no_grad(), pytest.raises(AttributeError):
+        call(_CudaStandIn())
+
+
+def test_refuse_grad_looks_at_grad_mode_and_requires_grad():
+    w = torch.zeros(2, requires_grad=True)
+    refuse_grad("k", (torch.zeros(2), None))
+    with torch.no_grad():
+        refuse_grad("k", (w,))
+    with pytest.raises(RuntimeError, match="forward-only"):
+        refuse_grad("k", (torch.zeros(2), None, w))

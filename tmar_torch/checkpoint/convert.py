@@ -9,6 +9,10 @@
   ``to_target_before_shuffle`` -> ``to_target.before_shuffle``; Linear kernels
   [in, out] -> weight [out, in]; HWIO conv kernels -> [out, in/g, kh, kw];
   LayerNorm scale -> weight.  The port keeps its own copy of this mapping.
+* ``disc_from_flax`` does the same for a flax ``MultiScaleDiscriminator``:
+  the ``params`` tree (HWIO conv kernels -> OIHW weights) and the ``sn``
+  collection, whose power-iteration vectors ``u``/``v`` are copied, never
+  drawn anew.
 """
 
 from __future__ import annotations
@@ -73,4 +77,24 @@ def from_flax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
             sd[f"{mod}.{leaf}"] = torch.from_numpy(np.array(v))
         else:
             raise ValueError(f"unmapped flax leaf {'.'.join(path)!r}")
+    return sd
+
+
+def disc_from_flax(params: Mapping[str, Any], sn: Mapping[str, Any] = None) -> Dict[str, torch.Tensor]:
+    """A flax discriminator's ``params`` tree and ``sn`` collection (``u``,
+    ``v`` per conv; None or empty without spectral norm) -> the port's
+    ``state_dict``."""
+    sd: Dict[str, torch.Tensor] = {}
+    for path, v in _flatten(params):
+        name = {"kernel": "weight", "bias": "bias"}.get(path[-1])
+        if name is None:
+            raise ValueError(f"unmapped flax leaf {'.'.join(path)!r}")
+        v = np.asarray(v, np.float32)
+        if name == "weight":
+            v = v.transpose(3, 2, 0, 1)
+        sd[".".join(path[:-1] + (name,))] = torch.from_numpy(np.array(v))
+    for path, v in _flatten(sn or {}):
+        if path[-1] not in ("u", "v"):
+            raise ValueError(f"unmapped spectral-norm leaf {'.'.join(path)!r}")
+        sd[".".join(path)] = torch.from_numpy(np.array(v, np.float32))
     return sd

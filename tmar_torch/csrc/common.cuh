@@ -1,0 +1,101 @@
+// Shared device helpers of the training kernels (window attention and
+// residual FFN, forward and backward): type conversion, a warp sum, and the
+// 256-thread tile matrix product the four kernels are built from.
+//
+// A block of THREADS = 256 threads works on a tile of ROWS = 64 token rows
+// held in shared memory in float32.  The threads form a 16 x 16 grid; thread
+// (rg, cg) owns the output elements (rg + 16 i, cg + 16 j).  Operands are
+// addressed by (row stride, k stride) and (k stride, column stride), so the
+// same routine computes X·W, X·Wᵀ and Xᵀ·Y; shared-memory rows are padded to
+// an odd length so that both directions are free of bank conflicts.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stddef.h>
+
+namespace tmar {
+
+constexpr int THREADS = 256;
+constexpr int ROWS = 64;  // token rows per tile
+constexpr size_t MAX_SMEM = 232448;  // dynamic shared memory of one sm_90 block
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+__host__ __device__ constexpr int ceil16(int n) { return (n + 15) / 16; }
+
+template <int M, int NN>
+__device__ __forceinline__ void mm_zero(float (&acc)[ceil16(M)][ceil16(NN)]) {
+#pragma unroll
+  for (int i = 0; i < ceil16(M); ++i)
+#pragma unroll
+    for (int j = 0; j < ceil16(NN); ++j) acc[i][j] = 0.f;
+}
+
+// acc[i][j] += sum_{k < K} a[m·a_m + k·a_k] · b[k·b_k + n·b_n]
+// for m = rg + 16 i < M and n = cg + 16 j < NN.
+template <int M, int K, int NN>
+__device__ __forceinline__ void mm_acc(float (&acc)[ceil16(M)][ceil16(NN)],
+                                       const float* a, int a_m, int a_k,
+                                       const float* b, int b_k, int b_n) {
+  constexpr int RI = ceil16(M), CN = ceil16(NN);
+  const int cg = threadIdx.x & 15, rg = threadIdx.x >> 4;
+#pragma unroll 2
+  for (int k = 0; k < K; ++k) {
+    float av[RI];
+#pragma unroll
+    for (int i = 0; i < RI; ++i) {
+      const int m = rg + 16 * i;
+      av[i] = (M % 16 == 0 || m < M) ? a[m * a_m + k * a_k] : 0.f;
+    }
+#pragma unroll
+    for (int j = 0; j < CN; ++j) {
+      const int n = cg + 16 * j;
+      const float bv = (NN % 16 == 0 || n < NN) ? b[k * b_k + n * b_n] : 0.f;
+#pragma unroll
+      for (int i = 0; i < RI; ++i) acc[i][j] = fmaf(av[i], bv, acc[i][j]);
+    }
+  }
+}
+
+// f(m, n, acc[i][j]) for every element this thread owns.
+template <int M, int NN, typename F>
+__device__ __forceinline__ void mm_each(const float (&acc)[ceil16(M)][ceil16(NN)], F f) {
+  const int cg = threadIdx.x & 15, rg = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < ceil16(M); ++i) {
+    const int m = rg + 16 * i;
+    if (M % 16 == 0 || m < M) {
+#pragma unroll
+      for (int j = 0; j < ceil16(NN); ++j) {
+        const int n = cg + 16 * j;
+        if (NN % 16 == 0 || n < NN) f(m, n, acc[i][j]);
+      }
+    }
+  }
+}
+
+// out[e] = sum_b part[b][e], in block order: the second pass over the
+// per-block partial sums of the parameter cotangents.  No float atomics, so
+// two runs give the same bits.
+__global__ void reduce_partials(const float* __restrict__ part, float* __restrict__ out,
+                                int nblocks, int size) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= size) return;
+  float s = 0.f;
+  for (int b = 0; b < nblocks; ++b) s += part[(size_t)b * size + e];
+  out[e] = s;
+}
+
+}  // namespace tmar

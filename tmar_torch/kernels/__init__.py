@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
 first use, by its own ``nvcc`` process, into ``kernels/_build/<name>-<hash>.so``
-(the hash covers the source and the flags, so an edited source rebuilds).
+(the hash covers the source, the shared headers and the flags, so an edited
+source rebuilds).
 The library is loaded with ``ctypes``: every pointer and the CUDA stream go
 in as ``c_void_p``, and the entry point returns ``cudaGetLastError()``.
 
@@ -27,7 +28,12 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-KERNELS = ("ngram_context", "nstb_map")
+KERNELS = (
+    "ngram_context", "nstb_map",
+    "window_attention_fwd", "window_attention_bwd",
+    "residual_ffn_fwd", "residual_ffn_bwd",
+)
+HEADERS = ("common.cuh",)  # included by the training kernels; part of every hash
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -47,8 +53,9 @@ def _nvcc() -> str:
 def _target(name: str) -> str:
     src = os.path.join(CSRC, f"{name}.cu")
     h = hashlib.sha1()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    for path in (src, *(os.path.join(CSRC, name) for name in HEADERS)):
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:12]}.so")
 
@@ -94,6 +101,39 @@ def entry(name: str, argtypes: List) -> ctypes._CFuncPtr:
     fn = getattr(lib, f"tmar_{name}")
     fn.argtypes = argtypes
     return fn
+
+
+_entries: Dict[str, ctypes._CFuncPtr] = {}
+_sm_counts: Dict[int, int] = {}
+
+
+def launch(name: str, argtypes: List, device, *args) -> None:
+    """Call kernel ``name``'s entry point with ``args`` followed by
+    ``device``'s current CUDA stream, and raise if it returns a CUDA error.
+    ``argtypes`` are those of the whole call, the stream included."""
+    import torch
+
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = entry(name, argtypes)
+    if torch.cuda.current_device() == device.index:
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    check(name, err)
+
+
+def sm_count(device) -> int:
+    """The number of SMs of a CUDA device: the persistent kernels launch at
+    most one block per SM."""
+    import torch
+
+    n = _sm_counts.get(device.index)
+    if n is None:
+        n = _sm_counts[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
 
 
 def check(name: str, err: int) -> None:

@@ -91,12 +91,15 @@ class PatchMerging(nn.Module):
         return self.reduction(self.norm(merged)), (ph // 2, pw // 2)
 
 
-def _stage_blocks(dim, ngram, depth, num_heads, window_size, head_dim, mlp_ratio, qkv_bias):
+def _stage_blocks(
+    dim, ngram, depth, num_heads, window_size, head_dim, mlp_ratio, qkv_bias, attn_backward
+):
     return nn.ModuleList(
         NSTB(
             dim, ngram, num_heads, window_size,
             shift_size=0 if i % 2 == 0 else window_size // 2,
             head_dim=head_dim, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
+            attn_backward=attn_backward,
         )
         for i in range(depth)
     )
@@ -125,11 +128,13 @@ class EncoderLayer(nn.Module):
         downsample: bool = False,
         downsample_dim: Optional[int] = None,
         num_cas: int = 1,
+        attn_backward: str = "auto",
     ):
         super().__init__()
         self.across_cascade_proj = Linear(num_cas * dim, dim) if num_cas != 1 else None
         self.blocks = _stage_blocks(
-            dim, ngram, depth, num_heads, window_size, head_dim, mlp_ratio, qkv_bias
+            dim, ngram, depth, num_heads, window_size, head_dim, mlp_ratio, qkv_bias,
+            attn_backward,
         )
         self.downsample = PatchMerging(dim, downsample_dim) if downsample else None
 
@@ -190,10 +195,12 @@ class DecoderLayer(nn.Module):
         head_dim: Optional[int] = None,
         mlp_ratio: float = 2.0,
         qkv_bias: bool = True,
+        attn_backward: str = "auto",
     ):
         super().__init__()
         self.blocks = _stage_blocks(
-            dim, ngram, depth, num_heads, window_size, head_dim, mlp_ratio, qkv_bias
+            dim, ngram, depth, num_heads, window_size, head_dim, mlp_ratio, qkv_bias,
+            attn_backward,
         )
 
     def forward(self, x: torch.Tensor, num_patches: Tuple[int, int]) -> torch.Tensor:

@@ -4,10 +4,12 @@ dtype, the MLP, and the initialisers (the counterpart of ``tmar.nn.layers``).
 Parameters stay float32, as in the JAX package; each layer casts its weights
 to the dtype of the activation it receives, so a bfloat16 model is a float32
 model fed bfloat16 activations.  DropPath and dropout are identities: the
-port serves inference only.
+port runs the recipes that set them to 0.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
@@ -51,18 +53,43 @@ class Mlp(nn.Module):
         self.fc2 = Linear(hidden_features, out_features)
 
 
+def _draw(param: torch.Tensor, init, generator) -> None:
+    """Fill ``param`` by ``init(tensor, generator=...)``.  With a generator
+    the values are drawn on the generator's device and copied over, so a
+    CPU generator gives the same parameters on any device."""
+    if generator is None:
+        init(param, generator=None)
+        return
+    tmp = torch.empty(param.shape, dtype=param.dtype, device=generator.device)
+    init(tmp, generator=generator)
+    param.copy_(tmp)
+
+
+def _trunc_normal(t, generator):
+    return nn.init.trunc_normal_(t, std=0.02, a=-0.04, b=0.04, generator=generator)
+
+
+def _normal(t, generator):
+    return nn.init.normal_(t, std=0.02, generator=generator)
+
+
 @torch.no_grad()
-def init_weights(module: nn.Module) -> None:
+def init_weights(module: nn.Module, generator: torch.Generator = None) -> None:
     """The JAX package's initialisers: trunc-normal(0.02) linears, normal(0.02)
-    convs, zero biases, LayerNorm (1, 0)."""
+    convs, zero biases, LayerNorm (1, 0), trunc-normal(0.02) relative-position
+    bias tables and ln 10 logit scales; drawn from ``generator`` (the global
+    one if None)."""
     if isinstance(module, nn.Linear):
-        nn.init.trunc_normal_(module.weight, std=0.02, a=-0.04, b=0.04)
+        _draw(module.weight, _trunc_normal, generator)
         if module.bias is not None:
             nn.init.zeros_(module.bias)
     elif isinstance(module, nn.Conv2d):
-        nn.init.normal_(module.weight, std=0.02)
+        _draw(module.weight, _normal, generator)
         if module.bias is not None:
             nn.init.zeros_(module.bias)
     elif isinstance(module, nn.LayerNorm):
         nn.init.ones_(module.weight)
         nn.init.zeros_(module.bias)
+    elif hasattr(module, "relative_position_bias_table"):  # WindowAttention
+        _draw(module.relative_position_bias_table, _trunc_normal, generator)
+        module.logit_scale.fill_(math.log(10.0))

@@ -3,8 +3,10 @@ of ``tmar.nn.window_attention``.
 
 The module holds ``logit_scale`` [nh, 1, 1] (initialised to ln 10), the
 relative-position bias table [(2h-1)(2w-1), nh], and the ``qkv`` and
-``proj`` linears, under the reference checkpoint's names.  The fused kernels
-read them through ``params()``.
+``proj`` linears, under the reference checkpoint's names.  The whole-block
+inference kernels read them through ``params()``; ``forward`` is the
+differentiable attention on [B_, N, D] windows, through
+``fused_window_attention`` (forward and backward kernels on a CUDA tensor).
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import torch.nn as nn
 
 from tmar_torch.nn.layers import Linear
 from tmar_torch.ops.attention import gather_rel_pos_bias, relative_position_index
+from tmar_torch.ops.cuda_attention import fused_window_attention
 
 
 class WindowAttention(nn.Module):
@@ -41,6 +44,15 @@ class WindowAttention(nn.Module):
         nn.init.trunc_normal_(self.relative_position_bias_table, std=0.02, a=-0.04, b=0.04)
         self.qkv = Linear(dim, 3 * attn_dim, bias=qkv_bias)
         self.proj = Linear(attn_dim, dim)
+
+    def forward(self, x: torch.Tensor, mask_components: Optional[tuple] = None) -> torch.Tensor:
+        """x [B_, N, D] windows -> [B_, N, D]; mask_components is the
+        decomposed shift mask (m_row, m_col, wh, ww) or None."""
+        wqkv, bqkv, logit_scale, _, wproj, bproj = self.params()
+        return fused_window_attention(
+            x, wqkv, bqkv, logit_scale, self.bias(), wproj, bproj, self.num_heads,
+            mask_components=mask_components,
+        )
 
     def params(self):
         """(wqkv [in, 3A], bqkv, logit_scale, table, wproj [A, out], bproj)."""

@@ -34,8 +34,73 @@ def relative_position_index(win_h: int, win_w: int) -> np.ndarray:
 def gather_rel_pos_bias(table: torch.Tensor, index: np.ndarray, num_heads: int) -> torch.Tensor:
     """table [(2h-1)(2w-1), nh], index [N, N] -> bias [nh, N, N]."""
     n = index.shape[0]
-    idx = torch.as_tensor(index.reshape(-1), dtype=torch.long, device=table.device)
-    return table[idx].reshape(n, n, num_heads).permute(2, 0, 1)
+    return static_gather(table, index).reshape(n, n, num_heads).permute(2, 0, 1)
+
+
+def static_gather(x: torch.Tensor, index: np.ndarray) -> torch.Tensor:
+    """x [..., R, C] and a constant integer index (any shape, M entries) into
+    R -> [..., M, C].  Its backward, a scatter-add over repeated indices, is
+    a gather over the fixed inverse map and a sum: deterministic on every
+    device (no atomics).  ``index`` should be a long-lived array (the cached
+    result of ``relative_position_index`` and the like): what is derived from
+    it is cached on its identity."""
+    return _StaticGather.apply(x, index)
+
+
+_const_cache = {}    # id(array) -> (array, {device: tensor})
+_inverse_cache = {}  # id(index) -> (index, rows, inverse)
+
+
+def on_device(array: np.ndarray, device) -> torch.Tensor:
+    """A constant numpy array as a contiguous tensor on ``device`` (integers
+    as int64, floats as float32), copied there once per array object: a copy
+    from host memory on every call would stall the CUDA stream."""
+    entry = _const_cache.get(id(array))
+    if entry is None or entry[0] is not array:
+        if len(_const_cache) >= 512:  # callers that pass fresh arrays every time
+            _const_cache.clear()
+        entry = _const_cache[id(array)] = (array, {})
+    tensor = entry[1].get(device)
+    if tensor is None:
+        dtype = torch.long if array.dtype.kind in "iu" else torch.float32
+        tensor = torch.as_tensor(np.ascontiguousarray(array), dtype=dtype, device=device)
+        entry[1][device] = tensor
+    return tensor
+
+
+def _inverse_index(index: np.ndarray, rows: int) -> np.ndarray:
+    """[rows, max count] int64: for each of the ``rows`` sources, the flat
+    positions of ``index`` that read it, padded with ``index.size`` (one past
+    the end)."""
+    entry = _inverse_cache.get(id(index))
+    if entry is None or entry[0] is not index or entry[1] != rows:
+        if len(_inverse_cache) >= 512:
+            _inverse_cache.clear()
+        flat = index.reshape(-1)
+        counts = np.bincount(flat, minlength=rows)
+        inv = np.full((rows, max(int(counts.max()), 1)), flat.size, np.int64)
+        order = np.argsort(flat, kind="stable")
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        for t in range(rows):
+            inv[t, : counts[t]] = order[starts[t] : starts[t] + counts[t]]
+        entry = _inverse_cache[id(index)] = (index, rows, inv)
+    return entry[2]
+
+
+class _StaticGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, index):
+        ctx.index = index
+        ctx.rows = x.shape[-2]
+        return x.index_select(-2, on_device(index, x.device).reshape(-1))
+
+    @staticmethod
+    def backward(ctx, g):
+        inv = on_device(_inverse_index(ctx.index, ctx.rows), g.device)
+        padded = torch.cat([g, g.new_zeros(*g.shape[:-2], 1, g.shape[-1])], dim=-2)
+        readers = padded.index_select(-2, inv.reshape(-1))
+        # [..., rows, max count, C] summed over the readers of each row
+        return readers.reshape(*g.shape[:-2], *inv.shape, g.shape[-1]).sum(-2), None
 
 
 def _l2_normalize(t: torch.Tensor) -> torch.Tensor:

@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 
+from tmar_torch.device import refuse_grad
 from tmar_torch.ops.attention import (
     LOGIT_SCALE_MAX,
     gather_rel_pos_bias,
@@ -65,7 +66,9 @@ def fused_ngram_context(
 ) -> torch.Tensor:
     """u [B, wh, ww, C] -> context [B, wh, ww, D].  Arguments as in
     ``ngram_context_math``.  A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernel (float32 or bfloat16) or raises."""
+    tensor launches the kernel (float32 or bfloat16) or raises.  The kernel is
+    forward-only: with autograd on and an argument that requires grad it
+    raises (the training form takes the composition path instead)."""
     if u.device.type == "cpu":
         return ngram_context_math(
             u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bmerge,
@@ -73,6 +76,7 @@ def fused_ngram_context(
         )
     if u.device.type != "cuda":
         raise ValueError(f"fused_ngram_context: unsupported device {u.device}")
+    refuse_grad("fused_ngram_context", (u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bmerge))
     operands, out, ints = _kernel_operands(
         u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bmerge, num_heads
     )
@@ -89,9 +93,8 @@ def _kernel_operands(u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bm
     D = wmerge.shape[1]
     if wh < 2 or ww < 2:
         raise NotImplementedError(
-            f"the n-gram context kernel needs a >= 2x2 window grid, got {wh}x{ww}; "
-            "smaller grids need the block-diagonal attention kernel "
-            "(ROADMAP queue 2, pallas_attention._attn_kernel)"
+            f"the n-gram context kernel needs a >= 2x2 window grid, got {wh}x{ww}: "
+            "the sequence-reflect padding has nothing to reflect on a smaller one"
         )
     if (C, D) != (32, 64) or A % num_heads or (num_heads, A // num_heads) not in KERNEL_HEADS:
         raise NotImplementedError(
@@ -130,12 +133,8 @@ _ARGTYPES = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 def _launch(operands, out, ints):
     from tmar_torch import kernels
 
-    fn = kernels.entry("ngram_context", _ARGTYPES)
-    dev = out.device
-    with torch.cuda.device(dev):
-        err = fn(
-            *[t.data_ptr() for t in operands], out.data_ptr(), *ints,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    kernels.check("ngram_context", err)
+    kernels.launch(
+        "ngram_context", _ARGTYPES, out.device,
+        *[t.data_ptr() for t in operands], out.data_ptr(), *ints,
+    )
     fused_ngram_context.launches += 1

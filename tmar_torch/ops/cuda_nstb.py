@@ -24,6 +24,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from tmar_torch.device import refuse_grad
 from tmar_torch.ops.attention import (
     LOGIT_SCALE_MAX,
     gather_rel_pos_bias,
@@ -151,7 +152,9 @@ def fused_nstb_map(
     [D, H], b1), ffn2 = (w2 [H, D], b2) in the [in, out] layout; ln1/ln2 =
     (gain, bias); table [(2ws-1)², nh] is the relative-position bias table.
     Returns the block output [B, ph, pw, D] in ROLLED space.  A CPU tensor
-    runs the plain version; a CUDA tensor launches the kernel or raises."""
+    runs the plain version; a CUDA tensor launches the kernel or raises.  The
+    kernel is forward-only: with autograd on and an argument that requires
+    grad it raises (train in the block's training form instead)."""
     if xmap.device.type == "cpu":
         return nstb_map_math(
             xmap, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
@@ -160,6 +163,10 @@ def fused_nstb_map(
         )
     if xmap.device.type != "cuda":
         raise ValueError(f"fused_nstb_map: unsupported device {xmap.device}")
+    refuse_grad(
+        "fused_nstb_map",
+        (xmap, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj, *ln1, *ffn1, *ffn2, *ln2),
+    )
     operands, out, ints = _kernel_operands(
         xmap, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
         ln1, ffn1, ffn2, ln2, num_heads, window_size, shift,
@@ -230,12 +237,8 @@ _ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_float, ctype
 def _launch(operands, out, ints, eps):
     from tmar_torch import kernels
 
-    fn = kernels.entry("nstb_map", _ARGTYPES)
-    dev = out.device
-    with torch.cuda.device(dev):
-        err = fn(
-            *[t.data_ptr() for t in operands], out.data_ptr(), *ints,
-            float(eps), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    kernels.check("nstb_map", err)
+    kernels.launch(
+        "nstb_map", _ARGTYPES, out.device,
+        *[t.data_ptr() for t in operands], out.data_ptr(), *ints, float(eps),
+    )
     fused_nstb_map.launches += 1

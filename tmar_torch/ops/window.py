@@ -6,6 +6,7 @@ counterpart of ``tmar.ops.window``.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Tuple
 
 import numpy as np
@@ -56,8 +57,10 @@ def pad_to_multiple(x: torch.Tensor, multiple: int) -> Tuple[torch.Tensor, Tuple
     return F.pad(x, (0, 0, 0, pad_w, 0, pad_h)), (H, W)
 
 
+@lru_cache(maxsize=None)
 def shift_mask_components(window_size: int, shift: int) -> Tuple[np.ndarray, np.ndarray]:
-    """Decomposed SW-MSA mask (m_edge_row, m_edge_col), each [N, N] float32.
+    """Decomposed SW-MSA mask (m_edge_row, m_edge_col), each [N, N] float32
+    (cached per geometry: treat the arrays as read-only).
 
     Window (r, c) of a (wh, ww) grid gets [r == wh-1]·m_row + [c == ww-1]·m_col:
     -100 where two tokens lie in different row (column) bands, so -200 where
