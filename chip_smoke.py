@@ -20,23 +20,37 @@ Phases, each of which fails the run if it fails:
 4. correctness: outputs finite and in [-1, 1]; a float32 run on the card
    against the port's CPU (plain) run at 1x128²; bfloat16 against float32 on
    the card at 8x512²; then the median request time at 8x512²;
-5. the training kernels (window attention and residual FFN, forward and
-   backward) against their plain versions' autograd on the card, forward and
-   every cotangent, at the shapes of the 8x128² train step (2048 windows of
-   64 tokens with 6 heads, with and without the shift mask; 512 with 4
-   heads; 2048 and 512 n-gram windows of 4 tokens; 131,072 FFN rows), at
-   float32 (TF32 off) and bfloat16, each backward run twice and compared bit
-   for bit; then each kernel's time beside its plain version's and its bound;
-6. the training path: the full-width NGswin in its training form and the
-   3-scale spectral-norm PatchGAN, from a seed, take 3 warm-up and 20 timed
-   GAN steps in bfloat16 on a fixed seeded 8x128² batch (the recipe without
-   the sinogram term, ``fused_pairs``, TTUR Adam, EMA), with the launch
-   counts reset just before and read just after; every metric finite at
-   every step and ``g_rec`` falling; steps/s, and one step's breakdown;
+5. the training kernels (window attention, residual FFN and the n-gram
+   context's backward) against their plain versions' autograd on the card,
+   forward and every cotangent, at the shapes of the 8x128² train step (2048
+   windows of 64 tokens with 6 heads, with and without the shift mask; 512
+   with 4 heads; 2048 and 512 n-gram windows of 4 tokens; 131,072 FFN rows;
+   n-gram grids 8x16x16 at 6 heads, 8x8x8 and 8x4x4 at 4, and also 8x64x64,
+   13x7 and 2x2), at float32 (TF32 off) and bfloat16, each backward run
+   twice and compared bit for bit; then each kernel's time beside its plain
+   version's and its bound;
+6. the composition training path: the full-width NGswin in its training
+   form with ``ngram_fused=False`` and the 3-scale spectral-norm PatchGAN,
+   from a seed, take 3 warm-up and 10 timed GAN steps in bfloat16 on a fixed
+   seeded 8x128² batch (the recipe without the sinogram term,
+   ``fused_pairs``, TTUR Adam, EMA), with the launch counts reset just
+   before and read just after; every metric finite at every step and
+   ``g_rec`` falling; steps/s, and one step's breakdown;
 7. training correctness: one float32 step at 1x128² on the card against the
    same step on the CPU (plain versions) from the same state, loss terms and
    the gradients of both networks; then the trained generator, loaded into
-   the inference form, serves one request.
+   the inference form, serves one request;
+8. the Radon projector at 8x128² and 180 angles: forward and adjoint on the
+   card against the port's CPU run, the adjoint identity, their times;
+9. the trainer: ``Trainer(load_config(train_syndeeplesion.yaml, synthetic
+   data, batch 8, EMA)).fit()`` takes two epochs of four ``full``-variant
+   steps at full width, validates once, writes checkpoints, and a fresh
+   trainer resumes to the same state bit for bit; then ``trainer.train_step``
+   takes 3 warm-up and 20 timed steps on one fixed batch on the card, with
+   the launch counts reset just before and read just after (20 launches per
+   step of each of the six training kernels: the n-gram context is one
+   forward and one backward kernel per block), and one step's breakdown;
+   then one float32 ``full`` step at 1x128² on the card against the CPU.
 
 It prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card, exits non-zero
@@ -408,7 +422,31 @@ def ffn_work(M, itemsize, backward):
     return M * 2 * 6 * D * H, M * 5 * D * itemsize + 2 * params
 
 
+def ngram_bwd_work(B, wh, ww, nh, itemsize):
+    """(FLOPs, bytes) the n-gram context's backward needs, recomputing from
+    u: per cell q/k/v again, per direction and head the 4x4 scores, the AV and
+    the mean token's projection again; then the cotangents of the merge and
+    the projection (two products each), of the AV and the scores (two each,
+    per direction) and of q/k/v (two).  u and g read once, du and the
+    parameter cotangents written once, the parameters read once."""
+    C, D = 32, 64
+    A = (C // nh) * nh
+    cells = B * wh * ww
+    forward = 2 * C * 3 * A + 2 * (2 * 16 * A + 2 * 16 * A + 2 * A * C)
+    backward = 2 * 2 * 2 * C * D + 2 * 2 * 2 * A * C + 2 * 4 * 2 * 16 * A + 2 * 2 * C * 3 * A
+    params = 4 * (C * 3 * A + 3 * A + A * C + C + 2 * C * D + D + nh + 9 * nh)
+    return cells * (forward + backward), cells * (2 * C + D) * itemsize + 2 * params
+
+
 ATTN_NAMES = ["out", "dx", "dwqkv", "dbqkv", "dlogit_scale", "dbias", "dwproj", "dbproj"]
+NGRAM_NAMES = ["out", "du", "dwqkv", "dbqkv", "dlogit_scale", "dtable", "dwproj", "dbproj",
+               "dwmerge", "dbmerge"]
+# (label, B, wh, ww, heads): the 8x128² step's three stages, the 8x512² serving
+# size's stage 1, an odd grid, and the smallest (both reflections hit 0 and 1)
+NGRAM_BWD_CASES = (
+    ("stage1", 8, 16, 16, 6), ("stage2", 8, 8, 8, 4), ("stage3", 8, 4, 4, 4),
+    ("512² stage1", 8, 64, 64, 6), ("odd", 3, 13, 7, 4), ("2x2", 2, 2, 2, 6),
+)
 FFN_NAMES = ["out", "dx", "dattn_out", "dg1", "db1", "dw1", "dbw1", "dw2", "dbw2", "dg2", "db2"]
 # (label, windows, N, D, heads, head_dim, window grid of the shift mask)
 ATTN_CASES = (
@@ -429,6 +467,8 @@ def check_train_kernels(dev, card):
 
     from tmar_torch.ops.attention import window_attention_math
     from tmar_torch.ops.cuda_attention import fused_window_attention
+    from tmar_torch.ops import cuda_ngram
+    from tmar_torch.ops.cuda_ngram import fused_ngram_context, ngram_context_math
     from tmar_torch.ops.cuda_ffn import fused_residual_ffn
     from tmar_torch.ops.ffn import ffn_math
     from tmar_torch.ops.window import shift_mask_components
@@ -585,6 +625,60 @@ def check_train_kernels(dev, card):
             "plain_ms_f32": times["float32"][0][2 + i],
             "shape": f"x [{FFN_ROWS}, 64] bf16",
         }
+
+    # ---- K7: the n-gram context's backward (K1 is its forward) --------------
+    def ngram_inputs(B, wh, ww, nh):
+        C, D = 32, 64
+        A = (C // nh) * nh
+        ls = torch.rand(nh, 1, 1, generator=gen, device=dev) * 1.8 + 0.5
+        return [randn(B, wh, ww, C)], [
+            randn(C, 3 * A, scale=0.2), randn(3 * A, scale=0.1), ls, randn(9, nh, scale=0.5),
+            randn(A, C, scale=0.2), randn(C, scale=0.1), randn(2 * C, D, scale=0.2),
+            randn(D, scale=0.1)], randn(B, wh, ww, D)
+
+    def ngram_fns(nh):
+        return (lambda *a: fused_ngram_context(*a, nh),
+                lambda *a: ngram_context_math(*a, num_heads=nh))
+
+    errs = {h: {"float32": 0.0, "bfloat16": 0.0} for h in ("fwd", "bwd")}
+    for label, B, wh, ww, nh in NGRAM_BWD_CASES:
+        acts, params, g = ngram_inputs(B, wh, ww, nh)
+        hold("ngram_context_bwd", f"{label} u=[{B}, {wh}, {ww}, 32] heads={nh}", NGRAM_NAMES, 1,
+             *ngram_fns(nh), acts, params, g, errs)
+    label, B, wh, ww, nh = NGRAM_BWD_CASES[0]
+    acts, params, g = ngram_inputs(B, wh, ww, nh)
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        t = time_pair(*ngram_fns(nh), acts, params, g, dtype)
+        # the launch alone, as K1 is timed: operands laid out once, then the
+        # C entry point (its two passes and two reduces) and its allocations
+        uu, gg = acts[0].to(dtype), g.to(dtype)
+        ops, _, ints = cuda_ngram._kernel_operands(uu, *params, nh)
+        launches_before = fused_ngram_context.backward_launches
+        k_ms = cuda_ms(lambda: cuda_ngram._launch_backward(ops[:-1], gg, ints))
+        fused_ngram_context.backward_launches = launches_before
+        flops, nbytes = ngram_bwd_work(B, wh, ww, nh, uu.element_size())
+        b_ms, b_by = bound_ms(flops, nbytes, dn)
+        times[dn] = (k_ms, t, b_ms, b_by)
+        print(f"[time] ngram_context_bwd {label} u=[{B}, {wh}, {ww}, 32] heads={nh} {dn}: kernel "
+              f"{k_ms:.4f} ms (launch alone; {t[1]:.4f} ms through the wrapper under autograd, with "
+              f"its logit-scale and table tails), plain {t[3]:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB); its forward through the wrapper: "
+              f"kernel {t[0]:.4f} ms, plain {t[2]:.4f} ms; library: none (no single PyTorch call "
+              f"computes it) on {card}")
+    k_ms, t, b_ms, b_by = times["bfloat16"]
+    records["ngram_context_bwd"] = {
+        "name": "ngram_context_bwd", "route": "cuda",
+        "source": "tmar_torch/csrc/ngram_context_bwd.cu",
+        "replaces": "tmar/ops/pallas_ngram.py:520",
+        "max_abs_err": errs["bwd"]["float32"], "max_abs_err_bf16": errs["bwd"]["bfloat16"],
+        "ms": k_ms, "plain_ms": t[3], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ms_f32": times["float32"][0], "plain_ms_f32": times["float32"][1][3],
+        "ms_through_autograd": t[1], "forward_ms_through_wrapper": t[0],
+        "forward_plain_ms": t[2],
+        "shape": f"u [{B}, {wh}, {ww}, 32] bf16, {nh} heads",
+    }
     if failures:
         raise SystemExit(f"training kernel checks failed: {failures}")
     return records
@@ -599,12 +693,14 @@ def _train_counters():
         "residual_ffn_fwd": (cuda_ffn.fused_residual_ffn, "launches"),
         "residual_ffn_bwd": (cuda_ffn.fused_residual_ffn, "backward_launches"),
         "ngram_context": (cuda_ngram.fused_ngram_context, "launches"),
+        "ngram_context_bwd": (cuda_ngram.fused_ngram_context, "backward_launches"),
         "nstb_map": (cuda_nstb.fused_nstb_map, "launches"),
     }
 
 
 def _gan(dtype, device, seed, batch_size):
-    """Full-width generator (training form) and discriminator from a seed,
+    """Full-width generator (training form, n-gram context on its
+    composition path) and discriminator from a seed,
     their optimizers, state and step, and a fixed seeded batch (input uniform
     in [-1, 1], so the metal mask at 0.6 is non-empty)."""
     import torch
@@ -612,7 +708,7 @@ def _gan(dtype, device, seed, batch_size):
     from tmar_torch import (LossWeights, MultiScaleDiscriminator, NGswin, create_train_state,
                             make_train_step)
 
-    gen = NGswin(dtype=dtype, attn_backward="pallas", device=device)
+    gen = NGswin(dtype=dtype, attn_backward="pallas", ngram_fused=False, device=device)
     disc = MultiScaleDiscriminator(dtype=dtype, device=device)
     g_opt = torch.optim.Adam(gen.parameters(), 1e-4, betas=(0.5, 0.999), eps=1e-8)
     d_opt = torch.optim.Adam(disc.parameters(), 2e-4, betas=(0.5, 0.999), eps=1e-8)
@@ -654,7 +750,7 @@ def train(card):
     check(n_g == 990_811, "generator has the full-width 990,811 parameters")
 
     counters = _train_counters()
-    warmup, timed = 3, 20
+    warmup, timed = 3, 10
     for f, attr in counters.values():
         setattr(f, attr, 0)
     history, times = [], []
@@ -681,9 +777,9 @@ def train(card):
     per_step = {k: v / steps for k, v in launches.items()}
     print("[train] launches per step: " + ", ".join(f"{k} {v:g}" for k, v in per_step.items())
           + f" (totals over {steps} steps: {launches})")
-    check([per_step[k] for k in counters] == [60, 60, 20, 20, 0, 0],
+    check([per_step[k] for k in counters] == [60, 60, 20, 20, 0, 0, 0],
           "60 attention and 20 FFN launches, forward and backward, per step; none of the "
-          "forward-only kernels")
+          "n-gram context's or the whole-block kernel")
     check(state.step == steps, "the state counts its steps")
     med = statistics.median(times[warmup:])
     print(f"[time] train step {TRAIN_BATCH}x{TRAIN_PATCH}² bf16 (A1_no_physics recipe, composition "
@@ -696,6 +792,37 @@ def train(card):
     if failures:
         raise SystemExit(f"training checks failed: {failures}")
     return launches, state.generator
+
+
+def compare_step(cpu_state, gpu_state, cpu_m, gpu_m, label, check):
+    """One train step on the card against the same step on the CPU: the loss
+    terms and the gradients the step left in both networks."""
+    worst = 0.0
+    for k in cpu_m:
+        a, b = float(gpu_m[k]), float(cpu_m[k])
+        worst = max(worst, abs(a - b) / max(1.0, abs(b)))
+    check(set(cpu_m) == set(gpu_m), f"{label}: the same loss terms on both sides")
+    print(f"[check] {label} at 1x{TRAIN_PATCH}², card vs CPU plain, {len(cpu_m)} loss terms "
+          f"({' '.join(sorted(cpu_m))}): worst |diff| / max(1, |ref|) {worst:.3e} tol 1e-4")
+    check(worst <= 1e-4, f"{label} loss terms, card vs CPU plain")
+    for name, a_net, b_net in (("generator", gpu_state.generator, cpu_state.generator),
+                               ("discriminator", gpu_state.discriminator, cpu_state.discriminator)):
+        worst, where, n = 0.0, "", 0
+        b_grads = dict(b_net.named_parameters())
+        # a tensor's scale is its own largest gradient, but not less than
+        # 1e-3 of the network's: a gradient that is zero in exact arithmetic
+        # (the hinge loss's in a logit bias) is rounding noise on both sides
+        floor = 1e-3 * max(float(p.grad.abs().max()) for p in b_grads.values())
+        for k, p in a_net.named_parameters():
+            ref = b_grads[k].grad
+            rel = float((p.grad.cpu() - ref).abs().max()) / max(float(ref.abs().max()), floor)
+            n += 1
+            if rel > worst:
+                worst, where = rel, k
+        print(f"[check] {label} gradients of the {name}, card vs CPU plain, {n} tensors: worst "
+              f"max|diff| / max(max|ref|, 1e-3 of the network's) {worst:.3e} at {where} "
+              f"tol {STEP_TOL:g}")
+        check(worst <= STEP_TOL, f"{label} gradients of the {name}, card vs CPU plain")
 
 
 def train_correctness(trained, card):
@@ -719,31 +846,7 @@ def train_correctness(trained, card):
     gpu_state.g_ema = {k: v.detach().clone() for k, v in gpu_state.generator.named_parameters()}
     _, cpu_m = cpu_step(cpu_state, batch)
     _, gpu_m = gpu_step(gpu_state, batch)
-    worst = 0.0
-    for k in cpu_m:
-        a, b = float(gpu_m[k]), float(cpu_m[k])
-        worst = max(worst, abs(a - b) / max(1.0, abs(b)))
-    print(f"[check] f32 step at 1x{TRAIN_PATCH}², card vs CPU plain, {len(cpu_m)} loss terms: worst "
-          f"|diff| / max(1, |ref|) {worst:.3e} tol 1e-4")
-    check(worst <= 1e-4, "f32 step loss terms, card vs CPU plain")
-    for name, a_net, b_net in (("generator", gpu_state.generator, cpu_state.generator),
-                               ("discriminator", gpu_state.discriminator, cpu_state.discriminator)):
-        worst, where, n = 0.0, "", 0
-        b_grads = dict(b_net.named_parameters())
-        # a tensor's scale is its own largest gradient, but not less than
-        # 1e-3 of the network's: a gradient that is zero in exact arithmetic
-        # (the hinge loss's in a logit bias) is rounding noise on both sides
-        floor = 1e-3 * max(float(p.grad.abs().max()) for p in b_grads.values())
-        for k, p in a_net.named_parameters():
-            ref = b_grads[k].grad
-            rel = float((p.grad.cpu() - ref).abs().max()) / max(float(ref.abs().max()), floor)
-            n += 1
-            if rel > worst:
-                worst, where = rel, k
-        print(f"[check] f32 step gradients of the {name}, card vs CPU plain, {n} tensors: worst "
-              f"max|diff| / max(max|ref|, 1e-3 of the network's) {worst:.3e} at {where} "
-              f"tol {STEP_TOL:g}")
-        check(worst <= STEP_TOL, f"f32 step gradients of the {name}, card vs CPU plain")
+    compare_step(cpu_state, gpu_state, cpu_m, gpu_m, "f32 step", check)
     del cpu_state, gpu_state
     torch.cuda.empty_cache()
 
@@ -761,6 +864,204 @@ def train_correctness(trained, card):
     check(d <= 0.1, "inference and training forms agree on the trained weights")
     if failures:
         raise SystemExit(f"training correctness checks failed: {failures}")
+
+
+def check_radon(card):
+    """Phase 8: the Radon projector on the card against the port's CPU run."""
+    import torch
+
+    from tmar_torch.ops.radon import Radon
+
+    failures = []
+
+    def check(cond, what):
+        print(f"[check] {what}: {'ok' if cond else 'FAIL'}")
+        if not cond:
+            failures.append(what)
+
+    angles = np.linspace(0, np.pi, 180, endpoint=False)
+    rng = np.random.default_rng(4)
+    img = rng.uniform(-1, 1, (TRAIN_BATCH, TRAIN_PATCH, TRAIN_PATCH)).astype(np.float32)
+    sino = rng.standard_normal((TRAIN_BATCH, 180, TRAIN_PATCH)).astype(np.float32)
+    on_card, on_cpu = Radon(TRAIN_PATCH, angles), Radon(TRAIN_PATCH, angles, device="cpu")
+    x, y = torch.from_numpy(img).cuda(), torch.from_numpy(sino).cuda()
+    px, aty = on_card.forward(x), on_card.backward(y)
+    px_ref, aty_ref = on_cpu.forward(torch.from_numpy(img)), on_cpu.backward(torch.from_numpy(sino))
+    torch.cuda.synchronize()
+    for name, got, ref in (("forward", px, px_ref), ("adjoint", aty, aty_ref)):
+        err, scale = float((got.cpu() - ref).abs().max()), float(ref.abs().max())
+        print(f"[radon] {name} {list(got.shape)} f32, card vs CPU: max_abs_err {err:.3e} on values "
+              f"up to {scale:.1f} (tol 1e-4 x that)")
+        check(err <= 1e-4 * scale and bool(torch.isfinite(got).all()), f"radon {name}, card vs CPU")
+    lhs = float((px.double() * y.double()).sum())
+    rhs = float((x.double() * aty.double()).sum())
+    print(f"[radon] adjoint identity <P x, y> = {lhs:.6e}, <x, P^T y> = {rhs:.6e}, relative "
+          f"difference {abs(lhs - rhs) / abs(lhs):.3e} (tol 1e-4)")
+    check(abs(lhs - rhs) <= 1e-4 * abs(lhs), "radon adjoint identity on the card")
+    xg = x.clone().requires_grad_()
+    (gx,) = torch.autograd.grad((on_card.forward(xg) * y).sum(), xg)
+    check(torch.equal(gx, aty), "the gradient of <P x, y> is the adjoint, bit for bit")
+    f_ms = cuda_ms(lambda: on_card.forward(x), iters=10)
+    a_ms = cuda_ms(lambda: on_card.backward(y), iters=10)
+    x16 = torch.cat([x, x])
+    f16_ms = cuda_ms(lambda: on_card.forward(x16), iters=10)
+    print(f"[time] radon {TRAIN_BATCH}x{TRAIN_PATCH}² x 180 angles f32 (TF32 off): forward {f_ms:.3f} ms, "
+          f"adjoint {a_ms:.3f} ms; forward at batch 16 (the constant half of the physics term) "
+          f"{f16_ms:.3f} ms on {card}")
+    if failures:
+        raise SystemExit(f"radon checks failed: {failures}")
+
+
+def _trainer_config(run_dir, **overrides):
+    """The promoted recipe on synthetic data at full width."""
+    from tmar_torch.train import config_path, load_config, resolve_variant
+
+    base = {
+        "data.dataset": "synthetic", "data.batch_size": TRAIN_BATCH, "data.num_workers": 2,
+        "data.samples_per_epoch": 4 * TRAIN_BATCH, "optim.ema_decay": 0.999,
+        "run_dir": run_dir, "run_name": "smoke", "num_epochs": 2, "val_every_n_epochs": 2,
+        "log_every": 2,
+    }
+    base.update(overrides)
+    cfg = load_config(config_path("train_syndeeplesion.yaml"), base)
+    return resolve_variant(cfg, cfg.variant)
+
+
+def _synthetic_batch(batch_size, device):
+    import torch
+
+    from tmar_torch.data import SyntheticMARDataset
+
+    ds = SyntheticMARDataset(size=TRAIN_PATCH, length=batch_size, base_seed=7)
+    samples = [ds[i] for i in range(batch_size)]
+    return {k: torch.from_numpy(np.stack([s[k] for s in samples])[..., None]).to(device)
+            for k in ("ct", "gt")}
+
+
+def train_full(card):
+    """Phase 9: the trainer takes ``full``-variant steps at full width.
+    Returns the launch counts of the timed run."""
+    import tempfile
+
+    import torch
+
+    from tmar_torch.train import Trainer
+    from tmar_torch.train.trainer import build_val_dataset
+
+    failures = []
+
+    def check(cond, what):
+        print(f"[check] {what}: {'ok' if cond else 'FAIL'}")
+        if not cond:
+            failures.append(what)
+
+    with tempfile.TemporaryDirectory(prefix="tmar_smoke_") as tmp:
+        cfg = _trainer_config(tmp)
+        check(cfg.variant == "full" and cfg.radon.enabled and cfg.loss.phys == 0.02
+              and cfg.model.attn_backward == "pallas" and cfg.disc.fused_pairs
+              and (cfg.model.embed_dim, tuple(cfg.model.depths), tuple(cfg.model.num_heads),
+                   cfg.model.dec_depths) == (64, (6, 4, 4), (6, 4, 4), 6),
+              "the promoted recipe: full variant, 180-angle sinogram term, full width")
+        val_ds = build_val_dataset(cfg)
+        val_ds.length = TRAIN_BATCH
+        trainer = Trainer(cfg, val_dataset=val_ds)
+        check(next(trainer.generator.parameters()).device.type == "cuda"
+              and trainer.projector is not None and trainer.projector.num_angles == 180,
+              "Trainer(cfg) is on the card and holds the 180-angle projector")
+        t0 = time.perf_counter()
+        trainer.fit(progress=False)
+        wall = time.perf_counter() - t0
+        steps = trainer.state.step
+        print(f"[trainer] fit: 2 epochs x 4 steps of {TRAIN_BATCH}x{TRAIN_PATCH}² bf16 on the synthetic "
+              f"dataset (2 loader threads), one validation of {TRAIN_BATCH} slices, 2 checkpoints, in "
+              f"{wall:.1f} s; steps/s by epoch "
+              + ", ".join(f"{h['steps_per_s']:.2f}" for h in trainer.val_history))
+        for h in trainer.history:
+            print("[trainer] step {step}: ".format(**h) + " ".join(
+                f"{k} {v:.5f}" for k, v in h.items() if k not in ("step", "epoch", "iter")))
+        want = {"loss_d", "loss_g", "g_adv", "g_fm", "g_rec", "g_edge", "g_phys", "g_metal"}
+        check(steps == 8, "the state counts 8 steps")
+        check(all(want <= set(h) for h in trainer.history), "every metric is logged, g_phys included")
+        check(all(np.isfinite(v) for h in trainer.history + trainer.val_history for v in h.values()),
+              "every logged metric and every validation metric is finite")
+        check(all(h["g_phys"] > 0 for h in trainer.history), "g_phys is positive on synthetic slices")
+        last = trainer.val_history[-1]
+        print(f"[trainer] validation with the EMA weights: psnr {last['val_psnr']:.3f} dB, ssim "
+              f"{last['val_ssim']:.4f}, best_psnr {trainer.best_psnr:.3f}")
+        check(np.isfinite(trainer.best_psnr), "validation set best_psnr")
+        ckpts = sorted(os.listdir(os.path.join(trainer.run_dir, "checkpoints")))
+        check(ckpts == ["best", "step_0000000004", "step_0000000008"], f"checkpoints written: {ckpts}")
+        for sub in ("logs/training_history.csv", "logs/validation_history.csv", "logs/summary.json",
+                    "config.json", "tb"):
+            check(os.path.exists(os.path.join(trainer.run_dir, sub)), f"run dir has {sub}")
+
+        fresh = Trainer(cfg)
+        check(fresh.resume() and fresh.state.step == 8 and fresh.start_epoch == 2
+              and fresh.best_psnr == trainer.best_psnr, "a fresh trainer resumes the latest checkpoint")
+        same = all(torch.equal(a, b) for a, b in zip(
+            list(trainer.generator.state_dict().values()) + list(trainer.discriminator.state_dict().values())
+            + list(trainer.state.g_ema.values()),
+            list(fresh.generator.state_dict().values()) + list(fresh.discriminator.state_dict().values())
+            + list(fresh.state.g_ema.values())))
+        moments = all(
+            torch.equal(trainer.g_opt.state[p][k], fresh.g_opt.state[q][k])
+            for p, q in zip(trainer.generator.parameters(), fresh.generator.parameters())
+            for k in ("exp_avg", "exp_avg_sq", "step"))
+        check(same, "resumed parameters, buffers and EMA are bit-identical")
+        check(moments, "resumed Adam moments and step counts are bit-identical")
+        del fresh
+        torch.cuda.empty_cache()
+
+        # the step alone, on one fixed batch already on the card
+        batch = _synthetic_batch(TRAIN_BATCH, "cuda")
+        counters = _train_counters()
+        warmup, timed = 3, 20
+        for f, attr in counters.values():
+            setattr(f, attr, 0)
+        history, times = [], []
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(warmup + timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.state, metrics = trainer.train_step(trainer.state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            history.append({k: float(v) for k, v in metrics.items()})
+        launches = {name: getattr(f, attr) for name, (f, attr) in counters.items()}
+        n = warmup + timed
+        per_step = {k: v / n for k, v in launches.items()}
+        print("[train full] launches per step: " + ", ".join(f"{k} {v:g}" for k, v in per_step.items())
+              + f" (totals over {n} steps: {launches})")
+        check([per_step[k] for k in counters] == [20, 20, 20, 20, 20, 20, 0],
+              "per full step 20 launches each of K3, K4, K5, K6, K1 and K7 (none at N = 4: the "
+              "attention kernels run once per block), none of the whole-block kernel")
+        check(all(np.isfinite(v) for h in history for v in h.values()) and all(want <= set(h) for h in history),
+              f"every metric finite at each of the {n} steps, g_phys included")
+        check(history[-1]["g_rec"] < history[0]["g_rec"],
+              f"g_rec falls on the fixed batch: {history[0]['g_rec']:.5f} -> {history[-1]['g_rec']:.5f}")
+        print(f"[train full] g_phys by step: " + " ".join(f"{h['g_phys']:.4f}" for h in history))
+        med = statistics.median(times[warmup:])
+        print(f"[time] train step (full) {TRAIN_BATCH}x{TRAIN_PATCH}² bf16 (full variant: 180-angle "
+              f"sinogram term, n-gram context as one forward and one backward kernel, batch on the "
+              f"card): median {med * 1e3:.2f} ms of {timed} steps (min {min(times[warmup:]) * 1e3:.2f}, "
+              f"max {max(times[warmup:]) * 1e3:.2f}), {1 / med:.3f} steps/s, {TRAIN_BATCH / med:.1f} "
+              f"patches/s on {card}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        profile_request(lambda: trainer.train_step(trainer.state, batch), card,
+                        label=f"train step (full) {TRAIN_BATCH}x{TRAIN_PATCH}² bf16")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # one float32 full step on the card against the same step on the CPU
+        cfg32 = _trainer_config(tmp, **{"bf16": False, "data.batch_size": 1, "run_name": "f32"})
+        on_cpu, on_card = Trainer(cfg32, device="cpu"), Trainer(cfg32)
+        batch = _synthetic_batch(1, "cpu")
+        _, cpu_m = on_cpu.train_step(on_cpu.state, batch)
+        _, gpu_m = on_card.train_step(on_card.state, batch)
+        compare_step(on_cpu.state, on_card.state, cpu_m, gpu_m, "f32 full step", check)
+        check("g_phys" in gpu_m and float(gpu_m["g_phys"]) > 0, "the f32 full step has a sinogram term")
+    if failures:
+        raise SystemExit(f"full training checks failed: {failures}")
+    return launches
 
 
 def main() -> int:
@@ -810,8 +1111,16 @@ def main() -> int:
     train_launches, trained = train(card)
     launches.update({k: v for k, v in train_launches.items() if k not in launches})
     train_correctness(trained, card)
+    del trained
+    torch.cuda.empty_cache()
+    check_radon(card)
+    full_launches = train_full(card)
+    launches.update({k: v for k, v in full_launches.items() if k not in launches or not launches[k]})
     for name, rec in records.items():
+        # launches: the count of the first path above that ran the kernel
+        # (serving, composition training, the trainer's full step)
         rec["launches"] = launches[name]
+        rec["launches_full_step_path"] = full_launches.get(name, 0)
         rec["card"] = card
     print(json.dumps({"kernels": list(records.values())}))
     print(f"{card}")

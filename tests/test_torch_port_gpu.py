@@ -10,8 +10,8 @@ only in summation order and libm rounding, so max |err| <= 1e-4·max(1, max|ref|
 At bfloat16 the kernel computes in float32 and rounds once on output, so it
 is held against the plain version run in float32 on the same bf16-rounded
 inputs and weights: max |err| <= 2^-7·max|ref| (twice the bf16 half-ulp).
-The training kernels (window attention and residual FFN, forward and
-backward) keep their parameters and parameter cotangents in float32 at
+The training kernels (window attention, residual FFN and n-gram context,
+forward and backward) keep their parameters and parameter cotangents in float32 at
 either activation dtype, so those cotangents are held to the float32
 tolerance in both cases.
 """
@@ -139,6 +139,84 @@ def test_nstb_map_kernel_finite_at_saturated_logit_scale(cuda):
                                   window_size=8, shift=4)
     assert torch.isfinite(got).all()
     assert float((got - ref).abs().max()) <= _tol(ref, torch.float32)
+
+
+NGRAM_NAMES = ["out", "du", "dwqkv", "dbqkv", "dlogit_scale", "dtable", "dwproj", "dbproj",
+               "dwmerge", "dbmerge"]
+
+
+def _ngram_kernel_and_plain(u, g, params, nh):
+    """(forward and cotangents through the kernels, twice; the plain version's)."""
+    f = cuda_ngram.fused_ngram_context
+    present = [p for p in params if p is not None]
+
+    def run():
+        leaves = [u.clone().requires_grad_()] + [
+            None if p is None else p.clone().requires_grad_() for p in params]
+        out = f(*leaves, nh)
+        grads = iter(torch.autograd.grad(out, [t for t in leaves if t is not None], g))
+        return [out.detach()] + [None if t is None else next(grads) for t in leaves]
+
+    got, again = run(), run()
+    ref = [cuda_ngram.ngram_context_math(u.float(), *params, num_heads=nh)] + list(
+        cuda_ngram.ngram_context_backward_math(u.float(), g.float(), *params, num_heads=nh))
+    assert len(present) + 2 == sum(t is not None for t in got)
+    return got, again, ref
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,B,wh,ww", [
+    (6, 8, 16, 16), (4, 8, 8, 8), (4, 8, 4, 4),   # the 8x128² train step's grids
+    (6, 1, 13, 7), (4, 2, 5, 37),                 # odd grids, a ragged tile
+    (6, 2, 2, 2), (4, 1, 2, 2),                   # both reflections hit index 0 and 1
+    (6, 1, 2, 19), (4, 1, 18, 2),
+])
+def test_ngram_context_backward_kernel_matches_plain(cuda, dtype, nh, B, wh, ww):
+    rng = np.random.default_rng(8)
+    u, params = ngram_inputs(rng, nh, B, wh, ww)
+    g = _t(rng, B, wh, ww, 64).to(cuda, dtype)
+    u = u.to(cuda, dtype)
+    params = [p.to(cuda) for p in params]
+    f = cuda_ngram.fused_ngram_context
+    before = (f.launches, f.backward_launches)
+    got, again, ref = _ngram_kernel_and_plain(u, g, params, nh)
+    torch.cuda.synchronize()
+    assert (f.launches, f.backward_launches) == (before[0] + 2, before[1] + 2)
+    assert got[1].dtype == dtype and got[2].dtype == torch.float32
+    _hold(NGRAM_NAMES, 1, got, ref, dtype)
+    for name, a, b in zip(NGRAM_NAMES, got, again):
+        assert torch.equal(a, b), f"{name} differs between two runs"
+
+
+def test_ngram_context_backward_kernel_without_biases_and_saturated_scale(cuda):
+    """Absent bqkv / bproj get no cotangent; a logit scale above ln 100 gets a
+    zero one."""
+    rng = np.random.default_rng(9)
+    u, params = ngram_inputs(rng, 4, 2, 6, 5)
+    params[1] = params[5] = None
+    params[2] = torch.tensor([10.0, 1.0, 10.0, 2.0]).reshape(4, 1, 1)
+    g = _t(rng, 2, 6, 5, 64).to(cuda)
+    params = [None if p is None else p.to(cuda) for p in params]
+    got, _, ref = _ngram_kernel_and_plain(u.to(cuda), g, params, 4)
+    assert got[3] is None and got[7] is None and ref[3] is None and ref[7] is None
+    assert got[4].flatten()[0] == 0 and got[4].flatten()[2] == 0 and got[4].flatten()[1] != 0
+    keep = [i for i, t in enumerate(got) if t is not None]
+    _hold([NGRAM_NAMES[i] for i in keep], 1, [got[i] for i in keep], [ref[i] for i in keep],
+          torch.float32)
+
+
+def test_ngram_context_backward_kernel_zero_head_is_nan_as_autograd(cuda):
+    """A position whose q and k are zero (u = 0 without a qkv bias): the norm
+    backward is 0 / 0 in the kernel as in autograd through the plain version."""
+    rng = np.random.default_rng(10)
+    u, params = ngram_inputs(rng, 6, 1, 4, 4)
+    params[1] = None
+    u[0, 1, 2] = 0.0
+    g = _t(rng, 1, 4, 4, 64).to(cuda)
+    params = [None if p is None else p.to(cuda) for p in params]
+    got, _, ref = _ngram_kernel_and_plain(u.to(cuda), g, params, 6)
+    assert torch.isfinite(got[0]).all()
+    assert torch.equal(torch.isnan(got[1]), torch.isnan(ref[1])) and torch.isnan(got[1]).any()
 
 
 def test_ngram_kernel_rejects_grid_below_2x2(cuda):

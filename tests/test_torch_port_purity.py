@@ -1,12 +1,14 @@
 """The port stands alone and stays off the CPU unless asked: tmar_torch
 imports no JAX, flax or tmar module; its entry points default to CUDA and
 raise without a card; CPU tensors take the plain versions and launch nothing;
-the forward-only kernels refuse to run where autograd would record them."""
+the forward-only kernel refuses to run where autograd would record it."""
 
 import ast
+import fnmatch
 import pathlib
 import subprocess
 import sys
+import tomllib
 
 import numpy as np
 import pytest
@@ -41,6 +43,38 @@ def test_import_loads_no_jax_or_tmar():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          timeout=120, cwd=str(PKG.parent))
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+# the modules of the trainer slice: each is among those the two tests around
+# this list import and scan
+TRAINER_SLICE = (
+    "ops/radon.py", "train/schedules.py", "train/config.py", "train/variants.py",
+    "train/trainer.py", "checkpoint/io.py", "data/transforms.py", "data/synthetic.py",
+    "data/loader.py", "eval/metrics.py", "utils/tfevents.py",
+)
+
+
+def test_trainer_slice_modules_are_in_the_package_and_scanned():
+    scanned = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
+    assert set(TRAINER_SLICE) <= scanned
+    for sub in ("data", "utils", "train", "checkpoint", "eval", "ops"):
+        assert (PKG / sub / "__init__.py").is_file(), sub
+
+
+def test_package_data_patterns_cover_every_kernel_source_header_and_config():
+    """An installed tmar_torch must hold what ``kernels.build`` compiles and
+    hashes and what ``config_path`` finds."""
+    with open(PKG.parent / "pyproject.toml", "rb") as f:
+        patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"]["tmar_torch"]
+    needed = [f"csrc/{k}.cu" for k in kernels.KERNELS] + [f"csrc/{h}" for h in kernels.HEADERS]
+    needed += [p.relative_to(PKG).as_posix() for p in (PKG / "configs").glob("*.yaml")]
+    assert len(needed) == len(kernels.KERNELS) + len(kernels.HEADERS) + 3
+    for rel in needed:
+        assert (PKG / rel).is_file(), rel
+        assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), f"{rel} matches none of {patterns}"
+    # and nothing under csrc/ is left out of the build's view
+    on_disk = {p.name for p in (PKG / "csrc").iterdir()}
+    assert on_disk == {f"{k}.cu" for k in kernels.KERNELS} | set(kernels.HEADERS)
 
 
 def test_sources_import_no_jax_or_tmar():
@@ -88,7 +122,8 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_cpu_training_form_takes_plain_versions_and_launches_nothing(monkeypatch):
-    wrappers = (cuda_attention.fused_window_attention, cuda_ffn.fused_residual_ffn)
+    wrappers = (cuda_attention.fused_window_attention, cuda_ffn.fused_residual_ffn,
+                cuda_ngram.fused_ngram_context)
     for f in wrappers:
         monkeypatch.setattr(f, "launches", 0)
         monkeypatch.setattr(f, "backward_launches", 0)
@@ -118,17 +153,25 @@ class _CudaStandIn:
 
 
 @pytest.mark.parametrize("call", [
-    lambda t: cuda_ngram.fused_ngram_context(t, *([None] * 8), 6),
     lambda t: cuda_nstb.fused_nstb_map(t, None, *([None] * 6), *([(None, None)] * 4), 6, 8),
-], ids=["fused_ngram_context", "fused_nstb_map"])
+], ids=["fused_nstb_map"])
 def test_forward_only_kernels_refuse_a_graphless_result_under_grad(call):
     """On a CUDA tensor with autograd on and an argument that requires grad,
-    the forward-only wrappers raise and name the training form; with
-    autograd off they go on (here: to a stand-in's missing shape)."""
+    the forward-only wrapper raises and names the training form; with
+    autograd off it goes on (here: to a stand-in's missing shape)."""
     with torch.enable_grad(), pytest.raises(RuntimeError, match="training form"):
         call(_CudaStandIn())
     with torch.no_grad(), pytest.raises(AttributeError):
         call(_CudaStandIn())
+
+
+@pytest.mark.parametrize("grad", [True, False], ids=["grad", "no_grad"])
+def test_ngram_context_has_a_backward_and_refuses_nothing(grad):
+    """``fused_ngram_context`` has a backward kernel: on a CUDA tensor it
+    goes to its autograd function with autograd on or off (here: as far as a
+    stand-in that is no tensor lets it), and never to the plain version."""
+    with torch.set_grad_enabled(grad), pytest.raises((TypeError, AttributeError)):
+        cuda_ngram.fused_ngram_context(_CudaStandIn(), *([None] * 8), 6)
 
 
 def test_refuse_grad_looks_at_grad_mode_and_requires_grad():

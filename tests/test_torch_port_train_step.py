@@ -22,6 +22,17 @@ rtol 1e-4 + atol 1e-6, except that such a bias step of D shifts every logit
 by up to lr_D per scale and step: ``g_adv`` is held to 2 scales x 2 steps x
 lr_D = 8e-4, and the totals that hold 0.1·g_adv to 8e-5.  u, v: rtol 1e-4 +
 atol 1e-5.
+
+The ``full``-variant case at the end takes the same two steps with the
+sinogram term (a 12-angle Radon projector) and the n-gram context through
+``fused_ngram_context`` (``ngram_fused=True``), against the JAX step on its
+Pallas kernels in interpret mode with ``TMAR_NGRAM_FUSED=1`` (megakernel
+primal, fused backward kernel): a smaller generator (depths 2/1/1 + 2,
+window 4) and a 3-layer discriminator on 32² patches, so that JAX compiles
+in about a minute.  It holds the metrics, parameters, EMA and moments to the
+same tolerances, and also carries JAX's state after its first step across
+(parameters, power-iteration vectors, EMA, Adam moments and count through
+``adam_state_from_optax``) and holds the port's second step from there.
 """
 
 import jax
@@ -34,6 +45,8 @@ import torch
 from tmar.losses import LossWeights as JLossWeights
 from tmar.nn import MultiScaleDiscriminator as FlaxMSD
 from tmar.nn import NGswin as FlaxNGswin
+from tmar.ops import Radon as JRadon
+from tmar.train import GANTrainState as JGANTrainState
 from tmar.train import create_train_state as jcreate_train_state
 from tmar.train import make_train_step as jmake_train_step
 from tmar_torch import (
@@ -46,6 +59,8 @@ from tmar_torch import (
     make_eval_step,
     make_train_step,
 )
+from tmar_torch.checkpoint import adam_state_from_optax
+from tmar_torch.ops.radon import Radon
 from tmar_torch.train import GANTrainState
 
 TINY = dict(
@@ -236,3 +251,124 @@ def test_unfused_pairs_take_four_power_iterations_and_eval_step_runs():
     mse = float((fake - torch.from_numpy(_batch()["gt"])).square().mean())
     np.testing.assert_allclose(float(m["mse"]), mse, rtol=1e-5)
     assert float(m["psnr"]) > 0
+
+
+# ---- the full variant: sinogram term, n-gram context fused -------------------
+FULL_TINY = dict(TINY, depths=(2, 1, 1), window_size=4)
+FULL_WEIGHTS = dict(dilation_radius=2)  # phys stays at its 0.02
+FULL_DISC = dict(base_channels=16, num_scales=2, num_layers=3)
+ANGLES = np.linspace(0, np.pi, 12, endpoint=False)
+
+
+def _full_batch():
+    rng = np.random.default_rng(1)
+    ct = rng.uniform(-1, 0.5, (2, 32, 32, 1)).astype(np.float32)
+    ct[0, 8:11, 12:15] = 0.9  # small metal inserts: the sinogram mask leaves most rays in
+    ct[1, 20:22, 5:9] = 0.8
+    return {"ct": ct, "gt": rng.uniform(-1, 1, (2, 32, 32, 1)).astype(np.float32)}
+
+
+def _full_port_state(jstate):
+    """The port's networks, optimizers and state holding what ``jstate`` holds."""
+    gen = NGswin(**FULL_TINY, attn_backward="pallas", ngram_fused=True, device="cpu")
+    disc = MultiScaleDiscriminator(**FULL_DISC, device="cpu")
+    g_opt = torch.optim.Adam(gen.parameters(), G_LR, betas=(0.5, 0.999), eps=1e-8)
+    d_opt = torch.optim.Adam(disc.parameters(), D_LR, betas=(0.5, 0.999), eps=1e-8)
+    gen.load_state_dict(from_flax_params(_np(jstate.g_params)))
+    disc.load_state_dict(disc_from_flax(_np(jstate.d_params), _np(jstate.d_sn)))
+    count = int(jstate.g_opt[0].count)
+    if count:
+        adam_state_from_optax(g_opt, gen.named_parameters(), from_flax_params(_np(jstate.g_opt[0].mu)),
+                              from_flax_params(_np(jstate.g_opt[0].nu)), count)
+        adam_state_from_optax(d_opt, disc.named_parameters(), disc_from_flax(_np(jstate.d_opt[0].mu)),
+                              disc_from_flax(_np(jstate.d_opt[0].nu)), int(jstate.d_opt[0].count))
+    g_ema = from_flax_params(_np(jstate.g_ema))
+    state = GANTrainState(int(jstate.step), gen, g_opt, disc, d_opt, g_ema)
+    step = make_train_step(gen, disc, g_opt, d_opt, LossWeights(**FULL_WEIGHTS),
+                           projector=Radon(32, ANGLES, device="cpu"), fused_pairs=True,
+                           ema_decay=EMA, device="cpu")
+    return state, step
+
+
+@pytest.fixture(scope="module")
+def full_two_steps():
+    """JAX after each of two full steps; the port after two steps from the
+    same start; the port after one step from JAX's state after its first."""
+    mp = pytest.MonkeyPatch()
+    mp.setenv("TMAR_NGRAM_FUSED", "1")
+    try:
+        gen = FlaxNGswin(**FULL_TINY, use_pallas_attention=True, attn_backward="pallas")
+        disc = FlaxMSD(**FULL_DISC)
+        g_tx = optax.adam(G_LR, b1=0.5, b2=0.999)
+        d_tx = optax.adam(D_LR, b1=0.5, b2=0.999)
+        # the same parameter tree as the kernel path's, initialised under jit
+        g_vars = jax.jit(FlaxNGswin(**FULL_TINY).init)(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 1)))
+        d_vars = jax.jit(disc.init)(jax.random.PRNGKey(1), jnp.zeros((1, 32, 32, 2)))
+        jstate = JGANTrainState(
+            step=jnp.zeros((), jnp.int32), g_params=g_vars["params"],
+            g_opt=g_tx.init(g_vars["params"]), d_params=d_vars["params"], d_sn=d_vars["sn"],
+            d_opt=d_tx.init(d_vars["params"]),
+            g_ema=jax.tree_util.tree_map(jnp.array, g_vars["params"]),
+        )
+        jstep = jmake_train_step(gen, disc, g_tx, d_tx, JLossWeights(**FULL_WEIGHTS),
+                                 projector=JRadon(32, ANGLES), mesh=None, donate=False,
+                                 fused_pairs=True, ema_decay=EMA)
+        batch = _full_batch()
+        tstate, tstep = _full_port_state(jstate)
+        jout, tmetrics = [], []
+        for i in range(2):
+            jstate, jm = jstep(jstate, jax.tree_util.tree_map(jnp.asarray, batch))
+            jout.append((jstate, {k: float(v) for k, v in jm.items()}))
+            tstate, tm = tstep(tstate, batch)
+            tmetrics.append({k: float(v) for k, v in tm.items()})
+        carried, cstep = _full_port_state(jout[0][0])
+        carried, cm = cstep(carried, batch)
+    finally:
+        mp.undo()
+    return jout, tstate, tmetrics, carried, {k: float(v) for k, v in cm.items()}
+
+
+def test_full_variant_metrics_match_jax_at_both_steps(full_two_steps):
+    jout, _, tmetrics, _, carried_metrics = full_two_steps
+    for (_, jm), tm in zip(jout + [jout[1]], tmetrics + [carried_metrics]):
+        assert set(tm) == set(jm) == {
+            "loss_d", "loss_g", "g_adv", "g_fm", "g_rec", "g_edge", "g_phys", "g_metal", "g_total"}
+        assert jm["g_phys"] > 0.1
+        for k in jm:
+            atol = {"g_adv": 8e-4, "g_total": 8e-5, "loss_g": 8e-5}.get(k, 1e-6)
+            np.testing.assert_allclose(tm[k], jm[k], rtol=1e-4, atol=atol, err_msg=k)
+
+
+def test_full_variant_parameters_ema_and_moments_match_jax_after_two_steps(full_two_steps):
+    jout, tstate, _, carried, _ = full_two_steps
+    jstate = jout[-1][0]
+    g_mu = from_flax_params(_np(jstate.g_opt[0].mu))
+    d_mu = disc_from_flax(_np(jstate.d_opt[0].mu))
+    for label, st in (("two steps", tstate), ("carried across after JAX's first step", carried)):
+        assert st.step == int(jstate.step) == 2
+        _close_in_lr(dict(st.generator.named_parameters()), from_flax_params(_np(jstate.g_params)),
+                     g_mu, G_LR, f"generator, {label}")
+        _close_in_lr(st.g_ema, from_flax_params(_np(jstate.g_ema)), g_mu, G_LR, f"EMA, {label}")
+        _close_in_lr(dict(st.discriminator.named_parameters()), disc_from_flax(_np(jstate.d_params)),
+                     d_mu, D_LR, f"discriminator, {label}")
+        g_nu = from_flax_params(_np(jstate.g_opt[0].nu))
+        for k, p in st.generator.named_parameters():
+            mom = st.g_opt.state[p]
+            assert int(mom["step"]) == 2
+            np.testing.assert_allclose(mom["exp_avg"].numpy(), g_mu[k].numpy(), rtol=2e-3,
+                                       atol=1e-7, err_msg=f"exp_avg {k}, {label}")
+            np.testing.assert_allclose(mom["exp_avg_sq"].numpy(), g_nu[k].numpy(), rtol=4e-3,
+                                       atol=1e-13, err_msg=f"exp_avg_sq {k}, {label}")
+
+
+def test_adam_state_from_optax_carries_moments_and_count(full_two_steps):
+    jout, _, _, _, _ = full_two_steps
+    jstate = jout[0][0]
+    state, _ = _full_port_state(jstate)
+    mu = from_flax_params(_np(jstate.g_opt[0].mu))
+    for k, p in state.generator.named_parameters():
+        mom = state.g_opt.state[p]
+        assert float(mom["step"]) == 1.0 and torch.equal(mom["exp_avg"], mu[k])
+    with pytest.raises(ValueError, match="shape mismatch"):
+        adam_state_from_optax(state.g_opt, [("w", torch.zeros(2))], {"w": torch.zeros(3)},
+                              {"w": torch.zeros(3)}, 1)

@@ -13,11 +13,14 @@
   the ``params`` tree (HWIO conv kernels -> OIHW weights) and the ``sn``
   collection, whose power-iteration vectors ``u``/``v`` are copied, never
   drawn anew.
+* ``adam_state_from_optax`` loads optax Adam moments (converted by the two
+  functions above, as the parameters are) and the step count into a
+  ``torch.optim.Adam``, so that a JAX ``GANTrainState`` becomes the port's.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Iterable, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -98,3 +101,28 @@ def disc_from_flax(params: Mapping[str, Any], sn: Mapping[str, Any] = None) -> D
             raise ValueError(f"unmapped spectral-norm leaf {'.'.join(path)!r}")
         sd[".".join(path)] = torch.from_numpy(np.array(v, np.float32))
     return sd
+
+
+@torch.no_grad()
+def adam_state_from_optax(
+    optimizer: torch.optim.Adam,
+    named_params: Iterable[Tuple[str, torch.Tensor]],
+    mu: Mapping[str, torch.Tensor],
+    nu: Mapping[str, torch.Tensor],
+    count: int,
+) -> None:
+    """Set ``optimizer``'s state from optax's ``ScaleByAdamState``: ``mu`` and
+    ``nu`` are its moment trees in the port's layout ({parameter name:
+    tensor}, through ``from_flax_params`` / ``disc_from_flax``), ``count`` its
+    step count, which is also the schedule count of a ``ScheduledAdam``."""
+    for name, p in named_params:
+        if mu[name].shape != p.shape or nu[name].shape != p.shape:
+            raise ValueError(f"moment shape mismatch at {name}")
+        optimizer.state[p] = {
+            "step": torch.tensor(float(count)),
+            "exp_avg": mu[name].to(device=p.device, dtype=p.dtype).clone(),
+            "exp_avg_sq": nu[name].to(device=p.device, dtype=p.dtype).clone(),
+        }
+    for group in optimizer.param_groups:
+        if "count" in group:
+            group["count"] = int(count)

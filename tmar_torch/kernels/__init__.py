@@ -29,11 +29,11 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 KERNELS = (
-    "ngram_context", "nstb_map",
+    "ngram_context", "ngram_context_bwd", "nstb_map",
     "window_attention_fwd", "window_attention_bwd",
     "residual_ffn_fwd", "residual_ffn_bwd",
 )
-HEADERS = ("common.cuh",)  # included by the training kernels; part of every hash
+HEADERS = ("common.cuh",)  # included by the kernels with a backward; part of every hash
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -11,6 +11,7 @@ from tmar_torch.losses.gan_losses import (
     hinge_d_loss,
     hinge_g_loss,
     metal_consistency_loss,
+    physics_loss_syn,
     vanilla_d_loss,
     vanilla_g_loss,
 )
@@ -26,6 +27,7 @@ __all__ = [
     "hinge_d_loss",
     "hinge_g_loss",
     "metal_consistency_loss",
+    "physics_loss_syn",
     "vanilla_d_loss",
     "vanilla_g_loss",
 ]

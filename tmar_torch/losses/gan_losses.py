@@ -4,9 +4,9 @@ recipe under one weight structure: a weight of 0 removes its term.
 
 Default weights, the canonical recipe: adv 0.1, fm 10.0, rec 1.0, edge 0.2,
 phys 0.02, metal 0.5; metal threshold 0.6 (data in [-1, 1]), dilation radius
-5, beta 1.0, w_max 3.0.  The sinogram term ``physics_loss_syn`` needs the
-Radon projector, which the port does not have yet: ``generator_loss`` skips
-a non-zero ``phys`` when no projector is given, as the JAX package does.
+5, beta 1.0, w_max 3.0.  The sinogram term ``physics_loss_syn`` needs a
+Radon projector (``tmar_torch.ops.radon.Radon``): ``generator_loss`` skips a
+non-zero ``phys`` when none is given, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -110,6 +110,22 @@ def metal_consistency_loss(fake, real, M):
     return (M * (fake - real)).abs().mean()
 
 
+def physics_loss_syn(fake, real, M, projector):
+    """Sinogram consistency outside the metal trace:
+    mean[(1 - Mp)·|P(fake) - P(real)|], Mp = (P(M) > 0).
+
+    Only P(fake) is on the gradient path.  The projections of the clean image
+    and of the mask are constants, so they run as one batched projection
+    without a graph, and the adjoint in the backward covers B images, not 3B."""
+    B = fake.shape[0]
+    proj_fake = projector.forward(fake)
+    with torch.no_grad():
+        const = projector.forward(torch.cat([real, M], dim=0))
+        proj_real, m_proj = const[:B], const[B:]
+        outside = 1.0 - (m_proj > 0).float()
+    return (outside * (proj_fake - proj_real).abs()).mean()
+
+
 # --------------------------------------------------------------- combined
 @dataclasses.dataclass(frozen=True)
 class LossWeights:
@@ -167,10 +183,10 @@ def generator_loss(
         terms["edge"] = edge
         total = total + w.edge * edge
     if w.phys and projector is not None:
-        raise NotImplementedError(
-            "the sinogram term needs the Radon projector, which the port does not have "
-            "yet; train with LossWeights(phys=0.0)"
-        )
+        M = extract_metal_mask(ct, w.metal_threshold)
+        phys = physics_loss_syn(fake, real, M, projector)
+        terms["phys"] = phys
+        total = total + w.phys * phys
     if w.metal:
         M = extract_metal_mask(ct, w.metal_threshold)
         metal = metal_consistency_loss(fake, real, M)

@@ -4,9 +4,11 @@
 
 * ``"auto"``, inference: the whole-block fusion in map mode, exactly two
   forward-only kernels per block (``fused_ngram_context``, ``fused_nstb_map``);
-* ``"pallas"``, training: the n-gram context on its composition path, the
-  window attention through ``fused_window_attention`` and the post-norm
-  residual FFN through ``fused_residual_ffn``, whose kernels have backwards.
+* ``"pallas"``, training: the n-gram context through
+  ``fused_ngram_context`` (or, with ``ngram_fused=False``, on its composition
+  path), the window attention through ``fused_window_attention`` and the
+  post-norm residual FFN through ``fused_residual_ffn``; all three have
+  backward kernels.
 
 Post-norm residual order, as in the reference: ``x + norm1(attn(x))`` then
 ``x + norm2(mlp(x))``.  The block returns ``(x_in, x_out)`` so stages can
@@ -44,6 +46,7 @@ class NSTB(nn.Module):
         mlp_ratio: float = 2.0,
         qkv_bias: bool = True,
         attn_backward: str = "auto",
+        ngram_fused: bool = True,
     ):
         super().__init__()
         self.attn_backward = check_attn_backward(attn_backward)
@@ -53,7 +56,7 @@ class NSTB(nn.Module):
         self.window_size = window_size
         self.shift_size = shift_size
         self.ngram_window_partition = NGramWindowPartition(
-            dim, window_size, ngram, num_heads, attn_backward
+            dim, window_size, ngram, num_heads, attn_backward, ngram_fused
         )
         self.attn = WindowAttention(dim, num_heads, (window_size, window_size), head_dim, qkv_bias)
         self.norm1 = LayerNorm(dim)

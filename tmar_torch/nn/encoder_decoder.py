@@ -92,14 +92,15 @@ class PatchMerging(nn.Module):
 
 
 def _stage_blocks(
-    dim, ngram, depth, num_heads, window_size, head_dim, mlp_ratio, qkv_bias, attn_backward
+    dim, ngram, depth, num_heads, window_size, head_dim, mlp_ratio, qkv_bias, attn_backward,
+    ngram_fused,
 ):
     return nn.ModuleList(
         NSTB(
             dim, ngram, num_heads, window_size,
             shift_size=0 if i % 2 == 0 else window_size // 2,
             head_dim=head_dim, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
-            attn_backward=attn_backward,
+            attn_backward=attn_backward, ngram_fused=ngram_fused,
         )
         for i in range(depth)
     )
@@ -129,12 +130,13 @@ class EncoderLayer(nn.Module):
         downsample_dim: Optional[int] = None,
         num_cas: int = 1,
         attn_backward: str = "auto",
+        ngram_fused: bool = True,
     ):
         super().__init__()
         self.across_cascade_proj = Linear(num_cas * dim, dim) if num_cas != 1 else None
         self.blocks = _stage_blocks(
             dim, ngram, depth, num_heads, window_size, head_dim, mlp_ratio, qkv_bias,
-            attn_backward,
+            attn_backward, ngram_fused,
         )
         self.downsample = PatchMerging(dim, downsample_dim) if downsample else None
 
@@ -196,11 +198,12 @@ class DecoderLayer(nn.Module):
         mlp_ratio: float = 2.0,
         qkv_bias: bool = True,
         attn_backward: str = "auto",
+        ngram_fused: bool = True,
     ):
         super().__init__()
         self.blocks = _stage_blocks(
             dim, ngram, depth, num_heads, window_size, head_dim, mlp_ratio, qkv_bias,
-            attn_backward,
+            attn_backward, ngram_fused,
         )
 
     def forward(self, x: torch.Tensor, num_patches: Tuple[int, int]) -> torch.Tensor:

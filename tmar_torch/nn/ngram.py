@@ -3,11 +3,13 @@
 * ``NGramContext``: per-window unigram embedding (the grouped conv, kernel =
   stride = window), then both directional 2x2 sliding attentions over the
   sequence-reflect padded unigram grid, their token means and the 1x1 merge.
-  At inference (``attn_backward="auto"``) all of it is one forward-only
-  kernel, ``fused_ngram_context``.  In the training form
-  (``attn_backward="pallas"``) it is the composition: both directions through
-  ``ngram_attn`` (the attention kernels at N = 4, which have a backward), the
-  token mean and the ``merge`` conv under autograd.
+  With ``ngram_fused=True`` (the default, as the JAX package on hardware)
+  all of it is ``fused_ngram_context``: one forward kernel and, under
+  autograd, one backward kernel.  With ``ngram_fused=False`` (the JAX
+  package's ``TMAR_NGRAM_FUSED=0``), and on a window grid smaller than 2x2,
+  it is the composition: both directions through ``ngram_attn`` (the
+  attention kernels at N = 4), the token mean and the ``merge`` conv under
+  autograd.  The parameters and their names are the same in every form.
 * ``NGramWindowPartition``: ``forward`` is the map form of the JAX module's
   ``return_context="map"`` (the map itself and its per-window context, for the
   fused NSTB to add per quadrant); ``partition`` adds the context to every
@@ -70,10 +72,11 @@ class _UnigramEmbed(torch.autograd.Function):
 class NGramContext(nn.Module):
     def __init__(
         self, dim: int, window_size: int, ngram: int, ngram_num_heads: int,
-        attn_backward: str = "auto",
+        attn_backward: str = "auto", ngram_fused: bool = True,
     ):
         super().__init__()
         self.attn_backward = check_attn_backward(attn_backward)
+        self.ngram_fused = bool(ngram_fused)
         self.ngram = ngram
         if ngram != 2:
             raise NotImplementedError("the port implements the ngram = 2 context only")
@@ -88,7 +91,7 @@ class NGramContext(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, ph, pw, D] -> context [B, wh, ww, D] in x's dtype."""
         u = self._unigram(x)
-        if self.attn_backward == "pallas" or min(u.shape[1:3]) < 2:
+        if not self.ngram_fused or min(u.shape[1:3]) < 2:
             return self._composition(u)
         return fused_ngram_context(u, *self.kernel_args())
 
@@ -124,11 +127,13 @@ class NGramContext(nn.Module):
 class NGramWindowPartition(nn.Module):
     def __init__(
         self, dim: int, window_size: int, ngram: int, ngram_num_heads: int,
-        attn_backward: str = "auto",
+        attn_backward: str = "auto", ngram_fused: bool = True,
     ):
         super().__init__()
         self.window_size = window_size
-        self.ngram_context = NGramContext(dim, window_size, ngram, ngram_num_heads, attn_backward)
+        self.ngram_context = NGramContext(
+            dim, window_size, ngram, ngram_num_heads, attn_backward, ngram_fused
+        )
 
     def forward(self, x: torch.Tensor):
         """x [B, ph, pw, D] -> (x, (wh, ww), context [B, wh, ww, D])."""

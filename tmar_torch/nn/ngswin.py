@@ -10,7 +10,11 @@ and W are padded to multiples of 4·window_size and cropped back.
 ``attn_backward`` selects the form of every block as in the JAX package:
 ``"auto"`` is the inference form (two forward-only kernels per block),
 ``"pallas"`` the training form (attention and FFN kernels with backwards).
-Both forms hold the same parameters under the same names.
+``ngram_fused`` (default True, as the JAX package on hardware, where its
+``TMAR_NGRAM_FUSED`` environment variable decides) sends every block's
+n-gram context through ``fused_ngram_context``, forward and backward
+kernels; False sends it down the composition path.  Every form holds the
+same parameters under the same names.
 
 Submodule names follow the reference checkpoint layout, so a reference
 ``state_dict`` (``flagship.pth``) loads key for key.
@@ -65,6 +69,7 @@ class NGswin(nn.Module):
         qkv_bias: bool = True,
         dtype: torch.dtype = torch.float32,
         attn_backward: str = "auto",
+        ngram_fused: bool = True,
         device="cuda",
     ):
         super().__init__()
@@ -81,6 +86,7 @@ class NGswin(nn.Module):
         self.mlp_ratio = mlp_ratio
         self.dtype = dtype
         self.attn_backward = attn_backward
+        self.ngram_fused = ngram_fused
         n_enc = len(self.depths)
 
         self.shallow_extract = ShallowExtractor(in_chans, embed_dim)
@@ -91,13 +97,13 @@ class NGswin(nn.Module):
                 embed_dim, self.ngrams[i], self.depths[i], self.num_heads[i], window_size,
                 head_dim=head_dim, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                 downsample=not last, downsample_dim=None if last else embed_dim,
-                num_cas=i + 1, attn_backward=attn_backward,
+                num_cas=i + 1, attn_backward=attn_backward, ngram_fused=ngram_fused,
             ))
         self.bottleneck = SCDPBottleneck(n_enc, embed_dim, dec_dim)
         self.decoder_layer1 = DecoderLayer(
             dec_dim, self.ngrams[n_enc], dec_depths, dec_num_heads, window_size,
             head_dim=dec_head_dim, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
-            attn_backward=attn_backward,
+            attn_backward=attn_backward, ngram_fused=ngram_fused,
         )
         self.norm = LayerNorm(dec_dim)
         self.to_target = _Head(dec_dim, in_chans)

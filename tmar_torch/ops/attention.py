@@ -96,11 +96,18 @@ class _StaticGather(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        inv = on_device(_inverse_index(ctx.index, ctx.rows), g.device)
-        padded = torch.cat([g, g.new_zeros(*g.shape[:-2], 1, g.shape[-1])], dim=-2)
-        readers = padded.index_select(-2, inv.reshape(-1))
-        # [..., rows, max count, C] summed over the readers of each row
-        return readers.reshape(*g.shape[:-2], *inv.shape, g.shape[-1]).sum(-2), None
+        return static_gather_transpose(g, ctx.index, ctx.rows), None
+
+
+def static_gather_transpose(g: torch.Tensor, index: np.ndarray, rows: int) -> torch.Tensor:
+    """The transpose of ``static_gather``: g [..., M, C], the cotangent of the
+    gathered rows -> [..., rows, C], each source row the sum of its readers,
+    by a gather over the fixed inverse map (no atomics)."""
+    inv = on_device(_inverse_index(index, rows), g.device)
+    padded = torch.cat([g, g.new_zeros(*g.shape[:-2], 1, g.shape[-1])], dim=-2)
+    readers = padded.index_select(-2, inv.reshape(-1))
+    # [..., rows, max count, C] summed over the readers of each row
+    return readers.reshape(*g.shape[:-2], *inv.shape, g.shape[-1]).sum(-2)
 
 
 def _l2_normalize(t: torch.Tensor) -> torch.Tensor:

@@ -10,8 +10,8 @@ carries it into the generator.  That equals re-running the forward, because
 the D update never touches the generator's parameters.
 
 The generator must be in its training form (``attn_backward="pallas"``) to
-run on a card: the inference form's kernels have no backward and refuse.
-The mesh, donation and sharding arguments of the JAX step have no
+run on a card: the inference form's whole-block kernel has no backward and
+refuses.  The mesh, donation and sharding arguments of the JAX step have no
 counterpart here yet.
 """
 
@@ -206,16 +206,21 @@ def make_train_step(
 
 
 def make_eval_step(generator: nn.Module, device="cuda") -> Callable:
-    """Validation forward: ``eval_step(batch) -> (restored, {"mse", "psnr"})``
-    with the data-range-2 PSNR, 10 log10(4 / mse), averaged over the batch."""
+    """Validation forward: ``eval_step(batch, params=None) -> (restored,
+    {"mse", "psnr"})`` with the data-range-2 PSNR, 10 log10(4 / mse),
+    averaged over the batch.  ``params`` ({name: tensor}, e.g. the state's
+    ``g_ema``) stands in for the generator's own parameters for that call."""
     dev = resolve_device(device)
     generator.to(dev)
 
     @torch.no_grad()
-    def eval_step(batch):
+    def eval_step(batch, params=None):
         ct = torch.as_tensor(batch["ct"], dtype=torch.float32, device=dev)
         gt = torch.as_tensor(batch["gt"], dtype=torch.float32, device=dev)
-        fake = generator(ct)
+        if params is None:
+            fake = generator(ct)
+        else:
+            fake = torch.func.functional_call(generator, params, (ct,))
         mse = (fake - gt).square().mean(dim=(1, 2, 3))
         psnr = 10.0 * torch.log10(4.0 / mse.clamp(min=1e-12))
         return fake, {"mse": mse.mean(), "psnr": psnr.mean()}
