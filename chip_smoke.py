@@ -50,7 +50,28 @@ Phases, each of which fails the run if it fails:
    the launch counts reset just before and read just after (20 launches per
    step of each of the six training kernels: the n-gram context is one
    forward and one backward kernel per block), and one step's breakdown;
-   then one float32 ``full`` step at 1x128² on the card against the CPU.
+   then one float32 ``full`` step at 1x128² on the card against the CPU;
+10. the token-level whole-block kernel (K8) against its plain version at the
+   shapes of the token form's 8x512² forward (stage 1: 32,768 windows, 6
+   heads; stage 2: 8,192 windows, 4 heads) and on a 3 x 13 x 13 grid, at
+   shift 0 and 4 (Q = 4), float32 and bfloat16; then its time beside its
+   plain version's, K2's on the same block, and its bound;
+11. every attention kernel name of the JAX package (``TMAR_ATTN_IMPL``) at
+   the 8x128² step's stage-1 shape: each launches K3 under its own counter,
+   all give the same bits and agree with the plain version;
+12. serving in the two other block forms, full width, flagship, bfloat16: the
+   token form (20 launches of K1 and of K8 per forward) and the unfused form
+   (20 of K1, K3 and K5), each against the map form, with its request time;
+   K3 and K5 on the inputs the unfused form's 8x512² request gave them (the
+   first shifted block of each window and head count, the first block of
+   each row count), at bfloat16 and cast to float32, against their plain
+   versions, and timed at stage 1 (32,768 windows, 2,097,152 rows);
+13. the ``test`` entry point (``tmar_torch.cli.test``) called in-process on
+   the flagship, full-slice and ``--tiled`` (all 144 tiles of a 416² slice
+   in one forward), in each of the three block forms: ``metrics.json``
+   written, the prediction's PSNR above the corrupted input's, the forms
+   agreeing within 0.05 dB; and the device-side tiled eval against the
+   host-side one on one slice.
 
 It prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card, exits non-zero
@@ -59,6 +80,7 @@ without one, and imports nothing of JAX or of the ``tmar`` package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -358,7 +380,7 @@ def serve(sd, card):
     profile_request(lambda: full_slice_eval(fwd, req512), card)
     if failures:
         raise SystemExit(f"serving checks failed: {failures}")
-    return launches
+    return launches, req512, outputs["full-slice 8x512²"], med
 
 
 def profile_request(request, card, label="full-slice 8x512² bf16 request"):
@@ -585,7 +607,7 @@ def check_train_kernels(dev, card):
         records[f"window_attention_{half}"] = {
             "name": f"window_attention_{half}", "route": "cuda",
             "source": f"tmar_torch/csrc/window_attention_{half}.cu",
-            "replaces": ("tmar/ops/pallas_attention.py:1143 and :1175" if half == "fwd"
+            "replaces": ("tmar/ops/pallas_attention.py:1143, :1175, :1241 and :813" if half == "fwd"
                          else "tmar/ops/pallas_attention.py:568 and :704"),
             "max_abs_err": errs[half]["float32"], "max_abs_err_bf16": errs[half]["bfloat16"],
             "ms": t[i], "plain_ms": t[2 + i], "bound_ms": bounds[i][0], "bound_by": bounds[i][1],
@@ -1064,6 +1086,439 @@ def train_full(card):
     return launches
 
 
+# ---- phases 10-13: the token kernel, the attention kernel names, the block
+# forms and the test entry point ---------------------------------------------
+# (label, stage, images, window grid): the token form's 8x512² stages 1 and
+# 2, and an odd grid at stage 3's width
+TOKEN_CASES = (("stage1", 1, 8, 64, 64), ("stage2", 2, 8, 32, 32), ("3x13x13", 3, 3, 13, 13))
+# block form -> (the JAX package's environment, NGswin keywords, kernels that
+# run 20 times per forward, kernels that must not run)
+FORMS = {
+    "map": ({}, {}, ("ngram_context", "nstb_map"),
+            ("nstb_tokens", "window_attention_fwd", "residual_ffn_fwd")),
+    "tokens": ({"TMAR_NSTB_MAP": "0"}, {"nstb_map": False}, ("ngram_context", "nstb_tokens"),
+               ("nstb_map", "window_attention_fwd", "residual_ffn_fwd")),
+    "unfused": ({"TMAR_NSTB_FUSED": "0"}, {"nstb_fused": False},
+                ("ngram_context", "window_attention_fwd", "residual_ffn_fwd"),
+                ("nstb_map", "nstb_tokens")),
+}
+
+
+# the line of the TPU kernel each attention name selects
+IMPL_LINES = {"batched": 1143, "batched_hm": 1143, "blockdiag": 1175, "blockdiag_mxnorm": 1175,
+              "diag": 1241, "packed": 813}
+
+
+def _serving_counters():
+    from tmar_torch.ops import cuda_attention, cuda_ffn, cuda_ngram, cuda_nstb
+
+    return {
+        "ngram_context": cuda_ngram.fused_ngram_context,
+        "nstb_map": cuda_nstb.fused_nstb_map,
+        "nstb_tokens": cuda_nstb.fused_nstb,
+        "window_attention_fwd": cuda_attention.fused_window_attention,
+        "residual_ffn_fwd": cuda_ffn.fused_residual_ffn,
+    }
+
+
+def _reset_serving_counters():
+    from tmar_torch.ops.cuda_attention import IMPLS, fused_window_attention
+
+    for f in _serving_counters().values():
+        f.launches = 0
+    fused_window_attention.launches_by_impl = dict.fromkeys(IMPLS, 0)
+
+
+def _read_serving_counters():
+    from tmar_torch.ops.cuda_attention import fused_window_attention
+
+    got = {k: f.launches for k, f in _serving_counters().items()}
+    return got, dict(fused_window_attention.launches_by_impl)
+
+
+def check_token_kernel(model, dev, card):
+    """Phase 10: K8 against its plain version on the card, then timed beside
+    K2 on the same block.  Returns its record for the JSON line (without
+    launches)."""
+    import torch
+
+    from tmar_torch.ops import cuda_nstb
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    failures = []
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    errs = {"float32": 0.0, "bfloat16": 0.0}
+    for name, stage, B, wh, ww in TOKEN_CASES:
+        for blk in getattr(model, f"encoder_layer{stage}").blocks[:2]:
+            args, shift = blk.kernel_args(), blk.shift_size
+            x = randn(B * wh * ww, 64, 64)
+            cq = randn(B * wh * ww, 4, 64, scale=0.5)
+            for dtype in (torch.float32, torch.bfloat16):
+                xx, cc = x.to(dtype), cq.to(dtype)
+                got = cuda_nstb.fused_nstb(xx, cc, *args, shift=shift, grid=(wh, ww))
+                ref = cuda_nstb.nstb_tokens_math(
+                    xx.float(), cc.float(), *_round_nstb_mats(args, dtype)[:-2],
+                    num_heads=args[-2], window_size=args[-1], shift=shift, grid=(wh, ww),
+                )
+                torch.cuda.synchronize()
+                err, tol = err_and_tol(got, ref, dtype)
+                dn = str(dtype).split(".")[1]
+                errs[dn] = max(errs[dn], err)
+                ok = err <= tol and bool(torch.isfinite(got).all())
+                print(f"[kernel] nstb_tokens {name} x={list(xx.shape)} grid={B}x{wh}x{ww} "
+                      f"heads={args[-2]} shift={shift} Q=4 {dn}: max_abs_err {err:.3e} tol {tol:.3e} "
+                      f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"nstb_tokens {name} shift={shift} {dn}")
+                del got, ref
+            del x, cq
+            torch.cuda.empty_cache()
+    blk = model.encoder_layer1.blocks[1]  # stage 1, shift 4: the masked block
+    args = blk.kernel_args()
+    times = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        x = randn(32768, 64, 64).to(dtype)
+        cq = randn(32768, 4, 64, scale=0.5).to(dtype)
+        xmap = randn(8, 512, 512, 64).to(dtype)
+        ops, out, ints = cuda_nstb._token_operands(x, cq, *args, 4, (64, 64))
+        ops2, out2, ints2 = cuda_nstb._kernel_operands(xmap, cq, *args, shift=4)
+        k8 = lambda: cuda_nstb._launch_tokens(ops, out, ints, 1e-5)  # noqa: E731
+        k2 = lambda: cuda_nstb._launch(ops2, out2, ints2, 1e-5)  # noqa: E731
+        # in turns on one card: K2, K8, K8, K2
+        t2a, t8a, t8b, t2b = (cuda_ms(f, iters=5, warmup=1) for f in (k2, k8, k8, k2))
+        k_ms, k2_ms = (t8a + t8b) / 2, (t2a + t2b) / 2
+        p_ms = cuda_ms(lambda: cuda_nstb.nstb_tokens_math(
+            x, cq, *args[:-2], num_heads=args[-2], window_size=args[-1], shift=4, grid=(64, 64)),
+            iters=2, warmup=1)
+        dn = str(dtype).split(".")[1]
+        flops, nbytes = nstb_work(8, 512, 512, 6, 4, x.element_size())
+        b_ms, b_by = bound_ms(flops, nbytes, dn)
+        times[dn] = (k_ms, p_ms, b_ms, b_by, k2_ms)
+        print(f"[time] nstb_tokens x=[32768, 64, 64] grid 8x64x64 heads=6 shift=4 {dn}: kernel "
+              f"{k_ms:.4f} ms ({t8a:.4f}, {t8b:.4f}), plain {p_ms:.4f} ms, K2 nstb_map on the same "
+              f"block {k2_ms:.4f} ms ({t2a:.4f}, {t2b:.4f}), bound {b_ms:.5f} ms ({b_by}: "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e9:.3f} GB); library: none (no single PyTorch "
+              f"call computes it) on {card}")
+        del x, cq, xmap, ops, out, ops2, out2
+        torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"token kernel checks failed: {failures}")
+    k_ms, p_ms, b_ms, b_by, k2_ms = times["bfloat16"]
+    return {
+        "name": "nstb_tokens", "route": "cuda", "source": "tmar_torch/csrc/nstb_tokens.cu",
+        "replaces": "tmar/ops/pallas_nstb.py:334", "max_abs_err": errs["float32"],
+        "max_abs_err_bf16": errs["bfloat16"], "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        "ms_f32": times["float32"][0], "plain_ms_f32": times["float32"][1],
+        "nstb_map_ms_same_block": k2_ms, "nstb_map_ms_same_block_f32": times["float32"][4],
+        "shape": "x [32768, 64, 64] bf16 (8x512² stage 1), 6 heads, shift 4, Q 4",
+    }
+
+
+def check_attention_impls(dev, card):
+    """Phase 11: each attention kernel name of the JAX package at the 8x128²
+    step's stage-1 shape.  Returns, per name, the TPU kernel it selects and
+    K3's errors, time and launches under it, for K3's record."""
+    import torch
+
+    from tmar_torch.ops.attention import window_attention_math
+    from tmar_torch.ops.cuda_attention import IMPLS, fused_window_attention
+    from tmar_torch.ops.window import shift_mask_components
+
+    label, nwin, N, D, nh, hd, grid = ATTN_CASES[1]
+    gen = torch.Generator(device=dev).manual_seed(4)
+    A = nh * hd
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+
+    params = [randn(D, 3 * A, scale=0.1), randn(3 * A, scale=0.1),
+              torch.rand(nh, 1, 1, generator=gen, device=dev) * 1.8 + 0.5,
+              randn(nh, N, N, scale=0.2), randn(A, D, scale=0.1), randn(D, scale=0.1)]
+    x = randn(nwin, N, D)
+    mc = (*shift_mask_components(8, 4), *grid)
+    f = fused_window_attention
+    failures, errs, outs = [], {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        xx = x.to(dtype)
+        ref = window_attention_math(xx.float(), *params, nh, mask_components=mc)
+        for name in sorted(IMPLS):
+            by_impl, total, bwd = dict(f.launches_by_impl), f.launches, f.backward_launches
+            with torch.no_grad():
+                out = f(xx, *params, nh, mask_components=mc, impl=name)
+            torch.cuda.synchronize()
+            moved = {k: f.launches_by_impl[k] - by_impl[k] for k in by_impl}
+            err, tol = err_and_tol(out, ref, dtype)
+            errs[(name, dn)] = err
+            same = name == "batched" or torch.equal(out, outs[("batched", dn)])
+            ok = (moved == {k: int(k == name) for k in by_impl} and f.launches == total + 1
+                  and f.backward_launches == bwd and err <= tol and same)
+            outs[(name, dn)] = out
+            print(f"[impl] {name} -> K3 x=[{nwin}, {N}, {D}] heads={nh} mask on {dn}: its counter "
+                  f"+{moved[name]}, the others +{sum(moved.values()) - moved[name]}; max_abs_err "
+                  f"{err:.3e} tol {tol:.3e}; bits equal to 'batched': {same} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"impl {name} {dn}")
+        del ref
+    outs.clear()
+    xx = x.to(torch.bfloat16)
+    with torch.no_grad():
+        p_ms = cuda_ms(lambda: window_attention_math(
+            xx, *[p.to(torch.bfloat16) if i in (0, 1, 4, 5) else p for i, p in enumerate(params)],
+            nh, mask_components=mc))
+        t = {name: cuda_ms(lambda: f(xx, *params, nh, mask_components=mc, impl=name))
+             for name in sorted(IMPLS)}
+    b_ms, b_by = bound_ms(*attention_work(nwin, N, D, nh, hd, 2, False), "bfloat16")
+    print(f"[time] window_attention_fwd by name, x=[{nwin}, {N}, {D}] heads={nh} bf16: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+          + f"; plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}) on {card}")
+    if failures:
+        raise SystemExit(f"attention kernel name checks failed: {failures}")
+    return {
+        name: {
+            "replaces": f"tmar/ops/pallas_attention.py:{IMPL_LINES[name]}", "jax_kernel": IMPLS[name],
+            "max_abs_err": errs[(name, "float32")], "max_abs_err_bf16": errs[(name, "bfloat16")],
+            "ms": t[name], "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "launches_per_call": 1, "shape": f"x [{nwin}, {N}, {D}] bf16, {nh} heads, shift mask on",
+        }
+        for name in sorted(IMPLS)
+    }
+
+
+@contextlib.contextmanager
+def _capture_unfused_kernel_inputs():
+    """A context in which the unfused block's K3 and K5 calls are kept, the
+    first of each window count and head count (K3, shifted blocks: the mask
+    is on) and of each row count (K5), and passed on unchanged."""
+    from unittest import mock
+
+    from tmar_torch.nn import blocks, window_attention
+
+    attn, ffn = window_attention.fused_window_attention, blocks.fused_residual_ffn
+    kept = {"attention": {}, "ffn": {}}
+
+    def keep_attn(x, *args, mask_components=None, **kw):
+        if mask_components is not None:
+            kept["attention"].setdefault((x.shape[0], args[-1]), (x, args, mask_components))
+        return attn(x, *args, mask_components=mask_components, **kw)
+
+    def keep_ffn(x, *args, **kw):
+        kept["ffn"].setdefault(x.shape[0], (x, args, kw))
+        return ffn(x, *args, **kw)
+
+    with mock.patch.object(window_attention, "fused_window_attention", keep_attn), \
+            mock.patch.object(blocks, "fused_residual_ffn", keep_ffn):
+        yield kept
+
+
+def check_unfused_kernels(kept, card):
+    """K3 and K5 on the inputs the unfused form gave them in its 8x512²
+    request, at the served bfloat16 and cast to float32, against their plain
+    versions; then each timed at the stage-1 shape.  Returns {kernel: the
+    cases' record}."""
+    import torch
+
+    from tmar_torch.ops.attention import window_attention_math
+    from tmar_torch.ops.cuda_attention import fused_window_attention
+    from tmar_torch.ops.cuda_ffn import fused_residual_ffn
+    from tmar_torch.ops.ffn import ffn_math
+
+    failures, cases = [], {"window_attention_fwd": [], "residual_ffn_fwd": []}
+    runs = [("window_attention_fwd", f"x={list(x.shape)} heads={args[-1]} mask on",
+             lambda xx, args=args, mc=mc: fused_window_attention(xx, *args, mask_components=mc),
+             lambda xx, args=args, mc=mc: window_attention_math(
+                 xx, *[t.to(xx.dtype) if i in (0, 1, 4, 5) else t for i, t in enumerate(args)],
+                 mask_components=mc), x,
+             attention_work(x.shape[0], x.shape[1], x.shape[2], args[-1],
+                            args[0].shape[1] // 3 // args[-1], 2, False))
+            for (x, args, mc) in sorted(kept["attention"].values(), key=lambda c: -c[0].shape[0])]
+    runs += [("residual_ffn_fwd", f"x={list(x.shape)}",
+              lambda xx, args=args, kw=kw: fused_residual_ffn(xx, args[0].to(xx.dtype), *args[1:], **kw),
+              lambda xx, args=args, kw=kw: ffn_math(xx, args[0].to(xx.dtype), *args[1:], **kw), x,
+              ffn_work(x.shape[0], 2, False))
+             for (x, args, kw) in sorted(kept["ffn"].values(), key=lambda c: -c[0].shape[0])]
+    for kernel, label, fused, plain, x, work in runs:
+        ref = plain(x.float())
+        case = {"shape": label}
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            got = fused(x.to(dtype))
+            torch.cuda.synchronize()
+            err, tol = err_and_tol(got, ref, dtype)
+            ok = err <= tol and bool(torch.isfinite(got).all())
+            case["max_abs_err" if dtype == torch.float32 else "max_abs_err_bf16"] = err
+            print(f"[kernel] {kernel} on the unfused form's 8x512² request input {label} {dn}: "
+                  f"max_abs_err {err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append(f"{kernel} {label} {dn}")
+            del got
+        del ref
+        if not cases[kernel]:  # the largest shape: the stage-1 block
+            xb = x.to(torch.bfloat16)
+            k_ms = cuda_ms(lambda: fused(xb), iters=5, warmup=1)
+            p_ms = cuda_ms(lambda: plain(xb), iters=2, warmup=1)
+            b_ms, b_by = bound_ms(*work, "bfloat16")
+            case.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+            print(f"[time] {kernel} {label} bf16 (the unfused form's stage 1): kernel {k_ms:.4f} ms, "
+                  f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); library: none on {card}")
+        cases[kernel].append(case)
+        torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"unfused serving kernel checks failed: {failures}")
+    return cases
+
+
+def serve_forms(sd, card, req512, map_out, map_med):
+    """Phase 12: the token and unfused block forms serve the flagship; K3
+    and K5 are held on the inputs of the unfused form's request.  Returns
+    each form's launch counts and K3's and K5's cases."""
+    import torch
+
+    from tmar_torch import NGswin, full_slice_eval, make_inference_fn
+
+    failures = []
+
+    def check(cond, what):
+        print(f"[check] {what}: {'ok' if cond else 'FAIL'}")
+        if not cond:
+            failures.append(what)
+
+    small = req512[:1, :128, :128]
+    map32 = NGswin(dtype=torch.float32)
+    map32.load_state_dict(sd)
+    y_map32 = make_inference_fn(map32)(small)
+    del map32
+    launches, cases = {}, {}
+    for form in ("tokens", "unfused"):
+        _, kw, runs, idle = FORMS[form]
+        model = NGswin(dtype=torch.bfloat16, **kw)
+        model.load_state_dict(sd)
+        fwd = make_inference_fn(model)
+        fwd(small)  # first call: lazy set-up
+        with _capture_unfused_kernel_inputs() as kept:
+            _reset_serving_counters()
+            y = full_slice_eval(fwd, req512)
+            got, by_impl = _read_serving_counters()
+        launches[form] = got
+        print(f"[serve {form}] full-slice 8x512² bf16: out {list(y.shape)} range [{y.min():.4f}, "
+              f"{y.max():.4f}]; launches " + ", ".join(f"{k} {v}" for k, v in got.items())
+              + f"; by attention name {({k: v for k, v in by_impl.items() if v})}")
+        check(bool(np.isfinite(y).all()) and y.min() >= -1 and y.max() <= 1,
+              f"{form} form: finite and in [-1, 1]")
+        check(all(got[k] == 20 for k in runs) and all(got[k] == 0 for k in idle),
+              f"{form} form: 20 launches per forward of {', '.join(runs)}; none of {', '.join(idle)}")
+        diff = np.abs(y - map_out)
+        print(f"[check] {form} form vs map form, bf16 on the card at 8x512²: max {diff.max():.3e} "
+              f"(tol 0.1), mean {diff.mean():.3e} (tol 1e-2)")
+        check(diff.max() <= 0.1 and diff.mean() <= 1e-2, f"{form} form vs map form at bf16")
+        if form == "unfused":
+            cases = check_unfused_kernels(kept, card)
+        del kept
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            full_slice_eval(fwd, req512)
+            times.append(time.perf_counter() - t0)
+        med = statistics.median(times)
+        print(f"[time] full-slice 8x512² bf16 request, {form} form: median {med * 1e3:.1f} ms of "
+              f"{[round(t * 1e3, 1) for t in times]}, {8 / med:.2f} slices/s (map form "
+              f"{map_med * 1e3:.1f} ms, {8 / map_med:.2f} slices/s) on {card}")
+        profile_request(lambda: full_slice_eval(fwd, req512), card,
+                        label=f"full-slice 8x512² bf16 request, {form} form")
+        del model, fwd, y
+        model32 = NGswin(dtype=torch.float32, **kw)
+        model32.load_state_dict(sd)
+        d = float(np.abs(make_inference_fn(model32)(small) - y_map32).max())
+        print(f"[check] {form} form vs map form, f32 on the card at 1x128²: max_abs_err {d:.3e} "
+              f"tol 1e-4")
+        check(d <= 1e-4, f"{form} form vs map form at f32")
+        del model32
+        torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"block form serving checks failed: {failures}")
+    return launches, cases
+
+
+def serve_entry_point(sd, card):
+    """Phase 13: ``tmar_torch.cli.test`` in every block form, full-slice and
+    tiled, in-process; then the device-side tiled eval against the host-side
+    one.  Returns the launch counts of the first run of each form."""
+    import tempfile
+    from unittest import mock
+
+    import torch
+
+    from tmar_torch import NGswin, make_inference_fn, make_tiled_eval, tiled_eval
+    from tmar_torch import cli
+    from tmar_torch.data import SyntheticMARDataset
+    from tmar_torch.eval.metrics import psnr
+
+    failures = []
+
+    def check(cond, what):
+        print(f"[check] {what}: {'ok' if cond else 'FAIL'}")
+        if not cond:
+            failures.append(what)
+
+    n = 4
+    ds = SyntheticMARDataset(size=416, length=32)  # the test set the CLI builds
+    samples = [ds[i] for i in range(n)]
+    input_psnr = float(np.mean([psnr(np.clip((s["ct"] + 1) / 2, 0, 1), (s["gt"] + 1) / 2)
+                                for s in samples]))
+    print(f"[test] corrupted input on the first {n} synthetic 416² slices: mean psnr "
+          f"{input_psnr:.3f} dB")
+    means = {}
+    for form, (env, _, runs, idle) in FORMS.items():
+        for tiled in (False, True):
+            mode = "tiled" if tiled else "full_slice"
+            with tempfile.TemporaryDirectory(prefix="tmar_test_") as out, \
+                    mock.patch.dict(os.environ, env):
+                argv = ["--checkpoint", CKPT, "--set", "data.dataset=synthetic",
+                        "model.use_pallas_attention=true", "--max-samples", str(n), "--out", out]
+                _reset_serving_counters()
+                t0 = time.perf_counter()
+                rc = cli.test(argv + (["--tiled"] if tiled else []))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got, _ = _read_serving_counters()
+                path = os.path.join(out, "metrics.json")
+                written = rc == 0 and os.path.isfile(path)
+                summary = json.load(open(path))["summary"] if written else {}
+            means[(form, mode)] = summary.get("psnr", float("nan"))
+            print(f"[test] {form} form {mode}: rc {rc}, {summary} in {wall:.2f} s (synthesis and "
+                  f"metrics on the host included); launches " + ", ".join(f"{k} {v}" for k, v in got.items()))
+            check(written and summary.get("n") == n and summary.get("mode") == mode,
+                  f"test entry point, {form} form, {mode}: metrics.json written for {n} slices")
+            check(summary.get("psnr", 0) > input_psnr,
+                  f"{form} form, {mode}: mean psnr {summary.get('psnr', 0):.3f} dB above the input's")
+            check(all(got[k] == 20 * n for k in runs) and all(got[k] == 0 for k in idle),
+                  f"{form} form, {mode}: one forward per slice (20 launches each of "
+                  f"{', '.join(runs)}), none of {', '.join(idle)}")
+    for mode in ("full_slice", "tiled"):
+        vals = [means[(f, mode)] for f in FORMS]
+        spread = max(vals) - min(vals)
+        check(spread <= 0.05, f"{mode}: the three forms' mean psnr agree within 0.05 dB "
+                              f"({', '.join(f'{v:.4f}' for v in vals)}; spread {spread:.4f})")
+
+    model = NGswin(dtype=torch.float32)
+    model.load_state_dict(sd)
+    ct = samples[0]["ct"][None, ..., None]
+    dev_out = make_tiled_eval(model)(ct)
+    host_out = tiled_eval(make_inference_fn(model), ct, 64, 32)
+    d = float(np.abs(dev_out - host_out).max())
+    print(f"[check] make_tiled_eval (144 tiles in one forward, assembled on the card) vs the "
+          f"host-side tiled_eval (3 forwards of 64), f32, one 416² slice: max_abs_err {d:.3e} tol 1e-4")
+    check(d <= 1e-4, "device-side tiled eval vs host-side tiled eval")
+    del model
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"test entry point checks failed: {failures}")
+
+
 def main() -> int:
     import torch
 
@@ -1101,13 +1556,23 @@ def main() -> int:
     ref_model.load_state_dict(sd)
     with torch.no_grad():
         records = check_kernels(ref_model, dev, card)
+        records["nstb_tokens"] = check_token_kernel(ref_model, dev, card)
     del ref_model
     torch.cuda.empty_cache()
 
-    launches = serve(sd, card)
+    launches, req512, map_out, map_med = serve(sd, card)
     launches = {k.replace("fused_", ""): v for k, v in launches.items()}
+    form_launches, unfused_cases = serve_forms(sd, card, req512, map_out, map_med)
+    launches["nstb_tokens"] = form_launches["tokens"]["nstb_tokens"]
+    del req512, map_out
+    serve_entry_point(sd, card)
 
     records.update(check_train_kernels(dev, card))
+    # every attention kernel name of the JAX package maps to K3
+    records["window_attention_fwd"]["variants"] = check_attention_impls(dev, card)
+    for name, cases in unfused_cases.items():
+        records[name]["launches_unfused_serving"] = form_launches["unfused"][name]
+        records[name]["unfused_serving_cases"] = cases
     train_launches, trained = train(card)
     launches.update({k: v for k, v in train_launches.items() if k not in launches})
     train_correctness(trained, card)

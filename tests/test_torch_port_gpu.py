@@ -338,3 +338,109 @@ def test_training_kernels_refuse_other_geometries(cuda):
     with pytest.raises(NotImplementedError, match="residual FFN kernels"):
         cuda_ffn.fused_residual_ffn(z, z, *[torch.zeros(s, device=cuda) for s in
                                             ((32,), (32,), (32, 64), (64,), (64, 32), (32,), (32,), (32,))])
+
+
+# ---- K8: the token-level whole NSTB ------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,B,wh,ww,shift,Q", [
+    (6, 2, 4, 6, 0, 4), (6, 2, 4, 6, 4, 4), (4, 1, 3, 5, 0, 1), (4, 1, 3, 5, 4, 1),
+    (4, 3, 13, 13, 4, 4),  # the 416² stage 3's odd grid, three images
+])
+def test_nstb_tokens_kernel_matches_plain(cuda, dtype, nh, B, wh, ww, shift, Q):
+    rng = np.random.default_rng(11)
+    nwin = B * wh * ww
+    _, _, params = nstb_inputs(rng, nh, 1, 8, 8, Q)
+    x = _t(rng, nwin, 64, 64).to(cuda, dtype)
+    cq = _t(rng, nwin, Q, 64, scale=0.5).to(cuda, dtype)
+    params = [_to(p, cuda) for p in params]
+    before = cuda_nstb.fused_nstb.launches
+    got = cuda_nstb.fused_nstb(x, cq, *params, nh, 8, shift=shift, grid=(wh, ww))
+    torch.cuda.synchronize()
+    assert cuda_nstb.fused_nstb.launches == before + 1
+    ref = cuda_nstb.nstb_tokens_math(
+        x.float(), cq.float(), *_round_mats(params, dtype), num_heads=nh, window_size=8,
+        shift=shift, grid=(wh, ww),
+    )
+    assert got.dtype == dtype and got.shape == x.shape
+    err = float((got.float() - ref).abs().max())
+    assert err <= _tol(ref, dtype), err
+
+
+def test_nstb_tokens_kernel_equals_map_kernel_on_the_rolled_windows(cuda):
+    """K8 on the windows of the rolled map and K2 on the map compute the same
+    block; both run float32 on the CUDA cores in the same order."""
+    from tmar_torch.ops.window import cyclic_shift, window_partition, window_unpartition
+
+    rng = np.random.default_rng(12)
+    x, cq, params = nstb_inputs(rng, 6, 2, 32, 48, 4)
+    x, cq = x.to(cuda), cq.to(cuda)
+    params = [_to(p, cuda) for p in params]
+    zmap = cuda_nstb.fused_nstb_map(x, cq, *params, 6, 8, shift=4)
+    wins, _ = window_partition(cyclic_shift(x, 4), 8)
+    z = cuda_nstb.fused_nstb(wins.reshape(-1, 64, 64), cq, *params, 6, 8, shift=4, grid=(4, 6))
+    assert torch.equal(window_unpartition(z.reshape(-1, 8, 8, 64), (4, 6)), zmap)
+
+
+def test_nstb_tokens_kernel_finite_at_saturated_logit_scale(cuda):
+    rng = np.random.default_rng(13)
+    _, _, params = nstb_inputs(rng, 4, 1, 8, 8, 4)
+    params[2] = torch.full((4, 1, 1), 10.0)  # exp(clip(10, ln 100)) = 100
+    params = [_to(p, cuda) for p in params]
+    x, cq = _t(rng, 4, 64, 64).to(cuda), _t(rng, 4, 4, 64, scale=0.5).to(cuda)
+    got = cuda_nstb.fused_nstb(x, cq, *params, 4, 8, shift=4, grid=(2, 2))
+    ref = cuda_nstb.nstb_tokens_math(x, cq, *params, num_heads=4, window_size=8, shift=4,
+                                     grid=(2, 2))
+    assert torch.isfinite(got).all()
+    assert float((got - ref).abs().max()) <= _tol(ref, torch.float32)
+
+
+def test_nstb_tokens_kernel_refuses_grad_and_bad_grids(cuda):
+    rng = np.random.default_rng(14)
+    _, _, params = nstb_inputs(rng, 4, 1, 8, 8, 4)
+    params = [_to(p, cuda) for p in params]
+    x, cq = _t(rng, 6, 64, 64).to(cuda), _t(rng, 6, 4, 64).to(cuda)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        cuda_nstb.fused_nstb(x.requires_grad_(), cq, *params, 4, 8)
+    x = x.detach()
+    with pytest.raises(ValueError, match="whole"):
+        cuda_nstb.fused_nstb(x, cq, *params, 4, 8, shift=4, grid=(2, 2))
+    with pytest.raises(ValueError, match="ctx_quads"):
+        cuda_nstb.fused_nstb(x, cq[:5], *params, 4, 8)
+
+
+def test_every_attention_impl_name_launches_k3(cuda):
+    """Each JAX name counts one K3 launch under its own name, moves no other
+    counter, and gives the same bits as every other name."""
+    rng = np.random.default_rng(15)
+    (x, _), params = attention_inputs(rng, 32, 64, 64, 6, 10)
+    x = x.to(cuda, torch.bfloat16)
+    params = [p.to(cuda) for p in params]
+    mc = (*shift_mask_components(8, 4), 4, 4)
+    f = cuda_attention.fused_window_attention
+    outs = {}
+    for name in sorted(cuda_attention.IMPLS):
+        by_impl, total = dict(f.launches_by_impl), f.launches
+        with torch.no_grad():
+            outs[name] = f(x, *params, 6, mask_components=mc, impl=name)
+        torch.cuda.synchronize()
+        moved = {k: f.launches_by_impl[k] - by_impl[k] for k in by_impl}
+        assert moved == {k: int(k == name) for k in by_impl} and f.launches == total + 1
+    ref = window_attention_math(x.float(), *params, 6, mask_components=mc)
+    for name, out in outs.items():
+        assert torch.equal(out, outs["batched"]), name
+        assert float((out.float() - ref).abs().max()) <= _tol(ref, torch.bfloat16)
+
+
+def test_make_tiled_eval_on_the_card_matches_host_tiled_eval(cuda):
+    """The 64/32 tiled eval at 416² (144 tiles, 4 phase groups) in one
+    forward on the card against the host-side path through the same model,
+    at float32: the same tiles through the same kernels, batched otherwise."""
+    from tmar_torch import NGswin, make_inference_fn, make_tiled_eval, tiled_eval
+
+    torch.manual_seed(0)
+    model = NGswin()  # full width: the kernels' head geometry
+    x = np.random.default_rng(16).uniform(-1, 1, (1, 416, 416, 1)).astype(np.float32)
+    got = make_tiled_eval(model)(x)
+    ref = tiled_eval(make_inference_fn(model), x, 64, 32)
+    assert got.shape == x.shape and np.isfinite(got).all()
+    assert float(np.abs(got - ref).max()) <= 1e-4

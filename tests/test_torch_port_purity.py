@@ -54,9 +54,14 @@ TRAINER_SLICE = (
 )
 
 
+# the modules of the serving slice's entry point, as above
+SERVING_SLICE = ("cli.py", "eval/inference.py", "ops/cuda_nstb.py", "ops/cuda_attention.py")
+
+
 def test_trainer_slice_modules_are_in_the_package_and_scanned():
     scanned = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert set(TRAINER_SLICE) <= scanned
+    assert set(SERVING_SLICE) <= scanned
     for sub in ("data", "utils", "train", "checkpoint", "eval", "ops"):
         assert (PKG / sub / "__init__.py").is_file(), sub
 
@@ -75,6 +80,26 @@ def test_package_data_patterns_cover_every_kernel_source_header_and_config():
     # and nothing under csrc/ is left out of the build's view
     on_disk = {p.name for p in (PKG / "csrc").iterdir()}
     assert on_disk == {f"{k}.cu" for k in kernels.KERNELS} | set(kernels.HEADERS)
+
+
+def test_cli_imports_no_jax_or_tmar_when_run():
+    """The entry point, run as a module down to its argument parsing, loads
+    no JAX and no tmar module."""
+    code = (
+        "import sys, runpy\n"
+        "sys.argv = ['tmar_torch.cli', 'test', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('tmar_torch.cli', run_name='__main__')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "import tmar_torch.cli, tmar_torch.eval.inference\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(bad); sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=str(PKG.parent))
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "--device" in res.stdout
 
 
 def test_sources_import_no_jax_or_tmar():
@@ -119,6 +144,8 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         cuda_nstb.fused_nstb_map(torch.zeros(1, 8, 8, 64, device="meta"), None, *([None] * 10),
                                  6, 8)
+    with pytest.raises(ValueError, match="unsupported device"):
+        cuda_nstb.fused_nstb(torch.zeros(1, 64, 64, device="meta"), None, *([None] * 10), 6, 8)
 
 
 def test_cpu_training_form_takes_plain_versions_and_launches_nothing(monkeypatch):
@@ -154,7 +181,8 @@ class _CudaStandIn:
 
 @pytest.mark.parametrize("call", [
     lambda t: cuda_nstb.fused_nstb_map(t, None, *([None] * 6), *([(None, None)] * 4), 6, 8),
-], ids=["fused_nstb_map"])
+    lambda t: cuda_nstb.fused_nstb(t, None, *([None] * 6), *([(None, None)] * 4), 6, 8),
+], ids=["fused_nstb_map", "fused_nstb"])
 def test_forward_only_kernels_refuse_a_graphless_result_under_grad(call):
     """On a CUDA tensor with autograd on and an argument that requires grad,
     the forward-only wrapper raises and names the training form; with

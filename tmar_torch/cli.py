@@ -1,0 +1,239 @@
+"""Command-line entry points of the port (the counterpart of ``tmar.cli``):
+
+    python -m tmar_torch.cli test --checkpoint reports/compare_r4/flagship.pth \\
+        --set data.dataset=synthetic model.use_pallas_attention=true [--tiled]
+    python -m tmar_torch.cli train --config tmar_torch/configs/train_syndeeplesion.yaml \\
+        --set data.dataset=synthetic
+
+Both take the JAX CLI's arguments plus ``--device`` (default ``cuda``; ``cpu``
+runs the plain versions).  ``test`` serves the generator of the config from a
+``.pth`` file or a port checkpoint directory, full-slice or with the 64/32
+tiled eval on the device, and writes ``metrics.json`` in the JAX CLI's schema.
+
+The block form of the generator comes from the JAX package's environment
+variables, read here and nowhere else in the port, and passed to
+``build_generator`` as constructor arguments: ``TMAR_NSTB_FUSED=0`` (the
+unfused block), ``TMAR_NSTB_MAP=0`` (the token-level fused block),
+``TMAR_NGRAM_FUSED=0`` (the n-gram context on its composition path).
+``train`` builds the training form, in which only ``TMAR_NGRAM_FUSED``
+holds, as in the JAX package.  ``TMAR_ATTN_IMPL`` names one of the JAX
+package's TPU attention kernels; it is checked against their names and
+changes nothing else, since every name computes the function that K3
+computes (``tmar_torch.ops.cuda_attention.IMPLS``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+from typing import Any, Dict, List
+
+# commands of the JAX CLI that the port does not have yet, and where they stand
+NOT_PORTED = {
+    "ablate": "ROADMAP queue 1 item 7 (tmar/eval/ablation.py)",
+    "compare": "ROADMAP queue 1 item 7 (tmar/eval/harness.py)",
+    "finetune": "ROADMAP queue 1 item 8 (tmar/train/finetune.py)",
+    "export": "ROADMAP queue 1 item 10 (tmar/export.py)",
+}
+
+
+def _parse_sets(pairs) -> Dict[str, Any]:
+    """``--set`` pairs -> {dotted key: YAML value}.  argparse's
+    action="append" with nargs="*" gives a list of lists, one per ``--set``:
+    both ``--set a=1 b=2`` and ``--set a=1 --set b=2`` work."""
+    import yaml
+
+    flat: List[str] = []
+    for p in pairs or []:
+        flat.extend(p) if isinstance(p, list) else flat.append(p)
+    out = {}
+    for p in flat:
+        if "=" not in p:
+            raise SystemExit(f"--set expects key=value, got {p!r}")
+        k, v = p.split("=", 1)
+        out[k] = yaml.safe_load(v)
+    return out
+
+
+def block_form(environ=os.environ) -> Dict[str, bool]:
+    """The generator's block form from the JAX package's environment
+    variables, as ``build_generator`` keywords; an unknown ``TMAR_ATTN_IMPL``
+    raises ``ValueError``."""
+    from tmar_torch.ops.cuda_attention import check_impl
+
+    check_impl(environ.get("TMAR_ATTN_IMPL") or None)
+    return {
+        "ngram_fused": environ.get("TMAR_NGRAM_FUSED", "1") != "0",
+        "nstb_fused": environ.get("TMAR_NSTB_FUSED", "1") != "0",
+        "nstb_map": environ.get("TMAR_NSTB_MAP", "1") != "0",
+    }
+
+
+def train(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m tmar_torch.cli train",
+                                 description="Train TransMAR on the card")
+    ap.add_argument("--config", default=None, help="YAML config path")
+    ap.add_argument("--variant", default=None, help="variant/ablation name (baseline, v1..v5, full, A*, B*)")
+    ap.add_argument("--set", nargs="*", action="append", default=[], help="dotted config overrides key=value (repeatable)")
+    ap.add_argument("--resume", action="store_true", help="resume from latest checkpoint in run dir")
+    ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--no-val", action="store_true", help="skip periodic validation")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    from tmar_torch.train import Trainer, load_config, resolve_variant
+    from tmar_torch.train.trainer import build_val_dataset
+
+    cfg = load_config(args.config, _parse_sets(args.set))
+    if args.variant:
+        cfg = resolve_variant(cfg, args.variant)
+        cfg.variant = args.variant
+    trainer = Trainer(
+        cfg, device=args.device, val_dataset=None if args.no_val else build_val_dataset(cfg),
+        ngram_fused=block_form()["ngram_fused"],
+    )
+    if args.resume:
+        ok = trainer.resume()
+        print(f"[resume] {'restored from epoch ' + str(trainer.start_epoch) if ok else 'no checkpoint found, fresh start'}")
+    trainer.fit(num_epochs=args.epochs)
+    print(json.dumps({"run_dir": trainer.run_dir, "best_psnr": trainer.best_psnr}))
+    return 0
+
+
+def test(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="python -m tmar_torch.cli test",
+                                 description="Evaluate a checkpoint")
+    ap.add_argument("--config", default=None)
+    ap.add_argument("--checkpoint", required=True, help="port checkpoint dir or torch .pth file")
+    ap.add_argument("--set", nargs="*", action="append", default=[])
+    ap.add_argument("--tiled", action="store_true", help="64/32 overlapping tiled inference")
+    ap.add_argument("--out", default="test_results")
+    ap.add_argument("--max-samples", type=int, default=200)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    import numpy as np
+
+    from tmar_torch.eval import full_slice_eval, make_inference_fn, make_tiled_eval
+    from tmar_torch.eval.metrics import mae, psnr, rmse, ssim
+    from tmar_torch.train import load_config
+    from tmar_torch.train.trainer import build_generator
+
+    cfg = load_config(args.config, _parse_sets(args.set))
+    gen = build_generator(cfg, args.device, **block_form())
+    gen.load_state_dict(_load_generator_params(args.checkpoint, gen, cfg))
+    # tiled mode: extraction, one batched forward and the coverage assembly
+    # on the device; full-slice: the plain forward
+    forward = (
+        make_tiled_eval(gen, device=args.device) if args.tiled
+        else make_inference_fn(gen, device=args.device)
+    )
+
+    ds = _build_test_dataset(cfg)
+    os.makedirs(args.out, exist_ok=True)
+    rows = []
+    n = min(len(ds), args.max_samples)
+    for i in range(n):
+        sample = ds[i]
+        ct = sample["ct"][None, ..., None]
+        gt01 = (sample["gt"] + 1) / 2
+        pred = (forward(ct) if args.tiled else full_slice_eval(forward, ct))[0, ..., 0]
+        pred01 = np.clip((pred + 1) / 2, 0, 1)
+        rows.append(
+            {
+                "index": i,
+                "psnr": psnr(pred01, gt01),
+                "ssim": ssim(pred01, gt01),
+                "mae": mae(pred01, gt01),
+                "rmse": rmse(pred01, gt01),
+            }
+        )
+    summary = {k: float(np.mean([r[k] for r in rows])) for k in ("psnr", "ssim", "mae", "rmse")}
+    summary["n"] = n
+    summary["mode"] = "tiled" if args.tiled else "full_slice"
+    with open(os.path.join(args.out, "metrics.json"), "w") as f:
+        json.dump({"summary": summary, "per_sample": rows}, f, indent=2)
+    print(json.dumps(summary))
+    return 0
+
+
+def _load_generator_params(path: str, gen, cfg):
+    """The generator ``state_dict`` to serve: a ``.pth`` file's, or from a
+    port checkpoint directory the ``best`` checkpoint when there is one (else
+    the latest), its EMA weights when the run kept them."""
+    if path.endswith(".pth"):
+        from tmar_torch.checkpoint import load_pth
+
+        return load_pth(path)
+    import torch
+
+    from tmar_torch.checkpoint.io import CheckpointManager
+    from tmar_torch.train.steps import create_train_state
+    from tmar_torch.train.trainer import build_discriminator, build_optimizers
+
+    device = next(gen.parameters()).device
+    mgr = CheckpointManager(path)
+
+    def restore(ema_decay: float):
+        disc = build_discriminator(cfg, device)
+        state = create_train_state(torch.Generator().manual_seed(0), gen, disc,
+                                   *build_optimizers(cfg, gen, disc), ema_decay=ema_decay)
+        restored = mgr.restore(state, best=os.path.isdir(os.path.join(path, "best")))
+        return restored if restored is not None else mgr.restore(state)
+
+    # Whether the saved state carries an EMA is a property of the training
+    # run, not of this serving config: try the config's layout, then the
+    # other one
+    cfg_ema = getattr(cfg.optim, "ema_decay", 0.0)
+    try:
+        restored = restore(cfg_ema)
+    except ValueError:
+        restored = restore(0.0 if cfg_ema else 0.999)
+    if restored is None:
+        raise SystemExit(f"no checkpoint found under {path}")
+    state = restored[0]
+    if state.g_ema is not None:
+        return {k: v.detach().clone() for k, v in state.g_ema.items()}
+    return {k: v.detach().clone() for k, v in state.generator.state_dict().items()}
+
+
+def _build_test_dataset(cfg):
+    from tmar_torch.data import SyntheticMARDataset
+
+    d = cfg.data
+    if d.dataset in ("syndeeplesion", "spineweb"):
+        raise NotImplementedError(
+            f"dataset {d.dataset!r}: the port's {d.dataset} loader is not ported (no such "
+            "data in the repository); use data.dataset=synthetic"
+        )
+    # synthetic: full 416² slices by default, or the configured patch size
+    # when one is set
+    size = d.patch_size if d.patch_size and d.patch_size != 128 else 416
+    return SyntheticMARDataset(size=size, length=32)
+
+
+_COMMANDS = {"train": train, "test": test}
+
+
+def main(argv=None) -> int:
+    """``python -m tmar_torch.cli <command> [args]``."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    names = sorted([*_COMMANDS, *NOT_PORTED])
+    if not argv or argv[0] in ("-h", "--help"):
+        print(f"usage: python -m tmar_torch.cli {{{' | '.join(names)}}} [options]\n"
+              f"run 'python -m tmar_torch.cli <command> -h' for command options")
+        return 0 if argv else 2
+    cmd = argv[0]
+    if cmd in NOT_PORTED:
+        print(f"{cmd!r} is not ported yet: {NOT_PORTED[cmd]}", file=sys.stderr)
+        return 2
+    if cmd not in _COMMANDS:
+        print(f"unknown command {cmd!r}; expected one of {names}", file=sys.stderr)
+        return 2
+    return _COMMANDS[cmd](argv[1:])
+
+
+if __name__ == "__main__":
+    sys.exit(main())

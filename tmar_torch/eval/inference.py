@@ -3,8 +3,10 @@ counterpart of ``tmar.eval.inference``).
 
 * full-slice: the generator pads H, W to multiples of 32 internally and
   crops back, so a 416² slice runs as one 448²-padded forward;
-* tiled: overlapping tiles (default 64 px, stride 32) batched through the
-  forward, accumulated on the host and averaged by coverage weight.
+* tiled: overlapping tiles (default 64 px, stride 32) through the forward,
+  averaged by coverage weight: ``tiled_eval`` batches them through a numpy
+  forward and assembles on the host; ``make_tiled_eval`` extracts every tile,
+  runs one batched forward and assembles on the device.
 """
 
 from __future__ import annotations
@@ -82,3 +84,46 @@ def tiled_eval(
     for r, c in coords:
         weight[0, r : r + tile, c : c + tile, :] += 1.0
     return (out / weight).astype(np.float32)
+
+
+def make_tiled_eval(
+    model: torch.nn.Module, tile: int = 64, stride: int = 32, device="cuda"
+) -> Callable[[np.ndarray], np.ndarray]:
+    """Device-side tiled eval (the counterpart of
+    ``tmar.eval.inference.make_tiled_eval_jit``): tile extraction, ONE
+    batched forward of all tiles and the coverage-weighted assembly run on
+    ``device``, with autograd off; numpy [B, H, W, C] in, numpy out.  Moves
+    the model there and sets it to eval mode.  One indexed gather and
+    scatter serve every geometry, where the JAX function reshapes aligned
+    ones by phase group.  The JAX function's ``mesh``
+    (the tile batch sharded over devices) waits for the port's data-parallel
+    layer; the port runs on one device."""
+    dev = resolve_device(device)
+    model = model.to(dev).eval()
+
+    @torch.no_grad()
+    def run(ct: np.ndarray) -> np.ndarray:
+        t = torch.from_numpy(np.ascontiguousarray(ct, dtype=np.float32)).to(dev)
+        return _tiled_run(model, tile, stride, t).cpu().numpy()
+
+    return run
+
+
+def _tiled_run(model, tile: int, stride: int, ct: torch.Tensor) -> torch.Tensor:
+    """ct [B, H, W, C] on the device -> the coverage-weighted average of the
+    restored tiles, float32.  One index of flat pixel positions, tile by tile,
+    gathers every tile of every image; the tiles go through the model in one
+    batch, and ``index_add_`` puts each result and its coverage back."""
+    B, H, W, C = ct.shape
+    th, tw = min(tile, H), min(tile, W)
+    dev = ct.device
+    rows = torch.tensor(_tile_positions(H, tile, stride), device=dev)
+    cols = torch.tensor(_tile_positions(W, tile, stride), device=dev)
+    r = (rows[:, None] + torch.arange(th, device=dev))[:, None, :, None]  # [nr, 1, th, 1]
+    c = (cols[:, None] + torch.arange(tw, device=dev))[None, :, None, :]  # [1, nc, 1, tw]
+    idx = (r * W + c).reshape(-1)
+    n = idx.numel() // (th * tw)
+    res = model(ct.reshape(B, H * W, C)[:, idx].reshape(B * n, th, tw, C)).float()
+    out = torch.zeros((B, H * W, C), device=dev).index_add_(1, idx, res.reshape(B, -1, C))
+    weight = torch.zeros(H * W, device=dev).index_add_(0, idx, torch.ones(idx.numel(), device=dev))
+    return (out / weight[:, None]).reshape(B, H, W, C)

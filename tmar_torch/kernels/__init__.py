@@ -29,11 +29,13 @@ NVCC_FLAGS = [
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 KERNELS = (
-    "ngram_context", "ngram_context_bwd", "nstb_map",
+    "ngram_context", "ngram_context_bwd", "nstb_map", "nstb_tokens",
     "window_attention_fwd", "window_attention_bwd",
     "residual_ffn_fwd", "residual_ffn_bwd",
 )
-HEADERS = ("common.cuh",)  # included by the kernels with a backward; part of every hash
+# common.cuh: included by the kernels with a backward; nstb_window.cuh: the
+# whole-block body of nstb_map and nstb_tokens.  Both are part of every hash.
+HEADERS = ("common.cuh", "nstb_window.cuh")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -1,14 +1,30 @@
 """NSTB — the N-Gram Swin Transformer Block (the counterpart of
-``tmar.nn.blocks``), in two forms over one parameter set, selected by
+``tmar.nn.blocks``), in several forms over one parameter set, selected by
 ``attn_backward`` as in the JAX package:
 
-* ``"auto"``, inference: the whole-block fusion in map mode, exactly two
-  forward-only kernels per block (``fused_ngram_context``, ``fused_nstb_map``);
+* ``"auto"``, inference, in one of three block forms chosen by the
+  constructor arguments that stand in for the JAX package's environment
+  variables (``nstb_fused`` for ``TMAR_NSTB_FUSED``, ``nstb_map`` for
+  ``TMAR_NSTB_MAP``):
+
+  - fused, map (the default): the whole-block fusion on the map, two
+    forward-only kernels per block (``fused_ngram_context``,
+    ``fused_nstb_map``);
+  - fused, tokens (``nstb_map=False``): the n-gram context, then roll and
+    partition, the 2x2 context quads (Q = 4 even at shift 0, as the JAX
+    token form passes them), ``fused_nstb`` on the windows, unpartition and
+    reverse roll;
+  - unfused (``nstb_fused=False``): the training form's code path below;
+    served under ``torch.no_grad()`` it runs the forward kernels only.  The
+    JAX package's ``TMAR_ATTN_IMPL`` names a TPU attention kernel here; every
+    name computes the same function, which K3 computes
+    (``tmar_torch.ops.cuda_attention.IMPLS``), so the block takes no name;
+
 * ``"pallas"``, training: the n-gram context through
   ``fused_ngram_context`` (or, with ``ngram_fused=False``, on its composition
   path), the window attention through ``fused_window_attention`` and the
   post-norm residual FFN through ``fused_residual_ffn``; all three have
-  backward kernels.
+  backward kernels.  ``nstb_fused`` and ``nstb_map`` are ignored here, as the JAX package's block fusion stands aside in training.
 
 Post-norm residual order, as in the reference: ``x + norm1(attn(x))`` then
 ``x + norm2(mlp(x))``.  The block returns ``(x_in, x_out)`` so stages can
@@ -26,7 +42,7 @@ from tmar_torch.nn.layers import LayerNorm, Mlp
 from tmar_torch.nn.ngram import NGramWindowPartition, check_attn_backward
 from tmar_torch.nn.window_attention import WindowAttention
 from tmar_torch.ops.cuda_ffn import fused_residual_ffn
-from tmar_torch.ops.cuda_nstb import context_quads, fused_nstb_map
+from tmar_torch.ops.cuda_nstb import context_quads, fused_nstb, fused_nstb_map
 from tmar_torch.ops.window import (
     reverse_cyclic_shift,
     shift_mask_components,
@@ -47,6 +63,8 @@ class NSTB(nn.Module):
         qkv_bias: bool = True,
         attn_backward: str = "auto",
         ngram_fused: bool = True,
+        nstb_fused: bool = True,
+        nstb_map: bool = True,
     ):
         super().__init__()
         self.attn_backward = check_attn_backward(attn_backward)
@@ -55,6 +73,9 @@ class NSTB(nn.Module):
         self.num_heads = num_heads
         self.window_size = window_size
         self.shift_size = shift_size
+        inference = self.attn_backward == "auto"
+        self.nstb_fused = bool(nstb_fused) and inference
+        self.nstb_map = bool(nstb_map)
         self.ngram_window_partition = NGramWindowPartition(
             dim, window_size, ngram, num_heads, attn_backward, ngram_fused
         )
@@ -71,8 +92,10 @@ class NSTB(nn.Module):
         B, p, D = x.shape
         if p != ph * pw:
             raise ValueError("token count does not match the patch grid")
-        if self.attn_backward == "pallas":
-            return x, self._forward_train(x, num_patches)
+        if not self.nstb_fused:
+            return x, self._forward_unfused(x, num_patches)
+        if not self.nstb_map:
+            return x, self._forward_tokens(x, num_patches)
         xmap, (wh, ww), ctx = self.ngram_window_partition(x.reshape(B, ph, pw, D))
         if self.shift_size == 0:
             cq = ctx.reshape(-1, 1, D)  # every token reads its own window's context
@@ -84,7 +107,22 @@ class NSTB(nn.Module):
         out = reverse_cyclic_shift(zmap, self.shift_size)
         return x, out.reshape(B, p, D)
 
-    def _forward_train(self, x: torch.Tensor, num_patches: Tuple[int, int]) -> torch.Tensor:
+    def _forward_tokens(self, x: torch.Tensor, num_patches: Tuple[int, int]) -> torch.Tensor:
+        ph, pw = num_patches
+        B, p, D = x.shape
+        ws = self.window_size
+        windows, (wh, ww), ctx = self.ngram_window_partition.windows(
+            x.reshape(B, ph, pw, D), self.shift_size
+        )
+        cq = context_quads(ctx, self.shift_size).reshape(-1, 4, D)
+        z = fused_nstb(
+            windows.reshape(-1, ws * ws, D), cq, *self.kernel_args(), shift=self.shift_size,
+            grid=(wh, ww), eps=self.norm1.eps,
+        )
+        out = window_unpartition(z.reshape(-1, ws, ws, D), (wh, ww))
+        return reverse_cyclic_shift(out, self.shift_size).reshape(B, p, D)
+
+    def _forward_unfused(self, x: torch.Tensor, num_patches: Tuple[int, int]) -> torch.Tensor:
         ph, pw = num_patches
         B, p, D = x.shape
         ws = self.window_size
@@ -107,8 +145,8 @@ class NSTB(nn.Module):
         return z.reshape(B, p, D)
 
     def kernel_args(self):
-        """This block's weights as ``fused_nstb_map`` takes them, from
-        ``wqkv`` to ``window_size``."""
+        """This block's weights as ``fused_nstb_map`` and ``fused_nstb``
+        take them, from ``wqkv`` to ``window_size``."""
         return (
             *self.attn.params(),
             (self.norm1.weight, self.norm1.bias),

@@ -91,16 +91,16 @@ class PatchMerging(nn.Module):
         return self.reduction(self.norm(merged)), (ph // 2, pw // 2)
 
 
-def _stage_blocks(
-    dim, ngram, depth, num_heads, window_size, head_dim, mlp_ratio, qkv_bias, attn_backward,
-    ngram_fused,
-):
+def _stage_blocks(dim, ngram, depth, num_heads, window_size, head_dim, mlp_ratio, qkv_bias,
+                  **form):
+    """``depth`` NSTBs with alternating shift 0 / ws/2; ``form`` holds the
+    block-form arguments (``attn_backward``, ``ngram_fused``, ``nstb_fused``,
+    ``nstb_map``)."""
     return nn.ModuleList(
         NSTB(
             dim, ngram, num_heads, window_size,
             shift_size=0 if i % 2 == 0 else window_size // 2,
-            head_dim=head_dim, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
-            attn_backward=attn_backward, ngram_fused=ngram_fused,
+            head_dim=head_dim, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, **form,
         )
         for i in range(depth)
     )
@@ -131,12 +131,15 @@ class EncoderLayer(nn.Module):
         num_cas: int = 1,
         attn_backward: str = "auto",
         ngram_fused: bool = True,
+        nstb_fused: bool = True,
+        nstb_map: bool = True,
     ):
         super().__init__()
         self.across_cascade_proj = Linear(num_cas * dim, dim) if num_cas != 1 else None
         self.blocks = _stage_blocks(
             dim, ngram, depth, num_heads, window_size, head_dim, mlp_ratio, qkv_bias,
-            attn_backward, ngram_fused,
+            attn_backward=attn_backward, ngram_fused=ngram_fused, nstb_fused=nstb_fused,
+            nstb_map=nstb_map,
         )
         self.downsample = PatchMerging(dim, downsample_dim) if downsample else None
 
@@ -199,11 +202,14 @@ class DecoderLayer(nn.Module):
         qkv_bias: bool = True,
         attn_backward: str = "auto",
         ngram_fused: bool = True,
+        nstb_fused: bool = True,
+        nstb_map: bool = True,
     ):
         super().__init__()
         self.blocks = _stage_blocks(
             dim, ngram, depth, num_heads, window_size, head_dim, mlp_ratio, qkv_bias,
-            attn_backward, ngram_fused,
+            attn_backward=attn_backward, ngram_fused=ngram_fused, nstb_fused=nstb_fused,
+            nstb_map=nstb_map,
         )
 
     def forward(self, x: torch.Tensor, num_patches: Tuple[int, int]) -> torch.Tensor:

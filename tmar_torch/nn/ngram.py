@@ -12,8 +12,10 @@
   autograd.  The parameters and their names are the same in every form.
 * ``NGramWindowPartition``: ``forward`` is the map form of the JAX module's
   ``return_context="map"`` (the map itself and its per-window context, for the
-  fused NSTB to add per quadrant); ``partition`` adds the context to every
-  window, shifts and partitions, for the training form.
+  fused NSTB to add per quadrant); ``windows`` is its ``return_context=True``
+  (the windows of the rolled map without the context, for the token-level
+  fused NSTB); ``partition`` adds the context to every window, shifts and
+  partitions, for the unfused block.
 """
 
 from __future__ import annotations
@@ -142,6 +144,14 @@ class NGramWindowPartition(nn.Module):
         if wh == 0 or ww == 0:
             raise ValueError("feature map smaller than the window size")
         return x, (wh, ww), self.ngram_context(x)
+
+    def windows(self, x: torch.Tensor, shift_size: int):
+        """x [B, ph, pw, D] -> (windows [B*wh*ww, ws, ws, D] of the map after
+        the cyclic shift, WITHOUT the context; (wh, ww); context
+        [B, wh, ww, D])."""
+        x, (wh, ww), context = self(x)
+        wins, _ = window_partition(cyclic_shift(x, shift_size), self.window_size)
+        return wins, (wh, ww), context
 
     def partition(self, x: torch.Tensor, shift_size: int):
         """x [B, ph, pw, D] -> (windows [B*wh*ww, ws, ws, D], (wh, ww)) of the

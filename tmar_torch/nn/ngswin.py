@@ -13,8 +13,11 @@ and W are padded to multiples of 4·window_size and cropped back.
 ``ngram_fused`` (default True, as the JAX package on hardware, where its
 ``TMAR_NGRAM_FUSED`` environment variable decides) sends every block's
 n-gram context through ``fused_ngram_context``, forward and backward
-kernels; False sends it down the composition path.  Every form holds the
-same parameters under the same names.
+kernels; False sends it down the composition path.  In the inference form
+``nstb_fused`` and ``nstb_map`` pick the block form as the JAX package's
+``TMAR_NSTB_FUSED`` and ``TMAR_NSTB_MAP`` do (``tmar_torch.nn.blocks``); the
+training form ignores them.  Every form
+holds the same parameters under the same names.
 
 Submodule names follow the reference checkpoint layout, so a reference
 ``state_dict`` (``flagship.pth``) loads key for key.
@@ -70,6 +73,8 @@ class NGswin(nn.Module):
         dtype: torch.dtype = torch.float32,
         attn_backward: str = "auto",
         ngram_fused: bool = True,
+        nstb_fused: bool = True,
+        nstb_map: bool = True,
         device="cuda",
     ):
         super().__init__()
@@ -87,6 +92,8 @@ class NGswin(nn.Module):
         self.dtype = dtype
         self.attn_backward = attn_backward
         self.ngram_fused = ngram_fused
+        form = dict(attn_backward=attn_backward, ngram_fused=ngram_fused, nstb_fused=nstb_fused,
+                    nstb_map=nstb_map)
         n_enc = len(self.depths)
 
         self.shallow_extract = ShallowExtractor(in_chans, embed_dim)
@@ -97,13 +104,12 @@ class NGswin(nn.Module):
                 embed_dim, self.ngrams[i], self.depths[i], self.num_heads[i], window_size,
                 head_dim=head_dim, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
                 downsample=not last, downsample_dim=None if last else embed_dim,
-                num_cas=i + 1, attn_backward=attn_backward, ngram_fused=ngram_fused,
+                num_cas=i + 1, **form,
             ))
         self.bottleneck = SCDPBottleneck(n_enc, embed_dim, dec_dim)
         self.decoder_layer1 = DecoderLayer(
             dec_dim, self.ngrams[n_enc], dec_depths, dec_num_heads, window_size,
-            head_dim=dec_head_dim, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias,
-            attn_backward=attn_backward, ngram_fused=ngram_fused,
+            head_dim=dec_head_dim, mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, **form,
         )
         self.norm = LayerNorm(dec_dim)
         self.to_target = _Head(dec_dim, in_chans)

@@ -14,6 +14,25 @@ the saved row-wise log-sum-exp), or raises.
 The kernels compute in float32 on the float32 parameters whatever the
 activation dtype; the activations and their cotangents are float32 or
 bfloat16.
+
+``impl`` takes the names of the JAX package's forward kernels
+(``TMAR_ATTN_IMPL``).  Each is a way of feeding the TPU's matrix unit (how
+windows and heads are stacked into one product) and computes the same
+function, which K3 computes per window; so every name launches K3, and only
+its counter in ``fused_window_attention.launches_by_impl`` tells them apart.
+The backward is K4 for every name, as the JAX op's ``_fused_backward`` is
+one kernel per window length.  The names (``IMPLS``), the TPU kernel each
+selects in ``tmar/ops/pallas_attention.py``, and its kernel here:
+
+    batched           _attn_kernel_batched                   :1143  -> K3
+    batched_hm        _attn_kernel_batched(merge_heads)      :1143  -> K3
+    blockdiag         _attn_kernel                           :1175  -> K3
+    blockdiag_mxnorm  _attn_kernel(mxu_norms)                :1175  -> K3
+    diag              _attn_kernel_diag                      :1241  -> K3
+    packed            _attn_kernel_packed                    :813   -> K3
+
+(K3 = ``csrc/window_attention_fwd.cu``; None selects ``batched`` for windows
+of 32 tokens or more and ``blockdiag`` below, as the JAX op does.)
 """
 
 from __future__ import annotations
@@ -31,6 +50,34 @@ from tmar_torch.ops.attention import LOGIT_SCALE_MAX, on_device, window_attentio
 # NGswin's 8x8 windows at D = 64 and its 2x2 n-gram windows at D/2 = 32
 KERNEL_GEOMETRIES = {(64, 64, 6, 10), (64, 64, 4, 16), (4, 32, 6, 5), (4, 32, 4, 8)}
 
+# impl name -> the TPU kernel it selects in tmar/ops/pallas_attention.py; on
+# the card every one is K3, csrc/window_attention_fwd.cu
+IMPLS = {
+    "batched": "_attn_kernel_batched, pallas_attention.py:1143",
+    "batched_hm": "_attn_kernel_batched(merge_heads=True), pallas_attention.py:1143 "
+                  "(batched_attention_core :933-971)",
+    "blockdiag": "_attn_kernel, pallas_attention.py:1175",
+    "blockdiag_mxnorm": "_attn_kernel(mxu_norms=True), pallas_attention.py:1175 (:1199-1210)",
+    "diag": "_attn_kernel_diag, pallas_attention.py:1241",
+    "packed": "_attn_kernel_packed, pallas_attention.py:813",
+}
+
+
+def check_impl(impl: Optional[str]) -> Optional[str]:
+    """``impl`` if it is None or a name of ``IMPLS``; an unknown name raises
+    (the JAX package falls back to ``blockdiag`` silently)."""
+    if impl is not None and impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}; expected one of {sorted(IMPLS)}")
+    return impl
+
+
+def resolve_impl(impl: Optional[str], N: int) -> str:
+    """``impl``, or the JAX package's default for N-token windows when None:
+    ``batched`` from 32 tokens up, ``blockdiag`` below."""
+    if check_impl(impl) is None:
+        return "batched" if N >= 32 else "blockdiag"
+    return impl
+
 
 def fused_window_attention(
     x: torch.Tensor,
@@ -42,14 +89,20 @@ def fused_window_attention(
     bproj: Optional[torch.Tensor],
     num_heads: int,
     mask_components: Optional[Tuple] = None,
+    impl: Optional[str] = None,
 ) -> torch.Tensor:
     """x [B_, N, D] -> [B_, N, D].  wqkv [D, 3A] and wproj [A, D] in the
     [in, out] layout (a transposed view is read in place), logit_scale
     [nh, 1, 1] raw, bias the gathered relative-position bias [nh, N, N],
     mask_components (m_row [N, N], m_col [N, N], wh, ww) as
-    ``cosine_window_attention`` takes them.  Differentiable in all seven
-    tensor arguments.  A CPU tensor runs the plain version; a CUDA tensor
-    launches the kernels (float32 or bfloat16) or raises."""
+    ``cosine_window_attention`` takes them.  ``impl`` names the JAX
+    package's forward kernel (``IMPLS``; None: its default for N); every
+    name launches K3 and counts in ``launches_by_impl``, so the name
+    changes no result.  The JAX op's ``windows_per_step`` and ``interpret``
+    shape the TPU grid and have no counterpart here.  Differentiable in all
+    seven tensor arguments.  A CPU tensor runs the plain version; a CUDA
+    tensor launches the kernels (float32 or bfloat16) or raises."""
+    impl = resolve_impl(impl, x.shape[1])
     if x.device.type == "cpu":
         cd = x.dtype
         return window_attention_math(
@@ -60,12 +113,13 @@ def fused_window_attention(
     if x.device.type != "cuda":
         raise ValueError(f"fused_window_attention: unsupported device {x.device}")
     return _WindowAttention.apply(
-        x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components
+        x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components, impl
     )
 
 
 fused_window_attention.launches = 0           # forward kernel
 fused_window_attention.backward_launches = 0  # backward kernel
+fused_window_attention.launches_by_impl = dict.fromkeys(IMPLS, 0)  # forward, by impl name
 
 
 def _geometry(x, wqkv, num_heads):
@@ -103,7 +157,8 @@ def _ptr(t):
 
 class _WindowAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components):
+    def forward(ctx, x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components,
+                impl):
         from tmar_torch import kernels
 
         B_, N, D, A = _geometry(x, wqkv, num_heads)
@@ -133,6 +188,7 @@ class _WindowAttention(torch.autograd.Function):
             _ptr(m_col), out.data_ptr(), lse.data_ptr(), *ints,
         )
         fused_window_attention.launches += 1
+        fused_window_attention.launches_by_impl[impl] += 1
         ctx.save_for_backward(x, w_qkv, b_qkv, scale, bias32, w_proj, lse, logit_scale)
         ctx.mask = (m_row, m_col)
         ctx.ints = ints
@@ -175,7 +231,7 @@ class _WindowAttention(torch.autograd.Function):
             dwproj.reshape(A, D), dbproj,
         ]
         grads = [None if dt is None else t.to(dt) for t, dt in zip(grads, ctx.grad_dtypes)]
-        return (dx, *grads, None, None)
+        return (dx, *grads, None, None, None)
 
 
 _P = ctypes.c_void_p

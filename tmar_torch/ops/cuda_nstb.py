@@ -1,8 +1,8 @@
-"""A whole NSTB on the feature map: plain version and CUDA kernel wrapper.
+"""A whole NSTB: plain versions and the wrappers of its two CUDA kernels.
 
-The counterpart of ``tmar.ops.pallas_nstb`` (map mode).  The n-gram context
-is added per window BEFORE the cyclic shift, so after a roll by ``shift``
-each shifted window covers a 2x2 neighbourhood of pre-shift windows and its
+The counterpart of ``tmar.ops.pallas_nstb``.  The n-gram context is added
+per window BEFORE the cyclic shift, so after a roll by ``shift`` each
+shifted window covers a 2x2 neighbourhood of pre-shift windows and its
 context is constant per quadrant: ``ctx_tok = sel @ ctx_quads[window]``.
 Then
 
@@ -11,9 +11,16 @@ Then
     y      = x + LN1(a)                      (residual WITHOUT the context)
     z      = y + LN2(fc2(GELU(fc1(y))))
 
-``fused_nstb_map`` runs the plain version for a CPU tensor and launches
-``csrc/nstb_map.cu`` for a CUDA tensor.  Both return the block output in
-ROLLED space; the caller applies the reverse cyclic shift.
+Two forms of one function, both forward-only:
+
+* ``fused_nstb_map`` (map mode, the default): the unrolled map in, roll and
+  window partition in the kernel, ``csrc/nstb_map.cu`` (K2);
+* ``fused_nstb`` (token mode, the JAX package's ``TMAR_NSTB_MAP=0``): the
+  windows of the rolled map in, ``csrc/nstb_tokens.cu`` (K8).
+
+Each runs its plain version for a CPU tensor and launches its kernel for a
+CUDA tensor, or raises.  Both return the block output in ROLLED space; the
+caller unpartitions (token mode) and applies the reverse cyclic shift.
 """
 
 from __future__ import annotations
@@ -91,40 +98,57 @@ def nstb_math(
     return z.reshape(B_, N, D)
 
 
-def nstb_map_math(
-    xmap, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
-    ln1, ffn1, ffn2, ln2, *, num_heads, window_size, shift=0, eps=1e-5,
+def nstb_tokens_math(
+    x, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
+    ln1, ffn1, ffn2, ln2, *, num_heads, window_size, shift=0, grid=None, eps=1e-5,
 ):
-    """Plain version of the map-level block: roll, partition, ``nstb_math``,
-    unpartition.  Arguments as in ``fused_nstb_map``."""
-    B, ph, pw, D = xmap.shape
+    """Plain version of the token-level block.  Arguments as in
+    ``fused_nstb``."""
+    B_, N, D = x.shape
     ws = window_size
-    N = ws * ws
-    wh, ww = ph // ws, pw // ws
-    sel, mask_components = _selector_and_mask(ctx_quads.shape[1], ws, shift, wh, ww)
+    sel, mask_components = _selector_and_mask(ctx_quads.shape[1], ws, shift, grid)
     bias = gather_rel_pos_bias(table, relative_position_index(ws, ws), num_heads)
-    wins, _ = window_partition(cyclic_shift(xmap, shift), ws)
     # matrices and attention biases in the activation dtype; LayerNorm and
     # FFN biases stay float32 (as the JAX block passes them)
-    cd = xmap.dtype
+    cd = x.dtype
     opt = lambda t: None if t is None else t.to(cd)  # noqa: E731
-    z = nstb_math(
-        wins.reshape(-1, N, D), ctx_quads.to(cd), sel, wqkv.to(cd), opt(bqkv),
+    return nstb_math(
+        x, ctx_quads.to(cd), sel, wqkv.to(cd), opt(bqkv),
         logit_scale, bias, wproj.to(cd), opt(bproj), ln1[0], ln1[1],
         ffn1[0].to(cd), ffn1[1], ffn2[0].to(cd), ffn2[1], ln2[0], ln2[1],
         num_heads=num_heads, mask_components=mask_components, eps=eps,
     )
+
+
+def nstb_map_math(
+    xmap, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
+    ln1, ffn1, ffn2, ln2, *, num_heads, window_size, shift=0, eps=1e-5,
+):
+    """Plain version of the map-level block: roll, partition,
+    ``nstb_tokens_math``, unpartition.  Arguments as in ``fused_nstb_map``."""
+    B, ph, pw, D = xmap.shape
+    ws = window_size
+    wh, ww = ph // ws, pw // ws
+    wins, _ = window_partition(cyclic_shift(xmap, shift), ws)
+    z = nstb_tokens_math(
+        wins.reshape(-1, ws * ws, D), ctx_quads, wqkv, bqkv, logit_scale, table, wproj,
+        bproj, ln1, ffn1, ffn2, ln2, num_heads=num_heads, window_size=ws, shift=shift,
+        grid=(wh, ww), eps=eps,
+    )
     return window_unpartition(z.reshape(-1, ws, ws, D), (wh, ww))
 
 
-def _selector_and_mask(Q, ws, shift, wh, ww):
+def _selector_and_mask(Q, ws, shift, grid):
     """Q = 1: every token reads its own window's context; Q = 4: the 2x2
-    quadrant selector.  The shift mask exists only for shifted blocks."""
+    quadrant selector.  The shift mask exists only for shifted blocks, on
+    the window grid ``grid`` = (wh, ww) of one image."""
     sel = np.ones((ws * ws, 1), np.float32) if Q == 1 else quadrant_selector(ws, shift)
     mask = None
     if shift > 0:
+        if grid is None:
+            raise ValueError("a shifted block needs the window grid (wh, ww) of its mask")
         m_row, m_col = shift_mask_components(ws, shift)
-        mask = (m_row, m_col, wh, ww)
+        mask = (m_row, m_col, *grid)
     return sel, mask
 
 
@@ -155,55 +179,100 @@ def fused_nstb_map(
     runs the plain version; a CUDA tensor launches the kernel or raises.  The
     kernel is forward-only: with autograd on and an argument that requires
     grad it raises (train in the block's training form instead)."""
+    weights = (wqkv, bqkv, logit_scale, table, wproj, bproj, ln1, ffn1, ffn2, ln2)
     if xmap.device.type == "cpu":
         return nstb_map_math(
-            xmap, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
-            ln1, ffn1, ffn2, ln2, num_heads=num_heads, window_size=window_size,
+            xmap, ctx_quads, *weights, num_heads=num_heads, window_size=window_size,
             shift=shift, eps=eps,
         )
     if xmap.device.type != "cuda":
         raise ValueError(f"fused_nstb_map: unsupported device {xmap.device}")
-    refuse_grad(
-        "fused_nstb_map",
-        (xmap, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj, *ln1, *ffn1, *ffn2, *ln2),
-    )
-    operands, out, ints = _kernel_operands(
-        xmap, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
-        ln1, ffn1, ffn2, ln2, num_heads, window_size, shift,
-    )
+    refuse_grad("fused_nstb_map", (xmap, ctx_quads, *_flat(weights)))
+    operands, out, ints = _kernel_operands(xmap, ctx_quads, *weights, num_heads, window_size, shift)
     _launch(operands, out, ints, eps)
     return out
 
 
-def _kernel_operands(
-    xmap, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
-    ln1, ffn1, ffn2, ln2, num_heads, window_size, shift,
-):
-    """Check the geometry and lay out the kernel's operands on xmap's device:
-    returns (the 16 input tensors in the C entry point's order, the output,
-    the entry point's integer arguments)."""
-    B, ph, pw, D = xmap.shape
+def fused_nstb(
+    x: torch.Tensor,
+    ctx_quads: torch.Tensor,
+    wqkv: torch.Tensor,
+    bqkv: Optional[torch.Tensor],
+    logit_scale: torch.Tensor,
+    table: torch.Tensor,
+    wproj: torch.Tensor,
+    bproj: Optional[torch.Tensor],
+    ln1: Tuple[torch.Tensor, torch.Tensor],
+    ffn1: Tuple[torch.Tensor, torch.Tensor],
+    ffn2: Tuple[torch.Tensor, torch.Tensor],
+    ln2: Tuple[torch.Tensor, torch.Tensor],
+    num_heads: int,
+    window_size: int,
+    shift: int = 0,
+    grid: Optional[Tuple[int, int]] = None,
+    eps: float = 1e-5,
+) -> torch.Tensor:
+    """The token-level block (the counterpart of ``tmar.ops.pallas_nstb.
+    fused_nstb``).  x [B_, N, D]: the context-free windows of the ROLLED map,
+    N = window_size²; ctx_quads [B_, Q, D], Q = 1 (own context) or 4 (the
+    2x2 pre-shift neighbourhood; at shift 0 slot 0 is read).  ``grid`` =
+    (wh, ww) is the window grid of one image: window b's place in it,
+    b mod (wh·ww), gates the shift mask, so a shifted block needs it and B_
+    must be a multiple of wh·ww.  The weights as ``fused_nstb_map`` takes
+    them.  Returns z [B_, N, D] in rolled window space.
+
+    The JAX op's tiling arguments (``windows_per_step``, ``interpret``)
+    shape the TPU grid and have no counterpart here; its ``sel``, ``bias``
+    and ``mask_components`` are derived from Q, ``table``, ``shift`` and
+    ``grid``.  A CPU tensor runs the plain version; a CUDA tensor launches
+    the kernel or raises.  Forward-only, as ``fused_nstb_map``."""
+    weights = (wqkv, bqkv, logit_scale, table, wproj, bproj, ln1, ffn1, ffn2, ln2)
+    if x.device.type == "cpu":
+        return nstb_tokens_math(
+            x, ctx_quads, *weights, num_heads=num_heads, window_size=window_size,
+            shift=shift, grid=grid, eps=eps,
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_nstb: unsupported device {x.device}")
+    refuse_grad("fused_nstb", (x, ctx_quads, *_flat(weights)))
+    operands, out, ints = _token_operands(
+        x, ctx_quads, *weights, num_heads, window_size, shift, grid
+    )
+    _launch_tokens(operands, out, ints, eps)
+    return out
+
+
+def _flat(weights):
+    return [t for w in weights for t in (w if isinstance(w, tuple) else (w,))]
+
+
+def _check_geometry(name, D, wqkv, ffn1, num_heads, window_size, Q, shift, dtype):
     A = wqkv.shape[1] // 3
     H = ffn1[0].shape[1]
-    Q = ctx_quads.shape[1]
     if (
         (window_size, D, H) != (8, 64, 128)
         or A % num_heads
         or (num_heads, A // num_heads) not in KERNEL_HEADS
     ):
         raise NotImplementedError(
-            f"nstb_map kernel is built for window 8, D=64, H=128, (heads, head_dim) "
+            f"{name} kernel is built for window 8, D=64, H=128, (heads, head_dim) "
             f"in {sorted(KERNEL_HEADS)}; got window {window_size}, D={D}, H={H}, "
             f"heads={num_heads}, A={A}"
         )
-    wh, ww = ph // 8, pw // 8
-    if ph % 8 or pw % 8 or not 0 <= shift < 8 or Q not in (1, 4):
-        raise ValueError(f"fused_nstb_map: bad geometry {tuple(xmap.shape)}, Q={Q}, shift={shift}")
-    if tuple(ctx_quads.shape) != (B * wh * ww, Q, D):
-        raise ValueError(f"ctx_quads shape {tuple(ctx_quads.shape)} != {(B * wh * ww, Q, D)}")
-    if xmap.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fused_nstb_map: unsupported dtype {xmap.dtype}")
-    dev, cd = xmap.device, xmap.dtype
+    if not 0 <= shift < 8 or Q not in (1, 4):
+        raise ValueError(f"{name}: bad Q={Q} or shift={shift}")
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name}: unsupported dtype {dtype}")
+    return A
+
+
+def _weight_operands(wqkv, bqkv, logit_scale, table, wproj, bproj, ln1, ffn1, ffn2, ln2,
+                     num_heads, dev, cd):
+    """The 14 weight operands, from wqkv to ln2's bias, in the C entry
+    points' order: the matrices in the activation dtype ``cd``, the rest
+    float32, the logit scale as exp(min(ls, ln 100))."""
+    A = wqkv.shape[1] // 3
+    D = wproj.shape[1]
 
     def f32(t):
         return t.detach().to(device=dev, dtype=torch.float32).contiguous()
@@ -211,9 +280,7 @@ def _kernel_operands(
     def mat(t):
         return t.detach().to(device=dev, dtype=cd).contiguous()
 
-    operands = [
-        xmap.contiguous(),
-        ctx_quads.to(cd).contiguous(),
+    return [
         mat(wqkv),
         torch.zeros(3 * A, device=dev) if bqkv is None else f32(bqkv),
         torch.exp(torch.clamp(f32(logit_scale).reshape(num_heads), max=LOGIT_SCALE_MAX)),
@@ -225,11 +292,57 @@ def _kernel_operands(
         mat(ffn2[0]), f32(ffn2[1]),
         f32(ln2[0]), f32(ln2[1]),
     ]
+
+
+def _kernel_operands(
+    xmap, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
+    ln1, ffn1, ffn2, ln2, num_heads, window_size, shift,
+):
+    """Check the geometry and lay out K2's operands on xmap's device:
+    returns (the 16 input tensors in the C entry point's order, the output,
+    the entry point's integer arguments)."""
+    B, ph, pw, D = xmap.shape
+    Q = ctx_quads.shape[1]
+    A = _check_geometry("nstb_map", D, wqkv, ffn1, num_heads, window_size, Q, shift, xmap.dtype)
+    wh, ww = ph // 8, pw // 8
+    if ph % 8 or pw % 8 or not (B and wh and ww):
+        raise ValueError(f"fused_nstb_map: bad geometry {tuple(xmap.shape)}")
+    if tuple(ctx_quads.shape) != (B * wh * ww, Q, D):
+        raise ValueError(f"ctx_quads shape {tuple(ctx_quads.shape)} != {(B * wh * ww, Q, D)}")
+    dev, cd = xmap.device, xmap.dtype
+    operands = [xmap.contiguous(), ctx_quads.to(cd).contiguous()] + _weight_operands(
+        wqkv, bqkv, logit_scale, table, wproj, bproj, ln1, ffn1, ffn2, ln2, num_heads, dev, cd
+    )
     ints = (B, ph, pw, Q, shift, num_heads, A // num_heads, int(cd == torch.bfloat16))
     return operands, torch.empty_like(operands[0]), ints
 
 
+def _token_operands(
+    x, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
+    ln1, ffn1, ffn2, ln2, num_heads, window_size, shift, grid,
+):
+    """Check the geometry and lay out K8's operands on x's device, as
+    ``_kernel_operands`` does for K2."""
+    B_, N, D = x.shape
+    Q = ctx_quads.shape[1]
+    A = _check_geometry("nstb_tokens", D, wqkv, ffn1, num_heads, window_size, Q, shift, x.dtype)
+    if N != 64 or B_ < 1:
+        raise ValueError(f"fused_nstb: bad window shape {tuple(x.shape)}")
+    if tuple(ctx_quads.shape) != (B_, Q, D):
+        raise ValueError(f"ctx_quads shape {tuple(ctx_quads.shape)} != {(B_, Q, D)}")
+    wh, ww = (0, 0) if grid is None else (int(grid[0]), int(grid[1]))
+    if shift > 0 and (wh < 1 or ww < 1 or B_ % (wh * ww)):
+        raise ValueError(f"fused_nstb: {B_} windows do not fill whole {wh}x{ww} grids")
+    dev, cd = x.device, x.dtype
+    operands = [x.contiguous(), ctx_quads.to(cd).contiguous()] + _weight_operands(
+        wqkv, bqkv, logit_scale, table, wproj, bproj, ln1, ffn1, ffn2, ln2, num_heads, dev, cd
+    )
+    ints = (B_, wh, ww, Q, shift, num_heads, A // num_heads, int(cd == torch.bfloat16))
+    return operands, torch.empty_like(operands[0]), ints
+
+
 fused_nstb_map.launches = 0
+fused_nstb.launches = 0
 
 _ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
 
@@ -242,3 +355,13 @@ def _launch(operands, out, ints, eps):
         *[t.data_ptr() for t in operands], out.data_ptr(), *ints, float(eps),
     )
     fused_nstb_map.launches += 1
+
+
+def _launch_tokens(operands, out, ints, eps):
+    from tmar_torch import kernels
+
+    kernels.launch(
+        "nstb_tokens", _ARGTYPES, out.device,
+        *[t.data_ptr() for t in operands], out.data_ptr(), *ints, float(eps),
+    )
+    fused_nstb.launches += 1

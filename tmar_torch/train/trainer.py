@@ -33,10 +33,16 @@ from tmar_torch.train.steps import create_train_state, make_eval_step, make_trai
 from tmar_torch.utils.tfevents import TBWriter
 
 
-def build_generator(cfg: TrainConfig, device="cuda"):
+def build_generator(
+    cfg: TrainConfig, device="cuda", *, ngram_fused: bool = True, nstb_fused: bool = True,
+    nstb_map: bool = True,
+):
     """The NGswin of ``cfg.model``.  ``use_pallas_attention`` with
     ``attn_backward="pallas"`` gives the training form (kernels with backward
-    kernels); anything else the forward-only inference form."""
+    kernels); anything else the forward-only inference form, whose block form
+    the keywords pick (``tmar_torch.nn.blocks``; they stand in for the JAX
+    package's ``TMAR_NSTB_FUSED`` and ``TMAR_NSTB_MAP``).  ``ngram_fused``
+    (the JAX package's ``TMAR_NGRAM_FUSED``) holds in both forms."""
     m = cfg.model
     arch = getattr(m, "arch", "ngswin")
     if arch != "ngswin":
@@ -59,6 +65,9 @@ def build_generator(cfg: TrainConfig, device="cuda"):
         qkv_bias=m.qkv_bias,
         dtype=torch.bfloat16 if cfg.bf16 else torch.float32,
         attn_backward=form,
+        ngram_fused=ngram_fused,
+        nstb_fused=nstb_fused,
+        nstb_map=nstb_map,
         device=device,
     )
 
@@ -79,6 +88,24 @@ def build_discriminator(cfg: TrainConfig, device="cuda"):
         dtype=torch.bfloat16 if cfg.bf16 else torch.float32,
         device=device,
     )
+
+
+def build_optimizers(cfg: TrainConfig, generator, discriminator):
+    """The TTUR pair (generator's, discriminator's ``ScheduledAdam``) of
+    ``cfg.optim``, scheduled over the run's steps."""
+    o = cfg.optim
+    total_steps = max(1, cfg.num_epochs * (cfg.data.samples_per_epoch // cfg.data.batch_size))
+    g_opt = build_optimizer(
+        generator.named_parameters(), o.lr_g, o.beta1, o.beta2,
+        schedule=build_schedule(o, o.lr_g, total_steps), grad_clip=o.grad_clip,
+        llrd={"decay": o.llrd_decay} if o.llrd_decay else None, fused=o.fused_update,
+    )
+    d_opt = build_optimizer(
+        discriminator.named_parameters(), o.lr_d, o.beta1, o.beta2,
+        schedule=build_schedule(o, o.lr_d, total_steps), grad_clip=o.grad_clip,
+        fused=o.fused_update,
+    )
+    return g_opt, d_opt
 
 
 def _only_synthetic(d):
@@ -107,7 +134,7 @@ def build_val_dataset(cfg: TrainConfig):
 
 
 class Trainer:
-    def __init__(self, cfg: TrainConfig, device="cuda", val_dataset=None):
+    def __init__(self, cfg: TrainConfig, device="cuda", val_dataset=None, ngram_fused=True):
         self.cfg = cfg
         self.device = resolve_device(device)
         mode = getattr(getattr(cfg, "parallel", None), "mode", "dp")
@@ -118,7 +145,7 @@ class Trainer:
                 f"parallel.mode={mode}: the port trains on one device (dp); the mesh "
                 "layouts are ROADMAP queue 1 item 9"
             )
-        self.generator = build_generator(cfg, self.device)
+        self.generator = build_generator(cfg, self.device, ngram_fused=ngram_fused)
         if self.device.type == "cuda" and self.generator.attn_backward != "pallas":
             raise ValueError(
                 "on a card the port trains only in the training form, whose kernels have "
@@ -128,19 +155,7 @@ class Trainer:
         self.discriminator = build_discriminator(cfg, self.device)
 
         o = cfg.optim
-        total_steps = max(
-            1, cfg.num_epochs * (cfg.data.samples_per_epoch // cfg.data.batch_size)
-        )
-        self.g_opt = build_optimizer(
-            self.generator.named_parameters(), o.lr_g, o.beta1, o.beta2,
-            schedule=build_schedule(o, o.lr_g, total_steps), grad_clip=o.grad_clip,
-            llrd={"decay": o.llrd_decay} if o.llrd_decay else None, fused=o.fused_update,
-        )
-        self.d_opt = build_optimizer(
-            self.discriminator.named_parameters(), o.lr_d, o.beta1, o.beta2,
-            schedule=build_schedule(o, o.lr_d, total_steps), grad_clip=o.grad_clip,
-            fused=o.fused_update,
-        )
+        self.g_opt, self.d_opt = build_optimizers(cfg, self.generator, self.discriminator)
 
         projector = None
         if cfg.radon.enabled and cfg.loss.phys:
