@@ -11,10 +11,11 @@
 // Window (b, wi, wj) reads the tokens at the cyclic offset (+shift, +shift) of
 // the map, with a modulo in place of a halo operand, and its block output z is
 // written to the window's position in the ROLLED map; the caller applies the
-// reverse cyclic shift.  The per-window body, what bounds it and its design
-// are in nstb_window.cuh, shared with K8 (nstb_tokens.cu).
+// reverse cyclic shift.  The per-window bodies, what bounds them and their
+// designs are in nstb_window.cuh (float32) and nstb_window_mma.cuh (bfloat16,
+// tensor cores), shared with K8 (nstb_tokens.cu).
 
-#include "nstb_window.cuh"
+#include "nstb_window_mma.cuh"
 
 namespace {
 

@@ -13,10 +13,11 @@
 // batched_window_gates(..., wrap=True) does (pallas_attention.py:887-897).
 // The TPU kernel pads B_ to a multiple of its grid step with zero windows;
 // here a persistent block walks the windows and needs the modulo alone.  The
-// per-window body, what bounds it and its design are in nstb_window.cuh,
+// per-window bodies, what bounds them and their designs are in
+// nstb_window.cuh (float32) and nstb_window_mma.cuh (bfloat16, tensor cores),
 // shared with K2 (nstb_map.cu): the two differ only in token addressing.
 
-#include "nstb_window.cuh"
+#include "nstb_window_mma.cuh"
 
 namespace {
 

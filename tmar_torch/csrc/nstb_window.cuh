@@ -2,7 +2,10 @@
 // by K2 (nstb_map.cu, windows gathered from the unrolled map with an in-kernel
 // roll) and K8 (nstb_tokens.cu, windows already partitioned).  The two differ
 // only in where a window's tokens are read and written: each supplies a
-// `Windows` addressing type, and everything else is here.
+// `Windows` addressing type, and everything else is here and in
+// nstb_window_mma.cuh.  This file holds the float32 body, the exactness path;
+// bfloat16 I/O runs the tensor-core body of nstb_window_mma.cuh, which also
+// holds the dispatch between the two.
 //
 // Per 8x8 window (N = 64 tokens), with its n-gram context per quadrant
 // ctx_quads [windows, Q, 64] (Q = 1: the window's own context; Q = 4: the 2x2
@@ -17,16 +20,15 @@
 // What bounds it on an H100: operations.  Per token it does ~79 kFLOP (qkv
 // 3·64·A, scores and AV 2·64·A, projection A·64, FFN 2·64·128 multiply-adds)
 // against 256 bytes of input and output, far above the card's ~295 FLOP/byte
-// balance point.  Design: one persistent block per SM walks over windows;
-// every weight of the block (up to 128 KB in float32) is staged in shared
-// memory once per block, and the whole window lives in shared memory between
-// the stages, so device memory sees each input and output element once.  The
-// score matrix is never stored: each thread owns one (head, query) row and
-// makes two passes over the 64 keys (row max, then exp/sum/AV), so the
-// softmax keeps its max subtraction.  Matrix products run on the CUDA cores
-// in float32 (4 rows x up to 12 columns per thread); tensor cores (wgmma) are
-// left for a later change.  Statistics, softmax and GELU are float32 whatever
-// the I/O type.
+// balance point.  Design of the float32 body: one persistent block per SM
+// walks over windows; every weight of the block (128 KB in float32) is staged
+// in shared memory once per block, and the whole window lives in shared
+// memory between the stages, so device memory sees each input and output
+// element once.  The score matrix is never stored: each thread owns one
+// (head, query) row and makes two passes over the 64 keys (row max, then
+// exp/sum/AV), so the softmax keeps its max subtraction.  Matrix products run
+// on the CUDA cores in float32 (4 rows x up to 12 columns per thread), as do
+// statistics, softmax and GELU.
 //
 // A `Windows` type has
 //   int count, wh, ww;                       windows to process; the grid of one image
@@ -316,6 +318,35 @@ __global__ void __launch_bounds__(THREADS, 1) nstb_kernel(
   }
 }
 
+constexpr int MAX_DEVICES = 64;
+
+// The grid of a persistent launch of `kern` on the current device: its SMs
+// times the blocks one SM holds.  The shared-memory attribute and the
+// occupancy query run once per kernel and device; `cache` (one slot per
+// device, 0 until then) belongs to the caller's instantiation.
+template <typename Kernel>
+cudaError_t persistent_grid(Kernel kern, int threads, size_t bytes, int* cache, int* grid) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)bytes)) != cudaSuccess)
+      return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, bytes)) !=
+        cudaSuccess)
+      return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cache[dev] = sms * per_sm;
+  }
+  *grid = cache[dev];
+  return cudaSuccess;
+}
+
 // One persistent block per SM (at most one per window), on `stream`.  p holds
 // the 16 inputs in the kernel's order.  Returns a cudaError_t code.
 template <int NH, int HD, typename T, typename Windows>
@@ -323,18 +354,11 @@ int launch_nstb(const void* const* p, void* out, const Windows& wins, int Q, int
                 float eps, cudaStream_t stream) {
   using L = Layout<NH, HD, T>;
   auto kern = nstb_kernel<NH, HD, T, Windows>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L::BYTES);
+  static int grid_cache[MAX_DEVICES] = {};
+  int grid = 0;
+  cudaError_t err = persistent_grid(kern, THREADS, L::BYTES, grid_cache, &grid);
   if (err != cudaSuccess) return (int)err;
-  int dev = 0, sms = 0, per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return (int)err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return (int)err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, L::BYTES)) !=
-      cudaSuccess)
-    return (int)err;
-  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-  const int blocks = wins.count < sms * per_sm ? wins.count : sms * per_sm;
+  const int blocks = wins.count < grid ? wins.count : grid;
   kern<<<blocks, THREADS, L::BYTES, stream>>>(
       (const T*)p[0], (const T*)p[1], (const T*)p[2], (const float*)p[3],
       (const float*)p[4], (const float*)p[5], (const T*)p[6], (const float*)p[7],
@@ -342,19 +366,6 @@ int launch_nstb(const void* const* p, void* out, const Windows& wins, int Q, int
       (const T*)p[12], (const float*)p[13], (const float*)p[14], (const float*)p[15],
       (T*)out, wins, Q, shift, eps);
   return (int)cudaGetLastError();
-}
-
-// The full-width NGswin's heads: 6 x 10 and 4 x 16 at D = 64.
-template <typename Windows>
-int dispatch_nstb(int num_heads, int head_dim, int is_bf16, const void* const* p, void* out,
-                  const Windows& wins, int Q, int shift, float eps, cudaStream_t stream) {
-  if (num_heads == 6 && head_dim == 10)
-    return is_bf16 ? launch_nstb<6, 10, __nv_bfloat16>(p, out, wins, Q, shift, eps, stream)
-                   : launch_nstb<6, 10, float>(p, out, wins, Q, shift, eps, stream);
-  if (num_heads == 4 && head_dim == 16)
-    return is_bf16 ? launch_nstb<4, 16, __nv_bfloat16>(p, out, wins, Q, shift, eps, stream)
-                   : launch_nstb<4, 16, float>(p, out, wins, Q, shift, eps, stream);
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace

@@ -2,8 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C entry point and is compiled on
 first use, by its own ``nvcc`` process, into ``kernels/_build/<name>-<hash>.so``
-(the hash covers the source, the shared headers and the flags, so an edited
-source rebuilds).
+(the hash covers the source, every header under ``csrc/`` and the flags, so
+an edited source or header rebuilds).
 The library is loaded with ``ctypes``: every pointer and the CUDA stream go
 in as ``c_void_p``, and the entry point returns ``cudaGetLastError()``.
 
@@ -33,9 +33,9 @@ KERNELS = (
     "window_attention_fwd", "window_attention_bwd",
     "residual_ffn_fwd", "residual_ffn_bwd",
 )
-# common.cuh: included by the kernels with a backward; nstb_window.cuh: the
-# whole-block body of nstb_map and nstb_tokens.  Both are part of every hash.
-HEADERS = ("common.cuh", "nstb_window.cuh")
+# every header under csrc/ (common.cuh for the kernels with a backward, the
+# whole-block bodies of nstb_map and nstb_tokens): part of every hash
+HEADERS = tuple(sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")))
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -55,7 +55,7 @@ def _nvcc() -> str:
 def _target(name: str) -> str:
     src = os.path.join(CSRC, f"{name}.cu")
     h = hashlib.sha1()
-    for path in (src, *(os.path.join(CSRC, name) for name in HEADERS)):
+    for path in (src, *(os.path.join(CSRC, f) for f in HEADERS)):
         with open(path, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())

@@ -110,7 +110,8 @@ def static_gather_transpose(g: torch.Tensor, index: np.ndarray, rows: int) -> to
     return readers.reshape(*g.shape[:-2], *inv.shape, g.shape[-1]).sum(-2)
 
 
-def _l2_normalize(t: torch.Tensor) -> torch.Tensor:
+def l2_normalize(t: torch.Tensor) -> torch.Tensor:
+    """t / (|t| + 1e-12) over the last axis, the norm taken in float32."""
     norm = t.float().square().sum(-1, keepdim=True).sqrt() + 1e-12
     return t * norm.to(t.dtype).reciprocal()
 
@@ -127,22 +128,28 @@ def cosine_window_attention(
     [nh, N, N]; mask_components (m_row [N, N], m_col [N, N], wh, ww) with B_
     a multiple of wh·ww in window row-major order.  -> [B_, nh, N, hd]."""
     cd = q.dtype
-    attn = torch.matmul(_l2_normalize(q), _l2_normalize(k).transpose(-1, -2)).float()
+    attn = torch.matmul(l2_normalize(q), l2_normalize(k).transpose(-1, -2)).float()
     scale = torch.exp(torch.clamp(logit_scale.float(), max=LOGIT_SCALE_MAX))
-    attn = attn * scale[None] + rel_pos_bias.float()[None]
-    if mask_components is not None:
-        m_row, m_col, wh, ww = mask_components
-        B_, nh, N, _ = attn.shape
-        dev = attn.device
-        attn = attn.reshape(B_ // (wh * ww), wh, ww, nh, N, N)
-        row_gate = (torch.arange(wh, device=dev) == wh - 1).float()
-        col_gate = (torch.arange(ww, device=dev) == ww - 1).float()
-        attn = attn + row_gate[:, None, None, None, None] * torch.as_tensor(m_row, device=dev)
-        attn = attn + col_gate[:, None, None, None] * torch.as_tensor(m_col, device=dev)
-        attn = attn.reshape(B_, nh, N, N)
+    attn = add_shift_mask(attn * scale[None] + rel_pos_bias.float()[None], mask_components)
     attn = torch.exp(attn - attn.amax(-1, keepdim=True))
     attn = attn / attn.sum(-1, keepdim=True)
     return torch.matmul(attn.to(cd), v)
+
+
+def add_shift_mask(attn: torch.Tensor, mask_components: Optional[tuple]) -> torch.Tensor:
+    """attn [B_, nh, N, N] plus the decomposed SW-MSA mask: m_row on the
+    last window row of each (wh, ww) image grid, m_col on its last column."""
+    if mask_components is None:
+        return attn
+    m_row, m_col, wh, ww = mask_components
+    B_, nh, N, _ = attn.shape
+    dev = attn.device
+    attn = attn.reshape(B_ // (wh * ww), wh, ww, nh, N, N)
+    row_gate = (torch.arange(wh, device=dev) == wh - 1).float()
+    col_gate = (torch.arange(ww, device=dev) == ww - 1).float()
+    attn = attn + row_gate[:, None, None, None, None] * torch.as_tensor(m_row, device=dev)
+    attn = attn + col_gate[:, None, None, None] * torch.as_tensor(m_col, device=dev)
+    return attn.reshape(B_, nh, N, N)
 
 
 def window_attention_math(

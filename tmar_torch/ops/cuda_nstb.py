@@ -30,15 +30,19 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tmar_torch.device import refuse_grad
 from tmar_torch.ops.attention import (
     LOGIT_SCALE_MAX,
+    add_shift_mask,
     gather_rel_pos_bias,
+    l2_normalize,
+    merge_heads,
     relative_position_index,
-    window_attention_math,
+    split_heads,
 )
-from tmar_torch.ops.ffn import ffn_math
+from tmar_torch.ops.ffn import layer_norm
 from tmar_torch.ops.window import (
     cyclic_shift,
     shift_mask_components,
@@ -82,20 +86,39 @@ def nstb_math(
     num_heads, mask_components=None, eps=1e-5,
 ):
     """Token-level NSTB: x [B_, N, D] context-free rolled windows,
-    ctx_quads [B_, Q, D], sel [N, Q], bias the gathered RPB [nh, N, N]."""
-    B_, N, D = x.shape
+    ctx_quads [B_, Q, D], sel [N, Q], bias the gathered RPB [nh, N, N].
+
+    Computes in float32 and rounds to x's dtype where the JAX kernel
+    (``tmar.ops.pallas_nstb._nstb_body``) and the kernels' bfloat16 body
+    round: the context quads and the four matrices on input; x_attn; q_n,
+    k_n and v; P after its normalisation; the attention output before the
+    projection; y before fc1; the GELU output before fc2; the output.  The
+    biases, the LayerNorms and every statistic stay float32.  At float32
+    every rounding is the identity."""
+    cd = x.dtype
+
+    def r(t):
+        return t.to(cd).float()
+
+    x32 = x.float()
     sel_t = torch.as_tensor(sel, dtype=torch.float32, device=x.device)
-    ctx_tok = torch.einsum("nq,bqd->bnd", sel_t, ctx_quads.float())
-    x_attn = (x.float() + ctx_tok).to(x.dtype)
-    a = window_attention_math(
-        x_attn, wqkv, bqkv, logit_scale, bias, wproj, bproj,
-        num_heads=num_heads, mask_components=mask_components,
-    )
-    z = ffn_math(
-        x.reshape(B_ * N, D), a.reshape(B_ * N, D).to(x.dtype),
-        g1, b1, w1, bw1, w2, bw2, g2, b2, eps=eps,
-    )
-    return z.reshape(B_, N, D)
+    x_attn = r(x32 + torch.einsum("nq,bqd->bnd", sel_t, r(ctx_quads)))
+    qkv = x_attn @ r(wqkv)
+    if bqkv is not None:
+        qkv = qkv + bqkv.float()
+    q, k, v = (split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
+    attn = torch.matmul(r(l2_normalize(q)), r(l2_normalize(k)).transpose(-1, -2))
+    scale = torch.exp(torch.clamp(logit_scale.float(), max=LOGIT_SCALE_MAX))
+    attn = add_shift_mask(attn * scale[None] + bias.float()[None], mask_components)
+    attn = torch.exp(attn - attn.amax(-1, keepdim=True))
+    attn = attn / attn.sum(-1, keepdim=True)
+    a = r(merge_heads(torch.matmul(r(attn), r(v)))) @ r(wproj)
+    if bproj is not None:
+        a = a + bproj.float()
+    y = x32 + layer_norm(a, g1, b1, eps)
+    h = F.gelu(r(y) @ r(w1) + bw1.float(), approximate="none")
+    z = y + layer_norm(r(h) @ r(w2) + bw2.float(), g2, b2, eps)
+    return z.to(cd)
 
 
 def nstb_tokens_math(
@@ -108,14 +131,9 @@ def nstb_tokens_math(
     ws = window_size
     sel, mask_components = _selector_and_mask(ctx_quads.shape[1], ws, shift, grid)
     bias = gather_rel_pos_bias(table, relative_position_index(ws, ws), num_heads)
-    # matrices and attention biases in the activation dtype; LayerNorm and
-    # FFN biases stay float32 (as the JAX block passes them)
-    cd = x.dtype
-    opt = lambda t: None if t is None else t.to(cd)  # noqa: E731
     return nstb_math(
-        x, ctx_quads.to(cd), sel, wqkv.to(cd), opt(bqkv),
-        logit_scale, bias, wproj.to(cd), opt(bproj), ln1[0], ln1[1],
-        ffn1[0].to(cd), ffn1[1], ffn2[0].to(cd), ffn2[1], ln2[0], ln2[1],
+        x, ctx_quads, sel, wqkv, bqkv, logit_scale, bias, wproj, bproj, ln1[0], ln1[1],
+        ffn1[0], ffn1[1], ffn2[0], ffn2[1], ln2[0], ln2[1],
         num_heads=num_heads, mask_components=mask_components, eps=eps,
     )
 
