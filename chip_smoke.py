@@ -13,9 +13,10 @@ Phases, each of which fails the run if it fails:
    ``tests/test_torch_port_gpu.py`` (the whole-block kernels K2 and K8 at
    bfloat16 against their plain version at bfloat16, which rounds where the
    kernels' tensor-core body and the JAX kernel round, with the distance to
-   the float32 plain version printed beside it); then each kernel's time
-   from CUDA events at the stage-1 shape (K2 also at stage 2's) beside its
-   plain version's time and its bound;
+   the float32 plain version printed beside it, and at stage 1 both sides'
+   distance to that function evaluated in float64 between its rounding
+   points); then each kernel's time from CUDA events at the stage-1 shape
+   (K2 also at stage 2's) beside its plain version's time and its bound;
 3. the serving path: the full-width NGswin with the trained weights
    ``reports/compare_r4/flagship.pth`` in bfloat16 answers a full-slice
    8x512² request, a full-slice 4x416² request (padded to 448²) and one 416²
@@ -30,9 +31,12 @@ Phases, each of which fails the run if it fails:
    windows of 64 tokens with 6 heads, with and without the shift mask; 512
    with 4 heads; 2048 and 512 n-gram windows of 4 tokens; 131,072 FFN rows;
    n-gram grids 8x16x16 at 6 heads, 8x8x8 and 8x4x4 at 4, and also 8x64x64,
-   13x7 and 2x2), at float32 (TF32 off) and bfloat16, each backward run
-   twice and compared bit for bit; then each kernel's time beside its plain
-   version's and its bound;
+   13x7 and 2x2), at float32 (TF32 off) and bfloat16 (window attention at
+   bfloat16 against its rounding-matched plain forward and explicit
+   backward, the distance to the float32 plain version printed beside it),
+   each backward run twice and compared bit for bit; then each kernel's time
+   (window attention's both as the launch alone and through the wrapper)
+   beside its plain version's and its bound;
 6. the composition training path: the full-width NGswin in its training
    form with ``ngram_fused=False`` and the 3-scale spectral-norm PatchGAN,
    from a seed, take 3 warm-up and 10 timed GAN steps in bfloat16 on a fixed
@@ -62,14 +66,16 @@ Phases, each of which fails the run if it fails:
    time beside its plain version's, K2's on the same block, and its bound;
 11. every attention kernel name of the JAX package (``TMAR_ATTN_IMPL``) at
    the 8x128² step's stage-1 shape: each launches K3 under its own counter,
-   all give the same bits and agree with the plain version;
+   all give the same bits and agree with the plain version (at bfloat16 the
+   rounding-matched one);
 12. serving in the two other block forms, full width, flagship, bfloat16: the
    token form (20 launches of K1 and of K8 per forward) and the unfused form
    (20 of K1, K3 and K5), each against the map form, with its request time;
    K3 and K5 on the inputs the unfused form's 8x512² request gave them (the
    first shifted block of each window and head count, the first block of
    each row count), at bfloat16 and cast to float32, against their plain
-   versions, and timed at stage 1 (32,768 windows, 2,097,152 rows);
+   versions (K3 at bfloat16 against its rounding-matched one), and timed at
+   stage 1 in both dtypes (32,768 windows, 2,097,152 rows);
 13. the ``test`` entry point (``tmar_torch.cli.test``) called in-process on
    the flagship, full-slice and ``--tiled`` (all 144 tiles of a 416² slice
    in one forward), in each of the three block forms: ``metrics.json``
@@ -105,9 +111,14 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 F32_TOL = 1e-4     # x max(1, max|ref|): summation order and libm rounding
 BF16_TOL = 2.0**-7  # x max|ref|: one bf16 rounding of the output, twice over
 # The training kernels keep parameters and parameter cotangents in float32 at
-# either activation dtype (held to F32_TOL); activations and their cotangents
-# take the activation dtype's tolerance.  At bfloat16 the reference is the
-# plain version in float32 on the same bf16-rounded activations.
+# either activation dtype; activations and their cotangents take the
+# activation dtype's tolerance.  At bfloat16 the reference of K5-K7 is the
+# plain version in float32 on the same bf16-rounded activations (parameter
+# cotangents at F32_TOL).  K3 and K4 at bfloat16 round where the JAX kernels
+# round, and so do their plain versions (window_attention_kernel_math and
+# window_attention_backward_math), their reference; at N = 64 K4's
+# cotangent products take bf16 operands, so its parameter cotangents are
+# held to BF16_TOL there, at N = 4 to F32_TOL.
 # K2/K8 at bf16 round every product's operands where the JAX kernel does, and
 # so does their plain version.  Two evaluations of that function that differ
 # only in float32 summation order round a few intermediates to neighbouring
@@ -258,9 +269,9 @@ def check_kernels(model, dev, card):
         for dtype in (torch.float32, torch.bfloat16):
             xx, cc = x.to(dtype), cq.to(dtype)
             got = cuda_nstb.fused_nstb_map(xx, cc, *args, shift=shift)
-            ok, line = hold_nstb(got, lambda xi, ci, a: cuda_nstb.nstb_map_math(
-                xi, ci, *a[:-2], num_heads=a[-2], window_size=a[-1], shift=shift), xx, cc, args, errs,
-                on_cpu=stage == 1)
+            ok, line = hold_nstb(got, lambda xi, ci, a, cdt=torch.float32: cuda_nstb.nstb_map_math(
+                xi, ci, *a[:-2], num_heads=a[-2], window_size=a[-1], shift=shift, compute_dtype=cdt),
+                xx, cc, args, errs, on_cpu=stage == 1)
             print(f"[kernel] nstb_map {name} x={list(xx.shape)} heads={args[-2]} shift={shift} "
                   f"Q={Q} {line}")
             if not ok:
@@ -330,8 +341,10 @@ def hold_nstb(got, plain, xx, cc, args, errs, on_cpu=False):
     line also gives the elements above BF16_TOL, the distance to the float32
     plain version on the same bf16 inputs and bf16-rounded matrices (the
     yardstick of the float32 body), not gated, and with ``on_cpu`` the distance
-    between the plain version on the CPU and on the card.  Updates the
-    largest errors in ``errs``; returns (ok, the line's result)."""
+    between the plain version on the CPU and on the card, and both sides'
+    distance to the same function evaluated in float64 (``plain(...,
+    torch.float64)``, one image at a time).  Updates the largest errors in
+    ``errs``; returns (ok, the line's result)."""
     import torch
 
     ref = plain(xx, cc, args)
@@ -363,7 +376,44 @@ def hold_nstb(got, plain, xx, cc, args, errs, on_cpu=False):
         dc = (plain(xx.cpu(), cc.cpu(), cpu(args)).float() - ref.float().cpu()).abs()
         line += (f"; the plain version on the CPU against on the card max {float(dc.max()):.3e}, "
                  f"{int((dc > BF16_TOL * scale).sum())} above 2^-7·max|ref|")
+        del dc
+        line += "; " + float64_distances(got, ref, plain, xx, cc, args, BF16_TOL * scale)
     return ok, line + (" ok" if ok else " FAIL")
+
+
+def float64_distances(got, ref, plain, xx, cc, args, tol):
+    """The kernel's output ``got`` and its plain version's ``ref`` against
+    the same rounding-matched function evaluated in float64 between its bf16
+    rounding points (``plain(..., torch.float64)``), one image at a time (a
+    whole window grid, so the shift mask's gates hold).  Where kernel and
+    plain version differ by more than ``tol``, which of the two lies nearer
+    the float64 value.  Not gated: it tells which side an outlier is on."""
+    import torch
+
+    B = xx.shape[0]
+    per = cc.shape[0] // B
+    stats = {"kernel": [0.0, 0.0, 0], "plain": [0.0, 0.0, 0]}
+    split, nearer_kernel, nearer_plain = 0, 0, 0
+    for b in range(B):
+        exact = plain(xx[b:b + 1], cc[b * per:(b + 1) * per], args, torch.float64).double()
+        for name, y in (("kernel", got[b:b + 1]), ("plain", ref[b:b + 1])):
+            d = (y.double() - exact).abs()
+            st = stats[name]
+            st[0], st[1], st[2] = max(st[0], float(d.max())), st[1] + float(d.sum()), st[2] + int((d > tol).sum())
+        apart = (got[b:b + 1].double() - ref[b:b + 1].double()).abs() > tol
+        if bool(apart.any()):
+            dk = (got[b:b + 1].double() - exact).abs()[apart]
+            dp = (ref[b:b + 1].double() - exact).abs()[apart]
+            split += int(apart.sum())
+            nearer_kernel += int((dk < dp).sum())
+            nearer_plain += int((dp < dk).sum())
+        del exact, apart
+    n = got.numel()
+    out = "against the same function in float64: " + ", ".join(
+        f"{k} max {v[0]:.3e} mean {v[1] / n:.2e}, {v[2]} above 2^-7·max|ref|" for k, v in stats.items())
+    return out + (f"; of the {split} outputs where kernel and plain version differ by more than "
+                  f"2^-7·max|ref|, the kernel is nearer at {nearer_kernel}, the plain version at "
+                  f"{nearer_plain}")
 
 
 def _round_nstb_mats(args, dtype):
@@ -534,6 +584,22 @@ def ngram_bwd_work(B, wh, ww, nh, itemsize):
     return cells * (forward + backward), cells * (2 * C + D) * itemsize + 2 * params
 
 
+def attention_launch_ms(x, params, g, nh, mc, iters=20):
+    """(K3, K4) in ms on operands laid out once, the launches alone (the C
+    entry points and their allocations), as K2 and K7 are timed; the counters
+    are put back."""
+    from tmar_torch.ops import cuda_attention as ca
+
+    f = ca.fused_window_attention
+    before = (f.launches, f.backward_launches)
+    ops, ints = ca._kernel_operands(x, *params, nh, mc)
+    fwd = cuda_ms(lambda: ca._launch(ops, ints), iters=iters)
+    _, lse = ca._launch(ops, ints)
+    bwd = cuda_ms(lambda: ca._launch_backward(ops, lse, g, ints), iters=iters)
+    f.launches, f.backward_launches = before
+    return fwd, bwd
+
+
 ATTN_NAMES = ["out", "dx", "dwqkv", "dbqkv", "dlogit_scale", "dbias", "dwproj", "dbproj"]
 NGRAM_NAMES = ["out", "du", "dwqkv", "dbqkv", "dlogit_scale", "dtable", "dwproj", "dbproj",
                "dwmerge", "dbmerge"]
@@ -562,7 +628,12 @@ def check_train_kernels(dev, card):
     import torch
 
     from tmar_torch.ops.attention import window_attention_math
-    from tmar_torch.ops.cuda_attention import fused_window_attention
+    from tmar_torch.ops.cuda_attention import (
+        _PlainAttention,
+        fused_window_attention,
+        window_attention_backward_math,
+        window_attention_kernel_math,
+    )
     from tmar_torch.ops import cuda_ngram
     from tmar_torch.ops.cuda_ngram import fused_ngram_context, ngram_context_math
     from tmar_torch.ops.cuda_ffn import fused_residual_ffn
@@ -594,19 +665,28 @@ def check_train_kernels(dev, card):
         out = fn(*leaves)
         return [out.detach()] + list(torch.autograd.grad(out, leaves, g.to(out.dtype)))
 
-    def hold(kernel, label, names, n_acts, fused, plain, acts, params, g, errs):
+    def hold(kernel, label, names, n_acts, fused, plain, acts, params, g, errs, plain_bf16=None,
+             param_bf16=False):
         """forward (index 0) feeds the forward kernel's record, the
-        cotangents the backward kernel's; errs[kernel half][dtype]."""
+        cotangents the backward kernel's; errs[kernel half][dtype].  At
+        bfloat16 the reference is plain_bf16(acts, params, g), the
+        rounding-matched plain versions' outputs and cotangents, where the
+        kernels round as the JAX kernels do (the parameter cotangents then
+        at the bf16 tolerance with param_bf16), else autograd of the plain
+        version in float32 on the same bf16 inputs."""
         for dtype in (torch.float32, torch.bfloat16):
             dn = str(dtype).split(".")[1]
             a = [t.to(dtype) for t in acts]
             got = run(fused, a, params, g.to(dtype))
             again = run(fused, a, params, g.to(dtype))
-            ref = run(plain, [t.float() for t in a], params, g.to(dtype).float())
+            ref32 = run(plain, [t.float() for t in a], params, g.to(dtype).float())
+            matched = dtype == torch.bfloat16 and plain_bf16 is not None
+            ref = plain_bf16(a, params, g.to(dtype)) if matched else ref32
             torch.cuda.synchronize()
             worst, bad = ("", 0.0, 0.0), []
             for i, (name, x, y, z) in enumerate(zip(names, got, ref, again)):
-                err, tol = err_and_tol(x, y, dtype if i <= n_acts else torch.float32)
+                pdt = torch.bfloat16 if (matched and param_bf16) else torch.float32
+                err, tol = err_and_tol(x, y, dtype if i <= n_acts else pdt)
                 half = "fwd" if i == 0 else "bwd"
                 errs[half][dn] = max(errs[half][dn], err)
                 if err / tol >= worst[1]:
@@ -615,14 +695,25 @@ def check_train_kernels(dev, card):
                     bad.append(f"{name} err {err:.3e} > tol {tol:.3e}")
                 if not torch.equal(x, z):
                     bad.append(f"{name} differs between two runs")
-            print(f"[kernel] {kernel} {label} {dn}: forward max_abs_err "
-                  f"{float((got[0].float() - ref[0]).abs().max()):.3e}; {len(names) - 1} cotangents, "
-                  f"worst {worst[0]} at {worst[1]:.3f} of its tolerance (max_abs_err {worst[2]:.3e}); "
-                  f"two backward runs bit-identical: {not any('differs' in b for b in bad)} "
-                  f"{'ok' if not bad else 'FAIL ' + '; '.join(bad)}")
+            line = (f"[kernel] {kernel} {label} {dn}: forward max_abs_err "
+                    f"{float((got[0].float() - ref[0].float()).abs().max()):.3e}")
+            if matched:
+                means = [float((got[i].float() - ref[i].float()).abs().mean()) for i in (0, 1)]
+                d32 = [float((got[i].float() - ref32[i].float()).abs().mean()) for i in (0, 1)]
+                w32 = max(err_and_tol(x, y, dtype)[0] / err_and_tol(x, y, dtype)[1]
+                          for x, y in zip(got, ref32))
+                line += (f" (against the rounding-matched plain versions; mean out {means[0]:.2e}, "
+                         f"dx {means[1]:.2e}; not gated: against the float32 plain version mean "
+                         f"out {d32[0]:.2e}, dx {d32[1]:.2e}, worst {w32:.2f} of the bf16 tolerance)")
+                errs.setdefault("bf16_mean", {"fwd": 0.0, "bwd": 0.0})
+                errs["bf16_mean"]["fwd"] = max(errs["bf16_mean"]["fwd"], means[0])
+                errs["bf16_mean"]["bwd"] = max(errs["bf16_mean"]["bwd"], means[1])
+            print(line + f"; {len(names) - 1} cotangents, worst {worst[0]} at {worst[1]:.3f} of its "
+                  f"tolerance (max_abs_err {worst[2]:.3e}); two backward runs bit-identical: "
+                  f"{not any('differs' in b for b in bad)} {'ok' if not bad else 'FAIL ' + '; '.join(bad)}")
             if bad:
                 failures.append(f"{kernel} {label} {dn}")
-            del got, again, ref
+            del got, again, ref, ref32
         torch.cuda.empty_cache()
 
     def time_pair(fused, plain, acts, params, g, dtype):
@@ -653,40 +744,50 @@ def check_train_kernels(dev, card):
              lambda *a: window_attention_math(
                  a[0], a[1].to(a[0].dtype), a[2].to(a[0].dtype), a[3], a[4], a[5].to(a[0].dtype),
                  a[6].to(a[0].dtype), nh, mask_components=mc),
-             acts, params, g, errs)
+             acts, params, g, errs,
+             plain_bf16=lambda a, p, gg: [
+                 window_attention_kernel_math(a[0], *p, nh, mask_components=mc),
+                 *window_attention_backward_math(a[0], gg, *p, nh, mask_components=mc)],
+             param_bf16=N == 64)
     times = {}
     for label, nwin, N, D, nh, hd, grid in (ATTN_CASES[1], ATTN_CASES[3]):
         acts, params, g = attention_inputs(nwin, N, D, nh, hd)
         mc = None if grid is None else (*shift_mask_components(8, 4), *grid)
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[1]
+            # the plain versions: at bf16 the rounding-matched pair (K3's and
+            # K4's as one autograd function), at f32 autograd of the math
             t = time_pair(
                 lambda *a: fused_window_attention(*a, nh, mask_components=mc),
-                lambda *a: window_attention_math(
-                    a[0], a[1].to(a[0].dtype), a[2].to(a[0].dtype), a[3], a[4],
-                    a[5].to(a[0].dtype), a[6].to(a[0].dtype), nh, mask_components=mc),
+                (lambda *a: _PlainAttention.apply(*a, nh, mc)) if dtype == torch.bfloat16 else
+                (lambda *a: window_attention_math(*a, nh, mask_components=mc)),
                 acts, params, g, dtype)
+            launch = attention_launch_ms(acts[0].to(dtype), params, g.to(dtype), nh, mc)
             bounds = [bound_ms(*attention_work(nwin, N, D, nh, hd, acts[0].to(dtype).element_size(), b), dn)
                       for b in (False, True)]
-            times[(N, dn)] = (t, bounds)
-            for half, k_ms, p_ms, (b_ms, b_by) in (("fwd", t[0], t[2], bounds[0]), ("bwd", t[1], t[3], bounds[1])):
+            times[(N, dn)] = (t, bounds, launch)
+            for i, (half, p_ms, (b_ms, b_by)) in enumerate((("fwd", t[2], bounds[0]), ("bwd", t[3], bounds[1]))):
                 print(f"[time] window_attention_{half} {label} x=[{nwin}, {N}, {D}] heads={nh} {dn}: "
-                      f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
-                      f"library: none (no single PyTorch call computes it) on {card}")
+                      f"kernel {launch[i]:.4f} ms (launch alone; {t[i]:.4f} ms through the wrapper"
+                      f"{' under autograd' if half == 'bwd' else ''}), plain {p_ms:.4f} ms, bound "
+                      f"{b_ms:.5f} ms ({b_by}); library: none (no single PyTorch call computes it) "
+                      f"on {card}")
     records = {}
     for i, half in enumerate(("fwd", "bwd")):
-        t, bounds = times[(64, "bfloat16")]
-        t32, _ = times[(64, "float32")]
-        t4, b4 = times[(4, "bfloat16")]
+        t, bounds, launch = times[(64, "bfloat16")]
+        t32, b32, launch32 = times[(64, "float32")]
+        t4, b4, launch4 = times[(4, "bfloat16")]
         records[f"window_attention_{half}"] = {
             "name": f"window_attention_{half}", "route": "cuda",
             "source": f"tmar_torch/csrc/window_attention_{half}.cu",
             "replaces": ("tmar/ops/pallas_attention.py:1143, :1175, :1241 and :813" if half == "fwd"
                          else "tmar/ops/pallas_attention.py:568 and :704"),
             "max_abs_err": errs[half]["float32"], "max_abs_err_bf16": errs[half]["bfloat16"],
-            "ms": t[i], "plain_ms": t[2 + i], "bound_ms": bounds[i][0], "bound_by": bounds[i][1],
-            "library_ms": None, "ms_f32": t32[i], "plain_ms_f32": t32[2 + i],
-            "ms_n4": t4[i], "plain_ms_n4": t4[2 + i], "bound_ms_n4": b4[i][0],
+            "mean_abs_err_bf16": errs["bf16_mean"][half],
+            "ms": launch[i], "plain_ms": t[2 + i], "bound_ms": bounds[i][0], "bound_by": bounds[i][1],
+            "library_ms": None, "ms_through_wrapper": t[i], "ms_f32": launch32[i],
+            "plain_ms_f32": t32[2 + i], "bound_ms_f32": b32[i][0],
+            "ms_n4": launch4[i], "plain_ms_n4": t4[2 + i], "bound_ms_n4": b4[i][0],
             "shape": "x [2048, 64, 64] bf16, 6 heads, shift mask on (n4: x [2048, 4, 32], 6 heads)",
         }
 
@@ -1307,7 +1408,7 @@ def check_attention_impls(dev, card):
     import torch
 
     from tmar_torch.ops.attention import window_attention_math
-    from tmar_torch.ops.cuda_attention import IMPLS, fused_window_attention
+    from tmar_torch.ops.cuda_attention import IMPLS, fused_window_attention, window_attention_kernel_math
     from tmar_torch.ops.window import shift_mask_components
 
     label, nwin, N, D, nh, hd, grid = ATTN_CASES[1]
@@ -1327,7 +1428,10 @@ def check_attention_impls(dev, card):
     for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         xx = x.to(dtype)
-        ref = window_attention_math(xx.float(), *params, nh, mask_components=mc)
+        # at bf16 the rounding-matched plain version, with the float32 one's
+        # distance printed beside it
+        ref = window_attention_kernel_math(xx, *params, nh, mask_components=mc)
+        ref32 = window_attention_math(xx.float(), *params, nh, mask_components=mc)
         for name in sorted(IMPLS):
             by_impl, total, bwd = dict(f.launches_by_impl), f.launches, f.backward_launches
             with torch.no_grad():
@@ -1335,23 +1439,26 @@ def check_attention_impls(dev, card):
             torch.cuda.synchronize()
             moved = {k: f.launches_by_impl[k] - by_impl[k] for k in by_impl}
             err, tol = err_and_tol(out, ref, dtype)
+            mean = float((out.float() - ref.float()).abs().mean())
             errs[(name, dn)] = err
             same = name == "batched" or torch.equal(out, outs[("batched", dn)])
             ok = (moved == {k: int(k == name) for k in by_impl} and f.launches == total + 1
                   and f.backward_launches == bwd and err <= tol and same)
             outs[(name, dn)] = out
+            far = (f"; not gated: against the float32 plain version max "
+                   f"{float((out.float() - ref32).abs().max()):.3e}, mean "
+                   f"{float((out.float() - ref32).abs().mean()):.2e}" if dtype == torch.bfloat16 else "")
             print(f"[impl] {name} -> K3 x=[{nwin}, {N}, {D}] heads={nh} mask on {dn}: its counter "
                   f"+{moved[name]}, the others +{sum(moved.values()) - moved[name]}; max_abs_err "
-                  f"{err:.3e} tol {tol:.3e}; bits equal to 'batched': {same} {'ok' if ok else 'FAIL'}")
+                  f"{err:.3e} tol {tol:.3e}, mean {mean:.2e}{far}; bits equal to 'batched': {same} "
+                  f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"impl {name} {dn}")
-        del ref
+        del ref, ref32
     outs.clear()
     xx = x.to(torch.bfloat16)
     with torch.no_grad():
-        p_ms = cuda_ms(lambda: window_attention_math(
-            xx, *[p.to(torch.bfloat16) if i in (0, 1, 4, 5) else p for i, p in enumerate(params)],
-            nh, mask_components=mc))
+        p_ms = cuda_ms(lambda: window_attention_kernel_math(xx, *params, nh, mask_components=mc))
         t = {name: cuda_ms(lambda: f(xx, *params, nh, mask_components=mc, impl=name))
              for name in sorted(IMPLS)}
     b_ms, b_by = bound_ms(*attention_work(nwin, N, D, nh, hd, 2, False), "bfloat16")
@@ -1405,48 +1512,71 @@ def check_unfused_kernels(kept, card):
     import torch
 
     from tmar_torch.ops.attention import window_attention_math
-    from tmar_torch.ops.cuda_attention import fused_window_attention
+    from tmar_torch.ops.cuda_attention import fused_window_attention, window_attention_kernel_math
     from tmar_torch.ops.cuda_ffn import fused_residual_ffn
     from tmar_torch.ops.ffn import ffn_math
 
+    # (kernel, label, kernel call, plain version in float32 (bf16 inputs and
+    # matrices rounded), rounding-matched plain version at bf16 or None,
+    # the captured input, the work)
     failures, cases = [], {"window_attention_fwd": [], "residual_ffn_fwd": []}
     runs = [("window_attention_fwd", f"x={list(x.shape)} heads={args[-1]} mask on",
              lambda xx, args=args, mc=mc: fused_window_attention(xx, *args, mask_components=mc),
              lambda xx, args=args, mc=mc: window_attention_math(
                  xx, *[t.to(xx.dtype) if i in (0, 1, 4, 5) else t for i, t in enumerate(args)],
-                 mask_components=mc), x,
-             attention_work(x.shape[0], x.shape[1], x.shape[2], args[-1],
-                            args[0].shape[1] // 3 // args[-1], 2, False))
+                 mask_components=mc),
+             lambda xx, args=args, mc=mc: window_attention_kernel_math(xx, *args, mask_components=mc),
+             x,
+             lambda size, x=x, args=args: attention_work(
+                 x.shape[0], x.shape[1], x.shape[2], args[-1], args[0].shape[1] // 3 // args[-1],
+                 size, False))
             for (x, args, mc) in sorted(kept["attention"].values(), key=lambda c: -c[0].shape[0])]
     runs += [("residual_ffn_fwd", f"x={list(x.shape)}",
               lambda xx, args=args, kw=kw: fused_residual_ffn(xx, args[0].to(xx.dtype), *args[1:], **kw),
-              lambda xx, args=args, kw=kw: ffn_math(xx, args[0].to(xx.dtype), *args[1:], **kw), x,
-              ffn_work(x.shape[0], 2, False))
+              lambda xx, args=args, kw=kw: ffn_math(xx, args[0].to(xx.dtype), *args[1:], **kw), None,
+              x, lambda size, x=x: ffn_work(x.shape[0], size, False))
              for (x, args, kw) in sorted(kept["ffn"].values(), key=lambda c: -c[0].shape[0])]
-    for kernel, label, fused, plain, x, work in runs:
-        ref = plain(x.float())
+    for kernel, label, fused, plain, matched, x, work in runs:
+        ref32 = plain(x.float())
         case = {"shape": label}
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[1]
             got = fused(x.to(dtype))
+            ref = matched(x.to(dtype)) if matched is not None and dtype == torch.bfloat16 else ref32
             torch.cuda.synchronize()
             err, tol = err_and_tol(got, ref, dtype)
             ok = err <= tol and bool(torch.isfinite(got).all())
             case["max_abs_err" if dtype == torch.float32 else "max_abs_err_bf16"] = err
+            line = f"max_abs_err {err:.3e} tol {tol:.3e}"
+            if ref is not ref32:
+                mean = float((got.float() - ref.float()).abs().mean())
+                d32 = (got.float() - ref32).abs()
+                case["mean_abs_err_bf16"] = mean
+                line += (f", mean {mean:.2e} (against the rounding-matched plain version; not gated: "
+                         f"against the float32 plain version max {float(d32.max()):.3e}, mean "
+                         f"{float(d32.mean()):.2e})")
+                del d32
             print(f"[kernel] {kernel} on the unfused form's 8x512² request input {label} {dn}: "
-                  f"max_abs_err {err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+                  f"{line} {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"{kernel} {label} {dn}")
-            del got
-        del ref
-        if not cases[kernel]:  # the largest shape: the stage-1 block
-            xb = x.to(torch.bfloat16)
-            k_ms = cuda_ms(lambda: fused(xb), iters=5, warmup=1)
-            p_ms = cuda_ms(lambda: plain(xb), iters=2, warmup=1)
-            b_ms, b_by = bound_ms(*work, "bfloat16")
-            case.update(ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
-            print(f"[time] {kernel} {label} bf16 (the unfused form's stage 1): kernel {k_ms:.4f} ms, "
-                  f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); library: none on {card}")
+            del got, ref
+        del ref32
+        if not cases[kernel]:  # the largest shape: the stage-1 block, both bodies
+            for dtype in (torch.bfloat16, torch.float32):
+                xb = x.to(dtype)
+                pb = matched if matched is not None and dtype == torch.bfloat16 else plain
+                k_ms = cuda_ms(lambda: fused(xb), iters=5, warmup=1)
+                p_ms = cuda_ms(lambda: pb(xb), iters=2, warmup=1)
+                dn = str(dtype).split(".")[1]
+                b_ms, b_by = bound_ms(*work(xb.element_size()), dn)
+                sfx = "" if dtype == torch.bfloat16 else "_f32"
+                case.update({f"ms{sfx}": k_ms, f"plain_ms{sfx}": p_ms, f"bound_ms{sfx}": b_ms,
+                             f"bound_by{sfx}": b_by})
+                print(f"[time] {kernel} {label} {dn} (the unfused form's stage 1): kernel "
+                      f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); library: "
+                      f"none on {card}")
+                del xb
         cases[kernel].append(case)
         torch.cuda.empty_cache()
     if failures:

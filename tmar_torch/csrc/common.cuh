@@ -1,6 +1,7 @@
 // Shared device helpers of the training kernels (window attention and
-// residual FFN, forward and backward): type conversion, a warp sum, and the
-// 256-thread tile matrix product the four kernels are built from.
+// residual FFN, forward and backward): type conversion and rounding, a warp
+// sum, and the 256-thread tile matrix product their float32 bodies are built
+// from.
 //
 // A block of THREADS = 256 threads works on a tile of ROWS = 64 token rows
 // held in shared memory in float32.  The threads form a 16 x 16 grid; thread
@@ -26,6 +27,11 @@ __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
+// v rounded to the I/O type T (bf16: to nearest even), back in float32
+template <typename T>
+__device__ __forceinline__ float round_as(float v) {
+  return sizeof(T) == 2 ? __bfloat162float(__float2bfloat16(v)) : v;
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll

@@ -12,7 +12,9 @@
 // P = bf16(e / sum(e)), normalised before the cast; the attention output
 // before the projection; y before fc1; the GELU output before fc2; the
 // output.  Biases, LayerNorms, the softmax and every statistic are float32.
-// Plain version: tmar_torch/ops/cuda_nstb.py:nstb_math at bfloat16.
+// Plain version: tmar_torch/ops/cuda_nstb.py:nstb_math at bfloat16.  The
+// mma.sync, ldmatrix, cp.async and reduction helpers are mma.cuh's, shared
+// with the window-attention bodies of K3 and K4.
 //
 // What bounds it on an H100: operations (~79 kFLOP per token against 256
 // bytes of I/O; the bf16 tensor-core bound of a 8x512² stage-1 block is
@@ -44,6 +46,7 @@
 
 #include <stdint.h>
 
+#include "mma.cuh"
 #include "nstb_window.cuh"
 
 namespace {
@@ -56,7 +59,6 @@ constexpr int LDX = D + 8;          // bf16 row strides, padded by 16 bytes:
 constexpr int LDK = HP + 8;         // fragment loads then fall on distinct
 constexpr int LDV = N + 8;          // banks
 constexpr int LDH = HID + 8;
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int NH>
 struct MmaLayout {
@@ -93,69 +95,6 @@ struct MmaLayout {
   static_assert(WELEMS % 8 == 0 && SLOT % 8 == 0 && KV % 8 == 0, "16-byte aligned regions");
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-__device__ __forceinline__ float2 unpack_bf16(const __nv_bfloat16* p) {
-  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-}
-__device__ __forceinline__ float exp2_approx(float v) {
-  float e;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(e) : "f"(v));
-  return e;
-}
-__device__ __forceinline__ void sts32(__nv_bfloat16* p, uint32_t v) {
-  *reinterpret_cast<uint32_t*>(p) = v;
-}
-
-// c += a · b for one m16n8k16 tile: a the 16x16 A fragment, (b0, b1) the
-// 16x8 B fragment, c the 16x8 float32 accumulator.  Lane (g = lane / 4,
-// t = lane % 4) holds A rows g and g + 8 at columns 2t, 2t + 1 (a0, a1) and
-// 2t + 8, 2t + 9 (a2, a3); B column g at rows 2t, 2t + 1 (b0) and 2t + 8,
-// 2t + 9 (b1); C rows g (c0, c1) and g + 8 (c2, c3) at columns 2t, 2t + 1.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c0 += a · B[n0, n0 + 8) and c1 += a · B[n0 + 8, n0 + 16) at k-step k0 of a
-// bf16 matrix B kept [n][k] with row stride ld: one ldmatrix.x4 loads both B
-// fragments (lane l addresses row n0 + 8·(l / 16) + l % 8, columns
-// k0 + 8·(l / 8 % 2) + [0, 8))
-__device__ __forceinline__ void mma_pair(float (&c0)[4], float (&c1)[4], const uint32_t (&a)[4],
-                                         const __nv_bfloat16* m, int ld, int n0, int k0,
-                                         int lane) {
-  const __nv_bfloat16* row = m + (n0 + 8 * (lane >> 4) + (lane & 7)) * ld + k0 + 8 * ((lane >> 3) & 1);
-  uint32_t b[4];
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
-               : "r"((unsigned)__cvta_generic_to_shared(row)));
-  mma_bf16(c0, a, b[0], b[1]);
-  mma_bf16(c1, a, b[2], b[3]);
-}
-
-// The A fragment of a 16x16 block held as two accumulator tiles (columns
-// 0-7 and 8-15), rounded to bf16
-__device__ __forceinline__ void to_a(uint32_t (&a)[4], const float (&lo)[4], const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
 // v[j] the accumulator tiles of a warp's 16 rows x 64 channels: in place,
 // v <- (v - mean) · rsqrt(var + eps) · gain + bias per row (rows g, g + 8)
 __device__ __forceinline__ void layer_norm_rows(float (&v)[8][4], const float* gain,
@@ -184,22 +123,6 @@ __device__ __forceinline__ void layer_norm_rows(float (&v)[8][4], const float* g
     v[j][2] = v[j][2] * i1 * gain[c] + bias[c];
     v[j][3] = v[j][3] * i1 * gain[c + 1] + bias[c + 1];
   }
-}
-
-__device__ __forceinline__ void cp_async16(__nv_bfloat16* smem, const __nv_bfloat16* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_prior() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-// barrier of the 128 threads of one warpgroup (id 1 + warpgroup; 0 is
-// __syncthreads)
-__device__ __forceinline__ void warpgroup_sync(int wg) {
-  asm volatile("bar.sync %0, 128;\n" ::"r"(wg + 1) : "memory");
 }
 
 // Start the copies of window `win` (its 64 tokens and Q context quads) into

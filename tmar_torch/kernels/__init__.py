@@ -89,9 +89,8 @@ def build(names: Iterable[str] = KERNELS) -> Dict[str, str]:
     return targets
 
 
-def entry(name: str, argtypes: List) -> ctypes._CFuncPtr:
-    """The C entry point ``tmar_<name>`` of kernel library ``name`` (built
-    and loaded on first use), with its argument types set."""
+def _library(name: str) -> ctypes.CDLL:
+    """Kernel library ``name``, built and loaded on first use."""
     with _lock:
         lib = _libs.get(name)
         if lib is None:
@@ -100,8 +99,23 @@ def entry(name: str, argtypes: List) -> ctypes._CFuncPtr:
             getattr(lib, f"tmar_{name}_error").restype = ctypes.c_char_p
             getattr(lib, f"tmar_{name}_error").argtypes = [ctypes.c_int]
             _libs[name] = lib
-    fn = getattr(lib, f"tmar_{name}")
+    return lib
+
+
+def entry(name: str, argtypes: List) -> ctypes._CFuncPtr:
+    """The C entry point ``tmar_<name>`` of kernel library ``name`` (built
+    and loaded on first use), with its argument types set."""
+    fn = getattr(_library(name), f"tmar_{name}")
     fn.argtypes = argtypes
+    return fn
+
+
+def host_function(name: str, symbol: str, argtypes: List, restype) -> ctypes._CFuncPtr:
+    """Another C function of kernel library ``name`` (a host-side query,
+    such as a workspace size), with its argument and result types set."""
+    fn = getattr(_library(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = restype
     return fn
 
 

@@ -3,17 +3,24 @@ wrapper (the counterpart of ``tmar.ops.pallas_attention`` with
 ``backward="pallas"``).
 
 ``fused_window_attention`` computes qkv projection -> cosine attention ->
-output projection on [B_, N, D] windows.  Its plain version is
-``tmar_torch.ops.attention.window_attention_math`` under ordinary autograd,
-which a CPU tensor takes.  A CUDA tensor goes through a
+output projection on [B_, N, D] windows.  A CUDA tensor goes through a
 ``torch.autograd.Function`` whose forward launches
-``csrc/window_attention_fwd.cu`` and whose backward launches
-``csrc/window_attention_bwd.cu`` (all seven cotangents, recomputed from x and
-the saved row-wise log-sum-exp), or raises.
+``csrc/window_attention_fwd.cu`` (K3) and whose backward launches
+``csrc/window_attention_bwd.cu`` (K4: all seven cotangents, recomputed from
+x and the saved row-wise log-sum-exp), or raises.  A CPU tensor runs the
+plain versions: at float32 ``tmar_torch.ops.attention.window_attention_math``
+under ordinary autograd; at bfloat16 ``window_attention_kernel_math`` and
+its explicit backward ``window_attention_backward_math``, which round where
+the kernels and the JAX kernels round.
 
-The kernels compute in float32 on the float32 parameters whatever the
-activation dtype; the activations and their cotangents are float32 or
-bfloat16.
+The kernels read the float32 parameters; the activations and their
+cotangents are float32 or bfloat16, and the parameter cotangents float32.
+At float32 both kernels compute in float32 on the CUDA cores.  At bfloat16,
+on 64-token windows, both run on the tensor cores and round to bf16 where
+the JAX kernels do (``_attn_kernel_batched``, and
+``_attn_bwd_kernel_batched`` with ``cot_bf16`` on, the JAX default for bf16
+inputs; the ``TMAR_ATTN_BWD_COT`` override is not read); on 4-token windows
+they round where ``_attn_kernel`` and ``_attn_bwd_kernel`` do.
 
 ``impl`` takes the names of the JAX package's forward kernels
 (``TMAR_ATTN_IMPL``).  Each is a way of feeding the TPU's matrix unit (how
@@ -44,7 +51,14 @@ import numpy as np
 import torch
 
 from tmar_torch.device import float32_data
-from tmar_torch.ops.attention import LOGIT_SCALE_MAX, on_device, window_attention_math
+from tmar_torch.ops.attention import (
+    LOGIT_SCALE_MAX,
+    add_shift_mask,
+    merge_heads,
+    on_device,
+    split_heads,
+    window_attention_math,
+)
 
 # (N, D, num_heads, head_dim) the kernels are compiled for: the full-width
 # NGswin's 8x8 windows at D = 64 and its 2x2 n-gram windows at D/2 = 32
@@ -79,6 +93,127 @@ def resolve_impl(impl: Optional[str], N: int) -> str:
     return impl
 
 
+def _roundings(dtype, N):
+    """(r, rk): the rounding to ``dtype`` (back in float32) of the products'
+    operands that both window lengths' JAX kernels round (x, the two
+    matrices, the head outputs before the projection), and of those only the
+    64-token kernels round (q_n, k_n, v and P in the forward and its
+    recompute; every cotangent product's operands, ``cot_bf16``).  The set
+    is the JAX op's default ``impl`` for N: ``batched`` from 32 tokens up."""
+
+    def r(t):
+        return t.to(dtype).float()
+
+    return r, (r if resolve_impl(None, N) == "batched" else (lambda t: t))
+
+
+def _attention_terms(x, wqkv, bqkv, logit_scale, bias, num_heads, mask_components, rk):
+    """The forward's intermediates in float32, per head [B_, nh, N, ·]: x's
+    qkv product with the (rounded) weight ``wqkv``, then q, k, v, the
+    reciprocal norms, q_n, k_n, the cosine, the effective scale and P."""
+    qkv = x.float() @ wqkv
+    if bqkv is not None:
+        qkv = qkv + bqkv.float()
+    q, k, v = (split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
+    iq = (q.square().sum(-1, keepdim=True).sqrt() + 1e-12).reciprocal()
+    ik = (k.square().sum(-1, keepdim=True).sqrt() + 1e-12).reciprocal()
+    qn, kn = q * iq, k * ik
+    cos = rk(qn) @ rk(kn).transpose(-1, -2)
+    scale = torch.exp(torch.clamp(logit_scale.float(), max=LOGIT_SCALE_MAX))
+    s = add_shift_mask(cos * scale[None] + bias.float()[None], mask_components)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / e.sum(-1, keepdim=True)
+    return v, iq, ik, qn, kn, cos, scale, p
+
+
+def window_attention_kernel_math(
+    x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components=None
+):
+    """The plain version of K3 at x's dtype: computes in float32 and rounds
+    to x's dtype where the kernel and the JAX kernels round
+    (``tmar/ops/pallas_attention.py``).  On 64-token windows
+    (``_attn_kernel_batched`` by way of ``batched_attention_core``): the two
+    matrices (``_pack_params`` :183), q_n, k_n and v (:1052-1062), P after
+    its normalisation (:1133-1135), the merged head outputs (:1170).  On
+    4-token windows (``_attn_kernel``): the matrices and the head outputs
+    (:1236).  The biases, norms, scale, bias, mask and softmax stay float32;
+    at float32 every rounding is the identity.  Arguments as
+    ``fused_window_attention`` takes them; returns x's dtype."""
+    cd = x.dtype
+    r, rk = _roundings(cd, x.shape[1])
+    v, _, _, _, _, _, _, p = _attention_terms(
+        x, r(wqkv), bqkv, logit_scale, bias, num_heads, mask_components, rk)
+    out = r(merge_heads(rk(p) @ rk(v))) @ r(wproj)
+    if bproj is not None:
+        out = out + bproj.float()
+    return out.to(cd)
+
+
+def window_attention_backward_math(
+    x, g, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components=None
+):
+    """The plain version of K4 at x's dtype: the seven cotangents (dx,
+    dwqkv, dbqkv, dlogit_scale, dbias, dwproj, dbproj) of
+    ``window_attention_kernel_math`` at the output cotangent g, written out
+    as the JAX kernels compute them.  On 64-token windows
+    (``_attn_bwd_kernel_batched`` with ``cot_bf16``): the recompute rounds as
+    the forward (:629-642), and every cotangent product's operands are
+    rounded (:645-697): g, wp_h, dacc, v, P, dcos, k_n, q_n, the attention
+    output, dqkv, x and wqkv; ds with delta = Σ_j dp·p from the rounded
+    operands' dp (:658), the L2-norm backward and the sums into dbias,
+    dscale, dbqkv and dbproj stay float32.  On 4-token windows
+    (``_attn_bwd_kernel``): the qkv product's operands only (:728); the
+    cotangent products run in float32 on the rounded matrices (:767,
+    :802-807).  dx has x's dtype, the parameter cotangents are float32."""
+    cd = x.dtype
+    B_, N, D = x.shape
+    r, rk = _roundings(cd, N)
+    nh = num_heads
+    w, wp = r(wqkv), r(wproj)
+    v, iq, ik, qn, kn, cos, scale, p = _attention_terms(
+        x, w, bqkv, logit_scale, bias, nh, mask_components, rk)
+    o = rk(p) @ rk(v)                                   # [B_, nh, N, hd]
+    g32 = r(g)
+    dacc = split_heads(rk(g32) @ rk(wp).t(), nh)        # g @ wp_hᵀ per head
+    dp = rk(dacc) @ rk(v).transpose(-1, -2)
+    dv = rk(p).transpose(-1, -2) @ rk(dacc)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dbias = ds.sum(0)
+    dscale = (ds * cos).sum((0, 2, 3))
+    dcos = ds * scale[None]
+    dqn = rk(dcos) @ rk(kn)
+    dkn = rk(dcos).transpose(-1, -2) @ rk(qn)
+    dq = iq * (dqn - qn * (dqn * qn).sum(-1, keepdim=True))
+    dk = ik * (dkn - kn * (dkn * kn).sum(-1, keepdim=True))
+    dqkv = torch.cat([merge_heads(dq), merge_heads(dk), merge_heads(dv)], dim=-1)
+    dx = (rk(dqkv) @ rk(w).t()).to(cd)
+    dwqkv = rk(r(x)).reshape(-1, D).t() @ rk(dqkv).reshape(-1, dqkv.shape[-1])
+    dwproj = rk(merge_heads(o)).reshape(-1, o.shape[1] * o.shape[-1]).t() @ rk(g32).reshape(-1, D)
+    ls = logit_scale.detach().float().reshape(nh)
+    dls = (dscale * scale.reshape(nh) * (ls <= LOGIT_SCALE_MAX)).reshape(logit_scale.shape)
+    return dx, dwqkv, dqkv.sum((0, 1)), dls, dbias, dwproj, g32.sum((0, 1))
+
+
+class _PlainAttention(torch.autograd.Function):
+    """The CPU path at bfloat16: the two rounding-matched plain versions as
+    one differentiable function, as the kernels compose on the card."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components):
+        ctx.save_for_backward(x, wqkv, bqkv, logit_scale, bias, wproj, bproj)
+        ctx.num_heads, ctx.mask = num_heads, mask_components
+        return window_attention_kernel_math(
+            x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        args = ctx.saved_tensors
+        grads = window_attention_backward_math(
+            args[0], g, *args[1:], ctx.num_heads, mask_components=ctx.mask)
+        return (*[None if a is None else t.to(a.dtype) for t, a in zip(grads, args)], None, None)
+
+
 def fused_window_attention(
     x: torch.Tensor,
     wqkv: torch.Tensor,
@@ -100,10 +235,14 @@ def fused_window_attention(
     name launches K3 and counts in ``launches_by_impl``, so the name
     changes no result.  The JAX op's ``windows_per_step`` and ``interpret``
     shape the TPU grid and have no counterpart here.  Differentiable in all
-    seven tensor arguments.  A CPU tensor runs the plain version; a CUDA
-    tensor launches the kernels (float32 or bfloat16) or raises."""
+    seven tensor arguments.  A CPU tensor runs the plain versions (at
+    bfloat16 the rounding-matched ones); a CUDA tensor launches the kernels
+    (float32 or bfloat16) or raises."""
     impl = resolve_impl(impl, x.shape[1])
     if x.device.type == "cpu":
+        if x.dtype == torch.bfloat16:
+            return _PlainAttention.apply(
+                x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components)
         cd = x.dtype
         return window_attention_math(
             x, wqkv.to(cd), None if bqkv is None else bqkv.to(cd), logit_scale, bias,
@@ -159,38 +298,12 @@ class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components,
                 impl):
-        from tmar_torch import kernels
-
-        B_, N, D, A = _geometry(x, wqkv, num_heads)
-        dev = x.device
-        x = x.detach().contiguous()
-        w_qkv, w_proj = float32_data(wqkv), float32_data(wproj)
-        b_qkv = torch.zeros(3 * A, device=dev) if bqkv is None else float32_data(bqkv, True)
-        b_proj = torch.zeros(D, device=dev) if bproj is None else float32_data(bproj, True)
-        scale = torch.exp(
-            torch.clamp(float32_data(logit_scale).reshape(num_heads), max=LOGIT_SCALE_MAX)
-        )
-        bias32 = float32_data(bias, True)
-        if tuple(bias32.shape) != (num_heads, N, N):
-            raise ValueError(f"bias shape {tuple(bias32.shape)} != {(num_heads, N, N)}")
-        m_row, m_col, wh, ww = _device_mask(mask_components, N, B_, dev)
-        out = torch.empty_like(x)
-        lse = torch.empty((B_, num_heads, N), device=dev, dtype=torch.float32)
-        blocks = min((B_ * N + 63) // 64, kernels.sm_count(dev))
-        ints = (
-            B_, N, num_heads, A // num_heads, *w_qkv.stride(), *w_proj.stride(),
-            wh, ww, blocks, int(x.dtype == torch.bfloat16),
-        )
-        kernels.launch(
-            "window_attention_fwd", _FWD_ARGTYPES, dev,
-            x.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(), scale.data_ptr(),
-            bias32.data_ptr(), w_proj.data_ptr(), b_proj.data_ptr(), _ptr(m_row),
-            _ptr(m_col), out.data_ptr(), lse.data_ptr(), *ints,
-        )
-        fused_window_attention.launches += 1
+        operands, ints = _kernel_operands(
+            x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components)
+        out, lse = _launch(operands, ints)
         fused_window_attention.launches_by_impl[impl] += 1
-        ctx.save_for_backward(x, w_qkv, b_qkv, scale, bias32, w_proj, lse, logit_scale)
-        ctx.mask = (m_row, m_col)
+        ctx.save_for_backward(*operands[:7], lse, logit_scale)
+        ctx.mask = tuple(operands[7:])
         ctx.ints = ints
         ctx.grad_dtypes = [
             None if t is None else t.dtype for t in (wqkv, bqkv, logit_scale, bias, wproj, bproj)
@@ -200,27 +313,12 @@ class _WindowAttention(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        from tmar_torch import kernels
-
-        x, w_qkv, b_qkv, scale, bias32, w_proj, lse, logit_scale = ctx.saved_tensors
-        m_row, m_col = ctx.mask
+        *operands, lse, logit_scale = ctx.saved_tensors
+        x, scale = operands[0], operands[3]
         B_, N, nh, hd = ctx.ints[:4]
-        blocks = ctx.ints[-2]
         D, A = x.shape[-1], nh * hd
-        dev = x.device
-        g = g.to(x.dtype).contiguous()
+        dx, dparams = _launch_backward(operands + list(ctx.mask), lse, g, ctx.ints)
         sizes = [D * 3 * A, 3 * A, nh, nh * N * N, A * D, D]
-        dx = torch.empty_like(x)
-        part = torch.empty((blocks, sum(sizes)), device=dev, dtype=torch.float32)
-        dparams = torch.empty(sum(sizes), device=dev, dtype=torch.float32)
-        kernels.launch(
-            "window_attention_bwd", _BWD_ARGTYPES, dev,
-            x.data_ptr(), g.data_ptr(), w_qkv.data_ptr(), b_qkv.data_ptr(),
-            scale.data_ptr(), bias32.data_ptr(), w_proj.data_ptr(), _ptr(m_row),
-            _ptr(m_col), lse.data_ptr(), dx.data_ptr(), part.data_ptr(),
-            dparams.data_ptr(), *ctx.ints,
-        )
-        fused_window_attention.backward_launches += 1
         dwqkv, dbqkv, dscale, dbias, dwproj, dbproj = torch.split(dparams, sizes)
         # the kernel's cotangent is on the effective scale exp(min(ls, ln 100)):
         # d/d ls = scale below the clip, zero above it
@@ -234,6 +332,90 @@ class _WindowAttention(torch.autograd.Function):
         return (dx, *grads, None, None, None)
 
 
+def _kernel_operands(x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components):
+    """Check the geometry and lay out the kernels' operands on x's device:
+    returns ([x, wqkv, bqkv, scale, bias, wproj, bproj, m_row, m_col] as the
+    C entry points read them, the entry points' integer arguments)."""
+    from tmar_torch import kernels
+
+    B_, N, D, A = _geometry(x, wqkv, num_heads)
+    dev = x.device
+    w_qkv, w_proj = float32_data(wqkv), float32_data(wproj)
+    b_qkv = torch.zeros(3 * A, device=dev) if bqkv is None else float32_data(bqkv, True)
+    b_proj = torch.zeros(D, device=dev) if bproj is None else float32_data(bproj, True)
+    scale = torch.exp(
+        torch.clamp(float32_data(logit_scale).reshape(num_heads), max=LOGIT_SCALE_MAX)
+    )
+    bias32 = float32_data(bias, True)
+    if tuple(bias32.shape) != (num_heads, N, N):
+        raise ValueError(f"bias shape {tuple(bias32.shape)} != {(num_heads, N, N)}")
+    m_row, m_col, wh, ww = _device_mask(mask_components, N, B_, dev)
+    blocks = min((B_ * N + 63) // 64, kernels.sm_count(dev))
+    ints = (
+        B_, N, num_heads, A // num_heads, *w_qkv.stride(), *w_proj.stride(),
+        wh, ww, blocks, int(x.dtype == torch.bfloat16),
+    )
+    operands = [x.detach().contiguous(), w_qkv, b_qkv, scale, bias32, w_proj, b_proj, m_row, m_col]
+    return operands, ints
+
+
+def _launch(operands, ints):
+    """K3 on laid-out operands: -> (out, lse)."""
+    from tmar_torch import kernels
+
+    x = operands[0]
+    B_, N, nh = ints[:3]
+    out = torch.empty_like(x)
+    lse = torch.empty((B_, nh, N), device=x.device, dtype=torch.float32)
+    kernels.launch(
+        "window_attention_fwd", _FWD_ARGTYPES, x.device,
+        *[_ptr(t) for t in operands], out.data_ptr(), lse.data_ptr(), *ints,
+    )
+    fused_window_attention.launches += 1
+    return out, lse
+
+
+def _launch_backward(operands, lse, g, ints):
+    """K4 on the forward's operands, its lse and the output cotangent g: ->
+    (dx, the concatenated float32 parameter cotangents)."""
+    from tmar_torch import kernels
+
+    x = operands[0]
+    B_, N, nh, hd = ints[:4]
+    D, A = x.shape[-1], nh * hd
+    g = g.to(x.dtype).contiguous()
+    dx = torch.empty_like(x)
+    # the per-block partial sums (and the bf16 body's dqkv and attention
+    # output tiles), as the library sizes them
+    workspace = torch.empty(
+        _workspace_floats(B_, N, nh, hd, ints[-2], ints[-1]), device=x.device, dtype=torch.float32)
+    dparams = torch.empty(D * 3 * A + 3 * A + nh + nh * N * N + A * D + D, device=x.device,
+                          dtype=torch.float32)
+    p = [_ptr(t) for t in operands]
+    kernels.launch(
+        "window_attention_bwd", _BWD_ARGTYPES, x.device,
+        p[0], g.data_ptr(), *p[1:5], p[5], p[7], p[8], lse.data_ptr(), dx.data_ptr(),
+        workspace.data_ptr(), dparams.data_ptr(), *ints,
+    )
+    fused_window_attention.backward_launches += 1
+    return dx, dparams
+
+
+def _workspace_floats(nwin, N, nh, hd, blocks, is_bf16):
+    from tmar_torch import kernels
+
+    global _workspace_fn
+    if _workspace_fn is None:
+        _workspace_fn = kernels.host_function(
+            "window_attention_bwd", "tmar_window_attention_bwd_workspace",
+            [ctypes.c_int] * 6, ctypes.c_longlong)
+    floats = _workspace_fn(nwin, N, nh, hd, blocks, is_bf16)
+    if floats < 0:
+        raise ValueError(f"window_attention_bwd: no workspace size for N={N}, heads={nh}x{hd}")
+    return floats
+
+
+_workspace_fn = None
 _P = ctypes.c_void_p
 _FWD_ARGTYPES = [_P] * 11 + [ctypes.c_int] * 12 + [_P]
 _BWD_ARGTYPES = [_P] * 13 + [ctypes.c_int] * 12 + [_P]

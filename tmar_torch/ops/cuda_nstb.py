@@ -37,7 +37,6 @@ from tmar_torch.ops.attention import (
     LOGIT_SCALE_MAX,
     add_shift_mask,
     gather_rel_pos_bias,
-    l2_normalize,
     merge_heads,
     relative_position_index,
     split_heads,
@@ -83,50 +82,58 @@ def nstb_math(
     x, ctx_quads, sel,
     wqkv, bqkv, logit_scale, bias, wproj, bproj,
     g1, b1, w1, bw1, w2, bw2, g2, b2,
-    num_heads, mask_components=None, eps=1e-5,
+    num_heads, mask_components=None, eps=1e-5, compute_dtype=torch.float32,
 ):
     """Token-level NSTB: x [B_, N, D] context-free rolled windows,
     ctx_quads [B_, Q, D], sel [N, Q], bias the gathered RPB [nh, N, N].
 
-    Computes in float32 and rounds to x's dtype where the JAX kernel
-    (``tmar.ops.pallas_nstb._nstb_body``) and the kernels' bfloat16 body
-    round: the context quads and the four matrices on input; x_attn; q_n,
-    k_n and v; P after its normalisation; the attention output before the
-    projection; y before fc1; the GELU output before fc2; the output.  The
-    biases, the LayerNorms and every statistic stay float32.  At float32
-    every rounding is the identity."""
-    cd = x.dtype
+    Computes in ``compute_dtype`` (float32; float64 evaluates the same
+    function between its rounding points more exactly) and rounds to x's
+    dtype where the JAX kernel (``tmar.ops.pallas_nstb._nstb_body``) and the
+    kernels' bfloat16 body round: the context quads and the four matrices on
+    input; x_attn; q_n, k_n and v; P after its normalisation; the attention
+    output before the projection; y before fc1; the GELU output before fc2;
+    the output.  The biases, the LayerNorms and every statistic stay in
+    ``compute_dtype``.  At float32 every rounding is the identity."""
+    cd, acc = x.dtype, compute_dtype
 
     def r(t):
-        return t.to(cd).float()
+        return t.to(cd).to(acc)
 
-    x32 = x.float()
-    sel_t = torch.as_tensor(sel, dtype=torch.float32, device=x.device)
+    def f(t):
+        return t.to(acc)
+
+    def l2n(t):  # l2_normalize in the compute dtype
+        return t * (t.square().sum(-1, keepdim=True).sqrt() + 1e-12).reciprocal()
+
+    x32 = f(x)
+    sel_t = torch.as_tensor(sel, dtype=acc, device=x.device)
     x_attn = r(x32 + torch.einsum("nq,bqd->bnd", sel_t, r(ctx_quads)))
     qkv = x_attn @ r(wqkv)
     if bqkv is not None:
-        qkv = qkv + bqkv.float()
+        qkv = qkv + f(bqkv)
     q, k, v = (split_heads(t, num_heads) for t in qkv.chunk(3, dim=-1))
-    attn = torch.matmul(r(l2_normalize(q)), r(l2_normalize(k)).transpose(-1, -2))
-    scale = torch.exp(torch.clamp(logit_scale.float(), max=LOGIT_SCALE_MAX))
-    attn = add_shift_mask(attn * scale[None] + bias.float()[None], mask_components)
+    attn = torch.matmul(r(l2n(q)), r(l2n(k)).transpose(-1, -2))
+    scale = torch.exp(torch.clamp(f(logit_scale), max=LOGIT_SCALE_MAX))
+    attn = add_shift_mask(attn * scale[None] + f(bias)[None], mask_components)
     attn = torch.exp(attn - attn.amax(-1, keepdim=True))
     attn = attn / attn.sum(-1, keepdim=True)
     a = r(merge_heads(torch.matmul(r(attn), r(v)))) @ r(wproj)
     if bproj is not None:
-        a = a + bproj.float()
-    y = x32 + layer_norm(a, g1, b1, eps)
-    h = F.gelu(r(y) @ r(w1) + bw1.float(), approximate="none")
-    z = y + layer_norm(r(h) @ r(w2) + bw2.float(), g2, b2, eps)
+        a = a + f(bproj)
+    y = x32 + layer_norm(a, f(g1), f(b1), eps)
+    h = F.gelu(r(y) @ r(w1) + f(bw1), approximate="none")
+    z = y + layer_norm(r(h) @ r(w2) + f(bw2), f(g2), f(b2), eps)
     return z.to(cd)
 
 
 def nstb_tokens_math(
     x, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
     ln1, ffn1, ffn2, ln2, *, num_heads, window_size, shift=0, grid=None, eps=1e-5,
+    compute_dtype=torch.float32,
 ):
     """Plain version of the token-level block.  Arguments as in
-    ``fused_nstb``."""
+    ``fused_nstb``; ``compute_dtype`` as ``nstb_math`` takes it."""
     B_, N, D = x.shape
     ws = window_size
     sel, mask_components = _selector_and_mask(ctx_quads.shape[1], ws, shift, grid)
@@ -135,15 +142,18 @@ def nstb_tokens_math(
         x, ctx_quads, sel, wqkv, bqkv, logit_scale, bias, wproj, bproj, ln1[0], ln1[1],
         ffn1[0], ffn1[1], ffn2[0], ffn2[1], ln2[0], ln2[1],
         num_heads=num_heads, mask_components=mask_components, eps=eps,
+        compute_dtype=compute_dtype,
     )
 
 
 def nstb_map_math(
     xmap, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
     ln1, ffn1, ffn2, ln2, *, num_heads, window_size, shift=0, eps=1e-5,
+    compute_dtype=torch.float32,
 ):
     """Plain version of the map-level block: roll, partition,
-    ``nstb_tokens_math``, unpartition.  Arguments as in ``fused_nstb_map``."""
+    ``nstb_tokens_math``, unpartition.  Arguments as in ``fused_nstb_map``;
+    ``compute_dtype`` as ``nstb_math`` takes it."""
     B, ph, pw, D = xmap.shape
     ws = window_size
     wh, ww = ph // ws, pw // ws
@@ -151,7 +161,7 @@ def nstb_map_math(
     z = nstb_tokens_math(
         wins.reshape(-1, ws * ws, D), ctx_quads, wqkv, bqkv, logit_scale, table, wproj,
         bproj, ln1, ffn1, ffn2, ln2, num_heads=num_heads, window_size=ws, shift=shift,
-        grid=(wh, ww), eps=eps,
+        grid=(wh, ww), eps=eps, compute_dtype=compute_dtype,
     )
     return window_unpartition(z.reshape(-1, ws, ws, D), (wh, ww))
 
