@@ -31,12 +31,13 @@ Phases, each of which fails the run if it fails:
    windows of 64 tokens with 6 heads, with and without the shift mask; 512
    with 4 heads; 2048 and 512 n-gram windows of 4 tokens; 131,072 FFN rows;
    n-gram grids 8x16x16 at 6 heads, 8x8x8 and 8x4x4 at 4, and also 8x64x64,
-   13x7 and 2x2), at float32 (TF32 off) and bfloat16 (window attention at
-   bfloat16 against its rounding-matched plain forward and explicit
-   backward, the distance to the float32 plain version printed beside it),
-   each backward run twice and compared bit for bit; then each kernel's time
-   (window attention's both as the launch alone and through the wrapper)
-   beside its plain version's and its bound;
+   13x7 and 2x2), at float32 (TF32 off) and bfloat16 (window attention and
+   the residual FFN at bfloat16 against their rounding-matched plain
+   forwards and explicit backwards, the distance to the float32 plain
+   version printed beside it; the FFN also at 1000 rows, a ragged last
+   tile), each backward run twice and compared bit for bit; then each
+   kernel's time (window attention's and the FFN's both as the launch alone
+   and through the wrapper) beside its plain version's and its bound;
 6. the composition training path: the full-width NGswin in its training
    form with ``ngram_fused=False`` and the 3-scale spectral-norm PatchGAN,
    from a seed, take 3 warm-up and 10 timed GAN steps in bfloat16 on a fixed
@@ -74,8 +75,9 @@ Phases, each of which fails the run if it fails:
    K3 and K5 on the inputs the unfused form's 8x512² request gave them (the
    first shifted block of each window and head count, the first block of
    each row count), at bfloat16 and cast to float32, against their plain
-   versions (K3 at bfloat16 against its rounding-matched one), and timed at
-   stage 1 in both dtypes (32,768 windows, 2,097,152 rows);
+   versions (at bfloat16 against the rounding-matched ones), and timed at
+   stage 1 in both dtypes (32,768 windows, 2,097,152 rows; K5 also as the
+   launch alone);
 13. the ``test`` entry point (``tmar_torch.cli.test``) called in-process on
    the flagship, full-slice and ``--tiled`` (all 144 tiles of a 416² slice
    in one forward), in each of the three block forms: ``metrics.json``
@@ -112,13 +114,14 @@ F32_TOL = 1e-4     # x max(1, max|ref|): summation order and libm rounding
 BF16_TOL = 2.0**-7  # x max|ref|: one bf16 rounding of the output, twice over
 # The training kernels keep parameters and parameter cotangents in float32 at
 # either activation dtype; activations and their cotangents take the
-# activation dtype's tolerance.  At bfloat16 the reference of K5-K7 is the
+# activation dtype's tolerance.  At bfloat16 the reference of K7 is the
 # plain version in float32 on the same bf16-rounded activations (parameter
-# cotangents at F32_TOL).  K3 and K4 at bfloat16 round where the JAX kernels
+# cotangents at F32_TOL).  K3-K6 at bfloat16 round where the JAX kernels
 # round, and so do their plain versions (window_attention_kernel_math and
-# window_attention_backward_math), their reference; at N = 64 K4's
-# cotangent products take bf16 operands, so its parameter cotangents are
-# held to BF16_TOL there, at N = 4 to F32_TOL.
+# window_attention_backward_math; ffn_kernel_math and ffn_backward_math),
+# their reference; K4's cotangent products at N = 64 and K6's take bf16
+# operands (K6's dw1 and dw2 are bf16 values), so their parameter
+# cotangents are held to BF16_TOL there, K4's at N = 4 to F32_TOL.
 # K2/K8 at bf16 round every product's operands where the JAX kernel does, and
 # so does their plain version.  Two evaluations of that function that differ
 # only in float32 summation order round a few intermediates to neighbouring
@@ -319,6 +322,7 @@ def check_kernels(model, dev, card):
     k_ms, p_ms, b_ms, b_by = times[(1, "bfloat16")]
     records["nstb_map"] = {
         "name": "nstb_map", "route": "cuda", "source": "tmar_torch/csrc/nstb_map.cu",
+        "headers": NSTB_HEADERS,
         "replaces": "tmar/ops/pallas_nstb.py:640", "max_abs_err": errs["float32"],
         "max_abs_err_bf16": errs["bfloat16"], "mean_abs_err_bf16": errs["bf16_mean"],
         "max_abs_err_bf16_vs_f32_plain": errs["bf16_vs_f32_plain"], "ms": k_ms, "plain_ms": p_ms,
@@ -584,6 +588,26 @@ def ngram_bwd_work(B, wh, ww, nh, itemsize):
     return cells * (forward + backward), cells * (2 * C + D) * itemsize + 2 * params
 
 
+def ffn_launch_ms(x, ao, params, g, eps=1e-5, iters=20):
+    """(K5, K6 or None without g) in ms on operands laid out once, the
+    launches alone (the C entry points and their allocations), as K3 and K4
+    are timed; the counters are put back."""
+    from tmar_torch.ops import cuda_ffn as cf
+
+    f = cf.fused_residual_ffn
+    before = (f.launches, f.backward_launches)
+    ops, tail = cf._kernel_operands(x, ao, *params, eps)
+    fwd = cuda_ms(lambda: cf._launch(ops, tail), iters=iters)
+    bwd = None if g is None else cuda_ms(lambda: cf._launch_backward(ops, g, tail), iters=iters)
+    f.launches, f.backward_launches = before
+    return fwd, bwd
+
+
+FFN_HEADERS = ["tmar_torch/csrc/ffn_mma.cuh", "tmar_torch/csrc/mma.cuh", "tmar_torch/csrc/common.cuh"]
+NSTB_HEADERS = ["tmar_torch/csrc/nstb_window.cuh", "tmar_torch/csrc/nstb_window_mma.cuh",
+                "tmar_torch/csrc/ffn_mma.cuh", "tmar_torch/csrc/mma.cuh"]
+
+
 def attention_launch_ms(x, params, g, nh, mc, iters=20):
     """(K3, K4) in ms on operands laid out once, the launches alone (the C
     entry points and their allocations), as K2 and K7 are timed; the counters
@@ -636,7 +660,12 @@ def check_train_kernels(dev, card):
     )
     from tmar_torch.ops import cuda_ngram
     from tmar_torch.ops.cuda_ngram import fused_ngram_context, ngram_context_math
-    from tmar_torch.ops.cuda_ffn import fused_residual_ffn
+    from tmar_torch.ops.cuda_ffn import (
+        _PlainFFN,
+        ffn_backward_math,
+        ffn_kernel_math,
+        fused_residual_ffn,
+    )
     from tmar_torch.ops.ffn import ffn_math
     from tmar_torch.ops.window import shift_mask_components
 
@@ -793,33 +822,47 @@ def check_train_kernels(dev, card):
 
     # ---- K5 / K6: residual FFN ---------------------------------------------
     errs = {h: {"float32": 0.0, "bfloat16": 0.0} for h in ("fwd", "bwd")}
+
+    def ffn_plain_bf16(a, p, gg):
+        return [ffn_kernel_math(a[0], a[1], *p), *ffn_backward_math(a[0], a[1], *p, gg)]
+
     acts, params, g = ffn_inputs(FFN_ROWS)
-    hold("residual_ffn", f"x=[{FFN_ROWS}, 64]", FFN_NAMES, 2, fused_residual_ffn, ffn_math,
-         acts, params, g, errs)
     racts, rparams, rg = ffn_inputs(1000)
-    hold("residual_ffn", "x=[1000, 64] (ragged last tile)", FFN_NAMES, 2, fused_residual_ffn,
-         ffn_math, racts, rparams, rg, errs)
+    for label, case in ((f"x=[{FFN_ROWS}, 64]", (acts, params, g)),
+                        ("x=[1000, 64] (ragged last tile)", (racts, rparams, rg))):
+        hold("residual_ffn", label, FFN_NAMES, 2, fused_residual_ffn, ffn_math, *case, errs,
+             plain_bf16=ffn_plain_bf16, param_bf16=True)
     times = {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
-        t = time_pair(fused_residual_ffn, ffn_math, acts, params, g, dtype)
+        # the plain versions: at bf16 the rounding-matched pair (K5's and
+        # K6's as one autograd function), at f32 autograd of the math
+        t = time_pair(fused_residual_ffn,
+                      (lambda *a: _PlainFFN.apply(*a, 1e-5)) if dtype == torch.bfloat16 else ffn_math,
+                      acts, params, g, dtype)
+        launch = ffn_launch_ms(acts[0].to(dtype), acts[1].to(dtype), params, g.to(dtype))
         bounds = [bound_ms(*ffn_work(FFN_ROWS, acts[0].to(dtype).element_size(), b), dn)
                   for b in (False, True)]
-        times[dn] = (t, bounds)
-        for half, k_ms, p_ms, (b_ms, b_by) in (("fwd", t[0], t[2], bounds[0]), ("bwd", t[1], t[3], bounds[1])):
-            print(f"[time] residual_ffn_{half} x=[{FFN_ROWS}, 64] {dn}: kernel {k_ms:.4f} ms, "
-                  f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
-                  f"library: none (no single PyTorch call computes it) on {card}")
+        times[dn] = (t, bounds, launch)
+        for i, (half, p_ms, (b_ms, b_by)) in enumerate((("fwd", t[2], bounds[0]), ("bwd", t[3], bounds[1]))):
+            print(f"[time] residual_ffn_{half} x=[{FFN_ROWS}, 64] {dn}: kernel {launch[i]:.4f} ms "
+                  f"(launch alone; {t[i]:.4f} ms through the wrapper"
+                  f"{' under autograd' if half == 'bwd' else ''}), plain {p_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by}); library: none (no single PyTorch call computes it) "
+                  f"on {card}")
     for i, half in enumerate(("fwd", "bwd")):
-        t, bounds = times["bfloat16"]
+        t, bounds, launch = times["bfloat16"]
+        t32, b32, launch32 = times["float32"]
         records[f"residual_ffn_{half}"] = {
             "name": f"residual_ffn_{half}", "route": "cuda",
-            "source": f"tmar_torch/csrc/residual_ffn_{half}.cu",
+            "source": f"tmar_torch/csrc/residual_ffn_{half}.cu", "headers": FFN_HEADERS,
             "replaces": "tmar/ops/pallas_ffn.py:352" if half == "fwd" else "tmar/ops/pallas_ffn.py:249",
             "max_abs_err": errs[half]["float32"], "max_abs_err_bf16": errs[half]["bfloat16"],
-            "ms": t[i], "plain_ms": t[2 + i], "bound_ms": bounds[i][0], "bound_by": bounds[i][1],
-            "library_ms": None, "ms_f32": times["float32"][0][i],
-            "plain_ms_f32": times["float32"][0][2 + i],
+            "mean_abs_err_bf16": errs["bf16_mean"][half],
+            "ms": launch[i], "plain_ms": t[2 + i], "bound_ms": bounds[i][0],
+            "bound_by": bounds[i][1], "library_ms": None, "ms_through_wrapper": t[i],
+            "ms_f32": launch32[i], "ms_through_wrapper_f32": t32[i], "plain_ms_f32": t32[2 + i],
+            "bound_ms_f32": b32[i][0],
             "shape": f"x [{FFN_ROWS}, 64] bf16",
         }
 
@@ -1391,6 +1434,7 @@ def check_token_kernel(model, dev, card):
     k_ms, p_ms, b_ms, b_by, k2_ms = times["bfloat16"]
     return {
         "name": "nstb_tokens", "route": "cuda", "source": "tmar_torch/csrc/nstb_tokens.cu",
+        "headers": NSTB_HEADERS,
         "replaces": "tmar/ops/pallas_nstb.py:334", "max_abs_err": errs["float32"],
         "max_abs_err_bf16": errs["bfloat16"], "mean_abs_err_bf16": errs["bf16_mean"],
         "max_abs_err_bf16_vs_f32_plain": errs["bf16_vs_f32_plain"], "ms": k_ms, "plain_ms": p_ms,
@@ -1513,12 +1557,12 @@ def check_unfused_kernels(kept, card):
 
     from tmar_torch.ops.attention import window_attention_math
     from tmar_torch.ops.cuda_attention import fused_window_attention, window_attention_kernel_math
-    from tmar_torch.ops.cuda_ffn import fused_residual_ffn
+    from tmar_torch.ops.cuda_ffn import ffn_kernel_math, fused_residual_ffn
     from tmar_torch.ops.ffn import ffn_math
 
     # (kernel, label, kernel call, plain version in float32 (bf16 inputs and
-    # matrices rounded), rounding-matched plain version at bf16 or None,
-    # the captured input, the work)
+    # matrices rounded), rounding-matched plain version at bf16, the
+    # captured input, the work, the launch alone's ms or None)
     failures, cases = [], {"window_attention_fwd": [], "residual_ffn_fwd": []}
     runs = [("window_attention_fwd", f"x={list(x.shape)} heads={args[-1]} mask on",
              lambda xx, args=args, mc=mc: fused_window_attention(xx, *args, mask_components=mc),
@@ -1529,14 +1573,16 @@ def check_unfused_kernels(kept, card):
              x,
              lambda size, x=x, args=args: attention_work(
                  x.shape[0], x.shape[1], x.shape[2], args[-1], args[0].shape[1] // 3 // args[-1],
-                 size, False))
+                 size, False), None)
             for (x, args, mc) in sorted(kept["attention"].values(), key=lambda c: -c[0].shape[0])]
     runs += [("residual_ffn_fwd", f"x={list(x.shape)}",
               lambda xx, args=args, kw=kw: fused_residual_ffn(xx, args[0].to(xx.dtype), *args[1:], **kw),
-              lambda xx, args=args, kw=kw: ffn_math(xx, args[0].to(xx.dtype), *args[1:], **kw), None,
-              x, lambda size, x=x: ffn_work(x.shape[0], size, False))
+              lambda xx, args=args, kw=kw: ffn_math(xx, args[0].to(xx.dtype), *args[1:], **kw),
+              lambda xx, args=args, kw=kw: ffn_kernel_math(xx, *args, **kw),
+              x, lambda size, x=x: ffn_work(x.shape[0], size, False),
+              lambda xx, args=args, kw=kw: ffn_launch_ms(xx, args[0], args[1:], None, iters=5, **kw)[0])
              for (x, args, kw) in sorted(kept["ffn"].values(), key=lambda c: -c[0].shape[0])]
-    for kernel, label, fused, plain, matched, x, work in runs:
+    for kernel, label, fused, plain, matched, x, work, alone in runs:
         ref32 = plain(x.float())
         case = {"shape": label}
         for dtype in (torch.bfloat16, torch.float32):
@@ -1573,9 +1619,12 @@ def check_unfused_kernels(kept, card):
                 sfx = "" if dtype == torch.bfloat16 else "_f32"
                 case.update({f"ms{sfx}": k_ms, f"plain_ms{sfx}": p_ms, f"bound_ms{sfx}": b_ms,
                              f"bound_by{sfx}": b_by})
+                a_ms = None if alone is None else alone(xb)
+                if a_ms is not None:
+                    case[f"ms_launch_alone{sfx}"] = a_ms
                 print(f"[time] {kernel} {label} {dn} (the unfused form's stage 1): kernel "
-                      f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); library: "
-                      f"none on {card}")
+                      f"{k_ms:.4f} ms{'' if a_ms is None else f' ({a_ms:.4f} ms the launch alone)'}, "
+                      f"plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); library: none on {card}")
                 del xb
         cases[kernel].append(case)
         torch.cuda.empty_cache()

@@ -8,17 +8,18 @@ without one.  Run on a CUDA host (no JAX needed there):
 Tolerances: at float32 (TF32 off) the kernel and the plain version differ
 only in summation order and libm rounding, so max |err| <= 1e-4·max(1, max|ref|).
 At bfloat16 the tolerance is max |err| <= 2^-7·max|ref| (twice the bf16
-half-ulp), against a reference that depends on the kernel.  K1 and K5-K7
+half-ulp), against a reference that depends on the kernel.  K1 and K7
 compute in float32 and round once on output, so they are held against the
 plain version run in float32 on the same bf16-rounded inputs and weights.
-The whole-block kernels K2 and K8 and the window-attention kernels K3 and K4
-round to bf16 where the JAX kernels do (on the tensor cores at N = 64), so
-they are held against their plain versions at bfloat16, which round at the
-same points.
+The whole-block kernels K2 and K8, the window-attention kernels K3 and K4
+and the residual-FFN kernels K5 and K6 round to bf16 where the JAX kernels
+do (on the tensor cores; K3/K4 at N = 64), so they are held against their
+plain versions at bfloat16, which round at the same points.
 The training kernels keep their parameters and parameter cotangents in
 float32 at either activation dtype, so those cotangents are held to the
-float32 tolerance, but for K4's bf16 body at N = 64, whose cotangent
-products take bf16 operands as the JAX kernel's do: its parameter
+float32 tolerance, but for K4's bf16 body at N = 64 and K6's bf16 body,
+whose cotangent products take bf16 operands as the JAX kernels' do (K6's
+dw1 and dw2 are bf16 values, as JAX returns them): their parameter
 cotangents are held to 2^-7·max|ref| of each tensor.
 """
 
@@ -297,8 +298,11 @@ def test_window_attention_kernels_match_plain(cuda, dtype, nwin, N, D, nh, hd, g
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M", [64, 1000, 20000])
+@pytest.mark.parametrize("M", [1, 15, 1000, 131072])
 def test_residual_ffn_kernels_match_plain(cuda, dtype, M):
+    """At float32 against autograd of the plain math; at bfloat16 against
+    the rounding-matched plain forward and explicit backward on the same
+    bf16 inputs (M = 131072: the 8x128² train step's stage 1)."""
     rng = np.random.default_rng(5)
     (x, ao, g), params = ffn_inputs(rng, M)
     x, ao, g = (t.to(cuda, dtype) for t in (x, ao, g))
@@ -309,9 +313,14 @@ def test_residual_ffn_kernels_match_plain(cuda, dtype, M):
     again = _forward_and_cotangents(f, [x, ao], params, g)
     torch.cuda.synchronize()
     assert (f.launches, f.backward_launches) == (before[0] + 2, before[1] + 2)
-    ref = _forward_and_cotangents(ffn_math, [x.float(), ao.float()], params, g.float())
     assert got[0].dtype == dtype and got[3].dtype == torch.float32
-    _hold(FFN_NAMES, 2, got, ref, dtype)
+    if dtype == torch.float32:
+        ref = _forward_and_cotangents(ffn_math, [x, ao], params, g)
+        _hold(FFN_NAMES, 2, got, ref, dtype)
+    else:
+        ref = [cuda_ffn.ffn_kernel_math(x, ao, *params),
+               *cuda_ffn.ffn_backward_math(x, ao, *params, g)]
+        _hold(FFN_NAMES, 2, got, ref, dtype, torch.bfloat16)
     for name, a, b in zip(FFN_NAMES, got, again):
         assert torch.equal(a, b), f"{name} differs between two runs"
 

@@ -114,6 +114,20 @@ def test_sources_import_no_jax_or_tmar():
             assert not any(_forbidden(n) for n in names), f"{path}: imports {names}"
 
 
+@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_ab.py"])
+def test_chip_scripts_import_no_jax_or_tmar(script):
+    """The scripts that drive the port on a card import no JAX and no tmar
+    module, at the top or inside a function."""
+    for node in ast.walk(ast.parse((PKG.parent / script).read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        assert not any(_forbidden(n) for n in names), f"{script}: imports {names}"
+
+
 def test_entry_points_default_to_cuda_and_raise_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):

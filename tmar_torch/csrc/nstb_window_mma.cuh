@@ -14,7 +14,9 @@
 // output.  Biases, LayerNorms, the softmax and every statistic are float32.
 // Plain version: tmar_torch/ops/cuda_nstb.py:nstb_math at bfloat16.  The
 // mma.sync, ldmatrix, cp.async and reduction helpers are mma.cuh's, shared
-// with the window-attention bodies of K3 and K4.
+// with the window-attention bodies of K3 and K4; the FFN tail (LN1 onwards:
+// the weights' staging, fc1, GELU, fc2 and the LayerNorms) is ffn_mma.cuh's,
+// shared with the residual FFN's bodies of K5 and K6.
 //
 // What bounds it on an H100: operations (~79 kFLOP per token against 256
 // bytes of I/O; the bf16 tensor-core bound of a 8x512² stage-1 block is
@@ -46,6 +48,7 @@
 
 #include <stdint.h>
 
+#include "ffn_mma.cuh"
 #include "mma.cuh"
 #include "nstb_window.cuh"
 
@@ -58,7 +61,7 @@ constexpr int MMA_THREADS = 128 * WG;
 constexpr int LDX = D + 8;          // bf16 row strides, padded by 16 bytes:
 constexpr int LDK = HP + 8;         // fragment loads then fall on distinct
 constexpr int LDV = N + 8;          // banks
-constexpr int LDH = HID + 8;
+static_assert(ffn::D == D && ffn::HID == HID, "the FFN tail's widths");
 
 template <int NH>
 struct MmaLayout {
@@ -80,9 +83,8 @@ struct MmaLayout {
   // bf16 weights, [out][in]
   static constexpr int WQKV = 0;                    // [QKV][LDX]
   static constexpr int WPROJ = WQKV + QKV * LDX;    // [D][LDP]
-  static constexpr int W1 = WPROJ + D * LDP;        // [HID][LDX]
-  static constexpr int W2 = W1 + HID * LDX;         // [D][LDH]
-  static constexpr int WELEMS = W2 + D * LDH;
+  static constexpr int W1 = WPROJ + D * LDP;        // [HID][ffn::LW1]
+  static constexpr int WELEMS = W1 + ffn::WELEMS;   // then w2 [D][ffn::LW2]
   // bf16, per warpgroup: two window slots, each the tile [N][LDX] and up to
   // four context quads [4][D]; two head slots, each k_n [N][LDK], v^T [HP][LDV]
   static constexpr int CQ = N * LDX;
@@ -94,36 +96,6 @@ struct MmaLayout {
                                   (size_t)(WELEMS + WG * WGELEMS) * sizeof(__nv_bfloat16);
   static_assert(WELEMS % 8 == 0 && SLOT % 8 == 0 && KV % 8 == 0, "16-byte aligned regions");
 };
-
-// v[j] the accumulator tiles of a warp's 16 rows x 64 channels: in place,
-// v <- (v - mean) · rsqrt(var + eps) · gain + bias per row (rows g, g + 8)
-__device__ __forceinline__ void layer_norm_rows(float (&v)[8][4], const float* gain,
-                                                const float* bias, float eps, int t) {
-  float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    s0 += v[j][0] + v[j][1];
-    s1 += v[j][2] + v[j][3];
-  }
-  const float mu0 = quad_sum(s0) * (1.f / D), mu1 = quad_sum(s1) * (1.f / D);
-  float q0 = 0.f, q1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    v[j][0] -= mu0, v[j][1] -= mu0, v[j][2] -= mu1, v[j][3] -= mu1;
-    q0 += v[j][0] * v[j][0] + v[j][1] * v[j][1];
-    q1 += v[j][2] * v[j][2] + v[j][3] * v[j][3];
-  }
-  const float i0 = rsqrtf(quad_sum(q0) * (1.f / D) + eps);
-  const float i1 = rsqrtf(quad_sum(q1) * (1.f / D) + eps);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    const int c = 8 * j + 2 * t;
-    v[j][0] = v[j][0] * i0 * gain[c] + bias[c];
-    v[j][1] = v[j][1] * i0 * gain[c + 1] + bias[c + 1];
-    v[j][2] = v[j][2] * i1 * gain[c] + bias[c];
-    v[j][3] = v[j][3] * i1 * gain[c + 1] + bias[c + 1];
-  }
-}
 
 // Start the copies of window `win` (its 64 tokens and Q context quads) into
 // `slot`, one commit group per thread.
@@ -172,10 +144,8 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) nstb_mma_kernel(
     const int i = e / D, o = e % D, h = i / HP, d = i % HP;
     sw[L::WPROJ + o * L::LDP + i] = d < HD ? wproj[(h * HD + d) * D + o] : zero;
   }
-  for (int e = tid; e < D * HID; e += MMA_THREADS)
-    sw[L::W1 + (e % HID) * LDX + e / HID] = w1[e];
-  for (int e = tid; e < HID * D; e += MMA_THREADS)
-    sw[L::W2 + (e % D) * LDH + e / D] = w2[e];
+  ffn::stage_weights(sw + L::W1, sw + L::W1 + HID * ffn::LW1, w1, HID, 1, w2, D, 1, tid,
+                     MMA_THREADS);
   for (int o = tid; o < L::QKV; o += MMA_THREADS) {
     const int part = o / AP, h = (o % AP) / HP, d = o % HP;
     sf[L::BQKV + o] = d < HD ? bqkv[part * A + h * HD + d] : 0.f;
@@ -197,7 +167,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) nstb_mma_kernel(
   const __nv_bfloat16* s_wqkv = sw + L::WQKV;
   const __nv_bfloat16* s_wproj = sw + L::WPROJ;
   const __nv_bfloat16* s_w1 = sw + L::W1;
-  const __nv_bfloat16* s_w2 = sw + L::W2;
+  const __nv_bfloat16* s_w2 = s_w1 + HID * ffn::LW1;
   const float* s_bqkv = sf + L::BQKV;
 
   const int wg = tid >> 7, wtid = tid & 127, warp = wtid >> 5, lane = tid & 31;
@@ -369,7 +339,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) nstb_mma_kernel(
       pj[j][0] += sf[L::BPROJ + c], pj[j][1] += sf[L::BPROJ + c + 1];
       pj[j][2] += sf[L::BPROJ + c], pj[j][3] += sf[L::BPROJ + c + 1];
     }
-    layer_norm_rows(pj, sf + L::G1, sf + L::B1, eps, t);
+    ffn::layer_norm_rows(pj, sf + L::G1, sf + L::B1, eps, t);
     float (&y)[8][4] = pj;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -380,41 +350,10 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) nstb_mma_kernel(
 
     // 4. f = bf16(GELU(bf16(y) · w1 + bw1)) · w2 + bw2, 16 hidden columns at a time
     float f[8][4];
-    {
-      uint32_t ya[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) to_a(ya[kk], y[2 * kk], y[2 * kk + 1]);
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = 8 * j + 2 * t;
-        f[j][0] = f[j][2] = sf[L::BW2 + c];
-        f[j][1] = f[j][3] = sf[L::BW2 + c + 1];
-      }
-#pragma unroll 2
-      for (int hc = 0; hc < HID / 16; ++hc) {
-        float hid[2][4];
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int c = 16 * hc + 8 * hf + 2 * t;
-          hid[hf][0] = hid[hf][2] = sf[L::BW1 + c];
-          hid[hf][1] = hid[hf][3] = sf[L::BW1 + c + 1];
-        }
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk) mma_pair(hid[0], hid[1], ya[kk], s_w1, LDX, 16 * hc, 16 * kk, lane);
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            hid[hf][e] = 0.5f * hid[hf][e] * (1.f + erff(hid[hf][e] * 0.70710678118654752f));
-        uint32_t ha[4];
-        to_a(ha, hid[0], hid[1]);
-#pragma unroll
-        for (int j = 0; j < 8; j += 2) mma_pair(f[j], f[j + 1], ha, s_w2, LDH, 8 * j, 16 * hc, lane);
-      }
-    }
+    ffn::fc(y, f, s_w1, s_w2, sf + L::BW1, sf + L::BW2, lane);
 
     // 5. z = y + LN2(f) -> bf16 in the window's slot (own rows), then out
-    layer_norm_rows(f, sf + L::G2, sf + L::B2, eps, t);
+    ffn::layer_norm_rows(f, sf + L::G2, sf + L::B2, eps, t);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int c = 8 * j + 2 * t;

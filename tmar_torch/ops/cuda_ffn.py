@@ -4,13 +4,23 @@
     y = x + LN1(attn_out)
     z = y + LN2(fc2(GELU(fc1(y))))
 
-``fused_residual_ffn``'s plain version is ``tmar_torch.ops.ffn.ffn_math``
-under ordinary autograd, which a CPU tensor takes.  A CUDA tensor goes
-through a ``torch.autograd.Function`` whose forward launches
-``csrc/residual_ffn_fwd.cu`` and whose backward launches
-``csrc/residual_ffn_bwd.cu`` (all ten cotangents, recomputed from x and
-attn_out), or raises.  The kernels compute in float32 on the float32
-parameters whatever the activation dtype.
+A CUDA tensor goes through a ``torch.autograd.Function`` whose forward
+launches ``csrc/residual_ffn_fwd.cu`` (K5) and whose backward launches
+``csrc/residual_ffn_bwd.cu`` (K6: all ten cotangents, recomputed from x and
+attn_out), or raises.  A CPU tensor runs the plain versions: at float32
+``tmar_torch.ops.ffn.ffn_math`` under ordinary autograd; at bfloat16
+``ffn_kernel_math`` and its explicit backward ``ffn_backward_math``, which
+round where the kernels and the JAX kernels round.
+
+The kernels read the float32 parameters; the activations and their
+cotangents are float32 or bfloat16, and the parameter cotangents float32.
+The I/O dtype picks the body.  At float32 both kernels compute in float32
+on the CUDA cores.  At bfloat16 both run on the tensor cores and round to
+bf16 where ``_ffn_kernel`` and ``_ffn_bwd_kernel`` do, with the weights
+cast to the activation dtype as ``tmar/nn/blocks.py`` casts them: w1 and
+w2, y before fc1, the GELU output before fc2 and the output; in the
+backward also the output cotangent, do before its two products, du before
+its two, and dw1 and dw2 after their sums over rows.
 """
 
 from __future__ import annotations
@@ -18,11 +28,97 @@ from __future__ import annotations
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from tmar_torch.device import float32_data
-from tmar_torch.ops.ffn import ffn_math
+from tmar_torch.ops.ffn import ffn_math, layer_norm
 
 KERNEL_DIMS = (64, 128)  # (D, hidden) the kernels are compiled for
+
+
+def _rounding(dtype):
+    """The rounding to ``dtype``, back in float32 (the identity at float32)."""
+    return lambda t: t.to(dtype).float()
+
+
+def ffn_kernel_math(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps=1e-5):
+    """The plain version of K5 at x's dtype: computes in float32 and rounds
+    to x's dtype where the kernel and ``_ffn_kernel``
+    (``tmar/ops/pallas_ffn.py:352``) round: w1 and w2 (cast at the call,
+    ``tmar/nn/blocks.py:148-155``), y before fc1 and the GELU output before
+    fc2 (:360, :362), and the output.  attn_out is read in x's dtype, as the
+    wrapper reads it.  The biases, LayerNorm gains and statistics, the GELU
+    and the residual y stay float32; at float32 this is ``ffn_math``."""
+    r = _rounding(x.dtype)
+    y = x.float() + layer_norm(r(attn_out), g1, b1, eps)
+    h = F.gelu(r(y) @ r(w1) + bw1.float(), approximate="none")
+    z = y + layer_norm(r(h) @ r(w2) + bw2.float(), g2, b2, eps)
+    return z.to(x.dtype)
+
+
+def _ln_stats(v, eps):
+    mu = v.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((v - mu).square().mean(-1, keepdim=True) + eps)
+    return (v - mu) * rstd, rstd
+
+
+def _ln_backward(dout, n, rstd, gain):
+    """(d input, d gain, d bias) of n·gain + bias, n the normalised rows."""
+    dn = dout * gain.float()
+    din = rstd * (dn - dn.mean(-1, keepdim=True) - n * (dn * n).mean(-1, keepdim=True))
+    return din, (dout * n).sum(0), dout.sum(0)
+
+
+def ffn_backward_math(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, dz, eps=1e-5):
+    """The plain version of K6 at x's dtype: the ten cotangents (dx,
+    dattn_out, dg1, db1, dw1, dbw1, dw2, dbw2, dg2, db2) of
+    ``ffn_kernel_math`` at the output cotangent dz, written out step by step
+    as ``_ffn_bwd_kernel`` (``tmar/ops/pallas_ffn.py:249``) computes them,
+    since it rounds the cotangents themselves.  It recomputes y, yc = r(y),
+    u = yc·r(w1) + bw1, hc = r(GELU(u)), o = hc·r(w2) + bw2 (:275-287) and
+    rounds dz (:170), do before dh = do·w2ᵀ and dw2 = hcᵀ·do (:305), du
+    before dy = dz + du·w1ᵀ and dw1 = ycᵀ·du (:319), dw1 and dw2 after their
+    sums over rows (:240, :242), dx and dattn_out on output.  The LayerNorm
+    backwards, the GELU derivative Φ(u) + u·φ(u) and the sums into the
+    vector cotangents stay float32; at float32 every rounding is the
+    identity.  dx and dattn_out have x's dtype, the parameter cotangents
+    are float32."""
+    cd = x.dtype
+    r = _rounding(cd)
+    n1, r1 = _ln_stats(r(attn_out), eps)
+    y = x.float() + (n1 * g1.float() + b1.float())
+    yc, w1c, w2c = r(y), r(w1), r(w2)
+    u = yc @ w1c + bw1.float()
+    hc = r(F.gelu(u, approximate="none"))
+    n2, r2 = _ln_stats(hc @ w2c + bw2.float(), eps)
+    dz = r(dz)
+    do, dg2, db2 = _ln_backward(dz, n2, r2, g2)
+    doc = r(do)
+    cdf = 0.5 * (1.0 + torch.erf(u * 0.7071067811865476))
+    du = (doc @ w2c.t()) * (cdf + u * torch.exp(-0.5 * u * u) * 0.3989422804014327)
+    duc = r(du)
+    dy = dz + duc @ w1c.t()
+    dao, dg1, db1 = _ln_backward(dy, n1, r1, g1)
+    return (dy.to(cd), dao.to(cd), dg1, db1, r(yc.t() @ duc), du.sum(0), r(hc.t() @ doc),
+            do.sum(0), dg2, db2)
+
+
+class _PlainFFN(torch.autograd.Function):
+    """The CPU path at bfloat16: the two rounding-matched plain versions as
+    one differentiable function, as the kernels compose on the card."""
+
+    @staticmethod
+    def forward(ctx, x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps):
+        ctx.save_for_backward(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2)
+        ctx.eps = eps
+        return ffn_kernel_math(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, dz):
+        args = ctx.saved_tensors
+        grads = ffn_backward_math(*args, dz, eps=ctx.eps)
+        return (*[t.to(a.dtype) for t, a in zip(grads, args)], None)
 
 
 def fused_residual_ffn(
@@ -41,9 +137,12 @@ def fused_residual_ffn(
     """x, attn_out [M, D] -> z [M, D] in x's dtype.  w1 [D, H] and w2 [H, D]
     in the [in, out] layout (a transposed view is read in place).
     Differentiable in all ten tensor arguments.  A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernels (float32 or bfloat16, any M)
-    or raises."""
+    versions (at bfloat16 the rounding-matched ones); a CUDA tensor launches
+    the kernels (float32 or bfloat16, any M) or raises."""
     if x.device.type == "cpu":
+        if x.dtype == torch.bfloat16:
+            return _PlainFFN.apply(
+                x, attn_out, ln1_scale, ln1_bias, w1, b1, w2, b2, ln2_scale, ln2_bias, eps)
         return ffn_math(
             x, attn_out, ln1_scale, ln1_bias, w1, b1, w2, b2, ln2_scale, ln2_bias, eps=eps
         )
@@ -61,38 +160,9 @@ fused_residual_ffn.backward_launches = 0  # backward kernel
 class _ResidualFFN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps):
-        from tmar_torch import kernels
-
-        M, D = x.shape
-        H = w1.shape[1]
-        if (D, H) != KERNEL_DIMS or tuple(w2.shape) != (H, D):
-            raise NotImplementedError(
-                f"residual FFN kernels are built for (D, hidden) = {KERNEL_DIMS}; "
-                f"got D={D}, hidden={H}, w2 {tuple(w2.shape)}"
-            )
-        if x.dtype not in (torch.float32, torch.bfloat16):
-            raise TypeError(f"fused_residual_ffn: unsupported dtype {x.dtype}")
-        if attn_out.shape != x.shape or M < 1:
-            raise ValueError(f"fused_residual_ffn: x {tuple(x.shape)}, attn_out {tuple(attn_out.shape)}")
-        dev = x.device
-        x = x.detach().contiguous()
-        ao = attn_out.detach().to(x.dtype).contiguous()
-        vecs = [float32_data(t, True) for t in (g1, b1, bw1, bw2, g2, b2)]
-        w_1, w_2 = float32_data(w1), float32_data(w2)
-        out = torch.empty_like(x)
-        blocks = min((M + 63) // 64, kernels.sm_count(dev))
-        tail = (
-            *w_1.stride(), *w_2.stride(), float(eps), blocks, int(x.dtype == torch.bfloat16)
-        )
-        g1_, b1_, bw1_, bw2_, g2_, b2_ = vecs
-        kernels.launch(
-            "residual_ffn_fwd", _FWD_ARGTYPES, dev,
-            x.data_ptr(), ao.data_ptr(), g1_.data_ptr(), b1_.data_ptr(), w_1.data_ptr(),
-            bw1_.data_ptr(), w_2.data_ptr(), bw2_.data_ptr(), g2_.data_ptr(),
-            b2_.data_ptr(), out.data_ptr(), M, *tail,
-        )
-        fused_residual_ffn.launches += 1
-        ctx.save_for_backward(x, ao, g1_, b1_, w_1, bw1_, w_2, bw2_, g2_)
+        operands, tail = _kernel_operands(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps)
+        out = _launch(operands, tail)
+        ctx.save_for_backward(*operands[:9])
         ctx.tail = tail
         ctx.grad_dtypes = [t.dtype for t in (attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2)]
         return out
@@ -100,32 +170,81 @@ class _ResidualFFN(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dz):
-        from tmar_torch import kernels
-
-        x, ao, g1, b1, w1, bw1, w2, bw2, g2 = ctx.saved_tensors
-        M, D = x.shape
-        H = w1.shape[1]
-        dev = x.device
-        blocks = ctx.tail[-2]
-        dz = dz.to(x.dtype).contiguous()
-        sizes = [D, D, D * H, H, H * D, D, D, D]
-        dx, dao = torch.empty_like(x), torch.empty_like(x)
-        part = torch.empty((blocks, sum(sizes)), device=dev, dtype=torch.float32)
-        dparams = torch.empty(sum(sizes), device=dev, dtype=torch.float32)
-        kernels.launch(
-            "residual_ffn_bwd", _BWD_ARGTYPES, dev,
-            x.data_ptr(), ao.data_ptr(), dz.data_ptr(), g1.data_ptr(), b1.data_ptr(),
-            w1.data_ptr(), bw1.data_ptr(), w2.data_ptr(), bw2.data_ptr(), g2.data_ptr(),
-            dx.data_ptr(), dao.data_ptr(), part.data_ptr(), dparams.data_ptr(), M,
-            *ctx.tail,
-        )
-        fused_residual_ffn.backward_launches += 1
-        dg1, db1, dw1, dbw1, dw2, dbw2, dg2, db2 = torch.split(dparams, sizes)
+        D, H = KERNEL_DIMS
+        dx, dao, dparams = _launch_backward(ctx.saved_tensors, dz, ctx.tail)
+        dg1, db1, dw1, dbw1, dw2, dbw2, dg2, db2 = torch.split(dparams, _PARAM_SIZES)
         grads = [dao, dg1, db1, dw1.reshape(D, H), dbw1, dw2.reshape(H, D), dbw2, dg2, db2]
         grads = [t.to(dt) for t, dt in zip(grads, ctx.grad_dtypes)]
         return (dx, *grads, None)
 
 
+def _kernel_operands(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps):
+    """Check the shapes and lay out the kernels' operands on x's device:
+    returns ([x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2] as the C entry
+    points read them, the entry points' trailing integer and float
+    arguments)."""
+    from tmar_torch import kernels
+
+    M, D = x.shape
+    H = w1.shape[1]
+    if (D, H) != KERNEL_DIMS or tuple(w2.shape) != (H, D):
+        raise NotImplementedError(
+            f"residual FFN kernels are built for (D, hidden) = {KERNEL_DIMS}; "
+            f"got D={D}, hidden={H}, w2 {tuple(w2.shape)}"
+        )
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_residual_ffn: unsupported dtype {x.dtype}")
+    if attn_out.shape != x.shape or M < 1:
+        raise ValueError(f"fused_residual_ffn: x {tuple(x.shape)}, attn_out {tuple(attn_out.shape)}")
+    x = x.detach().contiguous()
+    ao = attn_out.detach().to(x.dtype).contiguous()
+    g1_, b1_, bw1_, bw2_, g2_, b2_ = (float32_data(t, True) for t in (g1, b1, bw1, bw2, g2, b2))
+    w_1, w_2 = float32_data(w1), float32_data(w2)
+    blocks = min((M + 63) // 64, kernels.sm_count(x.device))
+    tail = (
+        *w_1.stride(), *w_2.stride(), float(eps), blocks, int(x.dtype == torch.bfloat16)
+    )
+    return [x, ao, g1_, b1_, w_1, bw1_, w_2, bw2_, g2_, b2_], tail
+
+
+def _launch(operands, tail):
+    """K5 on laid-out operands: -> z."""
+    from tmar_torch import kernels
+
+    x = operands[0]
+    out = torch.empty_like(x)
+    kernels.launch(
+        "residual_ffn_fwd", _FWD_ARGTYPES, x.device,
+        *[t.data_ptr() for t in operands], out.data_ptr(), x.shape[0], *tail,
+    )
+    fused_residual_ffn.launches += 1
+    return out
+
+
+def _launch_backward(operands, dz, tail):
+    """K6 (one kernel and one reduce) on the forward's operands (b2 is not
+    read) and the output cotangent dz: -> (dx, d attn_out, the concatenated
+    float32 parameter cotangents)."""
+    from tmar_torch import kernels
+
+    x = operands[0]
+    dz = dz.to(x.dtype).contiguous()
+    dx, dao = torch.empty_like(x), torch.empty_like(x)
+    part = torch.empty((tail[-2], sum(_PARAM_SIZES)), device=x.device, dtype=torch.float32)
+    dparams = torch.empty(sum(_PARAM_SIZES), device=x.device, dtype=torch.float32)
+    p = [t.data_ptr() for t in operands[:9]]
+    kernels.launch(
+        "residual_ffn_bwd", _BWD_ARGTYPES, x.device,
+        p[0], p[1], dz.data_ptr(), *p[2:], dx.data_ptr(), dao.data_ptr(), part.data_ptr(),
+        dparams.data_ptr(), x.shape[0], *tail,
+    )
+    fused_residual_ffn.backward_launches += 1
+    return dx, dao, dparams
+
+
+# dg1, db1, dw1, dbw1, dw2, dbw2, dg2, db2 as the backward kernel concatenates them
+_D, _H = KERNEL_DIMS
+_PARAM_SIZES = [_D, _D, _D * _H, _H, _H * _D, _D, _D, _D]
 _P = ctypes.c_void_p
 _TAIL = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P]
 _FWD_ARGTYPES = [_P] * 11 + [ctypes.c_longlong] + _TAIL
