@@ -10,9 +10,10 @@ own kernels, in the order given: list them as A B B A to see the spread
 between processes beside the difference between trees.  Each prints, on
 lines tagged ``[ab TREE]``:
 
-* K5 and K6 (the residual FFN's forward and backward), the launch alone on
-  operands laid out once, at 131,072 rows (the 8x128² train step's stage 1)
-  and 2,097,152 rows (the 8x512² unfused serving form's), bf16 and f32;
+* K1 and K7 (the n-gram context's forward and backward), the launch alone
+  on operands laid out once by that tree's wrapper, at the 8x512² request's
+  stage-1 grid (u [8, 64, 64, 32]) and the 8x128² train step's (u
+  [8, 16, 16, 32]), 6 heads, bf16 and f32;
 * K2 (the whole block on the map), the launch alone, at the 8x512² stage-1
   shift-4 block with the flagship's weights, bf16, three times;
 * the trainer's ``full`` step at 8x128² bf16, by that tree's
@@ -37,8 +38,7 @@ def run_tree(tree: str) -> int:
 
     import chip_smoke as cs
     from tmar_torch import NGswin, kernels, load_pth
-    from tmar_torch.device import float32_data
-    from tmar_torch.ops import cuda_ffn, cuda_nstb
+    from tmar_torch.ops import cuda_ngram, cuda_nstb
 
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device available", file=sys.stderr)
@@ -57,35 +57,26 @@ def run_tree(tree: str) -> int:
     def randn(*shape, scale=1.0, shift=0.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale + shift
 
-    D, H = 64, 128
-    g1, b1, w1, bw1, w2, bw2, g2, b2 = [
-        randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1), randn(D, H, scale=0.1),
-        randn(H, scale=0.1), randn(H, D, scale=0.1), randn(D, scale=0.1),
-        randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1)]
-    for M in (131072, 2097152):
+    C, D, nh = 32, 64, 6
+    A = 30
+    params = [randn(C, 3 * A, scale=0.2), randn(3 * A, scale=0.1),
+              torch.rand(nh, 1, 1, generator=gen, device=dev) * 1.8 + 0.5, randn(9, nh, scale=0.5),
+              randn(A, C, scale=0.2), randn(C, scale=0.1), randn(2 * C, D, scale=0.2),
+              randn(D, scale=0.1)]
+    f = cuda_ngram.fused_ngram_context
+    for grid in (64, 16):
         for dtype in (torch.bfloat16, torch.float32):
-            # the C entry points as the wrapper calls them (their
-            # arguments have not changed since they were written), without
-            # the wrapper's counters
-            x, ao, dz = (randn(M, D).to(dtype) for _ in range(3))
-            blocks = min((M + 63) // 64, kernels.sm_count(dev))
-            tail = (*w1.stride(), *w2.stride(), 1e-5, blocks, int(dtype == torch.bfloat16))
-            out, dx, dao = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
-            size = 2 * D + D * H + H + H * D + 3 * D
-            part = torch.empty((blocks, size), device=dev)
-            dparams = torch.empty(size, device=dev)
-            p = [float32_data(t).data_ptr() for t in (g1, b1, w1, bw1, w2, bw2, g2, b2)]
-            fwd = cs.cuda_ms(lambda: kernels.launch(
-                "residual_ffn_fwd", cuda_ffn._FWD_ARGTYPES, dev, x.data_ptr(), ao.data_ptr(), *p,
-                out.data_ptr(), M, *tail))
-            bwd = cs.cuda_ms(lambda: kernels.launch(
-                "residual_ffn_bwd", cuda_ffn._BWD_ARGTYPES, dev, x.data_ptr(), ao.data_ptr(),
-                dz.data_ptr(), *p[:7], dx.data_ptr(), dao.data_ptr(), part.data_ptr(),
-                dparams.data_ptr(), M, *tail))
-            print(f"{tag} K5/K6 launch alone, x [{M}, 64] {str(dtype).split('.')[1]}: forward "
-                  f"{fwd:.4f} ms, backward {bwd:.4f} ms on {card}", flush=True)
-            del x, ao, dz, out, dx, dao, part
-            torch.cuda.empty_cache()
+            # the wrapper's own operand layout and launch functions (their
+            # signatures have not changed since they were written); the
+            # counters are put back
+            u, g = randn(8, grid, grid, C).to(dtype), randn(8, grid, grid, D).to(dtype)
+            before = (f.launches, f.backward_launches)
+            ops, out, ints = cuda_ngram._kernel_operands(u, *params, nh)
+            fwd = cs.cuda_ms(lambda: cuda_ngram._launch(ops, out, ints), iters=50)
+            bwd = cs.cuda_ms(lambda: cuda_ngram._launch_backward(ops[:-1], g, ints), iters=50)
+            f.launches, f.backward_launches = before
+            print(f"{tag} K1/K7 launch alone, u [8, {grid}, {grid}, 32] {str(dtype).split('.')[1]}, "
+                  f"6 heads: forward {fwd:.4f} ms, backward {bwd:.4f} ms on {card}", flush=True)
 
     model = NGswin(dtype=torch.float32)
     model.load_state_dict(load_pth(cs.CKPT))

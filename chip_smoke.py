@@ -10,13 +10,15 @@ Phases, each of which fails the run if it fails:
    shapes of the full-width NGswin's 8x512² forward (stage 1: 512² map, 6
    heads; stage 2: 256², 4 heads; n-gram grids 64², 32², 16²), at float32
    (TF32 off) and bfloat16, with the tolerances of
-   ``tests/test_torch_port_gpu.py`` (the whole-block kernels K2 and K8 at
-   bfloat16 against their plain version at bfloat16, which rounds where the
-   kernels' tensor-core body and the JAX kernel round, with the distance to
-   the float32 plain version printed beside it, and at stage 1 both sides'
-   distance to that function evaluated in float64 between its rounding
-   points); then each kernel's time from CUDA events at the stage-1 shape
-   (K2 also at stage 2's) beside its plain version's time and its bound;
+   ``tests/test_torch_port_gpu.py`` (at bfloat16 the n-gram context K1 and
+   the whole-block kernels K2 and K8 against their plain versions at
+   bfloat16, which round where the kernels' tensor-core bodies and the JAX
+   kernels round, with the distance to the float32 plain version printed
+   beside it, and for K2 at stage 1 both sides' distance to that function
+   evaluated in float64 between its rounding points); then each kernel's
+   time from CUDA events at the stage-1 shape (K2 also at stage 2's, K1
+   also at the 8x128² train step's 8x16x16 grid) beside its plain version's
+   time and its bound (K1 also as device time alone, by torch.profiler);
 3. the serving path: the full-width NGswin with the trained weights
    ``reports/compare_r4/flagship.pth`` in bfloat16 answers a full-slice
    8x512² request, a full-slice 4x416² request (padded to 448²) and one 416²
@@ -31,13 +33,14 @@ Phases, each of which fails the run if it fails:
    windows of 64 tokens with 6 heads, with and without the shift mask; 512
    with 4 heads; 2048 and 512 n-gram windows of 4 tokens; 131,072 FFN rows;
    n-gram grids 8x16x16 at 6 heads, 8x8x8 and 8x4x4 at 4, and also 8x64x64,
-   13x7 and 2x2), at float32 (TF32 off) and bfloat16 (window attention and
-   the residual FFN at bfloat16 against their rounding-matched plain
-   forwards and explicit backwards, the distance to the float32 plain
-   version printed beside it; the FFN also at 1000 rows, a ragged last
-   tile), each backward run twice and compared bit for bit; then each
-   kernel's time (window attention's and the FFN's both as the launch alone
-   and through the wrapper) beside its plain version's and its bound;
+   13x7 and 2x2), at float32 (TF32 off) and bfloat16 (at bfloat16 against
+   their rounding-matched plain forwards and explicit backwards, the
+   distance to the float32 plain version printed beside it; the FFN also at
+   1000 rows, a ragged last tile), each backward run twice and compared bit
+   for bit; the n-gram backward's device kernels per call counted by
+   torch.profiler (three: two passes and one reduce); then each kernel's
+   time (as the launch alone and through the wrapper) beside its plain
+   version's and its bound;
 6. the composition training path: the full-width NGswin in its training
    form with ``ngram_fused=False`` and the 3-scale spectral-norm PatchGAN,
    from a seed, take 3 warm-up and 10 timed GAN steps in bfloat16 on a fixed
@@ -58,7 +61,8 @@ Phases, each of which fails the run if it fails:
    takes 3 warm-up and 20 timed steps on one fixed batch on the card, with
    the launch counts reset just before and read just after (20 launches per
    step of each of the six training kernels: the n-gram context is one
-   forward and one backward kernel per block), and one step's breakdown;
+   forward and one backward kernel per block), and one step's breakdown
+   (its kernels and copies at most ``FULL_STEP_MAX_KERNELS``);
    then one float32 ``full`` step at 1x128² on the card against the CPU;
 10. the token-level whole-block kernel (K8) against its plain version at the
    shapes of the token form's 8x512² forward (stage 1: 32,768 windows, 6
@@ -114,14 +118,15 @@ F32_TOL = 1e-4     # x max(1, max|ref|): summation order and libm rounding
 BF16_TOL = 2.0**-7  # x max|ref|: one bf16 rounding of the output, twice over
 # The training kernels keep parameters and parameter cotangents in float32 at
 # either activation dtype; activations and their cotangents take the
-# activation dtype's tolerance.  At bfloat16 the reference of K7 is the
-# plain version in float32 on the same bf16-rounded activations (parameter
-# cotangents at F32_TOL).  K3-K6 at bfloat16 round where the JAX kernels
-# round, and so do their plain versions (window_attention_kernel_math and
-# window_attention_backward_math; ffn_kernel_math and ffn_backward_math),
-# their reference; K4's cotangent products at N = 64 and K6's take bf16
-# operands (K6's dw1 and dw2 are bf16 values), so their parameter
-# cotangents are held to BF16_TOL there, K4's at N = 4 to F32_TOL.
+# activation dtype's tolerance.  K1 and K3-K7 at bfloat16 round where the
+# JAX kernels round, and so do their plain versions
+# (ngram_context_kernel_math and ngram_context_kernel_backward_math;
+# window_attention_kernel_math and window_attention_backward_math;
+# ffn_kernel_math and ffn_backward_math), their reference; K4's cotangent
+# products at N = 64, K6's and K7's take bf16 operands (K6's dw1 and dw2,
+# K7's dwqkv, dbqkv, dwproj, dbproj and dwmerge are bf16 values), so their
+# parameter cotangents are held to BF16_TOL there, K4's at N = 4 to
+# F32_TOL.
 # K2/K8 at bf16 round every product's operands where the JAX kernel does, and
 # so does their plain version.  Two evaluations of that function that differ
 # only in float32 summation order round a few intermediates to neighbouring
@@ -135,6 +140,10 @@ BF16_TOL = 2.0**-7  # x max|ref|: one bf16 rounding of the output, twice over
 NSTB_BF16_TOL = 2.0**-6  # x max|ref|
 NSTB_MEAN_TOL = 5e-5
 STEP_TOL = 2e-3     # card vs CPU, one f32 train step: x max|ref| per tensor
+# kernels and copies of one `full` step while the n-gram backward was four
+# launches and its wrapper ran the logit-scale and table cotangents as torch
+# ops: the step may launch no more
+FULL_STEP_MAX_KERNELS = 3512
 TRAIN_BATCH, TRAIN_PATCH = 8, 128
 
 
@@ -159,6 +168,32 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, name_part, calls=20):
+    """(device ms per call, device kernels per call) of the kernels whose
+    name holds ``name_part``, by torch.profiler over ``calls`` calls of fn.
+    A kernel launched first inside the window opens it (the profiler can
+    drop the first kernel it sees).  Where fn's launches cost the host more
+    than the device takes to run them, CUDA events time the host; this
+    times the device alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if name_part in e.key
+            and getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+    us = sum(getattr(e, "device_time_total", 0.0) for e in rows)
+    # the profiler may still miss a kernel at a window's edge: kernels per
+    # call to the nearest whole number
+    return us / 1e3 / calls, round(sum(e.count for e in rows) / calls)
 
 
 def ngram_work(B, wh, ww, nh, itemsize):
@@ -215,7 +250,9 @@ def check_kernels(model, dev, card):
         return torch.randn(*shape, generator=gen, device=dev) * scale
 
     # ---- K1: n-gram context, on the unigram grids of stages 1-3 ----------
-    errs = {"float32": 0.0, "bfloat16": 0.0}
+    # at bf16 against the rounding-matched plain version, the float32 plain
+    # version's distance printed beside it (not gated)
+    errs = {"float32": 0.0, "bfloat16": 0.0, "bf16_mean": 0.0, "bf16_vs_f32_plain": 0.0}
     for name, stage, B, g in (("stage1", 1, 8, 64), ("stage2", 2, 8, 32), ("stage3", 3, 8, 16)):
         ctx_mod = getattr(model, f"encoder_layer{stage}").blocks[0].ngram_window_partition.ngram_context
         args = ctx_mod.kernel_args()
@@ -223,40 +260,73 @@ def check_kernels(model, dev, card):
         for dtype in (torch.float32, torch.bfloat16):
             uu = u.to(dtype)
             got = cuda_ngram.fused_ngram_context(uu, *args)
-            ref = cuda_ngram.ngram_context_math(uu.float(), *args[:-1], num_heads=args[-1])
+            ref32 = cuda_ngram.ngram_context_math(uu.float(), *args[:-1], num_heads=args[-1])
+            ref = ref32 if dtype == torch.float32 else cuda_ngram.ngram_context_kernel_math(
+                uu, *args[:-1], num_heads=args[-1]).float()
             torch.cuda.synchronize()
             err, tol = err_and_tol(got, ref, dtype)
             dn = str(dtype).split(".")[1]
             errs[dn] = max(errs[dn], err)
             ok = err <= tol and bool(torch.isfinite(got).all())
+            line = f"max_abs_err {err:.3e} tol {tol:.3e}"
+            if dtype == torch.bfloat16:
+                mean = float((got.float() - ref).abs().mean())
+                d32 = float((got.float() - ref32).abs().max())
+                errs["bf16_mean"] = max(errs["bf16_mean"], mean)
+                errs["bf16_vs_f32_plain"] = max(errs["bf16_vs_f32_plain"], d32)
+                line += (f" against the rounding-matched plain version, mean {mean:.2e}; not gated: "
+                         f"against the float32 plain version max {d32:.3e}, mean "
+                         f"{float((got.float() - ref32).abs().mean()):.2e}")
             print(f"[kernel] ngram_context {name} u={list(uu.shape)} heads={args[-1]} {dn}: "
-                  f"max_abs_err {err:.3e} tol {tol:.3e} {'ok' if ok else 'FAIL'}")
+                  f"{line} {'ok' if ok else 'FAIL'}")
             if not ok:
                 failures.append(f"ngram_context {name} {dn}")
-    # time at the stage-1 grid, bf16 (the serving dtype) and f32
+    # time at the stage-1 grid of the 8x512² request and of the 8x128² train
+    # step, bf16 (the serving dtype) and f32; the plain version at bf16 is
+    # the rounding-matched one
     ctx_mod = model.encoder_layer1.blocks[0].ngram_window_partition.ngram_context
     args = ctx_mod.kernel_args()
     times = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        u = randn(8, 64, 64, 32).to(dtype)
-        ops, out, ints = cuda_ngram._kernel_operands(u, *args)
-        k_ms = cuda_ms(lambda: cuda_ngram._launch(ops, out, ints))
-        p_ms = cuda_ms(lambda: cuda_ngram.ngram_context_math(u, *args[:-1], num_heads=args[-1]))
-        dn = str(dtype).split(".")[1]
-        flops, nbytes = ngram_work(8, 64, 64, 6, u.element_size())
-        b_ms, b_by = bound_ms(flops, nbytes, dn)
-        times[dn] = (k_ms, p_ms, b_ms, b_by)
-        print(f"[time] ngram_context u=[8, 64, 64, 32] {dn}: kernel {k_ms:.4f} ms, plain "
-              f"{p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: {flops / 1e9:.3f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB) on {card}")
-    k_ms, p_ms, b_ms, b_by = times["bfloat16"]
+    # the step grid's inputs from a generator of their own, so that every
+    # later check draws the inputs it always drew
+    gen16 = torch.Generator(device=dev).manual_seed(16)
+    for grid in (64, 16):
+        for dtype in (torch.bfloat16, torch.float32):
+            u = (randn(8, grid, grid, 32) if grid == 64 else
+                 torch.randn(8, grid, grid, 32, generator=gen16, device=dev)).to(dtype)
+            plain = (cuda_ngram.ngram_context_kernel_math if dtype == torch.bfloat16
+                     else cuda_ngram.ngram_context_math)
+            ops, out, ints = cuda_ngram._kernel_operands(u, *args)
+            before = cuda_ngram.fused_ngram_context.launches
+            k_ms = cuda_ms(lambda: cuda_ngram._launch(ops, out, ints), iters=50)
+            d_ms, _ = device_ms(lambda: cuda_ngram._launch(ops, out, ints), "ngram_context")
+            cuda_ngram.fused_ngram_context.launches = before
+            p_ms = cuda_ms(lambda: plain(u, *args[:-1], num_heads=args[-1]))
+            dn = str(dtype).split(".")[1]
+            flops, nbytes = ngram_work(8, grid, grid, 6, u.element_size())
+            b_ms, b_by = bound_ms(flops, nbytes, dn)
+            times[(grid, dn)] = (k_ms, p_ms, b_ms, b_by, d_ms)
+            print(f"[time] ngram_context u=[8, {grid}, {grid}, 32] {dn}: kernel {k_ms:.4f} ms "
+                  f"(CUDA events over back-to-back launches; device time alone {d_ms:.4f} ms by "
+                  f"torch.profiler), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+                  f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB); library: none (no single "
+                  f"PyTorch call computes it) on {card}")
+    k_ms, p_ms, b_ms, b_by, d_ms = times[(64, "bfloat16")]
     records["ngram_context"] = {
         "name": "ngram_context", "route": "cuda", "source": "tmar_torch/csrc/ngram_context.cu",
+        "headers": NGRAM_HEADERS,
         "replaces": "tmar/ops/pallas_ngram.py:813", "max_abs_err": errs["float32"],
-        "max_abs_err_bf16": errs["bfloat16"], "ms": k_ms, "plain_ms": p_ms,
+        "max_abs_err_bf16": errs["bfloat16"], "mean_abs_err_bf16": errs["bf16_mean"],
+        "max_abs_err_bf16_vs_f32_plain": errs["bf16_vs_f32_plain"], "ms": k_ms, "plain_ms": p_ms,
         "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-        "ms_f32": times["float32"][0], "plain_ms_f32": times["float32"][1],
-        "shape": "u [8, 64, 64, 32] bf16, 6 heads",
+        "ms_f32": times[(64, "float32")][0], "plain_ms_f32": times[(64, "float32")][1],
+        "device_ms": d_ms, "device_ms_f32": times[(64, "float32")][4],
+        "ms_step_grid": times[(16, "bfloat16")][0], "plain_ms_step_grid": times[(16, "bfloat16")][1],
+        "bound_ms_step_grid": times[(16, "bfloat16")][2],
+        "device_ms_step_grid": times[(16, "bfloat16")][4],
+        "ms_step_grid_f32": times[(16, "float32")][0],
+        "device_ms_step_grid_f32": times[(16, "float32")][4],
+        "shape": "u [8, 64, 64, 32] bf16, 6 heads; step grid: u [8, 16, 16, 32]",
     }
 
     # ---- K2: whole NSTB on the map, stage 1 (6 heads) and stage 2 (4) -----
@@ -533,7 +603,7 @@ def profile_request(request, card, label="full-slice 8x512² bf16 request"):
     busy = sum(r[0] for r in rows)
     if not rows:
         print("[profile] torch.profiler recorded no device time: breakdown not measured")
-        return
+        return None
     print(f"[profile] {label} under torch.profiler: wall {wall_us / 1e3:.1f} ms, "
           f"device busy {busy / 1e3:.1f} ms in {sum(r[1] for r in rows)} kernels and copies, "
           f"idle share {1 - busy / wall_us:.3f} on {card}")
@@ -541,6 +611,7 @@ def profile_request(request, card, label="full-slice 8x512² bf16 request"):
         print(f"[profile]   {dev_us / 1e3:9.3f} ms {100 * dev_us / busy:5.1f}% x{count:<4d} {key[:110]}")
     by_count = sorted(rows, key=lambda r: r[1], reverse=True)[:6]
     print("[profile]   most launched: " + "; ".join(f"x{c} {k[:60]}" for _, c, k in by_count))
+    return busy / 1e3, sum(r[1] for r in rows)
 
 
 def attention_work(nwin, N, D, nh, hd, itemsize, backward):
@@ -603,6 +674,7 @@ def ffn_launch_ms(x, ao, params, g, eps=1e-5, iters=20):
     return fwd, bwd
 
 
+NGRAM_HEADERS = ["tmar_torch/csrc/ngram_mma.cuh", "tmar_torch/csrc/mma.cuh"]
 FFN_HEADERS = ["tmar_torch/csrc/ffn_mma.cuh", "tmar_torch/csrc/mma.cuh", "tmar_torch/csrc/common.cuh"]
 NSTB_HEADERS = ["tmar_torch/csrc/nstb_window.cuh", "tmar_torch/csrc/nstb_window_mma.cuh",
                 "tmar_torch/csrc/ffn_mma.cuh", "tmar_torch/csrc/mma.cuh"]
@@ -659,7 +731,13 @@ def check_train_kernels(dev, card):
         window_attention_kernel_math,
     )
     from tmar_torch.ops import cuda_ngram
-    from tmar_torch.ops.cuda_ngram import fused_ngram_context, ngram_context_math
+    from tmar_torch.ops.cuda_ngram import (
+        _PlainNGram,
+        fused_ngram_context,
+        ngram_context_kernel_backward_math,
+        ngram_context_kernel_math,
+        ngram_context_math,
+    )
     from tmar_torch.ops.cuda_ffn import (
         _PlainFFN,
         ffn_backward_math,
@@ -880,43 +958,63 @@ def check_train_kernels(dev, card):
         return (lambda *a: fused_ngram_context(*a, nh),
                 lambda *a: ngram_context_math(*a, num_heads=nh))
 
+    def ngram_plain_bf16(nh):
+        return lambda a, p, gg: [ngram_context_kernel_math(a[0], *p, num_heads=nh),
+                                 *ngram_context_kernel_backward_math(a[0], gg, *p, num_heads=nh)]
+
     errs = {h: {"float32": 0.0, "bfloat16": 0.0} for h in ("fwd", "bwd")}
     for label, B, wh, ww, nh in NGRAM_BWD_CASES:
         acts, params, g = ngram_inputs(B, wh, ww, nh)
         hold("ngram_context_bwd", f"{label} u=[{B}, {wh}, {ww}, 32] heads={nh}", NGRAM_NAMES, 1,
-             *ngram_fns(nh), acts, params, g, errs)
+             *ngram_fns(nh), acts, params, g, errs, plain_bf16=ngram_plain_bf16(nh),
+             param_bf16=True)
     label, B, wh, ww, nh = NGRAM_BWD_CASES[0]
     acts, params, g = ngram_inputs(B, wh, ww, nh)
     times = {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
-        t = time_pair(*ngram_fns(nh), acts, params, g, dtype)
+        # the plain versions: at bf16 the rounding-matched pair (K1's and
+        # K7's as one autograd function), at f32 autograd of the math
+        t = time_pair(ngram_fns(nh)[0],
+                      (lambda *a: _PlainNGram.apply(*a, nh)) if dtype == torch.bfloat16
+                      else ngram_fns(nh)[1], acts, params, g, dtype)
         # the launch alone, as K1 is timed: operands laid out once, then the
-        # C entry point (its two passes and two reduces) and its allocations
+        # C entry point (its two passes and its reduce) and its allocations
         uu, gg = acts[0].to(dtype), g.to(dtype)
         ops, _, ints = cuda_ngram._kernel_operands(uu, *params, nh)
         launches_before = fused_ngram_context.backward_launches
-        k_ms = cuda_ms(lambda: cuda_ngram._launch_backward(ops[:-1], gg, ints))
+        k_ms = cuda_ms(lambda: cuda_ngram._launch_backward(ops[:-1], gg, ints), iters=50)
+        # the device kernels of a call and their device time, by torch.profiler
+        d_ms, per_call = device_ms(lambda: cuda_ngram._launch_backward(ops[:-1], gg, ints),
+                                   "ngram_bwd")
         fused_ngram_context.backward_launches = launches_before
+        print(f"[check] ngram_context_bwd {dn}: {per_call:g} device kernels per call (at most 3: "
+              f"cells pass, positions pass, reduce): {'ok' if 0 < per_call <= 3 else 'FAIL'}")
+        if not 0 < per_call <= 3:
+            failures.append(f"ngram_context_bwd {dn}: {per_call} kernels per call")
         flops, nbytes = ngram_bwd_work(B, wh, ww, nh, uu.element_size())
         b_ms, b_by = bound_ms(flops, nbytes, dn)
-        times[dn] = (k_ms, t, b_ms, b_by)
+        times[dn] = (k_ms, t, b_ms, b_by, per_call, d_ms)
         print(f"[time] ngram_context_bwd {label} u=[{B}, {wh}, {ww}, 32] heads={nh} {dn}: kernel "
-              f"{k_ms:.4f} ms (launch alone; {t[1]:.4f} ms through the wrapper under autograd, with "
-              f"its logit-scale and table tails), plain {t[3]:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
-              f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB); its forward through the wrapper: "
-              f"kernel {t[0]:.4f} ms, plain {t[2]:.4f} ms; library: none (no single PyTorch call "
-              f"computes it) on {card}")
-    k_ms, t, b_ms, b_by = times["bfloat16"]
+              f"{k_ms:.4f} ms (launch alone; device time alone {d_ms:.4f} ms by torch.profiler; "
+              f"{t[1]:.4f} ms through the wrapper under autograd), "
+              f"plain {t[3]:.4f} ms, bound {b_ms:.5f} ms ({b_by}: {flops / 1e9:.3f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB); its forward through the wrapper: kernel {t[0]:.4f} ms, "
+              f"plain {t[2]:.4f} ms; library: none (no single PyTorch call computes it) on {card}")
+    k_ms, t, b_ms, b_by, per_call, d_ms = times["bfloat16"]
     records["ngram_context_bwd"] = {
         "name": "ngram_context_bwd", "route": "cuda",
         "source": "tmar_torch/csrc/ngram_context_bwd.cu",
+        "headers": NGRAM_HEADERS + ["tmar_torch/csrc/common.cuh"],
         "replaces": "tmar/ops/pallas_ngram.py:520",
         "max_abs_err": errs["bwd"]["float32"], "max_abs_err_bf16": errs["bwd"]["bfloat16"],
+        "mean_abs_err_bf16": errs["bf16_mean"]["bwd"],
         "ms": k_ms, "plain_ms": t[3], "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
         "ms_f32": times["float32"][0], "plain_ms_f32": times["float32"][1][3],
-        "ms_through_autograd": t[1], "forward_ms_through_wrapper": t[0],
-        "forward_plain_ms": t[2],
+        "ms_through_autograd": t[1], "ms_through_autograd_f32": times["float32"][1][1],
+        "forward_ms_through_wrapper": t[0], "forward_plain_ms": t[2],
+        "device_kernels_per_call": per_call, "device_ms": d_ms,
+        "device_ms_f32": times["float32"][5],
         "shape": f"u [{B}, {wh}, {ww}, 32] bf16, {nh} heads",
     }
     if failures:
@@ -1286,8 +1384,11 @@ def train_full(card):
               f"card): median {med * 1e3:.2f} ms of {timed} steps (min {min(times[warmup:]) * 1e3:.2f}, "
               f"max {max(times[warmup:]) * 1e3:.2f}), {1 / med:.3f} steps/s, {TRAIN_BATCH / med:.1f} "
               f"patches/s on {card}; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        profile_request(lambda: trainer.train_step(trainer.state, batch), card,
-                        label=f"train step (full) {TRAIN_BATCH}x{TRAIN_PATCH}² bf16")
+        prof = profile_request(lambda: trainer.train_step(trainer.state, batch), card,
+                               label=f"train step (full) {TRAIN_BATCH}x{TRAIN_PATCH}² bf16")
+        check(prof is not None and prof[1] <= FULL_STEP_MAX_KERNELS,
+              f"the full step's kernels and copies ({prof and prof[1]}) no more than "
+              f"{FULL_STEP_MAX_KERNELS}")
         del trainer
         torch.cuda.empty_cache()
 

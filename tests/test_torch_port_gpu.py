@@ -8,19 +8,19 @@ without one.  Run on a CUDA host (no JAX needed there):
 Tolerances: at float32 (TF32 off) the kernel and the plain version differ
 only in summation order and libm rounding, so max |err| <= 1e-4·max(1, max|ref|).
 At bfloat16 the tolerance is max |err| <= 2^-7·max|ref| (twice the bf16
-half-ulp), against a reference that depends on the kernel.  K1 and K7
-compute in float32 and round once on output, so they are held against the
-plain version run in float32 on the same bf16-rounded inputs and weights.
-The whole-block kernels K2 and K8, the window-attention kernels K3 and K4
-and the residual-FFN kernels K5 and K6 round to bf16 where the JAX kernels
-do (on the tensor cores; K3/K4 at N = 64), so they are held against their
-plain versions at bfloat16, which round at the same points.
+half-ulp), against a reference that depends on the kernel.  Every
+kernel's bfloat16 body rounds to bf16 where the JAX kernel does (on the
+tensor cores; K3/K4 at N = 64): the n-gram context K1 and K7, the
+whole-block kernels K2 and K8, the window-attention kernels K3 and K4 and
+the residual-FFN kernels K5 and K6.  So each is held against its plain
+version at bfloat16, which rounds at the same points.
 The training kernels keep their parameters and parameter cotangents in
 float32 at either activation dtype, so those cotangents are held to the
-float32 tolerance, but for K4's bf16 body at N = 64 and K6's bf16 body,
-whose cotangent products take bf16 operands as the JAX kernels' do (K6's
-dw1 and dw2 are bf16 values, as JAX returns them): their parameter
-cotangents are held to 2^-7·max|ref| of each tensor.
+float32 tolerance, but for K4's bf16 body at N = 64, K6's and K7's bf16
+bodies, whose cotangent products take bf16 operands as the JAX kernels' do
+(K6's dw1 and dw2 and K7's dwqkv, dbqkv, dwproj, dbproj and dwmerge are
+bf16 values, as JAX returns them): their parameter cotangents are held to
+2^-7·max|ref| of each tensor.
 """
 
 import numpy as np
@@ -83,8 +83,13 @@ def _tol(ref, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nh,B,wh,ww", [(6, 2, 8, 12), (4, 1, 5, 37), (6, 1, 2, 2), (4, 8, 16, 16)])
+@pytest.mark.parametrize("nh,B,wh,ww", [
+    (6, 2, 8, 12), (4, 1, 5, 37), (6, 1, 2, 2), (4, 8, 16, 16),
+    (4, 2, 2, 2), (6, 3, 13, 7), (4, 3, 13, 7), (6, 8, 16, 16), (6, 8, 64, 64),
+])
 def test_ngram_context_kernel_matches_plain(cuda, dtype, nh, B, wh, ww):
+    """At float32 against ``ngram_context_math``; at bfloat16 against the
+    rounding-matched ``ngram_context_kernel_math`` on the same inputs."""
     rng = np.random.default_rng(0)
     u, params = ngram_inputs(rng, nh, B, wh, ww)
     u = u.to(cuda, dtype)
@@ -93,7 +98,8 @@ def test_ngram_context_kernel_matches_plain(cuda, dtype, nh, B, wh, ww):
     got = cuda_ngram.fused_ngram_context(u, *params, nh)
     torch.cuda.synchronize()
     assert cuda_ngram.fused_ngram_context.launches == before + 1
-    ref = cuda_ngram.ngram_context_math(u.float(), *params, num_heads=nh)
+    ref = (cuda_ngram.ngram_context_math if dtype == torch.float32
+           else cuda_ngram.ngram_context_kernel_math)(u, *params, num_heads=nh).float()
     assert got.dtype == dtype and got.shape == (B, wh, ww, 64)
     err = float((got.float() - ref).abs().max())
     assert err <= _tol(ref, dtype), err
@@ -142,7 +148,8 @@ NGRAM_NAMES = ["out", "du", "dwqkv", "dbqkv", "dlogit_scale", "dtable", "dwproj"
 
 
 def _ngram_kernel_and_plain(u, g, params, nh):
-    """(forward and cotangents through the kernels, twice; the plain version's)."""
+    """(forward and cotangents through the kernels, twice; the plain
+    version's: at bfloat16 the rounding-matched pair)."""
     f = cuda_ngram.fused_ngram_context
     present = [p for p in params if p is not None]
 
@@ -154,8 +161,12 @@ def _ngram_kernel_and_plain(u, g, params, nh):
         return [out.detach()] + [None if t is None else next(grads) for t in leaves]
 
     got, again = run(), run()
-    ref = [cuda_ngram.ngram_context_math(u.float(), *params, num_heads=nh)] + list(
-        cuda_ngram.ngram_context_backward_math(u.float(), g.float(), *params, num_heads=nh))
+    if u.dtype == torch.bfloat16:
+        ref = [cuda_ngram.ngram_context_kernel_math(u, *params, num_heads=nh)] + list(
+            cuda_ngram.ngram_context_kernel_backward_math(u, g, *params, num_heads=nh))
+    else:
+        ref = [cuda_ngram.ngram_context_math(u, *params, num_heads=nh)] + list(
+            cuda_ngram.ngram_context_backward_math(u, g, *params, num_heads=nh))
     assert len(present) + 2 == sum(t is not None for t in got)
     return got, again, ref
 
@@ -166,6 +177,7 @@ def _ngram_kernel_and_plain(u, g, params, nh):
     (6, 1, 13, 7), (4, 2, 5, 37),                 # odd grids, a ragged tile
     (6, 2, 2, 2), (4, 1, 2, 2),                   # both reflections hit index 0 and 1
     (6, 1, 2, 19), (4, 1, 18, 2),
+    (4, 8, 16, 16), (6, 3, 13, 7), (4, 3, 13, 7),
 ])
 def test_ngram_context_backward_kernel_matches_plain(cuda, dtype, nh, B, wh, ww):
     rng = np.random.default_rng(8)
@@ -179,7 +191,7 @@ def test_ngram_context_backward_kernel_matches_plain(cuda, dtype, nh, B, wh, ww)
     torch.cuda.synchronize()
     assert (f.launches, f.backward_launches) == (before[0] + 2, before[1] + 2)
     assert got[1].dtype == dtype and got[2].dtype == torch.float32
-    _hold(NGRAM_NAMES, 1, got, ref, dtype)
+    _hold(NGRAM_NAMES, 1, got, ref, dtype, param_dtype=dtype)
     for name, a, b in zip(NGRAM_NAMES, got, again):
         assert torch.equal(a, b), f"{name} differs between two runs"
 

@@ -1,6 +1,7 @@
 // Device helpers of the tensor-core bodies (the whole NSTB of K2/K8 in
 // nstb_window_mma.cuh, window attention forward and backward of K3/K4 in
-// window_attention_mma.cuh): bf16 packing, mma.sync.m16n8k16 with its
+// window_attention_mma.cuh, the residual FFN of K5/K6 in ffn_mma.cuh, the
+// n-gram context of K1/K7 in ngram_mma.cuh): bf16 packing, mma.sync.m16n8k16 with its
 // fragment loads, quad reductions, cp.async and the warpgroup barrier.
 //
 // Fragment layouts of mma.sync.m16n8k16 (bf16 in, f32 accumulate), for lane
@@ -126,6 +127,9 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_prior() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 // barrier of the 128 threads of one warpgroup (id 1 + warpgroup; 0 is
 // __syncthreads)

@@ -1,8 +1,9 @@
 // N-gram context of one NSTB, in one launch.
 //
 // Replaces the TPU kernel tmar/ops/pallas_ngram.py:_ngram_stripe_kernel
-// (driven by _forward, pallas_call at :306).  Plain version:
-// tmar_torch/ops/cuda_ngram.py:ngram_context_math.
+// (driven by _forward, pallas_call at :306).  Plain versions:
+// tmar_torch/ops/cuda_ngram.py:ngram_context_kernel_math (at float32 the
+// same function as ngram_context_math).
 //
 // Input is the unigram grid u [B, wh, ww, C=32]; output the context
 // [B, wh, ww, D=64].  Per grid cell, for each of the two directions:
@@ -19,18 +20,29 @@
 // What bounds it on an H100: neither bytes nor operations.  At the 8x512²
 // stage-1 shape it reads 8·64·64·32 inputs and writes twice as many outputs
 // (a few MB, about 2 µs at 3.35 TB/s) and does ~0.4 GFLOP, so it is bound
-// by launch and latency.  Design: a block owns a segment of TJ cells of one
-// grid row and stages the three input rows it needs (own, up, down, each
-// with one halo column on either side, reflect-mapped at the edges) in
-// shared memory.  There is no sequential grid to carry halos from one step
-// to the next as on the TPU, so each block recomputes the q/k/v of its halo
-// (3·(TJ+2) positions for TJ outputs).  All weights sit in shared memory;
-// everything is computed in float32, whatever the I/O type.
+// by latency and instruction throughput.  There is no sequential grid to
+// carry halos from one step to the next as on the TPU, so a block
+// recomputes the q/k/v of its tile's halo.  Two bodies, picked by the I/O dtype:
+//   * bfloat16: the tensor-core body (ngram_mma.cuh).  A persistent block
+//     stages the weights once, rounded to bf16 from the float32 parameters,
+//     then walks tiles of S = 4 grid rows x TJ = 16 cells (2 x 8 on a grid
+//     too small to fill the card that way): u of the 6 x 18 staged
+//     positions by cp.async (1.7x recompute), q/k/v of them on
+//     mma.sync with the per-head norms, the 4-token attention of each
+//     (cell, direction, head) on the CUDA cores, then the projection of both
+//     directions' mean tokens and the [64, 64] merge on mma.sync.  It rounds
+//     where _ngram_stripe_kernel rounds at bf16 (ngram_mma.cuh lists where).
+//   * float32: one 256-thread block per 32 cells of a grid row, staging the
+//     three input rows it needs (3·(TJ+2) positions for TJ outputs); every
+//     product in float32 on the CUDA cores, the exactness path of the 1e-4
+//     checks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "ngram_mma.cuh"
 
 namespace {
 
@@ -41,9 +53,7 @@ constexpr int NPOS = 3 * (TJ + 2);
 constexpr int THREADS = 256;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 __device__ __forceinline__ void store(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) { *p = __float2bfloat16(v); }
 
 // sequence-reflect index map of the halo: -1 -> 1, n -> n-2; positions past
 // n only feed cells outside the grid and are clamped to stay in bounds
@@ -76,7 +86,7 @@ struct Layout {
 template <int NH, int HD, typename T>
 __global__ void __launch_bounds__(THREADS) ngram_context_kernel(
     const T* __restrict__ u, const float* __restrict__ wqkv,
-    const float* __restrict__ bqkv, const float* __restrict__ scale,
+    const float* __restrict__ bqkv, const float* __restrict__ ls,
     const float* __restrict__ table, const float* __restrict__ wproj,
     const float* __restrict__ bproj, const float* __restrict__ wmerge,
     const float* __restrict__ bmerge, T* __restrict__ out, int wh, int ww) {
@@ -109,7 +119,7 @@ __global__ void __launch_bounds__(THREADS) ngram_context_kernel(
   for (int e = tid; e < C; e += THREADS) s_bproj[e] = bproj[e];
   for (int e = tid; e < 2 * C * D; e += THREADS) s_wm[e] = wmerge[e];
   for (int e = tid; e < D; e += THREADS) s_bm[e] = bmerge[e];
-  if (tid < NH) s_scale[tid] = scale[tid];
+  if (tid < NH) s_scale[tid] = expf(fminf(ls[tid], ngram::LN100));
   // 2x2 relative-position bias: s_bias[h][p][q] = table[idx(p, q)][h]
   for (int e = tid; e < NH * 16; e += THREADS) {
     const int h = e / 16, p = (e / 4) % 4, q = e % 4;
@@ -229,37 +239,170 @@ __global__ void __launch_bounds__(THREADS) ngram_context_kernel(
   }
 }
 
-template <int NH, int HD, typename T>
-int launch(const void* u, const void* wqkv, const void* bqkv, const void* scale,
-           const void* table, const void* wproj, const void* bproj,
-           const void* wmerge, const void* bmerge, void* out, int B, int wh,
-           int ww, cudaStream_t stream) {
+// ---- the bfloat16 body: tensor cores (ngram_mma.cuh) -----------------------
+template <int NH, int HD, int S, int TJ, int WARPS>
+struct MmaTile {
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int CELLS = S * TJ;
+  static constexpr int PROWS = ngram::ceil16((S + 2) * (TJ + 2));  // staged rows, whole m-tiles
+  // byte offsets into shared memory, after the staged weights
+  static constexpr int QKV = ngram::Weights<NH>::BYTES;         // bf16 [PROWS][LQKV]
+  static constexpr int U = QKV + PROWS * ngram::LQKV * 2;       // bf16 [PROWS][LU]
+  static constexpr int SCRATCH = U + PROWS * ngram::LU * 2;     // f32 [WARPS][16][LS]
+  // once q/k/v are staged, u and the scratch strips are free: the mean
+  // tokens and ctx take their place
+  static constexpr int MEAN = U;                                // bf16 [2·CELLS][LU]
+  static constexpr int CTX = MEAN + 2 * CELLS * ngram::LU * 2;  // bf16 [CELLS][LM]
+  static constexpr int END1 = SCRATCH + WARPS * 16 * ngram::LS * 4;
+  static constexpr int END2 = CTX + CELLS * ngram::LM * 2;
+  static constexpr int BYTES = END1 > END2 ? END1 : END2;
+  static_assert(CELLS % 16 == 0, "whole m-tiles of cells");
+  static_assert(BYTES <= 232448, "tile does not fit in shared memory");
+};
+
+// out = bf16([ctx_f | ctx_b]·wmerge + bmerge) for the tile's cells
+// [m0, m0 + 16), by one warp, stored for the cells inside the grid
+template <int TJ>
+__device__ __forceinline__ void merge_strip(const __nv_bfloat16* sctx, const ngram::Staged& W,
+                                            __nv_bfloat16* __restrict__ out, int m0, int b,
+                                            int i0, int j0, int wh, int ww, int lane) {
+  float acc[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+#pragma unroll
+  for (int k0 = 0; k0 < 2 * ngram::C; k0 += 16) {
+    uint32_t a[4];
+    load_a(a, sctx, ngram::LM, m0, k0, lane);
+#pragma unroll
+    for (int n = 0; n < 8; n += 2) mma_pair_t(acc[n], acc[n + 1], a, W.wm, ngram::LM, 8 * n, k0, lane);
+  }
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int cell = m0 + g + 8 * h;
+    const int i = i0 + cell / TJ, j = j0 + cell % TJ;
+    if (i >= wh || j >= ww) continue;
+    __nv_bfloat16* o = out + (((size_t)b * wh + i) * ww + j) * ngram::D;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = 8 * n + 2 * t;
+      sts32(o + col, pack_bf16(acc[n][2 * h] + W.bm[col], acc[n][2 * h + 1] + W.bm[col + 1]));
+    }
+  }
+}
+
+template <int NH, int HD, int S, int TJ, int WARPS>
+__global__ void __launch_bounds__(32 * WARPS) ngram_context_mma(
+    const __nv_bfloat16* __restrict__ u, const float* __restrict__ wqkv,
+    const float* __restrict__ bqkv, const float* __restrict__ ls,
+    const float* __restrict__ table, const float* __restrict__ wproj,
+    const float* __restrict__ bproj, const float* __restrict__ wmerge,
+    const float* __restrict__ bmerge, __nv_bfloat16* __restrict__ out, int B, int wh, int ww) {
+  using L = MmaTile<NH, HD, S, TJ, WARPS>;
+  extern __shared__ float4 smem4[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem4);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  ngram::stage_weights<NH, HD, L::THREADS>(smem, wqkv, bqkv, ls, table, wproj, bproj, wmerge,
+                                           bmerge, tid);
+  const ngram::Staged W = ngram::staged<NH>(smem);
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem + L::QKV);
+  __nv_bfloat16* su = reinterpret_cast<__nv_bfloat16*>(smem + L::U);
+  float* scratch = reinterpret_cast<float*>(smem + L::SCRATCH) + warp * 16 * ngram::LS;
+  __nv_bfloat16* smean = reinterpret_cast<__nv_bfloat16*>(smem + L::MEAN);
+  __nv_bfloat16* sctx = reinterpret_cast<__nv_bfloat16*>(smem + L::CTX);
+
+  const int rowtiles = (wh + S - 1) / S, coltiles = (ww + TJ - 1) / TJ;
+  const int tiles = B * rowtiles * coltiles;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int j0 = (tile % coltiles) * TJ;
+    const int i0 = ((tile / coltiles) % rowtiles) * S;
+    const int b = tile / (coltiles * rowtiles);
+    __syncthreads();  // the weights are staged; the last tile is done with ctx
+    ngram::stage_u<S, TJ>(su, u, b, i0, j0, wh, ww, tid, L::THREADS);
+    cp_async_wait_all();
+    __syncthreads();
+    for (int mt = warp; mt < L::PROWS / 16; mt += WARPS)
+      ngram::qkv_strip<NH, HD>(su, W, sq, scratch, 16 * mt, lane);
+    __syncthreads();
+    // one (cell, direction, head) per thread; cells outside the grid read
+    // reflect-clamped positions and are computed but never stored
+    for (int e = tid; e < L::CELLS * 2 * NH; e += L::THREADS) {
+      const int cell = e / (2 * NH), dir = (e / NH) % 2, h = e % NH;
+      int tok[4];
+      ngram::window_tokens<TJ>(cell / TJ, cell % TJ, dir, tok);
+      ngram::Head<NH, HD> head;
+      head.run(sq, W, tok, h);
+      ngram::store_mean<NH, HD>(smean + (2 * cell + dir) * ngram::LU, head.acc, h);
+    }
+    __syncthreads();
+    for (int mt = warp; mt < 2 * L::CELLS / 16; mt += WARPS)
+      ngram::project_strip(smean, W, sctx, 16 * mt, lane);
+    __syncthreads();
+    for (int mt = warp; mt < L::CELLS / 16; mt += WARPS)
+      merge_strip<TJ>(sctx, W, out, 16 * mt, b, i0, j0, wh, ww, lane);
+  }
+}
+
+template <int NH, int HD, int S, int TJ, int WARPS>
+int launch_tile(const void* const* p, void* out, int B, int wh, int ww, int sms,
+                cudaStream_t stream) {
+  using L = MmaTile<NH, HD, S, TJ, WARPS>;
+  auto kern = ngram_context_mma<NH, HD, S, TJ, WARPS>;
+  static int per_sm = 0;  // resident blocks per SM, asked once
+  if (per_sm == 0) {
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           L::BYTES);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, L::THREADS, L::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  const long tiles = (long)B * ((wh + S - 1) / S) * ((ww + TJ - 1) / TJ);
+  const int blocks = (int)(tiles < (long)per_sm * sms ? tiles : (long)per_sm * sms);
+  kern<<<blocks, L::THREADS, L::BYTES, stream>>>(
+      (const __nv_bfloat16*)p[0], (const float*)p[1], (const float*)p[2], (const float*)p[3],
+      (const float*)p[4], (const float*)p[5], (const float*)p[6], (const float*)p[7],
+      (const float*)p[8], (__nv_bfloat16*)out, B, wh, ww);
+  return (int)cudaGetLastError();
+}
+
+// Tiles of S = 4 grid rows x TJ = 16 cells (1.7x recompute), 8 warps a
+// block; a grid with fewer such tiles than SMs (the 8x128² train step's
+// grids, 8x32² at 512²) takes tiles of 2 x 8 cells, four times as many, 4
+// warps a block (the faster choices among 4 and 8 warps, 2 x 16, 4 x 16 and
+// 4 x 32 cells at those grids on the H100)
+template <int NH, int HD>
+int launch_mma(const void* const* p, void* out, int B, int wh, int ww, int sms,
+               cudaStream_t stream) {
+  if (((uintptr_t)p[0] | (uintptr_t)out) & 15) return (int)cudaErrorMisalignedAddress;
+  if ((long)B * ((wh + 3) / 4) * ((ww + 15) / 16) >= sms)
+    return launch_tile<NH, HD, 4, 16, 8>(p, out, B, wh, ww, sms, stream);
+  return launch_tile<NH, HD, 2, 8, 4>(p, out, B, wh, ww, sms, stream);
+}
+
+// ---- the float32 body --------------------------------------------------------
+template <int NH, int HD>
+int launch_f32(const void* const* p, void* out, int B, int wh, int ww, cudaStream_t stream) {
   const size_t smem = Layout<NH, HD>::FLOATS * sizeof(float);
-  auto kern = ngram_context_kernel<NH, HD, T>;
+  auto kern = ngram_context_kernel<NH, HD, float>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((ww + TJ - 1) / TJ, wh, B);
   kern<<<grid, THREADS, smem, stream>>>(
-      (const T*)u, (const float*)wqkv, (const float*)bqkv, (const float*)scale,
-      (const float*)table, (const float*)wproj, (const float*)bproj,
-      (const float*)wmerge, (const float*)bmerge, (T*)out, wh, ww);
+      (const float*)p[0], (const float*)p[1], (const float*)p[2], (const float*)p[3],
+      (const float*)p[4], (const float*)p[5], (const float*)p[6], (const float*)p[7],
+      (const float*)p[8], (float*)out, wh, ww);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int dispatch(int num_heads, int head_dim, const void* u, const void* wqkv,
-             const void* bqkv, const void* scale, const void* table,
-             const void* wproj, const void* bproj, const void* wmerge,
-             const void* bmerge, void* out, int B, int wh, int ww,
-             cudaStream_t stream) {
-  if (num_heads == 6 && head_dim == 5)
-    return launch<6, 5, T>(u, wqkv, bqkv, scale, table, wproj, bproj, wmerge,
-                           bmerge, out, B, wh, ww, stream);
-  if (num_heads == 4 && head_dim == 8)
-    return launch<4, 8, T>(u, wqkv, bqkv, scale, table, wproj, bproj, wmerge,
-                           bmerge, out, B, wh, ww, stream);
-  return (int)cudaErrorInvalidValue;
+template <int NH, int HD>
+int launch(const void* const* p, void* out, int B, int wh, int ww, int is_bf16, int sms,
+           cudaStream_t stream) {
+  if (is_bf16) return launch_mma<NH, HD>(p, out, B, wh, ww, sms, stream);
+  return launch_f32<NH, HD>(p, out, B, wh, ww, stream);
 }
 
 }  // namespace
@@ -268,24 +411,24 @@ extern "C" {
 
 // u [B, wh, ww, 32] (float32 or bfloat16, per is_bf16) -> out [B, wh, ww, 64]
 // of the same type.  Weights are float32 in the [in, out] layout: wqkv
-// [32, 3A], bqkv [3A], scale [nh] = exp(min(logit_scale, ln 100)), table
-// [9, nh] (the 2x2 relative-position bias table), wproj [A, 32], bproj [32],
-// wmerge [64, 64], bmerge [64].  Requires wh >= 2 and ww >= 2.
-// Returns a cudaError_t code (0 on a clean launch).
+// [32, 3A], bqkv [3A], logit_scale [nh] (raw: the kernel takes
+// exp(min(logit_scale, ln 100))), table [9, nh] (the 2x2 relative-position
+// bias table), wproj [A, 32], bproj [32], wmerge [64, 64], bmerge [64].
+// bfloat16 runs the tensor-core body (u and out 16-byte aligned; a
+// persistent grid of at most `sms` times the blocks an SM holds), float32 the
+// float32 body.  Requires wh >= 2 and ww >= 2.  Returns a cudaError_t code
+// (0 on a clean launch).
 int tmar_ngram_context(const void* u, const void* wqkv, const void* bqkv,
-                       const void* scale, const void* table, const void* wproj,
-                       const void* bproj, const void* wmerge,
-                       const void* bmerge, void* out, int B, int wh, int ww,
-                       int num_heads, int head_dim, int is_bf16,
-                       void* stream) {
-  if (wh < 2 || ww < 2) return (int)cudaErrorInvalidValue;
+                       const void* logit_scale, const void* table, const void* wproj,
+                       const void* bproj, const void* wmerge, const void* bmerge, void* out,
+                       int B, int wh, int ww, int num_heads, int head_dim, int is_bf16,
+                       int sms, void* stream) {
+  if (B < 1 || wh < 2 || ww < 2 || sms < 1) return (int)cudaErrorInvalidValue;
+  const void* p[9] = {u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bmerge};
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(num_heads, head_dim, u, wqkv, bqkv, scale,
-                                   table, wproj, bproj, wmerge, bmerge, out, B,
-                                   wh, ww, s);
-  return dispatch<float>(num_heads, head_dim, u, wqkv, bqkv, scale, table,
-                         wproj, bproj, wmerge, bmerge, out, B, wh, ww, s);
+  if (num_heads == 6 && head_dim == 5) return launch<6, 5>(p, out, B, wh, ww, is_bf16, sms, s);
+  if (num_heads == 4 && head_dim == 8) return launch<4, 8>(p, out, B, wh, ww, is_bf16, sms, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* tmar_ngram_context_error(int err) {
