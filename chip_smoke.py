@@ -31,7 +31,8 @@ Phases, each of which fails the run if it fails:
    context's backward) against their plain versions' autograd on the card,
    forward and every cotangent, at the shapes of the 8x128² train step (2048
    windows of 64 tokens with 6 heads, with and without the shift mask; 512
-   with 4 heads; 2048 and 512 n-gram windows of 4 tokens; 131,072 FFN rows;
+   with 4 heads; 2048 and 512 n-gram windows of 4 tokens, and of 9 and 1
+   (the composition path at n = 3 and n = 1); 131,072 FFN rows;
    n-gram grids 8x16x16 at 6 heads, 8x8x8 and 8x4x4 at 4, and also 8x64x64,
    13x7 and 2x2), at float32 (TF32 off) and bfloat16 (at bfloat16 against
    their rounding-matched plain forwards and explicit backwards, the
@@ -87,7 +88,29 @@ Phases, each of which fails the run if it fails:
    in one forward), in each of the three block forms: ``metrics.json``
    written, the prediction's PSNR above the corrupted input's, the forms
    agreeing within 0.05 dB; and the device-side tiled eval against the
-   host-side one on one slice.
+   host-side one on one slice;
+14. the data layer: the host library (``tmar_torch/native/tmar_host.cc``,
+   built by g++ at first use) loaded, each of its five functions against its
+   numpy version on a 416² slice; then small trees in the real layouts,
+   written here from the port's synthetic generator as
+   tools/make_ref_layout.py writes them (16 SpineWeb HU slice pairs; where
+   h5py imports, a SynDeepLesion HDF5 tree of 2 train images x 79 masks and
+   1 test image x 10 masks; where it does not, one ``[skip] syndeeplesion``
+   line), and each training set's Loader rate onto the card;
+15. the shipped configs as written, with only the data paths, the epoch
+   length and the run directory set: ``Trainer.fit`` on
+   finetune_spineweb.yaml (batch 32, 128², bf16, full width) with
+   validation on the full slices and one more epoch under torch.profiler;
+   train_syndeeplesion.yaml on ``synthetic_cache`` (16 cached 416² slices)
+   and, where h5py imports, on the SynDeepLesion tree with validation on
+   ``SynDeepLesionValDataset``, each with 20 launches per step of K1, K7
+   and K3-K6; ``tmar_torch.cli.test`` on test_config.yaml with the
+   flagship, full-slice and tiled, on each tree: the prediction's PSNR above
+   the corrupted input's, 20 launches of K1 and K2 per slice;
+16. the composition recipe with ``ngrams=(3, 3, 3, 3)`` (``ngram_fused``
+   left on: n = 3 takes the composition path) at full width, 8x128² bf16,
+   3 steps: 40 launches each of K3 and K4 at N = 9 per step, none of
+   K1/K7, ``g_rec`` falling.
 
 It prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card, exits non-zero
@@ -713,6 +736,13 @@ ATTN_CASES = (
     ("stage2 shift", 512, 64, 64, 4, 16, (8, 8)),
     ("ngram stage1", 2048, 4, 32, 6, 5, None),
     ("ngram stage2", 512, 4, 32, 4, 8, None),
+    # the composition path's windows at n = 3 (9 tokens: seven to a 64-row
+    # tile, the last tile ragged) and n = 1, at the step's stages 1-3
+    ("ngram n=3 stage1", 2048, 9, 32, 6, 5, None),
+    ("ngram n=3 stage2", 512, 9, 32, 4, 8, None),
+    ("ngram n=3 stage3", 128, 9, 32, 4, 8, None),
+    ("ngram n=1 stage1", 2048, 1, 32, 6, 5, None),
+    ("ngram n=1 stage2", 512, 1, 32, 4, 8, None),
 )
 FFN_ROWS = 131072
 
@@ -807,8 +837,11 @@ def check_train_kernels(dev, card):
             if matched:
                 means = [float((got[i].float() - ref[i].float()).abs().mean()) for i in (0, 1)]
                 d32 = [float((got[i].float() - ref32[i].float()).abs().mean()) for i in (0, 1)]
-                w32 = max(err_and_tol(x, y, dtype)[0] / err_and_tol(x, y, dtype)[1]
-                          for x, y in zip(got, ref32))
+                # a cotangent that is zero on both sides has no relative
+                # distance (at N = 1 the scores' cotangents vanish: a softmax
+                # over one key is constant)
+                w32 = max((e / t for e, t in (err_and_tol(x, y, dtype) for x, y in zip(got, ref32))
+                           if t > 0), default=0.0)
                 line += (f" (against the rounding-matched plain versions; mean out {means[0]:.2e}, "
                          f"dx {means[1]:.2e}; not gated: against the float32 plain version mean "
                          f"out {d32[0]:.2e}, dx {d32[1]:.2e}, worst {w32:.2f} of the bf16 tolerance)")
@@ -857,7 +890,8 @@ def check_train_kernels(dev, card):
                  *window_attention_backward_math(a[0], gg, *p, nh, mask_components=mc)],
              param_bf16=N == 64)
     times = {}
-    for label, nwin, N, D, nh, hd, grid in (ATTN_CASES[1], ATTN_CASES[3]):
+    for label, nwin, N, D, nh, hd, grid in (ATTN_CASES[1], ATTN_CASES[3], ATTN_CASES[5],
+                                             ATTN_CASES[8]):
         acts, params, g = attention_inputs(nwin, N, D, nh, hd)
         mc = None if grid is None else (*shift_mask_components(8, 4), *grid)
         for dtype in (torch.bfloat16, torch.float32):
@@ -884,6 +918,8 @@ def check_train_kernels(dev, card):
         t, bounds, launch = times[(64, "bfloat16")]
         t32, b32, launch32 = times[(64, "float32")]
         t4, b4, launch4 = times[(4, "bfloat16")]
+        t9, b9, launch9 = times[(9, "bfloat16")]
+        t1, b1, launch1 = times[(1, "bfloat16")]
         records[f"window_attention_{half}"] = {
             "name": f"window_attention_{half}", "route": "cuda",
             "source": f"tmar_torch/csrc/window_attention_{half}.cu",
@@ -895,7 +931,10 @@ def check_train_kernels(dev, card):
             "library_ms": None, "ms_through_wrapper": t[i], "ms_f32": launch32[i],
             "plain_ms_f32": t32[2 + i], "bound_ms_f32": b32[i][0],
             "ms_n4": launch4[i], "plain_ms_n4": t4[2 + i], "bound_ms_n4": b4[i][0],
-            "shape": "x [2048, 64, 64] bf16, 6 heads, shift mask on (n4: x [2048, 4, 32], 6 heads)",
+            "ms_n9": launch9[i], "plain_ms_n9": t9[2 + i], "bound_ms_n9": b9[i][0],
+            "ms_n1": launch1[i], "plain_ms_n1": t1[2 + i], "bound_ms_n1": b1[i][0],
+            "shape": "x [2048, 64, 64] bf16, 6 heads, shift mask on (n4 / n9 / n1: x [2048, 4 / 9 / "
+                     "1, 32], 6 heads)",
         }
 
     # ---- K5 / K6: residual FFN ---------------------------------------------
@@ -1036,9 +1075,10 @@ def _train_counters():
     }
 
 
-def _gan(dtype, device, seed, batch_size):
+def _gan(dtype, device, seed, batch_size, ngrams=(2, 2, 2, 2), ngram_fused=False):
     """Full-width generator (training form, n-gram context on its
-    composition path) and discriminator from a seed,
+    composition path: ``ngram_fused=False``, or any n but 2) and
+    discriminator from a seed,
     their optimizers, state and step, and a fixed seeded batch (input uniform
     in [-1, 1], so the metal mask at 0.6 is non-empty)."""
     import torch
@@ -1046,7 +1086,8 @@ def _gan(dtype, device, seed, batch_size):
     from tmar_torch import (LossWeights, MultiScaleDiscriminator, NGswin, create_train_state,
                             make_train_step)
 
-    gen = NGswin(dtype=dtype, attn_backward="pallas", ngram_fused=False, device=device)
+    gen = NGswin(ngrams=ngrams, dtype=dtype, attn_backward="pallas", ngram_fused=ngram_fused,
+                 device=device)
     disc = MultiScaleDiscriminator(dtype=dtype, device=device)
     g_opt = torch.optim.Adam(gen.parameters(), 1e-4, betas=(0.5, 0.999), eps=1e-8)
     d_opt = torch.optim.Adam(disc.parameters(), 2e-4, betas=(0.5, 0.999), eps=1e-8)
@@ -1881,6 +1922,437 @@ def serve_entry_point(sd, card):
         raise SystemExit(f"test entry point checks failed: {failures}")
 
 
+# ---- phases 14-16: the data layer, the shipped configs as written, and the
+# n-gram context at n = 3 ------------------------------------------------------
+TREE_SIZE = 416
+SPINE_SLICES = 16
+SYN_TRAIN_IMAGES, SYN_TEST_IMAGES = 2, 1
+DATA_BATCH, PATCH = 32, 128  # the shipped training configs' batch and patch
+PROFILE_STEPS = 8  # the spineweb steps profiled alone, without an epoch's end
+
+
+def _has_h5py() -> bool:
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def check_native(card):
+    """Phase 14a: the host library, built from ``tmar_torch/native`` and
+    loaded, against its numpy versions on a 416² slice: bit for bit where the
+    C++ and the numpy arithmetic agree, else at tests/test_native.py's
+    tolerances; each timed beside its numpy version (host time)."""
+    from tmar_torch.data import native
+
+    failures = []
+    t0 = time.perf_counter()
+    ok = native.available()
+    print(f"[data] native: host library {'built and loaded' if ok else 'NOT available'} from "
+          f"{os.path.relpath(native.SOURCE, ROOT)} into "
+          f"{os.path.relpath(native.library_path(), ROOT)} in {time.perf_counter() - t0:.2f} s "
+          f"(g++ {' '.join(native.CXX_FLAGS)})")
+    if not ok:
+        raise SystemExit(f"the host library did not build: {native.build_error}")
+    rng = np.random.default_rng(11)
+    img = rng.uniform(-0.3, 1.3, (TREE_SIZE, TREE_SIZE)).astype(np.float32)
+    hu = rng.uniform(-2000, 4000, (TREE_SIZE, TREE_SIZE)).astype(np.float32)
+    mask = (img > 1.0).astype(np.uint8)
+    mask[TREE_SIZE // 4, :] = 1  # a fully masked row: the column pass
+    batch = rng.standard_normal((DATA_BATCH, 3, TREE_SIZE, TREE_SIZE)).astype(np.float32)
+    pos = rng.integers(0, TREE_SIZE - PATCH + 1, (2, DATA_BATCH))
+    flips = rng.random((2, DATA_BATCH)) < 0.5
+    cases = (  # (name, args, atol, rtol): zero where the arithmetic agrees
+        ("normalize01_pm1", (img,), 0.0, 1e-6),
+        ("hu_window", (hu, -1000.0, 2000.0), 1e-5, 0.0),
+        ("assemble_batch", (batch, PATCH, pos[0], pos[1], flips[0], flips[1]), 0.0, 0.0),
+        ("metal_mask_dilate", (img, 0.6, 5), 0.0, 0.0),
+        ("li_interpolate", (img, mask), 1e-6, 0.0),
+    )
+    for name, args, atol, rtol in cases:
+        lib_fn, np_fn = getattr(native, name), getattr(native, f"{name}_np")
+        if name == "assemble_batch":  # the numpy version takes the wrapper's arrays
+            np_args = (args[0], args[1], *(np.asarray(a, np.int32) for a in args[2:4]),
+                       *(np.asarray(a, np.uint8) for a in args[4:]))
+        elif name == "li_interpolate":
+            np_args = (args[0], (args[1] > 0).astype(np.uint8))
+        else:
+            np_args = args
+        got, ref = lib_fn(*args), np_fn(*np_args)
+        t_lib = min(_host_ms(lambda: lib_fn(*args)) for _ in range(3))
+        t_np = min(_host_ms(lambda: np_fn(*np_args)) for _ in range(3))
+        err = float(np.abs(got.astype(np.float64) - ref).max())
+        good = got.shape == ref.shape and err <= atol + rtol * float(np.abs(ref).max())
+        exact = "bit for bit" if atol == rtol == 0.0 else f"atol {atol:g} rtol {rtol:g}"
+        shape = (f"[{DATA_BATCH}, 3, {TREE_SIZE}, {TREE_SIZE}] -> {PATCH}²" if name == "assemble_batch"
+                 else f"{TREE_SIZE}²")
+        print(f"[data] native {name} on {shape}:"
+              f" max |lib - numpy| {err:.3e} ({exact}) {'ok' if good else 'FAIL'}; library "
+              f"{t_lib:.3f} ms, numpy {t_np:.3f} ms (host time, {card})")
+        if not good:
+            failures.append(name)
+    if failures:
+        raise SystemExit(f"host library checks failed: {failures}")
+
+
+def _host_ms(fn):
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def write_trees(root, syndeeplesion):
+    """The on-disk layouts the real loaders read, written from the port's
+    synthetic generator as tools/make_ref_layout.py writes them (that tool
+    imports the JAX package): the same file names, seed 0, a 416² phantom per
+    image and one artifact draw per (image, mask); SpineWeb as HU npy pairs
+    (``a * 3000 - 1000``), SynDeepLesion as one HDF5 file per (image, mask)
+    with 79 masks per train image and 10 per test image.  Returns {layout:
+    (root, seconds)}."""
+    from tmar_torch.data.synthetic import SyntheticMARDataset, apply_metal_artifacts
+
+    phantom = SyntheticMARDataset(size=TREE_SIZE, length=1, base_seed=0)._phantom
+
+    def gt01(split, i):
+        return phantom(np.random.default_rng((0, split, i)))
+
+    def pair(gt, split, i, k):
+        return apply_metal_artifacts(gt, np.random.default_rng((0, split, i, 1000 + k)))
+
+    out = {}
+    t0 = time.perf_counter()
+    spine = os.path.join(root, "spineweb")
+    for sub in ("artifact", "clean"):
+        os.makedirs(os.path.join(spine, sub))
+    for i in range(SPINE_SLICES):
+        gt = gt01(2, i)
+        ma, _ = pair(gt, 2, i, 0)
+        np.save(os.path.join(spine, "artifact", f"case{i:04d}.npy"), (ma * 3000.0 - 1000.0).astype(np.float32))
+        np.save(os.path.join(spine, "clean", f"case{i:04d}.npy"), (gt * 3000.0 - 1000.0).astype(np.float32))
+    out["spineweb"] = (spine, time.perf_counter() - t0)
+    if not syndeeplesion:
+        return out
+    import h5py
+
+    def h5(path, arrays):
+        with h5py.File(path, "w") as f:
+            for k, v in arrays.items():
+                f.create_dataset(k, data=np.asarray(v, np.float32))
+
+    t0 = time.perf_counter()
+    syn = os.path.join(root, "syndeeplesion")
+    for split, n_img, n_masks, sub in ((0, SYN_TRAIN_IMAGES, 79, "train_640geo"),
+                                       (1, SYN_TEST_IMAGES, 10, "test_640geo")):
+        for i in range(n_img):
+            d = os.path.join(syn, sub, f"P{i // 4:03d}", f"S{i:04d}")
+            os.makedirs(d)
+            gt = gt01(split, i)
+            h5(os.path.join(d, "gt.h5"), {"image": gt})
+            for k in range(n_masks):
+                ma, li = pair(gt, split, i, k)
+                h5(os.path.join(d, f"{k}.h5"), {"ma_CT": ma, "LI_CT": li})
+    with open(os.path.join(syn, "test_640geo_dir.txt"), "w") as f:
+        f.writelines(f"P{i // 4:03d}/S{i:04d}/gt.h5\n" for i in range(SYN_TEST_IMAGES))
+    out["syndeeplesion"] = (syn, time.perf_counter() - t0)
+    return out
+
+
+def _data_overrides(layout, path):
+    if layout == "spineweb":
+        return {"data.dataset": "spineweb",
+                "data.spineweb_artifact": os.path.join(path, "artifact"),
+                "data.spineweb_clean": os.path.join(path, "clean")}
+    return {"data.root": path}
+
+
+def loader_rate(cfg, card, batches=64):
+    """How fast the trainer's Loader feeds the card: ``batches`` batches of
+    the training set through it (its threads, pinned memory, the copy onto
+    the card), timed from ``iter()`` to the last batch on the card, so that
+    no batch is built before the clock starts and the prefetch queue (the
+    threads plus ``prefetch`` batches) is a small part of the run; and one
+    thread's ``dataset[i]`` alone over one batch of indices.  Returns the
+    loader's samples/s."""
+    import copy
+
+    import torch
+
+    from tmar_torch.data import Loader
+    from tmar_torch.train.trainer import build_dataset
+
+    cfg = copy.deepcopy(cfg)
+    d = cfg.data
+    d.samples_per_epoch = batches * d.batch_size
+    dataset = build_dataset(cfg)
+    t0 = time.perf_counter()
+    for i in range(d.batch_size):
+        dataset[i]
+    per_sample = (time.perf_counter() - t0) / d.batch_size
+    loader = Loader(dataset, batch_size=d.batch_size, num_workers=d.num_workers, seed=d.seed,
+                    device="cuda")
+    t0 = time.perf_counter()
+    n = sum(1 for _ in loader)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rate = n * d.batch_size / wall
+    print(f"[data] loader {d.dataset}: {rate:.1f} samples/s ({n} batches of {d.batch_size} "
+          f"{d.patch_size}² patches onto the card in {wall:.3f} s from iter(), {d.num_workers} "
+          f"threads, prefetch {loader.prefetch}); one thread's dataset[i] alone "
+          f"{per_sample * 1e3:.3f} ms a sample ({1 / per_sample:.1f} samples/s); host and card {card}")
+    return rate
+
+
+def fit_phase(label, cfg, card, val_dataset, check, profile=False):
+    """``Trainer(cfg).fit()`` on the card with the launch counts reset just
+    before and read just after.  Returns the trainer and the counts."""
+    import torch
+
+    from tmar_torch.train import Trainer
+
+    trainer = Trainer(cfg, val_dataset=val_dataset)
+    counters = _train_counters()
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+    t0 = time.perf_counter()
+    trainer.fit(progress=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: getattr(f, attr) for name, (f, attr) in counters.items()}
+    steps = int(trainer.state.step)
+    epoch = trainer.val_history[-1]
+    d = cfg.data
+    print(f"[trainer] {label}: fit {steps} steps of {d.batch_size}x{d.patch_size}² "
+          f"{'bf16' if cfg.bf16 else 'f32'} ({cfg.variant} variant, {d.num_workers} loader threads) "
+          f"in {wall:.2f} s with{'' if val_dataset is not None else 'out'} validation: "
+          f"{epoch['steps_per_s']:.3f} steps/s, {epoch['steps_per_s'] * d.batch_size:.1f} patches/s "
+          f"(first steps included) on {card}")
+    want = d.samples_per_epoch // d.batch_size
+    check(steps == want, f"{label}: the state counts {want} steps")
+    check(all(np.isfinite(v) for h in trainer.history + trainer.val_history for v in h.values()),
+          f"{label}: every logged training and validation metric is finite")
+    val_batches = 0
+    if val_dataset is not None:
+        val_batches = min(16, -(-len(val_dataset) // d.batch_size))
+        print(f"[trainer] {label}: validation on {len(val_dataset)} full slices "
+              f"({type(val_dataset).__name__}, EMA weights): psnr {epoch['val_psnr']:.3f} dB, "
+              f"ssim {epoch['val_ssim']:.4f}")
+        check(np.isfinite(epoch["val_psnr"]), f"{label}: validation psnr is finite")
+    per_step = {k: v / max(steps, 1) for k, v in launches.items()}
+    print(f"[trainer] {label}: launches per step " + ", ".join(f"{k} {v:g}" for k, v in per_step.items())
+          + f" (totals {launches}; the forward kernels also run once per block in each of "
+          f"{val_batches} validation batch(es))")
+    fwd = ("window_attention_fwd", "residual_ffn_fwd", "ngram_context")
+    bwd = ("window_attention_bwd", "residual_ffn_bwd", "ngram_context_bwd")
+    check(all(launches[k] == 20 * steps for k in bwd)
+          and all(launches[k] == 20 * (steps + val_batches) for k in fwd)
+          and launches["nstb_map"] == 0,
+          f"{label}: 20 launches per step of each of K3, K4, K5, K6, K1 and K7 (and 20 of K1, "
+          f"K3, K5 per validation batch), none of K2")
+    if profile:
+        # warm, under the profiler: the steps alone, fed by the Loader as fit
+        # feeds them; then one more epoch as fit runs it, whose end (the
+        # validation, the sample grid, the checkpoint, the logs) a short
+        # epoch's steps do not outweigh
+        import copy
+
+        from tmar_torch.data import Loader
+        from tmar_torch.train.trainer import build_dataset
+
+        steps_cfg = copy.deepcopy(cfg)
+        steps_cfg.data.samples_per_epoch = PROFILE_STEPS * d.batch_size
+        loader = Loader(build_dataset(steps_cfg), batch_size=d.batch_size,
+                        num_workers=d.num_workers, seed=d.seed, device=trainer.device)
+
+        def steps():
+            for batch in loader:
+                trainer.state, _ = trainer.train_step(trainer.state, batch)
+
+        profile_request(steps, card, label=f"{label}: {PROFILE_STEPS} train steps fed by the Loader, "
+                                           f"no validation or checkpoint")
+        trainer.start_epoch = 1
+        profile_request(lambda: trainer.fit(num_epochs=2, progress=False), card,
+                        label=f"Trainer.fit {label}, one epoch of {want} steps with its validation, "
+                              f"sample grid, checkpoint and logs")
+    return trainer, launches
+
+
+def data_phases(card):
+    """Phases 14-15: the host library; the port's three shipped configs run
+    as written, on small trees written here, with only the data paths, the
+    epoch length and the run directory set: ``Trainer.fit`` on
+    finetune_spineweb.yaml (and train_syndeeplesion.yaml where h5py
+    imports), train_syndeeplesion.yaml on the shard cache of synthetic
+    slices, and ``tmar_torch.cli.test`` on test_config.yaml with the
+    flagship, full-slice and tiled.  Returns the launch counts of the
+    spineweb fit."""
+    import tempfile
+
+    import torch
+
+    from tmar_torch import cli
+    from tmar_torch.eval.metrics import psnr
+    from tmar_torch.train import config_path, load_config, resolve_variant
+    from tmar_torch.train.trainer import build_dataset, build_val_dataset
+
+    failures = []
+
+    def check(cond, what):
+        print(f"[check] {what}: {'ok' if cond else 'FAIL'}")
+        if not cond:
+            failures.append(what)
+
+    check_native(card)
+    h5 = _has_h5py()
+    if not h5:
+        print("[skip] syndeeplesion: h5py is not installed on this machine")
+    with tempfile.TemporaryDirectory(prefix="tmar_data_") as tmp:
+        trees = write_trees(tmp, syndeeplesion=h5)
+        for layout, (path, sec) in trees.items():
+            print(f"[data] wrote the {layout} layout at {TREE_SIZE}² in {sec:.2f} s (host, {card})")
+
+        def shipped(name, **over):
+            cfg = load_config(config_path(name), {"run_dir": os.path.join(tmp, "runs"), **over})
+            return resolve_variant(cfg, cfg.variant)
+
+        # SpineWeb fine-tuning as written
+        cfg = shipped("finetune_spineweb.yaml", **_data_overrides("spineweb", trees["spineweb"][0]),
+                      **{"data.samples_per_epoch": 2 * DATA_BATCH, "num_epochs": 1,
+                         "val_every_n_epochs": 1, "run_name": "spineweb"})
+        check((cfg.data.batch_size, cfg.data.patch_size, cfg.optim.lr_g, cfg.variant, cfg.bf16,
+               cfg.model.embed_dim, tuple(cfg.model.depths)) == (32, 128, 1e-5, "full", True, 64, (6, 4, 4)),
+              "finetune_spineweb.yaml as written: batch 32, 128² patches, lr_g 1e-5, full, bf16, full width")
+        loader_rate(cfg, card)
+        trainer, spine_launches = fit_phase("spineweb", cfg, card, build_val_dataset(cfg), check,
+                                            profile=True)
+        del trainer
+        torch.cuda.empty_cache()
+
+        # the shard cache of synthetic slices
+        cfg = shipped("train_syndeeplesion.yaml", **{
+            "data.dataset": "synthetic_cache", "data.cache_slices": 16,
+            "data.cache_dir": os.path.join(tmp, "synth_cache"),
+            "data.samples_per_epoch": 3 * DATA_BATCH, "num_epochs": 1, "run_name": "cache"})
+        t0 = time.perf_counter()
+        build_dataset(cfg)
+        print(f"[trainer] synthetic_cache: built the shard cache of {cfg.data.cache_slices} "
+              f"{TREE_SIZE}² synthetic slices in {time.perf_counter() - t0:.2f} s (host, {card})")
+        loader_rate(cfg, card)
+        trainer, _ = fit_phase("synthetic_cache", cfg, card, None, check)
+        del trainer
+        torch.cuda.empty_cache()
+
+        # SynDeepLesion training as written
+        if h5:
+            cfg = shipped("train_syndeeplesion.yaml",
+                          **_data_overrides("syndeeplesion", trees["syndeeplesion"][0]),
+                          **{"data.samples_per_epoch": 2 * DATA_BATCH, "num_epochs": 1,
+                             "val_every_n_epochs": 1, "run_name": "syndeeplesion"})
+            loader_rate(cfg, card)
+            trainer, _ = fit_phase("syndeeplesion", cfg, card, build_val_dataset(cfg), check)
+            del trainer
+            torch.cuda.empty_cache()
+
+        # the test entry point on the real layouts
+        for layout, (path, _) in trees.items():
+            sets = [f"{k}={v}" for k, v in _data_overrides(layout, path).items()]
+            cfg = load_config(config_path("test_config.yaml"), _data_overrides(layout, path))
+            ds = cli._build_test_dataset(cfg)
+            input_psnr = float(np.mean([psnr(np.clip((ds[i]["ct"] + 1) / 2, 0, 1), (ds[i]["gt"] + 1) / 2)
+                                        for i in range(len(ds))]))
+            print(f"[test] {layout}: corrupted input on its {len(ds)} {TREE_SIZE}² test slices: mean "
+                  f"psnr {input_psnr:.3f} dB")
+            for tiled in (False, True):
+                mode = "tiled" if tiled else "full_slice"
+                out = os.path.join(tmp, f"test_{layout}_{mode}")
+                argv = ["--config", config_path("test_config.yaml"), "--checkpoint", CKPT,
+                        "--out", out, "--set", *sets] + (["--tiled"] if tiled else [])
+                _reset_serving_counters()
+                t0 = time.perf_counter()
+                rc = cli.test(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                got, _ = _read_serving_counters()
+                path_json = os.path.join(out, "metrics.json")
+                summary = json.load(open(path_json))["summary"] if rc == 0 and os.path.isfile(path_json) else {}
+                n = summary.get("n", 0)
+                print(f"[test] {layout} {mode}: rc {rc}, psnr {summary.get('psnr', float('nan')):.3f} dB, "
+                      f"ssim {summary.get('ssim', float('nan')):.4f} over {n} slices in {wall:.2f} s "
+                      f"(loading and metrics on the host included), flagship bf16 map form on {card}; "
+                      f"launches " + ", ".join(f"{k} {v}" for k, v in got.items()))
+                check(n == len(ds) and summary.get("mode") == mode,
+                      f"test {layout} {mode}: metrics.json written for all {len(ds)} slices")
+                check(summary.get("psnr", 0) > input_psnr,
+                      f"test {layout} {mode}: psnr {summary.get('psnr', 0):.3f} dB above the input's "
+                      f"{input_psnr:.3f}")
+                check(got["ngram_context"] == got["nstb_map"] == 20 * n,
+                      f"test {layout} {mode}: 20 launches each of K1 and K2 per slice")
+    if failures:
+        raise SystemExit(f"data phase checks failed: {failures}")
+    return spine_launches
+
+
+def train_ngram3(card):
+    """Phase 16: the composition recipe with ``ngrams=(3, 3, 3, 3)`` at full
+    width, 8x128² bf16: the n-gram context through K3/K4 at N = 9 (phase 5
+    held them there and at N = 1 against their plain versions), whatever
+    ``ngram_fused`` says; 3 steps on one fixed batch."""
+    import torch
+
+    from tmar_torch.ops.cuda_attention import fused_window_attention
+
+    failures = []
+
+    def check(cond, what):
+        print(f"[check] {what}: {'ok' if cond else 'FAIL'}")
+        if not cond:
+            failures.append(what)
+
+    state, step, batch = _gan(torch.bfloat16, "cuda", seed=0, batch_size=TRAIN_BATCH,
+                              ngrams=(3, 3, 3, 3), ngram_fused=True)
+    batch = {k: torch.from_numpy(v).to("cuda") for k, v in batch.items()}
+    ctx = state.generator.encoder_layer1.blocks[0].ngram_window_partition.ngram_context
+    check(ctx.ngram == 3 and ctx.ngram_fused and ctx.ngram_attn.window_size == (3, 3),
+          "n = 3 with ngram_fused=True: a 3x3 n-gram attention (its table 25 rows)")
+    counters = _train_counters()
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+    fused_window_attention.launches_by_n.clear()
+    fused_window_attention.backward_launches_by_n.clear()
+    history, times = [], []
+    steps = 3
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        history.append({k: float(v) for k, v in metrics.items()})
+    launches = {name: getattr(f, attr) for name, (f, attr) in counters.items()}
+    fwd_by_n = dict(fused_window_attention.launches_by_n)
+    bwd_by_n = dict(fused_window_attention.backward_launches_by_n)
+    print(f"[train] ngram n=3: {TRAIN_BATCH}x{TRAIN_PATCH}² bf16, composition recipe (phys=0): "
+          f"K3 at N = 9 {fwd_by_n.get(9, 0) / steps:g} and K4 at N = 9 {bwd_by_n.get(9, 0) / steps:g} "
+          f"launches per step, as the wrappers count them by window length (K3 {fwd_by_n}, "
+          f"K4 {bwd_by_n} in {steps} steps); all launches "
+          f"per step " + ", ".join(f"{k} {v / steps:g}" for k, v in launches.items())
+          + f"; steps {', '.join(f'{t * 1e3:.1f}' for t in times)} ms on {card}")
+    print("[train] ngram n=3: g_rec by step: " + " ".join(f"{h['g_rec']:.5f}" for h in history))
+    want = {9: 40 * steps, 64: 20 * steps}
+    check(fwd_by_n == want and bwd_by_n == want,
+          "per step 40 K3 and 40 K4 launches at N = 9 (two directions in each of 20 blocks) "
+          "beside the 20 of each at N = 64, and none at another length")
+    check(launches["ngram_context"] == launches["ngram_context_bwd"] == 0,
+          "the fused n-gram kernels K1/K7 (built for n = 2) do not run")
+    check(all(np.isfinite(v) for h in history for v in h.values()), "every metric finite")
+    check(history[-1]["g_rec"] < history[0]["g_rec"],
+          f"g_rec falls: {history[0]['g_rec']:.5f} -> {history[-1]['g_rec']:.5f}")
+    del state, step
+    torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"n = 3 training checks failed: {failures}")
+
+
 def main() -> int:
     import torch
 
@@ -1943,11 +2415,14 @@ def main() -> int:
     check_radon(card)
     full_launches = train_full(card)
     launches.update({k: v for k, v in full_launches.items() if k not in launches or not launches[k]})
+    data_launches = data_phases(card)
+    train_ngram3(card)
     for name, rec in records.items():
         # launches: the count of the first path above that ran the kernel
         # (serving, composition training, the trainer's full step)
         rec["launches"] = launches[name]
         rec["launches_full_step_path"] = full_launches.get(name, 0)
+        rec["launches_spineweb_fit"] = data_launches.get(name, 0)
         rec["card"] = card
     print(json.dumps({"kernels": list(records.values())}))
     print(f"{card}")

@@ -280,6 +280,9 @@ def _hold(names, n_acts, got, ref, dtype, param_dtype=torch.float32):
 @pytest.mark.parametrize("nwin,N,D,nh,hd,grid", [
     (24, 64, 64, 6, 10, None), (24, 64, 64, 6, 10, (3, 4)), (24, 64, 64, 4, 16, (2, 3)),
     (37, 4, 32, 6, 5, None), (512, 4, 32, 4, 8, None),
+    # the n-gram composition path at n = 3 (seven windows to a tile, the last
+    # ragged) and n = 1
+    (37, 9, 32, 6, 5, None), (100, 9, 32, 4, 8, None), (70, 1, 32, 6, 5, None),
 ])
 def test_window_attention_kernels_match_plain(cuda, dtype, nwin, N, D, nh, hd, grid):
     """At float32 against autograd of the plain math; at bfloat16 against

@@ -57,23 +57,31 @@ TRAINER_SLICE = (
 # the modules of the serving slice's entry point, as above
 SERVING_SLICE = ("cli.py", "eval/inference.py", "ops/cuda_nstb.py", "ops/cuda_attention.py")
 
+# the modules of the data slice, as above
+DATA_SLICE = (
+    "data/native.py", "data/syndeeplesion.py", "data/spineweb.py", "data/shard_cache.py",
+    "data/spineweb_selfsup.py", "data/nifti.py", "data/__init__.py",
+)
+
 
 def test_trainer_slice_modules_are_in_the_package_and_scanned():
     scanned = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert set(TRAINER_SLICE) <= scanned
     assert set(SERVING_SLICE) <= scanned
+    assert set(DATA_SLICE) <= scanned
     for sub in ("data", "utils", "train", "checkpoint", "eval", "ops"):
         assert (PKG / sub / "__init__.py").is_file(), sub
 
 
 def test_package_data_patterns_cover_every_kernel_source_header_and_config():
     """An installed tmar_torch must hold what ``kernels.build`` compiles and
-    hashes and what ``config_path`` finds."""
+    hashes, what ``config_path`` finds and the host library's source."""
     with open(PKG.parent / "pyproject.toml", "rb") as f:
         patterns = tomllib.load(f)["tool"]["setuptools"]["package-data"]["tmar_torch"]
     needed = [f"csrc/{k}.cu" for k in kernels.KERNELS] + [f"csrc/{h}" for h in kernels.HEADERS]
     needed += [p.relative_to(PKG).as_posix() for p in (PKG / "configs").glob("*.yaml")]
-    assert len(needed) == len(kernels.KERNELS) + len(kernels.HEADERS) + 3
+    needed += ["native/tmar_host.cc"]  # the host library, compiled at first use
+    assert len(needed) == len(kernels.KERNELS) + len(kernels.HEADERS) + 4
     for rel in needed:
         assert (PKG / rel).is_file(), rel
         assert any(fnmatch.fnmatch(rel, pat) for pat in patterns), f"{rel} matches none of {patterns}"

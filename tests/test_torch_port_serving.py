@@ -188,14 +188,19 @@ def test_cli_reads_the_block_form_from_the_environment():
     assert not blk.ngram_window_partition.ngram_context.ngram_fused
 
 
-def test_cli_commands_not_ported_exit_2_and_name_their_item(capsys):
-    for cmd in ("ablate", "compare", "finetune", "export"):
+def test_cli_commands_not_ported_exit_2_and_name_their_item(capsys, tmp_path):
+    for cmd, module in (("ablate", "tmar/eval/ablation.py"), ("compare", "tmar/eval/harness.py"),
+                        ("finetune", "tmar/train/finetune.py"), ("export", "tmar/export.py")):
         assert cli.main([cmd, "--help"]) == 2
-        assert "ROADMAP queue 1 item" in capsys.readouterr().err
+        assert f"waits for the port of {module}" in capsys.readouterr().err
     assert cli.main(["nope"]) == 2
     assert cli.main([]) == 2
-    with pytest.raises(NotImplementedError, match="no such data"):
-        cli._build_test_dataset(cli_cfg({"data.dataset": "syndeeplesion"}))
+    # the real datasets build now (tests/test_torch_port_data.py runs the
+    # command on them): an empty SpineWeb tree is refused by the loader itself
+    with pytest.raises(ValueError, match="no matching artifact/clean"):
+        cli._build_test_dataset(cli_cfg({"data.dataset": "spineweb",
+                                         "data.spineweb_artifact": str(tmp_path),
+                                         "data.spineweb_clean": str(tmp_path)}))
 
 
 def cli_cfg(over):

@@ -15,6 +15,7 @@ import glob
 import json
 import os
 
+import h5py
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -357,17 +358,26 @@ def test_trainer_defaults_to_the_card_and_refuses_what_is_not_ported(monkeypatch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg)
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+    with pytest.raises(NotImplementedError, match="tmar/parallel.py"):
         Trainer(_tiny_cfg(tmp_path, **{"parallel.mode": "fsdp"}), device="cpu")
     with pytest.raises(ValueError, match="unknown parallel.mode"):
         Trainer(_tiny_cfg(tmp_path, **{"parallel.mode": "pp"}), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="tmar/nn/baselines.py"):
         build_generator(_tiny_cfg(tmp_path, **{"model.arch": "redcnn"}), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+    with pytest.raises(NotImplementedError, match="tmar/nn/baselines.py"):
         Trainer(_tiny_cfg(tmp_path, **{"disc.kind": "dcgan"}), device="cpu")
-    for fn in (build_dataset, build_val_dataset):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            fn(_tiny_cfg(tmp_path, **{"data.dataset": "syndeeplesion"}))
+    # every dataset of the JAX trainer builds (tests/test_torch_port_data.py
+    # holds their samples to the JAX package's); an unknown name raises
+    root = tmp_path / "syn" / "train_640geo" / "000" / "00"
+    os.makedirs(root)
+    with h5py.File(root / "gt.h5", "w") as f:
+        f["image"] = np.zeros((32, 32), np.float32)
+    for fn, name in ((build_dataset, "SynDeepLesionTrainDataset"),
+                     (build_val_dataset, "SynDeepLesionValDataset")):
+        assert type(fn(_tiny_cfg(tmp_path, **{"data.dataset": "syndeeplesion",
+                                              "data.root": str(tmp_path / "syn")}))).__name__ == name
+        with pytest.raises(ValueError, match="unknown dataset"):
+            fn(_tiny_cfg(tmp_path, **{"data.dataset": "nope"}))
 
 
 def test_variant_without_physics_builds_no_projector(tmp_path):

@@ -32,10 +32,10 @@ from typing import Any, Dict, List
 
 # commands of the JAX CLI that the port does not have yet, and where they stand
 NOT_PORTED = {
-    "ablate": "ROADMAP queue 1 item 7 (tmar/eval/ablation.py)",
-    "compare": "ROADMAP queue 1 item 7 (tmar/eval/harness.py)",
-    "finetune": "ROADMAP queue 1 item 8 (tmar/train/finetune.py)",
-    "export": "ROADMAP queue 1 item 10 (tmar/export.py)",
+    "ablate": "it waits for the port of tmar/eval/ablation.py",
+    "compare": "it waits for the port of tmar/eval/harness.py",
+    "finetune": "it waits for the port of tmar/train/finetune.py",
+    "export": "it waits for the port of tmar/export.py",
 }
 
 
@@ -200,14 +200,13 @@ def _load_generator_params(path: str, gen, cfg):
 
 
 def _build_test_dataset(cfg):
-    from tmar_torch.data import SyntheticMARDataset
+    from tmar_torch.data import SpineWebDataset, SynDeepLesionTestDataset, SyntheticMARDataset
 
     d = cfg.data
-    if d.dataset in ("syndeeplesion", "spineweb"):
-        raise NotImplementedError(
-            f"dataset {d.dataset!r}: the port's {d.dataset} loader is not ported (no such "
-            "data in the repository); use data.dataset=synthetic"
-        )
+    if d.dataset == "syndeeplesion":
+        return SynDeepLesionTestDataset(d.root)
+    if d.dataset == "spineweb":
+        return SpineWebDataset(d.spineweb_artifact, d.spineweb_clean, train=False)
     # synthetic: full 416² slices by default, or the configured patch size
     # when one is set
     size = d.patch_size if d.patch_size and d.patch_size != 128 else 416

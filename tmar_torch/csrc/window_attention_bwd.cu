@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernels tmar/ops/pallas_attention.py:
 // _attn_bwd_kernel_batched (:568, 64-token windows) and :_attn_bwd_kernel
-// (:704, the block-diagonal kernel of the 4-token n-gram windows), both
-// driven by _fused_backward (pallas_call at :481).  Plain version:
+// (:704, the block-diagonal kernel of the n-gram windows: 4 tokens at n = 2,
+// 9 at n = 3, 1 at n = 1), both driven by _fused_backward (pallas_call at
+// :481).  Plain version:
 // tmar_torch/ops/cuda_attention.py:window_attention_backward_math (at
 // float32, autograd of tmar_torch/ops/attention.py:window_attention_math).
 //
@@ -29,8 +30,8 @@
 //   delta (from the bf16-operand dp, :658), the softmax statistics, the
 //   L2-norm backward and the sums into dbias, dscale, dbqkv and dbproj stay
 //   float32.
-// * float32 at either length, and bfloat16 at N = 4: the float32 body, which
-//   at bfloat16 rounds where _attn_bwd_kernel rounds: the two matrices
+// * float32 at every length, and bfloat16 at N = 1, 4, 9: the float32 body,
+//   which at bfloat16 rounds where _attn_bwd_kernel rounds: the two matrices
 //   (:728, :767, :802-807); everything else is float32 there.
 //
 // What bounds it on an H100: operations, about three times the forward's.
@@ -60,6 +61,7 @@
 // written to its own slot and added by a second pass in slot order.  No
 // float atomics: two runs give the same bits.
 
+#include "window_attention_geometries.cuh"
 #include "window_attention_mma.cuh"
 
 namespace {
@@ -71,6 +73,10 @@ struct Geo {
   static constexpr int A = NH * HD;
   static constexpr int A3 = 3 * A;
   static constexpr int WPB = ROWS / N;  // windows per tile
+  static constexpr int TR = WPB * N;    // a tile's rows that hold whole windows
+  // several windows to a tile: dbias is summed over them in shared memory
+  // first (one window: each thread owns its (h, i, j) and adds in place)
+  static constexpr bool MULTI = WPB > 1;
   static constexpr int LX = D + 1;
   static constexpr int LQ = A3 + 1;
   static constexpr int LA = (D > A ? D : A) + 1;
@@ -94,9 +100,9 @@ struct Geo {
   static constexpr int DBQKV = RED + NH * ROWS;   // the block's running sums
   static constexpr int DBPROJ = DBQKV + A3;
   static constexpr int DSCALE = DBPROJ + D;
-  static constexpr int DBIAS = DSCALE + 8;        // N = 4 only: [NH][4][4]
-  static constexpr int DS = DBIAS + (N == 4 ? NB : 0);  // N = 4 only: [NH][WPB][4][4]
-  static constexpr int FLOATS = DS + (N == 4 ? NH * ROWS * 4 : 0);
+  static constexpr int DBIAS = DSCALE + 8;        // MULTI only: [NH][N][N]
+  static constexpr int DS = DBIAS + (MULTI ? NB : 0);  // MULTI only: [NH][WPB][N][N]
+  static constexpr int FLOATS = DS + (MULTI ? NB * WPB : 0);
   static constexpr size_t BYTES = FLOATS * sizeof(float);
   static_assert(BYTES <= MAX_SMEM, "tile does not fit in shared memory");
   // one block's slot of partial sums, and the layout of the reduced result
@@ -119,7 +125,7 @@ __global__ void __launch_bounds__(THREADS, 1) window_attention_bwd_kernel(
     int nwin, int wh, int ww) {
   using G = Geo<N, D, NH, HD>;
   constexpr int A = G::A, A3 = G::A3, LX = G::LX, LQ = G::LQ, LA = G::LA;
-  constexpr int WPB = G::WPB;
+  constexpr int WPB = G::WPB, TR = G::TR;
   extern __shared__ float smem[];
   float* sX = smem + G::X;
   float* sQKV = smem + G::QKV;
@@ -159,7 +165,7 @@ __global__ void __launch_bounds__(THREADS, 1) window_attention_bwd_kernel(
   for (int e = tid; e < D; e += THREADS) s_dbproj[e] = 0.f;
   if (tid < 8) s_dscale[tid] = 0.f;
   if (tid < NH) s_scale[tid] = scale[tid];
-  if constexpr (N == 4) {
+  if constexpr (G::MULTI) {
     for (int e = tid; e < G::NB; e += THREADS) s_dbias[e] = 0.f;
   } else {
     for (int e = tid; e < G::NB; e += THREADS) my[G::P_DBIAS + e] = 0.f;
@@ -172,22 +178,23 @@ __global__ void __launch_bounds__(THREADS, 1) window_attention_bwd_kernel(
   __syncthreads();
 
   const long total = (long)nwin * N;  // token rows
-  const int tiles = (int)((total + ROWS - 1) / ROWS);
+  const int tiles = (int)((total + TR - 1) / TR);
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long row0 = (long)tile * ROWS;
+    const long row0 = (long)tile * TR;
 
-    // 1. x and g of the tile, zero past the end; the forward's lse
+    // 1. x and g of the tile, zero past the end and past its last whole
+    // window (as in the forward); the forward's lse
     for (int e = tid; e < ROWS * D; e += THREADS) {
       const int r = e / D, d = e % D;
-      const bool ok = row0 + r < total;
+      const bool ok = r < TR && row0 + r < total;
       sX[r * LX + d] = ok ? to_f(x[(row0 + r) * D + d]) : 0.f;
       sA[r * LA + d] = ok ? to_f(g[(row0 + r) * D + d]) : 0.f;
     }
     for (int e = tid; e < NH * ROWS; e += THREADS) {
       const int h = e / ROWS, r = e % ROWS;
       const int win = tile * WPB + r / N;
-      sLse[e] = win < nwin ? lse[((size_t)win * NH + h) * N + r % N] : 0.f;
+      sLse[e] = r < TR && win < nwin ? lse[((size_t)win * NH + h) * N + r % N] : 0.f;
     }
     __syncthreads();
 
@@ -228,7 +235,7 @@ __global__ void __launch_bounds__(THREADS, 1) window_attention_bwd_kernel(
       float delta = 0.f, dsc = 0.f;
 #pragma unroll
       for (int d = 0; d < HD; ++d) o[d] = dq[d] = 0.f;
-      if (win < nwin) {
+      if (r < TR && win < nwin) {
         const bool gr = wh > 0 && (win / ww) % wh == wh - 1;
         const bool gc = wh > 0 && win % ww == ww - 1;
         float q[HD], da[HD];
@@ -295,7 +302,7 @@ __global__ void __launch_bounds__(THREADS, 1) window_attention_bwd_kernel(
       float dk[HD], dv[HD];
 #pragma unroll
       for (int d = 0; d < HD; ++d) dk[d] = dv[d] = 0.f;
-      if (win < nwin) {
+      if (r < TR && win < nwin) {
         const bool gr = wh > 0 && (win / ww) % wh == wh - 1;
         const bool gc = wh > 0 && win % ww == ww - 1;
         float k[HD], v[HD];
@@ -327,14 +334,15 @@ __global__ void __launch_bounds__(THREADS, 1) window_attention_bwd_kernel(
             dv[d] = fmaf(p, di[d], dv[d]);
             dk[d] = fmaf(dc, qi[d], dk[d]);
           }
-          if constexpr (N == 4) {
-            sDS[((h * WPB + w) * 4 + i) * 4 + j] = ds;
+          if constexpr (G::MULTI) {
+            sDS[((h * WPB + w) * N + i) * N + j] = ds;
           } else {
             my[G::P_DBIAS + ij] += ds;  // this thread alone owns (block, h, i, j)
           }
         }
-      } else if constexpr (N == 4) {
-        for (int i = 0; i < 4; ++i) sDS[((h * WPB + w) * 4 + i) * 4 + j] = 0.f;
+      } else if constexpr (G::MULTI) {
+        if (r < TR)
+          for (int i = 0; i < N; ++i) sDS[((h * WPB + w) * N + i) * N + j] = 0.f;
       }
 #pragma unroll
       for (int d = 0; d < HD; ++d) {
@@ -350,11 +358,11 @@ __global__ void __launch_bounds__(THREADS, 1) window_attention_bwd_kernel(
       for (int r = 0; r < ROWS; ++r) s += sRed[tid * ROWS + r];
       s_dscale[tid] += s;
     }
-    if constexpr (N == 4) {
+    if constexpr (G::MULTI) {
       for (int e = tid; e < G::NB; e += THREADS) {
-        const int h = e / 16, ij = e % 16;
+        const int h = e / (N * N), ij = e % (N * N);
         float s = 0.f;
-        for (int w = 0; w < WPB; ++w) s += sDS[(h * WPB + w) * 16 + ij];
+        for (int w = 0; w < WPB; ++w) s += sDS[(h * WPB + w) * (N * N) + ij];
         s_dbias[e] += s;
       }
     }
@@ -371,7 +379,7 @@ __global__ void __launch_bounds__(THREADS, 1) window_attention_bwd_kernel(
     }
     for (int e = tid; e < ROWS * D; e += THREADS) {
       const int r = e / D, d = e % D;
-      sB[r * LA + d] = row0 + r < total ? to_f(g[(row0 + r) * D + d]) : 0.f;
+      sB[r * LA + d] = r < TR && row0 + r < total ? to_f(g[(row0 + r) * D + d]) : 0.f;
     }
     __syncthreads();
 
@@ -393,7 +401,7 @@ __global__ void __launch_bounds__(THREADS, 1) window_attention_bwd_kernel(
       mm_zero<ROWS, D>(acc);
       mm_acc<ROWS, A3, D>(acc, sDQKV, LQ, 1, s_wqkv, 1, G::LWQ);
       mm_each<ROWS, D>(acc, [&](int m, int n, float v) {
-        if (row0 + m < total) store(dx + (row0 + m) * D + n, v);
+        if (m < TR && row0 + m < total) store(dx + (row0 + m) * D + n, v);
       });
     }
     __syncthreads();
@@ -405,7 +413,7 @@ __global__ void __launch_bounds__(THREADS, 1) window_attention_bwd_kernel(
   for (int e = tid; e < A3; e += THREADS) my[G::P_DBQKV + e] = s_dbqkv[e];
   for (int e = tid; e < D; e += THREADS) my[G::P_DBPROJ + e] = s_dbproj[e];
   if (tid < NH) my[G::P_DSCALE + tid] = s_dscale[tid];
-  if constexpr (N == 4) {
+  if constexpr (G::MULTI) {
     for (int e = tid; e < G::NB; e += THREADS) my[G::P_DBIAS + e] = s_dbias[e];
   }
 }
@@ -976,21 +984,22 @@ template <typename T>
 int dispatch(int N, int nh, int hd, const void* const* p, int wq_k, int wq_n, int wp_k,
              int wp_n, void* dx, void* part, void* dparams, int nwin, int wh, int ww,
              int blocks, cudaStream_t s) {
+#define TMAR_MMA_CASE(NN, DD, NH, HD)                                                 \
+  if (N == NN && nh == NH && hd == HD)                                                \
+    return launch_mma<NH, HD>(p, wq_k, wq_n, wp_k, wp_n, dx, part, dparams, nwin, wh, ww, \
+                              blocks, s);
+#define TMAR_CASE(NN, DD, NH, HD)                                                     \
+  if (N == NN && nh == NH && hd == HD)                                                \
+    return launch<NN, DD, NH, HD, T>(p, wq_k, wq_n, wp_k, wp_n, dx, part, dparams, nwin, wh, \
+                                     ww, blocks, s);
   if constexpr (sizeof(T) == 2) {
-    if (N == 64 && nh == 6 && hd == 10)
-      return launch_mma<6, 10>(p, wq_k, wq_n, wp_k, wp_n, dx, part, dparams, nwin, wh, ww, blocks, s);
-    if (N == 64 && nh == 4 && hd == 16)
-      return launch_mma<4, 16>(p, wq_k, wq_n, wp_k, wp_n, dx, part, dparams, nwin, wh, ww, blocks, s);
+    TMAR_ATTN_WINDOW_GEOMETRIES(TMAR_MMA_CASE)
   } else {
-    if (N == 64 && nh == 6 && hd == 10)
-      return launch<64, 64, 6, 10, T>(p, wq_k, wq_n, wp_k, wp_n, dx, part, dparams, nwin, wh, ww, blocks, s);
-    if (N == 64 && nh == 4 && hd == 16)
-      return launch<64, 64, 4, 16, T>(p, wq_k, wq_n, wp_k, wp_n, dx, part, dparams, nwin, wh, ww, blocks, s);
+    TMAR_ATTN_WINDOW_GEOMETRIES(TMAR_CASE)
   }
-  if (N == 4 && nh == 6 && hd == 5)
-    return launch<4, 32, 6, 5, T>(p, wq_k, wq_n, wp_k, wp_n, dx, part, dparams, nwin, wh, ww, blocks, s);
-  if (N == 4 && nh == 4 && hd == 8)
-    return launch<4, 32, 4, 8, T>(p, wq_k, wq_n, wp_k, wp_n, dx, part, dparams, nwin, wh, ww, blocks, s);
+  TMAR_ATTN_NGRAM_GEOMETRIES(TMAR_CASE)
+#undef TMAR_MMA_CASE
+#undef TMAR_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1004,14 +1013,19 @@ extern "C" {
 long long tmar_window_attention_bwd_workspace(int nwin, int N, int num_heads, int head_dim,
                                               int blocks, int is_bf16) {
   if (nwin < 1 || blocks < 1) return -1;
-  if (is_bf16 && N == 64 && num_heads == 6 && head_dim == 10)
-    return (long long)BwdPlan<6, 10>(nwin, blocks).total;
-  if (is_bf16 && N == 64 && num_heads == 4 && head_dim == 16)
-    return (long long)BwdPlan<4, 16>(nwin, blocks).total;
-  if (N == 64 && num_heads == 6 && head_dim == 10) return (long long)blocks * Geo<64, 64, 6, 10>::PSIZE;
-  if (N == 64 && num_heads == 4 && head_dim == 16) return (long long)blocks * Geo<64, 64, 4, 16>::PSIZE;
-  if (N == 4 && num_heads == 6 && head_dim == 5) return (long long)blocks * Geo<4, 32, 6, 5>::PSIZE;
-  if (N == 4 && num_heads == 4 && head_dim == 8) return (long long)blocks * Geo<4, 32, 4, 8>::PSIZE;
+#define TMAR_MMA_WS(NN, DD, NH, HD)                                                   \
+  if (N == NN && num_heads == NH && head_dim == HD)                                   \
+    return (long long)BwdPlan<NH, HD>(nwin, blocks).total;
+#define TMAR_WS(NN, DD, NH, HD)                                                       \
+  if (N == NN && num_heads == NH && head_dim == HD)                                   \
+    return (long long)blocks * Geo<NN, DD, NH, HD>::PSIZE;
+  if (is_bf16) {
+    TMAR_ATTN_WINDOW_GEOMETRIES(TMAR_MMA_WS)
+  }
+  TMAR_ATTN_WINDOW_GEOMETRIES(TMAR_WS)
+  TMAR_ATTN_NGRAM_GEOMETRIES(TMAR_WS)
+#undef TMAR_MMA_WS
+#undef TMAR_WS
   return -1;
 }
 

@@ -2,8 +2,9 @@
 //
 // Replaces the TPU kernels tmar/ops/pallas_attention.py:_attn_kernel_batched
 // (:1143, the 64-token windows) and :_attn_kernel (:1175, the block-diagonal
-// kernel of the 4-token n-gram windows), both driven by _fused_forward
-// (pallas_call at :357).  They compute one function at two window lengths.
+// kernel of the n-gram windows: n² = 4 tokens at n = 2, 9 at n = 3, 1 at
+// n = 1), both driven by _fused_forward (pallas_call at :357).  They compute
+// one function at every window length.
 // Plain version: tmar_torch/ops/cuda_attention.py:window_attention_kernel_math
 // (at float32, tmar_torch/ops/attention.py:window_attention_math).
 //
@@ -23,8 +24,8 @@
 //   rounds where _attn_kernel_batched rounds: bf16 weights and x, q_n, k_n,
 //   v, P normalised in float32 then rounded (:1133-1135), the merged head
 //   outputs before the projection (:1170).
-// * float32 at either length, and bfloat16 at N = 4: the float32 body, which
-//   at bfloat16 rounds where _attn_kernel rounds at N = 4, its weights and
+// * float32 at every length, and bfloat16 at N = 1, 4, 9: the float32 body,
+//   which at bfloat16 rounds where _attn_kernel rounds there, its weights and
 //   the head outputs before the projection (:1236); its scores and P·V stay
 //   float32 there (v is a float32 slice, so p.astype(v.dtype) is exact).
 //
@@ -32,7 +33,9 @@
 // to 512 bytes moved (x, the output, lse): operations on the CUDA cores in
 // float32, bytes on the tensor cores in bfloat16.
 // Float32 body: a persistent block per SM walks over tiles of 64 token rows
-// (one 64-token window, or sixteen 4-token windows); both weight matrices sit
+// (one 64-token window, sixteen of 4 tokens, sixty-four of 1; seven 9-token
+// windows fill 63 rows and the last row of such a tile is zero and idle, so
+// that no window straddles two tiles); both weight matrices sit
 // in shared memory in float32 for the whole launch, read through strides so
 // that a transposed view needs no copy.  The score matrix is never stored: a
 // thread owns one (head, query) row and passes twice over the keys of its
@@ -48,6 +51,7 @@
 // barrier per head suffices.  Keeping x out of shared memory is what makes
 // room for four windows in flight per SM at 6 heads (two with x staged).
 
+#include "window_attention_geometries.cuh"
 #include "window_attention_mma.cuh"
 
 namespace {
@@ -59,6 +63,7 @@ struct Geo {
   static constexpr int A = NH * HD;
   static constexpr int A3 = 3 * A;
   static constexpr int WPB = ROWS / N;  // windows per tile
+  static constexpr int TR = WPB * N;    // a tile's rows that hold whole windows
   static constexpr int LX = D + 1;
   static constexpr int LQ = A3 + 1;
   static constexpr int LO = A + 1;
@@ -113,15 +118,16 @@ __global__ void __launch_bounds__(THREADS, 1) window_attention_fwd_kernel(
   __syncthreads();
 
   const long total = (long)nwin * N;  // token rows
-  const int tiles = (int)((total + ROWS - 1) / ROWS);
+  const int tiles = (int)((total + G::TR - 1) / G::TR);
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long row0 = (long)tile * ROWS;
+    const long row0 = (long)tile * G::TR;
 
-    // 1. the tile's rows, zero past the end
+    // 1. the tile's rows, zero past the end and past its last whole window
+    // (TR < ROWS where N does not divide ROWS)
     for (int e = tid; e < ROWS * D; e += THREADS) {
       const int r = e / D, d = e % D;
-      sX[r * LX + d] = row0 + r < total ? to_f(x[(row0 + r) * D + d]) : 0.f;
+      sX[r * LX + d] = r < G::TR && row0 + r < total ? to_f(x[(row0 + r) * D + d]) : 0.f;
     }
     __syncthreads();
 
@@ -154,7 +160,7 @@ __global__ void __launch_bounds__(THREADS, 1) window_attention_fwd_kernel(
       float o[HD];
 #pragma unroll
       for (int d = 0; d < HD; ++d) o[d] = 0.f;
-      if (win < nwin) {
+      if (r < G::TR && win < nwin) {
         const bool gr = wh > 0 && (win / ww) % wh == wh - 1;
         const bool gc = wh > 0 && win % ww == ww - 1;
         float q[HD];
@@ -207,7 +213,7 @@ __global__ void __launch_bounds__(THREADS, 1) window_attention_fwd_kernel(
       mm_zero<ROWS, D>(acc);
       mm_acc<ROWS, A, D>(acc, sO, LO, 1, s_wproj, G::LWP, 1);
       mm_each<ROWS, D>(acc, [&](int m, int n, float v) {
-        if (row0 + m < total) store(out + (row0 + m) * D + n, v + s_bproj[n]);
+        if (m < G::TR && row0 + m < total) store(out + (row0 + m) * D + n, v + s_bproj[n]);
       });
     }
     __syncthreads();
@@ -416,21 +422,20 @@ template <typename T>
 int dispatch(int N, int nh, int hd, const void* const* p, int wq_k, int wq_n, int wp_k,
              int wp_n, void* out, void* lse, int nwin, int wh, int ww, int blocks,
              cudaStream_t s) {
+#define TMAR_MMA_CASE(NN, DD, NH, HD)                                                 \
+  if (N == NN && nh == NH && hd == HD)                                                \
+    return launch_mma<NH, HD>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s);
+#define TMAR_CASE(NN, DD, NH, HD)                                                     \
+  if (N == NN && nh == NH && hd == HD)                                                \
+    return launch<NN, DD, NH, HD, T>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s);
   if constexpr (sizeof(T) == 2) {
-    if (N == 64 && nh == 6 && hd == 10)
-      return launch_mma<6, 10>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s);
-    if (N == 64 && nh == 4 && hd == 16)
-      return launch_mma<4, 16>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s);
+    TMAR_ATTN_WINDOW_GEOMETRIES(TMAR_MMA_CASE)
   } else {
-    if (N == 64 && nh == 6 && hd == 10)
-      return launch<64, 64, 6, 10, T>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s);
-    if (N == 64 && nh == 4 && hd == 16)
-      return launch<64, 64, 4, 16, T>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s);
+    TMAR_ATTN_WINDOW_GEOMETRIES(TMAR_CASE)
   }
-  if (N == 4 && nh == 6 && hd == 5)
-    return launch<4, 32, 6, 5, T>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s);
-  if (N == 4 && nh == 4 && hd == 8)
-    return launch<4, 32, 4, 8, T>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s);
+  TMAR_ATTN_NGRAM_GEOMETRIES(TMAR_CASE)
+#undef TMAR_MMA_CASE
+#undef TMAR_CASE
   return (int)cudaErrorInvalidValue;
 }
 
@@ -439,8 +444,8 @@ int dispatch(int N, int nh, int hd, const void* const* p, int wq_k, int wq_n, in
 extern "C" {
 
 // x [nwin, N, D] (float32 or bfloat16, per is_bf16) -> out of the same shape
-// and type, and lse [nwin, nh, N] float32.  (N, D, nh, hd) is one of
-// (64, 64, 6, 10), (64, 64, 4, 16), (4, 32, 6, 5), (4, 32, 4, 8).  All
+// and type, and lse [nwin, nh, N] float32.  (N, D, nh, hd) is one of the
+// geometries of window_attention_geometries.cuh.  All
 // parameters are float32 (the bfloat16 bodies round the two matrices):
 // wqkv [D, 3A] and wproj [A, D] are read as w[k·w_k + n·w_n]; bqkv [3A];
 // scale [nh] = exp(min(logit_scale, ln 100)); bias [nh, N, N]; bproj [D];

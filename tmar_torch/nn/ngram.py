@@ -1,15 +1,18 @@
 """N-Gram context modules (the counterpart of ``tmar.nn.ngram``).
 
 * ``NGramContext``: per-window unigram embedding (the grouped conv, kernel =
-  stride = window), then both directional 2x2 sliding attentions over the
-  sequence-reflect padded unigram grid, their token means and the 1x1 merge.
-  With ``ngram_fused=True`` (the default, as the JAX package on hardware)
-  all of it is ``fused_ngram_context``: one forward kernel and, under
-  autograd, one backward kernel.  With ``ngram_fused=False`` (the JAX
-  package's ``TMAR_NGRAM_FUSED=0``), and on a window grid smaller than 2x2,
-  it is the composition: both directions through ``ngram_attn`` (the
-  attention kernels at N = 4), the token mean and the ``merge`` conv under
-  autograd.  The parameters and their names are the same in every form.
+  stride = window), then both directional n x n sliding attentions over the
+  sequence-reflect padded unigram grid (n = 1 reads the grid unpadded),
+  their token means and the 1x1 merge.  With n = 2 and ``ngram_fused=True``
+  (the default, as the JAX package on hardware) all of it is
+  ``fused_ngram_context``: one forward kernel and, under autograd, one
+  backward kernel.  With ``ngram_fused=False`` (the JAX package's
+  ``TMAR_NGRAM_FUSED=0``), with any n other than 2 (the fused kernels are
+  built for n = 2, as the JAX package's are), and on a window grid smaller
+  than 2x2, it is the composition: both directions through ``ngram_attn``
+  (the attention kernels at N = n²), the token mean and the ``merge`` conv
+  under autograd.  The parameters and their names are the same in every
+  form.
 * ``NGramWindowPartition``: ``forward`` is the map form of the JAX module's
   ``return_context="map"`` (the map itself and its per-window context, for the
   fused NSTB to add per quadrant); ``windows`` is its ``return_context=True``
@@ -80,8 +83,6 @@ class NGramContext(nn.Module):
         self.attn_backward = check_attn_backward(attn_backward)
         self.ngram_fused = bool(ngram_fused)
         self.ngram = ngram
-        if ngram != 2:
-            raise NotImplementedError("the port implements the ngram = 2 context only")
         half = dim // 2
         self.num_heads = ngram_num_heads
         # grouped conv dim -> dim/2, 2 input channels per group: the same
@@ -93,7 +94,7 @@ class NGramContext(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, ph, pw, D] -> context [B, wh, ww, D] in x's dtype."""
         u = self._unigram(x)
-        if not self.ngram_fused or min(u.shape[1:3]) < 2:
+        if self.ngram != 2 or not self.ngram_fused or min(u.shape[1:3]) < 2:
             return self._composition(u)
         return fused_ngram_context(u, *self.kernel_args())
 

@@ -45,6 +45,7 @@ of 32 tokens or more and ``blockdiag`` below, as the JAX op does.)
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional, Tuple
 
 import numpy as np
@@ -61,8 +62,11 @@ from tmar_torch.ops.attention import (
 )
 
 # (N, D, num_heads, head_dim) the kernels are compiled for: the full-width
-# NGswin's 8x8 windows at D = 64 and its 2x2 n-gram windows at D/2 = 32
-KERNEL_GEOMETRIES = {(64, 64, 6, 10), (64, 64, 4, 16), (4, 32, 6, 5), (4, 32, 4, 8)}
+# NGswin's 8x8 windows at D = 64 and its n x n n-gram windows at D/2 = 32
+# (n = 2, the default, and n = 1 and 3 of ``model.ngrams``); the same set as
+# csrc/window_attention_geometries.cuh, which both kernels' dispatches expand
+KERNEL_GEOMETRIES = {(64, 64, 6, 10), (64, 64, 4, 16)} | {
+    (n * n, 32, nh, hd) for n in (1, 2, 3) for nh, hd in ((6, 5), (4, 8))}
 
 # impl name -> the TPU kernel it selects in tmar/ops/pallas_attention.py; on
 # the card every one is K3, csrc/window_attention_fwd.cu
@@ -259,6 +263,8 @@ def fused_window_attention(
 fused_window_attention.launches = 0           # forward kernel
 fused_window_attention.backward_launches = 0  # backward kernel
 fused_window_attention.launches_by_impl = dict.fromkeys(IMPLS, 0)  # forward, by impl name
+fused_window_attention.launches_by_n = Counter()           # forward, by window length N
+fused_window_attention.backward_launches_by_n = Counter()  # backward, by window length N
 
 
 def _geometry(x, wqkv, num_heads):
@@ -350,7 +356,8 @@ def _kernel_operands(x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, 
     if tuple(bias32.shape) != (num_heads, N, N):
         raise ValueError(f"bias shape {tuple(bias32.shape)} != {(num_heads, N, N)}")
     m_row, m_col, wh, ww = _device_mask(mask_components, N, B_, dev)
-    blocks = min((B_ * N + 63) // 64, kernels.sm_count(dev))
+    per_tile = 64 // N  # the float32 bodies' windows per 64-row tile
+    blocks = min((B_ + per_tile - 1) // per_tile, kernels.sm_count(dev))
     ints = (
         B_, N, num_heads, A // num_heads, *w_qkv.stride(), *w_proj.stride(),
         wh, ww, blocks, int(x.dtype == torch.bfloat16),
@@ -372,6 +379,7 @@ def _launch(operands, ints):
         *[_ptr(t) for t in operands], out.data_ptr(), lse.data_ptr(), *ints,
     )
     fused_window_attention.launches += 1
+    fused_window_attention.launches_by_n[N] += 1
     return out, lse
 
 
@@ -398,6 +406,7 @@ def _launch_backward(operands, lse, g, ints):
         workspace.data_ptr(), dparams.data_ptr(), *ints,
     )
     fused_window_attention.backward_launches += 1
+    fused_window_attention.backward_launches_by_n[N] += 1
     return dx, dparams
 
 

@@ -111,8 +111,7 @@ class ParallelConfig:
 
 @dataclasses.dataclass
 class DataConfig:
-    # "syndeeplesion" | "spineweb" | "synthetic" | "synthetic_cache"; the
-    # port's Trainer builds "synthetic" only
+    # "syndeeplesion" | "spineweb" | "synthetic" | "synthetic_cache"
     dataset: str = "synthetic"
     cache_dir: str = ""          # synthetic_cache location (default: tmp)
     cache_slices: int = 512      # synthetic_cache: distinct 416² slices

@@ -8,14 +8,16 @@ checkpoint, and TTUR dual-Adam optimisation, all driven by a ``TrainConfig``
 The port trains on one device.  ``Trainer(cfg)`` runs on the card and raises
 without one; ``Trainer(cfg, device="cpu")`` runs the plain versions.  Of the
 JAX trainer's surface it builds the NGswin generator, the multi-scale
-PatchGAN and the synthetic dataset; the other architectures, critics, data
-loaders and the mesh layouts raise and name what is missing.
+PatchGAN and every dataset (synthetic, synthetic_cache, syndeeplesion,
+spineweb, each with its validation split); the other architectures, critics
+and the mesh layouts raise and name the JAX module they wait for.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import tempfile
 import time
 from typing import Dict, Optional
 
@@ -23,7 +25,15 @@ import numpy as np
 import torch
 
 from tmar_torch.checkpoint.io import CheckpointManager
-from tmar_torch.data import Loader, SyntheticMARDataset
+from tmar_torch.data import (
+    Loader,
+    ShardCachedDataset,
+    SpineWebDataset,
+    SynDeepLesionTrainDataset,
+    SynDeepLesionValDataset,
+    SyntheticMARDataset,
+    build_shard_cache,
+)
 from tmar_torch.device import resolve_device
 from tmar_torch.nn import MultiScaleDiscriminator, NGswin
 from tmar_torch.ops.radon import Radon
@@ -48,7 +58,7 @@ def build_generator(
     if arch != "ngswin":
         raise NotImplementedError(
             f"generator arch {arch!r}: the port has the NGswin only; the baseline "
-            "architectures are ROADMAP queue 1 item 8"
+            "architectures of tmar/nn/baselines.py are not ported yet"
         )
     form = m.attn_backward if m.use_pallas_attention else "auto"
     return NGswin(
@@ -77,7 +87,7 @@ def build_discriminator(cfg: TrainConfig, device="cuda"):
     if d.kind != "multiscale":
         raise NotImplementedError(
             f"discriminator kind {d.kind!r}: the port has the multi-scale PatchGAN only; "
-            "the DCGAN critic is ROADMAP queue 1 item 8"
+            "the DCGAN critic of tmar/nn/baselines.py is not ported yet"
         )
     return MultiScaleDiscriminator(
         in_chans=2 * cfg.model.in_chans,
@@ -108,29 +118,56 @@ def build_optimizers(cfg: TrainConfig, generator, discriminator):
     return g_opt, d_opt
 
 
-def _only_synthetic(d):
-    if d.dataset != "synthetic":
-        raise NotImplementedError(
-            f"dataset {d.dataset!r}: the port's loaders of SynDeepLesion, SpineWeb and the "
-            "shard cache are not ported (no such files in the repository); use "
-            "data.dataset=synthetic"
-        )
-
-
 def build_dataset(cfg: TrainConfig):
+    """The training set of ``cfg.data.dataset``, branch for branch the JAX
+    trainer's."""
     d = cfg.data
-    _only_synthetic(d)
-    return SyntheticMARDataset(size=d.patch_size, length=d.samples_per_epoch, base_seed=d.seed)
+    if d.dataset == "synthetic":
+        return SyntheticMARDataset(size=d.patch_size, length=d.samples_per_epoch, base_seed=d.seed)
+    if d.dataset == "synthetic_cache":
+        # full 416² synthetic slices written once into a shard cache, then
+        # mmap reads with a random crop and flip at read time.  The default
+        # directory is named apart from the JAX package's, so that two
+        # processes never write one directory at once (the bytes are the same)
+        cache_dir = d.cache_dir or os.path.join(
+            tempfile.gettempdir(), f"tmar_torch_synth_cache_{d.cache_slices}_{d.seed}"
+        )
+        if not os.path.isfile(os.path.join(cache_dir, "index.json")):
+            build_shard_cache(
+                SyntheticMARDataset(size=416, length=d.cache_slices, base_seed=d.seed),
+                cache_dir, shard_size=64,
+            )
+        return ShardCachedDataset(
+            cache_dir, patch_size=d.patch_size, augment=True, seed=d.seed,
+            length=d.samples_per_epoch,
+        )
+    if d.dataset == "syndeeplesion":
+        return SynDeepLesionTrainDataset(
+            d.root, patch_size=d.patch_size, length=d.samples_per_epoch, seed=d.seed
+        )
+    if d.dataset == "spineweb":
+        return SpineWebDataset(
+            d.spineweb_artifact, d.spineweb_clean, patch_size=d.patch_size, train=True,
+            seed=d.seed, length=d.samples_per_epoch,
+        )
+    raise ValueError(f"unknown dataset {d.dataset!r}")
 
 
 def build_val_dataset(cfg: TrainConfig):
-    """A held-out seeded synthetic set: the offset of the base seed keeps it
-    apart from the training samples."""
+    """The validation split of ``cfg.data.dataset``: for the synthetic sets a
+    held-out seeded synthetic set (the offset of the base seed keeps it apart
+    from the training samples), for SynDeepLesion the last 10 % of the train
+    tree at full slices, for SpineWeb the full test slices."""
     d = cfg.data
-    _only_synthetic(d)
-    return SyntheticMARDataset(
-        size=d.patch_size, length=min(32, d.samples_per_epoch), base_seed=d.seed + 10_000
-    )
+    if d.dataset in ("synthetic", "synthetic_cache"):
+        return SyntheticMARDataset(
+            size=d.patch_size, length=min(32, d.samples_per_epoch), base_seed=d.seed + 10_000
+        )
+    if d.dataset == "syndeeplesion":
+        return SynDeepLesionValDataset(d.root)
+    if d.dataset == "spineweb":
+        return SpineWebDataset(d.spineweb_artifact, d.spineweb_clean, train=False)
+    raise ValueError(f"unknown dataset {d.dataset!r}")
 
 
 class Trainer:
@@ -143,7 +180,7 @@ class Trainer:
         if mode != "dp":
             raise NotImplementedError(
                 f"parallel.mode={mode}: the port trains on one device (dp); the mesh "
-                "layouts are ROADMAP queue 1 item 9"
+                "layouts of tmar/parallel.py and tmar/core/mesh.py are not ported yet"
             )
         self.generator = build_generator(cfg, self.device, ngram_fused=ngram_fused)
         if self.device.type == "cuda" and self.generator.attn_backward != "pallas":
