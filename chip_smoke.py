@@ -110,7 +110,18 @@ Phases, each of which fails the run if it fails:
 16. the composition recipe with ``ngrams=(3, 3, 3, 3)`` (``ngram_fused``
    left on: n = 3 takes the composition path) at full width, 8x128² bf16,
    3 steps: 40 launches each of K3 and K4 at N = 9 per step, none of
-   K1/K7, ``g_rec`` falling.
+   K1/K7, ``g_rec`` falling;
+17. the ``v1`` variant (the DCGAN critic, vanilla BCE) through the Trainer
+   at full width, 8x128² bf16: 4 steps, a checkpoint and a resume, then 10
+   steps with 20 launches per step of each of K1, K7 and K3-K6, their time
+   and profile, and one float32 step at 1x128² on the card against the CPU;
+18. ``python -m tmar_torch.cli finetune`` for RedCNN, DenoisingTransformer,
+   BAFResNet and DuDo at the command's defaults, one epoch each on a
+   SpineWeb tree written here: the pickle and history written, no
+   hand-written kernel launched, one float32 step of each on the card
+   against the CPU;
+19. ``train_dcgan`` at its defaults, 16 steps of batch 64: losses finite,
+   ms per step.
 
 It prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card, exits non-zero
@@ -2353,6 +2364,266 @@ def train_ngram3(card):
         raise SystemExit(f"n = 3 training checks failed: {failures}")
 
 
+# ---- phases 17-19: the v1 variant, fine-tuning, the DCGAN loop --------------
+FINETUNE_ARCHS = ("redcnn", "transformer", "bafresnet", "dudo")
+FINETUNE_PATCH, FINETUNE_BATCH = 64, 4  # the finetune command's defaults
+DCGAN_BATCH, DCGAN_STEPS = 64, 16
+
+
+def _all_counters():
+    """Every hand-written kernel's launch counter: the training kernels' and
+    the token-level whole-block kernel's."""
+    from tmar_torch.ops import cuda_nstb
+
+    return {**_train_counters(), "nstb_tokens": (cuda_nstb.fused_nstb, "launches")}
+
+
+def _zero(counters):
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+
+
+def _read(counters):
+    return {name: getattr(f, attr) for name, (f, attr) in counters.items()}
+
+
+def train_v1(card):
+    """Phase 17: the ``v1`` variant (the DCGAN critic with ``ndf =
+    disc.base_channels``, vanilla BCE, adv 0.1, no sinogram term) through
+    the Trainer at full width, 8x128² bf16: one epoch of 4 steps with a
+    checkpoint and a resume, then 2 warm-up and 8 timed steps on one fixed
+    batch with the launch counts reset just before and read just after (20
+    launches per step of each of K1, K7 and K3-K6), one step's profile; then
+    one float32 step at 1x128² on the card against the CPU.  Returns the
+    launch counts of the timed steps."""
+    import tempfile
+
+    import torch
+
+    from tmar_torch.nn.baselines import DCGANCritic
+    from tmar_torch.train import Trainer
+
+    failures = []
+
+    def check(cond, what):
+        print(f"[check] {what}: {'ok' if cond else 'FAIL'}")
+        if not cond:
+            failures.append(what)
+
+    with tempfile.TemporaryDirectory(prefix="tmar_smoke_v1_") as tmp:
+        cfg = _trainer_config(tmp, variant="v1", num_epochs=1, run_name="v1")
+        trainer = Trainer(cfg)
+        d = trainer.discriminator
+        n_g = sum(p.numel() for p in trainer.generator.parameters())
+        n_d = sum(p.numel() for p in d.parameters())
+        check(cfg.variant == "v1" and cfg.loss.gan_mode == "vanilla" and cfg.loss.adv == 0.1
+              and not cfg.radon.enabled and isinstance(d, DCGANCritic) and d.ndf == cfg.disc.base_channels
+              and n_g == 990_811,
+              f"the v1 variant: full-width NGswin ({n_g} parameters), DCGAN critic ndf "
+              f"{cfg.disc.base_channels} ({n_d} parameters), vanilla BCE, adv 0.1, no sinogram term")
+        t0 = time.perf_counter()
+        trainer.fit(progress=False)
+        wall = time.perf_counter() - t0
+        print(f"[trainer] v1: fit 4 steps of {TRAIN_BATCH}x{TRAIN_PATCH}² bf16 on the synthetic dataset "
+              f"in {wall:.2f} s (first steps included), checkpoint written, on {card}")
+        for h in trainer.history:
+            print("[trainer] v1 step {step}: ".format(**h) + " ".join(
+                f"{k} {v:.5f}" for k, v in h.items() if k not in ("step", "epoch", "iter")))
+        check(trainer.state.step == 4 and all(np.isfinite(v) for h in trainer.history for v in h.values())
+              and all("g_adv" in h for h in trainer.history), "v1: 4 steps, every logged metric finite")
+        fresh = Trainer(cfg)
+        same = fresh.resume() and fresh.state.step == 4 and all(
+            torch.equal(a, b) for a, b in zip(
+                list(trainer.generator.state_dict().values()) + list(d.state_dict().values()),
+                list(fresh.generator.state_dict().values()) + list(fresh.discriminator.state_dict().values())))
+        check(same, "v1: a fresh trainer resumes the checkpoint bit for bit, critic included")
+        del fresh
+
+        batch = _synthetic_batch(TRAIN_BATCH, "cuda")
+        counters = _train_counters()
+        warmup, timed = 2, 8
+        _zero(counters)
+        history, times = [], []
+        for _ in range(warmup + timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.state, metrics = trainer.train_step(trainer.state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            history.append({k: float(v) for k, v in metrics.items()})
+        launches = _read(counters)
+        n = warmup + timed
+        per_step = {k: v / n for k, v in launches.items()}
+        print("[trainer] v1: launches per step " + ", ".join(f"{k} {v:g}" for k, v in per_step.items())
+              + f" (totals over {n} steps: {launches})")
+        check([per_step[k] for k in counters] == [20, 20, 20, 20, 20, 20, 0],
+              "v1: per step 20 launches each of K3, K4, K5, K6, K1 and K7, none of the whole-block kernel")
+        check(all(np.isfinite(v) for h in history for v in h.values()), f"v1: every metric finite at each of "
+              f"the {n} steps")
+        med = statistics.median(times[warmup:])
+        print(f"[time] train step (v1) {TRAIN_BATCH}x{TRAIN_PATCH}² bf16 (DCGAN critic, vanilla BCE, batch "
+              f"on the card): median {med * 1e3:.2f} ms of {timed} steps (min {min(times[warmup:]) * 1e3:.2f}, "
+              f"max {max(times[warmup:]) * 1e3:.2f}), {1 / med:.3f} steps/s on {card}")
+        profile_request(lambda: trainer.train_step(trainer.state, batch), card,
+                        label=f"train step (v1) {TRAIN_BATCH}x{TRAIN_PATCH}² bf16")
+        del trainer
+        torch.cuda.empty_cache()
+
+        cfg32 = _trainer_config(tmp, variant="v1", bf16=False, run_name="v1_f32",
+                                **{"data.batch_size": 1})
+        on_cpu, on_card = Trainer(cfg32, device="cpu"), Trainer(cfg32)
+        batch = _synthetic_batch(1, "cpu")
+        _, cpu_m = on_cpu.train_step(on_cpu.state, batch)
+        _, gpu_m = on_card.train_step(on_card.state, batch)
+        compare_step(on_cpu.state, on_card.state, cpu_m, gpu_m, "f32 v1 step", check)
+    if failures:
+        raise SystemExit(f"v1 training checks failed: {failures}")
+    return launches
+
+
+def _finetune_model(arch, device, projector):
+    from tmar_torch.nn.baselines import BAFResNet, DenoisingTransformer, RedCNN
+    from tmar_torch.nn.dudo import DuDoMARNet
+
+    if arch == "dudo":
+        return DuDoMARNet(projector=projector)
+    if arch == "transformer":
+        return DenoisingTransformer(img_size=FINETUNE_PATCH, device=device)
+    return {"redcnn": RedCNN, "bafresnet": BAFResNet}[arch](device=device)
+
+
+def finetune_phases(card):
+    """Phase 18: ``python -m tmar_torch.cli finetune`` for each architecture
+    at the command's defaults (64² patches, batch 4, 180 angles, lambda_sino
+    0.1; RedCNN 96 features, DenoisingTransformer 128 x 4, BAFResNet 64 x 8,
+    DuDo 4 stages x 32 channels x 3 blocks) for one epoch on a SpineWeb tree
+    written here (16 slice pairs at 416²), called in-process with every
+    launch counter reset just before and read just after (these networks
+    launch no hand-written kernel: 0 of each); the pickle and history.json
+    written; then one float32 step of each at 1x64² on the card against the
+    CPU from the same weights: the loss terms and every parameter's
+    gradient."""
+    import tempfile
+
+    import torch
+
+    from tmar_torch import cli
+    from tmar_torch.data import BenchmarkFinetuneDataset
+    from tmar_torch.ops.radon import Radon
+    from tmar_torch.train.finetune import FinetuneState, FinetuneWeights, make_finetune_step
+
+    failures = []
+
+    def check(cond, what):
+        print(f"[check] {what}: {'ok' if cond else 'FAIL'}")
+        if not cond:
+            failures.append(what)
+
+    angles = np.linspace(0, np.pi, 180, endpoint=False)
+    counters = _all_counters()
+    with tempfile.TemporaryDirectory(prefix="tmar_smoke_ft_") as tmp:
+        spine, sec = write_trees(tmp, syndeeplesion=False)["spineweb"]
+        art, cln = os.path.join(spine, "artifact"), os.path.join(spine, "clean")
+        ds = BenchmarkFinetuneDataset(art, cln, patch_size=FINETUNE_PATCH)
+        sample = ds[0]
+        batch = {k: sample[k][None, ..., None] for k in ("Xma", "Xgt", "mask", "XLI")}
+        for arch in FINETUNE_ARCHS:
+            out = os.path.join(tmp, f"ft_{arch}")
+            _zero(counters)
+            t0 = time.perf_counter()
+            rc = cli.finetune(["--arch", arch, "--artifact-dir", art, "--clean-dir", cln, "--epochs", "1",
+                               "--out", out])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _read(counters)
+            steps = len(ds) // FINETUNE_BATCH
+            hist_path = os.path.join(out, "history.json")
+            history = json.load(open(hist_path)) if rc == 0 and os.path.isfile(hist_path) else []
+            print(f"[finetune] {arch}: rc {rc}, 1 epoch of {steps} steps of {FINETUNE_BATCH}x{FINETUNE_PATCH}² "
+                  f"f32 on the {SPINE_SLICES}-pair SpineWeb tree in {wall:.2f} s, {steps / wall:.2f} steps/s "
+                  f"(model build, first steps and the pickle included) on {card}; loss history "
+                  f"{json.dumps(history)}; hand-written kernel launches "
+                  + ", ".join(f"{k} {v}" for k, v in launches.items()))
+            check(rc == 0 and os.path.isfile(os.path.join(out, f"{arch}_finetuned.pkl")) and len(history) == 1,
+                  f"finetune {arch}: {arch}_finetuned.pkl and history.json written")
+            check(bool(history) and all(np.isfinite(v) for v in history[0].values())
+                  and history[0].get("sino", 0) > 0, f"finetune {arch}: every loss finite, the sinogram term on")
+            check(not any(launches.values()), f"finetune {arch}: no hand-written kernel launched "
+                  f"(0 of each of the {len(counters)} counted)")
+
+            # one float32 step on the card against the same step on the CPU
+            nets, start = {}, None
+            for dev in ("cpu", "cuda"):
+                proj = Radon(FINETUNE_PATCH, angles, device=dev)
+                net = _finetune_model(arch, dev, proj)
+                if start is None:
+                    start = {k: v.clone() for k, v in net.state_dict().items()}
+                else:
+                    net.load_state_dict(start)
+                opt = torch.optim.Adam(net.parameters(), 1e-4)
+                step = make_finetune_step(net, opt, FinetuneWeights(), projector=proj, device=dev)
+                _, m = step(FinetuneState(0, net, opt), batch)
+                nets[dev] = (net, {k: float(v) for k, v in m.items()})
+            (cpu_net, cpu_m), (gpu_net, gpu_m) = nets["cpu"], nets["cuda"]
+            worst_m = max(abs(gpu_m[k] - cpu_m[k]) / max(1.0, abs(cpu_m[k])) for k in cpu_m)
+            ref = dict(cpu_net.named_parameters())
+            floor = 1e-3 * max(float(p.grad.abs().max()) for p in ref.values())
+            worst, where = 0.0, ""
+            for k, p in gpu_net.named_parameters():
+                r = ref[k].grad
+                rel = float((p.grad.cpu() - r).abs().max()) / max(float(r.abs().max()), floor)
+                if rel > worst:
+                    worst, where = rel, k
+            print(f"[check] finetune {arch} f32 step at 1x{FINETUNE_PATCH}², card vs CPU: loss terms "
+                  f"({' '.join(sorted(cpu_m))}) worst |diff| / max(1, |ref|) {worst_m:.3e} tol 1e-4; "
+                  f"gradients of {len(ref)} tensors worst max|diff| / max(max|ref|, 1e-3 of the "
+                  f"network's) {worst:.3e} at {where} tol {STEP_TOL:g}")
+            check(set(cpu_m) == set(gpu_m) and worst_m <= 1e-4 and worst <= STEP_TOL,
+                  f"finetune {arch} f32 step, card vs CPU")
+            del nets, start, cpu_net, gpu_net
+            torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"fine-tune checks failed: {failures}")
+
+
+def dcgan_phase(card):
+    """Phase 19: ``train_dcgan`` at its defaults (nz 100, ngf / ndf 64, 64²,
+    Adam 2e-4 b1 0.5) for 16 steps of batch 64 (64² crops of synthetic clean
+    slices in [-1, 1]) with every launch counter reset just before and read
+    just after (0 of each: the DCGAN pair runs on cuDNN)."""
+    import torch
+
+    from tmar_torch.data import SyntheticMARDataset
+    from tmar_torch.train.dcgan import train_dcgan
+
+    ds = SyntheticMARDataset(size=64, length=4 * DCGAN_BATCH, base_seed=11)
+    gt = np.stack([ds[i]["gt"] for i in range(len(ds))])[..., None].astype(np.float32)
+    data = [gt[i:i + DCGAN_BATCH] for i in range(0, len(gt), DCGAN_BATCH)]
+    counters = _all_counters()
+    _zero(counters)
+    t0 = time.perf_counter()
+    state, hist = train_dcgan(data, steps=DCGAN_STEPS, seed=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    _, more = train_dcgan(data, steps=DCGAN_STEPS, seed=1)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t1
+    launches = _read(counters)
+    print(f"[dcgan] train_dcgan {DCGAN_STEPS} steps of {DCGAN_BATCH}x64² (nz 100, ngf/ndf 64): "
+          f"{wall * 1e3 / DCGAN_STEPS:.2f} ms/step in a first run (cuDNN's first calls included), "
+          f"{warm * 1e3 / DCGAN_STEPS:.2f} ms/step in a second on {card}; loss_d "
+          + " ".join(f"{v:.4f}" for v in hist["loss_d"]) + "; loss_g "
+          + " ".join(f"{v:.4f}" for v in hist["loss_g"]) + "; hand-written kernel launches "
+          + ", ".join(f"{k} {v}" for k, v in launches.items()))
+    ok = (state.step == DCGAN_STEPS and np.isfinite(hist["loss_d"] + hist["loss_g"]).all()
+          and np.isfinite(more["loss_d"] + more["loss_g"]).all() and not any(launches.values()))
+    print(f"[check] dcgan: {DCGAN_STEPS} steps, every loss finite, no hand-written kernel launched: "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("dcgan checks failed")
+
+
 def main() -> int:
     import torch
 
@@ -2417,12 +2688,18 @@ def main() -> int:
     launches.update({k: v for k, v in full_launches.items() if k not in launches or not launches[k]})
     data_launches = data_phases(card)
     train_ngram3(card)
+    t0 = time.perf_counter()
+    v1_launches = train_v1(card)
+    finetune_phases(card)
+    dcgan_phase(card)
+    print(f"[time] phases 17-19 (v1, finetune, dcgan) in {time.perf_counter() - t0:.1f} s on {card}")
     for name, rec in records.items():
         # launches: the count of the first path above that ran the kernel
         # (serving, composition training, the trainer's full step)
         rec["launches"] = launches[name]
         rec["launches_full_step_path"] = full_launches.get(name, 0)
         rec["launches_spineweb_fit"] = data_launches.get(name, 0)
+        rec["launches_v1_step_path"] = v1_launches.get(name, 0)
         rec["card"] = card
     print(json.dumps({"kernels": list(records.values())}))
     print(f"{card}")

@@ -64,11 +64,19 @@ DATA_SLICE = (
 )
 
 
+# the modules of the baselines' and fine-tuning slice, as above
+FINETUNE_SLICE = (
+    "nn/baselines.py", "nn/dudo.py", "train/dcgan.py", "train/finetune.py", "data/finetune.py",
+    "ops/nmar.py",
+)
+
+
 def test_trainer_slice_modules_are_in_the_package_and_scanned():
     scanned = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert set(TRAINER_SLICE) <= scanned
     assert set(SERVING_SLICE) <= scanned
     assert set(DATA_SLICE) <= scanned
+    assert set(FINETUNE_SLICE) <= scanned
     for sub in ("data", "utils", "train", "checkpoint", "eval", "ops"):
         assert (PKG / sub / "__init__.py").is_file(), sub
 

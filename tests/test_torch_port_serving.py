@@ -190,7 +190,7 @@ def test_cli_reads_the_block_form_from_the_environment():
 
 def test_cli_commands_not_ported_exit_2_and_name_their_item(capsys, tmp_path):
     for cmd, module in (("ablate", "tmar/eval/ablation.py"), ("compare", "tmar/eval/harness.py"),
-                        ("finetune", "tmar/train/finetune.py"), ("export", "tmar/export.py")):
+                        ("export", "tmar/export.py")):
         assert cli.main([cmd, "--help"]) == 2
         assert f"waits for the port of {module}" in capsys.readouterr().err
     assert cli.main(["nope"]) == 2

@@ -362,10 +362,13 @@ def test_trainer_defaults_to_the_card_and_refuses_what_is_not_ported(monkeypatch
         Trainer(_tiny_cfg(tmp_path, **{"parallel.mode": "fsdp"}), device="cpu")
     with pytest.raises(ValueError, match="unknown parallel.mode"):
         Trainer(_tiny_cfg(tmp_path, **{"parallel.mode": "pp"}), device="cpu")
-    with pytest.raises(NotImplementedError, match="tmar/nn/baselines.py"):
-        build_generator(_tiny_cfg(tmp_path, **{"model.arch": "redcnn"}), device="cpu")
-    with pytest.raises(NotImplementedError, match="tmar/nn/baselines.py"):
-        Trainer(_tiny_cfg(tmp_path, **{"disc.kind": "dcgan"}), device="cpu")
+    # the baselines and the DCGAN critic build (tests/test_torch_port_baselines.py
+    # holds them to the JAX package); an unknown name raises
+    assert type(build_generator(_tiny_cfg(tmp_path, **{"model.arch": "redcnn"}), device="cpu")).__name__ == "RedCNN"
+    assert type(Trainer(_tiny_cfg(tmp_path, **{"disc.kind": "dcgan"}), device="cpu").discriminator).__name__ \
+        == "DCGANCritic"
+    with pytest.raises(ValueError, match="unknown generator arch"):
+        build_generator(_tiny_cfg(tmp_path, **{"model.arch": "unet"}), device="cpu")
     # every dataset of the JAX trainer builds (tests/test_torch_port_data.py
     # holds their samples to the JAX package's); an unknown name raises
     root = tmp_path / "syn" / "train_640geo" / "000" / "00"

@@ -13,6 +13,15 @@
   the ``params`` tree (HWIO conv kernels -> OIHW weights) and the ``sn``
   collection, whose power-iteration vectors ``u``/``v`` are copied, never
   drawn anew.
+* ``module_from_flax`` / ``module_to_flax`` carry the baselines, the DCGAN
+  pair and DuDo (``tmar_torch.nn.baselines``, ``tmar_torch.nn.dudo``) across
+  in both directions, walking the port's modules, whose names are flax's:
+  conv kernels HWIO <-> OIHW, transposed-conv kernels flipped spatially,
+  Dense / DenseGeneral kernels flattened to [in, out] and transposed, norm
+  ``scale`` <-> ``weight``, the DCGAN generator's ``batch_stats`` <-> its
+  BatchNorm buffers, other parameters (position embedding, step sizes) as
+  they are.  ``python -m tmar_torch.cli finetune`` writes its pickle with
+  ``module_to_flax``, which the JAX model loads.
 * ``adam_state_from_optax`` loads optax Adam moments (converted by the two
   functions above, as the parameters are) and the step count into a
   ``torch.optim.Adam``, so that a JAX ``GANTrainState`` becomes the port's.
@@ -126,3 +135,89 @@ def adam_state_from_optax(
     for group in optimizer.param_groups:
         if "count" in group:
             group["count"] = int(count)
+
+
+def _lookup(tree: Mapping[str, Any], path, used: set):
+    node = tree
+    for p in path:
+        if not isinstance(node, Mapping) or p not in node:
+            raise ValueError(f"flax tree has no leaf {'/'.join(path)!r}")
+        node = node[p]
+    used.add(tuple(path))
+    return np.asarray(node, np.float32)
+
+
+def _conversions(model):
+    """(module name, flax path, torch <- flax, flax <- torch, collection) for
+    every parameter and buffer of the baselines' and DuDo's layers."""
+    from tmar_torch.nn.baselines import BatchNorm, Conv, ConvTranspose, Dense, LayerNorm
+
+    conv = (lambda k: k.transpose(3, 2, 0, 1), lambda w: w.transpose(2, 3, 1, 0))
+    # flax's transposed conv correlates the dilated input with the kernel
+    # unflipped; torch's is the conv's gradient, flipped
+    deconv = (lambda k: k[::-1, ::-1].transpose(2, 3, 0, 1),
+              lambda w: w.transpose(2, 3, 0, 1)[::-1, ::-1])
+    same = (lambda a: a, lambda a: a)
+    for name, mod in model.named_modules():
+        path = tuple(name.split(".")) if name else ()
+        if isinstance(mod, ConvTranspose):
+            yield name, "weight", path + ("kernel",), deconv, "params"
+        elif isinstance(mod, Conv):
+            yield name, "weight", path + ("kernel",), conv, "params"
+        elif isinstance(mod, Dense):
+            shape = mod.kernel_shape
+            yield name, "weight", path + ("kernel",), (
+                lambda k, n=mod.out_features: k.reshape(-1, n).T,
+                lambda w, s=shape: w.T.reshape(s)), "params"
+        elif isinstance(mod, (LayerNorm, BatchNorm)):
+            yield name, "weight", path + ("scale",), same, "params"
+        if isinstance(mod, (Conv, ConvTranspose, Dense, LayerNorm, BatchNorm)):
+            if mod.bias is not None:
+                shape = mod.bias_shape if isinstance(mod, Dense) else mod.bias.shape
+                yield name, "bias", path + ("bias",), (
+                    lambda b: b.reshape(-1), lambda b, s=tuple(shape): b.reshape(s)), "params"
+            if isinstance(mod, BatchNorm):
+                yield name, "mean", path + ("mean",), same, "batch_stats"
+                yield name, "var", path + ("var",), same, "batch_stats"
+            continue
+        for pname, _ in mod.named_parameters(recurse=False):
+            yield name, pname, path + (pname,), same, "params"
+
+
+@torch.no_grad()
+def module_from_flax(model, params: Mapping[str, Any],
+                     batch_stats: Mapping[str, Any] = None) -> Dict[str, torch.Tensor]:
+    """A flax baseline / DCGAN / DuDo tree (numpy ``params`` and, for the
+    DCGAN generator, ``batch_stats``) -> the ``state_dict`` of ``model``, the
+    port's module of the same configuration.  Every leaf of the trees must
+    be used.  Without ``batch_stats`` the BatchNorm buffers are left out
+    (a tree of Adam moments converts so)."""
+    sd: Dict[str, torch.Tensor] = {}
+    trees = {"params": params, "batch_stats": batch_stats}
+    used = {k: set() for k in trees}
+    for name, attr, path, (to_torch, _), coll in _conversions(model):
+        if trees[coll] is None:
+            continue
+        v = to_torch(_lookup(trees[coll], path, used[coll]))
+        sd[f"{name}.{attr}" if name else attr] = torch.from_numpy(np.array(v, np.float32))
+    for coll, tree in trees.items():
+        extra = {p for p, _ in _flatten(tree or {})} - used[coll]
+        if extra:
+            raise ValueError(f"unmapped flax {coll} leaves: {sorted('/'.join(p) for p in extra)}")
+    return sd
+
+
+@torch.no_grad()
+def module_to_flax(model) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The inverse of ``module_from_flax``: ``model``'s parameters and
+    buffers as flax's (``params``, ``batch_stats``) trees of float32 numpy
+    arrays (``batch_stats`` empty where the model has no BatchNorm)."""
+    trees: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for name, attr, path, (_, to_flax), coll in _conversions(model):
+        t = model.get_submodule(name) if name else model
+        v = getattr(t, attr).detach().float().cpu().numpy()
+        node = trees[coll]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.ascontiguousarray(to_flax(v), dtype=np.float32)
+    return trees["params"], trees["batch_stats"]

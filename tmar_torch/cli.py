@@ -4,11 +4,16 @@
         --set data.dataset=synthetic model.use_pallas_attention=true [--tiled]
     python -m tmar_torch.cli train --config tmar_torch/configs/train_syndeeplesion.yaml \\
         --set data.dataset=synthetic
+    python -m tmar_torch.cli finetune --arch dudo --artifact-dir <npy dir> \\
+        --clean-dir <npy dir> --epochs 1
 
-Both take the JAX CLI's arguments plus ``--device`` (default ``cuda``; ``cpu``
+Each takes the JAX CLI's arguments plus ``--device`` (default ``cuda``; ``cpu``
 runs the plain versions).  ``test`` serves the generator of the config from a
 ``.pth`` file or a port checkpoint directory, full-slice or with the 64/32
 tiled eval on the device, and writes ``metrics.json`` in the JAX CLI's schema.
+``finetune`` fine-tunes a baseline or DuDo and writes
+``<out>/{arch}_finetuned.pkl`` in the flax layout, which the JAX package's
+model loads, and ``history.json``.
 
 The block form of the generator comes from the JAX package's environment
 variables, read here and nowhere else in the port, and passed to
@@ -34,7 +39,6 @@ from typing import Any, Dict, List
 NOT_PORTED = {
     "ablate": "it waits for the port of tmar/eval/ablation.py",
     "compare": "it waits for the port of tmar/eval/harness.py",
-    "finetune": "it waits for the port of tmar/train/finetune.py",
     "export": "it waits for the port of tmar/export.py",
 }
 
@@ -159,6 +163,89 @@ def test(argv=None) -> int:
     return 0
 
 
+def finetune(argv=None) -> int:
+    """Fine-tune a benchmark architecture on paired artifact/clean data, with
+    the trace-masked sinogram loss unless ``--lambda-sino 0``."""
+    ap = argparse.ArgumentParser(prog="python -m tmar_torch.cli finetune",
+                                 description="Fine-tune a baseline or DuDo on the card")
+    ap.add_argument("--arch", default="redcnn", choices=["redcnn", "transformer", "bafresnet", "dudo"],
+                    help="architecture to fine-tune (dudo: the dual-domain unrolled net)")
+    ap.add_argument("--stages", type=int, default=4, help="dudo only: unrolled proximal iterations")
+    ap.add_argument("--channels", type=int, default=32, help="dudo only: cross-stage memory channels")
+    ap.add_argument("--freeze-stages", type=int, default=0,
+                    help="dudo only: freeze the first N stages and the prior net")
+    ap.add_argument("--artifact-dir", default=None)
+    ap.add_argument("--clean-dir", default=None)
+    ap.add_argument("--synthetic", type=int, default=0, metavar="N",
+                    help="generate N synthetic pairs instead of reading npy dirs")
+    ap.add_argument("--mode", default="patch", choices=["patch", "resize"])
+    ap.add_argument("--patch-size", type=int, default=64)
+    ap.add_argument("--epochs", type=int, default=25)
+    ap.add_argument("--batch-size", type=int, default=4)
+    ap.add_argument("--lr", type=float, default=1e-4)
+    ap.add_argument("--lambda-sino", type=float, default=0.1,
+                    help="0 disables the sinogram term (image-domain loop)")
+    ap.add_argument("--num-angles", type=int, default=180)
+    ap.add_argument("--out", default="finetune_results")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    import pickle
+    import tempfile
+
+    import numpy as np
+
+    from tmar_torch.checkpoint.convert import module_to_flax
+    from tmar_torch.data import BenchmarkFinetuneDataset, SyntheticMARDataset
+    from tmar_torch.nn.baselines import BAFResNet, DenoisingTransformer, RedCNN
+    from tmar_torch.nn.dudo import DuDoMARNet
+    from tmar_torch.ops.radon import Radon
+    from tmar_torch.train.finetune import FinetuneWeights, dudo_freeze_prefixes
+    from tmar_torch.train.finetune import finetune as run_finetune
+
+    with tempfile.TemporaryDirectory(prefix="tmar_torch_ft_syn_") as tmp:
+        if args.synthetic:
+            art, cln = os.path.join(tmp, "artifact"), os.path.join(tmp, "clean")
+            os.makedirs(art)
+            os.makedirs(cln)
+            syn = SyntheticMARDataset(size=args.patch_size, length=args.synthetic)
+            for i in range(args.synthetic):
+                s = syn[i]
+                # stored as HU, so that the dataset's window maps them back
+                np.save(os.path.join(art, f"{i:04d}.npy"), (s["ct"] + 1) / 2 * 3000 - 1000)
+                np.save(os.path.join(cln, f"{i:04d}.npy"), (s["gt"] + 1) / 2 * 3000 - 1000)
+            args.artifact_dir, args.clean_dir = art, cln
+        if not args.artifact_dir or not args.clean_dir:
+            raise SystemExit("pass --artifact-dir/--clean-dir or --synthetic N")
+        ds = BenchmarkFinetuneDataset(args.artifact_dir, args.clean_dir,
+                                      patch_size=args.patch_size, mode=args.mode)
+        projector = None
+        if args.lambda_sino or args.arch == "dudo":
+            projector = Radon(args.patch_size, np.linspace(0, np.pi, args.num_angles, endpoint=False),
+                              device=args.device)
+        freeze_prefixes = ()
+        if args.arch == "dudo":
+            model = DuDoMARNet(projector=projector, stages=args.stages, channels=args.channels)
+            if args.freeze_stages:
+                freeze_prefixes = dudo_freeze_prefixes(args.freeze_stages)
+        elif args.arch == "transformer":
+            model = DenoisingTransformer(img_size=args.patch_size, device=args.device)
+        else:
+            model = {"redcnn": RedCNN, "bafresnet": BAFResNet}[args.arch](device=args.device)
+        result = run_finetune(
+            model, ds, num_epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
+            weights=FinetuneWeights(sino=args.lambda_sino), projector=projector, progress=True,
+            freeze_prefixes=freeze_prefixes, device=args.device,
+        )
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, f"{args.arch}_finetuned.pkl"), "wb") as f:
+        pickle.dump(module_to_flax(model)[0], f)
+    with open(os.path.join(args.out, "history.json"), "w") as f:
+        json.dump(result["history"], f, indent=2)
+    print(json.dumps({"final": result["history"][-1], "out": args.out}))
+    return 0
+
+
 def _load_generator_params(path: str, gen, cfg):
     """The generator ``state_dict`` to serve: a ``.pth`` file's, or from a
     port checkpoint directory the ``best`` checkpoint when there is one (else
@@ -213,7 +300,7 @@ def _build_test_dataset(cfg):
     return SyntheticMARDataset(size=size, length=32)
 
 
-_COMMANDS = {"train": train, "test": test}
+_COMMANDS = {"train": train, "test": test, "finetune": finetune}
 
 
 def main(argv=None) -> int:

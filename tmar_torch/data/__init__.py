@@ -1,8 +1,10 @@
 """Host-side data pipeline (the counterpart of ``tmar.data``): transforms, the
-synthetic, SynDeepLesion and SpineWeb datasets, the shard cache, the loader,
+synthetic, SynDeepLesion and SpineWeb datasets, the benchmark fine-tune
+dataset, the shard cache, the loader,
 the native host library (``native``) and the NIfTI reader (``nifti``)."""
 
 from tmar_torch.data import native, nifti, transforms
+from tmar_torch.data.finetune import BenchmarkFinetuneDataset
 from tmar_torch.data.loader import Loader
 from tmar_torch.data.shard_cache import ShardCachedDataset, build_shard_cache, cache_syndeeplesion
 from tmar_torch.data.spineweb import SpineWebDataset
@@ -31,6 +33,7 @@ __all__ = [
     "SynDeepLesionTestDataset",
     "SpineWebDataset",
     "SpineWebSelfSupervisedDataset",
+    "BenchmarkFinetuneDataset",
     "Loader",
     "ShardCachedDataset",
     "build_shard_cache",

@@ -1,6 +1,9 @@
-"""GAN train and eval steps, the configuration and the Trainer around them."""
+"""GAN train and eval steps, the configuration and the Trainer around them,
+the fine-tune engine and the DCGAN tutorial loop."""
 
 from tmar_torch.train.config import TrainConfig, config_path, load_config
+from tmar_torch.train.dcgan import train_dcgan
+from tmar_torch.train.finetune import FinetuneState, FinetuneWeights, make_finetune_step
 from tmar_torch.train.steps import (
     GANTrainState,
     create_train_state,
@@ -11,6 +14,8 @@ from tmar_torch.train.trainer import Trainer
 from tmar_torch.train.variants import resolve_variant
 
 __all__ = [
+    "FinetuneState",
+    "FinetuneWeights",
     "GANTrainState",
     "TrainConfig",
     "Trainer",
@@ -18,6 +23,8 @@ __all__ = [
     "create_train_state",
     "load_config",
     "make_eval_step",
+    "make_finetune_step",
     "make_train_step",
     "resolve_variant",
+    "train_dcgan",
 ]

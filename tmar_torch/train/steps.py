@@ -9,8 +9,9 @@ discriminator's parameter gradients untouched), and ``fake.backward(dfake)``
 carries it into the generator.  That equals re-running the forward, because
 the D update never touches the generator's parameters.
 
-The generator must be in its training form (``attn_backward="pallas"``) to
-run on a card: the inference form's whole-block kernel has no backward and
+The discriminator is the multi-scale PatchGAN or the DCGAN critic (no
+spectral norm), the generator the NGswin or a baseline.  The NGswin must be
+in its training form (``attn_backward="pallas"``) to run on a card: the inference form's whole-block kernel has no backward and
 refuses.  The mesh, donation and sharding arguments of the JAX step have no
 counterpart here yet.
 """
@@ -58,8 +59,11 @@ def create_train_state(
     construction, the discriminator's ``u``/``v`` included) and wrap them
     with their optimizers.  ``ema_decay > 0`` also tracks an exponential
     moving average of the generator's parameters, started as a copy."""
-    for module in generator.modules():
-        init_weights(module, generator=rng)
+    if hasattr(generator, "draw_parameters"):  # the baselines: flax's initialisers
+        generator.draw_parameters(rng)
+    else:
+        for module in generator.modules():
+            init_weights(module, generator=rng)
 
     def randn(like):
         return torch.randn(like.shape, generator=rng, device=rng.device)

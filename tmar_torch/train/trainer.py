@@ -6,11 +6,12 @@ checkpoint, and TTUR dual-Adam optimisation, all driven by a ``TrainConfig``
 (variants and ablations are LossWeights / DiscConfig overrides).
 
 The port trains on one device.  ``Trainer(cfg)`` runs on the card and raises
-without one; ``Trainer(cfg, device="cpu")`` runs the plain versions.  Of the
-JAX trainer's surface it builds the NGswin generator, the multi-scale
-PatchGAN and every dataset (synthetic, synthetic_cache, syndeeplesion,
-spineweb, each with its validation split); the other architectures, critics
-and the mesh layouts raise and name the JAX module they wait for.
+without one; ``Trainer(cfg, device="cpu")`` runs the plain versions.  It
+builds every generator (NGswin and the baselines), discriminator
+(multi-scale PatchGAN and the DCGAN critic) and dataset (synthetic,
+synthetic_cache, syndeeplesion, spineweb, each with its validation split) of
+the JAX trainer; the mesh layouts raise and name the JAX module they wait
+for.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from tmar_torch.data import (
 )
 from tmar_torch.device import resolve_device
 from tmar_torch.nn import MultiScaleDiscriminator, NGswin
+from tmar_torch.nn.baselines import BAFResNet, DCGANCritic, DenoisingTransformer, RedCNN
 from tmar_torch.ops.radon import Radon
 from tmar_torch.train.config import TrainConfig
 from tmar_torch.train.schedules import build_optimizer, build_schedule
@@ -47,19 +49,28 @@ def build_generator(
     cfg: TrainConfig, device="cuda", *, ngram_fused: bool = True, nstb_fused: bool = True,
     nstb_map: bool = True,
 ):
-    """The NGswin of ``cfg.model``.  ``use_pallas_attention`` with
-    ``attn_backward="pallas"`` gives the training form (kernels with backward
-    kernels); anything else the forward-only inference form, whose block form
-    the keywords pick (``tmar_torch.nn.blocks``; they stand in for the JAX
-    package's ``TMAR_NSTB_FUSED`` and ``TMAR_NSTB_MAP``).  ``ngram_fused``
-    (the JAX package's ``TMAR_NGRAM_FUSED``) holds in both forms."""
+    """The generator of ``cfg.model``: the NGswin, or with ``model.arch`` one
+    of the baselines (``redcnn``, ``transformer``, ``bafresnet``; the
+    transformer's position embedding sized for ``data.patch_size``).  For the
+    NGswin, ``use_pallas_attention`` with ``attn_backward="pallas"`` gives
+    the training form (kernels with backward kernels); anything else the
+    forward-only inference form, whose block form the keywords pick
+    (``tmar_torch.nn.blocks``; they stand in for the JAX package's
+    ``TMAR_NSTB_FUSED`` and ``TMAR_NSTB_MAP``).  ``ngram_fused`` (the JAX
+    package's ``TMAR_NGRAM_FUSED``) holds in both forms."""
     m = cfg.model
+    dtype = torch.bfloat16 if cfg.bf16 else torch.float32
     arch = getattr(m, "arch", "ngswin")
     if arch != "ngswin":
-        raise NotImplementedError(
-            f"generator arch {arch!r}: the port has the NGswin only; the baseline "
-            "architectures of tmar/nn/baselines.py are not ported yet"
-        )
+        archs = {
+            "redcnn": lambda: RedCNN(in_chans=m.in_chans, dtype=dtype, device=device),
+            "transformer": lambda: DenoisingTransformer(in_chans=m.in_chans, img_size=cfg.data.patch_size,
+                                                        dtype=dtype, device=device),
+            "bafresnet": lambda: BAFResNet(in_chans=m.in_chans, dtype=dtype, device=device),
+        }
+        if arch not in archs:
+            raise ValueError(f"unknown generator arch {arch!r}")
+        return archs[arch]()
     form = m.attn_backward if m.use_pallas_attention else "auto"
     return NGswin(
         ngrams=tuple(m.ngrams),
@@ -73,7 +84,7 @@ def build_generator(
         window_size=m.window_size,
         mlp_ratio=m.mlp_ratio,
         qkv_bias=m.qkv_bias,
-        dtype=torch.bfloat16 if cfg.bf16 else torch.float32,
+        dtype=dtype,
         attn_backward=form,
         ngram_fused=ngram_fused,
         nstb_fused=nstb_fused,
@@ -83,21 +94,25 @@ def build_generator(
 
 
 def build_discriminator(cfg: TrainConfig, device="cuda"):
+    """The multi-scale PatchGAN, or with ``disc.kind: dcgan`` the DCGAN
+    critic (``ndf = disc.base_channels``) of the ``baseline`` and ``v1``
+    variants; either takes the (input ‖ image) pair."""
     d = cfg.disc
-    if d.kind != "multiscale":
-        raise NotImplementedError(
-            f"discriminator kind {d.kind!r}: the port has the multi-scale PatchGAN only; "
-            "the DCGAN critic of tmar/nn/baselines.py is not ported yet"
+    dtype = torch.bfloat16 if cfg.bf16 else torch.float32
+    if d.kind == "multiscale":
+        return MultiScaleDiscriminator(
+            in_chans=2 * cfg.model.in_chans,
+            base_channels=d.base_channels,
+            num_layers=d.num_layers,
+            num_scales=d.num_scales,
+            use_sn=d.use_sn,
+            dtype=dtype,
+            device=device,
         )
-    return MultiScaleDiscriminator(
-        in_chans=2 * cfg.model.in_chans,
-        base_channels=d.base_channels,
-        num_layers=d.num_layers,
-        num_scales=d.num_scales,
-        use_sn=d.use_sn,
-        dtype=torch.bfloat16 if cfg.bf16 else torch.float32,
-        device=device,
-    )
+    if d.kind == "dcgan":
+        return DCGANCritic(ndf=d.base_channels, in_chans=2 * cfg.model.in_chans, dtype=dtype,
+                           device=device)
+    raise ValueError(f"unknown discriminator kind {d.kind!r}")
 
 
 def build_optimizers(cfg: TrainConfig, generator, discriminator):
@@ -183,7 +198,7 @@ class Trainer:
                 "layouts of tmar/parallel.py and tmar/core/mesh.py are not ported yet"
             )
         self.generator = build_generator(cfg, self.device, ngram_fused=ngram_fused)
-        if self.device.type == "cuda" and self.generator.attn_backward != "pallas":
+        if self.device.type == "cuda" and getattr(self.generator, "attn_backward", "pallas") != "pallas":
             raise ValueError(
                 "on a card the port trains only in the training form, whose kernels have "
                 "backward kernels: set model.use_pallas_attention=true and "
