@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare checkouts of the port (``tmar_torch``) on one CUDA card, in turns.
 
-    python3 chip_ab.py TREE [TREE ...]
+    python3 chip_ab.py [--kernels] TREE [TREE ...]
 
 Each TREE is the root of a checkout (this one is ``.``), for example an
 earlier commit unpacked with ``git archive`` into a gitignored directory.
@@ -19,6 +19,13 @@ lines tagged ``[ab TREE]``:
 * the trainer's ``full`` step at 8x128² bf16, by that tree's
   ``chip_smoke.train_full`` (its ``[time]`` and ``[profile]`` lines).
 
+With ``--kernels`` it prints, in place of K2 and the step, the training
+kernels' launch alone (that tree's ``chip_smoke.attention_launch_ms`` and
+``ffn_launch_ms``) at the full-width NGswin's geometries, bf16 and f32:
+K3/K4 at the 8x128² step's stage 1 (2048 windows of 64 tokens, 6 x 10
+heads, shift mask on) and at its n-gram windows (2048 of N = 4, 9 and 1 on
+32 channels, 6 x 5 heads); K5/K6 at 131,072 rows.
+
 Times are CUDA events (``chip_smoke.cuda_ms``), beside the card's name and
 power limit.  Needs one card; imports nothing of JAX or of ``tmar``.
 """
@@ -30,7 +37,40 @@ import subprocess
 import sys
 
 
-def run_tree(tree: str) -> int:
+def training_kernels(cs, tag, card, randn):
+    """K3/K4 and K5/K6, the launch alone, at the full-width NGswin's
+    geometries (see the module docstring)."""
+    import torch
+
+    from tmar_torch.ops.window import shift_mask_components
+
+    for N, D, nh, hd, dtypes in ((64, 64, 6, 10, (torch.bfloat16, torch.float32)),
+                                 (4, 32, 6, 5, (torch.bfloat16, torch.float32)),
+                                 (9, 32, 6, 5, (torch.bfloat16, torch.float32)),
+                                 (1, 32, 6, 5, (torch.bfloat16, torch.float32))):
+        A, nwin = nh * hd, 2048
+        mc = (*shift_mask_components(8, 4), 16, 16) if N == 64 else None
+        params = [randn(D, 3 * A, scale=0.1), randn(3 * A, scale=0.1),
+                  torch.full((nh, 1, 1), 1.2, device="cuda"), randn(nh, N, N, scale=0.2),
+                  randn(A, D, scale=0.1), randn(D, scale=0.1)]
+        x, g = randn(nwin, N, D), randn(nwin, N, D)
+        for dtype in dtypes:
+            fwd, bwd = cs.attention_launch_ms(x.to(dtype), params, g.to(dtype), nh, mc)
+            print(f"{tag} K3/K4 launch alone, x [{nwin}, {N}, {D}] {str(dtype).split('.')[1]}, "
+                  f"{nh} x {hd} heads, mask {'on' if mc else 'off'}: forward {fwd:.4f} ms, "
+                  f"backward {bwd:.4f} ms on {card}", flush=True)
+    M, D, H = 131072, 64, 128
+    params = [randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1), randn(D, H, scale=0.1),
+              randn(H, scale=0.1), randn(H, D, scale=0.1), randn(D, scale=0.1),
+              randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1)]
+    x, ao, g = randn(M, D), randn(M, D), randn(M, D)
+    for dtype in (torch.bfloat16, torch.float32):
+        fwd, bwd = cs.ffn_launch_ms(x.to(dtype), ao.to(dtype), params, g.to(dtype))
+        print(f"{tag} K5/K6 launch alone, x [{M}, {D}] {str(dtype).split('.')[1]}: forward "
+              f"{fwd:.4f} ms, backward {bwd:.4f} ms on {card}", flush=True)
+
+
+def run_tree(tree: str, kernels_only: bool = False) -> int:
     tree = os.path.abspath(tree)
     os.chdir(tree)
     sys.path.insert(0, tree)
@@ -78,6 +118,9 @@ def run_tree(tree: str) -> int:
             print(f"{tag} K1/K7 launch alone, u [8, {grid}, {grid}, 32] {str(dtype).split('.')[1]}, "
                   f"6 heads: forward {fwd:.4f} ms, backward {bwd:.4f} ms on {card}", flush=True)
 
+    if kernels_only:
+        training_kernels(cs, tag, card, randn)
+        return 0
     model = NGswin(dtype=torch.float32)
     model.load_state_dict(load_pth(cs.CKPT))
     args = model.encoder_layer1.blocks[1].kernel_args()
@@ -95,14 +138,17 @@ def run_tree(tree: str) -> int:
 
 
 def main(argv) -> int:
+    kernels_only = "--kernels" in argv
+    argv = [a for a in argv if a != "--kernels"]
     if len(argv) == 3 and argv[1] == "--tree":
-        return run_tree(argv[2])
+        return run_tree(argv[2], kernels_only)
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
     rc = 0
+    flag = ["--kernels"] if kernels_only else []
     for tree in argv[1:]:
-        rc |= subprocess.call([sys.executable, os.path.abspath(__file__), "--tree", tree])
+        rc |= subprocess.call([sys.executable, os.path.abspath(__file__), *flag, "--tree", tree])
     return rc
 
 

@@ -121,7 +121,22 @@ Phases, each of which fails the run if it fails:
    hand-written kernel launched, one float32 step of each on the card
    against the CPU;
 19. ``train_dcgan`` at its defaults, 16 steps of batch 64: losses finite,
-   ms per step.
+   ms per step;
+20. other widths, on the training-form kernels' generic bodies: K1, K3-K7
+   against their plain versions (forward and every cotangent, f32 and bf16,
+   each backward twice and bit for bit) at the demo NGswin's geometries
+   (embed 32, 2 heads: attention (64, 32, 2, 16) with and without the shift
+   mask, its n-gram windows of 4, 9 and 1 tokens at 16 channels, the n-gram
+   context at C 16, D 32, the FFN at (32, 64), also with a ragged last
+   tile), the JAX tests' (64, 32, 3 x 10) and (64, 16, 2 x 8), window 4 and
+   the envelope's top (D 128, 4 x 32; FFN (128, 512); n-gram C 64, D 128),
+   each timed beside its bound; then ``Trainer.fit`` on the shipped recipe
+   at the demo width (8x64² bf16, 4 ``full`` steps, then 12 on one batch:
+   8 launches per step of each of K1, K7 and K3-K6, ``g_rec`` falling, the
+   median step and its profile), one f32 step at 1x64² on the card against
+   the CPU, and the trained generator in the unfused serving form: an
+   8x256² bf16 request (8 launches each of K1, K3, K5), f32 at 1x128²
+   against the CPU within 1e-4, and the map form refused naming K2.
 
 It prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card, exits non-zero
@@ -131,6 +146,7 @@ without one, and imports nothing of JAX or of the ``tmar`` package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import re
@@ -230,12 +246,13 @@ def device_ms(fn, name_part, calls=20):
     return us / 1e3 / calls, round(sum(e.count for e in rows) / calls)
 
 
-def ngram_work(B, wh, ww, nh, itemsize):
+def ngram_work(B, wh, ww, nh, itemsize, C=32, D=64, hd=None):
     """(FLOPs, bytes) the n-gram context needs: q/k/v once per cell, 4x4
     scores and AV per direction and head, the mean token's projection per
-    direction, the merge; u read once, the context written once, weights."""
-    C, D = 32, 64
-    A = (C // nh) * nh
+    direction, the merge; u read once, the context written once, weights.
+    On a [B, wh, ww, C] grid with a [2C, D] merge and nh heads of hd (the
+    full-width NGswin's by default)."""
+    A = (hd or C // nh) * nh
     cells = B * wh * ww
     flops = cells * (2 * C * 3 * A + 2 * (2 * 16 * A + 2 * 16 * A + 2 * A * C) + 2 * 2 * C * D)
     weights = 4 * (C * 3 * A + 3 * A + A * C + C + 2 * C * D + D + nh + 9 * nh)
@@ -665,27 +682,26 @@ def attention_work(nwin, N, D, nh, hd, itemsize, backward):
     return flops, rows * 3 * D * itemsize + rows * nh * 4 + 2 * params
 
 
-def ffn_work(M, itemsize, backward):
-    """(FLOPs, bytes) the residual FFN needs (D = 64, hidden 128).  Forward:
-    fc1, fc2; x and attn_out read, z written.  Backward, recomputing: fc1 and
-    fc2 again, then two products each for their cotangents; x, attn_out and
-    dz read, dx and d attn_out written."""
-    D, H = 64, 128
+def ffn_work(M, itemsize, backward, D=64, H=128):
+    """(FLOPs, bytes) the residual FFN needs (D = 64, hidden 128 by default).
+    Forward: fc1, fc2; x and attn_out read, z written.  Backward,
+    recomputing: fc1 and fc2 again, then two products each for their
+    cotangents; x, attn_out and dz read, dx and d attn_out written."""
     params = 4 * (2 * D * H + H + 5 * D)
     if not backward:
         return M * 2 * 2 * D * H, M * 3 * D * itemsize + params
     return M * 2 * 6 * D * H, M * 5 * D * itemsize + 2 * params
 
 
-def ngram_bwd_work(B, wh, ww, nh, itemsize):
+def ngram_bwd_work(B, wh, ww, nh, itemsize, C=32, D=64, hd=None):
     """(FLOPs, bytes) the n-gram context's backward needs, recomputing from
     u: per cell q/k/v again, per direction and head the 4x4 scores, the AV and
     the mean token's projection again; then the cotangents of the merge and
     the projection (two products each), of the AV and the scores (two each,
     per direction) and of q/k/v (two).  u and g read once, du and the
-    parameter cotangents written once, the parameters read once."""
-    C, D = 32, 64
-    A = (C // nh) * nh
+    parameter cotangents written once, the parameters read once.  Widths as
+    ``ngram_work``."""
+    A = (hd or C // nh) * nh
     cells = B * wh * ww
     forward = 2 * C * 3 * A + 2 * (2 * 16 * A + 2 * 16 * A + 2 * A * C)
     backward = 2 * 2 * 2 * C * D + 2 * 2 * 2 * A * C + 2 * 4 * 2 * 16 * A + 2 * 2 * C * 3 * A
@@ -758,6 +774,92 @@ ATTN_CASES = (
 FFN_ROWS = 131072
 
 
+def _run(fn, acts, params, g):
+    import torch
+
+    leaves = [a.clone().requires_grad_() for a in acts] + [p.clone().requires_grad_() for p in params]
+    out = fn(*leaves)
+    return [out.detach()] + list(torch.autograd.grad(out, leaves, g.to(out.dtype)))
+
+
+def _hold(kernel, label, names, n_acts, fused, plain, acts, params, g, errs, plain_bf16=None,
+          param_bf16=False, failures=None):
+    """forward (index 0) feeds the forward kernel's record, the
+    cotangents the backward kernel's; errs[kernel half][dtype].  At
+    bfloat16 the reference is plain_bf16(acts, params, g), the
+    rounding-matched plain versions' outputs and cotangents, where the
+    kernels round as the JAX kernels do (the parameter cotangents then
+    at the bf16 tolerance with param_bf16), else autograd of the plain
+    version in float32 on the same bf16 inputs.  A failure is appended to
+    ``failures``."""
+    import torch
+
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        a = [t.to(dtype) for t in acts]
+        got = _run(fused, a, params, g.to(dtype))
+        again = _run(fused, a, params, g.to(dtype))
+        ref32 = _run(plain, [t.float() for t in a], params, g.to(dtype).float())
+        matched = dtype == torch.bfloat16 and plain_bf16 is not None
+        ref = plain_bf16(a, params, g.to(dtype)) if matched else ref32
+        torch.cuda.synchronize()
+        worst, bad = ("", 0.0, 0.0), []
+        for i, (name, x, y, z) in enumerate(zip(names, got, ref, again)):
+            pdt = torch.bfloat16 if (matched and param_bf16) else torch.float32
+            err, tol = err_and_tol(x, y, dtype if i <= n_acts else pdt)
+            half = "fwd" if i == 0 else "bwd"
+            errs[half][dn] = max(errs[half][dn], err)
+            if err / tol >= worst[1]:
+                worst = (name, err / tol, err)
+            if not (err <= tol and bool(torch.isfinite(x).all())):
+                bad.append(f"{name} err {err:.3e} > tol {tol:.3e}")
+            if not torch.equal(x, z):
+                bad.append(f"{name} differs between two runs")
+        line = (f"[kernel] {kernel} {label} {dn}: forward max_abs_err "
+                f"{float((got[0].float() - ref[0].float()).abs().max()):.3e}")
+        if matched:
+            means = [float((got[i].float() - ref[i].float()).abs().mean()) for i in (0, 1)]
+            d32 = [float((got[i].float() - ref32[i].float()).abs().mean()) for i in (0, 1)]
+            # a cotangent that is zero on both sides has no relative
+            # distance (at N = 1 the scores' cotangents vanish: a softmax
+            # over one key is constant)
+            w32 = max((e / t for e, t in (err_and_tol(x, y, dtype) for x, y in zip(got, ref32))
+                       if t > 0), default=0.0)
+            line += (f" (against the rounding-matched plain versions; mean out {means[0]:.2e}, "
+                     f"dx {means[1]:.2e}; not gated: against the float32 plain version mean "
+                     f"out {d32[0]:.2e}, dx {d32[1]:.2e}, worst {w32:.2f} of the bf16 tolerance)")
+            errs.setdefault("bf16_mean", {"fwd": 0.0, "bwd": 0.0})
+            errs["bf16_mean"]["fwd"] = max(errs["bf16_mean"]["fwd"], means[0])
+            errs["bf16_mean"]["bwd"] = max(errs["bf16_mean"]["bwd"], means[1])
+        print(line + f"; {len(names) - 1} cotangents, worst {worst[0]} at {worst[1]:.3f} of its "
+              f"tolerance (max_abs_err {worst[2]:.3e}); two backward runs bit-identical: "
+              f"{not any('differs' in b for b in bad)} {'ok' if not bad else 'FAIL ' + '; '.join(bad)}")
+        if bad:
+            failures.append(f"{kernel} {label} {dn}")
+        del got, again, ref, ref32
+    torch.cuda.empty_cache()
+
+
+def _time_pair(fused, plain, acts, params, g, dtype):
+    """(kernel fwd, kernel bwd, plain fwd, plain bwd) in ms.  The plain
+    version runs in the activation dtype, as it would in the model."""
+    import torch
+
+    a = [t.to(dtype) for t in acts]
+    gg = g.to(dtype)
+    out = []
+    for fn in (fused, plain):
+        leaves = [t.clone().requires_grad_() for t in a] + [p.clone().requires_grad_() for p in params]
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: fn(*leaves))
+        y = fn(*leaves)
+        bwd = cuda_ms(lambda: torch.autograd.grad(y, leaves, gg, retain_graph=True))
+        out += [fwd, bwd]
+        del y, leaves
+    torch.cuda.empty_cache()
+    return out[0], out[1], out[2], out[3]
+
+
 def check_train_kernels(dev, card):
     """Phase 5: the four training kernels against their plain versions'
     autograd, forward and every cotangent, then timed.  Returns the kernel
@@ -808,81 +910,8 @@ def check_train_kernels(dev, card):
             randn(H, scale=0.1), randn(H, D, scale=0.1), randn(D, scale=0.1),
             randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1)], randn(M, D)
 
-    def run(fn, acts, params, g):
-        leaves = [a.clone().requires_grad_() for a in acts] + [p.clone().requires_grad_() for p in params]
-        out = fn(*leaves)
-        return [out.detach()] + list(torch.autograd.grad(out, leaves, g.to(out.dtype)))
-
-    def hold(kernel, label, names, n_acts, fused, plain, acts, params, g, errs, plain_bf16=None,
-             param_bf16=False):
-        """forward (index 0) feeds the forward kernel's record, the
-        cotangents the backward kernel's; errs[kernel half][dtype].  At
-        bfloat16 the reference is plain_bf16(acts, params, g), the
-        rounding-matched plain versions' outputs and cotangents, where the
-        kernels round as the JAX kernels do (the parameter cotangents then
-        at the bf16 tolerance with param_bf16), else autograd of the plain
-        version in float32 on the same bf16 inputs."""
-        for dtype in (torch.float32, torch.bfloat16):
-            dn = str(dtype).split(".")[1]
-            a = [t.to(dtype) for t in acts]
-            got = run(fused, a, params, g.to(dtype))
-            again = run(fused, a, params, g.to(dtype))
-            ref32 = run(plain, [t.float() for t in a], params, g.to(dtype).float())
-            matched = dtype == torch.bfloat16 and plain_bf16 is not None
-            ref = plain_bf16(a, params, g.to(dtype)) if matched else ref32
-            torch.cuda.synchronize()
-            worst, bad = ("", 0.0, 0.0), []
-            for i, (name, x, y, z) in enumerate(zip(names, got, ref, again)):
-                pdt = torch.bfloat16 if (matched and param_bf16) else torch.float32
-                err, tol = err_and_tol(x, y, dtype if i <= n_acts else pdt)
-                half = "fwd" if i == 0 else "bwd"
-                errs[half][dn] = max(errs[half][dn], err)
-                if err / tol >= worst[1]:
-                    worst = (name, err / tol, err)
-                if not (err <= tol and bool(torch.isfinite(x).all())):
-                    bad.append(f"{name} err {err:.3e} > tol {tol:.3e}")
-                if not torch.equal(x, z):
-                    bad.append(f"{name} differs between two runs")
-            line = (f"[kernel] {kernel} {label} {dn}: forward max_abs_err "
-                    f"{float((got[0].float() - ref[0].float()).abs().max()):.3e}")
-            if matched:
-                means = [float((got[i].float() - ref[i].float()).abs().mean()) for i in (0, 1)]
-                d32 = [float((got[i].float() - ref32[i].float()).abs().mean()) for i in (0, 1)]
-                # a cotangent that is zero on both sides has no relative
-                # distance (at N = 1 the scores' cotangents vanish: a softmax
-                # over one key is constant)
-                w32 = max((e / t for e, t in (err_and_tol(x, y, dtype) for x, y in zip(got, ref32))
-                           if t > 0), default=0.0)
-                line += (f" (against the rounding-matched plain versions; mean out {means[0]:.2e}, "
-                         f"dx {means[1]:.2e}; not gated: against the float32 plain version mean "
-                         f"out {d32[0]:.2e}, dx {d32[1]:.2e}, worst {w32:.2f} of the bf16 tolerance)")
-                errs.setdefault("bf16_mean", {"fwd": 0.0, "bwd": 0.0})
-                errs["bf16_mean"]["fwd"] = max(errs["bf16_mean"]["fwd"], means[0])
-                errs["bf16_mean"]["bwd"] = max(errs["bf16_mean"]["bwd"], means[1])
-            print(line + f"; {len(names) - 1} cotangents, worst {worst[0]} at {worst[1]:.3f} of its "
-                  f"tolerance (max_abs_err {worst[2]:.3e}); two backward runs bit-identical: "
-                  f"{not any('differs' in b for b in bad)} {'ok' if not bad else 'FAIL ' + '; '.join(bad)}")
-            if bad:
-                failures.append(f"{kernel} {label} {dn}")
-            del got, again, ref, ref32
-        torch.cuda.empty_cache()
-
-    def time_pair(fused, plain, acts, params, g, dtype):
-        """(kernel fwd, kernel bwd, plain fwd, plain bwd) in ms.  The plain
-        version runs in the activation dtype, as it would in the model."""
-        a = [t.to(dtype) for t in acts]
-        gg = g.to(dtype)
-        out = []
-        for fn in (fused, plain):
-            leaves = [t.clone().requires_grad_() for t in a] + [p.clone().requires_grad_() for p in params]
-            with torch.no_grad():
-                fwd = cuda_ms(lambda: fn(*leaves))
-            y = fn(*leaves)
-            bwd = cuda_ms(lambda: torch.autograd.grad(y, leaves, gg, retain_graph=True))
-            out += [fwd, bwd]
-            del y, leaves
-        torch.cuda.empty_cache()
-        return out[0], out[1], out[2], out[3]
+    hold = functools.partial(_hold, failures=failures)
+    time_pair = _time_pair
 
     # ---- K3 / K4: window attention ------------------------------------------
     errs = {h: {"float32": 0.0, "bfloat16": 0.0} for h in ("fwd", "bwd")}
@@ -1072,6 +1101,349 @@ def check_train_kernels(dev, card):
     return records
 
 
+# ---- phase 20: other widths (the demo NGswin's, the JAX tests', the
+# envelope's top) --------------------------------------------------------------
+# (label, windows, N, D, heads, head_dim, window side, mask grid)
+WIDTH_ATTN_CASES = (
+    ("demo", 512, 64, 32, 2, 16, 8, None),
+    ("demo shift", 512, 64, 32, 2, 16, 8, (8, 8)),
+    ("demo ngram n=2", 512, 4, 16, 2, 8, 2, None),
+    ("demo ngram n=3", 512, 9, 16, 2, 8, 3, None),
+    ("demo ngram n=1", 512, 1, 16, 2, 8, 1, None),
+    ("jax 3x10 shift", 512, 64, 32, 3, 10, 8, (8, 8)),
+    ("jax D16", 512, 64, 16, 2, 8, 8, None),
+    ("window 4 shift", 2048, 16, 32, 2, 16, 4, (16, 16)),
+    ("envelope top shift", 512, 64, 128, 4, 32, 8, (8, 8)),
+)
+# (label, rows, D, hidden)
+WIDTH_FFN_CASES = (("demo", 32768, 32, 64), ("demo ragged", 1000, 32, 64),
+                   ("envelope top", 8192, 128, 512))
+# (label, B, wh, ww, C, D, heads, head_dim)
+WIDTH_NGRAM_CASES = (("demo stage1", 8, 8, 8, 16, 32, 2, 8), ("demo odd", 3, 13, 7, 16, 32, 2, 8),
+                     ("envelope top", 8, 32, 32, 64, 128, 4, 16))
+
+
+def smem_count_failures():
+    """The shared memory each CUDA source launches its generic body with
+    (its ``tmar_*_smem`` query) against ``envelope``'s count, at every
+    geometry of phase 20 and the full-width NGswin's (its float32 runs the
+    generic bodies): -> the geometries where they differ."""
+    from tmar_torch.ops import envelope as env
+
+    built, bad = env.built_smem, []
+    for N, D, nh, hd in {(c[2], c[3], c[4], c[5]) for c in WIDTH_ATTN_CASES} | {
+            (64, 64, 6, 10), (64, 64, 4, 16), (4, 32, 6, 5), (9, 32, 4, 8), (1, 32, 6, 5)}:
+        hg_f, fwd, hg_b, bwd = env.attention_envelope(N, D, nh, hd)
+        if (built("attention_fwd", D, nh, hd, hg_f), built("attention_bwd", N, D, hd, hg_b)) \
+                != (fwd, bwd):
+            bad.append(("attention", N, D, nh, hd))
+    for _, _, D, H in WIDTH_FFN_CASES + (("flagship", 0, 64, 128),):
+        fwd, rows, bwd = env.ffn_envelope(D, H)
+        if (built("ffn_fwd", D, H), built("ffn_bwd", D, H, rows)) != (fwd, bwd):
+            bad.append(("ffn", D, H))
+    for C, D, nh, hd in {c[4:] for c in WIDTH_NGRAM_CASES} | {(32, 64, 6, 5), (32, 64, 4, 8)}:
+        want = env.ngram_envelope(C, D, nh, hd)
+        if (built("ngram_fwd", C, nh, hd), built("ngram_bwd", C, D, nh, hd, 1),
+                built("ngram_bwd", C, D, nh, hd, 2)) != want:
+            bad.append(("ngram", C, D, nh, hd))
+    return bad
+
+
+def check_width_kernels(dev, card):
+    """Phase 20a: the CUDA sources' shared-memory counts against
+    ``envelope``'s; K1, K3-K7 at other widths than the full-width NGswin's
+    (their generic bodies) against their plain versions, forward and every
+    cotangent, at f32 and bf16 (held as phase 5 holds them), each backward
+    twice and bit for bit; then each one's time (the launch alone) beside
+    its plain version's and its bound.  Returns {kernel record name: [one
+    row per geometry and dtype]}."""
+    import torch
+
+    from tmar_torch.ops import cuda_ngram
+    from tmar_torch.ops.attention import window_attention_math
+    from tmar_torch.ops.cuda_attention import (
+        _PlainAttention, fused_window_attention, window_attention_backward_math,
+        window_attention_kernel_math)
+    from tmar_torch.ops.cuda_ffn import (
+        _PlainFFN, ffn_backward_math, ffn_kernel_math, fused_residual_ffn)
+    from tmar_torch.ops.cuda_ngram import (
+        _PlainNGram, fused_ngram_context, ngram_context_kernel_backward_math,
+        ngram_context_kernel_math, ngram_context_math)
+    from tmar_torch.ops.ffn import ffn_math
+    from tmar_torch.ops.window import shift_mask_components
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    failures = [("shared memory counts differ", g) for g in smem_count_failures()]
+    print(f"[check] the generic bodies' shared memory, CUDA sources against envelope.py: "
+          f"{'equal' if not failures else failures}", flush=True)
+    rows = {k: [] for k in ("window_attention_fwd", "window_attention_bwd", "residual_ffn_fwd",
+                            "residual_ffn_bwd", "ngram_context", "ngram_context_bwd")}
+    hold = functools.partial(_hold, failures=failures)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale + shift
+
+    def record(kernel, label, dn, ms, plain_ms, bound, errs):
+        half = "fwd" if kernel in ("window_attention_fwd", "residual_ffn_fwd", "ngram_context") else "bwd"
+        rows[kernel].append({"geometry": label, "dtype": dn, "ms": ms, "plain_ms": plain_ms,
+                             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+                             "max_abs_err": errs[half][dn]})
+        print(f"[time] {kernel} {label} {dn}: kernel {ms:.4f} ms (launch alone), plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}); library: none (no "
+              f"single PyTorch call computes it) on {card}")
+
+    for label, nwin, N, D, nh, hd, ws, grid in WIDTH_ATTN_CASES:
+        A = nh * hd
+        acts = [randn(nwin, N, D)]
+        params = [randn(D, 3 * A, scale=0.1), randn(3 * A, scale=0.1),
+                  torch.rand(nh, 1, 1, generator=gen, device=dev) * 1.8 + 0.5,
+                  randn(nh, N, N, scale=0.2), randn(A, D, scale=0.1), randn(D, scale=0.1)]
+        g = randn(nwin, N, D)
+        mc = None if grid is None else (*shift_mask_components(ws, ws // 2), *grid)
+        name = f"{label} x=[{nwin}, {N}, {D}] heads={nh}x{hd} mask={'on' if grid else 'off'}"
+        errs = {h: {"float32": 0.0, "bfloat16": 0.0} for h in ("fwd", "bwd")}
+        hold("window_attention", name, ATTN_NAMES, 1,
+             lambda *a: fused_window_attention(*a, nh, mask_components=mc),
+             lambda *a: window_attention_math(
+                 a[0], a[1].to(a[0].dtype), a[2].to(a[0].dtype), a[3], a[4], a[5].to(a[0].dtype),
+                 a[6].to(a[0].dtype), nh, mask_components=mc),
+             acts, params, g, errs,
+             plain_bf16=lambda a, p, gg: [
+                 window_attention_kernel_math(a[0], *p, nh, mask_components=mc),
+                 *window_attention_backward_math(a[0], gg, *p, nh, mask_components=mc)],
+             param_bf16=N >= 32)
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            t = _time_pair(
+                lambda *a: fused_window_attention(*a, nh, mask_components=mc),
+                (lambda *a: _PlainAttention.apply(*a, nh, mc)) if dtype == torch.bfloat16 else
+                (lambda *a: window_attention_math(*a, nh, mask_components=mc)),
+                acts, params, g, dtype)
+            launch = attention_launch_ms(acts[0].to(dtype), params, g.to(dtype), nh, mc)
+            size = acts[0].to(dtype).element_size()
+            for i, kernel in enumerate(("window_attention_fwd", "window_attention_bwd")):
+                record(kernel, name, dn, launch[i], t[2 + i],
+                       bound_ms(*attention_work(nwin, N, D, nh, hd, size, i == 1), dn), errs)
+
+    for label, M, D, H in WIDTH_FFN_CASES:
+        acts = [randn(M, D), randn(M, D)]
+        params = [randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1), randn(D, H, scale=0.1),
+                  randn(H, scale=0.1), randn(H, D, scale=0.1), randn(D, scale=0.1),
+                  randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1)]
+        g = randn(M, D)
+        name = f"{label} x=[{M}, {D}] hidden={H}"
+        errs = {h: {"float32": 0.0, "bfloat16": 0.0} for h in ("fwd", "bwd")}
+        hold("residual_ffn", name, FFN_NAMES, 2, fused_residual_ffn, ffn_math, acts, params, g,
+             errs, plain_bf16=lambda a, p, gg: [ffn_kernel_math(a[0], a[1], *p),
+                                                *ffn_backward_math(a[0], a[1], *p, gg)],
+             param_bf16=True)
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            t = _time_pair(fused_residual_ffn,
+                           (lambda *a: _PlainFFN.apply(*a, 1e-5)) if dtype == torch.bfloat16
+                           else ffn_math, acts, params, g, dtype)
+            launch = ffn_launch_ms(acts[0].to(dtype), acts[1].to(dtype), params, g.to(dtype))
+            size = acts[0].to(dtype).element_size()
+            for i, kernel in enumerate(("residual_ffn_fwd", "residual_ffn_bwd")):
+                record(kernel, name, dn, launch[i], t[2 + i],
+                       bound_ms(*ffn_work(M, size, i == 1, D, H), dn), errs)
+
+    for label, B, wh, ww, C, D, nh, hd in WIDTH_NGRAM_CASES:
+        A = nh * hd
+        acts = [randn(B, wh, ww, C)]
+        params = [randn(C, 3 * A, scale=0.2), randn(3 * A, scale=0.1),
+                  torch.rand(nh, 1, 1, generator=gen, device=dev) * 1.8 + 0.5,
+                  randn(9, nh, scale=0.5), randn(A, C, scale=0.2), randn(C, scale=0.1),
+                  randn(2 * C, D, scale=0.2), randn(D, scale=0.1)]
+        g = randn(B, wh, ww, D)
+        name = f"{label} u=[{B}, {wh}, {ww}, {C}] D={D} heads={nh}x{hd}"
+        errs = {h: {"float32": 0.0, "bfloat16": 0.0} for h in ("fwd", "bwd")}
+        hold("ngram_context", name, NGRAM_NAMES, 1, lambda *a: fused_ngram_context(*a, nh),
+             lambda *a: ngram_context_math(*a, num_heads=nh), acts, params, g, errs,
+             plain_bf16=lambda a, p, gg: [
+                 ngram_context_kernel_math(a[0], *p, num_heads=nh),
+                 *ngram_context_kernel_backward_math(a[0], gg, *p, num_heads=nh)],
+             param_bf16=True)
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            t = _time_pair(lambda *a: fused_ngram_context(*a, nh),
+                           (lambda *a: _PlainNGram.apply(*a, nh)) if dtype == torch.bfloat16
+                           else (lambda *a: ngram_context_math(*a, num_heads=nh)),
+                           acts, params, g, dtype)
+            uu, gg = acts[0].to(dtype), g.to(dtype)
+            f = fused_ngram_context
+            before = (f.launches, f.backward_launches)
+            ops, out, ints = cuda_ngram._kernel_operands(uu, *params, nh)
+            k1 = cuda_ms(lambda: cuda_ngram._launch(ops, out, ints), iters=50)
+            k7 = cuda_ms(lambda: cuda_ngram._launch_backward(ops[:-1], gg, ints), iters=50)
+            f.launches, f.backward_launches = before
+            size = uu.element_size()
+            record("ngram_context", name, dn, k1, t[2],
+                   bound_ms(*ngram_work(B, wh, ww, nh, size, C, D, hd), dn), errs)
+            record("ngram_context_bwd", name, dn, k7, t[3],
+                   bound_ms(*ngram_bwd_work(B, wh, ww, nh, size, C, D, hd), dn), errs)
+    if failures:
+        raise SystemExit(f"kernel checks at other widths failed: {failures}")
+    return rows
+
+
+# the demo width (examples/demo_end_to_end.py, tests/test_ngswin_pallas.py)
+# on the shipped recipe, nothing else changed: 8 NSTBs of embed 32, 2 heads
+DEMO_OVERRIDES = {
+    "model.embed_dim": 32, "model.depths": [2, 2, 2], "model.num_heads": [2, 2, 2],
+    "model.dec_dim": 32, "model.dec_depths": 2, "model.dec_num_heads": 2,
+    "disc.base_channels": 16, "disc.num_scales": 2, "data.patch_size": 64,
+    "data.batch_size": 8, "radon.num_angles": 24, "data.dataset": "synthetic",
+}
+DEMO_PATCH = 64
+
+
+def demo_width(card):
+    """Phase 20b: the shipped recipe at the demo width through the Trainer
+    (K1, K7 and K3-K6 on their generic bodies, 8 launches each per step),
+    one f32 step on the card against the CPU, then the trained generator in
+    the unfused serving form (K1 + K3 + K5).  Returns the launches per step
+    of the timed run."""
+    import tempfile
+
+    import torch
+
+    from tmar_torch import NGswin, make_inference_fn
+    from tmar_torch.data import SyntheticMARDataset
+    from tmar_torch.train import Trainer
+
+    failures = []
+
+    def check(cond, what):
+        print(f"[check] demo width: {what}: {'ok' if cond else 'FAIL'}")
+        if not cond:
+            failures.append(what)
+
+    def demo_batch(n, device):
+        ds = SyntheticMARDataset(size=DEMO_PATCH, length=n, base_seed=7)
+        samples = [ds[i] for i in range(n)]
+        return {k: torch.from_numpy(np.stack([sm[k] for sm in samples])[..., None]).to(device)
+                for k in ("ct", "gt")}
+
+    counters = _train_counters()
+    with tempfile.TemporaryDirectory(prefix="tmar_demo_") as tmp:
+        cfg = _trainer_config(tmp, **{**DEMO_OVERRIDES, "data.samples_per_epoch": 4 * 8,
+                                       "num_epochs": 1, "run_name": "demo"})
+        m = cfg.model
+        check((m.embed_dim, tuple(m.depths), tuple(m.num_heads), m.dec_dim, m.dec_depths,
+               m.window_size, cfg.variant, cfg.radon.enabled, cfg.disc.fused_pairs)
+              == (32, (2, 2, 2), (2, 2, 2), 32, 2, 8, "full", True, True),
+              "the shipped recipe at embed 32, depths 2/2/2 + 2, heads 2, window 8, full variant, "
+              "sinogram term, fused_pairs")
+        trainer = Trainer(cfg)
+        for f, attr in counters.values():
+            setattr(f, attr, 0)
+        t0 = time.perf_counter()
+        trainer.fit(progress=False)
+        wall = time.perf_counter() - t0
+        steps = int(trainer.state.step)
+        fit_launches = {k: getattr(f, attr) for k, (f, attr) in counters.items()}
+        print(f"[demo] Trainer.fit: {steps} full steps of 8x{DEMO_PATCH}² bf16 at the demo width "
+              f"in {wall:.1f} s; launches {fit_launches} on {card}")
+        check(steps == 4 and all(np.isfinite(v) for h in trainer.history for v in h.values()),
+              "Trainer.fit takes 4 steps, every logged metric finite")
+        check([fit_launches[k] for k in counters] == [8 * steps] * 6 + [0],
+              "Trainer.fit: 8 launches per step of each of K3, K4, K5, K6, K1 and K7, none of K2")
+
+        # the step alone on one fixed batch already on the card
+        batch = demo_batch(8, "cuda")
+        for f, attr in counters.values():
+            setattr(f, attr, 0)
+        history, times = [], []
+        warmup, timed = 2, 10
+        for _ in range(warmup + timed):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.state, metrics = trainer.train_step(trainer.state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            history.append({k: float(v) for k, v in metrics.items()})
+        n = warmup + timed
+        per_step = {k: getattr(f, attr) / n for k, (f, attr) in counters.items()}
+        print("[demo] launches per step: " + ", ".join(f"{k} {v:g}" for k, v in per_step.items()))
+        check([per_step[k] for k in counters] == [8] * 6 + [0],
+              "8 launches per full step of each of K3, K4, K5, K6, K1 and K7, none of K2")
+        check(all(np.isfinite(v) for h in history for v in h.values()),
+              f"every metric finite at each of the {n} steps")
+        check(history[-1]["g_rec"] < history[0]["g_rec"],
+              f"g_rec falls on the fixed batch: {history[0]['g_rec']:.5f} -> {history[-1]['g_rec']:.5f}")
+        med = statistics.median(times[warmup:])
+        print(f"[time] train step (full, demo width) 8x{DEMO_PATCH}² bf16: median {med * 1e3:.2f} ms "
+              f"of {timed} steps (min {min(times[warmup:]) * 1e3:.2f}, max "
+              f"{max(times[warmup:]) * 1e3:.2f}), {1 / med:.3f} steps/s on {card}")
+        prof = profile_request(lambda: trainer.train_step(trainer.state, batch), card,
+                               label=f"train step (full, demo width) 8x{DEMO_PATCH}² bf16")
+        check(prof is not None, "the profiler saw the step's device time")
+        trained = trainer.generator
+        sd = {k: v.detach().float() for k, v in trained.state_dict().items()}
+        del trainer
+        torch.cuda.empty_cache()
+
+        # one float32 full step on the card against the same step on the CPU
+        cfg32 = _trainer_config(tmp, **{**DEMO_OVERRIDES, "bf16": False, "data.batch_size": 1,
+                                        "run_name": "demo_f32"})
+        on_cpu, on_card = Trainer(cfg32, device="cpu"), Trainer(cfg32)
+        b1 = demo_batch(1, "cpu")
+        _, cpu_m = on_cpu.train_step(on_cpu.state, b1)
+        _, gpu_m = on_card.train_step(on_card.state, {k: v.cuda() for k, v in b1.items()})
+        compare_step(on_cpu.state, on_card.state, cpu_m, gpu_m, "demo width f32 full step", check,
+                     patch=DEMO_PATCH)
+        del on_cpu, on_card
+        torch.cuda.empty_cache()
+
+    # the trained generator served in the unfused form (K1 + K3 + K5)
+    kw = dict(embed_dim=32, depths=(2, 2, 2), num_heads=(2, 2, 2), dec_dim=32, dec_depths=2,
+              dec_num_heads=2)
+    served = NGswin(dtype=torch.bfloat16, nstb_fused=False, **kw)
+    served.load_state_dict(sd)
+    x = np.random.default_rng(5).uniform(-1, 1, (8, 256, 256, 1)).astype(np.float32)
+    _reset_serving_counters()
+    fwd = make_inference_fn(served)
+    y = fwd(x)
+    got, _ = _read_serving_counters()
+    print(f"[demo] unfused 8x256² bf16 request: out {list(y.shape)} range [{y.min():.4f}, "
+          f"{y.max():.4f}]; launches {got}")
+    check(bool(np.isfinite(y).all()) and y.min() >= -1 and y.max() <= 1,
+          "the unfused request serves finite values in [-1, 1]")
+    check(got["ngram_context"] == 8 and got["window_attention_fwd"] == 8
+          and got["residual_ffn_fwd"] == 8 and got["nstb_map"] == 0 and got["nstb_tokens"] == 0,
+          "the unfused request launches 8 each of K1, K3 and K5, none of K2 or K8")
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fwd(x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"[time] unfused request (demo width) 8x256² bf16: median "
+          f"{statistics.median(times[1:]) * 1e3:.2f} ms of 5 on {card}")
+    x1 = x[:1, :128, :128]
+    f32_card = NGswin(dtype=torch.float32, nstb_fused=False, **kw)
+    f32_card.load_state_dict(sd)
+    f32_cpu = NGswin(dtype=torch.float32, nstb_fused=False, device="cpu", **kw)
+    f32_cpu.load_state_dict(sd)
+    d = float(np.abs(make_inference_fn(f32_card)(x1) - make_inference_fn(f32_cpu, "cpu")(x1)).max())
+    print(f"[check] demo width unfused f32 1x128², card vs CPU plain: max |diff| {d:.3e} tol 1e-4")
+    check(d <= 1e-4, "the unfused f32 request matches the CPU within 1e-4")
+    mapped = NGswin(dtype=torch.bfloat16, **kw)
+    mapped.load_state_dict(sd)
+    try:
+        make_inference_fn(mapped)(x1)
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    check("K2" in refused, f"the map form at this width raises NotImplementedError naming K2: "
+                           f"{refused[:100]!r}")
+    if failures:
+        raise SystemExit(f"demo-width checks failed: {failures}")
+    return {k: int(v) for k, v in per_step.items()}
+
+
 def _train_counters():
     from tmar_torch.ops import cuda_attention, cuda_ffn, cuda_ngram, cuda_nstb
 
@@ -1184,7 +1556,7 @@ def train(card):
     return launches, state.generator
 
 
-def compare_step(cpu_state, gpu_state, cpu_m, gpu_m, label, check):
+def compare_step(cpu_state, gpu_state, cpu_m, gpu_m, label, check, patch=None):
     """One train step on the card against the same step on the CPU: the loss
     terms and the gradients the step left in both networks."""
     worst = 0.0
@@ -1192,7 +1564,7 @@ def compare_step(cpu_state, gpu_state, cpu_m, gpu_m, label, check):
         a, b = float(gpu_m[k]), float(cpu_m[k])
         worst = max(worst, abs(a - b) / max(1.0, abs(b)))
     check(set(cpu_m) == set(gpu_m), f"{label}: the same loss terms on both sides")
-    print(f"[check] {label} at 1x{TRAIN_PATCH}², card vs CPU plain, {len(cpu_m)} loss terms "
+    print(f"[check] {label} at 1x{patch or TRAIN_PATCH}², card vs CPU plain, {len(cpu_m)} loss terms "
           f"({' '.join(sorted(cpu_m))}): worst |diff| / max(1, |ref|) {worst:.3e} tol 1e-4")
     check(worst <= 1e-4, f"{label} loss terms, card vs CPU plain")
     for name, a_net, b_net in (("generator", gpu_state.generator, cpu_state.generator),
@@ -2551,7 +2923,10 @@ def finetune_phases(card):
             check(not any(launches.values()), f"finetune {arch}: no hand-written kernel launched "
                   f"(0 of each of the {len(counters)} counted)")
 
-            # one float32 step on the card against the same step on the CPU
+            # one float32 step on the card against the same step on the CPU,
+            # from weights drawn from a stated seed (the global generator's
+            # state here depends on the phases before)
+            torch.manual_seed(18)
             nets, start = {}, None
             for dev in ("cpu", "cuda"):
                 proj = Radon(FINETUNE_PATCH, angles, device=dev)
@@ -2693,6 +3068,11 @@ def main() -> int:
     finetune_phases(card)
     dcgan_phase(card)
     print(f"[time] phases 17-19 (v1, finetune, dcgan) in {time.perf_counter() - t0:.1f} s on {card}")
+    t0 = time.perf_counter()
+    width_rows = check_width_kernels(dev, card)
+    demo_launches = demo_width(card)
+    print(f"[time] phase 20 (other widths, the demo width) in {time.perf_counter() - t0:.1f} s on "
+          f"{card}")
     for name, rec in records.items():
         # launches: the count of the first path above that ran the kernel
         # (serving, composition training, the trainer's full step)
@@ -2700,6 +3080,8 @@ def main() -> int:
         rec["launches_full_step_path"] = full_launches.get(name, 0)
         rec["launches_spineweb_fit"] = data_launches.get(name, 0)
         rec["launches_v1_step_path"] = v1_launches.get(name, 0)
+        rec["launches_demo_step_path"] = demo_launches.get(name, 0)
+        rec["widths"] = width_rows.get(name, [])
         rec["card"] = card
     print(json.dumps({"kernels": list(records.values())}))
     print(f"{card}")

@@ -42,9 +42,12 @@ MEAN_TOL = 5e-5
 NAMES = ["out", "dx", "dwqkv", "dbqkv", "dlogit_scale", "dbias", "dwproj", "dbproj"]
 # (N, D, heads, head_dim, mask): the full-width NGswin's two 64-token head
 # layouts on a 2x2 window grid (its last row, last column and corner all
-# masked), and the 4-token n-gram windows of its 6-head stages
+# masked), and the 4-token n-gram windows of its 6-head stages; then the
+# demo NGswin's (embed 32, 2 heads): its 64-token windows, masked, and its
+# 4-token n-gram windows on 16 channels
 CASES = [(64, 64, 6, 10, False), (64, 64, 6, 10, True), (64, 64, 4, 16, False),
-         (64, 64, 4, 16, True), (4, 32, 6, 5, False)]
+         (64, 64, 4, 16, True), (4, 32, 6, 5, False),
+         (64, 32, 2, 16, True), (4, 16, 2, 8, False)]
 
 
 def _bf16(a):

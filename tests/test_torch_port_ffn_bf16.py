@@ -9,16 +9,17 @@ attn_out, w1 and w2 cast to bf16, the output cotangent bf16, the biases and
 LayerNorm parameters float32.  The port's side is
 ``cuda_ffn.ffn_kernel_math`` and ``ffn_backward_math`` on the float32
 weights, which round where those kernels round (and where K5's and K6's
-bfloat16 bodies round on the card).  The two then differ by summation
-order, the JAX kernels' rational erf (|err| < 1.5e-7) and the bf16
-roundings that such differences flip.  M = 1000 is ragged against the JAX
-kernel's 128-row tiles and the CUDA kernels' 64-row tiles.
+bfloat16 bodies round on the card), and compute the GELU and its
+derivative with the kernels' rational erf (``_erf_approx``, which
+``ffn.erf_as_kernels`` and ``csrc/gelu.cuh`` also compute).  M = 1000 is ragged against the JAX kernel's 128-row tiles and the CUDA
+kernels' 64-row tiles.
 
 Tolerance: every tensor within max 2^-7·max|ref| of its own tensor; the
 output, dx and dattn_out within mean 5e-5; each parameter cotangent within
 mean 2e-5·max|ref|.  The float32 plain version on the same bf16 inputs
-misses the mean bounds (the rounding is applied); at float32 the explicit
-backward equals autograd of ``ffn_math`` (1e-5·max(1, max|ref|))."""
+misses the mean bounds (the rounding is applied); at float32 the plain
+pair is ``ffn_math`` and its autograd but for the erf (1e-5·max(1,
+max|ref|))."""
 
 import functools
 
@@ -39,12 +40,20 @@ NAMES = ["out", "dx", "dattn_out", "dg1", "db1", "dw1", "dbw1", "dw2", "dbw2", "
 BF16_ARGS = (0, 1, 4, 6)  # x, attn_out, w1, w2: the arguments the block casts
 
 
+def _as_written(f, *args):
+    """f(*args) under ``jax.jit``, compiled with XLA's excess precision off.
+    With it on (XLA's default) the CPU compiler may keep float32 between
+    fused operations where the interpreted kernel rounds to bf16, at some
+    shapes only (the n-gram context at two heads): off, every rounding the
+    kernel writes happens, as it does on the TPU."""
+    return jax.jit(f).lower(*args).compile({"xla_allow_excess_precision": False})(*args)
+
+
 @functools.lru_cache(maxsize=None)
-def _case(M, seed=0):
+def _case(M, D=64, H=128, seed=0):
     """Inputs (numpy float32), the output cotangent, and the JAX kernels'
     output and cotangents as float32 numpy."""
     rng = np.random.default_rng(seed)
-    D, H = 64, 128
 
     def n(*s):
         return rng.normal(size=s).astype(np.float32)
@@ -54,9 +63,13 @@ def _case(M, seed=0):
     g = n(M, D)
     jargs = [jnp.asarray(a, jnp.bfloat16) if i in BF16_ARGS else jnp.asarray(a)
              for i, a in enumerate(args)]
-    out, vjp = jax.vjp(
-        lambda *a: jfused(*a, block_rows=128, interpret=True, backward="pallas"), *jargs)
-    cots = vjp(jnp.asarray(g, jnp.bfloat16))
+
+    def fwd_bwd(gg, *a):
+        out, vjp = jax.vjp(
+            lambda *b: jfused(*b, block_rows=128, interpret=True, backward="pallas"), *a)
+        return out, vjp(gg)
+
+    out, cots = _as_written(fwd_bwd, jnp.asarray(g, jnp.bfloat16), *jargs)
     ref = [np.asarray(t.astype(jnp.float32)) for t in (out, *cots)]
     return args, g, ref
 
@@ -78,9 +91,13 @@ def _errors(got, ref):
     return float(d.max()), float(d.mean()), float(np.abs(ref).max())
 
 
-@pytest.mark.parametrize("M", [1000, 64])
-def test_ffn_bf16_plain_matches_pallas_interpret(M):
-    args, g, ref = _case(M)
+@pytest.mark.parametrize("M,D,H", [
+    pytest.param(1000, 64, 128, id="1000"), pytest.param(64, 64, 128, id="64"),
+    # the demo NGswin's width (embed 32, mlp_ratio 2), a ragged last tile
+    pytest.param(1000, 32, 64, id="1000-32-64"),
+])
+def test_ffn_bf16_plain_matches_pallas_interpret(M, D, H):
+    args, g, ref = _case(M, D, H)
     got = _port(args, g)
     assert all(t.dtype == torch.bfloat16 for t in got[:3])
     assert all(t.dtype == torch.float32 for t in got[3:])
@@ -124,13 +141,18 @@ def test_float32_plain_on_bf16_inputs_misses_the_mean_bounds():
 
 
 def test_float32_plain_pair_is_ffn_math_and_its_autograd():
+    """At float32 the plain pair is ``ffn_math`` and its autograd with the
+    kernels' erf in the GELU (|err| < 1.5e-7): the output within
+    1e-5·max(1, max|ref|) of ``ffn_math``, and the explicit backward within
+    that of autograd of ``ffn_math`` and of ``ffn_kernel_math``."""
     args, g, _ = _case(64)
     leaves = [t.requires_grad_() for t in _torch_args(args, torch.float32)]
-    out = ffn_math(*leaves)
-    ref = torch.autograd.grad(out, leaves, torch.from_numpy(g))
     got = _port(args, g, dtype=torch.float32)
-    assert torch.equal(got[0], out.detach())
-    for name, a, b in zip(NAMES[1:], got[1:], ref):
-        assert a.dtype == torch.float32, name
-        err = float((a - b).abs().max())
-        assert err <= 1e-5 * max(1.0, float(b.abs().max())), (name, err)
+    for plain in (ffn_math, cuda_ffn.ffn_kernel_math):
+        out = plain(*leaves)
+        ref = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+        for name, a, b in zip(NAMES, got, [out.detach(), *ref]):
+            assert a.dtype == torch.float32, name
+            err = float((a - b).abs().max())
+            assert err <= 1e-5 * max(1.0, float(b.abs().max())), (plain.__name__, name, err)
+    assert torch.equal(got[0], cuda_ffn.ffn_kernel_math(*leaves).detach())

@@ -48,9 +48,8 @@ def _t(rng, *shape, scale=1.0):
     return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
 
 
-def ngram_inputs(rng, nh, B, wh, ww):
-    C, D = 32, 64
-    A = (C // nh) * nh
+def ngram_inputs(rng, nh, B, wh, ww, C=32, D=64, hd=None):
+    A = (hd or C // nh) * nh
     return _t(rng, B, wh, ww, C), [
         _t(rng, C, 3 * A, scale=0.2), _t(rng, 3 * A, scale=0.1), _t(rng, nh, 1, 1),
         _t(rng, 9, nh, scale=0.5), _t(rng, A, C, scale=0.2), _t(rng, C, scale=0.1),
@@ -82,16 +81,24 @@ def _tol(ref, dtype):
     return 1e-4 * max(1.0, scale) if dtype == torch.float32 else 2.0**-7 * scale
 
 
+# other widths (C, D, heads x head_dim): the demo width's stages (C 16, D 32,
+# 2 x 8), the envelope's top (C 64, D 128, 4 x 16), a head_dim of 5 at C 20,
+# eight heads at C 64
+NGRAM_WIDTHS = [(16, 32, 2, 8), (64, 128, 4, 16), (20, 40, 4, 5), (64, 128, 8, 8)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nh,B,wh,ww", [
-    (6, 2, 8, 12), (4, 1, 5, 37), (6, 1, 2, 2), (4, 8, 16, 16),
-    (4, 2, 2, 2), (6, 3, 13, 7), (4, 3, 13, 7), (6, 8, 16, 16), (6, 8, 64, 64),
-])
-def test_ngram_context_kernel_matches_plain(cuda, dtype, nh, B, wh, ww):
+@pytest.mark.parametrize("nh,B,wh,ww,C,D,hd", [
+    (6, 2, 8, 12, 32, 64, 5), (4, 1, 5, 37, 32, 64, 8), (6, 1, 2, 2, 32, 64, 5),
+    (4, 8, 16, 16, 32, 64, 8), (4, 2, 2, 2, 32, 64, 8), (6, 3, 13, 7, 32, 64, 5),
+    (4, 3, 13, 7, 32, 64, 8), (6, 8, 16, 16, 32, 64, 5), (6, 8, 64, 64, 32, 64, 5),
+] + [(nh, B, wh, ww, C, D, hd) for C, D, nh, hd in NGRAM_WIDTHS
+     for B, wh, ww in ((8, 32, 32), (3, 13, 7))])
+def test_ngram_context_kernel_matches_plain(cuda, dtype, nh, B, wh, ww, C, D, hd):
     """At float32 against ``ngram_context_math``; at bfloat16 against the
     rounding-matched ``ngram_context_kernel_math`` on the same inputs."""
     rng = np.random.default_rng(0)
-    u, params = ngram_inputs(rng, nh, B, wh, ww)
+    u, params = ngram_inputs(rng, nh, B, wh, ww, C, D, hd)
     u = u.to(cuda, dtype)
     params = _to(tuple(params), cuda)
     before = cuda_ngram.fused_ngram_context.launches
@@ -100,7 +107,7 @@ def test_ngram_context_kernel_matches_plain(cuda, dtype, nh, B, wh, ww):
     assert cuda_ngram.fused_ngram_context.launches == before + 1
     ref = (cuda_ngram.ngram_context_math if dtype == torch.float32
            else cuda_ngram.ngram_context_kernel_math)(u, *params, num_heads=nh).float()
-    assert got.dtype == dtype and got.shape == (B, wh, ww, 64)
+    assert got.dtype == dtype and got.shape == (B, wh, ww, D)
     err = float((got.float() - ref).abs().max())
     assert err <= _tol(ref, dtype), err
 
@@ -172,17 +179,19 @@ def _ngram_kernel_and_plain(u, g, params, nh):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nh,B,wh,ww", [
-    (6, 8, 16, 16), (4, 8, 8, 8), (4, 8, 4, 4),   # the 8x128² train step's grids
-    (6, 1, 13, 7), (4, 2, 5, 37),                 # odd grids, a ragged tile
-    (6, 2, 2, 2), (4, 1, 2, 2),                   # both reflections hit index 0 and 1
-    (6, 1, 2, 19), (4, 1, 18, 2),
-    (4, 8, 16, 16), (6, 3, 13, 7), (4, 3, 13, 7),
-])
-def test_ngram_context_backward_kernel_matches_plain(cuda, dtype, nh, B, wh, ww):
+@pytest.mark.parametrize("nh,B,wh,ww,C,D,hd", [
+    (6, 8, 16, 16, 32, 64, 5), (4, 8, 8, 8, 32, 64, 8),  # the 8x128² train step's grids
+    (4, 8, 4, 4, 32, 64, 8),
+    (6, 1, 13, 7, 32, 64, 5), (4, 2, 5, 37, 32, 64, 8),  # odd grids, a ragged tile
+    (6, 2, 2, 2, 32, 64, 5), (4, 1, 2, 2, 32, 64, 8),    # both reflections hit 0 and 1
+    (6, 1, 2, 19, 32, 64, 5), (4, 1, 18, 2, 32, 64, 8),
+    (4, 8, 16, 16, 32, 64, 8), (6, 3, 13, 7, 32, 64, 5), (4, 3, 13, 7, 32, 64, 8),
+] + [(nh, B, wh, ww, C, D, hd) for C, D, nh, hd in NGRAM_WIDTHS
+     for B, wh, ww in ((8, 32, 32), (2, 2, 2), (3, 13, 7))])
+def test_ngram_context_backward_kernel_matches_plain(cuda, dtype, nh, B, wh, ww, C, D, hd):
     rng = np.random.default_rng(8)
-    u, params = ngram_inputs(rng, nh, B, wh, ww)
-    g = _t(rng, B, wh, ww, 64).to(cuda, dtype)
+    u, params = ngram_inputs(rng, nh, B, wh, ww, C, D, hd)
+    g = _t(rng, B, wh, ww, D).to(cuda, dtype)
     u = u.to(cuda, dtype)
     params = [p.to(cuda) for p in params]
     f = cuda_ngram.fused_ngram_context
@@ -250,8 +259,7 @@ def attention_inputs(rng, nwin, N, D, nh, hd):
     return acts, params
 
 
-def ffn_inputs(rng, M):
-    D, H = 64, 128
+def ffn_inputs(rng, M, D=64, H=128):
     acts = [_t(rng, M, D), _t(rng, M, D), _t(rng, M, D)]  # x, attn_out, output cotangent
     params = [
         1 + _t(rng, D, scale=0.1), _t(rng, D, scale=0.1), _t(rng, D, H, scale=0.1),
@@ -283,6 +291,14 @@ def _hold(names, n_acts, got, ref, dtype, param_dtype=torch.float32):
     # the n-gram composition path at n = 3 (seven windows to a tile, the last
     # ragged) and n = 1
     (37, 9, 32, 6, 5, None), (100, 9, 32, 4, 8, None), (70, 1, 32, 6, 5, None),
+    # other widths: the demo width's 8x8 windows with and without the mask,
+    # its n-gram windows, the JAX tests' head layouts, window 4, the
+    # envelope's top
+    (24, 64, 32, 2, 16, None), (24, 64, 32, 2, 16, (2, 3)), (64, 4, 16, 2, 8, None),
+    (63, 9, 16, 2, 8, None), (70, 1, 16, 2, 8, None), (12, 64, 32, 3, 10, (2, 2)),
+    (12, 64, 16, 2, 8, None), (36, 16, 32, 2, 16, (3, 3)), (8, 64, 128, 4, 32, (2, 2)),
+    # many narrow heads: 16 x 8 at D 128, 12 x 5 at D 60
+    (8, 64, 128, 16, 8, (2, 2)), (40, 9, 60, 12, 5, None),
 ])
 def test_window_attention_kernels_match_plain(cuda, dtype, nwin, N, D, nh, hd, grid):
     """At float32 against autograd of the plain math; at bfloat16 against
@@ -292,7 +308,8 @@ def test_window_attention_kernels_match_plain(cuda, dtype, nwin, N, D, nh, hd, g
     (x, g), params = attention_inputs(rng, nwin, N, D, nh, hd)
     x, g = x.to(cuda, dtype), g.to(cuda, dtype)
     params = [p.to(cuda) for p in params]
-    mc = None if grid is None else (*shift_mask_components(8, 4), *grid)
+    ws = int(round(N ** 0.5))  # the window's side
+    mc = None if grid is None else (*shift_mask_components(ws, ws // 2), *grid)
     f = cuda_attention.fused_window_attention
     before = (f.launches, f.backward_launches)
     got = _forward_and_cotangents(lambda *a: f(*a, nh, mask_components=mc), [x], params, g)
@@ -313,13 +330,19 @@ def test_window_attention_kernels_match_plain(cuda, dtype, nwin, N, D, nh, hd, g
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("M", [1, 15, 1000, 131072])
-def test_residual_ffn_kernels_match_plain(cuda, dtype, M):
+@pytest.mark.parametrize("M,D,H", [
+    (1, 64, 128), (15, 64, 128), (1000, 64, 128), (131072, 64, 128),
+    # other widths: the demo width (a ragged last tile), the JAX test's, the
+    # envelope's top (32-row tiles in the backward)
+    (1000, 32, 64), (32768, 32, 64), (77, 32, 64), (1000, 128, 512), (130, 16, 48),
+    (500, 96, 384),
+])
+def test_residual_ffn_kernels_match_plain(cuda, dtype, M, D, H):
     """At float32 against autograd of the plain math; at bfloat16 against
     the rounding-matched plain forward and explicit backward on the same
     bf16 inputs (M = 131072: the 8x128² train step's stage 1)."""
     rng = np.random.default_rng(5)
-    (x, ao, g), params = ffn_inputs(rng, M)
+    (x, ao, g), params = ffn_inputs(rng, M, D, H)
     x, ao, g = (t.to(cuda, dtype) for t in (x, ao, g))
     params = [p.to(cuda) for p in params]
     f = cuda_ffn.fused_residual_ffn
@@ -357,14 +380,85 @@ def test_window_attention_kernels_at_saturated_logit_scale(cuda):
 
 
 def test_training_kernels_refuse_other_geometries(cuda):
+    """Past the envelope, and only there, the wrappers refuse with the limit
+    named: head_dim past 32, a window past 64 tokens, a tile past the card's
+    shared memory."""
     rng = np.random.default_rng(7)
-    (x, _), params = attention_inputs(rng, 4, 16, 32, 2, 16)
-    with pytest.raises(NotImplementedError, match="window attention kernels"):
+    (x, _), params = attention_inputs(rng, 4, 16, 80, 2, 40)
+    with pytest.raises(NotImplementedError, match="head_dim 40"):
         cuda_attention.fused_window_attention(x.to(cuda), *[p.to(cuda) for p in params], 2)
-    z = torch.zeros(8, 32, device=cuda)
-    with pytest.raises(NotImplementedError, match="residual FFN kernels"):
+    (x, _), params = attention_inputs(rng, 1, 81, 32, 2, 16)
+    with pytest.raises(NotImplementedError, match="N=81"):
+        cuda_attention.fused_window_attention(x.to(cuda), *[p.to(cuda) for p in params], 2)
+    z = torch.zeros(8, 512, device=cuda)
+    with pytest.raises(NotImplementedError, match="bytes of shared memory"):
         cuda_ffn.fused_residual_ffn(z, z, *[torch.zeros(s, device=cuda) for s in
-                                            ((32,), (32,), (32, 64), (64,), (64, 32), (32,), (32,), (32,))])
+                                            ((512,), (512,), (512, 2048), (2048,), (2048, 512),
+                                             (512,), (512,), (512,))])
+
+
+@pytest.mark.parametrize("D,nh,hd,N", [
+    (32, 2, 16, 64), (32, 3, 10, 64), (16, 2, 8, 64), (32, 2, 16, 16), (16, 2, 8, 4),
+    (16, 2, 8, 9), (16, 2, 8, 1), (64, 6, 10, 64), (64, 4, 16, 64), (128, 4, 32, 64),
+    (96, 3, 5, 49), (48, 3, 10, 36),
+])
+def test_generic_bodies_launch_with_the_envelopes_shared_memory(cuda, D, nh, hd, N):
+    """Each CUDA source's count of its generic body's shared memory equals
+    ``envelope``'s, at the tile sizes the envelope picks, so a geometry it
+    admits launches."""
+    from tmar_torch.ops import envelope as env
+
+    built = env.built_smem
+    H = 4 * D
+    _, rows, _ = env.ffn_envelope(D, H)
+    assert built("ffn_fwd", D, H) == env.ffn_fwd_bytes(D, H)
+    assert built("ffn_bwd", D, H, rows) == env.ffn_bwd_bytes(D, H, rows)
+    hg_f, fwd, hg_b, bwd = env.attention_envelope(N, D, nh, hd)
+    assert built("attention_fwd", D, nh, hd, hg_f) == fwd
+    assert built("attention_bwd", N, D, hd, hg_b) == bwd
+    C = D // 2
+    fwd, p1, p2 = env.ngram_envelope(C, D, nh, hd)
+    assert built("ngram_fwd", C, nh, hd) == fwd
+    assert (built("ngram_bwd", C, D, nh, hd, 1), built("ngram_bwd", C, D, nh, hd, 2)) == (p1, p2)
+
+
+# the demo width (examples/demo_end_to_end.py, tests/test_ngswin_pallas.py)
+# on the shipped recipe: 8 NSTBs of embed 32 and 2 heads
+DEMO_OVERRIDES = {
+    "model.embed_dim": 32, "model.depths": [2, 2, 2], "model.num_heads": [2, 2, 2],
+    "model.dec_dim": 32, "model.dec_depths": 2, "model.dec_num_heads": 2,
+    "disc.base_channels": 16, "disc.num_scales": 2, "data.patch_size": 64,
+    "data.batch_size": 8, "radon.num_angles": 24, "data.dataset": "synthetic",
+}
+
+
+def test_demo_width_full_step_launches_each_training_kernel_8_times(cuda, tmp_path):
+    """One ``full`` step of the shipped recipe at the demo width on 8x64²
+    bf16 launches each of K1, K7 and K3-K6 eight times (one forward and one
+    backward kernel per NSTB), no whole-block kernel, and gives finite
+    metrics."""
+    from tmar_torch.data import SyntheticMARDataset
+    from tmar_torch.train import Trainer, config_path, load_config, resolve_variant
+
+    cfg = load_config(config_path("train_syndeeplesion.yaml"),
+                      {**DEMO_OVERRIDES, "run_dir": str(tmp_path)})
+    trainer = Trainer(resolve_variant(cfg, cfg.variant))
+    ds = SyntheticMARDataset(size=64, length=8, base_seed=7)
+    samples = [ds[i] for i in range(8)]
+    batch = {k: torch.from_numpy(np.stack([s[k] for s in samples])[..., None]).to(cuda)
+             for k in ("ct", "gt")}
+    counters = [(cuda_ngram.fused_ngram_context, "launches"),
+                (cuda_ngram.fused_ngram_context, "backward_launches"),
+                (cuda_attention.fused_window_attention, "launches"),
+                (cuda_attention.fused_window_attention, "backward_launches"),
+                (cuda_ffn.fused_residual_ffn, "launches"),
+                (cuda_ffn.fused_residual_ffn, "backward_launches"),
+                (cuda_nstb.fused_nstb_map, "launches"), (cuda_nstb.fused_nstb, "launches")]
+    before = [getattr(f, a) for f, a in counters]
+    trainer.state, metrics = trainer.train_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    assert [getattr(f, a) - b for (f, a), b in zip(counters, before)] == [8] * 6 + [0, 0]
+    assert all(np.isfinite(float(v)) for v in metrics.values())
 
 
 # ---- K8: the token-level whole NSTB ------------------------------------------

@@ -17,6 +17,7 @@ from tmar.checkpoint import import_ngswin_state_dict
 from tmar.eval.inference import tiled_eval as jtiled_eval
 from tmar.nn import NGswin as FlaxNGswin
 from tmar_torch import NGswin, from_flax_params, load_pth, make_inference_fn, tiled_eval
+from tmar_torch.checkpoint import to_flax_params
 
 TOL = dict(atol=5e-5, rtol=1e-4)
 FLAGSHIP = pathlib.Path(__file__).parents[1] / "reports" / "compare_r4" / "flagship.pth"
@@ -91,3 +92,60 @@ def test_tiled_eval_matches_jax(shape, tile_batch):
     np.testing.assert_array_equal(
         tiled_eval(forward, x, 64, 32, tile_batch), jtiled_eval(forward, x, 64, 32, tile_batch)
     )
+
+
+# two encoder stages at embed 16: the SCDP bottleneck's depthwise conv takes
+# the 16 + 4 = 20 concatenated channels in (1 + 4)·16/16 = 5 groups of 4
+TWO_STAGES = dict(
+    ngrams=(2, 2, 2), embed_dim=16, depths=(2, 2), num_heads=(2, 2),
+    dec_dim=16, dec_depths=2, dec_num_heads=2, window_size=8,
+)
+
+
+@pytest.fixture(scope="module")
+def two_stages():
+    """The flax tree's shapes from ``jax.eval_shape`` (no init compile),
+    filled with seeded normal weights, and the port's model holding them."""
+    shapes = jax.eval_shape(FlaxNGswin(**TWO_STAGES).init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 64, 64, 1)))["params"]
+    rng = np.random.default_rng(3)
+    params = jax.tree_util.tree_map(
+        lambda s: (0.2 * rng.standard_normal(s.shape)).astype(np.float32), shapes)
+    model = NGswin(**TWO_STAGES, device="cpu")
+    model.load_state_dict(from_flax_params(params))
+    return params, model
+
+
+def test_two_stage_ngswin_matches_flax(two_stages):
+    params, model = two_stages
+    assert model.bottleneck.depthwise.weight.shape == (5, 4, 3, 3)
+    x = np.random.default_rng(4).uniform(-1, 1, (2, 64, 64, 1)).astype(np.float32)
+    ref = np.asarray(jax.jit(FlaxNGswin(**TWO_STAGES).apply)({"params": params}, jnp.asarray(x)))
+    with torch.no_grad():
+        got = model(torch.from_numpy(x)).numpy()
+    assert got.shape == x.shape
+    np.testing.assert_allclose(got, ref, **TOL)
+
+
+def test_to_flax_params_inverts_from_flax_params(two_stages):
+    params, model = two_stages
+    back = to_flax_params(model.state_dict())
+    flat = dict(jax.tree_util.tree_leaves_with_path(params))
+    flat_back = dict(jax.tree_util.tree_leaves_with_path(back))
+    assert set(flat) == set(flat_back)
+    for k, v in flat.items():
+        np.testing.assert_array_equal(flat_back[k], v, err_msg=jax.tree_util.keystr(k))
+
+
+def test_four_stage_bottleneck_raises_in_both_packages():
+    """At four stages of embed 64 the formula gives 340 groups for 85
+    concatenated channels: flax's conv asserts, and so does the port's
+    bottleneck, at the same point of the forward."""
+    cfg = dict(ngrams=(2,) * 5, embed_dim=64, depths=(1,) * 4, num_heads=(2,) * 4,
+               dec_dim=32, dec_depths=1, dec_num_heads=2, window_size=4)
+    x = np.zeros((1, 64, 64, 1), np.float32)
+    with pytest.raises(AssertionError):
+        jax.eval_shape(FlaxNGswin(**cfg).init, jax.random.PRNGKey(0), jnp.asarray(x))
+    with pytest.raises(AssertionError, match="340 groups do not divide 85 input channels"), \
+            torch.no_grad():
+        NGswin(**cfg, device="cpu")(torch.from_numpy(x))

@@ -5,6 +5,7 @@ from tmar_torch.checkpoint.convert import (
     disc_from_flax,
     from_flax_params,
     load_pth,
+    to_flax_params,
 )
 from tmar_torch.checkpoint.io import CheckpointManager
 
@@ -14,4 +15,5 @@ __all__ = [
     "disc_from_flax",
     "from_flax_params",
     "load_pth",
+    "to_flax_params",
 ]

@@ -9,6 +9,9 @@
   ``to_target_before_shuffle`` -> ``to_target.before_shuffle``; Linear kernels
   [in, out] -> weight [out, in]; HWIO conv kernels -> [out, in/g, kh, kw];
   LayerNorm scale -> weight.  The port keeps its own copy of this mapping.
+  ``to_flax_params`` is its inverse.  A grouped conv's kernel crosses as
+  [3, 3, in/groups, out] <-> [out, in/groups, 3, 3] (the SCDP bottleneck's
+  depthwise conv takes 20 inputs in 5 groups at two encoder stages).
 * ``disc_from_flax`` does the same for a flax ``MultiScaleDiscriminator``:
   the ``params`` tree (HWIO conv kernels -> OIHW weights) and the ``sn``
   collection, whose power-iteration vectors ``u``/``v`` are copied, never
@@ -90,6 +93,39 @@ def from_flax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         else:
             raise ValueError(f"unmapped flax leaf {'.'.join(path)!r}")
     return sd
+
+
+def _flax_path(module: str):
+    """The inverse of ``_module_path``: ``blocks.3`` -> ``blocks_3``,
+    ``to_target.before_shuffle`` -> ``to_target_before_shuffle``."""
+    out = []
+    for p in module.split("."):
+        if out and out[-1] == "blocks" and p.isdigit():
+            out[-1] = f"blocks_{p}"
+        elif out and out[-1] == "to_target":
+            out[-1] = f"to_target_{p}"
+        else:
+            out.append(p)
+    return out
+
+
+def to_flax_params(state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of ``from_flax_params``: the port's NGswin ``state_dict`` ->
+    a flax param tree of float32 numpy arrays."""
+    tree: Dict[str, Any] = {}
+    for key, t in state_dict.items():
+        mod, leaf = key.rsplit(".", 1)
+        v = t.detach().float().cpu().numpy()
+        if leaf == "weight":
+            leaf = "kernel" if v.ndim > 1 else "scale"
+            v = v.transpose(2, 3, 1, 0) if v.ndim == 4 else v.T
+        elif leaf not in ("bias", "logit_scale", "relative_position_bias_table"):
+            raise ValueError(f"unmapped state_dict entry {key!r}")
+        node = tree
+        for p in _flax_path(mod):
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(v, dtype=np.float32)
+    return tree
 
 
 def disc_from_flax(params: Mapping[str, Any], sn: Mapping[str, Any] = None) -> Dict[str, torch.Tensor]:

@@ -92,6 +92,86 @@ __device__ __forceinline__ void mm_each(const float (&acc)[ceil16(M)][ceil16(NN)
   }
 }
 
+// ---- the generic bodies: every dimension at run time ----------------------
+//
+// mm_rt calls f(m, n, Σ_{k < K} a(m, k) · b(k, n)) for every m < M, n < N,
+// by a block of THREADS threads: the output is cut into 64 x 64 tiles and
+// thread (rg, cg) owns the elements (rg + 16 i, cg + 16 j) of each, so an
+// element has the same owner in every call with the same M and N (f may add
+// into a per-block sum without atomics).  a and b are functors reading shared
+// or device memory and rounding where the caller rounds.
+template <typename FA, typename FB, typename F>
+__device__ __forceinline__ void mm_rt(int M, int N, int K, FA a, FB b, F f) {
+  const int cg = threadIdx.x & 15, rg = threadIdx.x >> 4;
+  for (int m0 = 0; m0 < M; m0 += 64)
+    for (int n0 = 0; n0 < N; n0 += 64) {
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+#pragma unroll 2
+      for (int k = 0; k < K; ++k) {
+        float av[4], bv[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int m = m0 + rg + 16 * i;
+          av[i] = m < M ? a(m, k) : 0.f;
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + cg + 16 * j;
+          bv[j] = n < N ? b(k, n) : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = m0 + rg + 16 * i;
+        if (m >= M) continue;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = n0 + cg + 16 * j;
+          if (n < N) f(m, n, acc[i][j]);
+        }
+      }
+    }
+}
+
+// (mean, 1 / sqrt(var + eps)) of the n values v(c), c < n, of one row, by
+// one warp (two passes, as the plain LayerNorm)
+template <typename F>
+__device__ __forceinline__ float2 row_stats(int n, float eps, F v) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.f;
+  for (int c = lane; c < n; c += 32) s += v(c);
+  const float mu = warp_sum(s) / n;
+  float q = 0.f;
+  for (int c = lane; c < n; c += 32) {
+    const float d = v(c) - mu;
+    q = fmaf(d, d, q);
+  }
+  return make_float2(mu, rsqrtf(warp_sum(q) / n + eps));
+}
+
+// out[e] = sum_b part[b][e], in block order, rounded to bf16 values for e
+// in [lo1, hi1) or [lo2, hi2) when round_bf16: the reduce of the generic
+// backward bodies, whose weight cotangents the JAX kernels cast after their
+// sums over rows
+__global__ void reduce_partials_rounded(const float* __restrict__ part, float* __restrict__ out,
+                                        int nblocks, int size, int lo1, int hi1, int lo2,
+                                        int hi2, int round_bf16) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= size) return;
+  float s = 0.f;
+  for (int b = 0; b < nblocks; ++b) s += part[(size_t)b * size + e];
+  if (round_bf16 && ((e >= lo1 && e < hi1) || (e >= lo2 && e < hi2))) s = round_as<__nv_bfloat16>(s);
+  out[e] = s;
+}
+
 // out[e] = sum_b part[b][e], in block order: the second pass over the
 // per-block partial sums of the parameter cotangents.  No float atomics, so
 // two runs give the same bits.

@@ -33,6 +33,7 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "gelu.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -46,10 +47,6 @@ constexpr int WELEMS = HID * LW1 + D * LW2;
 
 constexpr int LDT = D + 8;     // a strip: 16 rows x D channels in bf16, [16][LDT]
 constexpr int STRIP = 16 * LDT;
-
-__device__ __forceinline__ float gelu(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
 
 __device__ __forceinline__ __nv_bfloat16 to_bf16(float v) { return __float2bfloat16(v); }
 __device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) { return v; }
@@ -188,7 +185,7 @@ __device__ __forceinline__ void fc(const float (&y)[8][4], float (&f)[8][4],
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) hid[hf][e] = gelu(hid[hf][e]);
+      for (int e = 0; e < 4; ++e) hid[hf][e] = act::gelu(hid[hf][e]);
     uint32_t ha[4];
     to_a(ha, hid[0], hid[1]);
     on_chunk(hc, ha);

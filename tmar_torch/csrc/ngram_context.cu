@@ -5,8 +5,8 @@
 // tmar_torch/ops/cuda_ngram.py:ngram_context_kernel_math (at float32 the
 // same function as ngram_context_math).
 //
-// Input is the unigram grid u [B, wh, ww, C=32]; output the context
-// [B, wh, ww, D=64].  Per grid cell, for each of the two directions:
+// Input is the unigram grid u [B, wh, ww, C]; output the context
+// [B, wh, ww, D] (D = 2C in the model).  Per grid cell, for each of the two directions:
 //   * the four tokens of the 2x2 sliding window over the sequence-reflect
 //     padded grid: forward (self, right, down, down-right), where the last
 //     row/column reflect to index wh-2 / ww-2; backward (up-left, up, left,
@@ -22,8 +22,10 @@
 // (a few MB, about 2 µs at 3.35 TB/s) and does ~0.4 GFLOP, so it is bound
 // by latency and instruction throughput.  There is no sequential grid to
 // carry halos from one step to the next as on the TPU, so a block
-// recomputes the q/k/v of its tile's halo.  Two bodies, picked by the I/O dtype:
-//   * bfloat16: the tensor-core body (ngram_mma.cuh).  A persistent block
+// recomputes the q/k/v of its tile's halo.  Three bodies, picked by the I/O
+// dtype and the widths:
+//   * bfloat16 at the full-width NGswin's C = 32, D = 64, heads 6 x 5 or
+//     4 x 8: the tensor-core body (ngram_mma.cuh).  A persistent block
 //     stages the weights once, rounded to bf16 from the float32 parameters,
 //     then walks tiles of S = 4 grid rows x TJ = 16 cells (2 x 8 on a grid
 //     too small to fill the card that way): u of the 6 x 18 staged
@@ -32,28 +34,33 @@
 //     (cell, direction, head) on the CUDA cores, then the projection of both
 //     directions' mean tokens and the [64, 64] merge on mma.sync.  It rounds
 //     where _ngram_stripe_kernel rounds at bf16 (ngram_mma.cuh lists where).
-//   * float32: one 256-thread block per 32 cells of a grid row, staging the
-//     three input rows it needs (3·(TJ+2) positions for TJ outputs); every
-//     product in float32 on the CUDA cores, the exactness path of the 1e-4
-//     checks.
+//   * float32 at the same widths and heads: a body templated on the heads
+//     (below), one block per 32 cells of a grid row, weights staged in
+//     shared memory;
+//   * every other case (float32 at every other width, bfloat16 at any
+//     other): the generic body, which takes C, D, the heads and head_dim
+//     (<= 32) at run time: one 256-thread block per 32 cells of a grid row,
+//     staging the three input rows it needs (3·(TJ+2) positions for TJ
+//     outputs), weights read from device memory; every product in float32
+//     on the CUDA cores, rounding at bfloat16 where
+//     ngram_context_kernel_math does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
 
+#include "common.cuh"
 #include "ngram_mma.cuh"
 
 namespace {
 
-constexpr int C = 32;        // unigram channels (D / 2)
-constexpr int D = 64;        // context channels
-constexpr int TJ = 32;       // grid cells per block
-constexpr int NPOS = 3 * (TJ + 2);
-constexpr int THREADS = 256;
+using namespace tmar;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+constexpr int C = 32;        // the tensor-core body's unigram channels (D / 2)
+constexpr int D = 64;        // and context channels
+constexpr int TJ = 32;       // the generic body's grid cells per block
+constexpr int NPOS = 3 * (TJ + 2);
 
 // sequence-reflect index map of the halo: -1 -> 1, n -> n-2; positions past
 // n only feed cells outside the grid and are clamped to stay in bounds
@@ -63,6 +70,7 @@ __device__ __forceinline__ int reflect(int r, int n) {
   return r < n ? r : n - 1;
 }
 
+// ---- the templated float32 body: the full-width NGswin's widths ------------
 template <int NH, int HD>
 struct Layout {
   static constexpr int A = NH * HD;
@@ -239,6 +247,134 @@ __global__ void __launch_bounds__(THREADS) ngram_context_kernel(
   }
 }
 
+// ---- the generic body: any (C, D, heads, head_dim <= HDM) -------------------
+// One 256-thread block per TJ cells of a grid row stages u of the three
+// input rows it needs (3·(TJ+2) positions for TJ outputs), then q/k/v of
+// them, the mean tokens and ctx of its cells in shared memory, sized at
+// launch (tmar_torch/ops/envelope.py: ngram_fwd_bytes); the weights are read
+// from device memory, rounded to T's values as they are read.  At bfloat16
+// it rounds where ngram_context_kernel_math (and _ngram_stripe_kernel)
+// round: v, each square before a head's sum, √n2 + 1e-12 and its
+// reciprocal, q_n and k_n, each q·k product before its head's sum, the
+// softmax weights, the token mean, ctx and the output; at float32 nowhere.
+template <int HDM, typename T>
+__global__ void __launch_bounds__(THREADS) ngram_context_rt(
+    const T* __restrict__ u, const float* __restrict__ wqkv, const float* __restrict__ bqkv,
+    const float* __restrict__ ls, const float* __restrict__ table,
+    const float* __restrict__ wproj, const float* __restrict__ bproj,
+    const float* __restrict__ wmerge, const float* __restrict__ bmerge, T* __restrict__ out,
+    int wh, int ww, int C, int D, int nh, int hd) {
+  const int A = nh * hd, A3 = 3 * A, LQ = A3 + 1, W2 = TJ + 2;
+  extern __shared__ float smem[];
+  float* s_u = smem;                  // [NPOS][C]
+  float* s_qkv = s_u + NPOS * C;      // [NPOS][LQ]: q_n, k_n, v
+  float* s_mean = s_qkv + NPOS * LQ;  // [TJ][2][A]
+  float* s_ctx = s_mean + TJ * 2 * A;  // [TJ][2][C]
+  const int tid = threadIdx.x;
+  const int j0 = blockIdx.x * TJ;
+  const int i = blockIdx.y;
+  const int b = blockIdx.z;
+  const int cells = ww - j0 < TJ ? ww - j0 : TJ;
+  auto r = [](float v) { return round_as<T>(v); };
+
+  // rows i-1, i, i+1 and columns j0-1 .. j0+TJ, reflect-mapped
+  for (int e = tid; e < NPOS * C; e += THREADS) {
+    const int pos = e / C, c = e % C;
+    const int gr = reflect(i - 1 + pos / W2, wh);
+    const int gc = reflect(j0 - 1 + pos % W2, ww);
+    s_u[e] = to_f(u[(((size_t)b * wh + gr) * ww + gc) * C + c]);
+  }
+  __syncthreads();
+
+  // q, k, v of every staged position, v rounded
+  mm_rt(NPOS, A3, C, [&](int m, int k) { return s_u[m * C + k]; },
+        [&](int k, int n) { return r(__ldg(wqkv + (size_t)k * A3 + n)); },
+        [&](int m, int n, float v) {
+          v += r(__ldg(bqkv + n));
+          s_qkv[m * LQ + n] = n >= 2 * A ? r(v) : v;
+        });
+  __syncthreads();
+
+  // per-head L2 normalisation of q (heads 0..nh-1) and k (nh..2nh-1)
+  for (int e = tid; e < NPOS * 2 * nh; e += THREADS) {
+    float* t = s_qkv + (e / (2 * nh)) * LQ + (e % (2 * nh)) * hd;
+    float n2 = 0.f;
+    for (int d = 0; d < hd; ++d) n2 += r(t[d] * t[d]);
+    const float inv = r(1.f / r(sqrtf(n2) + 1e-12f));
+    for (int d = 0; d < hd; ++d) t[d] = r(t[d] * inv);
+  }
+  __syncthreads();
+
+  // one (cell, direction, head) per thread: 4x4 scores, softmax, AV, mean
+  for (int e = tid; e < TJ * 2 * nh; e += THREADS) {
+    const int jj = e / (2 * nh), dir = (e / nh) % 2, h = e % nh;
+    float* mo = s_mean + (jj * 2 + dir) * A + h * hd;
+    if (jj >= cells) {
+      for (int d = 0; d < hd; ++d) mo[d] = 0.f;
+      continue;
+    }
+    const int lc = jj + 1;  // staged column of the cell itself
+    int tok[4];
+    if (dir == 0) {
+      tok[0] = W2 + lc, tok[1] = W2 + lc + 1, tok[2] = 2 * W2 + lc, tok[3] = 2 * W2 + lc + 1;
+    } else {
+      tok[0] = lc - 1, tok[1] = lc, tok[2] = W2 + lc - 1, tok[3] = W2 + lc;
+    }
+    const float sc = expf(fminf(__ldg(ls + h), ngram::LN100));
+    float acc[HDM];
+#pragma unroll
+    for (int d = 0; d < HDM; ++d) acc[d] = 0.f;
+#pragma unroll
+    for (int p = 0; p < 4; ++p) {
+      const float* qp = s_qkv + tok[p] * LQ + h * hd;
+      float s[4];
+      float m = -INFINITY;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float* kq = s_qkv + tok[q] * LQ + A + h * hd;
+        float dot = 0.f;
+        for (int d = 0; d < hd; ++d) dot += r(qp[d] * kq[d]);
+        // the 2x2 relative-position bias of (p, q), from the [9, nh] table
+        const int idx = ((p >> 1) - (q >> 1) + 1) * 3 + ((p & 1) - (q & 1) + 1);
+        s[q] = dot * sc + __ldg(table + idx * nh + h);
+        m = fmaxf(m, s[q]);
+      }
+      float z = 0.f;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        s[q] = expf(s[q] - m);
+        z += s[q];
+      }
+      const float iz = 1.f / z;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float* vq = s_qkv + tok[q] * LQ + 2 * A + h * hd;
+        const float a = r(s[q] * iz);
+#pragma unroll
+        for (int d = 0; d < HDM; ++d)
+          if (d < hd) acc[d] = fmaf(a, vq[d], acc[d]);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < HDM; ++d)
+      if (d < hd) mo[d] = r(acc[d] * 0.25f);
+  }
+  __syncthreads();
+
+  // ctx = T(mean @ T(wproj) + T(bproj)), each direction's mean token
+  mm_rt(cells * 2, C, A, [&](int m, int k) { return s_mean[m * A + k]; },
+        [&](int k, int n) { return r(__ldg(wproj + (size_t)k * C + n)); },
+        [&](int m, int n, float v) { s_ctx[m * C + n] = r(v + r(__ldg(bproj + n))); });
+  __syncthreads();
+
+  // merge: [ctx_f | ctx_b] @ T(wmerge) + b_merge
+  mm_rt(cells, D, 2 * C, [&](int m, int k) { return s_ctx[m * 2 * C + k]; },
+        [&](int k, int n) { return r(__ldg(wmerge + (size_t)k * D + n)); },
+        [&](int m, int n, float v) {
+          store(out + (((size_t)b * wh + i) * ww + j0 + m) * D + n, v + __ldg(bmerge + n));
+        });
+}
+
 // ---- the bfloat16 body: tensor cores (ngram_mma.cuh) -----------------------
 template <int NH, int HD, int S, int TJ, int WARPS>
 struct MmaTile {
@@ -382,7 +518,6 @@ int launch_mma(const void* const* p, void* out, int B, int wh, int ww, int sms,
   return launch_tile<NH, HD, 2, 8, 4>(p, out, B, wh, ww, sms, stream);
 }
 
-// ---- the float32 body --------------------------------------------------------
 template <int NH, int HD>
 int launch_f32(const void* const* p, void* out, int B, int wh, int ww, cudaStream_t stream) {
   const size_t smem = Layout<NH, HD>::FLOATS * sizeof(float);
@@ -398,37 +533,78 @@ int launch_f32(const void* const* p, void* out, int B, int wh, int ww, cudaStrea
   return (int)cudaGetLastError();
 }
 
-template <int NH, int HD>
-int launch(const void* const* p, void* out, int B, int wh, int ww, int is_bf16, int sms,
-           cudaStream_t stream) {
-  if (is_bf16) return launch_mma<NH, HD>(p, out, B, wh, ww, sms, stream);
-  return launch_f32<NH, HD>(p, out, B, wh, ww, stream);
+// ---- the generic body's launch ----------------------------------------------
+// its shared memory (tmar_torch/ops/envelope.py: ngram_fwd_bytes counts the
+// same)
+size_t rt_bytes(int C_, int nh, int hd) {
+  const size_t A = (size_t)nh * hd;
+  return 4 * (NPOS * C_ + NPOS * (3 * A + 1) + TJ * 2 * A + TJ * 2 * C_);
+}
+
+template <int HDM, typename T>
+int launch_rt(const void* const* p, void* out, int B, int wh, int ww, int C_, int D_, int nh,
+              int hd, cudaStream_t stream) {
+  const size_t bytes = rt_bytes(C_, nh, hd);
+  auto kern = ngram_context_rt<HDM, T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((ww + TJ - 1) / TJ, wh, B);
+  kern<<<grid, THREADS, bytes, stream>>>(
+      (const T*)p[0], (const float*)p[1], (const float*)p[2], (const float*)p[3],
+      (const float*)p[4], (const float*)p[5], (const float*)p[6], (const float*)p[7],
+      (const float*)p[8], (T*)out, wh, ww, C_, D_, nh, hd);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_generic(const void* const* p, void* out, int B, int wh, int ww, int C_, int D_,
+                   int nh, int hd, cudaStream_t s) {
+  if (hd <= 8) return launch_rt<8, T>(p, out, B, wh, ww, C_, D_, nh, hd, s);
+  if (hd <= 16) return launch_rt<16, T>(p, out, B, wh, ww, C_, D_, nh, hd, s);
+  return launch_rt<32, T>(p, out, B, wh, ww, C_, D_, nh, hd, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// u [B, wh, ww, 32] (float32 or bfloat16, per is_bf16) -> out [B, wh, ww, 64]
-// of the same type.  Weights are float32 in the [in, out] layout: wqkv
-// [32, 3A], bqkv [3A], logit_scale [nh] (raw: the kernel takes
+// u [B, wh, ww, C] (float32 or bfloat16, per is_bf16) -> out [B, wh, ww, D]
+// of the same type.  Weights are float32 in the [in, out] layout, contiguous:
+// wqkv [C, 3A], bqkv [3A], logit_scale [nh] (raw: the kernel takes
 // exp(min(logit_scale, ln 100))), table [9, nh] (the 2x2 relative-position
-// bias table), wproj [A, 32], bproj [32], wmerge [64, 64], bmerge [64].
-// bfloat16 runs the tensor-core body (u and out 16-byte aligned; a
-// persistent grid of at most `sms` times the blocks an SM holds), float32 the
-// float32 body.  Requires wh >= 2 and ww >= 2.  Returns a cudaError_t code
-// (0 on a clean launch).
+// bias table), wproj [A, C], bproj [C], wmerge [2C, D], bmerge [D].
+// bfloat16 at C = 32, D = 64 and heads 6 x 5 or 4 x 8 runs the tensor-core
+// body (u and out 16-byte aligned; a persistent grid of at most `sms` times
+// the blocks an SM holds); every other case the generic body (head_dim <=
+// 32).  Requires wh >= 2 and ww >= 2.  Returns a cudaError_t code (0 on a
+// clean launch).
 int tmar_ngram_context(const void* u, const void* wqkv, const void* bqkv,
                        const void* logit_scale, const void* table, const void* wproj,
                        const void* bproj, const void* wmerge, const void* bmerge, void* out,
-                       int B, int wh, int ww, int num_heads, int head_dim, int is_bf16,
-                       int sms, void* stream) {
-  if (B < 1 || wh < 2 || ww < 2 || sms < 1) return (int)cudaErrorInvalidValue;
+                       int B, int wh, int ww, int C_, int D_, int num_heads, int head_dim,
+                       int is_bf16, int sms, void* stream) {
+  if (B < 1 || wh < 2 || ww < 2 || sms < 1 || C_ < 1 || D_ < 1 || num_heads < 1 ||
+      head_dim < 1 || head_dim > 32)
+    return (int)cudaErrorInvalidValue;
   const void* p[9] = {u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bmerge};
   cudaStream_t s = (cudaStream_t)stream;
-  if (num_heads == 6 && head_dim == 5) return launch<6, 5>(p, out, B, wh, ww, is_bf16, sms, s);
-  if (num_heads == 4 && head_dim == 8) return launch<4, 8>(p, out, B, wh, ww, is_bf16, sms, s);
-  return (int)cudaErrorInvalidValue;
+  if (C_ == C && D_ == D) {  // the full-width NGswin's widths
+    if (num_heads == 6 && head_dim == 5)
+      return is_bf16 ? launch_mma<6, 5>(p, out, B, wh, ww, sms, s)
+                     : launch_f32<6, 5>(p, out, B, wh, ww, s);
+    if (num_heads == 4 && head_dim == 8)
+      return is_bf16 ? launch_mma<4, 8>(p, out, B, wh, ww, sms, s)
+                     : launch_f32<4, 8>(p, out, B, wh, ww, s);
+  }
+  if (is_bf16)
+    return launch_generic<__nv_bfloat16>(p, out, B, wh, ww, C_, D_, num_heads, head_dim, s);
+  return launch_generic<float>(p, out, B, wh, ww, C_, D_, num_heads, head_dim, s);
+}
+
+// The shared memory, in bytes, of the generic body's launch.
+long long tmar_ngram_context_smem(int C_, int num_heads, int head_dim) {
+  return (long long)rt_bytes(C_, num_heads, head_dim);
 }
 
 const char* tmar_ngram_context_error(int err) {

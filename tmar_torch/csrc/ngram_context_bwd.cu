@@ -7,8 +7,8 @@
 // the same function as ngram_context_backward_math, autograd through
 // ngram_context_math).
 //
-// Given the unigram grid u [B, wh, ww, C=32], the context's cotangent
-// g [B, wh, ww, D=64] and the forward's parameters, it recomputes q, k, v,
+// Given the unigram grid u [B, wh, ww, C], the context's cotangent
+// g [B, wh, ww, D] and the forward's parameters, it recomputes q, k, v,
 // the per-head L2 norms and both directions' 4x4 softmaxes, and emits
 //   du [B, wh, ww, C] in u's type, and in float32, summed over the grid:
 //   dwqkv [C, 3A], dbqkv [3A], dlogit_scale [nh] (the cotangent of the
@@ -53,10 +53,14 @@
 //   Each block writes its sums to its own slot of the partials, and one
 //   reduce (ngram_bwd_reduce) adds both passes' slots in block order: three
 //   launches.  Two runs give the same bits.  Two bodies, picked by the I/O
-//   dtype: float32 computes in float32 on the CUDA cores (pass 1 over tiles
-//   of 16 cells of a grid row, pass 2 over 32 positions); bfloat16 puts the
-//   products on the tensor cores and rounds where _ngram_bwd_stripe_kernel
-//   rounds at bf16 (below, "the bfloat16 body").
+//   dtype and the widths: bfloat16 at the full-width NGswin's (C = 32,
+//   D = 64, heads 6 x 5 or 4 x 8) puts the products on the tensor cores and
+//   rounds where _ngram_bwd_stripe_kernel rounds at bf16 (below, "the
+//   bfloat16 body"); every other case runs the generic body, which takes C,
+//   D, the heads and head_dim (<= 32) at run time (pass 1 over tiles of 16
+//   cells of a grid row, pass 2 over 32 positions, weights read from device
+//   memory), products on the CUDA cores in float32, rounding at bfloat16
+//   where ngram_context_kernel_backward_math does.
 
 #include "common.cuh"
 #include "ngram_mma.cuh"
@@ -65,12 +69,12 @@ namespace {
 
 using namespace tmar;
 
-constexpr int C = 32;   // unigram channels (D / 2)
-constexpr int D = 64;   // context channels
-constexpr int TJ = 16;  // pass 1: cells per tile
+constexpr int C = 32;   // the tensor-core body's unigram channels (D / 2)
+constexpr int D = 64;   // and context channels
+constexpr int TJ = 16;  // the generic body's pass 1: cells per tile
 constexpr int W2 = TJ + 2;
 constexpr int NPOS = 3 * W2;
-constexpr int TP = 32;  // pass 2: positions per tile
+constexpr int TP = 32;  // the generic body's pass 2: positions per tile
 
 // sequence-reflect index map of the halo: -1 -> 1, n -> n-2; positions past
 // n only feed cells outside the grid and are clamped to stay in bounds
@@ -80,19 +84,34 @@ __device__ __forceinline__ int reflect(int r, int n) {
   return r < n ? r : n - 1;
 }
 
+// One block's slots of partial sums, the layout of the reduced result and
+// its parts: pass 2's sums first, then pass 1's, at runtime widths (C, D,
+// nh, hd); the tensor-core body's Geo below is this at C = 32, D = 64.
+struct Slots {
+  int A, A3, nh, C, D;
+  int R_DBQKV, P2SIZE;                                            // pass 2: dwqkv [C][A3], dbqkv
+  int Q_DBIAS, Q_DWPROJ, Q_DBPROJ, Q_DWM, Q_DBM, P1SIZE;          // pass 1: dscale [nh] first
+  __host__ __device__ Slots(int C_, int D_, int nh_, int hd) : nh(nh_), C(C_), D(D_) {
+    A = nh * hd;
+    A3 = 3 * A;
+    R_DBQKV = C * A3;
+    P2SIZE = R_DBQKV + A3;
+    Q_DBIAS = nh;                 // [16][nh]
+    Q_DWPROJ = Q_DBIAS + 16 * nh;  // [A][C]
+    Q_DBPROJ = Q_DWPROJ + A * C;
+    Q_DWM = Q_DBPROJ + C;          // [2C][D]
+    Q_DBM = Q_DWM + 2 * C * D;
+    P1SIZE = Q_DBM + D;
+  }
+  // the reduced result: dwqkv, dbqkv, dlogit_scale, dtable [9][nh], dwproj,
+  // dbproj, dwmerge, dbmerge
+  __host__ __device__ int total() const { return P2SIZE + 10 * nh + A * C + C + 2 * C * D + D; }
+};
+
+// The tensor-core body's pass-1 slots: Slots' at C = 32, D = 64, as constants.
 template <int NH, int HD>
 struct Geo {
   static constexpr int A = NH * HD;
-  static constexpr int A3 = 3 * A;
-  // shared-memory rows are padded to an odd length so that reads along
-  // either index are free of bank conflicts
-  static constexpr int LQ = A3 + 1;  // q/k/v rows, and wqkv [C][LQ]
-  static constexpr int LP = C + 1;   // wproj [A][LP]
-  static constexpr int LM = D + 1;   // wmerge [2C][LM]
-  // the reduced result: pass 2's sums first, then pass 1's
-  static constexpr int R_DWQKV = 0;  // [C][A3]
-  static constexpr int R_DBQKV = R_DWQKV + C * A3;
-  static constexpr int P2SIZE = R_DBQKV + A3;
   static constexpr int Q_DSCALE = 0;
   static constexpr int Q_DBIAS = Q_DSCALE + NH;        // [16][NH]
   static constexpr int Q_DWPROJ = Q_DBIAS + 16 * NH;   // [A][C]
@@ -100,92 +119,58 @@ struct Geo {
   static constexpr int Q_DWM = Q_DBPROJ + C;           // [2C][D]
   static constexpr int Q_DBM = Q_DWM + 2 * C * D;
   static constexpr int P1SIZE = Q_DBM + D;
-  // pass 1 shared memory, in floats
-  static constexpr int WQKV = 0;
-  static constexpr int BQKV = WQKV + C * LQ;
-  static constexpr int WPROJ = BQKV + A3;
-  static constexpr int BPROJ = WPROJ + A * LP;
-  static constexpr int WM = BPROJ + C;
-  static constexpr int SCALE = WM + 2 * C * LM;
-  static constexpr int BIAS = SCALE + 8;               // [NH][16]
-  static constexpr int U = BIAS + NH * 16;
-  static constexpr int QKV = U + NPOS * C;
-  static constexpr int G = QKV + NPOS * LQ;            // [TJ][D]
-  static constexpr int DCTX = G + TJ * D;              // [TJ][2][C]
-  static constexpr int DACC = DCTX + TJ * 2 * C;       // [TJ][2][A]
-  static constexpr int MEAN = DACC + TJ * 2 * A;       // [TJ][2][A]
-  static constexpr int CTX = MEAN + TJ * 2 * A;        // [TJ][2][C]
-  static constexpr int DS = CTX + TJ * 2 * C;          // [TJ][2][16][NH]
-  static constexpr int DSC = DS + TJ * 2 * 16 * NH;    // [TJ][2][NH]
-  static constexpr int ACC1 = DSC + TJ * 2 * NH;       // the block's sums
-  static constexpr int FLOATS1 = ACC1 + P1SIZE;
-  static constexpr size_t BYTES1 = FLOATS1 * sizeof(float);
-  // pass 2 shared memory, in floats
-  static constexpr int T_WQKV = 0;                     // [C][LQ]
-  static constexpr int T_BQKV = T_WQKV + C * LQ;
-  static constexpr int T_U = T_BQKV + A3;              // [TP][LP]
-  static constexpr int T_QK = T_U + TP * LP;           // [TP][LQ]: raw q, k
-  static constexpr int T_DQKV = T_QK + TP * LQ;        // [TP][LQ]
-  static constexpr int ACC2 = T_DQKV + TP * LQ;
-  static constexpr int FLOATS2 = ACC2 + P2SIZE;
-  static constexpr size_t BYTES2 = FLOATS2 * sizeof(float);
-  static_assert(BYTES1 <= MAX_SMEM && BYTES2 <= MAX_SMEM, "tile does not fit in shared memory");
 };
 
-// ---- pass 1: one owner per (cell, direction, token) slot -------------------
-template <int NH, int HD, typename T>
-__global__ void __launch_bounds__(THREADS, 1) ngram_bwd_cells_kernel(
+// the 2x2 relative-position bias of (query p, key q) of head h, from the
+// [9, nh] table
+__device__ __forceinline__ float pair_bias(const float* table, int p, int q, int h, int nh) {
+  return __ldg(table + (((p >> 1) - (q >> 1) + 1) * 3 + ((p & 1) - (q & 1) + 1)) * nh + h);
+}
+
+// ---- the generic body, pass 1: one owner per (cell, direction, token) slot --
+// A block owns tiles of TJ cells of a grid row; it stages u of the 3 x (TJ+2)
+// positions they read (reflect-mapped) and g of its cells, recomputes the
+// forward as ngram_context.cu's generic body does, and writes each window's
+// d(qn), d(kn), d(v) into its own slot of ws.  Its sums of dscale, dbias,
+// dwproj, dbproj, dwmerge and dbmerge go into its slot of part (zeroed
+// first), each element by one owner thread.  Weights are read from device
+// memory, rounded to T's values.  At bfloat16 it rounds where
+// ngram_context_kernel_backward_math does; at float32 nowhere.
+template <int HDM, typename T>
+__global__ void __launch_bounds__(THREADS) ngram_bwd_cells_rt(
     const T* __restrict__ u, const T* __restrict__ g, const float* __restrict__ wqkv,
     const float* __restrict__ bqkv, const float* __restrict__ ls,
     const float* __restrict__ table, const float* __restrict__ wproj,
     const float* __restrict__ bproj, const float* __restrict__ wmerge,
-    float* __restrict__ ws, float* __restrict__ part, int B, int wh, int ww) {
-  using L = Geo<NH, HD>;
-  constexpr int A = L::A, A3 = L::A3, LQ = L::LQ, LP = L::LP, LM = L::LM;
+    float* __restrict__ ws, float* __restrict__ part, int B, int wh, int ww, int C, int D,
+    int nh, int hd) {
+  const Slots P(C, D, nh, hd);
+  const int A = P.A, A3 = P.A3, LQ = A3 + 1;
   extern __shared__ float smem[];
-  float* s_wqkv = smem + L::WQKV;
-  float* s_bqkv = smem + L::BQKV;
-  float* s_wproj = smem + L::WPROJ;
-  float* s_bproj = smem + L::BPROJ;
-  float* s_wm = smem + L::WM;
-  float* s_scale = smem + L::SCALE;
-  float* s_bias = smem + L::BIAS;
-  float* s_u = smem + L::U;
-  float* s_qkv = smem + L::QKV;
-  float* sG = smem + L::G;
-  float* sDctx = smem + L::DCTX;
-  float* sDacc = smem + L::DACC;
-  float* sMean = smem + L::MEAN;
-  float* sCtx = smem + L::CTX;
-  float* sDS = smem + L::DS;
-  float* sDSC = smem + L::DSC;
-  float* sAcc = smem + L::ACC1;
-
+  float* s_u = smem;                      // [NPOS][C]
+  float* s_qkv = s_u + NPOS * C;          // [NPOS][LQ]: q_n, k_n, v (T's values)
+  float* sG = s_qkv + NPOS * LQ;          // [TJ][D]
+  float* sDctx = sG + TJ * D;             // [TJ][2][C]
+  float* sDacc = sDctx + TJ * 2 * C;      // [TJ][2][A]
+  float* sMean = sDacc + TJ * 2 * A;      // [TJ][2][A]
+  float* sCtx = sMean + TJ * 2 * A;       // [TJ][2][C]
+  float* sDS = sCtx + TJ * 2 * C;         // [TJ][2][16][nh]
+  float* sDSC = sDS + TJ * 2 * 16 * nh;   // [TJ][2][nh]
   const int tid = threadIdx.x;
-  for (int e = tid; e < C * A3; e += THREADS) s_wqkv[(e / A3) * LQ + e % A3] = wqkv[e];
-  for (int e = tid; e < A3; e += THREADS) s_bqkv[e] = bqkv[e];
-  for (int e = tid; e < A * C; e += THREADS) s_wproj[(e / C) * LP + e % C] = wproj[e];
-  for (int e = tid; e < C; e += THREADS) s_bproj[e] = bproj[e];
-  for (int e = tid; e < 2 * C * D; e += THREADS) s_wm[(e / D) * LM + e % D] = wmerge[e];
-  if (tid < NH) s_scale[tid] = expf(fminf(ls[tid], ngram::LN100));
-  // 2x2 relative-position bias: s_bias[h][p][q] = table[idx(p, q)][h]
-  for (int e = tid; e < NH * 16; e += THREADS) {
-    const int h = e / 16, p = (e / 4) % 4, q = e % 4;
-    const int idx = ((p >> 1) - (q >> 1) + 1) * 3 + ((p & 1) - (q & 1) + 1);
-    s_bias[e] = table[idx * NH + h];
-  }
-  for (int e = tid; e < L::P1SIZE; e += THREADS) sAcc[e] = 0.f;
+  float* my = part + (size_t)blockIdx.x * P.P1SIZE;
+  for (int e = tid; e < P.P1SIZE; e += THREADS) my[e] = 0.f;
   __syncthreads();
+  auto r = [](float v) { return round_as<T>(v); };
 
   const int segs = (ww + TJ - 1) / TJ;
-  const int tiles = B * wh * segs;
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const int j0 = (tile % segs) * TJ;
-    const int i = (tile / segs) % wh;
-    const int b = tile / (segs * wh);
+  const long tiles = (long)B * wh * segs;
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int j0 = (int)(tile % segs) * TJ;
+    const int i = (int)((tile / segs) % wh);
+    const int b = (int)(tile / ((long)segs * wh));
     const size_t row = ((size_t)b * wh + i) * ww;  // first cell of the grid row
 
-    // 1. rows i-1, i, i+1 and columns j0-1 .. j0+TJ of u, reflect-mapped;
+    // 1. u of rows i-1, i, i+1 and columns j0-1 .. j0+TJ, reflect-mapped;
     //    g of the tile's cells, zero past the row's end
     for (int e = tid; e < NPOS * C; e += THREADS) {
       const int pos = e / C, c = e % C;
@@ -199,87 +184,64 @@ __global__ void __launch_bounds__(THREADS, 1) ngram_bwd_cells_kernel(
     }
     __syncthreads();
 
-    // 2. q, k, v of every staged position;  dctx = g @ wmerge_dirᵀ
-    for (int e = tid; e < NPOS * A3; e += THREADS) {
-      const int pos = e / A3, o = e % A3;
-      const float* ur = s_u + pos * C;
-      float acc = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc = fmaf(ur[c], s_wqkv[c * LQ + o], acc);
-      s_qkv[pos * LQ + o] = acc + s_bqkv[o];
-    }
-    for (int e = tid; e < TJ * 2 * C; e += THREADS) {
-      const float* gr = sG + (e / (2 * C)) * D;
-      const float* wr = s_wm + (e % (2 * C)) * LM;
-      float acc = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) acc = fmaf(gr[d], wr[d], acc);
-      sDctx[e] = acc;
-    }
+    // 2. q, k, v = u @ T(wqkv) + T(bqkv), v rounded;  dctx = g @ T(wmerge_dir)ᵀ
+    mm_rt(NPOS, A3, C, [&](int m, int k) { return s_u[m * C + k]; },
+          [&](int k, int n) { return r(__ldg(wqkv + (size_t)k * A3 + n)); },
+          [&](int m, int n, float v) {
+            v += r(__ldg(bqkv + n));
+            s_qkv[m * LQ + n] = n >= 2 * A ? r(v) : v;
+          });
+    mm_rt(TJ, 2 * C, D, [&](int m, int k) { return sG[m * D + k]; },
+          [&](int k, int n) { return r(__ldg(wmerge + (size_t)n * D + k)); },
+          [&](int m, int n, float v) { sDctx[m * 2 * C + n] = v; });
     __syncthreads();
 
-    // 3. per-head L2 normalisation of q and k;  dacc = 0.25 dctx @ wprojᵀ
-    for (int e = tid; e < NPOS * 2 * NH; e += THREADS) {
-      float* t = s_qkv + (e / (2 * NH)) * LQ + (e % (2 * NH)) * HD;
-      float ss = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) ss = fmaf(t[d], t[d], ss);
-      const float inv = 1.f / (sqrtf(ss) + 1e-12f);
-#pragma unroll
-      for (int d = 0; d < HD; ++d) t[d] *= inv;
+    // 3. q_n, k_n as the forward rounds them;  dacc = 0.25 T(dctx) @ T(wproj)ᵀ
+    for (int e = tid; e < NPOS * 2 * nh; e += THREADS) {
+      float* t = s_qkv + (e / (2 * nh)) * LQ + (e % (2 * nh)) * hd;
+      float n2 = 0.f;
+      for (int d = 0; d < hd; ++d) n2 += r(t[d] * t[d]);
+      const float inv = r(1.f / r(sqrtf(n2) + 1e-12f));
+      for (int d = 0; d < hd; ++d) t[d] = r(t[d] * inv);
     }
-    for (int e = tid; e < TJ * 2 * A; e += THREADS) {
-      const float* dc = sDctx + (e / A) * C;
-      const float* wr = s_wproj + (e % A) * LP;
-      float acc = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc = fmaf(dc[c], wr[c], acc);
-      sDacc[e] = 0.25f * acc;
-    }
+    mm_rt(TJ * 2, A, C, [&](int m, int k) { return r(sDctx[m * C + k]); },
+          [&](int k, int n) { return r(__ldg(wproj + (size_t)n * C + k)); },
+          [&](int m, int n, float v) { sDacc[m * A + n] = 0.25f * v; });
     __syncthreads();
 
     // 4. one (cell, direction, head) per thread: the softmax again, the mean
     //    token, then the window's cotangents into its workspace slots
-    for (int e = tid; e < TJ * 2 * NH; e += THREADS) {
-      const int jj = e / (2 * NH), dir = (e / NH) % 2, h = e % NH;
+    for (int e = tid; e < TJ * 2 * nh; e += THREADS) {
+      const int jj = e / (2 * nh), dir = (e / nh) % 2, h = e % nh;
       const int jd = jj * 2 + dir;
-      float* mo = sMean + jd * A + h * HD;
-      float* dso = sDS + jd * 16 * NH + h;
+      float* mo = sMean + jd * A + h * hd;
+      float* dso = sDS + jd * 16 * nh + h;
       if (j0 + jj >= ww) {
-#pragma unroll
-        for (int d = 0; d < HD; ++d) mo[d] = 0.f;
-#pragma unroll
-        for (int pq = 0; pq < 16; ++pq) dso[pq * NH] = 0.f;
+        for (int d = 0; d < hd; ++d) mo[d] = 0.f;
+        for (int pq = 0; pq < 16; ++pq) dso[pq * nh] = 0.f;
         sDSC[e] = 0.f;
         continue;
       }
       const int lc = jj + 1;  // staged column of the cell itself
       int tok[4];
       if (dir == 0) {
-        tok[0] = W2 + lc;
-        tok[1] = W2 + lc + 1;
-        tok[2] = 2 * W2 + lc;
-        tok[3] = 2 * W2 + lc + 1;
+        tok[0] = W2 + lc, tok[1] = W2 + lc + 1, tok[2] = 2 * W2 + lc, tok[3] = 2 * W2 + lc + 1;
       } else {
-        tok[0] = lc - 1;
-        tok[1] = lc;
-        tok[2] = W2 + lc - 1;
-        tok[3] = W2 + lc;
+        tok[0] = lc - 1, tok[1] = lc, tok[2] = W2 + lc - 1, tok[3] = W2 + lc;
       }
-      const float sc = s_scale[h];
+      const float sc = expf(fminf(__ldg(ls + h), ngram::LN100));
       float a[16], cs[16];
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
-        const float* qp = s_qkv + tok[p] * LQ + h * HD;
+        const float* qp = s_qkv + tok[p] * LQ + h * hd;
         float m = -INFINITY;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
-          const float* kq = s_qkv + tok[q] * LQ + A + h * HD;
+          const float* kq = s_qkv + tok[q] * LQ + A + h * hd;
           float dot = 0.f;
-#pragma unroll
-          for (int d = 0; d < HD; ++d) dot = fmaf(qp[d], kq[d], dot);
+          for (int d = 0; d < hd; ++d) dot += r(qp[d] * kq[d]);
           cs[p * 4 + q] = dot;
-          a[p * 4 + q] = dot * sc + s_bias[h * 16 + p * 4 + q];
+          a[p * 4 + q] = dot * sc + pair_bias(table, p, q, h, nh);
           m = fmaxf(m, a[p * 4 + q]);
         }
         float z = 0.f;
@@ -292,25 +254,26 @@ __global__ void __launch_bounds__(THREADS, 1) ngram_bwd_cells_kernel(
 #pragma unroll
         for (int q = 0; q < 4; ++q) a[p * 4 + q] *= iz;
       }
-      const float* dac = sDacc + jd * A + h * HD;
-      float colsum[4], da[4];
-      float acc[HD];
+      const float* dac = sDacc + jd * A + h * hd;
+      float colsum[4], da[4], acc[HDM];
 #pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] = 0.f;
+      for (int d = 0; d < HDM; ++d) acc[d] = 0.f;
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float* vq = s_qkv + tok[q] * LQ + 2 * A + h * HD;
-        colsum[q] = a[q] + a[4 + q] + a[8 + q] + a[12 + q];
+        const float* vq = s_qkv + tok[q] * LQ + 2 * A + h * hd;
+        colsum[q] = r(a[q]) + r(a[4 + q]) + r(a[8 + q]) + r(a[12 + q]);
         float dot = 0.f;
 #pragma unroll
-        for (int d = 0; d < HD; ++d) {
-          acc[d] = fmaf(colsum[q], vq[d], acc[d]);
-          dot = fmaf(dac[d], vq[d], dot);
-        }
+        for (int d = 0; d < HDM; ++d)
+          if (d < hd) {
+            acc[d] = fmaf(colsum[q], vq[d], acc[d]);
+            dot += r(r(dac[d]) * vq[d]);
+          }
         da[q] = dot;
       }
 #pragma unroll
-      for (int d = 0; d < HD; ++d) mo[d] = acc[d] * 0.25f;
+      for (int d = 0; d < HDM; ++d)
+        if (d < hd) mo[d] = r(acc[d] * 0.25f);
       float dsc = 0.f;
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
@@ -320,73 +283,75 @@ __global__ void __launch_bounds__(THREADS, 1) ngram_bwd_cells_kernel(
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           const float ds = a[p * 4 + q] * (da[q] - inner);
-          dso[(p * 4 + q) * NH] = ds;
+          dso[(p * 4 + q) * nh] = ds;
           dsc = fmaf(ds, cs[p * 4 + q], dsc);
-          a[p * 4 + q] = ds * sc;  // from here on a holds scale * ds
+          a[p * 4 + q] = r(ds * sc);  // from here on a holds T(scale · ds)
         }
       }
       sDSC[e] = dsc;
-      float* slot = ws + ((row + j0 + jj) * 2 + dir) * 4 * A3 + h * HD;
+      float* slot = ws + ((row + j0 + jj) * 2 + dir) * 4 * A3 + h * hd;
 #pragma unroll
       for (int t = 0; t < 4; ++t) {
-        float dq[HD], dk[HD];
+        float dq[HDM], dk[HDM];
 #pragma unroll
-        for (int d = 0; d < HD; ++d) dq[d] = dk[d] = 0.f;
+        for (int d = 0; d < HDM; ++d) dq[d] = dk[d] = 0.f;
 #pragma unroll
         for (int o = 0; o < 4; ++o) {
-          const float* ko = s_qkv + tok[o] * LQ + A + h * HD;
-          const float* qo = s_qkv + tok[o] * LQ + h * HD;
+          const float* ko = s_qkv + tok[o] * LQ + A + h * hd;
+          const float* qo = s_qkv + tok[o] * LQ + h * hd;
 #pragma unroll
-          for (int d = 0; d < HD; ++d) {
-            dq[d] = fmaf(a[t * 4 + o], ko[d], dq[d]);
-            dk[d] = fmaf(a[o * 4 + t], qo[d], dk[d]);
+          for (int d = 0; d < HDM; ++d)
+            if (d < hd) {
+              dq[d] = fmaf(a[t * 4 + o], ko[d], dq[d]);
+              dk[d] = fmaf(a[o * 4 + t], qo[d], dk[d]);
+            }
+        }
+#pragma unroll
+        for (int d = 0; d < HDM; ++d)
+          if (d < hd) {
+            slot[t * A3 + d] = dq[d];
+            slot[t * A3 + A + d] = dk[d];
+            slot[t * A3 + 2 * A + d] = colsum[t] * dac[d];
           }
-        }
-#pragma unroll
-        for (int d = 0; d < HD; ++d) {
-          slot[t * A3 + d] = dq[d];
-          slot[t * A3 + A + d] = dk[d];
-          slot[t * A3 + 2 * A + d] = colsum[t] * dac[d];
-        }
       }
     }
     __syncthreads();
 
-    // 5. ctx = mean @ wproj + bproj, each direction's mean token
-    for (int e = tid; e < TJ * 2 * C; e += THREADS) {
-      const float* mv = sMean + (e / C) * A;
-      const int c = e % C;
-      float acc = 0.f;
-#pragma unroll
-      for (int k = 0; k < A; ++k) acc = fmaf(mv[k], s_wproj[k * LP + c], acc);
-      sCtx[e] = acc + s_bproj[c];
-    }
+    // 5. ctx = T(mean @ T(wproj) + T(bproj)), each direction's mean token
+    mm_rt(TJ * 2, C, A, [&](int m, int k) { return sMean[m * A + k]; },
+          [&](int k, int n) { return r(__ldg(wproj + (size_t)k * C + n)); },
+          [&](int m, int n, float v) { sCtx[m * C + n] = r(v + r(__ldg(bproj + n))); });
     __syncthreads();
 
-    // 6. the block's running sums; every element has one owner thread
-    for (int e = tid; e < L::P1SIZE; e += THREADS) {
+    // 6. the block's sums; every element has one owner thread
+    for (int e = tid; e < P.Q_DWPROJ; e += THREADS) {
       float s = 0.f;
-      if (e < L::Q_DBIAS) {  // dscale[h]
-        for (int jd = 0; jd < TJ * 2; ++jd) s += sDSC[jd * NH + e];
-      } else if (e < L::Q_DWPROJ) {  // dbias[pq][h]
-        for (int jd = 0; jd < TJ * 2; ++jd) s += sDS[jd * 16 * NH + (e - L::Q_DBIAS)];
-      } else if (e < L::Q_DBPROJ) {  // dwproj[a][c] = Σ mean[a] dctx[c]
-        const int k = (e - L::Q_DWPROJ) / C, c = (e - L::Q_DWPROJ) % C;
-        for (int jd = 0; jd < TJ * 2; ++jd) s = fmaf(sMean[jd * A + k], sDctx[jd * C + c], s);
-      } else if (e < L::Q_DWM) {  // dbproj[c]
-        for (int jd = 0; jd < TJ * 2; ++jd) s += sDctx[jd * C + (e - L::Q_DBPROJ)];
-      } else if (e < L::Q_DBM) {  // dwmerge[dir * C + c][d] = Σ ctx_dir[c] g[d]
-        const int k = (e - L::Q_DWM) / D, d = (e - L::Q_DWM) % D;
-        for (int jj = 0; jj < TJ; ++jj) s = fmaf(sCtx[jj * 2 * C + k], sG[jj * D + d], s);
-      } else {  // dbmerge[d]
-        for (int jj = 0; jj < TJ; ++jj) s += sG[jj * D + (e - L::Q_DBM)];
+      if (e < P.Q_DBIAS) {  // dscale[h]
+        for (int jd = 0; jd < TJ * 2; ++jd) s += sDSC[jd * nh + e];
+      } else {  // dbias[pq][h]
+        for (int jd = 0; jd < TJ * 2; ++jd) s += sDS[jd * 16 * nh + (e - P.Q_DBIAS)];
       }
-      sAcc[e] += s;
+      my[e] += s;
     }
+    for (int c = tid; c < C; c += THREADS) {  // dbproj[c]
+      float s = 0.f;
+      for (int jd = 0; jd < TJ * 2; ++jd) s += sDctx[jd * C + c];
+      my[P.Q_DBPROJ + c] += s;
+    }
+    for (int d = tid; d < D; d += THREADS) {  // dbmerge[d]
+      float s = 0.f;
+      for (int jj = 0; jj < TJ; ++jj) s += sG[jj * D + d];
+      my[P.Q_DBM + d] += s;
+    }
+    // dwproj[a][c] += Σ mean[a]·T(dctx[c]);  dwmerge[dir·C + c][d] += Σ ctx_dir[c]·g[d]
+    mm_rt(A, C, TJ * 2, [&](int m, int k) { return sMean[k * A + m]; },
+          [&](int k, int n) { return r(sDctx[k * C + n]); },
+          [&](int m, int n, float v) { my[P.Q_DWPROJ + m * C + n] += v; });
+    mm_rt(2 * C, D, TJ, [&](int m, int k) { return sCtx[k * 2 * C + m]; },
+          [&](int k, int n) { return sG[k * D + n]; },
+          [&](int m, int n, float v) { my[P.Q_DWM + m * D + n] += v; });
     __syncthreads();
   }
-  float* my = part + (size_t)blockIdx.x * L::P1SIZE;
-  for (int e = tid; e < L::P1SIZE; e += THREADS) my[e] = sAcc[e];
 }
 
 // The windows of one direction that read grid index `i` along one axis of
@@ -411,114 +376,91 @@ __device__ __forceinline__ int readers(int i, int n, int dir, int (&cell)[3], in
   return count;
 }
 
-// ---- pass 2: one owner per grid position ----------------------------------
-template <int NH, int HD, typename T>
-__global__ void __launch_bounds__(THREADS) ngram_bwd_positions_kernel(
+// ---- the generic body, pass 2: one owner per grid position ---------------
+// A block owns tiles of TP grid positions; for each it adds, in a fixed
+// order, the slots of the windows that read it, then does the norm and qkv
+// backward there (rounding as ngram_context_kernel_backward_math), and adds
+// dwqkv and dbqkv into its slot of part.
+template <int HDM, typename T>
+__global__ void __launch_bounds__(THREADS) ngram_bwd_positions_rt(
     const T* __restrict__ u, const float* __restrict__ wqkv, const float* __restrict__ bqkv,
-    const float* __restrict__ ws, T* __restrict__ du, float* __restrict__ part, int B,
-    int wh, int ww) {
-  using L = Geo<NH, HD>;
-  constexpr int A = L::A, A3 = L::A3, LQ = L::LQ, LP = L::LP;
+    const float* __restrict__ ws, T* __restrict__ du, float* __restrict__ part, int B, int wh,
+    int ww, int C, int D, int nh, int hd) {
+  const Slots P(C, D, nh, hd);
+  const int A = P.A, A3 = P.A3, LQ = A3 + 1, LP = C + 1;
   extern __shared__ float smem[];
-  float* s_wqkv = smem + L::T_WQKV;
-  float* s_bqkv = smem + L::T_BQKV;
-  float* sU = smem + L::T_U;
-  float* sQK = smem + L::T_QK;
-  float* sDQ = smem + L::T_DQKV;
-  float* sAcc = smem + L::ACC2;
-
+  float* sU = smem;                // [TP][LP]
+  float* sQK = sU + TP * LP;       // [TP][LQ]: raw q, k
+  float* sDQ = sQK + TP * LQ;      // [TP][LQ]
   const int tid = threadIdx.x;
-  for (int e = tid; e < C * A3; e += THREADS) s_wqkv[(e / A3) * LQ + e % A3] = wqkv[e];
-  for (int e = tid; e < A3; e += THREADS) s_bqkv[e] = bqkv[e];
-  for (int e = tid; e < L::P2SIZE; e += THREADS) sAcc[e] = 0.f;
+  float* my = part + (size_t)blockIdx.x * P.P2SIZE;
+  for (int e = tid; e < P.P2SIZE; e += THREADS) my[e] = 0.f;
   __syncthreads();
+  auto r = [](float v) { return round_as<T>(v); };
 
   const long total = (long)B * wh * ww;
-  const int tiles = (int)((total + TP - 1) / TP);
-  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long pos0 = (long)tile * TP;
+  const long tiles = (total + TP - 1) / TP;
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long pos0 = tile * TP;
+    const int rows = (int)(total - pos0 < TP ? total - pos0 : TP);
 
-    // 1. u of the tile's positions, zero past the end
-    for (int e = tid; e < TP * C; e += THREADS) {
-      const int r = e / C, c = e % C;
-      sU[r * LP + c] = pos0 + r < total ? to_f(u[(pos0 + r) * C + c]) : 0.f;
-    }
+    // 1. u of the tile's positions
+    for (int e = tid; e < rows * C; e += THREADS) sU[(e / C) * LP + e % C] = to_f(u[pos0 * C + e]);
     __syncthreads();
 
     // 2. raw q and k;  the sum of the slots that read each position
-    for (int e = tid; e < TP * 2 * A; e += THREADS) {
-      const int r = e / (2 * A), o = e % (2 * A);
-      float acc = 0.f;
-#pragma unroll
-      for (int c = 0; c < C; ++c) acc = fmaf(sU[r * LP + c], s_wqkv[c * LQ + o], acc);
-      sQK[r * LQ + o] = acc + s_bqkv[o];
-    }
-    for (int e = tid; e < TP * A3; e += THREADS) {
-      const int r = e / A3, o = e % A3;
+    mm_rt(rows, 2 * A, C, [&](int m, int k) { return sU[m * LP + k]; },
+          [&](int k, int n) { return r(__ldg(wqkv + (size_t)k * A3 + n)); },
+          [&](int m, int n, float v) { sQK[m * LQ + n] = v + r(__ldg(bqkv + n)); });
+    for (int e = tid; e < rows * A3; e += THREADS) {
+      const int rr = e / A3, o = e % A3;
+      const long pos = pos0 + rr;
+      const int j = (int)(pos % ww), i = (int)((pos / ww) % wh);
+      const size_t img = (size_t)(pos / ((long)wh * ww)) * wh * ww;
       float s = 0.f;
-      if (pos0 + r < total) {
-        const long pos = pos0 + r;
-        const int j = (int)(pos % ww), i = (int)((pos / ww) % wh);
-        const size_t img = (size_t)(pos / ((long)wh * ww)) * wh * ww;
-        for (int dir = 0; dir < 2; ++dir) {
-          int ci[3], di[3], cj[3], dj[3];
-          const int nr = readers(i, wh, dir, ci, di);
-          const int nc = readers(j, ww, dir, cj, dj);
-          for (int y = 0; y < nr; ++y)
-            for (int x = 0; x < nc; ++x)
-              s += ws[(((img + (size_t)ci[y] * ww + cj[x]) * 2 + dir) * 4 + di[y] * 2 + dj[x]) * A3 + o];
-        }
+      for (int dir = 0; dir < 2; ++dir) {
+        int ci[3], di[3], cj[3], dj[3];
+        const int nr = readers(i, wh, dir, ci, di);
+        const int nc = readers(j, ww, dir, cj, dj);
+        for (int y = 0; y < nr; ++y)
+          for (int x = 0; x < nc; ++x)
+            s += ws[(((img + (size_t)ci[y] * ww + cj[x]) * 2 + dir) * 4 + di[y] * 2 + dj[x]) * A3 + o];
       }
-      sDQ[r * LQ + o] = s;
+      sDQ[rr * LQ + o] = s;
     }
     __syncthreads();
 
-    // 3. the L2-norm backward in place: dt = dn / (r + eps) - t (dn·t) / ((r + eps)² r)
-    for (int e = tid; e < TP * 2 * NH; e += THREADS) {
-      const int r = e / (2 * NH);
-      if (pos0 + r >= total) continue;  // zero rows stay zero
-      const int off = r * LQ + (e % (2 * NH)) * HD;
+    // 3. the L2-norm backward in place: dt = dn·inv - t·T(Σ T(dn·t)·inv²/r)
+    for (int e = tid; e < rows * 2 * nh; e += THREADS) {
+      const int off = (e / (2 * nh)) * LQ + (e % (2 * nh)) * hd;
       const float* t = sQK + off;
       float* dt = sDQ + off;
-      float ss = 0.f, dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        ss = fmaf(t[d], t[d], ss);
-        dot = fmaf(dt[d], t[d], dot);
+      float n2 = 0.f, dot = 0.f;
+      for (int d = 0; d < hd; ++d) {
+        n2 += r(t[d] * t[d]);
+        dot += r(dt[d] * t[d]);
       }
-      const float rr = sqrtf(ss);
-      const float inv = 1.f / (rr + 1e-12f);
-      const float factor = dot * inv * inv / rr;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) dt[d] = dt[d] * inv - t[d] * factor;
+      const float rr = sqrtf(n2);
+      const float inv = r(1.f / r(rr + 1e-12f));
+      const float factor = r(dot * inv * inv / rr);
+      for (int d = 0; d < hd; ++d) dt[d] = dt[d] * inv - t[d] * factor;
     }
     __syncthreads();
 
-    // 4. du = dqkv @ wqkvᵀ;  dwqkv += uᵀ dqkv;  dbqkv += Σ dqkv
-    for (int e = tid; e < TP * C; e += THREADS) {
-      const int r = e / C, c = e % C;
-      if (pos0 + r >= total) continue;
-      const float* dq = sDQ + r * LQ;
-      const float* wr = s_wqkv + c * LQ;
-      float acc = 0.f;
-#pragma unroll 6
-      for (int o = 0; o < A3; ++o) acc = fmaf(dq[o], wr[o], acc);
-      store(du + (pos0 + r) * C + c, acc);
-    }
-    for (int e = tid; e < L::P2SIZE; e += THREADS) {
+    // 4. du = T(dqkv) @ T(wqkv)ᵀ;  dwqkv += uᵀ T(dqkv);  dbqkv += Σ dqkv
+    mm_rt(rows, C, A3, [&](int m, int k) { return r(sDQ[m * LQ + k]); },
+          [&](int k, int n) { return r(__ldg(wqkv + (size_t)n * A3 + k)); },
+          [&](int m, int n, float v) { store(du + (pos0 + m) * C + n, v); });
+    mm_rt(C, A3, rows, [&](int m, int k) { return sU[k * LP + m]; },
+          [&](int k, int n) { return r(sDQ[k * LQ + n]); },
+          [&](int m, int n, float v) { my[m * A3 + n] += v; });
+    for (int o = tid; o < A3; o += THREADS) {
       float s = 0.f;
-      if (e < L::R_DBQKV) {
-        const int c = e / A3, o = e % A3;
-        for (int r = 0; r < TP; ++r) s = fmaf(sU[r * LP + c], sDQ[r * LQ + o], s);
-      } else {
-        for (int r = 0; r < TP; ++r) s += sDQ[r * LQ + (e - L::R_DBQKV)];
-      }
-      sAcc[e] += s;
+      for (int rr = 0; rr < rows; ++rr) s += sDQ[rr * LQ + o];
+      my[P.R_DBQKV + o] += s;
     }
     __syncthreads();
   }
-  float* my = part + (size_t)blockIdx.x * L::P2SIZE;
-  for (int e = tid; e < L::P2SIZE; e += THREADS) my[e] = sAcc[e];
 }
 
 // ---- the bfloat16 body: tensor cores (ngram_mma.cuh) -----------------------
@@ -1037,26 +979,29 @@ __global__ void __launch_bounds__(256) ngram_bwd_positions_mma(
 }
 
 // The reduce of both passes' partial sums into the cotangents as the
-// wrapper returns them: dwqkv [32, 3A], dbqkv [3A], dlogit_scale [nh]
+// wrapper returns them: dwqkv [C, 3A], dbqkv [3A], dlogit_scale [nh]
 // (dscale · exp(min(ls, ln 100)), zero above the clip), dtable [9, nh]
-// (dbias folded by the transpose of the 2x2 gather), dwproj [A, 32], dbproj
-// [32], dwmerge [64, 64], dbmerge [64].  With round_bf16 it rounds dwqkv,
+// (dbias folded by the transpose of the 2x2 gather), dwproj [A, C], dbproj
+// [C], dwmerge [2C, D], dbmerge [D].  With round_bf16 it rounds dwqkv,
 // dbqkv, dwproj, dbproj and dwmerge to bf16 values as it writes them (the
 // JAX backward's casts to the parameters' dtype, pallas_ngram.py:446-467).
 // A block of 8 warps owns 32 consecutive outputs: warp w adds the partials
 // of blocks w, w + 8, ... (coalesced across the lanes), then the eight
 // warps' sums are added in warp order.  No atomics: two runs give the same
-// bits.
+// bits.  Every body's slots have the layout of Slots.  NH, HD > 0 fix the
+// tensor-core body's widths at compile time (its offsets folded into
+// constants); NH = 0 reads the widths from the arguments.
 template <int NH, int HD>
 __global__ void __launch_bounds__(256) ngram_bwd_reduce(const float* __restrict__ part1,
                                                         int blocks1,
                                                         const float* __restrict__ part2,
                                                         int blocks2, const float* __restrict__ ls,
-                                                        float* __restrict__ out, int round_bf16) {
-  using G1 = Geo<NH, HD>;
-  constexpr int A = NH * HD;
-  constexpr int O_DLS = G1::P2SIZE, O_DTABLE = O_DLS + NH, O_DWPROJ = O_DTABLE + 9 * NH;
-  constexpr int O_DBM = O_DWPROJ + A * C + C + 2 * C * D, TOTAL = O_DBM + D;
+                                                        float* __restrict__ out, int C_, int D_,
+                                                        int nh_, int hd_, int round_bf16) {
+  const int nh = NH ? NH : nh_;
+  const Slots P(NH ? C : C_, NH ? D : D_, nh, NH ? HD : hd_);
+  const int O_DLS = P.P2SIZE, O_DTABLE = O_DLS + nh, O_DWPROJ = O_DTABLE + 9 * nh;
+  const int O_DBM = O_DWPROJ + P.A * P.C + P.C + 2 * P.C * P.D, TOTAL = P.total();
   __shared__ float sums[8][32];
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int e = blockIdx.x * 32 + lane;
@@ -1066,18 +1011,18 @@ __global__ void __launch_bounds__(256) ngram_bwd_reduce(const float* __restrict_
     for (int b = w; b < blocks; b += 8) s += part[(size_t)b * stride + k];
   };
   if (e < O_DLS) {
-    add(part2, G1::P2SIZE, blocks2, e);
+    add(part2, P.P2SIZE, blocks2, e);
   } else if (e < O_DTABLE) {
-    add(part1, G1::P1SIZE, blocks1, G1::Q_DSCALE + e - O_DLS);
+    add(part1, P.P1SIZE, blocks1, e - O_DLS);
   } else if (e < O_DWPROJ) {
-    const int t = (e - O_DTABLE) / NH, h = (e - O_DTABLE) % NH;
+    const int t = (e - O_DTABLE) / nh, h = (e - O_DTABLE) % nh;
     for (int pq = 0; pq < 16; ++pq) {
       const int p = pq >> 2, q = pq & 3;
       if (((p >> 1) - (q >> 1) + 1) * 3 + ((p & 1) - (q & 1) + 1) == t)
-        add(part1, G1::P1SIZE, blocks1, G1::Q_DBIAS + pq * NH + h);
+        add(part1, P.P1SIZE, blocks1, P.Q_DBIAS + pq * nh + h);
     }
   } else if (e < TOTAL) {
-    add(part1, G1::P1SIZE, blocks1, G1::Q_DWPROJ + e - O_DWPROJ);
+    add(part1, P.P1SIZE, blocks1, P.Q_DWPROJ + e - O_DWPROJ);
   }
   sums[w][lane] = s;
   __syncthreads();
@@ -1102,92 +1047,173 @@ struct Plan {
   size_t ws, part1, floats;
 };
 
+// the tensor-core body's geometries: bfloat16, C = 32, D = 64, heads 6 x 5 or 4 x 8
+bool is_mma(int C_, int D_, int nh, int hd, int is_bf16) {
+  return is_bf16 && C_ == C && D_ == D && ((nh == 6 && hd == 5) || (nh == 4 && hd == 8));
+}
+
 template <int NH, int HD>
-int plan(int B, int wh, int ww, int is_bf16, int sms, Plan* out) {
-  using G1 = Geo<NH, HD>;
+int occupancy(long* per1, long* per2) {
+  using L1 = CellsMma<NH, HD>;
+  using L2 = PositionsMma<NH, HD>;
+  static int occ[2] = {0, 0};  // resident blocks per SM of the two passes, asked once
+  if (occ[0] == 0) {
+    auto k1 = ngram_bwd_cells_mma<NH, HD>;
+    auto k2 = ngram_bwd_positions_mma<NH, HD>;
+    cudaError_t err =
+        cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize, L1::BYTES);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ[0], k1, L1::THREADS, L1::BYTES);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ[1], k2, L2::THREADS, L2::BYTES);
+    if (err != cudaSuccess) return (int)err;
+    if (occ[0] < 1 || occ[1] < 1) return (int)cudaErrorInvalidConfiguration;
+  }
+  *per1 = occ[0];
+  *per2 = occ[1];
+  return 0;
+}
+
+// the generic body's shared memory of its two passes, in bytes
+// (tmar_torch/ops/envelope.py: ngram_bwd_bytes counts the same)
+size_t cells_bytes(int C_, int D_, int nh, int hd) {
+  const size_t A = (size_t)nh * hd;
+  return 4 * (NPOS * C_ + NPOS * (3 * A + 1) + TJ * D_ + TJ * 2 * C_ + TJ * 2 * A + TJ * 2 * A +
+              TJ * 2 * C_ + TJ * 2 * 16 * nh + TJ * 2 * nh);
+}
+size_t positions_bytes(int C_, int nh, int hd) {
+  return 4 * (size_t)TP * ((C_ + 1) + 2 * (3 * nh * hd + 1));
+}
+
+// the generic body's resident blocks per SM of its two passes (at most 8),
+// as the card reports them for this shared memory
+template <int HDM, typename T>
+int rt_occupancy(size_t b1, size_t b2, long* per1, long* per2) {
+  auto cells = ngram_bwd_cells_rt<HDM, T>;
+  auto positions = ngram_bwd_positions_rt<HDM, T>;
+  int n1 = 0, n2 = 0;
+  cudaError_t err = cudaFuncSetAttribute(cells, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(positions, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b2);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n1, cells, THREADS, b1);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n2, positions, THREADS, b2);
+  if (err != cudaSuccess) return (int)err;
+  if (n1 < 1 || n2 < 1) return (int)cudaErrorInvalidConfiguration;
+  *per1 = n1 < 8 ? n1 : 8;
+  *per2 = n2 < 8 ? n2 : 8;
+  return 0;
+}
+
+template <typename T>
+int generic_occupancy(int C_, int D_, int nh, int hd, long* per1, long* per2) {
+  const size_t b1 = cells_bytes(C_, D_, nh, hd), b2 = positions_bytes(C_, nh, hd);
+  if (hd <= 8) return rt_occupancy<8, T>(b1, b2, per1, per2);
+  if (hd <= 16) return rt_occupancy<16, T>(b1, b2, per1, per2);
+  return rt_occupancy<32, T>(b1, b2, per1, per2);
+}
+
+int plan(int B, int wh, int ww, int C_, int D_, int nh, int hd, int is_bf16, int sms,
+         Plan* out) {
+  const Slots P(C_, D_, nh, hd);
   const long cells = (long)B * wh * ww;
   long tiles1, tiles2, per1, per2;
-  if (is_bf16) {
-    using L1 = CellsMma<NH, HD>;
-    using L2 = PositionsMma<NH, HD>;
-    static int occ[2] = {0, 0};  // resident blocks per SM of the two passes, asked once
-    if (occ[0] == 0) {
-      auto k1 = ngram_bwd_cells_mma<NH, HD>;
-      auto k2 = ngram_bwd_positions_mma<NH, HD>;
-      cudaError_t err = cudaFuncSetAttribute(k1, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                             L1::BYTES);
-      if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ[0], k1, L1::THREADS, L1::BYTES);
-      if (err == cudaSuccess)
-        err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&occ[1], k2, L2::THREADS, L2::BYTES);
-      if (err != cudaSuccess) return (int)err;
-      if (occ[0] < 1 || occ[1] < 1) return (int)cudaErrorInvalidConfiguration;
-    }
+  if (is_mma(C_, D_, nh, hd, is_bf16)) {
+    const int rc = nh == 6 ? occupancy<6, 5>(&per1, &per2) : occupancy<4, 8>(&per1, &per2);
+    if (rc != 0) return rc;
+    using L1 = CellsMma<6, 5>;  // the tiles are the same at both head counts
+    using L2 = PositionsMma<6, 5>;
     tiles1 = (long)B * ((wh + L1::S - 1) / L1::S) * ((ww + L1::TJ - 1) / L1::TJ);
     tiles2 = (cells + L2::TP - 1) / L2::TP;
-    per1 = occ[0];
-    per2 = occ[1];
   } else {
-    // pass 1 one block per SM over tiles of TJ cells of a grid row, pass 2
-    // up to two per SM over tiles of TP positions
     tiles1 = (long)B * wh * ((ww + TJ - 1) / TJ);
     tiles2 = (cells + TP - 1) / TP;
-    per1 = 1;
-    per2 = 2;
+    const int rc = is_bf16 ? generic_occupancy<__nv_bfloat16>(C_, D_, nh, hd, &per1, &per2)
+                           : generic_occupancy<float>(C_, D_, nh, hd, &per1, &per2);
+    if (rc != 0) return rc;
   }
   out->blocks1 = (int)(tiles1 < per1 * sms ? tiles1 : per1 * sms);
   out->blocks2 = (int)(tiles2 < per2 * sms ? tiles2 : per2 * sms);
-  out->ws = (size_t)cells * 2 * 4 * 3 * NH * HD;
-  out->part1 = (size_t)out->blocks1 * G1::P1SIZE;
-  out->floats = out->ws + out->part1 + (size_t)out->blocks2 * G1::P2SIZE;
+  out->ws = (size_t)cells * 2 * 4 * P.A3;
+  out->part1 = (size_t)out->blocks1 * P.P1SIZE;
+  out->floats = out->ws + out->part1 + (size_t)out->blocks2 * P.P2SIZE;
   return 0;
 }
 
 template <int NH, int HD>
+int launch_mma(const void* const* p, void* du, float* ws, float* part1, float* part2,
+               const Plan& pl, int B, int wh, int ww, cudaStream_t stream) {
+  if (((uintptr_t)p[0] | (uintptr_t)p[1] | (uintptr_t)du) & 15) return (int)cudaErrorMisalignedAddress;
+  using L1 = CellsMma<NH, HD>;
+  using L2 = PositionsMma<NH, HD>;
+  ngram_bwd_cells_mma<NH, HD><<<pl.blocks1, L1::THREADS, L1::BYTES, stream>>>(
+      (const __nv_bfloat16*)p[0], (const __nv_bfloat16*)p[1], (const float*)p[2],
+      (const float*)p[3], (const float*)p[4], (const float*)p[5], (const float*)p[6],
+      (const float*)p[7], (const float*)p[8], ws, part1, B, wh, ww);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ngram_bwd_positions_mma<NH, HD><<<pl.blocks2, L2::THREADS, L2::BYTES, stream>>>(
+      (const __nv_bfloat16*)p[0], (const float*)p[2], (const float*)p[3], ws,
+      (__nv_bfloat16*)du, part2, B, wh, ww);
+  return (int)cudaGetLastError();
+}
+
+template <int HDM, typename T>
+int launch_rt(const void* const* p, void* du, float* ws, float* part1, float* part2,
+              const Plan& pl, int B, int wh, int ww, int C_, int D_, int nh, int hd,
+              cudaStream_t stream) {
+  auto cells = ngram_bwd_cells_rt<HDM, T>;
+  auto positions = ngram_bwd_positions_rt<HDM, T>;
+  const size_t b1 = cells_bytes(C_, D_, nh, hd), b2 = positions_bytes(C_, nh, hd);
+  cudaError_t err = cudaFuncSetAttribute(cells, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(positions, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b2);
+  if (err != cudaSuccess) return (int)err;
+  cells<<<pl.blocks1, THREADS, b1, stream>>>(
+      (const T*)p[0], (const T*)p[1], (const float*)p[2], (const float*)p[3],
+      (const float*)p[4], (const float*)p[5], (const float*)p[6], (const float*)p[7],
+      (const float*)p[8], ws, part1, B, wh, ww, C_, D_, nh, hd);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  positions<<<pl.blocks2, THREADS, b2, stream>>>(
+      (const T*)p[0], (const float*)p[2], (const float*)p[3], ws, (T*)du, part2, B, wh, ww, C_,
+      D_, nh, hd);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_generic(const void* const* p, void* du, float* ws, float* part1, float* part2,
+                   const Plan& pl, int B, int wh, int ww, int C_, int D_, int nh, int hd,
+                   cudaStream_t s) {
+  if (hd <= 8) return launch_rt<8, T>(p, du, ws, part1, part2, pl, B, wh, ww, C_, D_, nh, hd, s);
+  if (hd <= 16) return launch_rt<16, T>(p, du, ws, part1, part2, pl, B, wh, ww, C_, D_, nh, hd, s);
+  return launch_rt<32, T>(p, du, ws, part1, part2, pl, B, wh, ww, C_, D_, nh, hd, s);
+}
+
 int launch(const void* const* p, void* du, void* scratch, void* dparams, int B, int wh, int ww,
-           int is_bf16, int sms, cudaStream_t stream) {
-  using G1 = Geo<NH, HD>;
+           int C_, int D_, int nh, int hd, int is_bf16, int sms, cudaStream_t stream) {
   Plan pl;
-  int rc = plan<NH, HD>(B, wh, ww, is_bf16, sms, &pl);
+  int rc = plan(B, wh, ww, C_, D_, nh, hd, is_bf16, sms, &pl);
   if (rc != 0) return rc;
   float* ws = (float*)scratch;
   float* part1 = ws + pl.ws;
   float* part2 = part1 + pl.part1;
-  cudaError_t err;
-  if (is_bf16) {
-    if (((uintptr_t)p[0] | (uintptr_t)p[1] | (uintptr_t)du) & 15) return (int)cudaErrorMisalignedAddress;
-    using L1 = CellsMma<NH, HD>;
-    using L2 = PositionsMma<NH, HD>;
-    ngram_bwd_cells_mma<NH, HD><<<pl.blocks1, L1::THREADS, L1::BYTES, stream>>>(
-        (const __nv_bfloat16*)p[0], (const __nv_bfloat16*)p[1], (const float*)p[2],
-        (const float*)p[3], (const float*)p[4], (const float*)p[5], (const float*)p[6],
-        (const float*)p[7], (const float*)p[8], ws, part1, B, wh, ww);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    ngram_bwd_positions_mma<NH, HD><<<pl.blocks2, L2::THREADS, L2::BYTES, stream>>>(
-        (const __nv_bfloat16*)p[0], (const float*)p[2], (const float*)p[3], ws,
-        (__nv_bfloat16*)du, part2, B, wh, ww);
-  } else {
-    auto cells = ngram_bwd_cells_kernel<NH, HD, float>;
-    auto positions = ngram_bwd_positions_kernel<NH, HD, float>;
-    err = cudaFuncSetAttribute(cells, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)G1::BYTES1);
-    if (err != cudaSuccess) return (int)err;
-    err = cudaFuncSetAttribute(positions, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)G1::BYTES2);
-    if (err != cudaSuccess) return (int)err;
-    cells<<<pl.blocks1, THREADS, G1::BYTES1, stream>>>(
-        (const float*)p[0], (const float*)p[1], (const float*)p[2], (const float*)p[3],
-        (const float*)p[4], (const float*)p[5], (const float*)p[6], (const float*)p[7],
-        (const float*)p[8], ws, part1, B, wh, ww);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-    positions<<<pl.blocks2, THREADS, G1::BYTES2, stream>>>(
-        (const float*)p[0], (const float*)p[2], (const float*)p[3], ws, (float*)du, part2, B,
-        wh, ww);
-  }
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  constexpr int TOTAL = G1::P2SIZE + 10 * NH + NH * HD * C + C + 2 * C * D + D;
-  ngram_bwd_reduce<NH, HD><<<(TOTAL + 31) / 32, 256, 0, stream>>>(
-      part1, pl.blocks1, part2, pl.blocks2, (const float*)p[4], (float*)dparams, is_bf16);
+  if (is_mma(C_, D_, nh, hd, is_bf16))
+    rc = nh == 6 ? launch_mma<6, 5>(p, du, ws, part1, part2, pl, B, wh, ww, stream)
+                 : launch_mma<4, 8>(p, du, ws, part1, part2, pl, B, wh, ww, stream);
+  else if (is_bf16)
+    rc = launch_generic<__nv_bfloat16>(p, du, ws, part1, part2, pl, B, wh, ww, C_, D_, nh, hd,
+                                       stream);
+  else
+    rc = launch_generic<float>(p, du, ws, part1, part2, pl, B, wh, ww, C_, D_, nh, hd, stream);
+  if (rc != 0) return rc;
+  const int total = Slots(C_, D_, nh, hd).total();
+  auto reduce = !is_mma(C_, D_, nh, hd, is_bf16) ? ngram_bwd_reduce<0, 0>
+                : nh == 6 ? ngram_bwd_reduce<6, 5>
+                          : ngram_bwd_reduce<4, 8>;
+  reduce<<<(total + 31) / 32, 256, 0, stream>>>(part1, pl.blocks1, part2, pl.blocks2,
+                                                (const float*)p[4], (float*)dparams, C_, D_, nh,
+                                                hd, is_bf16);
   return (int)cudaGetLastError();
 }
 
@@ -1195,41 +1221,48 @@ int launch(const void* const* p, void* du, void* scratch, void* dparams, int B, 
 
 extern "C" {
 
-// u [B, wh, ww, 32] and g [B, wh, ww, 64] (float32 or bfloat16, per is_bf16)
+// u [B, wh, ww, C] and g [B, wh, ww, D] (float32 or bfloat16, per is_bf16)
 // -> du of u's shape and type, and dparams, float32, the concatenation of
-// dwqkv [32, 3A], dbqkv [3A], dlogit_scale [nh], dtable [9, nh], dwproj
-// [A, 32], dbproj [32], dwmerge [64, 64], dbmerge [64] (at bfloat16 dwqkv,
+// dwqkv [C, 3A], dbqkv [3A], dlogit_scale [nh], dtable [9, nh], dwproj
+// [A, C], dbproj [C], dwmerge [2C, D], dbmerge [D] (at bfloat16 dwqkv,
 // dbqkv, dwproj, dbproj and dwmerge are bf16 values).  The weights are the
 // forward's (tmar_ngram_context): float32, contiguous, logit_scale raw.
-// bfloat16 runs the tensor-core body (u, g and du 16-byte aligned), float32
-// the float32 body; each is three launches (cells pass, positions pass, one
+// bfloat16 at C = 32, D = 64 and heads 6 x 5 or 4 x 8 runs the tensor-core
+// body (u, g and du 16-byte aligned); every other case the generic body
+// (head_dim <= 32); each is three launches (cells pass, positions pass, one
 // reduce).  `scratch` holds tmar_ngram_context_bwd_workspace's count of
 // floats.  Requires wh >= 2 and ww >= 2.  Returns a cudaError_t code.
 int tmar_ngram_context_bwd(const void* u, const void* g, const void* wqkv, const void* bqkv,
                            const void* logit_scale, const void* table, const void* wproj,
                            const void* bproj, const void* wmerge, void* du, void* scratch,
-                           void* dparams, int B, int wh, int ww, int num_heads, int head_dim,
-                           int is_bf16, int sms, void* stream) {
-  if (B < 1 || wh < 2 || ww < 2 || sms < 1) return (int)cudaErrorInvalidValue;
+                           void* dparams, int B, int wh, int ww, int C_, int D_, int num_heads,
+                           int head_dim, int is_bf16, int sms, void* stream) {
+  if (B < 1 || wh < 2 || ww < 2 || sms < 1 || C_ < 1 || D_ < 1 || num_heads < 1 ||
+      head_dim < 1 || head_dim > 32)
+    return (int)cudaErrorInvalidValue;
   const void* p[9] = {u, g, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge};
-  cudaStream_t s = (cudaStream_t)stream;
-  if (num_heads == 6 && head_dim == 5)
-    return launch<6, 5>(p, du, scratch, dparams, B, wh, ww, is_bf16, sms, s);
-  if (num_heads == 4 && head_dim == 8)
-    return launch<4, 8>(p, du, scratch, dparams, B, wh, ww, is_bf16, sms, s);
-  return (int)cudaErrorInvalidValue;
+  return launch(p, du, scratch, dparams, B, wh, ww, C_, D_, num_heads, head_dim, is_bf16, sms,
+                (cudaStream_t)stream);
 }
 
 // The floats of scratch tmar_ngram_context_bwd needs for this call, into
 // *floats.  Returns a cudaError_t code.
-int tmar_ngram_context_bwd_workspace(int B, int wh, int ww, int num_heads, int head_dim,
-                                     int is_bf16, int sms, long long* floats) {
+int tmar_ngram_context_bwd_workspace(int B, int wh, int ww, int C_, int D_, int num_heads,
+                                     int head_dim, int is_bf16, int sms, long long* floats) {
+  if (B < 1 || wh < 2 || ww < 2 || sms < 1 || C_ < 1 || D_ < 1 || num_heads < 1 ||
+      head_dim < 1 || head_dim > 32)
+    return (int)cudaErrorInvalidValue;
   Plan pl;
-  int rc = (int)cudaErrorInvalidValue;
-  if (num_heads == 6 && head_dim == 5) rc = plan<6, 5>(B, wh, ww, is_bf16, sms, &pl);
-  if (num_heads == 4 && head_dim == 8) rc = plan<4, 8>(B, wh, ww, is_bf16, sms, &pl);
+  const int rc = plan(B, wh, ww, C_, D_, num_heads, head_dim, is_bf16, sms, &pl);
   if (rc == 0) *floats = (long long)pl.floats;
   return rc;
+}
+
+// The shared memory, in bytes, of the generic body's cells pass (pass 1)
+// or positions pass (pass 2).
+long long tmar_ngram_context_bwd_smem(int C_, int D_, int num_heads, int head_dim, int pass) {
+  return (long long)(pass == 1 ? cells_bytes(C_, D_, num_heads, head_dim)
+                               : positions_bytes(C_, num_heads, head_dim));
 }
 
 const char* tmar_ngram_context_bwd_error(int err) {

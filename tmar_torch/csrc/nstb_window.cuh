@@ -43,6 +43,8 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "gelu.cuh"
+
 namespace {
 
 constexpr int WS = 8;
@@ -94,9 +96,7 @@ struct Identity {
   __device__ __forceinline__ float operator()(float v) const { return v; }
 };
 struct Gelu {
-  __device__ __forceinline__ float operator()(float v) const {
-    return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-  }
+  __device__ __forceinline__ float operator()(float v) const { return act::gelu(v); }
 };
 
 // out[m][n] = epi(sum_k in[m][k] · w[k][n] + bias[n]) for m < 64, n < NN.

@@ -17,17 +17,22 @@
 // for any M (the last tile is ragged; rows past the end are zero and add
 // nothing).
 //
-// The I/O type picks one of two bodies.  The TPU grid is sequential and
-// accumulates the eight parameter cotangents in place; CUDA blocks run in no
-// order, so in both bodies each block keeps its own sums across its tiles,
-// writes them to part[block], and a second kernel adds the slots in block
-// order.  No float atomics: two runs give the same bits.
+// The I/O type and the widths pick one of three bodies.  The TPU grid is
+// sequential and accumulates the eight parameter cotangents in place; CUDA
+// blocks run in no order, so in every body each block keeps its own sums
+// across its tiles, writes them to part[block], and a second kernel adds the
+// slots in block order.  No float atomics: two runs give the same bits.
 //
-// The float32 body, the exactness path: the forward's tiling, 64-row tiles
-// in shared memory, dw1 and dw2 in registers, the vectors in shared memory,
-// products on the CUDA cores in float32.
+// The body templated on (D, H) = (64, 128) runs float32 there: a 64-row
+// tile and both weights in shared memory.
 //
-// The bfloat16 body, on the tensor cores, rounds where _ffn_bwd_kernel
+// The generic body takes D and H at run time (every other width, at float32
+// and bfloat16): tiles of 64 rows (32 or 16 for a
+// wide model) in shared memory, weights read from device memory (L2), the
+// block's sums in its slot of part, products on the CUDA cores in float32;
+// at bfloat16 it rounds where ffn_backward_math does.
+//
+// The tensor-core body (bfloat16 at D = 64, H = 128) rounds where _ffn_bwd_kernel
 // rounds at bf16: the recompute as the forward (yc = bf16(y), hc =
 // bf16(GELU(u)), bf16 w1 and w2), the output cotangent (:170), doc = bf16(do)
 // before dh = doc·w2ᵀ and dw2 = hcᵀ·doc (:305), duc = bf16(du) before
@@ -58,7 +63,7 @@
 //   of each vector; the block sums its warps in order at the end;
 // * rows past M are zero, so they add exactly nothing (dz = 0 makes do, du
 //   and dy zero);
-// * one kernel and one reduce per call, as the float32 body: the reduce is
+// * one kernel and one reduce per call, as the generic body: the reduce is
 //   this file's, which rounds dw1 and dw2 to bf16 as it writes them.
 
 #include "common.cuh"
@@ -68,7 +73,7 @@ namespace {
 
 using namespace tmar;
 
-constexpr int D = 64;
+constexpr int D = 64;    // the templated float32 body's and the tensor-core body's widths
 constexpr int HID = 128;
 constexpr int LX = D + 1;
 constexpr int LH = HID + 1;
@@ -103,17 +108,6 @@ constexpr int P_DBW2 = P_DW2 + HID * D;
 constexpr int P_DG2 = P_DBW2 + D;
 constexpr int P_DB2 = P_DG2 + D;
 constexpr int PSIZE = P_DB2 + D;
-
-__device__ __forceinline__ float gelu(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
-
-// d GELU(u) / du = Φ(u) + u φ(u)
-__device__ __forceinline__ float gelu_grad(float u) {
-  const float cdf = 0.5f * (1.f + erff(u * 0.70710678118654752f));
-  const float pdf = expf(-0.5f * u * u) * 0.3989422804014327f;
-  return cdf + u * pdf;
-}
 
 // Adds the per-warp column sums in sWp [2][WARPS][D] to two [D] accumulators.
 __device__ __forceinline__ void add_warp_sums(const float* sWp, float* acc0, float* acc1) {
@@ -214,7 +208,7 @@ __global__ void __launch_bounds__(THREADS, 1) residual_ffn_bwd_kernel(
       mm_each<ROWS, HID>(acc, [&](int m, int n, float v) {
         const float u = v + s_bw1[n];
         sU[m * LH + n] = u;
-        sH[m * LH + n] = gelu(u);
+        sH[m * LH + n] = act::gelu(u);
       });
     }
     __syncthreads();
@@ -272,7 +266,7 @@ __global__ void __launch_bounds__(THREADS, 1) residual_ffn_bwd_kernel(
       mm_zero<ROWS, HID>(acc);
       mm_acc<ROWS, D, HID>(acc, sO, LX, 1, s_w2, 1, LW2);
       mm_each<ROWS, HID>(acc, [&](int m, int n, float v) {
-        sU[m * LH + n] = v * gelu_grad(sU[m * LH + n]);
+        sU[m * LH + n] = v * act::gelu_grad(sU[m * LH + n]);
       });
     }
     __syncthreads();
@@ -336,6 +330,173 @@ __global__ void __launch_bounds__(THREADS, 1) residual_ffn_bwd_kernel(
     my[P_DB2 + e] = a_db2[e];
   }
   for (int e = tid; e < HID; e += THREADS) my[P_DBW1 + e] = a_dbw1[e];
+}
+
+// ---- the generic body: any (D, hidden) ------------------------------------
+// A persistent block walks over tiles of R rows (64, or 32 / 16 where a
+// wide model's tile would not fit: tmar_torch/ops/envelope.py,
+// ffn_bwd_bytes); n1, y, o then do, dz then dy (width D) and u then du, hc
+// (width H) of a tile sit in shared memory in float32, rows padded to an odd
+// length.  The weights are read from device memory through their strides,
+// rounded to T's values as they are read.  The block's partial sums live in
+// its own slot of `part` (zeroed first): every element has one owner thread
+// (a column pass, or mm_rt's fixed mapping), which adds each tile's share in
+// place, so neither atomics nor a second owner ever touch it.  At bfloat16 it
+// rounds where ffn_backward_math does (above); at float32 it is the float32
+// backward.
+size_t rt_bytes(int D, int H, int R) {
+  return (size_t)4 * R * (4 * (D + 1) + 2 * (H + 1) + 2);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) residual_ffn_bwd_rt(
+    const T* __restrict__ x, const T* __restrict__ ao, const T* __restrict__ dz,
+    const float* __restrict__ g1, const float* __restrict__ b1,
+    const float* __restrict__ w1, int w1_k, int w1_n, const float* __restrict__ bw1,
+    const float* __restrict__ w2, int w2_k, int w2_n, const float* __restrict__ bw2,
+    const float* __restrict__ g2, T* __restrict__ dx, T* __restrict__ dao,
+    float* __restrict__ part, long M, int D, int H, int R, float eps) {
+  extern __shared__ float smem[];
+  const int LX = D + 1, LH = H + 1;
+  float* sN1 = smem;           // n1
+  float* sY = sN1 + R * LX;    // y
+  float* sO = sY + R * LX;     // o, n2, then do
+  float* sG = sO + R * LX;     // dz, then dy
+  float* sU = sG + R * LX;     // u, then du
+  float* sH = sU + R * LH;     // hc
+  float* sR1 = sH + R * LH;    // 1 / std of attn_out's rows
+  float* sR2 = sR1 + R;        // 1 / std of o's rows
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int pDB1 = D, pDW1 = 2 * D, pDBW1 = pDW1 + D * H, pDW2 = pDBW1 + H;
+  const int pDBW2 = pDW2 + H * D, pDG2 = pDBW2 + D, pDB2 = pDG2 + D, psize = pDB2 + D;
+  float* my = part + (size_t)blockIdx.x * psize;
+  for (int e = tid; e < psize; e += THREADS) my[e] = 0.f;
+  __syncthreads();
+  auto w1c = [&](int k, int n) { return round_as<T>(__ldg(w1 + (size_t)k * w1_k + (size_t)n * w1_n)); };
+  auto w2c = [&](int k, int n) { return round_as<T>(__ldg(w2 + (size_t)k * w2_k + (size_t)n * w2_n)); };
+
+  const long tiles = (M + R - 1) / R;
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long row0 = tile * R;
+    const int rows = (int)(M - row0 < R ? M - row0 : R);
+
+    // 1. n1, r1, y = x + n1·g1 + b1, dz; one warp per row
+    for (int r = warp; r < rows; r += THREADS / 32) {
+      const size_t base = (size_t)(row0 + r) * D;
+      const float2 st = row_stats(D, eps, [&](int c) { return to_f(ao[base + c]); });
+      for (int c = lane; c < D; c += 32) {
+        const float n = (to_f(ao[base + c]) - st.x) * st.y;
+        sN1[r * LX + c] = n;
+        sY[r * LX + c] = to_f(x[base + c]) + n * g1[c] + b1[c];
+        sG[r * LX + c] = to_f(dz[base + c]);
+      }
+      if (lane == 0) sR1[r] = st.y;
+    }
+    __syncthreads();
+
+    // 2. u = T(y) @ T(w1) + bw1;  hc = T(GELU(u))
+    mm_rt(rows, H, D, [&](int m, int k) { return round_as<T>(sY[m * LX + k]); }, w1c,
+          [&](int m, int n, float v) {
+            const float u = v + __ldg(bw1 + n);
+            sU[m * LH + n] = u;
+            sH[m * LH + n] = round_as<T>(act::gelu(u));
+          });
+    __syncthreads();
+
+    // 3. o = hc @ T(w2) + bw2
+    mm_rt(rows, D, H, [&](int m, int k) { return sH[m * LH + k]; }, w2c,
+          [&](int m, int n, float v) { sO[m * LX + n] = v + __ldg(bw2 + n); });
+    __syncthreads();
+
+    // 4. LN2 backward: o -> n2 (rows), dg2 and db2 (columns), n2 -> do (rows)
+    for (int r = warp; r < rows; r += THREADS / 32) {
+      float* o = sO + r * LX;
+      const float2 st = row_stats(D, eps, [&](int c) { return o[c]; });
+      __syncwarp();
+      for (int c = lane; c < D; c += 32) o[c] = (o[c] - st.x) * st.y;
+      if (lane == 0) sR2[r] = st.y;
+    }
+    __syncthreads();
+    for (int c = tid; c < D; c += THREADS) {
+      float sg = 0.f, sb = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        sg = fmaf(sG[r * LX + c], sO[r * LX + c], sg);
+        sb += sG[r * LX + c];
+      }
+      my[pDG2 + c] += sg;
+      my[pDB2 + c] += sb;
+    }
+    __syncthreads();
+    for (int r = warp; r < rows; r += THREADS / 32) {
+      float* n = sO + r * LX;
+      const float* gz = sG + r * LX;
+      float s1 = 0.f, s2 = 0.f;
+      for (int c = lane; c < D; c += 32) {
+        const float dn = gz[c] * g2[c];
+        s1 += dn;
+        s2 = fmaf(dn, n[c], s2);
+      }
+      const float m1 = warp_sum(s1) / D, m2 = warp_sum(s2) / D, inv = sR2[r];
+      for (int c = lane; c < D; c += 32) n[c] = inv * (gz[c] * g2[c] - m1 - n[c] * m2);
+    }
+    __syncthreads();
+
+    // 5. dbw2 += Σ do;  dw2 += hcᵀ T(do);  du = T(do) @ T(w2)ᵀ · GELU'(u) (over u)
+    for (int c = tid; c < D; c += THREADS) {
+      float s = 0.f;
+      for (int r = 0; r < rows; ++r) s += sO[r * LX + c];
+      my[pDBW2 + c] += s;
+    }
+    mm_rt(H, D, rows, [&](int m, int k) { return sH[k * LH + m]; },
+          [&](int k, int n) { return round_as<T>(sO[k * LX + n]); },
+          [&](int m, int n, float v) { my[pDW2 + m * D + n] += v; });
+    mm_rt(rows, H, D, [&](int m, int k) { return round_as<T>(sO[m * LX + k]); },
+          [&](int k, int n) { return w2c(n, k); },
+          [&](int m, int n, float v) { sU[m * LH + n] = v * act::gelu_grad(sU[m * LH + n]); });
+    __syncthreads();
+
+    // 6. dbw1 += Σ du;  dw1 += T(y)ᵀ T(du);  dy = dz + T(du) @ T(w1)ᵀ (over dz)
+    for (int c = tid; c < H; c += THREADS) {
+      float s = 0.f;
+      for (int r = 0; r < rows; ++r) s += sU[r * LH + c];
+      my[pDBW1 + c] += s;
+    }
+    mm_rt(D, H, rows, [&](int m, int k) { return round_as<T>(sY[k * LX + m]); },
+          [&](int k, int n) { return round_as<T>(sU[k * LH + n]); },
+          [&](int m, int n, float v) { my[pDW1 + m * H + n] += v; });
+    mm_rt(rows, D, H, [&](int m, int k) { return round_as<T>(sU[m * LH + k]); },
+          [&](int k, int n) { return w1c(n, k); },
+          [&](int m, int n, float v) { sG[m * LX + n] += v; });
+    __syncthreads();
+
+    // 7. dg1, db1 (columns);  dx = dy, d attn_out = LN1 backward (rows)
+    for (int c = tid; c < D; c += THREADS) {
+      float sg = 0.f, sb = 0.f;
+      for (int r = 0; r < rows; ++r) {
+        sg = fmaf(sG[r * LX + c], sN1[r * LX + c], sg);
+        sb += sG[r * LX + c];
+      }
+      my[c] += sg;
+      my[pDB1 + c] += sb;
+    }
+    for (int r = warp; r < rows; r += THREADS / 32) {
+      const float* dy = sG + r * LX;
+      const float* n = sN1 + r * LX;
+      float s1 = 0.f, s2 = 0.f;
+      for (int c = lane; c < D; c += 32) {
+        const float dn = dy[c] * g1[c];
+        s1 += dn;
+        s2 = fmaf(dn, n[c], s2);
+      }
+      const float m1 = warp_sum(s1) / D, m2 = warp_sum(s2) / D, inv = sR1[r];
+      const size_t base = (size_t)(row0 + r) * D;
+      for (int c = lane; c < D; c += 32) {
+        store(dx + base + c, dy[c]);
+        store(dao + base + c, inv * (dy[c] * g1[c] - m1 - n[c] * m2));
+      }
+    }
+    __syncthreads();
+  }
 }
 
 // ---- the bfloat16 body: tensor cores --------------------------------------
@@ -587,7 +748,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) residual_ffn_bwd_mma(
 #pragma unroll
         for (int hf = 0; hf < 2; ++hf) {
 #pragma unroll
-          for (int e = 0; e < 4; ++e) dh[hf][e] *= gelu_grad(u[hf][e]);
+          for (int e = 0; e < 4; ++e) dh[hf][e] *= act::gelu_grad(u[hf][e]);
           sums[4 * (hc & 1) + 2 * hf] = dh[hf][0] + dh[hf][2];
           sums[4 * (hc & 1) + 2 * hf + 1] = dh[hf][1] + dh[hf][3];
         }
@@ -723,31 +884,65 @@ int launch(const void* const* p, int w1_k, int w1_n, int w2_k, int w2_n, void* d
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_rt(const void* const* p, int w1_k, int w1_n, int w2_k, int w2_n, void* dx, void* dao,
+              void* part, void* dparams, long M, int D, int H, int R, float eps, int blocks,
+              cudaStream_t stream) {
+  const size_t bytes = rt_bytes(D, H, R);
+  auto kern = residual_ffn_bwd_rt<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<blocks, THREADS, bytes, stream>>>(
+      (const T*)p[0], (const T*)p[1], (const T*)p[2], (const float*)p[3],
+      (const float*)p[4], (const float*)p[5], w1_k, w1_n, (const float*)p[6],
+      (const float*)p[7], w2_k, w2_n, (const float*)p[8], (const float*)p[9], (T*)dx,
+      (T*)dao, (float*)part, M, D, H, R, eps);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int size = 5 * D + 2 * D * H + H, dw1 = 2 * D, dw2 = 2 * D + D * H + H;
+  reduce_partials_rounded<<<(size + 255) / 256, 256, 0, stream>>>(
+      (const float*)part, (float*)dparams, blocks, size, dw1, dw1 + D * H, dw2, dw2 + H * D,
+      sizeof(T) == 2);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// x, attn_out, dz [M, 64] (float32 or bfloat16, per is_bf16) -> dx and
+// x, attn_out, dz [M, D] (float32 or bfloat16, per is_bf16) -> dx and
 // d attn_out of the same shape and type, and dparams, float32, the
-// concatenation of dg1 [64], db1 [64], dw1 [64, 128], dbw1 [128],
-// dw2 [128, 64], dbw2 [64], dg2 [64], db2 [64].  bfloat16 runs the
-// tensor-core body (the five activations 16-byte aligned; dw1 and dw2
-// rounded to bf16 values), float32 the float32 body.  `part` is scratch of
-// `blocks` times that size.  The parameters are the forward's (b2 is not
-// needed).  Returns a cudaError_t code (0 on a clean launch).
+// concatenation of dg1 [D], db1 [D], dw1 [D, H], dbw1 [H], dw2 [H, D],
+// dbw2 [D], dg2 [D], db2 [D] (at bfloat16 dw1 and dw2 are bf16 values).
+// bfloat16 at (D, H) = (64, 128) runs the tensor-core body (the five
+// activations 16-byte aligned); every other case the generic body, in tiles
+// of R rows (R <= 64).  `part` is scratch of `blocks` times dparams' size.
+// The parameters are the forward's (b2 is not needed).  Returns a
+// cudaError_t code (0 on a clean launch).
 int tmar_residual_ffn_bwd(const void* x, const void* ao, const void* dz, const void* g1,
                           const void* b1, const void* w1, const void* bw1, const void* w2,
                           const void* bw2, const void* g2, void* dx, void* dao, void* part,
-                          void* dparams, long long M, int w1_k, int w1_n, int w2_k, int w2_n,
-                          float eps, int blocks, int is_bf16, void* stream) {
-  if (M < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+                          void* dparams, long long M, int D, int H, int R, int w1_k, int w1_n,
+                          int w2_k, int w2_n, float eps, int blocks, int is_bf16,
+                          void* stream) {
+  if (M < 1 || D < 1 || H < 1 || R < 1 || R > 64 || blocks < 1) return (int)cudaErrorInvalidValue;
   const void* p[10] = {x, ao, dz, g1, b1, w1, bw1, w2, bw2, g2};
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
+  if (is_bf16 && D == 64 && H == 128)
     return launch_mma(p, w1_k, w1_n, w2_k, w2_n, dx, dao, part, dparams, (long)M, eps, blocks, s);
-  return launch<float>(p, w1_k, w1_n, w2_k, w2_n, dx, dao, part, dparams, (long)M, eps,
-                       blocks, s);
+  if (!is_bf16 && D == 64 && H == 128)
+    return launch<float>(p, w1_k, w1_n, w2_k, w2_n, dx, dao, part, dparams, (long)M, eps, blocks,
+                         s);
+  if (is_bf16)
+    return launch_rt<__nv_bfloat16>(p, w1_k, w1_n, w2_k, w2_n, dx, dao, part, dparams, (long)M,
+                                    D, H, R, eps, blocks, s);
+  return launch_rt<float>(p, w1_k, w1_n, w2_k, w2_n, dx, dao, part, dparams, (long)M, D, H, R,
+                          eps, blocks, s);
 }
+
+// The shared memory, in bytes, of the generic body's launch at (D, H) in
+// tiles of R rows.
+long long tmar_residual_ffn_bwd_smem(int D, int H, int R) { return (long long)rt_bytes(D, H, R); }
 
 const char* tmar_residual_ffn_bwd_error(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -6,19 +6,22 @@
 // tmar_torch/ops/cuda_ffn.py:ffn_kernel_math (bfloat16).
 //
 //   y = x + LN1(attn_out)              (LN1 is applied to attn_out, not x)
-//   z = y + LN2(fc2(GELU(fc1(y))))     exact (erf) GELU
-// on [M, 64] token rows with a 128-wide hidden layer, for any M: the last
+//   z = y + LN2(fc2(GELU(fc1(y))))     GELU with the TPU kernel's erf (gelu.cuh)
+// on [M, D] token rows with an H-wide hidden layer, for any M: the last
 // tile is ragged, nothing is padded.  LayerNorm statistics and the GELU are
-// float32 whatever the I/O type.  The I/O type picks one of two bodies.
+// float32 whatever the I/O type.  Three bodies:
 //
-// The float32 body, the exactness path.  A persistent block per SM walks
-// over tiles of 64 rows; both weight matrices sit in shared memory in float32
-// for the whole launch, read through strides so that a transposed view needs
-// no copy; the tile stays in shared memory between the stages, so device
-// memory sees each input and output element once.  Products run on the CUDA
-// cores in float32.
+// The body templated on the full-width NGswin's (D, H) = (64, 128) runs
+// float32 there: a 64-row tile and both weights in shared memory.
 //
-// The bfloat16 body, on the tensor cores, rounds where _ffn_kernel rounds
+// The generic body takes D and H at run time (every other width, at
+// float32 and bfloat16): a
+// persistent block walks over tiles of 64 rows held in shared memory, sized
+// at launch; the weights are read from device memory (L2) through their
+// strides, so no width is refused for its weights.  Products on the CUDA
+// cores in float32; at bfloat16 it rounds where ffn_kernel_math does.
+//
+// The tensor-core body (bfloat16 at D = 64, H = 128) rounds where _ffn_kernel rounds
 // when the block feeds it bf16 (tmar/nn/blocks.py:148-155): w1 and w2, y
 // before fc1, the GELU output before fc2, the output.  What bounds it on an
 // H100: bytes (33 kFLOP per row against 384 bytes moved, far below the
@@ -38,7 +41,7 @@ namespace {
 
 using namespace tmar;
 
-constexpr int D = 64;
+constexpr int D = 64;    // the templated float32 body's and the tensor-core body's widths
 constexpr int HID = 128;
 constexpr int LX = D + 1;
 constexpr int LH = HID + 1;
@@ -55,10 +58,6 @@ constexpr int S_VEC = S_W2 + HID * LW2;    // g1 b1 bw2 g2 b2 [D] each, then bw1
 constexpr int FLOATS = S_VEC + 5 * D + HID;
 constexpr size_t BYTES = FLOATS * sizeof(float);
 static_assert(BYTES <= MAX_SMEM, "tile does not fit in shared memory");
-
-__device__ __forceinline__ float gelu(float v) {
-  return 0.5f * v * (1.f + erff(v * 0.70710678118654752f));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS, 1) residual_ffn_fwd_kernel(
@@ -124,7 +123,7 @@ __global__ void __launch_bounds__(THREADS, 1) residual_ffn_fwd_kernel(
       float acc[ceil16(ROWS)][ceil16(HID)];
       mm_zero<ROWS, HID>(acc);
       mm_acc<ROWS, D, HID>(acc, sY, LX, 1, s_w1, LW1, 1);
-      mm_each<ROWS, HID>(acc, [&](int m, int n, float v) { sH[m * LH + n] = gelu(v + s_bw1[n]); });
+      mm_each<ROWS, HID>(acc, [&](int m, int n, float v) { sH[m * LH + n] = act::gelu(v + s_bw1[n]); });
     }
     __syncthreads();
 
@@ -147,6 +146,69 @@ __global__ void __launch_bounds__(THREADS, 1) residual_ffn_fwd_kernel(
       T* o = out + (size_t)(row0 + r) * D;
       store(o + lane, sY[r * LX + lane] + d0 * inv * s_g2[lane] + s_b2[lane]);
       store(o + lane + 32, sY[r * LX + lane + 32] + d1 * inv * s_g2[lane + 32] + s_b2[lane + 32]);
+    }
+    __syncthreads();
+  }
+}
+
+// ---- the generic body: any (D, hidden) ------------------------------------
+// A persistent block walks over tiles of ROWS rows; y, the hidden layer and
+// fc2's output of a tile sit in shared memory in float32 (rows padded to an
+// odd length), rt_bytes at launch (tmar_torch/ops/envelope.py:
+// ffn_fwd_bytes counts the same).  The weights are read from device memory
+// through their strides (L2 holds them), rounded to T's values as they are
+// read.  At bfloat16 it rounds where ffn_kernel_math
+// does: y before fc1, the GELU output before fc2, the output.
+size_t rt_bytes(int D, int H) { return (size_t)4 * ROWS * (2 * (D + 1) + H + 1); }
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS) residual_ffn_fwd_rt(
+    const T* __restrict__ x, const T* __restrict__ ao, const float* __restrict__ g1,
+    const float* __restrict__ b1, const float* __restrict__ w1, int w1_k, int w1_n,
+    const float* __restrict__ bw1, const float* __restrict__ w2, int w2_k, int w2_n,
+    const float* __restrict__ bw2, const float* __restrict__ g2,
+    const float* __restrict__ b2, T* __restrict__ out, long M, int D, int H, float eps) {
+  extern __shared__ float smem[];
+  const int LX = D + 1, LH = H + 1;
+  float* sY = smem;
+  float* sH = sY + ROWS * LX;
+  float* sF = sH + ROWS * LH;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  const long tiles = (M + ROWS - 1) / ROWS;
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long row0 = tile * ROWS;
+    const int rows = (int)(M - row0 < ROWS ? M - row0 : ROWS);
+
+    // 1. y = x + LN1(attn_out), one warp per row
+    for (int r = warp; r < rows; r += THREADS / 32) {
+      const T* a = ao + (size_t)(row0 + r) * D;
+      const T* xr = x + (size_t)(row0 + r) * D;
+      const float2 st = row_stats(D, eps, [&](int c) { return to_f(a[c]); });
+      for (int c = lane; c < D; c += 32)
+        sY[r * LX + c] = to_f(xr[c]) + (to_f(a[c]) - st.x) * st.y * g1[c] + b1[c];
+    }
+    __syncthreads();
+
+    // 2. hidden = T(GELU(T(y) @ T(w1) + bw1))
+    mm_rt(rows, H, D, [&](int m, int k) { return round_as<T>(sY[m * LX + k]); },
+          [&](int k, int n) { return round_as<T>(__ldg(w1 + (size_t)k * w1_k + (size_t)n * w1_n)); },
+          [&](int m, int n, float v) { sH[m * LH + n] = round_as<T>(act::gelu(v + __ldg(bw1 + n))); });
+    __syncthreads();
+
+    // 3. f = hidden @ T(w2) + bw2
+    mm_rt(rows, D, H, [&](int m, int k) { return sH[m * LH + k]; },
+          [&](int k, int n) { return round_as<T>(__ldg(w2 + (size_t)k * w2_k + (size_t)n * w2_n)); },
+          [&](int m, int n, float v) { sF[m * LX + n] = v + __ldg(bw2 + n); });
+    __syncthreads();
+
+    // 4. z = y + LN2(f)
+    for (int r = warp; r < rows; r += THREADS / 32) {
+      const float* f = sF + r * LX;
+      const float2 st = row_stats(D, eps, [&](int c) { return f[c]; });
+      T* o = out + (size_t)(row0 + r) * D;
+      for (int c = lane; c < D; c += 32)
+        store(o + c, sY[r * LX + c] + (f[c] - st.x) * st.y * g2[c] + b2[c]);
     }
     __syncthreads();
   }
@@ -272,28 +334,51 @@ int launch(const void* const* p, int w1_k, int w1_n, int w2_k, int w2_n, void* o
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int launch_rt(const void* const* p, int w1_k, int w1_n, int w2_k, int w2_n, void* out, long M,
+              int D, int H, float eps, int blocks, cudaStream_t stream) {
+  const size_t bytes = rt_bytes(D, H);
+  auto kern = residual_ffn_fwd_rt<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<blocks, THREADS, bytes, stream>>>(
+      (const T*)p[0], (const T*)p[1], (const float*)p[2], (const float*)p[3],
+      (const float*)p[4], w1_k, w1_n, (const float*)p[5], (const float*)p[6], w2_k, w2_n,
+      (const float*)p[7], (const float*)p[8], (const float*)p[9], (T*)out, M, D, H, eps);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// x, attn_out [M, 64] (float32 or bfloat16, per is_bf16) -> out of the same
-// shape and type: bfloat16 runs the tensor-core body (x, attn_out and out
-// 16-byte aligned), float32 the float32 body.  All parameters are float32:
-// LN gains and biases g1, b1, g2, b2 [64]; w1 [64, 128] and w2 [128, 64] are
-// read as w[k·w_k + n·w_n]; bw1 [128], bw2 [64].  `blocks` is the number of
-// persistent blocks, at most one per SM.  Returns a cudaError_t code (0 on a
-// clean launch).
+// x, attn_out [M, D] (float32 or bfloat16, per is_bf16) -> out of the same
+// shape and type.  All parameters are float32: LN gains and biases g1, b1,
+// g2, b2 [D]; w1 [D, H] and w2 [H, D] are read as w[k·w_k + n·w_n]; bw1 [H],
+// bw2 [D].  bfloat16 at (D, H) = (64, 128) runs the tensor-core body (x,
+// attn_out and out 16-byte aligned); every other case the generic body.
+// `blocks` is the number of persistent blocks.  Returns a cudaError_t code
+// (0 on a clean launch).
 int tmar_residual_ffn_fwd(const void* x, const void* ao, const void* g1, const void* b1,
                           const void* w1, const void* bw1, const void* w2, const void* bw2,
-                          const void* g2, const void* b2, void* out, long long M, int w1_k,
-                          int w1_n, int w2_k, int w2_n, float eps, int blocks, int is_bf16,
-                          void* stream) {
-  if (M < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+                          const void* g2, const void* b2, void* out, long long M, int D, int H,
+                          int w1_k, int w1_n, int w2_k, int w2_n, float eps, int blocks,
+                          int is_bf16, void* stream) {
+  if (M < 1 || D < 1 || H < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
   const void* p[10] = {x, ao, g1, b1, w1, bw1, w2, bw2, g2, b2};
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) return launch_mma(p, w1_k, w1_n, w2_k, w2_n, out, (long)M, eps, blocks, s);
-  return launch<float>(p, w1_k, w1_n, w2_k, w2_n, out, (long)M, eps, blocks, s);
+  if (is_bf16 && D == 64 && H == 128)
+    return launch_mma(p, w1_k, w1_n, w2_k, w2_n, out, (long)M, eps, blocks, s);
+  if (!is_bf16 && D == 64 && H == 128)
+    return launch<float>(p, w1_k, w1_n, w2_k, w2_n, out, (long)M, eps, blocks, s);
+  if (is_bf16)
+    return launch_rt<__nv_bfloat16>(p, w1_k, w1_n, w2_k, w2_n, out, (long)M, D, H, eps, blocks, s);
+  return launch_rt<float>(p, w1_k, w1_n, w2_k, w2_n, out, (long)M, D, H, eps, blocks, s);
 }
+
+// The shared memory, in bytes, of the generic body's launch at (D, H).
+long long tmar_residual_ffn_fwd_smem(int D, int H) { return (long long)rt_bytes(D, H); }
 
 const char* tmar_residual_ffn_fwd_error(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -20,9 +20,10 @@
 //   dv_j  = Σ_i p_ij dacc_i;  dq = (dqn - qn (dqn·qn)) / |q|, the same for k
 //   dx = dqkv @ wqkvᵀ;  dwqkv += xᵀ dqkv;  dwproj += oᵀ g
 //
-// Two bodies, chosen by the I/O type and the window length, as the forward's
+// Three bodies, chosen by the I/O type and the geometry, as the forward's
 // (window_attention_fwd.cu):
-// * bfloat16 at N = 64: the tensor-core body below, rounding as
+// * bfloat16 at the full-width NGswin's windows (N = 64, D = 64, heads 6 x 10
+//   or 4 x 16): the tensor-core body below, rounding as
 //   _attn_bwd_kernel_batched does with cot_bf16 on (the JAX default for
 //   bf16 inputs, :474-477): the recompute's products take bf16 operands
 //   (:629-642), and so does every cotangent product: g, wp_h, dacc, v, P,
@@ -30,17 +31,19 @@
 //   delta (from the bf16-operand dp, :658), the softmax statistics, the
 //   L2-norm backward and the sums into dbias, dscale, dbqkv and dbproj stay
 //   float32.
-// * float32 at every length, and bfloat16 at N = 1, 4, 9: the float32 body,
-//   which at bfloat16 rounds where _attn_bwd_kernel rounds: the two matrices
-//   (:728, :767, :802-807); everything else is float32 there.
+// * the full-width NGswin's other geometries (its windows at float32, its
+//   n-gram windows at both dtypes): the body templated on the geometry,
+//   which at bfloat16 rounds where _attn_bwd_kernel rounds (below).
+// * every other case: the generic body, which takes N (<= 64), D, the heads
+//   and head_dim (<= 32) at run time.  At bfloat16 and N >= 32 it rounds
+//   where the tensor-core body does; below, where _attn_bwd_kernel rounds:
+//   the two matrices (:728, :767, :802-807); everything else is float32
+//   there.
 //
 // What bounds it on an H100: operations, about three times the forward's.
-// Float32 body: the forward's tiling (a persistent block per SM, 64 token
-// rows per tile, weights in shared memory).  Nothing of size [N, N] goes to
-// device memory.  The attention part takes two passes so that no thread adds
-// into another's data: first a thread owns a (head, query) row and produces
-// o, delta (as dacc·o, equal to Σ dp·p in float32), dqn and its share of
-// dscale; then it owns a (head, key) row and produces dkn, dv and dbias.
+// Generic body: the forward's tiling (a persistent block, whole windows to
+// a 64-row tile), heads in groups that fit shared memory, weights read from
+// device memory.  Nothing of size [N, N] goes to device memory.
 // Tensor-core body, three launches:
 //  1. per window (window_attention_bwd_mma): one warpgroup takes a window,
 //     each warp 16 token rows as queries and then as keys.  Per head: q, k, v
@@ -68,6 +71,7 @@ namespace {
 
 using namespace tmar;
 
+// ---- the templated body: the full-width NGswin's geometries -----------------
 template <int N, int D, int NH, int HD>
 struct Geo {
   static constexpr int A = NH * HD;
@@ -437,6 +441,315 @@ int launch(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* d
   reduce_partials<<<(G::PSIZE + 255) / 256, 256, 0, stream>>>(
       (const float*)part, (float*)dparams, blocks, G::PSIZE);
   return (int)cudaGetLastError();
+}
+
+// ---- the generic body: any (N <= 64, D, heads, head_dim <= HDM) -------------
+// The forward's tiling (window_attention_fwd.cu): a persistent block walks
+// over tiles of whole windows; x, g and dx of a tile stay in shared memory,
+// and heads are taken hg at a time (rt_bytes; tmar_torch/ops/envelope.py:
+// attention_bwd_bytes counts the same, all heads where they fit): per group q/k/v and their
+// cotangents, rk(dacc), the head outputs, and per (head, row) the two
+// reciprocal norms, lse, delta and the dscale share, in float32.  The weights
+// are read from device memory, rounded to T's values as they are read.  Per
+// group the attention takes two passes so that no thread adds into another's
+// data: a thread owns a (head, query) row and produces o, delta = Σ_j dp·p
+// (dp from rk's operands), dq_n and its share of dscale; then a (head, key)
+// row and produces dk_n, dv and dbias.  Then the L2-norm backward, the
+// group's columns of dwqkv and rows of dwproj, and its share of dx.  With rk
+// (bfloat16 at N >= 32) it rounds as window_attention_backward_math does at
+// N = 64 (every cotangent product's operands); at N < 32 only the two
+// matrices; at float32 nothing.  Every sum goes into the block's own slot of
+// `part` (zeroed first) by one owner thread, and a reduce adds the slots in
+// block order: no atomics, two runs give the same bits.
+template <int HDM, typename T>
+__global__ void __launch_bounds__(THREADS) window_attention_bwd_rt(
+    const T* __restrict__ x, const T* __restrict__ g, const float* __restrict__ wqkv,
+    int wq_k, int wq_n, const float* __restrict__ bqkv, const float* __restrict__ scale,
+    const float* __restrict__ bias, const float* __restrict__ wproj, int wp_k, int wp_n,
+    const float* __restrict__ mrow, const float* __restrict__ mcol,
+    const float* __restrict__ lse, T* __restrict__ dx, float* __restrict__ part, int nwin,
+    int N, int D, int nh, int hd, int hg, int wh, int ww, int rk) {
+  extern __shared__ float smem[];
+  const int A = nh * hd, A3 = 3 * A, LX = D + 1, GM = hg * hd;
+  const int LQ = 3 * GM + 1, LA = GM + 1;
+  const int WPB = ROWS / N, TR = WPB * N;
+  float* sX = smem;                 // x
+  float* sG = sX + ROWS * LX;       // g
+  float* sDX = sG + ROWS * LX;      // dx
+  float* sQ = sDX + ROWS * LX;      // the group's q_n | k_n | v (q_n, k_n unrounded)
+  float* sD = sQ + ROWS * LQ;       // dq_n | dk_n | dv, then dq | dk | dv
+  float* sDA = sD + ROWS * LQ;      // rk(dacc)
+  float* sO = sDA + ROWS * LA;      // the head outputs
+  float* sInv = sO + ROWS * LA;     // [ROWS][2hg] 1 / (|q| + eps), 1 / (|k| + eps)
+  float* sLse = sInv + ROWS * 2 * hg;  // [hg][ROWS]
+  float* sDelta = sLse + ROWS * hg;
+  float* sDsc = sDelta + ROWS * hg;
+  float* sDS = sDsc + ROWS * hg;    // several windows to a tile: [hg][WPB][N][N]
+  const int tid = threadIdx.x;
+  // one block's slot of partial sums, and the layout of the reduced result
+  const int pDBQKV = D * A3, pDSCALE = pDBQKV + A3, pDBIAS = pDSCALE + nh;
+  const int pDWPROJ = pDBIAS + nh * N * N, pDBPROJ = pDWPROJ + A * D, psize = pDBPROJ + D;
+  float* my = part + (size_t)blockIdx.x * psize;
+  for (int e = tid; e < psize; e += THREADS) my[e] = 0.f;
+  __syncthreads();
+  auto rkv = [&](float v) { return rk ? round_as<T>(v) : v; };
+  const long total = (long)nwin * N;
+  const long tiles = (total + TR - 1) / TR;
+
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long row0 = tile * TR;
+    const int rows = (int)(total - row0 < TR ? total - row0 : TR);  // whole windows
+    const int nw = rows / N;
+
+    // 1. x, g (T's values), dx = 0;  dbproj += Σ g
+    for (int e = tid; e < rows * D; e += THREADS) {
+      const int r = e / D, c = e % D;
+      sX[r * LX + c] = to_f(x[row0 * D + e]);
+      sG[r * LX + c] = to_f(g[row0 * D + e]);
+      sDX[r * LX + c] = 0.f;
+    }
+    __syncthreads();
+    for (int c = tid; c < D; c += THREADS) {
+      float s = 0.f;
+      for (int r = 0; r < rows; ++r) s += sG[r * LX + c];
+      my[pDBPROJ + c] += s;
+    }
+
+    for (int h0 = 0; h0 < nh; h0 += hg) {
+      const int hc = nh - h0 < hg ? nh - h0 : hg, G = hc * hd;
+      auto col = [&](int n) { return (n / G) * A + h0 * hd + n % G; };
+
+      // 2. q, k, v = x @ T(wqkv) + bqkv;  rk(dacc) = rk(g @ T(wproj)ᵀ);  lse
+      mm_rt(rows, 3 * G, D, [&](int m, int k) { return sX[m * LX + k]; },
+            [&](int k, int n) {
+              return round_as<T>(__ldg(wqkv + (size_t)k * wq_k + (size_t)col(n) * wq_n));
+            },
+            [&](int m, int n, float v) { sQ[m * LQ + n] = v + __ldg(bqkv + col(n)); });
+      mm_rt(rows, G, D, [&](int m, int k) { return sG[m * LX + k]; },
+            [&](int k, int n) {
+              return round_as<T>(
+                  __ldg(wproj + (size_t)(h0 * hd + n) * wp_k + (size_t)k * wp_n));
+            },
+            [&](int m, int n, float v) { sDA[m * LA + n] = rkv(v); });
+      for (int e = tid; e < hc * rows; e += THREADS) {
+        const int hl = e / rows, r = e % rows;
+        sLse[hl * ROWS + r] = lse[((row0 + r) / N * nh + h0 + hl) * N + (row0 + r) % N];
+      }
+      __syncthreads();
+
+      // 3. q_n, k_n in place (unrounded), keeping 1 / (|t| + eps)
+      for (int e = tid; e < rows * 2 * hc; e += THREADS) {
+        const int r = e / (2 * hc), j = e % (2 * hc);
+        float* t = sQ + r * LQ + (j / hc) * G + (j % hc) * hd;
+        float ss = 0.f;
+        for (int d = 0; d < hd; ++d) ss = fmaf(t[d], t[d], ss);
+        const float inv = 1.f / (sqrtf(ss) + 1e-12f);
+        for (int d = 0; d < hd; ++d) t[d] *= inv;
+        sInv[r * 2 * hg + j] = inv;
+      }
+      __syncthreads();
+
+      // 4. a thread owns a (head, query) row i: o, delta, dq_n, its dscale share
+      for (int e = tid; e < hc * rows; e += THREADS) {
+        const int hl = e / rows, r = e % rows, h = h0 + hl;
+        const int w = r / N, i = r % N;
+        bool gr, gc;
+        mask_gates((int)((row0 + r) / N), wh, ww, gr, gc);
+        float q[HDM], da[HDM], o[HDM], dq[HDM];
+#pragma unroll
+        for (int d = 0; d < HDM; ++d) {
+          q[d] = d < hd ? rkv(sQ[r * LQ + hl * hd + d]) : 0.f;
+          da[d] = d < hd ? sDA[r * LA + hl * hd + d] : 0.f;
+          o[d] = dq[d] = 0.f;
+        }
+        const float sc = scale[h], l = sLse[hl * ROWS + r];
+        const float* kb = sQ + (w * N) * LQ + G + hl * hd;
+        const float* bi = bias + ((size_t)h * N + i) * N;
+        // (cos, p, dp) of key j
+        auto key = [&](int j, float& cs, float& p, float& dp) {
+          const float* kj = kb + j * LQ;
+          const float* vj = kj + G;
+          cs = 0.f, dp = 0.f;
+#pragma unroll
+          for (int d = 0; d < HDM; ++d)
+            if (d < hd) {
+              cs = fmaf(q[d], rkv(kj[d]), cs);
+              dp = fmaf(da[d], rkv(vj[d]), dp);
+            }
+          float s = cs * sc + bi[j];
+          if (gr) s += mrow[i * N + j];
+          if (gc) s += mcol[i * N + j];
+          p = expf(s - l);
+        };
+        float delta = 0.f, dsc = 0.f;
+        for (int j = 0; j < N; ++j) {
+          float cs, p, dp;
+          key(j, cs, p, dp);
+          const float pr = rkv(p);
+          const float* vj = kb + j * LQ + G;
+#pragma unroll
+          for (int d = 0; d < HDM; ++d)
+            if (d < hd) o[d] = fmaf(pr, rkv(vj[d]), o[d]);
+          delta = fmaf(dp, p, delta);
+        }
+        for (int j = 0; j < N; ++j) {
+          float cs, p, dp;
+          key(j, cs, p, dp);
+          const float ds = p * (dp - delta);
+          dsc = fmaf(ds, cs, dsc);
+          const float dc = rkv(ds * sc);
+          const float* kj = kb + j * LQ;
+#pragma unroll
+          for (int d = 0; d < HDM; ++d)
+            if (d < hd) dq[d] = fmaf(dc, rkv(kj[d]), dq[d]);
+        }
+        sDelta[hl * ROWS + r] = delta;
+        sDsc[hl * ROWS + r] = dsc;
+#pragma unroll
+        for (int d = 0; d < HDM; ++d)
+          if (d < hd) {
+            sO[r * LA + hl * hd + d] = o[d];
+            sD[r * LQ + hl * hd + d] = dq[d];
+          }
+      }
+      __syncthreads();
+
+      // 5. a thread owns a (head, key) row j: dk_n, dv, dbias
+      for (int e = tid; e < hc * rows; e += THREADS) {
+        const int hl = e / rows, r = e % rows, h = h0 + hl;
+        const int w = r / N, j = r % N;
+        bool gr, gc;
+        mask_gates((int)((row0 + r) / N), wh, ww, gr, gc);
+        float k[HDM], v[HDM], dk[HDM], dv[HDM];
+#pragma unroll
+        for (int d = 0; d < HDM; ++d) {
+          k[d] = d < hd ? rkv(sQ[r * LQ + G + hl * hd + d]) : 0.f;
+          v[d] = d < hd ? rkv(sQ[r * LQ + 2 * G + hl * hd + d]) : 0.f;
+          dk[d] = dv[d] = 0.f;
+        }
+        const float sc = scale[h];
+        for (int i = 0; i < N; ++i) {
+          const int ri = w * N + i;
+          const float* qi = sQ + ri * LQ + hl * hd;
+          const float* di = sDA + ri * LA + hl * hd;
+          float cs = 0.f, dp = 0.f;
+#pragma unroll
+          for (int d = 0; d < HDM; ++d)
+            if (d < hd) {
+              cs = fmaf(rkv(qi[d]), k[d], cs);
+              dp = fmaf(di[d], v[d], dp);
+            }
+          float s = cs * sc + bias[((size_t)h * N + i) * N + j];
+          if (gr) s += mrow[i * N + j];
+          if (gc) s += mcol[i * N + j];
+          const float p = expf(s - sLse[hl * ROWS + ri]);
+          const float ds = p * (dp - sDelta[hl * ROWS + ri]);
+          const float pr = rkv(p), dc = rkv(ds * sc);
+#pragma unroll
+          for (int d = 0; d < HDM; ++d)
+            if (d < hd) {
+              dv[d] = fmaf(pr, di[d], dv[d]);
+              dk[d] = fmaf(dc, rkv(qi[d]), dk[d]);
+            }
+          if (WPB > 1)
+            sDS[((hl * WPB + w) * N + i) * N + j] = ds;
+          else
+            my[pDBIAS + (h * N + i) * N + j] += ds;  // this thread alone owns (h, i, j)
+        }
+#pragma unroll
+        for (int d = 0; d < HDM; ++d)
+          if (d < hd) {
+            sD[r * LQ + G + hl * hd + d] = dk[d];
+            sD[r * LQ + 2 * G + hl * hd + d] = dv[d];
+          }
+      }
+      __syncthreads();
+
+      // 6. dscale, dbias (several windows: summed here in window order);
+      //    the L2-norm backward in place: dt = inv (dt_n - t_n (dt_n · t_n))
+      for (int hl = tid; hl < hc; hl += THREADS) {
+        float s = 0.f;
+        for (int r = 0; r < rows; ++r) s += sDsc[hl * ROWS + r];
+        my[pDSCALE + h0 + hl] += s;
+      }
+      if (WPB > 1)
+        for (int e = tid; e < hc * N * N; e += THREADS) {
+          const int hl = e / (N * N), ij = e % (N * N);
+          float s = 0.f;
+          for (int w = 0; w < nw; ++w) s += sDS[(hl * WPB + w) * N * N + ij];
+          my[pDBIAS + (h0 + hl) * N * N + ij] += s;
+        }
+      for (int e = tid; e < rows * 2 * hc; e += THREADS) {
+        const int r = e / (2 * hc), j = e % (2 * hc);
+        const int off = r * LQ + (j / hc) * G + (j % hc) * hd;
+        const float* t = sQ + off;
+        float* dt = sD + off;
+        float dot = 0.f;
+        for (int d = 0; d < hd; ++d) dot = fmaf(dt[d], t[d], dot);
+        const float inv = sInv[r * 2 * hg + j];
+        for (int d = 0; d < hd; ++d) dt[d] = inv * (dt[d] - t[d] * dot);
+      }
+      __syncthreads();
+
+      // 7. the group's rows of dwproj += rk(o)ᵀ rk(g), columns of
+      //    dwqkv += rk(x)ᵀ rk(dqkv) and of dbqkv += Σ dqkv;
+      //    dx += rk(dqkv) @ rk(T(wqkv))ᵀ
+      mm_rt(G, D, rows, [&](int m, int k) { return rkv(sO[k * LA + m]); },
+            [&](int k, int n) { return rkv(sG[k * LX + n]); },
+            [&](int m, int n, float v) { my[pDWPROJ + (h0 * hd + m) * D + n] += v; });
+      mm_rt(D, 3 * G, rows, [&](int m, int k) { return rkv(sX[k * LX + m]); },
+            [&](int k, int n) { return rkv(sD[k * LQ + n]); },
+            [&](int m, int n, float v) { my[m * A3 + col(n)] += v; });
+      for (int n = tid; n < 3 * G; n += THREADS) {
+        float s = 0.f;
+        for (int r = 0; r < rows; ++r) s += sD[r * LQ + n];
+        my[pDBQKV + col(n)] += s;
+      }
+      mm_rt(rows, D, 3 * G, [&](int m, int k) { return rkv(sD[m * LQ + k]); },
+            [&](int k, int n) {
+              return rkv(round_as<T>(__ldg(wqkv + (size_t)n * wq_k + (size_t)col(k) * wq_n)));
+            },
+            [&](int m, int n, float v) { sDX[m * LX + n] += v; });
+      __syncthreads();
+    }
+
+    // 8. dx
+    for (int e = tid; e < rows * D; e += THREADS) store(dx + row0 * D + e, sDX[(e / D) * LX + e % D]);
+    __syncthreads();
+  }
+}
+
+size_t rt_bytes(int N, int D, int hd, int hg) {
+  const int G = hg * hd, wpb = ROWS / N;
+  return 4 * ((size_t)3 * ROWS * (D + 1) + (size_t)ROWS * (2 * (3 * G + 1) + 2 * (G + 1)) +
+              (size_t)ROWS * 5 * hg + (wpb > 1 ? (size_t)hg * wpb * N * N : 0));
+}
+
+template <int HDM, typename T>
+int launch_rt(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* dx, void* part,
+              void* dparams, int nwin, int N, int D, int nh, int hd, int hg, int wh, int ww,
+              int blocks, cudaStream_t stream) {
+  const size_t bytes = rt_bytes(N, D, hd, hg);
+  auto kern = window_attention_bwd_rt<HDM, T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<blocks, THREADS, bytes, stream>>>(
+      (const T*)p[0], (const T*)p[1], (const float*)p[2], wq_k, wq_n, (const float*)p[3],
+      (const float*)p[4], (const float*)p[5], (const float*)p[6], wp_k, wp_n,
+      (const float*)p[7], (const float*)p[8], (const float*)p[9], (T*)dx, (float*)part, nwin,
+      N, D, nh, hd, hg, wh, ww, sizeof(T) == 2 && N >= 32);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int A = nh * hd, size = D * 3 * A + 3 * A + nh + nh * N * N + A * D + D;
+  reduce_partials<<<(size + 255) / 256, 256, 0, stream>>>((const float*)part, (float*)dparams,
+                                                          blocks, size);
+  return (int)cudaGetLastError();
+}
+
+// the generic body's floats of workspace: one slot of partial sums a block
+long long generic_workspace(int N, int D, int nh, int hd, int blocks) {
+  const long long A = (long long)nh * hd;
+  return (long long)blocks * (D * 3 * A + 3 * A + nh + (long long)nh * N * N + A * D + D);
 }
 
 // ---- the bfloat16 tensor-core body, N = 64 ---------------------------------
@@ -981,26 +1294,22 @@ int launch_mma(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, voi
 }
 
 template <typename T>
-int dispatch(int N, int nh, int hd, const void* const* p, int wq_k, int wq_n, int wp_k,
-             int wp_n, void* dx, void* part, void* dparams, int nwin, int wh, int ww,
-             int blocks, cudaStream_t s) {
-#define TMAR_MMA_CASE(NN, DD, NH, HD)                                                 \
-  if (N == NN && nh == NH && hd == HD)                                                \
-    return launch_mma<NH, HD>(p, wq_k, wq_n, wp_k, wp_n, dx, part, dparams, nwin, wh, ww, \
-                              blocks, s);
-#define TMAR_CASE(NN, DD, NH, HD)                                                     \
-  if (N == NN && nh == NH && hd == HD)                                                \
-    return launch<NN, DD, NH, HD, T>(p, wq_k, wq_n, wp_k, wp_n, dx, part, dparams, nwin, wh, \
-                                     ww, blocks, s);
-  if constexpr (sizeof(T) == 2) {
-    TMAR_ATTN_WINDOW_GEOMETRIES(TMAR_MMA_CASE)
-  } else {
-    TMAR_ATTN_WINDOW_GEOMETRIES(TMAR_CASE)
-  }
-  TMAR_ATTN_NGRAM_GEOMETRIES(TMAR_CASE)
-#undef TMAR_MMA_CASE
-#undef TMAR_CASE
-  return (int)cudaErrorInvalidValue;
+int launch_generic(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* dx,
+                   void* part, void* dparams, int nwin, int N, int D, int nh, int hd, int hg,
+                   int wh, int ww, int blocks, cudaStream_t s) {
+  if (hd <= 8)
+    return launch_rt<8, T>(p, wq_k, wq_n, wp_k, wp_n, dx, part, dparams, nwin, N, D, nh, hd, hg,
+                           wh, ww, blocks, s);
+  if (hd <= 16)
+    return launch_rt<16, T>(p, wq_k, wq_n, wp_k, wp_n, dx, part, dparams, nwin, N, D, nh, hd, hg,
+                            wh, ww, blocks, s);
+  return launch_rt<32, T>(p, wq_k, wq_n, wp_k, wp_n, dx, part, dparams, nwin, N, D, nh, hd, hg,
+                          wh, ww, blocks, s);
+}
+
+// the tensor-core body's geometries: bfloat16, N = 64, D = 64, heads 6 x 10 or 4 x 16
+bool is_mma(int N, int D, int nh, int hd, int is_bf16) {
+  return is_bf16 && N == WN && D == WD && ((nh == 6 && hd == 10) || (nh == 4 && hd == 16));
 }
 
 }  // namespace
@@ -1008,25 +1317,25 @@ int dispatch(int N, int nh, int hd, const void* const* p, int wq_k, int wq_n, in
 extern "C" {
 
 // The float32 workspace the backward needs for these arguments (the
-// per-block partial sums, and for the bfloat16 body at N = 64 also its bf16
-// dqkv and attention-output tiles), in floats; -1 for an unknown geometry.
-long long tmar_window_attention_bwd_workspace(int nwin, int N, int num_heads, int head_dim,
-                                              int blocks, int is_bf16) {
-  if (nwin < 1 || blocks < 1) return -1;
-#define TMAR_MMA_WS(NN, DD, NH, HD)                                                   \
-  if (N == NN && num_heads == NH && head_dim == HD)                                   \
-    return (long long)BwdPlan<NH, HD>(nwin, blocks).total;
+// per-block partial sums, and for the tensor-core body also its bf16 dqkv
+// and attention-output tiles), in floats; -1 for arguments it does not take.
+long long tmar_window_attention_bwd_workspace(int nwin, int N, int D, int num_heads,
+                                              int head_dim, int blocks, int is_bf16) {
+  if (nwin < 1 || blocks < 1 || N < 1 || N > ROWS || D < 1 || num_heads < 1 || head_dim < 1 ||
+      head_dim > 32)
+    return -1;
+  if (is_mma(N, D, num_heads, head_dim, is_bf16))
+    return num_heads == 6 ? (long long)BwdPlan<6, 10>(nwin, blocks).total
+                          : (long long)BwdPlan<4, 16>(nwin, blocks).total;
 #define TMAR_WS(NN, DD, NH, HD)                                                       \
-  if (N == NN && num_heads == NH && head_dim == HD)                                   \
+  if (N == NN && D == DD && num_heads == NH && head_dim == HD)                         \
     return (long long)blocks * Geo<NN, DD, NH, HD>::PSIZE;
-  if (is_bf16) {
-    TMAR_ATTN_WINDOW_GEOMETRIES(TMAR_MMA_WS)
+  if (!is_bf16) {
+    TMAR_ATTN_WINDOW_GEOMETRIES(TMAR_WS)
   }
-  TMAR_ATTN_WINDOW_GEOMETRIES(TMAR_WS)
   TMAR_ATTN_NGRAM_GEOMETRIES(TMAR_WS)
-#undef TMAR_MMA_WS
 #undef TMAR_WS
-  return -1;
+  return generic_workspace(N, D, num_heads, head_dim, blocks);
 }
 
 // x, g [nwin, N, D] (float32 or bfloat16, per is_bf16) and lse [nwin, nh, N]
@@ -1034,24 +1343,53 @@ long long tmar_window_attention_bwd_workspace(int nwin, int N, int num_heads, in
 // concatenation of dwqkv [D, 3A], dbqkv [3A], dscale [nh], dbias [nh, N, N],
 // dwproj [A, D], dbproj [D].  `workspace` holds the floats that
 // tmar_window_attention_bwd_workspace gives for the same arguments, 16-byte
-// aligned.  The other arguments are the forward's.  Returns a cudaError_t
-// code.
+// aligned.  The other arguments are the forward's: bfloat16 at the
+// full-width NGswin's windows runs the tensor-core body, every other case
+// the generic body, hg heads at a time.  Returns a cudaError_t code.
 int tmar_window_attention_bwd(const void* x, const void* g, const void* wqkv,
                               const void* bqkv, const void* scale, const void* bias,
                               const void* wproj, const void* mrow, const void* mcol,
                               const void* lse, void* dx, void* workspace, void* dparams,
-                              int nwin, int N, int num_heads, int head_dim, int wq_k,
-                              int wq_n, int wp_k, int wp_n, int wh, int ww, int blocks,
+                              int nwin, int N, int D, int num_heads, int head_dim, int hg,
+                              int wq_k, int wq_n, int wp_k, int wp_n, int wh, int ww, int blocks,
                               int is_bf16, void* stream) {
-  if (nwin < 1 || blocks < 1 || (wh > 0 && (ww < 1 || nwin % (wh * ww))))
+  if (nwin < 1 || blocks < 1 || N < 1 || N > ROWS || D < 1 || num_heads < 1 ||
+      head_dim < 1 || head_dim > 32 || hg < 1 || (wh > 0 && (ww < 1 || nwin % (wh * ww))))
     return (int)cudaErrorInvalidValue;
   const void* p[10] = {x, g, wqkv, bqkv, scale, bias, wproj, mrow, mcol, lse};
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(N, num_heads, head_dim, p, wq_k, wq_n, wp_k, wp_n, dx,
-                                   workspace, dparams, nwin, wh, ww, blocks, s);
-  return dispatch<float>(N, num_heads, head_dim, p, wq_k, wq_n, wp_k, wp_n, dx, workspace,
-                         dparams, nwin, wh, ww, blocks, s);
+  if (is_mma(N, D, num_heads, head_dim, is_bf16))
+    return num_heads == 6
+               ? launch_mma<6, 10>(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, wh,
+                                   ww, blocks, s)
+               : launch_mma<4, 16>(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, wh,
+                                   ww, blocks, s);
+  // the templated body at the full-width NGswin's other geometries: its
+  // float32 windows, and its n-gram windows at both dtypes
+#define TMAR_CASE(NN, DD, NH, HD, T)                                                   \
+  if (N == NN && D == DD && num_heads == NH && head_dim == HD)                         \
+    return launch<NN, DD, NH, HD, T>(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, \
+                                     wh, ww, blocks, s);
+#define TMAR_F32(NN, DD, NH, HD) TMAR_CASE(NN, DD, NH, HD, float)
+#define TMAR_BF16(NN, DD, NH, HD) TMAR_CASE(NN, DD, NH, HD, __nv_bfloat16)
+  if (is_bf16) {
+    TMAR_ATTN_NGRAM_GEOMETRIES(TMAR_BF16)
+    return launch_generic<__nv_bfloat16>(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams,
+                                         nwin, N, D, num_heads, head_dim, hg, wh, ww, blocks, s);
+  }
+  TMAR_ATTN_WINDOW_GEOMETRIES(TMAR_F32)
+  TMAR_ATTN_NGRAM_GEOMETRIES(TMAR_F32)
+#undef TMAR_CASE
+#undef TMAR_F32
+#undef TMAR_BF16
+  return launch_generic<float>(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, N, D,
+                               num_heads, head_dim, hg, wh, ww, blocks, s);
+}
+
+// The shared memory, in bytes, of the generic body's launch with hg heads
+// to a group.
+long long tmar_window_attention_bwd_smem(int N, int D, int head_dim, int hg) {
+  return (long long)rt_bytes(N, D, head_dim, hg);
 }
 
 const char* tmar_window_attention_bwd_error(int err) {

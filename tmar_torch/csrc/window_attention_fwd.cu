@@ -18,28 +18,31 @@
 // also writes lse[win, h, i] = max + log(sum), which the backward kernel
 // reads in place of a second softmax pass.
 //
-// Two bodies, chosen by the I/O type and the window length:
-// * bfloat16 at N = 64 (the training step's and the unfused serving form's
-//   windows): the tensor-core body below (window_attention_mma.cuh), which
-//   rounds where _attn_kernel_batched rounds: bf16 weights and x, q_n, k_n,
-//   v, P normalised in float32 then rounded (:1133-1135), the merged head
-//   outputs before the projection (:1170).
-// * float32 at every length, and bfloat16 at N = 1, 4, 9: the float32 body,
-//   which at bfloat16 rounds where _attn_kernel rounds there, its weights and
-//   the head outputs before the projection (:1236); its scores and P·V stay
-//   float32 there (v is a float32 slice, so p.astype(v.dtype) is exact).
+// Three bodies, chosen by the I/O type and the geometry:
+// * bfloat16 at the full-width NGswin's windows (N = 64, D = 64, heads 6 x 10
+//   or 4 x 16: the training step's and the unfused serving form's): the
+//   tensor-core body below (window_attention_mma.cuh), which rounds where
+//   _attn_kernel_batched rounds: bf16 weights and x, q_n, k_n, v, P
+//   normalised in float32 then rounded (:1133-1135), the merged head outputs
+//   before the projection (:1170).
+// * the full-width NGswin's other geometries (window_attention_geometries.cuh:
+//   its windows at float32, its n-gram windows N = 1, 4, 9 at D = 32 at both
+//   dtypes): the body templated on the geometry, which at bfloat16 rounds
+//   where _attn_kernel rounds: its weights and the head outputs before the
+//   projection (:1236), its scores and P·V float32.
+// * every other case: the generic body, which takes N (<= 64), D, the heads
+//   and head_dim (<= 32) at run time.  At bfloat16 and N >= 32 it rounds
+//   where the tensor-core body does; below, where _attn_kernel rounds.
 //
 // What bounds it on an H100: about 45 kFLOP per token at N = 64 against 256
 // to 512 bytes moved (x, the output, lse): operations on the CUDA cores in
 // float32, bytes on the tensor cores in bfloat16.
-// Float32 body: a persistent block per SM walks over tiles of 64 token rows
-// (one 64-token window, sixteen of 4 tokens, sixty-four of 1; seven 9-token
-// windows fill 63 rows and the last row of such a tile is zero and idle, so
-// that no window straddles two tiles); both weight matrices sit
-// in shared memory in float32 for the whole launch, read through strides so
-// that a transposed view needs no copy.  The score matrix is never stored: a
-// thread owns one (head, query) row and passes twice over the keys of its
-// window, on the CUDA cores.
+// Generic body: a persistent block walks over tiles of whole windows (one
+// 64-token window, four of 16, sixteen of 4, seven of 9 in 63 rows); the
+// weights are read from device memory (L2) through their strides; heads are
+// taken in groups that fit shared memory.  The score matrix is never
+// stored: a thread owns one (head, query) row and passes over the keys of
+// its window on the CUDA cores.
 // Tensor-core body: every product is mma.sync.m16n8k16 (bf16 in, f32
 // accumulate).  A persistent block of WG = 4 warpgroups stages the bf16
 // weights and the float32 bias (times log2 e, XOR-swizzled so that a warp's
@@ -58,6 +61,7 @@ namespace {
 
 using namespace tmar;
 
+// ---- the templated body: the full-width NGswin's geometries -----------------
 template <int N, int D, int NH, int HD>
 struct Geo {
   static constexpr int A = NH * HD;
@@ -236,6 +240,150 @@ int launch(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* o
   return (int)cudaGetLastError();
 }
 
+// ---- the generic body: any (N <= 64, D, heads, head_dim <= HDM) -------------
+// A persistent block walks over tiles of whole windows, 64 / N of them
+// (WPB · N <= 64 rows); x, one group of hg heads' q/k/v and all heads'
+// outputs of a tile sit in shared memory in float32, rows padded to an odd
+// length, rt_bytes sized at launch (tmar_torch/ops/envelope.py:
+// attention_fwd_bytes counts the same and picks hg, all heads where they
+// fit).  The weights are read from device memory through their strides
+// and rounded to T's values as they are read.  A thread owns one (head,
+// query) row and passes three times over its window's keys: the row max, the
+// softmax sum, then P·V with P normalised, so that P can be rounded where
+// the 64-token JAX kernel rounds it.  With rk (bfloat16 at N >= 32, the
+// windows _attn_kernel_batched takes) it rounds q_n, k_n, v and P as
+// window_attention_kernel_math does; at N < 32 only the weights and the
+// head outputs (_attn_kernel); at float32 nothing.
+size_t rt_bytes(int D, int nh, int hd, int hg) {
+  return (size_t)4 * ROWS * ((D + 1) + (3 * hg * hd + 1) + (nh * hd + 1));
+}
+
+template <int HDM, typename T>
+__global__ void __launch_bounds__(THREADS) window_attention_fwd_rt(
+    const T* __restrict__ x, const float* __restrict__ wqkv, int wq_k, int wq_n,
+    const float* __restrict__ bqkv, const float* __restrict__ scale,
+    const float* __restrict__ bias, const float* __restrict__ wproj, int wp_k, int wp_n,
+    const float* __restrict__ bproj, const float* __restrict__ mrow,
+    const float* __restrict__ mcol, T* __restrict__ out, float* __restrict__ lse, int nwin,
+    int N, int D, int nh, int hd, int hg, int wh, int ww, int rk) {
+  extern __shared__ float smem[];
+  const int A = nh * hd, LX = D + 1, LQ = 3 * hg * hd + 1, LO = A + 1;
+  float* sX = smem;
+  float* sQ = sX + ROWS * LX;  // one group's q_n | k_n | v
+  float* sO = sQ + ROWS * LQ;  // the head outputs, T's values
+  const int tid = threadIdx.x;
+  const int WPB = ROWS / N, TR = WPB * N;
+  const long total = (long)nwin * N;
+  const long tiles = (total + TR - 1) / TR;
+  auto rkv = [&](float v) { return rk ? round_as<T>(v) : v; };
+
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long row0 = tile * TR;
+    const int rows = (int)(total - row0 < TR ? total - row0 : TR);  // whole windows
+    for (int e = tid; e < rows * D; e += THREADS)
+      sX[(e / D) * LX + e % D] = to_f(x[row0 * D + e]);
+    __syncthreads();
+
+    for (int h0 = 0; h0 < nh; h0 += hg) {
+      const int hc = nh - h0 < hg ? nh - h0 : hg, G = hc * hd;
+      // the group's column n of sQ is column col(n) of qkv
+      auto col = [&](int n) { return (n / G) * A + h0 * hd + n % G; };
+
+      // 1. q, k, v of the group's heads = x @ T(wqkv) + bqkv
+      mm_rt(rows, 3 * G, D, [&](int m, int k) { return sX[m * LX + k]; },
+            [&](int k, int n) {
+              return round_as<T>(__ldg(wqkv + (size_t)k * wq_k + (size_t)col(n) * wq_n));
+            },
+            [&](int m, int n, float v) { sQ[m * LQ + n] = v + __ldg(bqkv + col(n)); });
+      __syncthreads();
+
+      // 2. q_n and k_n (rounded with rk), and v (rounded with rk)
+      for (int e = tid; e < rows * 2 * hc; e += THREADS) {
+        float* t = sQ + (e / (2 * hc)) * LQ + (e % (2 * hc)) * hd;
+        float ss = 0.f;
+        for (int d = 0; d < hd; ++d) ss = fmaf(t[d], t[d], ss);
+        const float inv = 1.f / (sqrtf(ss) + 1e-12f);
+        for (int d = 0; d < hd; ++d) t[d] = rkv(t[d] * inv);
+      }
+      for (int e = tid; e < rows * G; e += THREADS) {
+        float* t = sQ + (e / G) * LQ + 2 * G + e % G;
+        *t = rkv(*t);
+      }
+      __syncthreads();
+
+      // 3. attention, one (head, query) row per thread
+      for (int e = tid; e < hc * rows; e += THREADS) {
+        const int hl = e / rows, r = e % rows, h = h0 + hl;
+        const int w = r / N, i = r % N;
+        const long win = tile * WPB + w;
+        bool gr, gc;
+        mask_gates((int)win, wh, ww, gr, gc);
+        float q[HDM], o[HDM];
+#pragma unroll
+        for (int d = 0; d < HDM; ++d) {
+          q[d] = d < hd ? sQ[r * LQ + hl * hd + d] : 0.f;
+          o[d] = 0.f;
+        }
+        const float sc = scale[h];
+        const float* kb = sQ + (w * N) * LQ + G + hl * hd;
+        const float* bi = bias + ((size_t)h * N + i) * N;
+        auto logit = [&](int j) {
+          const float* kj = kb + j * LQ;
+          float dot = 0.f;
+#pragma unroll
+          for (int d = 0; d < HDM; ++d)
+            if (d < hd) dot = fmaf(q[d], kj[d], dot);
+          float s = dot * sc + bi[j];
+          if (gr) s += mrow[i * N + j];
+          if (gc) s += mcol[i * N + j];
+          return s;
+        };
+        float m = -INFINITY;
+        for (int j = 0; j < N; ++j) m = fmaxf(m, logit(j));
+        float z = 0.f;
+        for (int j = 0; j < N; ++j) z += expf(logit(j) - m);
+        for (int j = 0; j < N; ++j) {
+          const float p = rkv(expf(logit(j) - m) / z);
+          const float* vj = kb + j * LQ + G;
+#pragma unroll
+          for (int d = 0; d < HDM; ++d)
+            if (d < hd) o[d] = fmaf(p, vj[d], o[d]);
+        }
+        lse[((size_t)win * nh + h) * N + i] = m + logf(z);
+#pragma unroll
+        for (int d = 0; d < HDM; ++d)
+          if (d < hd) sO[r * LO + h * hd + d] = round_as<T>(o[d]);
+      }
+      __syncthreads();
+    }
+
+    // 4. out = o @ T(wproj) + bproj
+    mm_rt(rows, D, A, [&](int m, int k) { return sO[m * LO + k]; },
+          [&](int k, int n) {
+            return round_as<T>(__ldg(wproj + (size_t)k * wp_k + (size_t)n * wp_n));
+          },
+          [&](int m, int n, float v) { store(out + (row0 + m) * D + n, v + __ldg(bproj + n)); });
+    __syncthreads();
+  }
+}
+
+template <int HDM, typename T>
+int launch_rt(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* out, void* lse,
+              int nwin, int N, int D, int nh, int hd, int hg, int wh, int ww, int blocks,
+              cudaStream_t stream) {
+  const size_t bytes = rt_bytes(D, nh, hd, hg);
+  auto kern = window_attention_fwd_rt<HDM, T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<blocks, THREADS, bytes, stream>>>(
+      (const T*)p[0], (const float*)p[1], wq_k, wq_n, (const float*)p[2], (const float*)p[3],
+      (const float*)p[4], (const float*)p[5], wp_k, wp_n, (const float*)p[6],
+      (const float*)p[7], (const float*)p[8], (T*)out, (float*)lse, nwin, N, D, nh, hd, hg, wh,
+      ww, sizeof(T) == 2 && N >= 32);
+  return (int)cudaGetLastError();
+}
+
 // ---- the bfloat16 tensor-core body, N = 64 ---------------------------------
 
 template <int NH>
@@ -365,7 +513,7 @@ __global__ void __launch_bounds__(128 * FwdMma<NH>::WG, 1) window_attention_fwd_
       }
       z0 = quad_sum(z0);
       z1 = quad_sum(z1);
-      if (t == 0) {  // natural-log lse, as the float32 body writes it
+      if (t == 0) {  // natural-log lse, as the generic body writes it
         float* l = lse + ((size_t)win * NH + h) * WN;
         l[r0] = (m0 + log2f(z0)) * LN2;
         l[r1] = (m1 + log2f(z1)) * LN2;
@@ -419,24 +567,17 @@ int launch_mma(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, voi
 }
 
 template <typename T>
-int dispatch(int N, int nh, int hd, const void* const* p, int wq_k, int wq_n, int wp_k,
-             int wp_n, void* out, void* lse, int nwin, int wh, int ww, int blocks,
-             cudaStream_t s) {
-#define TMAR_MMA_CASE(NN, DD, NH, HD)                                                 \
-  if (N == NN && nh == NH && hd == HD)                                                \
-    return launch_mma<NH, HD>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s);
-#define TMAR_CASE(NN, DD, NH, HD)                                                     \
-  if (N == NN && nh == NH && hd == HD)                                                \
-    return launch<NN, DD, NH, HD, T>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s);
-  if constexpr (sizeof(T) == 2) {
-    TMAR_ATTN_WINDOW_GEOMETRIES(TMAR_MMA_CASE)
-  } else {
-    TMAR_ATTN_WINDOW_GEOMETRIES(TMAR_CASE)
-  }
-  TMAR_ATTN_NGRAM_GEOMETRIES(TMAR_CASE)
-#undef TMAR_MMA_CASE
-#undef TMAR_CASE
-  return (int)cudaErrorInvalidValue;
+int launch_generic(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* out,
+                   void* lse, int nwin, int N, int D, int nh, int hd, int hg, int wh, int ww,
+                   int blocks, cudaStream_t s) {
+  if (hd <= 8)
+    return launch_rt<8, T>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, N, D, nh, hd, hg, wh, ww,
+                           blocks, s);
+  if (hd <= 16)
+    return launch_rt<16, T>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, N, D, nh, hd, hg, wh, ww,
+                            blocks, s);
+  return launch_rt<32, T>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, N, D, nh, hd, hg, wh, ww,
+                          blocks, s);
 }
 
 }  // namespace
@@ -444,28 +585,57 @@ int dispatch(int N, int nh, int hd, const void* const* p, int wq_k, int wq_n, in
 extern "C" {
 
 // x [nwin, N, D] (float32 or bfloat16, per is_bf16) -> out of the same shape
-// and type, and lse [nwin, nh, N] float32.  (N, D, nh, hd) is one of the
-// geometries of window_attention_geometries.cuh.  All
-// parameters are float32 (the bfloat16 bodies round the two matrices):
-// wqkv [D, 3A] and wproj [A, D] are read as w[k·w_k + n·w_n]; bqkv [3A];
-// scale [nh] = exp(min(logit_scale, ln 100)); bias [nh, N, N]; bproj [D];
-// mrow, mcol [N, N] are read only when wh > 0.  `blocks` is the most
-// persistent blocks to launch (one per SM).  Returns a cudaError_t code.
+// and type, and lse [nwin, nh, N] float32.  All parameters are float32 (the
+// bfloat16 bodies round the two matrices): wqkv [D, 3A] and wproj [A, D] are
+// read as w[k·w_k + n·w_n]; bqkv [3A]; scale [nh] = exp(min(logit_scale,
+// ln 100)); bias [nh, N, N]; bproj [D]; mrow, mcol [N, N] are read only when
+// wh > 0.  bfloat16 at the full-width NGswin's windows (N = 64, D = 64,
+// heads 6 x 10 or 4 x 16) runs the tensor-core body (`blocks` is then the
+// most persistent blocks); every other case the generic body (N <= 64,
+// head_dim <= 32), hg heads at a time, on `blocks` persistent blocks.
+// Returns a cudaError_t code.
 int tmar_window_attention_fwd(const void* x, const void* wqkv, const void* bqkv,
                               const void* scale, const void* bias, const void* wproj,
                               const void* bproj, const void* mrow, const void* mcol,
-                              void* out, void* lse, int nwin, int N, int num_heads,
-                              int head_dim, int wq_k, int wq_n, int wp_k, int wp_n,
+                              void* out, void* lse, int nwin, int N, int D, int num_heads,
+                              int head_dim, int hg, int wq_k, int wq_n, int wp_k, int wp_n,
                               int wh, int ww, int blocks, int is_bf16, void* stream) {
-  if (nwin < 1 || blocks < 1 || (wh > 0 && (ww < 1 || nwin % (wh * ww))))
+  if (nwin < 1 || blocks < 1 || N < 1 || N > ROWS || D < 1 || num_heads < 1 ||
+      head_dim < 1 || head_dim > 32 || hg < 1 || (wh > 0 && (ww < 1 || nwin % (wh * ww))))
     return (int)cudaErrorInvalidValue;
   const void* p[9] = {x, wqkv, bqkv, scale, bias, wproj, bproj, mrow, mcol};
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(N, num_heads, head_dim, p, wq_k, wq_n, wp_k, wp_n, out,
-                                   lse, nwin, wh, ww, blocks, s);
-  return dispatch<float>(N, num_heads, head_dim, p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin,
-                         wh, ww, blocks, s);
+  if (is_bf16 && N == WN && D == WD) {
+    if (num_heads == 6 && head_dim == 10)
+      return launch_mma<6, 10>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s);
+    if (num_heads == 4 && head_dim == 16)
+      return launch_mma<4, 16>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s);
+  }
+  // the templated body at the full-width NGswin's other geometries: its
+  // float32 windows, and its n-gram windows at both dtypes
+#define TMAR_CASE(NN, DD, NH, HD, T)                                                   \
+  if (N == NN && D == DD && num_heads == NH && head_dim == HD)                         \
+    return launch<NN, DD, NH, HD, T>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s);
+#define TMAR_F32(NN, DD, NH, HD) TMAR_CASE(NN, DD, NH, HD, float)
+#define TMAR_BF16(NN, DD, NH, HD) TMAR_CASE(NN, DD, NH, HD, __nv_bfloat16)
+  if (is_bf16) {
+    TMAR_ATTN_NGRAM_GEOMETRIES(TMAR_BF16)
+    return launch_generic<__nv_bfloat16>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, N, D,
+                                         num_heads, head_dim, hg, wh, ww, blocks, s);
+  }
+  TMAR_ATTN_WINDOW_GEOMETRIES(TMAR_F32)
+  TMAR_ATTN_NGRAM_GEOMETRIES(TMAR_F32)
+#undef TMAR_CASE
+#undef TMAR_F32
+#undef TMAR_BF16
+  return launch_generic<float>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, N, D, num_heads,
+                               head_dim, hg, wh, ww, blocks, s);
+}
+
+// The shared memory, in bytes, of the generic body's launch with hg heads
+// to a group.
+long long tmar_window_attention_fwd_smem(int D, int num_heads, int head_dim, int hg) {
+  return (long long)rt_bytes(D, num_heads, head_dim, hg);
 }
 
 const char* tmar_window_attention_fwd_error(int err) {

@@ -158,9 +158,18 @@ class SCDPBottleneck(nn.Module):
     def __init__(self, num_encoder_stages: int, enc_dim: int, dec_dim: int):
         super().__init__()
         self.num_encoder_stages = num_encoder_stages
+        # the depthwise conv's output and group count follow the formula; its
+        # input is the concatenated width, stage i's enc_dim channels shuffled
+        # up by 2^i (flax infers it).  They agree at three stages only; where
+        # the groups do not divide the input, the forward raises as flax does
         concat_dim = sum(4**i for i in range(num_encoder_stages)) * (enc_dim // 16)
+        in_dim = sum(enc_dim // 4**i for i in range(num_encoder_stages))
         self.bottleneck_pool = BottleneckPool()
-        self.depthwise = Conv2d(concat_dim, concat_dim, 3, padding=1, groups=concat_dim)
+        self.depthwise = (
+            Conv2d(in_dim, concat_dim, 3, padding=1, groups=concat_dim)
+            if concat_dim and in_dim % concat_dim == 0 else None
+        )
+        self.concat_dim = concat_dim
         self.pointwise = Linear(concat_dim, dec_dim)
         self.norm = LayerNorm(dec_dim)
 
@@ -184,8 +193,12 @@ class SCDPBottleneck(nn.Module):
             dim=-1,
         )
         B, N, C = x.shape
+        if self.depthwise is None or C != self.depthwise.in_channels:
+            # the error flax's nn.Conv raises (an assert) at this point
+            raise AssertionError(
+                f"SCDP bottleneck: {self.concat_dim} groups do not divide {C} input channels")
         img = F.gelu(self.depthwise(x.reshape(B, *out_np, C)), approximate="none")
-        x = self.pointwise(img.reshape(B, N, C))
+        x = self.pointwise(img.reshape(B, N, self.concat_dim))
         return self.norm(x), out_np
 
 

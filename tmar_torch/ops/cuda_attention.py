@@ -15,12 +15,16 @@ the kernels and the JAX kernels round.
 
 The kernels read the float32 parameters; the activations and their
 cotangents are float32 or bfloat16, and the parameter cotangents float32.
-At float32 both kernels compute in float32 on the CUDA cores.  At bfloat16,
-on 64-token windows, both run on the tensor cores and round to bf16 where
-the JAX kernels do (``_attn_kernel_batched``, and
-``_attn_bwd_kernel_batched`` with ``cot_bf16`` on, the JAX default for bf16
-inputs; the ``TMAR_ATTN_BWD_COT`` override is not read); on 4-token windows
-they round where ``_attn_kernel`` and ``_attn_bwd_kernel`` do.
+bfloat16 at the full-width NGswin's 64-token windows (``MMA_GEOMETRIES``)
+runs the tensor-core bodies; its other geometries (``KERNEL_GEOMETRIES``)
+bodies templated on the geometry; every other case the generic bodies, which
+take N, D, the heads and head_dim at run time within
+``envelope.attention_envelope``.  At bfloat16 both round to bf16 where the
+JAX kernels do: on windows of 32 tokens or more as ``_attn_kernel_batched``
+and ``_attn_bwd_kernel_batched`` with ``cot_bf16`` on (the JAX default for
+bf16 inputs; the ``TMAR_ATTN_BWD_COT`` override is not read), below as
+``_attn_kernel`` and ``_attn_bwd_kernel``.  At float32 they compute in
+float32 on the CUDA cores.
 
 ``impl`` takes the names of the JAX package's forward kernels
 (``TMAR_ATTN_IMPL``).  Each is a way of feeding the TPU's matrix unit (how
@@ -52,6 +56,7 @@ import numpy as np
 import torch
 
 from tmar_torch.device import float32_data
+from tmar_torch.ops import envelope
 from tmar_torch.ops.attention import (
     LOGIT_SCALE_MAX,
     add_shift_mask,
@@ -61,11 +66,16 @@ from tmar_torch.ops.attention import (
     window_attention_math,
 )
 
-# (N, D, num_heads, head_dim) the kernels are compiled for: the full-width
-# NGswin's 8x8 windows at D = 64 and its n x n n-gram windows at D/2 = 32
-# (n = 2, the default, and n = 1 and 3 of ``model.ngrams``); the same set as
-# csrc/window_attention_geometries.cuh, which both kernels' dispatches expand
-KERNEL_GEOMETRIES = {(64, 64, 6, 10), (64, 64, 4, 16)} | {
+# (N, D, num_heads, head_dim) of the full-width NGswin, for which the
+# kernels keep bodies of their own: its 8x8 windows at D = 64 (bfloat16 on
+# the tensor cores, ``MMA_GEOMETRIES``; float32 on a body templated on the
+# geometry) and its n x n n-gram windows at D/2 = 32 (n = 2, the default,
+# and n = 1 and 3 of ``model.ngrams``; the templated body at both dtypes).
+# The same set as csrc/window_attention_geometries.cuh, which both kernels'
+# dispatches expand.  Every other geometry inside
+# ``envelope.attention_envelope`` runs the generic bodies.
+MMA_GEOMETRIES = {(64, 64, 6, 10), (64, 64, 4, 16)}
+KERNEL_GEOMETRIES = MMA_GEOMETRIES | {
     (n * n, 32, nh, hd) for n in (1, 2, 3) for nh, hd in ((6, 5), (4, 8))}
 
 # impl name -> the TPU kernel it selects in tmar/ops/pallas_attention.py; on
@@ -241,7 +251,8 @@ def fused_window_attention(
     shape the TPU grid and have no counterpart here.  Differentiable in all
     seven tensor arguments.  A CPU tensor runs the plain versions (at
     bfloat16 the rounding-matched ones); a CUDA tensor launches the kernels
-    (float32 or bfloat16) or raises."""
+    (float32 or bfloat16, any geometry inside ``envelope.attention_envelope``)
+    or raises."""
     impl = resolve_impl(impl, x.shape[1])
     if x.device.type == "cpu":
         if x.dtype == torch.bfloat16:
@@ -267,19 +278,36 @@ fused_window_attention.launches_by_n = Counter()           # forward, by window 
 fused_window_attention.backward_launches_by_n = Counter()  # backward, by window length N
 
 
-def _geometry(x, wqkv, num_heads):
-    B_, N, D = x.shape
-    A = wqkv.shape[1] // 3
-    if A % num_heads or (N, D, num_heads, A // num_heads) not in KERNEL_GEOMETRIES:
-        raise NotImplementedError(
-            "window attention kernels are built for (N, D, heads, head_dim) in "
-            f"{sorted(KERNEL_GEOMETRIES)}; got N={N}, D={D}, heads={num_heads}, A={A}"
-        )
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fused_window_attention: unsupported dtype {x.dtype}")
-    if B_ < 1:
-        raise ValueError("fused_window_attention: no windows")
-    return B_, N, D, A
+class _Geometry:
+    """What the C entry points take besides the tensors: the window length,
+    the widths, the heads, the weights' strides, the mask grid, the I/O
+    dtype, and per kernel its heads per group and persistent blocks."""
+
+    def __init__(self, x, w_qkv, w_proj, num_heads, wh, ww, sms):
+        B_, self.N, self.D = x.shape
+        A = w_qkv.shape[1] // 3
+        if A % num_heads or tuple(w_proj.shape) != (A, self.D):
+            raise ValueError(f"fused_window_attention: wqkv {tuple(w_qkv.shape)}, wproj "
+                             f"{tuple(w_proj.shape)}, {num_heads} heads")
+        self.nwin, self.nh, self.hd = B_, num_heads, A // num_heads
+        self.strides = (*w_qkv.stride(), *w_proj.stride())
+        self.wh, self.ww = wh, ww
+        self.is_bf16 = int(x.dtype == torch.bfloat16)
+        if (self.N, self.D, self.nh, self.hd) in KERNEL_GEOMETRIES:
+            # the full-width NGswin's own bodies: at most one block per SM
+            self.hg_fwd = self.hg_bwd = self.nh
+            self.blocks_fwd = self.blocks_bwd = min(-(-B_ // (envelope.ROWS // self.N)), sms)
+        else:
+            self.hg_fwd, fwd_bytes, self.hg_bwd, bwd_bytes = envelope.attention_envelope(
+                self.N, self.D, self.nh, self.hd, x.device)
+            tiles = -(-B_ // (envelope.ROWS // self.N))
+            self.blocks_fwd = envelope.blocks_for(tiles, fwd_bytes, sms)
+            self.blocks_bwd = envelope.blocks_for(tiles, bwd_bytes, sms)
+
+    def ints(self, backward):
+        hg, blocks = (self.hg_bwd, self.blocks_bwd) if backward else (self.hg_fwd, self.blocks_fwd)
+        return (self.nwin, self.N, self.D, self.nh, self.hd, hg, *self.strides, self.wh, self.ww,
+                blocks, self.is_bf16)
 
 
 def _device_mask(mask_components, N, nwin, device):
@@ -304,13 +332,13 @@ class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components,
                 impl):
-        operands, ints = _kernel_operands(
+        operands, geo = _kernel_operands(
             x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components)
-        out, lse = _launch(operands, ints)
+        out, lse = _launch(operands, geo)
         fused_window_attention.launches_by_impl[impl] += 1
         ctx.save_for_backward(*operands[:7], lse, logit_scale)
         ctx.mask = tuple(operands[7:])
-        ctx.ints = ints
+        ctx.geo = geo
         ctx.grad_dtypes = [
             None if t is None else t.dtype for t in (wqkv, bqkv, logit_scale, bias, wproj, bproj)
         ]
@@ -320,10 +348,9 @@ class _WindowAttention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         *operands, lse, logit_scale = ctx.saved_tensors
-        x, scale = operands[0], operands[3]
-        B_, N, nh, hd = ctx.ints[:4]
-        D, A = x.shape[-1], nh * hd
-        dx, dparams = _launch_backward(operands + list(ctx.mask), lse, g, ctx.ints)
+        scale, geo = operands[3], ctx.geo
+        N, D, nh, A = geo.N, geo.D, geo.nh, geo.nh * geo.hd
+        dx, dparams = _launch_backward(operands + list(ctx.mask), lse, g, geo)
         sizes = [D * 3 * A, 3 * A, nh, nh * N * N, A * D, D]
         dwqkv, dbqkv, dscale, dbias, dwproj, dbproj = torch.split(dparams, sizes)
         # the kernel's cotangent is on the effective scale exp(min(ls, ln 100)):
@@ -339,14 +366,22 @@ class _WindowAttention(torch.autograd.Function):
 
 
 def _kernel_operands(x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components):
-    """Check the geometry and lay out the kernels' operands on x's device:
-    returns ([x, wqkv, bqkv, scale, bias, wproj, bproj, m_row, m_col] as the
-    C entry points read them, the entry points' integer arguments)."""
+    """Check the geometry against the envelope (``envelope.attention_envelope``)
+    and lay out the kernels' operands on x's device: returns ([x, wqkv, bqkv,
+    scale, bias, wproj, bproj, m_row, m_col] as the C entry points read them,
+    the ``_Geometry``)."""
     from tmar_torch import kernels
 
-    B_, N, D, A = _geometry(x, wqkv, num_heads)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_window_attention: unsupported dtype {x.dtype}")
+    if x.shape[0] < 1:
+        raise ValueError("fused_window_attention: no windows")
+    B_, N, D = x.shape
     dev = x.device
     w_qkv, w_proj = float32_data(wqkv), float32_data(wproj)
+    m_row, m_col, wh, ww = _device_mask(mask_components, N, B_, dev)
+    geo = _Geometry(x, w_qkv, w_proj, num_heads, wh, ww, kernels.sm_count(dev))
+    A = geo.nh * geo.hd
     b_qkv = torch.zeros(3 * A, device=dev) if bqkv is None else float32_data(bqkv, True)
     b_proj = torch.zeros(D, device=dev) if bproj is None else float32_data(bproj, True)
     scale = torch.exp(
@@ -355,76 +390,67 @@ def _kernel_operands(x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, 
     bias32 = float32_data(bias, True)
     if tuple(bias32.shape) != (num_heads, N, N):
         raise ValueError(f"bias shape {tuple(bias32.shape)} != {(num_heads, N, N)}")
-    m_row, m_col, wh, ww = _device_mask(mask_components, N, B_, dev)
-    per_tile = 64 // N  # the float32 bodies' windows per 64-row tile
-    blocks = min((B_ + per_tile - 1) // per_tile, kernels.sm_count(dev))
-    ints = (
-        B_, N, num_heads, A // num_heads, *w_qkv.stride(), *w_proj.stride(),
-        wh, ww, blocks, int(x.dtype == torch.bfloat16),
-    )
     operands = [x.detach().contiguous(), w_qkv, b_qkv, scale, bias32, w_proj, b_proj, m_row, m_col]
-    return operands, ints
+    return operands, geo
 
 
-def _launch(operands, ints):
+def _launch(operands, geo):
     """K3 on laid-out operands: -> (out, lse)."""
     from tmar_torch import kernels
 
     x = operands[0]
-    B_, N, nh = ints[:3]
     out = torch.empty_like(x)
-    lse = torch.empty((B_, nh, N), device=x.device, dtype=torch.float32)
+    lse = torch.empty((geo.nwin, geo.nh, geo.N), device=x.device, dtype=torch.float32)
     kernels.launch(
         "window_attention_fwd", _FWD_ARGTYPES, x.device,
-        *[_ptr(t) for t in operands], out.data_ptr(), lse.data_ptr(), *ints,
+        *[_ptr(t) for t in operands], out.data_ptr(), lse.data_ptr(), *geo.ints(False),
     )
     fused_window_attention.launches += 1
-    fused_window_attention.launches_by_n[N] += 1
+    fused_window_attention.launches_by_n[geo.N] += 1
     return out, lse
 
 
-def _launch_backward(operands, lse, g, ints):
+def _launch_backward(operands, lse, g, geo):
     """K4 on the forward's operands, its lse and the output cotangent g: ->
     (dx, the concatenated float32 parameter cotangents)."""
     from tmar_torch import kernels
 
     x = operands[0]
-    B_, N, nh, hd = ints[:4]
-    D, A = x.shape[-1], nh * hd
+    N, D, nh, A = geo.N, geo.D, geo.nh, geo.nh * geo.hd
     g = g.to(x.dtype).contiguous()
     dx = torch.empty_like(x)
-    # the per-block partial sums (and the bf16 body's dqkv and attention
-    # output tiles), as the library sizes them
-    workspace = torch.empty(
-        _workspace_floats(B_, N, nh, hd, ints[-2], ints[-1]), device=x.device, dtype=torch.float32)
+    # the per-block partial sums (and the tensor-core body's dqkv and
+    # attention output tiles), as the library sizes them
+    workspace = torch.empty(_workspace_floats(geo), device=x.device, dtype=torch.float32)
     dparams = torch.empty(D * 3 * A + 3 * A + nh + nh * N * N + A * D + D, device=x.device,
                           dtype=torch.float32)
     p = [_ptr(t) for t in operands]
     kernels.launch(
         "window_attention_bwd", _BWD_ARGTYPES, x.device,
         p[0], g.data_ptr(), *p[1:5], p[5], p[7], p[8], lse.data_ptr(), dx.data_ptr(),
-        workspace.data_ptr(), dparams.data_ptr(), *ints,
+        workspace.data_ptr(), dparams.data_ptr(), *geo.ints(True),
     )
     fused_window_attention.backward_launches += 1
     fused_window_attention.backward_launches_by_n[N] += 1
     return dx, dparams
 
 
-def _workspace_floats(nwin, N, nh, hd, blocks, is_bf16):
+def _workspace_floats(geo):
     from tmar_torch import kernels
 
     global _workspace_fn
     if _workspace_fn is None:
         _workspace_fn = kernels.host_function(
             "window_attention_bwd", "tmar_window_attention_bwd_workspace",
-            [ctypes.c_int] * 6, ctypes.c_longlong)
-    floats = _workspace_fn(nwin, N, nh, hd, blocks, is_bf16)
+            [ctypes.c_int] * 7, ctypes.c_longlong)
+    floats = _workspace_fn(geo.nwin, geo.N, geo.D, geo.nh, geo.hd, geo.blocks_bwd, geo.is_bf16)
     if floats < 0:
-        raise ValueError(f"window_attention_bwd: no workspace size for N={N}, heads={nh}x{hd}")
+        raise ValueError(f"window_attention_bwd: no workspace size for N={geo.N}, D={geo.D}, "
+                         f"heads={geo.nh}x{geo.hd}")
     return floats
 
 
 _workspace_fn = None
 _P = ctypes.c_void_p
-_FWD_ARGTYPES = [_P] * 11 + [ctypes.c_int] * 12 + [_P]
-_BWD_ARGTYPES = [_P] * 13 + [ctypes.c_int] * 12 + [_P]
+_FWD_ARGTYPES = [_P] * 11 + [ctypes.c_int] * 14 + [_P]
+_BWD_ARGTYPES = [_P] * 13 + [ctypes.c_int] * 14 + [_P]

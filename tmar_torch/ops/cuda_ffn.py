@@ -14,13 +14,16 @@ round where the kernels and the JAX kernels round.
 
 The kernels read the float32 parameters; the activations and their
 cotangents are float32 or bfloat16, and the parameter cotangents float32.
-The I/O dtype picks the body.  At float32 both kernels compute in float32
-on the CUDA cores.  At bfloat16 both run on the tensor cores and round to
-bf16 where ``_ffn_kernel`` and ``_ffn_bwd_kernel`` do, with the weights
-cast to the activation dtype as ``tmar/nn/blocks.py`` casts them: w1 and
-w2, y before fc1, the GELU output before fc2 and the output; in the
-backward also the output cotangent, do before its two products, du before
-its two, and dw1 and dw2 after their sums over rows.
+The I/O dtype and the widths pick the body.  At the full-width NGswin's
+(D, hidden) = (64, 128) (``KERNEL_DIMS``) bfloat16 runs the tensor-core
+bodies and float32 bodies templated on the widths; every other width the
+generic bodies, which take D and hidden at run time, within
+``envelope.ffn_envelope``.  At bfloat16 both round to bf16 where
+``_ffn_kernel`` and ``_ffn_bwd_kernel`` do, with the weights cast to the
+activation dtype as ``tmar/nn/blocks.py`` casts them: w1 and w2, y before
+fc1, the GELU output before fc2 and the output; in the backward also the
+output cotangent, do before its two products, du before its two, and dw1
+and dw2 after their sums over rows.
 """
 
 from __future__ import annotations
@@ -28,12 +31,16 @@ from __future__ import annotations
 import ctypes
 
 import torch
-import torch.nn.functional as F
 
 from tmar_torch.device import float32_data
-from tmar_torch.ops.ffn import ffn_math, layer_norm
+from tmar_torch.ops import envelope
+from tmar_torch.ops.ffn import erf_as_kernels, ffn_math, gelu_as_kernels, layer_norm
 
-KERNEL_DIMS = (64, 128)  # (D, hidden) the kernels are compiled for
+# (D, hidden) of the full-width NGswin, for which the kernels keep bodies of
+# their own: on the tensor cores at bfloat16, templated on the widths at
+# float32; every other width inside ``envelope.ffn_envelope`` runs the
+# generic bodies
+KERNEL_DIMS = (64, 128)
 
 
 def _rounding(dtype):
@@ -48,10 +55,12 @@ def ffn_kernel_math(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps=1e-5):
     ``tmar/nn/blocks.py:148-155``), y before fc1 and the GELU output before
     fc2 (:360, :362), and the output.  attn_out is read in x's dtype, as the
     wrapper reads it.  The biases, LayerNorm gains and statistics, the GELU
-    and the residual y stay float32; at float32 this is ``ffn_math``."""
+    and the residual y stay float32.  The GELU's erf is the kernels'
+    (``gelu_as_kernels``); at float32 every rounding is the identity, and
+    this is ``ffn_math`` but for that erf (|err| < 1.5e-7)."""
     r = _rounding(x.dtype)
     y = x.float() + layer_norm(r(attn_out), g1, b1, eps)
-    h = F.gelu(r(y) @ r(w1) + bw1.float(), approximate="none")
+    h = gelu_as_kernels(r(y) @ r(w1) + bw1.float())
     z = y + layer_norm(r(h) @ r(w2) + bw2.float(), g2, b2, eps)
     return z.to(x.dtype)
 
@@ -79,22 +88,22 @@ def ffn_backward_math(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, dz, eps=1e-
     rounds dz (:170), do before dh = do·w2ᵀ and dw2 = hcᵀ·do (:305), du
     before dy = dz + du·w1ᵀ and dw1 = ycᵀ·du (:319), dw1 and dw2 after their
     sums over rows (:240, :242), dx and dattn_out on output.  The LayerNorm
-    backwards, the GELU derivative Φ(u) + u·φ(u) and the sums into the
-    vector cotangents stay float32; at float32 every rounding is the
-    identity.  dx and dattn_out have x's dtype, the parameter cotangents
-    are float32."""
+    backwards, the GELU derivative Φ(u) + u·φ(u) (Φ with the kernels' erf)
+    and the sums into the vector cotangents stay float32; at float32 every
+    rounding is the identity.  dx and dattn_out have x's dtype, the
+    parameter cotangents are float32."""
     cd = x.dtype
     r = _rounding(cd)
     n1, r1 = _ln_stats(r(attn_out), eps)
     y = x.float() + (n1 * g1.float() + b1.float())
     yc, w1c, w2c = r(y), r(w1), r(w2)
     u = yc @ w1c + bw1.float()
-    hc = r(F.gelu(u, approximate="none"))
+    hc = r(gelu_as_kernels(u))
     n2, r2 = _ln_stats(hc @ w2c + bw2.float(), eps)
     dz = r(dz)
     do, dg2, db2 = _ln_backward(dz, n2, r2, g2)
     doc = r(do)
-    cdf = 0.5 * (1.0 + torch.erf(u * 0.7071067811865476))
+    cdf = 0.5 * (1.0 + erf_as_kernels(u * 0.7071067811865476))
     du = (doc @ w2c.t()) * (cdf + u * torch.exp(-0.5 * u * u) * 0.3989422804014327)
     duc = r(du)
     dy = dz + duc @ w1c.t()
@@ -138,7 +147,8 @@ def fused_residual_ffn(
     in the [in, out] layout (a transposed view is read in place).
     Differentiable in all ten tensor arguments.  A CPU tensor runs the plain
     versions (at bfloat16 the rounding-matched ones); a CUDA tensor launches
-    the kernels (float32 or bfloat16, any M) or raises."""
+    the kernels (float32 or bfloat16, any M, any width inside
+    ``envelope.ffn_envelope``) or raises."""
     if x.device.type == "cpu":
         if x.dtype == torch.bfloat16:
             return _PlainFFN.apply(
@@ -160,38 +170,63 @@ fused_residual_ffn.backward_launches = 0  # backward kernel
 class _ResidualFFN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps):
-        operands, tail = _kernel_operands(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps)
-        out = _launch(operands, tail)
+        operands, geo = _kernel_operands(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps)
+        out = _launch(operands, geo)
         ctx.save_for_backward(*operands[:9])
-        ctx.tail = tail
+        ctx.geo = geo
         ctx.grad_dtypes = [t.dtype for t in (attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2)]
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dz):
-        D, H = KERNEL_DIMS
-        dx, dao, dparams = _launch_backward(ctx.saved_tensors, dz, ctx.tail)
-        dg1, db1, dw1, dbw1, dw2, dbw2, dg2, db2 = torch.split(dparams, _PARAM_SIZES)
+        D, H = ctx.geo.D, ctx.geo.H
+        dx, dao, dparams = _launch_backward(ctx.saved_tensors, dz, ctx.geo)
+        dg1, db1, dw1, dbw1, dw2, dbw2, dg2, db2 = torch.split(dparams, _param_sizes(D, H))
         grads = [dao, dg1, db1, dw1.reshape(D, H), dbw1, dw2.reshape(H, D), dbw2, dg2, db2]
         grads = [t.to(dt) for t, dt in zip(grads, ctx.grad_dtypes)]
         return (dx, *grads, None)
 
 
+class _Geometry:
+    """What the C entry points take besides the tensors: the widths, K6's
+    rows per tile, the weights' strides, eps, the I/O dtype and each
+    kernel's persistent blocks."""
+
+    def __init__(self, x, w_1, w_2, eps, sms):
+        M, self.D = x.shape
+        self.H = w_1.shape[1]
+        self.strides = (*w_1.stride(), *w_2.stride())
+        self.eps = float(eps)
+        self.is_bf16 = int(x.dtype == torch.bfloat16)
+        if (self.D, self.H) == KERNEL_DIMS:
+            # the full-width NGswin's own bodies: one block per SM at most
+            self.rows, self.fwd_blocks = 64, min((M + 63) // 64, sms)
+            self.bwd_blocks = self.fwd_blocks
+        else:
+            fwd_bytes, self.rows, bwd_bytes = envelope.ffn_envelope(self.D, self.H, x.device)
+            self.fwd_blocks = envelope.blocks_for((M + 63) // 64, fwd_bytes, sms)
+            self.bwd_blocks = envelope.blocks_for(
+                (M + self.rows - 1) // self.rows, bwd_bytes, sms)
+
+
+def _param_sizes(D, H):
+    """dg1, db1, dw1, dbw1, dw2, dbw2, dg2, db2 as the backward concatenates them."""
+    return [D, D, D * H, H, H * D, D, D, D]
+
+
 def _kernel_operands(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps):
-    """Check the shapes and lay out the kernels' operands on x's device:
-    returns ([x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2] as the C entry
-    points read them, the entry points' trailing integer and float
-    arguments)."""
+    """Check the shapes and the envelope (``envelope.ffn_envelope``) and lay
+    out the kernels' operands on x's device: returns ([x, attn_out, g1, b1,
+    w1, bw1, w2, bw2, g2, b2] as the C entry points read them, the
+    ``_Geometry``)."""
     from tmar_torch import kernels
 
     M, D = x.shape
     H = w1.shape[1]
-    if (D, H) != KERNEL_DIMS or tuple(w2.shape) != (H, D):
-        raise NotImplementedError(
-            f"residual FFN kernels are built for (D, hidden) = {KERNEL_DIMS}; "
-            f"got D={D}, hidden={H}, w2 {tuple(w2.shape)}"
-        )
+    if tuple(w1.shape) != (D, H) or tuple(w2.shape) != (H, D):
+        raise ValueError(f"fused_residual_ffn: x {tuple(x.shape)}, w1 {tuple(w1.shape)}, "
+                         f"w2 {tuple(w2.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_residual_ffn: unsupported dtype {x.dtype}")
     if attn_out.shape != x.shape or M < 1:
@@ -200,14 +235,11 @@ def _kernel_operands(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps):
     ao = attn_out.detach().to(x.dtype).contiguous()
     g1_, b1_, bw1_, bw2_, g2_, b2_ = (float32_data(t, True) for t in (g1, b1, bw1, bw2, g2, b2))
     w_1, w_2 = float32_data(w1), float32_data(w2)
-    blocks = min((M + 63) // 64, kernels.sm_count(x.device))
-    tail = (
-        *w_1.stride(), *w_2.stride(), float(eps), blocks, int(x.dtype == torch.bfloat16)
-    )
-    return [x, ao, g1_, b1_, w_1, bw1_, w_2, bw2_, g2_, b2_], tail
+    geo = _Geometry(x, w_1, w_2, eps, kernels.sm_count(x.device))
+    return [x, ao, g1_, b1_, w_1, bw1_, w_2, bw2_, g2_, b2_], geo
 
 
-def _launch(operands, tail):
+def _launch(operands, geo):
     """K5 on laid-out operands: -> z."""
     from tmar_torch import kernels
 
@@ -215,13 +247,14 @@ def _launch(operands, tail):
     out = torch.empty_like(x)
     kernels.launch(
         "residual_ffn_fwd", _FWD_ARGTYPES, x.device,
-        *[t.data_ptr() for t in operands], out.data_ptr(), x.shape[0], *tail,
+        *[t.data_ptr() for t in operands], out.data_ptr(), x.shape[0], geo.D, geo.H,
+        *geo.strides, geo.eps, geo.fwd_blocks, geo.is_bf16,
     )
     fused_residual_ffn.launches += 1
     return out
 
 
-def _launch_backward(operands, dz, tail):
+def _launch_backward(operands, dz, geo):
     """K6 (one kernel and one reduce) on the forward's operands (b2 is not
     read) and the output cotangent dz: -> (dx, d attn_out, the concatenated
     float32 parameter cotangents)."""
@@ -230,22 +263,21 @@ def _launch_backward(operands, dz, tail):
     x = operands[0]
     dz = dz.to(x.dtype).contiguous()
     dx, dao = torch.empty_like(x), torch.empty_like(x)
-    part = torch.empty((tail[-2], sum(_PARAM_SIZES)), device=x.device, dtype=torch.float32)
-    dparams = torch.empty(sum(_PARAM_SIZES), device=x.device, dtype=torch.float32)
+    size = sum(_param_sizes(geo.D, geo.H))
+    part = torch.empty((geo.bwd_blocks, size), device=x.device, dtype=torch.float32)
+    dparams = torch.empty(size, device=x.device, dtype=torch.float32)
     p = [t.data_ptr() for t in operands[:9]]
     kernels.launch(
         "residual_ffn_bwd", _BWD_ARGTYPES, x.device,
         p[0], p[1], dz.data_ptr(), *p[2:], dx.data_ptr(), dao.data_ptr(), part.data_ptr(),
-        dparams.data_ptr(), x.shape[0], *tail,
+        dparams.data_ptr(), x.shape[0], geo.D, geo.H, geo.rows, *geo.strides, geo.eps,
+        geo.bwd_blocks, geo.is_bf16,
     )
     fused_residual_ffn.backward_launches += 1
     return dx, dao, dparams
 
 
-# dg1, db1, dw1, dbw1, dw2, dbw2, dg2, db2 as the backward kernel concatenates them
-_D, _H = KERNEL_DIMS
-_PARAM_SIZES = [_D, _D, _D * _H, _H, _H * _D, _D, _D, _D]
 _P = ctypes.c_void_p
 _TAIL = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P]
-_FWD_ARGTYPES = [_P] * 11 + [ctypes.c_longlong] + _TAIL
-_BWD_ARGTYPES = [_P] * 14 + [ctypes.c_longlong] + _TAIL
+_FWD_ARGTYPES = [_P] * 11 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + _TAIL
+_BWD_ARGTYPES = [_P] * 14 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + _TAIL

@@ -9,12 +9,14 @@ launches ``csrc/ngram_context.cu`` (K1) and whose backward launches
 ``csrc/ngram_context_bwd.cu`` (K7: du and every parameter cotangent,
 recomputed from u; three launches), or raises.  The kernels read the
 float32 parameters; u, the output and du are float32 or bfloat16, the
-parameter cotangents float32.  The I/O dtype picks the body: at float32
-both kernels compute in float32 on the CUDA cores; at bfloat16 both run on
-the tensor cores and round to bf16 where ``_ngram_stripe_kernel`` and
-``_ngram_bwd_stripe_kernel`` do, with the parameters rounded as
-``tmar/nn/ngram.py`` casts them, and return dwqkv, dbqkv, dwproj, dbproj
-and dwmerge as bf16 values.
+parameter cotangents float32.  bfloat16 at the full-width NGswin's widths
+(``MMA_GEOMETRIES``) runs the tensor-core bodies; every other case the
+generic bodies, which take C, D, the heads and head_dim at run time within
+``envelope.ngram_envelope``.  At bfloat16 both round to bf16 where
+``_ngram_stripe_kernel`` and ``_ngram_bwd_stripe_kernel`` do, with the
+parameters rounded as ``tmar/nn/ngram.py`` casts them, and return dwqkv,
+dbqkv, dwproj, dbproj and dwmerge as bf16 values; at float32 they compute
+in float32 on the CUDA cores.
 
 A CPU tensor runs the plain versions: at float32 ``ngram_context_math``
 under ordinary autograd (``ngram_context_backward_math`` is that
@@ -31,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from tmar_torch.ops import envelope
 from tmar_torch.ops.attention import (
     LOGIT_SCALE_MAX,
     gather_rel_pos_bias,
@@ -45,9 +48,11 @@ from tmar_torch.ops.ngram import (
     sliding_patches,
 )
 
-# (num_heads, head_dim) pairs the kernel is compiled for: the full-width
-# NGswin's 6- and 4-head stages on the D/2 = 32-channel unigram grid
-KERNEL_HEADS = {(6, 5), (4, 8)}
+# (C, D, num_heads, head_dim) of the tensor-core bodies (bfloat16 only): the
+# full-width NGswin's 6- and 4-head stages on the D/2 = 32-channel unigram
+# grid; every other geometry inside ``envelope.ngram_envelope`` runs the
+# generic bodies
+MMA_GEOMETRIES = {(32, 64, 6, 5), (32, 64, 4, 8)}
 
 
 def ngram_context_math(
@@ -285,8 +290,8 @@ def fused_ngram_context(
     """u [B, wh, ww, C] -> context [B, wh, ww, D].  Arguments as in
     ``ngram_context_math``.  Differentiable in all nine tensor arguments.  A
     CPU tensor runs the plain version under ordinary autograd; a CUDA tensor
-    launches the kernels (float32 or bfloat16), forward and backward, or
-    raises."""
+    launches the kernels (float32 or bfloat16, any width inside
+    ``envelope.ngram_envelope``), forward and backward, or raises."""
     if u.device.type == "cpu":
         if u.dtype == torch.bfloat16:
             return _PlainNGram.apply(
@@ -325,9 +330,8 @@ class _NGramContext(torch.autograd.Function):
     def backward(ctx, g):
         operands = ctx.saved_tensors
         du, dparams = _launch_backward(operands, g, ctx.ints)
-        nh, hd = ctx.ints[3:5]
-        C, A = operands[0].shape[-1], nh * hd
-        D = 2 * C
+        C, D, nh, hd = ctx.ints[3:7]
+        A = nh * hd
         shapes = [(C, 3 * A), (3 * A,), ctx.ls_shape, (9, nh), (A, C), (C,), (2 * C, D), (D,)]
         sizes = [math.prod(s) for s in shapes]
         # the reduce wrote the logit scale's and the table's cotangents: views
@@ -359,11 +363,13 @@ def _kernel_operands(u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bm
             f"the n-gram context kernel needs a >= 2x2 window grid, got {wh}x{ww}: "
             "the sequence-reflect padding has nothing to reflect on a smaller one"
         )
-    if (C, D) != (32, 64) or A % num_heads or (num_heads, A // num_heads) not in KERNEL_HEADS:
-        raise NotImplementedError(
-            f"ngram_context kernel is built for C=32, D=64, (heads, head_dim) in "
-            f"{sorted(KERNEL_HEADS)}; got C={C}, D={D}, heads={num_heads}, A={A}"
-        )
+    if A % num_heads or tuple(wproj.shape) != (A, C) or tuple(wmerge.shape) != (2 * C, D):
+        raise ValueError(f"fused_ngram_context: u {tuple(u.shape)}, wqkv {tuple(wqkv.shape)}, "
+                         f"wproj {tuple(wproj.shape)}, wmerge {tuple(wmerge.shape)}, "
+                         f"{num_heads} heads")
+    hd = A // num_heads
+    if not (u.dtype == torch.bfloat16 and (C, D, num_heads, hd) in MMA_GEOMETRIES):
+        envelope.ngram_envelope(C, D, num_heads, hd, u.device)
     if u.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_ngram_context: unsupported dtype {u.dtype}")
     dev = u.device
@@ -383,14 +389,14 @@ def _kernel_operands(u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bm
         f32(bmerge),
     ]
     out = torch.empty((B, wh, ww, D), device=dev, dtype=u.dtype)
-    ints = (B, wh, ww, num_heads, A // num_heads, int(u.dtype == torch.bfloat16),
+    ints = (B, wh, ww, C, D, num_heads, hd, int(u.dtype == torch.bfloat16),
             kernels.sm_count(dev))
     return operands, out, ints
 
 
 _P = ctypes.c_void_p
-_ARGTYPES = [_P] * 10 + [ctypes.c_int] * 7 + [_P]
-_BWD_ARGTYPES = [_P] * 12 + [ctypes.c_int] * 7 + [_P]
+_ARGTYPES = [_P] * 10 + [ctypes.c_int] * 9 + [_P]
+_BWD_ARGTYPES = [_P] * 12 + [ctypes.c_int] * 9 + [_P]
 _workspace_floats = {}  # the backward's integer arguments -> floats of scratch
 
 
@@ -403,7 +409,7 @@ def _workspace(ints):
     if n is None:
         query = kernels.host_function(
             "ngram_context_bwd", "tmar_ngram_context_bwd_workspace",
-            [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_longlong)], ctypes.c_int)
+            [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_longlong)], ctypes.c_int)
         out = ctypes.c_longlong(0)
         kernels.check("ngram_context_bwd", query(*ints, ctypes.byref(out)))
         n = _workspace_floats[ints] = out.value
@@ -419,9 +425,8 @@ def _launch_backward(operands, g, ints):
     from tmar_torch import kernels
 
     u = operands[0]
-    B, wh, ww, nh, hd, is_bf16, sms = ints
-    C, A = u.shape[-1], nh * hd
-    D = 2 * C
+    B, wh, ww, C, D, nh, hd, is_bf16, sms = ints
+    A = nh * hd
     dev = u.device
     g = _aligned(g.to(u.dtype).contiguous())
     du = torch.empty_like(u)

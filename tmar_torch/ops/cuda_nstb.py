@@ -30,7 +30,6 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from tmar_torch.device import refuse_grad
 from tmar_torch.ops.attention import (
@@ -41,7 +40,7 @@ from tmar_torch.ops.attention import (
     relative_position_index,
     split_heads,
 )
-from tmar_torch.ops.ffn import layer_norm
+from tmar_torch.ops.ffn import gelu_as_kernels, layer_norm
 from tmar_torch.ops.window import (
     cyclic_shift,
     shift_mask_components,
@@ -94,7 +93,8 @@ def nstb_math(
     input; x_attn; q_n, k_n and v; P after its normalisation; the attention
     output before the projection; y before fc1; the GELU output before fc2;
     the output.  The biases, the LayerNorms and every statistic stay in
-    ``compute_dtype``.  At float32 every rounding is the identity."""
+    ``compute_dtype``; the GELU's erf is the kernels' (``gelu_as_kernels``).
+    At float32 every rounding is the identity."""
     cd, acc = x.dtype, compute_dtype
 
     def r(t):
@@ -122,7 +122,7 @@ def nstb_math(
     if bproj is not None:
         a = a + f(bproj)
     y = x32 + layer_norm(a, f(g1), f(b1), eps)
-    h = F.gelu(r(y) @ r(w1) + f(bw1), approximate="none")
+    h = gelu_as_kernels(r(y) @ r(w1) + f(bw1))
     z = y + layer_norm(r(h) @ r(w2) + f(bw2), f(g2), f(b2), eps)
     return z.to(cd)
 
@@ -282,10 +282,13 @@ def _check_geometry(name, D, wqkv, ffn1, num_heads, window_size, Q, shift, dtype
         or A % num_heads
         or (num_heads, A // num_heads) not in KERNEL_HEADS
     ):
+        kernel = {"nstb_map": "K2 (csrc/nstb_map.cu)", "nstb_tokens": "K8 (csrc/nstb_tokens.cu)"}
         raise NotImplementedError(
-            f"{name} kernel is built for window 8, D=64, H=128, (heads, head_dim) "
-            f"in {sorted(KERNEL_HEADS)}; got window {window_size}, D={D}, H={H}, "
-            f"heads={num_heads}, A={A}"
+            f"{name}: the whole-block kernel {kernel[name]} is ported for the full-width "
+            f"NGswin's geometry only (window 8, D=64, H=128, (heads, head_dim) in "
+            f"{sorted(KERNEL_HEADS)}); got window {window_size}, D={D}, H={H}, "
+            f"heads={num_heads}, A={A}.  At other widths the training-form kernels K1, "
+            "K3-K7 run: serve in the unfused form (nstb_fused=False)"
         )
     if not 0 <= shift < 8 or Q not in (1, 4):
         raise ValueError(f"{name}: bad Q={Q} or shift={shift}")

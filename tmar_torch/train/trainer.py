@@ -200,9 +200,11 @@ class Trainer:
         self.generator = build_generator(cfg, self.device, ngram_fused=ngram_fused)
         if self.device.type == "cuda" and getattr(self.generator, "attn_backward", "pallas") != "pallas":
             raise ValueError(
-                "on a card the port trains only in the training form, whose kernels have "
-                "backward kernels: set model.use_pallas_attention=true and "
-                "model.attn_backward=pallas"
+                "on a card the port trains only in the training form, whose kernels (K1, "
+                "K3-K7) have backward kernels and take any width inside "
+                "tmar_torch.ops.envelope: set model.use_pallas_attention=true and "
+                "model.attn_backward=pallas.  The other forms' whole-block kernels K2/K8 "
+                "are forward-only and ported at the full-width geometry only"
             )
         self.discriminator = build_discriminator(cfg, self.device)
 
