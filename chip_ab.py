@@ -24,7 +24,9 @@ kernels' launch alone (that tree's ``chip_smoke.attention_launch_ms`` and
 ``ffn_launch_ms``) at the full-width NGswin's geometries, bf16 and f32:
 K3/K4 at the 8x128² step's stage 1 (2048 windows of 64 tokens, 6 x 10
 heads, shift mask on) and at its n-gram windows (2048 of N = 4, 9 and 1 on
-32 channels, 6 x 5 heads); K5/K6 at 131,072 rows.
+32 channels, 6 x 5 heads); K5/K6 at 131,072 rows; then K2 and K8 (the
+whole block on the map and on its rolled windows), the launch alone, at
+the 8x512² stage-1 shift-4 block with the flagship's weights, bf16 and f32.
 
 Times are CUDA events (``chip_smoke.cuda_ms``), beside the card's name and
 power limit.  Needs one card; imports nothing of JAX or of ``tmar``.
@@ -68,6 +70,39 @@ def training_kernels(cs, tag, card, randn):
         fwd, bwd = cs.ffn_launch_ms(x.to(dtype), ao.to(dtype), params, g.to(dtype))
         print(f"{tag} K5/K6 launch alone, x [{M}, {D}] {str(dtype).split('.')[1]}: forward "
               f"{fwd:.4f} ms, backward {bwd:.4f} ms on {card}", flush=True)
+
+
+def whole_block_kernels(cs, tag, card, randn):
+    """K2 and K8, the launch alone, on operands laid out once by that tree's
+    wrappers (their signatures have not changed since they were written),
+    at the 8x512² stage-1 shift-4 block with the flagship's weights; the
+    counters are put back."""
+    import torch
+
+    from tmar_torch import NGswin, load_pth
+    from tmar_torch.ops import cuda_nstb
+    from tmar_torch.ops.window import cyclic_shift, window_partition
+
+    model = NGswin(dtype=torch.float32)
+    model.load_state_dict(load_pth(cs.CKPT))
+    args = model.encoder_layer1.blocks[1].kernel_args()
+    before = (cuda_nstb.fused_nstb_map.launches, cuda_nstb.fused_nstb.launches)
+    with torch.no_grad():
+        x = randn(8, 512, 512, 64)
+        cq = randn(8 * 64 * 64, 4, 64, scale=0.5)
+        for dtype in (torch.bfloat16, torch.float32):
+            xx, cc = x.to(dtype), cq.to(dtype)
+            ops, out, ints = cuda_nstb._kernel_operands(xx, cc, *args, shift=4)
+            k2 = cs.cuda_ms(lambda: cuda_nstb._launch(ops, out, ints, 1e-5), iters=10)
+            wins = window_partition(cyclic_shift(xx, 4), 8)[0].reshape(-1, 64, 64)
+            tops, tout, tints = cuda_nstb._token_operands(wins, cc, *args, 4, (64, 64))
+            k8 = cs.cuda_ms(lambda: cuda_nstb._launch_tokens(tops, tout, tints, 1e-5), iters=10)
+            print(f"{tag} K2/K8 launch alone, x [8, 512, 512, 64] {str(dtype).split('.')[1]}, 6 "
+                  f"heads, shift 4: K2 {k2:.4f} ms, K8 {k8:.4f} ms on {card}", flush=True)
+            del ops, out, wins, tops, tout
+    cuda_nstb.fused_nstb_map.launches, cuda_nstb.fused_nstb.launches = before
+    del model, x, cq
+    torch.cuda.empty_cache()
 
 
 def run_tree(tree: str, kernels_only: bool = False) -> int:
@@ -120,6 +155,7 @@ def run_tree(tree: str, kernels_only: bool = False) -> int:
 
     if kernels_only:
         training_kernels(cs, tag, card, randn)
+        whole_block_kernels(cs, tag, card, randn)
         return 0
     model = NGswin(dtype=torch.float32)
     model.load_state_dict(load_pth(cs.CKPT))

@@ -136,7 +136,23 @@ Phases, each of which fails the run if it fails:
    median step and its profile), one f32 step at 1x64² on the card against
    the CPU, and the trained generator in the unfused serving form: an
    8x256² bf16 request (8 launches each of K1, K3, K5), f32 at 1x128²
-   against the CPU within 1e-4, and the map form refused naming K2.
+   against the CPU within 1e-4; then K2's and K8's generic bodies against
+   their plain versions at the demo width, the JAX tests' (D 8), window 4,
+   the envelope's top (D 128, 4 x 32, hidden 512) and a ragged 13 x 13
+   grid, shift 0 (Q 1) and shift ws/2 (Q 4), f32 and bf16, K8 bit for bit
+   equal to K2, each timed beside its bound, and the refusal past the
+   envelope; then the demo generator served in the map form (8 launches of
+   K1 and K2 per forward) and the token form (8 of K1 and K8) at 8x256²
+   bf16 against the unfused form, and at 1x128² f32 against the CPU;
+21. evaluation on the card: ``tmar_torch.cli.compare`` in process on
+   4 synthetic 416² slices with the flagship (bf16, and f32 in a second
+   call), the identity, a subprocess adapter, the DuDo pickle of phase 18
+   and ``--sinograms``, and on the same slices with a demo-width checkpoint;
+   ``tmar_torch.cli.ablate --inference-only`` over two ablations at the demo
+   width from the checkpoints a short ``Trainer.fit`` writes here: every row
+   ``ok``, the flagship's PSNR above the input's, K2's launches counted (20
+   per flagship forward, 8 per demo forward); without matplotlib one
+   ``[skip] figures`` line.
 
 It prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card, exits non-zero
@@ -259,15 +275,17 @@ def ngram_work(B, wh, ww, nh, itemsize, C=32, D=64, hd=None):
     return flops, cells * (C + D) * itemsize + weights
 
 
-def nstb_work(B, ph, pw, nh, Q, itemsize):
+def nstb_work(B, ph, pw, nh, Q, itemsize, D=64, H=128, hd=None, ws=8):
     """(FLOPs, bytes) the NSTB needs per token: qkv, scores, AV, projection,
     fc1, fc2; x read once, the output written once, the context quads and
-    weights read once."""
-    D, H, N = 64, 128, 64
-    A = (D // nh) * nh
+    weights read once.  At width D, hidden H, nh heads of hd (the full-width
+    NGswin's by default) and windows of ws x ws tokens."""
+    N = ws * ws
+    A = (hd or D // nh) * nh
     tokens = B * ph * pw
     flops = tokens * 2 * (D * 3 * A + N * A + N * A + A * D + D * H + H * D)
-    weights = itemsize * (D * 3 * A + A * D + 2 * D * H) + 4 * (3 * A + 6 * D + H + nh + 225 * nh)
+    weights = itemsize * (D * 3 * A + A * D + 2 * D * H) + 4 * (
+        3 * A + 6 * D + H + nh + (2 * ws - 1) ** 2 * nh)
     return flops, tokens * 2 * D * itemsize + (tokens // N) * Q * D * itemsize + weights
 
 
@@ -727,7 +745,8 @@ def ffn_launch_ms(x, ao, params, g, eps=1e-5, iters=20):
 NGRAM_HEADERS = ["tmar_torch/csrc/ngram_mma.cuh", "tmar_torch/csrc/mma.cuh"]
 FFN_HEADERS = ["tmar_torch/csrc/ffn_mma.cuh", "tmar_torch/csrc/mma.cuh", "tmar_torch/csrc/common.cuh"]
 NSTB_HEADERS = ["tmar_torch/csrc/nstb_window.cuh", "tmar_torch/csrc/nstb_window_mma.cuh",
-                "tmar_torch/csrc/ffn_mma.cuh", "tmar_torch/csrc/mma.cuh"]
+                "tmar_torch/csrc/nstb_generic.cuh", "tmar_torch/csrc/ffn_mma.cuh",
+                "tmar_torch/csrc/mma.cuh", "tmar_torch/csrc/common.cuh"]
 
 
 def attention_launch_ms(x, params, g, nh, mc, iters=20):
@@ -1121,6 +1140,19 @@ WIDTH_FFN_CASES = (("demo", 32768, 32, 64), ("demo ragged", 1000, 32, 64),
 # (label, B, wh, ww, C, D, heads, head_dim)
 WIDTH_NGRAM_CASES = (("demo stage1", 8, 8, 8, 16, 32, 2, 8), ("demo odd", 3, 13, 7, 16, 32, 2, 8),
                      ("envelope top", 8, 32, 32, 64, 128, 4, 16))
+# the whole block, K2 / K8: (label, B, wh, ww, D, heads, head_dim, hidden,
+# window side): the demo 8x256² request's stage 1, the JAX kernel tests'
+# width, window 4, the envelope's top, a ragged 13 x 13 grid (a 416² slice's
+# stage-3 windows-per-stripe) at the demo width
+WIDTH_NSTB_CASES = (
+    ("demo stage1", 8, 32, 32, 32, 2, 16, 64, 8),
+    ("jax tests D8", 8, 16, 16, 8, 2, 4, 16, 8),
+    ("window 4", 8, 32, 32, 32, 2, 16, 64, 4),
+    ("envelope top", 2, 16, 16, 128, 4, 32, 512, 8),
+    ("demo ragged 13x13", 3, 13, 13, 32, 2, 16, 64, 8),
+)
+# past the envelope: D 152 at hidden 4·D overflows the card's shared memory
+NSTB_PAST_ENVELOPE = (152, 4, 32, 608)
 
 
 def smem_count_failures():
@@ -1146,6 +1178,11 @@ def smem_count_failures():
         if (built("ngram_fwd", C, nh, hd), built("ngram_bwd", C, D, nh, hd, 1),
                 built("ngram_bwd", C, D, nh, hd, 2)) != want:
             bad.append(("ngram", C, D, nh, hd))
+    for _, _, _, _, D, nh, hd, H, ws in WIDTH_NSTB_CASES:
+        want = env.nstb_envelope(ws * ws, D, nh, hd, H)
+        if (built("nstb_map", ws * ws, D, nh, hd, H), built("nstb_tokens", ws * ws, D, nh, hd, H)) \
+                != (want, want):
+            bad.append(("nstb", ws * ws, D, nh, hd, H))
     return bad
 
 
@@ -1287,6 +1324,111 @@ def check_width_kernels(dev, card):
     return rows
 
 
+def check_width_nstb(dev, card):
+    """Phase 20c: K2 and K8 at other widths than the full-width NGswin's
+    (their generic body) against their plain versions (``WIDTH_NSTB_CASES``):
+    K2 on the map and K8 on the windows of the rolled map, shift 0 with Q 1
+    and shift ws/2 with Q 4 (the mask on), f32 and bf16, held as phase 2
+    holds K2 (f32 1e-4·max(1, max|ref|); bf16 NSTB_BF16_TOL and
+    NSTB_MEAN_TOL against the rounding-matched plain version), K8 bit for
+    bit equal to K2; then each one's time (the launch alone, shift ws/2)
+    beside its plain version's and its bound; and past the envelope the
+    refusal that names the bytes.  Returns {"nstb_map": rows, "nstb_tokens":
+    rows}, one row per geometry and dtype."""
+    import torch
+
+    from tmar_torch.ops import cuda_nstb
+    from tmar_torch.ops.window import cyclic_shift, window_partition, window_unpartition
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    failures = []
+    rows = {"nstb_map": [], "nstb_tokens": []}
+    counters = (cuda_nstb.fused_nstb_map.launches, cuda_nstb.fused_nstb.launches)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale + shift
+
+    for label, B, wh, ww, D, nh, hd, H, ws in WIDTH_NSTB_CASES:
+        A, N = nh * hd, ws * ws
+        ln = lambda: (randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1))  # noqa: E731
+        args = (randn(D, 3 * A, scale=0.15), randn(3 * A, scale=0.1),
+                torch.rand(nh, 1, 1, generator=gen, device=dev) * 1.8 + 0.5,
+                randn((2 * ws - 1) ** 2, nh, scale=0.5), randn(A, D, scale=0.15),
+                randn(D, scale=0.1), ln(), (randn(D, H, scale=0.15), randn(H, scale=0.1)),
+                (randn(H, D, scale=0.1), randn(D, scale=0.1)), ln(), nh, ws)
+        x = randn(B, wh * ws, ww * ws, D)
+        name = (f"{label} x=[{B}, {wh * ws}, {ww * ws}, {D}] heads={nh}x{hd} hidden={H} "
+                f"window={ws}")
+        errs = {"float32": 0.0, "bfloat16": 0.0, "bf16_mean": 0.0, "bf16_vs_f32_plain": 0.0}
+        for shift, Q in ((0, 1), (ws // 2, 4)):
+            cq = randn(B * wh * ww, Q, D, scale=0.5)
+
+            def plain_map(xi, ci, a, cdt=torch.float32):
+                return cuda_nstb.nstb_map_math(xi, ci, *a[:-2], num_heads=a[-2],
+                                               window_size=a[-1], shift=shift, compute_dtype=cdt)
+
+            for dtype in (torch.float32, torch.bfloat16):
+                dn = str(dtype).split(".")[1]
+                xx, cc = x.to(dtype), cq.to(dtype)
+                zmap = cuda_nstb.fused_nstb_map(xx, cc, *args, shift=shift)
+                wins = window_partition(cyclic_shift(xx, shift), ws)[0].reshape(-1, N, D)
+                z = cuda_nstb.fused_nstb(wins, cc, *args, shift=shift, grid=(wh, ww))
+                ok, line = hold_nstb(zmap, plain_map, xx, cc, args, errs)
+                same = torch.equal(window_unpartition(z.reshape(-1, ws, ws, D), (wh, ww)), zmap)
+                print(f"[kernel] nstb_map / nstb_tokens generic {name} shift={shift} Q={Q} {line}; "
+                      f"K8 on the rolled windows equal to K2 bit for bit: {same}")
+                if not (ok and same):
+                    failures.append(f"nstb generic {label} shift={shift} {dn}")
+                if shift == 0:
+                    continue
+                # the launch alone, the counters put back
+                ops, out, ints = cuda_nstb._kernel_operands(xx, cc, *args, shift=shift)
+                tops, tout, tints = cuda_nstb._token_operands(wins, cc, *args, shift, (wh, ww))
+                k2 = cuda_ms(lambda: cuda_nstb._launch(ops, out, ints, 1e-5), iters=10)
+                k8 = cuda_ms(lambda: cuda_nstb._launch_tokens(tops, tout, tints, 1e-5), iters=10)
+                p2 = cuda_ms(lambda: plain_map(xx, cc, args), iters=3, warmup=1)
+                p8 = cuda_ms(lambda: cuda_nstb.nstb_tokens_math(
+                    wins, cc, *args[:-2], num_heads=nh, window_size=ws, shift=shift,
+                    grid=(wh, ww)), iters=3, warmup=1)
+                flops, nbytes = nstb_work(B, wh * ws, ww * ws, nh, Q, xx.element_size(), D, H, hd, ws)
+                b_ms, b_by = bound_ms(flops, nbytes, dn)
+                for kernel, k_ms, p_ms in (("nstb_map", k2, p2), ("nstb_tokens", k8, p8)):
+                    rows[kernel].append({
+                        "geometry": f"{name} shift={shift} Q={Q}", "dtype": dn, "ms": k_ms,
+                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                        "max_abs_err": errs[dn]})
+                    print(f"[time] {kernel} generic {name} shift={shift} {dn}: kernel {k_ms:.4f} ms "
+                          f"(launch alone), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
+                          f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB); library: none (no "
+                          f"single PyTorch call computes it) on {card}")
+                del ops, out, tops, tout
+            del zmap, z, wins
+        del x
+        torch.cuda.empty_cache()
+    cuda_nstb.fused_nstb_map.launches, cuda_nstb.fused_nstb.launches = counters
+
+    D, nh, hd, H = NSTB_PAST_ENVELOPE
+    A = nh * hd
+    past = [torch.zeros(s, device=dev) for s in ((D, 3 * A), (3 * A,), (nh, 1, 1), (225, nh),
+                                                  (A, D), (D,))]
+    pair = lambda a, b: (torch.zeros(a, device=dev), torch.zeros(b, device=dev))  # noqa: E731
+    try:
+        cuda_nstb.fused_nstb_map(torch.zeros(1, 8, 8, D, device=dev), torch.zeros(1, 1, D, device=dev),
+                                 *past, pair(D, D), pair((D, H), H), pair((H, D), D), pair(D, D),
+                                 nh, 8)
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    ok = "bytes of shared memory" in refused and "K2/K8" in refused
+    print(f"[check] past the envelope (D {D}, {nh} x {hd} heads, hidden {H}) K2 refuses naming the "
+          f"bytes: {refused[:160]!r}: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("K2 past the envelope")
+    if failures:
+        raise SystemExit(f"whole-block checks at other widths failed: {failures}")
+    return rows
+
+
 # the demo width (examples/demo_end_to_end.py, tests/test_ngswin_pallas.py)
 # on the shipped recipe, nothing else changed: 8 NSTBs of embed 32, 2 heads
 DEMO_OVERRIDES = {
@@ -1302,8 +1444,8 @@ def demo_width(card):
     """Phase 20b: the shipped recipe at the demo width through the Trainer
     (K1, K7 and K3-K6 on their generic bodies, 8 launches each per step),
     one f32 step on the card against the CPU, then the trained generator in
-    the unfused serving form (K1 + K3 + K5).  Returns the launches per step
-    of the timed run."""
+    the unfused serving form (K1 + K3 + K5), the map form (K1 + K2) and the
+    token form (K1 + K8).  Returns the launches per step of the timed run."""
     import tempfile
 
     import torch
@@ -1430,15 +1572,44 @@ def demo_width(card):
     d = float(np.abs(make_inference_fn(f32_card)(x1) - make_inference_fn(f32_cpu, "cpu")(x1)).max())
     print(f"[check] demo width unfused f32 1x128², card vs CPU plain: max |diff| {d:.3e} tol 1e-4")
     check(d <= 1e-4, "the unfused f32 request matches the CPU within 1e-4")
-    mapped = NGswin(dtype=torch.bfloat16, **kw)
-    mapped.load_state_dict(sd)
-    try:
-        make_inference_fn(mapped)(x1)
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    check("K2" in refused, f"the map form at this width raises NotImplementedError naming K2: "
-                           f"{refused[:100]!r}")
+    # the map form (K1 + K2) and the token form (K1 + K8) at this width, on
+    # K2's and K8's generic body: against the unfused form at bf16, the CPU
+    # at f32
+    for form, kwargs, kernel in (("map", {}, "nstb_map"), ("token", {"nstb_map": False}, "nstb_tokens")):
+        served = NGswin(dtype=torch.bfloat16, **kw, **kwargs)
+        served.load_state_dict(sd)
+        fwd = make_inference_fn(served)
+        _reset_serving_counters()
+        yf = fwd(x)
+        got, _ = _read_serving_counters()
+        d = np.abs(yf - y)
+        print(f"[demo] {form} form 8x256² bf16 request: launches {got}; against the unfused form "
+              f"max |diff| {d.max():.3e} mean {d.mean():.2e} (tol 0.1, 1e-2)")
+        others = {k: v for k, v in got.items() if k not in ("ngram_context", kernel)}
+        check(got["ngram_context"] == 8 and got[kernel] == 8 and not any(others.values()),
+              f"the {form}-form request launches 8 each of K1 and {'K2' if form == 'map' else 'K8'}, "
+              f"nothing else")
+        check(bool(np.isfinite(yf).all()) and d.max() <= 0.1 and d.mean() <= 1e-2,
+              f"the {form}-form request against the unfused form at bf16")
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd(x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        print(f"[time] {form}-form request (demo width) 8x256² bf16: median "
+              f"{statistics.median(times[1:]) * 1e3:.2f} ms of 5 on {card}")
+        f32_card = NGswin(dtype=torch.float32, **kw, **kwargs)
+        f32_card.load_state_dict(sd)
+        f32_cpu = NGswin(dtype=torch.float32, device="cpu", **kw, **kwargs)
+        f32_cpu.load_state_dict(sd)
+        d = float(np.abs(make_inference_fn(f32_card)(x1)
+                         - make_inference_fn(f32_cpu, "cpu")(x1)).max())
+        print(f"[check] demo width {form} form f32 1x128², card vs CPU plain: max |diff| {d:.3e} "
+              f"tol 1e-4")
+        check(d <= 1e-4, f"the {form}-form f32 request matches the CPU within 1e-4")
+        del served, f32_card, f32_cpu
     if failures:
         raise SystemExit(f"demo-width checks failed: {failures}")
     return {k: int(v) for k, v in per_step.items()}
@@ -2874,7 +3045,7 @@ def finetune_phases(card):
     launch no hand-written kernel: 0 of each); the pickle and history.json
     written; then one float32 step of each at 1x64² on the card against the
     CPU from the same weights: the loss terms and every parameter's
-    gradient."""
+    gradient.  Returns the bytes of DuDo's pickle (phase 21 compares it)."""
     import tempfile
 
     import torch
@@ -2893,6 +3064,7 @@ def finetune_phases(card):
 
     angles = np.linspace(0, np.pi, 180, endpoint=False)
     counters = _all_counters()
+    dudo_pickle = b""
     with tempfile.TemporaryDirectory(prefix="tmar_smoke_ft_") as tmp:
         spine, sec = write_trees(tmp, syndeeplesion=False)["spineweb"]
         art, cln = os.path.join(spine, "artifact"), os.path.join(spine, "clean")
@@ -2916,8 +3088,12 @@ def finetune_phases(card):
                   f"(model build, first steps and the pickle included) on {card}; loss history "
                   f"{json.dumps(history)}; hand-written kernel launches "
                   + ", ".join(f"{k} {v}" for k, v in launches.items()))
-            check(rc == 0 and os.path.isfile(os.path.join(out, f"{arch}_finetuned.pkl")) and len(history) == 1,
+            pkl = os.path.join(out, f"{arch}_finetuned.pkl")
+            check(rc == 0 and os.path.isfile(pkl) and len(history) == 1,
                   f"finetune {arch}: {arch}_finetuned.pkl and history.json written")
+            if arch == "dudo" and os.path.isfile(pkl):
+                with open(pkl, "rb") as f:
+                    dudo_pickle = f.read()
             check(bool(history) and all(np.isfinite(v) for v in history[0].values())
                   and history[0].get("sino", 0) > 0, f"finetune {arch}: every loss finite, the sinogram term on")
             check(not any(launches.values()), f"finetune {arch}: no hand-written kernel launched "
@@ -2959,6 +3135,7 @@ def finetune_phases(card):
             torch.cuda.empty_cache()
     if failures:
         raise SystemExit(f"fine-tune checks failed: {failures}")
+    return dudo_pickle
 
 
 def dcgan_phase(card):
@@ -2997,6 +3174,168 @@ def dcgan_phase(card):
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("dcgan checks failed")
+
+
+# ---- phase 21: evaluation on the card ----------------------------------------
+EVAL_ABLATIONS = ("A1_no_physics", "A6_no_edge")
+EVAL_SLICES = 4  # synthetic 416² slices of the comparison
+IDENTITY_ADAPTER = """import sys
+import numpy as np
+d = np.load(sys.argv[1])
+np.save(sys.argv[2], d["Xma"])
+"""
+
+
+def _sets(overrides):
+    """``--set`` arguments for a dict of dotted config overrides."""
+    return ["--set", *(f"{k}={json.dumps(v)}" for k, v in overrides.items())]
+
+
+def eval_phase(card, dudo_pickle):
+    """Phase 21: the evaluation commands in process on the card, every
+    launch counter reset just before each and read just after.
+
+    ``compare`` on 4 synthetic 416² slices: (a) the flagship at bf16 (K1 +
+    the tensor-core K2), the identity, an identity subprocess adapter and
+    the DuDo pickle of phase 18, with ``--sinograms``; (b) the flagship at
+    f32 (the templated K2); (c) a demo-width checkpoint written below (K2's
+    generic body).  ``ablate --inference-only`` over two ablations at the
+    demo width on 2 of its 64² test slices, from the checkpoints one short
+    ``Trainer.fit`` per ablation writes here.  Every row ``ok``; the
+    flagship's PSNR above the input's (the identity's); K2's launches: 20 per
+    flagship forward and 8 per demo forward (the harness warms each model
+    up on its first sample: 5 forwards for 4 slices).  Returns the K2
+    launches of the whole phase."""
+    import tempfile
+
+    import torch
+
+    from tmar_torch import cli
+    from tmar_torch.train import Trainer
+
+    failures = []
+
+    def check(cond, what):
+        print(f"[check] eval: {what}: {'ok' if cond else 'FAIL'}")
+        if not cond:
+            failures.append(what)
+
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        print("[skip] figures: matplotlib is not installed")
+    counters = _serving_counters()
+    total = {k: 0 for k in counters}
+    # the demo-width generator and critic (the checkpoint's layout), on the
+    # comparison's 416² slices
+    demo_net = {k: v for k, v in DEMO_OVERRIDES.items() if k.startswith(("model.", "disc."))}
+    # the recipe builds the training form, in which the whole-block kernels
+    # stand aside (as in the JAX package); the serving form runs K1 + K2
+    serving = {"model.attn_backward": "auto"}
+    recipe = os.path.join(ROOT, "tmar_torch", "configs", "train_syndeeplesion.yaml")
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="tmar_smoke_eval_") as tmp:
+        # the demo-width checkpoints of the two ablations
+        for name in EVAL_ABLATIONS:
+            cfg = _trainer_config(tmp, **{**DEMO_OVERRIDES, "variant": name,
+                                          "run_name": f"ablation_{name}", "num_epochs": 1,
+                                          "data.samples_per_epoch": 16})
+            trainer = Trainer(cfg)
+            trainer.fit(progress=False)
+            check(int(trainer.state.step) == 2 and os.path.isdir(
+                os.path.join(tmp, f"ablation_{name}", "checkpoints")),
+                f"Trainer.fit wrote {name}'s demo-width checkpoint after 2 steps")
+            del trainer
+        torch.cuda.empty_cache()
+        script = os.path.join(tmp, "identity_adapter.py")
+        with open(script, "w") as f:
+            f.write(IDENTITY_ADAPTER)
+        pkl = os.path.join(tmp, "dudo_finetuned.pkl")
+        with open(pkl, "wb") as f:
+            f.write(dudo_pickle)
+
+        def run(label, command, argv, per_forward, forwards):
+            for f in counters.values():
+                f.launches = 0
+            t0 = time.perf_counter()
+            rc = getattr(cli, command)(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            got = {k: f.launches for k, f in counters.items()}
+            for k, v in got.items():
+                total[k] += v
+            print(f"[eval] {label}: rc {rc} in {wall:.2f} s; launches {got} on {card}")
+            check(rc == 0, f"{label} returns 0")
+            want = {"ngram_context": per_forward * forwards, "nstb_map": per_forward * forwards}
+            check({k: v for k, v in got.items() if v} == want,
+                  f"{label}: {per_forward} launches each of K1 and K2 per forward, {forwards} "
+                  f"forwards, nothing else")
+
+        def rows(out):
+            res = {m: json.load(open(os.path.join(out, m, "metrics.json")))
+                   for m in sorted(os.listdir(out)) if os.path.isfile(os.path.join(out, m, "metrics.json"))}
+            for m, r in res.items():
+                s_ = r.get("summary", {})
+                print(f"[eval] {os.path.basename(out)} {m}: {r['status']}"
+                      + (f", PSNR {s_['psnr']['mean']:.4f} dB, SSIM {s_['ssim']['mean']:.5f}, "
+                         f"{s_['latency_s']['mean'] * 1e3:.2f} ms a slice" if r["status"] == "ok"
+                         else f": {r.get('error')}"))
+            return res
+
+        common = ["--num-samples", str(EVAL_SLICES), "--composites", "1"]
+        synth = {"data.dataset": "synthetic"}
+        out = os.path.join(tmp, "compare_bf16")
+        run("compare, full width bf16", "compare",
+            ["--checkpoints", f"flagship={CKPT}", "identity", "--adapter",
+             f"adapter={sys.executable} {script}", "--dudo", f"dudo={pkl}", "--sinograms",
+             "--out", out, *common, *_sets(synth)], 20, EVAL_SLICES + 1)
+        res = rows(out)
+        check(sorted(res) == ["adapter", "dudo", "flagship", "identity"]
+              and all(r["status"] == "ok" for r in res.values()),
+              "compare at full width: the flagship, the identity, the adapter and DuDo all ok")
+        if all(r["status"] == "ok" for r in res.values()):
+            p = {m: r["summary"]["psnr"]["mean"] for m, r in res.items()}
+            check(p["flagship"] > p["identity"] and abs(p["adapter"] - p["identity"]) < 1e-6,
+                  f"the flagship's PSNR {p['flagship']:.4f} dB above the input's "
+                  f"{p['identity']:.4f}; the identity adapter equal to the identity")
+        out = os.path.join(tmp, "compare_f32")
+        run("compare, full width f32", "compare",
+            ["--checkpoints", f"flagship={CKPT}", "identity", "--out", out, *common,
+             *_sets({**synth, "bf16": False})], 20, EVAL_SLICES + 1)
+        res = rows(out)
+        check(all(r["status"] == "ok" for r in res.values()) and len(res) == 2
+              and res["flagship"]["summary"]["psnr"]["mean"] > res["identity"]["summary"]["psnr"]["mean"],
+              "compare at f32: both rows ok, the flagship's PSNR above the input's")
+        out = os.path.join(tmp, "compare_demo")
+        run("compare, demo width bf16", "compare",
+            ["--checkpoints", f"demo={os.path.join(tmp, 'ablation_A1_no_physics', 'checkpoints')}",
+             "identity", "--config", recipe, "--out", out, *common,
+             *_sets({**synth, **demo_net, **serving})], 8,
+            EVAL_SLICES + 1)
+        res = rows(out)
+        check(all(r["status"] == "ok" for r in res.values()) and len(res) == 2,
+              "compare at the demo width: both rows ok")
+        run("ablate --inference-only, demo width", "ablate",
+            ["--config", recipe, "--ablations", *EVAL_ABLATIONS, "--inference-only", "--max-eval-samples", "2",
+             "--vis-samples", "1", *_sets({**DEMO_OVERRIDES, **serving, "run_dir": tmp})], 8,
+            2 * len(EVAL_ABLATIONS))
+        with open(os.path.join(tmp, "ablation_summary.json")) as f:
+            summary = json.load(f)
+        for name in EVAL_ABLATIONS:
+            r = summary.get(name, {})
+            s_ = r.get("summary", {})
+            print(f"[eval] ablate {name}: {r.get('status')}"
+                  + (f", PSNR {s_['psnr']:.4f} dB, SSIM {s_['ssim']:.5f}, metal PSNR "
+                     f"{s_.get('metal_PSNR', float('nan')):.4f}, within 10 HU "
+                     f"{s_.get('within_10HU', float('nan')):.4f}" if r.get("status") == "ok"
+                     else f": {r.get('error')}"))
+        check(sorted(summary) == sorted(EVAL_ABLATIONS)
+              and all(r["status"] == "ok" for r in summary.values()),
+              "ablate: every ablation ok, ablation_summary.csv / json written")
+    print(f"[time] phase 21 (compare x3, ablate) in {time.perf_counter() - t_phase:.1f} s on {card}")
+    if failures:
+        raise SystemExit(f"evaluation checks failed: {failures}")
+    return total
 
 
 def main() -> int:
@@ -3065,14 +3404,16 @@ def main() -> int:
     train_ngram3(card)
     t0 = time.perf_counter()
     v1_launches = train_v1(card)
-    finetune_phases(card)
+    dudo_pickle = finetune_phases(card)
     dcgan_phase(card)
     print(f"[time] phases 17-19 (v1, finetune, dcgan) in {time.perf_counter() - t0:.1f} s on {card}")
     t0 = time.perf_counter()
     width_rows = check_width_kernels(dev, card)
+    width_rows.update(check_width_nstb(dev, card))
     demo_launches = demo_width(card)
     print(f"[time] phase 20 (other widths, the demo width) in {time.perf_counter() - t0:.1f} s on "
           f"{card}")
+    eval_launches = eval_phase(card, dudo_pickle)
     for name, rec in records.items():
         # launches: the count of the first path above that ran the kernel
         # (serving, composition training, the trainer's full step)
@@ -3081,6 +3422,7 @@ def main() -> int:
         rec["launches_spineweb_fit"] = data_launches.get(name, 0)
         rec["launches_v1_step_path"] = v1_launches.get(name, 0)
         rec["launches_demo_step_path"] = demo_launches.get(name, 0)
+        rec["launches_eval_path"] = eval_launches.get(name, 0)
         rec["widths"] = width_rows.get(name, [])
         rec["card"] = card
     print(json.dumps({"kernels": list(records.values())}))

@@ -57,14 +57,14 @@ def ngram_inputs(rng, nh, B, wh, ww, C=32, D=64, hd=None):
     ]
 
 
-def nstb_inputs(rng, nh, B, ph, pw, Q):
-    D, H = 64, 128
-    A = (D // nh) * nh
-    nwin = B * (ph // 8) * (pw // 8)
+def nstb_inputs(rng, nh, B, ph, pw, Q, D=64, H=128, hd=None, ws=8):
+    A = (hd or D // nh) * nh
+    nwin = B * (ph // ws) * (pw // ws)
     ln = lambda: (1 + _t(rng, D, scale=0.1), _t(rng, D, scale=0.1))  # noqa: E731
     return _t(rng, B, ph, pw, D), _t(rng, nwin, Q, D, scale=0.5), [
         _t(rng, D, 3 * A, scale=0.15), _t(rng, 3 * A, scale=0.1), _t(rng, nh, 1, 1),
-        _t(rng, 225, nh, scale=0.5), _t(rng, A, D, scale=0.15), _t(rng, D, scale=0.1),
+        _t(rng, (2 * ws - 1) ** 2, nh, scale=0.5), _t(rng, A, D, scale=0.15),
+        _t(rng, D, scale=0.1),
         ln(), (_t(rng, D, H, scale=0.15), _t(rng, H, scale=0.1)),
         (_t(rng, H, D, scale=0.1), _t(rng, D, scale=0.1)), ln(),
     ]
@@ -128,6 +128,60 @@ def test_nstb_map_kernel_matches_plain(cuda, dtype, nh, shift, Q):
     assert got.dtype == dtype and got.shape == x.shape
     err = float((got.float() - ref.float()).abs().max())
     assert err <= _tol(ref.float(), dtype), err
+
+
+# other widths of the whole block (D, heads, head_dim, H, window): the demo
+# width, the JAX kernel tests', window 4, the envelope's top, 3 x 10 heads
+NSTB_WIDTHS = [(32, 2, 16, 64, 8), (8, 2, 4, 16, 8), (32, 2, 16, 64, 4), (128, 4, 32, 512, 8),
+               (32, 3, 10, 64, 8)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D,nh,hd,H,ws", NSTB_WIDTHS)
+@pytest.mark.parametrize("shift,Q", [(0, 1), (0, 4), ("half", 4), ("half", 1)])
+@pytest.mark.parametrize("B,wh,ww", [(2, 3, 4), (1, 3, 13)])  # the second: a ragged ww
+def test_nstb_generic_bodies_match_plain(cuda, dtype, D, nh, hd, H, ws, shift, Q, B, wh, ww):
+    """K2 on the map and K8 on the windows of the rolled map, on their generic
+    bodies, against their plain versions (at bfloat16 the rounding-matched
+    ones), masked (shift ws/2) and unmasked, Q 1 and 4, an odd windows-per-
+    stripe; each one launch, and the two agree bit for bit."""
+    from tmar_torch.ops.window import cyclic_shift, window_partition, window_unpartition
+
+    shift = ws // 2 if shift == "half" else shift
+    rng = np.random.default_rng(21)
+    x, cq, params = nstb_inputs(rng, nh, B, wh * ws, ww * ws, Q, D, H, hd, ws)
+    x, cq = x.to(cuda, dtype), cq.to(cuda, dtype)
+    params = [_to(p, cuda) for p in params]
+    before = (cuda_nstb.fused_nstb_map.launches, cuda_nstb.fused_nstb.launches)
+    zmap = cuda_nstb.fused_nstb_map(x, cq, *params, nh, ws, shift=shift)
+    wins, _ = window_partition(cyclic_shift(x, shift), ws)
+    z = cuda_nstb.fused_nstb(wins.reshape(-1, ws * ws, D), cq, *params, nh, ws, shift=shift,
+                             grid=(wh, ww))
+    torch.cuda.synchronize()
+    assert (cuda_nstb.fused_nstb_map.launches, cuda_nstb.fused_nstb.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = cuda_nstb.nstb_map_math(x, cq, *params, num_heads=nh, window_size=ws, shift=shift)
+    assert zmap.dtype == dtype and zmap.shape == x.shape
+    err = float((zmap.float() - ref.float()).abs().max())
+    assert err <= _tol(ref.float(), dtype), err
+    assert torch.equal(window_unpartition(z.reshape(-1, ws, ws, D), (wh, ww)), zmap)
+
+
+def test_nstb_generic_body_refuses_past_its_envelope(cuda):
+    """Past the envelope, and only there, K2 and K8 refuse with the limit
+    named; a head count that does not divide the attention width is a
+    ValueError."""
+    rng = np.random.default_rng(22)
+    x, cq, params = nstb_inputs(rng, 2, 1, 8, 8, 1, D=80, H=160, hd=40)
+    with pytest.raises(NotImplementedError, match="head_dim 40"):
+        cuda_nstb.fused_nstb_map(x.to(cuda), cq.to(cuda), *[_to(p, cuda) for p in params], 2, 8)
+    x, cq, params = nstb_inputs(rng, 8, 1, 8, 8, 1, D=256, H=1024, hd=32)
+    with pytest.raises(NotImplementedError, match="bytes of shared memory"):
+        cuda_nstb.fused_nstb_map(x.to(cuda), cq.to(cuda), *[_to(p, cuda) for p in params], 8, 8)
+    x, cq, params = nstb_inputs(rng, 2, 1, 9, 9, 1, D=32, H=64, hd=16, ws=9)
+    with pytest.raises(NotImplementedError, match="N=81"):
+        cuda_nstb.fused_nstb(x.reshape(1, 81, 32).to(cuda), cq.to(cuda),
+                             *[_to(p, cuda) for p in params], 2, 9)
 
 
 def test_nstb_map_kernel_finite_at_saturated_logit_scale(cuda):
@@ -420,6 +474,8 @@ def test_generic_bodies_launch_with_the_envelopes_shared_memory(cuda, D, nh, hd,
     fwd, p1, p2 = env.ngram_envelope(C, D, nh, hd)
     assert built("ngram_fwd", C, nh, hd) == fwd
     assert (built("ngram_bwd", C, D, nh, hd, 1), built("ngram_bwd", C, D, nh, hd, 2)) == (p1, p2)
+    nstb = env.nstb_envelope(N, D, nh, hd, H)
+    assert built("nstb_map", N, D, nh, hd, H) == built("nstb_tokens", N, D, nh, hd, H) == nstb
 
 
 # the demo width (examples/demo_end_to_end.py, tests/test_ngswin_pallas.py)

@@ -12,7 +12,14 @@ mean bound: the last test shows that the rounding is applied.
 
 Inputs, matrices and context quads are bfloat16 on both sides; biases,
 LayerNorms, the bias table and the logit scale stay float32 (both kernels
-read them so)."""
+read them so).
+
+The same holds at other widths than the full-width NGswin's, where the card
+runs K2's and K8's generic body: the demo width (D 32, 2 x 16 heads, hidden
+64) and the JAX kernel tests' (D 8, 2 heads, hidden 16), both forms, shift
+0 and 4, at bfloat16 to the bounds above and at float32 (the same
+bf16-valued inputs) to atol 2e-5, rtol 2e-5, the float32 file's tolerance
+(tests/test_torch_port_nstb.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +37,7 @@ from tmar_torch.ops.window import cyclic_shift, window_partition
 MAX_TOL = 2.0**-7   # x max|ref|
 MEAN_TOL = 5e-5
 MATS = (0, 4)       # wqkv, wproj; and the first member of ffn1, ffn2
+F32_TOL = dict(atol=2e-5, rtol=2e-5)
 
 
 def _inputs(nh, Q, B=2, ph=16, pw=24, D=64, seed=0):
@@ -140,3 +148,47 @@ def test_float32_plain_on_bf16_inputs_misses_the_mean_bound():
     assert f32.dtype == torch.float32
     _, mean, _ = _errors(f32.to(torch.bfloat16), ref)
     assert mean > 10 * MEAN_TOL, mean
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("shift", [0, 4])
+@pytest.mark.parametrize("D,nh", [(32, 2), (8, 2)], ids=["demo", "jax_tests"])
+def test_nstb_plain_at_other_widths_matches_pallas_interpret(D, nh, shift, dtype):
+    """The map form and the token form at a width the generic body takes,
+    each against its JAX function in interpret mode on the same inputs."""
+    Q = 1 if shift == 0 else 4
+    x, cq, params = _inputs(nh, Q, D=D)
+    jdt, tdt = (jnp.bfloat16, torch.bfloat16) if dtype == "bfloat16" else (jnp.float32, torch.float32)
+
+    def tt(p):  # the port's tensor: the matrices and activations in the dtype
+        if isinstance(p, tuple):
+            return tuple(tt(q) for q in p)
+        return _torch(p).to(tdt if p.dtype == jnp.bfloat16 else torch.float32)
+
+    jp, bias, mc = _jax_args(nh, shift, params)
+    jp = [tuple(q.astype(jdt) if q.dtype == jnp.bfloat16 else q for q in p) if isinstance(p, tuple)
+          else (p.astype(jdt) if p.dtype == jnp.bfloat16 else p) for p in jp]
+    sel = np.ones((64, 1), np.float32) if Q == 1 else jquadrant_selector(8, shift)
+    ref_map = jfused_map(
+        jnp.asarray(x, jdt), jnp.asarray(cq, jdt), sel, jp[0], jp[1], jp[2], bias, jp[4], jp[5],
+        *jp[6:], num_heads=nh, window_size=8, mask_components=mc, interpret=True, shift=shift,
+    )
+    got_map = cuda_nstb.fused_nstb_map(tt(x), tt(cq), *[tt(p) for p in params], nh, 8, shift=shift)
+    wins, _ = window_partition(cyclic_shift(tt(x), shift), 8)
+    wins = wins.reshape(-1, 64, D)
+    cq4 = cq if Q == 4 else np.repeat(cq, 4, axis=1)
+    ref_tok = jfused(
+        jnp.asarray(wins.float().numpy(), jdt), jnp.asarray(cq4, jdt),
+        jquadrant_selector(8, shift), jp[0], jp[1], jp[2], bias, jp[4], jp[5], *jp[6:],
+        num_heads=nh, mask_components=mc, interpret=True,
+    )
+    got_tok = cuda_nstb.fused_nstb(
+        wins, tt(cq4), *[tt(p) for p in params], nh, 8, shift=shift, grid=(2, 3))
+    for got, ref in ((got_map, ref_map), (got_tok, ref_tok)):
+        assert got.dtype == tdt and got.shape[-1] == D
+        if dtype == "float32":
+            np.testing.assert_allclose(got.numpy(), np.asarray(ref), **F32_TOL)
+            continue
+        err, mean, scale = _errors(got, ref)
+        assert err <= MAX_TOL * scale, (err, MAX_TOL * scale)
+        assert mean <= MEAN_TOL, mean

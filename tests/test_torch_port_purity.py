@@ -71,12 +71,20 @@ FINETUNE_SLICE = (
 )
 
 
+# the modules of the evaluation slice, as above
+EVAL_SLICE = (
+    "eval/harness.py", "eval/adapters.py", "eval/ablation.py", "eval/figures.py",
+    "eval/clinic.py", "data/measurements.py",
+)
+
+
 def test_trainer_slice_modules_are_in_the_package_and_scanned():
     scanned = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert set(TRAINER_SLICE) <= scanned
     assert set(SERVING_SLICE) <= scanned
     assert set(DATA_SLICE) <= scanned
     assert set(FINETUNE_SLICE) <= scanned
+    assert set(EVAL_SLICE) <= scanned
     for sub in ("data", "utils", "train", "checkpoint", "eval", "ops"):
         assert (PKG / sub / "__init__.py").is_file(), sub
 
@@ -108,8 +116,33 @@ def test_cli_imports_no_jax_or_tmar_when_run():
         "    runpy.run_module('tmar_torch.cli', run_name='__main__')\n"
         "except SystemExit:\n"
         "    pass\n"
-        "import tmar_torch.cli, tmar_torch.eval.inference\n"
+        "import tmar_torch.cli, tmar_torch.eval.inference, tmar_torch.eval.harness\n"
+        "import tmar_torch.eval.adapters, tmar_torch.eval.ablation, tmar_torch.eval.clinic\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(bad); sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=str(PKG.parent))
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "--device" in res.stdout
+
+
+@pytest.mark.parametrize("command", ["compare", "ablate"])
+def test_evaluation_commands_leave_figures_and_matplotlib_unimported(command):
+    """``compare`` and ``ablate`` down to their argument parsing, and the
+    evaluation modules they use, import neither ``figures`` nor matplotlib
+    (a host without matplotlib skips the plots, as the JAX package does)."""
+    code = (
+        "import sys, runpy\n"
+        f"sys.argv = ['tmar_torch.cli', {command!r}, '--help']\n"
+        "try:\n"
+        "    runpy.run_module('tmar_torch.cli', run_name='__main__')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "import tmar_torch.eval, tmar_torch.eval.harness, tmar_torch.eval.ablation\n"
+        "import tmar_torch.eval.adapters, tmar_torch.eval.clinic, tmar_torch.data.measurements\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] == 'matplotlib'\n"
+        "       or m == 'tmar_torch.eval.figures']\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

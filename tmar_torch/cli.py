@@ -6,6 +6,10 @@
         --set data.dataset=synthetic
     python -m tmar_torch.cli finetune --arch dudo --artifact-dir <npy dir> \\
         --clean-dir <npy dir> --epochs 1
+    python -m tmar_torch.cli compare --checkpoints flagship=reports/compare_r4/flagship.pth \\
+        identity --set data.dataset=synthetic --num-samples 4
+    python -m tmar_torch.cli ablate --ablations A1_no_physics B2_no_spectral_norm \\
+        --inference-only --set data.dataset=synthetic
 
 Each takes the JAX CLI's arguments plus ``--device`` (default ``cuda``; ``cpu``
 runs the plain versions).  ``test`` serves the generator of the config from a
@@ -13,11 +17,15 @@ runs the plain versions).  ``test`` serves the generator of the config from a
 tiled eval on the device, and writes ``metrics.json`` in the JAX CLI's schema.
 ``finetune`` fine-tunes a baseline or DuDo and writes
 ``<out>/{arch}_finetuned.pkl`` in the flax layout, which the JAX package's
-model loads, and ``history.json``.
+model loads, and ``history.json``.  ``compare`` runs the comparison harness
+(``tmar_torch.eval.harness``) over generator checkpoints, out-of-process
+adapters and fine-tuned DuDo pickles; ``ablate`` trains (or, with
+``--inference-only``, restores) each ablation and evaluates it
+(``tmar_torch.eval.ablation``).  Both write the JAX CLI's files.
 
-The block form of the generator comes from the JAX package's environment
-variables, read here and nowhere else in the port, and passed to
-``build_generator`` as constructor arguments: ``TMAR_NSTB_FUSED=0`` (the
+The block form of the generator (``test``, ``compare``, ``ablate``) comes
+from the JAX package's environment variables, read here and nowhere else in
+the port, and passed to ``build_generator`` as constructor arguments: ``TMAR_NSTB_FUSED=0`` (the
 unfused block), ``TMAR_NSTB_MAP=0`` (the token-level fused block),
 ``TMAR_NGRAM_FUSED=0`` (the n-gram context on its composition path).
 ``train`` builds the training form, in which only ``TMAR_NGRAM_FUSED``
@@ -37,8 +45,6 @@ from typing import Any, Dict, List
 
 # commands of the JAX CLI that the port does not have yet, and where they stand
 NOT_PORTED = {
-    "ablate": "it waits for the port of tmar/eval/ablation.py",
-    "compare": "it waits for the port of tmar/eval/harness.py",
     "export": "it waits for the port of tmar/export.py",
 }
 
@@ -246,6 +252,177 @@ def finetune(argv=None) -> int:
     return 0
 
 
+def ablate(argv=None) -> int:
+    """The ablation sweep: train each ablation (or, with --inference-only,
+    restore its checkpoint from its run directory), evaluate it on the test
+    set with the global, regional and HU metric families and the plot
+    families at fixed vis-sample indices, then write the cross-ablation
+    summary.  A failing ablation is a FAILED row."""
+    ap = argparse.ArgumentParser(prog="python -m tmar_torch.cli ablate",
+                                 description="Run the ablation matrix")
+    ap.add_argument("--config", default=None)
+    ap.add_argument("--ablations", nargs="*", default=None, help="default: all")
+    ap.add_argument("--set", nargs="*", action="append", default=[])
+    ap.add_argument("--epochs", type=int, default=10, help="10-epoch ablations by default")
+    ap.add_argument("--inference-only", action="store_true",
+                    help="skip training; restore each ablation's checkpoint "
+                         "from its run dir and re-run the evaluation")
+    ap.add_argument("--max-eval-samples", type=int, default=None,
+                    help="cap the test-set evaluation (default: full set)")
+    ap.add_argument("--vis-samples", type=int, default=8,
+                    help="fixed seeded visualization samples shared across ablations")
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    from tmar_torch.eval import make_inference_fn
+    from tmar_torch.eval.ablation import cross_ablation_summary, evaluate_run, fixed_vis_indices
+    from tmar_torch.train import ABLATIONS, Trainer, load_config, resolve_variant
+    from tmar_torch.train.trainer import build_generator, build_val_dataset
+
+    form = block_form()
+    names = args.ablations or sorted(ABLATIONS)
+    base_cfg = load_config(args.config, _parse_sets(args.set))
+    test_ds = _build_test_dataset(base_cfg)
+    vis = fixed_vis_indices(min(len(test_ds), args.max_eval_samples or len(test_ds)),
+                            k=args.vis_samples)
+    results = {}
+    for name in names:
+        cfg = resolve_variant(load_config(args.config, _parse_sets(args.set)), name)
+        cfg.variant = name
+        cfg.run_name = f"ablation_{name}"
+        run_dir = os.path.join(cfg.run_dir, cfg.run_name)
+        try:
+            history = val_history = None
+            gen = build_generator(cfg, args.device, **form)
+            if args.inference_only:
+                sd = _load_generator_params(os.path.join(run_dir, "checkpoints"), gen, cfg)
+            else:
+                trainer = Trainer(cfg, device=args.device, val_dataset=build_val_dataset(cfg),
+                                  ngram_fused=form["ngram_fused"])
+                trainer.fit(num_epochs=args.epochs)
+                run_dir = trainer.run_dir
+                sd = (trainer.state.g_ema if trainer.state.g_ema is not None
+                      else trainer.generator.state_dict())
+                history, val_history = trainer.history, trainer.val_history
+                del trainer
+            gen.load_state_dict({k: v.detach() for k, v in sd.items()})
+            summary = evaluate_run(
+                make_inference_fn(gen, device=args.device), test_ds,
+                os.path.join(run_dir, "evaluation"), vis_indices=vis,
+                max_samples=args.max_eval_samples, history=history, val_history=val_history,
+                name=name,
+            )
+            results[name] = {"status": "ok", "summary": summary, "run_dir": run_dir}
+        except Exception as e:  # a FAILED row, as the JAX sweep records it
+            results[name] = {"status": "FAILED", "error": str(e)}
+    summary_csv = cross_ablation_summary(results, base_cfg.run_dir)
+    print(json.dumps({n: r["status"] for n, r in results.items()} | {"summary_csv": summary_csv},
+                     indent=2))
+    return 0
+
+
+def compare(argv=None) -> int:
+    """The multi-model benchmark comparison over generator checkpoints,
+    out-of-process adapters and fine-tuned DuDo nets."""
+    ap = argparse.ArgumentParser(prog="python -m tmar_torch.cli compare",
+                                 description="Compare models on one seeded sample set")
+    ap.add_argument("--config", default=None)
+    ap.add_argument("--checkpoints", nargs="*", default=[],
+                    help="name=path pairs (port checkpoint dir or .pth); 'identity' allowed")
+    ap.add_argument("--adapter", nargs="*", default=[],
+                    help="name=[protocol:]<shell command> out-of-process adapters; the "
+                         "command gets <input.npz> <output.npy> appended.  Without a "
+                         "protocol prefix the raw enriched sample crosses the boundary "
+                         "(SubprocessAdapter); with x255/x255half/sparse/nmar the "
+                         "preprocessing protocol wraps the subprocess as its model core "
+                         "(make_protocol_subprocess_runner); sparse/nmar need --sinograms")
+    ap.add_argument("--dudo", nargs="*", default=[],
+                    help="name=<params.pkl> entries for the in-tree dual-domain net "
+                         "(finetune --arch dudo output); implies --sinograms")
+    ap.add_argument("--dudo-stages", type=int, default=4)
+    ap.add_argument("--dudo-channels", type=int, default=32)
+    ap.add_argument("--dudo-li", default="train", choices=["train", "sample"],
+                    help="dudo entry preprocessing: 'train' rebuilds XLI/SLI with the "
+                         "finetune engine's mean-fill construction; 'sample' trusts the "
+                         "dataset's LI images")
+    ap.add_argument("--sinograms", action="store_true",
+                    help="synthesize Sma/SLI/Tr sinograms for dual-domain adapters")
+    ap.add_argument("--composites", type=int, default=3,
+                    help="composite+profile figures for the first N samples")
+    ap.add_argument("--set", nargs="*", action="append", default=[])
+    ap.add_argument("--out", default="comparison_results")
+    ap.add_argument("--num-samples", type=int, default=25)
+    ap.add_argument("--seed", type=int, default=42)
+    ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+
+    import pickle
+    import shlex
+
+    import numpy as np
+
+    from tmar_torch.eval import make_inference_fn
+    from tmar_torch.eval.adapters import (PROTOCOL_CORE_KEYS, SubprocessAdapter,
+                                          make_dudo_runner, make_protocol_subprocess_runner)
+    from tmar_torch.eval.harness import ModelEntry, run_comparison
+    from tmar_torch.train import load_config
+    from tmar_torch.train.trainer import build_generator
+
+    cfg = load_config(args.config, _parse_sets(args.set))
+    form = block_form()
+    entries = []
+    for spec in args.checkpoints:
+        name, _, path = spec.partition("=")
+        if path == "" and name == "identity":
+            entries.append(ModelEntry("identity", lambda x: x))
+            continue
+        gen = build_generator(cfg, args.device, **form)
+        gen.load_state_dict(_load_generator_params(path, gen, cfg))
+        entries.append(ModelEntry(name, make_inference_fn(gen, device=args.device)))
+    # adapters parse in two steps: the sparse / nmar protocols need the
+    # Radon operator, which is sized from the dataset below
+    adapter_specs = []
+    for spec in args.adapter:
+        name, _, cmd = spec.partition("=")
+        if not cmd:
+            raise SystemExit(f"--adapter expects name=[protocol:]command, got {spec!r}")
+        protocol = None
+        head, sep, rest = cmd.partition(":")
+        if sep and head in (*PROTOCOL_CORE_KEYS, "raw"):
+            protocol, cmd = (None if head == "raw" else head), rest
+        adapter_specs.append((name, protocol, cmd))
+
+    ds = _build_test_dataset(cfg)
+    radon = None
+    if args.sinograms or args.dudo or any(p in ("sparse", "nmar") for _, p, _ in adapter_specs):
+        from tmar_torch.ops.radon import Radon
+
+        radon = Radon(ds[0]["ct"].shape[0],
+                      np.linspace(0, np.pi, cfg.radon.num_angles, endpoint=False),
+                      device=args.device)
+    for name, protocol, cmd in adapter_specs:
+        runner = (SubprocessAdapter(shlex.split(cmd)) if protocol is None
+                  else make_protocol_subprocess_runner(protocol, shlex.split(cmd), radon=radon))
+        entries.append(ModelEntry(name, runner=runner))
+    for spec in args.dudo:
+        from tmar_torch.nn.dudo import DuDoMARNet
+
+        name, _, path = spec.partition("=")
+        if not path:
+            raise SystemExit(f"--dudo expects name=params.pkl, got {spec!r}")
+        with open(path, "rb") as f:
+            dudo_params = pickle.load(f)
+        net = DuDoMARNet(projector=radon, stages=args.dudo_stages, channels=args.dudo_channels)
+        entries.append(ModelEntry(name, runner=make_dudo_runner(
+            net, dudo_params, radon=radon, li_mode=args.dudo_li)))
+    if not entries:
+        raise SystemExit("no entries: pass --checkpoints / --adapter / --dudo")
+    results = run_comparison(entries, ds, args.out, num_samples=args.num_samples,
+                             seed=args.seed, radon=radon, composite_samples=args.composites)
+    print(json.dumps({k: v.get("status") for k, v in results.items()}))
+    return 0
+
+
 def _load_generator_params(path: str, gen, cfg):
     """The generator ``state_dict`` to serve: a ``.pth`` file's, or from a
     port checkpoint directory the ``best`` checkpoint when there is one (else
@@ -300,7 +477,8 @@ def _build_test_dataset(cfg):
     return SyntheticMARDataset(size=size, length=32)
 
 
-_COMMANDS = {"train": train, "test": test, "finetune": finetune}
+_COMMANDS = {"train": train, "test": test, "finetune": finetune, "ablate": ablate,
+             "compare": compare}
 
 
 def main(argv=None) -> int:

@@ -21,6 +21,14 @@ Two forms of one function, both forward-only:
 Each runs its plain version for a CPU tensor and launches its kernel for a
 CUDA tensor, or raises.  Both return the block output in ROLLED space; the
 caller unpartitions (token mode) and applies the reverse cyclic shift.
+
+On the card the kernel picks its body by geometry: the full-width NGswin's
+(``FLAGSHIP_GEOMETRY`` and ``KERNEL_HEADS``) runs its own bodies, the
+tensor-core one at bfloat16 and the templated float32 one at float32; every
+other geometry inside ``envelope.nstb_envelope`` runs the generic body
+(``csrc/nstb_generic.cuh``).  A geometry past the envelope raises
+``NotImplementedError`` naming the limit; a build or launch failure raises,
+and nothing gives way to the plain version.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 
 from tmar_torch.device import refuse_grad
+from tmar_torch.ops import envelope
 from tmar_torch.ops.attention import (
     LOGIT_SCALE_MAX,
     add_shift_mask,
@@ -48,9 +57,11 @@ from tmar_torch.ops.window import (
     window_unpartition,
 )
 
-# (num_heads, head_dim) pairs the kernel is compiled for: the full-width
-# NGswin's 6-head (A = 60) and 4-head (A = 64) blocks at D = 64
+# (num_heads, head_dim) pairs of the full-width NGswin's own bodies, its
+# 6-head (A = 60) and 4-head (A = 64) blocks, at (window, D, H) =
+# FLAGSHIP_GEOMETRY; every other geometry runs the generic body
 KERNEL_HEADS = {(6, 10), (4, 16)}
+FLAGSHIP_GEOMETRY = (8, 64, 128)
 
 
 def quadrant_selector(window_size: int, shift_size: int) -> np.ndarray:
@@ -274,27 +285,31 @@ def _flat(weights):
     return [t for w in weights for t in (w if isinstance(w, tuple) else (w,))]
 
 
-def _check_geometry(name, D, wqkv, ffn1, num_heads, window_size, Q, shift, dtype):
+def _geometry(name, n_windows, D, wqkv, ffn1, num_heads, window_size, Q, shift, dtype, device):
+    """Check the block's geometry and pick its body: -> the entry point's
+    (D, H, window, Q, shift, heads, head_dim, is_bf16, blocks).  The
+    full-width NGswin's geometry runs its own bodies (``blocks`` unread);
+    every other one inside ``envelope.nstb_envelope`` the generic body on
+    persistent blocks for ``n_windows`` windows; past it NotImplementedError
+    names the limit."""
+    from tmar_torch import kernels
+
     A = wqkv.shape[1] // 3
     H = ffn1[0].shape[1]
-    if (
-        (window_size, D, H) != (8, 64, 128)
-        or A % num_heads
-        or (num_heads, A // num_heads) not in KERNEL_HEADS
-    ):
-        kernel = {"nstb_map": "K2 (csrc/nstb_map.cu)", "nstb_tokens": "K8 (csrc/nstb_tokens.cu)"}
-        raise NotImplementedError(
-            f"{name}: the whole-block kernel {kernel[name]} is ported for the full-width "
-            f"NGswin's geometry only (window 8, D=64, H=128, (heads, head_dim) in "
-            f"{sorted(KERNEL_HEADS)}); got window {window_size}, D={D}, H={H}, "
-            f"heads={num_heads}, A={A}.  At other widths the training-form kernels K1, "
-            "K3-K7 run: serve in the unfused form (nstb_fused=False)"
-        )
-    if not 0 <= shift < 8 or Q not in (1, 4):
-        raise ValueError(f"{name}: bad Q={Q} or shift={shift}")
+    if A % num_heads:
+        raise ValueError(f"{name}: attention width {A} is not a multiple of {num_heads} heads")
+    hd = A // num_heads
+    if not 0 <= shift < window_size or Q not in (1, 4):
+        raise ValueError(f"{name}: bad Q={Q} or shift={shift} at window {window_size}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"{name}: unsupported dtype {dtype}")
-    return A
+    N = window_size * window_size
+    blocks = 0
+    if (window_size, D, H) != FLAGSHIP_GEOMETRY or (num_heads, hd) not in KERNEL_HEADS:
+        nbytes = envelope.nstb_envelope(N, D, num_heads, hd, H, device)
+        tiles = -(-n_windows // (envelope.ROWS // N))
+        blocks = envelope.blocks_for(tiles, nbytes, kernels.sm_count(device))
+    return (D, H, window_size, Q, shift, num_heads, hd, int(dtype == torch.bfloat16), blocks)
 
 
 def _weight_operands(wqkv, bqkv, logit_scale, table, wproj, bproj, ln1, ffn1, ffn2, ln2,
@@ -334,18 +349,19 @@ def _kernel_operands(
     the entry point's integer arguments)."""
     B, ph, pw, D = xmap.shape
     Q = ctx_quads.shape[1]
-    A = _check_geometry("nstb_map", D, wqkv, ffn1, num_heads, window_size, Q, shift, xmap.dtype)
-    wh, ww = ph // 8, pw // 8
-    if ph % 8 or pw % 8 or not (B and wh and ww):
-        raise ValueError(f"fused_nstb_map: bad geometry {tuple(xmap.shape)}")
+    ws = window_size
+    wh, ww = ph // ws, pw // ws
+    if ph % ws or pw % ws or not (B and wh and ww):
+        raise ValueError(f"fused_nstb_map: bad geometry {tuple(xmap.shape)} at window {ws}")
+    geo = _geometry("nstb_map", B * wh * ww, D, wqkv, ffn1, num_heads, ws, Q, shift,
+                    xmap.dtype, xmap.device)
     if tuple(ctx_quads.shape) != (B * wh * ww, Q, D):
         raise ValueError(f"ctx_quads shape {tuple(ctx_quads.shape)} != {(B * wh * ww, Q, D)}")
     dev, cd = xmap.device, xmap.dtype
     operands = [xmap.contiguous(), ctx_quads.to(cd).contiguous()] + _weight_operands(
         wqkv, bqkv, logit_scale, table, wproj, bproj, ln1, ffn1, ffn2, ln2, num_heads, dev, cd
     )
-    ints = (B, ph, pw, Q, shift, num_heads, A // num_heads, int(cd == torch.bfloat16))
-    return operands, torch.empty_like(operands[0]), ints
+    return operands, torch.empty_like(operands[0]), (B, ph, pw, *geo)
 
 
 def _token_operands(
@@ -356,9 +372,10 @@ def _token_operands(
     ``_kernel_operands`` does for K2."""
     B_, N, D = x.shape
     Q = ctx_quads.shape[1]
-    A = _check_geometry("nstb_tokens", D, wqkv, ffn1, num_heads, window_size, Q, shift, x.dtype)
-    if N != 64 or B_ < 1:
-        raise ValueError(f"fused_nstb: bad window shape {tuple(x.shape)}")
+    if N != window_size * window_size or B_ < 1:
+        raise ValueError(f"fused_nstb: bad window shape {tuple(x.shape)} at window {window_size}")
+    geo = _geometry("nstb_tokens", B_, D, wqkv, ffn1, num_heads, window_size, Q, shift,
+                    x.dtype, x.device)
     if tuple(ctx_quads.shape) != (B_, Q, D):
         raise ValueError(f"ctx_quads shape {tuple(ctx_quads.shape)} != {(B_, Q, D)}")
     wh, ww = (0, 0) if grid is None else (int(grid[0]), int(grid[1]))
@@ -368,14 +385,13 @@ def _token_operands(
     operands = [x.contiguous(), ctx_quads.to(cd).contiguous()] + _weight_operands(
         wqkv, bqkv, logit_scale, table, wproj, bproj, ln1, ffn1, ffn2, ln2, num_heads, dev, cd
     )
-    ints = (B_, wh, ww, Q, shift, num_heads, A // num_heads, int(cd == torch.bfloat16))
-    return operands, torch.empty_like(operands[0]), ints
+    return operands, torch.empty_like(operands[0]), (B_, wh, ww, *geo)
 
 
 fused_nstb_map.launches = 0
 fused_nstb.launches = 0
 
-_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def _launch(operands, out, ints, eps):

@@ -1,9 +1,9 @@
-"""The widths the training-form kernels take (K1, K3-K7), as plain functions
-of the shapes.
+"""The widths the kernels take (K1-K8), as plain functions of the shapes.
 
-Each of those kernels has a runtime-dimension body (``csrc/*.cu``, "the
-generic body") that takes D, hidden, C, the head count, head_dim and the
-window length at run time and sizes its dynamic shared memory at launch.
+Each kernel has a runtime-dimension body (``csrc/*.cu``, "the generic
+body") beside the full-width NGswin's bodies, which takes D, hidden, C, the
+head count, head_dim and the window length at run time and sizes its
+dynamic shared memory at launch.
 What bounds it is the card's opt-in shared memory per block
 (``cudaDevAttrMaxSharedMemoryPerBlockOptin``, 232,448 bytes on an H100) and
 the per-thread head registers (head_dim <= 32).  The functions below count
@@ -46,9 +46,9 @@ def smem_limit(device: Optional[torch.device] = None) -> int:
 
 def _refuse(kernel: str, what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{kernel}: {what}.  The generic body takes any width whose tile fits the card's "
-        "shared memory and head_dim <= 32; the whole-block kernels K2 and K8 take only the "
-        "full-width NGswin's geometry (ROADMAP queue 2)")
+        f"{kernel}: {what}.  The generic bodies take any width whose tile fits the card's "
+        "shared memory, head_dim <= 32 and windows of at most 64 tokens; past that only "
+        "the plain version computes it, on the CPU (ROADMAP queue 2)")
 
 
 def _head_dim(kernel: str, hd: int) -> None:
@@ -181,11 +181,41 @@ def ngram_envelope(C: int, D: int, nh: int, hd: int, device: Optional[torch.devi
     return fwd, p1, p2
 
 
+# ---- K2 / K8: the whole NSTB -----------------------------------------------
+
+def nstb_bytes(N: int, D: int, nh: int, hd: int, H: int) -> int:
+    """K2's and K8's generic body: a tile of the whole windows that fit in
+    64 rows, in three float32 regions, rows padded to an odd length: x then
+    y at width D; x_attn, the head outputs and fc2's output at max(D, A);
+    qkv, the projection and the hidden layer at max(3A, H, D)."""
+    A = nh * hd
+    rows = (ROWS // N) * N
+    return 4 * rows * ((D + 1) + (max(D, A) + 1) + (max(3 * A, H, D) + 1))
+
+
+def nstb_envelope(N: int, D: int, nh: int, hd: int, H: int,
+                  device: Optional[torch.device] = None) -> int:
+    """-> K2's / K8's generic body's bytes for windows of N tokens at width
+    D, nh heads of hd, FFN hidden H, or NotImplementedError naming the limit
+    (a window past 64 tokens, head_dim past 32, the tile past the card's
+    shared memory).  The FFN tail is not cut into chunks: past the card's
+    bytes the refusal names them, as K5's does."""
+    kernel = "whole NSTB (K2/K8)"
+    if not 1 <= N <= ROWS:
+        raise _refuse(kernel, f"a window of N={N} tokens is past the bound N <= {ROWS}")
+    _head_dim(kernel, hd)
+    if D < 1 or nh < 1 or H < 1:
+        raise ValueError(f"{kernel}: D={D}, heads={nh}, hidden={H}")
+    return _fits(kernel, nstb_bytes(N, D, nh, hd, H), smem_limit(device),
+                 f"the block at N={N}, D={D}, heads={nh}x{hd}, hidden={H}")
+
+
 # ---- the CUDA sources' own counts ----------------------------------------------
 
 # query -> (kernel library, C function, its int arguments): the arguments of
 # ffn_fwd_bytes, ffn_bwd_bytes, attention_fwd_bytes, attention_bwd_bytes,
-# ngram_fwd_bytes, and ngram_bwd_bytes with the pass (1 or 2) last
+# ngram_fwd_bytes, ngram_bwd_bytes with the pass (1 or 2) last, and
+# nstb_bytes for each of K2 and K8
 SMEM_QUERIES = {
     "ffn_fwd": ("residual_ffn_fwd", "tmar_residual_ffn_fwd_smem", 2),
     "ffn_bwd": ("residual_ffn_bwd", "tmar_residual_ffn_bwd_smem", 3),
@@ -193,6 +223,8 @@ SMEM_QUERIES = {
     "attention_bwd": ("window_attention_bwd", "tmar_window_attention_bwd_smem", 4),
     "ngram_fwd": ("ngram_context", "tmar_ngram_context_smem", 3),
     "ngram_bwd": ("ngram_context_bwd", "tmar_ngram_context_bwd_smem", 5),
+    "nstb_map": ("nstb_map", "tmar_nstb_map_smem", 5),
+    "nstb_tokens": ("nstb_tokens", "tmar_nstb_tokens_smem", 5),
 }
 
 

@@ -78,6 +78,19 @@ def dudo_freeze_prefixes(freeze_stages: int, freeze_prior: bool = True):
     return tuple(prefixes)
 
 
+def create_finetune_state(generator: torch.Generator, model: nn.Module, lr: float = 1e-4,
+                          freeze_prefixes=()) -> FinetuneState:
+    """Draw ``model``'s parameters from ``generator`` (the JAX module's
+    initialisers) and build its Adam state at ``lr`` over the parameters
+    that ``freeze_prefixes`` leaves trainable (``freeze_by_path``); the
+    counterpart of the JAX package's ``create_finetune_state`` (there the
+    optimizer is an optax transformation and the state holds the tree)."""
+    model.draw_parameters(generator)
+    opt = torch.optim.Adam(freeze_by_path(model.named_parameters(), freeze_prefixes), lr,
+                           betas=(0.9, 0.999), eps=1e-8)
+    return FinetuneState(0, model, opt)
+
+
 def make_finetune_step(model: nn.Module, optimizer: torch.optim.Optimizer, weights: FinetuneWeights,
                        projector=None, mesh=None, device="cuda"):
     """``step(state, batch) -> (state, metrics)``: ``batch`` carries ``Xma``,
@@ -159,11 +172,8 @@ def finetune(
     dev = resolve_device(device)
     weights = weights or FinetuneWeights()
     model.to(dev)
-    model.draw_parameters(torch.Generator().manual_seed(seed))
-    opt = torch.optim.Adam(freeze_by_path(model.named_parameters(), freeze_prefixes), lr,
-                           betas=(0.9, 0.999), eps=1e-8)
-    state = FinetuneState(0, model, opt)
-    step = make_finetune_step(model, opt, weights, projector=projector, device=dev)
+    state = create_finetune_state(torch.Generator().manual_seed(seed), model, lr, freeze_prefixes)
+    step = make_finetune_step(model, state.opt, weights, projector=projector, device=dev)
     keys = ("Xma", "Xgt", "mask") + (("XLI",) if _is_dual_domain(model) else ())
     loader = Loader(dataset, batch_size=batch_size, num_workers=num_workers, seed=seed,
                     device=dev, keys=keys)

@@ -204,7 +204,7 @@ class Trainer:
                 "K3-K7) have backward kernels and take any width inside "
                 "tmar_torch.ops.envelope: set model.use_pallas_attention=true and "
                 "model.attn_backward=pallas.  The other forms' whole-block kernels K2/K8 "
-                "are forward-only and ported at the full-width geometry only"
+                "are forward-only"
             )
         self.discriminator = build_discriminator(cfg, self.device)
 
