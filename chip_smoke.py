@@ -152,7 +152,24 @@ Phases, each of which fails the run if it fails:
    width from the checkpoints a short ``Trainer.fit`` writes here: every row
    ``ok``, the flagship's PSNR above the input's, K2's launches counted (20
    per flagship forward, 8 per demo forward); without matplotlib one
-   ``[skip] figures`` line.
+   ``[skip] figures`` line;
+22. parallelism on the one card: every mode as two gloo ranks on ``cuda:0``
+   (NCCL takes one rank per device; the choice is fixed here and printed on
+   the ``[parallel]`` lines), spawned together.  For dp, fsdp and tp
+   (``model_parallel=2``, the plain form) one float32 ``full`` step of the
+   promoted recipe at full width, each rank taking its rows of a 2-row
+   batch (tp: both), against one process taking both rows from the same
+   seeded state: loss terms, both networks' gradients and the parameters
+   after the update; dp and fsdp also take three bf16 steps of 4 rows a
+   rank (metrics finite and equal on both ranks, ``g_rec`` falling, 20
+   launches per step of each of K1, K7 and K3-K6 on every rank, 0 under tp),
+   timed beside one process's 8-row step; a checkpoint written under fsdp
+   resumes in one process bit for bit; the flagship's tiled eval on 4
+   synthetic 416² slices, the tiles split over the ranks, against one
+   process at f32 and bf16 (20 launches of K1 and K2 per forward on every
+   rank); two fine-tune steps of RedCNN on the mesh against one process.
+   The ``kernels`` line gains ``launches_parallel_path`` ({path: [rank 0,
+   rank 1]}).
 
 It prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card, exits non-zero
@@ -3338,6 +3355,356 @@ def eval_phase(card, dudo_pickle):
     return total
 
 
+# ---- phase 22: parallelism on the card ----------------------------------------
+# NCCL takes one rank per device, and the card is one.  gloo takes CUDA
+# tensors in every collective the modes use (all-reduce for dp and tp,
+# broadcast, all-gather and reduce-scatter for fsdp, all-gather for the tiled
+# eval; each checked on an H100 with two ranks on one card), so every
+# mode runs two ranks on the one card over gloo.  The choice is fixed here and
+# printed, not taken at run time.
+PARALLEL_WORLD, PARALLEL_BACKEND = 2, "gloo"
+PARALLEL_SLICES, PARALLEL_BF16_STEPS = 4, 3
+
+
+def _parallel_cfg(run_dir, mode, batch, bf16, run_name):
+    """The promoted recipe at full width, batch ``batch`` (global), in
+    ``mode``; tp in the plain form (the JAX package refuses tp on Pallas)."""
+    sets = {"data.batch_size": batch, "bf16": bf16, "run_name": run_name, "num_epochs": 1}
+    if mode == "fsdp":
+        sets["parallel.mode"] = "fsdp"
+    if mode == "tp":
+        sets.update({"parallel.mode": "tp", "parallel.model_parallel": 2,
+                     "model.use_pallas_attention": False})
+    return _trainer_config(run_dir, **sets)
+
+
+def _whole_step(g, d, m):
+    """The metrics, and both networks' parameters and gradients whole, on the
+    CPU (a collective on sharded networks)."""
+    from tmar_torch.core.mesh import full_tensor
+
+    out = {"metrics": {k: float(v) for k, v in m.items()}}
+    for name, net in (("g", g), ("d", d)):
+        out[name] = {k: full_tensor(net, k, p.detach()).cpu() for k, p in net.named_parameters()}
+        out[f"{name}_grad"] = {k: full_tensor(net, k, p.grad).cpu() for k, p in net.named_parameters()}
+    return out
+
+
+def _tiled_slices(n):
+    from tmar_torch.data import SyntheticMARDataset
+
+    ds = SyntheticMARDataset(size=416, length=n)
+    return np.stack([ds[i]["ct"] for i in range(n)])[..., None].astype(np.float32)
+
+
+class _FinetunePairs:
+    """Fine-tune pairs at 64² whose sample i depends on i alone."""
+
+    def __len__(self):
+        return 2 * FINETUNE_BATCH
+
+    def __getitem__(self, i):
+        from tmar_torch.data import SyntheticMARDataset
+
+        s = SyntheticMARDataset(size=FINETUNE_PATCH, length=len(self), base_seed=22)[i]
+        to01 = lambda a: np.clip((a + 1) / 2, 0, 1).astype(np.float32)  # noqa: E731
+        return {"Xma": to01(s["ct"]), "Xgt": to01(s["gt"]),
+                "mask": (s["ct"] - s["gt"] > 0.2).astype(np.float32)}
+
+
+def parallel_rank(rank, world, out):
+    """What each rank of phase 22 runs (in a process of its own, on the one
+    card): for dp, fsdp and tp one float32 step of the promoted recipe at full
+    width from the seeded state; for dp and fsdp three bf16 steps of 4 rows a
+    rank, timed, fsdp then writing a checkpoint; the flagship's sharded tiled
+    eval at f32 and bf16; two fine-tune steps of RedCNN.  Each counted by the
+    wrappers' launch counters, reset just before and read just after.
+    Writes ``<out>/rank<r>.pt``."""
+    import warnings
+
+    import torch
+
+    from tmar_torch import NGswin, load_pth
+    from tmar_torch.core.mesh import create_mesh, full_tensor, shard_batch
+    from tmar_torch.nn.baselines import RedCNN
+    from tmar_torch.parallel import sharded_tiled_eval
+    from tmar_torch.train import Trainer
+    from tmar_torch.train.finetune import FinetuneWeights, finetune
+
+    warnings.filterwarnings("ignore", message="FSDP2-wrapped module")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = "cuda"
+    counters = _train_counters()
+    res = {}
+    for mode in ("dp", "fsdp", "tp"):
+        tr = Trainer(_parallel_cfg(out, mode, 2, False, f"{mode}_f32"), device=dev)
+        batch = shard_batch(tr.mesh, _synthetic_batch(2, dev))
+        _zero(counters)
+        _, m = tr.train_step(tr.state, batch)
+        torch.cuda.synchronize()
+        res[mode] = {"f32": _whole_step(tr.generator, tr.discriminator, m),
+                     "f32_launches": _read(counters), "rows": int(batch["ct"].shape[0]),
+                     "mesh": tuple(tr.mesh.shape), "form": tr.generator.attn_backward}
+        del tr
+        torch.cuda.empty_cache()
+        if mode == "tp":
+            continue
+        tr = Trainer(_parallel_cfg(out, mode, TRAIN_BATCH, True, f"{mode}_bf16"), device=dev)
+        batch = shard_batch(tr.mesh, _synthetic_batch(TRAIN_BATCH, dev))
+        history, times = [], []
+        _zero(counters)
+        for _ in range(PARALLEL_BF16_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.state, m = tr.train_step(tr.state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            history.append({k: float(v) for k, v in m.items()})
+        res[mode]["bf16"] = {"history": history, "times": times, "launches": _read(counters),
+                             "rows": int(batch["ct"].shape[0])}
+        if mode == "fsdp":
+            tr.ckpt.save(tr.state, step=tr.state.step, meta={"epoch": 1})
+            g = tr.generator
+            res[mode]["saved"] = {k: full_tensor(g, k, p.detach()).cpu() for k, p in g.named_parameters()}
+            qkv = dict(g.named_parameters())["encoder_layer1.blocks.0.attn.qkv.weight"]
+            res[mode]["qkv_rows"] = (qkv.to_local().shape[0], qkv.shape[0])
+        del tr
+        torch.cuda.empty_cache()
+
+    mesh = create_mesh(world, device=dev)
+    ct = _tiled_slices(PARALLEL_SLICES)
+    sd = load_pth(CKPT)
+    res["tiled_eval"] = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        model = NGswin(dtype=dtype, device=dev)
+        model.load_state_dict(sd)
+        sharded_tiled_eval(model, mesh, ct)  # warm-up: the timed call is the second
+        _zero(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = sharded_tiled_eval(model, mesh, ct)
+        torch.cuda.synchronize()
+        res["tiled_eval"][str(dtype).split(".")[-1]] = {
+            "out": got, "ms": (time.perf_counter() - t0) * 1e3, "launches": _read(counters)}
+        del model
+    torch.cuda.empty_cache()
+
+    _zero(counters)
+    torch.manual_seed(22)
+    ft = finetune(RedCNN(device=dev), _FinetunePairs(), batch_size=FINETUNE_BATCH,
+                  weights=FinetuneWeights(sino=0.0), mesh=mesh, seed=22, device=dev)
+    res["finetune"] = {"history": ft["history"], "launches": _read(counters),
+                       "params": {k: p.detach().cpu() for k, p in ft["state"].model.named_parameters()}}
+    torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+
+
+def _hold_step(ref, got, label, check, lrs):
+    """A step of the ranks against one process's: the loss terms, both
+    networks' gradients (the train-step bounds of PERF.md §2), and the
+    parameters after the update, within 2.1·lr (Adam's first update is
+    lr·g / (|g| + eps), so a gradient inside its bound moves a component by
+    at most the two steps of opposite sign) and 0.01·lr on average."""
+    worst = max(abs(got["metrics"][k] - v) / max(1.0, abs(v)) for k, v in ref["metrics"].items())
+    check(set(ref["metrics"]) == set(got["metrics"]) and worst <= 1e-4,
+          f"{label}: {len(ref['metrics'])} loss terms worst |diff| / max(1, |ref|) {worst:.3e} tol 1e-4")
+    for net in ("g", "d"):
+        grads, ref_grads = got[f"{net}_grad"], ref[f"{net}_grad"]
+        floor = 1e-3 * max(float(t.abs().max()) for t in ref_grads.values())
+        rel, where = max((float((grads[k] - r).abs().max()) / max(float(r.abs().max()), floor), k)
+                         for k, r in ref_grads.items())
+        check(rel <= STEP_TOL, f"{label}: gradients of the {'generator' if net == 'g' else 'discriminator'} "
+              f"worst max|diff| / max(max|ref|, 1e-3 of the network's) {rel:.3e} at {where} "
+              f"tol {STEP_TOL:g}")
+        diffs = [(got[net][k] - r).abs() for k, r in ref[net].items()]
+        top = max(float(d.max()) for d in diffs)
+        mean = sum(float(d.sum()) for d in diffs) / sum(d.numel() for d in diffs)
+        net_lr = lrs[net]
+        check(top <= 2.1 * net_lr and mean <= 0.01 * net_lr,
+              f"{label}: {'generator' if net == 'g' else 'discriminator'} parameters after the update "
+              f"max|diff| {top:.3e} (tol 2.1 lr = {2.1 * net_lr:.1e}), mean {mean:.3e} "
+              f"(tol 0.01 lr = {0.01 * net_lr:.1e})")
+
+
+def parallel_phase(card):
+    """Phase 22: the parallel layouts on the one card (two gloo ranks each),
+    against one process.  Returns {kernel: {path: [launches of rank 0,
+    rank 1]}}."""
+    import tempfile
+    import warnings
+
+    import torch
+
+    from tmar_torch import NGswin, load_pth, make_tiled_eval
+    from tmar_torch.nn.baselines import RedCNN
+    from tmar_torch.ops.radon import Radon
+    from tmar_torch.parallel import spawn_ranks
+    from tmar_torch.train import Trainer
+    from tmar_torch.train.finetune import FinetuneWeights, finetune
+    from tmar_torch.train.steps import GANTrainState, draw_parameters, make_train_step, new_ema
+    from tmar_torch.train.trainer import build_discriminator, build_generator, build_optimizers
+
+    warnings.filterwarnings("ignore", message="FSDP2-wrapped module")
+    failures = []
+
+    def check(cond, what):
+        print(f"[check] parallel {what}: {'ok' if cond else 'FAIL'}")
+        if not cond:
+            failures.append(what)
+
+    t_phase = time.perf_counter()
+    dev = "cuda"
+    print(f"[parallel] dp, fsdp, tp, tiled eval, finetune: world size {PARALLEL_WORLD}, "
+          f"{PARALLEL_BACKEND}, every rank on cuda:0 (fixed in chip_smoke.py: NCCL takes one rank "
+          "per device)")
+    with tempfile.TemporaryDirectory(prefix="tmar_smoke_par_") as out:
+        t0 = time.perf_counter()
+        spawn_ranks(parallel_rank, PARALLEL_WORLD, out, threads=None, cuda_device=0)
+        print(f"[parallel] two ranks ran every mode in {time.perf_counter() - t0:.1f} s "
+              "(process start, kernel loading and every Trainer's build included)")
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False) for r in range(2)]
+
+        # one process, from the same seeded state, on the same rows
+        batch2 = _synthetic_batch(2, dev)
+        ref_tr = Trainer(_parallel_cfg(out, "dp", 2, False, "ref_f32"), device=dev)
+        _, m = ref_tr.train_step(ref_tr.state, batch2)
+        ref = _whole_step(ref_tr.generator, ref_tr.discriminator, m)
+        lrs = {"g": ref_tr.cfg.optim.lr_g, "d": ref_tr.cfg.optim.lr_d}
+        del ref_tr
+        cfg = _parallel_cfg(out, "tp", 2, False, "ref_plain")
+        g, d = build_generator(cfg, dev, form="plain"), build_discriminator(cfg, dev)
+        draw_parameters(torch.Generator().manual_seed(cfg.seed), g, d)
+        g_opt, d_opt = build_optimizers(cfg, g, d)
+        proj = Radon(cfg.data.patch_size, np.linspace(0, np.pi, cfg.radon.num_angles, endpoint=False),
+                     precision=cfg.radon.precision, device=dev)
+        step = make_train_step(g, d, g_opt, d_opt, cfg.loss, projector=proj,
+                               fused_pairs=cfg.disc.fused_pairs, ema_decay=cfg.optim.ema_decay,
+                               device=dev)
+        _, m = step(GANTrainState(0, g, g_opt, d, d_opt, new_ema(g)), batch2)
+        ref_plain = _whole_step(g, d, m)
+        del g, d, g_opt, d_opt, step
+        torch.cuda.empty_cache()
+
+        launches = {}
+        for mode in ("dp", "fsdp", "tp"):
+            r0 = ranks[0][mode]
+            print(f"[parallel] {mode}: mesh (data, model) {r0['mesh']}, generator form "
+                  f"{r0['form']}, f32 step on {r0['rows']} row(s) a rank; launches a rank: "
+                  + "; ".join(f"rank {i} " + ", ".join(f"{k} {v}" for k, v in r[mode]["f32_launches"].items())
+                              for i, r in enumerate(ranks)))
+            for i, r in enumerate(ranks):
+                _hold_step(ref_plain if mode == "tp" else ref, r[mode]["f32"],
+                           f"{mode} f32 step, rank {i} of 2 vs one process taking both rows", check, lrs)
+            want = 0 if mode == "tp" else 20
+            check(all(v == (0 if k == "nstb_map" else want) for r in ranks
+                      for k, v in r[mode]["f32_launches"].items()),
+                  f"{mode} f32 step: {want} launches each of K1, K7 and K3-K6 on every rank"
+                  + (" (the plain form runs no kernel, as the JAX package runs none under tp)"
+                     if mode == "tp" else ""))
+            for name in ranks[0][mode]["f32_launches"]:
+                launches.setdefault(name, {})[f"{mode}_f32"] = [r[mode]["f32_launches"][name] for r in ranks]
+            if mode == "tp":
+                continue
+            hist = [r[mode]["bf16"]["history"] for r in ranks]
+            check(all(np.isfinite(v) for h in hist for row in h for v in row.values()),
+                  f"{mode} bf16: every metric finite at each of the {PARALLEL_BF16_STEPS} steps")
+            check(hist[0] == hist[1], f"{mode} bf16: both ranks return the same (global) metrics")
+            check(hist[0][-1]["g_rec"] < hist[0][0]["g_rec"],
+                  f"{mode} bf16: g_rec falls: {hist[0][0]['g_rec']:.5f} -> {hist[0][-1]['g_rec']:.5f}")
+            n = PARALLEL_BF16_STEPS
+            check(all(v == (0 if k == "nstb_map" else 20 * n) for r in ranks
+                      for k, v in r[mode]["bf16"]["launches"].items()),
+                  f"{mode} bf16: 20 launches per step each of K1, K7 and K3-K6 on every rank "
+                  f"({n} steps: {ranks[0][mode]['bf16']['launches']})")
+            for name in ranks[0][mode]["bf16"]["launches"]:
+                launches[name][f"{mode}_bf16"] = [r[mode]["bf16"]["launches"][name] for r in ranks]
+            times = ranks[0][mode]["bf16"]["times"]
+            print(f"[time] parallel {mode} bf16 step, 2 ranks x {ranks[0][mode]['bf16']['rows']} rows on one "
+                  f"card: steps of {' '.join(f'{t * 1e3:.1f}' for t in times)} ms (the first warms up), "
+                  f"{1 / statistics.median(times[1:]):.3f} steps/s on {card}")
+
+        # the one-process 8-row bf16 step beside them
+        tr = Trainer(_parallel_cfg(out, "dp", TRAIN_BATCH, True, "ref_bf16"), device=dev)
+        batch8 = _synthetic_batch(TRAIN_BATCH, dev)
+        times = []
+        for _ in range(PARALLEL_BF16_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tr.state, _ = tr.train_step(tr.state, batch8)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        print(f"[time] parallel one process {TRAIN_BATCH} rows bf16 step: steps of "
+              f"{' '.join(f'{t * 1e3:.1f}' for t in times)} ms, {1 / statistics.median(times[1:]):.3f} "
+              f"steps/s on {card}")
+        del tr
+        torch.cuda.empty_cache()
+
+        # the fsdp checkpoint resumes in one process, bit for bit
+        rows = [r["fsdp"]["qkv_rows"] for r in ranks]
+        check(all(2 * held == whole for held, whole in rows),
+              f"fsdp: each rank holds half of a qkv's rows (held, whole: {rows})")
+        one = Trainer(_parallel_cfg(out, "dp", TRAIN_BATCH, True, "fsdp_bf16"), device=dev)
+        ok = one.resume()
+        saved = ranks[0]["fsdp"]["saved"]
+        check(ok and one.state.step == PARALLEL_BF16_STEPS and all(
+            torch.equal(p.detach().cpu(), saved[k]) for k, p in one.generator.named_parameters()),
+            "a checkpoint written under fsdp resumes in one process with bit-equal parameters")
+        del one
+
+        # the sharded tiled eval against one process
+        ct = _tiled_slices(PARALLEL_SLICES)
+        sd = load_pth(CKPT)
+        tile_count = PARALLEL_SLICES * 144
+        for dn, dtype in (("float32", torch.float32), ("bfloat16", torch.bfloat16)):
+            model = NGswin(dtype=dtype, device=dev)
+            model.load_state_dict(sd)
+            tiled = make_tiled_eval(model, device=dev)
+            tiled(ct)  # warm-up, as on the ranks
+            t0 = time.perf_counter()
+            want = tiled(ct)
+            ms = (time.perf_counter() - t0) * 1e3
+            del model
+            got = [r["tiled_eval"][dn] for r in ranks]
+            err = max(float(np.abs(g["out"] - want).max()) for g in got)
+            # both sides run the same per-tile work (1.2e-7 apart at either
+            # dtype): a misplaced or padded tile shows far above this
+            check(err <= 1e-5 and np.isfinite(got[0]["out"]).all(),
+                  f"sharded tiled eval {dn}, {PARALLEL_SLICES} slices of 416² ({tile_count} tiles of "
+                  f"64², {tile_count // 2} a rank) vs one process: max|err| {err:.3e} (tol 1e-5)")
+            check(all(g["launches"]["ngram_context"] == 20 and g["launches"]["nstb_map"] == 20
+                      for g in got), f"sharded tiled eval {dn}: 20 launches each of K1 and K2 on every "
+                  f"rank ({[g['launches'] for g in got]})")
+            for name in got[0]["launches"]:
+                launches.setdefault(name, {})[f"tiled_eval_{dn}"] = [g["launches"][name] for g in got]
+            rank_ms = " / ".join(f"{g['ms']:.1f}" for g in got)
+            print(f"[time] parallel tiled eval {dn}, {PARALLEL_SLICES}x416²: 2 ranks {rank_ms} ms a "
+                  f"call (both on one card, the second call), one process {ms:.1f} ms, "
+                  f"{ms / PARALLEL_SLICES:.1f} ms a slice on {card}")
+        torch.cuda.empty_cache()
+
+        # fine-tuning on the mesh against one process
+        torch.manual_seed(22)
+        ft = finetune(RedCNN(device=dev), _FinetunePairs(), batch_size=FINETUNE_BATCH,
+                      weights=FinetuneWeights(sino=0.0), seed=22, device=dev)
+        for i, r in enumerate(ranks):
+            got = r["finetune"]
+            worst = max(abs(got["history"][0][k] - v) / max(1.0, abs(v))
+                        for k, v in ft["history"][0].items() if k != "epoch")
+            top = max(float((got["params"][k] - p.detach().cpu()).abs().max())
+                      for k, p in ft["state"].model.named_parameters())
+            check(worst <= 1e-4 and top <= 2.1 * 1e-4,
+                  f"finetune RedCNN on the mesh, rank {i}, 2 steps vs one process: mean losses worst "
+                  f"|diff| / max(1, |ref|) {worst:.3e} tol 1e-4; parameters max|diff| {top:.3e} tol "
+                  "2.1 lr = 2.1e-04")
+            check(not any(r["finetune"]["launches"].values()),
+                  f"finetune on the mesh, rank {i}: no hand-written kernel launched")
+    print(f"[time] phase 22 (parallelism: dp, fsdp, tp, tiled eval, finetune) in "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}")
+    if failures:
+        raise SystemExit(f"parallel checks failed: {failures}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3414,6 +3781,7 @@ def main() -> int:
     print(f"[time] phase 20 (other widths, the demo width) in {time.perf_counter() - t0:.1f} s on "
           f"{card}")
     eval_launches = eval_phase(card, dudo_pickle)
+    parallel_launches = parallel_phase(card)
     for name, rec in records.items():
         # launches: the count of the first path above that ran the kernel
         # (serving, composition training, the trainer's full step)
@@ -3423,6 +3791,7 @@ def main() -> int:
         rec["launches_v1_step_path"] = v1_launches.get(name, 0)
         rec["launches_demo_step_path"] = demo_launches.get(name, 0)
         rec["launches_eval_path"] = eval_launches.get(name, 0)
+        rec["launches_parallel_path"] = parallel_launches.get(name, {})
         rec["widths"] = width_rows.get(name, [])
         rec["card"] = card
     print(json.dumps({"kernels": list(records.values())}))

@@ -267,15 +267,34 @@ def test_two_finetune_steps_match_jax(pairs_root, arch):
         assert torch.equal(p.detach(), before[k]) == (k in held), k
 
 
-def test_finetune_refuses_a_mesh_and_runs_one_epoch(pairs_root):
+def test_finetune_runs_one_epoch(pairs_root):
     ds = BenchmarkFinetuneDataset(*pairs_root, patch_size=SIZE)
-    with pytest.raises(NotImplementedError, match="tmar/core/mesh.py"):
-        finetune(RedCNN(8, device="cpu"), ds, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="tmar/core/mesh.py"):
-        make_finetune_step(RedCNN(8, device="cpu"), None, FinetuneWeights(), mesh=object(), device="cpu")
     out = finetune(RedCNN(8, device="cpu"), ds, batch_size=2, weights=FinetuneWeights(sino=0.0),
                    device="cpu")
     assert out["state"].step == 3 and set(out["history"][0]) == {"loss", "rec", "edge", "epoch"}
+
+
+def test_finetune_on_a_one_rank_mesh_is_the_meshless_run(pairs_root):
+    """A 1-rank mesh (the process group ``create_mesh`` starts when there is
+    none) runs the data-parallel path and changes nothing; two ranks are
+    held to one process in tests/test_torch_port_parallel.py."""
+    import torch.distributed as dist
+
+    from tmar_torch.core.mesh import create_mesh
+
+    ds = BenchmarkFinetuneDataset(*pairs_root, patch_size=SIZE, train=False)
+    ref = finetune(RedCNN(8, device="cpu"), ds, batch_size=2, weights=FinetuneWeights(sino=0.0),
+                   device="cpu")
+    assert not dist.is_initialized()
+    try:
+        mesh = create_mesh(device="cpu")
+        got = finetune(RedCNN(8, device="cpu"), ds, batch_size=2,
+                       weights=FinetuneWeights(sino=0.0), mesh=mesh, device="cpu")
+    finally:
+        dist.destroy_process_group()
+    assert mesh.size() == 1 and got["history"] == ref["history"]
+    for (k, p), q in zip(got["state"].model.named_parameters(), ref["state"].model.parameters()):
+        assert torch.equal(p, q), k
 
 
 def test_finetune_command_writes_a_pickle_the_jax_model_loads(tmp_path):

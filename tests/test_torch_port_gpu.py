@@ -628,3 +628,86 @@ def test_make_tiled_eval_on_the_card_matches_host_tiled_eval(cuda):
     ref = tiled_eval(make_inference_fn(model), x, 64, 32)
     assert got.shape == x.shape and np.isfinite(got).all()
     assert float(np.abs(got - ref).max()) <= 1e-4
+
+
+# ---- parallelism on the one card (two gloo ranks) ------------------------------
+def _rel_grad_err(got, ref):
+    """The worst max|diff| / max(max|ref|, 1e-3 of the network's largest) per
+    tensor: the train-step bound of chip_smoke.py (``STEP_TOL``)."""
+    floor = 1e-3 * max(float(r.abs().max()) for r in ref.values())
+    return max(float((got[k].cpu() - r.cpu()).abs().max()) / max(float(r.abs().max()), floor)
+               for k, r in ref.items())
+
+
+def test_dp_step_on_two_ranks_matches_one_process(cuda, tmp_path):
+    """Phase 22's f32 dp check: one ``full`` step of the promoted recipe at
+    full width, two gloo ranks on the one card taking a row each, against
+    one process taking both: loss terms within 1e-4·max(1, |ref|), the
+    generator's gradients within 2e-3 (the train-step bound), 20 launches
+    each of K1, K7 and K3-K6 on every rank."""
+    import test_torch_port_parallel_ranks as R
+    from tmar_torch.parallel import spawn_ranks
+    from tmar_torch.train import Trainer
+
+    out = str(tmp_path)
+    spawn_ranks(R.card_dp_step, 2, out, cuda_device=0, threads=None)
+    trainer = Trainer(R.card_config(out, "one", 2))
+    _, m = trainer.train_step(trainer.state, R.card_batch(2))
+    ref = {k: p.grad for k, p in trainer.generator.named_parameters()}
+    for r in range(2):
+        got = torch.load(tmp_path / f"dp_rank{r}.pt", weights_only=False)
+        assert got["launches"] == [20] * 6
+        for k, v in m.items():
+            assert abs(got["metrics"][k] - float(v)) <= 1e-4 * max(1.0, abs(float(v))), k
+        assert _rel_grad_err(got["grads"], ref) <= 2e-3
+
+
+def test_fsdp2_parameter_views_reach_each_training_kernel(cuda, tmp_path):
+    """Under FSDP2 the kernels read the gathered views of the parameters
+    (K3-K6; the n-gram context's K1/K7 stay replicated): two ranks of the
+    demo-width NGswin, forward and backward on their rows, against one
+    process on all rows: outputs within 1e-4, gradients within 2e-3 of the
+    network's scale, each training kernel launched once a block (8 blocks)."""
+    import test_torch_port_parallel_ranks as R
+    from tmar_torch import NGswin
+    from tmar_torch.parallel import spawn_ranks
+
+    spawn_ranks(R.card_fsdp_views, 2, str(tmp_path), cuda_device=0, threads=None)
+    torch.manual_seed(0)
+    model = NGswin(embed_dim=32, depths=(2, 2, 2), num_heads=(2, 2, 2), dec_dim=32, dec_depths=2,
+                   dec_num_heads=2, attn_backward="pallas")
+    y = model(R.card_batch(4, 64)["ct"])
+    y.square().mean().backward()
+    got = [torch.load(tmp_path / f"fsdp_rank{r}.pt", weights_only=False) for r in range(2)]
+    assert all(g["launches"] == [8] * 6 for g in got)
+    assert float((torch.cat([g["y"] for g in got]) - y.detach().cpu()).abs().max()) <= 1e-4
+    ref = {k: p.grad for k, p in model.named_parameters()}
+    assert all(_rel_grad_err(g["grads"], ref) <= 2e-3 for g in got)
+
+
+def test_kernel_wrappers_copy_misaligned_parameter_views(cuda):
+    """A parameter that starts off a 16-byte boundary (a view into a gathered
+    buffer) gives the bits of an aligned one through K1, K3 and K5."""
+    rng = np.random.default_rng(22)
+
+    def misaligned(p):
+        buf = torch.empty(p.numel() + 1, device=cuda)
+        view = buf[1:].view(p.shape).copy_(p)
+        assert view.data_ptr() % 16
+        return view
+
+    (x, _), params = attention_inputs(rng, 64, 64, 64, 6, 10)
+    x, params = x.to(cuda), [p.to(cuda) for p in params]
+    f = cuda_attention.fused_window_attention
+    with torch.no_grad():
+        assert torch.equal(f(x, *params, 6), f(x, *[misaligned(p) for p in params], 6))
+    (x, ao, _), params = ffn_inputs(rng, 1000)
+    x, ao, params = x.to(cuda), ao.to(cuda), [p.to(cuda) for p in params]
+    with torch.no_grad():
+        assert torch.equal(cuda_ffn.fused_residual_ffn(x, ao, *params),
+                           cuda_ffn.fused_residual_ffn(x, ao, *[misaligned(p) for p in params]))
+    u, params = ngram_inputs(rng, 6, 2, 8, 8)
+    u, params = u.to(cuda), [p.to(cuda) for p in params]
+    with torch.no_grad():
+        assert torch.equal(cuda_ngram.fused_ngram_context(u, *params, 6),
+                           cuda_ngram.fused_ngram_context(u, *[misaligned(p) for p in params], 6))

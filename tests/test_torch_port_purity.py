@@ -78,6 +78,26 @@ EVAL_SLICE = (
 )
 
 
+# the modules of the parallelism slice, as above
+PARALLEL_SLICE = ("core/mesh.py", "parallel.py", "core/__init__.py")
+
+
+def test_a_spawned_rank_imports_no_jax_or_tmar():
+    """What a rank of tests/test_torch_port_parallel.py imports (its rank
+    module, the mesh and the parallel helpers) loads no JAX and no tmar
+    module: the ranks are fresh interpreters that import only these."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {str(PKG.parent / 'tests')!r})\n"
+        "import test_torch_port_parallel_ranks, tmar_torch.parallel, tmar_torch.core.mesh\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
+        "print(bad); sys.exit(1 if bad else 0)\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=120, cwd=str(PKG.parent))
+    assert res.returncode == 0, res.stdout + res.stderr
+
+
 def test_trainer_slice_modules_are_in_the_package_and_scanned():
     scanned = {p.relative_to(PKG).as_posix() for p in PKG.rglob("*.py")}
     assert set(TRAINER_SLICE) <= scanned
@@ -85,7 +105,8 @@ def test_trainer_slice_modules_are_in_the_package_and_scanned():
     assert set(DATA_SLICE) <= scanned
     assert set(FINETUNE_SLICE) <= scanned
     assert set(EVAL_SLICE) <= scanned
-    for sub in ("data", "utils", "train", "checkpoint", "eval", "ops"):
+    assert set(PARALLEL_SLICE) <= scanned
+    for sub in ("data", "utils", "train", "checkpoint", "eval", "ops", "core"):
         assert (PKG / sub / "__init__.py").is_file(), sub
 
 
@@ -163,7 +184,7 @@ def test_sources_import_no_jax_or_tmar():
             assert not any(_forbidden(n) for n in names), f"{path}: imports {names}"
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_ab.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "chip_ab.py", "chip_multicard.py"])
 def test_chip_scripts_import_no_jax_or_tmar(script):
     """The scripts that drive the port on a card import no JAX and no tmar
     module, at the top or inside a function."""

@@ -358,8 +358,8 @@ def test_trainer_defaults_to_the_card_and_refuses_what_is_not_ported(monkeypatch
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(cfg)
-    with pytest.raises(NotImplementedError, match="tmar/parallel.py"):
-        Trainer(_tiny_cfg(tmp_path, **{"parallel.mode": "fsdp"}), device="cpu")
+    with pytest.raises(ValueError, match="use_pallas_attention=false"):
+        Trainer(_tiny_cfg(tmp_path, **{"parallel.mode": "tp"}), device="cpu")
     with pytest.raises(ValueError, match="unknown parallel.mode"):
         Trainer(_tiny_cfg(tmp_path, **{"parallel.mode": "pp"}), device="cpu")
     # the baselines and the DCGAN critic build (tests/test_torch_port_baselines.py

@@ -4,6 +4,8 @@
         --set data.dataset=synthetic model.use_pallas_attention=true [--tiled]
     python -m tmar_torch.cli train --config tmar_torch/configs/train_syndeeplesion.yaml \\
         --set data.dataset=synthetic
+    python -m torch.distributed.run --nproc-per-node N -m tmar_torch.cli train \\
+        --set parallel.mode=fsdp n_devices=N
     python -m tmar_torch.cli finetune --arch dudo --artifact-dir <npy dir> \\
         --clean-dir <npy dir> --epochs 1
     python -m tmar_torch.cli compare --checkpoints flagship=reports/compare_r4/flagship.pth \\
@@ -15,7 +17,9 @@ Each takes the JAX CLI's arguments plus ``--device`` (default ``cuda``; ``cpu``
 runs the plain versions).  ``test`` serves the generator of the config from a
 ``.pth`` file or a port checkpoint directory, full-slice or with the 64/32
 tiled eval on the device, and writes ``metrics.json`` in the JAX CLI's schema.
-``finetune`` fine-tunes a baseline or DuDo and writes
+``train`` under ``torch.distributed.run`` runs one process per card (NCCL on
+``cuda:LOCAL_RANK``; gloo with ``--device cpu``) with ``parallel.mode`` dp,
+fsdp or tp.  ``finetune`` fine-tunes a baseline or DuDo and writes
 ``<out>/{arch}_finetuned.pkl`` in the flax layout, which the JAX package's
 model loads, and ``history.json``.  ``compare`` runs the comparison harness
 (``tmar_torch.eval.harness``) over generator checkpoints, out-of-process
@@ -93,6 +97,9 @@ def train(argv=None) -> int:
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     args = ap.parse_args(argv)
 
+    import torch.distributed as dist
+
+    from tmar_torch.core.mesh import init_from_env, is_main_process
     from tmar_torch.train import Trainer, load_config, resolve_variant
     from tmar_torch.train.trainer import build_val_dataset
 
@@ -100,15 +107,23 @@ def train(argv=None) -> int:
     if args.variant:
         cfg = resolve_variant(cfg, args.variant)
         cfg.variant = args.variant
-    trainer = Trainer(
-        cfg, device=args.device, val_dataset=None if args.no_val else build_val_dataset(cfg),
-        ngram_fused=block_form()["ngram_fused"],
-    )
-    if args.resume:
-        ok = trainer.resume()
-        print(f"[resume] {'restored from epoch ' + str(trainer.start_epoch) if ok else 'no checkpoint found, fresh start'}")
-    trainer.fit(num_epochs=args.epochs)
-    print(json.dumps({"run_dir": trainer.run_dir, "best_psnr": trainer.best_psnr}))
+    # under torch.distributed.run: one process per device, this rank's card
+    device = init_from_env(args.device)
+    try:
+        trainer = Trainer(
+            cfg, device=device, val_dataset=None if args.no_val else build_val_dataset(cfg),
+            ngram_fused=block_form()["ngram_fused"],
+        )
+        if args.resume:
+            ok = trainer.resume()
+            if is_main_process():
+                print(f"[resume] {'restored from epoch ' + str(trainer.start_epoch) if ok else 'no checkpoint found, fresh start'}")
+        trainer.fit(num_epochs=args.epochs)
+        if is_main_process():
+            print(json.dumps({"run_dir": trainer.run_dir, "best_psnr": trainer.best_psnr}))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
     return 0
 
 

@@ -5,7 +5,10 @@ Worker threads run the numpy per-sample pipeline and assemble NHWC batches in
 order.  With a ``device``, each batch is handed over as tensors on it: for a
 CUDA device through pinned host memory and ``non_blocking`` copies, so the
 copy overlaps the train step that is still running (the place of the JAX
-package's ``shard_batch``).  Without one the batch stays numpy.
+package's ``shard_batch``).  Without one the batch stays numpy.  With a
+``mesh`` (``tmar_torch.core.mesh``) each rank takes its rows of every global
+batch, split over the data axis, in the order and with the cycling of one
+device, and loads only those samples.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ from typing import Dict, Iterator, Optional
 
 import numpy as np
 import torch
+
+from tmar_torch.core.mesh import shard_rows
 
 
 class Loader:
@@ -31,6 +36,7 @@ class Loader:
         pad_last: bool = False,
         device=None,
         keys=("ct", "gt"),
+        mesh=None,
     ):
         """``pad_last`` (with ``drop_last=False``): cycle a short final
         batch back to ``batch_size``, so that every batch has one shape, and
@@ -47,6 +53,7 @@ class Loader:
         self.pad_last = pad_last
         self.device = None if device is None else torch.device(device)
         self.keys = keys
+        self.mesh = mesh
         self._epoch = 0
 
     def __len__(self) -> int:
@@ -69,6 +76,10 @@ class Loader:
             # padded batch-mean of any metric equals the true mean over the
             # distinct samples
             indices = np.resize(np.asarray(indices), self.batch_size)
+        valid = np.arange(len(indices)) < n_valid
+        if self.mesh is not None:
+            rows = shard_rows(self.mesh, len(indices))
+            indices, valid = indices[rows], valid[rows]
         samples = [self.dataset[int(i)] for i in indices]
         batch = {}
         for k in self.keys:
@@ -77,7 +88,7 @@ class Loader:
                 arr = arr[..., None]  # NHWC
             batch[k] = np.ascontiguousarray(arr, dtype=np.float32)
         if self.pad_last:
-            batch["valid"] = (np.arange(len(indices)) < n_valid).astype(np.float32)
+            batch["valid"] = valid.astype(np.float32)
         return batch
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:

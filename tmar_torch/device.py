@@ -32,10 +32,18 @@ def refuse_grad(name: str, tensors) -> None:
         )
 
 
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """t itself if its data starts on a 16-byte boundary (the kernels'
+    vector loads and stores), else a copy.  A parameter that FSDP gathers is
+    a view of its all-gather buffer."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def float32_data(t: torch.Tensor, contiguous: bool = False) -> torch.Tensor:
     """The float32 data of a parameter, outside the graph, as a kernel reads
-    it; a copy only when its dtype (or, if asked, its layout) demands one."""
+    it, on a 16-byte boundary; a copy only when its dtype, its alignment
+    (or, if asked, its layout) demands one."""
     t = t.detach()
     if t.dtype != torch.float32:
         t = t.to(torch.float32)
-    return t.contiguous() if contiguous and not t.is_contiguous() else t
+    return aligned(t.contiguous() if contiguous and not t.is_contiguous() else t)

@@ -6,7 +6,8 @@ counterpart of ``tmar.eval.inference``).
 * tiled: overlapping tiles (default 64 px, stride 32) through the forward,
   averaged by coverage weight: ``tiled_eval`` batches them through a numpy
   forward and assembles on the host; ``make_tiled_eval`` extracts every tile,
-  runs one batched forward and assembles on the device.
+  runs one batched forward and assembles on the device, with a ``mesh``
+  spreading the tiles over the data axis (``tmar_torch.parallel``).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Callable, List
 import numpy as np
 import torch
 
+from tmar_torch.core.mesh import DATA_AXIS, all_gather_rows, axis_rank, axis_size
 from tmar_torch.device import resolve_device
 
 
@@ -87,7 +89,7 @@ def tiled_eval(
 
 
 def make_tiled_eval(
-    model: torch.nn.Module, tile: int = 64, stride: int = 32, device="cuda"
+    model: torch.nn.Module, tile: int = 64, stride: int = 32, device="cuda", mesh=None
 ) -> Callable[[np.ndarray], np.ndarray]:
     """Device-side tiled eval (the counterpart of
     ``tmar.eval.inference.make_tiled_eval_jit``): tile extraction, ONE
@@ -95,25 +97,42 @@ def make_tiled_eval(
     ``device``, with autograd off; numpy [B, H, W, C] in, numpy out.  Moves
     the model there and sets it to eval mode.  One indexed gather and
     scatter serve every geometry, where the JAX function reshapes aligned
-    ones by phase group.  The JAX function's ``mesh``
-    (the tile batch sharded over devices) waits for the port's data-parallel
-    layer; the port runs on one device."""
+    ones by phase group.
+
+    With a ``mesh`` (``tmar_torch.core.mesh``; every rank calls ``run`` on
+    the same slices) the flat tile batch is split over the data axis: the
+    tile count is padded to a multiple of the data ranks with repeated
+    tiles, each rank runs its tiles, ``all_gather_into_tensor`` brings them
+    back (the padding dropped), and every rank assembles the same output."""
     dev = resolve_device(device)
     model = model.to(dev).eval()
 
     @torch.no_grad()
     def run(ct: np.ndarray) -> np.ndarray:
         t = torch.from_numpy(np.ascontiguousarray(ct, dtype=np.float32)).to(dev)
-        return _tiled_run(model, tile, stride, t).cpu().numpy()
+        return _tiled_run(model, tile, stride, t, mesh).cpu().numpy()
 
     return run
 
 
-def _tiled_run(model, tile: int, stride: int, ct: torch.Tensor) -> torch.Tensor:
+def sharded_forward(model, tiles: torch.Tensor, mesh) -> torch.Tensor:
+    """``model`` over a tile batch split over the data axis of ``mesh``: the
+    count padded to a multiple of the data ranks with repeated tiles, each
+    rank's share run, the results gathered and the padding dropped.  float32."""
+    dp = axis_size(mesh, DATA_AXIS)
+    n = tiles.shape[0]
+    per = -(-n // dp)
+    padded = tiles[torch.arange(per * dp, device=tiles.device) % n]
+    r = axis_rank(mesh, DATA_AXIS)
+    return all_gather_rows(mesh, model(padded[r * per:(r + 1) * per]).float())[:n]
+
+
+def _tiled_run(model, tile: int, stride: int, ct: torch.Tensor, mesh=None) -> torch.Tensor:
     """ct [B, H, W, C] on the device -> the coverage-weighted average of the
     restored tiles, float32.  One index of flat pixel positions, tile by tile,
     gathers every tile of every image; the tiles go through the model in one
-    batch, and ``index_add_`` puts each result and its coverage back."""
+    batch (split over the data axis of ``mesh``), and ``index_add_`` puts
+    each result and its coverage back."""
     B, H, W, C = ct.shape
     th, tw = min(tile, H), min(tile, W)
     dev = ct.device
@@ -123,7 +142,8 @@ def _tiled_run(model, tile: int, stride: int, ct: torch.Tensor) -> torch.Tensor:
     c = (cols[:, None] + torch.arange(tw, device=dev))[None, :, None, :]  # [1, nc, 1, tw]
     idx = (r * W + c).reshape(-1)
     n = idx.numel() // (th * tw)
-    res = model(ct.reshape(B, H * W, C)[:, idx].reshape(B * n, th, tw, C)).float()
+    tiles = ct.reshape(B, H * W, C)[:, idx].reshape(B * n, th, tw, C)
+    res = model(tiles).float() if mesh is None else sharded_forward(model, tiles, mesh)
     out = torch.zeros((B, H * W, C), device=dev).index_add_(1, idx, res.reshape(B, -1, C))
     weight = torch.zeros(H * W, device=dev).index_add_(0, idx, torch.ones(idx.numel(), device=dev))
     return (out / weight[:, None]).reshape(B, H, W, C)

@@ -24,7 +24,14 @@
   ``fused_ngram_context`` (or, with ``ngram_fused=False``, on its composition
   path), the window attention through ``fused_window_attention`` and the
   post-norm residual FFN through ``fused_residual_ffn``; all three have
-  backward kernels.  ``nstb_fused`` and ``nstb_map`` are ignored here, as the JAX package's block fusion stands aside in training.
+  backward kernels.  ``nstb_fused`` and ``nstb_map`` are ignored here, as the JAX package's block fusion stands aside in training;
+
+* ``"plain"``: the JAX package's ``use_pallas_attention=false`` path, the
+  unfused block as torch ops on every device (no kernel), the form that
+  tensor parallelism splits: after ``tensor_parallel`` the attention runs
+  the rank's heads and the FFN its share of the hidden features, and the
+  partial sums of ``proj`` and ``fc2`` are all-reduced (Megatron's g)
+  before LN1 and LN2, their biases added once.
 
 Post-norm residual order, as in the reference: ``x + norm1(attn(x))`` then
 ``x + norm2(mlp(x))``.  The block returns ``(x_in, x_out)`` so stages can
@@ -38,11 +45,15 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
+import torch.nn.functional as F
+
+from tmar_torch.core.mesh import copy_to_model, local, reduce_from_model
 from tmar_torch.nn.layers import LayerNorm, Mlp
 from tmar_torch.nn.ngram import NGramWindowPartition, check_attn_backward
 from tmar_torch.nn.window_attention import WindowAttention
 from tmar_torch.ops.cuda_ffn import fused_residual_ffn
 from tmar_torch.ops.cuda_nstb import context_quads, fused_nstb, fused_nstb_map
+from tmar_torch.ops.ffn import layer_norm
 from tmar_torch.ops.window import (
     reverse_cyclic_shift,
     shift_mask_components,
@@ -79,7 +90,9 @@ class NSTB(nn.Module):
         self.ngram_window_partition = NGramWindowPartition(
             dim, window_size, ngram, num_heads, attn_backward, ngram_fused
         )
-        self.attn = WindowAttention(dim, num_heads, (window_size, window_size), head_dim, qkv_bias)
+        self.tp = None  # the model axis, once tensor_parallel has run
+        self.attn = WindowAttention(dim, num_heads, (window_size, window_size), head_dim, qkv_bias,
+                                    plain=attn_backward == "plain")
         self.norm1 = LayerNorm(dim)
         self.ffn = Mlp(dim, int(dim * mlp_ratio), dim)
         self.norm2 = LayerNorm(dim)
@@ -135,6 +148,8 @@ class NSTB(nn.Module):
         attn = self.attn(windows.reshape(-1, ws * ws, D), mask_components=mask_components)
         attn = window_unpartition(attn.reshape(-1, ws, ws, D), (wh, ww))
         attn = reverse_cyclic_shift(attn, self.shift_size)
+        if self.attn_backward == "plain":
+            return self._ffn_plain(x.reshape(B * p, D), attn.reshape(B * p, D)).reshape(B, p, D)
         z = fused_residual_ffn(
             x.reshape(B * p, D), attn.reshape(B * p, D),
             self.norm1.weight, self.norm1.bias,
@@ -143,6 +158,31 @@ class NSTB(nn.Module):
             self.norm2.weight, self.norm2.bias, eps=self.norm1.eps,
         )
         return z.reshape(B, p, D)
+
+    def _ffn_plain(self, x: torch.Tensor, attn: torch.Tensor) -> torch.Tensor:
+        """``ffn_math`` as torch ops; under tensor parallelism on the rank's
+        hidden features, the fc2 partial sums reduced before LN2."""
+        eps, tp = self.norm1.eps, self.tp
+        y = x.float() + layer_norm(attn.float(), self.norm1.weight, self.norm1.bias, eps)
+        h = F.gelu(copy_to_model(y, tp) @ local(self.ffn.fc1.weight).t().float()
+                   + local(self.ffn.fc1.bias).float(), approximate="none")
+        o = reduce_from_model(h @ local(self.ffn.fc2.weight).t().float(), tp)
+        z = y + layer_norm(o + self.ffn.fc2.bias.float(), self.norm2.weight, self.norm2.bias, eps)
+        return z.to(x.dtype)
+
+    def tensor_parallel(self, tp):
+        """Run this block's attention heads and FFN hidden features of the
+        model axis ``tp`` (the plain form only): returns what
+        ``WindowAttention.split_heads_over`` returns, names relative to the
+        block."""
+        if self.attn_backward != "plain":
+            raise ValueError("tensor parallelism splits the plain form (attn_backward='plain')")
+        if self.ffn.fc1.weight.shape[0] % tp.size:
+            raise ValueError(f"{self.ffn.fc1.weight.shape[0]} hidden features do not split over "
+                             f"{tp.size} model ranks")
+        self.tp = tp
+        summed, orders = self.attn.split_heads_over(tp)
+        return summed, {f"attn.{k}": v for k, v in orders.items()}
 
     def kernel_args(self):
         """This block's weights as ``fused_nstb_map`` and ``fused_nstb``

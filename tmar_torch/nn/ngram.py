@@ -12,7 +12,9 @@
   than 2x2, it is the composition: both directions through ``ngram_attn``
   (the attention kernels at N = n²), the token mean and the ``merge`` conv
   under autograd.  The parameters and their names are the same in every
-  form.
+  form.  The plain form (``attn_backward="plain"``, the JAX package's
+  ``use_pallas_attention=false``) takes the composition with the plain
+  attention on every device, as the JAX package's XLA path does.
 * ``NGramWindowPartition``: ``forward`` is the map form of the JAX module's
   ``return_context="map"`` (the map itself and its per-window context, for the
   fused NSTB to add per quadrant); ``windows`` is its ``return_context=True``
@@ -33,7 +35,7 @@ from tmar_torch.ops.cuda_ngram import fused_ngram_context
 from tmar_torch.ops.ngram import ngram_windows
 from tmar_torch.ops.window import cyclic_shift, window_partition
 
-ATTN_BACKWARDS = ("auto", "pallas")
+ATTN_BACKWARDS = ("auto", "pallas", "plain")
 
 
 def check_attn_backward(attn_backward: str) -> str:
@@ -88,13 +90,15 @@ class NGramContext(nn.Module):
         # grouped conv dim -> dim/2, 2 input channels per group: the same
         # function as the JAX package's dense expansion of this kernel
         self.unigram_embed = Conv2d(dim, half, window_size, stride=window_size, groups=half)
-        self.ngram_attn = WindowAttention(half, ngram_num_heads, (ngram, ngram))
+        self.ngram_attn = WindowAttention(half, ngram_num_heads, (ngram, ngram),
+                                          plain=attn_backward == "plain")
         self.merge = Conv2d(dim, dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x [B, ph, pw, D] -> context [B, wh, ww, D] in x's dtype."""
         u = self._unigram(x)
-        if self.ngram != 2 or not self.ngram_fused or min(u.shape[1:3]) < 2:
+        if (self.ngram != 2 or not self.ngram_fused or min(u.shape[1:3]) < 2
+                or self.attn_backward == "plain"):
             return self._composition(u)
         return fused_ngram_context(u, *self.kernel_args())
 

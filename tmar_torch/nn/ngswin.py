@@ -9,7 +9,9 @@ and W are padded to multiples of 4·window_size and cropped back.
 
 ``attn_backward`` selects the form of every block as in the JAX package:
 ``"auto"`` is the inference form (two forward-only kernels per block),
-``"pallas"`` the training form (attention and FFN kernels with backwards).
+``"pallas"`` the training form (attention and FFN kernels with backwards),
+``"plain"`` the JAX package's ``use_pallas_attention=false`` path as torch
+ops on every device (the form tensor parallelism splits).
 ``ngram_fused`` (default True, as the JAX package on hardware, where its
 ``TMAR_NGRAM_FUSED`` environment variable decides) sends every block's
 n-gram context through ``fused_ngram_context``, forward and backward
@@ -143,6 +145,11 @@ class NGswin(nn.Module):
 
         img = self.to_target(dec.reshape(B, H, W, -1))
         return torch.tanh(img.float())[:, :H_ori, :W_ori, :]
+
+    def fsdp_units(self):
+        """The modules FSDP shards one by one: every block, then every stage."""
+        stages = [m for n, m in self.named_children() if n.startswith(("encoder_layer", "decoder_layer"))]
+        return [b for s in stages for b in s.blocks] + stages
 
     def flops(self, resolution: Tuple[int, int]) -> int:
         """Analytic FLOPs (multiply-adds, counted as the reference's flops())

@@ -33,6 +33,7 @@ from typing import Optional
 
 import torch
 
+from tmar_torch.device import aligned
 from tmar_torch.ops import envelope
 from tmar_torch.ops.attention import (
     LOGIT_SCALE_MAX,
@@ -343,12 +344,6 @@ class _NGramContext(torch.autograd.Function):
         return (du, *grads, None)
 
 
-def _aligned(t):
-    """t itself if its data starts on a 16-byte boundary (the bf16 bodies'
-    vector loads and stores), else a copy."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
 def _kernel_operands(u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bmerge, num_heads):
     """Check the geometry and lay out the kernels' operands on u's device:
     returns (the 9 input tensors in the C entry points' order, the output,
@@ -375,10 +370,10 @@ def _kernel_operands(u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bm
     dev = u.device
 
     def f32(t):
-        return t.detach().to(device=dev, dtype=torch.float32).contiguous()
+        return aligned(t.detach().to(device=dev, dtype=torch.float32).contiguous())
 
     operands = [
-        _aligned(u.contiguous()),
+        aligned(u.contiguous()),
         f32(wqkv),
         torch.zeros(3 * A, device=dev) if bqkv is None else f32(bqkv),
         f32(logit_scale).reshape(num_heads),  # raw: the kernels take exp(min(ls, ln 100))
@@ -428,7 +423,7 @@ def _launch_backward(operands, g, ints):
     B, wh, ww, C, D, nh, hd, is_bf16, sms = ints
     A = nh * hd
     dev = u.device
-    g = _aligned(g.to(u.dtype).contiguous())
+    g = aligned(g.to(u.dtype).contiguous())
     du = torch.empty_like(u)
     scratch = torch.empty(_workspace(ints), device=dev, dtype=torch.float32)
     dparams = torch.empty(C * 3 * A + 3 * A + 10 * nh + A * C + C + 2 * C * D + D,

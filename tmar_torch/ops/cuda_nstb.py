@@ -39,7 +39,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from tmar_torch.device import refuse_grad
+from tmar_torch.device import aligned, refuse_grad
 from tmar_torch.ops import envelope
 from tmar_torch.ops.attention import (
     LOGIT_SCALE_MAX,
@@ -321,10 +321,10 @@ def _weight_operands(wqkv, bqkv, logit_scale, table, wproj, bproj, ln1, ffn1, ff
     D = wproj.shape[1]
 
     def f32(t):
-        return t.detach().to(device=dev, dtype=torch.float32).contiguous()
+        return aligned(t.detach().to(device=dev, dtype=torch.float32).contiguous())
 
     def mat(t):
-        return t.detach().to(device=dev, dtype=cd).contiguous()
+        return aligned(t.detach().to(device=dev, dtype=cd).contiguous())
 
     return [
         mat(wqkv),

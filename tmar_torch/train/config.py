@@ -101,9 +101,12 @@ class RadonConfig:
 
 @dataclasses.dataclass
 class ParallelConfig:
-    """Device layout of the train step.  The port runs on one device: ``dp``
-    (the canonical layout) is the only mode the Trainer takes; ``tp`` and
-    ``fsdp`` are read, as the JAX package reads them, and refused there."""
+    """Device layout of the train step over one process per device
+    (``tmar_torch.core.mesh``): ``dp`` replicates both networks and averages
+    their gradients (the canonical layout), ``fsdp`` shards both with FSDP2,
+    ``tp`` Megatron-splits the generator's blocks over ``model_parallel``
+    ranks and needs the plain attention path (``use_pallas_attention:
+    false``), as in the JAX package."""
 
     mode: str = "dp"            # "dp" | "tp" | "fsdp"
     model_parallel: int = 1     # model-axis size (tp only; must divide n_devices)

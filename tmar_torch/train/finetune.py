@@ -12,8 +12,11 @@ Two loops in one step:
 Freezing by parameter path (the JAX package's optax ``multi_transform`` with
 ``set_to_zero``) leaves the frozen parameters and their Adam state unchanged
 while the gradient still flows through them: here the frozen parameters are
-left out of the optimizer, which gives the same result.  The port trains on
-one device; a ``mesh`` raises.
+left out of the optimizer, which gives the same result.  With a ``mesh``
+(``tmar_torch.core.mesh``) fine-tuning is data parallel, as in the JAX
+package: the parameters are replicated (broadcast from rank 0), each rank
+takes its rows of every batch, and the gradients of the trained parameters
+and the metrics are averaged over the data axis.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from typing import Any, Dict, Iterable, List, Optional, Tuple
 import torch
 import torch.nn as nn
 
+from tmar_torch.core.mesh import average_gradients, global_means, replicate
 from tmar_torch.device import resolve_device
 from tmar_torch.ops.gradients import image_gradients
 
@@ -50,14 +54,6 @@ class FinetuneState:
 
 def _is_dual_domain(model) -> bool:
     return bool(getattr(model, "dual_domain", False))
-
-
-def _refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the port fine-tunes on one device; the mesh of tmar/core/mesh.py and "
-            "tmar/parallel.py is not ported yet (parallelism)"
-        )
 
 
 def freeze_by_path(named_params: Iterable[Tuple[str, torch.Tensor]],
@@ -97,12 +93,13 @@ def make_finetune_step(model: nn.Module, optimizer: torch.optim.Optimizer, weigh
     ``Xgt`` and ``mask`` (and ``XLI`` for a dual-domain model) as
     [B, H, W, 1]; ``metrics`` are ``loss``, ``rec``, ``edge`` and, with the
     sinogram term, ``sino``, float32 scalars on the device.  The state is
-    updated in place and returned."""
-    _refuse_mesh(mesh)
+    updated in place and returned.  With a ``mesh`` the batch holds this
+    rank's rows, and gradients and metrics are averaged over the data axis."""
     dev = resolve_device(device)
     model.to(dev)
     dual = _is_dual_domain(model)
     proj = model.projector if dual and projector is None else projector
+    trained = [p for g in optimizer.param_groups for p in g["params"]] if mesh is not None else []
 
     def tensor(x):
         return torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -139,9 +136,11 @@ def make_finetune_step(model: nn.Module, optimizer: torch.optim.Optimizer, weigh
             terms["sino"] = l_sino
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        average_gradients(mesh, trained)
         optimizer.step()
         state.step += 1
-        return state, {"loss": total.detach(), **{k: v.detach() for k, v in terms.items()}}
+        metrics = {"loss": total.detach(), **{k: v.detach() for k, v in terms.items()}}
+        return state, metrics if mesh is None else global_means(mesh, metrics, dev)
 
     return step
 
@@ -165,18 +164,19 @@ def finetune(
     drawn anew from ``torch.Generator().manual_seed(seed)`` (the JAX
     module's initialisers), Adam at ``lr``, ``freeze_prefixes`` frozen (see
     ``freeze_by_path``; ``dudo_freeze_prefixes`` builds DuDo's set).
-    Returns {"state", "history"} with the per-epoch mean losses."""
+    Returns {"state", "history"} with the per-epoch mean losses.  With a
+    ``mesh`` ``batch_size`` is the global batch, split over the data axis."""
     from tmar_torch.data import Loader
 
-    _refuse_mesh(mesh)
     dev = resolve_device(device)
     weights = weights or FinetuneWeights()
     model.to(dev)
     state = create_finetune_state(torch.Generator().manual_seed(seed), model, lr, freeze_prefixes)
-    step = make_finetune_step(model, state.opt, weights, projector=projector, device=dev)
+    replicate(mesh, model)
+    step = make_finetune_step(model, state.opt, weights, projector=projector, mesh=mesh, device=dev)
     keys = ("Xma", "Xgt", "mask") + (("XLI",) if _is_dual_domain(model) else ())
     loader = Loader(dataset, batch_size=batch_size, num_workers=num_workers, seed=seed,
-                    device=dev, keys=keys)
+                    device=dev, keys=keys, mesh=mesh)
     history = []
     for epoch in range(num_epochs):
         # the metrics are summed on the device and read once an epoch

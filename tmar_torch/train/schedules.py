@@ -7,7 +7,9 @@ operations, clip -> Adam -> schedule: it clips the gradients by their global
 norm, sets every group's learning rate to ``schedule(count)`` times the
 group's layer-wise decay factor, and then takes the Adam step.  The first
 step uses ``schedule(0)``.  The count lives in the parameter groups, so the
-optimizer's ``state_dict`` carries it.
+optimizer's ``state_dict`` carries it.  Parameters sharded as ``DTensor``s
+(FSDP, tensor parallelism) may sit beside whole ones: the clip takes the
+global norm over both, and each group updates its two kinds apart.
 """
 
 from __future__ import annotations
@@ -17,6 +19,9 @@ import re
 from typing import Any, Callable, Dict, Iterable, Optional, Tuple
 
 import torch
+import torch.distributed as dist
+
+from tmar_torch.core.mesh import is_dtensor, local
 
 Schedule = Callable[[int], float]
 
@@ -110,6 +115,32 @@ def layerwise_lr_decay(named_params: Iterable[Tuple[str, torch.Tensor]], decay: 
     return {k: decay ** (max_id - i) for k, i in ids.items()}
 
 
+def global_norm(grads) -> torch.Tensor:
+    """The L2 norm of all of ``grads`` together, on their device.  The
+    squares of sharded ``DTensor`` gradients (each element held by one rank
+    of its mesh) are summed over their mesh by c10d's all-reduce, a
+    collective every rank calls: DTensor's own reduction goes through the
+    functional collectives, which took a rank down over gloo on the card.
+    Whole gradients sit beside them."""
+    sharded = [g for g in grads if is_dtensor(g)]
+    plain = [g for g in grads if not is_dtensor(g)]
+    if not sharded:
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(plain)))
+    mesh = sharded[0].device_mesh
+    sq = torch.stack(torch._foreach_norm([local(g) for g in sharded])).square().sum()
+    dist.all_reduce(sq, group=mesh.get_group())  # a 1-D mesh: the data or the model axis
+    if plain:
+        sq = sq + torch.stack(torch._foreach_norm(plain)).square().sum()
+    return sq.sqrt()
+
+
+def _by_kind(params):
+    """The whole parameters and the ``DTensor`` ones of a list, apart (the
+    multi-tensor updates take one kind at a time)."""
+    kinds = ([p for p in params if not is_dtensor(p)], [p for p in params if is_dtensor(p)])
+    return [k for k in kinds if k]
+
+
 class ScheduledAdam(torch.optim.Adam):
     """Adam whose ``step`` first clips the gradients by their global norm
     (optax's rule: untouched below ``grad_clip``, else scaled to it), then
@@ -120,6 +151,7 @@ class ScheduledAdam(torch.optim.Adam):
         self.base_lr = base_lr
         self.schedule = schedule
         self.grad_clip = grad_clip
+        self.grad_norm = None  # the global norm the last clip read, before clipping
         for group in self.param_groups:
             group.setdefault("lr_scale", 1.0)
             group.setdefault("count", 0)
@@ -130,14 +162,23 @@ class ScheduledAdam(torch.optim.Adam):
         if self.grad_clip:
             grads = [p.grad for g in self.param_groups for p in g["params"] if p.grad is not None]
             if grads:
-                norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+                norm = self.grad_norm = global_norm(grads)
                 # stays on the device: no read-back of the norm
-                torch._foreach_mul_(grads, torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm))
+                torch._foreach_mul_([local(g) for g in grads],
+                                    torch.where(norm < self.grad_clip, 1.0, self.grad_clip / norm))
         for group in self.param_groups:
             lr = self.base_lr if self.schedule is None else float(self.schedule(group["count"]))
             group["lr"] = lr * group["lr_scale"]
             group["count"] += 1
-        return super().step(closure)
+        groups = self.param_groups
+        split = [dict(g, params=kind) for g in groups for kind in _by_kind(g["params"])]
+        if len(split) == len(groups):
+            return super().step(closure)
+        self.param_groups = split  # for this update only; the state is keyed by parameter
+        try:
+            return super().step(closure)
+        finally:
+            self.param_groups = groups
 
 
 def build_optimizer(named_params: Iterable[Tuple[str, torch.Tensor]], base_lr: float,

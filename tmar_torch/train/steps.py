@@ -12,8 +12,16 @@ the D update never touches the generator's parameters.
 The discriminator is the multi-scale PatchGAN or the DCGAN critic (no
 spectral norm), the generator the NGswin or a baseline.  The NGswin must be
 in its training form (``attn_backward="pallas"``) to run on a card: the inference form's whole-block kernel has no backward and
-refuses.  The mesh, donation and sharding arguments of the JAX step have no
-counterpart here yet.
+refuses.
+
+With a ``mesh`` (``tmar_torch.core.mesh``) each process takes its rows of the
+global batch.  After each backward the gradients of that network are
+averaged over the data axis that FSDP does not reduce itself
+(``average_gradients``: one flat bucket per network), as the psum of the JAX
+step, and the metrics are averaged so that every rank returns the global
+mean.  The networks carry their layout (replicated, FSDP2 or tensor
+parallel) in their parameters.  The JAX step's donation has no counterpart:
+the state is updated in place.
 """
 
 from __future__ import annotations
@@ -24,6 +32,13 @@ from typing import Callable, Dict, List, Optional
 import torch
 import torch.nn as nn
 
+from tmar_torch.core.mesh import (
+    all_gather_rows,
+    average_gradients,
+    global_means,
+    local,
+    spec_dim,
+)
 from tmar_torch.device import resolve_device
 from tmar_torch.losses import LossWeights, generator_loss, hinge_d_loss, vanilla_d_loss
 from tmar_torch.nn.layers import init_weights
@@ -53,12 +68,27 @@ def create_train_state(
     d_opt: torch.optim.Optimizer,
     ema_decay: float = 0.0,
 ) -> GANTrainState:
+    """Draw the parameters of both networks anew from ``rng``
+    (``draw_parameters``) and wrap them with their optimizers.
+    ``ema_decay > 0`` also tracks an exponential moving average of the
+    generator's parameters, started as a copy."""
+    draw_parameters(rng, generator, discriminator)
+    return GANTrainState(0, generator, g_opt, discriminator, d_opt,
+                         new_ema(generator) if ema_decay else None)
+
+
+def new_ema(generator: nn.Module) -> Dict[str, torch.Tensor]:
+    """The EMA's start: a copy of the generator's parameters by name, each
+    held as its parameter is (a shard where the parameter is sharded)."""
+    return {k: p.detach().clone() for k, p in generator.named_parameters()}
+
+
+@torch.no_grad()
+def draw_parameters(rng: torch.Generator, generator: nn.Module, discriminator: nn.Module) -> None:
     """Draw the parameters of both networks anew from ``rng`` (on the
     generator's device, then copied to the networks', so a CPU generator
     gives the same state on any device; the same initialisers as at
-    construction, the discriminator's ``u``/``v`` included) and wrap them
-    with their optimizers.  ``ema_decay > 0`` also tracks an exponential
-    moving average of the generator's parameters, started as a copy."""
+    construction, the discriminator's ``u``/``v`` included)."""
     if hasattr(generator, "draw_parameters"):  # the baselines: flax's initialisers
         generator.draw_parameters(rng)
     else:
@@ -76,10 +106,6 @@ def create_train_state(
         if isinstance(module, SNConv):
             module.u.copy_(_l2_normalize(randn(module.u)))
             module.v.copy_(_l2_normalize(randn(module.v)))
-    g_ema = None
-    if ema_decay:
-        g_ema = {k: p.detach().clone() for k, p in generator.named_parameters()}
-    return GANTrainState(0, generator, g_opt, discriminator, d_opt, g_ema)
 
 
 def _split_rf(tree, B: int):
@@ -107,6 +133,8 @@ def make_train_step(
     fused_pairs: bool = False,
     ema_decay: float = 0.0,
     device="cuda",
+    mesh=None,
+    state_shardings=None,
 ) -> Callable:
     """Build ``step(state, batch) -> (state, metrics)``.  ``batch`` is a dict
     with ``ct`` (corrupted input) and ``gt`` (clean target), [B, H, W, C] in
@@ -118,13 +146,22 @@ def make_train_step(
     applications as ONE batch-concatenated pass (2 passes and 2 power
     iterations per step instead of 4).  ``projector`` is the Radon projector
     of the sinogram term; without one a non-zero ``weights.phys`` is skipped.
+
+    ``mesh``: ``batch`` holds this rank's rows (``shard_batch``), gradients
+    and metrics are averaged over the data axis.  ``state_shardings``
+    (``gan_state_shardings``) names the layout the networks were put in; the
+    step checks that every parameter it says is split is held as a shard.
     """
     dev = resolve_device(device)
+    if state_shardings is not None:
+        _check_layout(generator, state_shardings["generator"])
+        _check_layout(discriminator, state_shardings["discriminator"])
     generator.to(dev)
     discriminator.to(dev)
     has_sn = getattr(discriminator, "use_sn", True)
     g_params: List[torch.Tensor] = [p for p in generator.parameters()]
     g_names = [k for k, _ in generator.named_parameters()]
+    d_params = list(discriminator.parameters())
 
     def apply_d(x, want_features):
         if has_sn:
@@ -162,6 +199,7 @@ def make_train_step(
         d_loss = d_loss_fn(real_logits, fake_logits)
         d_opt.zero_grad(set_to_none=True)
         d_loss.backward()
+        average_gradients(mesh, d_params)
         d_opt.step()
 
         # ---------------- G step (new D) ------------------------------------
@@ -188,6 +226,7 @@ def make_train_step(
         (dfake,) = torch.autograd.grad(g_loss, fake_leaf)
         g_opt.zero_grad(set_to_none=True)
         fake.backward(dfake)
+        average_gradients(mesh, g_params, getattr(generator, "tp_summed", ()))
         g_opt.step()
 
         if ema_decay:
@@ -196,24 +235,37 @@ def make_train_step(
             t = float(state.step)
             eff_d = min(ema_decay, (1.0 + t) / (10.0 + t))
             with torch.no_grad():
-                ema = [state.g_ema[k] for k in g_names]
+                # on each rank's own part: the EMA lies as its parameter
+                ema = [local(state.g_ema[k]) for k in g_names]
                 torch._foreach_mul_(ema, eff_d)
-                torch._foreach_add_(ema, [p.detach() for p in g_params], alpha=1.0 - eff_d)
+                torch._foreach_add_(ema, [local(p.detach()) for p in g_params],
+                                    alpha=1.0 - eff_d)
 
         metrics = {"loss_d": d_loss.detach(), "loss_g": g_loss.detach()}
         for k, v in g_terms.items():
             metrics[f"g_{k}"] = v.detach() if isinstance(v, torch.Tensor) else v
+        if mesh is not None:
+            metrics = global_means(mesh, metrics, dev)
         state.step += 1
         return state, metrics
 
     return train_step
 
 
-def make_eval_step(generator: nn.Module, device="cuda") -> Callable:
+def _check_layout(module: nn.Module, specs) -> None:
+    for name, p in module.named_parameters():
+        if spec_dim(specs.get(name, ())) is not None and local(p) is p:
+            raise ValueError(f"{name}: the layout splits it, but the module holds it whole")
+
+
+def make_eval_step(generator: nn.Module, device="cuda", mesh=None) -> Callable:
     """Validation forward: ``eval_step(batch, params=None) -> (restored,
     {"mse", "psnr"})`` with the data-range-2 PSNR, 10 log10(4 / mse),
     averaged over the batch.  ``params`` ({name: tensor}, e.g. the state's
-    ``g_ema``) stands in for the generator's own parameters for that call."""
+    ``g_ema``) stands in for the generator's own parameters for that call.
+    With a ``mesh``, ``batch`` holds this rank's rows: the restored rows of
+    every data rank are gathered, and the metrics are over the global batch,
+    on every rank.  The generator must then hold whole parameters."""
     dev = resolve_device(device)
     generator.to(dev)
 
@@ -226,6 +278,8 @@ def make_eval_step(generator: nn.Module, device="cuda") -> Callable:
         else:
             fake = torch.func.functional_call(generator, params, (ct,))
         mse = (fake - gt).square().mean(dim=(1, 2, 3))
+        if mesh is not None:
+            fake, mse = all_gather_rows(mesh, fake.float()), all_gather_rows(mesh, mse.float())
         psnr = 10.0 * torch.log10(4.0 / mse.clamp(min=1e-12))
         return fake, {"mse": mse.mean(), "psnr": psnr.mean()}
 

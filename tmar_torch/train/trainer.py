@@ -5,13 +5,23 @@ best-model-by-PSNR tracking, CSV / JSON metric history, resume from a
 checkpoint, and TTUR dual-Adam optimisation, all driven by a ``TrainConfig``
 (variants and ablations are LossWeights / DiscConfig overrides).
 
-The port trains on one device.  ``Trainer(cfg)`` runs on the card and raises
-without one; ``Trainer(cfg, device="cpu")`` runs the plain versions.  It
-builds every generator (NGswin and the baselines), discriminator
-(multi-scale PatchGAN and the DCGAN critic) and dataset (synthetic,
-synthetic_cache, syndeeplesion, spineweb, each with its validation split) of
-the JAX trainer; the mesh layouts raise and name the JAX module they wait
-for.
+``Trainer(cfg)`` runs on the card and raises without one;
+``Trainer(cfg, device="cpu")`` runs the plain versions.  It builds every
+generator (NGswin and the baselines), discriminator (multi-scale PatchGAN
+and the DCGAN critic) and dataset (synthetic, synthetic_cache, syndeeplesion,
+spineweb, each with its validation split) of the JAX trainer.
+
+``parallel.mode`` lays the state over a mesh of processes, one per device
+(``tmar_torch.core.mesh``; launch with ``python -m torch.distributed.run
+--nproc-per-node N -m tmar_torch.cli train ...``): ``dp`` replicates both
+networks and averages their gradients, ``fsdp`` shards both with FSDP2 by
+``fsdp_spec``, ``tp`` Megatron-splits the generator's window attention and
+FFN over ``parallel.model_parallel`` ranks by ``tp_spec``.  Under ``tp`` the
+NGswin runs the JAX package's plain form (``use_pallas_attention: false``)
+as torch ops, on the card too, as the JAX package runs no Pallas kernel
+there.  Each rank loads its rows of every batch; validation gathers every
+rank's rows, so its numbers are those of one process; rank 0 alone writes
+logs, samples and checkpoints.
 """
 
 from __future__ import annotations
@@ -24,8 +34,19 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tmar_torch.checkpoint.io import CheckpointManager
+from tmar_torch.core.mesh import (
+    all_gather_rows,
+    apply_fsdp,
+    apply_tensor_parallel,
+    create_mesh,
+    full_tensor,
+    gan_state_shardings,
+    is_main_process,
+    replicate,
+)
 from tmar_torch.data import (
     Loader,
     ShardCachedDataset,
@@ -41,13 +62,19 @@ from tmar_torch.nn.baselines import BAFResNet, DCGANCritic, DenoisingTransformer
 from tmar_torch.ops.radon import Radon
 from tmar_torch.train.config import TrainConfig
 from tmar_torch.train.schedules import build_optimizer, build_schedule
-from tmar_torch.train.steps import create_train_state, make_eval_step, make_train_step
+from tmar_torch.train.steps import (
+    GANTrainState,
+    draw_parameters,
+    make_eval_step,
+    make_train_step,
+    new_ema,
+)
 from tmar_torch.utils.tfevents import TBWriter
 
 
 def build_generator(
     cfg: TrainConfig, device="cuda", *, ngram_fused: bool = True, nstb_fused: bool = True,
-    nstb_map: bool = True,
+    nstb_map: bool = True, form: Optional[str] = None,
 ):
     """The generator of ``cfg.model``: the NGswin, or with ``model.arch`` one
     of the baselines (``redcnn``, ``transformer``, ``bafresnet``; the
@@ -57,7 +84,9 @@ def build_generator(
     forward-only inference form, whose block form the keywords pick
     (``tmar_torch.nn.blocks``; they stand in for the JAX package's
     ``TMAR_NSTB_FUSED`` and ``TMAR_NSTB_MAP``).  ``ngram_fused`` (the JAX
-    package's ``TMAR_NGRAM_FUSED``) holds in both forms."""
+    package's ``TMAR_NGRAM_FUSED``) holds in both forms.  ``form`` overrides
+    the NGswin's form (``"plain"``: the JAX package's plain attention path
+    as torch ops, which tensor parallelism trains)."""
     m = cfg.model
     dtype = torch.bfloat16 if cfg.bf16 else torch.float32
     arch = getattr(m, "arch", "ngswin")
@@ -71,7 +100,7 @@ def build_generator(
         if arch not in archs:
             raise ValueError(f"unknown generator arch {arch!r}")
         return archs[arch]()
-    form = m.attn_backward if m.use_pallas_attention else "auto"
+    form = form or (m.attn_backward if m.use_pallas_attention else "auto")
     return NGswin(
         ngrams=tuple(m.ngrams),
         in_chans=m.in_chans,
@@ -186,27 +215,54 @@ def build_val_dataset(cfg: TrainConfig):
 
 
 class Trainer:
-    def __init__(self, cfg: TrainConfig, device="cuda", val_dataset=None, ngram_fused=True):
+    def __init__(self, cfg: TrainConfig, device="cuda", val_dataset=None, ngram_fused=True,
+                 mesh=None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        mode = getattr(getattr(cfg, "parallel", None), "mode", "dp")
+        par = cfg.parallel
+        mode = par.mode
         if mode not in ("dp", "tp", "fsdp"):
             raise ValueError(f"unknown parallel.mode {mode!r} (dp | tp | fsdp)")
-        if mode != "dp":
-            raise NotImplementedError(
-                f"parallel.mode={mode}: the port trains on one device (dp); the mesh "
-                "layouts of tmar/parallel.py and tmar/core/mesh.py are not ported yet"
+        if mode == "tp" and cfg.model.use_pallas_attention:
+            raise ValueError(
+                "parallel.mode=tp requires the plain attention path (set "
+                "model.use_pallas_attention=false): tensor parallelism Megatron-splits the "
+                "qkv/proj weights across heads, and the CUDA kernels are written against the "
+                "full head set.  FSDP composes with the kernels: parameters are sharded at "
+                "rest and gathered at use, so the kernels see whole tensors."
             )
-        self.generator = build_generator(cfg, self.device, ngram_fused=ngram_fused)
-        if self.device.type == "cuda" and getattr(self.generator, "attn_backward", "pallas") != "pallas":
+        if mode == "tp" and par.model_parallel < 2:
+            raise ValueError("parallel.mode=tp needs parallel.model_parallel >= 2")
+        self.parallel_mode = mode
+        if mesh is None and (dist.is_initialized() or mode != "dp" or (cfg.n_devices or 1) > 1):
+            mesh = create_mesh(cfg.n_devices, model_parallel=par.model_parallel if mode == "tp"
+                               else 1, device=self.device)
+        self.mesh = mesh
+        self.ngram_fused = ngram_fused
+        self.generator = build_generator(cfg, self.device, ngram_fused=ngram_fused,
+                                         form="plain" if mode == "tp" else None)
+        if (self.device.type == "cuda" and mode != "tp"
+                and getattr(self.generator, "attn_backward", "pallas") != "pallas"):
             raise ValueError(
                 "on a card the port trains only in the training form, whose kernels (K1, "
                 "K3-K7) have backward kernels and take any width inside "
                 "tmar_torch.ops.envelope: set model.use_pallas_attention=true and "
                 "model.attn_backward=pallas.  The other forms' whole-block kernels K2/K8 "
-                "are forward-only"
+                "are forward-only.  Under parallel.mode=tp the port trains the plain form "
+                "(the JAX package's plain attention path as torch ops, no kernel)"
             )
         self.discriminator = build_discriminator(cfg, self.device)
+        draw_parameters(torch.Generator().manual_seed(cfg.seed), self.generator,
+                        self.discriminator)
+        if mesh is not None:
+            replicate(mesh, self.generator)
+            replicate(mesh, self.discriminator)
+            if mode == "fsdp":
+                units = getattr(self.generator, "fsdp_units", lambda: [])()
+                apply_fsdp(self.generator, mesh, units)
+                apply_fsdp(self.discriminator, mesh)
+            elif mode == "tp":
+                apply_tensor_parallel(self.generator, mesh)
 
         o = cfg.optim
         self.g_opt, self.d_opt = build_optimizers(cfg, self.generator, self.discriminator)
@@ -221,16 +277,17 @@ class Trainer:
         self.projector = projector
 
         ema_decay = getattr(o, "ema_decay", 0.0)
-        self.state = create_train_state(
-            torch.Generator().manual_seed(cfg.seed), self.generator, self.discriminator,
-            self.g_opt, self.d_opt, ema_decay=ema_decay,
-        )
+        self.state = GANTrainState(0, self.generator, self.g_opt, self.discriminator, self.d_opt,
+                                   new_ema(self.generator) if ema_decay else None)
+        self.state_shardings = None if mode == "dp" else gan_state_shardings(
+            mesh, self.state, tensor_parallel=mode == "tp", fsdp=mode == "fsdp")
         self.train_step = make_train_step(
             self.generator, self.discriminator, self.g_opt, self.d_opt, cfg.loss,
             projector=projector, fused_pairs=cfg.disc.fused_pairs, ema_decay=ema_decay,
-            device=self.device,
+            device=self.device, mesh=mesh, state_shardings=self.state_shardings,
         )
-        self.eval_step = make_eval_step(self.generator, device=self.device)
+        self.eval_step = make_eval_step(self.generator, device=self.device, mesh=mesh)
+        self._replica = None  # the whole generator validation runs under fsdp / tp
 
         run_name = cfg.run_name or time.strftime("run_%Y%m%d_%H%M%S")
         self.run_dir = os.path.join(cfg.run_dir, run_name)
@@ -244,9 +301,12 @@ class Trainer:
         self.best_psnr = -np.inf
         self.start_epoch = 0
         self.val_dataset = val_dataset
-        self.tb = TBWriter(os.path.join(self.run_dir, "tb"))
-        with open(os.path.join(self.run_dir, "config.json"), "w") as f:
-            json.dump(cfg.to_dict(), f, indent=2, default=str)
+        self.main = is_main_process()  # the rank that writes files
+        self.tb = None
+        if self.main:
+            self.tb = TBWriter(os.path.join(self.run_dir, "tb"))
+            with open(os.path.join(self.run_dir, "config.json"), "w") as f:
+                json.dump(cfg.to_dict(), f, indent=2, default=str)
 
     # ------------------------------------------------------------------ io
     def resume(self, step: Optional[int] = None) -> bool:
@@ -269,6 +329,7 @@ class Trainer:
             num_workers=cfg.data.num_workers,
             seed=cfg.data.seed,
             device=self.device,
+            mesh=self.mesh,
         )
         for epoch in range(self.start_epoch, epochs):
             t0 = time.time()
@@ -287,10 +348,11 @@ class Trainer:
                 if (i + 1) % cfg.log_every == 0 or i == 0:
                     host = dict(zip(names, row.tolist()))
                     step_no = int(self.state.step)
-                    self.tb.scalars({f"Train/{k}": v for k, v in host.items()}, step_no)
+                    if self.main:
+                        self.tb.scalars({f"Train/{k}": v for k, v in host.items()}, step_no)
                     host.update(epoch=epoch, iter=i, step=step_no)
                     self.history.append(host)
-                    if progress:
+                    if progress and self.main:
                         msg = " ".join(f"{k}={v:.4f}" for k, v in host.items()
                                        if k.startswith("loss"))
                         print(f"[epoch {epoch+1}/{epochs} it {i+1}] {msg}", flush=True)
@@ -301,7 +363,8 @@ class Trainer:
 
             if (epoch + 1) % cfg.val_every_n_epochs == 0 and self.val_dataset is not None:
                 val = self.validate()
-                self.tb.scalars({f"Val/{k}": v for k, v in val.items()}, int(self.state.step))
+                if self.main:
+                    self.tb.scalars({f"Val/{k}": v for k, v in val.items()}, int(self.state.step))
                 epoch_summary.update({f"val_{k}": v for k, v in val.items()})
                 if val["psnr"] > self.best_psnr:
                     self.best_psnr = val["psnr"]
@@ -333,7 +396,8 @@ class Trainer:
         The device computes MSE / PSNR; with ``full_metrics`` the host adds
         SSIM / MAE / RMSE and the regional metal / band / non-metal and
         HU-domain families.  The result is the mean over batches of each
-        batch's mean."""
+        batch's mean.  Under a mesh each rank evaluates its rows and every
+        rank gathers the whole batch, so the numbers are one process's."""
         # pad_last: a val split smaller than one batch must still validate;
         # cyclic padding keeps every batch at one shape
         loader = Loader(
@@ -344,20 +408,21 @@ class Trainer:
             device=self.device,
             drop_last=False,
             pad_last=True,
+            mesh=self.mesh,
         )
         psnrs, mses = [], []
         extra: Dict[str, list] = {}
         # validate with the EMA weights when tracked; the generator's own
         # otherwise
-        g_eval = self.state.g_ema
+        eval_step, g_eval = self._validation_model()
         for i, batch in enumerate(loader):
             if i >= max_batches:
                 break
-            batch = dict(batch)
+            fake, m = eval_step(batch, params=g_eval)
+            batch = {k: all_gather_rows(self.mesh, v) for k, v in batch.items()}
             vm = batch.pop("valid", None)
             B = batch["ct"].shape[0]
             n_valid = int(vm.sum()) if vm is not None else B
-            fake, m = self.eval_step(batch, params=g_eval)
             fk4 = fake.float().cpu().numpy()
             gt4 = batch["gt"].cpu().numpy()
             if B % max(n_valid, 1) == 0:
@@ -390,11 +455,30 @@ class Trainer:
                     row.update(M.hu_tolerance_rates(p01, g01))
                     for k, v in row.items():
                         extra.setdefault(k, []).append(float(v))
-            if i == 0 and save_samples:
+            if i == 0 and save_samples and self.main:
                 self._save_sample_grid(batch, fk4)
         out = {"psnr": float(np.mean(psnrs)), "mse": float(np.mean(mses))}
         out.update({k: float(np.mean(v)) for k, v in extra.items()})
         return out
+
+    def _validation_model(self):
+        """(eval step, stand-in parameters) of validation.  Under dp the
+        generator itself with the EMA standing in; under fsdp and tp a whole
+        replica of the generator in its form, loaded with the gathered EMA
+        (or parameters)."""
+        if self.parallel_mode == "dp":
+            return self.eval_step, self.state.g_ema
+        src = self.state.g_ema or {k: p.detach() for k, p in self.generator.named_parameters()}
+        whole = {k: full_tensor(self.generator, k, v) for k, v in src.items()}
+        if self._replica is None:
+            self._replica = build_generator(self.cfg, self.device, ngram_fused=self.ngram_fused,
+                                            form=self.generator.attn_backward
+                                            if hasattr(self.generator, "attn_backward") else None)
+            self._replica_step = make_eval_step(self._replica, device=self.device, mesh=self.mesh)
+        with torch.no_grad():
+            for k, p in self._replica.named_parameters():
+                p.copy_(whole[k])
+        return self._replica_step, None
 
     def _save_sample_grid(self, batch, fake: np.ndarray, max_rows: int = 4):
         """Input / restored / target triplet grid."""
@@ -428,6 +512,8 @@ class Trainer:
     def _write_logs(self):
         import csv
 
+        if not self.main:
+            return
         self.tb.flush()
         logs = os.path.join(self.run_dir, "logs")
         for name, rows in (("training_history.csv", self.history),
