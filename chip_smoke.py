@@ -169,7 +169,18 @@ Phases, each of which fails the run if it fails:
    process at f32 and bf16 (20 launches of K1 and K2 per forward on every
    rank); two fine-tune steps of RedCNN on the mesh against one process.
    The ``kernels`` line gains ``launches_parallel_path`` ({path: [rank 0,
-   rank 1]}).
+   rank 1]});
+23. the export path: ``python -m tmar_torch.cli export`` on the flagship
+   (the map form at 8x512² bf16 and 1x128² f32, the token and unfused forms
+   at 1x128² f32), each artifact loaded in a fresh process that builds no
+   model and called on the input of the eager forward of its form: f32
+   within 1e-4, bf16 within the serving bounds (max 0.1, mean 1e-2), the
+   error printed; 20 launches per call of each kernel of the form and none
+   of the others, counted there; ``export --torch`` read back by
+   ``load_pth`` bit for bit; ``device_profile`` of the eager request (K1
+   and K2 60 times over 3 forwards); the artifact's and the eager forward's
+   median ms, printed only.  The ``kernels`` line gains
+   ``launches_export_path`` ({artifact: launches per call}).
 
 It prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card, exits non-zero
@@ -315,6 +326,7 @@ def bound_ms(flops, nbytes, dtype_name):
 def err_and_tol(got, ref, dtype):
     import torch
 
+    got, ref = got.detach(), ref.detach()
     err = float((got.float() - ref.float()).abs().max())
     scale = float(ref.float().abs().max())
     tol = F32_TOL * max(1.0, scale) if dtype == torch.float32 else BF16_TOL * scale
@@ -3705,6 +3717,209 @@ def parallel_phase(card):
     return launches
 
 
+# ---- phase 23: the export path ------------------------------------------------
+# the flagship's artifacts, each made by ``python -m tmar_torch.cli export``
+# in process: (label, block form, environment of the form, float32, batch, size)
+EXPORT_CASES = (
+    ("map bf16 8x512²", "map", {}, False, 8, 512),
+    ("map f32 1x128²", "map", {}, True, 1, 128),
+    ("tokens f32 1x128²", "tokens", {"TMAR_NSTB_MAP": "0"}, True, 1, 128),
+    ("unfused f32 1x128²", "unfused", {"TMAR_NSTB_FUSED": "0"}, True, 1, 128),
+)
+# a fresh process loads each artifact (building no model: NGswin refuses to
+# be built there), calls it once with the launch counts set to 0 just before
+# and read just after, keeps its output and times 5 more calls
+REPLAY = r"""import json, statistics, sys, time
+import numpy as np
+import torch
+import tmar_torch.nn.ngswin as ngswin
+
+torch.backends.cuda.matmul.allow_tf32 = False  # as in the process of the eager side
+torch.backends.cudnn.allow_tf32 = False
+
+
+def refuse(*args, **kwargs):
+    raise RuntimeError("the replay built a model")
+
+
+ngswin.NGswin.__init__ = refuse
+from tmar_torch.export import load_artifact
+from tmar_torch.ops import cuda_attention, cuda_ffn, cuda_ngram, cuda_nstb
+
+counters = {"ngram_context": (cuda_ngram.fused_ngram_context, "launches"),
+            "nstb_map": (cuda_nstb.fused_nstb_map, "launches"),
+            "nstb_tokens": (cuda_nstb.fused_nstb, "launches"),
+            "window_attention_fwd": (cuda_attention.fused_window_attention, "launches"),
+            "residual_ffn_fwd": (cuda_ffn.fused_residual_ffn, "launches"),
+            "ngram_context_bwd": (cuda_ngram.fused_ngram_context, "backward_launches"),
+            "window_attention_bwd": (cuda_attention.fused_window_attention, "backward_launches"),
+            "residual_ffn_bwd": (cuda_ffn.fused_residual_ffn, "backward_launches")}
+results = {}
+for label, artifact, inp, out in json.load(open(sys.argv[1])):
+    t0 = time.perf_counter()
+    fn = load_artifact(artifact)
+    load_s = time.perf_counter() - t0
+    x = torch.from_numpy(np.load(inp)).cuda()
+    fn(x)
+    torch.cuda.synchronize()
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+    y = fn(x)
+    torch.cuda.synchronize()
+    launches = {k: getattr(f, attr) for k, (f, attr) in counters.items()}
+    np.save(out, y.float().cpu().numpy())
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        fn(x)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    results[label] = {"launches": launches, "load_s": load_s, "ms": statistics.median(times) * 1e3,
+                      "dtype": str(y.dtype), "device": str(y.device)}
+json.dump(results, open(sys.argv[2], "w"))
+"""
+# 20 launches per call of each kernel of the form, none of the others
+EXPORT_KERNELS = {
+    "map": ("ngram_context", "nstb_map"),
+    "tokens": ("ngram_context", "nstb_tokens"),
+    "unfused": ("ngram_context", "window_attention_fwd", "residual_ffn_fwd"),
+}
+
+
+@contextlib.contextmanager
+def _block_form_env(env):
+    """The JAX package's block-form variables set to ``env`` (the others
+    unset) for the duration, as ``tmar_torch.cli`` reads them."""
+    names = ("TMAR_NSTB_FUSED", "TMAR_NSTB_MAP", "TMAR_NGRAM_FUSED", "TMAR_ATTN_IMPL")
+    saved = {k: os.environ.pop(k, None) for k in names}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k in names:
+            os.environ.pop(k, None)
+            if saved[k] is not None:
+                os.environ[k] = saved[k]
+
+
+def export_phase(card):
+    """Phase 23: ``python -m tmar_torch.cli export`` on the flagship, each
+    artifact replayed in a fresh process against the eager forward of its
+    form on the same input; ``export --torch``; the eager request's device
+    profile.  Returns {kernel: {artifact: launches per call}}."""
+    import tempfile
+
+    import torch
+
+    from tmar_torch import NGswin, cli, load_pth
+    from tmar_torch.utils.profiling import device_profile
+
+    failures = []
+
+    def check(cond, what):
+        print(f"[check] export {what}: {'ok' if cond else 'FAIL'}")
+        if not cond:
+            failures.append(what)
+
+    t_phase = time.perf_counter()
+    sd = load_pth(CKPT)
+    rng = np.random.default_rng(23)
+    x512 = rng.uniform(-1, 1, (8, 512, 512, 1)).astype(np.float32)
+    inputs = {512: x512, 128: np.ascontiguousarray(x512[:1, :128, :128])}
+    eager, cases = {}, []
+    with tempfile.TemporaryDirectory(prefix="tmar_export_") as tmp:
+        for label, form, env, f32, batch, size in EXPORT_CASES:
+            path = os.path.join(tmp, f"{form}_{'f32' if f32 else 'bf16'}_{size}b{batch}.pt2")
+            sets = ["--set", "bf16=false"] if f32 else []
+            t0 = time.perf_counter()
+            with _block_form_env(env):
+                rc = cli.main(["export", "--checkpoint", CKPT, "--batch", str(batch),
+                               "--size", str(size), "--out", path, *sets])
+            print(f"[export] {label}: cli export exit {rc} in {time.perf_counter() - t0:.1f} s, "
+                  f"{os.path.getsize(path) / 1e6:.1f} MB")
+            check(rc == 0, f"{label} exported")
+            inp = os.path.join(tmp, f"x{size}.npy")
+            np.save(inp, inputs[size])
+            cases.append((label, path, inp, os.path.join(tmp, f"{form}_{size}_{f32}.npy")))
+            # the eager forward of the same form on the same input
+            kwargs = {"map": {}, "tokens": {"nstb_map": False}, "unfused": {"nstb_fused": False}}[form]
+            model = NGswin(dtype=torch.float32 if f32 else torch.bfloat16, **kwargs).eval()
+            model.load_state_dict(sd)
+            x = torch.from_numpy(inputs[size]).cuda()
+            with torch.no_grad():
+                eager[label] = model(x).float().cpu().numpy()
+                if label == "map bf16 8x512²":
+                    times = []
+                    for _ in range(6):
+                        t0 = time.perf_counter()
+                        model(x)
+                        torch.cuda.synchronize()
+                        times.append(time.perf_counter() - t0)
+                    eager_ms = statistics.median(times[1:]) * 1e3
+                    # every row: the checks below must not hang on a kernel's rank
+                    rows = device_profile(model, x, iters=3, top=1 << 30)
+            del model
+        # the eager request's profile: K1 and K2 20 times a forward
+        print(f"[profile] eager map bf16 8x512² request, device_profile (3 iterations) on {card}: "
+              f"{len(rows)} rows, the top 12 and the kernels'")
+        for i, r in enumerate(rows):
+            if i < 12 or "ngram_context" in r["op"] or "nstb" in r["op"]:
+                print(f"[profile]   {r['ms']:9.3f} ms/iter x{r['count']:<4d} {r['op'][:100]}")
+        for part in ("ngram_context", "nstb"):
+            counts = [r["count"] for r in rows if part in r["op"]]
+            check(counts == [60], f"device_profile shows {part} x60 over 3 eager forwards")
+        # export --torch reads back through load_pth bit for bit
+        pth = os.path.join(tmp, "flagship_exported.pth")
+        with _block_form_env({}):
+            rc = cli.main(["export", "--checkpoint", CKPT, "--torch", "--out", pth])
+        back = load_pth(pth)
+        check(rc == 0 and set(back) == set(sd)
+              and all(back[k].dtype == torch.float32 and torch.equal(back[k], sd[k].float())
+                      for k in sd), "export --torch read back by load_pth bit for bit")
+        # the replay, in a fresh process
+        spec, result = os.path.join(tmp, "cases.json"), os.path.join(tmp, "replay.json")
+        with open(spec, "w") as f:
+            json.dump(cases, f)
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-c", REPLAY, spec, result], cwd=ROOT,
+                             capture_output=True, text=True, timeout=600)
+        print(f"[export] replay process: exit {res.returncode} in {time.perf_counter() - t0:.1f} s")
+        if res.returncode != 0:
+            print(res.stdout[-3000:] + res.stderr[-3000:])
+            raise SystemExit("export checks failed: the replay process failed")
+        with open(result) as f:
+            replay = json.load(f)
+        launches = {}
+        for (label, form, _, f32, batch, size), (_, _, _, out) in zip(EXPORT_CASES, cases):
+            rep = replay[label]
+            got = np.load(out)
+            diff = np.abs(got - eager[label])
+            err, mean = float(diff.max()), float(diff.mean())
+            if f32:
+                print(f"[check] export {label} artifact vs eager {form}: max_abs_err {err:.3e} "
+                      f"(tol 1e-4)")
+                check(err <= 1e-4, f"{label} artifact vs eager")
+            else:
+                print(f"[check] export {label} artifact vs eager {form}: max_abs_err {err:.3e} "
+                      f"(tol 0.1), mean {mean:.3e} (tol 1e-2)")
+                check(err <= 0.1 and mean <= 1e-2, f"{label} artifact vs eager")
+            check(got.shape == inputs[size].shape and rep["dtype"] == "torch.float32"
+                  and rep["device"].startswith("cuda"), f"{label} output float32 on the card")
+            want = {k: 20 if k in EXPORT_KERNELS[form] else 0 for k in rep["launches"]}
+            print(f"[export] {label}: launches per artifact call {rep['launches']}; load "
+                  f"{rep['load_s']:.1f} s; median call {rep['ms']:.2f} ms on {card}")
+            check(rep["launches"] == want, f"{label} launches 20 of each of {EXPORT_KERNELS[form]}")
+            for k, n in rep["launches"].items():
+                launches.setdefault(k, {})[label] = n
+        print(f"[time] map bf16 8x512² forward, tensor in and out: artifact median "
+              f"{replay['map bf16 8x512²']['ms']:.2f} ms, eager {eager_ms:.2f} ms on {card} "
+              "(printed only)")
+    print(f"[time] phase 23 (export) in {time.perf_counter() - t_phase:.1f} s on {card}")
+    if failures:
+        raise SystemExit(f"export checks failed: {failures}")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3782,6 +3997,7 @@ def main() -> int:
           f"{card}")
     eval_launches = eval_phase(card, dudo_pickle)
     parallel_launches = parallel_phase(card)
+    export_launches = export_phase(card)
     for name, rec in records.items():
         # launches: the count of the first path above that ran the kernel
         # (serving, composition training, the trainer's full step)
@@ -3792,6 +4008,7 @@ def main() -> int:
         rec["launches_demo_step_path"] = demo_launches.get(name, 0)
         rec["launches_eval_path"] = eval_launches.get(name, 0)
         rec["launches_parallel_path"] = parallel_launches.get(name, {})
+        rec["launches_export_path"] = export_launches.get(name, {})
         rec["widths"] = width_rows.get(name, [])
         rec["card"] = card
     print(json.dumps({"kernels": list(records.values())}))

@@ -711,3 +711,84 @@ def test_kernel_wrappers_copy_misaligned_parameter_views(cuda):
     with torch.no_grad():
         assert torch.equal(cuda_ngram.fused_ngram_context(u, *params, 6),
                            cuda_ngram.fused_ngram_context(u, *[misaligned(p) for p in params], 6))
+
+
+# ---- the kernels' operators and the exported program --------------------------
+OPERATORS = ("ngram_context", "nstb_map", "nstb_tokens", "window_attention_fwd", "residual_ffn_fwd")
+
+
+def _operator_call(name, cuda, dtype):
+    """(the operator, its arguments) at the demo width (embed 32, 2 heads of
+    16, hidden 64, 8x8 windows; the n-gram context at C 16, D 32, 2 heads of
+    8), laid out by its wrapper's ``_layout`` as the wrapper calls it."""
+    rng = np.random.default_rng(23)
+    if name == "ngram_context":
+        u, params = ngram_inputs(rng, 2, 2, 8, 8, C=16, D=32)
+        ops = cuda_ngram._layout(u.to(cuda, dtype), *_to(tuple(params), cuda), 2)
+        return cuda_ngram.NGRAM_CONTEXT, (*ops, 2)
+    if name in ("nstb_map", "nstb_tokens"):
+        x, cq, params = nstb_inputs(rng, 2, 2, 16, 16, 4, D=32, H=64)
+        x, cq, params = x.to(cuda, dtype), cq.to(cuda, dtype), _to(tuple(params), cuda)
+        if name == "nstb_map":
+            return cuda_nstb.NSTB_MAP, (*cuda_nstb._layout(x, cq, *params, 2), 2, 8, 4, 1e-5)
+        x = x.reshape(-1, 64, 32)  # 8 windows of a 2 x 2 grid per image
+        return cuda_nstb.NSTB_TOKENS, (*cuda_nstb._layout(x, cq, *params, 2), 2, 8, 4, 2, 2, 1e-5)
+    if name == "window_attention_fwd":
+        (x, _), params = attention_inputs(rng, 8, 64, 32, 2, 16)
+        mask = (*shift_mask_components(8, 4), 2, 2)
+        ops, grid = cuda_attention._layout(x.to(cuda, dtype), *_to(tuple(params), cuda), 2, mask)
+        return cuda_attention.WINDOW_ATTENTION, (*ops, *grid, 2, "batched")
+    (x, ao, _), params = ffn_inputs(rng, 1000, D=32, H=64)
+    ops = cuda_ffn._layout(x.to(cuda, dtype), ao.to(cuda, dtype), *_to(tuple(params), cuda))
+    return cuda_ffn.RESIDUAL_FFN, (*ops, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", OPERATORS)
+def test_kernel_operator_passes_opcheck_and_its_fake_matches(cuda, name, dtype):
+    """``torch.library.opcheck`` (schema, fake tensor, AOT dispatch) on each
+    kernel's operator, inputs that need no gradient as in serving; and the
+    fake implementation's outputs have the real outputs' shapes, dtypes,
+    strides and device."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    op, args = _operator_call(name, cuda, dtype)
+    torch.library.opcheck(op, args)
+    real = op(*args)
+    mode = FakeTensorMode()
+    fake_args = [mode.from_tensor(a) if isinstance(a, torch.Tensor) else a for a in args]
+    with mode:
+        fake = op(*fake_args)
+    for r, f in zip(*(o if isinstance(o, tuple) else (o,) for o in (real, fake))):
+        assert (r.shape, r.dtype, r.stride(), r.device) == (f.shape, f.dtype, f.stride(), f.device)
+
+
+def test_demo_width_generator_exported_on_the_card_equals_eager(cuda, tmp_path):
+    """The demo-width NGswin (embed 32, depths 2/2/2 + 2, 2 heads) in bf16,
+    exported on the card and loaded back: bit for bit the eager forward, 8
+    launches of K1 and of K2 per call (one of each per NSTB), each an
+    operator of the program."""
+    from tmar_torch import NGswin
+    from tmar_torch.export import export_generator, load_artifact, save_artifact
+
+    model = NGswin(embed_dim=32, depths=(2, 2, 2), num_heads=(2, 2, 2), dec_dim=32,
+                   dec_depths=2, dec_num_heads=2, dtype=torch.bfloat16)
+    x = torch.from_numpy(np.random.default_rng(24).uniform(-1, 1, (2, 128, 128, 1))
+                         .astype(np.float32)).to(cuda)
+    path = str(tmp_path / "demo.pt2")
+    save_artifact(path, export_generator(model, batch=2, size=128))
+    program = torch.export.load(path)
+    targets = [str(n.target) for n in program.graph.nodes]
+    assert targets.count("tmar.ngram_context.default") == 8
+    assert targets.count("tmar.nstb_map.default") == 8
+    fn = load_artifact(path)
+    with torch.no_grad():
+        ref = model(x)
+    counters = (cuda_ngram.fused_ngram_context, cuda_nstb.fused_nstb_map)
+    before = [f.launches for f in counters]
+    got = fn(x)
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [8, 8]
+    assert got.dtype == torch.float32 and torch.equal(got, ref)
+    with pytest.raises(Exception, match="Guard failed"):
+        fn(x[:1])

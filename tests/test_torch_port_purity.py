@@ -81,6 +81,11 @@ EVAL_SLICE = (
 # the modules of the parallelism slice, as above
 PARALLEL_SLICE = ("core/mesh.py", "parallel.py", "core/__init__.py")
 
+# the modules of the export slice (the serving artifact, the .pth export and
+# the discriminator import, logging and profiling), as above
+EXPORT_SLICE = ("export.py", "checkpoint/convert.py", "utils/__init__.py", "utils/logging.py",
+                "utils/profiling.py")
+
 
 def test_a_spawned_rank_imports_no_jax_or_tmar():
     """What a rank of tests/test_torch_port_parallel.py imports (its rank
@@ -106,6 +111,7 @@ def test_trainer_slice_modules_are_in_the_package_and_scanned():
     assert set(FINETUNE_SLICE) <= scanned
     assert set(EVAL_SLICE) <= scanned
     assert set(PARALLEL_SLICE) <= scanned
+    assert set(EXPORT_SLICE) <= scanned
     for sub in ("data", "utils", "train", "checkpoint", "eval", "ops", "core"):
         assert (PKG / sub / "__init__.py").is_file(), sub
 
@@ -139,6 +145,7 @@ def test_cli_imports_no_jax_or_tmar_when_run():
         "    pass\n"
         "import tmar_torch.cli, tmar_torch.eval.inference, tmar_torch.eval.harness\n"
         "import tmar_torch.eval.adapters, tmar_torch.eval.ablation, tmar_torch.eval.clinic\n"
+        "import tmar_torch.export, tmar_torch.utils.profiling, tmar_torch.utils.logging\n"
         f"bad = [m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r}]\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )

@@ -3,8 +3,10 @@
 from tmar_torch.checkpoint.convert import (
     adam_state_from_optax,
     disc_from_flax,
+    disc_from_pth,
     from_flax_params,
     load_pth,
+    save_pth,
     to_flax_params,
 )
 from tmar_torch.checkpoint.io import CheckpointManager
@@ -13,7 +15,9 @@ __all__ = [
     "CheckpointManager",
     "adam_state_from_optax",
     "disc_from_flax",
+    "disc_from_pth",
     "from_flax_params",
     "load_pth",
+    "save_pth",
     "to_flax_params",
 ]

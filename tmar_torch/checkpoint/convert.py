@@ -4,6 +4,14 @@
   ``generator_state_dict`` / ``state_dict`` / raw) and strips the ``module.``
   and ``main.`` wrapper prefixes.  The port's ``state_dict`` keys are the
   reference layout's, so the result loads with ``load_state_dict``.
+  ``save_pth`` writes one (``{"netG_state_dict": ...}``, float32, the
+  parameters only), with the keys and values that the JAX package's
+  ``save_pth`` writes for the same weights.
+* ``disc_from_pth`` reads a reference-layout discriminator ``state_dict``
+  (the layout of ``tmar.checkpoint.torch_import.import_discriminator_state_dict``:
+  ``discriminators.N.convs.M``, spectral norm as ``weight_orig`` /
+  ``weight_u`` / ``weight_v``) into the port's ``MultiScaleDiscriminator``
+  names (``discriminators_N.conv_M``, ``weight`` / ``u`` / ``v``).
 * ``from_flax_params`` turns a flax NGswin param tree (numpy arrays) into the
   port's ``state_dict``: flax ``blocks_3`` -> ``blocks.3``,
   ``to_target_before_shuffle`` -> ``to_target.before_shuffle``; Linear kernels
@@ -47,12 +55,60 @@ def load_pth(path: str) -> Dict[str, torch.Tensor]:
         if key in blob:
             blob = blob[key]
             break
+    return _strip_prefixes(blob)
+
+
+def _strip_prefixes(sd: Mapping[str, Any]) -> Dict[str, Any]:
     out = {}
-    for k, v in blob.items():
+    for k, v in sd.items():
         for prefix in ("module.", "main."):
             if k.startswith(prefix):
                 k = k[len(prefix):]
         out[k] = v
+    return out
+
+
+def save_pth(model_or_state_dict, path: str) -> None:
+    """Write an NGswin's weights (the module, whose parameters are taken, or
+    a ``state_dict``) as a reference-layout ``.pth``: ``{"netG_state_dict":
+    {name: float32 CPU tensor}}``, which ``load_pth``, the JAX package's
+    importer and the reference's loader read."""
+    if isinstance(model_or_state_dict, torch.nn.Module):
+        sd = dict(model_or_state_dict.named_parameters())
+    else:
+        sd = dict(model_or_state_dict)
+    # clone: a view would carry its whole storage into the file
+    torch.save({"netG_state_dict": {k: v.detach().float().cpu().clone() for k, v in sd.items()}},
+               path)
+
+
+def disc_from_pth(path_or_state_dict) -> Dict[str, torch.Tensor]:
+    """A reference-layout multi-scale discriminator ``state_dict`` (or a
+    ``.pth`` file holding it raw or under ``netD_state_dict`` /
+    ``discriminator_state_dict`` / ``state_dict``) -> the port's
+    ``MultiScaleDiscriminator`` ``state_dict``: ``discriminators.N`` ->
+    ``discriminators_N``, ``convs.N`` -> ``conv_N``; a spectral-norm conv's
+    ``weight_orig`` -> ``weight``, ``weight_u`` -> ``u``, ``weight_v`` ->
+    ``v``.  Weights stay [out, in, kh, kw], float32."""
+    sd = path_or_state_dict
+    if isinstance(sd, str):
+        sd = torch.load(sd, map_location="cpu", weights_only=True)
+        for key in ("netD_state_dict", "discriminator_state_dict", "state_dict"):
+            if key in sd:
+                sd = sd[key]
+                break
+    out = {}
+    for key, v in _strip_prefixes(sd).items():
+        *mod, leaf = key.split(".")
+        name = []
+        for p in mod:
+            if p.isdigit() and name and name[-1] in ("discriminators", "convs"):
+                name[-1] = f"{'conv' if name[-1] == 'convs' else name[-1]}_{p}"
+            else:
+                name.append(p)
+        leaf = {"weight_orig": "weight", "weight_u": "u", "weight_v": "v"}.get(leaf, leaf)
+        out[".".join([*name, leaf])] = (v.detach().float().cpu() if torch.is_tensor(v)
+                                        else torch.from_numpy(np.array(v, np.float32)))
     return out
 
 

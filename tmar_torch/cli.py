@@ -12,6 +12,8 @@
         identity --set data.dataset=synthetic --num-samples 4
     python -m tmar_torch.cli ablate --ablations A1_no_physics B2_no_spectral_norm \\
         --inference-only --set data.dataset=synthetic
+    python -m tmar_torch.cli export --checkpoint reports/compare_r4/flagship.pth \\
+        --batch 8 --size 512 [--torch]
 
 Each takes the JAX CLI's arguments plus ``--device`` (default ``cuda``; ``cpu``
 runs the plain versions).  ``test`` serves the generator of the config from a
@@ -25,9 +27,12 @@ model loads, and ``history.json``.  ``compare`` runs the comparison harness
 (``tmar_torch.eval.harness``) over generator checkpoints, out-of-process
 adapters and fine-tuned DuDo pickles; ``ablate`` trains (or, with
 ``--inference-only``, restores) each ablation and evaluates it
-(``tmar_torch.eval.ablation``).  Both write the JAX CLI's files.
+(``tmar_torch.eval.ablation``).  Both write the JAX CLI's files.  ``export``
+writes the generator's forward for one input bucket as a ``torch.export``
+artifact (``ngswin_<size>b<batch>.pt2``, ``tmar_torch.export``), or with
+``--torch`` its weights as a reference-layout ``.pth``.
 
-The block form of the generator (``test``, ``compare``, ``ablate``) comes
+The block form of the generator (``test``, ``compare``, ``ablate``, ``export``) comes
 from the JAX package's environment variables, read here and nowhere else in
 the port, and passed to ``build_generator`` as constructor arguments: ``TMAR_NSTB_FUSED=0`` (the
 unfused block), ``TMAR_NSTB_MAP=0`` (the token-level fused block),
@@ -46,12 +51,6 @@ import json
 import os
 import sys
 from typing import Any, Dict, List
-
-# commands of the JAX CLI that the port does not have yet, and where they stand
-NOT_PORTED = {
-    "export": "it waits for the port of tmar/export.py",
-}
-
 
 def _parse_sets(pairs) -> Dict[str, Any]:
     """``--set`` pairs -> {dotted key: YAML value}.  argparse's
@@ -492,22 +491,25 @@ def _build_test_dataset(cfg):
     return SyntheticMARDataset(size=size, length=32)
 
 
+def export(argv=None) -> int:
+    from tmar_torch.export import main as export_main
+
+    return export_main(argv)
+
+
 _COMMANDS = {"train": train, "test": test, "finetune": finetune, "ablate": ablate,
-             "compare": compare}
+             "compare": compare, "export": export}
 
 
 def main(argv=None) -> int:
     """``python -m tmar_torch.cli <command> [args]``."""
     argv = list(sys.argv[1:] if argv is None else argv)
-    names = sorted([*_COMMANDS, *NOT_PORTED])
+    names = sorted(_COMMANDS)
     if not argv or argv[0] in ("-h", "--help"):
         print(f"usage: python -m tmar_torch.cli {{{' | '.join(names)}}} [options]\n"
               f"run 'python -m tmar_torch.cli <command> -h' for command options")
         return 0 if argv else 2
     cmd = argv[0]
-    if cmd in NOT_PORTED:
-        print(f"{cmd!r} is not ported yet: {NOT_PORTED[cmd]}", file=sys.stderr)
-        return 2
     if cmd not in _COMMANDS:
         print(f"unknown command {cmd!r}; expected one of {names}", file=sys.stderr)
         return 2

@@ -41,9 +41,10 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
 
 def float32_data(t: torch.Tensor, contiguous: bool = False) -> torch.Tensor:
     """The float32 data of a parameter, outside the graph, as a kernel reads
-    it, on a 16-byte boundary; a copy only when its dtype, its alignment
-    (or, if asked, its layout) demands one."""
+    it; a copy only when its dtype (or, if asked, its layout) demands one.
+    Its alignment is the operator's to make (``aligned``): a trace has no
+    data pointers."""
     t = t.detach()
     if t.dtype != torch.float32:
         t = t.to(torch.float32)
-    return aligned(t.contiguous() if contiguous and not t.is_contiguous() else t)
+    return t.contiguous() if contiguous and not t.is_contiguous() else t

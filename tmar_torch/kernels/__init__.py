@@ -7,7 +7,12 @@ an edited source or header rebuilds).
 The library is loaded with ``ctypes``: every pointer and the CUDA stream go
 in as ``c_void_p``, and the entry point returns ``cudaGetLastError()``.
 
-Nothing here runs at import time: this module is imported on hosts without
+Each kernel's launch is also a ``torch.library`` operator, ``tmar::<name>``
+(``define_op``), with a CUDA implementation and a fake one that gives the
+outputs' shapes and dtypes, so that ``torch.export`` records the launch as
+one node of the graph and a loaded program launches the kernel again.
+
+Nothing here builds at import time: this module is imported on hosts without
 ``nvcc`` or a card, where only the plain PyTorch versions run.
 """
 
@@ -38,6 +43,7 @@ KERNELS = (
 HEADERS = tuple(sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh")))
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_ops = None  # the torch.library fragment of the namespace ``tmar``
 _lock = threading.Lock()
 build_logs: Dict[str, str] = {}
 
@@ -157,3 +163,22 @@ def check(name: str, err: int) -> None:
     if err != 0:
         msg = getattr(_libs[name], f"tmar_{name}_error")(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
+
+
+def define_op(name: str, schema: str, cuda, fake):
+    """Define the operator ``tmar::<name>`` with ``schema`` (its arguments
+    and results, as ``torch.library`` writes them): ``cuda`` runs it on CUDA
+    tensors (puts the operands on 16-byte boundaries, launches the kernel,
+    counts the launch),
+    ``fake`` returns empty outputs of the right shapes and dtypes without
+    touching data, for tracing.  It has no CPU implementation: the wrappers
+    run the plain versions on CPU tensors.  Returns the operator."""
+    import torch
+
+    global _ops
+    if _ops is None:
+        _ops = torch.library.Library("tmar", "FRAGMENT")
+    _ops.define(name + schema)
+    _ops.impl(name, cuda, "CUDA")
+    torch.library.register_fake(f"tmar::{name}", fake, lib=_ops)
+    return getattr(torch.ops.tmar, name).default

@@ -54,7 +54,13 @@ _inverse_cache = {}  # id(index) -> (index, rows, inverse)
 def on_device(array: np.ndarray, device) -> torch.Tensor:
     """A constant numpy array as a contiguous tensor on ``device`` (integers
     as int64, floats as float32), copied there once per array object: a copy
-    from host memory on every call would stall the CUDA stream."""
+    from host memory on every call would stall the CUDA stream.  While a
+    trace runs (``torch.export``, ``torch.compile``, a fake-tensor mode) it
+    returns a fresh tensor, which the trace records as a constant, and
+    caches nothing: a cached tensor made there would be a fake one."""
+    dtype = torch.long if array.dtype.kind in "iu" else torch.float32
+    if tracing():
+        return torch.as_tensor(np.ascontiguousarray(array), dtype=dtype, device=device)
     entry = _const_cache.get(id(array))
     if entry is None or entry[0] is not array:
         if len(_const_cache) >= 512:  # callers that pass fresh arrays every time
@@ -62,10 +68,16 @@ def on_device(array: np.ndarray, device) -> torch.Tensor:
         entry = _const_cache[id(array)] = (array, {})
     tensor = entry[1].get(device)
     if tensor is None:
-        dtype = torch.long if array.dtype.kind in "iu" else torch.float32
         tensor = torch.as_tensor(np.ascontiguousarray(array), dtype=dtype, device=device)
         entry[1][device] = tensor
     return tensor
+
+
+def tracing() -> bool:
+    """True while ``torch.export`` or ``torch.compile`` traces, or a
+    fake-tensor mode is active (``torch.export`` runs under one)."""
+    return (torch.compiler.is_compiling()
+            or torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None)
 
 
 def _inverse_index(index: np.ndarray, rows: int) -> np.ndarray:

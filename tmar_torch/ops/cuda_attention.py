@@ -5,7 +5,9 @@ wrapper (the counterpart of ``tmar.ops.pallas_attention`` with
 ``fused_window_attention`` computes qkv projection -> cosine attention ->
 output projection on [B_, N, D] windows.  A CUDA tensor goes through a
 ``torch.autograd.Function`` whose forward launches
-``csrc/window_attention_fwd.cu`` (K3) and whose backward launches
+``csrc/window_attention_fwd.cu`` (K3, through the operator
+``tmar::window_attention_fwd``, one node of a ``torch.export`` program)
+and whose backward launches
 ``csrc/window_attention_bwd.cu`` (K4: all seven cotangents, recomputed from
 x and the saved row-wise log-sum-exp), or raises.  A CPU tensor runs the
 plain versions: at float32 ``tmar_torch.ops.attention.window_attention_math``
@@ -55,7 +57,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from tmar_torch.device import float32_data
+from tmar_torch import kernels
+from tmar_torch.device import aligned, float32_data
 from tmar_torch.ops import envelope
 from tmar_torch.ops.attention import (
     LOGIT_SCALE_MAX,
@@ -332,13 +335,12 @@ class _WindowAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components,
                 impl):
-        operands, geo = _kernel_operands(
+        operands, grid = _layout(
             x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components)
-        out, lse = _launch(operands, geo)
-        fused_window_attention.launches_by_impl[impl] += 1
+        out, lse = WINDOW_ATTENTION(*operands, *grid, num_heads, impl)
         ctx.save_for_backward(*operands[:7], lse, logit_scale)
-        ctx.mask = tuple(operands[7:])
-        ctx.geo = geo
+        ctx.mask = (*operands[7:], *grid)
+        ctx.num_heads = num_heads
         ctx.grad_dtypes = [
             None if t is None else t.dtype for t in (wqkv, bqkv, logit_scale, bias, wproj, bproj)
         ]
@@ -348,9 +350,10 @@ class _WindowAttention(torch.autograd.Function):
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
         *operands, lse, logit_scale = ctx.saved_tensors
-        scale, geo = operands[3], ctx.geo
+        operands, geo = _bind(operands + list(ctx.mask[:2]), ctx.num_heads, *ctx.mask[2:])
+        scale = operands[3]
         N, D, nh, A = geo.N, geo.D, geo.nh, geo.nh * geo.hd
-        dx, dparams = _launch_backward(operands + list(ctx.mask), lse, g, geo)
+        dx, dparams = _launch_backward(operands, lse, g, geo)
         sizes = [D * 3 * A, 3 * A, nh, nh * N * N, A * D, D]
         dwqkv, dbqkv, dscale, dbias, dwproj, dbproj = torch.split(dparams, sizes)
         # the kernel's cotangent is on the effective scale exp(min(ls, ln 100)):
@@ -365,39 +368,59 @@ class _WindowAttention(torch.autograd.Function):
         return (dx, *grads, None, None, None)
 
 
-def _kernel_operands(x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components):
+def _layout(x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components):
     """Check the geometry against the envelope (``envelope.attention_envelope``)
-    and lay out the kernels' operands on x's device: returns ([x, wqkv, bqkv,
-    scale, bias, wproj, bproj, m_row, m_col] as the C entry points read them,
-    the ``_Geometry``)."""
-    from tmar_torch import kernels
-
+    and lay out the kernels' operands as they read them, in tensor
+    operations that a trace records: returns ([x, wqkv, bqkv, scale, bias,
+    wproj, bproj, m_row, m_col], (wh, ww)): x contiguous, the parameters'
+    float32 data (a transposed weight read in place), the logit scale as
+    exp(min(ls, ln 100)), the shift mask's components (None and (0, 0)
+    without a mask); an absent bias stays None."""
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_window_attention: unsupported dtype {x.dtype}")
     if x.shape[0] < 1:
         raise ValueError("fused_window_attention: no windows")
     B_, N, D = x.shape
-    dev = x.device
+    m_row, m_col, wh, ww = _device_mask(mask_components, N, B_, x.device)
     w_qkv, w_proj = float32_data(wqkv), float32_data(wproj)
-    m_row, m_col, wh, ww = _device_mask(mask_components, N, B_, dev)
-    geo = _Geometry(x, w_qkv, w_proj, num_heads, wh, ww, kernels.sm_count(dev))
-    A = geo.nh * geo.hd
-    b_qkv = torch.zeros(3 * A, device=dev) if bqkv is None else float32_data(bqkv, True)
-    b_proj = torch.zeros(D, device=dev) if bproj is None else float32_data(bproj, True)
+    _Geometry(x, w_qkv, w_proj, num_heads, wh, ww, kernels.sm_count(x.device))  # checks the shapes
     scale = torch.exp(
         torch.clamp(float32_data(logit_scale).reshape(num_heads), max=LOGIT_SCALE_MAX)
     )
     bias32 = float32_data(bias, True)
     if tuple(bias32.shape) != (num_heads, N, N):
         raise ValueError(f"bias shape {tuple(bias32.shape)} != {(num_heads, N, N)}")
-    operands = [x.detach().contiguous(), w_qkv, b_qkv, scale, bias32, w_proj, b_proj, m_row, m_col]
-    return operands, geo
+    operands = [
+        x.detach().contiguous(), w_qkv, None if bqkv is None else float32_data(bqkv, True),
+        scale, bias32, w_proj, None if bproj is None else float32_data(bproj, True), m_row, m_col,
+    ]
+    return operands, (wh, ww)
+
+
+def _bind(operands, num_heads, wh, ww):
+    """``_layout``'s operands as the entry points take them: each on a
+    16-byte boundary, zeros for an absent bias; and their ``_Geometry``.
+    Reads data pointers, so it runs inside the operator, never in a trace."""
+    x = operands[0]
+    widths = {2: operands[1].shape[1], 6: x.shape[2]}  # bqkv, bproj
+    operands = [torch.zeros(widths[i], device=x.device) if t is None and i in widths else t
+                for i, t in enumerate(operands)]
+    operands = [None if t is None else aligned(t) for t in operands]  # no mask: None
+    return operands, _Geometry(operands[0], operands[1], operands[5], num_heads, wh, ww,
+                               kernels.sm_count(x.device))
+
+
+def _kernel_operands(x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components):
+    """Check the geometry and lay out the kernels' operands on x's device:
+    returns ([x, wqkv, bqkv, scale, bias, wproj, bproj, m_row, m_col] as the
+    C entry points read them, the ``_Geometry``)."""
+    operands, grid = _layout(x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads,
+                             mask_components)
+    return _bind(operands, num_heads, *grid)
 
 
 def _launch(operands, geo):
     """K3 on laid-out operands: -> (out, lse)."""
-    from tmar_torch import kernels
-
     x = operands[0]
     out = torch.empty_like(x)
     lse = torch.empty((geo.nwin, geo.nh, geo.N), device=x.device, dtype=torch.float32)
@@ -413,8 +436,6 @@ def _launch(operands, geo):
 def _launch_backward(operands, lse, g, geo):
     """K4 on the forward's operands, its lse and the output cotangent g: ->
     (dx, the concatenated float32 parameter cotangents)."""
-    from tmar_torch import kernels
-
     x = operands[0]
     N, D, nh, A = geo.N, geo.D, geo.nh, geo.nh * geo.hd
     g = g.to(x.dtype).contiguous()
@@ -436,8 +457,6 @@ def _launch_backward(operands, lse, g, geo):
 
 
 def _workspace_floats(geo):
-    from tmar_torch import kernels
-
     global _workspace_fn
     if _workspace_fn is None:
         _workspace_fn = kernels.host_function(
@@ -454,3 +473,29 @@ _workspace_fn = None
 _P = ctypes.c_void_p
 _FWD_ARGTYPES = [_P] * 11 + [ctypes.c_int] * 14 + [_P]
 _BWD_ARGTYPES = [_P] * 13 + [ctypes.c_int] * 14 + [_P]
+
+
+def _window_attention_cuda(x, wqkv, bqkv, scale, bias, wproj, bproj, m_row, m_col, wh, ww,
+                           num_heads, impl):
+    operands, geo = _bind([x, wqkv, bqkv, scale, bias, wproj, bproj, m_row, m_col],
+                          num_heads, wh, ww)
+    out, lse = _launch(operands, geo)
+    fused_window_attention.launches_by_impl[impl] += 1
+    return out, lse
+
+
+def _window_attention_fake(x, wqkv, bqkv, scale, bias, *_):
+    nh, N = bias.shape[0], x.shape[1]
+    return x.new_empty(x.shape), x.new_empty((x.shape[0], nh, N), dtype=torch.float32)
+
+
+# K3 as the operator ``tmar::window_attention_fwd`` on ``_layout``'s
+# operands: -> (out, the row-wise log-sum-exp K4 reads)
+WINDOW_ATTENTION = kernels.define_op(
+    "window_attention_fwd",
+    "(Tensor x, Tensor wqkv, Tensor? bqkv, Tensor scale, Tensor bias, Tensor wproj, "
+    "Tensor? bproj, Tensor? m_row, Tensor? m_col, int wh, int ww, int num_heads, str impl) "
+    "-> (Tensor, Tensor)",
+    _window_attention_cuda,
+    _window_attention_fake,
+)

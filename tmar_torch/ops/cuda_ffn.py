@@ -5,7 +5,9 @@
     z = y + LN2(fc2(GELU(fc1(y))))
 
 A CUDA tensor goes through a ``torch.autograd.Function`` whose forward
-launches ``csrc/residual_ffn_fwd.cu`` (K5) and whose backward launches
+launches ``csrc/residual_ffn_fwd.cu`` (K5, through the operator
+``tmar::residual_ffn_fwd``, one node of a ``torch.export`` program) and
+whose backward launches
 ``csrc/residual_ffn_bwd.cu`` (K6: all ten cotangents, recomputed from x and
 attn_out), or raises.  A CPU tensor runs the plain versions: at float32
 ``tmar_torch.ops.ffn.ffn_math`` under ordinary autograd; at bfloat16
@@ -32,7 +34,8 @@ import ctypes
 
 import torch
 
-from tmar_torch.device import float32_data
+from tmar_torch import kernels
+from tmar_torch.device import aligned, float32_data
 from tmar_torch.ops import envelope
 from tmar_torch.ops.ffn import erf_as_kernels, ffn_math, gelu_as_kernels, layer_norm
 
@@ -170,18 +173,20 @@ fused_residual_ffn.backward_launches = 0  # backward kernel
 class _ResidualFFN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps):
-        operands, geo = _kernel_operands(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps)
-        out = _launch(operands, geo)
+        operands = _layout(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2)
+        out = RESIDUAL_FFN(*operands, float(eps))
+        # b2 (the last operand) has no part in the backward
         ctx.save_for_backward(*operands[:9])
-        ctx.geo = geo
+        ctx.eps = eps
         ctx.grad_dtypes = [t.dtype for t in (attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2)]
         return out
 
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, dz):
-        D, H = ctx.geo.D, ctx.geo.H
-        dx, dao, dparams = _launch_backward(ctx.saved_tensors, dz, ctx.geo)
+        operands, geo = _bind(ctx.saved_tensors, ctx.eps)
+        D, H = geo.D, geo.H
+        dx, dao, dparams = _launch_backward(operands, dz, geo)
         dg1, db1, dw1, dbw1, dw2, dbw2, dg2, db2 = torch.split(dparams, _param_sizes(D, H))
         grads = [dao, dg1, db1, dw1.reshape(D, H), dbw1, dw2.reshape(H, D), dbw2, dg2, db2]
         grads = [t.to(dt) for t, dt in zip(grads, ctx.grad_dtypes)]
@@ -215,13 +220,11 @@ def _param_sizes(D, H):
     return [D, D, D * H, H, H * D, D, D, D]
 
 
-def _kernel_operands(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps):
-    """Check the shapes and the envelope (``envelope.ffn_envelope``) and lay
-    out the kernels' operands on x's device: returns ([x, attn_out, g1, b1,
-    w1, bw1, w2, bw2, g2, b2] as the C entry points read them, the
-    ``_Geometry``)."""
-    from tmar_torch import kernels
-
+def _layout(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2):
+    """Check the shapes and lay out the kernels' operands as they read them,
+    in tensor operations that a trace records: [x, attn_out, g1, b1, w1,
+    bw1, w2, bw2, g2, b2], the activations contiguous in x's dtype, the
+    parameters' float32 data (a transposed weight read in place)."""
     M, D = x.shape
     H = w1.shape[1]
     if tuple(w1.shape) != (D, H) or tuple(w2.shape) != (H, D):
@@ -231,18 +234,32 @@ def _kernel_operands(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps):
         raise TypeError(f"fused_residual_ffn: unsupported dtype {x.dtype}")
     if attn_out.shape != x.shape or M < 1:
         raise ValueError(f"fused_residual_ffn: x {tuple(x.shape)}, attn_out {tuple(attn_out.shape)}")
-    x = x.detach().contiguous()
-    ao = attn_out.detach().to(x.dtype).contiguous()
+    if (D, H) != KERNEL_DIMS:
+        envelope.ffn_envelope(D, H, x.device)
     g1_, b1_, bw1_, bw2_, g2_, b2_ = (float32_data(t, True) for t in (g1, b1, bw1, bw2, g2, b2))
-    w_1, w_2 = float32_data(w1), float32_data(w2)
-    geo = _Geometry(x, w_1, w_2, eps, kernels.sm_count(x.device))
-    return [x, ao, g1_, b1_, w_1, bw1_, w_2, bw2_, g2_, b2_], geo
+    return [x.detach().contiguous(), attn_out.detach().to(x.dtype).contiguous(), g1_, b1_,
+            float32_data(w1), bw1_, float32_data(w2), bw2_, g2_, b2_]
+
+
+def _bind(operands, eps):
+    """``_layout``'s operands (b2 may be left off) on 16-byte boundaries,
+    and their ``_Geometry``.  Reads data pointers, so it runs inside the
+    operator, never in a trace."""
+    operands = [aligned(t) for t in operands]
+    return operands, _Geometry(operands[0], operands[4], operands[6], eps,
+                               kernels.sm_count(operands[0].device))
+
+
+def _kernel_operands(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps):
+    """Check the shapes and the envelope (``envelope.ffn_envelope``) and lay
+    out the kernels' operands on x's device: returns ([x, attn_out, g1, b1,
+    w1, bw1, w2, bw2, g2, b2] as the C entry points read them, the
+    ``_Geometry``)."""
+    return _bind(_layout(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2), eps)
 
 
 def _launch(operands, geo):
     """K5 on laid-out operands: -> z."""
-    from tmar_torch import kernels
-
     x = operands[0]
     out = torch.empty_like(x)
     kernels.launch(
@@ -258,8 +275,6 @@ def _launch_backward(operands, dz, geo):
     """K6 (one kernel and one reduce) on the forward's operands (b2 is not
     read) and the output cotangent dz: -> (dx, d attn_out, the concatenated
     float32 parameter cotangents)."""
-    from tmar_torch import kernels
-
     x = operands[0]
     dz = dz.to(x.dtype).contiguous()
     dx, dao = torch.empty_like(x), torch.empty_like(x)
@@ -281,3 +296,18 @@ _P = ctypes.c_void_p
 _TAIL = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P]
 _FWD_ARGTYPES = [_P] * 11 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + _TAIL
 _BWD_ARGTYPES = [_P] * 14 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + _TAIL
+
+
+def _residual_ffn_cuda(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps):
+    operands, geo = _bind([x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2], eps)
+    return _launch(operands, geo)
+
+
+# K5 as the operator ``tmar::residual_ffn_fwd`` on ``_layout``'s operands
+RESIDUAL_FFN = kernels.define_op(
+    "residual_ffn_fwd",
+    "(Tensor x, Tensor attn_out, Tensor ln1_gain, Tensor ln1_bias, Tensor w1, Tensor b1, "
+    "Tensor w2, Tensor b2, Tensor ln2_gain, Tensor ln2_bias, float eps) -> Tensor",
+    _residual_ffn_cuda,
+    lambda x, *_: x.new_empty(x.shape),
+)

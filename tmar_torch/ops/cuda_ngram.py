@@ -5,7 +5,9 @@ grid it computes both directional 4-token sliding attentions over the
 sequence-reflect padded grid, their token means, and the [2C, D] merge.
 
 A CUDA tensor goes through a ``torch.autograd.Function`` whose forward
-launches ``csrc/ngram_context.cu`` (K1) and whose backward launches
+launches ``csrc/ngram_context.cu`` (K1, through the operator
+``tmar::ngram_context``, one node of a ``torch.export`` program) and whose
+backward launches
 ``csrc/ngram_context_bwd.cu`` (K7: du and every parameter cotangent,
 recomputed from u; three launches), or raises.  The kernels read the
 float32 parameters; u, the output and du are float32 or bfloat16, the
@@ -33,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from tmar_torch import kernels
 from tmar_torch.device import aligned
 from tmar_torch.ops import envelope
 from tmar_torch.ops.attention import (
@@ -317,11 +320,11 @@ class _NGramContext(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bmerge, num_heads):
         params = (wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bmerge)
-        operands, out, ints = _kernel_operands(u.detach(), *params, num_heads)
-        _launch(operands, out, ints)
+        operands = _layout(u, *params, num_heads)
+        out = NGRAM_CONTEXT(*operands, num_heads)
         # bmerge (the last operand) has no part in the backward
         ctx.save_for_backward(*operands[:-1])
-        ctx.ints = ints
+        ctx.num_heads = num_heads
         ctx.grad_dtypes = [None if t is None else t.dtype for t in params]
         ctx.ls_shape = logit_scale.shape
         return out
@@ -329,9 +332,9 @@ class _NGramContext(torch.autograd.Function):
     @staticmethod
     @torch.autograd.function.once_differentiable
     def backward(ctx, g):
-        operands = ctx.saved_tensors
-        du, dparams = _launch_backward(operands, g, ctx.ints)
-        C, D, nh, hd = ctx.ints[3:7]
+        operands, ints = _bind(list(ctx.saved_tensors), ctx.num_heads)
+        du, dparams = _launch_backward(operands, g, ints)
+        C, D, nh, hd = ints[3:7]
         A = nh * hd
         shapes = [(C, 3 * A), (3 * A,), ctx.ls_shape, (9, nh), (A, C), (C,), (2 * C, D), (D,)]
         sizes = [math.prod(s) for s in shapes]
@@ -344,12 +347,12 @@ class _NGramContext(torch.autograd.Function):
         return (du, *grads, None)
 
 
-def _kernel_operands(u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bmerge, num_heads):
-    """Check the geometry and lay out the kernels' operands on u's device:
-    returns (the 9 input tensors in the C entry points' order, the output,
-    the entry points' integer arguments)."""
-    from tmar_torch import kernels
-
+def _layout(u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bmerge, num_heads):
+    """Check the geometry and lay out the kernels' operands as they read
+    them, in tensor operations that a trace records: [u, wqkv, bqkv,
+    logit_scale [nh] (raw: the kernels take exp(min(ls, ln 100))), table,
+    wproj, bproj, wmerge, bmerge], u contiguous in its dtype, the parameters
+    float32 and contiguous, outside the graph; an absent bias stays None."""
     B, wh, ww, C = u.shape
     A = wqkv.shape[1] // 3
     D = wmerge.shape[1]
@@ -367,26 +370,61 @@ def _kernel_operands(u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bm
         envelope.ngram_envelope(C, D, num_heads, hd, u.device)
     if u.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_ngram_context: unsupported dtype {u.dtype}")
-    dev = u.device
 
     def f32(t):
-        return aligned(t.detach().to(device=dev, dtype=torch.float32).contiguous())
+        return None if t is None else t.detach().to(device=u.device, dtype=torch.float32).contiguous()
 
-    operands = [
-        aligned(u.contiguous()),
-        f32(wqkv),
-        torch.zeros(3 * A, device=dev) if bqkv is None else f32(bqkv),
-        f32(logit_scale).reshape(num_heads),  # raw: the kernels take exp(min(ls, ln 100))
-        f32(table),
-        f32(wproj),
-        torch.zeros(C, device=dev) if bproj is None else f32(bproj),
-        f32(wmerge),
-        f32(bmerge),
-    ]
-    out = torch.empty((B, wh, ww, D), device=dev, dtype=u.dtype)
-    ints = (B, wh, ww, C, D, num_heads, hd, int(u.dtype == torch.bfloat16),
-            kernels.sm_count(dev))
-    return operands, out, ints
+    return [u.detach().contiguous(), f32(wqkv), f32(bqkv), f32(logit_scale).reshape(num_heads),
+            f32(table), f32(wproj), f32(bproj), f32(wmerge), f32(bmerge)]
+
+
+def _bind(operands, num_heads):
+    """Laid-out operands (``_layout``'s, the last ones may be left off) as
+    the entry points take them: each on a 16-byte boundary, zeros for an
+    absent bias.  Returns (them, the entry points' integer arguments).
+    Reads data pointers, so it runs inside the operator, never in a trace."""
+    u = operands[0]
+    B, wh, ww, C = u.shape
+    A = operands[1].shape[1] // 3
+    widths = {2: 3 * A, 6: C}  # bqkv, bproj
+    operands = [aligned(torch.zeros(widths[i], device=u.device) if t is None else t)
+                for i, t in enumerate(operands)]
+    ints = (B, wh, ww, C, operands[7].shape[1], num_heads, A // num_heads,
+            int(u.dtype == torch.bfloat16), kernels.sm_count(u.device))
+    return operands, ints
+
+
+def _kernel_operands(u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bmerge, num_heads):
+    """Check the geometry and lay out the kernels' operands on u's device:
+    returns (the 9 input tensors in the C entry points' order, the output,
+    the entry points' integer arguments)."""
+    operands, ints = _bind(
+        _layout(u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bmerge, num_heads),
+        num_heads)
+    return operands, _empty_out(u, wmerge), ints
+
+
+def _empty_out(u, wmerge):
+    return u.new_empty((*u.shape[:3], wmerge.shape[1]))
+
+
+def _ngram_context_cuda(u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bmerge,
+                        num_heads):
+    operands, ints = _bind([u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bmerge],
+                           num_heads)
+    out = _empty_out(u, wmerge)
+    _launch(operands, out, ints)
+    return out
+
+
+# K1 as the operator ``tmar::ngram_context`` on ``_layout``'s operands
+NGRAM_CONTEXT = kernels.define_op(
+    "ngram_context",
+    "(Tensor u, Tensor wqkv, Tensor? bqkv, Tensor logit_scale, Tensor table, Tensor wproj, "
+    "Tensor? bproj, Tensor wmerge, Tensor bmerge, int num_heads) -> Tensor",
+    _ngram_context_cuda,
+    lambda u, wqkv, bqkv, ls, table, wproj, bproj, wmerge, *_: _empty_out(u, wmerge),
+)
 
 
 _P = ctypes.c_void_p
@@ -398,8 +436,6 @@ _workspace_floats = {}  # the backward's integer arguments -> floats of scratch
 def _workspace(ints):
     """The floats of scratch the backward kernel needs for this geometry
     (its slots and the per-block partial sums), asked of the library once."""
-    from tmar_torch import kernels
-
     n = _workspace_floats.get(ints)
     if n is None:
         query = kernels.host_function(
@@ -417,8 +453,6 @@ def _launch_backward(operands, g, ints):
     output cotangent g.  Returns (du, the parameter cotangents as the
     reduce writes them, concatenated in float32: dwqkv, dbqkv,
     dlogit_scale, dtable, dwproj, dbproj, dwmerge, dbmerge)."""
-    from tmar_torch import kernels
-
     u = operands[0]
     B, wh, ww, C, D, nh, hd, is_bf16, sms = ints
     A = nh * hd
@@ -438,8 +472,6 @@ def _launch_backward(operands, g, ints):
 
 
 def _launch(operands, out, ints):
-    from tmar_torch import kernels
-
     kernels.launch(
         "ngram_context", _ARGTYPES, out.device,
         *[t.data_ptr() for t in operands], out.data_ptr(), *ints,

@@ -19,7 +19,8 @@ Two forms of one function, both forward-only:
   windows of the rolled map in, ``csrc/nstb_tokens.cu`` (K8).
 
 Each runs its plain version for a CPU tensor and launches its kernel for a
-CUDA tensor, or raises.  Both return the block output in ROLLED space; the
+CUDA tensor, through the operator ``tmar::nstb_map`` / ``tmar::nstb_tokens``
+(one node of a ``torch.export`` program), or raises.  Both return the block output in ROLLED space; the
 caller unpartitions (token mode) and applies the reverse cyclic shift.
 
 On the card the kernel picks its body by geometry: the full-width NGswin's
@@ -39,6 +40,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from tmar_torch import kernels
 from tmar_torch.device import aligned, refuse_grad
 from tmar_torch.ops import envelope
 from tmar_torch.ops.attention import (
@@ -227,9 +229,9 @@ def fused_nstb_map(
     if xmap.device.type != "cuda":
         raise ValueError(f"fused_nstb_map: unsupported device {xmap.device}")
     refuse_grad("fused_nstb_map", (xmap, ctx_quads, *_flat(weights)))
-    operands, out, ints = _kernel_operands(xmap, ctx_quads, *weights, num_heads, window_size, shift)
-    _launch(operands, out, ints, eps)
-    return out
+    _map_ints(xmap, ctx_quads, wqkv, ffn1, num_heads, window_size, shift)
+    return NSTB_MAP(*_layout(xmap, ctx_quads, *weights, num_heads), num_heads, window_size,
+                    shift, float(eps))
 
 
 def fused_nstb(
@@ -274,11 +276,10 @@ def fused_nstb(
     if x.device.type != "cuda":
         raise ValueError(f"fused_nstb: unsupported device {x.device}")
     refuse_grad("fused_nstb", (x, ctx_quads, *_flat(weights)))
-    operands, out, ints = _token_operands(
-        x, ctx_quads, *weights, num_heads, window_size, shift, grid
-    )
-    _launch_tokens(operands, out, ints, eps)
-    return out
+    _token_ints(x, ctx_quads, wqkv, ffn1, num_heads, window_size, shift, grid)
+    wh, ww = (0, 0) if grid is None else (int(grid[0]), int(grid[1]))
+    return NSTB_TOKENS(*_layout(x, ctx_quads, *weights, num_heads), num_heads, window_size,
+                       shift, wh, ww, float(eps))
 
 
 def _flat(weights):
@@ -292,8 +293,6 @@ def _geometry(name, n_windows, D, wqkv, ffn1, num_heads, window_size, Q, shift, 
     every other one inside ``envelope.nstb_envelope`` the generic body on
     persistent blocks for ``n_windows`` windows; past it NotImplementedError
     names the limit."""
-    from tmar_torch import kernels
-
     A = wqkv.shape[1] // 3
     H = ffn1[0].shape[1]
     if A % num_heads:
@@ -312,27 +311,26 @@ def _geometry(name, n_windows, D, wqkv, ffn1, num_heads, window_size, Q, shift, 
     return (D, H, window_size, Q, shift, num_heads, hd, int(dtype == torch.bfloat16), blocks)
 
 
-def _weight_operands(wqkv, bqkv, logit_scale, table, wproj, bproj, ln1, ffn1, ffn2, ln2,
-                     num_heads, dev, cd):
-    """The 14 weight operands, from wqkv to ln2's bias, in the C entry
-    points' order: the matrices in the activation dtype ``cd``, the rest
-    float32, the logit scale as exp(min(ls, ln 100))."""
-    A = wqkv.shape[1] // 3
-    D = wproj.shape[1]
+def _layout(x, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj, ln1, ffn1, ffn2, ln2,
+            num_heads):
+    """The 16 input operands in the C entry points' order, as they read
+    them, in tensor operations that a trace records: x and the context quads
+    contiguous in x's dtype ``cd``, the four matrices in ``cd``, the rest
+    float32, the logit scale as exp(min(ls, ln 100)); outside the graph; an
+    absent bias stays None."""
+    dev, cd = x.device, x.dtype
 
     def f32(t):
-        return aligned(t.detach().to(device=dev, dtype=torch.float32).contiguous())
+        return None if t is None else t.detach().to(device=dev, dtype=torch.float32).contiguous()
 
     def mat(t):
-        return aligned(t.detach().to(device=dev, dtype=cd).contiguous())
+        return t.detach().to(device=dev, dtype=cd).contiguous()
 
     return [
-        mat(wqkv),
-        torch.zeros(3 * A, device=dev) if bqkv is None else f32(bqkv),
+        x.contiguous(), ctx_quads.to(cd).contiguous(),
+        mat(wqkv), f32(bqkv),
         torch.exp(torch.clamp(f32(logit_scale).reshape(num_heads), max=LOGIT_SCALE_MAX)),
-        f32(table),
-        mat(wproj),
-        torch.zeros(D, device=dev) if bproj is None else f32(bproj),
+        f32(table), mat(wproj), f32(bproj),
         f32(ln1[0]), f32(ln1[1]),
         mat(ffn1[0]), f32(ffn1[1]),
         mat(ffn2[0]), f32(ffn2[1]),
@@ -340,13 +338,18 @@ def _weight_operands(wqkv, bqkv, logit_scale, table, wproj, bproj, ln1, ffn1, ff
     ]
 
 
-def _kernel_operands(
-    xmap, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
-    ln1, ffn1, ffn2, ln2, num_heads, window_size, shift,
-):
-    """Check the geometry and lay out K2's operands on xmap's device:
-    returns (the 16 input tensors in the C entry point's order, the output,
-    the entry point's integer arguments)."""
+def _bind(operands):
+    """``_layout``'s operands as the entry points take them: each on a
+    16-byte boundary, zeros for an absent bias.  Reads data pointers, so it
+    runs inside the operator, never in a trace."""
+    dev = operands[0].device
+    widths = {3: operands[2].shape[1], 7: operands[6].shape[1]}  # bqkv, bproj
+    return [aligned(torch.zeros(widths[i], device=dev) if t is None else t)
+            for i, t in enumerate(operands)]
+
+
+def _map_ints(xmap, ctx_quads, wqkv, ffn1, num_heads, window_size, shift):
+    """Check K2's geometry: -> the entry point's integer arguments."""
     B, ph, pw, D = xmap.shape
     Q = ctx_quads.shape[1]
     ws = window_size
@@ -357,19 +360,11 @@ def _kernel_operands(
                     xmap.dtype, xmap.device)
     if tuple(ctx_quads.shape) != (B * wh * ww, Q, D):
         raise ValueError(f"ctx_quads shape {tuple(ctx_quads.shape)} != {(B * wh * ww, Q, D)}")
-    dev, cd = xmap.device, xmap.dtype
-    operands = [xmap.contiguous(), ctx_quads.to(cd).contiguous()] + _weight_operands(
-        wqkv, bqkv, logit_scale, table, wproj, bproj, ln1, ffn1, ffn2, ln2, num_heads, dev, cd
-    )
-    return operands, torch.empty_like(operands[0]), (B, ph, pw, *geo)
+    return (B, ph, pw, *geo)
 
 
-def _token_operands(
-    x, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
-    ln1, ffn1, ffn2, ln2, num_heads, window_size, shift, grid,
-):
-    """Check the geometry and lay out K8's operands on x's device, as
-    ``_kernel_operands`` does for K2."""
+def _token_ints(x, ctx_quads, wqkv, ffn1, num_heads, window_size, shift, grid):
+    """Check K8's geometry: -> the entry point's integer arguments."""
     B_, N, D = x.shape
     Q = ctx_quads.shape[1]
     if N != window_size * window_size or B_ < 1:
@@ -381,11 +376,32 @@ def _token_operands(
     wh, ww = (0, 0) if grid is None else (int(grid[0]), int(grid[1]))
     if shift > 0 and (wh < 1 or ww < 1 or B_ % (wh * ww)):
         raise ValueError(f"fused_nstb: {B_} windows do not fill whole {wh}x{ww} grids")
-    dev, cd = x.device, x.dtype
-    operands = [x.contiguous(), ctx_quads.to(cd).contiguous()] + _weight_operands(
-        wqkv, bqkv, logit_scale, table, wproj, bproj, ln1, ffn1, ffn2, ln2, num_heads, dev, cd
-    )
-    return operands, torch.empty_like(operands[0]), (B_, wh, ww, *geo)
+    return (B_, wh, ww, *geo)
+
+
+def _kernel_operands(
+    xmap, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
+    ln1, ffn1, ffn2, ln2, num_heads, window_size, shift,
+):
+    """Check the geometry and lay out K2's operands on xmap's device:
+    returns (the 16 input tensors in the C entry point's order, the output,
+    the entry point's integer arguments)."""
+    ints = _map_ints(xmap, ctx_quads, wqkv, ffn1, num_heads, window_size, shift)
+    operands = _bind(_layout(xmap, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
+                             ln1, ffn1, ffn2, ln2, num_heads))
+    return operands, torch.empty_like(operands[0]), ints
+
+
+def _token_operands(
+    x, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
+    ln1, ffn1, ffn2, ln2, num_heads, window_size, shift, grid,
+):
+    """Check the geometry and lay out K8's operands on x's device, as
+    ``_kernel_operands`` does for K2."""
+    ints = _token_ints(x, ctx_quads, wqkv, ffn1, num_heads, window_size, shift, grid)
+    operands = _bind(_layout(x, ctx_quads, wqkv, bqkv, logit_scale, table, wproj, bproj,
+                             ln1, ffn1, ffn2, ln2, num_heads))
+    return operands, torch.empty_like(operands[0]), ints
 
 
 fused_nstb_map.launches = 0
@@ -395,8 +411,6 @@ _ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 12 + [ctypes.c_float, ctyp
 
 
 def _launch(operands, out, ints, eps):
-    from tmar_torch import kernels
-
     kernels.launch(
         "nstb_map", _ARGTYPES, out.device,
         *[t.data_ptr() for t in operands], out.data_ptr(), *ints, float(eps),
@@ -405,10 +419,46 @@ def _launch(operands, out, ints, eps):
 
 
 def _launch_tokens(operands, out, ints, eps):
-    from tmar_torch import kernels
-
     kernels.launch(
         "nstb_tokens", _ARGTYPES, out.device,
         *[t.data_ptr() for t in operands], out.data_ptr(), *ints, float(eps),
     )
     fused_nstb.launches += 1
+
+
+def _nstb_map_cuda(*args):
+    *tensors, num_heads, window_size, shift, eps = args
+    operands = _bind(tensors)
+    ints = _map_ints(operands[0], operands[1], operands[2], (operands[10],), num_heads,
+                     window_size, shift)
+    out = torch.empty_like(operands[0])
+    _launch(operands, out, ints, eps)
+    return out
+
+
+def _nstb_tokens_cuda(*args):
+    *tensors, num_heads, window_size, shift, wh, ww, eps = args
+    operands = _bind(tensors)
+    ints = _token_ints(operands[0], operands[1], operands[2], (operands[10],), num_heads,
+                       window_size, shift, (wh, ww) if wh else None)
+    out = torch.empty_like(operands[0])
+    _launch_tokens(operands, out, ints, eps)
+    return out
+
+
+def _like_x(x, *_):
+    return x.new_empty(x.shape)
+
+
+_OPERANDS = (
+    "(Tensor x, Tensor ctx_quads, Tensor wqkv, Tensor? bqkv, Tensor scale, Tensor table, "
+    "Tensor wproj, Tensor? bproj, Tensor ln1_gain, Tensor ln1_bias, Tensor w1, Tensor b1, "
+    "Tensor w2, Tensor b2, Tensor ln2_gain, Tensor ln2_bias, int num_heads, int window_size, "
+    "int shift, "
+)
+# K2 and K8 as the operators ``tmar::nstb_map`` and ``tmar::nstb_tokens`` on
+# ``_layout``'s operands (K8's grid (wh, ww) = (0, 0) when it has none)
+NSTB_MAP = kernels.define_op("nstb_map", _OPERANDS + "float eps) -> Tensor", _nstb_map_cuda,
+                             _like_x)
+NSTB_TOKENS = kernels.define_op("nstb_tokens", _OPERANDS + "int wh, int ww, float eps) -> Tensor",
+                                _nstb_tokens_cuda, _like_x)

@@ -45,10 +45,20 @@ def sliding_patches(x: torch.Tensor, ngram: int) -> torch.Tensor:
 def ngram_window_index(wh: int, ww: int, ngram: int, back: bool) -> np.ndarray:
     """int64 [wh*ww*n*n]: for window (i, j) and offset (di, dj), the flat cell
     of the [wh, ww] grid that ``sliding_patches(seq_refl_win_pad(...))`` puts
-    there (computed by running exactly that on the grid of cell numbers)."""
-    cells = torch.arange(wh * ww, dtype=torch.float64).reshape(1, wh, ww, 1)
-    patches = sliding_patches(seq_refl_win_pad(cells, ngram, back=back), ngram)
-    return patches.reshape(-1).numpy().astype(np.int64)
+    there.  Computed in numpy, the same padding and blocks on the grid of
+    cell numbers, so that it stays a host array when a trace first asks."""
+    n = ngram
+    cells = np.arange(wh * ww, dtype=np.int64).reshape(wh, ww)
+    if n > 1:
+        if back:
+            cells = np.concatenate([cells[1:n], cells], axis=0)
+            cells = np.concatenate([cells[:, 1:n], cells], axis=1)
+        else:
+            cells = np.concatenate([cells, cells[-n:-1]], axis=0)
+            cells = np.concatenate([cells, cells[:, -n:-1]], axis=1)
+    blocks = [[cells[di : di + wh, dj : dj + ww] for dj in range(n)] for di in range(n)]
+    # [wh, ww, n(di), n(dj)], flattened
+    return np.stack([np.stack(row, axis=-1) for row in blocks], axis=-2).reshape(-1)
 
 
 def ngram_windows(u: torch.Tensor, ngram: int, back: bool = False) -> torch.Tensor:
