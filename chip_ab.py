@@ -26,7 +26,10 @@ K3/K4 at the 8x128² step's stage 1 (2048 windows of 64 tokens, 6 x 10
 heads, shift mask on) and at its n-gram windows (2048 of N = 4, 9 and 1 on
 32 channels, 6 x 5 heads); K5/K6 at 131,072 rows; then K2 and K8 (the
 whole block on the map and on its rolled windows), the launch alone, at
-the 8x512² stage-1 shift-4 block with the flagship's weights, bf16 and f32.
+the 8x512² stage-1 shift-4 block with the flagship's weights, bf16 and f32,
+and at bf16 at every geometry of that tree's ``chip_smoke.WIDTH_NSTB_CASES``
+(the demo 8x256² request's stage 1 first; shift ws/2, Q 4, random weights
+from a seed), where their generic bodies run.
 
 Times are CUDA events (``chip_smoke.cuda_ms``), beside the card's name and
 power limit.  Needs one card; imports nothing of JAX or of ``tmar``.
@@ -105,6 +108,45 @@ def whole_block_kernels(cs, tag, card, randn):
     torch.cuda.empty_cache()
 
 
+def generic_block_kernels(cs, tag, card):
+    """K2 and K8 at bf16, the launch alone, at each geometry of the tree's
+    ``chip_smoke.WIDTH_NSTB_CASES`` (shift ws/2, Q 4), on operands laid out
+    once by that tree's wrappers from one seed; the counters are put back."""
+    import torch
+
+    from tmar_torch.ops import cuda_nstb
+    from tmar_torch.ops.window import cyclic_shift, window_partition
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
+
+    before = (cuda_nstb.fused_nstb_map.launches, cuda_nstb.fused_nstb.launches)
+    with torch.no_grad():
+        for label, B, wh, ww, D, nh, hd, H, ws in cs.WIDTH_NSTB_CASES:
+            A, N, shift = nh * hd, ws * ws, ws // 2
+            ln = (randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1))
+            args = (randn(D, 3 * A, scale=0.15), randn(3 * A, scale=0.1),
+                    randn(nh, 1, 1, scale=0.5, shift=1.4), randn((2 * ws - 1) ** 2, nh, scale=0.5),
+                    randn(A, D, scale=0.15), randn(D, scale=0.1), ln,
+                    (randn(D, H, scale=0.15), randn(H, scale=0.1)),
+                    (randn(H, D, scale=0.1), randn(D, scale=0.1)), ln, nh, ws)
+            x = randn(B, wh * ws, ww * ws, D).to(torch.bfloat16)
+            cq = randn(B * wh * ww, 4, D, scale=0.5).to(torch.bfloat16)
+            ops, out, ints = cuda_nstb._kernel_operands(x, cq, *args, shift=shift)
+            k2 = cs.cuda_ms(lambda: cuda_nstb._launch(ops, out, ints, 1e-5), iters=10)
+            wins = window_partition(cyclic_shift(x, shift), ws)[0].reshape(-1, N, D)
+            tops, tout, tints = cuda_nstb._token_operands(wins, cq, *args, shift, (wh, ww))
+            k8 = cs.cuda_ms(lambda: cuda_nstb._launch_tokens(tops, tout, tints, 1e-5), iters=10)
+            print(f"{tag} K2/K8 launch alone, {label} x [{B}, {wh * ws}, {ww * ws}, {D}] bf16, "
+                  f"{nh} x {hd} heads, hidden {H}, window {ws}, shift {shift}: K2 {k2:.4f} ms, "
+                  f"K8 {k8:.4f} ms on {card}", flush=True)
+            del ops, out, wins, tops, tout, x, cq
+    cuda_nstb.fused_nstb_map.launches, cuda_nstb.fused_nstb.launches = before
+    torch.cuda.empty_cache()
+
+
 def run_tree(tree: str, kernels_only: bool = False) -> int:
     tree = os.path.abspath(tree)
     os.chdir(tree)
@@ -156,6 +198,7 @@ def run_tree(tree: str, kernels_only: bool = False) -> int:
     if kernels_only:
         training_kernels(cs, tag, card, randn)
         whole_block_kernels(cs, tag, card, randn)
+        generic_block_kernels(cs, tag, card)
         return 0
     model = NGswin(dtype=torch.float32)
     model.load_state_dict(load_pth(cs.CKPT))

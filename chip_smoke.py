@@ -774,7 +774,8 @@ def ffn_launch_ms(x, ao, params, g, eps=1e-5, iters=20):
 NGRAM_HEADERS = ["tmar_torch/csrc/ngram_mma.cuh", "tmar_torch/csrc/mma.cuh"]
 FFN_HEADERS = ["tmar_torch/csrc/ffn_mma.cuh", "tmar_torch/csrc/mma.cuh", "tmar_torch/csrc/common.cuh"]
 NSTB_HEADERS = ["tmar_torch/csrc/nstb_window.cuh", "tmar_torch/csrc/nstb_window_mma.cuh",
-                "tmar_torch/csrc/nstb_generic.cuh", "tmar_torch/csrc/ffn_mma.cuh",
+                "tmar_torch/csrc/nstb_generic.cuh", "tmar_torch/csrc/nstb_generic_mma.cuh",
+                "tmar_torch/csrc/ffn_mma.cuh",
                 "tmar_torch/csrc/mma.cuh", "tmar_torch/csrc/common.cuh"]
 
 
@@ -1188,7 +1189,11 @@ def smem_count_failures():
     """The shared memory each CUDA source launches its generic body with
     (its ``tmar_*_smem`` query) against ``envelope``'s count, at every
     geometry of phase 20 and the full-width NGswin's (its float32 runs the
-    generic bodies): -> the geometries where they differ."""
+    generic bodies; K2/K8: both generic bodies), and the body K2's and K8's
+    sources pick (``tmar_*_body``) against ``envelope.nstb_body`` at both
+    dtypes: -> the geometries where they differ."""
+    import torch
+
     from tmar_torch.ops import envelope as env
 
     built, bad = env.built_smem, []
@@ -1208,10 +1213,18 @@ def smem_count_failures():
                 built("ngram_bwd", C, D, nh, hd, 2)) != want:
             bad.append(("ngram", C, D, nh, hd))
     for _, _, _, _, D, nh, hd, H, ws in WIDTH_NSTB_CASES:
-        want = env.nstb_envelope(ws * ws, D, nh, hd, H)
-        if (built("nstb_map", ws * ws, D, nh, hd, H), built("nstb_tokens", ws * ws, D, nh, hd, H)) \
-                != (want, want):
-            bad.append(("nstb", ws * ws, D, nh, hd, H))
+        N = ws * ws
+        mma = env.nstb_mma_plan(N, D, nh, hd, H)
+        for body, want in ((1, -1 if mma is None else mma[1]),
+                           (2, env.nstb_envelope(N, D, nh, hd, H))):
+            if (built("nstb_map", N, D, nh, hd, H, body),
+                    built("nstb_tokens", N, D, nh, hd, H, body)) != (want, want):
+                bad.append(("nstb", env.NSTB_BODIES[body], N, D, nh, hd, H))
+        for dtype in (torch.float32, torch.bfloat16):
+            want = env.nstb_body(N, D, nh, hd, H, dtype)
+            if (env.built_nstb_body("nstb_map", N, D, nh, hd, H, dtype),
+                    env.built_nstb_body("nstb_tokens", N, D, nh, hd, H, dtype)) != (want, want):
+                bad.append(("nstb body", str(dtype), N, D, nh, hd, H))
     return bad
 
 
@@ -1355,18 +1368,22 @@ def check_width_kernels(dev, card):
 
 def check_width_nstb(dev, card):
     """Phase 20c: K2 and K8 at other widths than the full-width NGswin's
-    (their generic body) against their plain versions (``WIDTH_NSTB_CASES``):
-    K2 on the map and K8 on the windows of the rolled map, shift 0 with Q 1
-    and shift ws/2 with Q 4 (the mask on), f32 and bf16, held as phase 2
-    holds K2 (f32 1e-4·max(1, max|ref|); bf16 NSTB_BF16_TOL and
-    NSTB_MEAN_TOL against the rounding-matched plain version), K8 bit for
-    bit equal to K2; then each one's time (the launch alone, shift ws/2)
-    beside its plain version's and its bound; and past the envelope the
-    refusal that names the bytes.  Returns {"nstb_map": rows, "nstb_tokens":
-    rows}, one row per geometry and dtype."""
+    (their generic bodies: the tensor-core one at bf16, the CUDA-core one at
+    f32, ``envelope.nstb_body``) against their plain versions
+    (``WIDTH_NSTB_CASES``): K2 on the map and K8 on the windows of the
+    rolled map, shift 0 with Q 1 and shift ws/2 with Q 4 (the mask on), f32
+    and bf16, held as phase 2 holds K2 (f32 1e-4·max(1, max|ref|); bf16
+    NSTB_BF16_TOL and NSTB_MEAN_TOL against the rounding-matched plain
+    version), K8 bit for bit equal to K2; then each one's time (the launch
+    alone, shift ws/2) beside its plain version's and its bound; past the
+    envelope the refusal that names the bytes; and, printed only, the
+    tensor-core generic body at the flagship's 8x512² stage-1 geometry
+    beside the flagship's own body.  Returns {"nstb_map": rows,
+    "nstb_tokens": rows}, one row per geometry and dtype, each naming its
+    body."""
     import torch
 
-    from tmar_torch.ops import cuda_nstb
+    from tmar_torch.ops import cuda_nstb, envelope
     from tmar_torch.ops.window import cyclic_shift, window_partition, window_unpartition
 
     gen = torch.Generator(device=dev).manual_seed(20)
@@ -1398,14 +1415,15 @@ def check_width_nstb(dev, card):
 
             for dtype in (torch.float32, torch.bfloat16):
                 dn = str(dtype).split(".")[1]
+                body = envelope.nstb_body(N, D, nh, hd, H, dtype)
                 xx, cc = x.to(dtype), cq.to(dtype)
                 zmap = cuda_nstb.fused_nstb_map(xx, cc, *args, shift=shift)
                 wins = window_partition(cyclic_shift(xx, shift), ws)[0].reshape(-1, N, D)
                 z = cuda_nstb.fused_nstb(wins, cc, *args, shift=shift, grid=(wh, ww))
                 ok, line = hold_nstb(zmap, plain_map, xx, cc, args, errs)
                 same = torch.equal(window_unpartition(z.reshape(-1, ws, ws, D), (wh, ww)), zmap)
-                print(f"[kernel] nstb_map / nstb_tokens generic {name} shift={shift} Q={Q} {line}; "
-                      f"K8 on the rolled windows equal to K2 bit for bit: {same}")
+                print(f"[kernel] nstb_map / nstb_tokens {body} body {name} shift={shift} Q={Q} "
+                      f"{line}; K8 on the rolled windows equal to K2 bit for bit: {same}")
                 if not (ok and same):
                     failures.append(f"nstb generic {label} shift={shift} {dn}")
                 if shift == 0:
@@ -1423,10 +1441,10 @@ def check_width_nstb(dev, card):
                 b_ms, b_by = bound_ms(flops, nbytes, dn)
                 for kernel, k_ms, p_ms in (("nstb_map", k2, p2), ("nstb_tokens", k8, p8)):
                     rows[kernel].append({
-                        "geometry": f"{name} shift={shift} Q={Q}", "dtype": dn, "ms": k_ms,
-                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-                        "max_abs_err": errs[dn]})
-                    print(f"[time] {kernel} generic {name} shift={shift} {dn}: kernel {k_ms:.4f} ms "
+                        "geometry": f"{name} shift={shift} Q={Q}", "dtype": dn, "body": body,
+                        "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": None, "max_abs_err": errs[dn]})
+                    print(f"[time] {kernel} {body} body {name} shift={shift} {dn}: kernel {k_ms:.4f} ms "
                           f"(launch alone), plain {p_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}: "
                           f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e6:.2f} MB); library: none (no "
                           f"single PyTorch call computes it) on {card}")
@@ -1455,7 +1473,54 @@ def check_width_nstb(dev, card):
         failures.append("K2 past the envelope")
     if failures:
         raise SystemExit(f"whole-block checks at other widths failed: {failures}")
+    flagship_geometry_line(dev, card, randn)
     return rows
+
+
+def flagship_geometry_line(dev, card, randn):
+    """Printed only, not a dispatch: the tensor-core generic body (its own C
+    entry ``tmar_nstb_map_mma``) at the flagship's 8x512² stage-1 shift-4
+    block (6 x 10 heads, random weights) beside the flagship's own bf16 body
+    on the same operands, the launch alone, and how far apart the two
+    outputs land; K2's counter is put back."""
+    import ctypes
+
+    import torch
+
+    from tmar_torch import kernels
+    from tmar_torch.ops import cuda_nstb
+
+    D, nh, hd, H, ws = 64, 6, 10, 128, 8
+    A = nh * hd
+    ln = lambda: (randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1))  # noqa: E731
+    args = (randn(D, 3 * A, scale=0.15), randn(3 * A, scale=0.1),
+            randn(nh, 1, 1, scale=0.5, shift=1.4), randn(225, nh, scale=0.5),
+            randn(A, D, scale=0.15), randn(D, scale=0.1), ln(),
+            (randn(D, H, scale=0.15), randn(H, scale=0.1)),
+            (randn(H, D, scale=0.1), randn(D, scale=0.1)), ln(), nh, ws)
+    x = randn(8, 512, 512, D).to(torch.bfloat16)
+    cq = randn(8 * 64 * 64, 4, D, scale=0.5).to(torch.bfloat16)
+    before = cuda_nstb.fused_nstb_map.launches
+    ops, out, ints = cuda_nstb._kernel_operands(x, cq, *args, shift=4)
+    out_mma = torch.empty_like(out)
+    mma = kernels.host_function("nstb_map", "tmar_nstb_map_mma",
+                                cuda_nstb._ARGTYPES, ctypes.c_int)
+
+    def launch_mma():
+        kernels.check("nstb_map", mma(*[t.data_ptr() for t in ops], out_mma.data_ptr(), *ints,
+                                      1e-5, torch.cuda.current_stream().cuda_stream))
+
+    flag = cuda_ms(lambda: cuda_nstb._launch(ops, out, ints, 1e-5), iters=10)
+    gen = cuda_ms(launch_mma, iters=10)
+    cuda_nstb.fused_nstb_map.launches = before
+    diff = float((out.float() - out_mma.float()).abs().max())
+    scale = float(out.float().abs().max())
+    print(f"[time] nstb_map at the flagship's geometry, x [8, 512, 512, 64] bf16, 6 x 10 heads, "
+          f"shift 4 (printed only, not a dispatch): tensor-core generic body {gen:.4f} ms, the "
+          f"flagship's own body {flag:.4f} ms; outputs max |diff| {diff:.3e} of max|out| "
+          f"{scale:.3e} on {card}")
+    del ops, out, out_mma, x, cq
+    torch.cuda.empty_cache()
 
 
 # the demo width (examples/demo_end_to_end.py, tests/test_ngswin_pallas.py)
@@ -1474,7 +1539,9 @@ def demo_width(card):
     (K1, K7 and K3-K6 on their generic bodies, 8 launches each per step),
     one f32 step on the card against the CPU, then the trained generator in
     the unfused serving form (K1 + K3 + K5), the map form (K1 + K2) and the
-    token form (K1 + K8).  Returns the launches per step of the timed run."""
+    token form (K1 + K8), the latter two timed and device-profiled (busy
+    time, the whole-block kernel's share, the idle share of the median
+    request).  Returns the launches per step of the timed run."""
     import tempfile
 
     import torch
@@ -1482,6 +1549,7 @@ def demo_width(card):
     from tmar_torch import NGswin, make_inference_fn
     from tmar_torch.data import SyntheticMARDataset
     from tmar_torch.train import Trainer
+    from tmar_torch.utils.profiling import device_profile
 
     failures = []
 
@@ -1629,6 +1697,16 @@ def demo_width(card):
             times.append(time.perf_counter() - t0)
         print(f"[time] {form}-form request (demo width) 8x256² bf16: median "
               f"{statistics.median(times[1:]) * 1e3:.2f} ms of 5 on {card}")
+        # the device's share of the request: busy ms an iteration (device_profile
+        # over 3), the whole-block kernel's rows, the five longest ops
+        rows = device_profile(fwd, x, iters=3, top=1 << 30)
+        busy = sum(r["ms"] for r in rows)
+        named = lambda rs: ", ".join("%s %.3f x%d" % (r["op"][:48], r["ms"], r["count"])  # noqa: E731
+                                     for r in rs)
+        print(f"[profile] {form}-form request (demo width) 8x256² bf16, device ms an iteration "
+              f"(x: launches in 3): busy {busy:.3f}, idle share "
+              f"{1 - busy / (statistics.median(times[1:]) * 1e3):.3f} of the median; "
+              f"{named(r for r in rows if 'nstb' in r['op'])}; top: {named(rows[:5])} on {card}")
         f32_card = NGswin(dtype=torch.float32, **kw, **kwargs)
         f32_card.load_state_dict(sd)
         f32_cpu = NGswin(dtype=torch.float32, device="cpu", **kw, **kwargs)

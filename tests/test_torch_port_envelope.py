@@ -12,6 +12,7 @@ windows of 1, 4, 9, 16 and 64 tokens), and refuse past it with a
 import itertools
 
 import pytest
+import torch
 
 from tmar_torch.ops import envelope
 
@@ -58,6 +59,43 @@ def test_nstb_envelope_admits_the_listed_widths(N, D, nh, hd, H):
     nbytes = envelope.nstb_envelope(N, D, nh, hd, H)
     assert nbytes == envelope.nstb_bytes(N, D, nh, hd, H)
     assert 0 < nbytes <= envelope.H100_SMEM_PER_BLOCK
+
+
+# (N, D, heads, head_dim, hidden) of chip_smoke.py's phase-20c geometries
+# (WIDTH_NSTB_CASES: the demo stage 1, the JAX tests' D 8, window 4, the
+# envelope's top; the ragged 13 x 13 grid is the demo width's), each with
+# whether the tensor-core generic body keeps its weights resident
+NSTB_TENSOR_CORE = [(64, 32, 2, 16, 64, True), (64, 8, 2, 4, 16, True), (16, 32, 2, 16, 64, True),
+                    (64, 128, 4, 32, 512, False)]
+
+
+@pytest.mark.parametrize("N,D,nh,hd,H,resident", NSTB_TENSOR_CORE)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_nstb_body_is_a_rule_of_geometry_and_dtype(N, D, nh, hd, H, resident, dtype):
+    """bfloat16 runs the tensor-core generic body at every phase-20c
+    geometry (weights streamed at the envelope's top, where they do not fit
+    a block), float32 the CUDA-core one; the full-width NGswin's geometry
+    its own bodies at both dtypes."""
+    want = "tensor-core generic" if dtype == torch.bfloat16 else "CUDA-core generic"
+    assert envelope.nstb_body(N, D, nh, hd, H, dtype) == want
+    plan = envelope.nstb_mma_plan(N, D, nh, hd, H)
+    assert plan == (resident, envelope.nstb_mma_bytes(N, D, nh, hd, H, resident))
+    assert plan[1] <= envelope.H100_SMEM_PER_BLOCK
+    for nh, hd in ((6, 10), (4, 16)):
+        assert envelope.nstb_body(64, 64, nh, hd, 128, dtype) == "flagship"
+
+
+def test_nstb_body_keeps_the_cuda_core_body_where_the_tensor_cores_take_no_plan():
+    """Widths not a multiple of 8 (16-byte rows) or past 128, and weights
+    that fit no block with head_dim or hidden not a multiple of 8, keep the
+    CUDA-core generic body at bfloat16; each stays inside the envelope.
+    The demo stage-1 block's byte count is the CUDA source's layout."""
+    for N, D, nh, hd, H in ((64, 12, 2, 6, 24), (64, 144, 4, 32, 576), (64, 120, 4, 30, 480)):
+        assert envelope.nstb_mma_plan(N, D, nh, hd, H) is None
+        assert envelope.nstb_body(N, D, nh, hd, H, torch.bfloat16) == "CUDA-core generic"
+        envelope.nstb_envelope(N, D, nh, hd, H)
+    assert envelope.nstb_mma_bytes(64, 32, 2, 16, 64, True) == 68496
+    assert envelope.nstb_mma_bytes(64, 128, 4, 32, 512, False) == 196384
 
 
 def test_nstb_envelope_refuses_past_the_card_s_shared_memory():

@@ -131,9 +131,13 @@ def test_nstb_map_kernel_matches_plain(cuda, dtype, nh, shift, Q):
 
 
 # other widths of the whole block (D, heads, head_dim, H, window): the demo
-# width, the JAX kernel tests', window 4, the envelope's top, 3 x 10 heads
+# width, the JAX kernel tests', window 4, the envelope's top, 3 x 10 heads;
+# windows padded to 16-row fragments (7, 3, 5, 6, 2) at widths padded to 16
+# columns (40, 24) and head_dim padded to 32 (24); the streamed weights at a
+# hidden width that ends inside a 64-column stage (D 96, hidden 360)
 NSTB_WIDTHS = [(32, 2, 16, 64, 8), (8, 2, 4, 16, 8), (32, 2, 16, 64, 4), (128, 4, 32, 512, 8),
-               (32, 3, 10, 64, 8)]
+               (32, 3, 10, 64, 8), (40, 2, 8, 80, 7), (24, 3, 8, 48, 3), (32, 2, 16, 64, 5),
+               (48, 2, 24, 96, 6), (16, 2, 8, 32, 2), (96, 3, 32, 360, 8)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -164,6 +168,46 @@ def test_nstb_generic_bodies_match_plain(cuda, dtype, D, nh, hd, H, ws, shift, Q
     assert zmap.dtype == dtype and zmap.shape == x.shape
     err = float((zmap.float() - ref.float()).abs().max())
     assert err <= _tol(ref.float(), dtype), err
+    assert torch.equal(window_unpartition(z.reshape(-1, ws, ws, D), (wh, ww)), zmap)
+
+
+# the whole block at chip_smoke.py's phase-20c geometries (label, B, wh, ww,
+# D, heads, head_dim, hidden, window): the demo 8x256² request's stage 1, the
+# JAX kernel tests' width, window 4, the envelope's top, a ragged 13 x 13 grid
+WIDTH_NSTB_CASES = [
+    ("demo stage1", 8, 32, 32, 32, 2, 16, 64, 8),
+    ("jax tests D8", 8, 16, 16, 8, 2, 4, 16, 8),
+    ("window 4", 8, 32, 32, 32, 2, 16, 64, 4),
+    ("envelope top", 2, 16, 16, 128, 4, 32, 512, 8),
+    ("demo ragged 13x13", 3, 13, 13, 32, 2, 16, 64, 8),
+]
+
+
+@pytest.mark.parametrize("label,B,wh,ww,D,nh,hd,H,ws", WIDTH_NSTB_CASES,
+                         ids=[c[0] for c in WIDTH_NSTB_CASES])
+@pytest.mark.parametrize("shift,Q", [(0, 1), ("half", 4)])
+def test_nstb_tensor_core_generic_body_matches_plain(cuda, label, B, wh, ww, D, nh, hd, H, ws,
+                                                      shift, Q):
+    """At bfloat16 each of these geometries runs the tensor-core generic body
+    (``envelope.nstb_body``), which K2 on the map and K8 on the windows of
+    the rolled map hold to the rounding-matched plain version, unmasked with
+    Q 1 and masked with Q 4; the two agree bit for bit."""
+    from tmar_torch.ops import envelope
+    from tmar_torch.ops.window import cyclic_shift, window_partition, window_unpartition
+
+    assert envelope.nstb_body(ws * ws, D, nh, hd, H, torch.bfloat16) == "tensor-core generic"
+    shift = ws // 2 if shift == "half" else shift
+    rng = np.random.default_rng(23)
+    x, cq, params = nstb_inputs(rng, nh, B, wh * ws, ww * ws, Q, D, H, hd, ws)
+    x, cq = x.to(cuda, torch.bfloat16), cq.to(cuda, torch.bfloat16)
+    params = [_to(p, cuda) for p in params]
+    zmap = cuda_nstb.fused_nstb_map(x, cq, *params, nh, ws, shift=shift)
+    wins, _ = window_partition(cyclic_shift(x, shift), ws)
+    z = cuda_nstb.fused_nstb(wins.reshape(-1, ws * ws, D), cq, *params, nh, ws, shift=shift,
+                             grid=(wh, ww))
+    ref = cuda_nstb.nstb_map_math(x, cq, *params, num_heads=nh, window_size=ws, shift=shift)
+    err = float((zmap.float() - ref.float()).abs().max())
+    assert err <= _tol(ref.float(), torch.bfloat16), err
     assert torch.equal(window_unpartition(z.reshape(-1, ws, ws, D), (wh, ww)), zmap)
 
 
@@ -475,7 +519,13 @@ def test_generic_bodies_launch_with_the_envelopes_shared_memory(cuda, D, nh, hd,
     assert built("ngram_fwd", C, nh, hd) == fwd
     assert (built("ngram_bwd", C, D, nh, hd, 1), built("ngram_bwd", C, D, nh, hd, 2)) == (p1, p2)
     nstb = env.nstb_envelope(N, D, nh, hd, H)
-    assert built("nstb_map", N, D, nh, hd, H) == built("nstb_tokens", N, D, nh, hd, H) == nstb
+    assert built("nstb_map", N, D, nh, hd, H, 2) == built("nstb_tokens", N, D, nh, hd, H, 2) == nstb
+    mma = env.nstb_mma_plan(N, D, nh, hd, H)
+    assert built("nstb_map", N, D, nh, hd, H, 1) == built("nstb_tokens", N, D, nh, hd, H, 1) == (
+        -1 if mma is None else mma[1])
+    for dtype in (torch.float32, torch.bfloat16):
+        assert env.built_nstb_body("nstb_map", N, D, nh, hd, H, dtype) == env.built_nstb_body(
+            "nstb_tokens", N, D, nh, hd, H, dtype) == env.nstb_body(N, D, nh, hd, H, dtype)
 
 
 # the demo width (examples/demo_end_to_end.py, tests/test_ngswin_pallas.py)

@@ -1,9 +1,15 @@
-// The generic per-window body of a whole NSTB (N-gram Swin Transformer Block),
-// shared by K2 (nstb_map.cu) and K8 (nstb_tokens.cu) beside the full-width
-// NGswin's bodies (nstb_window.cuh in float32, nstb_window_mma.cuh in
-// bfloat16 on the tensor cores).  It computes what those compute, and what
-// the TPU kernels tmar/ops/pallas_nstb.py:_nstb_map_kernel and :_nstb_kernel
-// compute at every width:
+// The CUDA-core generic per-window body of a whole NSTB (N-gram Swin
+// Transformer Block), shared by K2 (nstb_map.cu) and K8 (nstb_tokens.cu)
+// beside the full-width NGswin's bodies (nstb_window.cuh in float32,
+// nstb_window_mma.cuh in bfloat16 on the tensor cores) and the tensor-core
+// generic body (nstb_generic_mma.cuh).  It runs float32 at every width but
+// the flagship's (the exactness path), and bfloat16 where the tensor-core
+// generic body takes no plan (nstb_generic_mma.cuh: `body`, the same rule as
+// tmar_torch/ops/envelope.py:nstb_body; a width not a multiple of 8, past 128,
+// or weights past the card's shared memory with head_dim or H not a multiple
+// of 8).  It computes what those compute, and what the TPU kernels
+// tmar/ops/pallas_nstb.py:_nstb_map_kernel and :_nstb_kernel compute at every
+// width:
 //   x_attn = x + ctx_tok                      (the context of the token's quadrant)
 //   a      = proj(softmax(cos(q, k)·scale + rpb + shift mask)·v)
 //   y      = x + LN1(a)                       (residual WITHOUT the context)
@@ -240,12 +246,6 @@ int launch(const void* const* p, void* out, const Windows& wins, int D, int H, i
   if (hd <= 8) return launch_hd<8, float>(p, out, wins, D, H, nh, hd, Q, shift, eps, blocks, s);
   if (hd <= 16) return launch_hd<16, float>(p, out, wins, D, H, nh, hd, Q, shift, eps, blocks, s);
   return launch_hd<32, float>(p, out, wins, D, H, nh, hd, Q, shift, eps, blocks, s);
-}
-
-// The full-width NGswin's geometry, which its own bodies take (dispatch_nstb
-// of nstb_window_mma.cuh): window 8, D 64, H 128, heads 6 x 10 or 4 x 16.
-inline bool flagship(int ws, int D, int H, int nh, int hd) {
-  return ws == 8 && D == 64 && H == 128 && ((nh == 6 && hd == 10) || (nh == 4 && hd == 16));
 }
 
 }  // namespace nstb_rt

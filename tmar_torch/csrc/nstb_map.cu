@@ -15,10 +15,13 @@
 // TPU kernel pads them, pallas_nstb.py:514-526): a block walks windows, not
 // stripes.  The per-window bodies, what bounds them and their designs are in
 // nstb_window.cuh (float32) and nstb_window_mma.cuh (bfloat16, tensor cores)
-// at the full-width NGswin's geometry, and nstb_generic.cuh at every other
-// width; all are shared with K8 (nstb_tokens.cu).
+// at the full-width NGswin's geometry, nstb_generic_mma.cuh (bfloat16,
+// tensor cores) and nstb_generic.cuh (CUDA cores) at every other width; all
+// are shared with K8 (nstb_tokens.cu), and nstb_generic_mma.cuh's `body`
+// picks one by geometry and I/O type.
 
 #include "nstb_generic.cuh"
+#include "nstb_generic_mma.cuh"
 #include "nstb_window_mma.cuh"
 
 namespace {
@@ -74,11 +77,12 @@ extern "C" {
 // type and the [in, out] layout; bqkv [3A], scale [nh] = exp(min(logit_scale,
 // ln 100)), table [(2ws-1)², nh], bproj, LN gains/biases and FFN biases are
 // float32.  Requires ph, pw multiples of the window side ws, ws² <= 64,
-// Q in {1, 4}, 0 <= shift < ws and head_dim <= 32.  The full-width NGswin's
-// geometry (ws 8, D 64, H 128, heads 6 x 10 or 4 x 16) runs its own bodies on
-// as many persistent blocks as the card holds; every other width the generic
-// body on `blocks` persistent blocks.  Returns a cudaError_t code (0 on a
-// clean launch).
+// Q in {1, 4}, 0 <= shift < ws and head_dim <= 32.  nstb_mma::body picks the
+// body: the full-width NGswin's geometry (ws 8, D 64, H 128, heads 6 x 10 or
+// 4 x 16) runs its own bodies, bfloat16 at every other width the tensor-core
+// generic body where it has a plan (each on as many persistent blocks as the
+// card holds), the rest the CUDA-core generic body on `blocks` persistent
+// blocks.  Returns a cudaError_t code (0 on a clean launch).
 int tmar_nstb_map(const void* x, const void* cq, const void* wqkv,
                   const void* bqkv, const void* scale, const void* table,
                   const void* wproj, const void* bproj, const void* g1,
@@ -94,19 +98,53 @@ int tmar_nstb_map(const void* x, const void* cq, const void* wqkv,
                        g1, b1, w1,   bw1,  w2,    bw2,   g2,    b2};
   const int wh = ph / ws, ww = pw / ws;
   cudaStream_t s = (cudaStream_t)stream;
-  if (nstb_rt::flagship(ws, D, H, num_heads, head_dim)) {
+  const nstb_mma::Body body = nstb_mma::body(ws, D, num_heads, head_dim, H, is_bf16);
+  if (body == nstb_mma::FLAGSHIP) {
     const RolledMap wins{B * wh * ww, wh, ww, ph, pw, shift};
     return dispatch_nstb(num_heads, head_dim, is_bf16, p, out, wins, Q, shift, eps, s);
   }
   const RolledMapRt wins{B * wh * ww, wh, ww, ws, ph, pw, shift};
+  if (body == nstb_mma::TENSOR_CORE)
+    return nstb_mma::launch(p, out, wins, D, H, num_heads, head_dim, Q, shift, eps, s);
   return nstb_rt::launch(p, out, wins, D, H, num_heads, head_dim, Q, shift, eps, is_bf16,
                          blocks, s);
 }
 
-// The shared memory, in bytes, of the generic body's launch at (N, D, heads,
-// head_dim, H).
-long long tmar_nstb_map_smem(int N, int D, int num_heads, int head_dim, int H) {
-  return (long long)nstb_rt::smem_bytes(N, D, num_heads * head_dim, H);
+// The tensor-core generic body alone, at any geometry it has a plan for (the
+// full-width NGswin's too), bfloat16 only; arguments as tmar_nstb_map's
+// (`blocks` unread).  Not a dispatch: it times that body where the rule
+// sends another.
+int tmar_nstb_map_mma(const void* x, const void* cq, const void* wqkv,
+                      const void* bqkv, const void* scale, const void* table,
+                      const void* wproj, const void* bproj, const void* g1,
+                      const void* b1, const void* w1, const void* bw1,
+                      const void* w2, const void* bw2, const void* g2,
+                      const void* b2, void* out, int B, int ph, int pw, int D, int H, int ws,
+                      int Q, int shift, int num_heads, int head_dim, int is_bf16, int blocks,
+                      float eps, void* stream) {
+  (void)blocks;
+  if (!is_bf16 || B < 1 || ws < 1 || ph < ws || pw < ws || ph % ws || pw % ws ||
+      (Q != 1 && Q != 4) || shift < 0 || shift >= ws)
+    return (int)cudaErrorInvalidValue;
+  const void* p[16] = {x,  cq, wqkv, bqkv, scale, table, wproj, bproj,
+                       g1, b1, w1,   bw1,  w2,    bw2,   g2,    b2};
+  const int wh = ph / ws, ww = pw / ws;
+  const RolledMapRt wins{B * wh * ww, wh, ww, ws, ph, pw, shift};
+  return nstb_mma::launch(p, out, wins, D, H, num_heads, head_dim, Q, shift, eps,
+                          (cudaStream_t)stream);
+}
+
+// The body (nstb_mma::Body) that runs windows of N = ws² tokens at (D, heads,
+// head_dim, H) and this I/O type.
+int tmar_nstb_map_body(int N, int D, int num_heads, int head_dim, int H, int is_bf16) {
+  return (int)nstb_mma::body(nstb_mma::side(N), D, num_heads, head_dim, H, is_bf16);
+}
+
+// The shared memory, in bytes, that generic body `body` (TENSOR_CORE or
+// CUDA_CORE) launches with at (N, D, heads, head_dim, H); -1 where the
+// tensor-core body has no plan.
+long long tmar_nstb_map_smem(int N, int D, int num_heads, int head_dim, int H, int body) {
+  return nstb_mma::generic_smem(N, D, num_heads, head_dim, H, body);
 }
 
 const char* tmar_nstb_map_error(int err) {

@@ -15,11 +15,13 @@
 // here a persistent block walks the windows and needs the modulo alone.  The
 // per-window bodies, what bounds them and their designs are in
 // nstb_window.cuh (float32) and nstb_window_mma.cuh (bfloat16, tensor cores)
-// at the full-width NGswin's geometry, and nstb_generic.cuh at every other
-// width, shared with K2 (nstb_map.cu): the two differ only in token
-// addressing.
+// at the full-width NGswin's geometry, nstb_generic_mma.cuh (bfloat16,
+// tensor cores) and nstb_generic.cuh (CUDA cores) at every other width,
+// shared with K2 (nstb_map.cu): the two differ only in token addressing, and
+// nstb_generic_mma.cuh's `body` picks the body for both.
 
 #include "nstb_generic.cuh"
+#include "nstb_generic_mma.cuh"
 #include "nstb_window_mma.cuh"
 
 namespace {
@@ -54,7 +56,8 @@ extern "C" {
 // grid of one image: with shift > 0 it gates the mask and nwin must be a
 // multiple of wh·ww; with shift 0 it is not read.  Requires ws² <= 64, Q in
 // {1, 4} (Q = 4 at shift 0 reads slot 0 only), 0 <= shift < ws and head_dim
-// <= 32.  Returns a cudaError_t code (0 on a clean launch).
+// <= 32.  nstb_mma::body picks the body, as tmar_nstb_map's.  Returns a
+// cudaError_t code (0 on a clean launch).
 int tmar_nstb_tokens(const void* x, const void* cq, const void* wqkv,
                      const void* bqkv, const void* scale, const void* table,
                      const void* wproj, const void* bproj, const void* g1,
@@ -70,19 +73,29 @@ int tmar_nstb_tokens(const void* x, const void* cq, const void* wqkv,
   const void* p[16] = {x,  cq, wqkv, bqkv, scale, table, wproj, bproj,
                        g1, b1, w1,   bw1,  w2,    bw2,   g2,    b2};
   cudaStream_t s = (cudaStream_t)stream;
-  if (nstb_rt::flagship(ws, D, H, num_heads, head_dim)) {
+  const nstb_mma::Body body = nstb_mma::body(ws, D, num_heads, head_dim, H, is_bf16);
+  if (body == nstb_mma::FLAGSHIP) {
     const Tokens wins{nwin, wh, ww};
     return dispatch_nstb(num_heads, head_dim, is_bf16, p, out, wins, Q, shift, eps, s);
   }
   const TokensRt wins{nwin, wh, ww, ws};
+  if (body == nstb_mma::TENSOR_CORE)
+    return nstb_mma::launch(p, out, wins, D, H, num_heads, head_dim, Q, shift, eps, s);
   return nstb_rt::launch(p, out, wins, D, H, num_heads, head_dim, Q, shift, eps, is_bf16,
                          blocks, s);
 }
 
-// The shared memory, in bytes, of the generic body's launch at (N, D, heads,
-// head_dim, H).
-long long tmar_nstb_tokens_smem(int N, int D, int num_heads, int head_dim, int H) {
-  return (long long)nstb_rt::smem_bytes(N, D, num_heads * head_dim, H);
+// The body (nstb_mma::Body) that runs windows of N = ws² tokens at (D, heads,
+// head_dim, H) and this I/O type.
+int tmar_nstb_tokens_body(int N, int D, int num_heads, int head_dim, int H, int is_bf16) {
+  return (int)nstb_mma::body(nstb_mma::side(N), D, num_heads, head_dim, H, is_bf16);
+}
+
+// The shared memory, in bytes, that generic body `body` (TENSOR_CORE or
+// CUDA_CORE) launches with at (N, D, heads, head_dim, H); -1 where the
+// tensor-core body has no plan.
+long long tmar_nstb_tokens_smem(int N, int D, int num_heads, int head_dim, int H, int body) {
+  return nstb_mma::generic_smem(N, D, num_heads, head_dim, H, body);
 }
 
 const char* tmar_nstb_tokens_error(int err) {

@@ -23,13 +23,16 @@ CUDA tensor, through the operator ``tmar::nstb_map`` / ``tmar::nstb_tokens``
 (one node of a ``torch.export`` program), or raises.  Both return the block output in ROLLED space; the
 caller unpartitions (token mode) and applies the reverse cyclic shift.
 
-On the card the kernel picks its body by geometry: the full-width NGswin's
-(``FLAGSHIP_GEOMETRY`` and ``KERNEL_HEADS``) runs its own bodies, the
-tensor-core one at bfloat16 and the templated float32 one at float32; every
-other geometry inside ``envelope.nstb_envelope`` runs the generic body
-(``csrc/nstb_generic.cuh``).  A geometry past the envelope raises
-``NotImplementedError`` naming the limit; a build or launch failure raises,
-and nothing gives way to the plain version.
+On the card the kernel picks its body by geometry and dtype alone
+(``envelope.nstb_body``, the CUDA sources' ``nstb_mma::body``): the
+full-width NGswin's (``envelope.NSTB_FLAGSHIP``) runs its
+own bodies, the tensor-core one at bfloat16 and the templated float32 one at
+float32; every other geometry inside ``envelope.nstb_envelope`` runs a
+generic body, at bfloat16 the tensor-core one (``csrc/nstb_generic_mma.cuh``)
+wherever it has a plan, else the CUDA-core one (``csrc/nstb_generic.cuh``).
+A geometry past the envelope raises ``NotImplementedError`` naming the
+limit; a build or launch failure raises, and nothing gives way to another
+body or to the plain version.
 """
 
 from __future__ import annotations
@@ -58,13 +61,6 @@ from tmar_torch.ops.window import (
     window_partition,
     window_unpartition,
 )
-
-# (num_heads, head_dim) pairs of the full-width NGswin's own bodies, its
-# 6-head (A = 60) and 4-head (A = 64) blocks, at (window, D, H) =
-# FLAGSHIP_GEOMETRY; every other geometry runs the generic body
-KERNEL_HEADS = {(6, 10), (4, 16)}
-FLAGSHIP_GEOMETRY = (8, 64, 128)
-
 
 def quadrant_selector(window_size: int, shift_size: int) -> np.ndarray:
     """[N, 4] one-hot: token (r, c) -> which pre-shift window (own / right /
@@ -287,12 +283,13 @@ def _flat(weights):
 
 
 def _geometry(name, n_windows, D, wqkv, ffn1, num_heads, window_size, Q, shift, dtype, device):
-    """Check the block's geometry and pick its body: -> the entry point's
-    (D, H, window, Q, shift, heads, head_dim, is_bf16, blocks).  The
-    full-width NGswin's geometry runs its own bodies (``blocks`` unread);
-    every other one inside ``envelope.nstb_envelope`` the generic body on
-    persistent blocks for ``n_windows`` windows; past it NotImplementedError
-    names the limit."""
+    """Check the block's geometry: -> the entry point's (D, H, window, Q,
+    shift, heads, head_dim, is_bf16, blocks).  Past ``envelope.nstb_envelope``
+    (any geometry but the full-width NGswin's) NotImplementedError names the
+    limit.  The entry point picks the body by the rule of
+    ``envelope.nstb_body``; ``blocks``, the persistent blocks for
+    ``n_windows`` windows, is read by the CUDA-core generic body alone (the
+    others size their grids from the card's occupancy)."""
     A = wqkv.shape[1] // 3
     H = ffn1[0].shape[1]
     if A % num_heads:
@@ -304,8 +301,10 @@ def _geometry(name, n_windows, D, wqkv, ffn1, num_heads, window_size, Q, shift, 
         raise TypeError(f"{name}: unsupported dtype {dtype}")
     N = window_size * window_size
     blocks = 0
-    if (window_size, D, H) != FLAGSHIP_GEOMETRY or (num_heads, hd) not in KERNEL_HEADS:
+    body = envelope.nstb_body(N, D, num_heads, hd, H, dtype)
+    if body != envelope.NSTB_BODIES[0]:
         nbytes = envelope.nstb_envelope(N, D, num_heads, hd, H, device)
+    if body == envelope.NSTB_BODIES[2]:
         tiles = -(-n_windows // (envelope.ROWS // N))
         blocks = envelope.blocks_for(tiles, nbytes, kernels.sm_count(device))
     return (D, H, window_size, Q, shift, num_heads, hd, int(dtype == torch.bfloat16), blocks)

@@ -3,7 +3,8 @@
 Each kernel has a runtime-dimension body (``csrc/*.cu``, "the generic
 body") beside the full-width NGswin's bodies, which takes D, hidden, C, the
 head count, head_dim and the window length at run time and sizes its
-dynamic shared memory at launch.
+dynamic shared memory at launch.  K2/K8 have two: a tensor-core one for
+bfloat16 and a CUDA-core one; ``nstb_body`` says which body runs a block.
 What bounds it is the card's opt-in shared memory per block
 (``cudaDevAttrMaxSharedMemoryPerBlockOptin``, 232,448 bytes on an H100) and
 the per-thread head registers (head_dim <= 32).  The functions below count
@@ -20,7 +21,7 @@ A CPU tensor never comes here: it runs the plain versions at any width.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -184,10 +185,10 @@ def ngram_envelope(C: int, D: int, nh: int, hd: int, device: Optional[torch.devi
 # ---- K2 / K8: the whole NSTB -----------------------------------------------
 
 def nstb_bytes(N: int, D: int, nh: int, hd: int, H: int) -> int:
-    """K2's and K8's generic body: a tile of the whole windows that fit in
-    64 rows, in three float32 regions, rows padded to an odd length: x then
-    y at width D; x_attn, the head outputs and fc2's output at max(D, A);
-    qkv, the projection and the hidden layer at max(3A, H, D)."""
+    """K2's and K8's CUDA-core generic body: a tile of the whole windows
+    that fit in 64 rows, in three float32 regions, rows padded to an odd
+    length: x then y at width D; x_attn, the head outputs and fc2's output
+    at max(D, A); qkv, the projection and the hidden layer at max(3A, H, D)."""
     A = nh * hd
     rows = (ROWS // N) * N
     return 4 * rows * ((D + 1) + (max(D, A) + 1) + (max(3 * A, H, D) + 1))
@@ -195,11 +196,12 @@ def nstb_bytes(N: int, D: int, nh: int, hd: int, H: int) -> int:
 
 def nstb_envelope(N: int, D: int, nh: int, hd: int, H: int,
                   device: Optional[torch.device] = None) -> int:
-    """-> K2's / K8's generic body's bytes for windows of N tokens at width
-    D, nh heads of hd, FFN hidden H, or NotImplementedError naming the limit
-    (a window past 64 tokens, head_dim past 32, the tile past the card's
-    shared memory).  The FFN tail is not cut into chunks: past the card's
-    bytes the refusal names them, as K5's does."""
+    """-> K2's / K8's CUDA-core generic body's bytes for windows of N tokens
+    at width D, nh heads of hd, FFN hidden H, or NotImplementedError naming
+    the limit (a window past 64 tokens, head_dim past 32, the tile past the
+    card's shared memory).  The FFN tail is not cut into chunks: past the
+    card's bytes the refusal names them, as K5's does.  This is K2's and
+    K8's envelope at either dtype; inside it ``nstb_body`` picks the body."""
     kernel = "whole NSTB (K2/K8)"
     if not 1 <= N <= ROWS:
         raise _refuse(kernel, f"a window of N={N} tokens is past the bound N <= {ROWS}")
@@ -210,12 +212,85 @@ def nstb_envelope(N: int, D: int, nh: int, hd: int, H: int,
                  f"the block at N={N}, D={D}, heads={nh}x{hd}, hidden={H}")
 
 
+# the bodies of K2/K8, in the order of the CUDA sources' codes (nstb_mma::Body)
+NSTB_BODIES = ("flagship", "tensor-core generic", "CUDA-core generic")
+# the full-width NGswin's geometry, which K2/K8's own bodies take: (N, D,
+# hidden), then its 6-head (A = 60) and 4-head (A = 64) (heads, head_dim)
+NSTB_FLAGSHIP = (64, 64, 128, (6, 10), (4, 16))
+NSTB_MMA_WARPS = 8    # warps of a tensor-core generic block
+NSTB_MMA_CHUNK = 64   # hidden columns of one of its streamed stages
+NSTB_MMA_MAX_D = 128  # the widest D its fragment arrays take
+
+
+def _up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def nstb_mma_bytes(N: int, D: int, nh: int, hd: int, H: int, resident: bool) -> int:
+    """K2's and K8's tensor-core generic body (``csrc/nstb_generic_mma.cuh``:
+    ``make_plan``): float32 biases, gains, scales and the bias table; the bf16
+    weights [in][out] with rows padded by 8, all of them (``resident``) or
+    one stage's slices (a head's q/k/v columns and projection rows, 64 hidden
+    columns of fc1 and rows of fc2); per window group, two slots of the tile
+    (N padded to 16 rows, D to 16 columns) and its four context quads and
+    two head buffers of k_n and v."""
+    ws = round(N ** 0.5)
+    DP, HP = _up(D, 16), 16 if hd <= 16 else 32
+    AP, NP = nh * HP, _up(N, 16)
+    G = NSTB_MMA_WARPS // (NP // 16)
+    H16 = _up(H, 16)
+    floats = _up(3 * AP + 6 * DP + _up(H, NSTB_MMA_CHUNK) + nh + nh * (2 * ws - 1) ** 2, 4)
+    if resident:
+        weights = DP * (3 * AP + 8) + AP * (DP + 8) + DP * (H16 + 8) + H16 * (DP + 8)
+    else:
+        weights = (DP * (3 * HP + 8) + HP * (DP + 8) + DP * (NSTB_MMA_CHUNK + 8)
+                   + NSTB_MMA_CHUNK * (DP + 8))
+    group = 2 * (NP + 4) * (DP + 8) + 4 * NP * (HP + 8)
+    return 4 * floats + 2 * (weights + G * group)
+
+
+def nstb_mma_plan(N: int, D: int, nh: int, hd: int, H: int) -> Optional[Tuple[bool, int]]:
+    """-> (resident, bytes) of the tensor-core generic body's launch
+    (``csrc/nstb_generic_mma.cuh``: ``plan``), or None where it takes no
+    plan: D not a multiple of 8 (16-byte rows) or past 128, head_dim past
+    32, a window past 64 tokens, or weights that fit no block resident
+    (the card's shared memory) and cannot be streamed (head_dim and H
+    multiples of 8)."""
+    if not (1 <= N <= ROWS and 8 <= D <= NSTB_MMA_MAX_D and D % 8 == 0 and 1 <= hd <= HEAD_DIM_MAX
+            and nh >= 1 and H >= 1):
+        return None
+    nbytes = nstb_mma_bytes(N, D, nh, hd, H, True)
+    if nbytes <= H100_SMEM_PER_BLOCK:
+        return True, nbytes
+    if hd % 8 or H % 8:
+        return None
+    nbytes = nstb_mma_bytes(N, D, nh, hd, H, False)
+    return (False, nbytes) if nbytes <= H100_SMEM_PER_BLOCK else None
+
+
+def nstb_body(N: int, D: int, nh: int, hd: int, H: int, dtype: torch.dtype) -> str:
+    """The body of K2 and K8 that runs windows of N tokens at width D, nh
+    heads of hd, hidden H and I/O type ``dtype`` (one of ``NSTB_BODIES``),
+    by geometry and dtype alone, as the CUDA sources' ``nstb_mma::body``
+    picks it: the full-width NGswin's geometry (window 8, D 64, hidden 128,
+    6 x 10 or 4 x 16 heads) its own bodies; bfloat16 the tensor-core generic
+    body wherever it has a plan (``nstb_mma_plan``); the rest (float32, the
+    exactness path, and the bf16 geometries that body does not take) the
+    CUDA-core generic body."""
+    if (N, D, H) == NSTB_FLAGSHIP[:3] and (nh, hd) in NSTB_FLAGSHIP[3:]:
+        return NSTB_BODIES[0]
+    if dtype == torch.bfloat16 and nstb_mma_plan(N, D, nh, hd, H) is not None:
+        return NSTB_BODIES[1]
+    return NSTB_BODIES[2]
+
+
 # ---- the CUDA sources' own counts ----------------------------------------------
 
 # query -> (kernel library, C function, its int arguments): the arguments of
 # ffn_fwd_bytes, ffn_bwd_bytes, attention_fwd_bytes, attention_bwd_bytes,
-# ngram_fwd_bytes, ngram_bwd_bytes with the pass (1 or 2) last, and
-# nstb_bytes for each of K2 and K8
+# ngram_fwd_bytes, ngram_bwd_bytes with the pass (1 or 2) last, and for each
+# of K2 and K8 (N, D, heads, head_dim, hidden) with the generic body's code
+# last (1: nstb_mma_bytes of its plan, -1 without one; 2: nstb_bytes)
 SMEM_QUERIES = {
     "ffn_fwd": ("residual_ffn_fwd", "tmar_residual_ffn_fwd_smem", 2),
     "ffn_bwd": ("residual_ffn_bwd", "tmar_residual_ffn_bwd_smem", 3),
@@ -223,8 +298,8 @@ SMEM_QUERIES = {
     "attention_bwd": ("window_attention_bwd", "tmar_window_attention_bwd_smem", 4),
     "ngram_fwd": ("ngram_context", "tmar_ngram_context_smem", 3),
     "ngram_bwd": ("ngram_context_bwd", "tmar_ngram_context_bwd_smem", 5),
-    "nstb_map": ("nstb_map", "tmar_nstb_map_smem", 5),
-    "nstb_tokens": ("nstb_tokens", "tmar_nstb_tokens_smem", 5),
+    "nstb_map": ("nstb_map", "tmar_nstb_map_smem", 6),
+    "nstb_tokens": ("nstb_tokens", "tmar_nstb_tokens_smem", 6),
 }
 
 
@@ -236,3 +311,14 @@ def built_smem(query: str, *dims: int) -> int:
     lib, symbol, n = SMEM_QUERIES[query]
     fn = kernels.host_function(lib, symbol, [ctypes.c_int] * n, ctypes.c_longlong)
     return int(fn(*dims))
+
+
+def built_nstb_body(lib: str, N: int, D: int, nh: int, hd: int, H: int,
+                    dtype: torch.dtype) -> str:
+    """The body that the built CUDA source of K2 (``lib`` "nstb_map") or K8
+    ("nstb_tokens") picks (its ``tmar_*_body`` query), as ``nstb_body``
+    names it; needs a CUDA host."""
+    from tmar_torch import kernels
+
+    fn = kernels.host_function(lib, f"tmar_{lib}_body", [ctypes.c_int] * 6, ctypes.c_int)
+    return NSTB_BODIES[int(fn(N, D, nh, hd, H, int(dtype == torch.bfloat16)))]
