@@ -19,8 +19,12 @@ lines tagged ``[ab TREE]``:
 * the trainer's ``full`` step at 8x128² bf16, by that tree's
   ``chip_smoke.train_full`` (its ``[time]`` and ``[profile]`` lines).
 
-With ``--kernels`` it prints, in place of K2 and the step, the training
-kernels' launch alone (that tree's ``chip_smoke.attention_launch_ms`` and
+With ``--kernels`` it prints, in place of K2 and the step, K3 and K4 at
+bf16 at each geometry of that tree's ``chip_smoke.WIDTH_ATTN_CASES`` with
+windows of 32 to 64 tokens (their generic bodies; the demo 8x64² step's
+stage 1 first), the launch alone and its device time by torch.profiler
+(``chip_smoke.device_ms``, K4's by kernel); then the training kernels'
+launch alone (K3/K4 with their device time) (that tree's ``chip_smoke.attention_launch_ms`` and
 ``ffn_launch_ms``) at the full-width NGswin's geometries, bf16 and f32:
 K3/K4 at the 8x128² step's stage 1 (2048 windows of 64 tokens, 6 x 10
 heads, shift mask on) and at its n-gram windows (2048 of N = 4, 9 and 1 on
@@ -47,6 +51,7 @@ def training_kernels(cs, tag, card, randn):
     geometries (see the module docstring)."""
     import torch
 
+    from tmar_torch.ops import cuda_attention as ca
     from tmar_torch.ops.window import shift_mask_components
 
     for N, D, nh, hd, dtypes in ((64, 64, 6, 10, (torch.bfloat16, torch.float32)),
@@ -61,9 +66,11 @@ def training_kernels(cs, tag, card, randn):
         x, g = randn(nwin, N, D), randn(nwin, N, D)
         for dtype in dtypes:
             fwd, bwd = cs.attention_launch_ms(x.to(dtype), params, g.to(dtype), nh, mc)
+            d3, d4 = attention_device_ms(cs, ca, x.to(dtype), params, g.to(dtype), nh, mc)
             print(f"{tag} K3/K4 launch alone, x [{nwin}, {N}, {D}] {str(dtype).split('.')[1]}, "
                   f"{nh} x {hd} heads, mask {'on' if mc else 'off'}: forward {fwd:.4f} ms, "
-                  f"backward {bwd:.4f} ms on {card}", flush=True)
+                  f"backward {bwd:.4f} ms; device time alone forward {d3:.4f} ms, backward "
+                  f"{sum(d4.values()):.4f} ms on {card}", flush=True)
     M, D, H = 131072, 64, 128
     params = [randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1), randn(D, H, scale=0.1),
               randn(H, scale=0.1), randn(H, D, scale=0.1), randn(D, scale=0.1),
@@ -73,6 +80,64 @@ def training_kernels(cs, tag, card, randn):
         fwd, bwd = cs.ffn_launch_ms(x.to(dtype), ao.to(dtype), params, g.to(dtype))
         print(f"{tag} K5/K6 launch alone, x [{M}, {D}] {str(dtype).split('.')[1]}: forward "
               f"{fwd:.4f} ms, backward {bwd:.4f} ms on {card}", flush=True)
+
+
+# K4's device kernels in every body: the per-window (or per-tile) kernel,
+# the tensor-core bodies' token sums, the reduce of the partial sums
+K4_KERNELS = ("window_attention_bwd", "attention_param_sums", "reduce_partials",
+              "reduce_backward_partials")
+
+
+def attention_device_ms(cs, ca, x, params, g, nh, mc):
+    """(K3's device time alone, {K4's kernel: device time alone}) in ms per
+    launch on operands laid out once, by the tree's ``chip_smoke.device_ms``
+    (one name at a time: an earlier tree's takes one); the counters are put
+    back."""
+    f = ca.fused_window_attention
+    before = (f.launches, f.backward_launches)
+    ops, geo = ca._kernel_operands(x, *params, nh, mc)
+    d3, _ = cs.device_ms(lambda: ca._launch(ops, geo), "window_attention_fwd", calls=10)
+    _, lse = ca._launch(ops, geo)
+    d4 = {part: cs.device_ms(lambda: ca._launch_backward(ops, lse, g, geo), part, calls=10)[0]
+          for part in K4_KERNELS}
+    f.launches, f.backward_launches = before
+    return d3, d4
+
+
+def generic_attention_kernels(cs, tag, card):
+    """K3 and K4 at bf16, the launch alone and its device time, at each
+    geometry of the tree's ``chip_smoke.WIDTH_ATTN_CASES`` with windows of
+    32 to 64 tokens (the demo 8x64² step's stage 1 first), where their
+    generic bodies run, on operands laid out once by that tree's wrapper
+    from one seed."""
+    import torch
+
+    from tmar_torch.ops import cuda_attention as ca
+    from tmar_torch.ops.window import shift_mask_components
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
+
+    for label, nwin, N, D, nh, hd, ws, grid in cs.WIDTH_ATTN_CASES:
+        if N < 32:
+            continue
+        A = nh * hd
+        params = [randn(D, 3 * A, scale=0.1), randn(3 * A, scale=0.1),
+                  torch.full((nh, 1, 1), 1.2, device="cuda"), randn(nh, N, N, scale=0.2),
+                  randn(A, D, scale=0.1), randn(D, scale=0.1)]
+        x = randn(nwin, N, D).to(torch.bfloat16)
+        g = randn(nwin, N, D).to(torch.bfloat16)
+        mc = None if grid is None else (*shift_mask_components(ws, ws // 2), *grid)
+        fwd, bwd = cs.attention_launch_ms(x, params, g, nh, mc)
+        d3, d4 = attention_device_ms(cs, ca, x, params, g, nh, mc)
+        print(f"{tag} K3/K4 launch alone, {label} x [{nwin}, {N}, {D}] bf16, {nh} x {hd} heads, "
+              f"mask {'on' if mc else 'off'}: forward {fwd:.4f} ms, backward {bwd:.4f} ms; "
+              f"device time alone forward {d3:.4f} ms, backward {sum(d4.values()):.4f} ms ("
+              + ", ".join(f"{k} {v:.4f}" for k, v in d4.items() if v) + f") on {card}", flush=True)
+        del x, g
+    torch.cuda.empty_cache()
 
 
 def whole_block_kernels(cs, tag, card, randn):
@@ -196,6 +261,7 @@ def run_tree(tree: str, kernels_only: bool = False) -> int:
                   f"6 heads: forward {fwd:.4f} ms, backward {bwd:.4f} ms on {card}", flush=True)
 
     if kernels_only:
+        generic_attention_kernels(cs, tag, card)
         training_kernels(cs, tag, card, randn)
         whole_block_kernels(cs, tag, card, randn)
         generic_block_kernels(cs, tag, card)

@@ -130,11 +130,17 @@ Phases, each of which fails the run if it fails:
    context at C 16, D 32, the FFN at (32, 64), also with a ragged last
    tile), the JAX tests' (64, 32, 3 x 10) and (64, 16, 2 x 8), window 4 and
    the envelope's top (D 128, 4 x 32; FFN (128, 512); n-gram C 64, D 128),
-   each timed beside its bound; then ``Trainer.fit`` on the shipped recipe
+   each timed beside its bound (also windows of 6 and 7 tokens a side; every geometry of 32 to 64 tokens held at both shifts, its
+   body named, and K3's and K4's tensor-core generic bodies timed at the flagship's
+   geometry beside its own bodies, printed only); then ``Trainer.fit`` on the shipped recipe
    at the demo width (8x64² bf16, 4 ``full`` steps, then 12 on one batch:
    8 launches per step of each of K1, K7 and K3-K6, ``g_rec`` falling, the
    median step and its profile), one f32 step at 1x64² on the card against
-   the CPU, and the trained generator in the unfused serving form: an
+   the CPU, then the demo example's own config in the JAX
+   package's default model form through ``Trainer.fit`` at bf16, 3 steps
+   on one batch (8 launches each of K1, K7, K3-K6) and one step's device
+   time by kernel (K3's and K4's beside their time before their
+   tensor-core generic bodies), and the trained generator in the unfused serving form: an
    8x256² bf16 request (8 launches each of K1, K3, K5), f32 at 1x128²
    against the CPU within 1e-4; then K2's and K8's generic bodies against
    their plain versions at the demo width, the JAX tests' (D 8), window 4,
@@ -181,6 +187,16 @@ Phases, each of which fails the run if it fails:
    and K2 60 times over 3 forwards); the artifact's and the eager forward's
    median ms, printed only.  The ``kernels`` line gains
    ``launches_export_path`` ({artifact: launches per call}).
+
+24. the JAX package's default model form trains on the card: the
+   default ``TrainConfig`` model (``use_pallas_attention: false``,
+   ``attn_backward: auto``, full width) on the promoted recipe's data
+   settings, ``Trainer.fit`` for 4 ``full`` steps of 8x128² bf16, 3 more on
+   one batch (20 launches per step of each of K1, K7, K3-K6, ``g_rec``
+   falling), and one f32 step at 1x128² against the CPU in that form and
+   with ``use_pallas_attention: true`` and ``attn_backward`` ``auto`` and
+   ``xla`` (K4 0 there).  The ``kernels`` line gains
+   ``launches_default_form_step_path``.
 
 It prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card, exits non-zero
@@ -795,6 +811,80 @@ def attention_launch_ms(x, params, g, nh, mc, iters=20):
     return fwd, bwd
 
 
+# the device kernels of K4's bodies: the per-window (or per-tile) kernel, the
+# tensor-core bodies' token sums and every body's reduce of the partial sums
+K4_KERNEL_NAMES = ("window_attention_bwd", "attention_param_sums", "reduce_partials",
+                   "reduce_backward_partials")
+
+
+def generic_bodies_at_the_flagship_geometry(dev, card, randn):
+    """Printed only, not a dispatch: K3's and K4's tensor-core generic bodies
+    (their own C entries ``tmar_window_attention_*_gmma``) at the flagship's
+    8x128² train step's stage 1 (2048 windows of 64 tokens, D 64, 6 x 10
+    heads, the shift mask on, random weights) beside the flagship's own
+    bodies on the same operands, the launch alone, and how far apart their
+    outputs land; the counters are put back."""
+    import ctypes
+
+    import torch
+
+    from tmar_torch import kernels
+    from tmar_torch.ops import cuda_attention as ca
+    from tmar_torch.ops.window import shift_mask_components
+
+    nwin, N, D, nh, hd = 2048, 64, 64, 6, 10
+    A = nh * hd
+    params = [randn(D, 3 * A, scale=0.1), randn(3 * A, scale=0.1),
+              torch.full((nh, 1, 1), 1.2, device=dev), randn(nh, N, N, scale=0.2),
+              randn(A, D, scale=0.1), randn(D, scale=0.1)]
+    x = randn(nwin, N, D).to(torch.bfloat16)
+    g = randn(nwin, N, D).to(torch.bfloat16)
+    mc = (*shift_mask_components(8, 4), 16, 16)
+    f = ca.fused_window_attention
+    before = (f.launches, f.backward_launches)
+    ops, geo = ca._kernel_operands(x, *params, nh, mc)
+    p = [ca._ptr(t) for t in ops]
+    fwd = kernels.host_function("window_attention_fwd", "tmar_window_attention_fwd_gmma",
+                                ca._FWD_ARGTYPES, ctypes.c_int)
+    bwd = kernels.host_function("window_attention_bwd", "tmar_window_attention_bwd_gmma",
+                                ca._BWD_ARGTYPES, ctypes.c_int)
+    floats = kernels.host_function("window_attention_bwd", "tmar_window_attention_bwd_gmma_workspace",
+                                   [ctypes.c_int] * 5, ctypes.c_longlong)(nwin, N, D, nh, hd)
+    out_g, lse_g = torch.empty_like(x), torch.empty(nwin, nh, N, device=dev)
+    dx_g = torch.empty_like(x)
+    work = torch.empty(floats, device=dev)
+    dp_g = torch.empty(D * 3 * A + 3 * A + nh + nh * N * N + A * D + D, device=dev)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+
+    def k3():
+        kernels.check("window_attention_fwd", fwd(*p, out_g.data_ptr(), lse_g.data_ptr(),
+                                                  *geo.ints(False), stream()))
+
+    def k4():
+        kernels.check("window_attention_bwd", bwd(
+            p[0], g.data_ptr(), *p[1:5], p[5], p[7], p[8], lse_g.data_ptr(), dx_g.data_ptr(),
+            work.data_ptr(), dp_g.data_ptr(), *geo.ints(True), stream()))
+
+    flag3 = cuda_ms(lambda: ca._launch(ops, geo), iters=10)
+    out, lse = ca._launch(ops, geo)
+    flag4 = cuda_ms(lambda: ca._launch_backward(ops, lse, g, geo), iters=10)
+    dx, dparams = ca._launch_backward(ops, lse, g, geo)
+    gen3, gen4 = cuda_ms(k3, iters=10), cuda_ms(k4, iters=10)
+    f.launches, f.backward_launches = before
+    d_out = float((out.float() - out_g.float()).abs().max())
+    d_dx = float((dx.float() - dx_g.float()).abs().max())
+    d_dp = float((dparams - dp_g).abs().max()) / float(dparams.abs().max())
+    print(f"[time] window attention at the flagship's geometry, x [{nwin}, 64, 64] bf16, 6 x 10 "
+          f"heads, mask on (printed only, not a dispatch): tensor-core generic bodies K3 "
+          f"{gen3:.4f} ms, K4 {gen4:.4f} ms; the flagship's own K3 {flag3:.4f} ms, K4 "
+          f"{flag4:.4f} ms; max |diff| out {d_out:.3e} (max|out| "
+          f"{float(out.float().abs().max()):.3e}), dx {d_dx:.3e} (max|dx| "
+          f"{float(dx.float().abs().max()):.3e}), parameter cotangents {d_dp:.3e} of their max "
+          f"on {card}")
+    del ops, out, out_g, dx, dx_g, work
+    torch.cuda.empty_cache()
+
+
 ATTN_NAMES = ["out", "dx", "dwqkv", "dbqkv", "dlogit_scale", "dbias", "dwproj", "dbproj"]
 NGRAM_NAMES = ["out", "du", "dwqkv", "dbqkv", "dlogit_scale", "dtable", "dwproj", "dbproj",
                "dwmerge", "dbmerge"]
@@ -1163,6 +1253,8 @@ WIDTH_ATTN_CASES = (
     ("jax D16", 512, 64, 16, 2, 8, 8, None),
     ("window 4 shift", 2048, 16, 32, 2, 16, 4, (16, 16)),
     ("envelope top shift", 512, 64, 128, 4, 32, 8, (8, 8)),
+    ("window 6 shift", 512, 36, 32, 2, 16, 6, (8, 8)),
+    ("window 7 shift", 512, 49, 32, 2, 16, 7, (8, 8)),
 )
 # (label, rows, D, hidden)
 WIDTH_FFN_CASES = (("demo", 32768, 32, 64), ("demo ragged", 1000, 32, 64),
@@ -1189,9 +1281,10 @@ def smem_count_failures():
     """The shared memory each CUDA source launches its generic body with
     (its ``tmar_*_smem`` query) against ``envelope``'s count, at every
     geometry of phase 20 and the full-width NGswin's (its float32 runs the
-    generic bodies; K2/K8: both generic bodies), and the body K2's and K8's
-    sources pick (``tmar_*_body``) against ``envelope.nstb_body`` at both
-    dtypes: -> the geometries where they differ."""
+    generic bodies; K2/K8 and K3/K4: both generic bodies), and the body K2's,
+    K8's, K3's and K4's sources pick (``tmar_*_body``) against
+    ``envelope.nstb_body`` and ``envelope.attention_body`` at both dtypes:
+    -> the geometries where they differ."""
     import torch
 
     from tmar_torch.ops import envelope as env
@@ -1203,6 +1296,16 @@ def smem_count_failures():
         if (built("attention_fwd", D, nh, hd, hg_f), built("attention_bwd", N, D, hd, hg_b)) \
                 != (fwd, bwd):
             bad.append(("attention", N, D, nh, hd))
+        mma = env.attention_mma_bytes(N, D, nh, hd) or (-1, -1, -1)
+        if (built("attention_fwd_mma", N, D, nh, hd), built("attention_bwd_mma", N, D, nh, hd, 1),
+                built("attention_bwd_mma", N, D, nh, hd, 2)) != tuple(mma):
+            bad.append(("attention tensor-core generic", N, D, nh, hd))
+        for dtype in (torch.float32, torch.bfloat16):
+            want = env.attention_body(N, D, nh, hd, dtype)
+            if (env.built_attention_body("window_attention_fwd", N, D, nh, hd, dtype),
+                    env.built_attention_body("window_attention_bwd", N, D, nh, hd, dtype)) \
+                    != (want, want):
+                bad.append(("attention body", str(dtype), N, D, nh, hd))
     for _, _, D, H in WIDTH_FFN_CASES + (("flagship", 0, 64, 128),):
         fwd, rows, bwd = env.ffn_envelope(D, H)
         if (built("ffn_fwd", D, H), built("ffn_bwd", D, H, rows)) != (fwd, bwd):
@@ -1239,6 +1342,7 @@ def check_width_kernels(dev, card):
     import torch
 
     from tmar_torch.ops import cuda_ngram
+    from tmar_torch.ops import envelope as env
     from tmar_torch.ops.attention import window_attention_math
     from tmar_torch.ops.cuda_attention import (
         _PlainAttention, fused_window_attention, window_attention_backward_math,
@@ -1281,16 +1385,25 @@ def check_width_kernels(dev, card):
         mc = None if grid is None else (*shift_mask_components(ws, ws // 2), *grid)
         name = f"{label} x=[{nwin}, {N}, {D}] heads={nh}x{hd} mask={'on' if grid else 'off'}"
         errs = {h: {"float32": 0.0, "bfloat16": 0.0} for h in ("fwd", "bwd")}
-        hold("window_attention", name, ATTN_NAMES, 1,
-             lambda *a: fused_window_attention(*a, nh, mask_components=mc),
-             lambda *a: window_attention_math(
-                 a[0], a[1].to(a[0].dtype), a[2].to(a[0].dtype), a[3], a[4], a[5].to(a[0].dtype),
-                 a[6].to(a[0].dtype), nh, mask_components=mc),
-             acts, params, g, errs,
-             plain_bf16=lambda a, p, gg: [
-                 window_attention_kernel_math(a[0], *p, nh, mask_components=mc),
-                 *window_attention_backward_math(a[0], gg, *p, nh, mask_components=mc)],
-             param_bf16=N >= 32)
+        # windows of 32 tokens or more (the tensor-core generic bodies at
+        # bf16) are held at both shifts: the case's own, and the other one
+        # (shift 0 beside ws/2 on an 8 x 8 grid of windows)
+        masks = [(name, mc)]
+        if N >= 32:
+            other = (*shift_mask_components(ws, ws // 2), 8, 8) if mc is None else None
+            masks.append((f"{label} x=[{nwin}, {N}, {D}] heads={nh}x{hd} "
+                          f"mask={'off' if mc is not None else 'on'}", other))
+        for held, m in masks:
+            hold("window_attention", held, ATTN_NAMES, 1,
+                 lambda *a, m=m: fused_window_attention(*a, nh, mask_components=m),
+                 lambda *a, m=m: window_attention_math(
+                     a[0], a[1].to(a[0].dtype), a[2].to(a[0].dtype), a[3], a[4],
+                     a[5].to(a[0].dtype), a[6].to(a[0].dtype), nh, mask_components=m),
+                 acts, params, g, errs,
+                 plain_bf16=lambda a, p, gg, m=m: [
+                     window_attention_kernel_math(a[0], *p, nh, mask_components=m),
+                     *window_attention_backward_math(a[0], gg, *p, nh, mask_components=m)],
+                 param_bf16=N >= 32)
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[1]
             t = _time_pair(
@@ -1300,9 +1413,14 @@ def check_width_kernels(dev, card):
                 acts, params, g, dtype)
             launch = attention_launch_ms(acts[0].to(dtype), params, g.to(dtype), nh, mc)
             size = acts[0].to(dtype).element_size()
+            body = env.attention_body(N, D, nh, hd, dtype)
+            print(f"[body] window attention {name} {dn}: {body} (K3 and K4)")
             for i, kernel in enumerate(("window_attention_fwd", "window_attention_bwd")):
                 record(kernel, name, dn, launch[i], t[2 + i],
                        bound_ms(*attention_work(nwin, N, D, nh, hd, size, i == 1), dn), errs)
+                rows[kernel][-1]["body"] = body
+        if N == 64 and (D, nh, hd) == (32, 2, 16) and mc is None:
+            generic_bodies_at_the_flagship_geometry(dev, card, randn)
 
     for label, M, D, H in WIDTH_FFN_CASES:
         acts = [randn(M, D), randn(M, D)]
@@ -1634,6 +1752,7 @@ def demo_width(card):
                      patch=DEMO_PATCH)
         del on_cpu, on_card
         torch.cuda.empty_cache()
+        demo_default_form(tmp, card, demo_batch(8, "cuda"), check)
 
     # the trained generator served in the unfused form (K1 + K3 + K5)
     kw = dict(embed_dim=32, depths=(2, 2, 2), num_heads=(2, 2, 2), dec_dim=32, dec_depths=2,
@@ -1719,6 +1838,174 @@ def demo_width(card):
         del served, f32_card, f32_cpu
     if failures:
         raise SystemExit(f"demo-width checks failed: {failures}")
+    return {k: int(v) for k, v in per_step.items()}
+
+
+# examples/demo_end_to_end.py's own config: the JAX package's default
+# TrainConfig (use_pallas_attention false, attn_backward auto) with the
+# example's overrides, trained here at bf16
+DEMO_EXAMPLE = {
+    "model.embed_dim": 32, "model.depths": [2, 2, 2], "model.num_heads": [2, 2, 2],
+    "model.dec_dim": 32, "model.dec_depths": 2, "model.dec_num_heads": 2,
+    "disc.base_channels": 16, "disc.num_scales": 2, "data.patch_size": 64, "data.batch_size": 8,
+    "data.samples_per_epoch": 32, "data.num_workers": 2, "radon.num_angles": 24,
+    "loss.dilation_radius": 2, "log_every": 2, "data.dataset": "synthetic",
+}
+# K3's and K4's device time per demo-width full step before their
+# tensor-core generic bodies (PERF.md §5, the 8x64² bf16 step's [profile])
+DEMO_STEP_K3_K4_BEFORE = (1.59, 4.48)
+
+
+def demo_default_form(tmp, card, batch, check):
+    """Phase 20b, the demo example's own config in the JAX package's default
+    model form through ``Trainer.fit`` at bf16 (one epoch of 4 ``full``
+    steps, no validation), then 3 steps on one fixed batch: 8 launches per
+    step of each of K1, K7 and K3-K6 (the forward-only whole-block kernels
+    never run under autograd), ``g_rec`` falling; and one step's device
+    time by kernel, K3's and K4's (their tensor-core generic bodies) beside
+    their time before those bodies."""
+    import torch
+
+    from tmar_torch.train import Trainer, load_config
+    from tmar_torch.utils.profiling import device_profile
+
+    cfg = load_config(None, {**DEMO_EXAMPLE, "bf16": True, "num_epochs": 1,
+                             "val_every_n_epochs": 2, "run_dir": tmp, "run_name": "demo_default"})
+    check(not cfg.model.use_pallas_attention and cfg.model.attn_backward == "auto"
+          and cfg.variant == "full", "the demo example's config: the JAX default model form")
+    trainer = Trainer(cfg)
+    counters = _train_counters()
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+    trainer.fit(progress=False)
+    fit = {k: getattr(f, attr) for k, (f, attr) in counters.items()}
+    steps = int(trainer.state.step)
+    check(steps == 4 and all(np.isfinite(v) for h in trainer.history for v in h.values()),
+          f"the default form's Trainer.fit takes 4 steps, every metric finite (launches {fit})")
+    for f, attr in counters.values():
+        setattr(f, attr, 0)
+    history = []
+    for _ in range(3):
+        trainer.state, metrics = trainer.train_step(trainer.state, batch)
+        history.append({k: float(v) for k, v in metrics.items()})
+    torch.cuda.synchronize()
+    per_step = {k: getattr(f, attr) / 3 for k, (f, attr) in counters.items()}
+    print("[demo default form] launches per step: "
+          + ", ".join(f"{k} {v:g}" for k, v in per_step.items()))
+    check([per_step[k] for k in counters] == [8] * 6 + [0],
+          "the default form: 8 launches per full step of each of K3, K4, K5, K6, K1 and K7, "
+          "none of K2")
+    check(all(np.isfinite(v) for h in history for v in h.values())
+          and history[-1]["g_rec"] < history[0]["g_rec"],
+          f"the default form: metrics finite, g_rec falls on the fixed batch "
+          f"{history[0]['g_rec']:.5f} -> {history[-1]['g_rec']:.5f}")
+    rows = device_profile(lambda: trainer.train_step(trainer.state, batch), iters=3, top=1 << 30)
+    busy = sum(r["ms"] for r in rows)
+    k3 = sum(r["ms"] for r in rows if "window_attention_fwd" in r["op"])
+    k4 = sum(r["ms"] for r in rows if any(n in r["op"] for n in K4_KERNEL_NAMES))
+    print(f"[profile] demo default form full step 8x{DEMO_PATCH}² bf16, device ms per step: busy "
+          f"{busy:.3f}; K3 {k3:.3f} ({100 * k3 / busy:.1f} %), K4 {k4:.3f} ({100 * k4 / busy:.1f} "
+          f"%), on their tensor-core generic bodies; before them (PERF.md §5) K3 "
+          f"{DEMO_STEP_K3_K4_BEFORE[0]}, K4 {DEMO_STEP_K3_K4_BEFORE[1]} on {card}")
+    check(k3 > 0 and k4 > 0, "the profile holds K3's and K4's device time")
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def train_forms(card):
+    """Phase 24: the JAX package's default model form trains on the card.
+    The default ``TrainConfig`` model (embed 64, depths 6/4/4 + 6, heads
+    6/4/4 + 6, ``use_pallas_attention: false``, ``attn_backward: auto``) on
+    the promoted recipe's data settings: ``Trainer.fit`` takes one epoch of
+    4 ``full`` steps of 8x128² bf16 (no validation), then 3 steps on one
+    fixed batch with the launch counts (20 per step of each of K1, K7 and
+    K3-K6) and ``g_rec`` falling.  Then one f32 step at 1x128² on the card
+    against the same step on the CPU (the plain path computes one function
+    in every form: one CPU step is the reference of all three) for the
+    default form, ``use_pallas_attention: true`` with ``attn_backward:
+    auto`` and with ``xla``, each with its launches (``xla``: no K4).
+    Returns the default form's launches per bf16 step."""
+    import tempfile
+
+    import torch
+
+    from tmar_torch.train import Trainer
+    from tmar_torch.train.config import ModelConfig
+
+    failures = []
+
+    def check(cond, what):
+        print(f"[check] default form: {what}: {'ok' if cond else 'FAIL'}")
+        if not cond:
+            failures.append(what)
+
+    default = ModelConfig()
+    widths = {f"model.{k}": getattr(default, k) for k in (
+        "embed_dim", "depths", "num_heads", "dec_dim", "dec_depths", "dec_num_heads",
+        "use_pallas_attention", "attn_backward")}
+    counters = _train_counters()
+    kernel_order = list(counters)
+    with tempfile.TemporaryDirectory(prefix="tmar_forms_") as tmp:
+        cfg = _trainer_config(tmp, **{**widths, "num_epochs": 1, "val_every_n_epochs": 2,
+                                      "run_name": "default"})
+        m = cfg.model
+        check((m.embed_dim, tuple(m.depths), m.use_pallas_attention, m.attn_backward)
+              == (64, (6, 4, 4), False, "auto"),
+              "the JAX default model (embed 64, depths 6/4/4, use_pallas_attention false, "
+              "attn_backward auto) on the promoted recipe")
+        trainer = Trainer(cfg)
+        check(trainer.generator.attn_backward == "auto", "the Trainer builds the auto form")
+        t0 = time.perf_counter()
+        trainer.fit(progress=False)
+        wall = time.perf_counter() - t0
+        check(int(trainer.state.step) == 4
+              and all(np.isfinite(v) for h in trainer.history for v in h.values()),
+              f"Trainer.fit takes 4 full steps of {TRAIN_BATCH}x{TRAIN_PATCH}² bf16 in {wall:.1f} s, "
+              f"every metric finite")
+        batch = _synthetic_batch(TRAIN_BATCH, "cuda")
+        for f, attr in counters.values():
+            setattr(f, attr, 0)
+        history = []
+        for _ in range(3):
+            trainer.state, metrics = trainer.train_step(trainer.state, batch)
+            history.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        per_step = {k: getattr(f, attr) / 3 for k, (f, attr) in counters.items()}
+        print("[train default form] launches per step: "
+              + ", ".join(f"{k} {v:g}" for k, v in per_step.items()))
+        check([per_step[k] for k in kernel_order] == [20] * 6 + [0],
+              "20 launches per full step of each of K3, K4, K5, K6, K1 and K7, none of K2")
+        check(all(np.isfinite(v) for h in history for v in h.values())
+              and history[-1]["g_rec"] < history[0]["g_rec"],
+              f"metrics finite, g_rec falls on the fixed batch: {history[0]['g_rec']:.5f} -> "
+              f"{history[-1]['g_rec']:.5f}")
+        del trainer
+        torch.cuda.empty_cache()
+
+        # one f32 step at 1x128² of each kernel form against the CPU
+        f32 = lambda pallas, backward, name: _trainer_config(tmp, **{  # noqa: E731
+            **widths, "bf16": False, "data.batch_size": 1, "run_name": name,
+            "model.use_pallas_attention": pallas, "model.attn_backward": backward})
+        on_cpu = Trainer(f32(False, "auto", "cpu"), device="cpu")
+        batch = _synthetic_batch(1, "cpu")
+        _, cpu_m = on_cpu.train_step(on_cpu.state, batch)
+        for pallas, backward, k4 in ((False, "auto", 20), (True, "auto", 20), (True, "xla", 0)):
+            label = f"use_pallas_attention {str(pallas).lower()}, attn_backward {backward}"
+            on_card = Trainer(f32(pallas, backward, f"f32_{pallas}_{backward}"))
+            for f, attr in counters.values():
+                setattr(f, attr, 0)
+            _, gpu_m = on_card.train_step(on_card.state, {k: v.cuda() for k, v in batch.items()})
+            torch.cuda.synchronize()
+            got = {k: getattr(f, attr) for k, (f, attr) in counters.items()}
+            print(f"[train default form] {label}: f32 step launches {got}")
+            check([got[k] for k in kernel_order] == [20, k4, 20, 20, 20, 20, 0],
+                  f"{label}: 20 launches of each of K3, K5, K6, K1 and K7, {k4} of K4, none of K2")
+            compare_step(on_cpu.state, on_card.state, cpu_m, gpu_m, f"f32 full step, {label}",
+                         check)
+            del on_card
+            torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"default-form training checks failed: {failures}")
     return {k: int(v) for k, v in per_step.items()}
 
 
@@ -4076,6 +4363,9 @@ def main() -> int:
     eval_launches = eval_phase(card, dudo_pickle)
     parallel_launches = parallel_phase(card)
     export_launches = export_phase(card)
+    t0 = time.perf_counter()
+    forms_launches = train_forms(card)
+    print(f"[time] phase 24 (the default model form) in {time.perf_counter() - t0:.1f} s on {card}")
     for name, rec in records.items():
         # launches: the count of the first path above that ran the kernel
         # (serving, composition training, the trainer's full step)
@@ -4087,6 +4377,7 @@ def main() -> int:
         rec["launches_eval_path"] = eval_launches.get(name, 0)
         rec["launches_parallel_path"] = parallel_launches.get(name, {})
         rec["launches_export_path"] = export_launches.get(name, {})
+        rec["launches_default_form_step_path"] = forms_launches.get(name, 0)
         rec["widths"] = width_rows.get(name, [])
         rec["card"] = card
     print(json.dumps({"kernels": list(records.values())}))

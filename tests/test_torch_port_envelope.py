@@ -98,6 +98,64 @@ def test_nstb_body_keeps_the_cuda_core_body_where_the_tensor_cores_take_no_plan(
     assert envelope.nstb_mma_bytes(64, 128, 4, 32, 512, False) == 196384
 
 
+# (N, D, heads, head_dim) of chip_smoke.py's phase-20a window-attention
+# geometries (WIDTH_ATTN_CASES: the demo, the JAX tests' 3 x 10 and D 16,
+# window 4, the envelope's top, the demo's n-gram windows), the windows of
+# side 6 and 7 (padded rows and keys), head_dim 10 at the demo width, and
+# the full-width NGswin's, with the body each runs at bfloat16 and float32
+ATTENTION_BODY_CASES = [
+    ((64, 32, 2, 16), "tensor-core generic", "CUDA-core generic"),
+    ((64, 32, 3, 10), "tensor-core generic", "CUDA-core generic"),
+    ((64, 16, 2, 8), "tensor-core generic", "CUDA-core generic"),
+    ((64, 128, 4, 32), "tensor-core generic", "CUDA-core generic"),
+    ((36, 32, 2, 16), "tensor-core generic", "CUDA-core generic"),
+    ((49, 32, 2, 16), "tensor-core generic", "CUDA-core generic"),
+    ((64, 32, 2, 10), "tensor-core generic", "CUDA-core generic"),
+    ((16, 32, 2, 16), "CUDA-core generic", "CUDA-core generic"),
+    ((4, 16, 2, 8), "CUDA-core generic", "CUDA-core generic"),
+    ((9, 16, 2, 8), "CUDA-core generic", "CUDA-core generic"),
+    ((1, 16, 2, 8), "CUDA-core generic", "CUDA-core generic"),
+    ((64, 64, 6, 10), "flagship", "templated"),
+    ((64, 64, 4, 16), "flagship", "templated"),
+    ((4, 32, 6, 5), "templated", "templated"),
+    ((9, 32, 4, 8), "templated", "templated"),
+]
+
+
+@pytest.mark.parametrize("geometry,bf16,f32", ATTENTION_BODY_CASES)
+def test_attention_body_is_a_rule_of_geometry_and_dtype(geometry, bf16, f32):
+    """K3's and K4's body by geometry and dtype alone: bfloat16 windows of
+    32 to 64 tokens run the tensor-core generic bodies (their plan's shared
+    memory fits a block, the envelope's top with its weights streamed in
+    K4), the n-gram windows below 32 tokens and every float32 geometry the
+    CUDA-core one, the full-width NGswin's geometries their own bodies; the
+    wrapper passes the code of the same name."""
+    assert envelope.attention_body(*geometry, torch.bfloat16) == bf16
+    assert envelope.attention_body(*geometry, torch.float32) == f32
+    plan = envelope.attention_mma_plan(*geometry)
+    assert (plan is not None) == (geometry[0] >= 32)
+    if plan is not None:
+        nbytes = envelope.attention_mma_bytes(*geometry)
+        assert nbytes == (plan["fwd"][1], plan["bwd"][-1], plan["sums"][1])
+        assert max(nbytes) <= envelope.H100_SMEM_PER_BLOCK
+        assert nbytes[0] == envelope.attention_mma_fwd_bytes(*geometry, plan["fwd"][0])
+    if bf16 != "flagship":
+        envelope.attention_envelope(*geometry)  # inside the envelope
+
+
+def test_attention_tensor_core_plan_counts_the_sources_layout():
+    """The demo geometry's and the envelope top's plans: the byte counts of
+    the CUDA source's layout, and at the top K4's per-window launch with
+    two window groups, its weights streamed and its tiles single-buffered."""
+    assert envelope.attention_mma_bytes(64, 32, 2, 16) == (34320, 127440, 57344)
+    top = envelope.attention_mma_plan(64, 128, 4, 32)
+    assert top["fwd"] == (True, 178192) and top["bwd"] == (2, False, False, 217232)
+    assert top["sums"] == (True, 204800)
+    for N, D, nh, hd in ((64, 12, 2, 6), (64, 144, 4, 32), (64, 128, 16, 32)):
+        assert envelope.attention_mma_plan(N, D, nh, hd) is None
+        assert envelope.attention_body(N, D, nh, hd, torch.bfloat16) == "CUDA-core generic"
+
+
 def test_nstb_envelope_refuses_past_the_card_s_shared_memory():
     """The FFN tail is not cut into chunks: at D = 128 (4 x 32 heads) a
     hidden width of 649 still fits, 650 does not, and the refusal names the

@@ -397,6 +397,10 @@ def _hold(names, n_acts, got, ref, dtype, param_dtype=torch.float32):
     (12, 64, 16, 2, 8, None), (36, 16, 32, 2, 16, (3, 3)), (8, 64, 128, 4, 32, (2, 2)),
     # many narrow heads: 16 x 8 at D 128, 12 x 5 at D 60
     (8, 64, 128, 16, 8, (2, 2)), (40, 9, 60, 12, 5, None),
+    # the tensor-core generic bodies' padding: windows of side 6 and 7 (N 36
+    # and 49: padded rows and keys), head_dim 10 at the demo width (padded
+    # to 16)
+    (24, 36, 32, 2, 16, (2, 3)), (24, 49, 32, 2, 16, (2, 3)), (24, 64, 32, 2, 10, None),
 ])
 def test_window_attention_kernels_match_plain(cuda, dtype, nwin, N, D, nh, hd, grid):
     """At float32 against autograd of the plain math; at bfloat16 against
@@ -422,7 +426,9 @@ def test_window_attention_kernels_match_plain(cuda, dtype, nwin, N, D, nh, hd, g
     else:
         ref = [cuda_attention.window_attention_kernel_math(x, *params, nh, mask_components=mc),
                *cuda_attention.window_attention_backward_math(x, g, *params, nh, mask_components=mc)]
-        _hold(ATTN_NAMES, 1, got, ref, dtype, torch.bfloat16 if N == 64 else torch.float32)
+        # from 32 tokens up every cotangent product takes bf16 operands
+        # (``_roundings``), so the parameter cotangents are bf16 sums
+        _hold(ATTN_NAMES, 1, got, ref, dtype, torch.bfloat16 if N >= 32 else torch.float32)
     for name, a, b in zip(ATTN_NAMES, got, again):
         assert torch.equal(a, b), f"{name} differs between two runs"
 
@@ -523,9 +529,28 @@ def test_generic_bodies_launch_with_the_envelopes_shared_memory(cuda, D, nh, hd,
     mma = env.nstb_mma_plan(N, D, nh, hd, H)
     assert built("nstb_map", N, D, nh, hd, H, 1) == built("nstb_tokens", N, D, nh, hd, H, 1) == (
         -1 if mma is None else mma[1])
+    attn = env.attention_mma_bytes(N, D, nh, hd) or (-1, -1, -1)
+    assert (built("attention_fwd_mma", N, D, nh, hd), built("attention_bwd_mma", N, D, nh, hd, 1),
+            built("attention_bwd_mma", N, D, nh, hd, 2)) == tuple(attn)
     for dtype in (torch.float32, torch.bfloat16):
         assert env.built_nstb_body("nstb_map", N, D, nh, hd, H, dtype) == env.built_nstb_body(
             "nstb_tokens", N, D, nh, hd, H, dtype) == env.nstb_body(N, D, nh, hd, H, dtype)
+
+
+@pytest.mark.parametrize("N,D,nh,hd", [
+    (64, 32, 2, 16), (64, 32, 3, 10), (64, 16, 2, 8), (64, 128, 4, 32), (36, 32, 2, 16),
+    (49, 32, 2, 16), (64, 32, 2, 10), (16, 32, 2, 16), (4, 16, 2, 8), (9, 16, 2, 8),
+    (1, 16, 2, 8), (64, 64, 6, 10), (64, 64, 4, 16), (4, 32, 6, 5), (64, 128, 8, 32),
+])
+def test_attention_body_query_equals_the_envelope_rule(cuda, N, D, nh, hd):
+    """The body K3's and K4's built sources pick (``tmar_*_body``) is
+    ``envelope.attention_body``'s, at both dtypes."""
+    from tmar_torch.ops import envelope as env
+
+    for dtype in (torch.float32, torch.bfloat16):
+        want = env.attention_body(N, D, nh, hd, dtype)
+        assert env.built_attention_body("window_attention_fwd", N, D, nh, hd, dtype) == want
+        assert env.built_attention_body("window_attention_bwd", N, D, nh, hd, dtype) == want
 
 
 # the demo width (examples/demo_end_to_end.py, tests/test_ngswin_pallas.py)
@@ -564,6 +589,39 @@ def test_demo_width_full_step_launches_each_training_kernel_8_times(cuda, tmp_pa
     trainer.state, metrics = trainer.train_step(trainer.state, batch)
     torch.cuda.synchronize()
     assert [getattr(f, a) - b for (f, a), b in zip(counters, before)] == [8] * 6 + [0, 0]
+    assert all(np.isfinite(float(v)) for v in metrics.values())
+
+
+@pytest.mark.parametrize("pallas,backward,k4", [
+    (False, "auto", 8), (True, "auto", 8), (True, "xla", 0), (True, "pallas", 8)])
+def test_each_model_form_trains_one_step_on_the_card(cuda, tmp_path, pallas, backward, k4):
+    """Every NGswin form the config can name trains on the card: one
+    ``full`` step at the demo width on 8x64² bf16 launches 8 of each of K1,
+    K7, K3, K5 and K6 and ``k4`` of K4 (none in the ``xla`` form, whose
+    attention backward is the plain recompute), no whole-block kernel, and
+    gives finite metrics."""
+    from tmar_torch.data import SyntheticMARDataset
+    from tmar_torch.train import Trainer, config_path, load_config, resolve_variant
+
+    cfg = load_config(config_path("train_syndeeplesion.yaml"), {
+        **DEMO_OVERRIDES, "run_dir": str(tmp_path), "model.use_pallas_attention": pallas,
+        "model.attn_backward": backward})
+    trainer = Trainer(resolve_variant(cfg, cfg.variant))
+    ds = SyntheticMARDataset(size=64, length=8, base_seed=7)
+    samples = [ds[i] for i in range(8)]
+    batch = {k: torch.from_numpy(np.stack([s[k] for s in samples])[..., None]).to(cuda)
+             for k in ("ct", "gt")}
+    counters = [(cuda_ngram.fused_ngram_context, "launches"),
+                (cuda_ngram.fused_ngram_context, "backward_launches"),
+                (cuda_attention.fused_window_attention, "launches"),
+                (cuda_attention.fused_window_attention, "backward_launches"),
+                (cuda_ffn.fused_residual_ffn, "launches"),
+                (cuda_ffn.fused_residual_ffn, "backward_launches"),
+                (cuda_nstb.fused_nstb_map, "launches"), (cuda_nstb.fused_nstb, "launches")]
+    before = [getattr(f, a) for f, a in counters]
+    trainer.state, metrics = trainer.train_step(trainer.state, batch)
+    torch.cuda.synchronize()
+    assert [getattr(f, a) - b for (f, a), b in zip(counters, before)] == [8, 8, 8, k4, 8, 8, 0, 0]
     assert all(np.isfinite(float(v)) for v in metrics.values())
 
 

@@ -82,9 +82,41 @@ def test_training_and_inference_forms_share_one_state_dict(tiny):
     np.testing.assert_allclose(a, b, atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("form", ["auto", "xla"])
+def test_kernel_forms_under_autograd_match_the_training_form(tiny, form, monkeypatch):
+    """``"auto"`` and ``"xla"`` under autograd give the ``"pallas"`` form's
+    loss and every parameter gradient on the same weights, through the
+    training form's path: the forward-only whole-block kernels (and their
+    plain versions here) are never called."""
+    from tmar_torch.nn import blocks
+
+    _, _, model, x, w = tiny
+
+    def forward_only(*_, **__):
+        raise AssertionError("a forward-only whole-block kernel ran under autograd")
+
+    monkeypatch.setattr(blocks, "fused_nstb_map", forward_only)
+    monkeypatch.setattr(blocks, "fused_nstb", forward_only)
+    other = NGswin(**TINY, attn_backward=form, device="cpu")
+    other.load_state_dict(model.state_dict())
+    losses, grads = [], []
+    for net in (model, other):
+        net.zero_grad()
+        loss = (net(torch.from_numpy(x)) * torch.from_numpy(w)).mean()
+        loss.backward()
+        losses.append(float(loss.detach()))
+        grads.append({k: p.grad for k, p in net.named_parameters()})
+    np.testing.assert_allclose(losses[1], losses[0], atol=2e-6, rtol=2e-3)
+    assert set(grads[1]) == set(grads[0])
+    for k in sorted(grads[0]):
+        assert grads[1][k] is not None, k
+        np.testing.assert_allclose(grads[1][k].numpy(), grads[0][k].numpy(), atol=2e-6, rtol=2e-3,
+                                   err_msg=k)
+
+
 def test_unknown_attn_backward_is_refused():
     with pytest.raises(ValueError, match="attn_backward"):
-        NGswin(**TINY, attn_backward="xla", device="cpu")
+        NGswin(**TINY, attn_backward="bogus", device="cpu")
 
 
 @pytest.mark.parametrize("back", [False, True])

@@ -89,9 +89,9 @@ def _torch_nets():
 
 
 @pytest.fixture(scope="module")
-def two_steps():
-    """Both sides after each of two steps: [(jax state, jax metrics)], and
-    the port's state after two steps with its metrics per step."""
+def jax_start():
+    """The JAX side before its first step: its state and its step, the flax
+    NGswin in its default form (``use_pallas_attention=False``, XLA math)."""
     gen = FlaxNGswin(**TINY)
     disc = FlaxMSD(base_channels=16, num_scales=2)
     g_tx = optax.adam(G_LR, b1=0.5, b2=0.999)
@@ -100,7 +100,14 @@ def two_steps():
                                  ema_decay=EMA)
     jstep = jmake_train_step(gen, disc, g_tx, d_tx, JLossWeights(**WEIGHTS), mesh=None,
                              donate=False, fused_pairs=True, ema_decay=EMA)
+    return jstate, jstep
 
+
+@pytest.fixture(scope="module")
+def two_steps(jax_start):
+    """Both sides after each of two steps: [(jax state, jax metrics)], and
+    the port's state after two steps with its metrics per step."""
+    jstate, jstep = jax_start
     tgen, tdisc, g_opt, d_opt = _torch_nets()
     tgen.load_state_dict(from_flax_params(_np(jstate.g_params)))
     tdisc.load_state_dict(disc_from_flax(_np(jstate.d_params), _np(jstate.d_sn)))
@@ -251,6 +258,48 @@ def test_unfused_pairs_take_four_power_iterations_and_eval_step_runs():
     mse = float((fake - torch.from_numpy(_batch()["gt"])).square().mean())
     np.testing.assert_allclose(float(m["mse"]), mse, rtol=1e-5)
     assert float(m["psnr"]) > 0
+
+
+def test_trainer_in_the_jax_default_form_matches_jax_after_two_steps(jax_start, two_steps):
+    """The port's ``Trainer`` on the JAX package's default ``TrainConfig``
+    model form (``use_pallas_attention: false``, ``attn_backward: auto``,
+    which the port trains on the kernels' plain versions here) against the
+    same two JAX steps, from the same weights: metrics, parameters, EMA and
+    Adam moments at the tolerances above."""
+    from tmar_torch.train import Trainer, config
+
+    jstate, _ = jax_start
+    jout, _, _ = two_steps
+    cfg = config.load_config(None, {
+        "model.embed_dim": 32, "model.depths": (2, 2, 2), "model.num_heads": (2, 2, 2),
+        "model.dec_dim": 32, "model.dec_depths": 2, "model.dec_num_heads": 2,
+        "disc.base_channels": 16, "disc.num_scales": 2, "disc.fused_pairs": True,
+        "optim.ema_decay": EMA, "loss.phys": 0.0, "loss.dilation_radius": 2,
+        "data.patch_size": 64, "bf16": False})
+    assert not cfg.model.use_pallas_attention and cfg.model.attn_backward == "auto"
+    trainer = Trainer(cfg, device="cpu")
+    assert trainer.generator.attn_backward == "auto" and trainer.projector is None
+    with torch.no_grad():
+        trainer.generator.load_state_dict(from_flax_params(_np(jstate.g_params)))
+        trainer.discriminator.load_state_dict(disc_from_flax(_np(jstate.d_params),
+                                                             _np(jstate.d_sn)))
+    state = trainer.state
+    state.g_ema = {k: p.detach().clone() for k, p in trainer.generator.named_parameters()}
+    for (_, jm) in jout:
+        state, tm = trainer.train_step(state, _batch())
+        for k in jm:
+            atol = {"g_adv": 8e-4, "g_total": 8e-5, "loss_g": 8e-5}.get(k, 1e-6)
+            np.testing.assert_allclose(float(tm[k]), jm[k], rtol=1e-4, atol=atol, err_msg=k)
+    last = jout[-1][0]
+    g_mu = from_flax_params(_np(last.g_opt[0].mu))
+    _close_in_lr(dict(state.generator.named_parameters()), from_flax_params(_np(last.g_params)),
+                 g_mu, G_LR, "generator")
+    _close_in_lr(state.g_ema, from_flax_params(_np(last.g_ema)), g_mu, G_LR, "EMA")
+    _close_in_lr(dict(state.discriminator.named_parameters()), disc_from_flax(_np(last.d_params)),
+                 disc_from_flax(_np(last.d_opt[0].mu)), D_LR, "discriminator")
+    for k, p in state.generator.named_parameters():
+        np.testing.assert_allclose(state.g_opt.state[p]["exp_avg"].numpy(), g_mu[k].numpy(),
+                                   rtol=2e-3, atol=1e-7, err_msg=f"exp_avg {k}")
 
 
 # ---- the full variant: sinogram term, n-gram context fused -------------------

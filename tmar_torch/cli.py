@@ -37,8 +37,9 @@ from the JAX package's environment variables, read here and nowhere else in
 the port, and passed to ``build_generator`` as constructor arguments: ``TMAR_NSTB_FUSED=0`` (the
 unfused block), ``TMAR_NSTB_MAP=0`` (the token-level fused block),
 ``TMAR_NGRAM_FUSED=0`` (the n-gram context on its composition path).
-``train`` builds the training form, in which only ``TMAR_NGRAM_FUSED``
-holds, as in the JAX package.  ``TMAR_ATTN_IMPL`` names one of the JAX
+``train`` builds the config's form, which trains on the kernels that have
+backward kernels and in which only ``TMAR_NGRAM_FUSED`` holds, as in the
+JAX package.  ``TMAR_ATTN_IMPL`` names one of the JAX
 package's TPU attention kernels; it is checked against their names and
 changes nothing else, since every name computes the function that K3
 computes (``tmar_torch.ops.cuda_attention.IMPLS``).

@@ -20,8 +20,8 @@
 //   dv_j  = Σ_i p_ij dacc_i;  dq = (dqn - qn (dqn·qn)) / |q|, the same for k
 //   dx = dqkv @ wqkvᵀ;  dwqkv += xᵀ dqkv;  dwproj += oᵀ g
 //
-// Three bodies, chosen by the I/O type and the geometry, as the forward's
-// (window_attention_fwd.cu):
+// Four bodies, chosen by the I/O type and the geometry alone, as the
+// forward's (window_attention_fwd.cu; attn_mma::body):
 // * bfloat16 at the full-width NGswin's windows (N = 64, D = 64, heads 6 x 10
 //   or 4 x 16): the tensor-core body below, rounding as
 //   _attn_bwd_kernel_batched does with cot_bf16 on (the JAX default for
@@ -34,14 +34,18 @@
 // * the full-width NGswin's other geometries (its windows at float32, its
 //   n-gram windows at both dtypes): the body templated on the geometry,
 //   which at bfloat16 rounds where _attn_bwd_kernel rounds (below).
-// * every other case: the generic body, which takes N (<= 64), D, the heads
-//   and head_dim (<= 32) at run time.  At bfloat16 and N >= 32 it rounds
-//   where the tensor-core body does; below, where _attn_bwd_kernel rounds:
-//   the two matrices (:728, :767, :802-807); everything else is float32
-//   there.
+// * bfloat16 windows of 32 to 64 tokens at every other geometry with a plan:
+//   the tensor-core generic body (window_attention_bwd_gmma and its token
+//   sums, below), rounding as the tensor-core body.
+// * every other case: the CUDA-core generic body, which takes N (<= 64), D,
+//   the heads and head_dim (<= 32) at run time.  At bfloat16 and N >= 32 it
+//   would round where the tensor-core body does; below, where
+//   _attn_bwd_kernel rounds: the two matrices (:728, :767, :802-807);
+//   everything else is float32 there.
 //
-// What bounds it on an H100: operations, about three times the forward's.
-// Generic body: the forward's tiling (a persistent block, whole windows to
+// What bounds it on an H100: operations, about three times the forward's
+// (bytes at the demo width: 0.00199 ms for its 512 windows of 64 tokens).
+// CUDA-core generic body: the forward's tiling (a persistent block, whole windows to
 // a 64-row tile), heads in groups that fit shared memory, weights read from
 // device memory.  Nothing of size [N, N] goes to device memory.
 // Tensor-core body, three launches:
@@ -64,6 +68,7 @@
 // written to its own slot and added by a second pass in slot order.  No
 // float atomics: two runs give the same bits.
 
+#include "window_attention_generic_mma.cuh"
 #include "window_attention_geometries.cuh"
 #include "window_attention_mma.cuh"
 
@@ -1293,6 +1298,670 @@ int launch_mma(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, voi
   return (int)cudaGetLastError();
 }
 
+// ---- the bfloat16 tensor-core generic body: 32 <= N <= 64 -------------------
+// (window_attention_generic_mma.cuh: the plan, the rule, the layout.)  The
+// flagship body's three launches at run-time widths:
+//  1. per window (window_attention_bwd_gmma): a window's WW warps, each 16
+//     rows as queries and then as keys, the window's x and g tiles by
+//     cp.async (the next window's while this one computes, where the plan
+//     double-buffers).  Per head: q, k, v and dacc = g·wp_hᵀ of the warp's
+//     rows, P from the forward's lse; O, dp, ds, dq_n for its query rows;
+//     then, from q_n, dacc, P and dcos of all rows in shared memory, dk_n
+//     and dv for its key rows (ldmatrix.trans); the L2-norm backward;
+//     dx += dqkv_h·wqkv_hᵀ in registers.  dqkv and the attention output
+//     leave as bf16 rows for the token sums.  Padded query rows get P = 0
+//     and padded g rows are zero, so they add nothing;
+//  2. the token sums (attention_param_sums_g): dwqkv = xᵀ·dqkv and
+//     dwproj = accᵀ·g on mma.sync, dbproj = Σ g in float32; a block takes
+//     a contiguous range of token rows and, where the cotangents hold more
+//     than 8·SUMS_TILES tiles of 16x16, a chunk of them (blockIdx.y);
+//  3. the reduce of both kinds of partial sums in slot order
+//     (reduce_backward_partials).
+// Rounding as the flagship body (cot_bf16): every product's operands bf16,
+// ds, delta, the softmax statistics, the L2-norm backward and the sums into
+// dbias, dscale, dbqkv and dbproj float32.
+// 1 / (|row| + 1e-12) of rows g and g + 8 of HT accumulator tiles.
+template <int HT>
+__device__ __forceinline__ void row_inv(const float (&a)[HT][4], float (&inv)[2]) {
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < HT; ++j) {
+    s0 += a[j][0] * a[j][0] + a[j][1] * a[j][1];
+    s1 += a[j][2] * a[j][2] + a[j][3] * a[j][3];
+  }
+  inv[0] = 1.f / (sqrtf(quad_sum(s0)) + 1e-12f);
+  inv[1] = 1.f / (sqrtf(quad_sum(s1)) + 1e-12f);
+}
+
+// In place, the L2-norm backward of rows held as HT tiles: d <- inv·(d −
+// n·(d·n)) per row, n the normalised rows, inv[0] / inv[1] of rows g / g + 8.
+template <int HT>
+__device__ __forceinline__ void norm_backward_rows(float (&d)[HT][4], const float (&n)[HT][4],
+                                                   const float (&inv)[2]) {
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < HT; ++j) {
+    s0 += d[j][0] * n[j][0] + d[j][1] * n[j][1];
+    s1 += d[j][2] * n[j][2] + d[j][3] * n[j][3];
+  }
+  s0 = quad_sum(s0);
+  s1 = quad_sum(s1);
+#pragma unroll
+  for (int j = 0; j < HT; ++j) {
+    d[j][0] = inv[0] * (d[j][0] - n[j][0] * s0), d[j][1] = inv[0] * (d[j][1] - n[j][1] * s0);
+    d[j][2] = inv[1] * (d[j][2] - n[j][2] * s1), d[j][3] = inv[1] * (d[j][3] - n[j][3] * s1);
+  }
+}
+
+template <int DM, int HPD>
+__global__ void __launch_bounds__(attn_mma::WARPS * 32) window_attention_bwd_gmma(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+    const float* __restrict__ wqkv, int wq_k, int wq_n, const float* __restrict__ bqkv,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    const float* __restrict__ wproj, int wp_k, int wp_n, const float* __restrict__ mrow,
+    const float* __restrict__ mcol, const float* __restrict__ lse,
+    __nv_bfloat16* __restrict__ dx, float* __restrict__ part,
+    __nv_bfloat16* __restrict__ dqkv_out, __nv_bfloat16* __restrict__ acc_out, int nwin,
+    int wh, int ww, attn_mma::BwdPlan P) {
+  using namespace attn_mma;
+  constexpr int DT = DM / 8, DK = DM / 16;
+  constexpr int HT = HPD / 8, HK = HPD / 16;
+  extern __shared__ float4 smem4[];
+  float* sf = reinterpret_cast<float*>(smem4);
+  __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(sf + P.floats);
+  const Geom& gm = P.g;
+  const Weights& W = P.w;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int N = gm.N, D = gm.D, nh = gm.nh, NP = gm.NP, LDK = gm.LDK, AP = gm.AP, A = gm.A;
+  const int LDX = P.LDX, LDS = P.LDS, QKV = 3 * AP;
+  const int warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t = lane & 3;
+  const int grp = warp / gm.WW, wig = warp % gm.WW, gn = 32 * gm.WW, gi = tid - grp * gn;
+  const int size1 = 3 * A + nh + nh * N * N;  // a group's slot of partial sums
+  float* my = part + (size_t)(blockIdx.x * P.G + grp) * size1;
+  float* my_dbias = my + 3 * A + nh;
+
+  // ---- once per block: zeros (padding, the warps' sums, the group's dbias
+  // slot), the float32 parameters, resident weights
+  for (int i = tid; i < (W.elems + P.G * P.gelems) / 8; i += nthreads)
+    reinterpret_cast<uint4*>(sw)[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int o = tid; o < QKV; o += nthreads) {
+    const int pt = o / AP, h = (o % AP) / HPD, d = o % HPD;
+    sf[P.f_bqkv + o] = d < gm.hd ? bqkv[pt * A + h * gm.hd + d] : 0.f;
+  }
+  for (int h = tid; h < nh; h += nthreads) sf[P.f_scale + h] = scale[h];
+  for (int e = tid; e < P.floats - P.f_dbq; e += nthreads) sf[P.f_dbq + e] = 0.f;
+  for (int e = gi; e < nh * N * N; e += gn) my_dbias[e] = 0.f;
+  __syncthreads();
+  if (W.resident) stage_weights(sw, W, gm, 0, nh, wqkv, wq_k, wq_n, wproj, wp_k, wp_n, tid, nthreads);
+  __syncthreads();
+
+  __nv_bfloat16* gbase = sw + W.elems + grp * P.gelems;
+  const int r0 = 16 * wig + g8, r1 = r0 + 8;
+  const bool in0 = r0 < N, in1 = r1 < N;
+  const int q0 = in0 ? r0 : 0, q1 = in1 ? r1 : 0;
+  const int tiles = (nwin + P.G - 1) / P.G, bx = blockIdx.x, gx = gridDim.x;
+  const int cpr = D / 8;  // 16-byte chunks of a row
+
+  // the copies of window w's x and g into `slot`, by the group's threads
+  auto load = [&](__nv_bfloat16* slot, int w) {
+    const __nv_bfloat16* xs = x + (size_t)w * N * D;
+    const __nv_bfloat16* gs = g + (size_t)w * N * D;
+    for (int c = gi; c < N * cpr; c += gn) {
+      const int r = c / cpr, k = 8 * (c % cpr);
+      cp_async16(slot + r * LDX + k, xs + r * D + k);
+      cp_async16(slot + (NP + r) * LDX + k, gs + r * D + k);
+    }
+  };
+  if (P.dbuf && bx * P.G + grp < nwin) load(gbase, bx * P.G + grp);
+  cp_async_commit();
+
+  for (int it = 0, tile = bx; tile < tiles; ++it, tile += gx) {
+    const int win = tile * P.G + grp, next = (tile + gx) * P.G + grp;
+    const bool valid = win < nwin;
+    __nv_bfloat16* cur = gbase + (P.dbuf ? (it & 1) * 2 * NP * LDX : 0);
+    if (P.dbuf) {
+      if (tile + gx < tiles && next < nwin) load(gbase + ((it + 1) & 1) * 2 * NP * LDX, next);
+      cp_async_commit();
+      cp_async_wait_prior();
+    } else {
+      if (valid) load(cur, win);
+      cp_async_commit();
+      cp_async_wait_all();
+    }
+    group_sync(grp, gm.WW);  // the window's x and g have landed
+    bool gr, gc;
+    mask_gates(valid ? win : 0, wh, ww, gr, gc);
+    const __nv_bfloat16* gt = cur + NP * LDX;
+    const size_t grow = (size_t)(valid ? win : 0) * N;  // the window's first token row
+
+    float dxa[DT][4];
+#pragma unroll
+    for (int j = 0; j < DT; ++j) dxa[j][0] = dxa[j][1] = dxa[j][2] = dxa[j][3] = 0.f;
+#pragma unroll 1
+    for (int h = 0; h < nh; ++h) {
+      if (!W.resident) {  // head h's weights, between two block barriers
+        __syncthreads();
+        stage_weights(sw, W, gm, h, h + 1, wqkv, wq_k, wq_n, wproj, wp_k, wp_n, tid, nthreads);
+        __syncthreads();
+      }
+      if (!valid) continue;
+      __nv_bfloat16* s_q = gbase + P.o_qn + (h & 1) * NP * LDK;   // q_n [NP][LDK]
+      __nv_bfloat16* s_da = gbase + P.o_da + (h & 1) * NP * LDK;  // dacc [NP][LDK]
+      __nv_bfloat16* s_k = gbase + P.o_kn;                        // k_n [NP][LDK]
+      __nv_bfloat16* s_v = gbase + P.o_v;                         // v [NP][LDK]
+      __nv_bfloat16* s_p = gbase + P.o_p;                         // P [NP][LDS]
+      __nv_bfloat16* s_dc = gbase + P.o_dc;                       // dcos [NP][LDS]
+      const int qcol = W.resident ? h * HPD : 0, pstride = W.resident ? AP : HPD;
+      const int prow = W.resident ? h * HPD : 0;
+      const float* lh = lse + ((size_t)(valid ? win : 0) * nh + h) * N;
+      const float l0 = lh[q0] * LOG2E, l1 = lh[q1] * LOG2E;
+
+      // recompute q_n, k_n, v of the warp's rows; dacc = bf16(g)·bf16(wp_h)ᵀ
+      float qn[HT][4], kn[HT][4], iq[2], ik[2];
+      uint32_t qa[HK][4], daa[HK][4];
+      {
+        float acc[3][HT][4], da[HT][4];
+#pragma unroll
+        for (int j = 0; j < HT; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[0][j][e] = acc[1][j][e] = acc[2][j][e] = da[j][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < DK; ++kk) {
+          if (kk >= gm.dk) break;
+          uint32_t a[4];
+          load_a(a, cur, LDX, 16 * wig, 16 * kk, lane);
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+#pragma unroll
+            for (int n2 = 0; n2 < HK; ++n2)
+              mma_pair_t(acc[p][2 * n2], acc[p][2 * n2 + 1], a, sw, W.ld_qkv,
+                         qcol + p * pstride + 16 * n2, 16 * kk, lane);
+          load_a(a, gt, LDX, 16 * wig, 16 * kk, lane);
+#pragma unroll
+          for (int n2 = 0; n2 < HK; ++n2)
+            mma_pair(da[2 * n2], da[2 * n2 + 1], a, sw + W.w_proj, W.ld_proj, prow + 16 * n2,
+                     16 * kk, lane);
+        }
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+#pragma unroll
+          for (int j = 0; j < HT; ++j) {
+            const float* bq = sf + P.f_bqkv + p * AP + h * HPD + 8 * j + 2 * t;
+            acc[p][j][0] += bq[0], acc[p][j][1] += bq[1], acc[p][j][2] += bq[0], acc[p][j][3] += bq[1];
+          }
+        row_inv(acc[0], iq);
+        row_inv(acc[1], ik);
+#pragma unroll
+        for (int j = 0; j < HT; ++j) {
+          qn[j][0] = acc[0][j][0] * iq[0], qn[j][1] = acc[0][j][1] * iq[0];
+          qn[j][2] = acc[0][j][2] * iq[1], qn[j][3] = acc[0][j][3] * iq[1];
+          kn[j][0] = acc[1][j][0] * ik[0], kn[j][1] = acc[1][j][1] * ik[0];
+          kn[j][2] = acc[1][j][2] * ik[1], kn[j][3] = acc[1][j][3] * ik[1];
+          const int c = 8 * j + 2 * t;
+          sts32(s_q + r0 * LDK + c, pack_bf16(qn[j][0], qn[j][1]));
+          sts32(s_q + r1 * LDK + c, pack_bf16(qn[j][2], qn[j][3]));
+          sts32(s_k + r0 * LDK + c, pack_bf16(kn[j][0], kn[j][1]));
+          sts32(s_k + r1 * LDK + c, pack_bf16(kn[j][2], kn[j][3]));
+          sts32(s_v + r0 * LDK + c, pack_bf16(acc[2][j][0], acc[2][j][1]));
+          sts32(s_v + r1 * LDK + c, pack_bf16(acc[2][j][2], acc[2][j][3]));
+          sts32(s_da + r0 * LDK + c, pack_bf16(da[j][0], da[j][1]));
+          sts32(s_da + r1 * LDK + c, pack_bf16(da[j][2], da[j][3]));
+        }
+#pragma unroll
+        for (int kk = 0; kk < HK; ++kk) {
+          to_a(qa[kk], qn[2 * kk], qn[2 * kk + 1]);
+          to_a(daa[kk], da[2 * kk], da[2 * kk + 1]);
+        }
+      }
+      group_sync(grp, gm.WW);  // q_n, k_n, v and dacc of all rows are in
+
+      // the query side: cos, p = exp(s - lse) (0 on padded rows and keys), O
+      float cs[8][4], p[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) cs[j][e] = p[j][e] = 0.f;
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        if (16 * jp >= NP) break;
+#pragma unroll
+        for (int kk = 0; kk < HK; ++kk)
+          mma_pair(cs[2 * jp], cs[2 * jp + 1], qa[kk], s_k, LDK, 16 * jp, 16 * kk, lane);
+      }
+      const float sc = sf[P.f_scale + h], sc2 = sc * LOG2E;
+      const float* bh = bias + (size_t)h * N * N;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (8 * j >= NP) break;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * t + e;
+          p[j][e] = in0 ? exp2_approx(logit2(cs[j][e], sc2, bh, mrow, mcol, gr, gc, N, q0, c) - l0)
+                        : 0.f;
+          p[j][2 + e] =
+              in1 ? exp2_approx(logit2(cs[j][2 + e], sc2, bh, mrow, mcol, gr, gc, N, q1, c) - l1)
+                  : 0.f;
+        }
+      }
+      {
+        // O = bf16(P)·v: the attention output of the warp's rows, for dwproj
+        float o[HT][4];
+#pragma unroll
+        for (int j = 0; j < HT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          if (16 * kk >= NP) break;
+          uint32_t pa[4];
+          to_a(pa, p[2 * kk], p[2 * kk + 1]);
+          sts32(s_p + r0 * LDS + 16 * kk + 2 * t, pa[0]);
+          sts32(s_p + r1 * LDS + 16 * kk + 2 * t, pa[1]);
+          sts32(s_p + r0 * LDS + 16 * kk + 8 + 2 * t, pa[2]);
+          sts32(s_p + r1 * LDS + 16 * kk + 8 + 2 * t, pa[3]);
+#pragma unroll
+          for (int n2 = 0; n2 < HK; ++n2)
+            mma_pair_t(o[2 * n2], o[2 * n2 + 1], pa, s_v, LDK, 16 * n2, 16 * kk, lane);
+        }
+#pragma unroll
+        for (int j = 0; j < HT; ++j) {
+          const int c = h * HPD + 8 * j + 2 * t;
+          if (in0) sts32(acc_out + (grow + r0) * AP + c, pack_bf16(o[j][0], o[j][1]));
+          if (in1) sts32(acc_out + (grow + r1) * AP + c, pack_bf16(o[j][2], o[j][3]));
+        }
+      }
+      // dp = bf16(dacc)·bf16(v)ᵀ; delta = Σ_j dp·p (float32)
+      float dp[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        if (16 * jp >= NP) break;
+#pragma unroll
+        for (int kk = 0; kk < HK; ++kk)
+          mma_pair(dp[2 * jp], dp[2 * jp + 1], daa[kk], s_v, LDK, 16 * jp, 16 * kk, lane);
+      }
+      float dl0 = 0.f, dl1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        dl0 += dp[j][0] * p[j][0] + dp[j][1] * p[j][1];
+        dl1 += dp[j][2] * p[j][2] + dp[j][3] * p[j][3];
+      }
+      dl0 = quad_sum(dl0);
+      dl1 = quad_sum(dl1);
+      // ds = p (dp - delta): into dbias (the group's slot, the thread's own
+      // elements, 16 at a time with their loads issued together, so that one
+      // memory latency covers them) and dscale; dcos = ds·scale in place of dp
+      float dsc = 0.f;
+      float* db0 = my_dbias + (h * N + q0) * N;
+      float* db1 = my_dbias + (h * N + q1) * N;
+#pragma unroll
+      for (int j0 = 0; j0 < 8; j0 += 4) {
+        if (8 * j0 >= NP) break;
+        float b[4][2][2];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * (j0 + jj) + 2 * t + e;
+            b[jj][e][0] = in0 && c < N ? db0[c] : 0.f;
+            b[jj][e][1] = in1 && c < N ? db1[c] : 0.f;
+          }
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = j0 + jj, c = 8 * j + 2 * t + e;
+            const float d0 = p[j][e] * (dp[j][e] - dl0), d1 = p[j][2 + e] * (dp[j][2 + e] - dl1);
+            dsc += d0 * cs[j][e] + d1 * cs[j][2 + e];
+            if (c < N) {
+              if (in0) db0[c] = b[jj][e][0] + d0;
+              if (in1) db1[c] = b[jj][e][1] + d1;
+            }
+            dp[j][e] = d0 * sc, dp[j][2 + e] = d1 * sc;
+          }
+      }
+      dsc = warp_sum(dsc);
+      if (lane == 0) sf[P.f_dsc + warp * nh + h] += dsc;
+      // dq_n = bf16(dcos)·bf16(k_n); dcos of the warp's rows to shared memory
+      float dq[HT][4];
+#pragma unroll
+      for (int j = 0; j < HT; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (16 * kk >= NP) break;
+        uint32_t ca[4];
+        to_a(ca, dp[2 * kk], dp[2 * kk + 1]);
+        sts32(s_dc + r0 * LDS + 16 * kk + 2 * t, ca[0]);
+        sts32(s_dc + r1 * LDS + 16 * kk + 2 * t, ca[1]);
+        sts32(s_dc + r0 * LDS + 16 * kk + 8 + 2 * t, ca[2]);
+        sts32(s_dc + r1 * LDS + 16 * kk + 8 + 2 * t, ca[3]);
+#pragma unroll
+        for (int n2 = 0; n2 < HK; ++n2)
+          mma_pair_t(dq[2 * n2], dq[2 * n2 + 1], ca, s_k, LDK, 16 * n2, 16 * kk, lane);
+      }
+      group_sync(grp, gm.WW);  // P and dcos of all rows are in
+
+      // the key side: dk_n = bf16(dcos)ᵀ·bf16(q_n), dv = bf16(P)ᵀ·bf16(dacc)
+      float dk[HT][4], dv[HT][4];
+#pragma unroll
+      for (int j = 0; j < HT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dk[j][e] = dv[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (16 * kk >= NP) break;
+        uint32_t a[4];
+        load_a_t(a, s_dc, LDS, 16 * wig, 16 * kk, lane);
+#pragma unroll
+        for (int n2 = 0; n2 < HK; ++n2)
+          mma_pair_t(dk[2 * n2], dk[2 * n2 + 1], a, s_q, LDK, 16 * n2, 16 * kk, lane);
+        load_a_t(a, s_p, LDS, 16 * wig, 16 * kk, lane);
+#pragma unroll
+        for (int n2 = 0; n2 < HK; ++n2)
+          mma_pair_t(dv[2 * n2], dv[2 * n2 + 1], a, s_da, LDK, 16 * n2, 16 * kk, lane);
+      }
+      norm_backward_rows(dq, qn, iq);
+      norm_backward_rows(dk, kn, ik);
+
+      // dqkv of head h (float32): its column sums into dbqkv, bf16 to the
+      // token sums, and dx += bf16(dqkv_h)·bf16(wqkv_h)ᵀ
+      float* dbq = sf + P.f_dbq + warp * QKV;
+      auto emit = [&](int pt, float(&d)[HT][4]) {
+#pragma unroll
+        for (int j = 0; j < HT; ++j) {
+          const int col = pt * AP + h * HPD + 8 * j + 2 * t;
+          const float c0 = column_sum(d[j][0] + d[j][2]);
+          const float c1 = column_sum(d[j][1] + d[j][3]);
+          if (g8 == 0) dbq[col] += c0, dbq[col + 1] += c1;
+          if (in0) sts32(dqkv_out + (grow + r0) * QKV + col, pack_bf16(d[j][0], d[j][1]));
+          if (in1) sts32(dqkv_out + (grow + r1) * QKV + col, pack_bf16(d[j][2], d[j][3]));
+        }
+#pragma unroll
+        for (int kk = 0; kk < HK; ++kk) {
+          uint32_t a[4];
+          to_a(a, d[2 * kk], d[2 * kk + 1]);
+#pragma unroll
+          for (int n2 = 0; n2 < DK; ++n2) {
+            if (n2 >= gm.dk) break;
+            mma_pair(dxa[2 * n2], dxa[2 * n2 + 1], a, sw, W.ld_qkv, 16 * n2,
+                     qcol + pt * pstride + 16 * kk, lane);
+          }
+        }
+      };
+      emit(0, dq);
+      emit(1, dk);
+      emit(2, dv);
+    }
+
+    // dx, bf16, from the registers (real rows and columns)
+    if (valid) {
+      __nv_bfloat16* dw = dx + grow * D;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        const int c = 8 * j + 2 * t;
+        if (c >= D) break;
+        if (in0) sts32(dw + r0 * D + c, pack_bf16(dxa[j][0], dxa[j][1]));
+        if (in1) sts32(dw + r1 * D + c, pack_bf16(dxa[j][2], dxa[j][3]));
+      }
+    }
+    group_sync(grp, gm.WW);  // the slot and the buffers are free
+  }
+  cp_async_wait_all();
+
+  // the group's slot: its warps' sums of dbqkv and dscale, in warp order
+  __syncthreads();
+  for (int o = gi; o < QKV; o += gn) {
+    const int pt = o / AP, h = (o % AP) / HPD, d = o % HPD;
+    if (d >= gm.hd) continue;
+    float s = 0.f;
+    for (int w = 0; w < gm.WW; ++w) s += sf[P.f_dbq + (grp * gm.WW + w) * QKV + o];
+    my[pt * A + h * gm.hd + d] = s;
+  }
+  for (int h = gi; h < nh; h += gn) {
+    float s = 0.f;
+    for (int w = 0; w < gm.WW; ++w) s += sf[P.f_dsc + (grp * gm.WW + w) * nh + h];
+    my[3 * A + h] = s;
+  }
+}
+
+// The token sums at run-time widths: block (c, b) takes rows [b·rpb,
+// (b + 1)·rpb) of the nwin·N token rows, 64 at a time by cp.async (rows
+// past the end zero), and the cotangent tiles [c·8·SUMS_TILES, +8·SUMS_TILES)
+// of dwqkv (DP/16 x 3AP/16 tiles, row-major) then dwproj (AP/16 x DP/16);
+// warp w holds SUMS_TILES of them, every eighth.  It writes its unpadded
+// partial sums to part[b] (block c = 0 also dbproj = Σ g).  The chunks of
+// one row range are neighbours in the grid, so they run together and read
+// their rows from L2 once they are in.
+__global__ void __launch_bounds__(256) attention_param_sums_g(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+    const __nv_bfloat16* __restrict__ dqkv, const __nv_bfloat16* __restrict__ acc,
+    float* __restrict__ part, int rows, int rpb, attn_mma::Geom gm, attn_mma::SumsPlan S) {
+  using namespace attn_mma;
+  extern __shared__ float4 smem4[];
+  __nv_bfloat16* sm = reinterpret_cast<__nv_bfloat16*>(smem4);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g8 = lane >> 2, t = lane & 3;
+  const int D = gm.D, A = gm.A, AP = gm.AP, QKV = 3 * AP, DP = gm.DP, HPD = gm.HP;
+  const int begin = blockIdx.y * rpb;
+  const int end = begin + rpb < rows ? begin + rpb : rows;
+  const int steps = end > begin ? (end - begin + 63) / 64 : 0;
+  const int n1 = (DP / 16) * (QKV / 16), ntiles = n1 + (AP / 16) * (DP / 16);
+  // the warp's tiles: first + 8·j, so that a chunk of fewer tiles than
+  // 8·SUMS_TILES keeps every warp busy
+  const int first = blockIdx.x * 8 * SUMS_TILES + warp;
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+
+  auto load = [&](int step, __nv_bfloat16* buf) {
+    const int r = begin + 64 * step;
+    const int cd = D / 8, cq = QKV / 8, ca = AP / 8;
+    for (int c = tid; c < 64 * (2 * cd + cq + ca); c += 256) {
+      const int n = c / (2 * cd + cq + ca), k = c % (2 * cd + cq + ca);
+      const bool in = r + n < end;
+      __nv_bfloat16* dst;
+      const __nv_bfloat16* src;
+      if (k < cd)
+        dst = buf + n * S.LDX + 8 * k, src = x + (size_t)(r + n) * D + 8 * k;
+      else if (k < 2 * cd)
+        dst = buf + S.o_g + n * S.LDX + 8 * (k - cd), src = g + (size_t)(r + n) * D + 8 * (k - cd);
+      else if (k < 2 * cd + cq)
+        dst = buf + S.o_q + n * S.LQ + 8 * (k - 2 * cd),
+        src = dqkv + (size_t)(r + n) * QKV + 8 * (k - 2 * cd);
+      else
+        dst = buf + S.o_a + n * S.LA + 8 * (k - 2 * cd - cq),
+        src = acc + (size_t)(r + n) * AP + 8 * (k - 2 * cd - cq);
+      if (in)
+        cp_async16(dst, src);
+      else
+        *reinterpret_cast<uint4*>(dst) = zero4;
+    }
+  };
+  // the padded columns of x and g (D..DP) stay zero in both buffers
+  for (int i = tid; i < (S.dbuf ? 2 : 1) * S.buf / 8; i += 256)
+    reinterpret_cast<uint4*>(sm)[i] = zero4;
+  __syncthreads();
+
+  float cw[SUMS_TILES][2][4];
+#pragma unroll
+  for (int j = 0; j < SUMS_TILES; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cw[j][0][e] = cw[j][1][e] = 0.f;
+  float bsum = 0.f;
+  if (steps > 0) load(0, sm);
+  cp_async_commit();
+  for (int st = 0; st < steps; ++st) {
+    const __nv_bfloat16* buf = sm + (S.dbuf ? (st & 1) * S.buf : 0);
+    if (S.dbuf) {
+      if (st + 1 < steps) load(st + 1, sm + ((st + 1) & 1) * S.buf);
+      cp_async_commit();
+      cp_async_wait_prior();
+    } else {
+      cp_async_wait_all();
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < SUMS_TILES; ++j) {
+      const int id = first + 8 * j;
+      if (id >= ntiles) break;
+      // dwqkv tile (m: x channels, n: dqkv columns) or dwproj tile (m:
+      // attention-output columns, n: g channels)
+      const bool w1 = id < n1;
+      const int m0 = 16 * (w1 ? id / (QKV / 16) : (id - n1) / (DP / 16));
+      const int n0 = 16 * (w1 ? id % (QKV / 16) : (id - n1) % (DP / 16));
+      const __nv_bfloat16* am = w1 ? buf : buf + S.o_a;
+      const __nv_bfloat16* bm = w1 ? buf + S.o_q : buf + S.o_g;
+      const int lda = w1 ? S.LDX : S.LA, ldb = w1 ? S.LQ : S.LDX;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t a[4];
+        load_a_t(a, am, lda, m0, 16 * kk, lane);
+        mma_pair_t(cw[j][0], cw[j][1], a, bm, ldb, n0, 16 * kk, lane);
+      }
+    }
+    if (blockIdx.x == 0 && tid < D)
+      for (int r = 0; r < 64; ++r) bsum += __bfloat162float(buf[S.o_g + r * S.LDX + tid]);
+    __syncthreads();  // the buffer is free to be refilled
+    if (!S.dbuf && st + 1 < steps) {
+      load(st + 1, sm);
+      cp_async_commit();
+    }
+  }
+
+  // the block's partial sums, without the padding
+  float* my = part + (size_t)blockIdx.y * (D * 3 * A + A * D + D);
+#pragma unroll
+  for (int j = 0; j < SUMS_TILES; ++j) {
+    const int id = first + 8 * j;
+    if (id >= ntiles) break;
+    const bool w1 = id < n1;
+    const int m0 = 16 * (w1 ? id / (QKV / 16) : (id - n1) / (DP / 16));
+    const int n0 = 16 * (w1 ? id % (QKV / 16) : (id - n1) % (DP / 16));
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int m = m0 + g8 + 8 * (e >> 1), n = n0 + 8 * hf + 2 * t + (e & 1);
+        if (w1) {  // m: channel, n: padded dqkv column
+          const int pt = n / AP, h = (n % AP) / HPD, d = n % HPD;
+          if (m < D && d < gm.hd) my[m * 3 * A + pt * A + h * gm.hd + d] = cw[j][hf][e];
+        } else {   // m: padded attention-output column, n: channel
+          const int h = m / HPD, d = m % HPD;
+          if (n < D && d < gm.hd) my[D * 3 * A + (h * gm.hd + d) * D + n] = cw[j][hf][e];
+        }
+      }
+  }
+  if (blockIdx.x == 0 && tid < D) my[D * 3 * A + A * D + tid] = bsum;
+}
+
+// The three launches' shapes and the workspace's layout (in floats): the
+// per-group partials, the token-sum partials, then dqkv [nwin·N][3AP] and
+// the attention output [nwin·N][AP] as bf16.
+struct GmmaLayout {
+  int grid1, n1, g2, rpb, chunks;
+  size_t off2, off3, off4, total;
+};
+
+template <int DM, int HPD>
+int gmma_layout_t(const attn_mma::Plan& plan, int nwin, GmmaLayout* L) {
+  static int cache[64][3] = {};
+  const attn_mma::BwdPlan& P = plan.b;
+  int grid = 0;
+  const int err = attn_mma::persistent_grid(window_attention_bwd_gmma<DM, HPD>, P.bytes,
+                                            P.threads, cache, &grid);
+  if (err) return err;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const attn_mma::Geom& gm = P.g;
+  const int tiles = (nwin + P.G - 1) / P.G;
+  L->grid1 = tiles < grid ? tiles : grid;
+  L->n1 = L->grid1 * P.G;
+  // token sums: chunks of the cotangent tiles, and row ranges of at least
+  // 256 rows, about two blocks an SM in all
+  const long rows = (long)nwin * gm.N;
+  const int ntiles = (gm.DP / 16) * (3 * gm.AP / 16) + (gm.AP / 16) * (gm.DP / 16);
+  L->chunks = (ntiles + 8 * attn_mma::SUMS_TILES - 1) / (8 * attn_mma::SUMS_TILES);
+  int want = (int)((rows + 255) / 256);
+  const int room = 2 * sms / L->chunks;
+  want = want < room ? want : room;
+  want = want < 1 ? 1 : want;
+  L->rpb = (int)((rows + want - 1) / want + 63) / 64 * 64;
+  L->g2 = (int)((rows + L->rpb - 1) / L->rpb);
+  const size_t size1 = 3 * gm.A + gm.nh + (size_t)gm.nh * gm.N * gm.N;
+  const size_t size2 = (size_t)gm.D * 3 * gm.A + (size_t)gm.A * gm.D + gm.D;
+  L->off2 = round4((size_t)L->n1 * size1);
+  L->off3 = round4(L->off2 + (size_t)L->g2 * size2);
+  L->off4 = L->off3 + (size_t)rows * 3 * gm.AP / 2;
+  L->total = L->off4 + (size_t)rows * gm.AP / 2;
+  return 0;
+}
+
+int gmma_layout(const attn_mma::Plan& plan, int nwin, GmmaLayout* L) {
+  const attn_mma::Geom& gm = plan.b.g;
+  if (gm.HP == 16) {
+    if (gm.DP <= 32) return gmma_layout_t<32, 16>(plan, nwin, L);
+    if (gm.DP <= 64) return gmma_layout_t<64, 16>(plan, nwin, L);
+    return gmma_layout_t<128, 16>(plan, nwin, L);
+  }
+  if (gm.DP <= 32) return gmma_layout_t<32, 32>(plan, nwin, L);
+  if (gm.DP <= 64) return gmma_layout_t<64, 32>(plan, nwin, L);
+  return gmma_layout_t<128, 32>(plan, nwin, L);
+}
+
+template <int DM, int HPD>
+int launch_gmma_t(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* dx,
+                  void* workspace, void* dparams, int nwin, int wh, int ww,
+                  const attn_mma::Plan& plan, const GmmaLayout& L, cudaStream_t stream) {
+  const attn_mma::BwdPlan& P = plan.b;
+  const attn_mma::Geom& gm = P.g;
+  float* ws = (float*)workspace;
+  auto* dq = reinterpret_cast<__nv_bfloat16*>(ws + L.off3);
+  auto* ac = reinterpret_cast<__nv_bfloat16*>(ws + L.off4);
+  cudaError_t err;
+  window_attention_bwd_gmma<DM, HPD><<<L.grid1, P.threads, P.bytes, stream>>>(
+      (const __nv_bfloat16*)p[0], (const __nv_bfloat16*)p[1], (const float*)p[2], wq_k, wq_n,
+      (const float*)p[3], (const float*)p[4], (const float*)p[5], (const float*)p[6], wp_k,
+      wp_n, (const float*)p[7], (const float*)p[8], (const float*)p[9], (__nv_bfloat16*)dx, ws,
+      dq, ac, nwin, wh, ww, P);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if ((err = cudaFuncSetAttribute(attention_param_sums_g,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  (int)plan.s.bytes)) != cudaSuccess)
+    return (int)err;
+  attention_param_sums_g<<<dim3(L.chunks, L.g2), 256, plan.s.bytes, stream>>>(
+      (const __nv_bfloat16*)p[0], (const __nv_bfloat16*)p[1], dq, ac, ws + L.off2,
+      nwin * gm.N, L.rpb, gm, plan.s);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const int size1 = 3 * gm.A + gm.nh + gm.nh * gm.N * gm.N;
+  const int size2 = gm.D * 3 * gm.A + gm.A * gm.D + gm.D;
+  reduce_backward_partials<<<(size1 + size2 + 255) / 256, 256, 0, stream>>>(
+      ws, L.n1, size1, ws + L.off2, L.g2, size2, gm.D * 3 * gm.A, (float*)dparams);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core generic body on windows of N tokens (its plan must exist).
+int launch_gmma(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* dx,
+                void* workspace, void* dparams, int nwin, int N, int D, int nh, int hd, int wh,
+                int ww, cudaStream_t s) {
+  attn_mma::Plan plan;
+  if (!attn_mma::plan(N, D, nh, hd, &plan)) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)p[0] | (uintptr_t)p[1] | (uintptr_t)dx | (uintptr_t)workspace) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  GmmaLayout L;
+  const int err = gmma_layout(plan, nwin, &L);
+  if (err) return err;
+  const attn_mma::Geom& gm = plan.b.g;
+  if (gm.HP == 16) {
+    if (gm.DP <= 32)
+      return launch_gmma_t<32, 16>(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, wh, ww, plan, L, s);
+    if (gm.DP <= 64)
+      return launch_gmma_t<64, 16>(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, wh, ww, plan, L, s);
+    return launch_gmma_t<128, 16>(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, wh, ww, plan, L, s);
+  }
+  if (gm.DP <= 32)
+    return launch_gmma_t<32, 32>(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, wh, ww, plan, L, s);
+  if (gm.DP <= 64)
+    return launch_gmma_t<64, 32>(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, wh, ww, plan, L, s);
+  return launch_gmma_t<128, 32>(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, wh, ww, plan, L, s);
+}
+
 template <typename T>
 int launch_generic(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* dx,
                    void* part, void* dparams, int nwin, int N, int D, int nh, int hd, int hg,
@@ -1307,11 +1976,6 @@ int launch_generic(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n,
                           wh, ww, blocks, s);
 }
 
-// the tensor-core body's geometries: bfloat16, N = 64, D = 64, heads 6 x 10 or 4 x 16
-bool is_mma(int N, int D, int nh, int hd, int is_bf16) {
-  return is_bf16 && N == WN && D == WD && ((nh == 6 && hd == 10) || (nh == 4 && hd == 16));
-}
-
 }  // namespace
 
 extern "C" {
@@ -1324,9 +1988,17 @@ long long tmar_window_attention_bwd_workspace(int nwin, int N, int D, int num_he
   if (nwin < 1 || blocks < 1 || N < 1 || N > ROWS || D < 1 || num_heads < 1 || head_dim < 1 ||
       head_dim > 32)
     return -1;
-  if (is_mma(N, D, num_heads, head_dim, is_bf16))
+  const attn_mma::Body body = attn_mma::body(N, D, num_heads, head_dim, is_bf16);
+  if (body == attn_mma::FLAGSHIP)
     return num_heads == 6 ? (long long)BwdPlan<6, 10>(nwin, blocks).total
                           : (long long)BwdPlan<4, 16>(nwin, blocks).total;
+  if (body == attn_mma::TENSOR_CORE) {
+    attn_mma::Plan plan;
+    GmmaLayout L;
+    if (!attn_mma::plan(N, D, num_heads, head_dim, &plan) || gmma_layout(plan, nwin, &L))
+      return -1;
+    return (long long)L.total;
+  }
 #define TMAR_WS(NN, DD, NH, HD)                                                       \
   if (N == NN && D == DD && num_heads == NH && head_dim == HD)                         \
     return (long long)blocks * Geo<NN, DD, NH, HD>::PSIZE;
@@ -1343,22 +2015,27 @@ long long tmar_window_attention_bwd_workspace(int nwin, int N, int D, int num_he
 // concatenation of dwqkv [D, 3A], dbqkv [3A], dscale [nh], dbias [nh, N, N],
 // dwproj [A, D], dbproj [D].  `workspace` holds the floats that
 // tmar_window_attention_bwd_workspace gives for the same arguments, 16-byte
-// aligned.  The other arguments are the forward's: bfloat16 at the
-// full-width NGswin's windows runs the tensor-core body, every other case
-// the generic body, hg heads at a time.  Returns a cudaError_t code.
+// aligned.  The other arguments are the forward's, `body` too (another
+// than the rule's is refused): the flagship and tensor-core generic bodies
+// size their own launches, the others take hg heads at a time on `blocks`
+// persistent blocks.  Returns a cudaError_t code.
 int tmar_window_attention_bwd(const void* x, const void* g, const void* wqkv,
                               const void* bqkv, const void* scale, const void* bias,
                               const void* wproj, const void* mrow, const void* mcol,
                               const void* lse, void* dx, void* workspace, void* dparams,
                               int nwin, int N, int D, int num_heads, int head_dim, int hg,
                               int wq_k, int wq_n, int wp_k, int wp_n, int wh, int ww, int blocks,
-                              int is_bf16, void* stream) {
+                              int is_bf16, int body, void* stream) {
   if (nwin < 1 || blocks < 1 || N < 1 || N > ROWS || D < 1 || num_heads < 1 ||
-      head_dim < 1 || head_dim > 32 || hg < 1 || (wh > 0 && (ww < 1 || nwin % (wh * ww))))
+      head_dim < 1 || head_dim > 32 || hg < 1 || (wh > 0 && (ww < 1 || nwin % (wh * ww))) ||
+      body != attn_mma::body(N, D, num_heads, head_dim, is_bf16))
     return (int)cudaErrorInvalidValue;
   const void* p[10] = {x, g, wqkv, bqkv, scale, bias, wproj, mrow, mcol, lse};
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_mma(N, D, num_heads, head_dim, is_bf16))
+  if (body == attn_mma::TENSOR_CORE)
+    return launch_gmma(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, N, D, num_heads,
+                       head_dim, wh, ww, s);
+  if (body == attn_mma::FLAGSHIP)
     return num_heads == 6
                ? launch_mma<6, 10>(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, wh,
                                    ww, blocks, s)
@@ -1390,6 +2067,50 @@ int tmar_window_attention_bwd(const void* x, const void* g, const void* wqkv,
 // to a group.
 long long tmar_window_attention_bwd_smem(int N, int D, int head_dim, int hg) {
   return (long long)rt_bytes(N, D, head_dim, hg);
+}
+
+// The tensor-core generic body at any bfloat16 geometry it has a plan for,
+// the flagship's too, with tmar_window_attention_bwd's arguments (hg,
+// blocks and body unread) and a workspace of
+// tmar_window_attention_bwd_gmma_workspace floats: chip_smoke.py's
+// flagship-geometry line, never a dispatch.
+int tmar_window_attention_bwd_gmma(const void* x, const void* g, const void* wqkv,
+                                   const void* bqkv, const void* scale, const void* bias,
+                                   const void* wproj, const void* mrow, const void* mcol,
+                                   const void* lse, void* dx, void* workspace, void* dparams,
+                                   int nwin, int N, int D, int num_heads, int head_dim, int hg,
+                                   int wq_k, int wq_n, int wp_k, int wp_n, int wh, int ww,
+                                   int blocks, int is_bf16, int body, void* stream) {
+  (void)hg, (void)blocks, (void)body;
+  if (!is_bf16 || nwin < 1 || (wh > 0 && (ww < 1 || nwin % (wh * ww))))
+    return (int)cudaErrorInvalidValue;
+  const void* p[10] = {x, g, wqkv, bqkv, scale, bias, wproj, mrow, mcol, lse};
+  return launch_gmma(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, N, D, num_heads,
+                     head_dim, wh, ww, (cudaStream_t)stream);
+}
+
+long long tmar_window_attention_bwd_gmma_workspace(int nwin, int N, int D, int num_heads,
+                                                   int head_dim) {
+  attn_mma::Plan plan;
+  GmmaLayout L;
+  if (nwin < 1 || !attn_mma::plan(N, D, num_heads, head_dim, &plan) || gmma_layout(plan, nwin, &L))
+    return -1;
+  return (long long)L.total;
+}
+
+// The shared memory, in bytes, of the tensor-core generic body's launch
+// `which` (1: per window, 2: the token sums) for windows of N tokens (-1
+// where it has no plan).
+long long tmar_window_attention_bwd_mma_smem(int N, int D, int num_heads, int head_dim,
+                                             int which) {
+  attn_mma::Plan P;
+  if (!attn_mma::plan(N, D, num_heads, head_dim, &P)) return -1;
+  return which == 1 ? (long long)P.b.bytes : (long long)P.s.bytes;
+}
+
+// The body this source runs for the geometry and I/O type (attn_mma::Body).
+int tmar_window_attention_bwd_body(int N, int D, int num_heads, int head_dim, int is_bf16) {
+  return (int)attn_mma::body(N, D, num_heads, head_dim, is_bf16);
 }
 
 const char* tmar_window_attention_bwd_error(int err) {

@@ -18,7 +18,9 @@
 // also writes lse[win, h, i] = max + log(sum), which the backward kernel
 // reads in place of a second softmax pass.
 //
-// Three bodies, chosen by the I/O type and the geometry:
+// Four bodies, chosen by the I/O type and the geometry alone
+// (window_attention_generic_mma.cuh: attn_mma::body, the rule of
+// tmar_torch/ops/envelope.py: attention_body):
 // * bfloat16 at the full-width NGswin's windows (N = 64, D = 64, heads 6 x 10
 //   or 4 x 16: the training step's and the unfused serving form's): the
 //   tensor-core body below (window_attention_mma.cuh), which rounds where
@@ -30,14 +32,20 @@
 //   dtypes): the body templated on the geometry, which at bfloat16 rounds
 //   where _attn_kernel rounds: its weights and the head outputs before the
 //   projection (:1236), its scores and P·V float32.
-// * every other case: the generic body, which takes N (<= 64), D, the heads
-//   and head_dim (<= 32) at run time.  At bfloat16 and N >= 32 it rounds
-//   where the tensor-core body does; below, where _attn_kernel rounds.
+// * bfloat16 windows of 32 to 64 tokens at every other geometry with a plan
+//   (D a multiple of 8 up to 128, head_dim <= 32): the tensor-core generic
+//   body below (window_attention_fwd_gmma), rounding as the tensor-core body.
+// * every other case: the CUDA-core generic body, which takes N (<= 64), D,
+//   the heads and head_dim (<= 32) at run time.  At bfloat16 and N >= 32 it
+//   would round where the tensor-core body does (the rule sends those
+//   windows to the tensor-core generic body where it has a plan); below,
+//   where _attn_kernel rounds.
 //
 // What bounds it on an H100: about 45 kFLOP per token at N = 64 against 256
 // to 512 bytes moved (x, the output, lse): operations on the CUDA cores in
-// float32, bytes on the tensor cores in bfloat16.
-// Generic body: a persistent block walks over tiles of whole windows (one
+// float32, bytes on the tensor cores in bfloat16 (the demo width's 512
+// windows of 64 tokens at D 32: 0.00135 ms by bytes).
+// CUDA-core generic body: a persistent block walks over tiles of whole windows (one
 // 64-token window, four of 16, sixteen of 4, seven of 9 in 63 rows); the
 // weights are read from device memory (L2) through their strides; heads are
 // taken in groups that fit shared memory.  The score matrix is never
@@ -54,6 +62,7 @@
 // barrier per head suffices.  Keeping x out of shared memory is what makes
 // room for four windows in flight per SM at 6 heads (two with x staged).
 
+#include "window_attention_generic_mma.cuh"
 #include "window_attention_geometries.cuh"
 #include "window_attention_mma.cuh"
 
@@ -566,6 +575,274 @@ int launch_mma(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, voi
   return (int)cudaGetLastError();
 }
 
+// ---- the bfloat16 tensor-core generic body: 32 <= N <= 64 -------------------
+// (window_attention_generic_mma.cuh: the plan, the rule, the layout.)  A
+// warp owns 16 rows of a window; the chain x -> qkv -> q_n -> S -> P -> O
+// -> projection stays in its registers, x's A fragments read straight from
+// device memory, the output written from the registers.  Only each head's
+// k_n and v go through shared memory (all the window's warps read them),
+// double-buffered by head: one barrier of the window's warps per head.
+// Rounding as the flagship body: bf16 x, weights, q_n, k_n, v, P (after its
+// float32 normalisation) and the head outputs; float32 everything else.
+template <int DM, int HPD>
+__global__ void __launch_bounds__(attn_mma::WARPS * 32) window_attention_fwd_gmma(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ wqkv, int wq_k, int wq_n,
+    const float* __restrict__ bqkv, const float* __restrict__ scale,
+    const float* __restrict__ bias, const float* __restrict__ wproj, int wp_k, int wp_n,
+    const float* __restrict__ bproj, const float* __restrict__ mrow,
+    const float* __restrict__ mcol, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+    int nwin, int wh, int ww, attn_mma::FwdPlan P) {
+  using namespace attn_mma;
+  constexpr int DT = DM / 8, DK = DM / 16;     // accumulator tiles and k-steps of D
+  constexpr int HT = HPD / 8, HK = HPD / 16;   // ... of a head
+  extern __shared__ float4 smem4[];
+  float* sf = reinterpret_cast<float*>(smem4);
+  __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(sf + P.floats);
+  const Geom& gm = P.g;
+  const Weights& W = P.w;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int N = gm.N, D = gm.D, nh = gm.nh, NP = gm.NP, LDK = gm.LDK, AP = gm.AP;
+
+  // ---- once per block: zeros (the weights' padding), the float32
+  // parameters, resident weights
+  for (int i = tid; i < (W.elems + P.G * P.gelems) / 8; i += nthreads)
+    reinterpret_cast<uint4*>(sw)[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int o = tid; o < 3 * AP; o += nthreads) {
+    const int part = o / AP, h = (o % AP) / HPD, d = o % HPD;
+    sf[P.f_bqkv + o] = d < gm.hd ? bqkv[part * gm.A + h * gm.hd + d] : 0.f;
+  }
+  for (int n = tid; n < gm.DP; n += nthreads) sf[P.f_bproj + n] = n < D ? bproj[n] : 0.f;
+  for (int h = tid; h < nh; h += nthreads) sf[P.f_scale + h] = scale[h] * LOG2E;
+  __syncthreads();  // the zeros are down before the weights go over them
+  if (W.resident) stage_weights(sw, W, gm, 0, nh, wqkv, wq_k, wq_n, wproj, wp_k, wp_n, tid, nthreads);
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int grp = warp / gm.WW, wig = warp % gm.WW;
+  __nv_bfloat16* gbase = sw + W.elems + grp * P.gelems;
+  const int r0 = 16 * wig + g, r1 = r0 + 8;  // this thread's rows in the window
+  const int q0 = r0 < N ? r0 : 0, q1 = r1 < N ? r1 : 0;
+  const int tiles = (nwin + P.G - 1) / P.G;
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int win = tile * P.G + grp;
+    const bool valid = win < nwin;
+    // the warp's A fragments of x, straight from device memory (zero in the
+    // padded rows and columns, and past the last window)
+    uint32_t xa[DK][4];
+    const __nv_bfloat16* xw = x + (size_t)(valid ? win : 0) * N * D;
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int c = 16 * kk + 8 * hf + 2 * t;
+        const bool in = valid && c < D;
+        xa[kk][2 * hf] = in && r0 < N ? ldg32(xw + r0 * D + c) : 0u;
+        xa[kk][2 * hf + 1] = in && r1 < N ? ldg32(xw + r1 * D + c) : 0u;
+      }
+    bool gr, gc;
+    mask_gates(valid ? win : 0, wh, ww, gr, gc);
+
+    float pj[DT][4];
+#pragma unroll
+    for (int j = 0; j < DT; ++j) pj[j][0] = pj[j][1] = pj[j][2] = pj[j][3] = 0.f;
+#pragma unroll 1
+    for (int h = 0; h < nh; ++h) {
+      if (!W.resident) {  // head h's weights, between two block barriers
+        __syncthreads();
+        stage_weights(sw, W, gm, h, h + 1, wqkv, wq_k, wq_n, wproj, wp_k, wp_n, tid, nthreads);
+        __syncthreads();
+      }
+      __nv_bfloat16* s_k = gbase + (h & 1) * 2 * NP * LDK;  // k_n [NP][LDK]
+      __nv_bfloat16* s_v = s_k + NP * LDK;                  // v [NP][LDK]
+      uint32_t qa[HK][4];
+      {
+        // q, k, v of head h: part p's columns at qcol + p·pstride
+        const int qcol = W.resident ? h * HPD : 0, pstride = W.resident ? AP : HPD;
+        float acc[3][HT][4];
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+#pragma unroll
+          for (int j = 0; j < HT; ++j) acc[p][j][0] = acc[p][j][1] = acc[p][j][2] = acc[p][j][3] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < DK; ++kk) {
+          if (kk >= gm.dk) break;
+#pragma unroll
+          for (int p = 0; p < 3; ++p)
+#pragma unroll
+            for (int n2 = 0; n2 < HK; ++n2)
+              mma_pair_t(acc[p][2 * n2], acc[p][2 * n2 + 1], xa[kk], sw, W.ld_qkv,
+                         qcol + p * pstride + 16 * n2, 16 * kk, lane);
+        }
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+#pragma unroll
+          for (int j = 0; j < HT; ++j) {
+            const float* bq = sf + P.f_bqkv + p * AP + h * HPD + 8 * j + 2 * t;
+            acc[p][j][0] += bq[0], acc[p][j][1] += bq[1], acc[p][j][2] += bq[0], acc[p][j][3] += bq[1];
+          }
+        // 1 / (|row| + 1e-12) of q (p = 0) and k (p = 1), over the quad
+        float inv[2][2];
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+          for (int j = 0; j < HT; ++j) {
+            s0 += acc[p][j][0] * acc[p][j][0] + acc[p][j][1] * acc[p][j][1];
+            s1 += acc[p][j][2] * acc[p][j][2] + acc[p][j][3] * acc[p][j][3];
+          }
+          inv[p][0] = 1.f / (sqrtf(quad_sum(s0)) + 1e-12f);
+          inv[p][1] = 1.f / (sqrtf(quad_sum(s1)) + 1e-12f);
+        }
+#pragma unroll
+        for (int kk = 0; kk < HK; ++kk) {
+          const float* lo = acc[0][2 * kk];
+          const float* hi = acc[0][2 * kk + 1];
+          qa[kk][0] = pack_bf16(lo[0] * inv[0][0], lo[1] * inv[0][0]);
+          qa[kk][1] = pack_bf16(lo[2] * inv[0][1], lo[3] * inv[0][1]);
+          qa[kk][2] = pack_bf16(hi[0] * inv[0][0], hi[1] * inv[0][0]);
+          qa[kk][3] = pack_bf16(hi[2] * inv[0][1], hi[3] * inv[0][1]);
+        }
+#pragma unroll
+        for (int j = 0; j < HT; ++j) {
+          const int c = 8 * j + 2 * t;
+          const float* kt = acc[1][j];
+          const float* vt = acc[2][j];
+          sts32(s_k + r0 * LDK + c, pack_bf16(kt[0] * inv[1][0], kt[1] * inv[1][0]));
+          sts32(s_k + r1 * LDK + c, pack_bf16(kt[2] * inv[1][1], kt[3] * inv[1][1]));
+          sts32(s_v + r0 * LDK + c, pack_bf16(vt[0], vt[1]));
+          sts32(s_v + r1 * LDK + c, pack_bf16(vt[2], vt[3]));
+        }
+      }
+      group_sync(grp, gm.WW);  // head h's k_n and v are in; head h - 2's are read
+
+      // S = q_n · k_nᵀ (tile j: keys [8j, 8j + 8)), then the logits in log2
+      // units, padded keys -inf
+      float s[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        if (16 * jp >= NP) break;
+#pragma unroll
+        for (int kk = 0; kk < HK; ++kk)
+          mma_pair(s[2 * jp], s[2 * jp + 1], qa[kk], s_k, LDK, 16 * jp, 16 * kk, lane);
+      }
+      const float sc2 = sf[P.f_scale + h];
+      const float* bh = bias + (size_t)h * N * N;
+      float m0 = -INFINITY, m1 = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (8 * j >= NP) break;
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 8 * j + 2 * t + e;
+          s[j][e] = logit2(s[j][e], sc2, bh, mrow, mcol, gr, gc, N, q0, c);
+          s[j][2 + e] = logit2(s[j][2 + e], sc2, bh, mrow, mcol, gr, gc, N, q1, c);
+          m0 = fmaxf(m0, s[j][e]), m1 = fmaxf(m1, s[j][2 + e]);
+        }
+      }
+      m0 = quad_max(m0);
+      m1 = quad_max(m1);
+      float z0 = 0.f, z1 = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (8 * j >= NP) break;
+        s[j][0] = exp2_approx(s[j][0] - m0), s[j][1] = exp2_approx(s[j][1] - m0);
+        s[j][2] = exp2_approx(s[j][2] - m1), s[j][3] = exp2_approx(s[j][3] - m1);
+        z0 += s[j][0] + s[j][1];
+        z1 += s[j][2] + s[j][3];
+      }
+      z0 = quad_sum(z0);
+      z1 = quad_sum(z1);
+      if (t == 0 && valid) {  // natural-log lse, as every body writes it
+        float* l = lse + ((size_t)win * nh + h) * N;
+        if (r0 < N) l[r0] = (m0 + log2f(z0)) * LN2;
+        if (r1 < N) l[r1] = (m1 + log2f(z1)) * LN2;
+      }
+      const float iz0 = 1.f / z0, iz1 = 1.f / z1;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[j][0] *= iz0, s[j][1] *= iz0, s[j][2] *= iz1, s[j][3] *= iz1;
+
+      // O = bf16(P) · v, then bf16(O) · the head's projection rows
+      float o[HT][4];
+#pragma unroll
+      for (int j = 0; j < HT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (16 * kk >= NP) break;
+        uint32_t pa[4];
+        to_a(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+        for (int n2 = 0; n2 < HK; ++n2)
+          mma_pair_t(o[2 * n2], o[2 * n2 + 1], pa, s_v, LDK, 16 * n2, 16 * kk, lane);
+      }
+      const int prow = W.resident ? h * HPD : 0;
+#pragma unroll
+      for (int kk = 0; kk < HK; ++kk) {
+        uint32_t oa[4];
+        to_a(oa, o[2 * kk], o[2 * kk + 1]);
+#pragma unroll
+        for (int n2 = 0; n2 < DK; ++n2) {
+          if (n2 >= gm.dk) break;
+          mma_pair_t(pj[2 * n2], pj[2 * n2 + 1], oa, sw + W.w_proj, W.ld_proj, 16 * n2,
+                     prow + 16 * kk, lane);
+        }
+      }
+    }
+
+    // out = projection + bproj, bf16, from the registers (real rows and columns)
+    if (valid) {
+      __nv_bfloat16* ow = out + (size_t)win * N * D;
+#pragma unroll
+      for (int j = 0; j < DT; ++j) {
+        const int c = 8 * j + 2 * t;
+        if (c >= D) break;
+        const float b0 = sf[P.f_bproj + c], b1 = sf[P.f_bproj + c + 1];
+        if (r0 < N) sts32(ow + r0 * D + c, pack_bf16(pj[j][0] + b0, pj[j][1] + b1));
+        if (r1 < N) sts32(ow + r1 * D + c, pack_bf16(pj[j][2] + b0, pj[j][3] + b1));
+      }
+    }
+    group_sync(grp, gm.WW);  // the head buffers are free for the next window
+  }
+}
+
+template <int DM, int HPD>
+int launch_gmma_t(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* out,
+                  void* lse, int nwin, int wh, int ww, const attn_mma::FwdPlan& P,
+                  cudaStream_t stream) {
+  auto kern = window_attention_fwd_gmma<DM, HPD>;
+  static int cache[64][3] = {};
+  int grid = 0;
+  const int err = attn_mma::persistent_grid(kern, P.bytes, P.threads, cache, &grid);
+  if (err) return err;
+  const int tiles = (nwin + P.G - 1) / P.G;
+  kern<<<tiles < grid ? tiles : grid, P.threads, P.bytes, stream>>>(
+      (const __nv_bfloat16*)p[0], (const float*)p[1], wq_k, wq_n, (const float*)p[2],
+      (const float*)p[3], (const float*)p[4], (const float*)p[5], wp_k, wp_n,
+      (const float*)p[6], (const float*)p[7], (const float*)p[8], (__nv_bfloat16*)out,
+      (float*)lse, nwin, wh, ww, P);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core generic body on windows of N tokens (its plan must exist).
+int launch_gmma(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* out,
+                void* lse, int nwin, int N, int D, int nh, int hd, int wh, int ww,
+                cudaStream_t s) {
+  attn_mma::Plan plan;
+  if (!attn_mma::plan(N, D, nh, hd, &plan)) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)p[0] | (uintptr_t)out) & 3) return (int)cudaErrorMisalignedAddress;
+  const attn_mma::FwdPlan& P = plan.f;
+  if (P.g.HP == 16) {
+    if (P.g.DP <= 32) return launch_gmma_t<32, 16>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, P, s);
+    if (P.g.DP <= 64) return launch_gmma_t<64, 16>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, P, s);
+    return launch_gmma_t<128, 16>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, P, s);
+  }
+  if (P.g.DP <= 32) return launch_gmma_t<32, 32>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, P, s);
+  if (P.g.DP <= 64) return launch_gmma_t<64, 32>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, P, s);
+  return launch_gmma_t<128, 32>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, P, s);
+}
+
 template <typename T>
 int launch_generic(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* out,
                    void* lse, int nwin, int N, int D, int nh, int hd, int hg, int wh, int ww,
@@ -589,28 +866,31 @@ extern "C" {
 // bfloat16 bodies round the two matrices): wqkv [D, 3A] and wproj [A, D] are
 // read as w[k·w_k + n·w_n]; bqkv [3A]; scale [nh] = exp(min(logit_scale,
 // ln 100)); bias [nh, N, N]; bproj [D]; mrow, mcol [N, N] are read only when
-// wh > 0.  bfloat16 at the full-width NGswin's windows (N = 64, D = 64,
-// heads 6 x 10 or 4 x 16) runs the tensor-core body (`blocks` is then the
-// most persistent blocks); every other case the generic body (N <= 64,
-// head_dim <= 32), hg heads at a time, on `blocks` persistent blocks.
-// Returns a cudaError_t code.
+// wh > 0.  `body` is the body the caller picked (attn_mma::body, the rule
+// of tmar_torch/ops/envelope.py: attention_body); another than the rule's
+// is refused.  The flagship body (`blocks` is then the most persistent
+// blocks) and the tensor-core generic body size their own grids; the
+// templated and CUDA-core generic bodies take hg heads at a time on
+// `blocks` persistent blocks.  Returns a cudaError_t code.
 int tmar_window_attention_fwd(const void* x, const void* wqkv, const void* bqkv,
                               const void* scale, const void* bias, const void* wproj,
                               const void* bproj, const void* mrow, const void* mcol,
                               void* out, void* lse, int nwin, int N, int D, int num_heads,
                               int head_dim, int hg, int wq_k, int wq_n, int wp_k, int wp_n,
-                              int wh, int ww, int blocks, int is_bf16, void* stream) {
+                              int wh, int ww, int blocks, int is_bf16, int body, void* stream) {
   if (nwin < 1 || blocks < 1 || N < 1 || N > ROWS || D < 1 || num_heads < 1 ||
-      head_dim < 1 || head_dim > 32 || hg < 1 || (wh > 0 && (ww < 1 || nwin % (wh * ww))))
+      head_dim < 1 || head_dim > 32 || hg < 1 || (wh > 0 && (ww < 1 || nwin % (wh * ww))) ||
+      body != attn_mma::body(N, D, num_heads, head_dim, is_bf16))
     return (int)cudaErrorInvalidValue;
   const void* p[9] = {x, wqkv, bqkv, scale, bias, wproj, bproj, mrow, mcol};
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16 && N == WN && D == WD) {
-    if (num_heads == 6 && head_dim == 10)
-      return launch_mma<6, 10>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s);
-    if (num_heads == 4 && head_dim == 16)
-      return launch_mma<4, 16>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s);
-  }
+  if (body == attn_mma::FLAGSHIP)
+    return num_heads == 6
+               ? launch_mma<6, 10>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s)
+               : launch_mma<4, 16>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s);
+  if (body == attn_mma::TENSOR_CORE)
+    return launch_gmma(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, N, D, num_heads, head_dim, wh,
+                       ww, s);
   // the templated body at the full-width NGswin's other geometries: its
   // float32 windows, and its n-gram windows at both dtypes
 #define TMAR_CASE(NN, DD, NH, HD, T)                                                   \
@@ -636,6 +916,37 @@ int tmar_window_attention_fwd(const void* x, const void* wqkv, const void* bqkv,
 // to a group.
 long long tmar_window_attention_fwd_smem(int D, int num_heads, int head_dim, int hg) {
   return (long long)rt_bytes(D, num_heads, head_dim, hg);
+}
+
+// The tensor-core generic body at any bfloat16 geometry it has a plan for,
+// the flagship's too, with tmar_window_attention_fwd's arguments (hg,
+// blocks and body unread): chip_smoke.py's flagship-geometry line, never a
+// dispatch.
+int tmar_window_attention_fwd_gmma(const void* x, const void* wqkv, const void* bqkv,
+                                   const void* scale, const void* bias, const void* wproj,
+                                   const void* bproj, const void* mrow, const void* mcol,
+                                   void* out, void* lse, int nwin, int N, int D, int num_heads,
+                                   int head_dim, int hg, int wq_k, int wq_n, int wp_k, int wp_n,
+                                   int wh, int ww, int blocks, int is_bf16, int body,
+                                   void* stream) {
+  (void)hg, (void)blocks, (void)body;
+  if (!is_bf16 || nwin < 1 || (wh > 0 && (ww < 1 || nwin % (wh * ww))))
+    return (int)cudaErrorInvalidValue;
+  const void* p[9] = {x, wqkv, bqkv, scale, bias, wproj, bproj, mrow, mcol};
+  return launch_gmma(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, N, D, num_heads, head_dim, wh, ww,
+                     (cudaStream_t)stream);
+}
+
+// The shared memory, in bytes, of the tensor-core generic body's launch
+// for windows of N tokens (-1 where it has no plan).
+long long tmar_window_attention_fwd_mma_smem(int N, int D, int num_heads, int head_dim) {
+  attn_mma::Plan P;
+  return attn_mma::plan(N, D, num_heads, head_dim, &P) ? (long long)P.f.bytes : -1;
+}
+
+// The body this source runs for the geometry and I/O type (attn_mma::Body).
+int tmar_window_attention_fwd_body(int N, int D, int num_heads, int head_dim, int is_bf16) {
+  return (int)attn_mma::body(N, D, num_heads, head_dim, is_bf16);
 }
 
 const char* tmar_window_attention_fwd_error(int err) {

@@ -2,10 +2,15 @@
 ``tmar.nn.blocks``), in several forms over one parameter set, selected by
 ``attn_backward`` as in the JAX package:
 
-* ``"auto"``, inference, in one of three block forms chosen by the
-  constructor arguments that stand in for the JAX package's environment
-  variables (``nstb_fused`` for ``TMAR_NSTB_FUSED``, ``nstb_map`` for
-  ``TMAR_NSTB_MAP``):
+* ``"auto"``: which kernels run depends, as in the JAX package, on whether
+  the forward is differentiated.  Under autograd (grad enabled and x or a
+  parameter requiring grad) it takes the training form's path below: the
+  same function through the kernels that have backward kernels (K1 with
+  K7, K3 with K4, K5 with K6), the port's counterpart of the JAX package's
+  XLA math under grad.  Without grad, the inference form, in one of three
+  block forms chosen by the constructor arguments that stand in for the JAX
+  package's environment variables (``nstb_fused`` for ``TMAR_NSTB_FUSED``,
+  ``nstb_map`` for ``TMAR_NSTB_MAP``):
 
   - fused, map (the default): the whole-block fusion on the map, two
     forward-only kernels per block (``fused_ngram_context``,
@@ -25,6 +30,10 @@
   path), the window attention through ``fused_window_attention`` and the
   post-norm residual FFN through ``fused_residual_ffn``; all three have
   backward kernels.  ``nstb_fused`` and ``nstb_map`` are ignored here, as the JAX package's block fusion stands aside in training;
+
+* ``"xla"``: as ``"auto"``, except that under autograd the window attention
+  runs K3 forward and the plain recompute backward (the JAX package's
+  Pallas forward with the recompute VJP), so K4 never runs;
 
 * ``"plain"``: the JAX package's ``use_pallas_attention=false`` path, the
   unfused block as torch ops on every device (no kernel), the form that
@@ -84,7 +93,7 @@ class NSTB(nn.Module):
         self.num_heads = num_heads
         self.window_size = window_size
         self.shift_size = shift_size
-        inference = self.attn_backward == "auto"
+        inference = self.attn_backward in ("auto", "xla")
         self.nstb_fused = bool(nstb_fused) and inference
         self.nstb_map = bool(nstb_map)
         self.ngram_window_partition = NGramWindowPartition(
@@ -92,7 +101,8 @@ class NSTB(nn.Module):
         )
         self.tp = None  # the model axis, once tensor_parallel has run
         self.attn = WindowAttention(dim, num_heads, (window_size, window_size), head_dim, qkv_bias,
-                                    plain=attn_backward == "plain")
+                                    plain=attn_backward == "plain",
+                                    recompute=attn_backward == "xla")
         self.norm1 = LayerNorm(dim)
         self.ffn = Mlp(dim, int(dim * mlp_ratio), dim)
         self.norm2 = LayerNorm(dim)
@@ -105,7 +115,7 @@ class NSTB(nn.Module):
         B, p, D = x.shape
         if p != ph * pw:
             raise ValueError("token count does not match the patch grid")
-        if not self.nstb_fused:
+        if not self.nstb_fused or self._differentiated(x):
             return x, self._forward_unfused(x, num_patches)
         if not self.nstb_map:
             return x, self._forward_tokens(x, num_patches)
@@ -119,6 +129,13 @@ class NSTB(nn.Module):
         )
         out = reverse_cyclic_shift(zmap, self.shift_size)
         return x, out.reshape(B, p, D)
+
+    def _differentiated(self, x: torch.Tensor) -> bool:
+        """Whether autograd records this call: the inference form's
+        whole-block kernels are forward-only, so such a call takes the
+        training form's path."""
+        return torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in self.parameters()))
 
     def _forward_tokens(self, x: torch.Tensor, num_patches: Tuple[int, int]) -> torch.Tensor:
         ph, pw = num_patches

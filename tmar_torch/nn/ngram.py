@@ -12,7 +12,10 @@
   than 2x2, it is the composition: both directions through ``ngram_attn``
   (the attention kernels at N = n²), the token mean and the ``merge`` conv
   under autograd.  The parameters and their names are the same in every
-  form.  The plain form (``attn_backward="plain"``, the JAX package's
+  form.  In the ``"xla"`` form the composition's attention takes K3's
+  forward and the plain recompute backward (``fused_window_attention``'s
+  ``backward="xla"``); the fused context is the same in every kernel form,
+  its K1 forward and K7 backward.  The plain form (``attn_backward="plain"``, the JAX package's
   ``use_pallas_attention=false``) takes the composition with the plain
   attention on every device, as the JAX package's XLA path does.
 * ``NGramWindowPartition``: ``forward`` is the map form of the JAX module's
@@ -35,7 +38,9 @@ from tmar_torch.ops.cuda_ngram import fused_ngram_context
 from tmar_torch.ops.ngram import ngram_windows
 from tmar_torch.ops.window import cyclic_shift, window_partition
 
-ATTN_BACKWARDS = ("auto", "pallas", "plain")
+# the block forms (tmar_torch.nn.blocks): the JAX package's three
+# ``attn_backward`` names, and the port's plain form
+ATTN_BACKWARDS = ("auto", "pallas", "xla", "plain")
 
 
 def check_attn_backward(attn_backward: str) -> str:
@@ -91,7 +96,8 @@ class NGramContext(nn.Module):
         # function as the JAX package's dense expansion of this kernel
         self.unigram_embed = Conv2d(dim, half, window_size, stride=window_size, groups=half)
         self.ngram_attn = WindowAttention(half, ngram_num_heads, (ngram, ngram),
-                                          plain=attn_backward == "plain")
+                                          plain=attn_backward == "plain",
+                                          recompute=attn_backward == "xla")
         self.merge = Conv2d(dim, dim, 1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

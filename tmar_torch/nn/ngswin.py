@@ -8,8 +8,11 @@ a two-conv head with tanh.  Input and output are [B, H, W, C] in [-1, 1]; H
 and W are padded to multiples of 4·window_size and cropped back.
 
 ``attn_backward`` selects the form of every block as in the JAX package:
-``"auto"`` is the inference form (two forward-only kernels per block),
+``"auto"`` is the inference form without grad (two forward-only kernels
+per block) and the training form's kernels under autograd,
 ``"pallas"`` the training form (attention and FFN kernels with backwards),
+``"xla"`` as ``"auto"`` with the attention's backward by the plain
+recompute in place of K4,
 ``"plain"`` the JAX package's ``use_pallas_attention=false`` path as torch
 ops on every device (the form tensor parallelism splits).
 ``ngram_fused`` (default True, as the JAX package on hardware, where its

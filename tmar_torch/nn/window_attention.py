@@ -8,6 +8,10 @@ inference kernels read them through ``params()``; ``forward`` is the
 differentiable attention on [B_, N, D] windows, through
 ``fused_window_attention`` (forward and backward kernels on a CUDA tensor).
 
+``recompute=True`` is the JAX package's ``attn_backward="xla"``: the
+forward kernel K3 and, under autograd, the plain recompute in place of the
+backward kernel K4 (``fused_window_attention``'s ``backward="xla"``).
+
 ``plain=True`` is the JAX package's plain attention (its
 ``use_pallas_attention=false`` path) as torch ops on every device, the form
 that tensor parallelism splits: after ``split_heads_over`` the module
@@ -42,9 +46,11 @@ class WindowAttention(nn.Module):
         head_dim: Optional[int] = None,
         qkv_bias: bool = True,
         plain: bool = False,
+        recompute: bool = False,
     ):
         super().__init__()
         self.plain = plain
+        self.backward = "xla" if recompute else "pallas"
         self.tp = None  # the model axis, once split_heads_over has run
         self.num_heads = num_heads
         self.window_size = tuple(window_size)
@@ -67,7 +73,7 @@ class WindowAttention(nn.Module):
         wqkv, bqkv, logit_scale, _, wproj, bproj = self.params()
         return fused_window_attention(
             x, wqkv, bqkv, logit_scale, self.bias(), wproj, bproj, self.num_heads,
-            mask_components=mask_components,
+            mask_components=mask_components, backward=self.backward,
         )
 
     def _forward_plain(self, x: torch.Tensor, mask_components) -> torch.Tensor:

@@ -17,16 +17,19 @@ the kernels and the JAX kernels round.
 
 The kernels read the float32 parameters; the activations and their
 cotangents are float32 or bfloat16, and the parameter cotangents float32.
-bfloat16 at the full-width NGswin's 64-token windows (``MMA_GEOMETRIES``)
-runs the tensor-core bodies; its other geometries (``KERNEL_GEOMETRIES``)
-bodies templated on the geometry; every other case the generic bodies, which
-take N, D, the heads and head_dim at run time within
-``envelope.attention_envelope``.  At bfloat16 both round to bf16 where the
+Which body runs is ``envelope.attention_body``'s rule of geometry and dtype,
+and only that: bfloat16 at the full-width NGswin's 64-token windows
+(``MMA_GEOMETRIES``) the flagship tensor-core bodies; its other geometries
+(``KERNEL_GEOMETRIES``) bodies templated on the geometry; bfloat16 windows
+of 32 to 64 tokens the tensor-core generic bodies wherever
+``envelope.attention_mma_plan`` has a plan; every other case the CUDA-core
+generic bodies, which take N, D, the heads and head_dim at run time within
+``envelope.attention_envelope``.  At bfloat16 all round to bf16 where the
 JAX kernels do: on windows of 32 tokens or more as ``_attn_kernel_batched``
 and ``_attn_bwd_kernel_batched`` with ``cot_bf16`` on (the JAX default for
 bf16 inputs; the ``TMAR_ATTN_BWD_COT`` override is not read), below as
 ``_attn_kernel`` and ``_attn_bwd_kernel``.  At float32 they compute in
-float32 on the CUDA cores.
+float32 on the CUDA cores.  A body that fails to build or launch raises.
 
 ``impl`` takes the names of the JAX package's forward kernels
 (``TMAR_ATTN_IMPL``).  Each is a way of feeding the TPU's matrix unit (how
@@ -76,10 +79,10 @@ from tmar_torch.ops.attention import (
 # and n = 1 and 3 of ``model.ngrams``; the templated body at both dtypes).
 # The same set as csrc/window_attention_geometries.cuh, which both kernels'
 # dispatches expand.  Every other geometry inside
-# ``envelope.attention_envelope`` runs the generic bodies.
-MMA_GEOMETRIES = {(64, 64, 6, 10), (64, 64, 4, 16)}
-KERNEL_GEOMETRIES = MMA_GEOMETRIES | {
-    (n * n, 32, nh, hd) for n in (1, 2, 3) for nh, hd in ((6, 5), (4, 8))}
+# ``envelope.attention_envelope`` runs a generic body, the one
+# ``envelope.attention_body`` names.
+MMA_GEOMETRIES = envelope.ATTENTION_MMA_GEOMETRIES
+KERNEL_GEOMETRIES = envelope.ATTENTION_KERNEL_GEOMETRIES
 
 # impl name -> the TPU kernel it selects in tmar/ops/pallas_attention.py; on
 # the card every one is K3, csrc/window_attention_fwd.cu
@@ -92,6 +95,12 @@ IMPLS = {
     "diag": "_attn_kernel_diag, pallas_attention.py:1241",
     "packed": "_attn_kernel_packed, pallas_attention.py:813",
 }
+
+
+# the JAX op's ``backward`` names that it computes with kernels: K4, or the
+# plain recompute after K3 ("auto", XLA math under grad, is the block's
+# choice of kernels: tmar_torch.nn.blocks)
+BACKWARDS = ("pallas", "xla")
 
 
 def check_impl(impl: Optional[str]) -> Optional[str]:
@@ -242,6 +251,7 @@ def fused_window_attention(
     num_heads: int,
     mask_components: Optional[Tuple] = None,
     impl: Optional[str] = None,
+    backward: str = "pallas",
 ) -> torch.Tensor:
     """x [B_, N, D] -> [B_, N, D].  wqkv [D, 3A] and wproj [A, D] in the
     [in, out] layout (a transposed view is read in place), logit_scale
@@ -252,12 +262,20 @@ def fused_window_attention(
     name launches K3 and counts in ``launches_by_impl``, so the name
     changes no result.  The JAX op's ``windows_per_step`` and ``interpret``
     shape the TPU grid and have no counterpart here.  Differentiable in all
-    seven tensor arguments.  A CPU tensor runs the plain versions (at
+    seven tensor arguments.  ``backward`` is the JAX op's: ``"pallas"``
+    the backward kernel K4, ``"xla"`` the plain recompute (autograd over
+    ``window_attention_kernel_math``, the JAX op's ``jax.vjp`` of the pure
+    function) after K3's forward.  A CPU tensor runs the plain versions (at
     bfloat16 the rounding-matched ones); a CUDA tensor launches the kernels
     (float32 or bfloat16, any geometry inside ``envelope.attention_envelope``)
     or raises."""
     impl = resolve_impl(impl, x.shape[1])
+    if backward not in BACKWARDS:
+        raise ValueError(f"unknown attention backward {backward!r}; expected one of {BACKWARDS}")
     if x.device.type == "cpu":
+        if x.dtype == torch.bfloat16 and backward == "xla":
+            return window_attention_kernel_math(
+                x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components)
         if x.dtype == torch.bfloat16:
             return _PlainAttention.apply(
                 x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components)
@@ -269,7 +287,8 @@ def fused_window_attention(
         )
     if x.device.type != "cuda":
         raise ValueError(f"fused_window_attention: unsupported device {x.device}")
-    return _WindowAttention.apply(
+    function = _WindowAttention if backward == "pallas" else _RecomputedAttention
+    return function.apply(
         x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components, impl
     )
 
@@ -284,7 +303,10 @@ fused_window_attention.backward_launches_by_n = Counter()  # backward, by window
 class _Geometry:
     """What the C entry points take besides the tensors: the window length,
     the widths, the heads, the weights' strides, the mask grid, the I/O
-    dtype, and per kernel its heads per group and persistent blocks."""
+    dtype, the body (``envelope.attention_body``, which the sources check
+    against their own rule), and per kernel its heads per group and
+    persistent blocks (the CUDA-core generic body's; the tensor-core
+    bodies size their own grids)."""
 
     def __init__(self, x, w_qkv, w_proj, num_heads, wh, ww, sms):
         B_, self.N, self.D = x.shape
@@ -296,6 +318,8 @@ class _Geometry:
         self.strides = (*w_qkv.stride(), *w_proj.stride())
         self.wh, self.ww = wh, ww
         self.is_bf16 = int(x.dtype == torch.bfloat16)
+        self.body = envelope.ATTENTION_BODIES.index(
+            envelope.attention_body(self.N, self.D, self.nh, self.hd, x.dtype))
         if (self.N, self.D, self.nh, self.hd) in KERNEL_GEOMETRIES:
             # the full-width NGswin's own bodies: at most one block per SM
             self.hg_fwd = self.hg_bwd = self.nh
@@ -310,7 +334,7 @@ class _Geometry:
     def ints(self, backward):
         hg, blocks = (self.hg_bwd, self.blocks_bwd) if backward else (self.hg_fwd, self.blocks_fwd)
         return (self.nwin, self.N, self.D, self.nh, self.hd, hg, *self.strides, self.wh, self.ww,
-                blocks, self.is_bf16)
+                blocks, self.is_bf16, self.body)
 
 
 def _device_mask(mask_components, N, nwin, device):
@@ -366,6 +390,36 @@ class _WindowAttention(torch.autograd.Function):
         ]
         grads = [None if dt is None else t.to(dt) for t, dt in zip(grads, ctx.grad_dtypes)]
         return (dx, *grads, None, None, None)
+
+
+class _RecomputedAttention(torch.autograd.Function):
+    """``backward="xla"``: K3's forward; the backward recomputes
+    ``window_attention_kernel_math`` under autograd from the saved inputs,
+    so K4 never runs."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components,
+                impl):
+        operands, grid = _layout(
+            x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components)
+        out, _ = WINDOW_ATTENTION(*operands, *grid, num_heads, impl)
+        ctx.save_for_backward(x, wqkv, bqkv, logit_scale, bias, wproj, bproj)
+        ctx.num_heads = num_heads
+        ctx.mask = None if mask_components is None else (
+            *(on_device(m, x.device) for m in mask_components[:2]), *mask_components[2:])
+        return out
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        args = [None if t is None else t.detach().requires_grad_(need)
+                for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        leaves = [t for t in args if t is not None and t.requires_grad]
+        with torch.enable_grad():
+            out = window_attention_kernel_math(*args, ctx.num_heads, ctx.mask)
+            grads = iter(torch.autograd.grad(out, leaves, g))
+        return (*[next(grads) if t is not None and t.requires_grad else None for t in args],
+                None, None, None)
 
 
 def _layout(x, wqkv, bqkv, logit_scale, bias, wproj, bproj, num_heads, mask_components):
@@ -471,8 +525,8 @@ def _workspace_floats(geo):
 
 _workspace_fn = None
 _P = ctypes.c_void_p
-_FWD_ARGTYPES = [_P] * 11 + [ctypes.c_int] * 14 + [_P]
-_BWD_ARGTYPES = [_P] * 13 + [ctypes.c_int] * 14 + [_P]
+_FWD_ARGTYPES = [_P] * 11 + [ctypes.c_int] * 15 + [_P]
+_BWD_ARGTYPES = [_P] * 13 + [ctypes.c_int] * 15 + [_P]
 
 
 def _window_attention_cuda(x, wqkv, bqkv, scale, bias, wproj, bproj, m_row, m_col, wh, ww,

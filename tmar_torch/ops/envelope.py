@@ -21,6 +21,7 @@ A CPU tensor never comes here: it runs the plain versions at any width.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -117,6 +118,138 @@ def attention_bwd_bytes(N: int, D: int, hd: int, hg: int) -> int:
     wpb = ROWS // N
     ds = hg * wpb * N * N if wpb > 1 else 0
     return 4 * (3 * ROWS * (D + 1) + ROWS * (2 * (3 * G + 1) + 2 * (G + 1)) + ROWS * 5 * hg + ds)
+
+
+# (N, D, num_heads, head_dim) of the full-width NGswin, for which K3/K4 keep
+# bodies of their own: its 8x8 windows at D = 64 (bfloat16 on the tensor
+# cores, the flagship bodies; float32 on the body templated on the
+# geometry) and its n x n n-gram windows at D/2 = 32 (n = 1, 2, 3; the
+# templated body at both dtypes).  The same set as
+# csrc/window_attention_geometries.cuh.
+ATTENTION_MMA_GEOMETRIES = {(64, 64, 6, 10), (64, 64, 4, 16)}
+ATTENTION_KERNEL_GEOMETRIES = ATTENTION_MMA_GEOMETRIES | {
+    (n * n, 32, nh, hd) for n in (1, 2, 3) for nh, hd in ((6, 5), (4, 8))}
+# the bodies of K3 and K4, in the order of the CUDA sources' codes
+# (attn_mma::Body in csrc/window_attention_generic_mma.cuh)
+ATTENTION_BODIES = ("flagship", "templated", "tensor-core generic", "CUDA-core generic")
+ATTN_MMA_WARPS = 8      # warps of a tensor-core generic block
+ATTN_MMA_MIN_N = 32     # the shortest window it takes (JAX rounds q_n, k_n, P from 32 up)
+
+
+def _attn_mma_geometry(N, D, nh, hd):
+    DP, HP = _up(D, 16), 16 if hd <= 16 else 32
+    NP = _up(N, 16)
+    return DP, HP, nh * HP, NP, NP // 16
+
+
+def attention_mma_fwd_bytes(N: int, D: int, nh: int, hd: int, resident: bool) -> int:
+    """K3's tensor-core generic body (``csrc/window_attention_generic_mma.cuh``:
+    ``fwd_plan``): float32 bqkv, bproj and the scale; the bf16 weights
+    [in][out] with rows padded by 8, all heads' (``resident``) or one
+    head's; per window group two head buffers of k_n and v [NP][HP + 8]."""
+    DP, HP, AP, NP, WW = _attn_mma_geometry(N, D, nh, hd)
+    G = ATTN_MMA_WARPS // WW
+    floats = _up(3 * AP + DP + nh, 4)
+    cols, rows = (3 * AP, AP) if resident else (3 * HP, HP)
+    weights = DP * (cols + 8) + rows * (DP + 8)
+    return 4 * floats + 2 * (weights + G * 4 * NP * (HP + 8))
+
+
+def attention_mma_bwd_bytes(N: int, D: int, nh: int, hd: int, groups: int, resident: bool,
+                            double: bool) -> int:
+    """K4's per-window launch on the tensor cores (``bwd_plan``): float32
+    bqkv, the scale and each warp's sums of dbqkv and dscale; the bf16
+    weights as K3 stages them; per window group its x and g tiles [NP][DP + 8]
+    (two slots where ``double``), q_n and dacc [NP][HP + 8] double-buffered by
+    head, k_n and v, P and dcos [NP][NP + 8]."""
+    DP, HP, AP, NP, WW = _attn_mma_geometry(N, D, nh, hd)
+    warps = WW * groups
+    floats = _up(3 * AP + nh + warps * (3 * AP + nh), 4)
+    cols, rows = (3 * AP, AP) if resident else (3 * HP, HP)
+    weights = DP * (cols + 8) + rows * (DP + 8)
+    group = ((2 if double else 1) * 2 * NP * (DP + 8) + 6 * NP * (HP + 8)
+             + 2 * NP * (NP + 8))
+    return 4 * floats + 2 * (weights + groups * group)
+
+
+def attention_mma_sums_bytes(D: int, nh: int, hd: int, double: bool) -> int:
+    """K4's token sums (``sums_plan``): a 64-row step of x and g [64][DP + 8],
+    dqkv [64][3AP + 8] and the attention output [64][AP + 8] in bf16, two
+    steps where ``double``."""
+    DP, _, AP, _, _ = _attn_mma_geometry(ROWS, D, nh, hd)
+    return (2 if double else 1) * 2 * ROWS * (2 * (DP + 8) + 3 * AP + 8 + AP + 8)
+
+
+def attention_mma_plan(N: int, D: int, nh: int, hd: int) -> Optional[dict]:
+    """The tensor-core generic bodies' launch (``csrc/window_attention_generic_mma.cuh``:
+    ``plan``), or None where they take no plan: a window outside 32..64
+    tokens, D not a multiple of 8 or past 128, head_dim past 32, or what
+    fits no block of the card's shared memory.  K3 keeps its weights
+    resident where they fit, else streams them by head; K4's per-window
+    launch takes the most window groups that fit, and at that count
+    resident weights and double-buffered tiles where they fit (in that
+    order of preference), its token sums double-buffered where they fit."""
+    if not (ATTN_MMA_MIN_N <= N <= ROWS and 8 <= D <= NSTB_MMA_MAX_D and D % 8 == 0
+            and 1 <= hd <= HEAD_DIM_MAX and nh >= 1):
+        return None
+    limit = H100_SMEM_PER_BLOCK
+    plan = {}
+    for resident in (True, False):
+        nbytes = attention_mma_fwd_bytes(N, D, nh, hd, resident)
+        if nbytes <= limit:
+            plan["fwd"] = (resident, nbytes)
+            break
+    else:
+        return None
+    gmax = ATTN_MMA_WARPS // _attn_mma_geometry(N, D, nh, hd)[4]
+    for groups in range(gmax, 0, -1):
+        for resident, double in ((True, True), (True, False), (False, True), (False, False)):
+            nbytes = attention_mma_bwd_bytes(N, D, nh, hd, groups, resident, double)
+            if nbytes <= limit:
+                plan["bwd"] = (groups, resident, double, nbytes)
+                break
+        if "bwd" in plan:
+            break
+    else:
+        return None
+    for double in (True, False):
+        nbytes = attention_mma_sums_bytes(D, nh, hd, double)
+        if nbytes <= limit:
+            plan["sums"] = (double, nbytes)
+            return plan
+    return None
+
+
+def attention_mma_bytes(N: int, D: int, nh: int, hd: int) -> Optional[Tuple[int, int, int]]:
+    """(K3's, K4's per-window, K4's token sums) shared memory of the
+    tensor-core generic bodies' plan, or None without one: what the CUDA
+    sources' ``tmar_window_attention_*_mma_smem`` queries give."""
+    plan = attention_mma_plan(N, D, nh, hd)
+    if plan is None:
+        return None
+    return plan["fwd"][-1], plan["bwd"][-1], plan["sums"][-1]
+
+
+@functools.lru_cache(maxsize=None)
+def attention_body(N: int, D: int, nh: int, hd: int, dtype: torch.dtype) -> str:
+    """The body of K3 and K4 that runs windows of N tokens at width D, nh
+    heads of hd and I/O type ``dtype`` (one of ``ATTENTION_BODIES``), by
+    geometry and dtype alone, as the CUDA sources' ``attn_mma::body`` picks
+    it: bfloat16 at the full-width NGswin's 64-token windows the flagship
+    tensor-core bodies; its other geometries (those windows at float32, its
+    n-gram windows) the bodies templated on the geometry; bfloat16 windows
+    of 32 to 64 tokens the tensor-core generic bodies wherever they have a
+    plan (``attention_mma_plan``); the rest (float32, the exactness path,
+    and the n-gram windows below 32 tokens, whose JAX kernel keeps q_n, k_n
+    and P in float32) the CUDA-core generic bodies."""
+    bf16 = dtype == torch.bfloat16
+    if bf16 and (N, D, nh, hd) in ATTENTION_MMA_GEOMETRIES:
+        return ATTENTION_BODIES[0]
+    if (N, D, nh, hd) in ATTENTION_KERNEL_GEOMETRIES:
+        return ATTENTION_BODIES[1]
+    if bf16 and attention_mma_plan(N, D, nh, hd) is not None:
+        return ATTENTION_BODIES[2]
+    return ATTENTION_BODIES[3]
 
 
 def attention_envelope(N: int, D: int, nh: int, hd: int,
@@ -288,7 +421,9 @@ def nstb_body(N: int, D: int, nh: int, hd: int, H: int, dtype: torch.dtype) -> s
 
 # query -> (kernel library, C function, its int arguments): the arguments of
 # ffn_fwd_bytes, ffn_bwd_bytes, attention_fwd_bytes, attention_bwd_bytes,
-# ngram_fwd_bytes, ngram_bwd_bytes with the pass (1 or 2) last, and for each
+# (N, D, heads, head_dim) for K3's tensor-core generic body and the same
+# with the launch (1 per window, 2 the token sums) last for K4's (the
+# entries of attention_mma_bytes, -1 without a plan), ngram_fwd_bytes, ngram_bwd_bytes with the pass (1 or 2) last, and for each
 # of K2 and K8 (N, D, heads, head_dim, hidden) with the generic body's code
 # last (1: nstb_mma_bytes of its plan, -1 without one; 2: nstb_bytes)
 SMEM_QUERIES = {
@@ -296,6 +431,8 @@ SMEM_QUERIES = {
     "ffn_bwd": ("residual_ffn_bwd", "tmar_residual_ffn_bwd_smem", 3),
     "attention_fwd": ("window_attention_fwd", "tmar_window_attention_fwd_smem", 4),
     "attention_bwd": ("window_attention_bwd", "tmar_window_attention_bwd_smem", 4),
+    "attention_fwd_mma": ("window_attention_fwd", "tmar_window_attention_fwd_mma_smem", 4),
+    "attention_bwd_mma": ("window_attention_bwd", "tmar_window_attention_bwd_mma_smem", 5),
     "ngram_fwd": ("ngram_context", "tmar_ngram_context_smem", 3),
     "ngram_bwd": ("ngram_context_bwd", "tmar_ngram_context_bwd_smem", 5),
     "nstb_map": ("nstb_map", "tmar_nstb_map_smem", 6),
@@ -322,3 +459,14 @@ def built_nstb_body(lib: str, N: int, D: int, nh: int, hd: int, H: int,
 
     fn = kernels.host_function(lib, f"tmar_{lib}_body", [ctypes.c_int] * 6, ctypes.c_int)
     return NSTB_BODIES[int(fn(N, D, nh, hd, H, int(dtype == torch.bfloat16)))]
+
+
+def built_attention_body(lib: str, N: int, D: int, nh: int, hd: int, dtype: torch.dtype) -> str:
+    """The body that the built CUDA source of K3 (``lib``
+    "window_attention_fwd") or K4 ("window_attention_bwd") picks (its
+    ``tmar_*_body`` query), as ``attention_body`` names it; needs a CUDA
+    host."""
+    from tmar_torch import kernels
+
+    fn = kernels.host_function(lib, f"tmar_{lib}_body", [ctypes.c_int] * 5, ctypes.c_int)
+    return ATTENTION_BODIES[int(fn(N, D, nh, hd, int(dtype == torch.bfloat16)))]

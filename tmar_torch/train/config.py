@@ -6,7 +6,10 @@ files are under ``tmar_torch/configs`` (``config_path`` finds them).
 Two model fields keep the JAX package's names and mean "use the CUDA
 kernels" here: ``use_pallas_attention`` and ``attn_backward`` (``"pallas"``
 = the training form, whose attention, FFN and n-gram kernels have backward
-kernels; ``"auto"`` = the forward-only inference form).  ``xla_window_merge``
+kernels; ``"auto"``, the default, = the training form's kernels under
+autograd and the whole-block inference kernels without grad; ``"xla"`` =
+``"auto"`` with the attention's backward by the plain recompute).
+``use_pallas_attention: false`` takes ``"auto"``.  ``xla_window_merge``
 and ``remat`` are read and have no effect in the port.
 """
 
@@ -43,8 +46,10 @@ class ModelConfig:
     mlp_ratio: float = 2.0
     qkv_bias: bool = True
     use_pallas_attention: bool = False
-    # "auto" = the inference form (forward-only kernels); "pallas" = the
-    # training form (kernels with hand-written backward kernels)
+    # "auto" = the training form's kernels under autograd, the inference
+    # form's (forward-only whole-block kernels) without; "pallas" = the
+    # training form (kernels with hand-written backward kernels); "xla" =
+    # "auto" with the attention backward by the plain recompute
     attn_backward: str = "auto"
     xla_window_merge: bool = False  # no effect in the port
     remat: bool = False             # no effect in the port

@@ -10,9 +10,10 @@ carries it into the generator.  That equals re-running the forward, because
 the D update never touches the generator's parameters.
 
 The discriminator is the multi-scale PatchGAN or the DCGAN critic (no
-spectral norm), the generator the NGswin or a baseline.  The NGswin must be
-in its training form (``attn_backward="pallas"``) to run on a card: the inference form's whole-block kernel has no backward and
-refuses.
+spectral norm), the generator the NGswin or a baseline.  The generator
+forward runs under autograd, so every NGswin form takes kernels that have
+backward kernels (``tmar_torch.nn.blocks``); the whole-block kernels of
+the inference form never run in a step.
 
 With a ``mesh`` (``tmar_torch.core.mesh``) each process takes its rows of the
 global batch.  After each backward the gradients of that network are

@@ -80,10 +80,11 @@ def build_generator(
     of the baselines (``redcnn``, ``transformer``, ``bafresnet``; the
     transformer's position embedding sized for ``data.patch_size``).  For the
     NGswin, ``use_pallas_attention`` with ``attn_backward="pallas"`` gives
-    the training form (kernels with backward kernels); anything else the
-    forward-only inference form, whose block form the keywords pick
-    (``tmar_torch.nn.blocks``; they stand in for the JAX package's
-    ``TMAR_NSTB_FUSED`` and ``TMAR_NSTB_MAP``).  ``ngram_fused`` (the JAX
+    the training form (kernels with backward kernels), with ``"xla"`` the
+    form whose attention backward is the plain recompute; anything else the
+    ``"auto"`` form, which trains on the training form's kernels and serves
+    in the block form the keywords pick (``tmar_torch.nn.blocks``; they stand
+    in for the JAX package's ``TMAR_NSTB_FUSED`` and ``TMAR_NSTB_MAP``).  ``ngram_fused`` (the JAX
     package's ``TMAR_NGRAM_FUSED``) holds in both forms.  ``form`` overrides
     the NGswin's form (``"plain"``: the JAX package's plain attention path
     as torch ops, which tensor parallelism trains)."""
@@ -241,16 +242,6 @@ class Trainer:
         self.ngram_fused = ngram_fused
         self.generator = build_generator(cfg, self.device, ngram_fused=ngram_fused,
                                          form="plain" if mode == "tp" else None)
-        if (self.device.type == "cuda" and mode != "tp"
-                and getattr(self.generator, "attn_backward", "pallas") != "pallas"):
-            raise ValueError(
-                "on a card the port trains only in the training form, whose kernels (K1, "
-                "K3-K7) have backward kernels and take any width inside "
-                "tmar_torch.ops.envelope: set model.use_pallas_attention=true and "
-                "model.attn_backward=pallas.  The other forms' whole-block kernels K2/K8 "
-                "are forward-only.  Under parallel.mode=tp the port trains the plain form "
-                "(the JAX package's plain attention path as torch ops, no kernel)"
-            )
         self.discriminator = build_discriminator(cfg, self.device)
         draw_parameters(torch.Generator().manual_seed(cfg.seed), self.generator,
                         self.discriminator)
