@@ -19,7 +19,12 @@ lines tagged ``[ab TREE]``:
 * the trainer's ``full`` step at 8x128² bf16, by that tree's
   ``chip_smoke.train_full`` (its ``[time]`` and ``[profile]`` lines).
 
-With ``--kernels`` it prints, in place of K2 and the step, K3 and K4 at
+With ``--kernels`` it prints, in place of K2 and the step, K6 and K7 at
+bf16 and f32 at each geometry of that tree's ``chip_smoke.WIDTH_FFN_CASES``
+and ``WIDTH_NGRAM_CASES`` (their generic bodies; the demo stage 1 first,
+the ragged / odd cases, the envelope's top), the launch alone, the device
+time alone by torch.profiler (K7's summed over its three launches) and the
+rounding-matched plain version's time; then K3 and K4 at
 bf16 at each geometry of that tree's ``chip_smoke.WIDTH_ATTN_CASES`` with
 windows of 32 to 64 tokens (their generic bodies; the demo 8x64² step's
 stage 1 first), the launch alone and its device time by torch.profiler
@@ -137,6 +142,75 @@ def generic_attention_kernels(cs, tag, card):
               f"device time alone forward {d3:.4f} ms, backward {sum(d4.values()):.4f} ms ("
               + ", ".join(f"{k} {v:.4f}" for k, v in d4.items() if v) + f") on {card}", flush=True)
         del x, g
+    torch.cuda.empty_cache()
+
+
+# K6's and K7's device kernels in every body (the main kernels and their
+# reduces): the names torch.profiler gives them hold one of these
+K6_KERNELS = ("ffn_bwd", "reduce_partials")
+K7_KERNELS = ("ngram_bwd",)
+
+
+def generic_ffn_ngram_kernels(cs, tag, card):
+    """K6 and K7 at bf16 and f32 at each geometry of the tree's
+    ``chip_smoke.WIDTH_FFN_CASES`` and ``WIDTH_NGRAM_CASES`` (the demo stage
+    1, the ragged / odd cases, the envelope's top), where their generic
+    bodies run: the launch alone by CUDA events, the device time alone by
+    torch.profiler (summed over each call's kernels: K7's three, K6's main
+    kernel and reduce) and the rounding-matched plain version's time, on
+    operands laid out once by that tree's wrappers from one seed; the
+    counters are put back."""
+    import torch
+
+    from tmar_torch.ops import cuda_ffn as cf
+    from tmar_torch.ops import cuda_ngram as cn
+
+    gen = torch.Generator(device="cuda").manual_seed(22)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
+
+    f = cf.fused_residual_ffn
+    before = (f.launches, f.backward_launches)
+    for label, M, D, H in cs.WIDTH_FFN_CASES:
+        params = [randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1), randn(D, H, scale=0.1),
+                  randn(H, scale=0.1), randn(H, D, scale=0.1), randn(D, scale=0.1),
+                  randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1)]
+        x, ao, g = randn(M, D), randn(M, D), randn(M, D)
+        for dtype in (torch.bfloat16, torch.float32):
+            xx, aa, gg = x.to(dtype), ao.to(dtype), g.to(dtype)
+            ops, geo = cf._kernel_operands(xx, aa, *params, 1e-5)
+            k6 = cs.cuda_ms(lambda: cf._launch_backward(ops, gg, geo), iters=20)
+            dev = sum(cs.device_ms(lambda: cf._launch_backward(ops, gg, geo), part, calls=10)[0]
+                      for part in K6_KERNELS)
+            plain = cs.cuda_ms(lambda: cf.ffn_backward_math(xx, aa, *params, gg), iters=10)
+            print(f"{tag} K6 {label} x [{M}, {D}] hidden {H} {str(dtype).split('.')[1]}: launch "
+                  f"alone {k6:.4f} ms, device time alone {dev:.4f} ms, plain {plain:.4f} ms on "
+                  f"{card}", flush=True)
+            del ops
+    f.launches, f.backward_launches = before
+    f = cn.fused_ngram_context
+    before = (f.launches, f.backward_launches)
+    for label, B, wh, ww, C, D, nh, hd in cs.WIDTH_NGRAM_CASES:
+        A = nh * hd
+        params = [randn(C, 3 * A, scale=0.2), randn(3 * A, scale=0.1),
+                  torch.full((nh, 1, 1), 1.2, device="cuda"), randn(9, nh, scale=0.5),
+                  randn(A, C, scale=0.2), randn(C, scale=0.1), randn(2 * C, D, scale=0.2),
+                  randn(D, scale=0.1)]
+        u, g = randn(B, wh, ww, C), randn(B, wh, ww, D)
+        for dtype in (torch.bfloat16, torch.float32):
+            uu, gg = u.to(dtype), g.to(dtype)
+            ops, out, ints = cn._kernel_operands(uu, *params, nh)
+            k7 = cs.cuda_ms(lambda: cn._launch_backward(ops[:-1], gg, ints), iters=50)
+            dev, n7 = cs.device_ms(lambda: cn._launch_backward(ops[:-1], gg, ints), K7_KERNELS[0],
+                                   calls=10)
+            plain = cs.cuda_ms(lambda: cn.ngram_context_kernel_backward_math(
+                uu, gg, *params, num_heads=nh), iters=5)
+            print(f"{tag} K7 {label} u [{B}, {wh}, {ww}, {C}] D {D} {nh} x {hd} heads "
+                  f"{str(dtype).split('.')[1]}: launch alone {k7:.4f} ms, device time alone "
+                  f"{dev:.4f} ms ({n7} kernels), plain {plain:.4f} ms on {card}", flush=True)
+            del ops, out
+    f.launches, f.backward_launches = before
     torch.cuda.empty_cache()
 
 
@@ -261,6 +335,7 @@ def run_tree(tree: str, kernels_only: bool = False) -> int:
                   f"6 heads: forward {fwd:.4f} ms, backward {bwd:.4f} ms on {card}", flush=True)
 
     if kernels_only:
+        generic_ffn_ngram_kernels(cs, tag, card)
         generic_attention_kernels(cs, tag, card)
         training_kernels(cs, tag, card, randn)
         whole_block_kernels(cs, tag, card, randn)

@@ -132,10 +132,14 @@ Phases, each of which fails the run if it fails:
    the envelope's top (D 128, 4 x 32; FFN (128, 512); n-gram C 64, D 128),
    each timed beside its bound (also windows of 6 and 7 tokens a side; every geometry of 32 to 64 tokens held at both shifts, its
    body named, and K3's and K4's tensor-core generic bodies timed at the flagship's
-   geometry beside its own bodies, printed only); then ``Trainer.fit`` on the shipped recipe
+   geometry beside its own bodies, printed only; the body of K6 and K7 named
+   at each FFN and n-gram geometry and dtype, bf16 on their tensor-core
+   generic bodies; each source's body and shared-memory queries against
+   ``envelope.py``'s rule); then ``Trainer.fit`` on the shipped recipe
    at the demo width (8x64² bf16, 4 ``full`` steps, then 12 on one batch:
    8 launches per step of each of K1, K7 and K3-K6, ``g_rec`` falling, the
-   median step and its profile), one f32 step at 1x64² on the card against
+   median step and its profile with each training kernel's device time a
+   step), one f32 step at 1x64² on the card against
    the CPU, then the demo example's own config in the JAX
    package's default model form through ``Trainer.fit`` at bf16, 3 steps
    on one batch (8 launches each of K1, K7, K3-K6) and one step's device
@@ -695,9 +699,21 @@ def serve(sd, card):
     return launches, req512, outputs["full-slice 8x512²"], med
 
 
-def profile_request(request, card, label="full-slice 8x512² bf16 request"):
+# the training kernels' device kernels, by name parts (each body's, where
+# they are its own; K6's and K7's tensor-core generic bodies' launches are
+# ffn_bwd_gmma* and ngram_bwd_*), for the demo step's [profile] lines
+STEP_KERNELS = {"K1": ("ngram_context_",), "K7": ("ngram_bwd",),
+                "K3": ("window_attention_fwd",),
+                "K4": ("window_attention_bwd", "attention_param_sums", "reduce_backward_partials"),
+                "K5": ("residual_ffn_fwd",),
+                "K6": ("ffn_bwd", "reduce_partials_rounded", "reduce_partials_bf16")}
+
+
+def profile_request(request, card, label="full-slice 8x512² bf16 request", kernels=None):
     """Where one request's (or step's) time goes: device time by kernel from
-    torch.profiler, and the device's idle share of its wall time."""
+    torch.profiler, and the device's idle share of its wall time; with
+    ``kernels`` ({name: name parts}) also each named kernel's device time
+    (the sum over the device kernels whose name holds one of its parts)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -725,6 +741,10 @@ def profile_request(request, card, label="full-slice 8x512² bf16 request"):
         print(f"[profile]   {dev_us / 1e3:9.3f} ms {100 * dev_us / busy:5.1f}% x{count:<4d} {key[:110]}")
     by_count = sorted(rows, key=lambda r: r[1], reverse=True)[:6]
     print("[profile]   most launched: " + "; ".join(f"x{c} {k[:60]}" for _, c, k in by_count))
+    for name, parts in (kernels or {}).items():
+        mine = [r for r in rows if any(part in r[2] for part in parts)]
+        print(f"[profile]   {name}: {sum(r[0] for r in mine) / 1e3:.3f} ms of device time in "
+              f"{sum(r[1] for r in mine)} device kernels")
     return busy / 1e3, sum(r[1] for r in rows)
 
 
@@ -788,7 +808,8 @@ def ffn_launch_ms(x, ao, params, g, eps=1e-5, iters=20):
 
 
 NGRAM_HEADERS = ["tmar_torch/csrc/ngram_mma.cuh", "tmar_torch/csrc/mma.cuh"]
-FFN_HEADERS = ["tmar_torch/csrc/ffn_mma.cuh", "tmar_torch/csrc/mma.cuh", "tmar_torch/csrc/common.cuh"]
+FFN_HEADERS = ["tmar_torch/csrc/ffn_mma.cuh", "tmar_torch/csrc/ffn_generic_mma.cuh",
+               "tmar_torch/csrc/mma.cuh", "tmar_torch/csrc/common.cuh"]
 NSTB_HEADERS = ["tmar_torch/csrc/nstb_window.cuh", "tmar_torch/csrc/nstb_window_mma.cuh",
                 "tmar_torch/csrc/nstb_generic.cuh", "tmar_torch/csrc/nstb_generic_mma.cuh",
                 "tmar_torch/csrc/ffn_mma.cuh",
@@ -1281,10 +1302,10 @@ def smem_count_failures():
     """The shared memory each CUDA source launches its generic body with
     (its ``tmar_*_smem`` query) against ``envelope``'s count, at every
     geometry of phase 20 and the full-width NGswin's (its float32 runs the
-    generic bodies; K2/K8 and K3/K4: both generic bodies), and the body K2's,
-    K8's, K3's and K4's sources pick (``tmar_*_body``) against
-    ``envelope.nstb_body`` and ``envelope.attention_body`` at both dtypes:
-    -> the geometries where they differ."""
+    generic bodies; K2/K8, K3/K4, K6 and K7: both generic bodies), and the
+    body K2's, K8's, K3's, K4's, K6's and K7's sources pick (``tmar_*_body``)
+    against ``envelope.nstb_body``, ``attention_body``, ``ffn_body`` and
+    ``ngram_body`` at both dtypes: -> the geometries where they differ."""
     import torch
 
     from tmar_torch.ops import envelope as env
@@ -1310,11 +1331,24 @@ def smem_count_failures():
         fwd, rows, bwd = env.ffn_envelope(D, H)
         if (built("ffn_fwd", D, H), built("ffn_bwd", D, H, rows)) != (fwd, bwd):
             bad.append(("ffn", D, H))
+        mma = env.ffn_mma_plan(D, H)
+        if built("ffn_bwd_mma", D, H) != (-1 if mma is None else mma[-1]):
+            bad.append(("ffn tensor-core generic", D, H))
+        for dtype in (torch.float32, torch.bfloat16):
+            if env.built_ffn_body(D, H, dtype) != env.ffn_body(D, H, dtype):
+                bad.append(("ffn body", str(dtype), D, H))
     for C, D, nh, hd in {c[4:] for c in WIDTH_NGRAM_CASES} | {(32, 64, 6, 5), (32, 64, 4, 8)}:
         want = env.ngram_envelope(C, D, nh, hd)
         if (built("ngram_fwd", C, nh, hd), built("ngram_bwd", C, D, nh, hd, 1),
                 built("ngram_bwd", C, D, nh, hd, 2)) != want:
             bad.append(("ngram", C, D, nh, hd))
+        mma = env.ngram_mma_plan(C, D, nh, hd) or (-1, -1)
+        if (built("ngram_bwd_mma", C, D, nh, hd, 1),
+                built("ngram_bwd_mma", C, D, nh, hd, 2)) != tuple(mma):
+            bad.append(("ngram tensor-core generic", C, D, nh, hd))
+        for dtype in (torch.float32, torch.bfloat16):
+            if env.built_ngram_body(C, D, nh, hd, dtype) != env.ngram_body(C, D, nh, hd, dtype):
+                bad.append(("ngram body", str(dtype), C, D, nh, hd))
     for _, _, _, _, D, nh, hd, H, ws in WIDTH_NSTB_CASES:
         N = ws * ws
         mma = env.nstb_mma_plan(N, D, nh, hd, H)
@@ -1441,9 +1475,13 @@ def check_width_kernels(dev, card):
                            else ffn_math, acts, params, g, dtype)
             launch = ffn_launch_ms(acts[0].to(dtype), acts[1].to(dtype), params, g.to(dtype))
             size = acts[0].to(dtype).element_size()
+            body = env.ffn_body(D, H, dtype)
+            print(f"[body] residual FFN {name} {dn}: K6 {body}, K5 "
+                  f"{body if body in ('flagship', 'templated') else 'CUDA-core generic'}")
             for i, kernel in enumerate(("residual_ffn_fwd", "residual_ffn_bwd")):
                 record(kernel, name, dn, launch[i], t[2 + i],
                        bound_ms(*ffn_work(M, size, i == 1, D, H), dn), errs)
+            rows["residual_ffn_bwd"][-1]["body"] = body
 
     for label, B, wh, ww, C, D, nh, hd in WIDTH_NGRAM_CASES:
         A = nh * hd
@@ -1477,8 +1515,12 @@ def check_width_kernels(dev, card):
             size = uu.element_size()
             record("ngram_context", name, dn, k1, t[2],
                    bound_ms(*ngram_work(B, wh, ww, nh, size, C, D, hd), dn), errs)
+            body = env.ngram_body(C, D, nh, hd, dtype)
+            print(f"[body] n-gram context {name} {dn}: K7 {body}, K1 "
+                  f"{'flagship' if body == 'flagship' else 'CUDA-core generic'}")
             record("ngram_context_bwd", name, dn, k7, t[3],
                    bound_ms(*ngram_bwd_work(B, wh, ww, nh, size, C, D, hd), dn), errs)
+            rows["ngram_context_bwd"][-1]["body"] = body
     if failures:
         raise SystemExit(f"kernel checks at other widths failed: {failures}")
     return rows
@@ -1734,7 +1776,8 @@ def demo_width(card):
               f"of {timed} steps (min {min(times[warmup:]) * 1e3:.2f}, max "
               f"{max(times[warmup:]) * 1e3:.2f}), {1 / med:.3f} steps/s on {card}")
         prof = profile_request(lambda: trainer.train_step(trainer.state, batch), card,
-                               label=f"train step (full, demo width) 8x{DEMO_PATCH}² bf16")
+                               label=f"train step (full, demo width) 8x{DEMO_PATCH}² bf16",
+                               kernels=STEP_KERNELS)
         check(prof is not None, "the profiler saw the step's device time")
         trained = trainer.generator
         sd = {k: v.detach().float() for k, v in trained.state_dict().items()}

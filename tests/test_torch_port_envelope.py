@@ -156,6 +156,66 @@ def test_attention_tensor_core_plan_counts_the_sources_layout():
         assert envelope.attention_body(N, D, nh, hd, torch.bfloat16) == "CUDA-core generic"
 
 
+# (D, hidden) of K6 with the body each runs at bfloat16 and float32 and the
+# tensor-core generic body's plan (resident, hidden slice, slices, bytes):
+# the demo width, the full-width NGswin's, the envelope's top (weights
+# streamed, eight hidden slices), the JAX tests' D 8 / hidden 16
+FFN_BODY_CASES = [
+    ((32, 64), "tensor-core generic", "CUDA-core generic", (True, 64, 1, 85248)),
+    ((64, 128), "flagship", "templated", (True, 128, 1, 176640)),
+    ((128, 512), "tensor-core generic", "CUDA-core generic", (False, 64, 8, 203776)),
+    ((8, 16), "tensor-core generic", "CUDA-core generic", (True, 16, 1, 35648)),
+    ((12, 24), "CUDA-core generic", "CUDA-core generic", None),  # D not a multiple of 8
+]
+
+
+@pytest.mark.parametrize("widths,bf16,f32,plan", FFN_BODY_CASES)
+def test_ffn_body_is_a_rule_of_widths_and_dtype(widths, bf16, f32, plan):
+    """K6's body by (D, hidden) and dtype alone: bfloat16 the tensor-core
+    generic body wherever it has a plan (the byte count of the CUDA source's
+    layout), the full-width NGswin's widths their own bodies, float32 and
+    what that body does not take the CUDA-core one; every case stays inside
+    the envelope."""
+    assert envelope.ffn_body(*widths, torch.bfloat16) == bf16
+    assert envelope.ffn_body(*widths, torch.float32) == f32
+    assert envelope.ffn_mma_plan(*widths) == plan
+    if plan is not None:
+        resident, hs, slices, nbytes = plan
+        assert nbytes == envelope.ffn_mma_bytes(*widths, hs, resident) <= envelope.H100_SMEM_PER_BLOCK
+        assert slices == -(-widths[1] // 16 * 16 // hs)
+    envelope.ffn_envelope(*widths)
+
+
+# (C, D, heads, head_dim) of K7 with the body each runs at bfloat16 and
+# float32 and the tensor-core generic body's (pass 1, pass 2) bytes: the demo
+# width, the envelope's top, a head_dim not a multiple of 8, the full-width
+# NGswin's, C not a multiple of 8, an attention width past what fits a block
+NGRAM_BODY_CASES = [
+    ((16, 32, 2, 8), "tensor-core generic", "CUDA-core generic", (29024, 14592)),
+    ((64, 128, 4, 16), "tensor-core generic", "CUDA-core generic", (214048, 107136)),
+    ((16, 32, 3, 5), "tensor-core generic", "CUDA-core generic", (30176, 14208)),
+    ((32, 64, 6, 5), "flagship", "CUDA-core generic", (76096, 35056)),
+    ((32, 64, 4, 8), "flagship", "CUDA-core generic", (73888, 36224)),
+    ((20, 40, 4, 5), "CUDA-core generic", "CUDA-core generic", None),
+    ((64, 128, 8, 16), "CUDA-core generic", "CUDA-core generic", None),
+]
+
+
+@pytest.mark.parametrize("geometry,bf16,f32,nbytes", NGRAM_BODY_CASES)
+def test_ngram_body_is_a_rule_of_geometry_and_dtype(geometry, bf16, f32, nbytes):
+    """K7's body by geometry and dtype alone: bfloat16 the tensor-core
+    generic body wherever both of its passes fit a block (the byte counts of
+    the CUDA source's layout), the full-width NGswin's geometries their own
+    body, float32 and what that body does not take the CUDA-core one."""
+    assert envelope.ngram_body(*geometry, torch.bfloat16) == bf16
+    assert envelope.ngram_body(*geometry, torch.float32) == f32
+    assert envelope.ngram_mma_plan(*geometry) == nbytes
+    if nbytes is not None:
+        assert nbytes == envelope.ngram_mma_bytes(*geometry)
+        assert max(nbytes) <= envelope.H100_SMEM_PER_BLOCK
+    envelope.ngram_envelope(*geometry)
+
+
 def test_nstb_envelope_refuses_past_the_card_s_shared_memory():
     """The FFN tail is not cut into chunks: at D = 128 (4 x 32 heads) a
     hidden width of 649 still fits, 650 does not, and the refusal names the

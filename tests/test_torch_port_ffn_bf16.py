@@ -95,6 +95,8 @@ def _errors(got, ref):
     pytest.param(1000, 64, 128, id="1000"), pytest.param(64, 64, 128, id="64"),
     # the demo NGswin's width (embed 32, mlp_ratio 2), a ragged last tile
     pytest.param(1000, 32, 64, id="1000-32-64"),
+    # the envelope's top (D 128, hidden 512), a ragged last tile
+    pytest.param(200, 128, 512, id="200-128-512"),
 ])
 def test_ffn_bf16_plain_matches_pallas_interpret(M, D, H):
     args, g, ref = _case(M, D, H)

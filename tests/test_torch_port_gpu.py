@@ -284,6 +284,7 @@ def _ngram_kernel_and_plain(u, g, params, nh):
     (6, 2, 2, 2, 32, 64, 5), (4, 1, 2, 2, 32, 64, 8),    # both reflections hit 0 and 1
     (6, 1, 2, 19, 32, 64, 5), (4, 1, 18, 2, 32, 64, 8),
     (4, 8, 16, 16, 32, 64, 8), (6, 3, 13, 7, 32, 64, 5), (4, 3, 13, 7, 32, 64, 8),
+    (2, 8, 8, 8, 16, 32, 8),  # chip_smoke.py's phase-20 demo stage 1
 ] + [(nh, B, wh, ww, C, D, hd) for C, D, nh, hd in NGRAM_WIDTHS
      for B, wh, ww in ((8, 32, 32), (2, 2, 2), (3, 13, 7))])
 def test_ngram_context_backward_kernel_matches_plain(cuda, dtype, nh, B, wh, ww, C, D, hd):
@@ -440,6 +441,9 @@ def test_window_attention_kernels_match_plain(cuda, dtype, nwin, N, D, nh, hd, g
     # envelope's top (32-row tiles in the backward)
     (1000, 32, 64), (32768, 32, 64), (77, 32, 64), (1000, 128, 512), (130, 16, 48),
     (500, 96, 384),
+    # chip_smoke.py's phase-20 envelope top (K6's tensor-core generic body in
+    # eight hidden slices)
+    (8192, 128, 512),
 ])
 def test_residual_ffn_kernels_match_plain(cuda, dtype, M, D, H):
     """At float32 against autograd of the plain math; at bfloat16 against
@@ -551,6 +555,36 @@ def test_attention_body_query_equals_the_envelope_rule(cuda, N, D, nh, hd):
         want = env.attention_body(N, D, nh, hd, dtype)
         assert env.built_attention_body("window_attention_fwd", N, D, nh, hd, dtype) == want
         assert env.built_attention_body("window_attention_bwd", N, D, nh, hd, dtype) == want
+
+
+@pytest.mark.parametrize("D,H", [(32, 64), (128, 512), (64, 128), (8, 16), (16, 48), (96, 384),
+                                 (12, 24)])
+def test_ffn_body_and_tensor_core_plan_queries_equal_the_envelope(cuda, D, H):
+    """The body K6's built source picks and its tensor-core generic plan's
+    shared memory (-1 without one) are ``envelope.ffn_body``'s and
+    ``ffn_mma_plan``'s, at both dtypes."""
+    from tmar_torch.ops import envelope as env
+
+    for dtype in (torch.float32, torch.bfloat16):
+        assert env.built_ffn_body(D, H, dtype) == env.ffn_body(D, H, dtype)
+    plan = env.ffn_mma_plan(D, H)
+    assert env.built_smem("ffn_bwd_mma", D, H) == (-1 if plan is None else plan[-1])
+
+
+@pytest.mark.parametrize("C,D,nh,hd", [(16, 32, 2, 8), (64, 128, 4, 16), (16, 32, 3, 5),
+                                       (32, 64, 6, 5), (32, 64, 4, 8), (20, 40, 4, 5),
+                                       (64, 128, 8, 8), (64, 128, 8, 16)])
+def test_ngram_body_and_tensor_core_plan_queries_equal_the_envelope(cuda, C, D, nh, hd):
+    """The body K7's built source picks and its tensor-core generic plan's
+    two passes' shared memory (-1 without one) are ``envelope.ngram_body``'s
+    and ``ngram_mma_plan``'s, at both dtypes."""
+    from tmar_torch.ops import envelope as env
+
+    for dtype in (torch.float32, torch.bfloat16):
+        assert env.built_ngram_body(C, D, nh, hd, dtype) == env.ngram_body(C, D, nh, hd, dtype)
+    want = env.ngram_mma_plan(C, D, nh, hd) or (-1, -1)
+    assert (env.built_smem("ngram_bwd_mma", C, D, nh, hd, 1),
+            env.built_smem("ngram_bwd_mma", C, D, nh, hd, 2)) == tuple(want)
 
 
 # the demo width (examples/demo_end_to_end.py, tests/test_ngswin_pallas.py)

@@ -53,8 +53,9 @@ BF16_PARAMS = (0, 1, 4, 5, 6)  # wqkv, bqkv, wproj, bproj, wmerge: the ones the 
 # (heads, B, wh, ww, stripe_rows of the JAX kernels) at the full-width
 # NGswin's C = 32, D = 64
 CASES = [(6, 2, 8, 8, 4), (4, 2, 3, 5, None)]
-# (..., C) at other widths: the demo NGswin's (embed 32) C = 16, D = 32, 2 x 8
-WIDTH_CASES = [(2, 2, 8, 8, None, 16)]
+# (..., C) at other widths: the demo NGswin's (embed 32) C = 16, D = 32, 2 x 8;
+# the envelope's top C = 64, D = 128, 4 x 16 on a small grid
+WIDTH_CASES = [(2, 2, 8, 8, None, 16), (4, 1, 4, 5, None, 64)]
 
 
 def _inputs(heads, B, wh, ww, seed, C=32):

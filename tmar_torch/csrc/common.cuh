@@ -157,6 +157,52 @@ __device__ __forceinline__ float2 row_stats(int n, float eps, F v) {
   return make_float2(mu, rsqrtf(warp_sum(q) / n + eps));
 }
 
+// store(e, load(e)) for e = tid, tid + nthreads, ... < N, the loads of B
+// iterations issued before their stores, so that they are in flight
+// together (a block staging its weights from device memory would otherwise
+// wait on each load in turn)
+template <int B, typename L, typename S>
+__device__ __forceinline__ void batched(int N, int tid, int nthreads, L load, S store) {
+  for (int e0 = tid; e0 < N; e0 += B * nthreads) {
+    float v[B];
+#pragma unroll
+    for (int k = 0; k < B; ++k) {
+      const int e = e0 + k * nthreads;
+      v[k] = e < N ? load(e) : 0.f;
+    }
+#pragma unroll
+    for (int k = 0; k < B; ++k) {
+      const int e = e0 + k * nthreads;
+      if (e < N) store(e, v[k]);
+    }
+  }
+}
+
+// The persistent grid of kernel `kern` at this shared memory and block
+// size: the SMs times the blocks one holds, kept per device for the last
+// (bytes, threads) asked (each kernel instantiation has its own `cache`).
+template <typename K>
+inline int persistent_grid(K kern, size_t bytes, int threads, int (&cache)[64][3], int* grid) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
+  int* c = cache[dev];
+  if (c[0] != (int)bytes || c[1] != threads) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    (int)bytes)) != cudaSuccess ||
+        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, bytes)) !=
+            cudaSuccess)
+      return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    c[0] = (int)bytes, c[1] = threads, c[2] = sms * per_sm;
+  }
+  *grid = c[2];
+  return 0;
+}
+
 // out[e] = sum_b part[b][e], in block order, rounded to bf16 values for e
 // in [lo1, hi1) or [lo2, hi2) when round_bf16: the reduce of the generic
 // backward bodies, whose weight cotangents the JAX kernels cast after their

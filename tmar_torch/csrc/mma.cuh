@@ -118,6 +118,25 @@ __device__ __forceinline__ float column_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 16);
 }
 
+// Sums v over the eight row groups g = lane / 4 of a warp (the lanes of
+// equal lane % 4), v being eight blocks of K values: lane g is left with the
+// sums of block g in out.  A reduce-scatter: 4K + 2K + K shuffles.
+template <int K>
+__device__ __forceinline__ void rows_reduce_scatter(const float (&v)[8 * K], float (&out)[K],
+                                                    int g) {
+  float a[4 * K], b[2 * K];
+  const bool h2 = g & 4, h1 = g & 2, h0 = g & 1;
+#pragma unroll
+  for (int i = 0; i < 4 * K; ++i)
+    a[i] = (h2 ? v[4 * K + i] : v[i]) + __shfl_xor_sync(0xffffffffu, h2 ? v[i] : v[4 * K + i], 16);
+#pragma unroll
+  for (int i = 0; i < 2 * K; ++i)
+    b[i] = (h1 ? a[2 * K + i] : a[i]) + __shfl_xor_sync(0xffffffffu, h1 ? a[i] : a[2 * K + i], 8);
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+    out[i] = (h0 ? b[K + i] : b[i]) + __shfl_xor_sync(0xffffffffu, h0 ? b[i] : b[K + i], 4);
+}
+
 __device__ __forceinline__ void cp_async16(__nv_bfloat16* smem, const __nv_bfloat16* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem) : "memory");

@@ -52,15 +52,19 @@
 //     backward there, and keeps its sums of dwqkv and dbqkv.
 //   Each block writes its sums to its own slot of the partials, and one
 //   reduce (ngram_bwd_reduce) adds both passes' slots in block order: three
-//   launches.  Two runs give the same bits.  Two bodies, picked by the I/O
-//   dtype and the widths: bfloat16 at the full-width NGswin's (C = 32,
-//   D = 64, heads 6 x 5 or 4 x 8) puts the products on the tensor cores and
-//   rounds where _ngram_bwd_stripe_kernel rounds at bf16 (below, "the
-//   bfloat16 body"); every other case runs the generic body, which takes C,
-//   D, the heads and head_dim (<= 32) at run time (pass 1 over tiles of 16
-//   cells of a grid row, pass 2 over 32 positions, weights read from device
-//   memory), products on the CUDA cores in float32, rounding at bfloat16
-//   where ngram_context_kernel_backward_math does.
+//   launches.  Two runs give the same bits.  Three bodies, picked by the
+//   I/O dtype and the widths (ngram_g::body, the rule of
+//   tmar_torch/ops/envelope.py:ngram_body): bfloat16 at the full-width
+//   NGswin's (C = 32, D = 64, heads 6 x 5 or 4 x 8) puts the products on the
+//   tensor cores and rounds where _ngram_bwd_stripe_kernel rounds at bf16
+//   (below, "the bfloat16 body"); bfloat16 at every other width with a plan
+//   (C and D multiples of 8 up to 128) runs the tensor-core generic body
+//   (ngram_g, below), the same design with the widths at run time; every
+//   other case runs the CUDA-core generic body, which takes C, D, the heads
+//   and head_dim (<= 32) at run time (pass 1 over tiles of 16 cells of a
+//   grid row, pass 2 over 32 positions, weights read from device memory),
+//   products on the CUDA cores in float32, rounding at bfloat16 where
+//   ngram_context_kernel_backward_math does.
 
 #include "common.cuh"
 #include "ngram_mma.cuh"
@@ -127,7 +131,7 @@ __device__ __forceinline__ float pair_bias(const float* table, int p, int q, int
   return __ldg(table + (((p >> 1) - (q >> 1) + 1) * 3 + ((p & 1) - (q & 1) + 1)) * nh + h);
 }
 
-// ---- the generic body, pass 1: one owner per (cell, direction, token) slot --
+// ---- the CUDA-core generic body, pass 1: one owner per (cell, direction, token) slot
 // A block owns tiles of TJ cells of a grid row; it stages u of the 3 x (TJ+2)
 // positions they read (reflect-mapped) and g of its cells, recomputes the
 // forward as ngram_context.cu's generic body does, and writes each window's
@@ -376,7 +380,7 @@ __device__ __forceinline__ int readers(int i, int n, int dir, int (&cell)[3], in
   return count;
 }
 
-// ---- the generic body, pass 2: one owner per grid position ---------------
+// ---- the CUDA-core generic body, pass 2: one owner per grid position -----
 // A block owns tiles of TP grid positions; for each it adds, in a fixed
 // order, the slots of the windows that read it, then does the norm and qkv
 // backward there (rounding as ngram_context_kernel_backward_math), and adds
@@ -820,9 +824,10 @@ __global__ void __launch_bounds__(256) ngram_bwd_positions_mma(
   const int tiles = (int)((total + TP - 1) / TP);
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const long pos0 = (long)tile * TP;
-    // 1. the offsets of the slots that read each position, in a fixed order
+    // 1. the offsets of the slots that read each position, at fixed places
     //    (direction, row reader, column reader), then u of the tile's
-    //    positions (zero past the end) and the sums of those slots
+    //    positions (zero past the end) and the sums of those slots in that
+    //    order
     if (tid < TP) {
       int n = 0;
       const long pos = pos0 + tid;
@@ -978,6 +983,704 @@ __global__ void __launch_bounds__(256) ngram_bwd_positions_mma(
   for (int e = tid; e < A3; e += L::THREADS) my[C * A3 + e] = sacc[e];
 }
 
+// ---- the bfloat16 generic body: tensor cores at any width ------------------
+//
+// Every bf16 geometry other than the flagship's where `ngram_g::plan` finds a
+// layout (C and D multiples of 8 up to 128, head_dim <= 32, both passes'
+// shared memory within a block).  It computes what the bodies above compute
+// and rounds where the flagship body rounds (ngram_context_kernel_backward_math
+// is its plain version too), with the widths at run time: C, D and the
+// attention width A = nh·hd padded to 16 (CP, DP, AP), zeros in the staged
+// weights, so a padded row or column adds nothing.  The heads need no
+// padding of their own: only the products are on the tensor cores, each
+// over whole 16-column chunks of the padded widths, and the per-head work
+// (4x4 softmaxes, L2 norms and their backward) reads its head's hd columns
+// on the CUDA cores.  Every product runs as a list of 16x16 jobs (or units
+// of a parameter cotangent) dealt to the warps in a fixed order, so that
+// registers stay bounded at any width and each element of a block's sums has
+// one owner.
+//   Pass 1 (ngram_bwd_cells_gmma, 8 warps) walks the flagship's tiles, 2
+//   grid rows x 4 cells (16 (cell, direction) rows, one m-tile; 4 x 6
+//   staged positions): u and g by cp.async; q/k/v of the staged positions
+//   and dctx = g·wm_dirᵀ; the norms of q and k, dacc = 0.25·dctxc·wprojᵀ,
+//   dbproj and dbmerge; the flagship body's step 4 with a group of 8 or 4
+//   lanes per (cell, direction, head), its head's channels split over the
+//   group; ctx = bf16(mean·wproj + bproj), dscale and dbias; dwproj +=
+//   meanᵀ·dctxc and dwmerge += ctxᵀ·g.  The demo stage-1 grid (u [8, 8, 8,
+//   16]) gives 64 tiles, one a block: a smaller tile would shorten no
+//   block's chain (its phases are one m-tile and one group of lanes per
+//   (cell, direction, head) deep at any tile of 16 rows or fewer), and the
+//   time there is the blocks' fixed latency (parameter staging, barriers)
+//   and the launches, not bytes or operations.
+//   Pass 2 (ngram_bwd_positions_gmma, 8 warps) walks tiles of 16 grid
+//   positions: the gather of the slots (one owner per slot, as the bodies
+//   above), raw q and k again, the L2-norm backward, then du = dc·wqkvᵀ and
+//   dwqkv += uᵀ·dc.
+// The block's sums of dscale, dbias, dwproj, dbproj, dwmerge and dbmerge
+// (pass 1) and of dwqkv and dbqkv (pass 2) are float32 in shared memory in
+// Slots' layout, added to by their owners tile after tile, and written to
+// the block's slot at the end; ngram_bwd_reduce adds the slots.
+namespace ngram_g {
+
+constexpr int S = 2, TJ = 4, CELLS = S * TJ, ROWS = 2 * CELLS;  // a pass-1 tile
+constexpr int W2 = TJ + 2, NPOS = (S + 2) * W2, PROWS = 32;     // staged positions, 2 m-tiles
+constexpr int THREADS1 = 256, WARPS1 = THREADS1 / 32;           // pass 1
+constexpr int TP = 16, THREADS2 = 256, WARPS2 = THREADS2 / 32;  // pass 2: positions a tile
+constexpr int MAXSLOT = 18;  // windows reading one position: 2 directions x 3 x 3
+constexpr int GATHER = 4;    // pass 2: (position, column) items a thread gathers at a time
+constexpr int MAX_W = 128;   // the widest C and D
+
+// The bodies of K1 and K7 (envelope.py: NGRAM_BODIES, in this order).
+enum Body { FLAGSHIP = 0, TENSOR_CORE = 1, CUDA_CORE = 2 };
+
+inline int up(int n, int m) { return (n + m - 1) / m * m; }
+
+// The layout of one call: strides in elements, byte offsets of each region
+// (each 16-byte aligned) of the two passes' shared memory.
+struct Plan {
+  int C, D, nh, hd, A, A3, CP, DP, AP;
+  int LU, LQKV, LM, LA, LCX, LQK, LD;
+  // pass 1: bf16 wqkv [CP][LQKV] (column blk·AP + a), wproj [AP][LU], wm
+  // [2CP][LM] (row dir·CP + c); f32 bqkv [3AP] (bf16 values), bproj [CP]
+  // (bf16 values), scale [nh], bias [nh][16]; the tile's bf16 u [PROWS][LU],
+  // q_n | k_n | v [PROWS][LQKV], f32 raw q | k [PROWS][LQK], bf16 g [16][LM],
+  // f32 dctx [CELLS][2CP], bf16 dctxc [ROWS][LU], f32 dacc [ROWS][AP], bf16
+  // mean [ROWS][LA] and ctx [16][LCX], f32 ds [ROWS][16][nh], dscale shares
+  // [ROWS][nh]; f32 the block's sums [Slots::P1SIZE]
+  int c_wqkv, c_wproj, c_wm, c_bqkv, c_bproj, c_scale, c_bias, c_u, c_q, c_qk, c_g, c_dctx,
+      c_dctxc, c_dacc, c_mean, c_ctx, c_ds, c_dsc, c_acc;
+  size_t bytes1;
+  // pass 2: bf16 wqkv [CP][LQKV], f32 bqkv [3AP]; the tile's bf16 u [TP][LU],
+  // f32 raw q | k [TP][LQK], f32 slot sums then dt [TP][LD], bf16 dc
+  // [TP][LQKV]; f32 the block's sums [C·A3 + A3]; the slots' offsets
+  // [TP][MAXSLOT] (NO_SLOT where a window does not read the position)
+  int p_wqkv, p_bqkv, p_u, p_qk, p_d, p_dc, p_acc, p_slot;
+  size_t bytes2;
+};
+
+inline Plan make_plan(int C, int D, int nh, int hd) {
+  Plan P;
+  P.C = C, P.D = D, P.nh = nh, P.hd = hd, P.A = nh * hd, P.A3 = 3 * P.A;
+  P.CP = up(C, 16), P.DP = up(D, 16), P.AP = up(P.A, 16);
+  P.LU = P.CP + 8, P.LQKV = 3 * P.AP + 8, P.LM = P.DP + 8, P.LA = P.AP + 8;
+  P.LCX = 2 * P.CP + 8, P.LQK = 2 * P.AP + 4, P.LD = P.A3 + 4;
+  const Slots sl(C, D, nh, hd);
+  int at = 0;
+  auto take = [&](int nbytes) {
+    const int off = at;
+    at += up(nbytes, 16);
+    return off;
+  };
+  P.c_wqkv = take(2 * P.CP * P.LQKV), P.c_wproj = take(2 * P.AP * P.LU);
+  P.c_wm = take(2 * 2 * P.CP * P.LM), P.c_bqkv = take(4 * 3 * P.AP), P.c_bproj = take(4 * P.CP);
+  P.c_scale = take(4 * nh), P.c_bias = take(4 * 16 * nh), P.c_u = take(2 * PROWS * P.LU);
+  P.c_q = take(2 * PROWS * P.LQKV), P.c_qk = take(4 * PROWS * P.LQK), P.c_g = take(2 * 16 * P.LM);
+  P.c_dctx = take(4 * CELLS * 2 * P.CP), P.c_dctxc = take(2 * ROWS * P.LU);
+  P.c_dacc = take(4 * ROWS * P.AP), P.c_mean = take(2 * ROWS * P.LA), P.c_ctx = take(2 * 16 * P.LCX);
+  P.c_ds = take(4 * ROWS * 16 * nh), P.c_dsc = take(4 * ROWS * nh), P.c_acc = take(4 * sl.P1SIZE);
+  P.bytes1 = at;
+  at = 0;
+  P.p_wqkv = take(2 * P.CP * P.LQKV), P.p_bqkv = take(4 * 3 * P.AP), P.p_u = take(2 * TP * P.LU);
+  P.p_qk = take(4 * TP * P.LQK), P.p_d = take(4 * TP * P.LD), P.p_dc = take(2 * TP * P.LQKV);
+  P.p_acc = take(4 * sl.P2SIZE), P.p_slot = take(4 * TP * MAXSLOT);
+  P.bytes2 = at;
+  return P;
+}
+
+// The plan at (C, D, heads, head_dim) (envelope.py: ngram_mma_plan counts the
+// same), false where the body takes none: C or D not a multiple of 8 (16-byte
+// rows for cp.async) or past 128, head_dim past 32, a pass whose shared
+// memory fits no block.
+inline bool plan(int C, int D, int nh, int hd, Plan* P) {
+  if (C < 8 || C > MAX_W || C % 8 || D < 8 || D > MAX_W || D % 8 || nh < 1 || hd < 1 || hd > 32)
+    return false;
+  *P = make_plan(C, D, nh, hd);
+  return P->bytes1 <= MAX_SMEM && P->bytes2 <= MAX_SMEM;
+}
+
+// Which body runs a geometry, by geometry and I/O type alone (envelope.py:
+// ngram_body): bfloat16 at the full-width NGswin's (C 32, D 64, heads 6 x 5
+// or 4 x 8) the flagship bodies; bfloat16 this body wherever it has a plan;
+// the rest (float32, the exactness path, and what this body does not take)
+// the CUDA-core generic body.
+inline Body body(int C, int D, int nh, int hd, int is_bf16) {
+  if (is_bf16 && C == 32 && D == 64 && ((nh == 6 && hd == 5) || (nh == 4 && hd == 8)))
+    return FLAGSHIP;
+  Plan P;
+  return is_bf16 && plan(C, D, nh, hd, &P) ? TENSOR_CORE : CUDA_CORE;
+}
+
+constexpr unsigned NO_SLOT = 0xffffffffu;  // pass 2: a (direction, reader, reader) with no window
+
+// The offset (0 or 1) in its window, along one axis of length n, at which
+// the window of cell c in direction dir reads grid index i (the readers'
+// rule above), or -1 where it does not read i (or c is outside the grid)
+__device__ __forceinline__ int reader_offset(int i, int c, int n, int dir) {
+  if (c < 0 || c >= n) return -1;
+  for (int o = 0; o < 2; ++o) {
+    int r = dir == 0 ? c + o : c - 1 + o;
+    if (r == n) r = n - 2;
+    if (r < 0) r = 1;
+    if (r == i) return o;
+  }
+  return -1;
+}
+
+__device__ __forceinline__ void zero16(void* p) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Start the copies of `rows` rows of `cols` bf16 (a multiple of 8) from
+// src(r) into dst [.][ld]; rows for which src(r) is null are zeroed.
+template <typename F>
+__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, int ld, int rows, int cols, F src,
+                                          int tid, int nthreads) {
+  const int c8 = cols / 8;
+  for (int e = tid; e < rows * c8; e += nthreads) {
+    const int r = e / c8, ch = e % c8;
+    const __nv_bfloat16* s = src(r);
+    if (s != nullptr)
+      cp_async16(dst + r * ld + 8 * ch, s + 8 * ch);
+    else
+      zero16(dst + r * ld + 8 * ch);
+  }
+}
+
+// Stage the parameters a pass reads, as one range of loads in flight
+// together (batched): wqkv [C, 3A] and bqkv [3A] rounded to bf16 into w
+// [CP][LQKV] (column blk·AP + a) and b [3AP] (float32 of the bf16 values);
+// for pass 1 (wp non-null) also wproj [A, C] into wp [AP][LU], wmerge [2C, D]
+// into wm [2CP][LM] (row dir·CP + c) and bproj into bp (bf16 values), the
+// scale exp(min(ls, ln 100)) into sc and the bias table as bias[h][p][q] =
+// table[idx(p, q)][h].
+__device__ __forceinline__ void stage_params(
+    const Plan& P, int tid, int nthreads, const float* __restrict__ wqkv,
+    const float* __restrict__ bqkv, __nv_bfloat16* w, float* b, const float* __restrict__ wproj,
+    const float* __restrict__ wmerge, const float* __restrict__ bproj,
+    const float* __restrict__ ls, const float* __restrict__ table, __nv_bfloat16* wp,
+    __nv_bfloat16* wm, float* bp, float* sc, float* bias) {
+  const int C = P.C, D = P.D, A = P.A, A3 = P.A3, nh = P.nh;
+  const int e1 = C * A3, e2 = e1 + A3, e3 = e2 + A * C, e4 = e3 + 2 * C * D, e5 = e4 + C;
+  const int e6 = e5 + nh, total = wp == nullptr ? e2 : e6 + 16 * nh;
+  batched<4>(total, tid, nthreads, [&](int e) {
+    // the address by selects, not branches, so that the loads go out together
+    const int k = e - e6, h = k >> 4, p = (k >> 2) & 3, q = k & 3;
+    const float* src =
+        e < e1 ? wqkv + e : e < e2 ? bqkv + (e - e1) : e < e3 ? wproj + (e - e2)
+        : e < e4 ? wmerge + (e - e3) : e < e5 ? bproj + (e - e4) : e < e6 ? ls + (e - e5)
+        : table + (((p >> 1) - (q >> 1) + 1) * 3 + ((p & 1) - (q & 1) + 1)) * nh + h;
+    return __ldg(src);
+  }, [&](int e, float v) {
+    // one division an element; the q | k | v block of a column by comparisons
+    if (e < e2) {
+      const int r = e < e1 ? e / A3 : 0, col = e < e1 ? e - r * A3 : e - e1;
+      const int blk = (col >= A) + (col >= 2 * A), at = blk * P.AP + col - blk * A;
+      if (e < e1)
+        w[r * P.LQKV + at] = __float2bfloat16(v);
+      else
+        b[at] = ngram::bf(v);
+    } else if (e < e3) {
+      const int r = (e - e2) / C;
+      wp[r * P.LU + e - e2 - r * C] = __float2bfloat16(v);
+    } else if (e < e4) {
+      const int r = (e - e3) / D, dir = r >= C;
+      wm[(r + dir * (P.CP - C)) * P.LM + e - e3 - r * D] = __float2bfloat16(v);
+    } else if (e < e5) {
+      bp[e - e4] = ngram::bf(v);
+    } else if (e < e6) {
+      sc[e - e5] = expf(fminf(v, ngram::LN100));
+    } else {
+      bias[e - e6] = v;
+    }
+  });
+}
+
+__global__ void __launch_bounds__(THREADS1) ngram_bwd_cells_gmma(
+    const __nv_bfloat16* __restrict__ u, const __nv_bfloat16* __restrict__ g,
+    const float* __restrict__ wqkv, const float* __restrict__ bqkv, const float* __restrict__ ls,
+    const float* __restrict__ table, const float* __restrict__ wproj,
+    const float* __restrict__ bproj, const float* __restrict__ wmerge, float* __restrict__ ws,
+    float* __restrict__ part, int B, int wh, int ww, Plan P) {
+  extern __shared__ float4 smem4[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
+  auto bf16_at = [&](int off) { return reinterpret_cast<__nv_bfloat16*>(sm + off); };
+  auto f32_at = [&](int off) { return reinterpret_cast<float*>(sm + off); };
+  __nv_bfloat16 *s_wqkv = bf16_at(P.c_wqkv), *s_wproj = bf16_at(P.c_wproj), *s_wm = bf16_at(P.c_wm);
+  float *s_bqkv = f32_at(P.c_bqkv), *s_bproj = f32_at(P.c_bproj), *s_scale = f32_at(P.c_scale);
+  float* s_bias = f32_at(P.c_bias);
+  __nv_bfloat16 *s_u = bf16_at(P.c_u), *s_q = bf16_at(P.c_q), *s_g = bf16_at(P.c_g);
+  __nv_bfloat16 *s_dctxc = bf16_at(P.c_dctxc), *s_mean = bf16_at(P.c_mean), *s_ctx = bf16_at(P.c_ctx);
+  float *s_qk = f32_at(P.c_qk), *s_dctx = f32_at(P.c_dctx), *s_dacc = f32_at(P.c_dacc);
+  float *s_ds = f32_at(P.c_ds), *s_dsc = f32_at(P.c_dsc), *s_acc = f32_at(P.c_acc);
+  const Slots sl(P.C, P.D, P.nh, P.hd);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gq = lane >> 2, tq = lane & 3;
+  const int C = P.C, D = P.D, nh = P.nh, hd = P.hd, A = P.A, A3 = P.A3;
+  const int CP = P.CP, DP = P.DP, AP = P.AP, LU = P.LU, LQKV = P.LQKV, LM = P.LM, LA = P.LA;
+
+  // once per block: zeros (every padding, the sums); the parameters come
+  // with the first tile
+  for (int i = tid; i < (int)(P.bytes1 / 16); i += THREADS1) zero16(sm + 16 * i);
+  const int rowtiles = (wh + S - 1) / S, coltiles = (ww + TJ - 1) / TJ;
+  const int tiles = B * rowtiles * coltiles;
+  const int nqc = 3 * AP / 16, ncc = CP / 16, nac = AP / 16, ndk = DP / 16;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int j0 = (tile % coltiles) * TJ;
+    const int i0 = ((tile / coltiles) % rowtiles) * S;
+    const int b = tile / (coltiles * rowtiles);
+    __syncthreads();  // the zeros are down; the last tile's step 6 is done
+    // 1. g of the tile's cells (zero outside the grid), u of its positions
+    copy_rows(s_g, LM, CELLS, D, [&](int cell) -> const __nv_bfloat16* {
+      const int i = i0 + cell / TJ, j = j0 + cell % TJ;
+      return i < wh && j < ww ? g + (((size_t)b * wh + i) * ww + j) * D : nullptr;
+    }, tid, THREADS1);
+    copy_rows(s_u, LU, NPOS, C, [&](int pos) -> const __nv_bfloat16* {
+      const int gr = ngram::reflect(i0 - 1 + pos / W2, wh), gc = ngram::reflect(j0 - 1 + pos % W2, ww);
+      return u + (((size_t)b * wh + gr) * ww + gc) * C;
+    }, tid, THREADS1);
+    cp_async_commit();
+    if (tile == (int)blockIdx.x) {  // the block's first tile: the parameters, while u and g land
+      stage_params(P, tid, THREADS1, wqkv, bqkv, s_wqkv, s_bqkv, wproj, wmerge, bproj, ls, table,
+                   s_wproj, s_wm, s_bproj, s_scale, s_bias);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    // 2. q/k/v = u·wqkv + bqkv of the staged positions (q, k float32, v
+    //    bf16);  dctx = g·wm_dirᵀ (float32, and bf16 as dctxc)
+    for (int job = warp; job < 2 * nqc + 2 * ncc; job += WARPS1) {
+      float acc[2][4] = {};
+      if (job < 2 * nqc) {
+        const int mt = job / nqc, nc = job % nqc;
+        for (int kk = 0; kk < ncc; ++kk) {
+          uint32_t a[4];
+          load_a(a, s_u, LU, 16 * mt, 16 * kk, lane);
+          mma_pair_t(acc[0], acc[1], a, s_wqkv, LQKV, 16 * nc, 16 * kk, lane);
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = 16 * mt + gq + 8 * h, col = 16 * nc + 8 * n + 2 * tq;
+            const float lo = acc[n][2 * h] + s_bqkv[col], hi = acc[n][2 * h + 1] + s_bqkv[col + 1];
+            if (col >= 2 * AP) {
+              sts32(s_q + r * LQKV + col, pack_bf16(lo, hi));
+            } else {
+              s_qk[r * P.LQK + col] = lo;
+              s_qk[r * P.LQK + col + 1] = hi;
+            }
+          }
+      } else {
+        const int dir = (job - 2 * nqc) / ncc, nc = (job - 2 * nqc) % ncc;
+        for (int kk = 0; kk < ndk; ++kk) {
+          uint32_t a[4];
+          load_a(a, s_g, LM, 0, 16 * kk, lane);
+          mma_pair(acc[0], acc[1], a, s_wm, LM, dir * CP + 16 * nc, 16 * kk, lane);
+        }
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int cell = gq, c = 16 * nc + 8 * n + 2 * tq;  // rows 8..15 are past CELLS
+          s_dctx[cell * 2 * CP + dir * CP + c] = acc[n][0];
+          s_dctx[cell * 2 * CP + dir * CP + c + 1] = acc[n][1];
+          sts32(s_dctxc + (2 * cell + dir) * LU + c, pack_bf16(acc[n][0], acc[n][1]));
+        }
+      }
+    }
+    __syncthreads();
+
+    // 3. dacc = 0.25·dctxc·wprojᵀ;  q_n, k_n as the forward rounds them;
+    //    the block's dbproj and dbmerge
+    for (int nc = warp; nc < nac; nc += WARPS1) {
+      float acc[2][4] = {};
+      for (int kk = 0; kk < ncc; ++kk) {
+        uint32_t a[4];
+        load_a(a, s_dctxc, LU, 0, 16 * kk, lane);
+        mma_pair(acc[0], acc[1], a, s_wproj, LU, 16 * nc, 16 * kk, lane);
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          s_dacc[(gq + 8 * (e >> 1)) * AP + 16 * nc + 8 * n + 2 * tq + (e & 1)] = acc[n][e] * 0.25f;
+    }
+    for (int e = tid; e < NPOS * 2 * nh; e += THREADS1) {
+      const int r = e / (2 * nh), blk = (e / nh) % 2, h = e % nh;
+      const float* tv = s_qk + r * P.LQK + blk * AP + h * hd;
+      float n2 = 0.f;
+      for (int d = 0; d < hd; ++d) n2 += ngram::bf(tv[d] * tv[d]);
+      const float inv = ngram::bf(1.f / ngram::bf(sqrtf(n2) + 1e-12f));
+      __nv_bfloat16* o = s_q + r * LQKV + blk * AP + h * hd;
+      for (int d = 0; d < hd; ++d) o[d] = __float2bfloat16(tv[d] * inv);
+    }
+    for (int e = tid; e < C + D; e += THREADS1) {
+      float s = 0.f;
+      if (e < C) {  // dbproj[c]: each direction's sum over the cells
+        float s2 = 0.f;
+        for (int cell = 0; cell < CELLS; ++cell) {
+          s += s_dctx[cell * 2 * CP + e];
+          s2 += s_dctx[cell * 2 * CP + CP + e];
+        }
+        s += s2;
+        s_acc[sl.Q_DBPROJ + e] += s;
+      } else {  // dbmerge[d]
+        for (int cell = 0; cell < CELLS; ++cell) s += __bfloat162float(s_g[cell * LM + e - C]);
+        s_acc[sl.Q_DBM + e - C] += s;
+      }
+    }
+    __syncthreads();
+
+    // 4. one group of G lanes per (cell, direction, head) (G = 8 where the
+    //    tile's items fill the block so, else 4), lane t of the group taking
+    //    the head's channels d = t, t + G, ... and the sums over d added
+    //    across the group: the softmax again, the mean token, then the
+    //    window's cotangents into its workspace slots
+    const int items = CELLS * 2 * nh, G = items * 8 <= THREADS1 ? 8 : 4, tg = tid & (G - 1);
+    auto group_sum = [&](float v) {
+      for (int o = 1; o < G; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+      return v;
+    };
+    for (int base = 0; base < items; base += THREADS1 / G) {  // the same trip count in every lane
+      const int e = base + tid / G, it = e < items ? e : 0;    // a spare group writes nothing
+      const bool live = e < items;
+      const int cell = it / (2 * nh), dir = (it / nh) % 2, h = it % nh;
+      const int row = 2 * cell + dir;
+      int tok[4];
+      ngram::window_tokens<TJ>(cell / TJ, cell % TJ, dir, tok);
+      const __nv_bfloat16* qh[4];  // + AP: k_n, + 2AP: v
+#pragma unroll
+      for (int p = 0; p < 4; ++p) qh[p] = s_q + tok[p] * LQKV + h * hd;
+      float cs[16], a[16], ab[16];  // ab: the softmax weights in bf16
+#pragma unroll
+      for (int pq = 0; pq < 16; ++pq) cs[pq] = 0.f;
+      for (int d = tg; d < hd; d += G) {
+        float qv[4], kv[4];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) qv[p] = ngram::ld_bf(qh[p] + d), kv[p] = ngram::ld_bf(qh[p] + AP + d);
+#pragma unroll
+        for (int pq = 0; pq < 16; ++pq) cs[pq] += ngram::bf(qv[pq >> 2] * kv[pq & 3]);
+      }
+      const float sc = s_scale[h];
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        float sv[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          cs[4 * p + q] = group_sum(cs[4 * p + q]);
+          sv[q] = __fadd_rn(__fmul_rn(cs[4 * p + q], sc), s_bias[h * 16 + p * 4 + q]);
+        }
+        const float m = fmaxf(fmaxf(sv[0], sv[1]), fmaxf(sv[2], sv[3]));
+        float ex[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) ex[q] = expf(sv[q] - m);
+        const float iz = 1.f / (ex[0] + ex[1] + ex[2] + ex[3]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) a[p * 4 + q] = ex[q] * iz, ab[p * 4 + q] = ngram::bf(a[p * 4 + q]);
+      }
+      const float* dacc = s_dacc + row * AP + h * hd;
+      float da[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int d = tg; d < hd; d += G) {
+        float vv[4], acc = 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) vv[q] = ngram::ld_bf(qh[q] + 2 * AP + d);
+#pragma unroll
+        for (int pq = 0; pq < 16; ++pq) acc = fmaf(ab[pq], vv[pq & 3], acc);
+        if (live) s_mean[row * LA + h * hd + d] = __float2bfloat16(acc * 0.25f);
+        const float dc = ngram::bf(dacc[d]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) da[q] += ngram::bf(dc * vv[q]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) da[q] = group_sum(da[q]);
+      float dp[16], dsc = 0.f;
+#pragma unroll
+      for (int p = 0; p < 4; ++p) {
+        const float* ap = a + 4 * p;
+        const float inner = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(ap[0], da[0]),
+                                                          __fmul_rn(ap[1], da[1])),
+                                                __fmul_rn(ap[2], da[2])),
+                                      __fmul_rn(ap[3], da[3]));
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float ds = ap[q] * (da[q] - inner);
+          if (live && tg == 0) s_ds[(row * 16 + 4 * p + q) * nh + h] = ds;
+          dsc = fmaf(ds, cs[4 * p + q], dsc);
+          dp[4 * p + q] = ngram::bf(ds * sc);
+        }
+      }
+      if (live && tg == 0) s_dsc[row * nh + h] = dsc;
+      const int i = i0 + cell / TJ, j = j0 + cell % TJ;
+      if (!live || i >= wh || j >= ww) continue;
+      float* slot = ws + ((((size_t)b * wh + i) * ww + j) * 2 + dir) * 4 * A3 + h * hd;
+      for (int d = tg; d < hd; d += G) {
+        float qv[4], kv[4];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) qv[p] = ngram::ld_bf(qh[p] + d), kv[p] = ngram::ld_bf(qh[p] + AP + d);
+        const float dac = dacc[d];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          float dq = 0.f, dk = 0.f, dv = 0.f;
+#pragma unroll
+          for (int o = 0; o < 4; ++o) {
+            dq = fmaf(dp[4 * t + o], kv[o], dq);
+            dk = fmaf(dp[4 * o + t], qv[o], dk);
+            dv = __fadd_rn(dv, __fmul_rn(ab[4 * o + t], dac));
+          }
+          slot[t * A3 + d] = dq;
+          slot[t * A3 + A + d] = dk;
+          slot[t * A3 + 2 * A + d] = dv;
+        }
+      }
+    }
+    __syncthreads();
+
+    // 5. ctx = bf16(mean·wproj + bproj);  the block's dscale and dbias
+    for (int nc = warp; nc < ncc; nc += WARPS1) {
+      float acc[2][4] = {};
+      for (int kk = 0; kk < nac; ++kk) {
+        uint32_t a[4];
+        load_a(a, s_mean, LA, 0, 16 * kk, lane);
+        mma_pair_t(acc[0], acc[1], a, s_wproj, LU, 16 * nc, 16 * kk, lane);
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = gq + 8 * h, c = 16 * nc + 8 * n + 2 * tq;
+          sts32(s_ctx + (row >> 1) * P.LCX + (row & 1) * CP + c,
+                pack_bf16(acc[n][2 * h] + s_bproj[c], acc[n][2 * h + 1] + s_bproj[c + 1]));
+        }
+    }
+    for (int e = tid; e < 17 * nh; e += THREADS1) {
+      float s = 0.f;
+      if (e < nh) {
+        for (int row = 0; row < ROWS; ++row) s += s_dsc[row * nh + e];
+      } else {
+        for (int row = 0; row < ROWS; ++row) s += s_ds[row * 16 * nh + e - nh];
+      }
+      s_acc[e] += s;
+    }
+    __syncthreads();
+
+    // 6. dwproj += meanᵀ·dctxc (K = the 16 rows);  dwmerge += ctxᵀ·g (K = the
+    //    cells, zero rows past CELLS); each unit's elements owned by one lane
+    const int nwp = nac * ncc, nwm = 2 * ncc * ndk;
+    for (int unit = warp; unit < nwp + nwm; unit += WARPS1) {
+      float acc[2][4] = {};
+      uint32_t a[4];
+      if (unit < nwp) {
+        const int ra = unit / ncc, rc = unit % ncc;
+        load_a_t(a, s_mean, LA, 16 * ra, 0, lane);
+        mma_pair_t(acc[0], acc[1], a, s_dctxc, LU, 16 * rc, 0, lane);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 16 * ra + gq + 8 * (e >> 1), c = 16 * rc + 8 * n + 2 * tq + (e & 1);
+            if (r < A && c < C) s_acc[sl.Q_DWPROJ + r * C + c] += acc[n][e];
+          }
+      } else {
+        const int ra = (unit - nwp) / ndk, rc = (unit - nwp) % ndk;
+        load_a_t(a, s_ctx, P.LCX, 16 * ra, 0, lane);
+        mma_pair_t(acc[0], acc[1], a, s_g, LM, 16 * rc, 0, lane);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = 16 * ra + gq + 8 * (e >> 1), d = 16 * rc + 8 * n + 2 * tq + (e & 1);
+            const int dir = r / CP, c = r % CP;
+            if (c < C && d < D) s_acc[sl.Q_DWM + (dir * C + c) * D + d] += acc[n][e];
+          }
+      }
+    }
+  }
+  __syncthreads();
+  float* my = part + (size_t)blockIdx.x * sl.P1SIZE;
+  for (int e = tid; e < sl.P1SIZE; e += THREADS1) my[e] = s_acc[e];
+}
+
+__global__ void __launch_bounds__(THREADS2) ngram_bwd_positions_gmma(
+    const __nv_bfloat16* __restrict__ u, const float* __restrict__ wqkv,
+    const float* __restrict__ bqkv, const float* __restrict__ ws, __nv_bfloat16* __restrict__ du,
+    float* __restrict__ part, int B, int wh, int ww, Plan P) {
+  extern __shared__ float4 smem4[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
+  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(sm + P.p_wqkv);
+  float* s_b = reinterpret_cast<float*>(sm + P.p_bqkv);
+  __nv_bfloat16* s_u = reinterpret_cast<__nv_bfloat16*>(sm + P.p_u);
+  float* s_qk = reinterpret_cast<float*>(sm + P.p_qk);
+  float* s_d = reinterpret_cast<float*>(sm + P.p_d);
+  __nv_bfloat16* s_dc = reinterpret_cast<__nv_bfloat16*>(sm + P.p_dc);
+  float* s_acc = reinterpret_cast<float*>(sm + P.p_acc);  // dwqkv [C][A3], dbqkv [A3]
+  unsigned* s_slot = reinterpret_cast<unsigned*>(sm + P.p_slot);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gq = lane >> 2, tq = lane & 3;
+  const int C = P.C, nh = P.nh, hd = P.hd, A = P.A, A3 = P.A3, AP = P.AP, LU = P.LU;
+  const int LQKV = P.LQKV, LQK = P.LQK, LD = P.LD;
+  for (int i = tid; i < (int)(P.bytes2 / 16); i += THREADS2) zero16(sm + 16 * i);
+  __syncthreads();
+
+  const long total = (long)B * wh * ww;
+  const int tiles = (int)((total + TP - 1) / TP);
+  const int ncc = P.CP / 16, nqk = 2 * AP / 16, nq3 = 3 * AP / 16;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long pos0 = (long)tile * TP;
+    // 1. the offsets of the slots that read each position, at fixed places
+    //    (direction, row reader, column reader), then u of the tile's
+    //    positions (zero past the end) and the sums of those slots in that
+    //    order
+    for (int e = tid; e < TP * MAXSLOT; e += THREADS2) {
+      const int r = e / MAXSLOT, k = e % MAXSLOT, dir = k / 9, y = k / 3 % 3, x = k % 3;
+      const int pos = (int)pos0 + r;  // 32-bit arithmetic, as the flagship body's offsets
+      const int j = pos % ww, i = pos / ww % wh, ci = i - 1 + y, cj = j - 1 + x;
+      const int di = reader_offset(i, ci, wh, dir), dj = reader_offset(j, cj, ww, dir);
+      s_slot[e] = pos < total && di >= 0 && dj >= 0
+                      ? ((((unsigned)(pos / (wh * ww)) * wh + ci) * ww + cj) * 2 + dir) * 4 * A3 +
+                            (di * 2 + dj) * A3
+                      : NO_SLOT;
+    }
+    __syncthreads();  // the offsets are set; the last tile is done
+    copy_rows(s_u, LU, TP, C, [&](int r) -> const __nv_bfloat16* {
+      return pos0 + r < total ? u + (pos0 + r) * C : nullptr;
+    }, tid, THREADS2);
+    cp_async_commit();
+    // the slots of GATHER items a thread at a time, their loads in flight
+    // together, each item's then added in order
+    for (int e0 = tid; e0 < TP * A3; e0 += GATHER * THREADS2) {
+      float v[GATHER][MAXSLOT];
+#pragma unroll
+      for (int j = 0; j < GATHER; ++j) {
+        const int e = e0 + j * THREADS2, r = e < TP * A3 ? e / A3 : 0, o = e % A3;
+        const unsigned* off = s_slot + r * MAXSLOT;
+        const bool in = e < TP * A3;
+#pragma unroll
+        for (int k = 0; k < MAXSLOT; ++k) v[j][k] = in && off[k] != NO_SLOT ? __ldg(ws + off[k] + o) : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < GATHER; ++j) {
+        const int e = e0 + j * THREADS2;
+        float s = 0.f;
+#pragma unroll
+        for (int k = 0; k < MAXSLOT; ++k) s += v[j][k];
+        if (e < TP * A3) s_d[(e / A3) * LD + e % A3] = s;
+      }
+    }
+    if (tile == (int)blockIdx.x)  // the block's first tile: the parameters, with the loads above
+      stage_params(P, tid, THREADS2, wqkv, bqkv, s_w, s_b, nullptr, nullptr, nullptr, nullptr,
+                   nullptr, nullptr, nullptr, nullptr, nullptr, nullptr);
+    cp_async_wait_all();
+    __syncthreads();
+
+    // 2. raw q and k again;  dc of v = bf16(dv)
+    for (int nc = warp; nc < nqk; nc += WARPS2) {
+      float acc[2][4] = {};
+      for (int kk = 0; kk < ncc; ++kk) {
+        uint32_t a[4];
+        load_a(a, s_u, LU, 0, 16 * kk, lane);
+        mma_pair_t(acc[0], acc[1], a, s_w, LQKV, 16 * nc, 16 * kk, lane);
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 16 * nc + 8 * n + 2 * tq + (e & 1);
+          s_qk[(gq + 8 * (e >> 1)) * LQK + col] = acc[n][e] + s_b[col];
+        }
+    }
+    for (int e = tid; e < TP * A; e += THREADS2) {
+      const int r = e / A, a = e % A;
+      s_dc[r * LQKV + 2 * AP + a] = __float2bfloat16(s_d[r * LD + 2 * A + a]);
+    }
+    __syncthreads();
+
+    // 3. the L2-norm backward in place, one (position, q|k, head) per thread:
+    //    dt = dn·inv - t·bf16(Σ bf16(dn·t) · inv² / r)
+    for (int e = tid; e < TP * 2 * nh; e += THREADS2) {
+      const int r = e / (2 * nh), blk = (e / nh) % 2, h = e % nh;
+      float* dn = s_d + r * LD + blk * A + h * hd;
+      __nv_bfloat16* dc = s_dc + r * LQKV + blk * AP + h * hd;
+      if (pos0 + r >= total) {  // rows past the end add nothing
+        for (int d = 0; d < hd; ++d) {
+          dn[d] = 0.f;
+          dc[d] = __float2bfloat16(0.f);
+        }
+        continue;
+      }
+      const float* t = s_qk + r * LQK + blk * AP + h * hd;
+      float n2 = 0.f, gh = 0.f;
+      for (int d = 0; d < hd; ++d) {
+        n2 += ngram::bf(t[d] * t[d]);
+        gh += ngram::bf(dn[d] * t[d]);
+      }
+      const float rr = sqrtf(n2);
+      const float inv = ngram::bf(1.f / ngram::bf(rr + 1e-12f));
+      const float fb = ngram::bf(gh * inv * inv / rr);
+      for (int d = 0; d < hd; ++d) {
+        const float dt = __fsub_rn(__fmul_rn(dn[d], inv), __fmul_rn(t[d], fb));
+        dn[d] = dt;
+        dc[d] = __float2bfloat16(dt);
+      }
+    }
+    __syncthreads();
+
+    // 4. dwqkv += uᵀ·dc (units), du = dc·wqkvᵀ (chunks of 16 channels), dealt
+    //    to the warps in a fixed order;  dbqkv += Σ dt
+    const int nun = ncc * nq3;
+    for (int job = warp; job < nun + ncc; job += WARPS2) {
+      float acc[2][4] = {};
+      if (job < nun) {
+        const int rc = job / nq3, rq = job % nq3;
+        uint32_t a[4];
+        load_a_t(a, s_u, LU, 16 * rc, 0, lane);
+        mma_pair_t(acc[0], acc[1], a, s_dc, LQKV, 16 * rq, 0, lane);
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = 16 * rc + gq + 8 * (e >> 1), col = 16 * rq + 8 * n + 2 * tq + (e & 1);
+            const int a2 = col % AP;
+            if (c < C && a2 < A) s_acc[c * A3 + (col / AP) * A + a2] += acc[n][e];
+          }
+      } else {
+        const int nc = job - nun;
+        for (int kk = 0; kk < nq3; ++kk) {
+          uint32_t a[4];
+          load_a(a, s_dc, LQKV, 0, 16 * kk, lane);
+          mma_pair(acc[0], acc[1], a, s_w, LQKV, 16 * nc, 16 * kk, lane);
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long pos = pos0 + gq + 8 * h;
+          if (pos >= total) continue;
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            const int c = 16 * nc + 8 * n + 2 * tq;
+            if (c < C) sts32(du + pos * C + c, pack_bf16(acc[n][2 * h], acc[n][2 * h + 1]));
+          }
+        }
+      }
+    }
+    for (int e = tid; e < A3; e += THREADS2) {
+      float s = 0.f;
+      for (int r = 0; r < TP; ++r) s += s_d[r * LD + e];
+      s_acc[C * A3 + e] += s;
+    }
+    __syncthreads();  // step 4 is done with u, dc and dt
+  }
+  float* my = part + (size_t)blockIdx.x * (C * A3 + A3);
+  for (int e = tid; e < C * A3 + A3; e += THREADS2) my[e] = s_acc[e];
+}
+
+// the two passes' persistent grids at this plan (the SMs times the blocks
+// one holds, as the card reports them), asked once per device and plan
+inline int grids(const Plan& P, long* grid1, long* grid2) {
+  static int cache1[64][3] = {}, cache2[64][3] = {};
+  int g1 = 0, g2 = 0;
+  int err = tmar::persistent_grid(ngram_bwd_cells_gmma, P.bytes1, THREADS1, cache1, &g1);
+  if (err == 0) err = tmar::persistent_grid(ngram_bwd_positions_gmma, P.bytes2, THREADS2, cache2, &g2);
+  *grid1 = g1, *grid2 = g2;
+  return err;
+}
+
+}  // namespace ngram_g
+
 // The reduce of both passes' partial sums into the cotangents as the
 // wrapper returns them: dwqkv [C, 3A], dbqkv [3A], dlogit_scale [nh]
 // (dscale · exp(min(ls, ln 100)), zero above the clip), dtable [9, nh]
@@ -1047,10 +1750,6 @@ struct Plan {
   size_t ws, part1, floats;
 };
 
-// the tensor-core body's geometries: bfloat16, C = 32, D = 64, heads 6 x 5 or 4 x 8
-bool is_mma(int C_, int D_, int nh, int hd, int is_bf16) {
-  return is_bf16 && C_ == C && D_ == D && ((nh == 6 && hd == 5) || (nh == 4 && hd == 8));
-}
 
 template <int NH, int HD>
 int occupancy(long* per1, long* per2) {
@@ -1119,7 +1818,15 @@ int plan(int B, int wh, int ww, int C_, int D_, int nh, int hd, int is_bf16, int
   const Slots P(C_, D_, nh, hd);
   const long cells = (long)B * wh * ww;
   long tiles1, tiles2, per1, per2;
-  if (is_mma(C_, D_, nh, hd, is_bf16)) {
+  const ngram_g::Body body = ngram_g::body(C_, D_, nh, hd, is_bf16);
+  if (body == ngram_g::TENSOR_CORE) {
+    long grid1, grid2;
+    const int rc = ngram_g::grids(ngram_g::make_plan(C_, D_, nh, hd), &grid1, &grid2);
+    if (rc != 0) return rc;
+    per1 = (grid1 + sms - 1) / sms, per2 = (grid2 + sms - 1) / sms;
+    tiles1 = (long)B * ((wh + ngram_g::S - 1) / ngram_g::S) * ((ww + ngram_g::TJ - 1) / ngram_g::TJ);
+    tiles2 = (cells + ngram_g::TP - 1) / ngram_g::TP;
+  } else if (body == ngram_g::FLAGSHIP) {
     const int rc = nh == 6 ? occupancy<6, 5>(&per1, &per2) : occupancy<4, 8>(&per1, &per2);
     if (rc != 0) return rc;
     using L1 = CellsMma<6, 5>;  // the tiles are the same at both head counts
@@ -1156,6 +1863,23 @@ int launch_mma(const void* const* p, void* du, float* ws, float* part1, float* p
   ngram_bwd_positions_mma<NH, HD><<<pl.blocks2, L2::THREADS, L2::BYTES, stream>>>(
       (const __nv_bfloat16*)p[0], (const float*)p[2], (const float*)p[3], ws,
       (__nv_bfloat16*)du, part2, B, wh, ww);
+  return (int)cudaGetLastError();
+}
+
+int launch_gmma(const void* const* p, void* du, float* ws, float* part1, float* part2,
+                const Plan& pl, int B, int wh, int ww, int C_, int D_, int nh, int hd,
+                cudaStream_t stream) {
+  if (((uintptr_t)p[0] | (uintptr_t)p[1] | (uintptr_t)du) & 15) return (int)cudaErrorMisalignedAddress;
+  const ngram_g::Plan G = ngram_g::make_plan(C_, D_, nh, hd);
+  ngram_g::ngram_bwd_cells_gmma<<<pl.blocks1, ngram_g::THREADS1, G.bytes1, stream>>>(
+      (const __nv_bfloat16*)p[0], (const __nv_bfloat16*)p[1], (const float*)p[2],
+      (const float*)p[3], (const float*)p[4], (const float*)p[5], (const float*)p[6],
+      (const float*)p[7], (const float*)p[8], ws, part1, B, wh, ww, G);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ngram_g::ngram_bwd_positions_gmma<<<pl.blocks2, ngram_g::THREADS2, G.bytes2, stream>>>(
+      (const __nv_bfloat16*)p[0], (const float*)p[2], (const float*)p[3], ws,
+      (__nv_bfloat16*)du, part2, B, wh, ww, G);
   return (int)cudaGetLastError();
 }
 
@@ -1198,9 +1922,12 @@ int launch(const void* const* p, void* du, void* scratch, void* dparams, int B, 
   float* ws = (float*)scratch;
   float* part1 = ws + pl.ws;
   float* part2 = part1 + pl.part1;
-  if (is_mma(C_, D_, nh, hd, is_bf16))
+  const ngram_g::Body body = ngram_g::body(C_, D_, nh, hd, is_bf16);
+  if (body == ngram_g::FLAGSHIP)
     rc = nh == 6 ? launch_mma<6, 5>(p, du, ws, part1, part2, pl, B, wh, ww, stream)
                  : launch_mma<4, 8>(p, du, ws, part1, part2, pl, B, wh, ww, stream);
+  else if (body == ngram_g::TENSOR_CORE)
+    rc = launch_gmma(p, du, ws, part1, part2, pl, B, wh, ww, C_, D_, nh, hd, stream);
   else if (is_bf16)
     rc = launch_generic<__nv_bfloat16>(p, du, ws, part1, part2, pl, B, wh, ww, C_, D_, nh, hd,
                                        stream);
@@ -1208,7 +1935,7 @@ int launch(const void* const* p, void* du, void* scratch, void* dparams, int B, 
     rc = launch_generic<float>(p, du, ws, part1, part2, pl, B, wh, ww, C_, D_, nh, hd, stream);
   if (rc != 0) return rc;
   const int total = Slots(C_, D_, nh, hd).total();
-  auto reduce = !is_mma(C_, D_, nh, hd, is_bf16) ? ngram_bwd_reduce<0, 0>
+  auto reduce = body != ngram_g::FLAGSHIP ? ngram_bwd_reduce<0, 0>
                 : nh == 6 ? ngram_bwd_reduce<6, 5>
                           : ngram_bwd_reduce<4, 8>;
   reduce<<<(total + 31) / 32, 256, 0, stream>>>(part1, pl.blocks1, part2, pl.blocks2,
@@ -1227,10 +1954,11 @@ extern "C" {
 // [A, C], dbproj [C], dwmerge [2C, D], dbmerge [D] (at bfloat16 dwqkv,
 // dbqkv, dwproj, dbproj and dwmerge are bf16 values).  The weights are the
 // forward's (tmar_ngram_context): float32, contiguous, logit_scale raw.
-// bfloat16 at C = 32, D = 64 and heads 6 x 5 or 4 x 8 runs the tensor-core
-// body (u, g and du 16-byte aligned); every other case the generic body
-// (head_dim <= 32); each is three launches (cells pass, positions pass, one
-// reduce).  `scratch` holds tmar_ngram_context_bwd_workspace's count of
+// The body is ngram_g::body's: bfloat16 at C = 32, D = 64 and heads 6 x 5
+// or 4 x 8 the tensor-core body, bfloat16 elsewhere the tensor-core generic
+// body wherever it has a plan (both with u, g and du 16-byte aligned), every
+// other case the CUDA-core generic body (head_dim <= 32); each is three
+// launches (cells pass, positions pass, one reduce).  `scratch` holds tmar_ngram_context_bwd_workspace's count of
 // floats.  Requires wh >= 2 and ww >= 2.  Returns a cudaError_t code.
 int tmar_ngram_context_bwd(const void* u, const void* g, const void* wqkv, const void* bqkv,
                            const void* logit_scale, const void* table, const void* wproj,
@@ -1258,11 +1986,25 @@ int tmar_ngram_context_bwd_workspace(int B, int wh, int ww, int C_, int D_, int 
   return rc;
 }
 
-// The shared memory, in bytes, of the generic body's cells pass (pass 1)
-// or positions pass (pass 2).
+// The shared memory, in bytes, of the CUDA-core generic body's cells pass
+// (pass 1) or positions pass (pass 2).
 long long tmar_ngram_context_bwd_smem(int C_, int D_, int num_heads, int head_dim, int pass) {
   return (long long)(pass == 1 ? cells_bytes(C_, D_, num_heads, head_dim)
                                : positions_bytes(C_, num_heads, head_dim));
+}
+
+// The shared memory, in bytes, of the tensor-core generic body's cells pass
+// (pass 1) or positions pass (pass 2); -1 where it takes no plan.
+long long tmar_ngram_context_bwd_mma_smem(int C_, int D_, int num_heads, int head_dim, int pass) {
+  ngram_g::Plan G;
+  if (!ngram_g::plan(C_, D_, num_heads, head_dim, &G)) return -1;
+  return (long long)(pass == 1 ? G.bytes1 : G.bytes2);
+}
+
+// The body (ngram_g::Body, envelope.py: NGRAM_BODIES) that runs this
+// geometry at this I/O type.
+int tmar_ngram_context_bwd_body(int C_, int D_, int num_heads, int head_dim, int is_bf16) {
+  return ngram_g::body(C_, D_, num_heads, head_dim, is_bf16);
 }
 
 const char* tmar_ngram_context_bwd_error(int err) {

@@ -17,7 +17,7 @@
 // for any M (the last tile is ragged; rows past the end are zero and add
 // nothing).
 //
-// The I/O type and the widths pick one of three bodies.  The TPU grid is
+// The I/O type and the widths pick one of four bodies.  The TPU grid is
 // sequential and accumulates the eight parameter cotangents in place; CUDA
 // blocks run in no order, so in every body each block keeps its own sums
 // across its tiles, writes them to part[block], and a second kernel adds the
@@ -26,8 +26,15 @@
 // The body templated on (D, H) = (64, 128) runs float32 there: a 64-row
 // tile and both weights in shared memory.
 //
-// The generic body takes D and H at run time (every other width, at float32
-// and bfloat16): tiles of 64 rows (32 or 16 for a
+// The tensor-core generic body (ffn_generic_mma.cuh) takes bfloat16 at every
+// other width it has a plan for (D a multiple of 8 up to 128): the chain of
+// the tensor-core body below on mma.sync with D padded to 16 and the hidden
+// width walked in chunks, dw1 and dw2 kept on chip (cut into hidden slices
+// where they pass 8·UNITS·256 elements a block).  `ffn_g::body` is the rule.
+//
+// The CUDA-core generic body takes D and H at run time (float32 at every
+// other width, and bfloat16 where the tensor-core generic body takes no
+// plan): tiles of 64 rows (32 or 16 for a
 // wide model) in shared memory, weights read from device memory (L2), the
 // block's sums in its slot of part, products on the CUDA cores in float32;
 // at bfloat16 it rounds where ffn_backward_math does.
@@ -67,6 +74,7 @@
 //   this file's, which rounds dw1 and dw2 to bf16 as it writes them.
 
 #include "common.cuh"
+#include "ffn_generic_mma.cuh"
 #include "ffn_mma.cuh"
 
 namespace {
@@ -332,7 +340,7 @@ __global__ void __launch_bounds__(THREADS, 1) residual_ffn_bwd_kernel(
   for (int e = tid; e < HID; e += THREADS) my[P_DBW1 + e] = a_dbw1[e];
 }
 
-// ---- the generic body: any (D, hidden) ------------------------------------
+// ---- the CUDA-core generic body: any (D, hidden) --------------------------
 // A persistent block walks over tiles of R rows (64, or 32 / 16 where a
 // wide model's tile would not fit: tmar_torch/ops/envelope.py,
 // ffn_bwd_bytes); n1, y, o then do, dz then dy (width D) and u then du, hc
@@ -522,25 +530,6 @@ static_assert(MMA_BYTES <= MAX_SMEM, "strips do not fit in shared memory");
 static_assert(VEC * sizeof(float) <= WARP_ELEMS * sizeof(__nv_bfloat16),
               "a warp's vector partials fit in its strips");
 
-// Sums v over the eight row groups g = lane / 4 of a warp (the lanes of
-// equal lane % 4), v being eight blocks of K values: lane g is left with the
-// sums of block g in out.  A reduce-scatter: 4K + 2K + K shuffles.
-template <int K>
-__device__ __forceinline__ void rows_reduce_scatter(const float (&v)[8 * K], float (&out)[K],
-                                                    int g) {
-  float a[4 * K], b[2 * K];
-  const bool h2 = g & 4, h1 = g & 2, h0 = g & 1;
-#pragma unroll
-  for (int i = 0; i < 4 * K; ++i)
-    a[i] = (h2 ? v[4 * K + i] : v[i]) + __shfl_xor_sync(0xffffffffu, h2 ? v[i] : v[4 * K + i], 16);
-#pragma unroll
-  for (int i = 0; i < 2 * K; ++i)
-    b[i] = (h1 ? a[2 * K + i] : a[i]) + __shfl_xor_sync(0xffffffffu, h1 ? a[i] : a[2 * K + i], 8);
-#pragma unroll
-  for (int i = 0; i < K; ++i)
-    out[i] = (h0 ? b[K + i] : b[i]) + __shfl_xor_sync(0xffffffffu, h0 ? b[i] : b[K + i], 4);
-}
-
 // acc += the sums over a strip's 16 rows at this lane's columns 8g + 2t + e,
 // from s[2j + e], the sums of this lane's two rows (g, g + 8) at column
 // 8j + 2t + e
@@ -558,25 +547,6 @@ __device__ __forceinline__ void add_column_sums(const float (&v)[8][4], float (&
   add_column_sums(s, acc, g);
 }
 
-// In place, v <- (v - mean) · rsqrt(var + eps) per row; inv gets the two
-// rows' rsqrt(var + eps)
-__device__ __forceinline__ void normalize_rows(float (&v)[8][4], float eps, float (&inv)[2]) {
-  float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) s0 += v[j][0] + v[j][1], s1 += v[j][2] + v[j][3];
-  const float mu0 = quad_sum(s0) * (1.f / D), mu1 = quad_sum(s1) * (1.f / D);
-  float q0 = 0.f, q1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    v[j][0] -= mu0, v[j][1] -= mu0, v[j][2] -= mu1, v[j][3] -= mu1;
-    q0 += v[j][0] * v[j][0] + v[j][1] * v[j][1];
-    q1 += v[j][2] * v[j][2] + v[j][3] * v[j][3];
-  }
-  inv[0] = rsqrtf(quad_sum(q0) * (1.f / D) + eps);
-  inv[1] = rsqrtf(quad_sum(q1) * (1.f / D) + eps);
-#pragma unroll
-  for (int j = 0; j < 8; ++j) v[j][0] *= inv[0], v[j][1] *= inv[0], v[j][2] *= inv[1], v[j][3] *= inv[1];
-}
 
 // The LayerNorm backward per row, in place: n (the normalised rows) <-
 // inv · (dn - mean(dn) - n · mean(dn · n)), dn = dout · gain; dg and db get
@@ -611,17 +581,6 @@ __device__ __forceinline__ void layer_norm_backward(const float (&dout)[8][4], f
     }
 }
 
-// The A fragment ha of a hidden chunk (columns [16c, 16c + 16), rows 0-15)
-// into a [16][LDH] strip
-__device__ __forceinline__ void store_a(__nv_bfloat16* strip, int c, const uint32_t (&a)[4],
-                                        int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  __nv_bfloat16* p = strip + g * LDH + 16 * c + 2 * t;
-  sts32(p, a[0]);
-  sts32(p + 8 * LDH, a[1]);
-  sts32(p + 8, a[2]);
-  sts32(p + 8 * LDH + 8, a[3]);
-}
 
 __global__ void __launch_bounds__(MMA_THREADS, 1) residual_ffn_bwd_mma(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ ao,
@@ -692,7 +651,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) residual_ffn_bwd_mma(
     // 1. y = x + (n1·g1 + b1), n1 = LN1's normalised attn_out;  yc -> the x strip
     float y[8][4], inv1[2];
     ffn::read_strip(s_ao, y, lane);
-    normalize_rows(y, eps, inv1);
+    ffn_g::normalize_rows(y, eps, inv1, D / 8);
     {
       float xv[8][4];
       ffn::read_strip(s_x, xv, lane);
@@ -709,11 +668,13 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) residual_ffn_bwd_mma(
     // 2. pass 1: o = hc · w2 + bw2, hc = bf16(GELU(yc · w1 + bw1)) -> the hc strip
     float o[8][4];
     ffn::fc(y, o, s_w1, s_w2, s_bw1, s_bw2, lane,
-            [&](int c, const uint32_t (&ha)[4]) { store_a(s_hc, c, ha, lane); });
+            [&](int c, const uint32_t (&ha)[4]) {
+              ffn_g::store_a(s_hc, LDH, 16 * c, ha, lane);
+            });
 
     // 3. LN2 backward: o -> n2 -> do;  dy = dz;  doc -> the dz strip
     float inv2[2], dy[8][4];
-    normalize_rows(o, eps, inv2);
+    ffn_g::normalize_rows(o, eps, inv2, D / 8);
     ffn::read_strip(s_dz, dy, lane);
     layer_norm_backward(dy, o, s_g2, inv2, pv[DG2], pv[DB2], lane);
     add_column_sums(o, pv[DBW2], g);
@@ -759,7 +720,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) residual_ffn_bwd_mma(
         }
         uint32_t dua[4];
         to_a(dua, dh[0], dh[1]);
-        store_a(s_du, hc, dua, lane);
+        ffn_g::store_a(s_du, LDH, 16 * hc, dua, lane);
 #pragma unroll
         for (int j = 0; j < 8; j += 2) mma_pair_t(dy[j], dy[j + 1], dua, s_w1, ffn::LW1, 8 * j, 16 * hc, lane);
       }
@@ -770,7 +731,7 @@ __global__ void __launch_bounds__(MMA_THREADS, 1) residual_ffn_bwd_mma(
     {
       float n1[8][4];
       ffn::read_strip(s_ao, n1, lane);
-      normalize_rows(n1, eps, inv1);
+      ffn_g::normalize_rows(n1, eps, inv1, D / 8);
       layer_norm_backward(dy, n1, s_g1, inv1, pv[DG1], pv[DB1], lane);
       __syncwarp();  // every lane has read attn_out
       ffn::write_strip(s_ao, dy, lane);
@@ -914,11 +875,13 @@ extern "C" {
 // d attn_out of the same shape and type, and dparams, float32, the
 // concatenation of dg1 [D], db1 [D], dw1 [D, H], dbw1 [H], dw2 [H, D],
 // dbw2 [D], dg2 [D], db2 [D] (at bfloat16 dw1 and dw2 are bf16 values).
-// bfloat16 at (D, H) = (64, 128) runs the tensor-core body (the five
-// activations 16-byte aligned); every other case the generic body, in tiles
-// of R rows (R <= 64).  `part` is scratch of `blocks` times dparams' size.
-// The parameters are the forward's (b2 is not needed).  Returns a
-// cudaError_t code (0 on a clean launch).
+// The body is ffn_g::body's: at (D, H) = (64, 128) the tensor-core body
+// (bfloat16; the five activations 16-byte aligned) or the templated one;
+// bfloat16 wherever it has a plan the tensor-core generic body; else the
+// CUDA-core generic body, in tiles of R rows (R <= 64) on `blocks` blocks.
+// `part` is scratch of tmar_residual_ffn_bwd_workspace's floats.  The
+// parameters are the forward's (b2 is not needed).  Returns a cudaError_t
+// code (0 on a clean launch).
 int tmar_residual_ffn_bwd(const void* x, const void* ao, const void* dz, const void* g1,
                           const void* b1, const void* w1, const void* bw1, const void* w2,
                           const void* bw2, const void* g2, void* dx, void* dao, void* part,
@@ -928,11 +891,18 @@ int tmar_residual_ffn_bwd(const void* x, const void* ao, const void* dz, const v
   if (M < 1 || D < 1 || H < 1 || R < 1 || R > 64 || blocks < 1) return (int)cudaErrorInvalidValue;
   const void* p[10] = {x, ao, dz, g1, b1, w1, bw1, w2, bw2, g2};
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16 && D == 64 && H == 128)
-    return launch_mma(p, w1_k, w1_n, w2_k, w2_n, dx, dao, part, dparams, (long)M, eps, blocks, s);
-  if (!is_bf16 && D == 64 && H == 128)
-    return launch<float>(p, w1_k, w1_n, w2_k, w2_n, dx, dao, part, dparams, (long)M, eps, blocks,
-                         s);
+  switch (ffn_g::body(D, H, is_bf16)) {
+    case ffn_g::FLAGSHIP:
+      return launch_mma(p, w1_k, w1_n, w2_k, w2_n, dx, dao, part, dparams, (long)M, eps, blocks, s);
+    case ffn_g::TEMPLATED:
+      return launch<float>(p, w1_k, w1_n, w2_k, w2_n, dx, dao, part, dparams, (long)M, eps,
+                           blocks, s);
+    case ffn_g::TENSOR_CORE:
+      return ffn_g::launch(p, w1_k, w1_n, w2_k, w2_n, dx, dao, part, dparams, (long)M, D, H, eps,
+                           s);
+    default:
+      break;
+  }
   if (is_bf16)
     return launch_rt<__nv_bfloat16>(p, w1_k, w1_n, w2_k, w2_n, dx, dao, part, dparams, (long)M,
                                     D, H, R, eps, blocks, s);
@@ -940,9 +910,40 @@ int tmar_residual_ffn_bwd(const void* x, const void* ao, const void* dz, const v
                           eps, blocks, s);
 }
 
-// The shared memory, in bytes, of the generic body's launch at (D, H) in
-// tiles of R rows.
+// The floats of scratch (`part`) tmar_residual_ffn_bwd needs for this call
+// on `blocks` blocks, into *floats: the tensor-core generic body's own grid
+// and slots, every other body's `blocks` slots of dparams' size.  Returns a
+// cudaError_t code.
+int tmar_residual_ffn_bwd_workspace(long long M, int D, int H, int blocks, int is_bf16,
+                                    long long* floats) {
+  if (M < 1 || D < 1 || H < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+  if (ffn_g::body(D, H, is_bf16) == ffn_g::TENSOR_CORE) {
+    ffn_g::Plan P;
+    ffn_g::plan(D, H, &P);
+    ffn_g::Launch L;
+    const int err = ffn_g::grid_for(P, (long)M, &L);
+    if (err != 0) return err;
+    *floats = (long long)L.floats;
+    return 0;
+  }
+  *floats = (long long)blocks * (5LL * D + 2LL * D * H + H);
+  return 0;
+}
+
+// The body (ffn_g::Body, envelope.py: FFN_BODIES) that runs (D, H) at this
+// I/O type.
+int tmar_residual_ffn_bwd_body(int D, int H, int is_bf16) { return ffn_g::body(D, H, is_bf16); }
+
+// The shared memory, in bytes, of the CUDA-core generic body's launch at
+// (D, H) in tiles of R rows.
 long long tmar_residual_ffn_bwd_smem(int D, int H, int R) { return (long long)rt_bytes(D, H, R); }
+
+// The shared memory, in bytes, of the tensor-core generic body's plan at
+// (D, H); -1 where it takes none.
+long long tmar_residual_ffn_bwd_mma_smem(int D, int H) {
+  ffn_g::Plan P;
+  return ffn_g::plan(D, H, &P) ? (long long)P.bytes : -1;
+}
 
 const char* tmar_residual_ffn_bwd_error(int err) {
   return cudaGetErrorString((cudaError_t)err);

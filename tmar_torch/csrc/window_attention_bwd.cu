@@ -1863,7 +1863,7 @@ int gmma_layout_t(const attn_mma::Plan& plan, int nwin, GmmaLayout* L) {
   static int cache[64][3] = {};
   const attn_mma::BwdPlan& P = plan.b;
   int grid = 0;
-  const int err = attn_mma::persistent_grid(window_attention_bwd_gmma<DM, HPD>, P.bytes,
+  const int err = tmar::persistent_grid(window_attention_bwd_gmma<DM, HPD>, P.bytes,
                                             P.threads, cache, &grid);
   if (err) return err;
   int dev = 0, sms = 0;

@@ -814,7 +814,7 @@ int launch_gmma_t(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, 
   auto kern = window_attention_fwd_gmma<DM, HPD>;
   static int cache[64][3] = {};
   int grid = 0;
-  const int err = attn_mma::persistent_grid(kern, P.bytes, P.threads, cache, &grid);
+  const int err = tmar::persistent_grid(kern, P.bytes, P.threads, cache, &grid);
   if (err) return err;
   const int tiles = (nwin + P.G - 1) / P.G;
   kern<<<tiles < grid ? tiles : grid, P.threads, P.bytes, stream>>>(

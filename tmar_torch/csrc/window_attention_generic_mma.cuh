@@ -200,31 +200,6 @@ inline Body body(int N, int D, int nh, int hd, int is_bf16) {
   return is_bf16 && plan(N, D, nh, hd, &P) ? TENSOR_CORE : CUDA_CORE;
 }
 
-// The persistent grid of kernel `kern` at this shared memory and block
-// size: the SMs times the blocks one holds, kept per device for the last
-// (bytes, threads) asked (each kernel instantiation has its own `cache`).
-template <typename K>
-inline int persistent_grid(K kern, size_t bytes, int threads, int (&cache)[64][3], int* grid) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 0 || dev >= 64) return (int)cudaErrorInvalidDevice;
-  int* c = cache[dev];
-  if (c[0] != (int)bytes || c[1] != threads) {
-    int sms = 0, per_sm = 0;
-    if ((err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                    (int)bytes)) != cudaSuccess ||
-        (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, bytes)) !=
-            cudaSuccess)
-      return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    c[0] = (int)bytes, c[1] = threads, c[2] = sms * per_sm;
-  }
-  *grid = c[2];
-  return 0;
-}
-
 // The barrier of one window's warps (named barrier 1 + group).
 __device__ __forceinline__ void group_sync(int grp, int WW) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(grp + 1), "r"(32 * WW) : "memory");

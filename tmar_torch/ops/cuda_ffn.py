@@ -20,7 +20,10 @@ The I/O dtype and the widths pick the body.  At the full-width NGswin's
 (D, hidden) = (64, 128) (``KERNEL_DIMS``) bfloat16 runs the tensor-core
 bodies and float32 bodies templated on the widths; every other width the
 generic bodies, which take D and hidden at run time, within
-``envelope.ffn_envelope``.  At bfloat16 both round to bf16 where
+``envelope.ffn_envelope``: K6 at bfloat16 its tensor-core generic body
+wherever that has a plan, and the CUDA-core one elsewhere (one rule,
+``envelope.ffn_body``, which the CUDA source applies itself).  At bfloat16
+all round to bf16 where
 ``_ffn_kernel`` and ``_ffn_bwd_kernel`` do, with the weights cast to the
 activation dtype as ``tmar/nn/blocks.py`` casts them: w1 and w2, y before
 fc1, the GELU output before fc2 and the output; in the backward also the
@@ -43,7 +46,7 @@ from tmar_torch.ops.ffn import erf_as_kernels, ffn_math, gelu_as_kernels, layer_
 # their own: on the tensor cores at bfloat16, templated on the widths at
 # float32; every other width inside ``envelope.ffn_envelope`` runs the
 # generic bodies
-KERNEL_DIMS = (64, 128)
+KERNEL_DIMS = envelope.FFN_KERNEL_DIMS
 
 
 def _rounding(dtype):
@@ -69,9 +72,14 @@ def ffn_kernel_math(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps=1e-5):
 
 
 def _ln_stats(v, eps):
-    mu = v.mean(-1, keepdim=True)
-    rstd = torch.rsqrt((v - mu).square().mean(-1, keepdim=True) + eps)
-    return (v - mu) * rstd, rstd
+    """(normalised rows, 1 / std) of v, the statistics taken in float64 and
+    the results returned in v's dtype: float32 statistics differ from the JAX
+    kernel's by enough to flip some bf16 roundings of y downstream, which at
+    the envelope's top (D 128, hidden 512) shows in dg1 and db1's means."""
+    w = v.double()
+    mu = w.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((w - mu).square().mean(-1, keepdim=True) + eps)
+    return ((w - mu) * rstd).to(v.dtype), rstd.to(v.dtype)
 
 
 def _ln_backward(dout, n, rstd, gain):
@@ -279,7 +287,7 @@ def _launch_backward(operands, dz, geo):
     dz = dz.to(x.dtype).contiguous()
     dx, dao = torch.empty_like(x), torch.empty_like(x)
     size = sum(_param_sizes(geo.D, geo.H))
-    part = torch.empty((geo.bwd_blocks, size), device=x.device, dtype=torch.float32)
+    part = torch.empty(_workspace(x.shape[0], geo), device=x.device, dtype=torch.float32)
     dparams = torch.empty(size, device=x.device, dtype=torch.float32)
     p = [t.data_ptr() for t in operands[:9]]
     kernels.launch(
@@ -290,6 +298,27 @@ def _launch_backward(operands, dz, geo):
     )
     fused_residual_ffn.backward_launches += 1
     return dx, dao, dparams
+
+
+_workspace_floats = {}  # K6's arguments -> floats of scratch
+
+
+def _workspace(M, geo):
+    """The floats of scratch K6 needs for M rows at this geometry (the
+    tensor-core generic body's slots, its hidden slices' shares of dy and
+    its finishing blocks' sums; every other body's per-block slots), asked
+    of the library once per geometry."""
+    key = (M, geo.D, geo.H, geo.bwd_blocks, geo.is_bf16)
+    n = _workspace_floats.get(key)
+    if n is None:
+        query = kernels.host_function(
+            "residual_ffn_bwd", "tmar_residual_ffn_bwd_workspace",
+            [ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_longlong)],
+            ctypes.c_int)
+        out = ctypes.c_longlong(0)
+        kernels.check("residual_ffn_bwd", query(*key, ctypes.byref(out)))
+        n = _workspace_floats[key] = out.value
+    return n
 
 
 _P = ctypes.c_void_p

@@ -14,7 +14,10 @@ float32 parameters; u, the output and du are float32 or bfloat16, the
 parameter cotangents float32.  bfloat16 at the full-width NGswin's widths
 (``MMA_GEOMETRIES``) runs the tensor-core bodies; every other case the
 generic bodies, which take C, D, the heads and head_dim at run time within
-``envelope.ngram_envelope``.  At bfloat16 both round to bf16 where
+``envelope.ngram_envelope``: K7 at bfloat16 its tensor-core generic body
+wherever that has a plan, and the CUDA-core one elsewhere (one rule,
+``envelope.ngram_body``, which the CUDA source applies itself).  At
+bfloat16 all round to bf16 where
 ``_ngram_stripe_kernel`` and ``_ngram_bwd_stripe_kernel`` do, with the
 parameters rounded as ``tmar/nn/ngram.py`` casts them, and return dwqkv,
 dbqkv, dwproj, dbproj and dwmerge as bf16 values; at float32 they compute
@@ -56,7 +59,7 @@ from tmar_torch.ops.ngram import (
 # full-width NGswin's 6- and 4-head stages on the D/2 = 32-channel unigram
 # grid; every other geometry inside ``envelope.ngram_envelope`` runs the
 # generic bodies
-MMA_GEOMETRIES = {(32, 64, 6, 5), (32, 64, 4, 8)}
+MMA_GEOMETRIES = envelope.NGRAM_FLAGSHIP
 
 
 def ngram_context_math(

@@ -101,6 +101,74 @@ def ffn_envelope(D: int, H: int, device: Optional[torch.device] = None):
     _fits(kernel, ffn_bwd_bytes(D, H, 16), limit, f"the backward at D={D}, hidden={H}")
 
 
+# the bodies of K5 and K6, in the order of the CUDA sources' codes (ffn_g::Body
+# in csrc/ffn_generic_mma.cuh); K5 runs its own two and the CUDA-core one
+FFN_BODIES = ("flagship", "templated", "tensor-core generic", "CUDA-core generic")
+FFN_KERNEL_DIMS = (64, 128)  # the full-width NGswin's (D, hidden)
+FFN_MMA_WARPS = 8     # warps of K6's tensor-core generic block
+FFN_MMA_CHUNK = 64    # hidden columns of one of its streamed stages
+FFN_MMA_MAX_D = 128   # the widest D its fragment arrays take
+
+
+def _ffn_units(DP: int) -> int:
+    """16x16 tiles of each of dw1 and dw2 a warp of K6's tensor-core
+    generic body keeps in registers (its fragment width DM 32: 2, else 4)."""
+    return 2 if DP <= 32 else 4
+
+
+def ffn_mma_bytes(D: int, H: int, HS: int, resident: bool) -> int:
+    """K6's tensor-core generic body (``csrc/ffn_generic_mma.cuh``:
+    ``make_plan``) with hidden slices of HS columns: float32 g1, b1, g2, bw2
+    [DP] and bw1 [HP]; the bf16 weights, w1 as [h][DP + 8] and w2 as
+    [DP][h + 8], all hidden columns (``resident``) or 64 of them; per warp
+    its x, attn_out and dz strips [16][DP + 8], its hc and duc strips
+    [16][HS + 8], and its float32 vector partials [5·DP + HS]."""
+    DP, HP = _up(D, 16), _up(H, 16)
+    cols = HP if resident else FFN_MMA_CHUNK
+    floats = _up(4 * DP + HP, 4)
+    welems = cols * (DP + 8) + DP * (cols + 8)
+    strip = 3 * 16 * (DP + 8) + 2 * 16 * (HS + 8)
+    return 4 * floats + 2 * (welems + FFN_MMA_WARPS * strip) + 4 * FFN_MMA_WARPS * (5 * DP + HS)
+
+
+def ffn_mma_plan(D: int, H: int) -> Optional[Tuple[bool, int, int, int]]:
+    """-> (resident, HS, slices, bytes) of K6's tensor-core generic body's
+    launch (``csrc/ffn_generic_mma.cuh``: ``plan``), or None where it takes
+    none: D not a multiple of 8 (16-byte rows) or past 128, or no layout
+    that fits a block.  Resident weights where they fit, else streamed; at
+    that the widest hidden slice HS that fits, from min(HP, 8 warps x UNITS
+    x 256 / DP) down by 16 (dw1 and dw2 of a slice stay in the warps'
+    registers); slices = ceil(HP / HS)."""
+    if not (8 <= D <= FFN_MMA_MAX_D and D % 8 == 0 and H >= 1):
+        return None
+    DP, HP = _up(D, 16), _up(H, 16)
+    hs0 = min(HP, FFN_MMA_WARPS * _ffn_units(DP) * 256 // DP // 16 * 16)
+    for resident in (True, False):
+        for hs in range(hs0, 0, -16):
+            nbytes = ffn_mma_bytes(D, H, hs, resident)
+            if nbytes <= H100_SMEM_PER_BLOCK:
+                return resident, hs, -(-HP // hs), nbytes
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def ffn_body(D: int, H: int, dtype: torch.dtype) -> str:
+    """The body of K6 that runs width D, hidden H at I/O type ``dtype`` (one
+    of ``FFN_BODIES``), by geometry and dtype alone, as the CUDA source's
+    ``ffn_g::body`` picks it: the full-width NGswin's (64, 128) its own
+    bodies (bfloat16 the tensor-core one, float32 the one templated on the
+    widths); bfloat16 the tensor-core generic body wherever it has a plan
+    (``ffn_mma_plan``); the rest (float32, the exactness path, and widths
+    that body does not take) the CUDA-core generic body.  K5 follows the same
+    rule but for the tensor-core generic body (ROADMAP queue 2)."""
+    bf16 = dtype == torch.bfloat16
+    if (D, H) == FFN_KERNEL_DIMS:
+        return FFN_BODIES[0] if bf16 else FFN_BODIES[1]
+    if bf16 and ffn_mma_plan(D, H) is not None:
+        return FFN_BODIES[2]
+    return FFN_BODIES[3]
+
+
 # ---- K3 / K4: window attention ---------------------------------------------
 
 def attention_fwd_bytes(D: int, nh: int, hd: int, hg: int) -> int:
@@ -315,6 +383,71 @@ def ngram_envelope(C: int, D: int, nh: int, hd: int, device: Optional[torch.devi
     return fwd, p1, p2
 
 
+# the bodies of K1 and K7, in the order of the CUDA sources' codes (ngram_g::Body
+# in csrc/ngram_context_bwd.cu); K1 runs its own two and the CUDA-core one
+NGRAM_BODIES = ("flagship", "tensor-core generic", "CUDA-core generic")
+NGRAM_MMA_MAX_W = 128  # the widest C and D of K7's tensor-core generic body
+# (C, D, heads, head_dim) of the full-width NGswin, whose bf16 runs the
+# flagship bodies
+NGRAM_FLAGSHIP = {(32, 64, 6, 5), (32, 64, 4, 8)}
+
+
+def ngram_mma_bytes(C: int, D: int, nh: int, hd: int) -> Tuple[int, int]:
+    """(pass 1, pass 2) shared memory of K7's tensor-core generic body
+    (``csrc/ngram_context_bwd.cu``: ``ngram_g::make_plan``), C, D and A =
+    nh·hd padded to 16, each region rounded up to 16 bytes.  Pass 1: the
+    bf16 weights (wqkv [CP][3AP + 8], wproj [AP][CP + 8], wmerge
+    [2CP][DP + 8]), float32 bqkv, bproj, the scales and the bias table; the
+    tile's bf16 u [32][CP + 8] and q_n | k_n | v [32][3AP + 8], float32 raw
+    q | k [32][2AP + 4], bf16 g [16][DP + 8], float32 dctx [8][2CP], bf16
+    dctxc [16][CP + 8], float32 dacc [16][AP], bf16 mean [16][AP + 8] and
+    ctx [16][2CP + 8], float32 ds [16][16·nh] and dscale shares [16][nh];
+    the block's float32 sums of pass 1.  Pass 2: bf16 wqkv, float32 bqkv; a
+    tile's bf16 u [16][CP + 8], float32 raw q | k [16][2AP + 4] and the
+    slots' sums [16][3A + 4], bf16 dc [16][3AP + 8]; the block's float32
+    dwqkv and dbqkv; the slots' offsets [16][18]."""
+    A = nh * hd
+    CP, DP, AP = _up(C, 16), _up(D, 16), _up(A, 16)
+    LU, LQKV, LM, LA, LCX, LQK = CP + 8, 3 * AP + 8, DP + 8, AP + 8, 2 * CP + 8, 2 * AP + 4
+    p1size = 17 * nh + A * C + C + 2 * C * D + D
+    pass1 = [2 * CP * LQKV, 2 * AP * LU, 4 * CP * LM, 12 * AP, 4 * CP, 4 * nh, 64 * nh,
+             2 * 32 * LU, 2 * 32 * LQKV, 4 * 32 * LQK, 2 * 16 * LM, 4 * 8 * 2 * CP, 2 * 16 * LU,
+             4 * 16 * AP, 2 * 16 * LA, 2 * 16 * LCX, 4 * 16 * 16 * nh, 4 * 16 * nh, 4 * p1size]
+    pass2 = [2 * CP * LQKV, 12 * AP, 2 * 16 * LU, 4 * 16 * LQK, 4 * 16 * (3 * A + 4),
+             2 * 16 * LQKV, 4 * (C * 3 * A + 3 * A), 4 * 16 * 18]
+    return sum(_up(b, 16) for b in pass1), sum(_up(b, 16) for b in pass2)
+
+
+def ngram_mma_plan(C: int, D: int, nh: int, hd: int) -> Optional[Tuple[int, int]]:
+    """-> ``ngram_mma_bytes`` where K7's tensor-core generic body takes the
+    geometry (``ngram_g::plan``), None where it takes none: C or D not a
+    multiple of 8 (16-byte rows for cp.async) or past 128, head_dim past 32,
+    a pass that fits no block."""
+    if not (8 <= C <= NGRAM_MMA_MAX_W and C % 8 == 0 and 8 <= D <= NGRAM_MMA_MAX_W and D % 8 == 0
+            and nh >= 1 and 1 <= hd <= HEAD_DIM_MAX):
+        return None
+    nbytes = ngram_mma_bytes(C, D, nh, hd)
+    return nbytes if max(nbytes) <= H100_SMEM_PER_BLOCK else None
+
+
+@functools.lru_cache(maxsize=None)
+def ngram_body(C: int, D: int, nh: int, hd: int, dtype: torch.dtype) -> str:
+    """The body of K7 that runs a [.., C] unigram grid with a [2C, D] merge
+    and nh heads of hd at I/O type ``dtype`` (one of ``NGRAM_BODIES``), by
+    geometry and dtype alone, as the CUDA source's ``ngram_g::body`` picks
+    it: bfloat16 at the full-width NGswin's geometries the flagship bodies;
+    bfloat16 the tensor-core generic body wherever it has a plan
+    (``ngram_mma_plan``); the rest (float32, the exactness path, and what
+    that body does not take) the CUDA-core generic body.  K1 follows the
+    same rule but for the tensor-core generic body (ROADMAP queue 2)."""
+    bf16 = dtype == torch.bfloat16
+    if bf16 and (C, D, nh, hd) in NGRAM_FLAGSHIP:
+        return NGRAM_BODIES[0]
+    if bf16 and ngram_mma_plan(C, D, nh, hd) is not None:
+        return NGRAM_BODIES[1]
+    return NGRAM_BODIES[2]
+
+
 # ---- K2 / K8: the whole NSTB -----------------------------------------------
 
 def nstb_bytes(N: int, D: int, nh: int, hd: int, H: int) -> int:
@@ -420,21 +553,25 @@ def nstb_body(N: int, D: int, nh: int, hd: int, H: int, dtype: torch.dtype) -> s
 # ---- the CUDA sources' own counts ----------------------------------------------
 
 # query -> (kernel library, C function, its int arguments): the arguments of
-# ffn_fwd_bytes, ffn_bwd_bytes, attention_fwd_bytes, attention_bwd_bytes,
+# ffn_fwd_bytes, ffn_bwd_bytes, (D, hidden) for K6's tensor-core generic body
+# (ffn_mma_plan's bytes, -1 without a plan), attention_fwd_bytes, attention_bwd_bytes,
 # (N, D, heads, head_dim) for K3's tensor-core generic body and the same
 # with the launch (1 per window, 2 the token sums) last for K4's (the
-# entries of attention_mma_bytes, -1 without a plan), ngram_fwd_bytes, ngram_bwd_bytes with the pass (1 or 2) last, and for each
+# entries of attention_mma_bytes, -1 without a plan), ngram_fwd_bytes, ngram_bwd_bytes with the pass (1 or 2) last, the same
+# for K7's tensor-core generic body (ngram_mma_bytes, -1 without a plan), and for each
 # of K2 and K8 (N, D, heads, head_dim, hidden) with the generic body's code
 # last (1: nstb_mma_bytes of its plan, -1 without one; 2: nstb_bytes)
 SMEM_QUERIES = {
     "ffn_fwd": ("residual_ffn_fwd", "tmar_residual_ffn_fwd_smem", 2),
     "ffn_bwd": ("residual_ffn_bwd", "tmar_residual_ffn_bwd_smem", 3),
+    "ffn_bwd_mma": ("residual_ffn_bwd", "tmar_residual_ffn_bwd_mma_smem", 2),
     "attention_fwd": ("window_attention_fwd", "tmar_window_attention_fwd_smem", 4),
     "attention_bwd": ("window_attention_bwd", "tmar_window_attention_bwd_smem", 4),
     "attention_fwd_mma": ("window_attention_fwd", "tmar_window_attention_fwd_mma_smem", 4),
     "attention_bwd_mma": ("window_attention_bwd", "tmar_window_attention_bwd_mma_smem", 5),
     "ngram_fwd": ("ngram_context", "tmar_ngram_context_smem", 3),
     "ngram_bwd": ("ngram_context_bwd", "tmar_ngram_context_bwd_smem", 5),
+    "ngram_bwd_mma": ("ngram_context_bwd", "tmar_ngram_context_bwd_mma_smem", 5),
     "nstb_map": ("nstb_map", "tmar_nstb_map_smem", 6),
     "nstb_tokens": ("nstb_tokens", "tmar_nstb_tokens_smem", 6),
 }
@@ -470,3 +607,25 @@ def built_attention_body(lib: str, N: int, D: int, nh: int, hd: int, dtype: torc
 
     fn = kernels.host_function(lib, f"tmar_{lib}_body", [ctypes.c_int] * 5, ctypes.c_int)
     return ATTENTION_BODIES[int(fn(N, D, nh, hd, int(dtype == torch.bfloat16)))]
+
+
+def built_ffn_body(D: int, H: int, dtype: torch.dtype) -> str:
+    """The body that the built CUDA source of K6 picks (its
+    ``tmar_residual_ffn_bwd_body`` query), as ``ffn_body`` names it; needs a
+    CUDA host."""
+    from tmar_torch import kernels
+
+    fn = kernels.host_function("residual_ffn_bwd", "tmar_residual_ffn_bwd_body",
+                               [ctypes.c_int] * 3, ctypes.c_int)
+    return FFN_BODIES[int(fn(D, H, int(dtype == torch.bfloat16)))]
+
+
+def built_ngram_body(C: int, D: int, nh: int, hd: int, dtype: torch.dtype) -> str:
+    """The body that the built CUDA source of K7 picks (its
+    ``tmar_ngram_context_bwd_body`` query), as ``ngram_body`` names it; needs
+    a CUDA host."""
+    from tmar_torch import kernels
+
+    fn = kernels.host_function("ngram_context_bwd", "tmar_ngram_context_bwd_body",
+                               [ctypes.c_int] * 5, ctypes.c_int)
+    return NGRAM_BODIES[int(fn(C, D, nh, hd, int(dtype == torch.bfloat16)))]
