@@ -19,11 +19,12 @@ lines tagged ``[ab TREE]``:
 * the trainer's ``full`` step at 8x128² bf16, by that tree's
   ``chip_smoke.train_full`` (its ``[time]`` and ``[profile]`` lines).
 
-With ``--kernels`` it prints, in place of K2 and the step, K6 and K7 at
-bf16 and f32 at each geometry of that tree's ``chip_smoke.WIDTH_FFN_CASES``
-and ``WIDTH_NGRAM_CASES`` (their generic bodies; the demo stage 1 first,
-the ragged / odd cases, the envelope's top), the launch alone, the device
-time alone by torch.profiler (K7's summed over its three launches) and the
+With ``--kernels`` it prints, in place of K2 and the step, K5 and K6, K1
+and K7 at bf16 and f32 at each geometry of that tree's
+``chip_smoke.WIDTH_FFN_CASES`` and ``WIDTH_NGRAM_CASES`` (their generic
+bodies; the demo stage 1 first, the ragged / odd cases, the envelope's
+top), the launch alone, the device time alone by torch.profiler (K7's
+summed over its three launches, K6's over its kernel and reduce) and the
 rounding-matched plain version's time; then K3 and K4 at
 bf16 at each geometry of that tree's ``chip_smoke.WIDTH_ATTN_CASES`` with
 windows of 32 to 64 tokens (their generic bodies; the demo 8x64² step's
@@ -145,21 +146,23 @@ def generic_attention_kernels(cs, tag, card):
     torch.cuda.empty_cache()
 
 
-# K6's and K7's device kernels in every body (the main kernels and their
-# reduces): the names torch.profiler gives them hold one of these
+# K5's, K6's, K1's and K7's device kernels in every body (the main kernels
+# and their reduces): the names torch.profiler gives them hold one of these
+K5_KERNELS = ("residual_ffn_fwd",)
 K6_KERNELS = ("ffn_bwd", "reduce_partials")
+K1_KERNELS = ("ngram_context_",)
 K7_KERNELS = ("ngram_bwd",)
 
 
 def generic_ffn_ngram_kernels(cs, tag, card):
-    """K6 and K7 at bf16 and f32 at each geometry of the tree's
+    """K5, K6, K1 and K7 at bf16 and f32 at each geometry of the tree's
     ``chip_smoke.WIDTH_FFN_CASES`` and ``WIDTH_NGRAM_CASES`` (the demo stage
     1, the ragged / odd cases, the envelope's top), where their generic
     bodies run: the launch alone by CUDA events, the device time alone by
     torch.profiler (summed over each call's kernels: K7's three, K6's main
-    kernel and reduce) and the rounding-matched plain version's time, on
-    operands laid out once by that tree's wrappers from one seed; the
-    counters are put back."""
+    kernel and reduce, K5's and K1's one) and the rounding-matched plain
+    version's time, on operands laid out once by that tree's wrappers from
+    one seed; the counters are put back."""
     import torch
 
     from tmar_torch.ops import cuda_ffn as cf
@@ -180,6 +183,13 @@ def generic_ffn_ngram_kernels(cs, tag, card):
         for dtype in (torch.bfloat16, torch.float32):
             xx, aa, gg = x.to(dtype), ao.to(dtype), g.to(dtype)
             ops, geo = cf._kernel_operands(xx, aa, *params, 1e-5)
+            dn = str(dtype).split('.')[1]
+            k5 = cs.cuda_ms(lambda: cf._launch(ops, geo), iters=20)
+            dev5 = sum(cs.device_ms(lambda: cf._launch(ops, geo), part, calls=10)[0]
+                       for part in K5_KERNELS)
+            plain5 = cs.cuda_ms(lambda: cf.ffn_kernel_math(xx, aa, *params), iters=10)
+            print(f"{tag} K5 {label} x [{M}, {D}] hidden {H} {dn}: launch alone {k5:.4f} ms, "
+                  f"device time alone {dev5:.4f} ms, plain {plain5:.4f} ms on {card}", flush=True)
             k6 = cs.cuda_ms(lambda: cf._launch_backward(ops, gg, geo), iters=20)
             dev = sum(cs.device_ms(lambda: cf._launch_backward(ops, gg, geo), part, calls=10)[0]
                       for part in K6_KERNELS)
@@ -201,6 +211,14 @@ def generic_ffn_ngram_kernels(cs, tag, card):
         for dtype in (torch.bfloat16, torch.float32):
             uu, gg = u.to(dtype), g.to(dtype)
             ops, out, ints = cn._kernel_operands(uu, *params, nh)
+            dn = str(dtype).split('.')[1]
+            k1 = cs.cuda_ms(lambda: cn._launch(ops, out, ints), iters=50)
+            dev1, n1 = cs.device_ms(lambda: cn._launch(ops, out, ints), K1_KERNELS[0], calls=10)
+            plain1 = cs.cuda_ms(lambda: cn.ngram_context_kernel_math(uu, *params, num_heads=nh),
+                                iters=5)
+            print(f"{tag} K1 {label} u [{B}, {wh}, {ww}, {C}] D {D} {nh} x {hd} heads {dn}: "
+                  f"launch alone {k1:.4f} ms, device time alone {dev1:.4f} ms ({n1} kernels), "
+                  f"plain {plain1:.4f} ms on {card}", flush=True)
             k7 = cs.cuda_ms(lambda: cn._launch_backward(ops[:-1], gg, ints), iters=50)
             dev, n7 = cs.device_ms(lambda: cn._launch_backward(ops[:-1], gg, ints), K7_KERNELS[0],
                                    calls=10)

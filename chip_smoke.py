@@ -707,13 +707,20 @@ STEP_KERNELS = {"K1": ("ngram_context_",), "K7": ("ngram_bwd",),
                 "K4": ("window_attention_bwd", "attention_param_sums", "reduce_backward_partials"),
                 "K5": ("residual_ffn_fwd",),
                 "K6": ("ffn_bwd", "reduce_partials_rounded", "reduce_partials_bf16")}
+# device ms a demo `full` step of the kernels whose generic bodies ran on the
+# CUDA cores before they moved to the tensor cores (PERF.md §5, the last
+# profile of the CUDA-core bodies, NVIDIA H100 80GB HBM3, 700 W), printed
+# beside the step's own
+STEP_KERNELS_BEFORE = {"K5": 0.529, "K1": 0.321}
 
 
-def profile_request(request, card, label="full-slice 8x512² bf16 request", kernels=None):
+def profile_request(request, card, label="full-slice 8x512² bf16 request", kernels=None,
+                    before=None):
     """Where one request's (or step's) time goes: device time by kernel from
     torch.profiler, and the device's idle share of its wall time; with
     ``kernels`` ({name: name parts}) also each named kernel's device time
-    (the sum over the device kernels whose name holds one of its parts)."""
+    (the sum over the device kernels whose name holds one of its parts),
+    beside ``before``'s figure where it names the kernel."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -743,8 +750,10 @@ def profile_request(request, card, label="full-slice 8x512² bf16 request", kern
     print("[profile]   most launched: " + "; ".join(f"x{c} {k[:60]}" for _, c, k in by_count))
     for name, parts in (kernels or {}).items():
         mine = [r for r in rows if any(part in r[2] for part in parts)]
+        was = (before or {}).get(name)
         print(f"[profile]   {name}: {sum(r[0] for r in mine) / 1e3:.3f} ms of device time in "
-              f"{sum(r[1] for r in mine)} device kernels")
+              f"{sum(r[1] for r in mine)} device kernels"
+              + ("" if was is None else f" (before its tensor-core generic body: {was} ms)"))
     return busy / 1e3, sum(r[1] for r in rows)
 
 
@@ -1334,8 +1343,13 @@ def smem_count_failures():
         mma = env.ffn_mma_plan(D, H)
         if built("ffn_bwd_mma", D, H) != (-1 if mma is None else mma[-1]):
             bad.append(("ffn tensor-core generic", D, H))
+        fwd_mma = env.ffn_mma_fwd_plan(D, H)
+        if built("ffn_fwd_mma", D, H) != (-1 if fwd_mma is None else fwd_mma[-1]):
+            bad.append(("ffn forward tensor-core generic", D, H))
         for dtype in (torch.float32, torch.bfloat16):
-            if env.built_ffn_body(D, H, dtype) != env.ffn_body(D, H, dtype):
+            want = env.ffn_body(D, H, dtype)
+            if (env.built_ffn_body(D, H, dtype),
+                    env.built_ffn_body(D, H, dtype, lib="residual_ffn_fwd")) != (want, want):
                 bad.append(("ffn body", str(dtype), D, H))
     for C, D, nh, hd in {c[4:] for c in WIDTH_NGRAM_CASES} | {(32, 64, 6, 5), (32, 64, 4, 8)}:
         want = env.ngram_envelope(C, D, nh, hd)
@@ -1346,9 +1360,21 @@ def smem_count_failures():
         if (built("ngram_bwd_mma", C, D, nh, hd, 1),
                 built("ngram_bwd_mma", C, D, nh, hd, 2)) != tuple(mma):
             bad.append(("ngram tensor-core generic", C, D, nh, hd))
+        for S, TJ in env.NGRAM_FWD_TILES:
+            want = -1 if mma == (-1, -1) else env.ngram_mma_fwd_bytes(C, D, nh, hd, S, TJ)
+            if built("ngram_fwd_mma", C, D, nh, hd, S, TJ) != want:
+                bad.append(("ngram forward tensor-core generic", C, D, nh, hd, S, TJ))
         for dtype in (torch.float32, torch.bfloat16):
             if env.built_ngram_body(C, D, nh, hd, dtype) != env.ngram_body(C, D, nh, hd, dtype):
                 bad.append(("ngram body", str(dtype), C, D, nh, hd))
+            if (env.built_ngram_body(C, D, nh, hd, dtype, lib="ngram_context")
+                    != env.ngram_body(C, D, nh, hd, dtype, forward=True)):
+                bad.append(("ngram forward body", str(dtype), C, D, nh, hd))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for _, B, wh, ww, C, D, nh, hd in WIDTH_NGRAM_CASES:
+        if (env.built_ngram_tile(B, wh, ww, C, D, nh, hd, sms)
+                != env.ngram_mma_fwd_tile(B, wh, ww, C, D, nh, hd, sms)):
+            bad.append(("ngram forward tile", B, wh, ww, C, D, nh, hd))
     for _, _, _, _, D, nh, hd, H, ws in WIDTH_NSTB_CASES:
         N = ws * ws
         mma = env.nstb_mma_plan(N, D, nh, hd, H)
@@ -1475,12 +1501,13 @@ def check_width_kernels(dev, card):
                            else ffn_math, acts, params, g, dtype)
             launch = ffn_launch_ms(acts[0].to(dtype), acts[1].to(dtype), params, g.to(dtype))
             size = acts[0].to(dtype).element_size()
-            body = env.ffn_body(D, H, dtype)
-            print(f"[body] residual FFN {name} {dn}: K6 {body}, K5 "
-                  f"{body if body in ('flagship', 'templated') else 'CUDA-core generic'}")
+            body = env.built_ffn_body(D, H, dtype)
+            k5_body = env.built_ffn_body(D, H, dtype, lib="residual_ffn_fwd")
+            print(f"[body] residual FFN {name} {dn}: K6 {body}, K5 {k5_body}")
             for i, kernel in enumerate(("residual_ffn_fwd", "residual_ffn_bwd")):
                 record(kernel, name, dn, launch[i], t[2 + i],
                        bound_ms(*ffn_work(M, size, i == 1, D, H), dn), errs)
+            rows["residual_ffn_fwd"][-1]["body"] = k5_body
             rows["residual_ffn_bwd"][-1]["body"] = body
 
     for label, B, wh, ww, C, D, nh, hd in WIDTH_NGRAM_CASES:
@@ -1515,9 +1542,14 @@ def check_width_kernels(dev, card):
             size = uu.element_size()
             record("ngram_context", name, dn, k1, t[2],
                    bound_ms(*ngram_work(B, wh, ww, nh, size, C, D, hd), dn), errs)
-            body = env.ngram_body(C, D, nh, hd, dtype)
-            print(f"[body] n-gram context {name} {dn}: K7 {body}, K1 "
-                  f"{'flagship' if body == 'flagship' else 'CUDA-core generic'}")
+            body = env.built_ngram_body(C, D, nh, hd, dtype)
+            k1_body = env.built_ngram_body(C, D, nh, hd, dtype, lib="ngram_context")
+            if k1_body == "tensor-core generic":
+                tile = env.built_ngram_tile(B, wh, ww, C, D, nh, hd,
+                                            torch.cuda.get_device_properties(0).multi_processor_count)
+                k1_body += f" on {tile[0]} x {tile[1]}-cell tiles"
+            print(f"[body] n-gram context {name} {dn}: K7 {body}, K1 {k1_body}")
+            rows["ngram_context"][-1]["body"] = k1_body
             record("ngram_context_bwd", name, dn, k7, t[3],
                    bound_ms(*ngram_bwd_work(B, wh, ww, nh, size, C, D, hd), dn), errs)
             rows["ngram_context_bwd"][-1]["body"] = body
@@ -1777,7 +1809,7 @@ def demo_width(card):
               f"{max(times[warmup:]) * 1e3:.2f}), {1 / med:.3f} steps/s on {card}")
         prof = profile_request(lambda: trainer.train_step(trainer.state, batch), card,
                                label=f"train step (full, demo width) 8x{DEMO_PATCH}² bf16",
-                               kernels=STEP_KERNELS)
+                               kernels=STEP_KERNELS, before=STEP_KERNELS_BEFORE)
         check(prof is not None, "the profiler saw the step's device time")
         trained = trainer.generator
         sd = {k: v.detach().float() for k, v in trained.state_dict().items()}

@@ -216,6 +216,103 @@ def test_ngram_body_is_a_rule_of_geometry_and_dtype(geometry, bf16, f32, nbytes)
     envelope.ngram_envelope(*geometry)
 
 
+# (D, hidden) of K5 with its tensor-core generic body's plan (resident,
+# bytes): the demo width, the envelope's top (two 64-column stages
+# streamed), the JAX tests' D 8 / hidden 16, a hidden width whose resident
+# weights leave no room for two strip stages, the full-width NGswin's (its
+# bf16 runs the flagship body all the same), D not a multiple of 8
+FFN_FWD_PLAN_CASES = [
+    ((32, 64), (True, 51584)), ((128, 512), (False, 145920)), ((8, 16), (True, 26496)),
+    ((96, 384), (False, 110976)), ((64, 128), (True, 111360)), ((12, 24), None),
+]
+
+
+@pytest.mark.parametrize("widths,plan", FFN_FWD_PLAN_CASES)
+def test_ffn_forward_plan_counts_the_sources_layout(widths, plan):
+    """K5's tensor-core generic plan: resident weights where they fit with
+    two stages of strips, else streamed; its bytes are the CUDA source's
+    layout's and fit a block; K5 runs the body ``ffn_body`` names, K6's."""
+    assert envelope.ffn_mma_fwd_plan(*widths) == plan
+    if plan is not None:
+        assert plan[1] == envelope.ffn_mma_fwd_bytes(*widths, plan[0]) <= envelope.H100_SMEM_PER_BLOCK
+        if plan[0]:
+            assert envelope.ffn_mma_fwd_bytes(*widths, True) <= envelope.H100_SMEM_PER_BLOCK
+        else:
+            assert envelope.ffn_mma_fwd_bytes(*widths, True) > envelope.H100_SMEM_PER_BLOCK
+    if widths != envelope.FFN_KERNEL_DIMS:
+        assert (envelope.ffn_body(*widths, torch.bfloat16) == "tensor-core generic") == (plan is not None)
+
+
+def test_k5_and_k6_share_one_body_rule():
+    """Over the envelope (D up to 136, hidden up to 4·D): K5's plan exists
+    wherever K6's does, so the rule that asks both (``ffn_body``, the
+    sources' ``ffn_g::body``) gives the tensor-core generic body exactly
+    where K6's plan exists, at bfloat16 only."""
+    for D in range(8, 137, 8):
+        for H in range(8, 4 * D + 1, 8):
+            k6 = envelope.ffn_mma_plan(D, H) is not None
+            assert k6 <= (envelope.ffn_mma_fwd_plan(D, H) is not None)
+            if (D, H) != envelope.FFN_KERNEL_DIMS:
+                want = "tensor-core generic" if k6 else "CUDA-core generic"
+                assert envelope.ffn_body(D, H, torch.bfloat16) == want
+                assert envelope.ffn_body(D, H, torch.float32) == "CUDA-core generic"
+
+
+# (C, D, heads, head_dim) with the body K1 runs at bfloat16 and float32: the
+# full-width NGswin's (its float32 the templated body, which K7 lacks), the
+# demo width, the envelope's top, C not a multiple of 8
+NGRAM_FWD_BODY_CASES = [
+    ((32, 64, 6, 5), "flagship", "templated"), ((32, 64, 4, 8), "flagship", "templated"),
+    ((16, 32, 2, 8), "tensor-core generic", "CUDA-core generic"),
+    ((64, 128, 4, 16), "tensor-core generic", "CUDA-core generic"),
+    ((20, 40, 4, 5), "CUDA-core generic", "CUDA-core generic"),
+]
+
+
+@pytest.mark.parametrize("geometry,bf16,f32", NGRAM_FWD_BODY_CASES)
+def test_ngram_forward_body_is_k7_s_rule_and_names_the_templated_body(geometry, bf16, f32):
+    """K1's body by geometry and dtype alone: ``ngram_body``'s rule with
+    ``forward``, which differs from K7's only in naming K1's float32
+    templated body at the full-width NGswin's geometries."""
+    assert envelope.ngram_body(*geometry, torch.bfloat16, forward=True) == bf16
+    assert envelope.ngram_body(*geometry, torch.float32, forward=True) == f32
+    assert envelope.ngram_body(*geometry, torch.bfloat16) == bf16
+    assert envelope.ngram_body(*geometry, torch.float32) == (
+        "CUDA-core generic" if f32 == "templated" else f32)
+    assert envelope.NGRAM_BODIES.index("templated") == 3
+
+
+# K1's tile on the tensor-core generic body for a [B, wh, ww] grid on 132
+# SMs: the demo width's 8 x 8 stage 1 (2 x 4 cells), the envelope's top
+# (2 x 8: 4 x 16 tiles would leave SMs idle), a large grid (4 x 16), an odd
+# one, a grid narrower than 4 cells; and the tile's bytes (2 x 4, 2 x 8,
+# 4 x 16) at the demo width
+NGRAM_TILE_CASES = [
+    ((8, 8, 8, 16, 32, 2, 8), (2, 4)), ((8, 32, 32, 64, 128, 4, 16), (2, 8)),
+    ((8, 64, 64, 16, 32, 2, 8), (4, 16)), ((3, 13, 7, 16, 32, 2, 8), (2, 4)),
+    ((64, 64, 2, 16, 32, 2, 8), (2, 4)),
+]
+
+
+@pytest.mark.parametrize("grid,tile", NGRAM_TILE_CASES)
+def test_ngram_forward_tile_is_sized_to_the_grid(grid, tile):
+    assert envelope.ngram_mma_fwd_tile(*grid, 132) == tile
+    assert [envelope.ngram_mma_fwd_bytes(16, 32, 2, 8, *t) for t in envelope.NGRAM_FWD_TILES] == [
+        50960, 23056, 17424]
+
+
+def test_ngram_forward_smallest_tile_fits_wherever_k7_has_a_plan():
+    """K1's 2 x 4-cell tile stages what K7's pass 1 stages and less, so it
+    fits wherever K7 has a plan: the rule's forward condition never bites."""
+    for C in range(8, 129, 8):
+        for D in (C, 2 * C):
+            for hd in (1, 5, 8, 16, 32):
+                for nh in range(1, 17):
+                    plan = envelope.ngram_mma_plan(C, D, nh, hd)
+                    if plan is not None:
+                        assert envelope.ngram_mma_fwd_bytes(C, D, nh, hd, 2, 4) <= plan[0]
+
+
 def test_nstb_envelope_refuses_past_the_card_s_shared_memory():
     """The FFN tail is not cut into chunks: at D = 128 (4 x 32 heads) a
     hidden width of 649 still fits, 650 does not, and the refusal names the

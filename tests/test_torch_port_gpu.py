@@ -92,24 +92,33 @@ NGRAM_WIDTHS = [(16, 32, 2, 8), (64, 128, 4, 16), (20, 40, 4, 5), (64, 128, 8, 8
     (6, 2, 8, 12, 32, 64, 5), (4, 1, 5, 37, 32, 64, 8), (6, 1, 2, 2, 32, 64, 5),
     (4, 8, 16, 16, 32, 64, 8), (4, 2, 2, 2, 32, 64, 8), (6, 3, 13, 7, 32, 64, 5),
     (4, 3, 13, 7, 32, 64, 8), (6, 8, 16, 16, 32, 64, 5), (6, 8, 64, 64, 32, 64, 5),
+    # K1's tensor-core generic body at bf16 on each of its tiles (2 x 4 the
+    # demo stage 1, 4 x 16), grids narrower than a tile, both reflections at
+    # 2 x 2, head_dim 5 and 32, C and D not multiples of 16
+    (2, 8, 8, 8, 16, 32, 8), (2, 8, 64, 64, 16, 32, 8), (2, 1, 2, 2, 16, 32, 8),
+    (3, 1, 18, 2, 24, 48, 5), (4, 2, 5, 37, 40, 80, 10), (3, 3, 13, 7, 16, 32, 5),
+    (2, 2, 9, 19, 64, 128, 32),
 ] + [(nh, B, wh, ww, C, D, hd) for C, D, nh, hd in NGRAM_WIDTHS
      for B, wh, ww in ((8, 32, 32), (3, 13, 7))])
 def test_ngram_context_kernel_matches_plain(cuda, dtype, nh, B, wh, ww, C, D, hd):
     """At float32 against ``ngram_context_math``; at bfloat16 against the
-    rounding-matched ``ngram_context_kernel_math`` on the same inputs."""
+    rounding-matched ``ngram_context_kernel_math`` on the same inputs; two
+    runs give the same bits."""
     rng = np.random.default_rng(0)
     u, params = ngram_inputs(rng, nh, B, wh, ww, C, D, hd)
     u = u.to(cuda, dtype)
     params = _to(tuple(params), cuda)
     before = cuda_ngram.fused_ngram_context.launches
     got = cuda_ngram.fused_ngram_context(u, *params, nh)
+    again = cuda_ngram.fused_ngram_context(u, *params, nh)
     torch.cuda.synchronize()
-    assert cuda_ngram.fused_ngram_context.launches == before + 1
+    assert cuda_ngram.fused_ngram_context.launches == before + 2
     ref = (cuda_ngram.ngram_context_math if dtype == torch.float32
            else cuda_ngram.ngram_context_kernel_math)(u, *params, num_heads=nh).float()
     assert got.dtype == dtype and got.shape == (B, wh, ww, D)
     err = float((got.float() - ref).abs().max())
     assert err <= _tol(ref, dtype), err
+    assert torch.equal(got, again)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -444,6 +453,10 @@ def test_window_attention_kernels_match_plain(cuda, dtype, nwin, N, D, nh, hd, g
     # chip_smoke.py's phase-20 envelope top (K6's tensor-core generic body in
     # eight hidden slices)
     (8192, 128, 512),
+    # the tensor-core generic bodies at bf16: D not a multiple of 16 (40, 24,
+    # 8), hidden not a multiple of 16 (72, 40) or of K5's 64-column stage
+    # (200, streamed), resident weights at D 64
+    (333, 40, 72), (1000, 24, 40), (4096, 128, 200), (17, 8, 16), (65536, 64, 256),
 ])
 def test_residual_ffn_kernels_match_plain(cuda, dtype, M, D, H):
     """At float32 against autograd of the plain math; at bfloat16 against
@@ -585,6 +598,67 @@ def test_ngram_body_and_tensor_core_plan_queries_equal_the_envelope(cuda, C, D, 
     want = env.ngram_mma_plan(C, D, nh, hd) or (-1, -1)
     assert (env.built_smem("ngram_bwd_mma", C, D, nh, hd, 1),
             env.built_smem("ngram_bwd_mma", C, D, nh, hd, 2)) == tuple(want)
+
+
+@pytest.mark.parametrize("D,H", [(32, 64), (128, 512), (64, 128), (8, 16), (16, 48), (96, 384),
+                                 (12, 24), (40, 72), (128, 128)])
+def test_ffn_forward_body_and_tensor_core_plan_queries_equal_the_envelope(cuda, D, H):
+    """The body K5's built source picks is K6's and ``envelope.ffn_body``'s
+    (one rule), and its tensor-core generic plan's shared memory (-1
+    without one) ``ffn_mma_fwd_plan``'s, at both dtypes."""
+    from tmar_torch.ops import envelope as env
+
+    for dtype in (torch.float32, torch.bfloat16):
+        want = env.ffn_body(D, H, dtype)
+        assert env.built_ffn_body(D, H, dtype, lib="residual_ffn_fwd") == want
+        assert env.built_ffn_body(D, H, dtype) == want
+    plan = env.ffn_mma_fwd_plan(D, H)
+    assert env.built_smem("ffn_fwd_mma", D, H) == (-1 if plan is None else plan[-1])
+
+
+@pytest.mark.parametrize("C,D,nh,hd", [(16, 32, 2, 8), (64, 128, 4, 16), (16, 32, 3, 5),
+                                       (32, 64, 6, 5), (32, 64, 4, 8), (20, 40, 4, 5),
+                                       (64, 128, 8, 8), (64, 128, 8, 16)])
+def test_ngram_forward_body_tile_and_plan_queries_equal_the_envelope(cuda, C, D, nh, hd):
+    """The body K1's built source picks is ``envelope.ngram_body``'s with
+    ``forward`` (K7's but for the templated float32 body), its tensor-core
+    generic body's shared memory on each tile ``ngram_mma_fwd_bytes`` (-1
+    without a plan), and the tile it takes for a grid
+    ``ngram_mma_fwd_tile``'s."""
+    from tmar_torch.ops import envelope as env
+
+    for dtype in (torch.float32, torch.bfloat16):
+        assert (env.built_ngram_body(C, D, nh, hd, dtype, lib="ngram_context")
+                == env.ngram_body(C, D, nh, hd, dtype, forward=True))
+    planned = env.ngram_mma_plan(C, D, nh, hd) is not None
+    for S, TJ in env.NGRAM_FWD_TILES:
+        want = env.ngram_mma_fwd_bytes(C, D, nh, hd, S, TJ) if planned else -1
+        assert env.built_smem("ngram_fwd_mma", C, D, nh, hd, S, TJ) == want
+    for B, wh, ww in ((8, 8, 8), (8, 32, 32), (3, 13, 7), (8, 64, 64), (1, 2, 2), (1, 18, 2)):
+        for sms in (132, 114, 16):
+            assert (env.built_ngram_tile(B, wh, ww, C, D, nh, hd, sms)
+                    == env.ngram_mma_fwd_tile(B, wh, ww, C, D, nh, hd, sms))
+
+
+@pytest.mark.parametrize("M,D,H", [(1000, 24, 40), (2049, 128, 512)])
+def test_residual_ffn_tensor_core_generic_forward_reads_transposed_weight_views(cuda, M, D, H):
+    """K5's tensor-core generic body, its weights resident (24, 40) and
+    streamed (128, 512), given w1 and w2 as transposed views of [out, in]
+    tensors: the bits of contiguous weights, within 2^-7·max|ref| of
+    ``ffn_kernel_math``."""
+    rng = np.random.default_rng(12)
+    (x, ao, _), params = ffn_inputs(rng, M, D, H)
+    x, ao = x.to(cuda, torch.bfloat16), ao.to(cuda, torch.bfloat16)
+    params = [p.to(cuda) for p in params]
+    views = list(params)
+    views[2], views[4] = params[2].t().contiguous().t(), params[4].t().contiguous().t()
+    assert views[2].stride() == (1, D) and views[4].stride() == (1, H)
+    with torch.no_grad():
+        got = cuda_ffn.fused_residual_ffn(x, ao, *views)
+        want = cuda_ffn.fused_residual_ffn(x, ao, *params)
+    ref = cuda_ffn.ffn_kernel_math(x, ao, *params).float()
+    assert torch.equal(got, want)
+    assert float((got.float() - ref).abs().max()) <= _tol(ref, torch.bfloat16)
 
 
 # the demo width (examples/demo_end_to_end.py, tests/test_ngswin_pallas.py)

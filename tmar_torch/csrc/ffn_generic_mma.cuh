@@ -15,7 +15,10 @@
 // Which geometries.  bfloat16 with D a multiple of 8 up to 128 (16-byte rows
 // for cp.async) wherever `plan` finds a layout that fits a block; `body` is
 // the rule, and tmar_torch/ops/envelope.py:ffn_body the same rule (a query of
-// the built source holds the two equal).
+// the built source holds the two equal).  The rule is K5's too: its
+// tensor-core generic forward (residual_ffn_fwd.cu) runs where this body
+// runs, on the plan `fwd_plan` finds with the same padding and strip
+// helpers (a plan exists at every width `plan` takes; `body` asks both).
 //
 // What bounds it on an H100: bytes at the demo width (D 32, hidden 64: 24.6
 // kFLOP a row, 12·D·H, against 320 bytes of activations), operations at the
@@ -144,14 +147,59 @@ inline bool plan(int D, int H, Plan* P) {
   return false;
 }
 
-// Which body runs a width, by geometry and I/O type alone (envelope.py:
-// ffn_body): the full-width NGswin's (64, 128) its own bodies, bfloat16 on
-// the tensor cores, float32 the body templated on the widths; bfloat16 this
-// body wherever it has a plan; the rest the CUDA-core generic body.
+// The layout of K5's forward body on the tensor cores (residual_ffn_fwd.cu:
+// residual_ffn_fwd_gmma) at (D, H), with the backward's padding rules.
+// Shared memory: float32 g1, b1, g2, b2, bw2 [DP] and bw1 [HP]; the bf16
+// weights, w1 as [h][ld1] (rows HP resident, CHUNK streamed; columns DP) and
+// w2 as [d][ld2] (DP rows; columns HP or CHUNK), rows padded by 16 bytes,
+// one stage resident, two streamed (the next CHUNK hidden columns load while
+// these compute); per warp its strips [16][LDX], x then attn_out: two such
+// stages resident (the next strip loads while this one computes), one
+// streamed.  There are no dw accumulators, so the forward needs no hidden
+// slices.  Streamed, the weights come from a per-call weights kernel
+// (round_weights), whose scratch is weights_floats(DP, HP) floats.
+struct FwdPlan {
+  int D, H, DP, HP, D8, dk, resident;
+  int LDX, ld1, ld2, floats, w2off, stage_elems, welems, strip_elems;
+  size_t bytes;
+};
+
+inline FwdPlan make_fwd_plan(int D, int H, bool resident) {
+  FwdPlan F;
+  F.D = D, F.H = H, F.DP = up(D, 16), F.HP = up(H, 16), F.D8 = D / 8, F.dk = F.DP / 16;
+  F.resident = resident;
+  const int cols = resident ? F.HP : CHUNK;
+  F.LDX = F.DP + 8, F.ld1 = F.DP + 8, F.ld2 = cols + 8;
+  F.floats = up(5 * F.DP + F.HP, 4);
+  F.w2off = cols * F.ld1;
+  F.stage_elems = F.w2off + F.DP * F.ld2;
+  F.welems = (resident ? 1 : 2) * F.stage_elems;
+  F.strip_elems = (resident ? 4 : 2) * 16 * F.LDX;
+  F.bytes = (size_t)4 * F.floats + (size_t)2 * (F.welems + WARPS * F.strip_elems);
+  return F;
+}
+
+// K5's plan at (D, H) (envelope.py: ffn_mma_fwd_plan is the same search),
+// false where it takes none: resident weights where they fit, else streamed.
+inline bool fwd_plan(int D, int H, FwdPlan* F) {
+  if (D < 8 || D > MAX_D || D % 8 || H < 1) return false;
+  for (int r = 1; r >= 0; --r) {
+    *F = make_fwd_plan(D, H, r == 1);
+    if (F->bytes <= tmar::MAX_SMEM) return true;
+  }
+  return false;
+}
+
+// Which body of K5 and K6 runs a width, by geometry and I/O type alone
+// (envelope.py: ffn_body): the full-width NGswin's (64, 128) their own
+// bodies, bfloat16 on the tensor cores, float32 the ones templated on the
+// widths; bfloat16 the tensor-core generic bodies wherever both have a plan;
+// the rest the CUDA-core generic bodies.
 inline Body body(int D, int H, int is_bf16) {
   if (D == 64 && H == 128) return is_bf16 ? FLAGSHIP : TEMPLATED;
   Plan P;
-  return is_bf16 && plan(D, H, &P) ? TENSOR_CORE : CUDA_CORE;
+  FwdPlan F;
+  return is_bf16 && plan(D, H, &P) && fwd_plan(D, H, &F) ? TENSOR_CORE : CUDA_CORE;
 }
 
 // ---- strips: 16 rows at the padded width, bf16 [16][ld] -------------------
@@ -319,24 +367,47 @@ __device__ __forceinline__ void ln_backward(const float (&dout)[DT][4], float (&
 
 enum { V_DG2 = 0, V_DB2 = 1, V_DBW2 = 2, V_DG1 = 3, V_DB1 = 4 };  // the vectors, DP apart
 
+// The floats of scratch that hold the bf16 weights of one call in the layout
+// round_weights writes (gw1 [HP][DP + 8], then gw2 [DP][HP + 8])
+__host__ __device__ inline size_t weights_floats(int DP, int HP) {
+  return (size_t)up(HP * (DP + 8) + DP * (HP + 8), 8) / 2;
+}
+
 // w1 [D, H] and w2 [H, D] (read as w[k·w_k + n·w_n]) rounded to bf16 and laid
-// out as the main kernel stages them, zeros in the padding: gw1 [HP][DP + 8]
-// (w1 transposed) and gw2 [DP][HP + 8] (w2 transposed), once per call, so
-// that a block stages them by cp.async
+// out as the main kernels stage them, zeros in the padding: gw1 [HP][DP + 8]
+// (w1 transposed) and gw2 [DP][HP + 8] (w2 transposed), by a grid-stride
+// loop: the body of each tensor-core generic body's per-call weights kernel
+// (K6's ffn_bwd_gmma_weights, K5's residual_ffn_fwd_gmma_weights), so that
+// a block stages them by cp.async
+__device__ __forceinline__ void round_weights(const float* __restrict__ w1, int w1_k, int w1_n,
+                                              const float* __restrict__ w2, int w2_k, int w2_n,
+                                              __nv_bfloat16* __restrict__ gw1,
+                                              __nv_bfloat16* __restrict__ gw2, int D, int H,
+                                              int DP, int HP) {
+  const int ld1 = DP + 8, ld2 = HP + 8, n1 = HP * ld1, n2 = DP * ld2;
+  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n1 + n2; e += gridDim.x * blockDim.x) {
+    if (e < n1) {
+      const int h = e / ld1, k = e % ld1;
+      gw1[e] = __float2bfloat16(h < H && k < D ? w1[(size_t)k * w1_k + (size_t)h * w1_n] : 0.f);
+    } else {
+      const int d = (e - n1) / ld2, h = (e - n1) % ld2;
+      gw2[e - n1] = __float2bfloat16(d < D && h < H ? w2[(size_t)h * w2_k + (size_t)d * w2_n] : 0.f);
+    }
+  }
+}
+
+// Blocks of 256 threads for round_weights at (DP, HP): one element a thread,
+// at most 1024 blocks
+inline int weights_blocks(int DP, int HP) {
+  const int n = HP * (DP + 8) + DP * (HP + 8), b = (n + 255) / 256;
+  return b < 1024 ? b : 1024;
+}
+
 __global__ void ffn_bwd_gmma_weights(const float* __restrict__ w1, int w1_k, int w1_n,
                                      const float* __restrict__ w2, int w2_k, int w2_n,
                                      __nv_bfloat16* __restrict__ gw1,
                                      __nv_bfloat16* __restrict__ gw2, Plan P) {
-  const int n1 = P.HP * P.ld1, n2 = P.DP * (P.HP + 8), ld2 = P.HP + 8;
-  for (int e = blockIdx.x * blockDim.x + threadIdx.x; e < n1 + n2; e += gridDim.x * blockDim.x) {
-    if (e < n1) {
-      const int h = e / P.ld1, k = e % P.ld1;
-      gw1[e] = __float2bfloat16(h < P.H && k < P.D ? w1[(size_t)k * w1_k + (size_t)h * w1_n] : 0.f);
-    } else {
-      const int d = (e - n1) / ld2, h = (e - n1) % ld2;
-      gw2[e - n1] = __float2bfloat16(d < P.D && h < P.H ? w2[(size_t)h * w2_k + (size_t)d * w2_n] : 0.f);
-    }
-  }
+  round_weights(w1, w1_k, w1_n, w2, w2_k, w2_n, gw1, gw2, P.D, P.H, P.DP, P.HP);
 }
 
 template <int DM>
@@ -787,7 +858,7 @@ int grid(const Plan& P, long M, Launch* L) {
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long fin = (M + WARPS - 1) / WARPS;  // a finishing block takes a row a warp
   L->fin_blocks = P.S > 1 ? (int)(fin < 4L * sms ? fin : 4L * sms) : 0;
-  L->wts = (size_t)up(P.HP * P.ld1 + P.DP * (P.HP + 8), 8) / 2;
+  L->wts = weights_floats(P.DP, P.HP);
   L->dyp = P.S > 1 ? (size_t)P.S * M * P.D : 0;
   L->part = (size_t)L->blocks * P.psize;
   L->floats = L->wts + L->dyp + L->part + (size_t)L->fin_blocks * 2 * P.D;
@@ -808,10 +879,8 @@ int launch_t(const void* const* p, int w1_k, int w1_n, int w2_k, int w2_n, void*
   float* dyp = scratch + L.wts;
   float* part = dyp + L.dyp;
   float* part2 = part + L.part;
-  const int welems = P.HP * P.ld1 + P.DP * (P.HP + 8);
-  ffn_bwd_gmma_weights<<<(welems + 255) / 256 < 1024 ? (welems + 255) / 256 : 1024, 256, 0,
-                         stream>>>((const float*)p[5], w1_k, w1_n, (const float*)p[7], w2_k, w2_n,
-                                   gw1, gw2, P);
+  ffn_bwd_gmma_weights<<<weights_blocks(P.DP, P.HP), 256, 0, stream>>>(
+      (const float*)p[5], w1_k, w1_n, (const float*)p[7], w2_k, w2_n, gw1, gw2, P);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   ffn_bwd_gmma<DM><<<L.blocks, THREADS, P.bytes, stream>>>(

@@ -1,7 +1,7 @@
 // N-gram context of one NSTB, in one launch.
 //
 // Replaces the TPU kernel tmar/ops/pallas_ngram.py:_ngram_stripe_kernel
-// (driven by _forward, pallas_call at :306).  Plain versions:
+// (:813, driven by _forward, pallas_call at :306).  Plain versions:
 // tmar_torch/ops/cuda_ngram.py:ngram_context_kernel_math (at float32 the
 // same function as ngram_context_math).
 //
@@ -22,8 +22,9 @@
 // (a few MB, about 2 µs at 3.35 TB/s) and does ~0.4 GFLOP, so it is bound
 // by latency and instruction throughput.  There is no sequential grid to
 // carry halos from one step to the next as on the TPU, so a block
-// recomputes the q/k/v of its tile's halo.  Three bodies, picked by the I/O
-// dtype and the widths:
+// recomputes the q/k/v of its tile's halo.  Four bodies, picked by the I/O
+// dtype and the geometry alone (ngram_g::body, the rule K7 follows too, and
+// tmar_torch/ops/envelope.py:ngram_body):
 //   * bfloat16 at the full-width NGswin's C = 32, D = 64, heads 6 x 5 or
 //     4 x 8: the tensor-core body (ngram_mma.cuh).  A persistent block
 //     stages the weights once, rounded to bf16 from the float32 parameters,
@@ -37,12 +38,27 @@
 //   * float32 at the same widths and heads: a body templated on the heads
 //     (below), one block per 32 cells of a grid row, weights staged in
 //     shared memory;
-//   * every other case (float32 at every other width, bfloat16 at any
-//     other): the generic body, which takes C, D, the heads and head_dim
-//     (<= 32) at run time: one 256-thread block per 32 cells of a grid row,
-//     staging the three input rows it needs (3·(TJ+2) positions for TJ
-//     outputs), weights read from device memory; every product in float32
-//     on the CUDA cores, rounding at bfloat16 where
+//   * bfloat16 at every other geometry with a plan (C and D multiples of 8
+//     up to 128, head_dim <= 32): the tensor-core generic body, the same
+//     chain with the widths at run time, built from the steps K7's cells
+//     pass recomputes (ngram_generic_mma.cuh: C, D and A padded to 16, the
+//     weights rounded to bf16 in the kernel and staged once per persistent
+//     block, u by cp.async, q/k/v, the projection and the merge on
+//     mma.sync, the per-head norms and the 4-token attention on the CUDA
+//     cores, a group of 8 or 4 lanes per (cell, direction, head)).  It
+//     rounds where the flagship body rounds.  Its tile is sized to the grid
+//     (ngram_g::fwd_tile): 4 x 16 cells where such tiles still give every SM
+//     one, else 2 x 8, else 2 x 4, never wider than the grid, so the demo
+//     width's 8 x 8 stage-1 grid stages 4 x 6 positions for 8 cells (3x)
+//     where a 32-cell row segment staged 3 x 34 (12.75x).  Bound there by
+//     the blocks' latency (the parameters' staging, five block barriers a
+//     tile), like K7's cells pass;
+//   * every other case (float32 at every other geometry, bfloat16 without
+//     a plan): the CUDA-core generic body, which takes C, D, the heads and
+//     head_dim (<= 32) at run time: one 256-thread block per 32 cells of a
+//     grid row, staging the three input rows it needs (3·(TJ+2) positions
+//     for TJ outputs), weights read from device memory; every product in
+//     float32 on the CUDA cores, rounding at bfloat16 where
 //     ngram_context_kernel_math does.
 
 #include <cuda_bf16.h>
@@ -51,6 +67,7 @@
 #include <stddef.h>
 
 #include "common.cuh"
+#include "ngram_generic_mma.cuh"
 #include "ngram_mma.cuh"
 
 namespace {
@@ -247,7 +264,7 @@ __global__ void __launch_bounds__(THREADS) ngram_context_kernel(
   }
 }
 
-// ---- the generic body: any (C, D, heads, head_dim <= HDM) -------------------
+// ---- the CUDA-core generic body: any (C, D, heads, head_dim <= HDM) ---------
 // One 256-thread block per TJ cells of a grid row stages u of the three
 // input rows it needs (3·(TJ+2) positions for TJ outputs), then q/k/v of
 // them, the mean tokens and ctx of its cells in shared memory, sized at
@@ -533,7 +550,143 @@ int launch_f32(const void* const* p, void* out, int B, int wh, int ww, cudaStrea
   return (int)cudaGetLastError();
 }
 
-// ---- the generic body's launch ----------------------------------------------
+// ---- the tensor-core generic body (ngram_generic_mma.cuh) -------------------
+// A persistent block of 8 warps walks tiles of F.S grid rows x F.TJ cells;
+// the parameters come with its first tile.  Per tile: u of the staged
+// positions by cp.async; q/k/v of them on mma.sync (16x16 jobs dealt to the
+// warps); the per-head norms; one group of 8 or 4 lanes per (cell,
+// direction, head): the softmax and the mean token; ctx = bf16(mean·wproj +
+// bproj) and out = bf16([ctx_f | ctx_b]·wm + bmerge) on mma.sync, stored for
+// the cells inside the grid (cells past it read reflect-clamped positions
+// and are computed but never stored).
+__global__ void __launch_bounds__(ngram_g::THREADS1) ngram_context_gmma(
+    const __nv_bfloat16* __restrict__ u, const float* __restrict__ wqkv,
+    const float* __restrict__ bqkv, const float* __restrict__ ls,
+    const float* __restrict__ table, const float* __restrict__ wproj,
+    const float* __restrict__ bproj, const float* __restrict__ wmerge,
+    const float* __restrict__ bmerge, __nv_bfloat16* __restrict__ out, int B, int wh, int ww,
+    ngram_g::FwdPlan F) {
+  constexpr int NT = ngram_g::THREADS1, WARPS = ngram_g::WARPS1;
+  const ngram_g::Plan& P = F.G;
+  extern __shared__ float4 smem4[];
+  unsigned char* sm = reinterpret_cast<unsigned char*>(smem4);
+  auto bf16_at = [&](int off) { return reinterpret_cast<__nv_bfloat16*>(sm + off); };
+  auto f32_at = [&](int off) { return reinterpret_cast<float*>(sm + off); };
+  __nv_bfloat16 *s_wqkv = bf16_at(F.c_wqkv), *s_wproj = bf16_at(F.c_wproj), *s_wm = bf16_at(F.c_wm);
+  float *s_bqkv = f32_at(F.c_bqkv), *s_bproj = f32_at(F.c_bproj), *s_scale = f32_at(F.c_scale);
+  float *s_bias = f32_at(F.c_bias), *s_bm = f32_at(F.c_bm), *s_qk = f32_at(F.c_qk);
+  __nv_bfloat16 *s_u = bf16_at(F.c_u), *s_q = bf16_at(F.c_q), *s_mean = bf16_at(F.c_mean);
+  __nv_bfloat16* s_ctx = bf16_at(F.c_ctx);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, gq = lane >> 2, tq = lane & 3;
+  const int C_ = P.C, D_ = P.D, nh = P.nh, hd = P.hd, AP = P.AP, TJ_ = F.TJ, W2 = F.W2;
+
+  // once per block: zeros (every padding)
+  for (int i = tid; i < (int)(F.bytes / 16); i += NT) ngram_g::zero16(sm + 16 * i);
+  const int rowtiles = (wh + F.S - 1) / F.S, coltiles = (ww + TJ_ - 1) / TJ_;
+  const int tiles = B * rowtiles * coltiles;
+  const int nqc = 3 * AP / 16, ncc = P.CP / 16, ndc = P.DP / 16;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int j0 = (tile % coltiles) * TJ_;
+    const int i0 = ((tile / coltiles) % rowtiles) * F.S;
+    const int b = tile / (coltiles * rowtiles);
+    __syncthreads();  // the zeros are down; the last tile is done with u and ctx
+    // 1. u of the tile's positions, rows i0-1 .. i0+S and columns j0-1 ..
+    //    j0+TJ, reflect-mapped
+    ngram_g::copy_rows(s_u, P.LU, F.NPOS, C_, [&](int pos) -> const __nv_bfloat16* {
+      const int gr = ngram::reflect(i0 - 1 + pos / W2, wh), gc = ngram::reflect(j0 - 1 + pos % W2, ww);
+      return u + (((size_t)b * wh + gr) * ww + gc) * C_;
+    }, tid, NT);
+    cp_async_commit();
+    if (tile == (int)blockIdx.x)  // the block's first tile: the parameters, while u lands
+      ngram_g::stage_params(P, tid, NT, wqkv, bqkv, s_wqkv, s_bqkv, wproj, wmerge, bproj, ls,
+                            table, s_wproj, s_wm, s_bproj, s_scale, s_bias, bmerge, s_bm);
+    cp_async_wait_all();
+    __syncthreads();
+
+    // 2. q/k/v = u·wqkv + bqkv of the staged positions (q, k float32, v bf16)
+    for (int job = warp; job < (F.PROWS / 16) * nqc; job += WARPS)
+      ngram_g::qkv_job(P, s_u, s_wqkv, s_bqkv, s_q, s_qk, job / nqc, job % nqc, lane);
+    __syncthreads();
+
+    // 3. q_n, k_n
+    ngram_g::norm_rows(P, s_qk, s_q, F.NPOS, tid, NT);
+    __syncthreads();
+
+    // 4. one group of G lanes per (cell, direction, head) (G = 8 where the
+    //    tile's items fill the block so, else 4): the softmax, then the mean
+    //    token bf16(0.25·Σ_p Σ_q bf16(a_pq)·v_q), the channels d = tg, tg + G,
+    //    ... of the group's lane tg
+    const int items = F.CELLS * 2 * nh, G = items * 8 <= NT ? 8 : 4, tg = tid & (G - 1);
+    for (int base = 0; base < items; base += NT / G) {  // the same trip count in every lane
+      const int e = base + tid / G, it = e < items ? e : 0;  // a spare group writes nothing
+      const int cell = it / (2 * nh), dir = (it / nh) % 2, h = it % nh;
+      const int self = (cell / TJ_ + 1) * W2 + cell % TJ_ + 1, o = dir == 0 ? 0 : -W2 - 1;
+      const int tok[4] = {self + o, self + o + 1, self + o + W2, self + o + W2 + 1};
+      const __nv_bfloat16* qh[4];  // + AP: k_n, + 2AP: v
+#pragma unroll
+      for (int p = 0; p < 4; ++p) qh[p] = s_q + tok[p] * P.LQKV + h * hd;
+      float cs[16], a[16], ab[16];
+      ngram_g::window_softmax(qh, AP, hd, tg, G, s_scale[h], s_bias + h * 16, cs, a, ab);
+      for (int d = tg; d < hd; d += G) {
+        float vv[4], acc = 0.f;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) vv[q] = ngram::ld_bf(qh[q] + 2 * AP + d);
+#pragma unroll
+        for (int pq = 0; pq < 16; ++pq) acc = fmaf(ab[pq], vv[pq & 3], acc);
+        if (e < items) s_mean[(2 * cell + dir) * P.LA + h * hd + d] = __float2bfloat16(acc * 0.25f);
+      }
+    }
+    __syncthreads();
+
+    // 5. ctx = bf16(mean·wproj + bproj), both directions of a cell in its row
+    for (int job = warp; job < (F.ROWS / 16) * ncc; job += WARPS)
+      ngram_g::project_job(P, s_mean, s_wproj, s_bproj, s_ctx, job / ncc, job % ncc, lane);
+    __syncthreads();
+
+    // 6. out = bf16([ctx_f | ctx_b]·wm + bmerge) of the cells inside the grid
+    for (int job = warp; job < (F.CT / 16) * ndc; job += WARPS) {
+      const int mt = job / ndc, nc = job % ndc;
+      float acc[2][4] = {};
+      for (int kk = 0; kk < 2 * ncc; ++kk) {
+        uint32_t a[4];
+        load_a(a, s_ctx, P.LCX, 16 * mt, 16 * kk, lane);
+        mma_pair_t(acc[0], acc[1], a, s_wm, P.LM, 16 * nc, 16 * kk, lane);
+      }
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int cell = 16 * mt + gq + 8 * hh;
+        const int i = i0 + cell / TJ_, j = j0 + cell % TJ_;
+        if (cell >= F.CELLS || i >= wh || j >= ww) continue;
+        __nv_bfloat16* orow = out + (((size_t)b * wh + i) * ww + j) * D_;
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int col = 16 * nc + 8 * n + 2 * tq;
+          if (col < D_)
+            sts32(orow + col, pack_bf16(acc[n][2 * hh] + s_bm[col], acc[n][2 * hh + 1] + s_bm[col + 1]));
+        }
+      }
+    }
+  }
+}
+
+int launch_gmma(const void* const* p, void* out, int B, int wh, int ww, int C_, int D_, int nh,
+                int hd, int sms, cudaStream_t stream) {
+  if (((uintptr_t)p[0] | (uintptr_t)out) & 15) return (int)cudaErrorMisalignedAddress;
+  const ngram_g::FwdPlan F = ngram_g::fwd_tile(B, wh, ww, C_, D_, nh, hd, sms);
+  static int cache[64][3] = {};
+  int total = 0;
+  const int err = tmar::persistent_grid(ngram_context_gmma, F.bytes, ngram_g::THREADS1, cache, &total);
+  if (err != 0) return err;
+  const long tiles = (long)B * ((wh + F.S - 1) / F.S) * ((ww + F.TJ - 1) / F.TJ);
+  const int blocks = (int)(tiles < total ? tiles : total);
+  ngram_context_gmma<<<blocks, ngram_g::THREADS1, F.bytes, stream>>>(
+      (const __nv_bfloat16*)p[0], (const float*)p[1], (const float*)p[2], (const float*)p[3],
+      (const float*)p[4], (const float*)p[5], (const float*)p[6], (const float*)p[7],
+      (const float*)p[8], (__nv_bfloat16*)out, B, wh, ww, F);
+  return (int)cudaGetLastError();
+}
+
+// ---- the CUDA-core generic body's launch -------------------------------------
 // its shared memory (tmar_torch/ops/envelope.py: ngram_fwd_bytes counts the
 // same)
 size_t rt_bytes(int C_, int nh, int hd) {
@@ -574,11 +727,13 @@ extern "C" {
 // wqkv [C, 3A], bqkv [3A], logit_scale [nh] (raw: the kernel takes
 // exp(min(logit_scale, ln 100))), table [9, nh] (the 2x2 relative-position
 // bias table), wproj [A, C], bproj [C], wmerge [2C, D], bmerge [D].
-// bfloat16 at C = 32, D = 64 and heads 6 x 5 or 4 x 8 runs the tensor-core
-// body (u and out 16-byte aligned; a persistent grid of at most `sms` times
-// the blocks an SM holds); every other case the generic body (head_dim <=
-// 32).  Requires wh >= 2 and ww >= 2.  Returns a cudaError_t code (0 on a
-// clean launch).
+// The body is ngram_g::body's (forward): bfloat16 at C = 32, D = 64 and
+// heads 6 x 5 or 4 x 8 the tensor-core body, float32 there the templated
+// one; bfloat16 elsewhere the tensor-core generic body wherever it has a
+// plan (both tensor-core bodies with u and out 16-byte aligned, on a
+// persistent grid of at most `sms` times the blocks an SM holds); every
+// other case the CUDA-core generic body (head_dim <= 32).  Requires wh >= 2
+// and ww >= 2.  Returns a cudaError_t code (0 on a clean launch).
 int tmar_ngram_context(const void* u, const void* wqkv, const void* bqkv,
                        const void* logit_scale, const void* table, const void* wproj,
                        const void* bproj, const void* wmerge, const void* bmerge, void* out,
@@ -589,22 +744,51 @@ int tmar_ngram_context(const void* u, const void* wqkv, const void* bqkv,
     return (int)cudaErrorInvalidValue;
   const void* p[9] = {u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bmerge};
   cudaStream_t s = (cudaStream_t)stream;
-  if (C_ == C && D_ == D) {  // the full-width NGswin's widths
-    if (num_heads == 6 && head_dim == 5)
-      return is_bf16 ? launch_mma<6, 5>(p, out, B, wh, ww, sms, s)
-                     : launch_f32<6, 5>(p, out, B, wh, ww, s);
-    if (num_heads == 4 && head_dim == 8)
-      return is_bf16 ? launch_mma<4, 8>(p, out, B, wh, ww, sms, s)
-                     : launch_f32<4, 8>(p, out, B, wh, ww, s);
+  const bool six = num_heads == 6;
+  switch (ngram_g::body(C_, D_, num_heads, head_dim, is_bf16, true)) {
+    case ngram_g::FLAGSHIP:
+      return six ? launch_mma<6, 5>(p, out, B, wh, ww, sms, s)
+                 : launch_mma<4, 8>(p, out, B, wh, ww, sms, s);
+    case ngram_g::TEMPLATED:
+      return six ? launch_f32<6, 5>(p, out, B, wh, ww, s) : launch_f32<4, 8>(p, out, B, wh, ww, s);
+    case ngram_g::TENSOR_CORE:
+      return launch_gmma(p, out, B, wh, ww, C_, D_, num_heads, head_dim, sms, s);
+    default:
+      break;
   }
   if (is_bf16)
     return launch_generic<__nv_bfloat16>(p, out, B, wh, ww, C_, D_, num_heads, head_dim, s);
   return launch_generic<float>(p, out, B, wh, ww, C_, D_, num_heads, head_dim, s);
 }
 
-// The shared memory, in bytes, of the generic body's launch.
+// The body (ngram_g::Body, envelope.py: NGRAM_BODIES) that runs this
+// geometry at this I/O type: K7's (tmar_ngram_context_bwd_body) but for the
+// templated float32 body at the flagship's geometries, which K7 lacks.
+int tmar_ngram_context_body(int C_, int D_, int num_heads, int head_dim, int is_bf16) {
+  return ngram_g::body(C_, D_, num_heads, head_dim, is_bf16, true);
+}
+
+// The shared memory, in bytes, of the CUDA-core generic body's launch.
 long long tmar_ngram_context_smem(int C_, int num_heads, int head_dim) {
   return (long long)rt_bytes(C_, num_heads, head_dim);
+}
+
+// The shared memory, in bytes, of the tensor-core generic body on tiles of
+// S grid rows x TJ cells (one of ngram_g::FWD_TILES); -1 where the geometry
+// takes no plan.
+long long tmar_ngram_context_mma_smem(int C_, int D_, int num_heads, int head_dim, int S,
+                                      int TJ_) {
+  ngram_g::Plan P;
+  if (!ngram_g::plan(C_, D_, num_heads, head_dim, &P)) return -1;
+  return (long long)ngram_g::make_fwd_plan(C_, D_, num_heads, head_dim, S, TJ_).bytes;
+}
+
+// The tile (S · 100 + TJ) the tensor-core generic body takes for this grid
+// on `sms` SMs (ngram_g::fwd_tile; envelope.py: ngram_mma_fwd_tile).
+int tmar_ngram_context_tile(int B, int wh, int ww, int C_, int D_, int num_heads, int head_dim,
+                            int sms) {
+  const ngram_g::FwdPlan F = ngram_g::fwd_tile(B, wh, ww, C_, D_, num_heads, head_dim, sms);
+  return F.S * 100 + F.TJ;
 }
 
 const char* tmar_ngram_context_error(int err) {

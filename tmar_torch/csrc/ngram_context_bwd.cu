@@ -67,6 +67,7 @@
 //   ngram_context_kernel_backward_math does.
 
 #include "common.cuh"
+#include "ngram_generic_mma.cuh"
 #include "ngram_mma.cuh"
 
 namespace {
@@ -88,29 +89,6 @@ __device__ __forceinline__ int reflect(int r, int n) {
   return r < n ? r : n - 1;
 }
 
-// One block's slots of partial sums, the layout of the reduced result and
-// its parts: pass 2's sums first, then pass 1's, at runtime widths (C, D,
-// nh, hd); the tensor-core body's Geo below is this at C = 32, D = 64.
-struct Slots {
-  int A, A3, nh, C, D;
-  int R_DBQKV, P2SIZE;                                            // pass 2: dwqkv [C][A3], dbqkv
-  int Q_DBIAS, Q_DWPROJ, Q_DBPROJ, Q_DWM, Q_DBM, P1SIZE;          // pass 1: dscale [nh] first
-  __host__ __device__ Slots(int C_, int D_, int nh_, int hd) : nh(nh_), C(C_), D(D_) {
-    A = nh * hd;
-    A3 = 3 * A;
-    R_DBQKV = C * A3;
-    P2SIZE = R_DBQKV + A3;
-    Q_DBIAS = nh;                 // [16][nh]
-    Q_DWPROJ = Q_DBIAS + 16 * nh;  // [A][C]
-    Q_DBPROJ = Q_DWPROJ + A * C;
-    Q_DWM = Q_DBPROJ + C;          // [2C][D]
-    Q_DBM = Q_DWM + 2 * C * D;
-    P1SIZE = Q_DBM + D;
-  }
-  // the reduced result: dwqkv, dbqkv, dlogit_scale, dtable [9][nh], dwproj,
-  // dbproj, dwmerge, dbmerge
-  __host__ __device__ int total() const { return P2SIZE + 10 * nh + A * C + C + 2 * C * D + D; }
-};
 
 // The tensor-core body's pass-1 slots: Slots' at C = 32, D = 64, as constants.
 template <int NH, int HD>
@@ -1022,94 +1000,6 @@ __global__ void __launch_bounds__(256) ngram_bwd_positions_mma(
 // the block's slot at the end; ngram_bwd_reduce adds the slots.
 namespace ngram_g {
 
-constexpr int S = 2, TJ = 4, CELLS = S * TJ, ROWS = 2 * CELLS;  // a pass-1 tile
-constexpr int W2 = TJ + 2, NPOS = (S + 2) * W2, PROWS = 32;     // staged positions, 2 m-tiles
-constexpr int THREADS1 = 256, WARPS1 = THREADS1 / 32;           // pass 1
-constexpr int TP = 16, THREADS2 = 256, WARPS2 = THREADS2 / 32;  // pass 2: positions a tile
-constexpr int MAXSLOT = 18;  // windows reading one position: 2 directions x 3 x 3
-constexpr int GATHER = 4;    // pass 2: (position, column) items a thread gathers at a time
-constexpr int MAX_W = 128;   // the widest C and D
-
-// The bodies of K1 and K7 (envelope.py: NGRAM_BODIES, in this order).
-enum Body { FLAGSHIP = 0, TENSOR_CORE = 1, CUDA_CORE = 2 };
-
-inline int up(int n, int m) { return (n + m - 1) / m * m; }
-
-// The layout of one call: strides in elements, byte offsets of each region
-// (each 16-byte aligned) of the two passes' shared memory.
-struct Plan {
-  int C, D, nh, hd, A, A3, CP, DP, AP;
-  int LU, LQKV, LM, LA, LCX, LQK, LD;
-  // pass 1: bf16 wqkv [CP][LQKV] (column blk·AP + a), wproj [AP][LU], wm
-  // [2CP][LM] (row dir·CP + c); f32 bqkv [3AP] (bf16 values), bproj [CP]
-  // (bf16 values), scale [nh], bias [nh][16]; the tile's bf16 u [PROWS][LU],
-  // q_n | k_n | v [PROWS][LQKV], f32 raw q | k [PROWS][LQK], bf16 g [16][LM],
-  // f32 dctx [CELLS][2CP], bf16 dctxc [ROWS][LU], f32 dacc [ROWS][AP], bf16
-  // mean [ROWS][LA] and ctx [16][LCX], f32 ds [ROWS][16][nh], dscale shares
-  // [ROWS][nh]; f32 the block's sums [Slots::P1SIZE]
-  int c_wqkv, c_wproj, c_wm, c_bqkv, c_bproj, c_scale, c_bias, c_u, c_q, c_qk, c_g, c_dctx,
-      c_dctxc, c_dacc, c_mean, c_ctx, c_ds, c_dsc, c_acc;
-  size_t bytes1;
-  // pass 2: bf16 wqkv [CP][LQKV], f32 bqkv [3AP]; the tile's bf16 u [TP][LU],
-  // f32 raw q | k [TP][LQK], f32 slot sums then dt [TP][LD], bf16 dc
-  // [TP][LQKV]; f32 the block's sums [C·A3 + A3]; the slots' offsets
-  // [TP][MAXSLOT] (NO_SLOT where a window does not read the position)
-  int p_wqkv, p_bqkv, p_u, p_qk, p_d, p_dc, p_acc, p_slot;
-  size_t bytes2;
-};
-
-inline Plan make_plan(int C, int D, int nh, int hd) {
-  Plan P;
-  P.C = C, P.D = D, P.nh = nh, P.hd = hd, P.A = nh * hd, P.A3 = 3 * P.A;
-  P.CP = up(C, 16), P.DP = up(D, 16), P.AP = up(P.A, 16);
-  P.LU = P.CP + 8, P.LQKV = 3 * P.AP + 8, P.LM = P.DP + 8, P.LA = P.AP + 8;
-  P.LCX = 2 * P.CP + 8, P.LQK = 2 * P.AP + 4, P.LD = P.A3 + 4;
-  const Slots sl(C, D, nh, hd);
-  int at = 0;
-  auto take = [&](int nbytes) {
-    const int off = at;
-    at += up(nbytes, 16);
-    return off;
-  };
-  P.c_wqkv = take(2 * P.CP * P.LQKV), P.c_wproj = take(2 * P.AP * P.LU);
-  P.c_wm = take(2 * 2 * P.CP * P.LM), P.c_bqkv = take(4 * 3 * P.AP), P.c_bproj = take(4 * P.CP);
-  P.c_scale = take(4 * nh), P.c_bias = take(4 * 16 * nh), P.c_u = take(2 * PROWS * P.LU);
-  P.c_q = take(2 * PROWS * P.LQKV), P.c_qk = take(4 * PROWS * P.LQK), P.c_g = take(2 * 16 * P.LM);
-  P.c_dctx = take(4 * CELLS * 2 * P.CP), P.c_dctxc = take(2 * ROWS * P.LU);
-  P.c_dacc = take(4 * ROWS * P.AP), P.c_mean = take(2 * ROWS * P.LA), P.c_ctx = take(2 * 16 * P.LCX);
-  P.c_ds = take(4 * ROWS * 16 * nh), P.c_dsc = take(4 * ROWS * nh), P.c_acc = take(4 * sl.P1SIZE);
-  P.bytes1 = at;
-  at = 0;
-  P.p_wqkv = take(2 * P.CP * P.LQKV), P.p_bqkv = take(4 * 3 * P.AP), P.p_u = take(2 * TP * P.LU);
-  P.p_qk = take(4 * TP * P.LQK), P.p_d = take(4 * TP * P.LD), P.p_dc = take(2 * TP * P.LQKV);
-  P.p_acc = take(4 * sl.P2SIZE), P.p_slot = take(4 * TP * MAXSLOT);
-  P.bytes2 = at;
-  return P;
-}
-
-// The plan at (C, D, heads, head_dim) (envelope.py: ngram_mma_plan counts the
-// same), false where the body takes none: C or D not a multiple of 8 (16-byte
-// rows for cp.async) or past 128, head_dim past 32, a pass whose shared
-// memory fits no block.
-inline bool plan(int C, int D, int nh, int hd, Plan* P) {
-  if (C < 8 || C > MAX_W || C % 8 || D < 8 || D > MAX_W || D % 8 || nh < 1 || hd < 1 || hd > 32)
-    return false;
-  *P = make_plan(C, D, nh, hd);
-  return P->bytes1 <= MAX_SMEM && P->bytes2 <= MAX_SMEM;
-}
-
-// Which body runs a geometry, by geometry and I/O type alone (envelope.py:
-// ngram_body): bfloat16 at the full-width NGswin's (C 32, D 64, heads 6 x 5
-// or 4 x 8) the flagship bodies; bfloat16 this body wherever it has a plan;
-// the rest (float32, the exactness path, and what this body does not take)
-// the CUDA-core generic body.
-inline Body body(int C, int D, int nh, int hd, int is_bf16) {
-  if (is_bf16 && C == 32 && D == 64 && ((nh == 6 && hd == 5) || (nh == 4 && hd == 8)))
-    return FLAGSHIP;
-  Plan P;
-  return is_bf16 && plan(C, D, nh, hd, &P) ? TENSOR_CORE : CUDA_CORE;
-}
-
 constexpr unsigned NO_SLOT = 0xffffffffu;  // pass 2: a (direction, reader, reader) with no window
 
 // The offset (0 or 1) in its window, along one axis of length n, at which
@@ -1124,75 +1014,6 @@ __device__ __forceinline__ int reader_offset(int i, int c, int n, int dir) {
     if (r == i) return o;
   }
   return -1;
-}
-
-__device__ __forceinline__ void zero16(void* p) {
-  *reinterpret_cast<uint4*>(p) = make_uint4(0u, 0u, 0u, 0u);
-}
-
-// Start the copies of `rows` rows of `cols` bf16 (a multiple of 8) from
-// src(r) into dst [.][ld]; rows for which src(r) is null are zeroed.
-template <typename F>
-__device__ __forceinline__ void copy_rows(__nv_bfloat16* dst, int ld, int rows, int cols, F src,
-                                          int tid, int nthreads) {
-  const int c8 = cols / 8;
-  for (int e = tid; e < rows * c8; e += nthreads) {
-    const int r = e / c8, ch = e % c8;
-    const __nv_bfloat16* s = src(r);
-    if (s != nullptr)
-      cp_async16(dst + r * ld + 8 * ch, s + 8 * ch);
-    else
-      zero16(dst + r * ld + 8 * ch);
-  }
-}
-
-// Stage the parameters a pass reads, as one range of loads in flight
-// together (batched): wqkv [C, 3A] and bqkv [3A] rounded to bf16 into w
-// [CP][LQKV] (column blk·AP + a) and b [3AP] (float32 of the bf16 values);
-// for pass 1 (wp non-null) also wproj [A, C] into wp [AP][LU], wmerge [2C, D]
-// into wm [2CP][LM] (row dir·CP + c) and bproj into bp (bf16 values), the
-// scale exp(min(ls, ln 100)) into sc and the bias table as bias[h][p][q] =
-// table[idx(p, q)][h].
-__device__ __forceinline__ void stage_params(
-    const Plan& P, int tid, int nthreads, const float* __restrict__ wqkv,
-    const float* __restrict__ bqkv, __nv_bfloat16* w, float* b, const float* __restrict__ wproj,
-    const float* __restrict__ wmerge, const float* __restrict__ bproj,
-    const float* __restrict__ ls, const float* __restrict__ table, __nv_bfloat16* wp,
-    __nv_bfloat16* wm, float* bp, float* sc, float* bias) {
-  const int C = P.C, D = P.D, A = P.A, A3 = P.A3, nh = P.nh;
-  const int e1 = C * A3, e2 = e1 + A3, e3 = e2 + A * C, e4 = e3 + 2 * C * D, e5 = e4 + C;
-  const int e6 = e5 + nh, total = wp == nullptr ? e2 : e6 + 16 * nh;
-  batched<4>(total, tid, nthreads, [&](int e) {
-    // the address by selects, not branches, so that the loads go out together
-    const int k = e - e6, h = k >> 4, p = (k >> 2) & 3, q = k & 3;
-    const float* src =
-        e < e1 ? wqkv + e : e < e2 ? bqkv + (e - e1) : e < e3 ? wproj + (e - e2)
-        : e < e4 ? wmerge + (e - e3) : e < e5 ? bproj + (e - e4) : e < e6 ? ls + (e - e5)
-        : table + (((p >> 1) - (q >> 1) + 1) * 3 + ((p & 1) - (q & 1) + 1)) * nh + h;
-    return __ldg(src);
-  }, [&](int e, float v) {
-    // one division an element; the q | k | v block of a column by comparisons
-    if (e < e2) {
-      const int r = e < e1 ? e / A3 : 0, col = e < e1 ? e - r * A3 : e - e1;
-      const int blk = (col >= A) + (col >= 2 * A), at = blk * P.AP + col - blk * A;
-      if (e < e1)
-        w[r * P.LQKV + at] = __float2bfloat16(v);
-      else
-        b[at] = ngram::bf(v);
-    } else if (e < e3) {
-      const int r = (e - e2) / C;
-      wp[r * P.LU + e - e2 - r * C] = __float2bfloat16(v);
-    } else if (e < e4) {
-      const int r = (e - e3) / D, dir = r >= C;
-      wm[(r + dir * (P.CP - C)) * P.LM + e - e3 - r * D] = __float2bfloat16(v);
-    } else if (e < e5) {
-      bp[e - e4] = ngram::bf(v);
-    } else if (e < e6) {
-      sc[e - e5] = expf(fminf(v, ngram::LN100));
-    } else {
-      bias[e - e6] = v;
-    }
-  });
 }
 
 __global__ void __launch_bounds__(THREADS1) ngram_bwd_cells_gmma(
@@ -1248,28 +1069,10 @@ __global__ void __launch_bounds__(THREADS1) ngram_bwd_cells_gmma(
     // 2. q/k/v = u·wqkv + bqkv of the staged positions (q, k float32, v
     //    bf16);  dctx = g·wm_dirᵀ (float32, and bf16 as dctxc)
     for (int job = warp; job < 2 * nqc + 2 * ncc; job += WARPS1) {
-      float acc[2][4] = {};
       if (job < 2 * nqc) {
-        const int mt = job / nqc, nc = job % nqc;
-        for (int kk = 0; kk < ncc; ++kk) {
-          uint32_t a[4];
-          load_a(a, s_u, LU, 16 * mt, 16 * kk, lane);
-          mma_pair_t(acc[0], acc[1], a, s_wqkv, LQKV, 16 * nc, 16 * kk, lane);
-        }
-#pragma unroll
-        for (int n = 0; n < 2; ++n)
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int r = 16 * mt + gq + 8 * h, col = 16 * nc + 8 * n + 2 * tq;
-            const float lo = acc[n][2 * h] + s_bqkv[col], hi = acc[n][2 * h + 1] + s_bqkv[col + 1];
-            if (col >= 2 * AP) {
-              sts32(s_q + r * LQKV + col, pack_bf16(lo, hi));
-            } else {
-              s_qk[r * P.LQK + col] = lo;
-              s_qk[r * P.LQK + col + 1] = hi;
-            }
-          }
+        qkv_job(P, s_u, s_wqkv, s_bqkv, s_q, s_qk, job / nqc, job % nqc, lane);
       } else {
+        float acc[2][4] = {};
         const int dir = (job - 2 * nqc) / ncc, nc = (job - 2 * nqc) % ncc;
         for (int kk = 0; kk < ndk; ++kk) {
           uint32_t a[4];
@@ -1302,15 +1105,7 @@ __global__ void __launch_bounds__(THREADS1) ngram_bwd_cells_gmma(
         for (int e = 0; e < 4; ++e)
           s_dacc[(gq + 8 * (e >> 1)) * AP + 16 * nc + 8 * n + 2 * tq + (e & 1)] = acc[n][e] * 0.25f;
     }
-    for (int e = tid; e < NPOS * 2 * nh; e += THREADS1) {
-      const int r = e / (2 * nh), blk = (e / nh) % 2, h = e % nh;
-      const float* tv = s_qk + r * P.LQK + blk * AP + h * hd;
-      float n2 = 0.f;
-      for (int d = 0; d < hd; ++d) n2 += ngram::bf(tv[d] * tv[d]);
-      const float inv = ngram::bf(1.f / ngram::bf(sqrtf(n2) + 1e-12f));
-      __nv_bfloat16* o = s_q + r * LQKV + blk * AP + h * hd;
-      for (int d = 0; d < hd; ++d) o[d] = __float2bfloat16(tv[d] * inv);
-    }
+    norm_rows(P, s_qk, s_q, NPOS, tid, THREADS1);
     for (int e = tid; e < C + D; e += THREADS1) {
       float s = 0.f;
       if (e < C) {  // dbproj[c]: each direction's sum over the cells
@@ -1334,10 +1129,6 @@ __global__ void __launch_bounds__(THREADS1) ngram_bwd_cells_gmma(
     //    across the group: the softmax again, the mean token, then the
     //    window's cotangents into its workspace slots
     const int items = CELLS * 2 * nh, G = items * 8 <= THREADS1 ? 8 : 4, tg = tid & (G - 1);
-    auto group_sum = [&](float v) {
-      for (int o = 1; o < G; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-      return v;
-    };
     for (int base = 0; base < items; base += THREADS1 / G) {  // the same trip count in every lane
       const int e = base + tid / G, it = e < items ? e : 0;    // a spare group writes nothing
       const bool live = e < items;
@@ -1349,32 +1140,8 @@ __global__ void __launch_bounds__(THREADS1) ngram_bwd_cells_gmma(
 #pragma unroll
       for (int p = 0; p < 4; ++p) qh[p] = s_q + tok[p] * LQKV + h * hd;
       float cs[16], a[16], ab[16];  // ab: the softmax weights in bf16
-#pragma unroll
-      for (int pq = 0; pq < 16; ++pq) cs[pq] = 0.f;
-      for (int d = tg; d < hd; d += G) {
-        float qv[4], kv[4];
-#pragma unroll
-        for (int p = 0; p < 4; ++p) qv[p] = ngram::ld_bf(qh[p] + d), kv[p] = ngram::ld_bf(qh[p] + AP + d);
-#pragma unroll
-        for (int pq = 0; pq < 16; ++pq) cs[pq] += ngram::bf(qv[pq >> 2] * kv[pq & 3]);
-      }
       const float sc = s_scale[h];
-#pragma unroll
-      for (int p = 0; p < 4; ++p) {
-        float sv[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          cs[4 * p + q] = group_sum(cs[4 * p + q]);
-          sv[q] = __fadd_rn(__fmul_rn(cs[4 * p + q], sc), s_bias[h * 16 + p * 4 + q]);
-        }
-        const float m = fmaxf(fmaxf(sv[0], sv[1]), fmaxf(sv[2], sv[3]));
-        float ex[4];
-#pragma unroll
-        for (int q = 0; q < 4; ++q) ex[q] = expf(sv[q] - m);
-        const float iz = 1.f / (ex[0] + ex[1] + ex[2] + ex[3]);
-#pragma unroll
-        for (int q = 0; q < 4; ++q) a[p * 4 + q] = ex[q] * iz, ab[p * 4 + q] = ngram::bf(a[p * 4 + q]);
-      }
+      window_softmax(qh, AP, hd, tg, G, sc, s_bias + h * 16, cs, a, ab);
       const float* dacc = s_dacc + row * AP + h * hd;
       float da[4] = {0.f, 0.f, 0.f, 0.f};
       for (int d = tg; d < hd; d += G) {
@@ -1389,7 +1156,7 @@ __global__ void __launch_bounds__(THREADS1) ngram_bwd_cells_gmma(
         for (int q = 0; q < 4; ++q) da[q] += ngram::bf(dc * vv[q]);
       }
 #pragma unroll
-      for (int q = 0; q < 4; ++q) da[q] = group_sum(da[q]);
+      for (int q = 0; q < 4; ++q) da[q] = group_sum(da[q], G);
       float dp[16], dsc = 0.f;
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
@@ -1433,22 +1200,8 @@ __global__ void __launch_bounds__(THREADS1) ngram_bwd_cells_gmma(
     __syncthreads();
 
     // 5. ctx = bf16(mean·wproj + bproj);  the block's dscale and dbias
-    for (int nc = warp; nc < ncc; nc += WARPS1) {
-      float acc[2][4] = {};
-      for (int kk = 0; kk < nac; ++kk) {
-        uint32_t a[4];
-        load_a(a, s_mean, LA, 0, 16 * kk, lane);
-        mma_pair_t(acc[0], acc[1], a, s_wproj, LU, 16 * nc, 16 * kk, lane);
-      }
-#pragma unroll
-      for (int n = 0; n < 2; ++n)
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = gq + 8 * h, c = 16 * nc + 8 * n + 2 * tq;
-          sts32(s_ctx + (row >> 1) * P.LCX + (row & 1) * CP + c,
-                pack_bf16(acc[n][2 * h] + s_bproj[c], acc[n][2 * h + 1] + s_bproj[c + 1]));
-        }
-    }
+    for (int nc = warp; nc < ncc; nc += WARPS1)
+      project_job(P, s_mean, s_wproj, s_bproj, s_ctx, 0, nc, lane);
     for (int e = tid; e < 17 * nh; e += THREADS1) {
       float s = 0.f;
       if (e < nh) {

@@ -9,17 +9,12 @@
 //   z = y + LN2(fc2(GELU(fc1(y))))     GELU with the TPU kernel's erf (gelu.cuh)
 // on [M, D] token rows with an H-wide hidden layer, for any M: the last
 // tile is ragged, nothing is padded.  LayerNorm statistics and the GELU are
-// float32 whatever the I/O type.  Three bodies:
+// float32 whatever the I/O type.  Four bodies, picked by the widths and the
+// I/O type alone (ffn_g::body, the rule K6 follows too, and
+// tmar_torch/ops/envelope.py:ffn_body):
 //
 // The body templated on the full-width NGswin's (D, H) = (64, 128) runs
 // float32 there: a 64-row tile and both weights in shared memory.
-//
-// The generic body takes D and H at run time (every other width, at
-// float32 and bfloat16): a
-// persistent block walks over tiles of 64 rows held in shared memory, sized
-// at launch; the weights are read from device memory (L2) through their
-// strides, so no width is refused for its weights.  Products on the CUDA
-// cores in float32; at bfloat16 it rounds where ffn_kernel_math does.
 //
 // The tensor-core body (bfloat16 at D = 64, H = 128) rounds where _ffn_kernel rounds
 // when the block feeds it bf16 (tmar/nn/blocks.py:148-155): w1 and w2, y
@@ -33,8 +28,39 @@
 // that the next strip loads while this one computes; LN1, fc1, GELU, fc2 and
 // LN2 run in the warp's registers on mma.sync (ffn_mma.cuh, the same code as
 // K2/K8's FFN tail), and z goes back through the x strip as 16-byte stores.
+//
+// The tensor-core generic body (bfloat16 at every other width with a plan:
+// D a multiple of 8 up to 128) is the same chain with the widths at run
+// time, on K6's generic plan rules (ffn_generic_mma.cuh: FwdPlan, the strip
+// helpers, D padded to 16 up to the fragment width DM of 32, 64 or 128 and
+// the hidden width to 16, zeros in the padding, the LayerNorms over the true
+// D).  It rounds where the flagship body rounds.  What bounds it on an H100:
+// bytes at the demo width (D 32, hidden 64: 8.2 kFLOP a row against 192
+// bytes), operations at the envelope's top (D 128, hidden 512: 262 kFLOP a
+// row against 768 bytes, about 341 FLOP/byte).  Design: blocks of 8 warps;
+// each warp keeps y, its bf16 A fragments and fc2's accumulators of a 16-row
+// strip in registers and walks the hidden width in 16-column chunks (fc1 on
+// mma.sync, the GELU, the chunk re-packed as fc2's A fragment).  The weights
+// are rounded to bf16 from the float32 parameters in the kernel: where both
+// fit a block ("resident") once per persistent block, and then each warp
+// walks its own strips, x and attn_out arriving by cp.async double-buffered,
+// with no block barrier, one launch; else ("streamed", the envelope's top:
+// 272 KB of bf16 weights at D 128, hidden 512) a weights kernel first rounds
+// them once per call into scratch in the staged layout (K6's, ffn_g::
+// round_weights), and the block walks tiles of 128 rows, staging 64 hidden
+// columns of w1 and rows of w2 at a time by cp.async, two stages in turn so
+// that the next loads while this one computes: two launches.
+//
+// The CUDA-core generic body takes D and H at run time (float32 at every
+// other width, and bfloat16 where the tensor-core generic body takes no
+// plan): a persistent block walks over tiles of 64 rows held in shared
+// memory, sized at launch; the weights are read from device memory (L2)
+// through their strides, so no width is refused for its weights.  Products
+// on the CUDA cores in float32; at bfloat16 it rounds where ffn_kernel_math
+// does.
 
 #include "common.cuh"
+#include "ffn_generic_mma.cuh"
 #include "ffn_mma.cuh"
 
 namespace {
@@ -320,6 +346,305 @@ int launch_mma(const void* const* p, int w1_k, int w1_n, int w2_k, int w2_n, voi
   return (int)cudaGetLastError();
 }
 
+// ---- the tensor-core generic body: bfloat16 at any planned (D, H) -----------
+namespace fwd_g {
+
+using ffn_g::FwdPlan;
+
+// w1 [D, H] and w2 [H, D] (read as w[k·w_k + n·w_n]) rounded to bf16 into
+// s_w1 [HP][ld1] (w1 transposed) and s_w2 [DP][ld2] (w2 transposed), columns
+// past H as zeros, by the block (the resident weights, once per block); each
+// weight is walked along its unit stride where it has one, its loads eight a
+// thread in flight together
+__device__ __forceinline__ void stage_weights(__nv_bfloat16* s_w1, __nv_bfloat16* s_w2,
+                                              const FwdPlan& F, const float* __restrict__ w1,
+                                              int w1_k, int w1_n, const float* __restrict__ w2,
+                                              int w2_k, int w2_n, int tid) {
+  const int D = F.D, H = F.H, n = F.HP, n1 = n * D;
+  const bool h1 = w1_n == 1, h2 = w2_k == 1;  // the hidden index along the unit stride
+  auto at = [&](int e, int& h, int& d) {
+    const bool second = e >= n1, hf = second ? h2 : h1;
+    const int i = second ? e - n1 : e;
+    h = hf ? i % n : i / D;
+    d = hf ? i / n : i % D;
+  };
+  batched<8>(2 * n1, tid, ffn_g::THREADS, [&](int e) {
+    int h, d;
+    at(e, h, d);
+    if (h >= H) return 0.f;
+    return __ldg(e >= n1 ? w2 + (size_t)h * w2_k + (size_t)d * w2_n
+                         : w1 + (size_t)d * w1_k + (size_t)h * w1_n);
+  }, [&](int e, float v) {
+    int h, d;
+    at(e, h, d);
+    if (e >= n1)
+      s_w2[d * F.ld2 + h] = __float2bfloat16(v);
+    else
+      s_w1[h * F.ld1 + d] = __float2bfloat16(v);
+  });
+}
+
+// y = x + (LN1(attn_out)·g1 + b1) of the strip st (x rows, then attn_out
+// rows at st + 16·LDX), over the true D, and its bf16 A fragments ya
+template <int DM>
+__device__ __forceinline__ void residual_ln1(const __nv_bfloat16* st, const FwdPlan& F,
+                                             const float* g1, const float* b1, float eps,
+                                             float (&y)[DM / 8][4], uint32_t (&ya)[DM / 16][4],
+                                             int lane) {
+  constexpr int DT = DM / 8;
+  const int t = lane & 3;
+  float xv[DT][4], inv[2];
+  ffn_g::read_strip(st + 16 * F.LDX, F.LDX, y, F.D8, lane);
+  ffn_g::normalize_rows(y, eps, inv, F.D8);
+  ffn_g::read_strip(st, F.LDX, xv, F.D8, lane);
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * j + 2 * t + (e & 1);
+      y[j][e] = xv[j][e] + (y[j][e] * g1[c] + b1[c]);
+    }
+#pragma unroll
+  for (int kk = 0; kk < DM / 16; ++kk) to_a(ya[kk], y[2 * kk], y[2 * kk + 1]);
+}
+
+// o += bf16(GELU(yc·w1 + bw1))·w2 over hidden columns [h0, h0 + n), the
+// weights staged from hidden column `base` (s_w1 [h - base][ld1], s_w2
+// [d][ld2] at column h - base)
+template <int DM>
+__device__ __forceinline__ void hidden_chunks(const uint32_t (&ya)[DM / 16][4], float (&o)[DM / 8][4],
+                                              const __nv_bfloat16* s_w1,
+                                              const __nv_bfloat16* s_w2, const float* bw1,
+                                              const FwdPlan& F, int h0, int n, int base,
+                                              int lane) {
+  constexpr int DK = DM / 16;
+  const int t = lane & 3, dk = F.dk;
+#pragma unroll 1
+  for (int h = h0; h < h0 + n; h += 16) {
+    float hid[2][4];
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int c = h + 8 * hf + 2 * t;
+      hid[hf][0] = hid[hf][2] = bw1[c];
+      hid[hf][1] = hid[hf][3] = bw1[c + 1];
+    }
+#pragma unroll
+    for (int kk = 0; kk < DK; ++kk) {
+      if (kk >= dk) break;
+      mma_pair(hid[0], hid[1], ya[kk], s_w1, F.ld1, h - base, 16 * kk, lane);
+    }
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hid[hf][e] = act::gelu(hid[hf][e]);
+    uint32_t ha[4];
+    to_a(ha, hid[0], hid[1]);
+#pragma unroll
+    for (int n2 = 0; n2 < DK; ++n2) {
+      if (n2 >= dk) break;
+      mma_pair(o[2 * n2], o[2 * n2 + 1], ha, s_w2, F.ld2, 16 * n2, h - base, lane);
+    }
+  }
+}
+
+// z = y + (LN2(o)·g2 + b2) -> bf16 into the x rows of the strip, then rows
+// [row0, row0 + 16) of out, those below M
+template <int DM>
+__device__ __forceinline__ void finish(float (&o)[DM / 8][4], const float (&y)[DM / 8][4],
+                                       __nv_bfloat16* st, const FwdPlan& F, const float* g2,
+                                       const float* b2, float eps, __nv_bfloat16* out,
+                                       long row0, long M, int lane) {
+  const int t = lane & 3;
+  float inv[2];
+  ffn_g::normalize_rows(o, eps, inv, F.D8);
+#pragma unroll
+  for (int j = 0; j < DM / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = 8 * j + 2 * t + (e & 1);
+      o[j][e] = (o[j][e] * g2[c] + b2[c]) + y[j][e];
+    }
+  ffn_g::write_strip(st, F.LDX, o, F.D8, lane);
+  __syncwarp();
+  ffn_g::store_rows(out, st, row0, M, F.D, F.LDX, lane);
+  __syncwarp();  // the strip is read before it is refilled
+}
+
+template <int DM>
+__global__ void __launch_bounds__(ffn_g::THREADS, DM == 128 ? 1 : 2) residual_ffn_fwd_gmma(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ ao,
+    const float* __restrict__ g1, const float* __restrict__ b1, const float* __restrict__ w1,
+    int w1_k, int w1_n, const float* __restrict__ bw1, const float* __restrict__ w2, int w2_k,
+    int w2_n, const float* __restrict__ bw2, const float* __restrict__ g2,
+    const float* __restrict__ b2, const __nv_bfloat16* __restrict__ gw1,
+    const __nv_bfloat16* __restrict__ gw2, __nv_bfloat16* __restrict__ out, long M, FwdPlan F,
+    float eps) {
+  constexpr int DT = DM / 8, DK = DM / 16, WARPS = ffn_g::WARPS, NT = ffn_g::THREADS;
+  extern __shared__ float4 smem4[];
+  float* sf = reinterpret_cast<float*>(smem4);
+  float *s_g1 = sf, *s_b1 = sf + F.DP, *s_g2 = sf + 2 * F.DP, *s_b2 = sf + 3 * F.DP;
+  float *s_bw2 = sf + 4 * F.DP, *s_bw1 = sf + 5 * F.DP;
+  __nv_bfloat16* s_w1 = reinterpret_cast<__nv_bfloat16*>(sf + F.floats);
+  __nv_bfloat16* s_w2 = s_w1 + F.w2off;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, t = lane & 3;
+  const int D = F.D, LDX = F.LDX;
+  __nv_bfloat16* mine = s_w1 + F.welems + warp * F.strip_elems;
+
+  // once per block: zeros (the padding of the weights and strips), the
+  // float32 vectors, resident weights
+  for (int i = tid; i < (F.welems + WARPS * F.strip_elems) / 8; i += NT)
+    reinterpret_cast<uint4*>(s_w1)[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int n = tid; n < F.DP; n += NT) {
+    const bool in = n < D;
+    s_g1[n] = in ? g1[n] : 0.f;
+    s_b1[n] = in ? b1[n] : 0.f;
+    s_g2[n] = in ? g2[n] : 0.f;
+    s_b2[n] = in ? b2[n] : 0.f;
+    s_bw2[n] = in ? bw2[n] : 0.f;
+  }
+  for (int n = tid; n < F.HP; n += NT) s_bw1[n] = n < F.H ? bw1[n] : 0.f;
+  __syncthreads();  // the zeros are down before the weights go over them
+  if (F.resident) stage_weights(s_w1, s_w2, F, w1, w1_k, w1_n, w2, w2_k, w2_n, tid);
+  __syncthreads();
+
+  auto load = [&](long row0, __nv_bfloat16* st) {
+    ffn_g::load_rows(st, x, row0, M, D, LDX, lane);
+    ffn_g::load_rows(st + 16 * LDX, ao, row0, M, D, LDX, lane);
+    cp_async_commit();
+  };
+  auto init = [&](float (&o)[DT][4]) {
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      const int c = 8 * j + 2 * t;
+      o[j][0] = o[j][2] = s_bw2[c];
+      o[j][1] = o[j][3] = s_bw2[c + 1];
+    }
+  };
+
+  if (F.resident) {
+    // each warp walks its strips, the next one loading while this one computes
+    const long strips = (M + 15) / 16, stride = (long)gridDim.x * WARPS;
+    long strip = (long)blockIdx.x * WARPS + warp;
+    if (strip < strips) load(16 * strip, mine);
+    for (int it = 0; strip < strips; ++it, strip += stride) {
+      __nv_bfloat16* cur = mine + (it & 1) * 2 * 16 * LDX;
+      if (strip + stride < strips)
+        load(16 * (strip + stride), mine + ((it + 1) & 1) * 2 * 16 * LDX);
+      else
+        cp_async_commit();  // an empty group keeps the wait below uniform
+      cp_async_wait_prior();
+      __syncwarp();  // every lane's copies of this strip have landed
+      float y[DT][4], o[DT][4];
+      uint32_t ya[DK][4];
+      residual_ln1<DM>(cur, F, s_g1, s_b1, eps, y, ya, lane);
+      init(o);
+      hidden_chunks<DM>(ya, o, s_w1, s_w2, s_bw1, F, 0, F.HP, 0, lane);
+      finish<DM>(o, y, cur, F, s_g2, s_b2, eps, out, 16 * strip, M, lane);
+    }
+    return;
+  }
+  // streamed: the block walks tiles of 128 rows, a strip a warp; the bf16
+  // weights of round_weights' layout (gw1 [HP][ld1], gw2 [DP][HP + 8]) come
+  // CHUNK hidden columns a stage by cp.async, two stages in turn, the next
+  // one loading while this one computes
+  const int chunks = (F.HP + ffn_g::CHUNK - 1) / ffn_g::CHUNK, gld2 = F.HP + 8;
+  auto stage = [&](int k) {
+    const int c0 = k * ffn_g::CHUNK, n = min(ffn_g::CHUNK, F.HP - c0), r1 = F.ld1 / 8, r2 = n / 8;
+    __nv_bfloat16* b1w = s_w1 + (k & 1) * F.stage_elems;
+    __nv_bfloat16* b2w = b1w + F.w2off;
+    for (int c = tid; c < n * r1; c += NT)
+      cp_async16(b1w + (c / r1) * F.ld1 + 8 * (c % r1), gw1 + (size_t)(c0 + c / r1) * F.ld1 + 8 * (c % r1));
+    for (int c = tid; c < F.DP * r2; c += NT)
+      cp_async16(b2w + (c / r2) * F.ld2 + 8 * (c % r2), gw2 + (size_t)(c / r2) * gld2 + c0 + 8 * (c % r2));
+    cp_async_commit();
+  };
+  const long tiles = (M + ffn_g::TILE - 1) / ffn_g::TILE;
+  for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const long row0 = tile * ffn_g::TILE + 16 * warp;
+    load(row0, mine);
+    stage(0);
+    cp_async_wait_all();
+    __syncthreads();  // every thread's copies of the strips and stage 0 have landed
+    float y[DT][4], o[DT][4];
+    uint32_t ya[DK][4];
+    residual_ln1<DM>(mine, F, s_g1, s_b1, eps, y, ya, lane);
+    init(o);
+#pragma unroll 1
+    for (int k = 0; k < chunks; ++k) {
+      if (k + 1 < chunks) stage(k + 1);
+      const int c0 = k * ffn_g::CHUNK;
+      const __nv_bfloat16* b1w = s_w1 + (k & 1) * F.stage_elems;
+      hidden_chunks<DM>(ya, o, b1w, b1w + F.w2off, s_bw1, F, c0, min(ffn_g::CHUNK, F.HP - c0), c0,
+                        lane);
+      cp_async_wait_all();
+      __syncthreads();  // the next stage has landed; every warp is done with this one
+    }
+    finish<DM>(o, y, mine, F, s_g2, s_b2, eps, out, row0, M, lane);
+  }
+}
+
+// The streamed body's weights, rounded to bf16 once per call into scratch
+// (ffn_g::round_weights, the layout K6's weights kernel writes)
+__global__ void residual_ffn_fwd_gmma_weights(const float* __restrict__ w1, int w1_k, int w1_n,
+                                              const float* __restrict__ w2, int w2_k, int w2_n,
+                                              __nv_bfloat16* __restrict__ gw1,
+                                              __nv_bfloat16* __restrict__ gw2, int D, int H,
+                                              int DP, int HP) {
+  ffn_g::round_weights(w1, w1_k, w1_n, w2, w2_k, w2_n, gw1, gw2, D, H, DP, HP);
+}
+
+// The floats of scratch this body needs at (D, H): the streamed weights', 0
+// where they are resident
+size_t workspace(const FwdPlan& F) { return F.resident ? 0 : ffn_g::weights_floats(F.DP, F.HP); }
+
+template <int DM>
+int launch_t(const void* const* p, int w1_k, int w1_n, int w2_k, int w2_n, void* out,
+             void* scratch, long M, const FwdPlan& F, float eps, cudaStream_t stream) {
+  __nv_bfloat16* gw1 = reinterpret_cast<__nv_bfloat16*>(scratch);
+  __nv_bfloat16* gw2 = gw1 == nullptr ? nullptr : gw1 + F.HP * F.ld1;
+  if (!F.resident) {
+    if (gw1 == nullptr) return (int)cudaErrorInvalidValue;
+    residual_ffn_fwd_gmma_weights<<<ffn_g::weights_blocks(F.DP, F.HP), 256, 0, stream>>>(
+        (const float*)p[4], w1_k, w1_n, (const float*)p[6], w2_k, w2_n, gw1, gw2, F.D, F.H, F.DP,
+        F.HP);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  static int cache[64][3] = {};
+  int total = 0;
+  const int err = tmar::persistent_grid(residual_ffn_fwd_gmma<DM>, F.bytes, ffn_g::THREADS, cache,
+                                        &total);
+  if (err != 0) return err;
+  // work units: a warp's strips resident, a block's tiles streamed
+  const long units = F.resident ? ((M + 15) / 16 + ffn_g::WARPS - 1) / ffn_g::WARPS
+                                : (M + ffn_g::TILE - 1) / ffn_g::TILE;
+  const int blocks = (int)(units < total ? units : total);
+  residual_ffn_fwd_gmma<DM><<<blocks, ffn_g::THREADS, F.bytes, stream>>>(
+      (const __nv_bfloat16*)p[0], (const __nv_bfloat16*)p[1], (const float*)p[2],
+      (const float*)p[3], (const float*)p[4], w1_k, w1_n, (const float*)p[5], (const float*)p[6],
+      w2_k, w2_n, (const float*)p[7], (const float*)p[8], (const float*)p[9], gw1, gw2,
+      (__nv_bfloat16*)out, M, F, eps);
+  return (int)cudaGetLastError();
+}
+
+// This body on bf16 x, attn_out and out (16-byte aligned); p as
+// tmar_residual_ffn_fwd's, scratch of workspace(F) floats (16-byte
+// aligned).  One launch with resident weights, two streamed (the weights
+// kernel first).  cudaErrorInvalidValue where it takes no plan.
+int launch(const void* const* p, int w1_k, int w1_n, int w2_k, int w2_n, void* out,
+           void* scratch, long M, int D, int H, float eps, cudaStream_t s) {
+  FwdPlan F;
+  if (!ffn_g::fwd_plan(D, H, &F)) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)p[0] | (uintptr_t)p[1] | (uintptr_t)out | (uintptr_t)scratch) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  const int DM = ffn_g::dm_of(F.DP);
+  if (DM == 32) return launch_t<32>(p, w1_k, w1_n, w2_k, w2_n, out, scratch, M, F, eps, s);
+  if (DM == 64) return launch_t<64>(p, w1_k, w1_n, w2_k, w2_n, out, scratch, M, F, eps, s);
+  return launch_t<128>(p, w1_k, w1_n, w2_k, w2_n, out, scratch, M, F, eps, s);
+}
+
+}  // namespace fwd_g
+
 template <typename T>
 int launch(const void* const* p, int w1_k, int w1_n, int w2_k, int w2_n, void* out, long M,
            float eps, int blocks, cudaStream_t stream) {
@@ -356,28 +681,61 @@ extern "C" {
 // x, attn_out [M, D] (float32 or bfloat16, per is_bf16) -> out of the same
 // shape and type.  All parameters are float32: LN gains and biases g1, b1,
 // g2, b2 [D]; w1 [D, H] and w2 [H, D] are read as w[k·w_k + n·w_n]; bw1 [H],
-// bw2 [D].  bfloat16 at (D, H) = (64, 128) runs the tensor-core body (x,
-// attn_out and out 16-byte aligned); every other case the generic body.
-// `blocks` is the number of persistent blocks.  Returns a cudaError_t code
-// (0 on a clean launch).
+// bw2 [D].  The body is ffn_g::body's: at (D, H) = (64, 128) the tensor-core
+// body (bfloat16) or the templated one (float32); bfloat16 wherever it has a
+// plan the tensor-core generic body (both with x, attn_out and out 16-byte
+// aligned, each on its own persistent grid; the generic one reads `scratch`,
+// tmar_residual_ffn_fwd_workspace's floats, null where that is 0); else the
+// CUDA-core generic body.  `blocks` is the number of persistent blocks of
+// the templated and CUDA-core bodies.  Returns a cudaError_t code (0 on a
+// clean launch).
 int tmar_residual_ffn_fwd(const void* x, const void* ao, const void* g1, const void* b1,
                           const void* w1, const void* bw1, const void* w2, const void* bw2,
-                          const void* g2, const void* b2, void* out, long long M, int D, int H,
-                          int w1_k, int w1_n, int w2_k, int w2_n, float eps, int blocks,
-                          int is_bf16, void* stream) {
+                          const void* g2, const void* b2, void* out, void* scratch, long long M,
+                          int D, int H, int w1_k, int w1_n, int w2_k, int w2_n, float eps,
+                          int blocks, int is_bf16, void* stream) {
   if (M < 1 || D < 1 || H < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
   const void* p[10] = {x, ao, g1, b1, w1, bw1, w2, bw2, g2, b2};
   cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16 && D == 64 && H == 128)
-    return launch_mma(p, w1_k, w1_n, w2_k, w2_n, out, (long)M, eps, blocks, s);
-  if (!is_bf16 && D == 64 && H == 128)
-    return launch<float>(p, w1_k, w1_n, w2_k, w2_n, out, (long)M, eps, blocks, s);
+  switch (ffn_g::body(D, H, is_bf16)) {
+    case ffn_g::FLAGSHIP:
+      return launch_mma(p, w1_k, w1_n, w2_k, w2_n, out, (long)M, eps, blocks, s);
+    case ffn_g::TEMPLATED:
+      return launch<float>(p, w1_k, w1_n, w2_k, w2_n, out, (long)M, eps, blocks, s);
+    case ffn_g::TENSOR_CORE:
+      return fwd_g::launch(p, w1_k, w1_n, w2_k, w2_n, out, scratch, (long)M, D, H, eps, s);
+    default:
+      break;
+  }
   if (is_bf16)
     return launch_rt<__nv_bfloat16>(p, w1_k, w1_n, w2_k, w2_n, out, (long)M, D, H, eps, blocks, s);
   return launch_rt<float>(p, w1_k, w1_n, w2_k, w2_n, out, (long)M, D, H, eps, blocks, s);
 }
 
-// The shared memory, in bytes, of the generic body's launch at (D, H).
+// The body (ffn_g::Body, envelope.py: FFN_BODIES) that runs (D, H) at this
+// I/O type: K6's (tmar_residual_ffn_bwd_body), by the same rule.
+int tmar_residual_ffn_fwd_body(int D, int H, int is_bf16) { return ffn_g::body(D, H, is_bf16); }
+
+// The floats of scratch tmar_residual_ffn_fwd needs at (D, H) and this I/O
+// type, into *floats: the tensor-core generic body's streamed weights, else
+// 0.  Returns a cudaError_t code.
+int tmar_residual_ffn_fwd_workspace(int D, int H, int is_bf16, long long* floats) {
+  if (D < 1 || H < 1) return (int)cudaErrorInvalidValue;
+  ffn_g::FwdPlan F;
+  *floats = ffn_g::body(D, H, is_bf16) == ffn_g::TENSOR_CORE && ffn_g::fwd_plan(D, H, &F)
+                ? (long long)fwd_g::workspace(F)
+                : 0;
+  return 0;
+}
+
+// The shared memory, in bytes, of the tensor-core generic body's plan at
+// (D, H); -1 where it takes none.
+long long tmar_residual_ffn_fwd_mma_smem(int D, int H) {
+  ffn_g::FwdPlan F;
+  return ffn_g::fwd_plan(D, H, &F) ? (long long)F.bytes : -1;
+}
+
+// The shared memory, in bytes, of the CUDA-core generic body's launch at (D, H).
 long long tmar_residual_ffn_fwd_smem(int D, int H) { return (long long)rt_bytes(D, H); }
 
 const char* tmar_residual_ffn_fwd_error(int err) {

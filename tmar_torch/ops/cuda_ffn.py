@@ -20,9 +20,10 @@ The I/O dtype and the widths pick the body.  At the full-width NGswin's
 (D, hidden) = (64, 128) (``KERNEL_DIMS``) bfloat16 runs the tensor-core
 bodies and float32 bodies templated on the widths; every other width the
 generic bodies, which take D and hidden at run time, within
-``envelope.ffn_envelope``: K6 at bfloat16 its tensor-core generic body
-wherever that has a plan, and the CUDA-core one elsewhere (one rule,
-``envelope.ffn_body``, which the CUDA source applies itself).  At bfloat16
+``envelope.ffn_envelope``: K5 and K6 at bfloat16 their tensor-core
+generic bodies wherever those have a plan, and the CUDA-core ones elsewhere
+(one rule, ``envelope.ffn_body``, which the CUDA sources apply
+themselves).  At bfloat16
 all round to bf16 where
 ``_ffn_kernel`` and ``_ffn_bwd_kernel`` do, with the weights cast to the
 activation dtype as ``tmar/nn/blocks.py`` casts them: w1 and w2, y before
@@ -267,16 +268,39 @@ def _kernel_operands(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps):
 
 
 def _launch(operands, geo):
-    """K5 on laid-out operands: -> z."""
+    """K5 on laid-out operands: -> z.  The tensor-core generic body with
+    its weights streamed also reads scratch (``_fwd_workspace``)."""
     x = operands[0]
     out = torch.empty_like(x)
+    n = _fwd_workspace(geo)
+    scratch = torch.empty(n, device=x.device, dtype=torch.float32) if n else None
     kernels.launch(
         "residual_ffn_fwd", _FWD_ARGTYPES, x.device,
-        *[t.data_ptr() for t in operands], out.data_ptr(), x.shape[0], geo.D, geo.H,
+        *[t.data_ptr() for t in operands], out.data_ptr(),
+        0 if scratch is None else scratch.data_ptr(), x.shape[0], geo.D, geo.H,
         *geo.strides, geo.eps, geo.fwd_blocks, geo.is_bf16,
     )
     fused_residual_ffn.launches += 1
     return out
+
+
+_fwd_workspace_floats = {}  # K5's (D, hidden, bf16) -> floats of scratch
+
+
+def _fwd_workspace(geo):
+    """The floats of scratch K5 needs at this geometry (the tensor-core
+    generic body's bf16 weights where they are streamed, else 0), asked of
+    the library once per geometry."""
+    key = (geo.D, geo.H, geo.is_bf16)
+    n = _fwd_workspace_floats.get(key)
+    if n is None:
+        query = kernels.host_function(
+            "residual_ffn_fwd", "tmar_residual_ffn_fwd_workspace",
+            [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_longlong)], ctypes.c_int)
+        out = ctypes.c_longlong(0)
+        kernels.check("residual_ffn_fwd", query(*key, ctypes.byref(out)))
+        n = _fwd_workspace_floats[key] = out.value
+    return n
 
 
 def _launch_backward(operands, dz, geo):
@@ -323,7 +347,7 @@ def _workspace(M, geo):
 
 _P = ctypes.c_void_p
 _TAIL = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P]
-_FWD_ARGTYPES = [_P] * 11 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + _TAIL
+_FWD_ARGTYPES = [_P] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + _TAIL
 _BWD_ARGTYPES = [_P] * 14 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + _TAIL
 
 

@@ -14,9 +14,10 @@ float32 parameters; u, the output and du are float32 or bfloat16, the
 parameter cotangents float32.  bfloat16 at the full-width NGswin's widths
 (``MMA_GEOMETRIES``) runs the tensor-core bodies; every other case the
 generic bodies, which take C, D, the heads and head_dim at run time within
-``envelope.ngram_envelope``: K7 at bfloat16 its tensor-core generic body
-wherever that has a plan, and the CUDA-core one elsewhere (one rule,
-``envelope.ngram_body``, which the CUDA source applies itself).  At
+``envelope.ngram_envelope``: K1 and K7 at bfloat16 their tensor-core
+generic bodies wherever those have a plan, and the CUDA-core ones elsewhere
+(one rule, ``envelope.ngram_body``, which the CUDA sources apply
+themselves; K1's float32 at the full-width widths is its templated body).  At
 bfloat16 all round to bf16 where
 ``_ngram_stripe_kernel`` and ``_ngram_bwd_stripe_kernel`` do, with the
 parameters rounded as ``tmar/nn/ngram.py`` casts them, and return dwqkv,

@@ -3,8 +3,9 @@
 Each kernel has a runtime-dimension body (``csrc/*.cu``, "the generic
 body") beside the full-width NGswin's bodies, which takes D, hidden, C, the
 head count, head_dim and the window length at run time and sizes its
-dynamic shared memory at launch.  K2/K8 have two: a tensor-core one for
-bfloat16 and a CUDA-core one; ``nstb_body`` says which body runs a block.
+dynamic shared memory at launch.  Each has two: a tensor-core one for
+bfloat16 and a CUDA-core one; ``nstb_body``, ``attention_body``,
+``ffn_body`` and ``ngram_body`` say which body runs a call.
 What bounds it is the card's opt-in shared memory per block
 (``cudaDevAttrMaxSharedMemoryPerBlockOptin``, 232,448 bytes on an H100) and
 the per-thread head registers (head_dim <= 32).  The functions below count
@@ -32,7 +33,7 @@ H100_SMEM_PER_SM = 233472
 HEAD_DIM_MAX = 32   # the generic bodies keep a head's row in registers
 ROWS = 64           # token rows of a window-attention / FFN-forward tile
 THREADS = 256       # threads of a generic block
-NGRAM_TJ = 32       # K1's cells per block (a grid row's segment)
+NGRAM_TJ = 32       # K1's CUDA-core generic body's cells per block (a grid row's segment)
 NGRAM_BWD_TJ = 16   # K7's cells per pass-1 tile
 NGRAM_BWD_TP = 32   # K7's positions per pass-2 tile
 
@@ -102,12 +103,12 @@ def ffn_envelope(D: int, H: int, device: Optional[torch.device] = None):
 
 
 # the bodies of K5 and K6, in the order of the CUDA sources' codes (ffn_g::Body
-# in csrc/ffn_generic_mma.cuh); K5 runs its own two and the CUDA-core one
+# in csrc/ffn_generic_mma.cuh); each kernel has all four
 FFN_BODIES = ("flagship", "templated", "tensor-core generic", "CUDA-core generic")
 FFN_KERNEL_DIMS = (64, 128)  # the full-width NGswin's (D, hidden)
-FFN_MMA_WARPS = 8     # warps of K6's tensor-core generic block
-FFN_MMA_CHUNK = 64    # hidden columns of one of its streamed stages
-FFN_MMA_MAX_D = 128   # the widest D its fragment arrays take
+FFN_MMA_WARPS = 8     # warps of K5's and K6's tensor-core generic blocks
+FFN_MMA_CHUNK = 64    # hidden columns of one of their streamed stages
+FFN_MMA_MAX_D = 128   # the widest D their fragment arrays take
 
 
 def _ffn_units(DP: int) -> int:
@@ -151,20 +152,49 @@ def ffn_mma_plan(D: int, H: int) -> Optional[Tuple[bool, int, int, int]]:
     return None
 
 
+def ffn_mma_fwd_bytes(D: int, H: int, resident: bool) -> int:
+    """K5's tensor-core generic body (``csrc/ffn_generic_mma.cuh``:
+    ``make_fwd_plan``): float32 g1, b1, g2, b2, bw2 [DP] and bw1 [HP]; the
+    bf16 weights, w1 as [h][DP + 8] and w2 as [DP][h + 8], all hidden
+    columns (``resident``) or two stages of 64; per warp its x and attn_out
+    strips [16][DP + 8], two stages of them where the weights are
+    resident."""
+    DP, HP = _up(D, 16), _up(H, 16)
+    cols = HP if resident else FFN_MMA_CHUNK
+    floats = _up(5 * DP + HP, 4)
+    welems = (1 if resident else 2) * (cols * (DP + 8) + DP * (cols + 8))
+    strips = (4 if resident else 2) * 16 * (DP + 8)
+    return 4 * floats + 2 * (welems + FFN_MMA_WARPS * strips)
+
+
+def ffn_mma_fwd_plan(D: int, H: int) -> Optional[Tuple[bool, int]]:
+    """-> (resident, bytes) of K5's tensor-core generic body's launch
+    (``csrc/ffn_generic_mma.cuh``: ``fwd_plan``), or None where it takes
+    none (D not a multiple of 8 or past 128, what fits no block): resident
+    weights where they fit, else streamed 64 hidden columns at a time."""
+    if not (8 <= D <= FFN_MMA_MAX_D and D % 8 == 0 and H >= 1):
+        return None
+    for resident in (True, False):
+        nbytes = ffn_mma_fwd_bytes(D, H, resident)
+        if nbytes <= H100_SMEM_PER_BLOCK:
+            return resident, nbytes
+    return None
+
+
 @functools.lru_cache(maxsize=None)
 def ffn_body(D: int, H: int, dtype: torch.dtype) -> str:
-    """The body of K6 that runs width D, hidden H at I/O type ``dtype`` (one
-    of ``FFN_BODIES``), by geometry and dtype alone, as the CUDA source's
-    ``ffn_g::body`` picks it: the full-width NGswin's (64, 128) its own
-    bodies (bfloat16 the tensor-core one, float32 the one templated on the
-    widths); bfloat16 the tensor-core generic body wherever it has a plan
-    (``ffn_mma_plan``); the rest (float32, the exactness path, and widths
-    that body does not take) the CUDA-core generic body.  K5 follows the same
-    rule but for the tensor-core generic body (ROADMAP queue 2)."""
+    """The body of K5 and of K6 that runs width D, hidden H at I/O type
+    ``dtype`` (one of ``FFN_BODIES``), by geometry and dtype alone, as the
+    CUDA sources' ``ffn_g::body`` picks it: the full-width NGswin's (64,
+    128) their own bodies (bfloat16 the tensor-core ones, float32 the ones
+    templated on the widths); bfloat16 the tensor-core generic bodies
+    wherever both have a plan (``ffn_mma_plan``, ``ffn_mma_fwd_plan``); the
+    rest (float32, the exactness path, and widths those bodies do not take)
+    the CUDA-core generic bodies."""
     bf16 = dtype == torch.bfloat16
     if (D, H) == FFN_KERNEL_DIMS:
         return FFN_BODIES[0] if bf16 else FFN_BODIES[1]
-    if bf16 and ffn_mma_plan(D, H) is not None:
+    if bf16 and ffn_mma_plan(D, H) is not None and ffn_mma_fwd_plan(D, H) is not None:
         return FFN_BODIES[2]
     return FFN_BODIES[3]
 
@@ -384,8 +414,9 @@ def ngram_envelope(C: int, D: int, nh: int, hd: int, device: Optional[torch.devi
 
 
 # the bodies of K1 and K7, in the order of the CUDA sources' codes (ngram_g::Body
-# in csrc/ngram_context_bwd.cu); K1 runs its own two and the CUDA-core one
-NGRAM_BODIES = ("flagship", "tensor-core generic", "CUDA-core generic")
+# in csrc/ngram_generic_mma.cuh); "templated" (float32 at the full-width
+# NGswin's geometries) is K1's alone
+NGRAM_BODIES = ("flagship", "tensor-core generic", "CUDA-core generic", "templated")
 NGRAM_MMA_MAX_W = 128  # the widest C and D of K7's tensor-core generic body
 # (C, D, heads, head_dim) of the full-width NGswin, whose bf16 runs the
 # flagship bodies
@@ -430,20 +461,63 @@ def ngram_mma_plan(C: int, D: int, nh: int, hd: int) -> Optional[Tuple[int, int]
     return nbytes if max(nbytes) <= H100_SMEM_PER_BLOCK else None
 
 
+# K1's tiles on the tensor-core generic body (S grid rows x TJ cells), in
+# order of preference (ngram_g::FWD_TILES)
+NGRAM_FWD_TILES = ((4, 16), (2, 8), (2, 4))
+
+
+def ngram_mma_fwd_bytes(C: int, D: int, nh: int, hd: int, S: int, TJ: int) -> int:
+    """K1's tensor-core generic body on tiles of S grid rows x TJ cells
+    (``csrc/ngram_generic_mma.cuh``: ``make_fwd_plan``), C, D and A padded to
+    16, each region rounded up to 16 bytes: pass 1's staged parameters (bf16
+    wqkv [CP][3AP + 8], wproj [AP][CP + 8], wmerge [2CP][DP + 8]; float32
+    bqkv, bproj, the scales, the bias table) and float32 bmerge [DP]; bf16 u
+    [PROWS][CP + 8] of the (S + 2) x (TJ + 2) staged positions (PROWS: their
+    count up to 16) and q_n | k_n | v [PROWS][3AP + 8], float32 raw q | k
+    [PROWS][2AP + 4], bf16 mean tokens [2·S·TJ][AP + 8] and ctx [S·TJ up to
+    16][2CP + 8]."""
+    CP, DP, AP = _up(C, 16), _up(D, 16), _up(nh * hd, 16)
+    LU, LQKV, LM, LA, LCX, LQK = CP + 8, 3 * AP + 8, DP + 8, AP + 8, 2 * CP + 8, 2 * AP + 4
+    cells = S * TJ
+    prows, ct = _up((S + 2) * (TJ + 2), 16), _up(cells, 16)
+    parts = [2 * CP * LQKV, 2 * AP * LU, 4 * CP * LM, 12 * AP, 4 * CP, 4 * nh, 64 * nh, 4 * DP,
+             2 * prows * LU, 2 * prows * LQKV, 4 * prows * LQK, 2 * 2 * cells * LA, 2 * ct * LCX]
+    return sum(_up(b, 16) for b in parts)
+
+
+def ngram_mma_fwd_tile(B: int, wh: int, ww: int, C: int, D: int, nh: int, hd: int,
+                       sms: int) -> Tuple[int, int]:
+    """(S, TJ) of the tile K1's tensor-core generic body takes for a [B, wh,
+    ww] grid on ``sms`` SMs (``ngram_g::fwd_tile``): the first of
+    ``NGRAM_FWD_TILES`` that fits a block, is no wider than the grid and
+    still gives every SM a tile; else the smallest."""
+    for S, TJ in NGRAM_FWD_TILES[:-1]:
+        tiles = B * -(-wh // S) * -(-ww // TJ)
+        if (ngram_mma_fwd_bytes(C, D, nh, hd, S, TJ) <= H100_SMEM_PER_BLOCK and TJ <= ww
+                and tiles >= sms):
+            return S, TJ
+    return NGRAM_FWD_TILES[-1]
+
+
 @functools.lru_cache(maxsize=None)
-def ngram_body(C: int, D: int, nh: int, hd: int, dtype: torch.dtype) -> str:
-    """The body of K7 that runs a [.., C] unigram grid with a [2C, D] merge
-    and nh heads of hd at I/O type ``dtype`` (one of ``NGRAM_BODIES``), by
-    geometry and dtype alone, as the CUDA source's ``ngram_g::body`` picks
-    it: bfloat16 at the full-width NGswin's geometries the flagship bodies;
-    bfloat16 the tensor-core generic body wherever it has a plan
-    (``ngram_mma_plan``); the rest (float32, the exactness path, and what
-    that body does not take) the CUDA-core generic body.  K1 follows the
-    same rule but for the tensor-core generic body (ROADMAP queue 2)."""
+def ngram_body(C: int, D: int, nh: int, hd: int, dtype: torch.dtype, forward: bool = False) -> str:
+    """The body of K7 (of K1 with ``forward``) that runs a [.., C] unigram
+    grid with a [2C, D] merge and nh heads of hd at I/O type ``dtype`` (one
+    of ``NGRAM_BODIES``), by geometry and dtype alone, as the CUDA sources'
+    ``ngram_g::body`` picks it: bfloat16 at the full-width NGswin's
+    geometries the flagship bodies, float32 there K1's body templated on the
+    heads (K7 has none); bfloat16 the tensor-core generic bodies wherever
+    both have a plan (``ngram_mma_plan``, and K1's smallest tile, which fits
+    wherever K7's pass 1 does); the rest (float32, the exactness path, and
+    what those bodies do not take) the CUDA-core generic bodies."""
     bf16 = dtype == torch.bfloat16
-    if bf16 and (C, D, nh, hd) in NGRAM_FLAGSHIP:
-        return NGRAM_BODIES[0]
-    if bf16 and ngram_mma_plan(C, D, nh, hd) is not None:
+    if (C, D, nh, hd) in NGRAM_FLAGSHIP:
+        if bf16:
+            return NGRAM_BODIES[0]
+        if forward:
+            return NGRAM_BODIES[3]
+    if (bf16 and ngram_mma_plan(C, D, nh, hd) is not None
+            and ngram_mma_fwd_bytes(C, D, nh, hd, *NGRAM_FWD_TILES[-1]) <= H100_SMEM_PER_BLOCK):
         return NGRAM_BODIES[1]
     return NGRAM_BODIES[2]
 
@@ -553,18 +627,21 @@ def nstb_body(N: int, D: int, nh: int, hd: int, H: int, dtype: torch.dtype) -> s
 # ---- the CUDA sources' own counts ----------------------------------------------
 
 # query -> (kernel library, C function, its int arguments): the arguments of
-# ffn_fwd_bytes, ffn_bwd_bytes, (D, hidden) for K6's tensor-core generic body
-# (ffn_mma_plan's bytes, -1 without a plan), attention_fwd_bytes, attention_bwd_bytes,
+# ffn_fwd_bytes, ffn_bwd_bytes, (D, hidden) for K6's and for K5's
+# tensor-core generic body (ffn_mma_plan's and ffn_mma_fwd_plan's bytes, -1
+# without a plan), attention_fwd_bytes, attention_bwd_bytes,
 # (N, D, heads, head_dim) for K3's tensor-core generic body and the same
 # with the launch (1 per window, 2 the token sums) last for K4's (the
 # entries of attention_mma_bytes, -1 without a plan), ngram_fwd_bytes, ngram_bwd_bytes with the pass (1 or 2) last, the same
-# for K7's tensor-core generic body (ngram_mma_bytes, -1 without a plan), and for each
+# for K7's tensor-core generic body (ngram_mma_bytes, -1 without a plan),
+# ngram_mma_fwd_bytes for K1's (-1 without a plan), and for each
 # of K2 and K8 (N, D, heads, head_dim, hidden) with the generic body's code
 # last (1: nstb_mma_bytes of its plan, -1 without one; 2: nstb_bytes)
 SMEM_QUERIES = {
     "ffn_fwd": ("residual_ffn_fwd", "tmar_residual_ffn_fwd_smem", 2),
     "ffn_bwd": ("residual_ffn_bwd", "tmar_residual_ffn_bwd_smem", 3),
     "ffn_bwd_mma": ("residual_ffn_bwd", "tmar_residual_ffn_bwd_mma_smem", 2),
+    "ffn_fwd_mma": ("residual_ffn_fwd", "tmar_residual_ffn_fwd_mma_smem", 2),
     "attention_fwd": ("window_attention_fwd", "tmar_window_attention_fwd_smem", 4),
     "attention_bwd": ("window_attention_bwd", "tmar_window_attention_bwd_smem", 4),
     "attention_fwd_mma": ("window_attention_fwd", "tmar_window_attention_fwd_mma_smem", 4),
@@ -572,6 +649,7 @@ SMEM_QUERIES = {
     "ngram_fwd": ("ngram_context", "tmar_ngram_context_smem", 3),
     "ngram_bwd": ("ngram_context_bwd", "tmar_ngram_context_bwd_smem", 5),
     "ngram_bwd_mma": ("ngram_context_bwd", "tmar_ngram_context_bwd_mma_smem", 5),
+    "ngram_fwd_mma": ("ngram_context", "tmar_ngram_context_mma_smem", 6),
     "nstb_map": ("nstb_map", "tmar_nstb_map_smem", 6),
     "nstb_tokens": ("nstb_tokens", "tmar_nstb_tokens_smem", 6),
 }
@@ -609,23 +687,35 @@ def built_attention_body(lib: str, N: int, D: int, nh: int, hd: int, dtype: torc
     return ATTENTION_BODIES[int(fn(N, D, nh, hd, int(dtype == torch.bfloat16)))]
 
 
-def built_ffn_body(D: int, H: int, dtype: torch.dtype) -> str:
-    """The body that the built CUDA source of K6 picks (its
-    ``tmar_residual_ffn_bwd_body`` query), as ``ffn_body`` names it; needs a
-    CUDA host."""
+def built_ffn_body(D: int, H: int, dtype: torch.dtype, lib: str = "residual_ffn_bwd") -> str:
+    """The body that the built CUDA source of K6 (``lib``
+    "residual_ffn_bwd") or K5 ("residual_ffn_fwd") picks (its
+    ``tmar_*_body`` query), as ``ffn_body`` names it; needs a CUDA host."""
     from tmar_torch import kernels
 
-    fn = kernels.host_function("residual_ffn_bwd", "tmar_residual_ffn_bwd_body",
-                               [ctypes.c_int] * 3, ctypes.c_int)
+    fn = kernels.host_function(lib, f"tmar_{lib}_body", [ctypes.c_int] * 3, ctypes.c_int)
     return FFN_BODIES[int(fn(D, H, int(dtype == torch.bfloat16)))]
 
 
-def built_ngram_body(C: int, D: int, nh: int, hd: int, dtype: torch.dtype) -> str:
-    """The body that the built CUDA source of K7 picks (its
-    ``tmar_ngram_context_bwd_body`` query), as ``ngram_body`` names it; needs
-    a CUDA host."""
+def built_ngram_body(C: int, D: int, nh: int, hd: int, dtype: torch.dtype,
+                     lib: str = "ngram_context_bwd") -> str:
+    """The body that the built CUDA source of K7 (``lib``
+    "ngram_context_bwd") or K1 ("ngram_context") picks (its ``tmar_*_body``
+    query), as ``ngram_body`` names it (with ``forward`` for K1); needs a
+    CUDA host."""
     from tmar_torch import kernels
 
-    fn = kernels.host_function("ngram_context_bwd", "tmar_ngram_context_bwd_body",
-                               [ctypes.c_int] * 5, ctypes.c_int)
+    fn = kernels.host_function(lib, f"tmar_{lib}_body", [ctypes.c_int] * 5, ctypes.c_int)
     return NGRAM_BODIES[int(fn(C, D, nh, hd, int(dtype == torch.bfloat16)))]
+
+
+def built_ngram_tile(B: int, wh: int, ww: int, C: int, D: int, nh: int, hd: int,
+                     sms: int) -> Tuple[int, int]:
+    """(S, TJ) of the tile the built CUDA source of K1 takes on its
+    tensor-core generic body (``tmar_ngram_context_tile``), as
+    ``ngram_mma_fwd_tile`` picks it; needs a CUDA host."""
+    from tmar_torch import kernels
+
+    fn = kernels.host_function("ngram_context", "tmar_ngram_context_tile", [ctypes.c_int] * 8,
+                               ctypes.c_int)
+    return divmod(int(fn(B, wh, ww, C, D, nh, hd, sms)), 100)
