@@ -28,13 +28,14 @@ summed over its three launches, K6's over its kernel and reduce) and the
 rounding-matched plain version's time; then K3 and K4 at
 bf16 at each geometry of that tree's ``chip_smoke.WIDTH_ATTN_CASES`` with
 windows of 32 to 64 tokens (their generic bodies; the demo 8x64² step's
-stage 1 first), the launch alone and its device time by torch.profiler
+stage 1 first) and at ``SHORT_ATTN_CASES`` (window 4, a ragged window
+count), the launch alone and its device time by torch.profiler
 (``chip_smoke.device_ms``, K4's by kernel); then the training kernels'
 launch alone (K3/K4 with their device time) (that tree's ``chip_smoke.attention_launch_ms`` and
 ``ffn_launch_ms``) at the full-width NGswin's geometries, bf16 and f32:
 K3/K4 at the 8x128² step's stage 1 (2048 windows of 64 tokens, 6 x 10
-heads, shift mask on) and at its n-gram windows (2048 of N = 4, 9 and 1 on
-32 channels, 6 x 5 heads); K5/K6 at 131,072 rows; then K2 and K8 (the
+heads) and at its n-gram windows (2048 of N = 4, 9 and 1 on 32 channels,
+6 x 5 and 4 x 8 heads), shift mask on; K5/K6 at 131,072 rows; then K2 and K8 (the
 whole block on the map and on its rolled windows), the launch alone, at
 the 8x512² stage-1 shift-4 block with the flagship's weights, bf16 and f32,
 and at bf16 at every geometry of that tree's ``chip_smoke.WIDTH_NSTB_CASES``
@@ -58,14 +59,16 @@ def training_kernels(cs, tag, card, randn):
     import torch
 
     from tmar_torch.ops import cuda_attention as ca
+    from tmar_torch.ops import envelope
     from tmar_torch.ops.window import shift_mask_components
 
-    for N, D, nh, hd, dtypes in ((64, 64, 6, 10, (torch.bfloat16, torch.float32)),
-                                 (4, 32, 6, 5, (torch.bfloat16, torch.float32)),
-                                 (9, 32, 6, 5, (torch.bfloat16, torch.float32)),
-                                 (1, 32, 6, 5, (torch.bfloat16, torch.float32))):
-        A, nwin = nh * hd, 2048
-        mc = (*shift_mask_components(8, 4), 16, 16) if N == 64 else None
+    # the 64-token windows, then the n-gram windows (n = 2, 3, 1) at both
+    # head splits, shift mask on (stage 1's 16 x 16 grid of windows)
+    for N, D, nh, hd in ((64, 64, 6, 10), *((n * n, 32, nh, hd) for n in (2, 3, 1)
+                                            for nh, hd in ((6, 5), (4, 8)))):
+        dtypes = (torch.bfloat16, torch.float32)
+        A, nwin, ws = nh * hd, 2048, int(round(N ** 0.5))
+        mc = (*shift_mask_components(ws, ws // 2), 16, 16)
         params = [randn(D, 3 * A, scale=0.1), randn(3 * A, scale=0.1),
                   torch.full((nh, 1, 1), 1.2, device="cuda"), randn(nh, N, N, scale=0.2),
                   randn(A, D, scale=0.1), randn(D, scale=0.1)]
@@ -74,9 +77,17 @@ def training_kernels(cs, tag, card, randn):
             fwd, bwd = cs.attention_launch_ms(x.to(dtype), params, g.to(dtype), nh, mc)
             d3, d4 = attention_device_ms(cs, ca, x.to(dtype), params, g.to(dtype), nh, mc)
             print(f"{tag} K3/K4 launch alone, x [{nwin}, {N}, {D}] {str(dtype).split('.')[1]}, "
-                  f"{nh} x {hd} heads, mask {'on' if mc else 'off'}: forward {fwd:.4f} ms, "
+                  f"{nh} x {hd} heads, mask {'on' if mc else 'off'} "
+                  f"({envelope.attention_body(N, D, nh, hd, dtype)}): forward {fwd:.4f} ms, "
                   f"backward {bwd:.4f} ms; device time alone forward {d3:.4f} ms, backward "
                   f"{sum(d4.values()):.4f} ms on {card}", flush=True)
+            short = (short_body_device_ms(cs, ca, x.to(dtype), params, g.to(dtype), nh, mc)
+                     if dtype == torch.bfloat16 and N < 32 else None)
+            if short:
+                print(f"{tag} K3/K4 short-window bodies (their own C entries, not a dispatch), "
+                      f"x [{nwin}, {N}, {D}] bfloat16, {nh} x {hd} heads, mask on: device time "
+                      f"alone forward {short[0]:.4f} ms, backward {short[1]:.4f} ms on {card}",
+                      flush=True)
     M, D, H = 131072, 64, 128
     params = [randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1), randn(D, H, scale=0.1),
               randn(H, scale=0.1), randn(H, D, scale=0.1), randn(D, scale=0.1),
@@ -88,10 +99,60 @@ def training_kernels(cs, tag, card, randn):
               f"{fwd:.4f} ms, backward {bwd:.4f} ms on {card}", flush=True)
 
 
-# K4's device kernels in every body: the per-window (or per-tile) kernel,
+# K4's device kernels in every body: the per-window (or per-tile) kernel
+# (the short-window body's reduce too: window_attention_bwd_smma_reduce),
 # the tensor-core bodies' token sums, the reduce of the partial sums
 K4_KERNELS = ("window_attention_bwd", "attention_param_sums", "reduce_partials",
               "reduce_backward_partials")
+
+# windows shorter than 32 tokens off the full-width NGswin's n-gram
+# geometries (bf16: the short-window bodies, before them the CUDA-core
+# generic ones): (label, windows, N, D, heads, head_dim, window side, mask
+# grid): window 4 at stage 1 of the 8x128² step, and a ragged window count
+# (the last unit and tile part-filled) at n = 2
+SHORT_ATTN_CASES = (
+    ("window 4 shift", 2048, 16, 32, 2, 16, 4, (16, 16)),
+    ("demo ngram n=2 ragged", 1003, 4, 16, 2, 8, 2, None),
+)
+
+
+def short_body_device_ms(cs, ca, x, params, g, nh, mc):
+    """(K3's, K4's) device time alone of the short-window bodies through
+    their own C entries (``tmar_window_attention_*_smma``, not a dispatch)
+    on the wrapper's operands, or None in a tree without them."""
+    import ctypes
+
+    import torch
+
+    from tmar_torch import kernels
+
+    try:
+        fwd = kernels.host_function("window_attention_fwd", "tmar_window_attention_fwd_smma",
+                                    ca._FWD_ARGTYPES, ctypes.c_int)
+        bwd = kernels.host_function("window_attention_bwd", "tmar_window_attention_bwd_smma",
+                                    ca._BWD_ARGTYPES, ctypes.c_int)
+        wsq = kernels.host_function("window_attention_bwd",
+                                    "tmar_window_attention_bwd_smma_workspace",
+                                    [ctypes.c_int] * 5, ctypes.c_longlong)
+    except AttributeError:
+        return None
+    ops, geo = ca._kernel_operands(x, *params, nh, mc)
+    p = [ca._ptr(t) for t in ops]
+    nwin, N, D = x.shape
+    A = params[0].shape[1] // 3
+    out, lse, dx = torch.empty_like(x), torch.empty(nwin, nh, N, device=x.device), torch.empty_like(x)
+    work = torch.empty(wsq(nwin, N, D, nh, A // nh), device=x.device)
+    dp = torch.empty(D * 3 * A + 3 * A + nh + nh * N * N + A * D + D, device=x.device)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    k3 = lambda: kernels.check("window_attention_fwd", fwd(  # noqa: E731
+        *p, out.data_ptr(), lse.data_ptr(), *geo.ints(False), stream()))
+    k4 = lambda: kernels.check("window_attention_bwd", bwd(  # noqa: E731
+        p[0], g.contiguous().data_ptr(), *p[1:5], p[5], p[7], p[8], lse.data_ptr(),
+        dx.data_ptr(), work.data_ptr(), dp.data_ptr(), *geo.ints(True), stream()))
+    k3()
+    d3, _ = cs.device_ms(k3, "window_attention_fwd_smma", calls=10)
+    d4, _ = cs.device_ms(k4, "window_attention_bwd_smma", calls=10)
+    return d3, d4
 
 
 def attention_device_ms(cs, ca, x, params, g, nh, mc):
@@ -114,8 +175,8 @@ def generic_attention_kernels(cs, tag, card):
     """K3 and K4 at bf16, the launch alone and its device time, at each
     geometry of the tree's ``chip_smoke.WIDTH_ATTN_CASES`` with windows of
     32 to 64 tokens (the demo 8x64² step's stage 1 first), where their
-    generic bodies run, on operands laid out once by that tree's wrapper
-    from one seed."""
+    generic bodies run, and at ``SHORT_ATTN_CASES``, on operands laid out
+    once by that tree's wrapper from one seed."""
     import torch
 
     from tmar_torch.ops import cuda_attention as ca
@@ -126,9 +187,8 @@ def generic_attention_kernels(cs, tag, card):
     def randn(*shape, scale=1.0, shift=0.0):
         return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
 
-    for label, nwin, N, D, nh, hd, ws, grid in cs.WIDTH_ATTN_CASES:
-        if N < 32:
-            continue
+    for label, nwin, N, D, nh, hd, ws, grid in (
+            *(c for c in cs.WIDTH_ATTN_CASES if c[2] >= 32), *SHORT_ATTN_CASES):
         A = nh * hd
         params = [randn(D, 3 * A, scale=0.1), randn(3 * A, scale=0.1),
                   torch.full((nh, 1, 1), 1.2, device="cuda"), randn(nh, N, N, scale=0.2),

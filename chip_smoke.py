@@ -915,6 +915,87 @@ def generic_bodies_at_the_flagship_geometry(dev, card, randn):
     torch.cuda.empty_cache()
 
 
+# the full-width NGswin's n-gram windows (N, heads, head_dim) at D 32, where
+# the templated bodies run bf16 (they measured faster there) and the
+# short-window bodies are held through their own C entries
+NGRAM_WINDOWS = tuple((n * n, nh, hd) for n in (2, 3, 1) for nh, hd in ((6, 5), (4, 8)))
+
+
+def short_bodies_at_the_ngram_geometries(dev, randn, failures):
+    """K3's and K4's short-window bodies through their own C entries
+    (``tmar_window_attention_*_smma``; not a dispatch: the templated bodies
+    run these geometries) at the full-width NGswin's n-gram windows, 2048
+    (n = 2, 1) or 512 (n = 3, a ragged last tile) windows at D 32, both head
+    splits, the shift mask on and off, against the rounding-matched plain
+    versions: the output and dx at BF16_TOL, the float32 parameter
+    cotangents at F32_TOL (``_attn_bwd_kernel`` keeps them float32), two
+    runs bit for bit.  A failure is appended to ``failures``."""
+    import ctypes
+
+    import torch
+
+    from tmar_torch import kernels
+    from tmar_torch.ops import cuda_attention as ca
+    from tmar_torch.ops.attention import LOGIT_SCALE_MAX
+    from tmar_torch.ops.window import shift_mask_components
+
+    fwd = kernels.host_function("window_attention_fwd", "tmar_window_attention_fwd_smma",
+                                ca._FWD_ARGTYPES, ctypes.c_int)
+    bwd = kernels.host_function("window_attention_bwd", "tmar_window_attention_bwd_smma",
+                                ca._BWD_ARGTYPES, ctypes.c_int)
+    wsq = kernels.host_function("window_attention_bwd", "tmar_window_attention_bwd_smma_workspace",
+                                [ctypes.c_int] * 5, ctypes.c_longlong)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    for N, nh, hd in NGRAM_WINDOWS:
+        nwin, D, A, ws = (512 if N == 9 else 2048), 32, nh * hd, int(round(N ** 0.5))
+        params = [randn(D, 3 * A, scale=0.1), randn(3 * A, scale=0.1),
+                  randn(nh, 1, 1, scale=0.5, shift=1.2), randn(nh, N, N, scale=0.2),
+                  randn(A, D, scale=0.1), randn(D, scale=0.1)]
+        x = randn(nwin, N, D).to(torch.bfloat16)
+        g = randn(nwin, N, D).to(torch.bfloat16)
+        for mc in (None, (*shift_mask_components(ws, ws // 2), 16, nwin // 16)):
+            label = (f"x=[{nwin}, {N}, {D}] heads={nh}x{hd} mask={'on' if mc else 'off'}")
+            ops, geo = ca._kernel_operands(x, *params, nh, mc)
+            p = [ca._ptr(t) for t in ops]
+            runs = []
+            for _ in range(2):
+                out, lse = torch.empty_like(x), torch.empty(nwin, nh, N, device=dev)
+                dx = torch.empty_like(x)
+                work = torch.empty(wsq(nwin, N, D, nh, hd), device=dev)
+                dp = torch.empty(D * 3 * A + 3 * A + nh + nh * N * N + A * D + D, device=dev)
+                kernels.check("window_attention_fwd", fwd(*p, out.data_ptr(), lse.data_ptr(),
+                                                          *geo.ints(False), stream()))
+                kernels.check("window_attention_bwd", bwd(
+                    p[0], g.data_ptr(), *p[1:5], p[5], p[7], p[8], lse.data_ptr(), dx.data_ptr(),
+                    work.data_ptr(), dp.data_ptr(), *geo.ints(True), stream()))
+                dwqkv, dbqkv, dscale, dbias, dwproj, dbproj = torch.split(
+                    dp, [D * 3 * A, 3 * A, nh, nh * N * N, A * D, D])
+                ls = params[2].reshape(nh)
+                dls = dscale * ops[3] * (ls <= LOGIT_SCALE_MAX)
+                runs.append([out, dx, dwqkv.reshape(D, 3 * A), dbqkv, dls.reshape(nh, 1, 1),
+                             dbias.reshape(nh, N, N), dwproj.reshape(A, D), dbproj])
+            torch.cuda.synchronize()
+            ref = [ca.window_attention_kernel_math(x, *params, nh, mask_components=mc),
+                   *ca.window_attention_backward_math(x, g, *params, nh, mask_components=mc)]
+            bad, worst = [], ("", 0.0)
+            for i, (name, a, b, c) in enumerate(zip(ATTN_NAMES, runs[0], ref, runs[1])):
+                err, tol = err_and_tol(a, b, torch.bfloat16 if i <= 1 else torch.float32)
+                if err / max(tol, 1e-30) >= worst[1]:
+                    worst = (name, err / max(tol, 1e-30))
+                if not (err <= tol and bool(torch.isfinite(a).all())):
+                    bad.append(f"{name} err {err:.3e} > tol {tol:.3e}")
+                if not torch.equal(a, c):
+                    bad.append(f"{name} differs between two runs")
+            print(f"[kernel] window_attention short-window body (its own C entries, not a "
+                  f"dispatch) {label} bfloat16: out and 7 cotangents, worst {worst[0]} at "
+                  f"{worst[1]:.3f} of its tolerance; two runs bit-identical: "
+                  f"{not any('differs' in b for b in bad)} {'ok' if not bad else 'FAIL ' + '; '.join(bad)}")
+            if bad:
+                failures.append(f"window_attention short-window body {label}")
+            del ops, runs, ref
+    torch.cuda.empty_cache()
+
+
 ATTN_NAMES = ["out", "dx", "dwqkv", "dbqkv", "dlogit_scale", "dbias", "dwproj", "dbproj"]
 NGRAM_NAMES = ["out", "du", "dwqkv", "dbqkv", "dlogit_scale", "dtable", "dwproj", "dbproj",
                "dwmerge", "dbmerge"]
@@ -939,6 +1020,14 @@ ATTN_CASES = (
     ("ngram n=3 stage3", 128, 9, 32, 4, 8, None),
     ("ngram n=1 stage1", 2048, 1, 32, 6, 5, None),
     ("ngram n=1 stage2", 512, 1, 32, 4, 8, None),
+    # the same n-gram windows with the shift mask on (bf16: the short-window
+    # bodies, f32: the templated ones)
+    ("ngram stage1 shift", 2048, 4, 32, 6, 5, (16, 16)),
+    ("ngram stage2 shift", 512, 4, 32, 4, 8, (8, 8)),
+    ("ngram n=3 stage1 shift", 2048, 9, 32, 6, 5, (16, 16)),
+    ("ngram n=3 stage2 shift", 512, 9, 32, 4, 8, (8, 8)),
+    ("ngram n=1 stage1 shift", 2048, 1, 32, 6, 5, (16, 16)),
+    ("ngram n=1 stage2 shift", 512, 1, 32, 4, 8, (8, 8)),
 )
 FFN_ROWS = 131072
 
@@ -1029,6 +1118,26 @@ def _time_pair(fused, plain, acts, params, g, dtype):
     return out[0], out[1], out[2], out[3]
 
 
+def attention_body_line(label, N, D, nh, hd, failures):
+    """Print the body K3's and K4's built sources run at this geometry at
+    each dtype (their ``tmar_*_body`` queries); a source that disagrees
+    with ``envelope.attention_body`` or with the other is a failure."""
+    import torch
+
+    from tmar_torch.ops import envelope as env
+
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        got = (env.built_attention_body("window_attention_fwd", N, D, nh, hd, dtype),
+               env.built_attention_body("window_attention_bwd", N, D, nh, hd, dtype))
+        want = env.attention_body(N, D, nh, hd, dtype)
+        ok = got == (want, want)
+        print(f"[body] window attention {label} {dn}: K3 {got[0]}, K4 {got[1]} (the sources' "
+              f"body queries; envelope.attention_body: {want}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"attention body {label} {dn}")
+
+
 def check_train_kernels(dev, card):
     """Phase 5: the four training kernels against their plain versions'
     autograd, forward and every cotangent, then timed.  Returns the kernel
@@ -1086,7 +1195,10 @@ def check_train_kernels(dev, card):
     errs = {h: {"float32": 0.0, "bfloat16": 0.0} for h in ("fwd", "bwd")}
     for label, nwin, N, D, nh, hd, grid in ATTN_CASES:
         acts, params, g = attention_inputs(nwin, N, D, nh, hd)
-        mc = None if grid is None else (*shift_mask_components(8, 4), *grid)
+        ws = int(round(N ** 0.5))  # the window's side
+        mc = None if grid is None else (*shift_mask_components(ws, ws // 2), *grid)
+        attention_body_line(f"{label} x=[{nwin}, {N}, {D}] heads={nh}x{hd}", N, D, nh, hd,
+                            failures)
         hold("window_attention", f"{label} x=[{nwin}, {N}, {D}] heads={nh}x{hd} "
              f"mask={'on' if grid else 'off'}", ATTN_NAMES, 1,
              lambda *a: fused_window_attention(*a, nh, mask_components=mc),
@@ -1098,11 +1210,13 @@ def check_train_kernels(dev, card):
                  window_attention_kernel_math(a[0], *p, nh, mask_components=mc),
                  *window_attention_backward_math(a[0], gg, *p, nh, mask_components=mc)],
              param_bf16=N == 64)
+    short_bodies_at_the_ngram_geometries(dev, randn, failures)
     times = {}
     for label, nwin, N, D, nh, hd, grid in (ATTN_CASES[1], ATTN_CASES[3], ATTN_CASES[5],
                                              ATTN_CASES[8]):
         acts, params, g = attention_inputs(nwin, N, D, nh, hd)
-        mc = None if grid is None else (*shift_mask_components(8, 4), *grid)
+        ws = int(round(N ** 0.5))
+        mc = None if grid is None else (*shift_mask_components(ws, ws // 2), *grid)
         for dtype in (torch.bfloat16, torch.float32):
             dn = str(dtype).split(".")[1]
             # the plain versions: at bf16 the rounding-matched pair (K3's and
@@ -1285,6 +1399,9 @@ WIDTH_ATTN_CASES = (
     ("envelope top shift", 512, 64, 128, 4, 32, 8, (8, 8)),
     ("window 6 shift", 512, 36, 32, 2, 16, 6, (8, 8)),
     ("window 7 shift", 512, 49, 32, 2, 16, 7, (8, 8)),
+    # a ragged window count on the short-window bodies at bf16 (the last
+    # unit and tile part-filled), its mask on a 17 x 59 grid of windows
+    ("demo ngram ragged shift", 1003, 4, 16, 2, 8, 2, (17, 59)),
 )
 # (label, rows, D, hidden)
 WIDTH_FFN_CASES = (("demo", 32768, 32, 64), ("demo ragged", 1000, 32, 64),
@@ -1321,7 +1438,8 @@ def smem_count_failures():
 
     built, bad = env.built_smem, []
     for N, D, nh, hd in {(c[2], c[3], c[4], c[5]) for c in WIDTH_ATTN_CASES} | {
-            (64, 64, 6, 10), (64, 64, 4, 16), (4, 32, 6, 5), (9, 32, 4, 8), (1, 32, 6, 5)}:
+            (64, 64, 6, 10), (64, 64, 4, 16), *((n * n, 32, nh, hd) for n in (1, 2, 3)
+                                                 for nh, hd in ((6, 5), (4, 8)))}:
         hg_f, fwd, hg_b, bwd = env.attention_envelope(N, D, nh, hd)
         if (built("attention_fwd", D, nh, hd, hg_f), built("attention_bwd", N, D, hd, hg_b)) \
                 != (fwd, bwd):
@@ -1330,6 +1448,10 @@ def smem_count_failures():
         if (built("attention_fwd_mma", N, D, nh, hd), built("attention_bwd_mma", N, D, nh, hd, 1),
                 built("attention_bwd_mma", N, D, nh, hd, 2)) != tuple(mma):
             bad.append(("attention tensor-core generic", N, D, nh, hd))
+        short = env.attention_short_plan(N, D, nh, hd)
+        if (built("attention_fwd_short", N, D, nh, hd), built("attention_bwd_short", N, D, nh, hd)) \
+                != ((-1, -1) if short is None else (short["fwd"][1], short["bwd"][1])):
+            bad.append(("attention short-window", N, D, nh, hd))
         for dtype in (torch.float32, torch.bfloat16):
             want = env.attention_body(N, D, nh, hd, dtype)
             if (env.built_attention_body("window_attention_fwd", N, D, nh, hd, dtype),
@@ -1444,15 +1566,15 @@ def check_width_kernels(dev, card):
         g = randn(nwin, N, D)
         mc = None if grid is None else (*shift_mask_components(ws, ws // 2), *grid)
         name = f"{label} x=[{nwin}, {N}, {D}] heads={nh}x{hd} mask={'on' if grid else 'off'}"
+        attention_body_line(f"{label} x=[{nwin}, {N}, {D}] heads={nh}x{hd}", N, D, nh, hd,
+                            failures)
         errs = {h: {"float32": 0.0, "bfloat16": 0.0} for h in ("fwd", "bwd")}
-        # windows of 32 tokens or more (the tensor-core generic bodies at
-        # bf16) are held at both shifts: the case's own, and the other one
-        # (shift 0 beside ws/2 on an 8 x 8 grid of windows)
+        # every geometry is held at both shifts: the case's own, and the
+        # other one (shift 0 beside ws/2 on an 8 x 8 grid of windows)
         masks = [(name, mc)]
-        if N >= 32:
-            other = (*shift_mask_components(ws, ws // 2), 8, 8) if mc is None else None
-            masks.append((f"{label} x=[{nwin}, {N}, {D}] heads={nh}x{hd} "
-                          f"mask={'off' if mc is not None else 'on'}", other))
+        other = (*shift_mask_components(ws, ws // 2), 8, 8) if mc is None else None
+        masks.append((f"{label} x=[{nwin}, {N}, {D}] heads={nh}x{hd} "
+                      f"mask={'off' if mc is not None else 'on'}", other))
         for held, m in masks:
             hold("window_attention", held, ATTN_NAMES, 1,
                  lambda *a, m=m: fused_window_attention(*a, nh, mask_components=m),
@@ -1474,7 +1596,6 @@ def check_width_kernels(dev, card):
             launch = attention_launch_ms(acts[0].to(dtype), params, g.to(dtype), nh, mc)
             size = acts[0].to(dtype).element_size()
             body = env.attention_body(N, D, nh, hd, dtype)
-            print(f"[body] window attention {name} {dn}: {body} (K3 and K4)")
             for i, kernel in enumerate(("window_attention_fwd", "window_attention_bwd")):
                 record(kernel, name, dn, launch[i], t[2 + i],
                        bound_ms(*attention_work(nwin, N, D, nh, hd, size, i == 1), dn), errs)
@@ -2189,8 +2310,21 @@ def train(card):
           f"(min {min(times[warmup:]) * 1e3:.2f}, max {max(times[warmup:]) * 1e3:.2f}), "
           f"{1 / med:.3f} steps/s, {TRAIN_BATCH / med:.1f} patches/s on {card}; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # K3 and K4 on the n-gram windows (40 launches each a step: 4 tokens at
+    # n = 2, the templated bodies at bf16; K4's reduce_partials shares its
+    # name with K6's and is left out) beside the 64-token windows' (20 each,
+    # the flagship bodies)
     profile_request(lambda: step(state, batch), card,
-                    label=f"train step {TRAIN_BATCH}x{TRAIN_PATCH}² bf16")
+                    label=f"train step {TRAIN_BATCH}x{TRAIN_PATCH}² bf16",
+                    kernels={"K3 n-gram windows (window_attention_fwd_kernel)":
+                             ("window_attention_fwd_kernel<",),
+                             "K4 n-gram windows (window_attention_bwd_kernel)":
+                             ("window_attention_bwd_kernel<",),
+                             "K3 64-token windows (window_attention_fwd_mma)":
+                             ("window_attention_fwd_mma",),
+                             "K4 64-token windows (window_attention_bwd_mma, its sums and reduce)":
+                             ("window_attention_bwd_mma", "attention_param_sums<",
+                              "reduce_backward_partials")})
     if failures:
         raise SystemExit(f"training checks failed: {failures}")
     return launches, state.generator

@@ -23,6 +23,7 @@ from tmar.ops.pallas_attention import fused_window_attention as jfused
 from tmar.ops.window import shift_mask_components
 from tmar_torch.ops.attention import gather_rel_pos_bias, relative_position_index
 from tmar_torch.ops.cuda_attention import fused_window_attention
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 NAMES = ["dx", "dwqkv", "dbqkv", "dlogit_scale", "dbias", "dwproj", "dbproj"]
 

@@ -36,6 +36,7 @@ from tmar.ops.pallas_attention import fused_window_attention as jfused
 from tmar.ops.window import shift_mask_components
 from tmar_torch.ops import cuda_attention
 from tmar_torch.ops.attention import window_attention_math
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 MAX_TOL = 2.0**-7  # x max|ref|
 MEAN_TOL = 5e-5

@@ -33,6 +33,7 @@ from tmar_torch.checkpoint import from_flax_params
 from tmar_torch.nn.blocks import NSTB
 from tmar_torch.ops import cuda_attention, cuda_nstb
 from tmar_torch.ops.attention import gather_rel_pos_bias, relative_position_index
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 TOL = dict(atol=5e-5, rtol=1e-4)
 FORMS = {

@@ -35,6 +35,7 @@ from tmar_torch import data as tdata
 from tmar_torch.data import native, nifti
 from tmar_torch.train import config
 from tmar_torch.train import trainer as ttrainer
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 REPO = pathlib.Path(__file__).parents[1]
 DATASET_CLASSES = ("SynDeepLesionTrainDataset", "SynDeepLesionValDataset",

@@ -19,6 +19,7 @@ from tmar.nn.spectral_norm import SNConv as FlaxSNConv
 from tmar_torch.checkpoint import disc_from_flax
 from tmar_torch.nn.patchgan import ConditionalDiscriminator, MultiScaleDiscriminator
 from tmar_torch.nn.spectral_norm import SNConv
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 TOL = dict(atol=1e-5, rtol=1e-4)
 

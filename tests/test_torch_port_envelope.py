@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from tmar_torch.ops import envelope
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 # (N, D, heads, head_dim) of window attention (K3/K4)
 ATTENTION = [
@@ -101,8 +102,10 @@ def test_nstb_body_keeps_the_cuda_core_body_where_the_tensor_cores_take_no_plan(
 # (N, D, heads, head_dim) of chip_smoke.py's phase-20a window-attention
 # geometries (WIDTH_ATTN_CASES: the demo, the JAX tests' 3 x 10 and D 16,
 # window 4, the envelope's top, the demo's n-gram windows), the windows of
-# side 6 and 7 (padded rows and keys), head_dim 10 at the demo width, and
-# the full-width NGswin's, with the body each runs at bfloat16 and float32
+# side 6 and 7 (padded rows and keys), head_dim 10 at the demo width, the
+# full-width NGswin's, windows of 16, 25 and 31 tokens (one and two 16-row
+# fragments a unit), and a width the short-window body takes no plan for
+# (D not a multiple of 8), with the body each runs at bfloat16 and float32
 ATTENTION_BODY_CASES = [
     ((64, 32, 2, 16), "tensor-core generic", "CUDA-core generic"),
     ((64, 32, 3, 10), "tensor-core generic", "CUDA-core generic"),
@@ -111,14 +114,18 @@ ATTENTION_BODY_CASES = [
     ((36, 32, 2, 16), "tensor-core generic", "CUDA-core generic"),
     ((49, 32, 2, 16), "tensor-core generic", "CUDA-core generic"),
     ((64, 32, 2, 10), "tensor-core generic", "CUDA-core generic"),
-    ((16, 32, 2, 16), "CUDA-core generic", "CUDA-core generic"),
-    ((4, 16, 2, 8), "CUDA-core generic", "CUDA-core generic"),
-    ((9, 16, 2, 8), "CUDA-core generic", "CUDA-core generic"),
-    ((1, 16, 2, 8), "CUDA-core generic", "CUDA-core generic"),
+    ((16, 32, 2, 16), "tensor-core short-window", "CUDA-core generic"),
+    ((4, 16, 2, 8), "tensor-core short-window", "CUDA-core generic"),
+    ((9, 16, 2, 8), "tensor-core short-window", "CUDA-core generic"),
+    ((1, 16, 2, 8), "tensor-core short-window", "CUDA-core generic"),
     ((64, 64, 6, 10), "flagship", "templated"),
     ((64, 64, 4, 16), "flagship", "templated"),
     ((4, 32, 6, 5), "templated", "templated"),
     ((9, 32, 4, 8), "templated", "templated"),
+    ((16, 64, 4, 16), "tensor-core short-window", "CUDA-core generic"),
+    ((25, 32, 2, 16), "tensor-core short-window", "CUDA-core generic"),
+    ((31, 32, 3, 10), "tensor-core short-window", "CUDA-core generic"),
+    ((4, 12, 2, 6), "CUDA-core generic", "CUDA-core generic"),
 ]
 
 
@@ -127,11 +134,18 @@ def test_attention_body_is_a_rule_of_geometry_and_dtype(geometry, bf16, f32):
     """K3's and K4's body by geometry and dtype alone: bfloat16 windows of
     32 to 64 tokens run the tensor-core generic bodies (their plan's shared
     memory fits a block, the envelope's top with its weights streamed in
-    K4), the n-gram windows below 32 tokens and every float32 geometry the
-    CUDA-core one, the full-width NGswin's geometries their own bodies; the
-    wrapper passes the code of the same name."""
+    K4), bfloat16 windows below 32 tokens the short-window bodies wherever
+    they have a plan, every float32 geometry and the plan-less widths the
+    CUDA-core one, the full-width NGswin's geometries their own bodies (its
+    n-gram windows too, at both dtypes); the wrapper passes the code of the
+    same name."""
     assert envelope.attention_body(*geometry, torch.bfloat16) == bf16
     assert envelope.attention_body(*geometry, torch.float32) == f32
+    short = envelope.attention_short_plan(*geometry)
+    # (the full-width NGswin's n-gram windows have a plan; their templated
+    # bodies measured faster at bfloat16 and keep them)
+    assert (short is not None) == (bf16 == "tensor-core short-window"
+                                   or (geometry[0] < 32 and bf16 == "templated"))
     plan = envelope.attention_mma_plan(*geometry)
     assert (plan is not None) == (geometry[0] >= 32)
     if plan is not None:
@@ -154,6 +168,29 @@ def test_attention_tensor_core_plan_counts_the_sources_layout():
     for N, D, nh, hd in ((64, 12, 2, 6), (64, 144, 4, 32), (64, 128, 16, 32)):
         assert envelope.attention_mma_plan(N, D, nh, hd) is None
         assert envelope.attention_body(N, D, nh, hd, torch.bfloat16) == "CUDA-core generic"
+
+
+def test_attention_short_window_plan_counts_the_sources_layout():
+    """The short-window plans of the full-width NGswin's n-gram window at
+    n = 2, window 4 and a 25-token window: the byte counts of the CUDA
+    source's layout (``make_short_fwd`` / ``make_short_bwd``), four warps a
+    block where they fit and fewer where they do not; none past the
+    sources' reach (31 tokens at the envelope's top, D 136)."""
+    assert envelope.attention_short_plan(4, 32, 6, 5) == {"fwd": (4, 64224), "bwd": (4, 163776)}
+    assert envelope.attention_short_plan(16, 32, 2, 16) == {"fwd": (4, 48912),
+                                                            "bwd": (4, 120224)}
+    assert envelope.attention_short_plan(25, 64, 4, 16) == {"fwd": (4, 186544),
+                                                            "bwd": (1, 217984)}
+    # n = 2 at 6 x 5 heads: head_dim 5 pads to 8, 48 columns a part.  float32
+    # bqkv, bproj and the scale (144 + 32 + 6, rounded up to 184), the bias
+    # [6][4][4] and the mask's rows and columns [2][4][4]; the bf16 weights
+    # [32][152] and [48][40]; per warp 16 rows of bf16 outputs [16][56] and
+    # x [16][40], and float32 q_n | k_n | v [16][145]
+    assert envelope.attention_short_fwd_bytes(4, 32, 6, 5, 4) == (
+        4 * (184 + 96 + 32) + 2 * (32 * 152 + 48 * 40)
+        + 4 * (2 * 16 * (56 + 40) + 4 * 16 * 145))
+    for N, D, nh, hd in ((31, 128, 4, 32), (4, 136, 2, 8), (32, 32, 2, 16)):
+        assert envelope.attention_short_plan(N, D, nh, hd) is None
 
 
 # (D, hidden) of K6 with the body each runs at bfloat16 and float32 and the

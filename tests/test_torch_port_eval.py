@@ -39,6 +39,7 @@ from tmar_torch.data import SyntheticMARDataset
 from tmar_torch.data import measurements
 from tmar_torch.eval import ablation, adapters, clinic, figures, harness
 from tmar_torch.ops.radon import Radon
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 SIZE, ANGLES = 32, np.linspace(0, np.pi, 16, endpoint=False)
 TINY = dict(embed_dim=32, depths=(2, 2, 2), num_heads=(2, 2, 2), dec_dim=32, dec_depths=2,

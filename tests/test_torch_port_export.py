@@ -37,6 +37,7 @@ from tmar_torch.checkpoint import disc_from_flax, disc_from_pth, from_flax_param
 from tmar_torch.export import _changes_nothing, export_generator, load_artifact, save_artifact
 from tmar_torch.nn import MultiScaleDiscriminator
 from tmar_torch.ops import attention
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 TOL = dict(atol=5e-5, rtol=1e-4)
 TINY = dict(

@@ -21,6 +21,7 @@ import torch
 
 from tmar.ops.pallas_ffn import fused_residual_ffn as jfused
 from tmar_torch.ops.cuda_ffn import fused_residual_ffn
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 TOL = dict(atol=2e-4, rtol=2e-3)
 NAMES = ["dx", "dattn_out", "dg1", "db1", "dw1", "dbw1", "dw2", "dbw2", "dg2", "db2"]

@@ -32,6 +32,7 @@ import torch
 from tmar.ops.pallas_ffn import fused_residual_ffn as jfused
 from tmar_torch.ops import cuda_ffn
 from tmar_torch.ops.ffn import ffn_math
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 MAX_TOL = 2.0**-7  # x max|ref|
 MEAN_TOL = 5e-5    # out, dx, dattn_out

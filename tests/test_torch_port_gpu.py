@@ -411,6 +411,15 @@ def _hold(names, n_acts, got, ref, dtype, param_dtype=torch.float32):
     # and 49: padded rows and keys), head_dim 10 at the demo width (padded
     # to 16)
     (24, 36, 32, 2, 16, (2, 3)), (24, 49, 32, 2, 16, (2, 3)), (24, 64, 32, 2, 10, None),
+    # the full-width NGswin's n-gram windows at both head splits with the
+    # mask on (the templated bodies at both dtypes); the short-window bodies
+    # at bf16: window 4 without the mask, a ragged window count (the last
+    # unit and tile part-filled) at the demo width, two 16-row fragments a
+    # window (25 and 31 tokens), head_dim 16 at D 64
+    (2048, 4, 32, 6, 5, (16, 16)), (512, 4, 32, 4, 8, (8, 8)), (2048, 9, 32, 6, 5, (16, 16)),
+    (512, 9, 32, 4, 8, (8, 8)), (2048, 1, 32, 6, 5, (16, 16)), (512, 1, 32, 4, 8, (8, 8)),
+    (2048, 16, 32, 2, 16, None), (1003, 4, 16, 2, 8, (17, 59)), (45, 25, 32, 2, 16, (3, 3)),
+    (30, 31, 32, 3, 10, None), (50, 16, 64, 4, 16, (5, 5)),
 ])
 def test_window_attention_kernels_match_plain(cuda, dtype, nwin, N, D, nh, hd, grid):
     """At float32 against autograd of the plain math; at bfloat16 against
@@ -440,6 +449,58 @@ def test_window_attention_kernels_match_plain(cuda, dtype, nwin, N, D, nh, hd, g
         # (``_roundings``), so the parameter cotangents are bf16 sums
         _hold(ATTN_NAMES, 1, got, ref, dtype, torch.bfloat16 if N >= 32 else torch.float32)
     for name, a, b in zip(ATTN_NAMES, got, again):
+        assert torch.equal(a, b), f"{name} differs between two runs"
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("N,nh,hd", [(n * n, nh, hd) for n in (2, 3, 1) for nh, hd in ((6, 5), (4, 8))])
+def test_short_window_bodies_at_the_ngram_geometries_match_plain(cuda, N, nh, hd, masked):
+    """K3's and K4's short-window bodies through their own C entries
+    (``tmar_window_attention_*_smma``) at the full-width NGswin's n-gram
+    windows, where the templated bodies run bf16: the output and dx at the
+    bf16 tolerance, the parameter cotangents at the float32 one, against
+    the rounding-matched plain versions; two runs bit for bit."""
+    import ctypes
+
+    from tmar_torch import kernels
+    from tmar_torch.ops.attention import LOGIT_SCALE_MAX
+
+    ca = cuda_attention
+    rng = np.random.default_rng(6)
+    nwin, D, A, ws = 96, 32, nh * hd, int(round(N ** 0.5))
+    (x, g), params = attention_inputs(rng, nwin, N, D, nh, hd)
+    x, g = x.to(cuda, torch.bfloat16), g.to(cuda, torch.bfloat16)
+    params = [p.to(cuda) for p in params]
+    mc = (*shift_mask_components(ws, ws // 2), 4, 24) if masked else None
+    fwd = kernels.host_function("window_attention_fwd", "tmar_window_attention_fwd_smma",
+                                ca._FWD_ARGTYPES, ctypes.c_int)
+    bwd = kernels.host_function("window_attention_bwd", "tmar_window_attention_bwd_smma",
+                                ca._BWD_ARGTYPES, ctypes.c_int)
+    floats = kernels.host_function("window_attention_bwd", "tmar_window_attention_bwd_smma_workspace",
+                                   [ctypes.c_int] * 5, ctypes.c_longlong)(nwin, N, D, nh, hd)
+    ops, geo = ca._kernel_operands(x, *params, nh, mc)
+    p = [ca._ptr(t) for t in ops]
+    stream = torch.cuda.current_stream().cuda_stream
+    runs = []
+    for _ in range(2):
+        out, lse, dx = torch.empty_like(x), torch.empty(nwin, nh, N, device=cuda), torch.empty_like(x)
+        work = torch.empty(floats, device=cuda)
+        dp = torch.empty(D * 3 * A + 3 * A + nh + nh * N * N + A * D + D, device=cuda)
+        kernels.check("window_attention_fwd", fwd(*p, out.data_ptr(), lse.data_ptr(),
+                                                  *geo.ints(False), stream))
+        kernels.check("window_attention_bwd", bwd(
+            p[0], g.data_ptr(), *p[1:5], p[5], p[7], p[8], lse.data_ptr(), dx.data_ptr(),
+            work.data_ptr(), dp.data_ptr(), *geo.ints(True), stream))
+        dwqkv, dbqkv, dscale, dbias, dwproj, dbproj = torch.split(
+            dp, [D * 3 * A, 3 * A, nh, nh * N * N, A * D, D])
+        dls = dscale * ops[3] * (params[2].reshape(nh) <= LOGIT_SCALE_MAX)
+        runs.append([out, dx, dwqkv.reshape(D, 3 * A), dbqkv, dls.reshape(nh, 1, 1),
+                     dbias.reshape(nh, N, N), dwproj.reshape(A, D), dbproj])
+    torch.cuda.synchronize()
+    ref = [ca.window_attention_kernel_math(x, *params, nh, mask_components=mc),
+           *ca.window_attention_backward_math(x, g, *params, nh, mask_components=mc)]
+    _hold(ATTN_NAMES, 1, runs[0], ref, torch.bfloat16)
+    for name, a, b in zip(ATTN_NAMES, runs[0], runs[1]):
         assert torch.equal(a, b), f"{name} differs between two runs"
 
 
@@ -558,12 +619,19 @@ def test_generic_bodies_launch_with_the_envelopes_shared_memory(cuda, D, nh, hd,
     (64, 32, 2, 16), (64, 32, 3, 10), (64, 16, 2, 8), (64, 128, 4, 32), (36, 32, 2, 16),
     (49, 32, 2, 16), (64, 32, 2, 10), (16, 32, 2, 16), (4, 16, 2, 8), (9, 16, 2, 8),
     (1, 16, 2, 8), (64, 64, 6, 10), (64, 64, 4, 16), (4, 32, 6, 5), (64, 128, 8, 32),
+    (4, 32, 4, 8), (9, 32, 6, 5), (9, 32, 4, 8), (1, 32, 6, 5), (1, 32, 4, 8), (16, 64, 4, 16),
+    (25, 32, 2, 16), (31, 32, 3, 10), (31, 128, 4, 32), (4, 12, 2, 6),
 ])
 def test_attention_body_query_equals_the_envelope_rule(cuda, N, D, nh, hd):
     """The body K3's and K4's built sources pick (``tmar_*_body``) is
-    ``envelope.attention_body``'s, at both dtypes."""
+    ``envelope.attention_body``'s, at both dtypes, and their short-window
+    shared memory (``tmar_*_short_smem``) is ``attention_short_plan``'s."""
     from tmar_torch.ops import envelope as env
 
+    short = env.attention_short_plan(N, D, nh, hd) if 8 <= D and D % 8 == 0 else None
+    assert (env.built_smem("attention_fwd_short", N, D, nh, hd),
+            env.built_smem("attention_bwd_short", N, D, nh, hd)) == (
+        (-1, -1) if short is None else (short["fwd"][1], short["bwd"][1]))
     for dtype in (torch.float32, torch.bfloat16):
         want = env.attention_body(N, D, nh, hd, dtype)
         assert env.built_attention_body("window_attention_fwd", N, D, nh, hd, dtype) == want

@@ -26,6 +26,7 @@ from tmar_torch.core import BF16_POLICY, DEFAULT_POLICY
 from tmar_torch.ops.gradients import image_gradients
 from tmar_torch.ops.morphology import dilate_mask
 from tmar_torch.ops.radon import Radon
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 TOL = dict(atol=1e-6, rtol=1e-5)
 RNG = np.random.default_rng(0)

@@ -18,6 +18,7 @@ from tmar.ops.pallas_ngram import ngram_context_math as jmath
 from tmar_torch.checkpoint import from_flax_params
 from tmar_torch.nn.ngram import NGramContext
 from tmar_torch.ops import cuda_ngram
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 TOL = dict(atol=3e-5, rtol=3e-5)
 

@@ -41,6 +41,7 @@ import torch
 from tmar.ops.attention import gather_rel_pos_bias, relative_position_index
 from tmar.ops.pallas_ngram import fused_ngram_context as jfused
 from tmar_torch.ops import cuda_ngram
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 MAX_TOL = 2.0**-7          # x max|ref|, every tensor
 OUT_MEAN_TOL = 1e-5        # x max|ref|

@@ -23,6 +23,7 @@ from tmar.ops.pallas_ngram import fused_ngram_context as jfused
 from tmar_torch.checkpoint import from_flax_params
 from tmar_torch.nn.ngram import NGramContext
 from tmar_torch.ops import cuda_ngram
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 TOL = dict(atol=5e-5, rtol=5e-5)
 NAMES = ["u", "wqkv", "bqkv", "logit_scale", "table", "wproj", "bproj", "wmerge", "bmerge"]

@@ -39,6 +39,7 @@ from tmar_torch.ops.cuda_attention import KERNEL_GEOMETRIES
 from tmar_torch.ops.ngram import ngram_windows
 from tmar_torch.train import Trainer, config, variants
 from tmar_torch.train.trainer import build_dataset
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 TINY = dict(
     ngrams=(1, 3, 3, 1), embed_dim=32, depths=(2, 1, 1), num_heads=(2, 2, 2),

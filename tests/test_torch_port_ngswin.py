@@ -18,6 +18,7 @@ from tmar.eval.inference import tiled_eval as jtiled_eval
 from tmar.nn import NGswin as FlaxNGswin
 from tmar_torch import NGswin, from_flax_params, load_pth, make_inference_fn, tiled_eval
 from tmar_torch.checkpoint import to_flax_params
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 TOL = dict(atol=5e-5, rtol=1e-4)
 FLAGSHIP = pathlib.Path(__file__).parents[1] / "reports" / "compare_r4" / "flagship.pth"

@@ -20,6 +20,7 @@ from tmar.ops.window import shift_mask_components
 from tmar_torch.checkpoint import from_flax_params
 from tmar_torch.nn.blocks import NSTB
 from tmar_torch.ops import cuda_nstb
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 TOL = dict(atol=2e-5, rtol=2e-5)
 

@@ -33,6 +33,7 @@ from tmar.ops.pallas_nstb import quadrant_selector as jquadrant_selector
 from tmar.ops.window import shift_mask_components
 from tmar_torch.ops import cuda_nstb
 from tmar_torch.ops.window import cyclic_shift, window_partition
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 MAX_TOL = 2.0**-7   # x max|ref|
 MEAN_TOL = 5e-5

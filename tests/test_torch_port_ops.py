@@ -19,6 +19,7 @@ from tmar_torch.ops import attention as tattn
 from tmar_torch.ops import ngram as tngram
 from tmar_torch.ops import window as twin
 from tmar_torch.ops.ffn import ffn_math as tffn_math
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 

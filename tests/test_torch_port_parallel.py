@@ -74,6 +74,7 @@ from tmar_torch.parallel import spawn_ranks
 from tmar_torch.train import Trainer, load_config
 from tmar_torch.train.finetune import FinetuneWeights, finetune
 from tmar_torch.train.trainer import build_val_dataset
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 G_LR, D_LR, FT_LR = 1e-4, 2e-4, 1e-4  # the config's and finetune's
 

@@ -19,6 +19,7 @@ from tmar_torch import NGswin, make_inference_fn
 from tmar_torch import kernels
 from tmar_torch.device import refuse_grad
 from tmar_torch.ops import cuda_attention, cuda_ffn, cuda_ngram, cuda_nstb
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 PKG = pathlib.Path(tmar_torch.__file__).parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "tmar")

@@ -19,6 +19,7 @@ import tmar.losses as jl
 import tmar_torch.losses as tl
 from tmar.ops import Radon as JRadon
 from tmar_torch.ops.radon import Radon
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 RNG = np.random.default_rng(0)
 

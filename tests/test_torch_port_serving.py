@@ -35,6 +35,7 @@ from tmar.nn import NGswin as FlaxNGswin
 from tmar_torch import NGswin, make_tiled_eval, tiled_eval
 from tmar_torch import cli
 from tmar_torch.ops import cuda_attention, cuda_ffn, cuda_ngram, cuda_nstb
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 TOL = dict(atol=5e-5, rtol=1e-4)
 TINY = dict(

@@ -23,6 +23,7 @@ from tmar.ops.ngram import seq_refl_win_pad as jpad
 from tmar.ops.ngram import sliding_patches as jpatches
 from tmar_torch import NGswin, from_flax_params
 from tmar_torch.ops.ngram import ngram_windows
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 TINY = dict(
     ngrams=(2, 2, 2, 2), embed_dim=32, depths=(2, 2, 2), num_heads=(2, 2, 2),

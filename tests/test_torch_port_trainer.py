@@ -39,6 +39,7 @@ from tmar_torch.train import Trainer, config, schedules, variants
 from tmar_torch.train.steps import make_eval_step
 from tmar_torch.train.trainer import build_dataset, build_generator, build_val_dataset
 from tmar_torch.utils import tfevents
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 YAMLS = ("train_syndeeplesion.yaml", "finetune_spineweb.yaml", "test_config.yaml")
 JAX_CONFIGS = os.path.join(os.path.dirname(jconfig.__file__), "..", "configs")

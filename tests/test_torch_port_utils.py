@@ -22,6 +22,7 @@ from tmar_torch.utils import MetricLogger, StepTimer, model_flops, trace_profile
 from tmar_torch.utils.logging import setup_logging
 from tmar_torch.utils import profiling
 from tmar_torch.utils.profiling import _coarse, device_profile, lost_launches, parse_trace_device_ops
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 ROWS = [(0, {"g_rec": 0.5, "d_loss": 1.25}, ""), (10, {"g_rec": 0.25}, ""),
         (10, {"psnr": 31.5, "ssim": 0.875}, "Val/")]

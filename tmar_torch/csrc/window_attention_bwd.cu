@@ -20,7 +20,7 @@
 //   dv_j  = Σ_i p_ij dacc_i;  dq = (dqn - qn (dqn·qn)) / |q|, the same for k
 //   dx = dqkv @ wqkvᵀ;  dwqkv += xᵀ dqkv;  dwproj += oᵀ g
 //
-// Four bodies, chosen by the I/O type and the geometry alone, as the
+// Five bodies, chosen by the I/O type and the geometry alone, as the
 // forward's (window_attention_fwd.cu; attn_mma::body):
 // * bfloat16 at the full-width NGswin's windows (N = 64, D = 64, heads 6 x 10
 //   or 4 x 16): the tensor-core body below, rounding as
@@ -33,15 +33,22 @@
 //   float32.
 // * the full-width NGswin's other geometries (its windows at float32, its
 //   n-gram windows at both dtypes): the body templated on the geometry,
-//   which at bfloat16 rounds where _attn_bwd_kernel rounds (below).
+//   which at bfloat16 rounds where _attn_bwd_kernel rounds (below); at
+//   bfloat16 it measured faster there than the short-window body.
+// * bfloat16 windows of 1 to 31 tokens at every other geometry with a plan:
+//   the short-window body below (window_attention_bwd_smma and its
+//   reduce), rounding where _attn_bwd_kernel rounds: the qkv recompute
+//   takes bf16 operands (:728); everything else is float32 (:767,
+//   :802-807), its float32 operands split into three bf16 parts where the
+//   products run on mma.sync.
 // * bfloat16 windows of 32 to 64 tokens at every other geometry with a plan:
 //   the tensor-core generic body (window_attention_bwd_gmma and its token
 //   sums, below), rounding as the tensor-core body.
-// * every other case: the CUDA-core generic body, which takes N (<= 64), D,
-//   the heads and head_dim (<= 32) at run time.  At bfloat16 and N >= 32 it
-//   would round where the tensor-core body does; below, where
-//   _attn_bwd_kernel rounds: the two matrices (:728, :767, :802-807);
-//   everything else is float32 there.
+// * every other case (float32, and bfloat16 widths without a plan): the
+//   CUDA-core generic body, which takes N (<= 64), D, the heads and head_dim
+//   (<= 32) at run time.  At bfloat16 and N >= 32 it would round where the
+//   tensor-core body does; below, where _attn_bwd_kernel rounds: the two
+//   matrices (:728, :767, :802-807); everything else is float32 there.
 //
 // What bounds it on an H100: operations, about three times the forward's
 // (bytes at the demo width: 0.00199 ms for its 512 windows of 64 tokens).
@@ -1962,6 +1969,566 @@ int launch_gmma(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, vo
   return launch_gmma_t<128, 32>(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, wh, ww, plan, L, s);
 }
 
+// ---- the bfloat16 tensor-core short-window body: 1 <= N <= 31 --------------
+// (window_attention_generic_mma.cuh: the plan, the rule, the layout.)  Two
+// launches: the per-tile kernel below, then window_attention_bwd_smma_reduce
+// over its per-block slots in block order.  A block of W warps takes a tile of W
+// units (a warp a unit, as in K3's short-window body); per tile:
+//  1. per warp: q, k, v (mma.sync on x's A fragments and the bf16 wqkv)
+//     and dacc = g·wprojᵀ (mma.sync on g's A fragments: both operands are
+//     bf16 values, as _attn_bwd_kernel has them, :767, so the products are
+//     exact); q_n, k_n, v, dacc, 1/|q|, 1/|k| and lse into the warp's
+//     float32 slice; x and g into the tile's bf16 rows;
+//  2. per warp, in float32 on the CUDA cores, a lane to a (row, head): as a
+//     query o, delta, ds, the dscale share and dq_n; then as a key dk_n, dv
+//     and the row's ds per (query, key) of its window; the L2-norm
+//     backward; all into the tile's float32 dqkv and attention output;
+//  3. per warp: dx = dqkv·wqkvᵀ on mma.sync, dqkv split into three bf16
+//     parts (split3) against the exact bf16 wqkv (:802-805), bf16 rows out;
+//  4. one block barrier, then the tile's shares of dwqkv = xᵀ·dqkv and
+//     dwproj = oᵀ·g (:806-807, :794-796) on mma.sync with the float32
+//     operand split in three, each 16x16 output tile owned by one warp, and
+//     the sums of dbqkv, dbproj, dscale and dbias each owned by one thread,
+//     rows and windows in order, into the block's float32 sums in shared
+//     memory; a second barrier frees the tile.
+// At the end each block writes its sums to its own slot.  No atomics: two
+// runs give the same bits.  Bound: bytes (x, g, lse, dx; 0.00054 ms at the
+// n = 2 step's 2048 windows); there a block takes one tile, so the launch
+// is latency: staging, one tile's chain and its block-wide sums.  Why the split: each float32 cotangent product
+// here has one exactly-bf16 operand (x, g, wqkv) and one float32 operand
+// (dqkv, the attention output), and _attn_bwd_kernel takes them in
+// float32; three bf16 parts carry the float32 operand to about 2^-24 of
+// itself, so three mma.sync keep float32's accuracy (F32_TOL on the
+// parameter cotangents) where one would round it to bf16.  The split was
+// kept over a CUDA-core loop for these three products, which was not
+// built or measured; the whole CUDA-core generic body is 3.9x slower at
+// window 4 (PERF.md §6).
+template <int HPD>
+__global__ void __launch_bounds__(128) window_attention_bwd_smma(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
+    const float* __restrict__ wqkv, int wq_k, int wq_n, const float* __restrict__ bqkv,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    const float* __restrict__ wproj, int wp_k, int wp_n, const float* __restrict__ mrow,
+    const float* __restrict__ mcol, const float* __restrict__ lse, __nv_bfloat16* __restrict__ dx,
+    float* __restrict__ part, int nwin, int wh, int ww, attn_mma::ShortBwd P) {
+  using namespace attn_mma;
+  constexpr int CWD = HPD < 16 ? 16 : HPD, CT = CWD / 8, HC = CWD / HPD;
+  extern __shared__ float4 smem4[];
+  float* sf = reinterpret_cast<float*>(smem4);
+  __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(sf + P.floats);
+  __nv_bfloat16* sx = sw + P.b_x;  // the tile's x [BR][LX]
+  __nv_bfloat16* sg = sw + P.b_g;  // ... and g
+  const Short& S = P.s;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int N = S.N, D = S.D, nh = S.nh, APP = S.APP, W = P.W, R = S.R;
+  const int LQ = P.LQ, LA = P.LA, LX = P.LX, LD3 = P.LD3, LDO = P.LDO, ST = 4 * nh;
+  const int NN = nh * N * N;
+
+  // ---- once per block: zeros (sums, padding), the float32 parameters, the
+  // bf16 weights
+  for (int i = tid; i < P.f_dq / 4; i += nthreads)
+    reinterpret_cast<float4*>(sf)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = tid; i < P.belems / 8; i += nthreads)
+    reinterpret_cast<uint4*>(sw)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  stage_short({sw, sf + P.f_bqkv, nullptr, sf + P.f_scale, sf + P.f_bias, sf + P.f_mask}, S,
+              sf + P.f_dq, wqkv, wq_k, wq_n, wproj, wp_k, wp_n, bqkv, nullptr, scale, bias, mrow,
+              mcol, wh, tid, nthreads);
+  // the tile's regions held the raw parameters: zeros (the padded columns
+  // of dqkv and of the attention output stay zero)
+  for (int i = P.f_dq / 4 + tid; i < P.floats / 4; i += nthreads)
+    reinterpret_cast<float4*>(sf)[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  __syncthreads();
+  const float* sb = sf + P.f_bias;   // bias [nh][N][N]
+  const float* smr = sf + P.f_mask;  // mask rows [N][N]
+  const float* smc = smr + N * N;    // ... columns
+
+  const int warp = tid >> 5, lane = tid & 31, lg = lane >> 2, t = lane & 3;
+  float* sdq = sf + P.f_dq;    // the tile's dqkv [BR][LD3]
+  float* so = sf + P.f_o;      // ... attention output [BR][LDO]
+  float* sdsc = sf + P.f_dsc;  // ... dscale shares [BR][nh]
+  float* sdsb = sf + P.f_dsb;  // ... ds per window [W·WPU][nh·N·N]
+  float* wq = sf + P.f_warp + warp * P.warp_floats;  // q_n | k_n | v [R][LQ]
+  float* wa = wq + P.w_dacc;                           // dacc [R][LA]
+  float* wst = wq + P.w_stat;  // [R][4nh]: 1/|q|, 1/|k|, lse, delta by head
+  const long total = (long)nwin * N;
+  const int units = (nwin + S.WPU - 1) / S.WPU, tiles = (units + W - 1) / W;
+  const int br0 = warp * R;  // the warp's first row in the tile
+  // the lane's row of a unit, its window and its position there (fixed for
+  // the kernel), and its first head: a lane to a (row, head), 32 / R heads
+  // at a time
+  const int r = lane & (R - 1), h0 = lane / R, hstep = 32 / R;
+  const int w = r / N, rw = r - w * N;
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int u = tile * W + warp;
+    const long row0 = (long)u * S.RU;
+
+    // 1. x and g into the tile by cp.async; q_n, k_n, v and dacc of the
+    // unit's rows
+    {
+      const int rows = row0 >= total ? 0 : (int)(total - row0 < S.RU ? total - row0 : S.RU);
+      load_rows(sx + br0 * LX, LX, x, row0, rows, S, lane);
+      load_rows(sg + br0 * LX, LX, g, row0, rows, S, lane);
+    }
+    for (int f = 0; f < S.F; ++f) {
+      const int ra = 16 * f + lg, rb = ra + 8;
+      for (int c0 = 0; c0 < APP; c0 += CWD) {
+        float acc[3][CT][4], inv[2][HC][2];
+        short_qkv<HPD, CWD>(acc, inv, sx + br0 * LX, LX, 16 * f, sw, S, sf + P.f_bqkv, c0, lane);
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+#pragma unroll
+          for (int j = 0; j < CT; ++j) store_tile_f32(wq, LQ, ra, p * APP + c0 + 8 * j + 2 * t, acc[p][j]);
+        if (t == 0)
+#pragma unroll
+          for (int p = 0; p < 2; ++p)
+#pragma unroll
+            for (int hh = 0; hh < HC; ++hh) {
+              const int h = c0 / HPD + hh;
+              if (h < nh) {
+                wst[ra * ST + p * nh + h] = inv[p][hh][0];
+                wst[rb * ST + p * nh + h] = inv[p][hh][1];
+              }
+            }
+        // dacc = g · wprojᵀ over the chunk's columns (wproj kept [a][d])
+        float da[CT][4];
+#pragma unroll
+        for (int j = 0; j < CT; ++j) da[j][0] = da[j][1] = da[j][2] = da[j][3] = 0.f;
+        for (int kk = 0; kk < S.dk; ++kk) {
+          uint32_t ga[4];
+          load_a(ga, sg + br0 * LX, LX, 16 * f, 16 * kk, lane);
+#pragma unroll
+          for (int n2 = 0; n2 < CT / 2; ++n2)
+            mma_pair(da[2 * n2], da[2 * n2 + 1], ga, sw + S.w_proj, S.LPW, c0 + 16 * n2, 16 * kk,
+                     lane);
+        }
+#pragma unroll
+        for (int j = 0; j < CT; ++j) store_tile_f32(wa, LA, ra, c0 + 8 * j + 2 * t, da[j]);
+      }
+    }
+    const long win = (long)u * S.WPU + w;
+    const bool real = r < S.RU && win < nwin;
+    bool gr, gc;
+    mask_gates(real ? (int)win : 0, wh, ww, gr, gc);
+#pragma unroll 1
+    for (int h = h0; h < nh; h += hstep)  // lse (each load's latency overlaps the next)
+      wst[r * ST + 2 * nh + h] = real ? __ldg(lse + ((size_t)win * nh + h) * N + rw) : 0.f;
+    __syncwarp();
+
+    // 2a. a lane to a (query row, head): o, delta, ds, the dscale share, dq_n
+#pragma unroll 1
+    for (int h = h0; h < nh; h += hstep) {
+      const int i = rw;
+      float o[HPD], dq[HPD];
+#pragma unroll
+      for (int d = 0; d < HPD; ++d) o[d] = dq[d] = 0.f;
+      float delta = 0.f, dsc = 0.f;
+      if (real) {
+        float q[HPD], da[HPD];
+#pragma unroll
+        for (int d = 0; d < HPD; ++d) q[d] = wq[r * LQ + h * HPD + d], da[d] = wa[r * LA + h * HPD + d];
+        const float* kb = wq + (w * N) * LQ + APP + h * HPD;  // k_n of the window's key 0
+        const float sc = sf[P.f_scale + h], l = wst[r * ST + 2 * nh + h];
+        const float* bi = sb + (h * N + i) * N;
+        // (cos, p, dp) of key j
+        auto key = [&](int j, float& cs, float& p, float& dp) {
+          const float* kj = kb + j * LQ;
+          const float* vj = kj + APP;
+          cs = 0.f, dp = 0.f;
+#pragma unroll
+          for (int d = 0; d < HPD; ++d) cs = fmaf(q[d], kj[d], cs), dp = fmaf(da[d], vj[d], dp);
+          float sv = cs * sc + bi[j];
+          if (gr) sv += smr[i * N + j];
+          if (gc) sv += smc[i * N + j];
+          p = expf(sv - l);
+        };
+#pragma unroll 4
+        for (int j = 0; j < N; ++j) {
+          float cs, p, dp;
+          key(j, cs, p, dp);
+          const float* vj = kb + j * LQ + APP;
+#pragma unroll
+          for (int d = 0; d < HPD; ++d) o[d] = fmaf(p, vj[d], o[d]);
+          delta = fmaf(dp, p, delta);
+        }
+#pragma unroll 4
+        for (int j = 0; j < N; ++j) {
+          float cs, p, dp;
+          key(j, cs, p, dp);
+          const float ds = p * (dp - delta);
+          dsc = fmaf(ds, cs, dsc);
+          const float dc = ds * sc;
+          const float* kj = kb + j * LQ;
+#pragma unroll
+          for (int d = 0; d < HPD; ++d) dq[d] = fmaf(dc, kj[d], dq[d]);
+        }
+      }
+      float* orow = so + (br0 + r) * LDO + h * HPD;
+      float* qrow = sdq + (br0 + r) * LD3 + h * HPD;
+#pragma unroll
+      for (int d = 0; d < HPD; ++d) orow[d] = o[d], qrow[d] = dq[d];
+      wst[r * ST + 3 * nh + h] = delta;
+      sdsc[(br0 + r) * nh + h] = dsc;
+    }
+    __syncwarp();
+
+    // 2b. a lane to a (key row, head): dk_n, dv, ds of its window's queries
+#pragma unroll 1
+    for (int h = h0; h < nh; h += hstep) {
+      const int j = rw;
+      float dk[HPD], dv[HPD];
+#pragma unroll
+      for (int d = 0; d < HPD; ++d) dk[d] = dv[d] = 0.f;
+      if (real) {
+        float k[HPD], v[HPD];
+#pragma unroll
+        for (int d = 0; d < HPD; ++d)
+          k[d] = wq[r * LQ + APP + h * HPD + d], v[d] = wq[r * LQ + 2 * APP + h * HPD + d];
+        const float sc = sf[P.f_scale + h];
+        float* dsw = sdsb + (size_t)(warp * S.WPU + w) * NN + (size_t)h * N * N + j;
+#pragma unroll 4
+        for (int i = 0; i < N; ++i) {
+          const int ri = w * N + i;
+          const float* qi = wq + ri * LQ + h * HPD;
+          const float* di = wa + ri * LA + h * HPD;
+          float cs = 0.f, dp = 0.f;
+#pragma unroll
+          for (int d = 0; d < HPD; ++d) cs = fmaf(qi[d], k[d], cs), dp = fmaf(di[d], v[d], dp);
+          float sv = cs * sc + sb[(h * N + i) * N + j];
+          if (gr) sv += smr[i * N + j];
+          if (gc) sv += smc[i * N + j];
+          const float p = expf(sv - wst[ri * ST + 2 * nh + h]);
+          const float ds = p * (dp - wst[ri * ST + 3 * nh + h]);
+          const float dc = ds * sc;
+#pragma unroll
+          for (int d = 0; d < HPD; ++d) dv[d] = fmaf(p, di[d], dv[d]), dk[d] = fmaf(dc, qi[d], dk[d]);
+          dsw[i * N] = ds;
+        }
+      }
+      float* krow = sdq + (br0 + r) * LD3 + APP + h * HPD;
+#pragma unroll
+      for (int d = 0; d < HPD; ++d) krow[d] = dk[d], krow[APP + d] = dv[d];
+    }
+    __syncwarp();
+
+    // 2c. the L2-norm backward in place: dt = inv·(dt_n - t_n (dt_n · t_n))
+#pragma unroll 1
+    for (int ph = h0; ph < 2 * nh; ph += hstep) {
+      const int p = ph >= nh, h = ph - p * nh;
+      float* dt = sdq + (br0 + r) * LD3 + p * APP + h * HPD;
+      const float* tn = wq + r * LQ + p * APP + h * HPD;
+      float dot = 0.f;
+#pragma unroll
+      for (int d = 0; d < HPD; ++d) dot = fmaf(dt[d], tn[d], dot);
+      const float inv = wst[r * ST + p * nh + h];
+#pragma unroll
+      for (int d = 0; d < HPD; ++d) dt[d] = inv * (dt[d] - tn[d] * dot);
+    }
+    __syncwarp();
+
+    // 3. dx = dqkv · wqkvᵀ, dqkv in three bf16 parts; bf16 rows out, 16
+    // columns at a time
+    for (int f = 0; f < S.F; ++f) {
+      const int ra = 16 * f + lg, rb = ra + 8;
+      const bool va = ra < S.RU && row0 + ra < total, vb = rb < S.RU && row0 + rb < total;
+      for (int n2 = 0; n2 < S.dk; ++n2) {
+        // (the three parts' products in accumulators of their own, added
+        // at the end: three independent mma chains)
+        float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        float am[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        float al[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        for (int kk = 0; kk < 3 * APP / 16; ++kk) {
+          const float* ar = sdq + (br0 + ra) * LD3 + 16 * kk + 2 * t;
+          uint32_t hi[4], mid[4], lo[4], b[4];
+          split3(ar[0], ar[1], hi[0], mid[0], lo[0]);
+          split3(ar[8 * LD3], ar[8 * LD3 + 1], hi[1], mid[1], lo[1]);
+          split3(ar[8], ar[9], hi[2], mid[2], lo[2]);
+          split3(ar[8 * LD3 + 8], ar[8 * LD3 + 9], hi[3], mid[3], lo[3]);
+          ldmatrix_x4(b, sw + (16 * n2 + 8 * (lane >> 4) + (lane & 7)) * S.LQW + 16 * kk +
+                             8 * ((lane >> 3) & 1));
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            mma_bf16(al[j], lo, b[2 * j], b[2 * j + 1]);
+            mma_bf16(am[j], mid, b[2 * j], b[2 * j + 1]);
+            mma_bf16(acc[j], hi, b[2 * j], b[2 * j + 1]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[j][q] += am[j][q] + al[j][q];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = 16 * n2 + 8 * j + 2 * t;
+          if (c >= D) break;
+          if (va) sts32(dx + (row0 + ra) * D + c, pack_bf16(acc[j][0], acc[j][1]));
+          if (vb) sts32(dx + (row0 + rb) * D + c, pack_bf16(acc[j][2], acc[j][3]));
+        }
+      }
+    }
+    __syncthreads();
+
+    // 4. the tile's shares of the parameter cotangents, each output element
+    // owned by one warp (the products) or one thread (the sums)
+    const int KS = P.BR / 16, C3 = 3 * APP;
+    // dwqkv [DP][3·APP] += xᵀ · dqkv, dqkv in three parts: a warp's 16x16
+    // output tiles four at a time, their k-steps interleaved
+    {
+      const int J = (S.DP / 16) * (C3 / 16);
+      for (int j0 = warp; j0 < J; j0 += 4 * W) {
+        float c[4][2][4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) c[b][nt][0] = c[b][nt][1] = c[b][nt][2] = c[b][nt][3] = 0.f;
+        // (a job past J repeats the last one, and is not added below: no
+        // branch in the loop, so the four tiles' products interleave)
+        int m0s[4], n0s[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int job = j0 + b * W < J ? j0 + b * W : J - 1;
+          m0s[b] = job / (C3 / 16) * 16, n0s[b] = job % (C3 / 16) * 16;
+        }
+        for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int m0 = m0s[b], n0 = n0s[b];
+            uint32_t a[4];
+            load_a_t(a, sx, LX, m0, 16 * ks, lane);
+            const float* br = sdq + (16 * ks + 2 * t) * LD3 + n0 + lg;
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              uint32_t h0, m0b, l0, h1, m1b, l1;
+              split3(br[8 * nt], br[LD3 + 8 * nt], h0, m0b, l0);
+              split3(br[8 * LD3 + 8 * nt], br[9 * LD3 + 8 * nt], h1, m1b, l1);
+              mma_bf16(c[b][nt], a, l0, l1);
+              mma_bf16(c[b][nt], a, m0b, m1b);
+              mma_bf16(c[b][nt], a, h0, h1);
+            }
+          }
+        float* acc = sf + P.a_w;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          if (j0 + b * W >= J) break;
+          const int m0 = m0s[b], n0 = n0s[b];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            float* at = acc + (m0 + lg) * C3 + n0 + 8 * nt + 2 * t;
+            at[0] += c[b][nt][0], at[1] += c[b][nt][1];
+            at[8 * C3] += c[b][nt][2], at[8 * C3 + 1] += c[b][nt][3];
+          }
+        }
+      }
+    }
+    // dwproj [APP][DP] += oᵀ · g, o in three parts, four tiles at a time
+    {
+      const int J = (APP / 16) * (S.DP / 16);
+      for (int j0 = warp; j0 < J; j0 += 4 * W) {
+        float c[4][2][4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) c[b][nt][0] = c[b][nt][1] = c[b][nt][2] = c[b][nt][3] = 0.f;
+        int m0s[4], n0s[4];
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int job = j0 + b * W < J ? j0 + b * W : J - 1;
+          m0s[b] = job / (S.DP / 16) * 16, n0s[b] = job % (S.DP / 16) * 16;
+        }
+        for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int m0 = m0s[b], n0 = n0s[b];
+            const float* orow = so + (16 * ks + 2 * t) * LDO + m0 + lg;
+            uint32_t hi[4], mid[4], lo[4], bb[4];
+            split3(orow[0], orow[LDO], hi[0], mid[0], lo[0]);
+            split3(orow[8], orow[LDO + 8], hi[1], mid[1], lo[1]);
+            split3(orow[8 * LDO], orow[9 * LDO], hi[2], mid[2], lo[2]);
+            split3(orow[8 * LDO + 8], orow[9 * LDO + 8], hi[3], mid[3], lo[3]);
+            ldmatrix_x4_trans(bb, sg + (16 * ks + 8 * ((lane >> 3) & 1) + (lane & 7)) * LX + n0 +
+                                      8 * (lane >> 4));
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              mma_bf16(c[b][nt], lo, bb[2 * nt], bb[2 * nt + 1]);
+              mma_bf16(c[b][nt], mid, bb[2 * nt], bb[2 * nt + 1]);
+              mma_bf16(c[b][nt], hi, bb[2 * nt], bb[2 * nt + 1]);
+            }
+          }
+        float* acc = sf + P.a_p;
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          if (j0 + b * W >= J) break;
+          const int m0 = m0s[b], n0 = n0s[b];
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) {
+            float* at = acc + (m0 + lg) * S.DP + n0 + 8 * nt + 2 * t;
+            at[0] += c[b][nt][0], at[1] += c[b][nt][1];
+            at[8 * S.DP] += c[b][nt][2], at[8 * S.DP + 1] += c[b][nt][3];
+          }
+        }
+      }
+    }
+    // (four partial sums over rows r mod 4, added in that order: the
+    // tile's BR rows are a multiple of 16)
+    auto rows_sum = [&](auto at) {
+      float s4[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int r = 0; r < P.BR; r += 4)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) s4[q] += at(r + q);
+      return (s4[0] + s4[1]) + (s4[2] + s4[3]);
+    };
+    for (int n = tid; n < C3; n += nthreads)
+      sf[P.a_bq + n] += rows_sum([&](int r) { return sdq[r * LD3 + n]; });
+    for (int c = tid; c < D; c += nthreads)
+      sf[P.a_bp + c] += rows_sum([&](int r) { return __bfloat162float(sg[r * LX + c]); });
+    for (int h = tid; h < nh; h += nthreads)
+      sf[P.a_sc + h] += rows_sum([&](int r) { return sdsc[r * nh + h]; });
+    {
+      const long win0 = (long)tile * W * S.WPU;
+      const int nw = (int)(nwin - win0 < W * S.WPU ? nwin - win0 : W * S.WPU);
+      for (int e = tid; e < NN; e += nthreads) {
+        float sum = 0.f;
+        for (int wl = 0; wl < nw; ++wl) sum += sdsb[(size_t)wl * NN + e];
+        sf[P.a_bi + e] += sum;
+      }
+    }
+    __syncthreads();
+  }
+
+  // the block's slot: [dwqkv D x 3A | dbqkv 3A | dscale nh | dbias | dwproj A x D | dbproj D]
+  // (a thread a column of dwqkv and a row of dwproj: no division per value)
+  const int A = S.A, A3 = 3 * A, hd = S.hd;
+  float* my = part + (size_t)blockIdx.x * ((size_t)D * A3 + A3 + nh + NN + (size_t)A * D + D);
+  float* m2 = my + (size_t)D * A3;
+  float* m3 = m2 + A3 + nh + NN;
+#pragma unroll 1
+  for (int n = tid; n < A3; n += nthreads) {
+    const int part = n / A, h = (n - part * A) / hd, col = part * APP + h * S.HP + n - part * A - h * hd;
+#pragma unroll 4
+    for (int k = 0; k < D; ++k) my[(size_t)k * A3 + n] = sf[P.a_w + k * 3 * APP + col];
+    m2[n] = sf[P.a_bq + col];
+  }
+  for (int h = tid; h < nh; h += nthreads) m2[A3 + h] = sf[P.a_sc + h];
+  for (int e = tid; e < NN; e += nthreads) m2[A3 + nh + e] = sf[P.a_bi + e];
+#pragma unroll 1
+  for (int a = tid; a < A; a += nthreads) {
+    const float* row = sf + P.a_p + (a / hd * S.HP + a % hd) * S.DP;
+#pragma unroll 4
+    for (int c = 0; c < D; ++c) m3[(size_t)a * D + c] = row[c];
+  }
+  for (int c = tid; c < D; c += nthreads) m3[A * D + c] = sf[P.a_bp + c];
+}
+
+// The grid of the short-window body's per-tile launch (persistent blocks,
+// at most one a tile).
+template <int HPD>
+int short_grid_t(const attn_mma::ShortBwd& P, int nwin, int* grid) {
+  static int cache[64][3] = {};
+  const int err = tmar::persistent_grid(window_attention_bwd_smma<HPD>, P.bytes, P.threads,
+                                        cache, grid);
+  if (err) return err;
+  const int units = (nwin + P.s.WPU - 1) / P.s.WPU, tiles = (units + P.W - 1) / P.W;
+  *grid = tiles < *grid ? tiles : *grid;
+  return 0;
+}
+
+int short_grid(const attn_mma::ShortBwd& P, int nwin, int* grid) {
+#define TMAR_SGRID(HPV) \
+  if (P.s.HP == HPV) return short_grid_t<HPV>(P, nwin, grid);
+  TMAR_SHORT_WIDTHS(TMAR_SGRID)
+#undef TMAR_SGRID
+  return (int)cudaErrorInvalidValue;
+}
+
+// The sum of the per-block slots in block order (reduce_partials under a
+// name of its own, so that a profile tells K4's short-window launches
+// apart).
+// A block of 256 threads takes 32 outputs: thread (q, o) sums the slots b
+// with b mod 8 = q in order, eight loads in flight, and thread (0, o) adds
+// the eight partial sums in order of q, so that the order is fixed and no
+// thread waits on one load per slot.
+__global__ void __launch_bounds__(256) window_attention_bwd_smma_reduce(
+    const float* __restrict__ part, float* __restrict__ out, int nblocks, int size) {
+  __shared__ float red[8][33];
+  const int o = threadIdx.x & 31, q = threadIdx.x >> 5, e = blockIdx.x * 32 + o;
+  float s = 0.f;
+  if (e < size)
+    for (int b0 = q; b0 < nblocks; b0 += 64) {
+      float v[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int b = b0 + 8 * k;
+        v[k] = b < nblocks ? __ldg(part + (size_t)b * size + e) : 0.f;
+      }
+#pragma unroll
+      for (int k = 0; k < 8; ++k) s += v[k];
+    }
+  red[q][o] = s;
+  __syncthreads();
+  if (q == 0 && e < size) {
+    float t = red[0][o];
+#pragma unroll
+    for (int k = 1; k < 8; ++k) t += red[k][o];
+    out[e] = t;
+  }
+}
+
+// one block's slot of sums, in floats
+long long short_slot(const attn_mma::Short& s) {
+  const long long A = s.A, NN = (long long)s.nh * s.N * s.N;
+  return (long long)s.D * 3 * A + 3 * A + s.nh + NN + A * s.D + s.D;
+}
+
+template <int HPD>
+int launch_smma_t(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* dx,
+                  void* workspace, void* dparams, int nwin, int wh, int ww,
+                  const attn_mma::ShortBwd& P, int grid, cudaStream_t stream) {
+  window_attention_bwd_smma<HPD><<<grid, P.threads, P.bytes, stream>>>(
+      (const __nv_bfloat16*)p[0], (const __nv_bfloat16*)p[1], (const float*)p[2], wq_k, wq_n,
+      (const float*)p[3], (const float*)p[4], (const float*)p[5], (const float*)p[6], wp_k,
+      wp_n, (const float*)p[7], (const float*)p[8], (const float*)p[9], (__nv_bfloat16*)dx,
+      (float*)workspace, nwin, wh, ww, P);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int size = (int)short_slot(P.s);
+  window_attention_bwd_smma_reduce<<<(size + 31) / 32, 256, 0, stream>>>(
+      (const float*)workspace, (float*)dparams, grid, size);
+  return (int)cudaGetLastError();
+}
+
+// The short-window body on windows of N tokens (its plan must exist); the
+// workspace holds short_workspace floats.
+int launch_smma(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* dx,
+                void* workspace, void* dparams, int nwin, int N, int D, int nh, int hd, int wh,
+                int ww, cudaStream_t s) {
+  attn_mma::ShortFwd F_;
+  attn_mma::ShortBwd P;
+  if (!attn_mma::short_plan(N, D, nh, hd, &F_, &P)) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)p[0] | (uintptr_t)p[1] | (uintptr_t)dx | (uintptr_t)workspace) & 15)
+    return (int)cudaErrorMisalignedAddress;
+  int grid = 0;
+  const int err = short_grid(P, nwin, &grid);
+  if (err) return err;
+#define TMAR_SMMA(HPV)                                                                       \
+  if (P.s.HP == HPV)                                                                         \
+    return launch_smma_t<HPV>(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, wh, ww, \
+                              P, grid, s);
+  TMAR_SHORT_WIDTHS(TMAR_SMMA)
+#undef TMAR_SMMA
+  return (int)cudaErrorInvalidValue;
+}
+
+// The short-window body's workspace in floats: one slot of sums a block
+// (-1 without a plan).
+long long short_workspace(int nwin, int N, int D, int nh, int hd) {
+  attn_mma::ShortFwd F_;
+  attn_mma::ShortBwd P;
+  int grid = 0;
+  if (!attn_mma::short_plan(N, D, nh, hd, &F_, &P) || short_grid(P, nwin, &grid)) return -1;
+  return (long long)grid * short_slot(P.s);
+}
+
 template <typename T>
 int launch_generic(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* dx,
                    void* part, void* dparams, int nwin, int N, int D, int nh, int hd, int hg,
@@ -1999,6 +2566,7 @@ long long tmar_window_attention_bwd_workspace(int nwin, int N, int D, int num_he
       return -1;
     return (long long)L.total;
   }
+  if (body == attn_mma::SHORT) return short_workspace(nwin, N, D, num_heads, head_dim);
 #define TMAR_WS(NN, DD, NH, HD)                                                       \
   if (N == NN && D == DD && num_heads == NH && head_dim == HD)                         \
     return (long long)blocks * Geo<NN, DD, NH, HD>::PSIZE;
@@ -2034,6 +2602,9 @@ int tmar_window_attention_bwd(const void* x, const void* g, const void* wqkv,
   cudaStream_t s = (cudaStream_t)stream;
   if (body == attn_mma::TENSOR_CORE)
     return launch_gmma(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, N, D, num_heads,
+                       head_dim, wh, ww, s);
+  if (body == attn_mma::SHORT)
+    return launch_smma(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, N, D, num_heads,
                        head_dim, wh, ww, s);
   if (body == attn_mma::FLAGSHIP)
     return num_heads == 6
@@ -2106,6 +2677,39 @@ long long tmar_window_attention_bwd_mma_smem(int N, int D, int num_heads, int he
   attn_mma::Plan P;
   if (!attn_mma::plan(N, D, num_heads, head_dim, &P)) return -1;
   return which == 1 ? (long long)P.b.bytes : (long long)P.s.bytes;
+}
+
+// The short-window body at any bfloat16 geometry it has a plan for (the
+// full-width NGswin's n-gram windows too, which the templated body runs),
+// with tmar_window_attention_bwd's arguments (hg, blocks and body unread)
+// and a workspace of tmar_window_attention_bwd_smma_workspace floats:
+// chip_smoke.py's and the GPU tests' check of it there, never a dispatch.
+int tmar_window_attention_bwd_smma(const void* x, const void* g, const void* wqkv,
+                                   const void* bqkv, const void* scale, const void* bias,
+                                   const void* wproj, const void* mrow, const void* mcol,
+                                   const void* lse, void* dx, void* workspace, void* dparams,
+                                   int nwin, int N, int D, int num_heads, int head_dim, int hg,
+                                   int wq_k, int wq_n, int wp_k, int wp_n, int wh, int ww,
+                                   int blocks, int is_bf16, int body, void* stream) {
+  (void)hg, (void)blocks, (void)body;
+  if (!is_bf16 || nwin < 1 || (wh > 0 && (ww < 1 || nwin % (wh * ww))))
+    return (int)cudaErrorInvalidValue;
+  const void* p[10] = {x, g, wqkv, bqkv, scale, bias, wproj, mrow, mcol, lse};
+  return launch_smma(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, N, D, num_heads,
+                     head_dim, wh, ww, (cudaStream_t)stream);
+}
+
+long long tmar_window_attention_bwd_smma_workspace(int nwin, int N, int D, int num_heads,
+                                                   int head_dim) {
+  return nwin < 1 ? -1 : short_workspace(nwin, N, D, num_heads, head_dim);
+}
+
+// The shared memory, in bytes, of the short-window body's per-tile launch
+// for windows of N tokens (-1 where it has no plan).
+long long tmar_window_attention_bwd_short_smem(int N, int D, int num_heads, int head_dim) {
+  attn_mma::ShortFwd f;
+  attn_mma::ShortBwd b;
+  return attn_mma::short_plan(N, D, num_heads, head_dim, &f, &b) ? (long long)b.bytes : -1;
 }
 
 // The body this source runs for the geometry and I/O type (attn_mma::Body).

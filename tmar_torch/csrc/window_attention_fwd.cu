@@ -18,7 +18,7 @@
 // also writes lse[win, h, i] = max + log(sum), which the backward kernel
 // reads in place of a second softmax pass.
 //
-// Four bodies, chosen by the I/O type and the geometry alone
+// Five bodies, chosen by the I/O type and the geometry alone
 // (window_attention_generic_mma.cuh: attn_mma::body, the rule of
 // tmar_torch/ops/envelope.py: attention_body):
 // * bfloat16 at the full-width NGswin's windows (N = 64, D = 64, heads 6 x 10
@@ -31,15 +31,20 @@
 //   its windows at float32, its n-gram windows N = 1, 4, 9 at D = 32 at both
 //   dtypes): the body templated on the geometry, which at bfloat16 rounds
 //   where _attn_kernel rounds: its weights and the head outputs before the
-//   projection (:1236), its scores and P·V float32.
+//   projection (:1236), its scores and P·V float32.  At bfloat16 it
+//   measured faster there than the short-window body (PERF.md §6).
+// * bfloat16 windows of 1 to 31 tokens at every other geometry with a plan
+//   (D a multiple of 8 up to 128, head_dim <= 32, the block fits): the
+//   short-window body below (window_attention_fwd_smma), which rounds
+//   where _attn_kernel rounds: the weights and x, and the head outputs
+//   before the projection (:1236); q_n, k_n, the scores, P and P·V float32.
 // * bfloat16 windows of 32 to 64 tokens at every other geometry with a plan
 //   (D a multiple of 8 up to 128, head_dim <= 32): the tensor-core generic
 //   body below (window_attention_fwd_gmma), rounding as the tensor-core body.
-// * every other case: the CUDA-core generic body, which takes N (<= 64), D,
-//   the heads and head_dim (<= 32) at run time.  At bfloat16 and N >= 32 it
-//   would round where the tensor-core body does (the rule sends those
-//   windows to the tensor-core generic body where it has a plan); below,
-//   where _attn_kernel rounds.
+// * every other case (float32, and bfloat16 widths without a plan): the
+//   CUDA-core generic body, which takes N (<= 64), D, the heads and head_dim
+//   (<= 32) at run time.  At bfloat16 and N >= 32 it would round where the
+//   tensor-core body does; below, where _attn_kernel rounds.
 //
 // What bounds it on an H100: about 45 kFLOP per token at N = 64 against 256
 // to 512 bytes moved (x, the output, lse): operations on the CUDA cores in
@@ -843,6 +848,201 @@ int launch_gmma(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, vo
   return launch_gmma_t<128, 32>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, P, s);
 }
 
+// ---- the bfloat16 tensor-core short-window body: 1 <= N <= 31 --------------
+// (window_attention_generic_mma.cuh: the plan, the rule, the layout.)  A
+// warp owns a unit of R = 16·F rows holding WPU whole windows:
+//  1. q, k, v of its rows on mma.sync from x's A fragments (read straight
+//     from device memory) and the staged bf16 wqkv, plus bqkv; q and k
+//     normalised in float32 in the registers; q_n | k_n | v into the warp's
+//     float32 slice;
+//  2. the attention core in float32 on the CUDA cores, a lane to a (row,
+//     head): the scores of the row's window from the slice, the softmax with
+//     its row max subtracted, P·v, lse; the head output rounded to bf16 into
+//     the warp's O tile (_attn_kernel rounds it there, :1236);
+//  3. out = O · wproj on mma.sync (O by ldmatrix) plus bproj, bf16, from the
+//     registers.
+// Only __syncwarp separates the phases, so the warps of a block and the
+// blocks of an SM (several fit: 4 warps and tens of KB a block) hide each
+// other's latency.  Rounding as _attn_kernel: x, the weights and the head
+// outputs bf16; every other value float32.  Bound: bytes (x, out, lse;
+// 0.00038 ms at the n = 2 step's 2048 windows); at those sizes a block
+// takes one unit a warp, so the launch is latency: the staging of the
+// parameters (one cp.async round trip) and one unit's chain.
+template <int HPD>
+__global__ void __launch_bounds__(128) window_attention_fwd_smma(
+    const __nv_bfloat16* __restrict__ x, const float* __restrict__ wqkv, int wq_k, int wq_n,
+    const float* __restrict__ bqkv, const float* __restrict__ scale,
+    const float* __restrict__ bias, const float* __restrict__ wproj, int wp_k, int wp_n,
+    const float* __restrict__ bproj, const float* __restrict__ mrow,
+    const float* __restrict__ mcol, __nv_bfloat16* __restrict__ out, float* __restrict__ lse,
+    int nwin, int wh, int ww, attn_mma::ShortFwd P) {
+  using namespace attn_mma;
+  constexpr int CWD = HPD < 16 ? 16 : HPD, CT = CWD / 8, HC = CWD / HPD;
+  extern __shared__ float4 smem4[];
+  float* sf = reinterpret_cast<float*>(smem4);
+  __nv_bfloat16* sw = reinterpret_cast<__nv_bfloat16*>(sf + P.floats);
+  const Short& S = P.s;
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  const int N = S.N, D = S.D, nh = S.nh, APP = S.APP, R = S.R, LQ = P.LQ, LO = P.LO;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  __nv_bfloat16* so = reinterpret_cast<__nv_bfloat16*>(
+      reinterpret_cast<char*>(sw + S.welems) + warp * P.warp_bytes);  // O [R][LO]
+  __nv_bfloat16* sx = so + R * LO;                                     // x [R][LX]
+  float* sq = reinterpret_cast<float*>(sx + R * P.LX);                 // q_n | k_n | v [R][LQ]
+
+  // ---- once per block: zeros (the padding of the weights, bqkv and
+  // bproj), every parameter (through the warps' regions), then zeros in the
+  // O tiles (their padded columns)
+  for (int i = tid; i < S.welems / 8; i += nthreads)
+    reinterpret_cast<uint4*>(sw)[i] = make_uint4(0u, 0u, 0u, 0u);
+  for (int i = tid; i < P.f_scale; i += nthreads) sf[i] = 0.f;
+  __syncthreads();
+  stage_short({sw, sf + P.f_bqkv, sf + P.f_bproj, sf + P.f_scale, sf + P.f_bias, sf + P.f_mask},
+              S, reinterpret_cast<float*>(sw + S.welems), wqkv, wq_k, wq_n, wproj, wp_k, wp_n,
+              bqkv, bproj, scale, bias, mrow, mcol, wh, tid, nthreads);
+  for (int i = lane; i < R * LO / 8; i += 32)
+    reinterpret_cast<uint4*>(so)[i] = make_uint4(0u, 0u, 0u, 0u);
+  __syncwarp();
+
+  const float* sb = sf + P.f_bias;   // bias [nh][N][N]
+  const float* smr = sf + P.f_mask;  // mask rows [N][N]
+  const float* smc = smr + N * N;    // ... columns
+  // the lane's row of a unit, its window and query (fixed for the kernel),
+  // and its first head: a lane to a (row, head), 32 / R heads at a time
+  const int r = lane & (R - 1), h0 = lane / R, hstep = 32 / R;
+  const int w = r / N, i = r - w * N;
+  const long total = (long)nwin * N;
+  const int units = (nwin + S.WPU - 1) / S.WPU;
+
+  for (int u = blockIdx.x * P.W + warp; u < units; u += gridDim.x * P.W) {
+    const long row0 = (long)u * S.RU;
+
+    // 1. the unit's x rows by cp.async; q_n, k_n, v into the slice
+    load_rows(sx, P.LX, x, row0, (int)(total - row0 < S.RU ? total - row0 : S.RU), S, lane);
+    for (int f = 0; f < S.F; ++f) {
+      const int ra = 16 * f + g;
+      for (int c0 = 0; c0 < APP; c0 += CWD) {
+        float acc[3][CT][4], inv[2][HC][2];
+        short_qkv<HPD, CWD>(acc, inv, sx, P.LX, 16 * f, sw, S, sf + P.f_bqkv, c0, lane);
+#pragma unroll
+        for (int p = 0; p < 3; ++p)
+#pragma unroll
+          for (int j = 0; j < CT; ++j) store_tile_f32(sq, LQ, ra, p * APP + c0 + 8 * j + 2 * t, acc[p][j]);
+      }
+    }
+    __syncwarp();
+
+    // 2. the attention core, a lane to a (row, head): the row max, then
+    // the softmax sum and P·v; the output rounded to bf16 into O
+    const long win = (long)u * S.WPU + w;
+    const bool real = r < S.RU && win < nwin;
+    bool gr, gc;
+    mask_gates(real ? (int)win : 0, wh, ww, gr, gc);
+    const float* kb0 = sq + (w * N) * LQ + APP;  // k_n of the row's window's key 0
+#pragma unroll 1
+    for (int h = h0; h < nh; h += hstep) {
+      float o[HPD];
+#pragma unroll
+      for (int d = 0; d < HPD; ++d) o[d] = 0.f;
+      if (real) {
+        float q[HPD];
+#pragma unroll
+        for (int d = 0; d < HPD; ++d) q[d] = sq[r * LQ + h * HPD + d];
+        const float* kb = kb0 + h * HPD;
+        const float sc = sf[P.f_scale + h];
+        const float* bi = sb + (h * N + i) * N;
+        auto logit = [&](int j) {
+          const float* kj = kb + j * LQ;
+          float dot = 0.f;
+#pragma unroll
+          for (int d = 0; d < HPD; ++d) dot = fmaf(q[d], kj[d], dot);
+          float v = dot * sc + bi[j];
+          if (gr) v += smr[i * N + j];
+          if (gc) v += smc[i * N + j];
+          return v;
+        };
+        float m = -INFINITY, z = 0.f;
+#pragma unroll 4
+        for (int j = 0; j < N; ++j) m = fmaxf(m, logit(j));
+#pragma unroll 4
+        for (int j = 0; j < N; ++j) {
+          const float pj = expf(logit(j) - m);
+          z += pj;
+          const float* vj = kb + j * LQ + APP;
+#pragma unroll
+          for (int d = 0; d < HPD; ++d) o[d] = fmaf(pj, vj[d], o[d]);
+        }
+        const float iz = 1.f / z;
+#pragma unroll
+        for (int d = 0; d < HPD; ++d) o[d] *= iz;
+        lse[((size_t)win * nh + h) * N + i] = m + logf(z);
+      }
+      __nv_bfloat16* orow = so + r * LO + h * HPD;
+#pragma unroll
+      for (int d = 0; d < HPD; d += 2) sts32(orow + d, pack_bf16(o[d], o[d + 1]));
+    }
+    __syncwarp();
+
+    // 3. out = O · wproj + bproj, bf16, from the registers (real rows and
+    // columns), 16 output columns at a time
+    __nv_bfloat16* ou = out + row0 * D;
+    for (int f = 0; f < S.F; ++f) {
+      const int ra = 16 * f + g, rb = ra + 8;
+      const bool va = ra < S.RU && row0 + ra < total, vb = rb < S.RU && row0 + rb < total;
+      for (int n2 = 0; n2 < S.dk; ++n2) {
+        float pj[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
+        for (int kk = 0; kk < APP / 16; ++kk) {
+          uint32_t oa[4];
+          load_a(oa, so, LO, 16 * f, 16 * kk, lane);
+          mma_pair_t(pj[0], pj[1], oa, sw + S.w_proj, S.LPW, 16 * n2, 16 * kk, lane);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int c = 16 * n2 + 8 * j + 2 * t;
+          if (c >= D) break;
+          const float b0 = sf[P.f_bproj + c], b1 = sf[P.f_bproj + c + 1];
+          if (va) sts32(ou + ra * D + c, pack_bf16(pj[j][0] + b0, pj[j][1] + b1));
+          if (vb) sts32(ou + rb * D + c, pack_bf16(pj[j][2] + b0, pj[j][3] + b1));
+        }
+      }
+    }
+    __syncwarp();  // the slice and O are free for the next unit
+  }
+}
+
+template <int HPD>
+int launch_smma_t(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* out,
+                  void* lse, int nwin, int wh, int ww, const attn_mma::ShortFwd& P,
+                  cudaStream_t stream) {
+  auto kern = window_attention_fwd_smma<HPD>;
+  static int cache[64][3] = {};
+  int grid = 0;
+  const int err = tmar::persistent_grid(kern, P.bytes, P.threads, cache, &grid);
+  if (err) return err;
+  const int units = (nwin + P.s.WPU - 1) / P.s.WPU, blocks = (units + P.W - 1) / P.W;
+  kern<<<blocks < grid ? blocks : grid, P.threads, P.bytes, stream>>>(
+      (const __nv_bfloat16*)p[0], (const float*)p[1], wq_k, wq_n, (const float*)p[2],
+      (const float*)p[3], (const float*)p[4], (const float*)p[5], wp_k, wp_n,
+      (const float*)p[6], (const float*)p[7], (const float*)p[8], (__nv_bfloat16*)out,
+      (float*)lse, nwin, wh, ww, P);
+  return (int)cudaGetLastError();
+}
+
+// The short-window body on windows of N tokens (its plan must exist).
+int launch_smma(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* out,
+                void* lse, int nwin, int N, int D, int nh, int hd, int wh, int ww,
+                cudaStream_t s) {
+  attn_mma::ShortFwd P;
+  attn_mma::ShortBwd B;
+  if (!attn_mma::short_plan(N, D, nh, hd, &P, &B)) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)p[0] | (uintptr_t)out) & 3) return (int)cudaErrorMisalignedAddress;
+#define TMAR_SMMA(HPV) \
+  if (P.s.HP == HPV) return launch_smma_t<HPV>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, P, s);
+  TMAR_SHORT_WIDTHS(TMAR_SMMA)
+#undef TMAR_SMMA
+  return (int)cudaErrorInvalidValue;
+}
+
 template <typename T>
 int launch_generic(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* out,
                    void* lse, int nwin, int N, int D, int nh, int hd, int hg, int wh, int ww,
@@ -890,6 +1090,9 @@ int tmar_window_attention_fwd(const void* x, const void* wqkv, const void* bqkv,
                : launch_mma<4, 16>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s);
   if (body == attn_mma::TENSOR_CORE)
     return launch_gmma(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, N, D, num_heads, head_dim, wh,
+                       ww, s);
+  if (body == attn_mma::SHORT)
+    return launch_smma(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, N, D, num_heads, head_dim, wh,
                        ww, s);
   // the templated body at the full-width NGswin's other geometries: its
   // float32 windows, and its n-gram windows at both dtypes
@@ -942,6 +1145,33 @@ int tmar_window_attention_fwd_gmma(const void* x, const void* wqkv, const void* 
 long long tmar_window_attention_fwd_mma_smem(int N, int D, int num_heads, int head_dim) {
   attn_mma::Plan P;
   return attn_mma::plan(N, D, num_heads, head_dim, &P) ? (long long)P.f.bytes : -1;
+}
+
+// The short-window body at any bfloat16 geometry it has a plan for (the
+// full-width NGswin's n-gram windows too, which the templated body runs),
+// with tmar_window_attention_fwd's arguments (hg, blocks and body unread):
+// chip_smoke.py's and the GPU tests' check of it there, never a dispatch.
+int tmar_window_attention_fwd_smma(const void* x, const void* wqkv, const void* bqkv,
+                                   const void* scale, const void* bias, const void* wproj,
+                                   const void* bproj, const void* mrow, const void* mcol,
+                                   void* out, void* lse, int nwin, int N, int D, int num_heads,
+                                   int head_dim, int hg, int wq_k, int wq_n, int wp_k, int wp_n,
+                                   int wh, int ww, int blocks, int is_bf16, int body,
+                                   void* stream) {
+  (void)hg, (void)blocks, (void)body;
+  if (!is_bf16 || nwin < 1 || (wh > 0 && (ww < 1 || nwin % (wh * ww))))
+    return (int)cudaErrorInvalidValue;
+  const void* p[9] = {x, wqkv, bqkv, scale, bias, wproj, bproj, mrow, mcol};
+  return launch_smma(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, N, D, num_heads, head_dim, wh, ww,
+                     (cudaStream_t)stream);
+}
+
+// The shared memory, in bytes, of the short-window body's launch for
+// windows of N tokens (-1 where it has no plan).
+long long tmar_window_attention_fwd_short_smem(int N, int D, int num_heads, int head_dim) {
+  attn_mma::ShortFwd f;
+  attn_mma::ShortBwd b;
+  return attn_mma::short_plan(N, D, num_heads, head_dim, &f, &b) ? (long long)f.bytes : -1;
 }
 
 // The body this source runs for the geometry and I/O type (attn_mma::Body).

@@ -21,7 +21,9 @@ Which body runs is ``envelope.attention_body``'s rule of geometry and dtype,
 and only that: bfloat16 at the full-width NGswin's 64-token windows
 (``MMA_GEOMETRIES``) the flagship tensor-core bodies; its other geometries
 (``KERNEL_GEOMETRIES``) bodies templated on the geometry; bfloat16 windows
-of 32 to 64 tokens the tensor-core generic bodies wherever
+of 1 to 31 tokens the short-window tensor-core bodies wherever
+``envelope.attention_short_plan`` has a plan; bfloat16 windows of 32 to 64
+tokens the tensor-core generic bodies wherever
 ``envelope.attention_mma_plan`` has a plan; every other case the CUDA-core
 generic bodies, which take N, D, the heads and head_dim at run time within
 ``envelope.attention_envelope``.  At bfloat16 all round to bf16 where the

@@ -229,7 +229,8 @@ ATTENTION_KERNEL_GEOMETRIES = ATTENTION_MMA_GEOMETRIES | {
     (n * n, 32, nh, hd) for n in (1, 2, 3) for nh, hd in ((6, 5), (4, 8))}
 # the bodies of K3 and K4, in the order of the CUDA sources' codes
 # (attn_mma::Body in csrc/window_attention_generic_mma.cuh)
-ATTENTION_BODIES = ("flagship", "templated", "tensor-core generic", "CUDA-core generic")
+ATTENTION_BODIES = ("flagship", "templated", "tensor-core generic", "CUDA-core generic",
+                    "tensor-core short-window")
 ATTN_MMA_WARPS = 8      # warps of a tensor-core generic block
 ATTN_MMA_MIN_N = 32     # the shortest window it takes (JAX rounds q_n, k_n, P from 32 up)
 
@@ -328,6 +329,81 @@ def attention_mma_bytes(N: int, D: int, nh: int, hd: int) -> Optional[Tuple[int,
     return plan["fwd"][-1], plan["bwd"][-1], plan["sums"][-1]
 
 
+def _short_geometry(N, D, nh, hd):
+    """The short-window body's padded geometry (``short_geom``): DP, HP,
+    APP, the unit's rows R and the weights' bf16 elements."""
+    DP = _up(D, 16)
+    HP = 8 if hd <= 8 else 16 if hd <= 16 else 32
+    APP = _up(nh * HP, 16)
+    R = 16 if N <= 16 else 32
+    welems = DP * (3 * APP + 8) + APP * (DP + 8)
+    return DP, HP, APP, R, welems
+
+
+def _short_raw(N, D, nh, hd):
+    """The floats of the parameters as the short-window bodies read them,
+    before staging (``stage_short``): wqkv, wproj, bqkv, bproj, the scale,
+    the bias and the two mask components."""
+    A = nh * hd
+    return D * 3 * A + A * D + 3 * A + D + nh + (nh + 2) * N * N
+
+
+def attention_short_fwd_bytes(N: int, D: int, nh: int, hd: int, warps: int) -> int:
+    """K3's short-window body (``csrc/window_attention_generic_mma.cuh``:
+    ``make_short_fwd``): float32 bqkv, bproj and the scale, the bias and
+    the shift mask's rows and columns, each region on 16 bytes; the bf16
+    weights; per warp the head outputs in bf16 [R][APP + 8], its x rows in
+    bf16 [R][DP + 8] and q_n | k_n | v in float32 [R][3·APP + 1]; the
+    warps' regions hold the raw parameters first, so they take at least
+    their bytes."""
+    DP, _, APP, R, welems = _short_geometry(N, D, nh, hd)
+    floats = _up(3 * APP + DP + nh, 4) + _up(nh * N * N, 4) + _up(2 * N * N, 4)
+    warp = 2 * R * (APP + 8 + DP + 8) + 4 * R * (3 * APP + 1)
+    return 4 * floats + 2 * welems + max(warps * warp, 4 * _up(_short_raw(N, D, nh, hd), 4))
+
+
+def attention_short_bwd_bytes(N: int, D: int, nh: int, hd: int, warps: int) -> int:
+    """K4's short-window body (``make_short_bwd``), each float32 region on
+    16 bytes: bqkv, the scale, the bias and the shift mask's rows and
+    columns; the block's sums of dwqkv, dwproj, dbqkv,
+    dbproj, dscale and dbias; the tile's (``warps`` units') dqkv, attention
+    output, dscale shares and ds per window; per warp q_n | k_n | v, dacc
+    and four values per row and head (from the tile's dqkv on, the raw
+    parameters first: at least their floats); then in bf16 the weights and
+    the tile's x and g [rows][DP + 8]."""
+    DP, _, APP, R, welems = _short_geometry(N, D, nh, hd)
+    BR, NN = warps * R, nh * N * N
+    wpu = R // N
+    regions = [3 * APP, nh, NN, 2 * N * N, DP * 3 * APP, APP * DP, 3 * APP, DP, nh, NN,
+               BR * (3 * APP + 1), BR * (APP + 1), BR * nh, warps * wpu * NN]
+    warp = _up(_up(R * (3 * APP + 1), 4) + _up(R * (APP + 1), 4) + R * 4 * nh, 4)
+    head = sum(_up(n, 4) for n in regions[:10])  # up to the tile's dqkv
+    floats = max(sum(_up(n, 4) for n in regions) + _up(warps * warp, 4),
+                 head + _up(_short_raw(N, D, nh, hd), 4))
+    return 4 * floats + 2 * (welems + 2 * BR * (DP + 8))
+
+
+def attention_short_plan(N: int, D: int, nh: int, hd: int) -> Optional[dict]:
+    """The short-window bodies' launch (``short_plan``), or None where they
+    take no plan: a window outside 1..31 tokens, D not a multiple of 8 or
+    past 128, head_dim past 32, or what fits no block.  Each of K3 and K4
+    takes the most warps of 4, 2, 1 whose block fits: {"fwd": (warps,
+    bytes), "bwd": (warps, bytes)}."""
+    if not (1 <= N < ATTN_MMA_MIN_N and 8 <= D <= NSTB_MMA_MAX_D and D % 8 == 0
+            and 1 <= hd <= HEAD_DIM_MAX and nh >= 1):
+        return None
+    plan = {}
+    for half, size in (("fwd", attention_short_fwd_bytes), ("bwd", attention_short_bwd_bytes)):
+        for warps in (4, 2, 1):
+            nbytes = size(N, D, nh, hd, warps)
+            if nbytes <= H100_SMEM_PER_BLOCK:
+                plan[half] = (warps, nbytes)
+                break
+        else:
+            return None
+    return plan
+
+
 @functools.lru_cache(maxsize=None)
 def attention_body(N: int, D: int, nh: int, hd: int, dtype: torch.dtype) -> str:
     """The body of K3 and K4 that runs windows of N tokens at width D, nh
@@ -335,16 +411,21 @@ def attention_body(N: int, D: int, nh: int, hd: int, dtype: torch.dtype) -> str:
     geometry and dtype alone, as the CUDA sources' ``attn_mma::body`` picks
     it: bfloat16 at the full-width NGswin's 64-token windows the flagship
     tensor-core bodies; its other geometries (those windows at float32, its
-    n-gram windows) the bodies templated on the geometry; bfloat16 windows
-    of 32 to 64 tokens the tensor-core generic bodies wherever they have a
-    plan (``attention_mma_plan``); the rest (float32, the exactness path,
-    and the n-gram windows below 32 tokens, whose JAX kernel keeps q_n, k_n
-    and P in float32) the CUDA-core generic bodies."""
+    n-gram windows at both dtypes: at bfloat16 the templated bodies
+    measured faster there than the short-window bodies, PERF.md §6) the
+    bodies templated on the geometry; bfloat16 windows shorter than 32
+    tokens the short-window tensor-core bodies wherever they have a plan
+    (``attention_short_plan``); bfloat16 windows of 32 to 64 tokens the
+    tensor-core generic bodies wherever they have a plan
+    (``attention_mma_plan``); the rest (float32, the exactness path, and
+    bfloat16 widths without a plan) the CUDA-core generic bodies."""
     bf16 = dtype == torch.bfloat16
     if bf16 and (N, D, nh, hd) in ATTENTION_MMA_GEOMETRIES:
         return ATTENTION_BODIES[0]
     if (N, D, nh, hd) in ATTENTION_KERNEL_GEOMETRIES:
         return ATTENTION_BODIES[1]
+    if bf16 and N < ATTN_MMA_MIN_N and attention_short_plan(N, D, nh, hd) is not None:
+        return ATTENTION_BODIES[4]
     if bf16 and attention_mma_plan(N, D, nh, hd) is not None:
         return ATTENTION_BODIES[2]
     return ATTENTION_BODIES[3]
@@ -632,7 +713,9 @@ def nstb_body(N: int, D: int, nh: int, hd: int, H: int, dtype: torch.dtype) -> s
 # without a plan), attention_fwd_bytes, attention_bwd_bytes,
 # (N, D, heads, head_dim) for K3's tensor-core generic body and the same
 # with the launch (1 per window, 2 the token sums) last for K4's (the
-# entries of attention_mma_bytes, -1 without a plan), ngram_fwd_bytes, ngram_bwd_bytes with the pass (1 or 2) last, the same
+# entries of attention_mma_bytes, -1 without a plan), (N, D, heads,
+# head_dim) for K3's and K4's short-window body (attention_short_plan's
+# bytes, -1 without a plan), ngram_fwd_bytes, ngram_bwd_bytes with the pass (1 or 2) last, the same
 # for K7's tensor-core generic body (ngram_mma_bytes, -1 without a plan),
 # ngram_mma_fwd_bytes for K1's (-1 without a plan), and for each
 # of K2 and K8 (N, D, heads, head_dim, hidden) with the generic body's code
@@ -646,6 +729,8 @@ SMEM_QUERIES = {
     "attention_bwd": ("window_attention_bwd", "tmar_window_attention_bwd_smem", 4),
     "attention_fwd_mma": ("window_attention_fwd", "tmar_window_attention_fwd_mma_smem", 4),
     "attention_bwd_mma": ("window_attention_bwd", "tmar_window_attention_bwd_mma_smem", 5),
+    "attention_fwd_short": ("window_attention_fwd", "tmar_window_attention_fwd_short_smem", 4),
+    "attention_bwd_short": ("window_attention_bwd", "tmar_window_attention_bwd_short_smem", 4),
     "ngram_fwd": ("ngram_context", "tmar_ngram_context_smem", 3),
     "ngram_bwd": ("ngram_context_bwd", "tmar_ngram_context_bwd_smem", 5),
     "ngram_bwd_mma": ("ngram_context_bwd", "tmar_ngram_context_bwd_mma_smem", 5),
