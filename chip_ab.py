@@ -145,7 +145,7 @@ def short_body_device_ms(cs, ca, x, params, g, nh, mc):
     dp = torch.empty(D * 3 * A + 3 * A + nh + nh * N * N + A * D + D, device=x.device)
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     k3 = lambda: kernels.check("window_attention_fwd", fwd(  # noqa: E731
-        *p, out.data_ptr(), lse.data_ptr(), *geo.ints(False), stream()))
+        *p, out.data_ptr(), lse.data_ptr(), None, *geo.ints(False), stream()))
     k4 = lambda: kernels.check("window_attention_bwd", bwd(  # noqa: E731
         p[0], g.contiguous().data_ptr(), *p[1:5], p[5], p[7], p[8], lse.data_ptr(),
         dx.data_ptr(), work.data_ptr(), dp.data_ptr(), *geo.ints(True), stream()))

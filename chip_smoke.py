@@ -201,6 +201,21 @@ Phases, each of which fails the run if it fails:
    with ``use_pallas_attention: true`` and ``attn_backward`` ``auto`` and
    ``xla`` (K4 0 there).  The ``kernels`` line gains
    ``launches_default_form_step_path``.
+25. windows past 8x8 and heads past 32 channels: the long-window bodies of
+   K3/K4 and K2/K8 (their rule and shared memory equal to the envelope's)
+   against the plain versions at 9x9 and 16x16 windows with heads of 10,
+   16, 40 and 64 channels and at 8x8 with 40, mask on and off, f32 and
+   bf16, two backward runs bit for bit; their times beside the plain
+   versions and bounds (K4 also by device kernel); the window-16 NGswin at
+   the flagship's widths (random weights from a seed) serving 8x512² bf16
+   in the map and token forms and one 416² slice (20 launches of K1 and of
+   K2 / K8 per forward, all on the long-window body, the first launch of
+   each stage held to its plain version at NSTB_BF16_TOL), a float32
+   1x128² request against the CPU, three ``full`` steps at 8x128² through
+   the ``Trainer`` (20 launches of K3 and K4 a step on the long-window
+   bodies, metrics finite, every generator parameter moved), and the
+   ``head_dim=dec_head_dim=64`` model's 2x256² request and step.  The
+   ``kernels`` line gains the long-window bodies' rows.
 
 It prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card, exits non-zero
@@ -887,7 +902,7 @@ def generic_bodies_at_the_flagship_geometry(dev, card, randn):
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
     def k3():
-        kernels.check("window_attention_fwd", fwd(*p, out_g.data_ptr(), lse_g.data_ptr(),
+        kernels.check("window_attention_fwd", fwd(*p, out_g.data_ptr(), lse_g.data_ptr(), None,
                                                   *geo.ints(False), stream()))
 
     def k4():
@@ -963,7 +978,7 @@ def short_bodies_at_the_ngram_geometries(dev, randn, failures):
                 dx = torch.empty_like(x)
                 work = torch.empty(wsq(nwin, N, D, nh, hd), device=dev)
                 dp = torch.empty(D * 3 * A + 3 * A + nh + nh * N * N + A * D + D, device=dev)
-                kernels.check("window_attention_fwd", fwd(*p, out.data_ptr(), lse.data_ptr(),
+                kernels.check("window_attention_fwd", fwd(*p, out.data_ptr(), lse.data_ptr(), None,
                                                           *geo.ints(False), stream()))
                 kernels.check("window_attention_bwd", bwd(
                     p[0], g.data_ptr(), *p[1:5], p[5], p[7], p[8], lse.data_ptr(), dx.data_ptr(),
@@ -1820,7 +1835,7 @@ def flagship_geometry_line(dev, card, randn):
                                 cuda_nstb._ARGTYPES, ctypes.c_int)
 
     def launch_mma():
-        kernels.check("nstb_map", mma(*[t.data_ptr() for t in ops], out_mma.data_ptr(), *ints,
+        kernels.check("nstb_map", mma(*[t.data_ptr() for t in ops], out_mma.data_ptr(), None, *ints,
                                       1e-5, torch.cuda.current_stream().cuda_stream))
 
     flag = cuda_ms(lambda: cuda_nstb._launch(ops, out, ints, 1e-5), iters=10)
@@ -4494,6 +4509,570 @@ def export_phase(card):
     return launches
 
 
+# ---- phase 25: windows past 8x8 and heads past 32 channels -------------------
+
+# K3/K4's long-window bodies at kernel level: (N, heads, head_dim) at D 64,
+# 9x9 and HAT's 16x16 windows with heads of 10, 16, 40 and 64 channels (A > D
+# at 40 and 64), and 8x8 windows with heads of 40
+LONG_ATTN_CASES = [(N, nh, hd) for N in (81, 256) for nh, hd in ((6, 10), (4, 16), (2, 40), (6, 64))
+                   ] + [(64, 2, 40)]
+# K2/K8's long-window body: (window side, heads, head_dim) at D 64, hidden 128
+LONG_NSTB_CASES = [(16, 6, 10), (16, 4, 16), (9, 2, 40), (16, 6, 64)]
+# the window-16 NGswin at the flagship's widths, and with heads of 64 channels
+WINDOW16 = {"window_size": 16}
+HEAD64 = {"window_size": 16, "head_dim": 64, "dec_head_dim": 64}
+
+
+def _attn_parts(dparams, ops, params, N, D, nh, hd):
+    """K4's concatenated float32 cotangents as the plain version returns
+    them (dlogit_scale from the kernel's cotangent on the effective scale)."""
+    import torch
+
+    from tmar_torch.ops.attention import LOGIT_SCALE_MAX
+
+    A = nh * hd
+    dwqkv, dbqkv, dscale, dbias, dwproj, dbproj = torch.split(
+        dparams, [D * 3 * A, 3 * A, nh, nh * N * N, A * D, D])
+    dls = dscale * ops[3] * (params[2].reshape(nh) <= LOGIT_SCALE_MAX)
+    return [dwqkv.reshape(D, 3 * A), dbqkv, dls.reshape(nh, 1, 1), dbias.reshape(nh, N, N),
+            dwproj.reshape(A, D), dbproj]
+
+
+def long_attention_kernels(dev, randn, failures):
+    """K3's and K4's long-window bodies against the rounding-matched plain
+    versions at ``LONG_ATTN_CASES``, 16 windows on a 4x4 grid, the shift mask
+    on and off, float32 and bfloat16: the output and dx at the dtype's
+    tolerance; the parameter cotangents at F32_TOL where their products take
+    float32 operands (float32), at BF16_TOL where they take bf16 ones (bf16
+    from 32 tokens up, ``cot_bf16``); two backward runs bit for bit.
+    Returns {dtype name: the largest output error}."""
+    import torch
+
+    from tmar_torch.ops import cuda_attention as ca
+    from tmar_torch.ops import envelope as env
+    from tmar_torch.ops.window import shift_mask_components
+
+    f = ca.fused_window_attention
+    before = (f.launches, f.backward_launches, f.launches_by_body.copy(),
+              f.backward_launches_by_body.copy(), f.launches_by_n.copy(),
+              f.backward_launches_by_n.copy())
+    worst_out = {"float32": 0.0, "bfloat16": 0.0}
+    nwin, D = 16, 64
+    for N, nh, hd in LONG_ATTN_CASES:
+        A, ws = nh * hd, int(round(N ** 0.5))
+        params = [randn(D, 3 * A, scale=0.1), randn(3 * A, scale=0.1),
+                  randn(nh, 1, 1, scale=0.5, shift=1.2), randn(nh, N, N, scale=0.2),
+                  randn(A, D, scale=0.1), randn(D, scale=0.1)]
+        for dtype in (torch.float32, torch.bfloat16):
+            x, g = randn(nwin, N, D).to(dtype), randn(nwin, N, D).to(dtype)
+            body = env.attention_body(N, D, nh, hd, dtype)
+            for mc in (None, (*shift_mask_components(ws, ws // 2), 4, 4)):
+                dn = str(dtype).split(".")[1]
+                label = f"x=[{nwin}, {N}, {D}] heads={nh}x{hd} mask={'on' if mc else 'off'} {dn}"
+                ops, geo = ca._kernel_operands(x, *params, nh, mc)
+                out, lse = ca._launch(ops, geo)
+                runs = [ca._launch_backward(ops, lse, g, geo) for _ in range(2)]
+                torch.cuda.synchronize()
+                got = [out, runs[0][0], *_attn_parts(runs[0][1], ops, params, N, D, nh, hd)]
+                ref = [ca.window_attention_kernel_math(x, *params, nh, mask_components=mc),
+                       *ca.window_attention_backward_math(x, g, *params, nh, mask_components=mc)]
+                param_dtype = torch.bfloat16 if dtype == torch.bfloat16 and N >= 32 else torch.float32
+                bad, worst = [], ("", 0.0)
+                for i, (name, a, b) in enumerate(zip(ATTN_NAMES, got, ref)):
+                    err, tol = err_and_tol(a, b, dtype if i <= 1 else param_dtype)
+                    if i == 0:
+                        worst_out[dn] = max(worst_out[dn], err)
+                    if err / max(tol, 1e-30) >= worst[1]:
+                        worst = (name, err / max(tol, 1e-30))
+                    if not (err <= tol and bool(torch.isfinite(a).all())):
+                        bad.append(f"{name} err {err:.3e} > tol {tol:.3e}")
+                same = all(torch.equal(a, b) for a, b in zip(*runs))
+                if not same:
+                    bad.append("two backward runs differ")
+                if body != "long-window":
+                    bad.append(f"the rule names {body!r}")
+                print(f"[kernel] window_attention long-window body {label}: out and 7 cotangents, "
+                      f"worst {worst[0]} at {worst[1]:.3f} of its tolerance; two backward runs "
+                      f"bit-identical: {same} {'ok' if not bad else 'FAIL ' + '; '.join(bad)}")
+                if bad:
+                    failures.append(f"window_attention long-window body {label}")
+                del ops, runs, ref, got
+    (f.launches, f.backward_launches, f.launches_by_body, f.backward_launches_by_body,
+     f.launches_by_n, f.backward_launches_by_n) = before
+    torch.cuda.empty_cache()
+    return worst_out
+
+
+def _nstb_long_case(randn, ws, nh, hd, D=64, H=128):
+    A = nh * hd
+    return [randn(D, 3 * A, scale=0.15), randn(3 * A, scale=0.1), randn(nh, 1, 1),
+            randn((2 * ws - 1) ** 2, nh, scale=0.5), randn(A, D, scale=0.15), randn(D, scale=0.1),
+            (1 + randn(D, scale=0.1), randn(D, scale=0.1)),
+            (randn(D, H, scale=0.15), randn(H, scale=0.1)),
+            (randn(H, D, scale=0.1), randn(D, scale=0.1)),
+            (1 + randn(D, scale=0.1), randn(D, scale=0.1))]
+
+
+def long_nstb_kernels(dev, randn, failures):
+    """K2's and K8's long-window body against the rounding-matched plain
+    versions at ``LONG_NSTB_CASES`` on a 2 x 2ws x 3ws map (a 2x3 window grid),
+    shift 0 (Q 1) and ws/2 (Q 4), float32 and bfloat16: F32_TOL, BF16_TOL;
+    K8 on the partitioned windows bit for bit K2.  Returns {dtype name: the
+    largest error}."""
+    import torch
+
+    from tmar_torch.ops import cuda_nstb as cn
+    from tmar_torch.ops import envelope as env
+    from tmar_torch.ops.window import cyclic_shift, window_partition, window_unpartition
+
+    before = (cn.fused_nstb_map.launches, cn.fused_nstb.launches,
+              cn.fused_nstb_map.launches_by_body.copy(), cn.fused_nstb.launches_by_body.copy())
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    for ws, nh, hd in LONG_NSTB_CASES:
+        args = _nstb_long_case(randn, ws, nh, hd)
+        for dtype in (torch.float32, torch.bfloat16):
+            dn = str(dtype).split(".")[1]
+            for shift in (0, ws // 2):
+                Q = 1 if shift == 0 else 4
+                x = randn(2, 2 * ws, 3 * ws, 64).to(dtype)
+                cq = randn(12, Q, 64, scale=0.5).to(dtype)
+                with torch.no_grad():
+                    z = cn.fused_nstb_map(x, cq, *args, nh, ws, shift)
+                    wins, grid = window_partition(cyclic_shift(x, shift), ws)
+                    cq4 = cq if Q == 4 else cq.expand(12, 4, 64).contiguous()
+                    zt = cn.fused_nstb(wins.reshape(-1, ws * ws, 64).contiguous(), cq4, *args, nh,
+                                       ws, shift, grid=grid)
+                    ref = cn.nstb_map_math(x, cq, *args, num_heads=nh, window_size=ws, shift=shift)
+                torch.cuda.synchronize()
+                err, tol = err_and_tol(z, ref, dtype)
+                worst[dn] = max(worst[dn], err)
+                same = torch.equal(window_unpartition(zt.reshape(-1, ws, ws, 64), grid), z)
+                body = env.nstb_body(ws * ws, 64, nh, hd, 128, dtype)
+                ok = err <= tol and same and bool(torch.isfinite(z).all()) and body == "long-window"
+                print(f"[kernel] nstb long-window body x=[2, {2 * ws}, {3 * ws}, 64] window {ws} "
+                      f"heads={nh}x{hd} shift {shift} {dn}: max_abs_err {err:.3e} tol {tol:.3e}; "
+                      f"K8 bit for bit K2: {same} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    failures.append(f"nstb long-window body window {ws} {nh}x{hd} shift {shift} {dn}")
+    (cn.fused_nstb_map.launches, cn.fused_nstb.launches, cn.fused_nstb_map.launches_by_body,
+     cn.fused_nstb.launches_by_body) = before
+    torch.cuda.empty_cache()
+    return worst
+
+
+def profiled_ms(fn, name_parts, iters=3):
+    """(device ms per call, device kernels per call) of the kernels whose
+    name holds one of ``name_parts``, by ``device_profile``: a warm-up call
+    the trace does not keep, and a retake while a launch lost its record (a
+    bare trace late in this long process loses them)."""
+    from tmar_torch.utils.profiling import device_profile
+
+    rows = [r for r in device_profile(fn, iters=iters, top=1 << 30)
+            if any(p in r["op"] for p in name_parts)]
+    return sum(r["ms"] for r in rows), round(sum(r["count"] for r in rows) / iters)
+
+
+def long_kernel_times(dev, randn, card):
+    """The long-window bodies at the window-16 NGswin's stage 1 in the
+    8x128² step (512 windows of 256 tokens, D 64, 6 x 10 heads, mask on):
+    K3 and K4 by CUDA events over their launches and as device time alone
+    (``profiled_ms``, the ``attn_long::`` kernels), at bf16 and f32, beside
+    the plain versions and the bounds; K2 and K8 on that map (8 x 128² x 64,
+    shift 8) likewise, and K2 alone at the 8x512² request's stage 1.
+    Returns ({dtype name: K3 and K4's times}, {dtype name: K2 and K8's})."""
+    import torch
+
+    from tmar_torch.ops import cuda_attention as ca
+    from tmar_torch.ops import cuda_nstb as cn
+    from tmar_torch.ops.window import cyclic_shift, shift_mask_components, window_partition
+    from tmar_torch.utils.profiling import device_profile
+
+    f = ca.fused_window_attention
+    saved = (f.launches, f.backward_launches, f.launches_by_body.copy(),
+             f.backward_launches_by_body.copy(), f.launches_by_n.copy(),
+             f.backward_launches_by_n.copy(), cn.fused_nstb_map.launches, cn.fused_nstb.launches,
+             cn.fused_nstb_map.launches_by_body.copy(), cn.fused_nstb.launches_by_body.copy())
+    nwin, N, D, nh, hd, ws = 512, 256, 64, 6, 10, 16
+    A = nh * hd
+    params = [randn(D, 3 * A, scale=0.1), randn(3 * A, scale=0.1),
+              randn(nh, 1, 1, scale=0.5, shift=1.2), randn(nh, N, N, scale=0.2),
+              randn(A, D, scale=0.1), randn(D, scale=0.1)]
+    mc = (*shift_mask_components(ws, ws // 2), 8, 8)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        x, g = randn(nwin, N, D).to(dtype), randn(nwin, N, D).to(dtype)
+        ops, geo = ca._kernel_operands(x, *params, nh, mc)
+        k3 = cuda_ms(lambda: ca._launch(ops, geo), iters=5, warmup=1)
+        _, lse = ca._launch(ops, geo)
+        k4 = cuda_ms(lambda: ca._launch_backward(ops, lse, g, geo), iters=5, warmup=1)
+        d3, n3 = profiled_ms(lambda: ca._launch(ops, geo), ("attn_long::",))
+        d4, n4 = profiled_ms(lambda: ca._launch_backward(ops, lse, g, geo), ("attn_long::",))
+        p3 = cuda_ms(lambda: ca.window_attention_kernel_math(x, *params, nh, mask_components=mc),
+                     iters=3, warmup=1)
+        p4 = cuda_ms(lambda: ca.window_attention_backward_math(x, g, *params, nh, mask_components=mc),
+                     iters=3, warmup=1)
+        b3 = bound_ms(*attention_work(nwin, N, D, nh, hd, x.element_size(), False), dn)
+        b4 = bound_ms(*attention_work(nwin, N, D, nh, hd, x.element_size(), True), dn)
+        if dtype == torch.bfloat16:  # where K4's time goes, by device kernel
+            rows4 = device_profile(lambda: ca._launch_backward(ops, lse, g, geo), iters=3,
+                                   top=1 << 30)
+            parts = {k: sum(r["ms"] for r in rows4 if r["op"] == f"attn_long::{k}")
+                     for k in ("rows_gemm", "qk_norm", "attn_bwd_rows", "attn_bwd_cols",
+                               "param_sums", "bwd_reduce")}
+            print("[profile] K4 long-window body by device kernel, ms: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + f" on {card}")
+        print(f"[time] window_attention long-window body x=[{nwin}, {N}, {D}] {nh}x{hd} mask on "
+              f"{dn}: K3 {k3:.4f} ms (device {d3:.4f} ms in {n3} kernels), K4 {k4:.4f} ms (device "
+              f"{d4:.4f} ms in {n4} kernels); plain {p3:.4f} / {p4:.4f} ms; bound {b3[0]:.4f} / "
+              f"{b4[0]:.4f} ms by {b3[1]} / {b4[1]} on {card}")
+        rows[dn] = (k3, k4, d3, d4, p3, p4, b3, b4)
+        del ops, lse, x, g
+        torch.cuda.empty_cache()
+    args = _nstb_long_case(randn, ws, nh, hd)
+    nrows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dn = str(dtype).split(".")[1]
+        x = randn(8, 128, 128, D).to(dtype)
+        cq = randn(8 * 64, 4, D, scale=0.5).to(dtype)
+        wins, grid = window_partition(cyclic_shift(x, 8), ws)
+        wins = wins.reshape(-1, N, D).contiguous()
+        with torch.no_grad():
+            k2 = cuda_ms(lambda: cn.fused_nstb_map(x, cq, *args, nh, ws, 8), iters=5, warmup=1)
+            k8 = cuda_ms(lambda: cn.fused_nstb(wins, cq, *args, nh, ws, 8, grid=grid), iters=5,
+                         warmup=1)
+            d2, n2 = profiled_ms(lambda: cn.fused_nstb_map(x, cq, *args, nh, ws, 8), ("_long::",))
+            d8, n8 = profiled_ms(lambda: cn.fused_nstb(wins, cq, *args, nh, ws, 8, grid=grid),
+                                 ("_long::",))
+            p2 = cuda_ms(lambda: cn.nstb_map_math(x, cq, *args, num_heads=nh, window_size=ws,
+                                                  shift=8), iters=3, warmup=1)
+            p8 = cuda_ms(lambda: cn.nstb_tokens_math(wins, cq, *args, num_heads=nh,
+                                                     window_size=ws, shift=8, grid=grid),
+                         iters=3, warmup=1)
+        b = bound_ms(*nstb_work(8, 128, 128, nh, 4, x.element_size(), hd=hd, ws=ws), dn)
+        print(f"[time] nstb long-window body x=[8, 128, 128, {D}] window {ws} {nh}x{hd} shift 8 "
+              f"{dn}: K2 {k2:.4f} ms (device {d2:.4f} ms in {n2} kernels), K8 {k8:.4f} ms (device "
+              f"{d8:.4f} ms in {n8} kernels); plain {p2:.4f} / {p8:.4f} ms; bound {b[0]:.4f} ms by "
+              f"{b[1]} on {card}")
+        nrows[dn] = (k2, k8, d2, d8, p2, p8, b)
+        del x, cq, wins
+        torch.cuda.empty_cache()
+    x = randn(8, 512, 512, D).to(torch.bfloat16)
+    cq = randn(8 * 1024, 4, D, scale=0.5).to(torch.bfloat16)
+    with torch.no_grad():
+        k2_512 = cuda_ms(lambda: cn.fused_nstb_map(x, cq, *args, nh, ws, 8), iters=3, warmup=1)
+    b512 = bound_ms(*nstb_work(8, 512, 512, nh, 4, 2, hd=hd, ws=ws), "bfloat16")
+    print(f"[time] nstb long-window body x=[8, 512, 512, {D}] window {ws} {nh}x{hd} shift 8 "
+          f"bfloat16 (the 8x512² request's stage 1): K2 {k2_512:.4f} ms, bound {b512[0]:.4f} ms "
+          f"by {b512[1]} on {card}")
+    del x, cq
+    torch.cuda.empty_cache()
+    (f.launches, f.backward_launches, f.launches_by_body, f.backward_launches_by_body,
+     f.launches_by_n, f.backward_launches_by_n, cn.fused_nstb_map.launches, cn.fused_nstb.launches,
+     cn.fused_nstb_map.launches_by_body, cn.fused_nstb.launches_by_body) = saved
+    return rows, nrows
+
+
+def _capture_nstb(module, name, keep):
+    """Wrap ``module.name`` (a whole-block kernel as the blocks call it) so
+    that the calls whose index is in ``keep`` record their arguments and
+    output; returns (the list of records, a function that puts it back)."""
+    original = getattr(module, name)
+    calls, kept = [0], []
+
+    def wrapper(*args, **kwargs):
+        out = original(*args, **kwargs)
+        if calls[0] in keep:
+            kept.append((calls[0], args, kwargs, out))
+        calls[0] += 1
+        return out
+
+    setattr(module, name, wrapper)
+    return kept, lambda: setattr(module, name, original)
+
+
+def _hold_long_serving(form, kept, check):
+    """Each kept K2 / K8 call of a window-16 request against its plain
+    version on the first image's windows: max within NSTB_BF16_TOL x
+    max|ref|, mean within NSTB_MEAN_TOL."""
+    import torch
+
+    from tmar_torch.ops import cuda_nstb as cn
+
+    worst = 0.0
+    for i, args, kwargs, out in kept:
+        x, cq, *weights = args
+        nh, ws = weights[-2], weights[-1]
+        weights = weights[:-2]
+        shift = kwargs.get("shift", 0)
+        with torch.no_grad():
+            if form == "map":
+                per = (x.shape[1] // ws) * (x.shape[2] // ws)
+                ref = cn.nstb_map_math(x[:1], cq[:per], *weights, num_heads=nh, window_size=ws,
+                                       shift=shift)
+                got = out[:1]
+            else:
+                wh, ww = kwargs["grid"]
+                per = wh * ww
+                ref = cn.nstb_tokens_math(x[:per], cq[:per], *weights, num_heads=nh,
+                                          window_size=ws, shift=shift, grid=(wh, ww))
+                got = out[:per]
+        d = (got.float() - ref.float()).abs()
+        err, mean, scale = float(d.max()), float(d.mean()), float(ref.float().abs().max())
+        worst = max(worst, err / scale)
+        check(err <= NSTB_BF16_TOL * scale and mean <= NSTB_MEAN_TOL,
+              f"window 16, {form} form, launch {i} (x {list(x.shape)}, shift {shift}): first "
+              f"image against the plain version, max_abs_err {err:.3e} tol "
+              f"{NSTB_BF16_TOL * scale:.3e}, mean {mean:.2e} tol {NSTB_MEAN_TOL:.0e}")
+    return worst
+
+
+def long_window_serving(card, check):
+    """The window-16 NGswin at the flagship's widths (random weights from a
+    seed) serves 8x512² bf16 in the map form (K1 + K2) and the token form
+    (K1 + K8) and one 416² slice (padded to 448², a 7x7 window grid at stage
+    3), the counters set to 0 just before each request and read just after:
+    20 launches of K1 and 20 of K2 (K8) per forward, all on the long-window
+    body; the first launch of each stage held to its plain version on the
+    first image; outputs finite and in [-1, 1]; the median request; and a
+    float32 1x128² request on the card against the CPU.  Returns K2's and
+    K8's long-window launches on the 8x512² requests."""
+    import torch
+
+    import tmar_torch.nn.blocks as blocks
+    from tmar_torch import NGswin, make_inference_fn
+    from tmar_torch.ops import cuda_ngram, cuda_nstb
+
+    torch.manual_seed(25)
+    model = NGswin(**WINDOW16, dtype=torch.bfloat16)
+    sd = model.state_dict()
+    tokens = NGswin(**WINDOW16, dtype=torch.bfloat16, nstb_map=False)
+    tokens.load_state_dict(sd)
+    rng = np.random.default_rng(25)
+    req512 = rng.uniform(-1, 1, (8, 512, 512, 1)).astype(np.float32)
+    slice416 = rng.uniform(-1, 1, (1, 416, 416, 1)).astype(np.float32)
+    launches = {}
+    # the first block of each stage: encoder stages of 6, 4, 4 blocks, then the decoder
+    keep = {0, 6, 10, 14}
+    for form, net, kernel, name in (("map", model, cuda_nstb.fused_nstb_map, "fused_nstb_map"),
+                                    ("token", tokens, cuda_nstb.fused_nstb, "fused_nstb")):
+        fwd = make_inference_fn(net)
+        for req, label in ((req512, "8x512²"), (slice416, "1x416²")):
+            kept, restore = _capture_nstb(blocks, name, keep if label == "8x512²" else set())
+            cuda_ngram.fused_ngram_context.launches = 0
+            kernel.launches = 0
+            kernel.launches_by_body.clear()
+            try:
+                y = fwd(req)
+            finally:
+                restore()
+            k1, k2 = cuda_ngram.fused_ngram_context.launches, kernel.launches
+            by_body = dict(kernel.launches_by_body)
+            print(f"[serve window 16] {form} form {label} bf16: out {list(y.shape)} range "
+                  f"[{y.min():.4f}, {y.max():.4f}], launches ngram_context {k1}, {name[6:]} {k2} "
+                  f"by body {by_body}")
+            check(bool(np.isfinite(y).all()) and y.min() >= -1 and y.max() <= 1
+                  and y.shape == req.shape, f"window 16, {form} form {label}: finite, in [-1, 1]")
+            check(k1 == 20 and by_body == {"long-window": 20},
+                  f"window 16, {form} form {label}: 20 launches of K1 and 20 of "
+                  f"{'K2' if form == 'map' else 'K8'}, all on the long-window body")
+            if label == "8x512²":
+                launches[name[6:]] = by_body.get("long-window", 0)
+                worst = _hold_long_serving("map" if form == "map" else "tokens", kept, check)
+                print(f"[serve window 16] {form} form: the kept launches' largest error "
+                      f"{worst:.3e} x max|ref|")
+                del kept
+        if form == "map":
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                fwd(req512)
+                times.append(time.perf_counter() - t0)
+            med = statistics.median(times)
+            print(f"[time] window-16 full-slice 8x512² bf16 request, map form: median "
+                  f"{med * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]} on {card}; peak "
+                  f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        torch.cuda.empty_cache()
+    del model, tokens
+    # float32 on the card against the CPU at 1x128²
+    on_card = NGswin(**WINDOW16, dtype=torch.float32)
+    on_card.load_state_dict(sd)
+    on_cpu = NGswin(**WINDOW16, dtype=torch.float32, device="cpu")
+    on_cpu.load_state_dict(sd)
+    small = req512[:1, :128, :128]
+    d = float(np.abs(make_inference_fn(on_card)(small)
+                     - make_inference_fn(on_cpu, device="cpu")(small)).max())
+    check(d <= 1e-4, f"window 16, f32 map form at 1x128² on the card against the CPU: max_abs_err "
+                     f"{d:.3e} tol 1e-4")
+    del on_card, on_cpu
+    torch.cuda.empty_cache()
+    return launches
+
+
+def long_window_training(card, check):
+    """The promoted ``full`` step of the window-16 NGswin at the flagship's
+    widths through the ``Trainer`` (``attn_backward: pallas``, bf16,
+    ``fused_pairs``) at 8x128²: 3 steps on one batch with the counters set
+    to 0 just before and read just after (20 launches per step of K3 and K4
+    on the long-window body, at N = 256; K1/K7 and K5/K6 at widths they
+    already take), metrics finite, the generator's parameters moved.  Then
+    the ``head_dim=dec_head_dim=64`` model (A = 384 / 256 > D): one map-form
+    request and one ``full``-recipe step at 2x256².  Returns K3's and K4's
+    long-window launches over the 3 steps."""
+    import tempfile
+
+    import torch
+
+    from tmar_torch import (LossWeights, MultiScaleDiscriminator, NGswin, create_train_state,
+                            make_inference_fn, make_train_step)
+    from tmar_torch.ops import cuda_attention
+    from tmar_torch.train import Trainer
+
+    f = cuda_attention.fused_window_attention
+    with tempfile.TemporaryDirectory(prefix="tmar_win16_") as tmp:
+        cfg = _trainer_config(tmp, **{"model.window_size": 16, "run_name": "window16"})
+        m = cfg.model
+        check(m.window_size == 16 and m.use_pallas_attention and m.attn_backward == "pallas"
+              and cfg.bf16 and cfg.disc.fused_pairs and cfg.variant == "full",
+              "window 16: the promoted recipe (full, attn_backward pallas, bf16, fused_pairs)")
+        torch.manual_seed(16)
+        trainer = Trainer(cfg)
+        gen = trainer.state.generator
+        before = {k: p.detach().clone() for k, p in gen.named_parameters()}
+        batch = _synthetic_batch(TRAIN_BATCH, "cuda")
+        history, times = [], []
+        f.launches_by_body.clear()
+        f.backward_launches_by_body.clear()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.state, metrics = trainer.train_step(trainer.state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            history.append({k: float(v) for k, v in metrics.items()})
+        fwd, bwd = dict(f.launches_by_body), dict(f.backward_launches_by_body)
+        moved = sum(not torch.equal(p.detach(), before[k]) for k, p in gen.named_parameters())
+        print(f"[train window 16] {TRAIN_BATCH}x{TRAIN_PATCH}² bf16 full step x3: K3 by body {fwd}, "
+              f"K4 by body {bwd}; g_rec {[round(h['g_rec'], 5) for h in history]}; "
+              f"{moved} of {len(before)} generator tensors moved; step ms "
+              f"{[round(t * 1e3, 1) for t in times]} on {card}")
+        check(fwd == {"long-window": 60} and bwd == {"long-window": 60},
+              "window 16: 20 launches per step of each of K3 and K4, on the long-window bodies")
+        check(all(np.isfinite(v) for h in history for v in h.values()),
+              "window 16: every metric of the 3 steps finite")
+        check(moved == len(before), "window 16: every generator parameter moved")
+        launches = (fwd.get("long-window", 0), bwd.get("long-window", 0))
+        del trainer, gen, before
+        torch.cuda.empty_cache()
+
+    # heads of 64 channels: one map-form request, one full-recipe step at 2x256²
+    torch.manual_seed(64)
+    net = NGswin(**HEAD64, dtype=torch.bfloat16)
+    x = np.random.default_rng(64).uniform(-1, 1, (2, 256, 256, 1)).astype(np.float32)
+    from tmar_torch.ops import cuda_nstb
+
+    cuda_nstb.fused_nstb_map.launches_by_body.clear()
+    y = make_inference_fn(net)(x)
+    by_body = dict(cuda_nstb.fused_nstb_map.launches_by_body)
+    check(bool(np.isfinite(y).all()) and by_body == {"long-window": 20},
+          f"head_dim 64: a map-form 2x256² request, finite, K2 by body {by_body}")
+    gen = NGswin(**HEAD64, dtype=torch.bfloat16, attn_backward="pallas")
+    gen.load_state_dict(net.state_dict())
+    disc = MultiScaleDiscriminator(dtype=torch.bfloat16)
+    g_opt = torch.optim.Adam(gen.parameters(), 1e-4, betas=(0.5, 0.999), eps=1e-8)
+    d_opt = torch.optim.Adam(disc.parameters(), 2e-4, betas=(0.5, 0.999), eps=1e-8)
+    state = create_train_state(torch.Generator().manual_seed(64), gen, disc, g_opt, d_opt,
+                               ema_decay=0.999)
+    step = make_train_step(gen, disc, g_opt, d_opt, LossWeights(phys=0.0), fused_pairs=True,
+                           ema_decay=0.999, device="cuda")
+    gt = np.where(x > 0.6, -0.5, 0.5 * x).astype(np.float32)
+    f.launches_by_body.clear()
+    f.backward_launches_by_body.clear()
+    state, metrics = step(state, {"ct": torch.from_numpy(x).cuda(), "gt": torch.from_numpy(gt).cuda()})
+    torch.cuda.synchronize()
+    fwd, bwd = dict(f.launches_by_body), dict(f.backward_launches_by_body)
+    print(f"[train head_dim 64] 2x256² bf16 step: K3 by body {fwd}, K4 by body {bwd}; "
+          + " ".join(f"{k} {float(v):.5f}" for k, v in metrics.items()))
+    check(fwd == {"long-window": 20} and bwd == {"long-window": 20}
+          and all(np.isfinite(float(v)) for v in metrics.values()),
+          "head_dim 64: one step, metrics finite, 20 launches of K3 and K4 on the long-window bodies")
+    del net, gen, disc, state
+    torch.cuda.empty_cache()
+    return launches
+
+
+def long_windows(dev, card):
+    """Phase 25.  Returns the ``kernels`` line's rows of the long-window
+    bodies."""
+    import torch
+
+    failures = []
+
+    def check(cond, what):
+        print(f"[check] {what}: {'ok' if cond else 'FAIL'}")
+        if not cond:
+            failures.append(what)
+
+    from tmar_torch.ops import envelope as env
+
+    gen = torch.Generator(device="cpu").manual_seed(25)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return (torch.randn(*shape, generator=gen) * scale + shift).to(dev)
+
+    for N, nh, hd in LONG_ATTN_CASES:
+        for lib in ("window_attention_fwd", "window_attention_bwd"):
+            for dtype in (torch.float32, torch.bfloat16):
+                got = env.built_attention_body(lib, N, 64, nh, hd, dtype)
+                if got != env.attention_body(N, 64, nh, hd, dtype):
+                    failures.append(f"{lib} body at N={N}, {nh}x{hd}: {got}")
+        plan = env.attention_long_plan(N, 64, nh, hd)
+        if (env.built_smem("attention_long", N, 64, nh, hd, 1),
+                env.built_smem("attention_long", N, 64, nh, hd, 2)) != (plan["fwd"], plan["bwd"]):
+            failures.append(f"long-window shared memory at N={N}, {nh}x{hd}")
+    for ws, nh, hd in LONG_NSTB_CASES:
+        for lib in ("nstb_map", "nstb_tokens"):
+            if env.built_smem(lib, ws * ws, 64, nh, hd, 128, 3) != env.nstb_long_plan(
+                    ws * ws, 64, nh, hd, 128):
+                failures.append(f"{lib} long-window shared memory at window {ws}, {nh}x{hd}")
+            for dtype in (torch.float32, torch.bfloat16):
+                got = env.built_nstb_body(lib, ws * ws, 64, nh, hd, 128, dtype)
+                if got != env.nstb_body(ws * ws, 64, nh, hd, 128, dtype):
+                    failures.append(f"{lib} body at window {ws}, {nh}x{hd}: {got}")
+    print(f"[check] long-window bodies: the sources' body rule and shared memory equal the "
+          f"envelope's: {'ok' if not failures else 'FAIL ' + '; '.join(failures)}")
+    attn_err = long_attention_kernels(dev, randn, failures)
+    nstb_err = long_nstb_kernels(dev, randn, failures)
+    times, ntimes = long_kernel_times(dev, randn, card)
+    serve_launches = long_window_serving(card, check)
+    k3, k4 = long_window_training(card, check)
+    if failures:
+        raise SystemExit(f"long-window checks failed: {failures}")
+    bf = times["bfloat16"]
+    nbf = ntimes["bfloat16"]
+    shape = "x [512, 256, 64] bf16, 6 x 10 heads, mask on (the window-16 8x128² step's stage 1)"
+    nshape = "x [8, 128, 128, 64] bf16, window 16, 6 x 10 heads, shift 8"
+    rows = {}
+    for name, source, replaces, launches, err, ms, dev_ms, plain, bound, f32, shp in (
+            ("window_attention_fwd_long", "tmar_torch/csrc/window_attention_long.cuh",
+             "tmar/ops/pallas_attention.py:1143", k3, attn_err["bfloat16"], bf[0], bf[2], bf[4],
+             bf[6], times["float32"][0], shape),
+            ("window_attention_bwd_long", "tmar_torch/csrc/window_attention_long.cuh",
+             "tmar/ops/pallas_attention.py:568", k4, attn_err["bfloat16"], bf[1], bf[3], bf[5],
+             bf[7], times["float32"][1], shape),
+            ("nstb_map_long", "tmar_torch/csrc/nstb_long.cuh", "tmar/ops/pallas_nstb.py:640",
+             serve_launches.get("nstb_map", 0), nstb_err["bfloat16"], nbf[0], nbf[2], nbf[4],
+             nbf[6], ntimes["float32"][0], nshape),
+            ("nstb_tokens_long", "tmar_torch/csrc/nstb_long.cuh", "tmar/ops/pallas_nstb.py:334",
+             serve_launches.get("nstb", 0), nstb_err["bfloat16"], nbf[1], nbf[3], nbf[5], nbf[6],
+             ntimes["float32"][1], nshape)):
+        rows[name] = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                      "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
+                      "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+                      "device_ms": dev_ms, "ms_f32": f32, "shape": shp, "card": card}
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -4575,6 +5154,10 @@ def main() -> int:
     t0 = time.perf_counter()
     forms_launches = train_forms(card)
     print(f"[time] phase 24 (the default model form) in {time.perf_counter() - t0:.1f} s on {card}")
+    t0 = time.perf_counter()
+    long_rows = long_windows(dev, card)
+    print(f"[time] phase 25 (windows past 8x8, heads past 32 channels) in "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
     for name, rec in records.items():
         # launches: the count of the first path above that ran the kernel
         # (serving, composition training, the trainer's full step)
@@ -4589,6 +5172,7 @@ def main() -> int:
         rec["launches_default_form_step_path"] = forms_launches.get(name, 0)
         rec["widths"] = width_rows.get(name, [])
         rec["card"] = card
+    records.update(long_rows)
     print(json.dumps({"kernels": list(records.values())}))
     print(f"{card}")
     print(json.dumps({"ok": True, "device": {

@@ -45,6 +45,7 @@ from tmar_torch.train import Trainer, load_config, make_train_step, resolve_vari
 from tmar_torch.train.dcgan import create_dcgan_state, make_dcgan_step, train_dcgan
 from tmar_torch.train.steps import GANTrainState
 from tmar_torch.train.trainer import build_discriminator, build_generator
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 RTOL, ATOL = 1e-4, 5e-5
 # XLA's CPU compiler without LLVM's expensive passes: the same arithmetic
@@ -219,7 +220,10 @@ def test_two_dcgan_steps_match_jax_with_the_same_z():
         z = rng.standard_normal((4, 1, 1, 8)).astype(np.float32)
         args = (jstate, jnp.asarray(real), jnp.asarray(z))
         jstep = jstep or _compiled(jmake_dcgan_step(jgen, jdisc, g_tx, d_tx), *args)
-        jstate, jm = jstep(*args)
+        # JAX returns before it has read its inputs, and the first state's
+        # arrays are views of the port's buffers, which its step changes in
+        # place: wait for the JAX step before taking the port's
+        jstate, jm = jax.block_until_ready(jstep(*args))
         state, m = step(state, real, z)
         for k in ("loss_d", "loss_g"):
             np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=1e-4, atol=1e-6, err_msg=k)

@@ -360,10 +360,10 @@ def test_nstb_envelope_refuses_past_the_card_s_shared_memory():
     envelope.nstb_envelope(64, 144, 4, 32, 576)
     with pytest.raises(NotImplementedError, match="D=152.*past the card's 232448"):
         envelope.nstb_envelope(64, 152, 4, 32, 608)
-    with pytest.raises(NotImplementedError, match="head_dim 40 is past the bound"):
-        envelope.nstb_envelope(64, 80, 2, 40, 160)
-    with pytest.raises(NotImplementedError, match="N=81 tokens is past the bound N <= 64"):
-        envelope.nstb_envelope(81, 32, 2, 16, 64)
+    # head_dim past 32 and windows past 8x8 take the long-window body, whose
+    # largest block is the envelope's count
+    assert envelope.nstb_envelope(64, 80, 2, 40, 160) == envelope.nstb_long_bytes(64, 80, 2, 40, 160)
+    assert envelope.nstb_envelope(81, 32, 2, 16, 64) == envelope.nstb_long_bytes(81, 32, 2, 16, 64)
     with pytest.raises(ValueError):
         envelope.nstb_envelope(64, 32, 2, 16, 0)
 
@@ -385,10 +385,19 @@ def test_the_whole_envelope_is_admitted():
 
 
 def test_past_the_envelope_the_limit_is_named():
-    with pytest.raises(NotImplementedError, match="head_dim 40 is past the bound head_dim <= 32"):
-        envelope.attention_envelope(64, 80, 2, 40)
-    with pytest.raises(NotImplementedError, match="N=81 tokens is past the bound N <= 64"):
-        envelope.attention_envelope(81, 32, 2, 16)
+    # windows and heads past the other bodies take the long-window ones,
+    # which refuse only past the card's shared memory, naming the bytes
+    assert envelope.attention_envelope(64, 80, 2, 40)[1::2] == envelope.attention_long_bytes(
+        64, 80, 2, 40)
+    assert envelope.attention_envelope(81, 32, 2, 16)[1::2] == envelope.attention_long_bytes(
+        81, 32, 2, 16)
+    with pytest.raises(NotImplementedError,
+                       match=r"window attention \(K3/K4\): the long-window body at N=4096.*"
+                             r"needs \d+ bytes of shared memory, past the card's 232448"):
+        envelope.attention_envelope(4096, 64, 1, 64)
+    with pytest.raises(NotImplementedError,
+                       match=r"whole NSTB \(K2/K8\): the long-window body at N=4096.* needs \d+"):
+        envelope.nstb_envelope(4096, 64, 1, 64, 128)
     with pytest.raises(NotImplementedError, match="head_dim 48"):
         envelope.ngram_envelope(96, 192, 2, 48)
     with pytest.raises(NotImplementedError,
@@ -400,3 +409,61 @@ def test_past_the_envelope_the_limit_is_named():
     with pytest.raises(NotImplementedError,
                        match=r"whole NSTB \(K2/K8\): the block at N=64, D=512.* needs \d+ bytes"):
         envelope.nstb_envelope(64, 512, 16, 32, 2048)
+
+
+# (N, D, heads, head_dim, hidden): HAT's 16x16 windows at the flagship's
+# widths (6 x 10, 4 x 16), heads of 64 channels (A > D), a 9x9 window, 8x8
+# windows with heads of 40, heads of 40 on 4-token windows, a 32x32 window
+LONG = [(256, 64, 6, 10, 128), (256, 64, 4, 16, 128), (256, 64, 6, 64, 128), (81, 64, 6, 64, 128),
+        (81, 32, 2, 16, 64), (64, 80, 2, 40, 160), (4, 32, 2, 40, 64), (1024, 32, 2, 16, 64)]
+
+
+@pytest.mark.parametrize("N,D,nh,hd,H", LONG)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_long_windows_and_wide_heads_take_the_long_window_bodies(N, D, nh, hd, H, dtype):
+    """Past 64 tokens a window or 32 channels a head, K3/K4 and K2/K8 run
+    their long-window bodies at either dtype, and the envelope admits the
+    geometry with those bodies' largest blocks (all heads to a group)."""
+    assert envelope.long_window(N, hd)
+    assert envelope.attention_body(N, D, nh, hd, dtype) == "long-window"
+    assert envelope.nstb_body(N, D, nh, hd, H, dtype) == "long-window"
+    fwd, bwd = envelope.attention_long_bytes(N, D, nh, hd)
+    assert envelope.attention_envelope(N, D, nh, hd) == (nh, fwd, nh, bwd)
+    assert envelope.attention_long_plan(N, D, nh, hd) == {"fwd": fwd, "bwd": bwd}
+    assert 0 < fwd <= bwd <= envelope.H100_SMEM_PER_BLOCK
+    nbytes = envelope.nstb_envelope(N, D, nh, hd, H)
+    assert nbytes == envelope.nstb_long_plan(N, D, nh, hd, H) == envelope.nstb_long_bytes(
+        N, D, nh, hd, H)
+
+
+def test_long_window_plans_count_the_sources_layout():
+    """The long-window bodies' byte counts, as the CUDA sources lay them out
+    (the same numbers a GPU test reads back from ``tmar_*_long_smem`` and
+    ``tmar_nstb_*_smem(..., 3)``): at 16x16 windows, 6 x 10 heads, K3's
+    attention block (a 64-key tile [64][11], 32 rows' scores [32][256], q
+    and outputs [32][10]) and K4's columns pass; at heads of 64, K4's
+    token sums (32 rows of x, g [65], dqkv [1153], o [385]); K2/K8's tail."""
+    assert envelope.attention_long_bytes(256, 64, 6, 10) == (38144, 47616)
+    assert envelope.attention_long_bytes(81, 64, 6, 64) == (43392, 213504)
+    assert envelope.nstb_long_bytes(256, 64, 6, 10, 128) == 40960
+    assert envelope.nstb_long_bytes(81, 64, 6, 64, 128) == 82432
+
+
+def test_the_rule_keeps_the_other_bodies_up_to_8x8_and_32_channels():
+    """At 64 tokens and 32 channels and below, nothing moves to the
+    long-window bodies: the flagship, templated, tensor-core and CUDA-core
+    bodies keep their geometries."""
+    assert not envelope.long_window(64, 32) and envelope.long_window(65, 32)
+    assert envelope.long_window(64, 33) and envelope.long_window(1, 33)
+    assert envelope.attention_body(64, 64, 6, 10, torch.bfloat16) == "flagship"
+    assert envelope.attention_body(64, 128, 4, 32, torch.bfloat16) == "tensor-core generic"
+    assert envelope.nstb_body(64, 64, 6, 10, 128, torch.float32) == "flagship"
+    assert envelope.nstb_body(64, 128, 4, 32, 512, torch.float32) == "CUDA-core generic"
+
+
+def test_nstb_bytes_counts_one_window_past_64_tokens():
+    """The CUDA-core generic body's count takes one whole window a tile past
+    64 tokens (it took none, so an oversize window seemed to fit); that
+    body never runs there, the rule sends such windows to the long one."""
+    assert envelope.nstb_bytes(81, 32, 2, 16, 64) == 4 * 81 * (33 + 33 + 97)
+    assert envelope.nstb_bytes(256, 64, 6, 10, 128) > envelope.H100_SMEM_PER_BLOCK

@@ -53,6 +53,7 @@ from tmar_torch.train.finetune import (
     freeze_by_path,
     make_finetune_step,
 )
+from torch_port_threads import one_torch_thread  # noqa: F401 (autouse: one PyTorch thread)
 
 SIZE, LR = 32, 1e-4
 ANGLES = np.linspace(0, np.pi, 30, endpoint=False)
@@ -249,7 +250,9 @@ def test_two_finetune_steps_match_jax(pairs_root, arch):
     jbatch = {k: jnp.asarray(v) for k, v in batch.items()}
     jstep = _compiled(jstep, jstate, jbatch)
     for _ in range(2):
-        jstate, jm = jstep(jstate, jbatch)
+        # wait for the JAX step: it reads views of the port's parameters
+        # (module_to_flax), which the port's step changes in place
+        jstate, jm = jax.block_until_ready(jstep(jstate, jbatch))
         state, m = step(state, batch)
         assert set(m) == set(jm) == {"loss", "rec", "edge", "sino"}
         for k in jm:

@@ -222,19 +222,24 @@ def test_nstb_tensor_core_generic_body_matches_plain(cuda, label, B, wh, ww, D, 
 
 def test_nstb_generic_body_refuses_past_its_envelope(cuda):
     """Past the envelope, and only there, K2 and K8 refuse with the limit
-    named; a head count that does not divide the attention width is a
-    ValueError."""
+    named (the FFN tail past the card's shared memory); head_dim 40 and a
+    9x9 window, which the generic bodies do not take, run the long-window
+    body, held to the plain versions at float32."""
     rng = np.random.default_rng(22)
     x, cq, params = nstb_inputs(rng, 2, 1, 8, 8, 1, D=80, H=160, hd=40)
-    with pytest.raises(NotImplementedError, match="head_dim 40"):
-        cuda_nstb.fused_nstb_map(x.to(cuda), cq.to(cuda), *[_to(p, cuda) for p in params], 2, 8)
+    params = [_to(p, cuda) for p in params]
+    got = cuda_nstb.fused_nstb_map(x.to(cuda), cq.to(cuda), *params, 2, 8)
+    ref = cuda_nstb.nstb_map_math(x.to(cuda), cq.to(cuda), *params, num_heads=2, window_size=8)
+    assert float((got - ref).abs().max()) <= _tol(ref, torch.float32)
     x, cq, params = nstb_inputs(rng, 8, 1, 8, 8, 1, D=256, H=1024, hd=32)
     with pytest.raises(NotImplementedError, match="bytes of shared memory"):
         cuda_nstb.fused_nstb_map(x.to(cuda), cq.to(cuda), *[_to(p, cuda) for p in params], 8, 8)
     x, cq, params = nstb_inputs(rng, 2, 1, 9, 9, 1, D=32, H=64, hd=16, ws=9)
-    with pytest.raises(NotImplementedError, match="N=81"):
-        cuda_nstb.fused_nstb(x.reshape(1, 81, 32).to(cuda), cq.to(cuda),
-                             *[_to(p, cuda) for p in params], 2, 9)
+    params = [_to(p, cuda) for p in params]
+    x = x.reshape(1, 81, 32).to(cuda)
+    got = cuda_nstb.fused_nstb(x, cq.to(cuda), *params, 2, 9)
+    ref = cuda_nstb.nstb_tokens_math(x, cq.to(cuda), *params, num_heads=2, window_size=9)
+    assert float((got - ref).abs().max()) <= _tol(ref, torch.float32)
 
 
 def test_nstb_map_kernel_finite_at_saturated_logit_scale(cuda):
@@ -486,7 +491,7 @@ def test_short_window_bodies_at_the_ngram_geometries_match_plain(cuda, N, nh, hd
         out, lse, dx = torch.empty_like(x), torch.empty(nwin, nh, N, device=cuda), torch.empty_like(x)
         work = torch.empty(floats, device=cuda)
         dp = torch.empty(D * 3 * A + 3 * A + nh + nh * N * N + A * D + D, device=cuda)
-        kernels.check("window_attention_fwd", fwd(*p, out.data_ptr(), lse.data_ptr(),
+        kernels.check("window_attention_fwd", fwd(*p, out.data_ptr(), lse.data_ptr(), None,
                                                   *geo.ints(False), stream))
         kernels.check("window_attention_bwd", bwd(
             p[0], g.data_ptr(), *p[1:5], p[5], p[7], p[8], lse.data_ptr(), dx.data_ptr(),
@@ -563,20 +568,88 @@ def test_window_attention_kernels_at_saturated_logit_scale(cuda):
 
 def test_training_kernels_refuse_other_geometries(cuda):
     """Past the envelope, and only there, the wrappers refuse with the limit
-    named: head_dim past 32, a window past 64 tokens, a tile past the card's
-    shared memory."""
+    named (a tile past the card's shared memory); head_dim 40 and a window
+    of 81 tokens run K3's and K4's long-window bodies, held to autograd of
+    ``window_attention_math`` at float32."""
     rng = np.random.default_rng(7)
-    (x, _), params = attention_inputs(rng, 4, 16, 80, 2, 40)
-    with pytest.raises(NotImplementedError, match="head_dim 40"):
-        cuda_attention.fused_window_attention(x.to(cuda), *[p.to(cuda) for p in params], 2)
-    (x, _), params = attention_inputs(rng, 1, 81, 32, 2, 16)
-    with pytest.raises(NotImplementedError, match="N=81"):
-        cuda_attention.fused_window_attention(x.to(cuda), *[p.to(cuda) for p in params], 2)
+    for nwin, N, D, nh, hd in ((4, 16, 80, 2, 40), (1, 81, 32, 2, 16)):
+        (x, g), params = attention_inputs(rng, nwin, N, D, nh, hd)
+        leaves = [t.to(cuda).requires_grad_() for t in (x, *params)]
+        before = cuda_attention.fused_window_attention.backward_launches
+        out = cuda_attention.fused_window_attention(*leaves, nh)
+        got = [out, *torch.autograd.grad(out, leaves, g.to(cuda))]
+        assert cuda_attention.fused_window_attention.backward_launches == before + 1
+        ref_leaves = [t.detach().clone().requires_grad_() for t in leaves]
+        ref = window_attention_math(*ref_leaves, nh)
+        ref = [ref, *torch.autograd.grad(ref, ref_leaves, g.to(cuda))]
+        _hold(ATTN_NAMES, 1, got, ref, torch.float32)
     z = torch.zeros(8, 512, device=cuda)
     with pytest.raises(NotImplementedError, match="bytes of shared memory"):
         cuda_ffn.fused_residual_ffn(z, z, *[torch.zeros(s, device=cuda) for s in
                                             ((512,), (512,), (512, 2048), (2048,), (2048, 512),
                                              (512,), (512,), (512,))])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("N,D,nh,hd,mask", [
+    (256, 64, 6, 10, True), (256, 64, 4, 64, False), (81, 32, 2, 40, True), (64, 64, 2, 40, False),
+    (4, 32, 2, 40, False),
+])
+def test_long_window_attention_bodies_match_plain(cuda, dtype, N, D, nh, hd, mask):
+    """K3's and K4's long-window bodies against the rounding-matched plain
+    versions: the output and dx at the I/O dtype's tolerance, the parameter
+    cotangents at float32's where their products take float32 operands
+    (float32, and bf16 windows under 32 tokens), else bf16's; two backward
+    runs bit for bit."""
+    from tmar_torch.ops import envelope as env
+
+    rng = np.random.default_rng(N + hd)
+    nwin = 8
+    (x, g), params = attention_inputs(rng, nwin, N, D, nh, hd)
+    x, g = x.to(cuda, dtype), g.to(cuda, dtype)
+    params = [p.to(cuda) for p in params]
+    ws = int(round(N ** 0.5))
+    mc = (*shift_mask_components(ws, ws // 2), 2, 4) if mask else None
+    assert env.attention_body(N, D, nh, hd, dtype) == "long-window"
+    ops, geo = cuda_attention._kernel_operands(x, *params, nh, mc)
+    out, lse = cuda_attention._launch(ops, geo)
+    runs = [cuda_attention._launch_backward(ops, lse, g, geo) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    dx, dparams = runs[0]
+    A = nh * hd
+    parts = list(torch.split(dparams, [D * 3 * A, 3 * A, nh, nh * N * N, A * D, D]))
+    ls = params[2].reshape(nh)
+    parts[2] = (parts[2] * ops[3] * (ls <= 4.605170185988092)).reshape(nh, 1, 1)
+    got = [out, dx, parts[0].reshape(D, 3 * A), parts[1], parts[2], parts[3].reshape(nh, N, N),
+           parts[4].reshape(A, D), parts[5]]
+    ref = [cuda_attention.window_attention_kernel_math(x, *params, nh, mask_components=mc),
+           *cuda_attention.window_attention_backward_math(x, g, *params, nh, mask_components=mc)]
+    param_dtype = torch.bfloat16 if dtype == torch.bfloat16 and N >= 32 else torch.float32
+    _hold(ATTN_NAMES, 1, got, ref, dtype, param_dtype)
+
+
+@pytest.mark.parametrize("N,D,nh,hd,H", [
+    (256, 64, 6, 10, 128), (256, 64, 4, 64, 128), (81, 64, 6, 64, 128), (64, 64, 2, 40, 128),
+    (4, 32, 2, 40, 64), (1024, 32, 2, 16, 64),
+])
+def test_long_window_bodies_launch_with_the_envelopes_shared_memory(cuda, N, D, nh, hd, H):
+    """The CUDA sources' count of the long-window bodies' largest blocks
+    equals ``envelope``'s, and their body queries name the long-window
+    bodies at both dtypes."""
+    from tmar_torch.ops import envelope as env
+
+    attn = env.attention_long_plan(N, D, nh, hd)
+    assert (env.built_smem("attention_long", N, D, nh, hd, 1),
+            env.built_smem("attention_long", N, D, nh, hd, 2)) == (
+        (-1, -1) if attn is None else (attn["fwd"], attn["bwd"]))
+    nstb = env.nstb_long_plan(N, D, nh, hd, H)
+    assert env.built_smem("nstb_map", N, D, nh, hd, H, 3) == env.built_smem(
+        "nstb_tokens", N, D, nh, hd, H, 3) == (-1 if nstb is None else nstb)
+    for dtype in (torch.float32, torch.bfloat16):
+        for lib in ("window_attention_fwd", "window_attention_bwd"):
+            assert env.built_attention_body(lib, N, D, nh, hd, dtype) == "long-window"
+        for lib in ("nstb_map", "nstb_tokens"):
+            assert env.built_nstb_body(lib, N, D, nh, hd, H, dtype) == "long-window"
 
 
 @pytest.mark.parametrize("D,nh,hd,N", [

@@ -54,8 +54,10 @@
 namespace {
 namespace nstb_rt {
 
-// rows of a tile: the whole windows of N tokens that fit in 64 rows
-__host__ __device__ inline int tile_rows(int N) { return (tmar::ROWS / N) * N; }
+// rows of a tile: the whole windows of N tokens that fit in 64 rows (one
+// window past 64 tokens, which this body does not take: its count then
+// still names what a tile would need)
+__host__ __device__ inline int tile_rows(int N) { return (tmar::ROWS / N > 1 ? tmar::ROWS / N : 1) * N; }
 
 __host__ __device__ inline int imax(int a, int b) { return a > b ? a : b; }
 

@@ -72,7 +72,7 @@ constexpr int CHUNK = 64;  // hidden columns of a streamed stage
 constexpr int MAX_D = 128;
 
 // The bodies K2 and K8 pick from (envelope.py: NSTB_BODIES, in this order).
-enum Body { FLAGSHIP = 0, TENSOR_CORE = 1, CUDA_CORE = 2 };
+enum Body { FLAGSHIP = 0, TENSOR_CORE = 1, CUDA_CORE = 2, LONG = 3 };
 
 __host__ __device__ inline int up(int n, int m) { return (n + m - 1) / m * m; }
 
@@ -149,9 +149,12 @@ inline bool flagship(int ws, int D, int H, int nh, int hd) {
 // Which body runs a block, by geometry and I/O type alone: the flagship's
 // geometry its own bodies; bfloat16 this body wherever it has a plan; the
 // rest (float32, the exactness path, and what this body does not take) the
-// CUDA-core body of nstb_generic.cuh.
+// CUDA-core body of nstb_generic.cuh; windows past 64 tokens and heads wider
+// than 32 channels, which none of those take, the long-window body
+// (nstb_long.cuh) at either type.
 inline Body body(int ws, int D, int nh, int hd, int H, int is_bf16) {
   Plan P;
+  if (ws * ws > tmar::ROWS || hd > 32) return LONG;
   if (flagship(ws, D, H, nh, hd)) return FLAGSHIP;
   return is_bf16 && plan(ws, D, nh, hd, H, &P) ? TENSOR_CORE : CUDA_CORE;
 }

@@ -16,12 +16,14 @@
 // stripes.  The per-window bodies, what bounds them and their designs are in
 // nstb_window.cuh (float32) and nstb_window_mma.cuh (bfloat16, tensor cores)
 // at the full-width NGswin's geometry, nstb_generic_mma.cuh (bfloat16,
-// tensor cores) and nstb_generic.cuh (CUDA cores) at every other width; all
-// are shared with K8 (nstb_tokens.cu), and nstb_generic_mma.cuh's `body`
-// picks one by geometry and I/O type.
+// tensor cores) and nstb_generic.cuh (CUDA cores) at every other width, and
+// nstb_long.cuh (CUDA cores, on a workspace in device memory) past 64 tokens
+// a window or 32 channels a head; all are shared with K8 (nstb_tokens.cu),
+// and nstb_generic_mma.cuh's `body` picks one by geometry and I/O type.
 
 #include "nstb_generic.cuh"
 #include "nstb_generic_mma.cuh"
+#include "nstb_long.cuh"
 #include "nstb_window_mma.cuh"
 
 namespace {
@@ -77,18 +79,20 @@ extern "C" {
 // type and the [in, out] layout; bqkv [3A], scale [nh] = exp(min(logit_scale,
 // ln 100)), table [(2ws-1)², nh], bproj, LN gains/biases and FFN biases are
 // float32.  Requires ph, pw multiples of the window side ws, ws² <= 64,
-// Q in {1, 4}, 0 <= shift < ws and head_dim <= 32.  nstb_mma::body picks the
-// body: the full-width NGswin's geometry (ws 8, D 64, H 128, heads 6 x 10 or
-// 4 x 16) runs its own bodies, bfloat16 at every other width the tensor-core
-// generic body where it has a plan (each on as many persistent blocks as the
-// card holds), the rest the CUDA-core generic body on `blocks` persistent
-// blocks.  Returns a cudaError_t code (0 on a clean launch).
+// Q in {1, 4} and 0 <= shift < ws.  nstb_mma::body picks the body: windows
+// past 64 tokens and head_dim past 32 the long-window body (nstb_long.cuh,
+// on `workspace`, which holds the floats tmar_nstb_map_workspace gives; null
+// for the other bodies); the full-width NGswin's geometry (ws 8, D 64, H 128,
+// heads 6 x 10 or 4 x 16) its own bodies, bfloat16 at every other width the
+// tensor-core generic body where it has a plan (each on as many persistent
+// blocks as the card holds), the rest the CUDA-core generic body on `blocks`
+// persistent blocks.  Returns a cudaError_t code (0 on a clean launch).
 int tmar_nstb_map(const void* x, const void* cq, const void* wqkv,
                   const void* bqkv, const void* scale, const void* table,
                   const void* wproj, const void* bproj, const void* g1,
                   const void* b1, const void* w1, const void* bw1,
                   const void* w2, const void* bw2, const void* g2,
-                  const void* b2, void* out, int B, int ph, int pw, int D, int H, int ws,
+                  const void* b2, void* out, void* workspace, int B, int ph, int pw, int D, int H, int ws,
                   int Q, int shift, int num_heads, int head_dim, int is_bf16, int blocks,
                   float eps, void* stream) {
   if (B < 1 || ws < 1 || ph < ws || pw < ws || ph % ws || pw % ws || (Q != 1 && Q != 4) ||
@@ -104,6 +108,9 @@ int tmar_nstb_map(const void* x, const void* cq, const void* wqkv,
     return dispatch_nstb(num_heads, head_dim, is_bf16, p, out, wins, Q, shift, eps, s);
   }
   const RolledMapRt wins{B * wh * ww, wh, ww, ws, ph, pw, shift};
+  if (body == nstb_mma::LONG)
+    return nstb_long::launch(p, out, workspace, wins, D, H, num_heads, head_dim, Q, shift, eps,
+                             is_bf16, s);
   if (body == nstb_mma::TENSOR_CORE)
     return nstb_mma::launch(p, out, wins, D, H, num_heads, head_dim, Q, shift, eps, s);
   return nstb_rt::launch(p, out, wins, D, H, num_heads, head_dim, Q, shift, eps, is_bf16,
@@ -119,10 +126,10 @@ int tmar_nstb_map_mma(const void* x, const void* cq, const void* wqkv,
                       const void* wproj, const void* bproj, const void* g1,
                       const void* b1, const void* w1, const void* bw1,
                       const void* w2, const void* bw2, const void* g2,
-                      const void* b2, void* out, int B, int ph, int pw, int D, int H, int ws,
+                      const void* b2, void* out, void* workspace, int B, int ph, int pw, int D, int H, int ws,
                       int Q, int shift, int num_heads, int head_dim, int is_bf16, int blocks,
                       float eps, void* stream) {
-  (void)blocks;
+  (void)blocks, (void)workspace;
   if (!is_bf16 || B < 1 || ws < 1 || ph < ws || pw < ws || ph % ws || pw % ws ||
       (Q != 1 && Q != 4) || shift < 0 || shift >= ws)
     return (int)cudaErrorInvalidValue;
@@ -141,10 +148,26 @@ int tmar_nstb_map_body(int N, int D, int num_heads, int head_dim, int H, int is_
 }
 
 // The shared memory, in bytes, that generic body `body` (TENSOR_CORE or
-// CUDA_CORE) launches with at (N, D, heads, head_dim, H); -1 where the
-// tensor-core body has no plan.
+// CUDA_CORE) launches with at (N, D, heads, head_dim, H), or for LONG the
+// largest block of the long-window body's launches; -1 where the tensor-core
+// body has no plan or a long-window launch fits no block.
 long long tmar_nstb_map_smem(int N, int D, int num_heads, int head_dim, int H, int body) {
+  if (body == nstb_mma::LONG)
+    return nstb_long::fits(N, D, num_heads, head_dim, H)
+               ? (long long)nstb_long::plan_bytes(N, D, num_heads, head_dim, H)
+               : -1;
   return nstb_mma::generic_smem(N, D, num_heads, head_dim, H, body);
+}
+
+// The float32 workspace, in floats, of the body that runs nwin windows of
+// N = ws² tokens at (D, heads, head_dim, H): the long-window body's qkv and
+// head outputs, 0 for the others.
+long long tmar_nstb_map_workspace(int nwin, int N, int D, int num_heads, int head_dim, int H,
+                                     int is_bf16) {
+  if (nwin < 1 || N < 1) return -1;
+  return nstb_mma::body(nstb_mma::side(N), D, num_heads, head_dim, H, is_bf16) == nstb_mma::LONG
+             ? nstb_long::workspace(nwin, N, num_heads, head_dim)
+             : 0;
 }
 
 const char* tmar_nstb_map_error(int err) {

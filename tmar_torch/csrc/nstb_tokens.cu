@@ -17,11 +17,13 @@
 // nstb_window.cuh (float32) and nstb_window_mma.cuh (bfloat16, tensor cores)
 // at the full-width NGswin's geometry, nstb_generic_mma.cuh (bfloat16,
 // tensor cores) and nstb_generic.cuh (CUDA cores) at every other width,
+// and nstb_long.cuh past 64 tokens a window or 32 channels a head, all
 // shared with K2 (nstb_map.cu): the two differ only in token addressing, and
 // nstb_generic_mma.cuh's `body` picks the body for both.
 
 #include "nstb_generic.cuh"
 #include "nstb_generic_mma.cuh"
+#include "nstb_long.cuh"
 #include "nstb_window_mma.cuh"
 
 namespace {
@@ -54,16 +56,17 @@ extern "C" {
 // is_bf16) -> out [nwin, N, D] of the same type, N = ws².  Weights, the
 // bodies and `blocks` as tmar_nstb_map takes them.  (wh, ww) is the window
 // grid of one image: with shift > 0 it gates the mask and nwin must be a
-// multiple of wh·ww; with shift 0 it is not read.  Requires ws² <= 64, Q in
-// {1, 4} (Q = 4 at shift 0 reads slot 0 only), 0 <= shift < ws and head_dim
-// <= 32.  nstb_mma::body picks the body, as tmar_nstb_map's.  Returns a
+// multiple of wh·ww; with shift 0 it is not read.  Requires Q in {1, 4} (Q
+// = 4 at shift 0 reads slot 0 only) and 0 <= shift < ws.  nstb_mma::body
+// picks the body, as tmar_nstb_map's; `workspace` as tmar_nstb_map takes it
+// (tmar_nstb_tokens_workspace floats).  Returns a
 // cudaError_t code (0 on a clean launch).
 int tmar_nstb_tokens(const void* x, const void* cq, const void* wqkv,
                      const void* bqkv, const void* scale, const void* table,
                      const void* wproj, const void* bproj, const void* g1,
                      const void* b1, const void* w1, const void* bw1,
                      const void* w2, const void* bw2, const void* g2,
-                     const void* b2, void* out, int nwin, int wh, int ww, int D, int H,
+                     const void* b2, void* out, void* workspace, int nwin, int wh, int ww, int D, int H,
                      int ws, int Q, int shift, int num_heads, int head_dim, int is_bf16,
                      int blocks, float eps, void* stream) {
   if (nwin < 1 || ws < 1 || (Q != 1 && Q != 4) || shift < 0 || shift >= ws || num_heads < 1)
@@ -79,6 +82,9 @@ int tmar_nstb_tokens(const void* x, const void* cq, const void* wqkv,
     return dispatch_nstb(num_heads, head_dim, is_bf16, p, out, wins, Q, shift, eps, s);
   }
   const TokensRt wins{nwin, wh, ww, ws};
+  if (body == nstb_mma::LONG)
+    return nstb_long::launch(p, out, workspace, wins, D, H, num_heads, head_dim, Q, shift, eps,
+                             is_bf16, s);
   if (body == nstb_mma::TENSOR_CORE)
     return nstb_mma::launch(p, out, wins, D, H, num_heads, head_dim, Q, shift, eps, s);
   return nstb_rt::launch(p, out, wins, D, H, num_heads, head_dim, Q, shift, eps, is_bf16,
@@ -92,10 +98,26 @@ int tmar_nstb_tokens_body(int N, int D, int num_heads, int head_dim, int H, int 
 }
 
 // The shared memory, in bytes, that generic body `body` (TENSOR_CORE or
-// CUDA_CORE) launches with at (N, D, heads, head_dim, H); -1 where the
-// tensor-core body has no plan.
+// CUDA_CORE) launches with at (N, D, heads, head_dim, H), or for LONG the
+// largest block of the long-window body's launches; -1 where the tensor-core
+// body has no plan or a long-window launch fits no block.
 long long tmar_nstb_tokens_smem(int N, int D, int num_heads, int head_dim, int H, int body) {
+  if (body == nstb_mma::LONG)
+    return nstb_long::fits(N, D, num_heads, head_dim, H)
+               ? (long long)nstb_long::plan_bytes(N, D, num_heads, head_dim, H)
+               : -1;
   return nstb_mma::generic_smem(N, D, num_heads, head_dim, H, body);
+}
+
+// The float32 workspace, in floats, of the body that runs nwin windows of
+// N = ws² tokens at (D, heads, head_dim, H): the long-window body's qkv and
+// head outputs, 0 for the others.
+long long tmar_nstb_tokens_workspace(int nwin, int N, int D, int num_heads, int head_dim, int H,
+                                     int is_bf16) {
+  if (nwin < 1 || N < 1) return -1;
+  return nstb_mma::body(nstb_mma::side(N), D, num_heads, head_dim, H, is_bf16) == nstb_mma::LONG
+             ? nstb_long::workspace(nwin, N, num_heads, head_dim)
+             : 0;
 }
 
 const char* tmar_nstb_tokens_error(int err) {

@@ -20,7 +20,7 @@
 //   dv_j  = Σ_i p_ij dacc_i;  dq = (dqn - qn (dqn·qn)) / |q|, the same for k
 //   dx = dqkv @ wqkvᵀ;  dwqkv += xᵀ dqkv;  dwproj += oᵀ g
 //
-// Five bodies, chosen by the I/O type and the geometry alone, as the
+// Six bodies, chosen by the I/O type and the geometry alone, as the
 // forward's (window_attention_fwd.cu; attn_mma::body):
 // * bfloat16 at the full-width NGswin's windows (N = 64, D = 64, heads 6 x 10
 //   or 4 x 16): the tensor-core body below, rounding as
@@ -44,6 +44,11 @@
 // * bfloat16 windows of 32 to 64 tokens at every other geometry with a plan:
 //   the tensor-core generic body (window_attention_bwd_gmma and its token
 //   sums, below), rounding as the tensor-core body.
+// * windows of more than 64 tokens or heads wider than 32 channels, at
+//   either type: the long-window body (window_attention_long.cuh: the
+//   recompute, a rows pass that owns its rows of dbias over every window, a
+//   columns pass, dx, the token sums and one reduce), bounded only by
+//   shared memory, rounding at bf16 as the CUDA-core generic body.
 // * every other case (float32, and bfloat16 widths without a plan): the
 //   CUDA-core generic body, which takes N (<= 64), D, the heads and head_dim
 //   (<= 32) at run time.  At bfloat16 and N >= 32 it would round where the
@@ -77,6 +82,7 @@
 
 #include "window_attention_generic_mma.cuh"
 #include "window_attention_geometries.cuh"
+#include "window_attention_long.cuh"
 #include "window_attention_mma.cuh"
 
 namespace {
@@ -2552,10 +2558,9 @@ extern "C" {
 // and attention-output tiles), in floats; -1 for arguments it does not take.
 long long tmar_window_attention_bwd_workspace(int nwin, int N, int D, int num_heads,
                                               int head_dim, int blocks, int is_bf16) {
-  if (nwin < 1 || blocks < 1 || N < 1 || N > ROWS || D < 1 || num_heads < 1 || head_dim < 1 ||
-      head_dim > 32)
-    return -1;
+  if (nwin < 1 || blocks < 1 || N < 1 || D < 1 || num_heads < 1 || head_dim < 1) return -1;
   const attn_mma::Body body = attn_mma::body(N, D, num_heads, head_dim, is_bf16);
+  if (body == attn_mma::LONG) return attn_long::bwd_workspace(nwin, N, D, num_heads, head_dim);
   if (body == attn_mma::FLAGSHIP)
     return num_heads == 6 ? (long long)BwdPlan<6, 10>(nwin, blocks).total
                           : (long long)BwdPlan<4, 16>(nwin, blocks).total;
@@ -2594,12 +2599,19 @@ int tmar_window_attention_bwd(const void* x, const void* g, const void* wqkv,
                               int nwin, int N, int D, int num_heads, int head_dim, int hg,
                               int wq_k, int wq_n, int wp_k, int wp_n, int wh, int ww, int blocks,
                               int is_bf16, int body, void* stream) {
-  if (nwin < 1 || blocks < 1 || N < 1 || N > ROWS || D < 1 || num_heads < 1 ||
-      head_dim < 1 || head_dim > 32 || hg < 1 || (wh > 0 && (ww < 1 || nwin % (wh * ww))) ||
+  if (nwin < 1 || blocks < 1 || N < 1 || D < 1 || num_heads < 1 || head_dim < 1 || hg < 1 ||
+      (wh > 0 && (ww < 1 || nwin % (wh * ww))) ||
       body != attn_mma::body(N, D, num_heads, head_dim, is_bf16))
     return (int)cudaErrorInvalidValue;
   const void* p[10] = {x, g, wqkv, bqkv, scale, bias, wproj, mrow, mcol, lse};
   cudaStream_t s = (cudaStream_t)stream;
+  if (body == attn_mma::LONG)
+    return is_bf16 ? attn_long::bwd<__nv_bfloat16>(p, wq_k, wq_n, wp_k, wp_n, dx,
+                                                   (float*)workspace, (float*)dparams, nwin, N, D,
+                                                   num_heads, head_dim, wh, ww, s)
+                   : attn_long::bwd<float>(p, wq_k, wq_n, wp_k, wp_n, dx, (float*)workspace,
+                                           (float*)dparams, nwin, N, D, num_heads, head_dim, wh,
+                                           ww, s);
   if (body == attn_mma::TENSOR_CORE)
     return launch_gmma(p, wq_k, wq_n, wp_k, wp_n, dx, workspace, dparams, nwin, N, D, num_heads,
                        head_dim, wh, ww, s);

@@ -18,7 +18,7 @@
 // also writes lse[win, h, i] = max + log(sum), which the backward kernel
 // reads in place of a second softmax pass.
 //
-// Five bodies, chosen by the I/O type and the geometry alone
+// Six bodies, chosen by the I/O type and the geometry alone
 // (window_attention_generic_mma.cuh: attn_mma::body, the rule of
 // tmar_torch/ops/envelope.py: attention_body):
 // * bfloat16 at the full-width NGswin's windows (N = 64, D = 64, heads 6 x 10
@@ -41,6 +41,11 @@
 // * bfloat16 windows of 32 to 64 tokens at every other geometry with a plan
 //   (D a multiple of 8 up to 128, head_dim <= 32): the tensor-core generic
 //   body below (window_attention_fwd_gmma), rounding as the tensor-core body.
+// * windows of more than 64 tokens (past 8x8) or heads wider than 32
+//   channels, at either type: the long-window body
+//   (window_attention_long.cuh: qkv, the attention and the projection as
+//   three launches over a workspace in device memory), bounded only by
+//   shared memory, rounding at bf16 as the CUDA-core generic body.
 // * every other case (float32, and bfloat16 widths without a plan): the
 //   CUDA-core generic body, which takes N (<= 64), D, the heads and head_dim
 //   (<= 32) at run time.  At bfloat16 and N >= 32 it would round where the
@@ -69,6 +74,7 @@
 
 #include "window_attention_generic_mma.cuh"
 #include "window_attention_geometries.cuh"
+#include "window_attention_long.cuh"
 #include "window_attention_mma.cuh"
 
 namespace {
@@ -1062,7 +1068,9 @@ int launch_generic(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n,
 extern "C" {
 
 // x [nwin, N, D] (float32 or bfloat16, per is_bf16) -> out of the same shape
-// and type, and lse [nwin, nh, N] float32.  All parameters are float32 (the
+// and type, and lse [nwin, nh, N] float32.  `workspace` (read by the
+// long-window body alone, null elsewhere) holds the floats that
+// tmar_window_attention_fwd_workspace gives.  All parameters are float32 (the
 // bfloat16 bodies round the two matrices): wqkv [D, 3A] and wproj [A, D] are
 // read as w[k·w_k + n·w_n]; bqkv [3A]; scale [nh] = exp(min(logit_scale,
 // ln 100)); bias [nh, N, N]; bproj [D]; mrow, mcol [N, N] are read only when
@@ -1075,15 +1083,22 @@ extern "C" {
 int tmar_window_attention_fwd(const void* x, const void* wqkv, const void* bqkv,
                               const void* scale, const void* bias, const void* wproj,
                               const void* bproj, const void* mrow, const void* mcol,
-                              void* out, void* lse, int nwin, int N, int D, int num_heads,
-                              int head_dim, int hg, int wq_k, int wq_n, int wp_k, int wp_n,
-                              int wh, int ww, int blocks, int is_bf16, int body, void* stream) {
-  if (nwin < 1 || blocks < 1 || N < 1 || N > ROWS || D < 1 || num_heads < 1 ||
-      head_dim < 1 || head_dim > 32 || hg < 1 || (wh > 0 && (ww < 1 || nwin % (wh * ww))) ||
+                              void* out, void* lse, void* workspace, int nwin, int N, int D,
+                              int num_heads, int head_dim, int hg, int wq_k, int wq_n, int wp_k,
+                              int wp_n, int wh, int ww, int blocks, int is_bf16, int body,
+                              void* stream) {
+  if (nwin < 1 || blocks < 1 || N < 1 || D < 1 || num_heads < 1 || head_dim < 1 || hg < 1 ||
+      (wh > 0 && (ww < 1 || nwin % (wh * ww))) ||
       body != attn_mma::body(N, D, num_heads, head_dim, is_bf16))
     return (int)cudaErrorInvalidValue;
   const void* p[9] = {x, wqkv, bqkv, scale, bias, wproj, bproj, mrow, mcol};
   cudaStream_t s = (cudaStream_t)stream;
+  if (body == attn_mma::LONG)
+    return is_bf16 ? attn_long::fwd<__nv_bfloat16>(p, wq_k, wq_n, wp_k, wp_n, out, lse,
+                                                   (float*)workspace, nwin, N, D, num_heads,
+                                                   head_dim, wh, ww, s)
+                   : attn_long::fwd<float>(p, wq_k, wq_n, wp_k, wp_n, out, lse, (float*)workspace,
+                                           nwin, N, D, num_heads, head_dim, wh, ww, s);
   if (body == attn_mma::FLAGSHIP)
     return num_heads == 6
                ? launch_mma<6, 10>(p, wq_k, wq_n, wp_k, wp_n, out, lse, nwin, wh, ww, blocks, s)
@@ -1115,6 +1130,25 @@ int tmar_window_attention_fwd(const void* x, const void* wqkv, const void* bqkv,
                                head_dim, hg, wh, ww, blocks, s);
 }
 
+// The float32 workspace, in floats, of the body that runs these arguments:
+// the long-window body's qkv and head outputs, 0 for the others.
+long long tmar_window_attention_fwd_workspace(int nwin, int N, int D, int num_heads, int head_dim,
+                                              int is_bf16) {
+  if (nwin < 1 || N < 1 || D < 1 || num_heads < 1 || head_dim < 1) return -1;
+  return attn_mma::body(N, D, num_heads, head_dim, is_bf16) == attn_mma::LONG
+             ? attn_long::fwd_workspace(nwin, N, num_heads, head_dim)
+             : 0;
+}
+
+// The shared memory, in bytes, of the largest block of the long-window
+// bodies' launches for windows of N tokens: K3's (which 1) or K4's (2); -1
+// where a launch fits no block.
+long long tmar_window_attention_fwd_long_smem(int N, int D, int num_heads, int head_dim,
+                                              int which) {
+  if (!attn_long::fits(N, D, num_heads, head_dim)) return -1;
+  return (long long)attn_long::plan_bytes(N, D, num_heads, head_dim, which == 2);
+}
+
 // The shared memory, in bytes, of the generic body's launch with hg heads
 // to a group.
 long long tmar_window_attention_fwd_smem(int D, int num_heads, int head_dim, int hg) {
@@ -1128,11 +1162,11 @@ long long tmar_window_attention_fwd_smem(int D, int num_heads, int head_dim, int
 int tmar_window_attention_fwd_gmma(const void* x, const void* wqkv, const void* bqkv,
                                    const void* scale, const void* bias, const void* wproj,
                                    const void* bproj, const void* mrow, const void* mcol,
-                                   void* out, void* lse, int nwin, int N, int D, int num_heads,
-                                   int head_dim, int hg, int wq_k, int wq_n, int wp_k, int wp_n,
-                                   int wh, int ww, int blocks, int is_bf16, int body,
-                                   void* stream) {
-  (void)hg, (void)blocks, (void)body;
+                                   void* out, void* lse, void* workspace, int nwin, int N, int D,
+                                   int num_heads, int head_dim, int hg, int wq_k, int wq_n,
+                                   int wp_k, int wp_n, int wh, int ww, int blocks, int is_bf16,
+                                   int body, void* stream) {
+  (void)hg, (void)blocks, (void)body, (void)workspace;
   if (!is_bf16 || nwin < 1 || (wh > 0 && (ww < 1 || nwin % (wh * ww))))
     return (int)cudaErrorInvalidValue;
   const void* p[9] = {x, wqkv, bqkv, scale, bias, wproj, bproj, mrow, mcol};
@@ -1154,11 +1188,11 @@ long long tmar_window_attention_fwd_mma_smem(int N, int D, int num_heads, int he
 int tmar_window_attention_fwd_smma(const void* x, const void* wqkv, const void* bqkv,
                                    const void* scale, const void* bias, const void* wproj,
                                    const void* bproj, const void* mrow, const void* mcol,
-                                   void* out, void* lse, int nwin, int N, int D, int num_heads,
-                                   int head_dim, int hg, int wq_k, int wq_n, int wp_k, int wp_n,
-                                   int wh, int ww, int blocks, int is_bf16, int body,
-                                   void* stream) {
-  (void)hg, (void)blocks, (void)body;
+                                   void* out, void* lse, void* workspace, int nwin, int N, int D,
+                                   int num_heads, int head_dim, int hg, int wq_k, int wq_n,
+                                   int wp_k, int wp_n, int wh, int ww, int blocks, int is_bf16,
+                                   int body, void* stream) {
+  (void)hg, (void)blocks, (void)body, (void)workspace;
   if (!is_bf16 || nwin < 1 || (wh > 0 && (ww < 1 || nwin % (wh * ww))))
     return (int)cudaErrorInvalidValue;
   const void* p[9] = {x, wqkv, bqkv, scale, bias, wproj, bproj, mrow, mcol};

@@ -43,7 +43,7 @@ constexpr int MAX_D = 128;    // the widest D their fragment arrays take
 constexpr int SUMS_TILES = 4;  // 16x16 cotangent tiles a token-sum warp holds
 
 // The bodies of K3 and K4 (envelope.py: ATTENTION_BODIES, in this order).
-enum Body { FLAGSHIP = 0, TEMPLATED = 1, TENSOR_CORE = 2, CUDA_CORE = 3, SHORT = 4 };
+enum Body { FLAGSHIP = 0, TEMPLATED = 1, TENSOR_CORE = 2, CUDA_CORE = 3, SHORT = 4, LONG = 5 };
 
 __host__ __device__ inline int up(int n, int m) { return (n + m - 1) / m * m; }
 
@@ -333,8 +333,11 @@ inline bool short_plan(int N, int D, int nh, int hd, ShortFwd* f, ShortBwd* b) {
 // the geometry; bfloat16 windows shorter than 32 tokens the short-window
 // bodies wherever they have a plan; bfloat16 windows of 32 to 64 tokens
 // the tensor-core generic bodies wherever they have a plan; the rest the
-// CUDA-core generic bodies.
+// CUDA-core generic bodies.  Windows of more than 64 tokens and heads wider
+// than 32 channels, which none of those take, the long-window bodies
+// (window_attention_long.cuh) at either type.
 inline Body body(int N, int D, int nh, int hd, int is_bf16) {
+  if (N > tmar::ROWS || hd > 32) return LONG;
   if (is_bf16 && N == 64 && D == 64 && ((nh == 6 && hd == 10) || (nh == 4 && hd == 16)))
     return FLAGSHIP;
 #define TMAR_TEMPLATED(NN, DD, NH, HD) \

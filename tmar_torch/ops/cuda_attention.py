@@ -24,12 +24,16 @@ and only that: bfloat16 at the full-width NGswin's 64-token windows
 of 1 to 31 tokens the short-window tensor-core bodies wherever
 ``envelope.attention_short_plan`` has a plan; bfloat16 windows of 32 to 64
 tokens the tensor-core generic bodies wherever
-``envelope.attention_mma_plan`` has a plan; every other case the CUDA-core
-generic bodies, which take N, D, the heads and head_dim at run time within
-``envelope.attention_envelope``.  At bfloat16 all round to bf16 where the
-JAX kernels do: on windows of 32 tokens or more as ``_attn_kernel_batched``
-and ``_attn_bwd_kernel_batched`` with ``cot_bf16`` on (the JAX default for
-bf16 inputs; the ``TMAR_ATTN_BWD_COT`` override is not read), below as
+``envelope.attention_mma_plan`` has a plan; windows of more than 64 tokens
+and heads wider than 32 channels the long-window bodies at either dtype
+(``csrc/window_attention_long.cuh``, over a workspace the wrapper
+allocates; ``envelope.attention_long_plan``); every other case the
+CUDA-core generic bodies, which take N, D, the heads and head_dim at run
+time within ``envelope.attention_envelope``.  At bfloat16 all round to
+bf16 where the JAX kernels do: on windows of 32 tokens or more as
+``_attn_kernel_batched`` and ``_attn_bwd_kernel_batched`` with ``cot_bf16``
+on (the JAX default for bf16 inputs; the ``TMAR_ATTN_BWD_COT`` override is
+not read), below as
 ``_attn_kernel`` and ``_attn_bwd_kernel``.  At float32 they compute in
 float32 on the CUDA cores.  A body that fails to build or launch raises.
 
@@ -300,6 +304,8 @@ fused_window_attention.backward_launches = 0  # backward kernel
 fused_window_attention.launches_by_impl = dict.fromkeys(IMPLS, 0)  # forward, by impl name
 fused_window_attention.launches_by_n = Counter()           # forward, by window length N
 fused_window_attention.backward_launches_by_n = Counter()  # backward, by window length N
+fused_window_attention.launches_by_body = Counter()           # forward, by ATTENTION_BODIES name
+fused_window_attention.backward_launches_by_body = Counter()  # backward, by body name
 
 
 class _Geometry:
@@ -307,8 +313,8 @@ class _Geometry:
     the widths, the heads, the weights' strides, the mask grid, the I/O
     dtype, the body (``envelope.attention_body``, which the sources check
     against their own rule), and per kernel its heads per group and
-    persistent blocks (the CUDA-core generic body's; the tensor-core
-    bodies size their own grids)."""
+    persistent blocks (the CUDA-core generic body's; the tensor-core and
+    long-window bodies size their own grids)."""
 
     def __init__(self, x, w_qkv, w_proj, num_heads, wh, ww, sms):
         B_, self.N, self.D = x.shape
@@ -326,6 +332,11 @@ class _Geometry:
             # the full-width NGswin's own bodies: at most one block per SM
             self.hg_fwd = self.hg_bwd = self.nh
             self.blocks_fwd = self.blocks_bwd = min(-(-B_ // (envelope.ROWS // self.N)), sms)
+        elif self.body == envelope.ATTENTION_BODIES.index("long-window"):
+            # checks that every launch fits a block; the grids follow the windows
+            self.hg_fwd, _, self.hg_bwd, _ = envelope.attention_envelope(
+                self.N, self.D, self.nh, self.hd, x.device)
+            self.blocks_fwd = self.blocks_bwd = 1
         else:
             self.hg_fwd, fwd_bytes, self.hg_bwd, bwd_bytes = envelope.attention_envelope(
                 self.N, self.D, self.nh, self.hd, x.device)
@@ -480,12 +491,17 @@ def _launch(operands, geo):
     x = operands[0]
     out = torch.empty_like(x)
     lse = torch.empty((geo.nwin, geo.nh, geo.N), device=x.device, dtype=torch.float32)
+    # the long-window body's qkv and head outputs, as the library sizes them
+    floats = _fwd_workspace_floats(geo) if envelope.long_window(geo.N, geo.hd) else 0
+    workspace = torch.empty(floats, device=x.device, dtype=torch.float32) if floats else None
     kernels.launch(
         "window_attention_fwd", _FWD_ARGTYPES, x.device,
-        *[_ptr(t) for t in operands], out.data_ptr(), lse.data_ptr(), *geo.ints(False),
+        *[_ptr(t) for t in operands], out.data_ptr(), lse.data_ptr(), _ptr(workspace),
+        *geo.ints(False),
     )
     fused_window_attention.launches += 1
     fused_window_attention.launches_by_n[geo.N] += 1
+    fused_window_attention.launches_by_body[envelope.ATTENTION_BODIES[geo.body]] += 1
     return out, lse
 
 
@@ -509,6 +525,7 @@ def _launch_backward(operands, lse, g, geo):
     )
     fused_window_attention.backward_launches += 1
     fused_window_attention.backward_launches_by_n[N] += 1
+    fused_window_attention.backward_launches_by_body[envelope.ATTENTION_BODIES[geo.body]] += 1
     return dx, dparams
 
 
@@ -525,9 +542,22 @@ def _workspace_floats(geo):
     return floats
 
 
-_workspace_fn = None
+def _fwd_workspace_floats(geo):
+    global _fwd_workspace_fn
+    if _fwd_workspace_fn is None:
+        _fwd_workspace_fn = kernels.host_function(
+            "window_attention_fwd", "tmar_window_attention_fwd_workspace",
+            [ctypes.c_int] * 6, ctypes.c_longlong)
+    floats = _fwd_workspace_fn(geo.nwin, geo.N, geo.D, geo.nh, geo.hd, geo.is_bf16)
+    if floats < 0:
+        raise ValueError(f"window_attention_fwd: no workspace size for N={geo.N}, D={geo.D}, "
+                         f"heads={geo.nh}x{geo.hd}")
+    return floats
+
+
+_workspace_fn = _fwd_workspace_fn = None
 _P = ctypes.c_void_p
-_FWD_ARGTYPES = [_P] * 11 + [ctypes.c_int] * 15 + [_P]
+_FWD_ARGTYPES = [_P] * 12 + [ctypes.c_int] * 15 + [_P]
 _BWD_ARGTYPES = [_P] * 13 + [ctypes.c_int] * 15 + [_P]
 
 

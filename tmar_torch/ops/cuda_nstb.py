@@ -29,15 +29,19 @@ full-width NGswin's (``envelope.NSTB_FLAGSHIP``) runs its
 own bodies, the tensor-core one at bfloat16 and the templated float32 one at
 float32; every other geometry inside ``envelope.nstb_envelope`` runs a
 generic body, at bfloat16 the tensor-core one (``csrc/nstb_generic_mma.cuh``)
-wherever it has a plan, else the CUDA-core one (``csrc/nstb_generic.cuh``).
-A geometry past the envelope raises ``NotImplementedError`` naming the
-limit; a build or launch failure raises, and nothing gives way to another
+wherever it has a plan, else the CUDA-core one (``csrc/nstb_generic.cuh``);
+windows of more than 64 tokens (HAT's 16x16) and heads wider than 32
+channels run the long-window body at either dtype (``csrc/nstb_long.cuh``,
+over a workspace the wrapper allocates).  A geometry past the envelope
+raises ``NotImplementedError`` naming the limit; a build or launch failure
+raises, and nothing gives way to another
 body or to the plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 from typing import Optional, Tuple
 
 import numpy as np
@@ -289,7 +293,7 @@ def _geometry(name, n_windows, D, wqkv, ffn1, num_heads, window_size, Q, shift, 
     limit.  The entry point picks the body by the rule of
     ``envelope.nstb_body``; ``blocks``, the persistent blocks for
     ``n_windows`` windows, is read by the CUDA-core generic body alone (the
-    others size their grids from the card's occupancy)."""
+    others size their grids from the card's occupancy or the windows)."""
     A = wqkv.shape[1] // 3
     H = ffn1[0].shape[1]
     if A % num_heads:
@@ -304,7 +308,7 @@ def _geometry(name, n_windows, D, wqkv, ffn1, num_heads, window_size, Q, shift, 
     body = envelope.nstb_body(N, D, num_heads, hd, H, dtype)
     if body != envelope.NSTB_BODIES[0]:
         nbytes = envelope.nstb_envelope(N, D, num_heads, hd, H, device)
-    if body == envelope.NSTB_BODIES[2]:
+    if body == envelope.NSTB_BODIES[2]:  # never a long window: tiles of whole windows
         tiles = -(-n_windows // (envelope.ROWS // N))
         blocks = envelope.blocks_for(tiles, nbytes, kernels.sm_count(device))
     return (D, H, window_size, Q, shift, num_heads, hd, int(dtype == torch.bfloat16), blocks)
@@ -405,24 +409,59 @@ def _token_operands(
 
 fused_nstb_map.launches = 0
 fused_nstb.launches = 0
+# launches by the body that ran them (envelope.NSTB_BODIES' names)
+fused_nstb_map.launches_by_body = Counter()
+fused_nstb.launches_by_body = Counter()
 
-_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
+
+def _body_name(ints):
+    """The body the entry point runs for its integer arguments (``envelope.nstb_body``)."""
+    D, H, ws, nh, hd, is_bf16 = ints[3], ints[4], ints[5], ints[8], ints[9], ints[10]
+    return envelope.nstb_body(ws * ws, D, nh, hd, H, torch.bfloat16 if is_bf16 else torch.float32)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
+
+
+def _workspace(lib, nwin, ints, device):
+    """The float32 workspace of K2 (``lib`` "nstb_map") or K8 ("nstb_tokens")
+    for ``nwin`` windows at the entry point's integer arguments ``ints``, as
+    the library sizes it (``tmar_*_workspace``: the long-window body's qkv
+    and head outputs), or None where the body needs none."""
+    D, H, ws, nh, hd, is_bf16 = ints[3], ints[4], ints[5], ints[8], ints[9], ints[10]
+    if not envelope.long_window(ws * ws, hd):
+        return None
+    fn = kernels.host_function(lib, f"tmar_{lib}_workspace", [ctypes.c_int] * 7,
+                               ctypes.c_longlong)
+    floats = fn(nwin, ws * ws, D, nh, hd, H, is_bf16)
+    if floats < 0:
+        raise ValueError(f"{lib}: no workspace size for {nwin} windows of {ws}x{ws}")
+    return torch.empty(floats, device=device, dtype=torch.float32) if floats else None
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def _launch(operands, out, ints, eps):
+    B, ph, pw, ws = ints[0], ints[1], ints[2], ints[5]
+    work = _workspace("nstb_map", B * (ph // ws) * (pw // ws), ints, out.device)
     kernels.launch(
         "nstb_map", _ARGTYPES, out.device,
-        *[t.data_ptr() for t in operands], out.data_ptr(), *ints, float(eps),
+        *[t.data_ptr() for t in operands], out.data_ptr(), _ptr(work), *ints, float(eps),
     )
     fused_nstb_map.launches += 1
+    fused_nstb_map.launches_by_body[_body_name(ints)] += 1
 
 
 def _launch_tokens(operands, out, ints, eps):
+    work = _workspace("nstb_tokens", ints[0], ints, out.device)
     kernels.launch(
         "nstb_tokens", _ARGTYPES, out.device,
-        *[t.data_ptr() for t in operands], out.data_ptr(), *ints, float(eps),
+        *[t.data_ptr() for t in operands], out.data_ptr(), _ptr(work), *ints, float(eps),
     )
     fused_nstb.launches += 1
+    fused_nstb.launches_by_body[_body_name(ints)] += 1
 
 
 def _nstb_map_cuda(*args):

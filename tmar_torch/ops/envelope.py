@@ -8,7 +8,11 @@ bfloat16 and a CUDA-core one; ``nstb_body``, ``attention_body``,
 ``ffn_body`` and ``ngram_body`` say which body runs a call.
 What bounds it is the card's opt-in shared memory per block
 (``cudaDevAttrMaxSharedMemoryPerBlockOptin``, 232,448 bytes on an H100) and
-the per-thread head registers (head_dim <= 32).  The functions below count
+the per-thread head registers (head_dim <= 32).  Windows of more than 64
+tokens and heads wider than 32 channels, which those bodies do not take,
+run K3/K4's and K2/K8's long-window bodies (``attention_long_plan``,
+``nstb_long_plan``), which keep a window in a workspace in device memory
+and are bounded by shared memory alone.  The functions below count
 the shared memory as the CUDA sources do (each source's ``tmar_*_smem``
 query gives its own count, ``built_smem``; a GPU test holds the two equal),
 pick the tile sizes the generic bodies are launched with, and refuse, with
@@ -30,7 +34,7 @@ import torch
 # the opt-in shared memory of one sm_90 block, and of one SM
 H100_SMEM_PER_BLOCK = 232448
 H100_SMEM_PER_SM = 233472
-HEAD_DIM_MAX = 32   # the generic bodies keep a head's row in registers
+HEAD_DIM_MAX = 32   # the generic bodies keep a head's row in registers; the long ones take any
 ROWS = 64           # token rows of a window-attention / FFN-forward tile
 THREADS = 256       # threads of a generic block
 NGRAM_TJ = 32       # K1's CUDA-core generic body's cells per block (a grid row's segment)
@@ -49,9 +53,10 @@ def smem_limit(device: Optional[torch.device] = None) -> int:
 
 def _refuse(kernel: str, what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{kernel}: {what}.  The generic bodies take any width whose tile fits the card's "
-        "shared memory, head_dim <= 32 and windows of at most 64 tokens; past that only "
-        "the plain version computes it, on the CPU (ROADMAP queue 2)")
+        f"{kernel}: {what}.  The kernels take any width whose tiles fit the card's shared "
+        "memory (window attention and the whole NSTB at any window and head_dim, the "
+        "n-gram context at head_dim <= 32); past that only the plain version computes it, "
+        "on the CPU (ROADMAP queue 2)")
 
 
 def _head_dim(kernel: str, hd: int) -> None:
@@ -230,7 +235,7 @@ ATTENTION_KERNEL_GEOMETRIES = ATTENTION_MMA_GEOMETRIES | {
 # the bodies of K3 and K4, in the order of the CUDA sources' codes
 # (attn_mma::Body in csrc/window_attention_generic_mma.cuh)
 ATTENTION_BODIES = ("flagship", "templated", "tensor-core generic", "CUDA-core generic",
-                    "tensor-core short-window")
+                    "tensor-core short-window", "long-window")
 ATTN_MMA_WARPS = 8      # warps of a tensor-core generic block
 ATTN_MMA_MIN_N = 32     # the shortest window it takes (JAX rounds q_n, k_n, P from 32 up)
 
@@ -404,6 +409,65 @@ def attention_short_plan(N: int, D: int, nh: int, hd: int) -> Optional[dict]:
     return plan
 
 
+# the long-window bodies (csrc/window_attention_long.cuh: attn_long, and
+# csrc/nstb_long.cuh): warps of a block, query rows a warp of the attention
+# holds, keys of a staged tile, the most token rows of a row-product tile
+# and of a token-sum step
+LONG_WARPS, LONG_RPW, LONG_KT, LONG_ROWS = 8, 4, 64, 32
+
+
+def _odd(n: int) -> int:
+    return n | 1
+
+
+def _long_gemm_bytes(K: int) -> int:
+    """A row-product tile at inner width K (``attn_long::gemm_rows``): the
+    most of 32, 16, ..., 1 rows [rows][K | 1] whose float32 tile fits 48 KB,
+    padded to a multiple of the 8 rows a thread holds."""
+    rows = LONG_ROWS
+    while rows > 1 and 4 * rows * _odd(K) > 49152:
+        rows //= 2
+    return 4 * _up(rows, 8) * _odd(K)
+
+
+def _long_attn_bytes(N: int, hd: int) -> int:
+    """The forward attention block (``attn_long::fwd_bytes``): a key tile
+    [64][hd | 1], and per warp its 4 rows' scores [4][N], q and outputs [4][hd]."""
+    return 4 * (LONG_KT * _odd(hd) + LONG_WARPS * LONG_RPW * (N + 2 * hd))
+
+
+def attention_long_bytes(N: int, D: int, nh: int, hd: int) -> Tuple[int, int]:
+    """(K3's, K4's) largest block of the long-window bodies' launches
+    (``attn_long::plan_bytes``): K3 the qkv and projection products and the
+    attention; K4 also the rows pass (k_n and v tiles, per warp its row's
+    cos, P, dp and dbias [N] and four head vectors), the columns pass (q_n
+    and dacc tiles, lse and delta, per warp four head vectors and two tile
+    rows), the token sums (32 rows of x, g, dqkv and o) and dx's product."""
+    A = nh * hd
+    fwd = max(_long_attn_bytes(N, hd), _long_gemm_bytes(D), _long_gemm_bytes(A))
+    rows = 4 * (2 * LONG_KT * _odd(hd) + LONG_WARPS * (4 * N + 4 * hd))
+    cols = 4 * (2 * LONG_KT * _odd(hd) + 2 * LONG_KT + LONG_WARPS * (4 * hd + 2 * LONG_KT))
+    sums = 4 * LONG_ROWS * (2 * _odd(D) + _odd(3 * A) + _odd(A))
+    return fwd, max(fwd, rows, cols, sums, _long_gemm_bytes(3 * A))
+
+
+def attention_long_plan(N: int, D: int, nh: int, hd: int) -> Optional[dict]:
+    """The long-window bodies' launches (``attn_long::fits``): {"fwd":
+    K3's largest block, "bwd": K4's} in bytes, or None where a launch of
+    either fits no block of the card's shared memory."""
+    if min(N, D, nh, hd) < 1:
+        return None
+    fwd, bwd = attention_long_bytes(N, D, nh, hd)
+    return {"fwd": fwd, "bwd": bwd} if bwd <= H100_SMEM_PER_BLOCK else None
+
+
+def long_window(N: int, hd: int) -> bool:
+    """Whether windows of N tokens with heads of hd channels take the
+    long-window bodies (K3/K4 and K2/K8): past 64 tokens or 32 channels,
+    which no other body takes."""
+    return N > ROWS or hd > HEAD_DIM_MAX
+
+
 @functools.lru_cache(maxsize=None)
 def attention_body(N: int, D: int, nh: int, hd: int, dtype: torch.dtype) -> str:
     """The body of K3 and K4 that runs windows of N tokens at width D, nh
@@ -418,8 +482,12 @@ def attention_body(N: int, D: int, nh: int, hd: int, dtype: torch.dtype) -> str:
     (``attention_short_plan``); bfloat16 windows of 32 to 64 tokens the
     tensor-core generic bodies wherever they have a plan
     (``attention_mma_plan``); the rest (float32, the exactness path, and
-    bfloat16 widths without a plan) the CUDA-core generic bodies."""
+    bfloat16 widths without a plan) the CUDA-core generic bodies.  Windows
+    of more than 64 tokens or heads wider than 32 channels the long-window
+    bodies at either dtype (``long_window``)."""
     bf16 = dtype == torch.bfloat16
+    if long_window(N, hd):
+        return ATTENTION_BODIES[5]
     if bf16 and (N, D, nh, hd) in ATTENTION_MMA_GEOMETRIES:
         return ATTENTION_BODIES[0]
     if (N, D, nh, hd) in ATTENTION_KERNEL_GEOMETRIES:
@@ -435,16 +503,17 @@ def attention_envelope(N: int, D: int, nh: int, hd: int,
                        device: Optional[torch.device] = None):
     """-> (K3's heads per group, K3's bytes, K4's heads per group, K4's
     bytes): each the most heads whose tile fits, or NotImplementedError
-    naming the limit (a window longer than a 64-row tile, head_dim past 32,
-    one head's tile past the card's shared memory)."""
+    naming the limit (one head's tile past the card's shared memory).  On
+    the long-window bodies (``long_window``) all heads and the largest
+    block of each kernel's launches (``attention_long_bytes``)."""
     limit = smem_limit(device)
     kernel = "window attention (K3/K4)"
-    if not 1 <= N <= ROWS:
-        raise _refuse(kernel, f"a window of N={N} tokens is past the bound N <= {ROWS} "
-                              "(one window to a 64-row tile)")
-    _head_dim(kernel, hd)
-    if D < 1 or nh < 1:
-        raise ValueError(f"{kernel}: D={D}, heads={nh}")
+    if N < 1 or hd < 1 or D < 1 or nh < 1:
+        raise ValueError(f"{kernel}: N={N}, D={D}, heads={nh}x{hd}")
+    if long_window(N, hd):
+        fwd, bwd = attention_long_bytes(N, D, nh, hd)
+        _fits(kernel, bwd, limit, f"the long-window body at N={N}, D={D}, heads={nh}x{hd}")
+        return nh, fwd, nh, bwd
     out = []
     for size in (lambda g: attention_fwd_bytes(D, nh, hd, g),
                  lambda g: attention_bwd_bytes(N, D, hd, g)):
@@ -607,11 +676,11 @@ def ngram_body(C: int, D: int, nh: int, hd: int, dtype: torch.dtype, forward: bo
 
 def nstb_bytes(N: int, D: int, nh: int, hd: int, H: int) -> int:
     """K2's and K8's CUDA-core generic body: a tile of the whole windows
-    that fit in 64 rows, in three float32 regions, rows padded to an odd
+    that fit in 64 rows (one window past 64 tokens), in three float32 regions, rows padded to an odd
     length: x then y at width D; x_attn, the head outputs and fc2's output
     at max(D, A); qkv, the projection and the hidden layer at max(3A, H, D)."""
     A = nh * hd
-    rows = (ROWS // N) * N
+    rows = max(1, ROWS // N) * N
     return 4 * rows * ((D + 1) + (max(D, A) + 1) + (max(3 * A, H, D) + 1))
 
 
@@ -619,22 +688,50 @@ def nstb_envelope(N: int, D: int, nh: int, hd: int, H: int,
                   device: Optional[torch.device] = None) -> int:
     """-> K2's / K8's CUDA-core generic body's bytes for windows of N tokens
     at width D, nh heads of hd, FFN hidden H, or NotImplementedError naming
-    the limit (a window past 64 tokens, head_dim past 32, the tile past the
-    card's shared memory).  The FFN tail is not cut into chunks: past the
-    card's bytes the refusal names them, as K5's does.  This is K2's and
-    K8's envelope at either dtype; inside it ``nstb_body`` picks the body."""
+    the limit (the tile past the card's shared memory).  The FFN tail is
+    not cut into chunks: past the card's bytes the refusal names them, as
+    K5's does.  Windows past 64 tokens and head_dim past 32 (``long_window``)
+    take the long-window body: its largest block (``nstb_long_bytes``).
+    This is K2's and K8's envelope at either dtype; inside it ``nstb_body``
+    picks the body."""
     kernel = "whole NSTB (K2/K8)"
-    if not 1 <= N <= ROWS:
-        raise _refuse(kernel, f"a window of N={N} tokens is past the bound N <= {ROWS}")
-    _head_dim(kernel, hd)
-    if D < 1 or nh < 1 or H < 1:
-        raise ValueError(f"{kernel}: D={D}, heads={nh}, hidden={H}")
-    return _fits(kernel, nstb_bytes(N, D, nh, hd, H), smem_limit(device),
-                 f"the block at N={N}, D={D}, heads={nh}x{hd}, hidden={H}")
+    if N < 1 or hd < 1 or D < 1 or nh < 1 or H < 1:
+        raise ValueError(f"{kernel}: N={N}, D={D}, heads={nh}x{hd}, hidden={H}")
+    what = f"N={N}, D={D}, heads={nh}x{hd}, hidden={H}"
+    if long_window(N, hd):
+        return _fits(kernel, nstb_long_bytes(N, D, nh, hd, H), smem_limit(device),
+                     f"the long-window body at {what}")
+    return _fits(kernel, nstb_bytes(N, D, nh, hd, H), smem_limit(device), f"the block at {what}")
+
+
+def nstb_long_bytes(N: int, D: int, nh: int, hd: int, H: int) -> int:
+    """The largest block of K2's and K8's long-window body's launches
+    (``csrc/nstb_long.cuh``: ``plan_bytes``): the qkv product at inner width
+    D, the attention (``_long_attn_bytes``), and the tail on the most of 32,
+    16, ..., 1 token rows that fit a block, [rows] x (A | 1 + 2·(D | 1) +
+    H | 1) floats."""
+    A = nh * hd
+
+    def tail(rows):
+        return 4 * rows * (_odd(A) + 2 * _odd(D) + _odd(H))
+
+    rows = LONG_ROWS
+    while rows > 1 and tail(rows) > H100_SMEM_PER_BLOCK:
+        rows //= 2
+    return max(_long_gemm_bytes(D), _long_attn_bytes(N, hd), tail(rows))
+
+
+def nstb_long_plan(N: int, D: int, nh: int, hd: int, H: int) -> Optional[int]:
+    """``nstb_long_bytes`` where every launch fits a block (``nstb_long::fits``),
+    else None."""
+    if min(N, D, nh, hd, H) < 1:
+        return None
+    nbytes = nstb_long_bytes(N, D, nh, hd, H)
+    return nbytes if nbytes <= H100_SMEM_PER_BLOCK else None
 
 
 # the bodies of K2/K8, in the order of the CUDA sources' codes (nstb_mma::Body)
-NSTB_BODIES = ("flagship", "tensor-core generic", "CUDA-core generic")
+NSTB_BODIES = ("flagship", "tensor-core generic", "CUDA-core generic", "long-window")
 # the full-width NGswin's geometry, which K2/K8's own bodies take: (N, D,
 # hidden), then its 6-head (A = 60) and 4-head (A = 64) (heads, head_dim)
 NSTB_FLAGSHIP = (64, 64, 128, (6, 10), (4, 16))
@@ -689,6 +786,7 @@ def nstb_mma_plan(N: int, D: int, nh: int, hd: int, H: int) -> Optional[Tuple[bo
     return (False, nbytes) if nbytes <= H100_SMEM_PER_BLOCK else None
 
 
+@functools.lru_cache(maxsize=None)
 def nstb_body(N: int, D: int, nh: int, hd: int, H: int, dtype: torch.dtype) -> str:
     """The body of K2 and K8 that runs windows of N tokens at width D, nh
     heads of hd, hidden H and I/O type ``dtype`` (one of ``NSTB_BODIES``),
@@ -697,7 +795,10 @@ def nstb_body(N: int, D: int, nh: int, hd: int, H: int, dtype: torch.dtype) -> s
     6 x 10 or 4 x 16 heads) its own bodies; bfloat16 the tensor-core generic
     body wherever it has a plan (``nstb_mma_plan``); the rest (float32, the
     exactness path, and the bf16 geometries that body does not take) the
-    CUDA-core generic body."""
+    CUDA-core generic body.  Windows past 64 tokens and heads wider than 32
+    channels the long-window body at either dtype (``long_window``)."""
+    if long_window(N, hd):
+        return NSTB_BODIES[3]
     if (N, D, H) == NSTB_FLAGSHIP[:3] and (nh, hd) in NSTB_FLAGSHIP[3:]:
         return NSTB_BODIES[0]
     if dtype == torch.bfloat16 and nstb_mma_plan(N, D, nh, hd, H) is not None:
@@ -717,9 +818,12 @@ def nstb_body(N: int, D: int, nh: int, hd: int, H: int, dtype: torch.dtype) -> s
 # head_dim) for K3's and K4's short-window body (attention_short_plan's
 # bytes, -1 without a plan), ngram_fwd_bytes, ngram_bwd_bytes with the pass (1 or 2) last, the same
 # for K7's tensor-core generic body (ngram_mma_bytes, -1 without a plan),
-# ngram_mma_fwd_bytes for K1's (-1 without a plan), and for each
+# ngram_mma_fwd_bytes for K1's (-1 without a plan), for each
 # of K2 and K8 (N, D, heads, head_dim, hidden) with the generic body's code
-# last (1: nstb_mma_bytes of its plan, -1 without one; 2: nstb_bytes)
+# last (1: nstb_mma_bytes of its plan, -1 without one; 2: nstb_bytes; 3:
+# nstb_long_plan's bytes, -1 without a plan), and (N, D, heads, head_dim)
+# with K3 (1) or K4 (2) last for the long-window bodies (attention_long_plan's
+# entries, -1 without a plan)
 SMEM_QUERIES = {
     "ffn_fwd": ("residual_ffn_fwd", "tmar_residual_ffn_fwd_smem", 2),
     "ffn_bwd": ("residual_ffn_bwd", "tmar_residual_ffn_bwd_smem", 3),
@@ -737,6 +841,7 @@ SMEM_QUERIES = {
     "ngram_fwd_mma": ("ngram_context", "tmar_ngram_context_mma_smem", 6),
     "nstb_map": ("nstb_map", "tmar_nstb_map_smem", 6),
     "nstb_tokens": ("nstb_tokens", "tmar_nstb_tokens_smem", 6),
+    "attention_long": ("window_attention_fwd", "tmar_window_attention_fwd_long_smem", 5),
 }
 
 
