@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare checkouts of the port (``tmar_torch``) on one CUDA card, in turns.
 
-    python3 chip_ab.py [--kernels] TREE [TREE ...]
+    python3 chip_ab.py [--kernels | --long] TREE [TREE ...]
 
 Each TREE is the root of a checkout (this one is ``.``), for example an
 earlier commit unpacked with ``git archive`` into a gitignored directory.
@@ -40,7 +40,15 @@ whole block on the map and on its rolled windows), the launch alone, at
 the 8x512² stage-1 shift-4 block with the flagship's weights, bf16 and f32,
 and at bf16 at every geometry of that tree's ``chip_smoke.WIDTH_NSTB_CASES``
 (the demo 8x256² request's stage 1 first; shift ws/2, Q 4, random weights
-from a seed), where their generic bodies run.
+from a seed), where their generic bodies run; then the long-window
+bodies at bf16 (``LONG_ATTN_AB``, ``LONG_NSTB_AB``): K3/K4 at the
+window-16 8x128² step's stage 1 (512 windows of 256 tokens, 6 x 10 heads,
+mask on) and with heads of 64, K2 at the window-16 8x512² request's stage
+1 and the 8x128² map, K8 on that map's rolled windows, K2 at the
+head_dim=64 model's 2x256² stage 1; the launch alone and the device time
+alone of the long-window kernels (names holding "long"), and their
+device time by kernel (``device_profile``).  ``--long``
+prints those long-window rows alone.
 
 Times are CUDA events (``chip_smoke.cuda_ms``), beside the card's name and
 power limit.  Needs one card; imports nothing of JAX or of ``tmar``.
@@ -364,7 +372,102 @@ def generic_block_kernels(cs, tag, card):
     torch.cuda.empty_cache()
 
 
-def run_tree(tree: str, kernels_only: bool = False) -> int:
+# the long-window bodies' rows, bf16: K3/K4 (label, windows, N, D, heads,
+# head_dim, mask grid) and K2/K8 (label, form, B, side, D, heads, head_dim),
+# window 16, hidden 128, shift 8
+LONG_LIBS = ("window_attention_fwd", "window_attention_bwd", "nstb_map", "nstb_tokens")
+LONG_ATTN_AB = (("window-16 step stage 1", 512, 256, 64, 6, 10, (8, 8)),
+                ("head_dim 64 window 16", 512, 256, 64, 6, 64, (8, 8)))
+LONG_NSTB_AB = (("window-16 8x512² request stage 1", "map", 8, 512, 64, 6, 10),
+                ("window-16 8x128² stage 1", "map", 8, 128, 64, 6, 10),
+                ("window-16 8x128² stage 1", "token", 8, 128, 64, 6, 10),
+                ("head_dim 64 2x256² stage 1", "map", 2, 256, 64, 6, 64))
+
+
+def long_window_kernels(cs, tag, card):
+    """K3/K4 and K2/K8 on the long-window bodies at bf16 (``LONG_ATTN_AB``,
+    ``LONG_NSTB_AB``): the launch alone by CUDA events and the device time
+    alone of the kernels whose names hold "long" (the CUDA-core bodies'
+    ``attn_long::`` / ``nstb_long::`` and the tensor-core ones' ``long_mma::``
+    / ``nstb_long::nstb_tail_tc``), on operands laid out once by that tree's
+    wrappers from one seed."""
+    import torch
+
+    from tmar_torch.ops import cuda_attention as ca
+    from tmar_torch.ops import cuda_nstb
+    from tmar_torch.ops.window import cyclic_shift, shift_mask_components, window_partition
+
+    from tmar_torch.utils.profiling import device_profile
+
+    gen = torch.Generator(device="cuda").manual_seed(25)
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale + shift
+
+    def by_kernel(label, fn):
+        def call():  # ends on the device: no call's kernels run into the next's trace step
+            fn()
+            torch.cuda.synchronize()
+
+        rows = [r for r in device_profile(call, iters=3, top=1 << 30) if "long" in r["op"]]
+        print(f"{tag} {label} by device kernel, ms per call: " + "; ".join(
+            f"{r['op']} {r['ms']:.4f} (x{r['count']} in 3)" for r in rows) + f" on {card}",
+            flush=True)
+
+    for label, nwin, N, D, nh, hd, grid in LONG_ATTN_AB:
+        A, ws = nh * hd, int(round(N ** 0.5))
+        params = [randn(D, 3 * A, scale=0.1), randn(3 * A, scale=0.1),
+                  torch.full((nh, 1, 1), 1.2, device="cuda"), randn(nh, N, N, scale=0.2),
+                  randn(A, D, scale=0.1), randn(D, scale=0.1)]
+        x = randn(nwin, N, D).to(torch.bfloat16)
+        g = randn(nwin, N, D).to(torch.bfloat16)
+        mc = (*shift_mask_components(ws, ws // 2), *grid)
+        fwd, bwd = cs.attention_launch_ms(x, params, g, nh, mc, iters=5)
+        ops, geo = ca._kernel_operands(x, *params, nh, mc)
+        d3, n3 = cs.device_ms(lambda: ca._launch(ops, geo), "long", calls=5)
+        _, lse = ca._launch(ops, geo)
+        d4, n4 = cs.device_ms(lambda: ca._launch_backward(ops, lse, g, geo), "long", calls=5)
+        print(f"{tag} K3/K4 long-window launch alone, {label} x [{nwin}, {N}, {D}] bf16, {nh} x "
+              f"{hd} heads, mask on: forward {fwd:.4f} ms, backward {bwd:.4f} ms; device time "
+              f"alone forward {d3:.4f} ms ({n3} kernels), backward {d4:.4f} ms ({n4} kernels) on "
+              f"{card}", flush=True)
+        by_kernel(f"K3 {label}", lambda: ca._launch(ops, geo))
+        by_kernel(f"K4 {label}", lambda: ca._launch_backward(ops, lse, g, geo))
+        del ops, lse, x, g
+        torch.cuda.empty_cache()
+    before = (cuda_nstb.fused_nstb_map.launches, cuda_nstb.fused_nstb.launches)
+    with torch.no_grad():
+        for label, form, B, side, D, nh, hd in LONG_NSTB_AB:
+            A, ws, H, shift = nh * hd, 16, 128, 8
+            ln = (randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1))
+            args = (randn(D, 3 * A, scale=0.15), randn(3 * A, scale=0.1),
+                    randn(nh, 1, 1, scale=0.5, shift=1.4), randn((2 * ws - 1) ** 2, nh, scale=0.5),
+                    randn(A, D, scale=0.15), randn(D, scale=0.1), ln,
+                    (randn(D, H, scale=0.15), randn(H, scale=0.1)),
+                    (randn(H, D, scale=0.1), randn(D, scale=0.1)), ln, nh, ws)
+            x = randn(B, side, side, D).to(torch.bfloat16)
+            cq = randn(B * (side // ws) ** 2, 4, D, scale=0.5).to(torch.bfloat16)
+            if form == "map":
+                ops, out, ints = cuda_nstb._kernel_operands(x, cq, *args, shift=shift)
+                fn = lambda: cuda_nstb._launch(ops, out, ints, 1e-5)  # noqa: E731
+            else:
+                wins = window_partition(cyclic_shift(x, shift), ws)[0].reshape(-1, ws * ws, D)
+                ops, out, ints = cuda_nstb._token_operands(wins, cq, *args, shift,
+                                                           (side // ws, side // ws))
+                fn = lambda: cuda_nstb._launch_tokens(ops, out, ints, 1e-5)  # noqa: E731
+            ms = cs.cuda_ms(fn, iters=5, warmup=1)
+            dev, n = cs.device_ms(fn, "long", calls=3)
+            print(f"{tag} {'K2' if form == 'map' else 'K8'} long-window launch alone, {label} x "
+                  f"[{B}, {side}, {side}, {D}] bf16, {nh} x {hd} heads, window {ws}, shift "
+                  f"{shift}: {ms:.4f} ms; device time alone {dev:.4f} ms ({n} kernels) on {card}",
+                  flush=True)
+            by_kernel(f"{'K2' if form == 'map' else 'K8'} {label}", fn)
+            del ops, out, x, cq
+            torch.cuda.empty_cache()
+    cuda_nstb.fused_nstb_map.launches, cuda_nstb.fused_nstb.launches = before
+
+
+def run_tree(tree: str, kernels_only: bool = False, long_only: bool = False) -> int:
     tree = os.path.abspath(tree)
     os.chdir(tree)
     sys.path.insert(0, tree)
@@ -382,7 +485,8 @@ def run_tree(tree: str, kernels_only: bool = False) -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernels.build()
+    # --long: the four libraries of the long-window bodies alone
+    kernels.build(LONG_LIBS if long_only else kernels.KERNELS)
     card = cs.card_line()
     tag = f"[ab {os.path.relpath(tree, os.path.dirname(os.path.abspath(__file__)))}]"
     dev = torch.device("cuda")
@@ -391,6 +495,9 @@ def run_tree(tree: str, kernels_only: bool = False) -> int:
     def randn(*shape, scale=1.0, shift=0.0):
         return torch.randn(*shape, generator=gen, device=dev) * scale + shift
 
+    if long_only:
+        long_window_kernels(cs, tag, card)
+        return 0
     C, D, nh = 32, 64, 6
     A = 30
     params = [randn(C, 3 * A, scale=0.2), randn(3 * A, scale=0.1),
@@ -418,6 +525,7 @@ def run_tree(tree: str, kernels_only: bool = False) -> int:
         training_kernels(cs, tag, card, randn)
         whole_block_kernels(cs, tag, card, randn)
         generic_block_kernels(cs, tag, card)
+        long_window_kernels(cs, tag, card)
         return 0
     model = NGswin(dtype=torch.float32)
     model.load_state_dict(load_pth(cs.CKPT))
@@ -436,15 +544,15 @@ def run_tree(tree: str, kernels_only: bool = False) -> int:
 
 
 def main(argv) -> int:
-    kernels_only = "--kernels" in argv
-    argv = [a for a in argv if a != "--kernels"]
+    kernels_only, long_only = "--kernels" in argv, "--long" in argv
+    argv = [a for a in argv if a not in ("--kernels", "--long")]
     if len(argv) == 3 and argv[1] == "--tree":
-        return run_tree(argv[2], kernels_only)
+        return run_tree(argv[2], kernels_only, long_only)
     if len(argv) < 2:
         print(__doc__, file=sys.stderr)
         return 2
     rc = 0
-    flag = ["--kernels"] if kernels_only else []
+    flag = ["--kernels"] if kernels_only else ["--long"] if long_only else []
     for tree in argv[1:]:
         rc |= subprocess.call([sys.executable, os.path.abspath(__file__), *flag, "--tree", tree])
     return rc

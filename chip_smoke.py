@@ -215,7 +215,21 @@ Phases, each of which fails the run if it fails:
    the ``Trainer`` (20 launches of K3 and K4 a step on the long-window
    bodies, metrics finite, every generator parameter moved), and the
    ``head_dim=dec_head_dim=64`` model's 2x256² request and step.  The
-   ``kernels`` line gains the long-window bodies' rows.
+   ``kernels`` line gains the long-window bodies' rows.  At bf16 the
+   tensor-core long-window bodies run (K3/K4 from 32 tokens up): the
+   cases above hold them to the plain versions (K3/K4 under BF16_TOL, K2/K8
+   under NSTB_BF16_TOL and NSTB_MEAN_TOL), the CUDA-core ones stay held at
+   f32 and at bf16 windows of 16 tokens with heads of 64; every launch of
+   the window-16 and head_dim-64 requests and steps counts under
+   "tensor-core long-window"; a float32 window-16 step at 1x128² and the
+   float32 map- and token-form requests count the CUDA-core bodies'
+   launches; each body's device time by kernel, and
+   ``scaled_dot_product_attention`` on the same q_n, k_n, v with the bias
+   and mask as a float mask (``attention_core_library_ms`` on K3's row, a
+   yardstick of the attention core alone that the port never calls; the
+   whole-kernel rows keep ``library_ms`` null) beside the attention kernel
+   and its bound; and the timed window-16 stage-1 shapes (K4's rows pass
+   over groups of 22 windows) held against the plain versions.
 
 It prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card, exits non-zero
@@ -4513,9 +4527,15 @@ def export_phase(card):
 
 # K3/K4's long-window bodies at kernel level: (N, heads, head_dim) at D 64,
 # 9x9 and HAT's 16x16 windows with heads of 10, 16, 40 and 64 channels (A > D
-# at 40 and 64), and 8x8 windows with heads of 40
+# at 40 and 64), 8x8 windows with heads of 40, and 4x4 windows with one head
+# of 64 (bf16 there stays on the CUDA-core body: under 32 tokens)
 LONG_ATTN_CASES = [(N, nh, hd) for N in (81, 256) for nh, hd in ((6, 10), (4, 16), (2, 40), (6, 64))
-                   ] + [(64, 2, 40)]
+                   ] + [(64, 2, 40), (16, 1, 64)]
+TC_LONG = "tensor-core long-window"  # the tensor-core long-window bodies' name
+# the long-window bodies' device kernels: the CUDA-core ones (attn_long::,
+# nstb_long::nstb_tail) and the tensor-core ones (long_mma::,
+# nstb_long::nstb_tail_tc)
+LONG_KERNELS = ("attn_long::", "nstb_long::", "long_mma::")
 # K2/K8's long-window body: (window side, heads, head_dim) at D 64, hidden 128
 LONG_NSTB_CASES = [(16, 6, 10), (16, 4, 16), (9, 2, 40), (16, 6, 64)]
 # the window-16 NGswin at the flagship's widths, and with heads of 64 channels
@@ -4538,14 +4558,56 @@ def _attn_parts(dparams, ops, params, N, D, nh, hd):
             dwproj.reshape(A, D), dbproj]
 
 
+def _hold_long_attention(label, body, want, x, g, params, nh, mc, ops, out, runs, failures):
+    """K3's output and K4's two backward runs on x (``_launch`` /
+    ``_launch_backward`` of ``ops``) against the rounding-matched plain
+    versions: out and dx at the dtype's tolerance, the parameter cotangents
+    at BF16_TOL where their products take bf16 operands (bf16 from 32 tokens
+    up, ``cot_bf16``), else F32_TOL; the two runs bit for bit; the rule's
+    body ``want``.  Appends to failures on a miss; returns out's error."""
+    import torch
+
+    from tmar_torch.ops import cuda_attention as ca
+
+    torch.cuda.synchronize()
+    N, D = x.shape[1:]
+    dtype, hd = x.dtype, params[4].shape[0] // nh
+    got = [out, runs[0][0], *_attn_parts(runs[0][1], ops, params, N, D, nh, hd)]
+    ref = [ca.window_attention_kernel_math(x, *params, nh, mask_components=mc),
+           *ca.window_attention_backward_math(x, g, *params, nh, mask_components=mc)]
+    param_dtype = torch.bfloat16 if dtype == torch.bfloat16 and N >= 32 else torch.float32
+    bad, worst, out_err = [], ("", 0.0), 0.0
+    for i, (name, a, b) in enumerate(zip(ATTN_NAMES, got, ref)):
+        err, tol = err_and_tol(a, b, dtype if i <= 1 else param_dtype)
+        if i == 0:
+            out_err = err
+        if err / max(tol, 1e-30) >= worst[1]:
+            worst = (name, err / max(tol, 1e-30))
+        if not (err <= tol and bool(torch.isfinite(a).all())):
+            bad.append(f"{name} err {err:.3e} > tol {tol:.3e}")
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    if not same:
+        bad.append("two backward runs differ")
+    if body != want:
+        bad.append(f"the rule names {body!r}")
+    print(f"[kernel] window_attention {body} body {label}: out and 7 cotangents, "
+          f"worst {worst[0]} at {worst[1]:.3f} of its tolerance; two backward runs "
+          f"bit-identical: {same} {'ok' if not bad else 'FAIL ' + '; '.join(bad)}")
+    if bad:
+        failures.append(f"window_attention {body} body {label}")
+    del got, ref
+    return out_err
+
+
 def long_attention_kernels(dev, randn, failures):
     """K3's and K4's long-window bodies against the rounding-matched plain
     versions at ``LONG_ATTN_CASES``, 16 windows on a 4x4 grid, the shift mask
     on and off, float32 and bfloat16: the output and dx at the dtype's
     tolerance; the parameter cotangents at F32_TOL where their products take
     float32 operands (float32), at BF16_TOL where they take bf16 ones (bf16
-    from 32 tokens up, ``cot_bf16``); two backward runs bit for bit.
-    Returns {dtype name: the largest output error}."""
+    from 32 tokens up, ``cot_bf16``); two backward runs bit for bit.  The
+    rule's body: bf16 from 32 tokens up the tensor-core one, the rest the
+    CUDA-core one.  Returns {body name: the largest output error}."""
     import torch
 
     from tmar_torch.ops import cuda_attention as ca
@@ -4556,7 +4618,7 @@ def long_attention_kernels(dev, randn, failures):
     before = (f.launches, f.backward_launches, f.launches_by_body.copy(),
               f.backward_launches_by_body.copy(), f.launches_by_n.copy(),
               f.backward_launches_by_n.copy())
-    worst_out = {"float32": 0.0, "bfloat16": 0.0}
+    worst_out = {"long-window": 0.0, TC_LONG: 0.0}
     nwin, D = 16, 64
     for N, nh, hd in LONG_ATTN_CASES:
         A, ws = nh * hd, int(round(N ** 0.5))
@@ -4572,31 +4634,11 @@ def long_attention_kernels(dev, randn, failures):
                 ops, geo = ca._kernel_operands(x, *params, nh, mc)
                 out, lse = ca._launch(ops, geo)
                 runs = [ca._launch_backward(ops, lse, g, geo) for _ in range(2)]
-                torch.cuda.synchronize()
-                got = [out, runs[0][0], *_attn_parts(runs[0][1], ops, params, N, D, nh, hd)]
-                ref = [ca.window_attention_kernel_math(x, *params, nh, mask_components=mc),
-                       *ca.window_attention_backward_math(x, g, *params, nh, mask_components=mc)]
-                param_dtype = torch.bfloat16 if dtype == torch.bfloat16 and N >= 32 else torch.float32
-                bad, worst = [], ("", 0.0)
-                for i, (name, a, b) in enumerate(zip(ATTN_NAMES, got, ref)):
-                    err, tol = err_and_tol(a, b, dtype if i <= 1 else param_dtype)
-                    if i == 0:
-                        worst_out[dn] = max(worst_out[dn], err)
-                    if err / max(tol, 1e-30) >= worst[1]:
-                        worst = (name, err / max(tol, 1e-30))
-                    if not (err <= tol and bool(torch.isfinite(a).all())):
-                        bad.append(f"{name} err {err:.3e} > tol {tol:.3e}")
-                same = all(torch.equal(a, b) for a, b in zip(*runs))
-                if not same:
-                    bad.append("two backward runs differ")
-                if body != "long-window":
-                    bad.append(f"the rule names {body!r}")
-                print(f"[kernel] window_attention long-window body {label}: out and 7 cotangents, "
-                      f"worst {worst[0]} at {worst[1]:.3f} of its tolerance; two backward runs "
-                      f"bit-identical: {same} {'ok' if not bad else 'FAIL ' + '; '.join(bad)}")
-                if bad:
-                    failures.append(f"window_attention long-window body {label}")
-                del ops, runs, ref, got
+                want = TC_LONG if dtype == torch.bfloat16 and N >= 32 else "long-window"
+                err = _hold_long_attention(label, body, want, x, g, params, nh, mc, ops, out,
+                                           runs, failures)
+                worst_out[body] = max(worst_out[body], err)
+                del ops, runs
     (f.launches, f.backward_launches, f.launches_by_body, f.backward_launches_by_body,
      f.launches_by_n, f.backward_launches_by_n) = before
     torch.cuda.empty_cache()
@@ -4613,21 +4655,48 @@ def _nstb_long_case(randn, ws, nh, hd, D=64, H=128):
             (1 + randn(D, scale=0.1), randn(D, scale=0.1))]
 
 
+def _hold_long_nstb(label, body, want, z, zt, grid, ref, failures):
+    """K2's output z against its plain version ref (F32_TOL at f32; at bf16
+    the max within NSTB_BF16_TOL x max|ref|, the mean within NSTB_MEAN_TOL),
+    K8's zt on the partitioned windows bit for bit z, the rule's body
+    ``want``.  Appends to failures on a miss; returns z's error."""
+    import torch
+
+    from tmar_torch.ops.window import window_unpartition
+
+    torch.cuda.synchronize()
+    dtype, ws, D = z.dtype, int(round(zt.shape[1] ** 0.5)), z.shape[-1]
+    err, tol = err_and_tol(z, ref, dtype)
+    mean = float((z.float() - ref.float()).abs().mean())
+    mean_ok = True
+    if dtype == torch.bfloat16:
+        tol = NSTB_BF16_TOL * float(ref.float().abs().max())
+        mean_ok = mean <= NSTB_MEAN_TOL
+    same = torch.equal(window_unpartition(zt.reshape(-1, ws, ws, D), grid), z)
+    ok = err <= tol and mean_ok and same and bool(torch.isfinite(z).all()) and body == want
+    print(f"[kernel] nstb {body} body {label}: max_abs_err {err:.3e} tol {tol:.3e}, "
+          f"mean {mean:.2e}; K8 bit for bit K2: {same} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(f"nstb {body} body {label}")
+    return err
+
+
 def long_nstb_kernels(dev, randn, failures):
     """K2's and K8's long-window body against the rounding-matched plain
     versions at ``LONG_NSTB_CASES`` on a 2 x 2ws x 3ws map (a 2x3 window grid),
-    shift 0 (Q 1) and ws/2 (Q 4), float32 and bfloat16: F32_TOL, BF16_TOL;
-    K8 on the partitioned windows bit for bit K2.  Returns {dtype name: the
-    largest error}."""
+    shift 0 (Q 1) and ws/2 (Q 4), float32 (the CUDA-core body, F32_TOL) and
+    bfloat16 (the tensor-core body: the max within NSTB_BF16_TOL x max|ref|,
+    the mean within NSTB_MEAN_TOL); K8 on the partitioned windows bit for
+    bit K2.  Returns {body name: the largest error}."""
     import torch
 
     from tmar_torch.ops import cuda_nstb as cn
     from tmar_torch.ops import envelope as env
-    from tmar_torch.ops.window import cyclic_shift, window_partition, window_unpartition
+    from tmar_torch.ops.window import cyclic_shift, window_partition
 
     before = (cn.fused_nstb_map.launches, cn.fused_nstb.launches,
               cn.fused_nstb_map.launches_by_body.copy(), cn.fused_nstb.launches_by_body.copy())
-    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst = {"long-window": 0.0, TC_LONG: 0.0}
     for ws, nh, hd in LONG_NSTB_CASES:
         args = _nstb_long_case(randn, ws, nh, hd)
         for dtype in (torch.float32, torch.bfloat16):
@@ -4643,49 +4712,95 @@ def long_nstb_kernels(dev, randn, failures):
                     zt = cn.fused_nstb(wins.reshape(-1, ws * ws, 64).contiguous(), cq4, *args, nh,
                                        ws, shift, grid=grid)
                     ref = cn.nstb_map_math(x, cq, *args, num_heads=nh, window_size=ws, shift=shift)
-                torch.cuda.synchronize()
-                err, tol = err_and_tol(z, ref, dtype)
-                worst[dn] = max(worst[dn], err)
-                same = torch.equal(window_unpartition(zt.reshape(-1, ws, ws, 64), grid), z)
                 body = env.nstb_body(ws * ws, 64, nh, hd, 128, dtype)
-                ok = err <= tol and same and bool(torch.isfinite(z).all()) and body == "long-window"
-                print(f"[kernel] nstb long-window body x=[2, {2 * ws}, {3 * ws}, 64] window {ws} "
-                      f"heads={nh}x{hd} shift {shift} {dn}: max_abs_err {err:.3e} tol {tol:.3e}; "
-                      f"K8 bit for bit K2: {same} {'ok' if ok else 'FAIL'}")
-                if not ok:
-                    failures.append(f"nstb long-window body window {ws} {nh}x{hd} shift {shift} {dn}")
+                want = TC_LONG if dtype == torch.bfloat16 else "long-window"
+                err = _hold_long_nstb(f"x=[2, {2 * ws}, {3 * ws}, 64] window {ws} heads={nh}x{hd} "
+                                      f"shift {shift} {dn}", body, want, z, zt, grid, ref, failures)
+                worst[body] = max(worst[body], err)
     (cn.fused_nstb_map.launches, cn.fused_nstb.launches, cn.fused_nstb_map.launches_by_body,
      cn.fused_nstb.launches_by_body) = before
     torch.cuda.empty_cache()
     return worst
 
 
-def profiled_ms(fn, name_parts, iters=3):
-    """(device ms per call, device kernels per call) of the kernels whose
-    name holds one of ``name_parts``, by ``device_profile``: a warm-up call
-    the trace does not keep, and a retake while a launch lost its record (a
-    bare trace late in this long process loses them)."""
+def attention_core_work(nwin, N, nh, hd):
+    """(FLOPs, bytes) of the attention core alone at bf16: S = q·kᵀ and P·v
+    per (window, head); q, k, v read once and o written once in bf16, the
+    float32 bias [nh, N, N] read once."""
+    return nwin * nh * 4 * N * N * hd, 2 * 4 * nwin * N * nh * hd + 4 * nh * N * N
+
+
+def sdpa_yardstick(x, params, nh, mc):
+    """``torch.nn.functional.scaled_dot_product_attention`` on K3's own
+    q_n, k_n and v (bf16, from x as the plain version computes them), the
+    logit scale folded into q, the bias and shift mask as one float mask
+    [nwin, nh, N, N] in bf16: ms per call by CUDA events.  A yardstick of
+    the attention core alone; the port never calls it."""
+    import torch
+    import torch.nn.functional as F
+
+    from tmar_torch.ops.attention import LOGIT_SCALE_MAX, add_shift_mask, split_heads
+
+    wqkv, bqkv, ls, bias = params[:4]
+    qkv = x.float() @ wqkv.to(torch.bfloat16).float() + bqkv.float()
+    q, k, v = (split_heads(t, nh) for t in qkv.chunk(3, dim=-1))
+    qn = q / (q.square().sum(-1, keepdim=True).sqrt() + 1e-12)
+    kn = k / (k.square().sum(-1, keepdim=True).sqrt() + 1e-12)
+    scale = torch.exp(torch.clamp(ls.float(), max=LOGIT_SCALE_MAX)).reshape(1, nh, 1, 1)
+    qs, kb, vb = (qn * scale).bfloat16(), kn.bfloat16(), v.bfloat16()
+    nwin, N = x.shape[:2]
+    mask = add_shift_mask(bias.float()[None].expand(nwin, nh, N, N), mc).bfloat16().contiguous()
+    del qkv, q, k, v, qn, kn
+    ms = cuda_ms(lambda: F.scaled_dot_product_attention(qs, kb, vb, attn_mask=mask, scale=1.0),
+                 iters=5, warmup=1)
+    del qs, kb, vb, mask
+    torch.cuda.empty_cache()
+    return ms
+
+
+def by_kernel(fn):
+    """{kernel: device ms per call} of the long-window kernels
+    (``LONG_KERNELS``) of one call of fn, by ``device_profile``."""
+    import torch
+
     from tmar_torch.utils.profiling import device_profile
 
-    rows = [r for r in device_profile(fn, iters=iters, top=1 << 30)
-            if any(p in r["op"] for p in name_parts)]
-    return sum(r["ms"] for r in rows), round(sum(r["count"] for r in rows) / iters)
+    def call():  # each call ends on the device, so no call's kernels run into the next's trace step
+        fn()
+        torch.cuda.synchronize()
+
+    return {r["op"]: r["ms"] for r in device_profile(call, iters=3, top=1 << 30)
+            if any(p in r["op"] for p in LONG_KERNELS)}
 
 
-def long_kernel_times(dev, randn, card):
+def _parts(label, parts, card):
+    print(f"[profile] {label} by device kernel, ms per call: "
+          + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + f" on {card}")
+
+
+def long_kernel_times(dev, randn, card, failures):
     """The long-window bodies at the window-16 NGswin's stage 1 in the
     8x128² step (512 windows of 256 tokens, D 64, 6 x 10 heads, mask on):
     K3 and K4 by CUDA events over their launches and as device time alone
-    (``profiled_ms``, the ``attn_long::`` kernels), at bf16 and f32, beside
-    the plain versions and the bounds; K2 and K8 on that map (8 x 128² x 64,
-    shift 8) likewise, and K2 alone at the 8x512² request's stage 1.
-    Returns ({dtype name: K3 and K4's times}, {dtype name: K2 and K8's})."""
+    (the sum of ``by_kernel``) and by device
+    kernel, at bf16 (the tensor-core bodies) and f32 (the CUDA-core ones),
+    beside the plain versions and the bounds, and at bf16 the attention
+    kernel (``long_mma::attn_fwd_tc``) beside ``sdpa_yardstick`` and the
+    attention core's bound; K2 and K8 on that map (8 x 128² x 64, shift 8)
+    likewise, and K2 alone at the 8x512² request's stage 1.  At this shape
+    K4's rows pass takes 22 windows a group (ragged last group) and the
+    token sums and products loop over many tiles a block, which the small
+    cases do not reach: each body is first held against its plain version
+    here (``_hold_long_attention``, ``_hold_long_nstb``), a miss appended to
+    failures.  Returns
+    ({dtype name: K3 and K4's times}, {dtype name: K2 and K8's times}), each
+    a dict."""
     import torch
 
     from tmar_torch.ops import cuda_attention as ca
     from tmar_torch.ops import cuda_nstb as cn
+    from tmar_torch.ops import envelope as env
     from tmar_torch.ops.window import cyclic_shift, shift_mask_components, window_partition
-    from tmar_torch.utils.profiling import device_profile
 
     f = ca.fused_window_attention
     saved = (f.launches, f.backward_launches, f.launches_by_body.copy(),
@@ -4701,76 +4816,120 @@ def long_kernel_times(dev, randn, card):
     rows = {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
+        body = env.attention_body(N, D, nh, hd, dtype)
         x, g = randn(nwin, N, D).to(dtype), randn(nwin, N, D).to(dtype)
         ops, geo = ca._kernel_operands(x, *params, nh, mc)
+        out, lse = ca._launch(ops, geo)
+        runs = [ca._launch_backward(ops, lse, g, geo) for _ in range(2)]
+        want = TC_LONG if dtype == torch.bfloat16 else "long-window"
+        _hold_long_attention(f"x=[{nwin}, {N}, {D}] heads={nh}x{hd} mask=on {dn} (the timed "
+                             f"shape)", body, want, x, g, params, nh, mc, ops, out, runs, failures)
+        del out, runs
+        torch.cuda.empty_cache()
         k3 = cuda_ms(lambda: ca._launch(ops, geo), iters=5, warmup=1)
-        _, lse = ca._launch(ops, geo)
         k4 = cuda_ms(lambda: ca._launch_backward(ops, lse, g, geo), iters=5, warmup=1)
-        d3, n3 = profiled_ms(lambda: ca._launch(ops, geo), ("attn_long::",))
-        d4, n4 = profiled_ms(lambda: ca._launch_backward(ops, lse, g, geo), ("attn_long::",))
+        parts3 = by_kernel(lambda: ca._launch(ops, geo))
+        parts4 = by_kernel(lambda: ca._launch_backward(ops, lse, g, geo))
+        d3, n3, d4, n4 = sum(parts3.values()), len(parts3), sum(parts4.values()), len(parts4)
+        _parts(f"K3 {body} body {dn}", parts3, card)
+        _parts(f"K4 {body} body {dn}", parts4, card)
         p3 = cuda_ms(lambda: ca.window_attention_kernel_math(x, *params, nh, mask_components=mc),
                      iters=3, warmup=1)
         p4 = cuda_ms(lambda: ca.window_attention_backward_math(x, g, *params, nh, mask_components=mc),
                      iters=3, warmup=1)
         b3 = bound_ms(*attention_work(nwin, N, D, nh, hd, x.element_size(), False), dn)
         b4 = bound_ms(*attention_work(nwin, N, D, nh, hd, x.element_size(), True), dn)
-        if dtype == torch.bfloat16:  # where K4's time goes, by device kernel
-            rows4 = device_profile(lambda: ca._launch_backward(ops, lse, g, geo), iters=3,
-                                   top=1 << 30)
-            parts = {k: sum(r["ms"] for r in rows4 if r["op"] == f"attn_long::{k}")
-                     for k in ("rows_gemm", "qk_norm", "attn_bwd_rows", "attn_bwd_cols",
-                               "param_sums", "bwd_reduce")}
-            print("[profile] K4 long-window body by device kernel, ms: "
-                  + ", ".join(f"{k} {v:.4f}" for k, v in parts.items()) + f" on {card}")
-        print(f"[time] window_attention long-window body x=[{nwin}, {N}, {D}] {nh}x{hd} mask on "
+        print(f"[time] window_attention {body} body x=[{nwin}, {N}, {D}] {nh}x{hd} mask on "
               f"{dn}: K3 {k3:.4f} ms (device {d3:.4f} ms in {n3} kernels), K4 {k4:.4f} ms (device "
               f"{d4:.4f} ms in {n4} kernels); plain {p3:.4f} / {p4:.4f} ms; bound {b3[0]:.4f} / "
               f"{b4[0]:.4f} ms by {b3[1]} / {b4[1]} on {card}")
-        rows[dn] = (k3, k4, d3, d4, p3, p4, b3, b4)
+        rows[dn] = {"k3": k3, "k4": k4, "d3": d3, "d4": d4, "p3": p3, "p4": p4, "b3": b3,
+                    "b4": b4, "parts3": parts3, "parts4": parts4}
+        if dtype == torch.bfloat16:
+            lib = sdpa_yardstick(x, params, nh, mc)
+            core = bound_ms(*attention_core_work(nwin, N, nh, hd), dn)
+            attn = sum(v for k, v in parts3.items() if "attn_fwd" in k)
+            print(f"[time] attention core x=[{nwin}, {N}] {nh}x{hd} bf16 mask on: the tensor-core "
+                  f"body's attention kernel {attn:.4f} ms, scaled_dot_product_attention (float "
+                  f"mask, attention_core_library_ms) {lib:.4f} ms, bound {core[0]:.4f} ms by {core[1]} on {card}")
+            rows[dn].update(library=lib, attention=attn, core_bound=core)
         del ops, lse, x, g
         torch.cuda.empty_cache()
     args = _nstb_long_case(randn, ws, nh, hd)
     nrows = {}
     for dtype in (torch.bfloat16, torch.float32):
         dn = str(dtype).split(".")[1]
+        body = env.nstb_body(N, D, nh, hd, 128, dtype)
         x = randn(8, 128, 128, D).to(dtype)
         cq = randn(8 * 64, 4, D, scale=0.5).to(dtype)
         wins, grid = window_partition(cyclic_shift(x, 8), ws)
         wins = wins.reshape(-1, N, D).contiguous()
         with torch.no_grad():
+            z = cn.fused_nstb_map(x, cq, *args, nh, ws, 8)
+            zt = cn.fused_nstb(wins, cq, *args, nh, ws, 8, grid=grid)
+            ref = cn.nstb_map_math(x, cq, *args, num_heads=nh, window_size=ws, shift=8)
+        want = TC_LONG if dtype == torch.bfloat16 else "long-window"
+        _hold_long_nstb(f"x=[8, 128, 128, {D}] window {ws} heads={nh}x{hd} shift 8 {dn} (the "
+                        f"timed shape)", body, want, z, zt, grid, ref, failures)
+        del z, zt, ref
+        torch.cuda.empty_cache()
+        with torch.no_grad():
             k2 = cuda_ms(lambda: cn.fused_nstb_map(x, cq, *args, nh, ws, 8), iters=5, warmup=1)
             k8 = cuda_ms(lambda: cn.fused_nstb(wins, cq, *args, nh, ws, 8, grid=grid), iters=5,
                          warmup=1)
-            d2, n2 = profiled_ms(lambda: cn.fused_nstb_map(x, cq, *args, nh, ws, 8), ("_long::",))
-            d8, n8 = profiled_ms(lambda: cn.fused_nstb(wins, cq, *args, nh, ws, 8, grid=grid),
-                                 ("_long::",))
+            parts2 = by_kernel(lambda: cn.fused_nstb_map(x, cq, *args, nh, ws, 8))
+            parts8 = by_kernel(lambda: cn.fused_nstb(wins, cq, *args, nh, ws, 8, grid=grid))
+            d2, n2, d8, n8 = (sum(parts2.values()), len(parts2), sum(parts8.values()),
+                              len(parts8))
+            _parts(f"K2 {body} body {dn}", parts2, card)
+            _parts(f"K8 {body} body {dn}", parts8, card)
             p2 = cuda_ms(lambda: cn.nstb_map_math(x, cq, *args, num_heads=nh, window_size=ws,
                                                   shift=8), iters=3, warmup=1)
             p8 = cuda_ms(lambda: cn.nstb_tokens_math(wins, cq, *args, num_heads=nh,
                                                      window_size=ws, shift=8, grid=grid),
                          iters=3, warmup=1)
         b = bound_ms(*nstb_work(8, 128, 128, nh, 4, x.element_size(), hd=hd, ws=ws), dn)
-        print(f"[time] nstb long-window body x=[8, 128, 128, {D}] window {ws} {nh}x{hd} shift 8 "
+        print(f"[time] nstb {body} body x=[8, 128, 128, {D}] window {ws} {nh}x{hd} shift 8 "
               f"{dn}: K2 {k2:.4f} ms (device {d2:.4f} ms in {n2} kernels), K8 {k8:.4f} ms (device "
               f"{d8:.4f} ms in {n8} kernels); plain {p2:.4f} / {p8:.4f} ms; bound {b[0]:.4f} ms by "
               f"{b[1]} on {card}")
-        nrows[dn] = (k2, k8, d2, d8, p2, p8, b)
+        nrows[dn] = {"k2": k2, "k8": k8, "d2": d2, "d8": d8, "p2": p2, "p8": p8, "b": b,
+                     "parts2": parts2, "parts8": parts8}
         del x, cq, wins
         torch.cuda.empty_cache()
     x = randn(8, 512, 512, D).to(torch.bfloat16)
     cq = randn(8 * 1024, 4, D, scale=0.5).to(torch.bfloat16)
     with torch.no_grad():
         k2_512 = cuda_ms(lambda: cn.fused_nstb_map(x, cq, *args, nh, ws, 8), iters=3, warmup=1)
+        parts512 = by_kernel(lambda: cn.fused_nstb_map(x, cq, *args, nh, ws, 8))
+    _parts("K2 at the 8x512² request's stage 1, bf16", parts512, card)
     b512 = bound_ms(*nstb_work(8, 512, 512, nh, 4, 2, hd=hd, ws=ws), "bfloat16")
-    print(f"[time] nstb long-window body x=[8, 512, 512, {D}] window {ws} {nh}x{hd} shift 8 "
+    print(f"[time] nstb {TC_LONG} body x=[8, 512, 512, {D}] window {ws} {nh}x{hd} shift 8 "
           f"bfloat16 (the 8x512² request's stage 1): K2 {k2_512:.4f} ms, bound {b512[0]:.4f} ms "
           f"by {b512[1]} on {card}")
+    nrows["bfloat16"].update(k2_512=k2_512, b512=b512)
     del x, cq
     torch.cuda.empty_cache()
     (f.launches, f.backward_launches, f.launches_by_body, f.backward_launches_by_body,
      f.launches_by_n, f.backward_launches_by_n, cn.fused_nstb_map.launches, cn.fused_nstb.launches,
      cn.fused_nstb_map.launches_by_body, cn.fused_nstb.launches_by_body) = saved
     return rows, nrows
+
+
+def idle_share(fn, wall_ms, label, card):
+    """The device's busy time in one call of fn (``device_profile``: every
+    kernel, copy and memset, retaken where a launch lost its record) beside
+    the call's median wall time: its idle share.  Returns (busy ms, idle
+    share)."""
+    from tmar_torch.utils.profiling import device_profile
+
+    rows = device_profile(fn, iters=1, top=1 << 30)
+    busy = sum(r["ms"] for r in rows)
+    print(f"[profile] {label}: device busy {busy:.3f} ms in {sum(r['count'] for r in rows)} "
+          f"kernels and copies a call, median wall {wall_ms:.1f} ms, idle share "
+          f"{1 - busy / wall_ms:.3f} on {card}; "
+          + "; ".join(f"{r['op'][:48]} {r['ms']:.3f}" for r in rows[:6]))
+    return busy, 1 - busy / wall_ms
 
 
 def _capture_nstb(module, name, keep):
@@ -4832,11 +4991,14 @@ def long_window_serving(card, check):
     seed) serves 8x512² bf16 in the map form (K1 + K2) and the token form
     (K1 + K8) and one 416² slice (padded to 448², a 7x7 window grid at stage
     3), the counters set to 0 just before each request and read just after:
-    20 launches of K1 and 20 of K2 (K8) per forward, all on the long-window
-    body; the first launch of each stage held to its plain version on the
-    first image; outputs finite and in [-1, 1]; the median request; and a
-    float32 1x128² request on the card against the CPU.  Returns K2's and
-    K8's long-window launches on the 8x512² requests."""
+    20 launches of K1 and 20 of K2 (K8) per forward, all on the tensor-core
+    long-window body; the first launch of each stage held to its plain
+    version on the first image; outputs finite and in [-1, 1]; the median
+    request; and float32 1x128² requests on the card in both forms (20
+    launches of K2 / K8 on the CUDA-core long-window body), the map form
+    against the CPU.  Returns {kernel row name: its launches}: the
+    tensor-core body's on the 8x512² requests, the CUDA-core body's on the
+    float32 ones."""
     import torch
 
     import tmar_torch.nn.blocks as blocks
@@ -4873,11 +5035,12 @@ def long_window_serving(card, check):
                   f"by body {by_body}")
             check(bool(np.isfinite(y).all()) and y.min() >= -1 and y.max() <= 1
                   and y.shape == req.shape, f"window 16, {form} form {label}: finite, in [-1, 1]")
-            check(k1 == 20 and by_body == {"long-window": 20},
+            check(k1 == 20 and by_body == {TC_LONG: 20},
                   f"window 16, {form} form {label}: 20 launches of K1 and 20 of "
-                  f"{'K2' if form == 'map' else 'K8'}, all on the long-window body")
+                  f"{'K2' if form == 'map' else 'K8'}, all on the {TC_LONG} body")
             if label == "8x512²":
-                launches[name[6:]] = by_body.get("long-window", 0)
+                row = "nstb_map" if form == "map" else "nstb_tokens"
+                launches[f"{row}_long_tc"] = by_body.get(TC_LONG, 0)
                 worst = _hold_long_serving("map" if form == "map" else "tokens", kept, check)
                 print(f"[serve window 16] {form} form: the kept launches' largest error "
                       f"{worst:.3e} x max|ref|")
@@ -4892,19 +5055,31 @@ def long_window_serving(card, check):
             print(f"[time] window-16 full-slice 8x512² bf16 request, map form: median "
                   f"{med * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]} on {card}; peak "
                   f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            idle_share(lambda: fwd(req512), med * 1e3,
+                       "window-16 full-slice 8x512² bf16 request, map form", card)
         torch.cuda.empty_cache()
     del model, tokens
-    # float32 on the card against the CPU at 1x128²
-    on_card = NGswin(**WINDOW16, dtype=torch.float32)
-    on_card.load_state_dict(sd)
-    on_cpu = NGswin(**WINDOW16, dtype=torch.float32, device="cpu")
-    on_cpu.load_state_dict(sd)
+    # float32 on the card (the CUDA-core long-window body) at 1x128²: the
+    # map form against the CPU, the token form's launches
     small = req512[:1, :128, :128]
-    d = float(np.abs(make_inference_fn(on_card)(small)
-                     - make_inference_fn(on_cpu, device="cpu")(small)).max())
-    check(d <= 1e-4, f"window 16, f32 map form at 1x128² on the card against the CPU: max_abs_err "
-                     f"{d:.3e} tol 1e-4")
-    del on_card, on_cpu
+    for form, kernel, name in (("map", cuda_nstb.fused_nstb_map, "nstb_map"),
+                               ("token", cuda_nstb.fused_nstb, "nstb_tokens")):
+        on_card = NGswin(**WINDOW16, dtype=torch.float32, nstb_map=form == "map")
+        on_card.load_state_dict(sd)
+        kernel.launches_by_body.clear()
+        y = make_inference_fn(on_card)(small)
+        by_body = dict(kernel.launches_by_body)
+        launches[f"{name}_long"] = by_body.get("long-window", 0)
+        check(by_body == {"long-window": 20}, f"window 16, f32 {form} form at 1x128²: K2 / K8 by "
+                                              f"body {by_body}, all on the long-window body")
+        if form == "map":
+            on_cpu = NGswin(**WINDOW16, dtype=torch.float32, device="cpu")
+            on_cpu.load_state_dict(sd)
+            d = float(np.abs(y - make_inference_fn(on_cpu, device="cpu")(small)).max())
+            check(d <= 1e-4, f"window 16, f32 map form at 1x128² on the card against the CPU: "
+                             f"max_abs_err {d:.3e} tol 1e-4")
+            del on_cpu
+        del on_card
     torch.cuda.empty_cache()
     return launches
 
@@ -4914,11 +5089,14 @@ def long_window_training(card, check):
     widths through the ``Trainer`` (``attn_backward: pallas``, bf16,
     ``fused_pairs``) at 8x128²: 3 steps on one batch with the counters set
     to 0 just before and read just after (20 launches per step of K3 and K4
-    on the long-window body, at N = 256; K1/K7 and K5/K6 at widths they
-    already take), metrics finite, the generator's parameters moved.  Then
-    the ``head_dim=dec_head_dim=64`` model (A = 384 / 256 > D): one map-form
-    request and one ``full``-recipe step at 2x256².  Returns K3's and K4's
-    long-window launches over the 3 steps."""
+    on the tensor-core long-window body, at N = 256; K1/K7 and K5/K6 at
+    widths they already take), metrics finite, the generator's parameters
+    moved; one float32 ``full``-recipe step at 1x128² (20 launches of K3 and
+    K4 on the CUDA-core long-window body).  Then the
+    ``head_dim=dec_head_dim=64`` model (A = 384 / 256 > D): one map-form
+    request and one ``full``-recipe step at 2x256².  Returns {kernel row
+    name: its launches}: K3's and K4's on the tensor-core body over the 3
+    bf16 steps, on the CUDA-core body in the float32 step."""
     import tempfile
 
     import torch
@@ -4952,18 +5130,55 @@ def long_window_training(card, check):
             history.append({k: float(v) for k, v in metrics.items()})
         fwd, bwd = dict(f.launches_by_body), dict(f.backward_launches_by_body)
         moved = sum(not torch.equal(p.detach(), before[k]) for k, p in gen.named_parameters())
+
+        def one_step():
+            trainer.state, _ = trainer.train_step(trainer.state, batch)
+            torch.cuda.synchronize()
+
+        idle_share(one_step, statistics.median(times) * 1e3,
+                   f"window-16 full step, {TRAIN_BATCH}x{TRAIN_PATCH}² bf16", card)
         print(f"[train window 16] {TRAIN_BATCH}x{TRAIN_PATCH}² bf16 full step x3: K3 by body {fwd}, "
               f"K4 by body {bwd}; g_rec {[round(h['g_rec'], 5) for h in history]}; "
               f"{moved} of {len(before)} generator tensors moved; step ms "
               f"{[round(t * 1e3, 1) for t in times]} on {card}")
-        check(fwd == {"long-window": 60} and bwd == {"long-window": 60},
-              "window 16: 20 launches per step of each of K3 and K4, on the long-window bodies")
+        check(fwd == {TC_LONG: 60} and bwd == {TC_LONG: 60},
+              f"window 16: 20 launches per step of each of K3 and K4, on the {TC_LONG} bodies")
         check(all(np.isfinite(v) for h in history for v in h.values()),
               "window 16: every metric of the 3 steps finite")
         check(moved == len(before), "window 16: every generator parameter moved")
-        launches = (fwd.get("long-window", 0), bwd.get("long-window", 0))
+        launches = {"window_attention_fwd_long_tc": fwd.get(TC_LONG, 0),
+                    "window_attention_bwd_long_tc": bwd.get(TC_LONG, 0)}
         del trainer, gen, before
         torch.cuda.empty_cache()
+
+    # float32 (the CUDA-core long-window bodies): one full-recipe step at 1x128²
+    torch.manual_seed(32)
+    gen32 = NGswin(**WINDOW16, dtype=torch.float32, attn_backward="pallas")
+    disc32 = MultiScaleDiscriminator(dtype=torch.float32)
+    g_opt = torch.optim.Adam(gen32.parameters(), 1e-4, betas=(0.5, 0.999), eps=1e-8)
+    d_opt = torch.optim.Adam(disc32.parameters(), 2e-4, betas=(0.5, 0.999), eps=1e-8)
+    state = create_train_state(torch.Generator().manual_seed(32), gen32, disc32, g_opt, d_opt,
+                               ema_decay=0.999)
+    step = make_train_step(gen32, disc32, g_opt, d_opt, LossWeights(phys=0.0), fused_pairs=True,
+                           ema_decay=0.999, device="cuda")
+    x32 = np.random.default_rng(32).uniform(-1, 1, (1, 128, 128, 1)).astype(np.float32)
+    gt32 = np.where(x32 > 0.6, -0.5, 0.5 * x32).astype(np.float32)
+    f.launches_by_body.clear()
+    f.backward_launches_by_body.clear()
+    state, metrics = step(state, {"ct": torch.from_numpy(x32).cuda(),
+                                  "gt": torch.from_numpy(gt32).cuda()})
+    torch.cuda.synchronize()
+    fwd, bwd = dict(f.launches_by_body), dict(f.backward_launches_by_body)
+    print(f"[train window 16] 1x128² f32 step: K3 by body {fwd}, K4 by body {bwd}; "
+          + " ".join(f"{k} {float(v):.5f}" for k, v in metrics.items()))
+    check(fwd == {"long-window": 20} and bwd == {"long-window": 20}
+          and all(np.isfinite(float(v)) for v in metrics.values()),
+          "window 16, f32: one step, metrics finite, 20 launches of K3 and K4 on the long-window "
+          "bodies")
+    launches.update(window_attention_fwd_long=fwd.get("long-window", 0),
+                    window_attention_bwd_long=bwd.get("long-window", 0))
+    del gen32, disc32, state
+    torch.cuda.empty_cache()
 
     # heads of 64 channels: one map-form request, one full-recipe step at 2x256²
     torch.manual_seed(64)
@@ -4974,7 +5189,7 @@ def long_window_training(card, check):
     cuda_nstb.fused_nstb_map.launches_by_body.clear()
     y = make_inference_fn(net)(x)
     by_body = dict(cuda_nstb.fused_nstb_map.launches_by_body)
-    check(bool(np.isfinite(y).all()) and by_body == {"long-window": 20},
+    check(bool(np.isfinite(y).all()) and by_body == {TC_LONG: 20},
           f"head_dim 64: a map-form 2x256² request, finite, K2 by body {by_body}")
     gen = NGswin(**HEAD64, dtype=torch.bfloat16, attn_backward="pallas")
     gen.load_state_dict(net.state_dict())
@@ -4993,9 +5208,10 @@ def long_window_training(card, check):
     fwd, bwd = dict(f.launches_by_body), dict(f.backward_launches_by_body)
     print(f"[train head_dim 64] 2x256² bf16 step: K3 by body {fwd}, K4 by body {bwd}; "
           + " ".join(f"{k} {float(v):.5f}" for k, v in metrics.items()))
-    check(fwd == {"long-window": 20} and bwd == {"long-window": 20}
+    check(fwd == {TC_LONG: 20} and bwd == {TC_LONG: 20}
           and all(np.isfinite(float(v)) for v in metrics.values()),
-          "head_dim 64: one step, metrics finite, 20 launches of K3 and K4 on the long-window bodies")
+          f"head_dim 64: one step, metrics finite, 20 launches of K3 and K4 on the {TC_LONG} "
+          f"bodies")
     del net, gen, disc, state
     torch.cuda.empty_cache()
     return launches
@@ -5043,33 +5259,59 @@ def long_windows(dev, card):
           f"envelope's: {'ok' if not failures else 'FAIL ' + '; '.join(failures)}")
     attn_err = long_attention_kernels(dev, randn, failures)
     nstb_err = long_nstb_kernels(dev, randn, failures)
-    times, ntimes = long_kernel_times(dev, randn, card)
-    serve_launches = long_window_serving(card, check)
-    k3, k4 = long_window_training(card, check)
+    times, ntimes = long_kernel_times(dev, randn, card, failures)
+    launches = long_window_serving(card, check)
+    launches.update(long_window_training(card, check))
     if failures:
         raise SystemExit(f"long-window checks failed: {failures}")
-    bf = times["bfloat16"]
-    nbf = ntimes["bfloat16"]
-    shape = "x [512, 256, 64] bf16, 6 x 10 heads, mask on (the window-16 8x128² step's stage 1)"
-    nshape = "x [8, 128, 128, 64] bf16, window 16, 6 x 10 heads, shift 8"
+    shape = "x [512, 256, 64] {}, 6 x 10 heads, mask on (the window-16 8x128² step's stage 1)"
+    nshape = "x [8, 128, 128, 64] {}, window 16, 6 x 10 heads, shift 8"
+    attn_src, nstb_src = ("tmar_torch/csrc/window_attention_long.cuh",
+                          "tmar_torch/csrc/nstb_long.cuh")
+    tc_src = "tmar_torch/csrc/long_mma.cuh"
     rows = {}
-    for name, source, replaces, launches, err, ms, dev_ms, plain, bound, f32, shp in (
-            ("window_attention_fwd_long", "tmar_torch/csrc/window_attention_long.cuh",
-             "tmar/ops/pallas_attention.py:1143", k3, attn_err["bfloat16"], bf[0], bf[2], bf[4],
-             bf[6], times["float32"][0], shape),
-            ("window_attention_bwd_long", "tmar_torch/csrc/window_attention_long.cuh",
-             "tmar/ops/pallas_attention.py:568", k4, attn_err["bfloat16"], bf[1], bf[3], bf[5],
-             bf[7], times["float32"][1], shape),
-            ("nstb_map_long", "tmar_torch/csrc/nstb_long.cuh", "tmar/ops/pallas_nstb.py:640",
-             serve_launches.get("nstb_map", 0), nstb_err["bfloat16"], nbf[0], nbf[2], nbf[4],
-             nbf[6], ntimes["float32"][0], nshape),
-            ("nstb_tokens_long", "tmar_torch/csrc/nstb_long.cuh", "tmar/ops/pallas_nstb.py:334",
-             serve_launches.get("nstb", 0), nstb_err["bfloat16"], nbf[1], nbf[3], nbf[5], nbf[6],
-             ntimes["float32"][1], nshape)):
+    # (row, body, source, TPU kernel, dtype the row is timed at)
+    for name, body, source, replaces, dn in (
+            ("window_attention_fwd_long", "long-window", attn_src,
+             "tmar/ops/pallas_attention.py:1143", "float32"),
+            ("window_attention_bwd_long", "long-window", attn_src,
+             "tmar/ops/pallas_attention.py:568", "float32"),
+            ("nstb_map_long", "long-window", nstb_src, "tmar/ops/pallas_nstb.py:640", "float32"),
+            ("nstb_tokens_long", "long-window", nstb_src, "tmar/ops/pallas_nstb.py:334",
+             "float32"),
+            ("window_attention_fwd_long_tc", TC_LONG, tc_src,
+             "tmar/ops/pallas_attention.py:1143", "bfloat16"),
+            ("window_attention_bwd_long_tc", TC_LONG, tc_src,
+             "tmar/ops/pallas_attention.py:568", "bfloat16"),
+            ("nstb_map_long_tc", TC_LONG, f"{tc_src}, {nstb_src}", "tmar/ops/pallas_nstb.py:640",
+             "bfloat16"),
+            ("nstb_tokens_long_tc", TC_LONG, f"{tc_src}, {nstb_src}",
+             "tmar/ops/pallas_nstb.py:334", "bfloat16")):
+        t, nt = times[dn], ntimes[dn]
+        kind = name.split("_long")[0]
+        if kind.startswith("window_attention"):
+            fwd = kind.endswith("fwd")
+            ms, dev_ms, plain, bound = ((t["k3"], t["d3"], t["p3"], t["b3"]) if fwd else
+                                        (t["k4"], t["d4"], t["p4"], t["b4"]))
+            err, shp = attn_err[body], shape.format(dn)
+            parts = t["parts3"] if fwd else t["parts4"]
+        else:
+            form = "k2" if kind == "nstb_map" else "k8"
+            ms, dev_ms = nt[form], nt["d2" if form == "k2" else "d8"]
+            plain, bound = nt["p2" if form == "k2" else "p8"], nt["b"]
+            err, shp = nstb_err[body], nshape.format(dn)
+            parts = nt["parts2" if form == "k2" else "parts8"]
         rows[name] = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                      "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain,
-                      "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
-                      "device_ms": dev_ms, "ms_f32": f32, "shape": shp, "card": card}
+                      "launches": launches[name], "max_abs_err": err, "ms": ms,
+                      "plain_ms": plain, "bound_ms": bound[0], "bound_by": bound[1],
+                      "library_ms": None, "device_ms": dev_ms, "device_ms_by_kernel": parts,
+                      "body": body, "shape": shp, "card": card}
+    bf, nbf = times["bfloat16"], ntimes["bfloat16"]
+    rows["window_attention_fwd_long_tc"].update(
+        attention_kernel_ms=bf["attention"], attention_core_bound_ms=bf["core_bound"][0],
+        attention_core_library_ms=bf["library"])
+    rows["nstb_map_long_tc"].update(ms_8x512_stage1=nbf["k2_512"],
+                                    bound_ms_8x512_stage1=nbf["b512"][0])
     return rows
 
 

@@ -418,15 +418,28 @@ LONG = [(256, 64, 6, 10, 128), (256, 64, 4, 16, 128), (256, 64, 6, 64, 128), (81
         (81, 32, 2, 16, 64), (64, 80, 2, 40, 160), (4, 32, 2, 40, 64), (1024, 32, 2, 16, 64)]
 
 
+# the bf16 body of each LONG case, K3/K4's then K2/K8's: the tensor-core
+# long-window bodies wherever they have a plan; K3/K4 keep the CUDA-core one
+# below 32 tokens (the JAX kernel keeps q_n, k_n and P float32 there) and
+# where a rows-pass block does not fit (a 32x32 window's dbias rows)
+LONG_BF16 = {(4, 32, 2, 40, 64): ("long-window", "tensor-core long-window"),
+             (1024, 32, 2, 16, 64): ("long-window", "tensor-core long-window")}
+
+
 @pytest.mark.parametrize("N,D,nh,hd,H", LONG)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_long_windows_and_wide_heads_take_the_long_window_bodies(N, D, nh, hd, H, dtype):
     """Past 64 tokens a window or 32 channels a head, K3/K4 and K2/K8 run
-    their long-window bodies at either dtype, and the envelope admits the
-    geometry with those bodies' largest blocks (all heads to a group)."""
+    their long-window bodies: float32 the CUDA-core ones, bfloat16 the
+    tensor-core ones wherever they have a plan (``LONG_BF16``); the envelope
+    admits the geometry with the CUDA-core bodies' largest blocks (all heads
+    to a group)."""
     assert envelope.long_window(N, hd)
-    assert envelope.attention_body(N, D, nh, hd, dtype) == "long-window"
-    assert envelope.nstb_body(N, D, nh, hd, H, dtype) == "long-window"
+    tc = "tensor-core long-window"
+    want = ("long-window", "long-window") if dtype == torch.float32 else LONG_BF16.get(
+        (N, D, nh, hd, H), (tc, tc))
+    assert envelope.attention_body(N, D, nh, hd, dtype) == want[0]
+    assert envelope.nstb_body(N, D, nh, hd, H, dtype) == want[1]
     fwd, bwd = envelope.attention_long_bytes(N, D, nh, hd)
     assert envelope.attention_envelope(N, D, nh, hd) == (nh, fwd, nh, bwd)
     assert envelope.attention_long_plan(N, D, nh, hd) == {"fwd": fwd, "bwd": bwd}
@@ -447,6 +460,100 @@ def test_long_window_plans_count_the_sources_layout():
     assert envelope.attention_long_bytes(81, 64, 6, 64) == (43392, 213504)
     assert envelope.nstb_long_bytes(256, 64, 6, 10, 128) == 40960
     assert envelope.nstb_long_bytes(81, 64, 6, 64, 128) == 82432
+
+
+# (N, D, heads, head_dim, hidden) -> K3's and K4's largest blocks of the
+# tensor-core long-window bodies, and K2/K8's (tail resident, bytes):
+# window 16 at 6 x 10 (the window-16 NGswin's stage 1), a 9x9 window, the
+# head_dim=64 model's 8x8 windows (A = 384 > D), heads of 40 at window 16
+LONG_TC = {
+    (256, 64, 6, 10, 128): ({"fwd": 57472, "bwd": 162304}, (True, 96768)),
+    (81, 64, 6, 10, 128): ({"fwd": 57472, "bwd": 69632}, (True, 96768)),
+    (64, 64, 6, 64, 128): ({"fwd": 171520, "bwd": 217088}, (True, 211968)),
+    (256, 64, 2, 40, 128): ({"fwd": 86016, "bwd": 203264}, (True, 96768)),
+}
+
+
+@pytest.mark.parametrize("N,D,nh,hd,H", sorted(LONG_TC))
+def test_tensor_core_long_window_plans_count_the_sources_layout(N, D, nh, hd, H):
+    """The tensor-core long-window bodies' shared memory, as csrc/long_mma.cuh
+    and nstb_long.cuh lay it out (a GPU test reads the same numbers back
+    from ``tmar_window_attention_fwd_long_smem(..., 3 | 4)`` and
+    ``tmar_nstb_*_smem(..., 4)``), and the body each geometry takes: bf16
+    the tensor-core one, float32 the CUDA-core one."""
+    attn, nstb = LONG_TC[(N, D, nh, hd, H)]
+    assert envelope.attention_long_tc_plan(N, D, nh, hd) == attn
+    assert envelope.nstb_long_tc_plan(N, D, nh, hd, H) == nstb
+    parts = envelope.long_tc_bytes(N, D, nh, hd)
+    assert attn["fwd"] == max(parts["qkv"], parts["attention"], parts["projection"])
+    assert attn["bwd"] == max(parts.values())
+    for dtype, name in ((torch.bfloat16, "tensor-core long-window"),
+                        (torch.float32, "long-window")):
+        assert envelope.attention_body(N, D, nh, hd, dtype) == name
+        assert envelope.nstb_body(N, D, nh, hd, H, dtype) == name
+
+
+def test_tensor_core_long_window_layout_by_hand():
+    """The window-16 stage-1 geometry (N 256, D 64, 6 x 10, hidden 128)
+    counted by hand: head_dim 10 pads to 16 (AP 96, LDK 24); the qkv
+    product's biases [288] float32, its resident matrix [64][296] and row
+    tile [128][72] bf16; the attention's q_n, k_n and v [256][24]; the rows
+    pass's bias and dbias rows [64][256] and the key halves' delta [2][64]
+    float32, k_n, v [256][24], q_n, dacc [64][24]; the tail's [6·64 + 128] floats, wproj [96][72], fc1 [64][136],
+    fc2 [128][72], the tiles [128][104] and [128][72]."""
+    parts = envelope.long_tc_bytes(256, 64, 6, 10)
+    assert parts["qkv"] == 4 * 288 + 2 * (64 * 296 + 128 * 72)
+    assert parts["attention"] == 2 * 3 * 256 * 24
+    assert parts["rows"] == 4 * (2 * 64 * 256 + 2 * 64) + 2 * (2 * 256 * 24 + 2 * 64 * 24)
+    assert parts["sums"] == 2 * 64 * (2 * 72 + 296 + 104)
+    assert envelope.long_tc_tail_bytes(256, 64, 6, 10, 128, True) == (
+        4 * (6 * 64 + 128) + 2 * (96 * 72 + 64 * 136 + 128 * 72 + 128 * (104 + 72)))
+    # the 9x9 window pads to 96 rows; K2/K8's table of 17² = 289 floats pads
+    # to 292, then an int for each of the 96 keys
+    assert envelope.long_tc_attn_bytes(81, 64, 6, 10, 292 + 96) == 4 * 388 + 2 * 3 * 96 * 24
+
+
+def test_tensor_core_long_window_rule_keeps_the_cuda_core_body():
+    """The CUDA-core long-window bodies keep float32, bf16 K3/K4 windows
+    under 32 tokens (window 4 at head_dim 64: the JAX kernel does not round
+    q_n, k_n and P there), widths the fragment arrays do not take (D not a
+    multiple of 8 or past 128, head_dim past 64) and what fits no block;
+    K2/K8 round at every window length and take the tensor-core body at
+    window 4 too."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    tc = "tensor-core long-window"
+    assert envelope.attention_body(16, 64, 1, 64, bf16) == "long-window"
+    assert envelope.attention_long_tc_plan(16, 64, 1, 64) is None
+    assert envelope.nstb_body(16, 64, 1, 64, 128, bf16) == tc
+    assert envelope.attention_body(32, 64, 1, 64, bf16) == tc
+    assert envelope.attention_body(256, 64, 6, 10, f32) == "long-window"
+    assert envelope.nstb_body(256, 64, 6, 10, 128, f32) == "long-window"
+    for N, D, nh, hd in ((256, 60, 6, 10), (256, 136, 4, 32), (256, 64, 1, 80)):
+        assert envelope.attention_long_tc_plan(N, D, nh, hd) is None
+        assert envelope.attention_body(N, D, nh, hd, bf16) == "long-window"
+        assert envelope.nstb_body(N, D, nh, hd, 4 * D, bf16) == "long-window"
+    # a 32x32 window: the rows pass's dbias rows [64][1024] float32 fit no block
+    assert envelope.long_tc_bytes(1024, 32, 2, 16)["rows"] > envelope.H100_SMEM_PER_BLOCK
+    assert envelope.attention_body(1024, 32, 2, 16, bf16) == "long-window"
+    # hidden 2048 at D 128 streams fc1 / fc2; an odd hidden cannot stream
+    assert envelope.nstb_long_tc_plan(256, 128, 4, 32, 2048)[0] is False
+    assert envelope.nstb_long_tc_plan(256, 128, 4, 32, 2047) is None
+
+
+def test_past_the_tensor_core_long_window_bodies_the_limit_is_named():
+    """Where neither long-window body fits a block, the envelope refuses
+    and names the bytes against the card's shared memory; where the
+    tensor-core body has no plan the CUDA-core one's count is what the
+    envelope admits."""
+    assert envelope.attention_long_tc_plan(4096, 64, 1, 64) is None
+    assert envelope.nstb_long_tc_plan(4096, 64, 1, 64, 128) is None
+    assert envelope.attention_body(4096, 64, 1, 64, torch.bfloat16) == "long-window"
+    with pytest.raises(NotImplementedError,
+                       match=r"the long-window body at N=4096, D=64, heads=1x64 needs \d+ bytes "
+                             r"of shared memory, past the card's 232448"):
+        envelope.attention_envelope(4096, 64, 1, 64)
+    assert envelope.attention_envelope(1024, 32, 2, 16)[1::2] == envelope.attention_long_bytes(
+        1024, 32, 2, 16)
 
 
 def test_the_rule_keeps_the_other_bodies_up_to_8x8_and_32_channels():

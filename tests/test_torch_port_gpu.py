@@ -593,14 +593,16 @@ def test_training_kernels_refuse_other_geometries(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("N,D,nh,hd,mask", [
     (256, 64, 6, 10, True), (256, 64, 4, 64, False), (81, 32, 2, 40, True), (64, 64, 2, 40, False),
-    (4, 32, 2, 40, False),
+    (4, 32, 2, 40, False), (81, 64, 6, 10, False), (256, 64, 6, 64, True), (36, 48, 1, 64, True),
 ])
 def test_long_window_attention_bodies_match_plain(cuda, dtype, N, D, nh, hd, mask):
     """K3's and K4's long-window bodies against the rounding-matched plain
     versions: the output and dx at the I/O dtype's tolerance, the parameter
     cotangents at float32's where their products take float32 operands
     (float32, and bf16 windows under 32 tokens), else bf16's; two backward
-    runs bit for bit."""
+    runs bit for bit.  bf16 from 32 tokens up runs the tensor-core ones
+    (head_dim 10, 40 and 64, windows of 81 tokens padded to 96 rows), the
+    rest the CUDA-core ones."""
     from tmar_torch.ops import envelope as env
 
     rng = np.random.default_rng(N + hd)
@@ -610,7 +612,9 @@ def test_long_window_attention_bodies_match_plain(cuda, dtype, N, D, nh, hd, mas
     params = [p.to(cuda) for p in params]
     ws = int(round(N ** 0.5))
     mc = (*shift_mask_components(ws, ws // 2), 2, 4) if mask else None
-    assert env.attention_body(N, D, nh, hd, dtype) == "long-window"
+    tc = dtype == torch.bfloat16 and N >= 32
+    assert env.attention_body(N, D, nh, hd, dtype) == (
+        "tensor-core long-window" if tc else "long-window")
     ops, geo = cuda_attention._kernel_operands(x, *params, nh, mc)
     out, lse = cuda_attention._launch(ops, geo)
     runs = [cuda_attention._launch_backward(ops, lse, g, geo) for _ in range(2)]
@@ -634,8 +638,8 @@ def test_long_window_attention_bodies_match_plain(cuda, dtype, N, D, nh, hd, mas
 ])
 def test_long_window_bodies_launch_with_the_envelopes_shared_memory(cuda, N, D, nh, hd, H):
     """The CUDA sources' count of the long-window bodies' largest blocks
-    equals ``envelope``'s, and their body queries name the long-window
-    bodies at both dtypes."""
+    (CUDA-core and tensor-core) equals ``envelope``'s, and their body
+    queries name the envelope's long-window body at both dtypes."""
     from tmar_torch.ops import envelope as env
 
     attn = env.attention_long_plan(N, D, nh, hd)
@@ -645,11 +649,62 @@ def test_long_window_bodies_launch_with_the_envelopes_shared_memory(cuda, N, D, 
     nstb = env.nstb_long_plan(N, D, nh, hd, H)
     assert env.built_smem("nstb_map", N, D, nh, hd, H, 3) == env.built_smem(
         "nstb_tokens", N, D, nh, hd, H, 3) == (-1 if nstb is None else nstb)
+    tc = env.attention_long_tc_plan(N, D, nh, hd)
+    assert (env.built_smem("attention_long", N, D, nh, hd, 3),
+            env.built_smem("attention_long", N, D, nh, hd, 4)) == (
+        (-1, -1) if tc is None else (tc["fwd"], tc["bwd"]))
+    ntc = env.nstb_long_tc_plan(N, D, nh, hd, H)
+    assert env.built_smem("nstb_map", N, D, nh, hd, H, 4) == env.built_smem(
+        "nstb_tokens", N, D, nh, hd, H, 4) == (-1 if ntc is None else ntc[1])
     for dtype in (torch.float32, torch.bfloat16):
         for lib in ("window_attention_fwd", "window_attention_bwd"):
-            assert env.built_attention_body(lib, N, D, nh, hd, dtype) == "long-window"
+            assert env.built_attention_body(lib, N, D, nh, hd, dtype) == env.attention_body(
+                N, D, nh, hd, dtype)
         for lib in ("nstb_map", "nstb_tokens"):
-            assert env.built_nstb_body(lib, N, D, nh, hd, H, dtype) == "long-window"
+            assert env.built_nstb_body(lib, N, D, nh, hd, H, dtype) == env.nstb_body(
+                N, D, nh, hd, H, dtype)
+        assert env.attention_body(N, D, nh, hd, dtype).endswith("long-window")
+
+
+# K2/K8's tensor-core long-window body (D, heads, head_dim, hidden, window):
+# the window-16 NGswin's stage 1, a 9x9 window (81 tokens padded to 96 rows)
+# with heads of 40, heads of 64 at window 8 and window 4, the streamed tail
+# (D 128, hidden 1024)
+LONG_TC_NSTB = [(64, 6, 10, 128, 16), (64, 2, 40, 128, 9), (64, 6, 64, 128, 8),
+                (32, 1, 64, 64, 4), (128, 4, 32, 1024, 16)]
+
+
+@pytest.mark.parametrize("D,nh,hd,H,ws", LONG_TC_NSTB)
+@pytest.mark.parametrize("shift,Q", [(0, 1), ("half", 4)])
+def test_nstb_tensor_core_long_window_body_matches_plain(cuda, D, nh, hd, H, ws, shift, Q):
+    """At bfloat16 past 64 tokens or 32 channels K2 on the map and K8 on the
+    windows of the rolled map run the tensor-core long-window body, held to
+    the rounding-matched plain version (unmasked Q 1, masked Q 4); the two
+    agree bit for bit and count their launches under that body's name."""
+    from tmar_torch.ops import envelope
+    from tmar_torch.ops.window import cyclic_shift, window_partition, window_unpartition
+
+    name = "tensor-core long-window"
+    assert envelope.nstb_body(ws * ws, D, nh, hd, H, torch.bfloat16) == name
+    shift = ws // 2 if shift == "half" else shift
+    rng = np.random.default_rng(24)
+    B, wh, ww = 2, 2, 3
+    x, cq, params = nstb_inputs(rng, nh, B, wh * ws, ww * ws, Q, D, H, hd, ws)
+    x, cq = x.to(cuda, torch.bfloat16), cq.to(cuda, torch.bfloat16)
+    params = [_to(p, cuda) for p in params]
+    before = (cuda_nstb.fused_nstb_map.launches_by_body[name],
+              cuda_nstb.fused_nstb.launches_by_body[name])
+    zmap = cuda_nstb.fused_nstb_map(x, cq, *params, nh, ws, shift=shift)
+    wins, _ = window_partition(cyclic_shift(x, shift), ws)
+    z = cuda_nstb.fused_nstb(wins.reshape(-1, ws * ws, D).contiguous(), cq, *params, nh, ws,
+                             shift=shift, grid=(wh, ww))
+    torch.cuda.synchronize()
+    assert (cuda_nstb.fused_nstb_map.launches_by_body[name],
+            cuda_nstb.fused_nstb.launches_by_body[name]) == (before[0] + 1, before[1] + 1)
+    ref = cuda_nstb.nstb_map_math(x, cq, *params, num_heads=nh, window_size=ws, shift=shift)
+    err = float((zmap.float() - ref.float()).abs().max())
+    assert err <= _tol(ref.float(), torch.bfloat16), err
+    assert torch.equal(window_unpartition(z.reshape(-1, ws, ws, D), (wh, ww)), zmap)
 
 
 @pytest.mark.parametrize("D,nh,hd,N", [

@@ -61,6 +61,7 @@
 
 #include "common.cuh"
 #include "gelu.cuh"
+#include "long_mma.cuh"
 #include "mma.cuh"
 #include "nstb_generic.cuh"
 
@@ -72,7 +73,7 @@ constexpr int CHUNK = 64;  // hidden columns of a streamed stage
 constexpr int MAX_D = 128;
 
 // The bodies K2 and K8 pick from (envelope.py: NSTB_BODIES, in this order).
-enum Body { FLAGSHIP = 0, TENSOR_CORE = 1, CUDA_CORE = 2, LONG = 3 };
+enum Body { FLAGSHIP = 0, TENSOR_CORE = 1, CUDA_CORE = 2, LONG = 3, LONG_TC = 4 };
 
 __host__ __device__ inline int up(int n, int m) { return (n + m - 1) / m * m; }
 
@@ -150,11 +151,13 @@ inline bool flagship(int ws, int D, int H, int nh, int hd) {
 // geometry its own bodies; bfloat16 this body wherever it has a plan; the
 // rest (float32, the exactness path, and what this body does not take) the
 // CUDA-core body of nstb_generic.cuh; windows past 64 tokens and heads wider
-// than 32 channels, which none of those take, the long-window body
-// (nstb_long.cuh) at either type.
+// than 32 channels, which none of those take, the long-window bodies
+// (nstb_long.cuh): bfloat16 the tensor-core one wherever it has a plan
+// (long_mma.cuh: nstb_plan_bytes), the rest the CUDA-core one.
 inline Body body(int ws, int D, int nh, int hd, int H, int is_bf16) {
   Plan P;
-  if (ws * ws > tmar::ROWS || hd > 32) return LONG;
+  if (ws * ws > tmar::ROWS || hd > 32)
+    return is_bf16 && long_mma::nstb_plan_bytes(ws, D, nh, hd, H) ? LONG_TC : LONG;
   if (flagship(ws, D, H, nh, hd)) return FLAGSHIP;
   return is_bf16 && plan(ws, D, nh, hd, H, &P) ? TENSOR_CORE : CUDA_CORE;
 }
@@ -235,6 +238,130 @@ __device__ __forceinline__ void layer_norm(float (&v)[DT][4], const float* gain,
   }
 }
 
+// The FFN tail's operands in shared memory, shared by this body and the
+// tensor-core long-window body (nstb_long.cuh: nstb_tail_tc): the float32
+// vectors, zero past D (bw1 past H, up to a multiple of CHUNK); fc1 [DP][ld1]
+// and fc2 [rows][ld2] in bf16, all H16 hidden columns resident or CHUNK a
+// stage, streamed from gw1 [D][H] and gw2 [H][D] in global memory.
+struct Tail {
+  const float *bproj, *g1, *b1, *bw1, *bw2, *g2, *b2;
+  __nv_bfloat16 *w1, *w2;
+  int ld1, ld2;
+  const __nv_bfloat16 *gw1, *gw2;
+  int D, DP, H, resident;
+};
+
+// A streamed stage: fc1's columns and fc2's rows [c0, c0 + CHUNK), zeros
+// past H and D, between two block barriers.
+__device__ __forceinline__ void stage_hidden(const Tail& T, int c0, int tid, int nthreads) {
+  const uint4 zero4 = make_uint4(0u, 0u, 0u, 0u);
+  __syncthreads();
+  for (int c = tid; c < T.DP * (CHUNK / 8); c += nthreads) {
+    const int k = c / (CHUNK / 8), col = c0 + 8 * (c % (CHUNK / 8));
+    __nv_bfloat16* dst = T.w1 + k * T.ld1 + col - c0;
+    if (k < T.D && col < T.H)
+      cp_async16(dst, T.gw1 + (size_t)k * T.H + col);
+    else
+      *reinterpret_cast<uint4*>(dst) = zero4;
+  }
+  for (int c = tid; c < CHUNK * (T.DP / 8); c += nthreads) {
+    const int r = c / (T.DP / 8), i = 8 * (c % (T.DP / 8));
+    __nv_bfloat16* dst = T.w2 + r * T.ld2 + i;
+    if (c0 + r < T.H && i < T.D)
+      cp_async16(dst, T.gw2 + (size_t)(c0 + r) * T.D + i);
+    else
+      *reinterpret_cast<uint4*>(dst) = zero4;
+  }
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+}
+
+// The tail on a warp's 16 rows (row0 + g and row0 + g + 8 of xs [.][ldx],
+// the rows' bf16 inputs), from the projection's accumulator pj (bproj not
+// yet added): y = x + LN1(pj + bproj); f = bf16(GELU(bf16(y)·w1 + bw1))·w2 +
+// bw2, 16 hidden columns at a time adding into fc2's accumulator, fc1's
+// columns and fc2's rows staged CHUNK at a time when streamed (block
+// barriers: every thread of the block calls it); pj <- z = y + LN2(f) in
+// float32, the tiles past D 0.
+template <int DM>
+__device__ __forceinline__ void ffn_tail(float (&pj)[DM / 8][4], const __nv_bfloat16* xs, int ldx,
+                                         int row0, const Tail& T, float eps, int tid,
+                                         int nthreads, int lane) {
+  constexpr int DT = DM / 8, DK = DM / 16;
+  const int g = lane >> 2, t = lane & 3, D8 = T.D / 8, dk = T.DP / 16, H16 = up(T.H, 16);
+  const int r0 = row0 + g, r1 = r0 + 8;
+
+  // y = x + LN1(a), a = projection + bproj (tiles past D stay 0)
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    if (j >= D8) break;
+    const int c = 8 * j + 2 * t;
+    pj[j][0] += T.bproj[c], pj[j][1] += T.bproj[c + 1];
+    pj[j][2] += T.bproj[c], pj[j][3] += T.bproj[c + 1];
+  }
+  layer_norm(pj, T.g1, T.b1, eps, t, D8);
+  float (&y)[DT][4] = pj;
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    if (j >= D8) break;
+    const int c = 8 * j + 2 * t;
+    const float2 x0 = unpack_bf16(xs + r0 * ldx + c), x1 = unpack_bf16(xs + r1 * ldx + c);
+    y[j][0] += x0.x, y[j][1] += x0.y, y[j][2] += x1.x, y[j][3] += x1.y;
+  }
+
+  // f = bf16(GELU(bf16(y) · w1 + bw1)) · w2 + bw2
+  uint32_t ya[DK][4];
+#pragma unroll
+  for (int kk = 0; kk < DK; ++kk) to_a(ya[kk], y[2 * kk], y[2 * kk + 1]);
+  float f[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+    const int c = 8 * j + 2 * t;
+    const bool in = j < D8;
+    f[j][0] = f[j][2] = in ? T.bw2[c] : 0.f;
+    f[j][1] = f[j][3] = in ? T.bw2[c + 1] : 0.f;
+  }
+#pragma unroll 1
+  for (int c0 = 0; c0 < H16; c0 += CHUNK) {
+    if (!T.resident) stage_hidden(T, c0, tid, nthreads);
+    const int hcol = T.resident ? c0 : 0;
+#pragma unroll 1
+    for (int sc = 0; sc < CHUNK / 16 && c0 + 16 * sc < H16; ++sc) {
+      float hid[2][4];
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int c = c0 + 16 * sc + 8 * hf + 2 * t;
+        hid[hf][0] = hid[hf][2] = T.bw1[c];
+        hid[hf][1] = hid[hf][3] = T.bw1[c + 1];
+      }
+#pragma unroll
+      for (int kk = 0; kk < DK; ++kk) {
+        if (kk >= dk) break;
+        mma_pair_t(hid[0], hid[1], ya[kk], T.w1, T.ld1, hcol + 16 * sc, 16 * kk, lane);
+      }
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hid[hf][e] = act::gelu(hid[hf][e]);
+      uint32_t ha[4];
+      to_a(ha, hid[0], hid[1]);
+#pragma unroll
+      for (int n2 = 0; n2 < DK; ++n2) {
+        if (n2 >= dk) break;
+        mma_pair_t(f[2 * n2], f[2 * n2 + 1], ha, T.w2, T.ld2, 16 * n2, hcol + 16 * sc, lane);
+      }
+    }
+  }
+
+  // z = y + LN2(f)
+  layer_norm(f, T.g2, T.b2, eps, t, D8);
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) y[j][e] += f[j][e];
+}
+
 template <int DM, int HP, typename Windows>
 __global__ void __launch_bounds__(WARPS * 32, DM <= 64 ? 2 : 1) nstb_generic_mma(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ cq,
@@ -293,9 +420,8 @@ __global__ void __launch_bounds__(WARPS * 32, DM <= 64 ? 2 : 1) nstb_generic_mma
   }
   __syncthreads();
 
-  // streamed stages: head h's q/k/v columns and projection rows; fc1's
-  // columns and fc2's rows [c0, c0 + CHUNK) (zeros past H), each between
-  // two block barriers
+  // a streamed stage: head h's q/k/v columns and projection rows, between
+  // two block barriers (fc1's and fc2's: stage_hidden)
   auto stage_head = [&](int h) {
     __syncthreads();
     const int hc = P.hd / 8;
@@ -311,28 +437,10 @@ __global__ void __launch_bounds__(WARPS * 32, DM <= 64 ? 2 : 1) nstb_generic_mma
     cp_async_wait_all();
     __syncthreads();
   };
-  auto stage_hidden = [&](int c0) {
-    __syncthreads();
-    for (int c = tid; c < P.D * (CHUNK / 8); c += nthreads) {
-      const int k = c / (CHUNK / 8), col = c0 + 8 * (c % (CHUNK / 8));
-      __nv_bfloat16* dst = sw + P.w_1 + k * P.ld_1 + col - c0;
-      if (col < P.H)
-        cp_async16(dst, w1 + (size_t)k * P.H + col);
-      else
-        *reinterpret_cast<uint4*>(dst) = zero4;
-    }
-    for (int c = tid; c < CHUNK * D8; c += nthreads) {
-      const int r = c / D8, i = c % D8;
-      __nv_bfloat16* dst = sw + P.w_2 + r * P.ld_2 + 8 * i;
-      if (c0 + r < P.H)
-        cp_async16(dst, w2 + (size_t)(c0 + r) * P.D + 8 * i);
-      else
-        *reinterpret_cast<uint4*>(dst) = zero4;
-    }
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-  };
+
+  const Tail tail{sf + P.f_bproj, sf + P.f_g1, sf + P.f_b1, sf + P.f_bw1, sf + P.f_bw2,
+                  sf + P.f_g2, sf + P.f_b2, sw + P.w_1, sw + P.w_2, P.ld_1, P.ld_2, w1, w2,
+                  P.D, P.DP, P.H, P.resident};
 
   const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int grp = warp / P.WW, wig = warp % P.WW, gn = 32 * P.WW, gi = tid - grp * gn;
@@ -539,79 +647,15 @@ __global__ void __launch_bounds__(WARPS * 32, DM <= 64 ? 2 : 1) nstb_generic_mma
       }
     }
 
-    // 2. y = x + LN1(a), a = projection + bproj (tiles past D stay 0)
+    // 2. y = x + LN1(a), the FFN, z = y + LN2(f) (ffn_tail); z -> bf16 in the
+    // window's slot (own rows, those < N), then out, 16 bytes a lane
+    ffn_tail<DM>(pj, cur, LDX, 16 * wig, tail, eps, tid, nthreads, lane);
 #pragma unroll
     for (int j = 0; j < DT; ++j) {
       if (j >= D8) break;
       const int c = 8 * j + 2 * t;
-      pj[j][0] += sf[P.f_bproj + c], pj[j][1] += sf[P.f_bproj + c + 1];
-      pj[j][2] += sf[P.f_bproj + c], pj[j][3] += sf[P.f_bproj + c + 1];
-    }
-    layer_norm(pj, sf + P.f_g1, sf + P.f_b1, eps, t, D8);
-    float (&y)[DT][4] = pj;
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      if (j >= D8) break;
-      const int c = 8 * j + 2 * t;
-      const float2 x0 = unpack_bf16(cur + r0 * LDX + c), x1 = unpack_bf16(cur + r1 * LDX + c);
-      y[j][0] += x0.x, y[j][1] += x0.y, y[j][2] += x1.x, y[j][3] += x1.y;
-    }
-
-    // 3. f = bf16(GELU(bf16(y) · w1 + bw1)) · w2 + bw2, 16 hidden columns at a
-    // time, fc1's columns and fc2's rows staged CHUNK at a time when streamed
-    uint32_t ya[DK][4];
-#pragma unroll
-    for (int kk = 0; kk < DK; ++kk) to_a(ya[kk], y[2 * kk], y[2 * kk + 1]);
-    float f[DT][4];
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      const int c = 8 * j + 2 * t;
-      const bool in = j < D8;
-      f[j][0] = f[j][2] = in ? sf[P.f_bw2 + c] : 0.f;
-      f[j][1] = f[j][3] = in ? sf[P.f_bw2 + c + 1] : 0.f;
-    }
-#pragma unroll 1
-    for (int c0 = 0; c0 < P.H16; c0 += CHUNK) {
-      if (!P.resident) stage_hidden(c0);
-      const int hcol = P.resident ? c0 : 0;
-#pragma unroll 1
-      for (int sc = 0; sc < CHUNK / 16 && c0 + 16 * sc < P.H16; ++sc) {
-        float hid[2][4];
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          const int c = c0 + 16 * sc + 8 * hf + 2 * t;
-          hid[hf][0] = hid[hf][2] = sf[P.f_bw1 + c];
-          hid[hf][1] = hid[hf][3] = sf[P.f_bw1 + c + 1];
-        }
-#pragma unroll
-        for (int kk = 0; kk < DK; ++kk) {
-          if (kk >= P.dk) break;
-          mma_pair_t(hid[0], hid[1], ya[kk], sw + P.w_1, P.ld_1, hcol + 16 * sc, 16 * kk, lane);
-        }
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) hid[hf][e] = act::gelu(hid[hf][e]);
-        uint32_t ha[4];
-        to_a(ha, hid[0], hid[1]);
-#pragma unroll
-        for (int n2 = 0; n2 < DK; ++n2) {
-          if (n2 >= P.dk) break;
-          mma_pair_t(f[2 * n2], f[2 * n2 + 1], ha, sw + P.w_2, P.ld_2, 16 * n2, hcol + 16 * sc,
-                     lane);
-        }
-      }
-    }
-
-    // 4. z = y + LN2(f) -> bf16 in the window's slot (own rows, those < N),
-    // then out, 16 bytes a lane
-    layer_norm(f, sf + P.f_g2, sf + P.f_b2, eps, t, D8);
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      if (j >= D8) break;
-      const int c = 8 * j + 2 * t;
-      if (r0 < N) sts32(cur + r0 * LDX + c, pack_bf16(y[j][0] + f[j][0], y[j][1] + f[j][1]));
-      if (r1 < N) sts32(cur + r1 * LDX + c, pack_bf16(y[j][2] + f[j][2], y[j][3] + f[j][3]));
+      if (r0 < N) sts32(cur + r0 * LDX + c, pack_bf16(pj[j][0], pj[j][1]));
+      if (r1 < N) sts32(cur + r1 * LDX + c, pack_bf16(pj[j][2], pj[j][3]));
     }
     __syncwarp();
     if (win < wins.count)

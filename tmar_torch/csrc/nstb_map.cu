@@ -108,6 +108,9 @@ int tmar_nstb_map(const void* x, const void* cq, const void* wqkv,
     return dispatch_nstb(num_heads, head_dim, is_bf16, p, out, wins, Q, shift, eps, s);
   }
   const RolledMapRt wins{B * wh * ww, wh, ww, ws, ph, pw, shift};
+  if (body == nstb_mma::LONG_TC)
+    return nstb_long::launch_tc(p, out, workspace, wins, D, H, num_heads, head_dim, Q, shift, eps,
+                                s);
   if (body == nstb_mma::LONG)
     return nstb_long::launch(p, out, workspace, wins, D, H, num_heads, head_dim, Q, shift, eps,
                              is_bf16, s);
@@ -152,6 +155,11 @@ int tmar_nstb_map_body(int N, int D, int num_heads, int head_dim, int H, int is_
 // largest block of the long-window body's launches; -1 where the tensor-core
 // body has no plan or a long-window launch fits no block.
 long long tmar_nstb_map_smem(int N, int D, int num_heads, int head_dim, int H, int body) {
+  if (body == nstb_mma::LONG_TC) {
+    const int ws = nstb_mma::side(N);
+    const size_t b = ws * ws == N ? long_mma::nstb_plan_bytes(ws, D, num_heads, head_dim, H) : 0;
+    return b ? (long long)b : -1;
+  }
   if (body == nstb_mma::LONG)
     return nstb_long::fits(N, D, num_heads, head_dim, H)
                ? (long long)nstb_long::plan_bytes(N, D, num_heads, head_dim, H)
@@ -165,9 +173,9 @@ long long tmar_nstb_map_smem(int N, int D, int num_heads, int head_dim, int H, i
 long long tmar_nstb_map_workspace(int nwin, int N, int D, int num_heads, int head_dim, int H,
                                      int is_bf16) {
   if (nwin < 1 || N < 1) return -1;
-  return nstb_mma::body(nstb_mma::side(N), D, num_heads, head_dim, H, is_bf16) == nstb_mma::LONG
-             ? nstb_long::workspace(nwin, N, num_heads, head_dim)
-             : 0;
+  const nstb_mma::Body b = nstb_mma::body(nstb_mma::side(N), D, num_heads, head_dim, H, is_bf16);
+  if (b == nstb_mma::LONG_TC) return long_mma::fwd_workspace(nwin, N, num_heads, head_dim);
+  return b == nstb_mma::LONG ? nstb_long::workspace(nwin, N, num_heads, head_dim) : 0;
 }
 
 const char* tmar_nstb_map_error(int err) {

@@ -2560,6 +2560,7 @@ long long tmar_window_attention_bwd_workspace(int nwin, int N, int D, int num_he
                                               int head_dim, int blocks, int is_bf16) {
   if (nwin < 1 || blocks < 1 || N < 1 || D < 1 || num_heads < 1 || head_dim < 1) return -1;
   const attn_mma::Body body = attn_mma::body(N, D, num_heads, head_dim, is_bf16);
+  if (body == attn_mma::LONG_TC) return long_mma::bwd_workspace(nwin, N, D, num_heads, head_dim);
   if (body == attn_mma::LONG) return attn_long::bwd_workspace(nwin, N, D, num_heads, head_dim);
   if (body == attn_mma::FLAGSHIP)
     return num_heads == 6 ? (long long)BwdPlan<6, 10>(nwin, blocks).total
@@ -2605,6 +2606,9 @@ int tmar_window_attention_bwd(const void* x, const void* g, const void* wqkv,
     return (int)cudaErrorInvalidValue;
   const void* p[10] = {x, g, wqkv, bqkv, scale, bias, wproj, mrow, mcol, lse};
   cudaStream_t s = (cudaStream_t)stream;
+  if (body == attn_mma::LONG_TC)
+    return long_mma::bwd(p, wq_k, wq_n, wp_k, wp_n, dx, (float*)workspace, (float*)dparams, nwin,
+                         N, D, num_heads, head_dim, wh, ww, s);
   if (body == attn_mma::LONG)
     return is_bf16 ? attn_long::bwd<__nv_bfloat16>(p, wq_k, wq_n, wp_k, wp_n, dx,
                                                    (float*)workspace, (float*)dparams, nwin, N, D,

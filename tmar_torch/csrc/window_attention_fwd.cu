@@ -1093,6 +1093,9 @@ int tmar_window_attention_fwd(const void* x, const void* wqkv, const void* bqkv,
     return (int)cudaErrorInvalidValue;
   const void* p[9] = {x, wqkv, bqkv, scale, bias, wproj, bproj, mrow, mcol};
   cudaStream_t s = (cudaStream_t)stream;
+  if (body == attn_mma::LONG_TC)
+    return long_mma::fwd(p, wq_k, wq_n, wp_k, wp_n, out, lse, (float*)workspace, nwin, N, D,
+                         num_heads, head_dim, wh, ww, s);
   if (body == attn_mma::LONG)
     return is_bf16 ? attn_long::fwd<__nv_bfloat16>(p, wq_k, wq_n, wp_k, wp_n, out, lse,
                                                    (float*)workspace, nwin, N, D, num_heads,
@@ -1135,16 +1138,21 @@ int tmar_window_attention_fwd(const void* x, const void* wqkv, const void* bqkv,
 long long tmar_window_attention_fwd_workspace(int nwin, int N, int D, int num_heads, int head_dim,
                                               int is_bf16) {
   if (nwin < 1 || N < 1 || D < 1 || num_heads < 1 || head_dim < 1) return -1;
-  return attn_mma::body(N, D, num_heads, head_dim, is_bf16) == attn_mma::LONG
-             ? attn_long::fwd_workspace(nwin, N, num_heads, head_dim)
-             : 0;
+  const attn_mma::Body b = attn_mma::body(N, D, num_heads, head_dim, is_bf16);
+  if (b == attn_mma::LONG_TC) return long_mma::fwd_workspace(nwin, N, num_heads, head_dim);
+  return b == attn_mma::LONG ? attn_long::fwd_workspace(nwin, N, num_heads, head_dim) : 0;
 }
 
 // The shared memory, in bytes, of the largest block of the long-window
-// bodies' launches for windows of N tokens: K3's (which 1) or K4's (2); -1
-// where a launch fits no block.
+// bodies' launches for windows of N tokens: the CUDA-core body's K3 (which
+// 1) or K4 (2), the tensor-core body's K3 (3) or K4 (4); -1 where a launch
+// fits no block (or the tensor-core body takes no plan).
 long long tmar_window_attention_fwd_long_smem(int N, int D, int num_heads, int head_dim,
                                               int which) {
+  if (which >= 3) {
+    const size_t b = long_mma::attn_plan_bytes(N, D, num_heads, head_dim, which == 4);
+    return b ? (long long)b : -1;
+  }
   if (!attn_long::fits(N, D, num_heads, head_dim)) return -1;
   return (long long)attn_long::plan_bytes(N, D, num_heads, head_dim, which == 2);
 }

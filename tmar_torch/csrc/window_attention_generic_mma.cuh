@@ -31,6 +31,7 @@
 
 #include <stdint.h>
 
+#include "long_mma.cuh"
 #include "window_attention_geometries.cuh"
 #include "window_attention_mma.cuh"
 
@@ -43,7 +44,15 @@ constexpr int MAX_D = 128;    // the widest D their fragment arrays take
 constexpr int SUMS_TILES = 4;  // 16x16 cotangent tiles a token-sum warp holds
 
 // The bodies of K3 and K4 (envelope.py: ATTENTION_BODIES, in this order).
-enum Body { FLAGSHIP = 0, TEMPLATED = 1, TENSOR_CORE = 2, CUDA_CORE = 3, SHORT = 4, LONG = 5 };
+enum Body {
+  FLAGSHIP = 0,
+  TEMPLATED = 1,
+  TENSOR_CORE = 2,
+  CUDA_CORE = 3,
+  SHORT = 4,
+  LONG = 5,
+  LONG_TC = 6
+};
 
 __host__ __device__ inline int up(int n, int m) { return (n + m - 1) / m * m; }
 
@@ -337,7 +346,8 @@ inline bool short_plan(int N, int D, int nh, int hd, ShortFwd* f, ShortBwd* b) {
 // than 32 channels, which none of those take, the long-window bodies
 // (window_attention_long.cuh) at either type.
 inline Body body(int N, int D, int nh, int hd, int is_bf16) {
-  if (N > tmar::ROWS || hd > 32) return LONG;
+  if (N > tmar::ROWS || hd > 32)
+    return is_bf16 && long_mma::attn_plan_bytes(N, D, nh, hd, true) ? LONG_TC : LONG;
   if (is_bf16 && N == 64 && D == 64 && ((nh == 6 && hd == 10) || (nh == 4 && hd == 16)))
     return FLAGSHIP;
 #define TMAR_TEMPLATED(NN, DD, NH, HD) \

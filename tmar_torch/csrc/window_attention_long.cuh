@@ -35,7 +35,12 @@
 //               then dx, the token sums of dwqkv, dbqkv, dwproj and dbproj
 //               per block of tokens, and one reduce in a fixed order.
 // No atomics: two runs give the same bits.  Everything runs on the CUDA cores
-// in float32 (a simple, exact body first; speed is later work).
+// in float32: the exactness path.  It runs float32 and bf16 windows under 32
+// tokens (where the JAX kernel keeps q_n, k_n and P float32); at bf16 from 32
+// tokens up the tensor-core long-window bodies of long_mma.cuh run instead
+// (attn_mma::body).  What bounds this body on an H100: its own float32
+// arithmetic on the CUDA cores (~430x the operations bound at the window-16
+// step's stage 1, PERF.md §6), not bytes.
 //
 // Rounding (T = bfloat16; at float32 every rounding is the identity), as
 // tmar_torch/ops/cuda_attention.py:window_attention_kernel_math and

@@ -25,9 +25,11 @@ of 1 to 31 tokens the short-window tensor-core bodies wherever
 ``envelope.attention_short_plan`` has a plan; bfloat16 windows of 32 to 64
 tokens the tensor-core generic bodies wherever
 ``envelope.attention_mma_plan`` has a plan; windows of more than 64 tokens
-and heads wider than 32 channels the long-window bodies at either dtype
-(``csrc/window_attention_long.cuh``, over a workspace the wrapper
-allocates; ``envelope.attention_long_plan``); every other case the
+and heads wider than 32 channels the long-window bodies, over a workspace
+the wrapper allocates: at bfloat16 from 32 tokens up the tensor-core ones
+(``csrc/long_mma.cuh``; ``envelope.attention_long_tc_plan``), else the
+CUDA-core ones (``csrc/window_attention_long.cuh``;
+``envelope.attention_long_plan``); every other case the
 CUDA-core generic bodies, which take N, D, the heads and head_dim at run
 time within ``envelope.attention_envelope``.  At bfloat16 all round to
 bf16 where the JAX kernels do: on windows of 32 tokens or more as
@@ -332,8 +334,9 @@ class _Geometry:
             # the full-width NGswin's own bodies: at most one block per SM
             self.hg_fwd = self.hg_bwd = self.nh
             self.blocks_fwd = self.blocks_bwd = min(-(-B_ // (envelope.ROWS // self.N)), sms)
-        elif self.body == envelope.ATTENTION_BODIES.index("long-window"):
-            # checks that every launch fits a block; the grids follow the windows
+        elif envelope.long_window(self.N, self.hd):
+            # either long-window body: checks that every launch fits a
+            # block; the grids follow the windows
             self.hg_fwd, _, self.hg_bwd, _ = envelope.attention_envelope(
                 self.N, self.D, self.nh, self.hd, x.device)
             self.blocks_fwd = self.blocks_bwd = 1

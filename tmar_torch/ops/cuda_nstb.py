@@ -31,8 +31,11 @@ float32; every other geometry inside ``envelope.nstb_envelope`` runs a
 generic body, at bfloat16 the tensor-core one (``csrc/nstb_generic_mma.cuh``)
 wherever it has a plan, else the CUDA-core one (``csrc/nstb_generic.cuh``);
 windows of more than 64 tokens (HAT's 16x16) and heads wider than 32
-channels run the long-window body at either dtype (``csrc/nstb_long.cuh``,
-over a workspace the wrapper allocates).  A geometry past the envelope
+channels run the long-window bodies, over a workspace the wrapper
+allocates: at bfloat16 the tensor-core one wherever
+``envelope.nstb_long_tc_plan`` has a plan (``csrc/nstb_long.cuh:
+launch_tc`` over ``csrc/long_mma.cuh``), else the CUDA-core one
+(``csrc/nstb_long.cuh: launch``).  A geometry past the envelope
 raises ``NotImplementedError`` naming the limit; a build or launch failure
 raises, and nothing gives way to another
 body or to the plain version.
@@ -426,7 +429,7 @@ _ARGTYPES = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 12 + [ctypes.c_float, ctyp
 def _workspace(lib, nwin, ints, device):
     """The float32 workspace of K2 (``lib`` "nstb_map") or K8 ("nstb_tokens")
     for ``nwin`` windows at the entry point's integer arguments ``ints``, as
-    the library sizes it (``tmar_*_workspace``: the long-window body's qkv
+    the library sizes it (``tmar_*_workspace``: the long-window bodies' qkv
     and head outputs), or None where the body needs none."""
     D, H, ws, nh, hd, is_bf16 = ints[3], ints[4], ints[5], ints[8], ints[9], ints[10]
     if not envelope.long_window(ws * ws, hd):

@@ -235,7 +235,7 @@ ATTENTION_KERNEL_GEOMETRIES = ATTENTION_MMA_GEOMETRIES | {
 # the bodies of K3 and K4, in the order of the CUDA sources' codes
 # (attn_mma::Body in csrc/window_attention_generic_mma.cuh)
 ATTENTION_BODIES = ("flagship", "templated", "tensor-core generic", "CUDA-core generic",
-                    "tensor-core short-window", "long-window")
+                    "tensor-core short-window", "long-window", "tensor-core long-window")
 ATTN_MMA_WARPS = 8      # warps of a tensor-core generic block
 ATTN_MMA_MIN_N = 32     # the shortest window it takes (JAX rounds q_n, k_n, P from 32 up)
 
@@ -468,6 +468,123 @@ def long_window(N: int, hd: int) -> bool:
     return N > ROWS or hd > HEAD_DIM_MAX
 
 
+# the tensor-core long-window bodies (csrc/long_mma.cuh: long_mma): the
+# widest head and D their fragment arrays take, the shortest K3/K4 window
+# (the JAX kernel rounds q_n, k_n and P from 32 tokens up), the rows of a
+# row-tile block (heads_gemm, proj_gemm, the NSTB tail), of K4's rows-pass
+# and columns-pass blocks, a proj_gemm stage's inner width, a token-sum
+# step's rows, a streamed tail stage's hidden columns
+LONG_TC_MAX_HD, LONG_TC_MAX_D, LONG_TC_MIN_N = 64, 128, 32
+LONG_TC_GR, LONG_TC_AR, LONG_TC_CR = 128, 64, 64
+LONG_TC_KC, LONG_TC_SR, LONG_TC_CHUNK = 64, 64, 64
+
+
+def _long_tc_geometry(N, D, nh, hd):
+    """(HP, AP, NP, DP, LDK) of ``long_mma::geom``: head_dim padded to 16,
+    the heads' columns, the window's rows padded to 16, D padded to 16, a
+    staged head row with its 8 padding columns."""
+    HP = _up(hd, 16)
+    return HP, nh * HP, _up(N, 16), _up(D, 16), HP + 8
+
+
+def _long_tc_widths(D: int, nh: int, hd: int) -> bool:
+    return 8 <= D <= LONG_TC_MAX_D and D % 8 == 0 and 1 <= hd <= LONG_TC_MAX_HD and nh >= 1
+
+
+def long_tc_gemm_bytes(N: int, D: int, nh: int, hd: int, parts: int) -> int:
+    """``heads_gemm`` with ``parts`` groups of heads (3 the qkv product, 1
+    K4's dacc): float32 biases; the bf16 matrix [DP][cols + 8], every head's
+    columns where that fits a block (resident), else one head's; the row
+    tile [128][DP + 8] (``long_mma::gemm_plan_bytes``)."""
+    HP, AP, _, DP, _ = _long_tc_geometry(N, D, nh, hd)
+
+    def size(cols):
+        return 4 * _up(parts * AP, 4) + 2 * (DP * (cols + 8) + LONG_TC_GR * (DP + 8))
+
+    resident = size(parts * AP)
+    return resident if resident <= H100_SMEM_PER_BLOCK else size(parts * HP)
+
+
+def long_tc_attn_bytes(N: int, D: int, nh: int, hd: int, table: int = 0) -> int:
+    """``attn_fwd_tc``: the bias's floats (K2/K8: the table (2ws - 1)²
+    padded to 4, then an int a key [NP]; K3: 0), q_n, k_n and v of one
+    (window, head) [NP][LDK] bf16."""
+    _, _, NP, _, LDK = _long_tc_geometry(N, D, nh, hd)
+    return 4 * _up(table, 4) + 2 * 3 * NP * LDK
+
+
+def long_tc_bytes(N: int, D: int, nh: int, hd: int) -> dict:
+    """Every launch of K3's and K4's tensor-core long-window bodies, in
+    bytes of shared memory (``long_mma``'s counts): the qkv product, the
+    attention, the projection (and dx), K4's dacc product, rows pass (its
+    rows of the bias [64][N] float32 where they fit, its rows' dbias
+    [64][N], the key halves' delta [2][64], k_n and v [NP][LDK], q_n and
+    dacc [64][LDK]), columns pass (lse and delta, q_n and dacc [NP][LDK], k_n and
+    v [64][LDK]) and token sums (64 rows of x, g, dqkv and o)."""
+    _, AP, NP, DP, LDK = _long_tc_geometry(N, D, nh, hd)
+    AR = LONG_TC_AR
+
+    def rows(staged):
+        return 4 * (AR * N * (2 if staged else 1) + 2 * AR) + 2 * (2 * NP * LDK + 2 * AR * LDK)
+
+    return {
+        "qkv": long_tc_gemm_bytes(N, D, nh, hd, 3),
+        "attention": long_tc_attn_bytes(N, D, nh, hd),
+        "projection": 2 * (LONG_TC_GR * (LONG_TC_KC + 8) + LONG_TC_KC * (DP + 8)),
+        "dacc": long_tc_gemm_bytes(N, D, nh, hd, 1),
+        "rows": rows(True) if rows(True) <= H100_SMEM_PER_BLOCK else rows(False),
+        "cols": 4 * 2 * NP + 2 * (2 * NP * LDK + 2 * LONG_TC_CR * LDK),
+        "sums": 2 * LONG_TC_SR * (2 * (DP + 8) + (3 * AP + 8) + (AP + 8)),
+    }
+
+
+def attention_long_tc_plan(N: int, D: int, nh: int, hd: int) -> Optional[dict]:
+    """The tensor-core long-window bodies' plan (``long_mma::attn_plan_bytes``):
+    {"fwd": K3's largest block, "bwd": K4's} in bytes, or None where they
+    take none: a window under 32 tokens, D not a multiple of 8 or past 128,
+    head_dim past 64, a launch past the card's shared memory (K3's plan
+    needs K4's: one rule picks both kernels' body)."""
+    if N < LONG_TC_MIN_N or not _long_tc_widths(D, nh, hd):
+        return None
+    b = long_tc_bytes(N, D, nh, hd)
+    fwd = max(b["qkv"], b["attention"], b["projection"])
+    bwd = max(b.values())
+    return {"fwd": fwd, "bwd": bwd} if bwd <= H100_SMEM_PER_BLOCK else None
+
+
+def long_tc_tail_bytes(N: int, D: int, nh: int, hd: int, H: int, resident: bool) -> int:
+    """K2's and K8's tail (``nstb_long.cuh: nstb_tail_tc``): float32 biases
+    and gains [6][DP] and bw1 [H padded to 64]; bf16 wproj [AP][DP + 8],
+    fc1 [DP][HC + 8] and fc2 [HC][DP + 8] (HC: every hidden column padded to
+    16 resident, 64 a streamed stage); per 128-row tile the head outputs
+    [128][AP + 8] and x [128][DP + 8]."""
+    _, AP, _, DP, _ = _long_tc_geometry(N, D, nh, hd)
+    HC = _up(H, 16) if resident else LONG_TC_CHUNK
+    return (4 * _up(6 * DP + _up(H, LONG_TC_CHUNK), 4)
+            + 2 * (AP * (DP + 8) + DP * (HC + 8) + HC * (DP + 8)
+                   + LONG_TC_GR * ((AP + 8) + (DP + 8))))
+
+
+def nstb_long_tc_plan(N: int, D: int, nh: int, hd: int, H: int) -> Optional[Tuple[bool, int]]:
+    """-> (the tail's fc1 / fc2 resident, the largest block in bytes) of
+    K2's and K8's tensor-core long-window body (``long_mma::nstb_plan_bytes``:
+    the qkv product, the attention with the table [(2ws - 1)²] in shared
+    memory with each key's offset and bands, the tail resident or
+    streamed by 64 hidden columns, H a
+    multiple of 8), or None where it takes none (D not a multiple of 8 or
+    past 128, head_dim past 64, a launch past the card's shared memory)."""
+    ws = round(N ** 0.5)
+    if ws * ws != N or H < 1 or not _long_tc_widths(D, nh, hd):
+        return None
+    resident = long_tc_tail_bytes(N, D, nh, hd, H, True) <= H100_SMEM_PER_BLOCK
+    if not resident and (H % 8 or long_tc_tail_bytes(N, D, nh, hd, H, False) > H100_SMEM_PER_BLOCK):
+        return None
+    nbytes = max(long_tc_gemm_bytes(N, D, nh, hd, 3),
+                 long_tc_attn_bytes(N, D, nh, hd, _up((2 * ws - 1) ** 2, 4) + _up(N, 16)),
+                 long_tc_tail_bytes(N, D, nh, hd, H, resident))
+    return (resident, nbytes) if nbytes <= H100_SMEM_PER_BLOCK else None
+
+
 @functools.lru_cache(maxsize=None)
 def attention_body(N: int, D: int, nh: int, hd: int, dtype: torch.dtype) -> str:
     """The body of K3 and K4 that runs windows of N tokens at width D, nh
@@ -484,10 +601,13 @@ def attention_body(N: int, D: int, nh: int, hd: int, dtype: torch.dtype) -> str:
     (``attention_mma_plan``); the rest (float32, the exactness path, and
     bfloat16 widths without a plan) the CUDA-core generic bodies.  Windows
     of more than 64 tokens or heads wider than 32 channels the long-window
-    bodies at either dtype (``long_window``)."""
+    bodies (``long_window``): at bfloat16 from 32 tokens up the tensor-core
+    ones wherever they have a plan (``attention_long_tc_plan``), the rest
+    (float32, bf16 windows under 32 tokens, where the JAX kernel keeps q_n,
+    k_n and P float32) the CUDA-core ones."""
     bf16 = dtype == torch.bfloat16
     if long_window(N, hd):
-        return ATTENTION_BODIES[5]
+        return ATTENTION_BODIES[6 if bf16 and attention_long_tc_plan(N, D, nh, hd) else 5]
     if bf16 and (N, D, nh, hd) in ATTENTION_MMA_GEOMETRIES:
         return ATTENTION_BODIES[0]
     if (N, D, nh, hd) in ATTENTION_KERNEL_GEOMETRIES:
@@ -731,7 +851,8 @@ def nstb_long_plan(N: int, D: int, nh: int, hd: int, H: int) -> Optional[int]:
 
 
 # the bodies of K2/K8, in the order of the CUDA sources' codes (nstb_mma::Body)
-NSTB_BODIES = ("flagship", "tensor-core generic", "CUDA-core generic", "long-window")
+NSTB_BODIES = ("flagship", "tensor-core generic", "CUDA-core generic", "long-window",
+               "tensor-core long-window")
 # the full-width NGswin's geometry, which K2/K8's own bodies take: (N, D,
 # hidden), then its 6-head (A = 60) and 4-head (A = 64) (heads, head_dim)
 NSTB_FLAGSHIP = (64, 64, 128, (6, 10), (4, 16))
@@ -796,9 +917,12 @@ def nstb_body(N: int, D: int, nh: int, hd: int, H: int, dtype: torch.dtype) -> s
     body wherever it has a plan (``nstb_mma_plan``); the rest (float32, the
     exactness path, and the bf16 geometries that body does not take) the
     CUDA-core generic body.  Windows past 64 tokens and heads wider than 32
-    channels the long-window body at either dtype (``long_window``)."""
+    channels (``long_window``) the long-window bodies: bfloat16 the
+    tensor-core one wherever it has a plan (``nstb_long_tc_plan``), the rest
+    the CUDA-core one."""
     if long_window(N, hd):
-        return NSTB_BODIES[3]
+        bf16 = dtype == torch.bfloat16
+        return NSTB_BODIES[4 if bf16 and nstb_long_tc_plan(N, D, nh, hd, H) else 3]
     if (N, D, H) == NSTB_FLAGSHIP[:3] and (nh, hd) in NSTB_FLAGSHIP[3:]:
         return NSTB_BODIES[0]
     if dtype == torch.bfloat16 and nstb_mma_plan(N, D, nh, hd, H) is not None:
@@ -821,9 +945,11 @@ def nstb_body(N: int, D: int, nh: int, hd: int, H: int, dtype: torch.dtype) -> s
 # ngram_mma_fwd_bytes for K1's (-1 without a plan), for each
 # of K2 and K8 (N, D, heads, head_dim, hidden) with the generic body's code
 # last (1: nstb_mma_bytes of its plan, -1 without one; 2: nstb_bytes; 3:
-# nstb_long_plan's bytes, -1 without a plan), and (N, D, heads, head_dim)
-# with K3 (1) or K4 (2) last for the long-window bodies (attention_long_plan's
-# entries, -1 without a plan)
+# nstb_long_plan's bytes, -1 without a plan; 4: nstb_long_tc_plan's bytes,
+# -1 without one), and (N, D, heads, head_dim) with K3 (1) or K4 (2) last
+# for the CUDA-core long-window bodies (attention_long_plan's entries, -1
+# without a plan), K3 (3) or K4 (4) for the tensor-core ones
+# (attention_long_tc_plan's)
 SMEM_QUERIES = {
     "ffn_fwd": ("residual_ffn_fwd", "tmar_residual_ffn_fwd_smem", 2),
     "ffn_bwd": ("residual_ffn_bwd", "tmar_residual_ffn_bwd_smem", 3),
