@@ -230,6 +230,24 @@ Phases, each of which fails the run if it fails:
    whole-kernel rows keep ``library_ms`` null) beside the attention kernel
    and its bound; and the timed window-16 stage-1 shapes (K4's rows pass
    over groups of 22 windows) held against the plain versions.
+26. widths past the envelope, up to D = 512: the sources' body rule and
+   shared memory at the new widths equal to the envelope's; K5/K6 at
+   (256, 1024), (512, 2048) and (180, 720) on rows sized by width and at
+   (64, 65536) on hidden chunks, K3/K4
+   at 512 windows of 64 tokens with D 256 (8 x 32) and D 384 (12 x 32) and
+   K2 / K8 on x [2, 128², 256] (8 x 32, hidden 1024) and [1, 64², 512]
+   (16 x 32, hidden 2048) on the long-window bodies, K1/K7 at C 128 with
+   8 x 16 and 2 x 64 heads on cells sized by width, each against its plain
+   version at bf16 and f32 (BF16_TOL, NSTB_BF16_TOL for K2/K8, F32_TOL),
+   every backward twice and bit for bit, timed beside its plain version
+   and bound; the wide NGswin (``WIDE``: D 256, heads 8 / 2 / 8 + 8,
+   mlp_ratio 4, the flagship's depths, random weights from a seed) served
+   at 2x256² bf16 in the map, token and unfused forms (20 launches of each
+   kernel on the body ``WIDE_BODY`` names, finite, in [-1, 1]) and at
+   1x128² f32 against the port's CPU run, three ``full`` steps at 4x128²
+   bf16 through the ``Trainer`` (20 launches a step of K1, K7, K3-K6),
+   one profiled, and one f32 step at 1x64² against the CPU.  The
+   ``kernels`` line gains the ``*_wide`` rows.
 
 It prints a ``kernels`` JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``.  It needs one CUDA card, exits non-zero
@@ -830,7 +848,7 @@ def ngram_bwd_work(B, wh, ww, nh, itemsize, C=32, D=64, hd=None):
     return cells * (forward + backward), cells * (2 * C + D) * itemsize + 2 * params
 
 
-def ffn_launch_ms(x, ao, params, g, eps=1e-5, iters=20):
+def ffn_launch_ms(x, ao, params, g, eps=1e-5, iters=20, warmup=3):
     """(K5, K6 or None without g) in ms on operands laid out once, the
     launches alone (the C entry points and their allocations), as K3 and K4
     are timed; the counters are put back."""
@@ -839,8 +857,9 @@ def ffn_launch_ms(x, ao, params, g, eps=1e-5, iters=20):
     f = cf.fused_residual_ffn
     before = (f.launches, f.backward_launches)
     ops, tail = cf._kernel_operands(x, ao, *params, eps)
-    fwd = cuda_ms(lambda: cf._launch(ops, tail), iters=iters)
-    bwd = None if g is None else cuda_ms(lambda: cf._launch_backward(ops, g, tail), iters=iters)
+    fwd = cuda_ms(lambda: cf._launch(ops, tail), iters=iters, warmup=warmup)
+    bwd = None if g is None else cuda_ms(lambda: cf._launch_backward(ops, g, tail), iters=iters,
+                                         warmup=warmup)
     f.launches, f.backward_launches = before
     return fwd, bwd
 
@@ -1449,8 +1468,11 @@ WIDTH_NSTB_CASES = (
     ("envelope top", 2, 16, 16, 128, 4, 32, 512, 8),
     ("demo ragged 13x13", 3, 13, 13, 32, 2, 16, 64, 8),
 )
-# past the envelope: D 152 at hidden 4·D overflows the card's shared memory
-NSTB_PAST_ENVELOPE = (152, 4, 32, 608)
+# past the envelope: (D, heads, head_dim, hidden, window) whose long-window
+# attention block, a 64x64 window's scores, overflows the card's shared
+# memory (D 152 at hidden 4·D, refused until the long-window bodies took
+# what the generic tile does not fit, now runs)
+NSTB_PAST_ENVELOPE = (64, 2, 32, 128, 64)
 
 
 def smem_count_failures():
@@ -1489,7 +1511,8 @@ def smem_count_failures():
                 bad.append(("attention body", str(dtype), N, D, nh, hd))
     for _, _, D, H in WIDTH_FFN_CASES + (("flagship", 0, 64, 128),):
         fwd, rows, bwd = env.ffn_envelope(D, H)
-        if (built("ffn_fwd", D, H), built("ffn_bwd", D, H, rows)) != (fwd, bwd):
+        rows5, hc5, _, hc6 = env.ffn_tiles(D, H)
+        if (built("ffn_fwd", D, hc5, rows5), built("ffn_bwd", D, hc6, rows)) != (fwd, bwd):
             bad.append(("ffn", D, H))
         mma = env.ffn_mma_plan(D, H)
         if built("ffn_bwd_mma", D, H) != (-1 if mma is None else mma[-1]):
@@ -1796,21 +1819,21 @@ def check_width_nstb(dev, card):
         torch.cuda.empty_cache()
     cuda_nstb.fused_nstb_map.launches, cuda_nstb.fused_nstb.launches = counters
 
-    D, nh, hd, H = NSTB_PAST_ENVELOPE
+    D, nh, hd, H, ws = NSTB_PAST_ENVELOPE
     A = nh * hd
-    past = [torch.zeros(s, device=dev) for s in ((D, 3 * A), (3 * A,), (nh, 1, 1), (225, nh),
-                                                  (A, D), (D,))]
+    past = [torch.zeros(s, device=dev) for s in ((D, 3 * A), (3 * A,), (nh, 1, 1),
+                                                  ((2 * ws - 1) ** 2, nh), (A, D), (D,))]
     pair = lambda a, b: (torch.zeros(a, device=dev), torch.zeros(b, device=dev))  # noqa: E731
     try:
-        cuda_nstb.fused_nstb_map(torch.zeros(1, 8, 8, D, device=dev), torch.zeros(1, 1, D, device=dev),
-                                 *past, pair(D, D), pair((D, H), H), pair((H, D), D), pair(D, D),
-                                 nh, 8)
+        cuda_nstb.fused_nstb_map(torch.zeros(1, ws, ws, D, device=dev),
+                                 torch.zeros(1, 1, D, device=dev), *past, pair(D, D),
+                                 pair((D, H), H), pair((H, D), D), pair(D, D), nh, ws)
         refused = ""
     except NotImplementedError as e:
         refused = str(e)
     ok = "bytes of shared memory" in refused and "K2/K8" in refused
-    print(f"[check] past the envelope (D {D}, {nh} x {hd} heads, hidden {H}) K2 refuses naming the "
-          f"bytes: {refused[:160]!r}: {'ok' if ok else 'FAIL'}")
+    print(f"[check] past the envelope (window {ws}, D {D}, {nh} x {hd} heads, hidden {H}) K2 "
+          f"refuses naming the bytes: {refused[:160]!r}: {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append("K2 past the envelope")
     if failures:
@@ -5315,6 +5338,552 @@ def long_windows(dev, card):
     return rows
 
 
+# ---- phase 26: every width the JAX NGswin takes, up to D = 512 --------------
+
+# the wide NGswin: the flagship's depths and window at Swin-B's stage-2
+# widths (torchvision's swin_b: D 256, 8 heads of 32, mlp_ratio 4) at stages
+# 1 and 3 and in the decoder; stage 2 at 2 heads, so that its attention heads
+# are 128 channels and its n-gram heads 64
+WIDE = {"embed_dim": 256, "dec_dim": 256, "depths": (6, 4, 4), "dec_depths": 6,
+        "num_heads": (8, 2, 8), "dec_num_heads": 8, "mlp_ratio": 4.0, "window_size": 8}
+WIDE_OVERRIDES = {"model.embed_dim": 256, "model.dec_dim": 256, "model.depths": [6, 4, 4],
+                  "model.dec_depths": 6, "model.num_heads": [8, 2, 8], "model.dec_num_heads": 8,
+                  "model.mlp_ratio": 4.0}
+WIDE_BLOCKS = 20  # NSTBs of the wide NGswin: 6 + 4 + 4 encoder, 6 decoder
+# (label, M, D, hidden) of K5/K6: Swin-B's stages 2 and 3, SwinIR's and HAT's
+# width, and a hidden width one row of which fits no block (K5 in 2 chunks,
+# K6 in 4)
+WIDE_FFN_CASES = (("Swin-B stage 2", 16384, 256, 1024), ("Swin-B stage 3", 16384, 512, 2048),
+                  ("SwinIR D 180", 16384, 180, 720), ("hidden chunks", 128, 64, 65536))
+# (label, windows, N, D, heads, head_dim) of K3/K4
+WIDE_ATTN_CASES = (("D 256 8x32", 512, 64, 256, 8, 32), ("D 384 12x32", 512, 64, 384, 12, 32))
+# (label, B, wh, ww, C, D, heads, head_dim) of K1/K7: the wide NGswin's
+# stage 1 and stage 2 n-gram geometries on a 2x256² request's window grid
+WIDE_NGRAM_CASES = (("C 128 8x16", 2, 32, 32, 128, 256, 8, 16),
+                    ("C 128 2x64", 2, 32, 32, 128, 256, 2, 64))
+# (label, B, map height and width, D, heads, head_dim, hidden) of K2/K8 at window 8
+WIDE_NSTB_CASES = (("D 256 8x32", 2, 128, 256, 8, 32, 1024),
+                   ("D 512 16x32", 1, 64, 512, 16, 32, 2048))
+
+
+def wide_smem_failures():
+    """The body rule and the shared-memory counts of the sources at phase
+    26's widths against ``envelope``'s: -> the geometries where they
+    differ."""
+    import torch
+
+    from tmar_torch.ops import envelope as env
+
+    built, bad = env.built_smem, []
+    for _, _, D, H in WIDE_FFN_CASES:
+        fwd, rows, bwd = env.ffn_envelope(D, H)
+        rows5, hc5, _, hc6 = env.ffn_tiles(D, H)
+        if (built("ffn_fwd", D, hc5, rows5), built("ffn_bwd", D, hc6, rows)) != (fwd, bwd):
+            bad.append(("ffn", D, H))
+        for dtype in (torch.float32, torch.bfloat16):
+            want = env.ffn_body(D, H, dtype)
+            if (env.built_ffn_body(D, H, dtype),
+                    env.built_ffn_body(D, H, dtype, lib="residual_ffn_fwd")) != (want, want):
+                bad.append(("ffn body", str(dtype), D, H))
+    for _, _, N, D, nh, hd in WIDE_ATTN_CASES + (("", 0, 64, 256, 2, 128),):
+        plan = env.attention_long_plan(N, D, nh, hd)
+        if (built("attention_long", N, D, nh, hd, 1), built("attention_long", N, D, nh, hd, 2)) \
+                != (plan["fwd"], plan["bwd"]):
+            bad.append(("attention long-window", N, D, nh, hd))
+        for dtype in (torch.float32, torch.bfloat16):
+            want = env.attention_body(N, D, nh, hd, dtype)
+            for lib in ("window_attention_fwd", "window_attention_bwd"):
+                if env.built_attention_body(lib, N, D, nh, hd, dtype) != want:
+                    bad.append(("attention body", lib, str(dtype), N, D, nh, hd))
+    for _, _, _, _, C, D, nh, hd in WIDE_NGRAM_CASES + (("", 0, 0, 0, 256, 512, 16, 16),
+                                                        ("", 0, 0, 0, 256, 512, 2, 128)):
+        if (built("ngram_fwd", C, nh, hd), built("ngram_bwd", C, D, nh, hd, 1),
+                built("ngram_bwd", C, D, nh, hd, 2)) != env.ngram_envelope(C, D, nh, hd):
+            bad.append(("ngram", C, D, nh, hd))
+        for dtype in (torch.float32, torch.bfloat16):
+            if (env.built_ngram_body(C, D, nh, hd, dtype), env.built_ngram_body(
+                    C, D, nh, hd, dtype, lib="ngram_context")) != (
+                    env.ngram_body(C, D, nh, hd, dtype), env.ngram_body(C, D, nh, hd, dtype,
+                                                                         forward=True)):
+                bad.append(("ngram body", str(dtype), C, D, nh, hd))
+    for _, _, _, D, nh, hd, H in WIDE_NSTB_CASES + (("", 0, 0, 256, 2, 128, 1024),):
+        for lib in ("nstb_map", "nstb_tokens"):
+            if built(lib, 64, D, nh, hd, H, 3) != env.nstb_long_plan(64, D, nh, hd, H):
+                bad.append((lib, "long-window", D, nh, hd, H))
+            for dtype in (torch.float32, torch.bfloat16):
+                if env.built_nstb_body(lib, 64, D, nh, hd, H, dtype) != env.nstb_body(
+                        64, D, nh, hd, H, dtype):
+                    bad.append((lib, "body", str(dtype), D, nh, hd, H))
+    return bad
+
+
+def wide_kernels(dev, card, failures):
+    """Phase 26a: K5/K6, K3/K4 and K1/K7 at phase 26's widths against their
+    plain versions (``_hold``: forward and every cotangent, f32 within
+    F32_TOL, bf16 within BF16_TOL of the rounding-matched plain versions,
+    each backward twice and bit for bit), K2 on the map and K8 on the
+    windows of the rolled map (``hold_nstb``: bf16 within NSTB_BF16_TOL, K8
+    equal to K2 bit for bit); each one's launch alone by CUDA events beside
+    its plain version's and its bound, and its body.  Returns {row name:
+    (the first case's numbers at bf16, every case's rows)}."""
+    import torch
+
+    from tmar_torch.ops import cuda_ngram, cuda_nstb
+    from tmar_torch.ops import envelope as env
+    from tmar_torch.ops.attention import window_attention_math
+    from tmar_torch.ops.cuda_attention import (
+        _PlainAttention, fused_window_attention, window_attention_backward_math,
+        window_attention_kernel_math)
+    from tmar_torch.ops.cuda_ffn import (
+        _PlainFFN, ffn_backward_math, ffn_kernel_math, fused_residual_ffn)
+    from tmar_torch.ops.cuda_ngram import (
+        _PlainNGram, fused_ngram_context, ngram_context_kernel_backward_math,
+        ngram_context_kernel_math, ngram_context_math)
+    from tmar_torch.ops.ffn import ffn_math
+    from tmar_torch.ops.window import (cyclic_shift, shift_mask_components, window_partition,
+                                       window_unpartition)
+
+    gen = torch.Generator(device=dev).manual_seed(26)
+    hold = functools.partial(_hold, failures=failures)
+    rows = {k: [] for k in ("residual_ffn_fwd", "residual_ffn_bwd", "window_attention_fwd",
+                            "window_attention_bwd", "ngram_context", "ngram_context_bwd",
+                            "nstb_map", "nstb_tokens")}
+
+    def randn(*shape, scale=1.0, shift=0.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale + shift
+
+    def plain_ms(plain, acts, params, g, dtype):
+        """(forward, backward) ms of the plain version in the activation
+        dtype, as the model would run it: a few calls by CUDA events."""
+        leaves = [t.to(dtype).clone().requires_grad_() for t in acts] + [
+            p.clone().requires_grad_() for p in params]
+        with torch.no_grad():
+            fwd = cuda_ms(lambda: plain(*leaves), iters=3, warmup=1)
+        y = plain(*leaves)
+        bwd = cuda_ms(lambda: torch.autograd.grad(y, leaves, g.to(dtype), retain_graph=True),
+                      iters=3, warmup=1)
+        del y, leaves
+        return fwd, bwd
+
+    def record(kernel, label, dn, body, ms, plain_ms, bound, err):
+        rows[kernel].append({"geometry": label, "dtype": dn, "body": body, "ms": ms,
+                             "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1],
+                             "library_ms": None, "max_abs_err": err})
+        print(f"[time] {kernel} {body} body {label} {dn}: kernel {ms:.4f} ms (launch alone), "
+              f"plain {plain_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}); library: none "
+              f"on {card}", flush=True)
+
+    for label, M, D, H in WIDE_FFN_CASES:
+        acts = [randn(M, D), randn(M, D)]
+        params = [randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1), randn(D, H, scale=0.05),
+                  randn(H, scale=0.1), randn(H, D, scale=0.05), randn(D, scale=0.1),
+                  randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1)]
+        g = randn(M, D)
+        name = f"{label} x=[{M}, {D}] hidden={H}"
+        errs = {h: {"float32": 0.0, "bfloat16": 0.0} for h in ("fwd", "bwd")}
+        hold("residual_ffn", name, FFN_NAMES, 2, fused_residual_ffn, ffn_math, acts, params, g,
+             errs, plain_bf16=lambda a, p, gg: [ffn_kernel_math(a[0], a[1], *p),
+                                                *ffn_backward_math(a[0], a[1], *p, gg)],
+             param_bf16=True)
+        tiles = env.ffn_tiles(D, H)
+        print(f"[body] residual FFN {name}: K5 {tiles[0]} rows a tile, {tiles[1]} hidden "
+              f"columns a chunk; K6 {tiles[2]}, {tiles[3]}")
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            t = plain_ms((lambda *a: _PlainFFN.apply(*a, 1e-5)) if dtype == torch.bfloat16
+                         else ffn_math, acts, params, g, dtype)
+            launch = ffn_launch_ms(acts[0].to(dtype), acts[1].to(dtype), params, g.to(dtype),
+                                   iters=3, warmup=1)
+            size = acts[0].to(dtype).element_size()
+            body = env.built_ffn_body(D, H, dtype)
+            for i, kernel in enumerate(("residual_ffn_fwd", "residual_ffn_bwd")):
+                record(kernel, name, dn, body, launch[i], t[i],
+                       bound_ms(*ffn_work(M, size, i == 1, D, H), dn),
+                       errs["fwd" if i == 0 else "bwd"][dn])
+        del acts, params, g
+        torch.cuda.empty_cache()
+
+    for label, nwin, N, D, nh, hd in WIDE_ATTN_CASES:
+        A = nh * hd
+        acts = [randn(nwin, N, D)]
+        params = [randn(D, 3 * A, scale=0.05), randn(3 * A, scale=0.1),
+                  torch.rand(nh, 1, 1, generator=gen, device=dev) * 1.8 + 0.5,
+                  randn(nh, N, N, scale=0.2), randn(A, D, scale=0.05), randn(D, scale=0.1)]
+        g = randn(nwin, N, D)
+        mc = (*shift_mask_components(8, 4), 16, 32)
+        name = f"{label} x=[{nwin}, {N}, {D}] heads={nh}x{hd} mask=on"
+        attention_body_line(f"{label} x=[{nwin}, {N}, {D}] heads={nh}x{hd}", N, D, nh, hd,
+                            failures)
+        errs = {h: {"float32": 0.0, "bfloat16": 0.0} for h in ("fwd", "bwd")}
+        hold("window_attention", name, ATTN_NAMES, 1,
+             lambda *a: fused_window_attention(*a, nh, mask_components=mc),
+             lambda *a: window_attention_math(
+                 a[0], a[1].to(a[0].dtype), a[2].to(a[0].dtype), a[3], a[4],
+                 a[5].to(a[0].dtype), a[6].to(a[0].dtype), nh, mask_components=mc),
+             acts, params, g, errs,
+             plain_bf16=lambda a, p, gg: [
+                 window_attention_kernel_math(a[0], *p, nh, mask_components=mc),
+                 *window_attention_backward_math(a[0], gg, *p, nh, mask_components=mc)],
+             param_bf16=True)
+        print(f"[body] window attention {name}: K4's token sums "
+              f"{env.long_sum_rows(D, A)} rows a step")
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            t = plain_ms((lambda *a: _PlainAttention.apply(*a, nh, mc)) if dtype == torch.bfloat16
+                         else (lambda *a: window_attention_math(*a, nh, mask_components=mc)),
+                         acts, params, g, dtype)
+            launch = attention_launch_ms(acts[0].to(dtype), params, g.to(dtype), nh, mc, iters=5)
+            size = acts[0].to(dtype).element_size()
+            body = env.attention_body(N, D, nh, hd, dtype)
+            for i, kernel in enumerate(("window_attention_fwd", "window_attention_bwd")):
+                record(kernel, name, dn, body, launch[i], t[i],
+                       bound_ms(*attention_work(nwin, N, D, nh, hd, size, i == 1), dn),
+                       errs["fwd" if i == 0 else "bwd"][dn])
+        del acts, params, g
+        torch.cuda.empty_cache()
+
+    for label, B, wh, ww, C, D, nh, hd in WIDE_NGRAM_CASES:
+        A = nh * hd
+        acts = [randn(B, wh, ww, C)]
+        params = [randn(C, 3 * A, scale=0.1), randn(3 * A, scale=0.1),
+                  torch.rand(nh, 1, 1, generator=gen, device=dev) * 1.8 + 0.5,
+                  randn(9, nh, scale=0.5), randn(A, C, scale=0.1), randn(C, scale=0.1),
+                  randn(2 * C, D, scale=0.1), randn(D, scale=0.1)]
+        g = randn(B, wh, ww, D)
+        name = f"{label} u=[{B}, {wh}, {ww}, {C}] D={D} heads={nh}x{hd}"
+        errs = {h: {"float32": 0.0, "bfloat16": 0.0} for h in ("fwd", "bwd")}
+        hold("ngram_context", name, NGRAM_NAMES, 1, lambda *a: fused_ngram_context(*a, nh),
+             lambda *a: ngram_context_math(*a, num_heads=nh), acts, params, g, errs,
+             plain_bf16=lambda a, p, gg: [
+                 ngram_context_kernel_math(a[0], *p, num_heads=nh),
+                 *ngram_context_kernel_backward_math(a[0], gg, *p, num_heads=nh)],
+             param_bf16=True)
+        print(f"[body] n-gram context {name}: (K1 cells a block, K7 cells a pass-1 tile, "
+              f"positions a pass-2 tile) {env.ngram_tiles(C, D, nh, hd)}")
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            t = plain_ms((lambda *a: _PlainNGram.apply(*a, nh)) if dtype == torch.bfloat16
+                         else (lambda *a: ngram_context_math(*a, num_heads=nh)),
+                         acts, params, g, dtype)
+            uu, gg = acts[0].to(dtype), g.to(dtype)
+            f = fused_ngram_context
+            before = (f.launches, f.backward_launches, dict(f.launches_by_body),
+                      dict(f.backward_launches_by_body))
+            ops, out, ints = cuda_ngram._kernel_operands(uu, *params, nh)
+            k1 = cuda_ms(lambda: cuda_ngram._launch(ops, out, ints), iters=5, warmup=1)
+            k7 = cuda_ms(lambda: cuda_ngram._launch_backward(ops[:-1], gg, ints), iters=5, warmup=1)
+            f.launches, f.backward_launches = before[:2]
+            f.launches_by_body.clear()
+            f.launches_by_body.update(before[2])
+            f.backward_launches_by_body.clear()
+            f.backward_launches_by_body.update(before[3])
+            size = uu.element_size()
+            body = env.built_ngram_body(C, D, nh, hd, dtype, lib="ngram_context")
+            record("ngram_context", name, dn, body, k1, t[0],
+                   bound_ms(*ngram_work(B, wh, ww, nh, size, C, D, hd), dn), errs["fwd"][dn])
+            record("ngram_context_bwd", name, dn, env.built_ngram_body(C, D, nh, hd, dtype), k7,
+                   t[1], bound_ms(*ngram_bwd_work(B, wh, ww, nh, size, C, D, hd), dn),
+                   errs["bwd"][dn])
+        del acts, params, g
+        torch.cuda.empty_cache()
+
+    counters = (cuda_nstb.fused_nstb_map.launches, cuda_nstb.fused_nstb.launches,
+                dict(cuda_nstb.fused_nstb_map.launches_by_body),
+                dict(cuda_nstb.fused_nstb.launches_by_body))
+    ws = 8
+    for label, B, side, D, nh, hd, H in WIDE_NSTB_CASES:
+        A, N, wh = nh * hd, ws * ws, side // ws
+        ln = lambda: (randn(D, scale=0.1, shift=1.0), randn(D, scale=0.1))  # noqa: E731
+        args = (randn(D, 3 * A, scale=0.05), randn(3 * A, scale=0.1),
+                torch.rand(nh, 1, 1, generator=gen, device=dev) * 1.8 + 0.5,
+                randn((2 * ws - 1) ** 2, nh, scale=0.5), randn(A, D, scale=0.05),
+                randn(D, scale=0.1), ln(), (randn(D, H, scale=0.05), randn(H, scale=0.1)),
+                (randn(H, D, scale=0.05), randn(D, scale=0.1)), ln(), nh, ws)
+        x = randn(B, side, side, D)
+        name = f"{label} x=[{B}, {side}, {side}, {D}] heads={nh}x{hd} hidden={H} window={ws}"
+        errs = {"float32": 0.0, "bfloat16": 0.0, "bf16_mean": 0.0, "bf16_vs_f32_plain": 0.0}
+        shift, Q = ws // 2, 4
+        cq = randn(B * wh * wh, Q, D, scale=0.5)
+
+        def plain_map(xi, ci, a, cdt=torch.float32):
+            return cuda_nstb.nstb_map_math(xi, ci, *a[:-2], num_heads=a[-2], window_size=a[-1],
+                                           shift=shift, compute_dtype=cdt)
+
+        for dtype in (torch.bfloat16, torch.float32):
+            dn = str(dtype).split(".")[1]
+            body = env.built_nstb_body("nstb_map", N, D, nh, hd, H, dtype)
+            xx, cc = x.to(dtype), cq.to(dtype)
+            zmap = cuda_nstb.fused_nstb_map(xx, cc, *args, shift=shift)
+            wins = window_partition(cyclic_shift(xx, shift), ws)[0].reshape(-1, N, D)
+            z = cuda_nstb.fused_nstb(wins, cc, *args, shift=shift, grid=(wh, wh))
+            ok, line = hold_nstb(zmap, plain_map, xx, cc, args, errs)
+            same = torch.equal(window_unpartition(z.reshape(-1, ws, ws, D), (wh, wh)), zmap)
+            print(f"[kernel] nstb_map / nstb_tokens {body} body {name} shift={shift} Q={Q} "
+                  f"{line}; K8 on the rolled windows equal to K2 bit for bit: {same}", flush=True)
+            if not (ok and same):
+                failures.append(f"nstb {label} {dn}")
+            ops, out, ints = cuda_nstb._kernel_operands(xx, cc, *args, shift=shift)
+            tops, tout, tints = cuda_nstb._token_operands(wins, cc, *args, shift, (wh, wh))
+            k2 = cuda_ms(lambda: cuda_nstb._launch(ops, out, ints, 1e-5), iters=3, warmup=1)
+            k8 = cuda_ms(lambda: cuda_nstb._launch_tokens(tops, tout, tints, 1e-5), iters=3,
+                         warmup=1)
+            p2 = cuda_ms(lambda: plain_map(xx, cc, args), iters=3, warmup=1)
+            p8 = cuda_ms(lambda: cuda_nstb.nstb_tokens_math(
+                wins, cc, *args[:-2], num_heads=nh, window_size=ws, shift=shift,
+                grid=(wh, wh)), iters=3, warmup=1)
+            bound = bound_ms(*nstb_work(B, side, side, nh, Q, xx.element_size(), D, H, hd, ws), dn)
+            record("nstb_map", name, dn, body, k2, p2, bound, errs[dn])
+            record("nstb_tokens", name, dn, body, k8, p8, bound, errs[dn])
+            del ops, out, tops, tout, zmap, z, wins
+        del x, cq, args
+        torch.cuda.empty_cache()
+    cuda_nstb.fused_nstb_map.launches, cuda_nstb.fused_nstb.launches = counters[:2]
+    for f, kept in ((cuda_nstb.fused_nstb_map, counters[2]), (cuda_nstb.fused_nstb, counters[3])):
+        f.launches_by_body.clear()
+        f.launches_by_body.update(kept)
+    return rows
+
+
+def _wide_by_body():
+    """{kernel: Counter of launches by body} of the eight wrappers."""
+    from tmar_torch.ops import cuda_attention, cuda_ffn, cuda_ngram, cuda_nstb
+
+    a, f, n = (cuda_attention.fused_window_attention, cuda_ffn.fused_residual_ffn,
+               cuda_ngram.fused_ngram_context)
+    return {"ngram_context": n.launches_by_body, "ngram_context_bwd": n.backward_launches_by_body,
+            "nstb_map": cuda_nstb.fused_nstb_map.launches_by_body,
+            "nstb_tokens": cuda_nstb.fused_nstb.launches_by_body,
+            "window_attention_fwd": a.launches_by_body,
+            "window_attention_bwd": a.backward_launches_by_body,
+            "residual_ffn_fwd": f.launches_by_body, "residual_ffn_bwd": f.backward_launches_by_body}
+
+
+def _wide_read():
+    return {k: dict(c) for k, c in _wide_by_body().items() if c}
+
+
+def _wide_zero():
+    for c in _wide_by_body().values():
+        c.clear()
+
+
+# the body each kernel of the wide NGswin runs at both dtypes: the
+# re-routed whole block and window attention on the long-window bodies,
+# K5/K6 and K1/K7 on their CUDA-core generic bodies with tiles sized by width
+WIDE_BODY = {"ngram_context": "CUDA-core generic", "ngram_context_bwd": "CUDA-core generic",
+             "nstb_map": "long-window", "nstb_tokens": "long-window",
+             "window_attention_fwd": "long-window", "window_attention_bwd": "long-window",
+             "residual_ffn_fwd": "CUDA-core generic", "residual_ffn_bwd": "CUDA-core generic"}
+
+
+def wide_model(card, check):
+    """Phase 26b: the wide NGswin (``WIDE``, random weights from a seed)
+    served at 2x256² bf16 in the map (K1 + K2), token (K1 + K8) and unfused
+    (K1 + K3 + K5) forms, each finite in [-1, 1] with 20 launches of each of
+    its kernels on ``WIDE_BODY``'s body; a 1x128² f32 request in each form
+    against the port's own CPU run of the same weights (within 1e-4); 3
+    ``full`` steps at 4x128² bf16 through the ``Trainer`` (K1, K7, K3-K6, 20
+    launches each per step), metrics finite; one f32 step at 1x64² on the
+    card against the CPU (``compare_step``).  The counters are set to 0
+    just before each run and read just after.  Returns {kernel: launches
+    by body} over the bf16 requests and steps."""
+    import tempfile
+
+    import torch
+
+    from tmar_torch import NGswin, make_inference_fn
+    from tmar_torch.data import SyntheticMARDataset
+    from tmar_torch.train import Trainer
+    from tmar_torch.utils.profiling import device_profile
+
+    forms = (("map", {}, {"ngram_context", "nstb_map"}),
+             ("token", {"nstb_map": False}, {"ngram_context", "nstb_tokens"}),
+             ("unfused", {"nstb_fused": False},
+              {"ngram_context", "window_attention_fwd", "residual_ffn_fwd"}))
+    torch.manual_seed(26)
+    model = NGswin(**WIDE, dtype=torch.bfloat16)
+    sd = {k: v.detach().float() for k, v in model.state_dict().items()}
+    nparams = sum(p.numel() for p in model.parameters())
+    del model
+    rng = np.random.default_rng(26)
+    x = rng.uniform(-1, 1, (2, 256, 256, 1)).astype(np.float32)
+    total = {}
+
+    def add(got):
+        for k, by in got.items():
+            for b, n in by.items():
+                total.setdefault(k, {}).setdefault(b, 0)
+                total[k][b] += n
+
+    for form, kw, kernels in forms:
+        net = NGswin(**WIDE, dtype=torch.bfloat16, **kw)
+        net.load_state_dict(sd)
+        fwd = make_inference_fn(net)
+        _wide_zero()
+        y = fwd(x)
+        got = _wide_read()
+        add(got)
+        want = {k: {WIDE_BODY[k]: WIDE_BLOCKS} for k in kernels}
+        print(f"[wide] {form} form 2x256² bf16 ({nparams} parameters): out {list(y.shape)} range "
+              f"[{y.min():.4f}, {y.max():.4f}]; launches by body {got}")
+        check(bool(np.isfinite(y).all()) and y.min() >= -1 and y.max() <= 1
+              and y.shape == x.shape, f"wide NGswin, {form} form 2x256² bf16: finite, in [-1, 1]")
+        check(got == want, f"wide NGswin, {form} form: launches by body {want}")
+        times = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fwd(x)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        print(f"[time] wide NGswin {form}-form 2x256² bf16 request: median "
+              f"{statistics.median(times) * 1e3:.1f} ms of {[round(t * 1e3, 1) for t in times]} "
+              f"on {card}")
+        del net, fwd
+        torch.cuda.empty_cache()
+
+    # float32 1x128² in each form against the port's CPU run of the same weights
+    small = x[:1, :128, :128]
+    on_cpu = NGswin(**WIDE, dtype=torch.float32, device="cpu")
+    on_cpu.load_state_dict(sd)
+    ref = make_inference_fn(on_cpu, device="cpu")(small)
+    del on_cpu
+    for form, kw, kernels in forms:
+        net = NGswin(**WIDE, dtype=torch.float32, **kw)
+        net.load_state_dict(sd)
+        _wide_zero()
+        y = make_inference_fn(net)(small)
+        got = _wide_read()
+        d = float(np.abs(y - ref).max())
+        check(d <= 1e-4 and got == {k: {WIDE_BODY[k]: WIDE_BLOCKS} for k in kernels},
+              f"wide NGswin, f32 {form} form 1x128² on the card against the CPU: max_abs_err "
+              f"{d:.3e} tol 1e-4; launches by body {got}")
+        del net
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="tmar_wide_") as tmp:
+        cfg = _trainer_config(tmp, **{**WIDE_OVERRIDES, "data.batch_size": 4, "run_name": "wide"})
+        m = cfg.model
+        check((m.embed_dim, tuple(m.depths), tuple(m.num_heads), m.dec_dim, m.dec_depths,
+               m.dec_num_heads, m.mlp_ratio, m.window_size, cfg.variant, cfg.bf16)
+              == (256, (6, 4, 4), (8, 2, 8), 256, 6, 8, 4.0, 8, "full", True),
+              "wide NGswin: the promoted recipe at embed 256, heads 8/2/8 + 8, mlp_ratio 4")
+        torch.manual_seed(26)
+        trainer = Trainer(cfg)
+        batch = _synthetic_batch(4, "cuda")
+        history, times = [], []
+        _wide_zero()
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.state, metrics = trainer.train_step(trainer.state, batch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            history.append({k: float(v) for k, v in metrics.items()})
+        got = _wide_read()
+        add(got)
+        want = {k: {WIDE_BODY[k]: 3 * WIDE_BLOCKS} for k in WIDE_BODY
+                if k not in ("nstb_map", "nstb_tokens")}
+        print(f"[wide] 4x128² bf16 full step x3: g_rec {[round(h['g_rec'], 5) for h in history]}; "
+              f"step ms {[round(t * 1e3, 1) for t in times]}; launches by body {got} on {card}")
+        check(all(np.isfinite(v) for h in history for v in h.values()),
+              "wide NGswin: every metric of the 3 full steps finite")
+        check(got == want, f"wide NGswin full steps: launches by body {want}")
+
+        def one_step():
+            trainer.state, _ = trainer.train_step(trainer.state, batch)
+            torch.cuda.synchronize()
+
+        rows = device_profile(one_step, iters=1, top=1 << 30)
+        busy = sum(r["ms"] for r in rows)
+        print(f"[profile] wide NGswin full step 4x128² bf16: device busy {busy:.1f} ms a step, idle "
+              f"share {1 - busy / (statistics.median(times[1:]) * 1e3):.3f} of the median; top: "
+              + ", ".join(f"{r['op'][:40]} {r['ms']:.1f} x{r['count']}" for r in rows[:8])
+              + f" on {card}")
+        del trainer, batch
+        torch.cuda.empty_cache()
+
+        # at 64² the discriminator takes two scales (a third's input would be
+        # smaller than its kernel), as the demo width's step does
+        cfg32 = _trainer_config(tmp, **{**WIDE_OVERRIDES, "bf16": False, "data.batch_size": 1,
+                                        "data.patch_size": 64, "disc.num_scales": 2,
+                                        "run_name": "wide_f32"})
+        on_cpu, on_card = Trainer(cfg32, device="cpu"), Trainer(cfg32)
+        sample = SyntheticMARDataset(size=64, length=1, base_seed=7)[0]
+        b1 = {k: torch.from_numpy(sample[k][None, ..., None]) for k in ("ct", "gt")}
+        _, cpu_m = on_cpu.train_step(on_cpu.state, b1)
+        _wide_zero()
+        _, gpu_m = on_card.train_step(on_card.state, {k: v.cuda() for k, v in b1.items()})
+        torch.cuda.synchronize()
+        got = _wide_read()
+        check(got == {k: {WIDE_BODY[k]: WIDE_BLOCKS} for k in WIDE_BODY
+                      if k not in ("nstb_map", "nstb_tokens")},
+              f"wide NGswin f32 step: launches by body {got}")
+        compare_step(on_cpu.state, on_card.state, cpu_m, gpu_m, "wide NGswin f32 full step", check,
+                     patch=64)
+        del on_cpu, on_card
+        torch.cuda.empty_cache()
+    return total
+
+
+# each new row of the kernels line: (row, kernel record, source, TPU kernel)
+WIDE_ROWS = (
+    ("residual_ffn_fwd_wide", "residual_ffn_fwd", "tmar_torch/csrc/residual_ffn_fwd.cu",
+     "tmar/ops/pallas_ffn.py:352"),
+    ("residual_ffn_bwd_wide", "residual_ffn_bwd", "tmar_torch/csrc/residual_ffn_bwd.cu",
+     "tmar/ops/pallas_ffn.py:249"),
+    ("window_attention_fwd_wide", "window_attention_fwd",
+     "tmar_torch/csrc/window_attention_long.cuh", "tmar/ops/pallas_attention.py:1143"),
+    ("window_attention_bwd_wide", "window_attention_bwd",
+     "tmar_torch/csrc/window_attention_long.cuh", "tmar/ops/pallas_attention.py:568"),
+    ("ngram_context_wide", "ngram_context", "tmar_torch/csrc/ngram_context.cu",
+     "tmar/ops/pallas_ngram.py:813"),
+    ("ngram_context_bwd_wide", "ngram_context_bwd", "tmar_torch/csrc/ngram_context_bwd.cu",
+     "tmar/ops/pallas_ngram.py:520"),
+    ("nstb_map_wide", "nstb_map", "tmar_torch/csrc/nstb_long.cuh", "tmar/ops/pallas_nstb.py:640"),
+    ("nstb_tokens_wide", "nstb_tokens", "tmar_torch/csrc/nstb_long.cuh",
+     "tmar/ops/pallas_nstb.py:334"),
+)
+
+
+def wide_widths(dev, card):
+    """Phase 26: every width the JAX NGswin takes, up to D = 512.  Returns
+    the ``kernels`` line's rows of the re-routed and resized bodies: each
+    timed at its first geometry at bf16, its launches those of the wide
+    NGswin's bf16 requests and steps."""
+    import torch
+
+    failures = []
+
+    def check(cond, what):
+        print(f"[check] {what}: {'ok' if cond else 'FAIL'}", flush=True)
+        if not cond:
+            failures.append(what)
+
+    bad = wide_smem_failures()
+    check(not bad, f"phase 26's widths: the sources' body rule and shared memory equal the "
+                   f"envelope's {bad or ''}")
+    t0 = time.perf_counter()
+    rows = wide_kernels(dev, card, failures)
+    print(f"[time] phase 26a (kernels at the new widths) in {time.perf_counter() - t0:.1f} s on "
+          f"{card}")
+    launches = wide_model(card, check)
+    if failures:
+        raise SystemExit(f"phase 26 checks failed: {failures}")
+    out = {}
+    for name, kernel, source, replaces in WIDE_ROWS:
+        first = next(r for r in rows[kernel] if r["dtype"] == "bfloat16")
+        out[name] = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                     "launches": launches.get(kernel, {}).get(WIDE_BODY[kernel], 0),
+                     "max_abs_err": max(r["max_abs_err"] for r in rows[kernel]),
+                     "ms": first["ms"], "plain_ms": first["plain_ms"],
+                     "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+                     "library_ms": None, "body": first["body"], "shape": first["geometry"],
+                     "widths": rows[kernel], "card": card}
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5400,6 +5969,10 @@ def main() -> int:
     long_rows = long_windows(dev, card)
     print(f"[time] phase 25 (windows past 8x8, heads past 32 channels) in "
           f"{time.perf_counter() - t0:.1f} s on {card}")
+    t0 = time.perf_counter()
+    wide_rows = wide_widths(dev, card)
+    print(f"[time] phase 26 (widths past the envelope, up to D = 512) in "
+          f"{time.perf_counter() - t0:.1f} s on {card}")
     for name, rec in records.items():
         # launches: the count of the first path above that ran the kernel
         # (serving, composition training, the trainer's full step)
@@ -5415,6 +5988,7 @@ def main() -> int:
         rec["widths"] = width_rows.get(name, [])
         rec["card"] = card
     records.update(long_rows)
+    records.update(wide_rows)
     print(json.dumps({"kernels": list(records.values())}))
     print(f"{card}")
     print(json.dumps({"ok": True, "device": {

@@ -351,15 +351,28 @@ def test_ngram_forward_smallest_tile_fits_wherever_k7_has_a_plan():
 
 
 def test_nstb_envelope_refuses_past_the_card_s_shared_memory():
-    """The FFN tail is not cut into chunks: at D = 128 (4 x 32 heads) a
-    hidden width of 649 still fits, 650 does not, and the refusal names the
-    bytes; at hidden = 4·D the first width past the card is D = 152."""
+    """Where the CUDA-core generic body's tile passes the card's shared
+    memory, the block takes the long-window body, whose FFN tail takes the
+    most rows that fit: at D = 128 (4 x 32 heads) a hidden width of 649
+    still fits the generic tile, 650 moves; at hidden = 4·D the first width
+    past the generic tile is D = 152; Swin-B's stage 2 (D 256, 8 x 32,
+    hidden 1024) runs.  Past the long-window body's blocks (a 64x64
+    window) the refusal names the bytes."""
     assert envelope.nstb_envelope(64, 128, 4, 32, 649) == envelope.H100_SMEM_PER_BLOCK
-    with pytest.raises(NotImplementedError, match=r"whole NSTB \(K2/K8\).*needs 232704 bytes"):
-        envelope.nstb_envelope(64, 128, 4, 32, 650)
+    assert envelope.nstb_body(64, 128, 4, 32, 649, torch.float32) == "CUDA-core generic"
+    assert envelope.nstb_bytes(64, 128, 4, 32, 650) == 232704
+    assert envelope.nstb_envelope(64, 128, 4, 32, 650) == envelope.nstb_long_bytes(
+        64, 128, 4, 32, 650)
+    assert envelope.nstb_body(64, 128, 4, 32, 650, torch.float32) == "long-window"
     envelope.nstb_envelope(64, 144, 4, 32, 576)
-    with pytest.raises(NotImplementedError, match="D=152.*past the card's 232448"):
-        envelope.nstb_envelope(64, 152, 4, 32, 608)
+    assert envelope.nstb_body(64, 144, 4, 32, 576, torch.float32) == "CUDA-core generic"
+    assert envelope.nstb_bytes(64, 152, 4, 32, 608) > envelope.H100_SMEM_PER_BLOCK
+    assert envelope.nstb_body(64, 152, 4, 32, 608, torch.float32) == "long-window"
+    assert envelope.nstb_envelope(64, 256, 8, 32, 1024) == 229888
+    with pytest.raises(NotImplementedError,
+                       match=r"whole NSTB \(K2/K8\): the long-window body at N=4096.*needs "
+                             r"\d+ bytes of shared memory, past the card's 232448"):
+        envelope.nstb_envelope(4096, 256, 8, 32, 1024)
     # head_dim past 32 and windows past 8x8 take the long-window body, whose
     # largest block is the envelope's count
     assert envelope.nstb_envelope(64, 80, 2, 40, 160) == envelope.nstb_long_bytes(64, 80, 2, 40, 160)
@@ -398,17 +411,27 @@ def test_past_the_envelope_the_limit_is_named():
     with pytest.raises(NotImplementedError,
                        match=r"whole NSTB \(K2/K8\): the long-window body at N=4096.* needs \d+"):
         envelope.nstb_envelope(4096, 64, 1, 64, 128)
-    with pytest.raises(NotImplementedError, match="head_dim 48"):
-        envelope.ngram_envelope(96, 192, 2, 48)
+    # the n-gram context at heads of 48 channels and C = 512, the FFN at
+    # (512, 2048) and the whole block at D = 512 run; past one row (the
+    # hidden layer in chunks), one cell or one head a tile the refusal names
+    # the bytes
+    assert envelope.ngram_envelope(96, 192, 2, 48)
+    assert envelope.ngram_envelope(512, 1024, 16, 32)
+    assert envelope.ffn_envelope(512, 2048) == (196800, 8, 196864)
+    assert envelope.nstb_body(64, 512, 16, 32, 2048, torch.float32) == "long-window"
+    assert envelope.nstb_envelope(64, 512, 16, 32, 2048) == 229632
     with pytest.raises(NotImplementedError,
-                       match=r"needs \d+ bytes of shared memory, past the card's 232448"):
-        envelope.ffn_envelope(512, 2048)
-    with pytest.raises(NotImplementedError, match="bytes of shared memory"):
-        envelope.ngram_envelope(512, 1024, 16, 32)
-    # the whole-block kernels K2/K8 refuse past their envelope too, naming the limit
+                       match=r"residual FFN \(K5/K6\): the backward at D=16384, hidden=65536, "
+                             r"1 rows, \d+ hidden columns needs \d+ bytes of shared memory, past "
+                             r"the card's 232448"):
+        envelope.ffn_envelope(16384, 65536)
     with pytest.raises(NotImplementedError,
-                       match=r"whole NSTB \(K2/K8\): the block at N=64, D=512.* needs \d+ bytes"):
-        envelope.nstb_envelope(64, 512, 16, 32, 2048)
+                       match=r"n-gram context \(K1/K7\): the forward at C=4096.* needs \d+ bytes"):
+        envelope.ngram_envelope(4096, 8192, 32, 128)
+    with pytest.raises(NotImplementedError,
+                       match=r"whole NSTB \(K2/K8\): the long-window body at N=64, D=16384.* "
+                             r"needs \d+ bytes"):
+        envelope.nstb_envelope(64, 16384, 16, 32, 2048)
 
 
 # (N, D, heads, head_dim, hidden): HAT's 16x16 windows at the flagship's

@@ -222,18 +222,22 @@ def test_nstb_tensor_core_generic_body_matches_plain(cuda, label, B, wh, ww, D, 
 
 def test_nstb_generic_body_refuses_past_its_envelope(cuda):
     """Past the envelope, and only there, K2 and K8 refuse with the limit
-    named (the FFN tail past the card's shared memory); head_dim 40 and a
-    9x9 window, which the generic bodies do not take, run the long-window
-    body, held to the plain versions at float32."""
+    named (a 64x64 window's scores past the card's shared memory); head_dim
+    40, a 9x9 window and the D = 256, 8 x 32, hidden 1024 block, whose
+    CUDA-core generic tile fits no block, run the long-window body, held to
+    the plain versions at float32."""
     rng = np.random.default_rng(22)
-    x, cq, params = nstb_inputs(rng, 2, 1, 8, 8, 1, D=80, H=160, hd=40)
-    params = [_to(p, cuda) for p in params]
-    got = cuda_nstb.fused_nstb_map(x.to(cuda), cq.to(cuda), *params, 2, 8)
-    ref = cuda_nstb.nstb_map_math(x.to(cuda), cq.to(cuda), *params, num_heads=2, window_size=8)
-    assert float((got - ref).abs().max()) <= _tol(ref, torch.float32)
-    x, cq, params = nstb_inputs(rng, 8, 1, 8, 8, 1, D=256, H=1024, hd=32)
+    for nh, D, H, hd in ((2, 80, 160, 40), (8, 256, 1024, 32)):
+        x, cq, params = nstb_inputs(rng, nh, 1, 16, 16, 1, D=D, H=H, hd=hd)
+        params = [_to(p, cuda) for p in params]
+        assert cuda_nstb.envelope.nstb_body(64, D, nh, hd, H, torch.float32) == "long-window"
+        got = cuda_nstb.fused_nstb_map(x.to(cuda), cq.to(cuda), *params, nh, 8)
+        ref = cuda_nstb.nstb_map_math(x.to(cuda), cq.to(cuda), *params, num_heads=nh,
+                                      window_size=8)
+        assert float((got - ref).abs().max()) <= _tol(ref, torch.float32)
+    x, cq, params = nstb_inputs(rng, 2, 1, 64, 64, 1, D=64, H=128, hd=32, ws=64)
     with pytest.raises(NotImplementedError, match="bytes of shared memory"):
-        cuda_nstb.fused_nstb_map(x.to(cuda), cq.to(cuda), *[_to(p, cuda) for p in params], 8, 8)
+        cuda_nstb.fused_nstb_map(x.to(cuda), cq.to(cuda), *[_to(p, cuda) for p in params], 2, 64)
     x, cq, params = nstb_inputs(rng, 2, 1, 9, 9, 1, D=32, H=64, hd=16, ws=9)
     params = [_to(p, cuda) for p in params]
     x = x.reshape(1, 81, 32).to(cuda)
@@ -570,7 +574,9 @@ def test_training_kernels_refuse_other_geometries(cuda):
     """Past the envelope, and only there, the wrappers refuse with the limit
     named (a tile past the card's shared memory); head_dim 40 and a window
     of 81 tokens run K3's and K4's long-window bodies, held to autograd of
-    ``window_attention_math`` at float32."""
+    ``window_attention_math`` at float32, and the FFN at (512, 2048) its
+    CUDA-core generic bodies on 16- and 8-row tiles, held to autograd of
+    ``ffn_math``."""
     rng = np.random.default_rng(7)
     for nwin, N, D, nh, hd in ((4, 16, 80, 2, 40), (1, 81, 32, 2, 16)):
         (x, g), params = attention_inputs(rng, nwin, N, D, nh, hd)
@@ -583,11 +589,17 @@ def test_training_kernels_refuse_other_geometries(cuda):
         ref = window_attention_math(*ref_leaves, nh)
         ref = [ref, *torch.autograd.grad(ref, ref_leaves, g.to(cuda))]
         _hold(ATTN_NAMES, 1, got, ref, torch.float32)
-    z = torch.zeros(8, 512, device=cuda)
+    acts, params = ffn_inputs(rng, 40, 512, 2048)
+    got = _forward_and_cotangents(cuda_ffn.fused_residual_ffn, [a.to(cuda) for a in acts[:2]],
+                                  [p.to(cuda) for p in params], acts[2].to(cuda))
+    ref = _forward_and_cotangents(ffn_math, [a.to(cuda) for a in acts[:2]],
+                                  [p.to(cuda) for p in params], acts[2].to(cuda))
+    _hold(FFN_NAMES, 2, got, ref, torch.float32)
+    z = torch.zeros(1, 16384, device=cuda)
     with pytest.raises(NotImplementedError, match="bytes of shared memory"):
         cuda_ffn.fused_residual_ffn(z, z, *[torch.zeros(s, device=cuda) for s in
-                                            ((512,), (512,), (512, 2048), (2048,), (2048, 512),
-                                             (512,), (512,), (512,))])
+                                            ((16384,), (16384,), (16384, 8), (8,), (8, 16384),
+                                             (16384,), (16384,), (16384,))])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -721,7 +733,7 @@ def test_generic_bodies_launch_with_the_envelopes_shared_memory(cuda, D, nh, hd,
     built = env.built_smem
     H = 4 * D
     _, rows, _ = env.ffn_envelope(D, H)
-    assert built("ffn_fwd", D, H) == env.ffn_fwd_bytes(D, H)
+    assert built("ffn_fwd", D, H, 64) == env.ffn_fwd_bytes(D, H)
     assert built("ffn_bwd", D, H, rows) == env.ffn_bwd_bytes(D, H, rows)
     hg_f, fwd, hg_b, bwd = env.attention_envelope(N, D, nh, hd)
     assert built("attention_fwd", D, nh, hd, hg_f) == fwd
@@ -1204,3 +1216,110 @@ def test_demo_width_generator_exported_on_the_card_equals_eager(cuda, tmp_path):
     assert got.dtype == torch.float32 and torch.equal(got, ref)
     with pytest.raises(Exception, match="Guard failed"):
         fn(x[:1])
+
+
+# ---- widths past the earlier envelope, up to D = 512 --------------------------
+
+# (N, D, heads, head_dim, hidden) of the whole block and window attention,
+# (C, heads, head_dim) of the n-gram context at D = 2C: Swin-B's stages 2 and
+# 3, SwinIR's D 180, heads of 128 channels, D 384 (K4's token sums on 16-row
+# steps), window 4 at D 256
+WIDE_BLOCKS = [(64, 256, 8, 32, 1024), (64, 512, 16, 32, 2048), (64, 180, 6, 30, 720),
+               (64, 256, 2, 128, 1024), (64, 384, 12, 32, 1536), (16, 256, 8, 32, 1024)]
+WIDE_NGRAM = [(128, 8, 16), (128, 2, 64), (256, 16, 16), (256, 2, 128), (90, 6, 15)]
+
+
+@pytest.mark.parametrize("N,D,nh,hd,H", WIDE_BLOCKS)
+def test_wide_widths_query_the_envelope_s_rule_and_shared_memory(cuda, N, D, nh, hd, H):
+    """At the new widths each CUDA source picks ``envelope``'s body and
+    counts its shared memory as ``envelope`` does: K5's and K6's rows a tile,
+    the long-window bodies of K3/K4 and K2/K8, the n-gram context's tiles."""
+    from tmar_torch.ops import envelope as env
+
+    built = env.built_smem
+    fwd, rows, bwd = env.ffn_envelope(D, H)
+    rows5, hc5, _, hc6 = env.ffn_tiles(D, H)
+    assert built("ffn_fwd", D, hc5, rows5) == fwd
+    assert built("ffn_bwd", D, hc6, rows) == bwd
+    plan = env.attention_long_plan(N, D, nh, hd)
+    assert (built("attention_long", N, D, nh, hd, 1),
+            built("attention_long", N, D, nh, hd, 2)) == (plan["fwd"], plan["bwd"])
+    for lib in ("nstb_map", "nstb_tokens"):
+        assert built(lib, N, D, nh, hd, H, 3) == env.nstb_long_plan(N, D, nh, hd, H)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert env.built_ffn_body(D, H, dtype) == env.built_ffn_body(
+            D, H, dtype, lib="residual_ffn_fwd") == env.ffn_body(D, H, dtype)
+        for lib in ("window_attention_fwd", "window_attention_bwd"):
+            assert env.built_attention_body(lib, N, D, nh, hd, dtype) == env.attention_body(
+                N, D, nh, hd, dtype) == ("CUDA-core generic" if D == 180 else "long-window")
+        for lib in ("nstb_map", "nstb_tokens"):
+            assert env.built_nstb_body(lib, N, D, nh, hd, H, dtype) == env.nstb_body(
+                N, D, nh, hd, H, dtype) == "long-window"
+
+
+@pytest.mark.parametrize("C,nh,hd", WIDE_NGRAM)
+def test_wide_ngram_tiles_query_the_envelope(cuda, C, nh, hd):
+    from tmar_torch.ops import envelope as env
+
+    D = 2 * C
+    assert (env.built_smem("ngram_fwd", C, nh, hd), env.built_smem("ngram_bwd", C, D, nh, hd, 1),
+            env.built_smem("ngram_bwd", C, D, nh, hd, 2)) == env.ngram_envelope(C, D, nh, hd)
+    for dtype in (torch.float32, torch.bfloat16):
+        assert env.built_ngram_body(C, D, nh, hd, dtype) == env.ngram_body(C, D, nh, hd, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("C,nh,hd", [(128, 8, 16), (128, 2, 64), (90, 6, 15)])
+def test_wide_ngram_context_matches_plain(cuda, dtype, C, nh, hd):
+    """K1 and K7 on their CUDA-core generic bodies (cells a block sized by
+    width, heads of any width) against the rounding-matched plain versions:
+    the output and all nine cotangents, the backward bit for bit twice."""
+    rng = np.random.default_rng(C + hd)
+    D = 2 * C
+    u, params = ngram_inputs(rng, nh, 2, 5, 7, C, D, hd)
+    g = _t(rng, 2, 5, 7, D)
+    u, g = u.to(cuda, dtype), g.to(cuda, dtype)
+    params = [p.to(cuda) for p in params]
+    f = lambda *a: cuda_ngram.fused_ngram_context(*a, nh)  # noqa: E731
+    got = _forward_and_cotangents(f, [u], params, g)
+    again = _forward_and_cotangents(f, [u], params, g)
+    if dtype == torch.float32:
+        ref = _forward_and_cotangents(
+            lambda *a: cuda_ngram.ngram_context_math(*a, num_heads=nh), [u], params, g)
+        _hold(NGRAM_NAMES, 1, got, ref, dtype)
+    else:
+        ref = [cuda_ngram.ngram_context_kernel_math(u, *params, num_heads=nh),
+               *cuda_ngram.ngram_context_kernel_backward_math(u, g, *params, num_heads=nh)]
+        _hold(NGRAM_NAMES, 1, got, ref, dtype, torch.bfloat16)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ffn_hidden_chunks_match_plain(cuda, dtype):
+    """Hidden 65,536 at D 64: one row of it fits no block, so K5 takes the
+    hidden layer in 2 chunks and K6 in 4 (recomputing each chunk's hidden
+    layer), held to the plain versions, the backward bit for bit twice; the
+    sources count the chunked tiles as ``envelope`` does."""
+    from tmar_torch.ops import envelope as env
+
+    rows5, hc5, rows6, hc6 = env.ffn_tiles(64, 65536)
+    assert (rows5, hc5, rows6, hc6) == (1, 32768, 1, 16384)
+    fwd, _, bwd = env.ffn_envelope(64, 65536)
+    assert (env.built_smem("ffn_fwd", 64, hc5, 1), env.built_smem("ffn_bwd", 64, hc6, 1)) == (
+        fwd, bwd)
+    rng = np.random.default_rng(65536)
+    acts, params = ffn_inputs(rng, 96, 64, 65536)
+    params[2], params[4] = params[2] * 0.05, params[4] * 0.05
+    x, ao, g = (a.to(cuda, dtype) for a in acts)
+    params = [p.to(cuda) for p in params]
+    got = _forward_and_cotangents(cuda_ffn.fused_residual_ffn, [x, ao], params, g)
+    again = _forward_and_cotangents(cuda_ffn.fused_residual_ffn, [x, ao], params, g)
+    if dtype == torch.float32:
+        _hold(FFN_NAMES, 2, got, _forward_and_cotangents(ffn_math, [x, ao], params, g), dtype)
+    else:
+        ref = [cuda_ffn.ffn_kernel_math(x, ao, *params),
+               *cuda_ffn.ffn_backward_math(x, ao, *params, g)]
+        _hold(FFN_NAMES, 2, got, ref, dtype, torch.bfloat16)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)

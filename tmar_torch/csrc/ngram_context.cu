@@ -55,11 +55,13 @@
 //     tile), like K7's cells pass;
 //   * every other case (float32 at every other geometry, bfloat16 without
 //     a plan): the CUDA-core generic body, which takes C, D, the heads and
-//     head_dim (<= 32) at run time: one 256-thread block per 32 cells of a
-//     grid row, staging the three input rows it needs (3·(TJ+2) positions
-//     for TJ outputs), weights read from device memory; every product in
-//     float32 on the CUDA cores, rounding at bfloat16 where
-//     ngram_context_kernel_math does.
+//     head_dim (any) at run time: one 256-thread block per tj cells of a
+//     grid row (tj the most of 32, 16, ..., 1 whose block fits: 32 up to
+//     D = 128, 16 at C = 128 with 8 heads of 16, 8 at C = 256), staging
+//     the three input rows it needs (3·(tj+2) positions for tj outputs),
+//     weights read from device memory; every product in float32 on the
+//     CUDA cores, rounding at bfloat16 where ngram_context_kernel_math
+//     does.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -76,7 +78,7 @@ using namespace tmar;
 
 constexpr int C = 32;        // the tensor-core body's unigram channels (D / 2)
 constexpr int D = 64;        // and context channels
-constexpr int TJ = 32;       // the generic body's grid cells per block
+constexpr int TJ = 32;       // the templated body's grid cells per block, the generic one's most
 constexpr int NPOS = 3 * (TJ + 2);
 
 // sequence-reflect index map of the halo: -1 -> 1, n -> n-2; positions past
@@ -264,37 +266,40 @@ __global__ void __launch_bounds__(THREADS) ngram_context_kernel(
   }
 }
 
-// ---- the CUDA-core generic body: any (C, D, heads, head_dim <= HDM) ---------
-// One 256-thread block per TJ cells of a grid row stages u of the three
-// input rows it needs (3·(TJ+2) positions for TJ outputs), then q/k/v of
+// ---- the CUDA-core generic body: any (C, D, heads, head_dim) ----------------
+// One 256-thread block per tj cells of a grid row stages u of the three
+// input rows it needs (3·(tj+2) positions for tj outputs), then q/k/v of
 // them, the mean tokens and ctx of its cells in shared memory, sized at
-// launch (tmar_torch/ops/envelope.py: ngram_fwd_bytes); the weights are read
-// from device memory, rounded to T's values as they are read.  At bfloat16
+// launch (tmar_torch/ops/envelope.py: ngram_fwd_bytes, ngram_tiles picks
+// tj); the weights are read from device memory, rounded to T's values as
+// they are read.  A thread of the attention holds a (cell, direction,
+// head)'s 16 softmax weights in registers and walks the head's channels one
+// at a time, so head_dim bounds no register array.  At bfloat16
 // it rounds where ngram_context_kernel_math (and _ngram_stripe_kernel)
 // round: v, each square before a head's sum, √n2 + 1e-12 and its
 // reciprocal, q_n and k_n, each q·k product before its head's sum, the
 // softmax weights, the token mean, ctx and the output; at float32 nowhere.
-template <int HDM, typename T>
+template <typename T>
 __global__ void __launch_bounds__(THREADS) ngram_context_rt(
     const T* __restrict__ u, const float* __restrict__ wqkv, const float* __restrict__ bqkv,
     const float* __restrict__ ls, const float* __restrict__ table,
     const float* __restrict__ wproj, const float* __restrict__ bproj,
     const float* __restrict__ wmerge, const float* __restrict__ bmerge, T* __restrict__ out,
-    int wh, int ww, int C, int D, int nh, int hd) {
-  const int A = nh * hd, A3 = 3 * A, LQ = A3 + 1, W2 = TJ + 2;
+    int wh, int ww, int C, int D, int nh, int hd, int tj) {
+  const int A = nh * hd, A3 = 3 * A, LQ = A3 + 1, W2 = tj + 2, NPOS = 3 * W2;
   extern __shared__ float smem[];
   float* s_u = smem;                  // [NPOS][C]
   float* s_qkv = s_u + NPOS * C;      // [NPOS][LQ]: q_n, k_n, v
-  float* s_mean = s_qkv + NPOS * LQ;  // [TJ][2][A]
-  float* s_ctx = s_mean + TJ * 2 * A;  // [TJ][2][C]
+  float* s_mean = s_qkv + NPOS * LQ;  // [tj][2][A]
+  float* s_ctx = s_mean + tj * 2 * A;  // [tj][2][C]
   const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * TJ;
+  const int j0 = blockIdx.x * tj;
   const int i = blockIdx.y;
   const int b = blockIdx.z;
-  const int cells = ww - j0 < TJ ? ww - j0 : TJ;
+  const int cells = ww - j0 < tj ? ww - j0 : tj;
   auto r = [](float v) { return round_as<T>(v); };
 
-  // rows i-1, i, i+1 and columns j0-1 .. j0+TJ, reflect-mapped
+  // rows i-1, i, i+1 and columns j0-1 .. j0+tj, reflect-mapped
   for (int e = tid; e < NPOS * C; e += THREADS) {
     const int pos = e / C, c = e % C;
     const int gr = reflect(i - 1 + pos / W2, wh);
@@ -322,8 +327,9 @@ __global__ void __launch_bounds__(THREADS) ngram_context_rt(
   }
   __syncthreads();
 
-  // one (cell, direction, head) per thread: 4x4 scores, softmax, AV, mean
-  for (int e = tid; e < TJ * 2 * nh; e += THREADS) {
+  // one (cell, direction, head) per thread: 4x4 scores, softmax, then the
+  // mean token Σ_p Σ_q a_pq·v_q / 4 channel by channel
+  for (int e = tid; e < tj * 2 * nh; e += THREADS) {
     const int jj = e / (2 * nh), dir = (e / nh) % 2, h = e % nh;
     float* mo = s_mean + (jj * 2 + dir) * A + h * hd;
     if (jj >= cells) {
@@ -338,9 +344,7 @@ __global__ void __launch_bounds__(THREADS) ngram_context_rt(
       tok[0] = lc - 1, tok[1] = lc, tok[2] = W2 + lc - 1, tok[3] = W2 + lc;
     }
     const float sc = expf(fminf(__ldg(ls + h), ngram::LN100));
-    float acc[HDM];
-#pragma unroll
-    for (int d = 0; d < HDM; ++d) acc[d] = 0.f;
+    float a[16];  // T(softmax weight) of query p, key q at a[4p + q]
 #pragma unroll
     for (int p = 0; p < 4; ++p) {
       const float* qp = s_qkv + tok[p] * LQ + h * hd;
@@ -364,17 +368,15 @@ __global__ void __launch_bounds__(THREADS) ngram_context_rt(
       }
       const float iz = 1.f / z;
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float* vq = s_qkv + tok[q] * LQ + 2 * A + h * hd;
-        const float a = r(s[q] * iz);
-#pragma unroll
-        for (int d = 0; d < HDM; ++d)
-          if (d < hd) acc[d] = fmaf(a, vq[d], acc[d]);
-      }
+      for (int q = 0; q < 4; ++q) a[4 * p + q] = r(s[q] * iz);
     }
+    const float* v = s_qkv + 2 * A + h * hd;
+    for (int d = 0; d < hd; ++d) {
+      float acc = 0.f;
 #pragma unroll
-    for (int d = 0; d < HDM; ++d)
-      if (d < hd) mo[d] = r(acc[d] * 0.25f);
+      for (int pq = 0; pq < 16; ++pq) acc = fmaf(a[pq], v[tok[pq & 3] * LQ + d], acc);
+      mo[d] = r(acc * 0.25f);
+    }
   }
   __syncthreads();
 
@@ -687,35 +689,35 @@ int launch_gmma(const void* const* p, void* out, int B, int wh, int ww, int C_, 
 }
 
 // ---- the CUDA-core generic body's launch -------------------------------------
-// its shared memory (tmar_torch/ops/envelope.py: ngram_fwd_bytes counts the
-// same)
-size_t rt_bytes(int C_, int nh, int hd) {
-  const size_t A = (size_t)nh * hd;
-  return 4 * (NPOS * C_ + NPOS * (3 * A + 1) + TJ * 2 * A + TJ * 2 * C_);
+// its shared memory on blocks of tj cells, and tj: the most of 32, 16, ..., 1
+// whose block fits (tmar_torch/ops/envelope.py: ngram_fwd_bytes and
+// ngram_tiles count and pick the same)
+size_t rt_bytes(int C_, int nh, int hd, int tj) {
+  const size_t A = (size_t)nh * hd, npos = 3 * (tj + 2);
+  return 4 * (npos * C_ + npos * (3 * A + 1) + tj * 2 * A + tj * 2 * (size_t)C_);
 }
-
-template <int HDM, typename T>
-int launch_rt(const void* const* p, void* out, int B, int wh, int ww, int C_, int D_, int nh,
-              int hd, cudaStream_t stream) {
-  const size_t bytes = rt_bytes(C_, nh, hd);
-  auto kern = ngram_context_rt<HDM, T>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((ww + TJ - 1) / TJ, wh, B);
-  kern<<<grid, THREADS, bytes, stream>>>(
-      (const T*)p[0], (const float*)p[1], (const float*)p[2], (const float*)p[3],
-      (const float*)p[4], (const float*)p[5], (const float*)p[6], (const float*)p[7],
-      (const float*)p[8], (T*)out, wh, ww, C_, D_, nh, hd);
-  return (int)cudaGetLastError();
+int rt_cells(int C_, int nh, int hd) {
+  int tj = TJ;
+  while (tj > 1 && rt_bytes(C_, nh, hd, tj) > MAX_SMEM) tj /= 2;
+  return tj;
 }
 
 template <typename T>
 int launch_generic(const void* const* p, void* out, int B, int wh, int ww, int C_, int D_,
-                   int nh, int hd, cudaStream_t s) {
-  if (hd <= 8) return launch_rt<8, T>(p, out, B, wh, ww, C_, D_, nh, hd, s);
-  if (hd <= 16) return launch_rt<16, T>(p, out, B, wh, ww, C_, D_, nh, hd, s);
-  return launch_rt<32, T>(p, out, B, wh, ww, C_, D_, nh, hd, s);
+                   int nh, int hd, cudaStream_t stream) {
+  const int tj = rt_cells(C_, nh, hd);
+  const size_t bytes = rt_bytes(C_, nh, hd, tj);
+  if (bytes > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  auto kern = ngram_context_rt<T>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((ww + tj - 1) / tj, wh, B);
+  kern<<<grid, THREADS, bytes, stream>>>(
+      (const T*)p[0], (const float*)p[1], (const float*)p[2], (const float*)p[3],
+      (const float*)p[4], (const float*)p[5], (const float*)p[6], (const float*)p[7],
+      (const float*)p[8], (T*)out, wh, ww, C_, D_, nh, hd, tj);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -732,15 +734,15 @@ extern "C" {
 // one; bfloat16 elsewhere the tensor-core generic body wherever it has a
 // plan (both tensor-core bodies with u and out 16-byte aligned, on a
 // persistent grid of at most `sms` times the blocks an SM holds); every
-// other case the CUDA-core generic body (head_dim <= 32).  Requires wh >= 2
-// and ww >= 2.  Returns a cudaError_t code (0 on a clean launch).
+// other case the CUDA-core generic body (any head_dim; its cells a block
+// sized to the card's shared memory).  Requires wh >= 2 and ww >= 2.
+// Returns a cudaError_t code (0 on a clean launch).
 int tmar_ngram_context(const void* u, const void* wqkv, const void* bqkv,
                        const void* logit_scale, const void* table, const void* wproj,
                        const void* bproj, const void* wmerge, const void* bmerge, void* out,
                        int B, int wh, int ww, int C_, int D_, int num_heads, int head_dim,
                        int is_bf16, int sms, void* stream) {
-  if (B < 1 || wh < 2 || ww < 2 || sms < 1 || C_ < 1 || D_ < 1 || num_heads < 1 ||
-      head_dim < 1 || head_dim > 32)
+  if (B < 1 || wh < 2 || ww < 2 || sms < 1 || C_ < 1 || D_ < 1 || num_heads < 1 || head_dim < 1)
     return (int)cudaErrorInvalidValue;
   const void* p[9] = {u, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge, bmerge};
   cudaStream_t s = (cudaStream_t)stream;
@@ -768,9 +770,10 @@ int tmar_ngram_context_body(int C_, int D_, int num_heads, int head_dim, int is_
   return ngram_g::body(C_, D_, num_heads, head_dim, is_bf16, true);
 }
 
-// The shared memory, in bytes, of the CUDA-core generic body's launch.
+// The shared memory, in bytes, of the CUDA-core generic body's launch, on
+// the cells a block it picks (rt_cells).
 long long tmar_ngram_context_smem(int C_, int num_heads, int head_dim) {
-  return (long long)rt_bytes(C_, num_heads, head_dim);
+  return (long long)rt_bytes(C_, num_heads, head_dim, rt_cells(C_, num_heads, head_dim));
 }
 
 // The shared memory, in bytes, of the tensor-core generic body on tiles of

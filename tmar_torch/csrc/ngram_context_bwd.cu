@@ -61,8 +61,9 @@
 //   (C and D multiples of 8 up to 128) runs the tensor-core generic body
 //   (ngram_g, below), the same design with the widths at run time; every
 //   other case runs the CUDA-core generic body, which takes C, D, the heads
-//   and head_dim (<= 32) at run time (pass 1 over tiles of 16 cells of a
-//   grid row, pass 2 over 32 positions, weights read from device memory),
+//   and head_dim (any) at run time (pass 1 over tiles of 16 cells of a
+//   grid row, pass 2 over 32 positions, each fewer where its block would
+//   not fit: 8 and 32 at C = 256; weights read from device memory),
 //   products on the CUDA cores in float32, rounding at bfloat16 where
 //   ngram_context_kernel_backward_math does.
 
@@ -76,10 +77,8 @@ using namespace tmar;
 
 constexpr int C = 32;   // the tensor-core body's unigram channels (D / 2)
 constexpr int D = 64;   // and context channels
-constexpr int TJ = 16;  // the generic body's pass 1: cells per tile
-constexpr int W2 = TJ + 2;
-constexpr int NPOS = 3 * W2;
-constexpr int TP = 32;  // the generic body's pass 2: positions per tile
+constexpr int TJ = 16;  // the generic body's pass 1: cells per tile, at most
+constexpr int TP = 32;  // the generic body's pass 2: positions per tile, at most
 
 // sequence-reflect index map of the halo: -1 -> 1, n -> n-2; positions past
 // n only feed cells outside the grid and are clamped to stay in bounds
@@ -110,24 +109,26 @@ __device__ __forceinline__ float pair_bias(const float* table, int p, int q, int
 }
 
 // ---- the CUDA-core generic body, pass 1: one owner per (cell, direction, token) slot
-// A block owns tiles of TJ cells of a grid row; it stages u of the 3 x (TJ+2)
+// A block owns tiles of tj cells of a grid row; it stages u of the 3 x (tj+2)
 // positions they read (reflect-mapped) and g of its cells, recomputes the
-// forward as ngram_context.cu's generic body does, and writes each window's
+// forward as ngram_context.cu's generic body does (a thread's 16 softmax
+// weights in registers, the head's channels walked one at a time, so
+// head_dim bounds no register array), and writes each window's
 // d(qn), d(kn), d(v) into its own slot of ws.  Its sums of dscale, dbias,
 // dwproj, dbproj, dwmerge and dbmerge go into its slot of part (zeroed
 // first), each element by one owner thread.  Weights are read from device
 // memory, rounded to T's values.  At bfloat16 it rounds where
 // ngram_context_kernel_backward_math does; at float32 nowhere.
-template <int HDM, typename T>
+template <typename T>
 __global__ void __launch_bounds__(THREADS) ngram_bwd_cells_rt(
     const T* __restrict__ u, const T* __restrict__ g, const float* __restrict__ wqkv,
     const float* __restrict__ bqkv, const float* __restrict__ ls,
     const float* __restrict__ table, const float* __restrict__ wproj,
     const float* __restrict__ bproj, const float* __restrict__ wmerge,
     float* __restrict__ ws, float* __restrict__ part, int B, int wh, int ww, int C, int D,
-    int nh, int hd) {
+    int nh, int hd, int TJ) {
   const Slots P(C, D, nh, hd);
-  const int A = P.A, A3 = P.A3, LQ = A3 + 1;
+  const int A = P.A, A3 = P.A3, LQ = A3 + 1, W2 = TJ + 2, NPOS = 3 * W2;
   extern __shared__ float smem[];
   float* s_u = smem;                      // [NPOS][C]
   float* s_qkv = s_u + NPOS * C;          // [NPOS][LQ]: q_n, k_n, v (T's values)
@@ -237,25 +238,22 @@ __global__ void __launch_bounds__(THREADS) ngram_bwd_cells_rt(
         for (int q = 0; q < 4; ++q) a[p * 4 + q] *= iz;
       }
       const float* dac = sDacc + jd * A + h * hd;
-      float colsum[4], da[4], acc[HDM];
-#pragma unroll
-      for (int d = 0; d < HDM; ++d) acc[d] = 0.f;
+      const float* v = s_qkv + 2 * A + h * hd;
+      float colsum[4], da[4];
 #pragma unroll
       for (int q = 0; q < 4; ++q) {
-        const float* vq = s_qkv + tok[q] * LQ + 2 * A + h * hd;
+        const float* vq = v + tok[q] * LQ;
         colsum[q] = r(a[q]) + r(a[4 + q]) + r(a[8 + q]) + r(a[12 + q]);
         float dot = 0.f;
-#pragma unroll
-        for (int d = 0; d < HDM; ++d)
-          if (d < hd) {
-            acc[d] = fmaf(colsum[q], vq[d], acc[d]);
-            dot += r(r(dac[d]) * vq[d]);
-          }
+        for (int d = 0; d < hd; ++d) dot += r(r(dac[d]) * vq[d]);
         da[q] = dot;
       }
+      for (int d = 0; d < hd; ++d) {
+        float acc = 0.f;
 #pragma unroll
-      for (int d = 0; d < HDM; ++d)
-        if (d < hd) mo[d] = r(acc[d] * 0.25f);
+        for (int q = 0; q < 4; ++q) acc = fmaf(colsum[q], v[tok[q] * LQ + d], acc);
+        mo[d] = r(acc * 0.25f);
+      }
       float dsc = 0.f;
 #pragma unroll
       for (int p = 0; p < 4; ++p) {
@@ -273,29 +271,19 @@ __global__ void __launch_bounds__(THREADS) ngram_bwd_cells_rt(
       sDSC[e] = dsc;
       float* slot = ws + ((row + j0 + jj) * 2 + dir) * 4 * A3 + h * hd;
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        float dq[HDM], dk[HDM];
+      for (int t = 0; t < 4; ++t)
+        for (int d = 0; d < hd; ++d) {
+          float dq = 0.f, dk = 0.f;
 #pragma unroll
-        for (int d = 0; d < HDM; ++d) dq[d] = dk[d] = 0.f;
-#pragma unroll
-        for (int o = 0; o < 4; ++o) {
-          const float* ko = s_qkv + tok[o] * LQ + A + h * hd;
-          const float* qo = s_qkv + tok[o] * LQ + h * hd;
-#pragma unroll
-          for (int d = 0; d < HDM; ++d)
-            if (d < hd) {
-              dq[d] = fmaf(a[t * 4 + o], ko[d], dq[d]);
-              dk[d] = fmaf(a[o * 4 + t], qo[d], dk[d]);
-            }
-        }
-#pragma unroll
-        for (int d = 0; d < HDM; ++d)
-          if (d < hd) {
-            slot[t * A3 + d] = dq[d];
-            slot[t * A3 + A + d] = dk[d];
-            slot[t * A3 + 2 * A + d] = colsum[t] * dac[d];
+          for (int o = 0; o < 4; ++o) {
+            const float* qo = s_qkv + tok[o] * LQ + h * hd;
+            dq = fmaf(a[t * 4 + o], qo[A + d], dq);
+            dk = fmaf(a[o * 4 + t], qo[d], dk);
           }
-      }
+          slot[t * A3 + d] = dq;
+          slot[t * A3 + A + d] = dk;
+          slot[t * A3 + 2 * A + d] = colsum[t] * dac[d];
+        }
     }
     __syncthreads();
 
@@ -359,15 +347,15 @@ __device__ __forceinline__ int readers(int i, int n, int dir, int (&cell)[3], in
 }
 
 // ---- the CUDA-core generic body, pass 2: one owner per grid position -----
-// A block owns tiles of TP grid positions; for each it adds, in a fixed
+// A block owns tiles of tp grid positions; for each it adds, in a fixed
 // order, the slots of the windows that read it, then does the norm and qkv
 // backward there (rounding as ngram_context_kernel_backward_math), and adds
 // dwqkv and dbqkv into its slot of part.
-template <int HDM, typename T>
+template <typename T>
 __global__ void __launch_bounds__(THREADS) ngram_bwd_positions_rt(
     const T* __restrict__ u, const float* __restrict__ wqkv, const float* __restrict__ bqkv,
     const float* __restrict__ ws, T* __restrict__ du, float* __restrict__ part, int B, int wh,
-    int ww, int C, int D, int nh, int hd) {
+    int ww, int C, int D, int nh, int hd, int TP) {
   const Slots P(C, D, nh, hd);
   const int A = P.A, A3 = P.A3, LQ = A3 + 1, LP = C + 1;
   extern __shared__ float smem[];
@@ -1526,23 +1514,35 @@ int occupancy(long* per1, long* per2) {
   return 0;
 }
 
-// the generic body's shared memory of its two passes, in bytes
-// (tmar_torch/ops/envelope.py: ngram_bwd_bytes counts the same)
-size_t cells_bytes(int C_, int D_, int nh, int hd) {
-  const size_t A = (size_t)nh * hd;
-  return 4 * (NPOS * C_ + NPOS * (3 * A + 1) + TJ * D_ + TJ * 2 * C_ + TJ * 2 * A + TJ * 2 * A +
-              TJ * 2 * C_ + TJ * 2 * 16 * nh + TJ * 2 * nh);
+// the generic body's shared memory of its two passes on tiles of tj cells
+// and tp positions, and those tiles: each the most of TJ (TP), half that,
+// ..., 1 whose block fits (tmar_torch/ops/envelope.py: ngram_bwd_bytes and
+// ngram_tiles count and pick the same)
+size_t cells_bytes(int C_, int D_, int nh, int hd, int tj) {
+  const size_t A = (size_t)nh * hd, npos = 3 * (tj + 2);
+  return 4 * (npos * C_ + npos * (3 * A + 1) + tj * ((size_t)D_ + 2 * C_ + 2 * A + 2 * A +
+                                                    2 * C_ + 2 * 16 * nh + 2 * nh));
 }
-size_t positions_bytes(int C_, int nh, int hd) {
-  return 4 * (size_t)TP * ((C_ + 1) + 2 * (3 * nh * hd + 1));
+size_t positions_bytes(int C_, int nh, int hd, int tp) {
+  return 4 * (size_t)tp * ((C_ + 1) + 2 * (3 * nh * hd + 1));
+}
+int rt_cells(int C_, int D_, int nh, int hd) {
+  int tj = TJ;
+  while (tj > 1 && cells_bytes(C_, D_, nh, hd, tj) > MAX_SMEM) tj /= 2;
+  return tj;
+}
+int rt_positions(int C_, int nh, int hd) {
+  int tp = TP;
+  while (tp > 1 && positions_bytes(C_, nh, hd, tp) > MAX_SMEM) tp /= 2;
+  return tp;
 }
 
 // the generic body's resident blocks per SM of its two passes (at most 8),
 // as the card reports them for this shared memory
-template <int HDM, typename T>
+template <typename T>
 int rt_occupancy(size_t b1, size_t b2, long* per1, long* per2) {
-  auto cells = ngram_bwd_cells_rt<HDM, T>;
-  auto positions = ngram_bwd_positions_rt<HDM, T>;
+  auto cells = ngram_bwd_cells_rt<T>;
+  auto positions = ngram_bwd_positions_rt<T>;
   int n1 = 0, n2 = 0;
   cudaError_t err = cudaFuncSetAttribute(cells, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b1);
   if (err == cudaSuccess)
@@ -1560,10 +1560,10 @@ int rt_occupancy(size_t b1, size_t b2, long* per1, long* per2) {
 
 template <typename T>
 int generic_occupancy(int C_, int D_, int nh, int hd, long* per1, long* per2) {
-  const size_t b1 = cells_bytes(C_, D_, nh, hd), b2 = positions_bytes(C_, nh, hd);
-  if (hd <= 8) return rt_occupancy<8, T>(b1, b2, per1, per2);
-  if (hd <= 16) return rt_occupancy<16, T>(b1, b2, per1, per2);
-  return rt_occupancy<32, T>(b1, b2, per1, per2);
+  const size_t b1 = cells_bytes(C_, D_, nh, hd, rt_cells(C_, D_, nh, hd));
+  const size_t b2 = positions_bytes(C_, nh, hd, rt_positions(C_, nh, hd));
+  if (b1 > MAX_SMEM || b2 > MAX_SMEM) return (int)cudaErrorInvalidValue;
+  return rt_occupancy<T>(b1, b2, per1, per2);
 }
 
 int plan(int B, int wh, int ww, int C_, int D_, int nh, int hd, int is_bf16, int sms,
@@ -1587,8 +1587,9 @@ int plan(int B, int wh, int ww, int C_, int D_, int nh, int hd, int is_bf16, int
     tiles1 = (long)B * ((wh + L1::S - 1) / L1::S) * ((ww + L1::TJ - 1) / L1::TJ);
     tiles2 = (cells + L2::TP - 1) / L2::TP;
   } else {
-    tiles1 = (long)B * wh * ((ww + TJ - 1) / TJ);
-    tiles2 = (cells + TP - 1) / TP;
+    const int tj = rt_cells(C_, D_, nh, hd), tp = rt_positions(C_, nh, hd);
+    tiles1 = (long)B * wh * ((ww + tj - 1) / tj);
+    tiles2 = (cells + tp - 1) / tp;
     const int rc = is_bf16 ? generic_occupancy<__nv_bfloat16>(C_, D_, nh, hd, &per1, &per2)
                            : generic_occupancy<float>(C_, D_, nh, hd, &per1, &per2);
     if (rc != 0) return rc;
@@ -1636,13 +1637,14 @@ int launch_gmma(const void* const* p, void* du, float* ws, float* part1, float* 
   return (int)cudaGetLastError();
 }
 
-template <int HDM, typename T>
-int launch_rt(const void* const* p, void* du, float* ws, float* part1, float* part2,
-              const Plan& pl, int B, int wh, int ww, int C_, int D_, int nh, int hd,
-              cudaStream_t stream) {
-  auto cells = ngram_bwd_cells_rt<HDM, T>;
-  auto positions = ngram_bwd_positions_rt<HDM, T>;
-  const size_t b1 = cells_bytes(C_, D_, nh, hd), b2 = positions_bytes(C_, nh, hd);
+template <typename T>
+int launch_generic(const void* const* p, void* du, float* ws, float* part1, float* part2,
+                   const Plan& pl, int B, int wh, int ww, int C_, int D_, int nh, int hd,
+                   cudaStream_t stream) {
+  auto cells = ngram_bwd_cells_rt<T>;
+  auto positions = ngram_bwd_positions_rt<T>;
+  const int tj = rt_cells(C_, D_, nh, hd), tp = rt_positions(C_, nh, hd);
+  const size_t b1 = cells_bytes(C_, D_, nh, hd, tj), b2 = positions_bytes(C_, nh, hd, tp);
   cudaError_t err = cudaFuncSetAttribute(cells, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b1);
   if (err == cudaSuccess)
     err = cudaFuncSetAttribute(positions, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)b2);
@@ -1650,21 +1652,12 @@ int launch_rt(const void* const* p, void* du, float* ws, float* part1, float* pa
   cells<<<pl.blocks1, THREADS, b1, stream>>>(
       (const T*)p[0], (const T*)p[1], (const float*)p[2], (const float*)p[3],
       (const float*)p[4], (const float*)p[5], (const float*)p[6], (const float*)p[7],
-      (const float*)p[8], ws, part1, B, wh, ww, C_, D_, nh, hd);
+      (const float*)p[8], ws, part1, B, wh, ww, C_, D_, nh, hd, tj);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   positions<<<pl.blocks2, THREADS, b2, stream>>>(
       (const T*)p[0], (const float*)p[2], (const float*)p[3], ws, (T*)du, part2, B, wh, ww, C_,
-      D_, nh, hd);
+      D_, nh, hd, tp);
   return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_generic(const void* const* p, void* du, float* ws, float* part1, float* part2,
-                   const Plan& pl, int B, int wh, int ww, int C_, int D_, int nh, int hd,
-                   cudaStream_t s) {
-  if (hd <= 8) return launch_rt<8, T>(p, du, ws, part1, part2, pl, B, wh, ww, C_, D_, nh, hd, s);
-  if (hd <= 16) return launch_rt<16, T>(p, du, ws, part1, part2, pl, B, wh, ww, C_, D_, nh, hd, s);
-  return launch_rt<32, T>(p, du, ws, part1, part2, pl, B, wh, ww, C_, D_, nh, hd, s);
 }
 
 int launch(const void* const* p, void* du, void* scratch, void* dparams, int B, int wh, int ww,
@@ -1710,7 +1703,7 @@ extern "C" {
 // The body is ngram_g::body's: bfloat16 at C = 32, D = 64 and heads 6 x 5
 // or 4 x 8 the tensor-core body, bfloat16 elsewhere the tensor-core generic
 // body wherever it has a plan (both with u, g and du 16-byte aligned), every
-// other case the CUDA-core generic body (head_dim <= 32); each is three
+// other case the CUDA-core generic body (any head_dim); each is three
 // launches (cells pass, positions pass, one reduce).  `scratch` holds tmar_ngram_context_bwd_workspace's count of
 // floats.  Requires wh >= 2 and ww >= 2.  Returns a cudaError_t code.
 int tmar_ngram_context_bwd(const void* u, const void* g, const void* wqkv, const void* bqkv,
@@ -1718,8 +1711,7 @@ int tmar_ngram_context_bwd(const void* u, const void* g, const void* wqkv, const
                            const void* bproj, const void* wmerge, void* du, void* scratch,
                            void* dparams, int B, int wh, int ww, int C_, int D_, int num_heads,
                            int head_dim, int is_bf16, int sms, void* stream) {
-  if (B < 1 || wh < 2 || ww < 2 || sms < 1 || C_ < 1 || D_ < 1 || num_heads < 1 ||
-      head_dim < 1 || head_dim > 32)
+  if (B < 1 || wh < 2 || ww < 2 || sms < 1 || C_ < 1 || D_ < 1 || num_heads < 1 || head_dim < 1)
     return (int)cudaErrorInvalidValue;
   const void* p[9] = {u, g, wqkv, bqkv, logit_scale, table, wproj, bproj, wmerge};
   return launch(p, du, scratch, dparams, B, wh, ww, C_, D_, num_heads, head_dim, is_bf16, sms,
@@ -1730,8 +1722,7 @@ int tmar_ngram_context_bwd(const void* u, const void* g, const void* wqkv, const
 // *floats.  Returns a cudaError_t code.
 int tmar_ngram_context_bwd_workspace(int B, int wh, int ww, int C_, int D_, int num_heads,
                                      int head_dim, int is_bf16, int sms, long long* floats) {
-  if (B < 1 || wh < 2 || ww < 2 || sms < 1 || C_ < 1 || D_ < 1 || num_heads < 1 ||
-      head_dim < 1 || head_dim > 32)
+  if (B < 1 || wh < 2 || ww < 2 || sms < 1 || C_ < 1 || D_ < 1 || num_heads < 1 || head_dim < 1)
     return (int)cudaErrorInvalidValue;
   Plan pl;
   const int rc = plan(B, wh, ww, C_, D_, num_heads, head_dim, is_bf16, sms, &pl);
@@ -1740,10 +1731,12 @@ int tmar_ngram_context_bwd_workspace(int B, int wh, int ww, int C_, int D_, int 
 }
 
 // The shared memory, in bytes, of the CUDA-core generic body's cells pass
-// (pass 1) or positions pass (pass 2).
+// (pass 1) or positions pass (pass 2), on the tiles it picks.
 long long tmar_ngram_context_bwd_smem(int C_, int D_, int num_heads, int head_dim, int pass) {
-  return (long long)(pass == 1 ? cells_bytes(C_, D_, num_heads, head_dim)
-                               : positions_bytes(C_, num_heads, head_dim));
+  return (long long)(pass == 1 ? cells_bytes(C_, D_, num_heads, head_dim,
+                                             rt_cells(C_, D_, num_heads, head_dim))
+                               : positions_bytes(C_, num_heads, head_dim,
+                                                 rt_positions(C_, num_heads, head_dim)));
 }
 
 // The shared memory, in bytes, of the tensor-core generic body's cells pass

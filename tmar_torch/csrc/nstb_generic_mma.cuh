@@ -153,13 +153,16 @@ inline bool flagship(int ws, int D, int H, int nh, int hd) {
 // CUDA-core body of nstb_generic.cuh; windows past 64 tokens and heads wider
 // than 32 channels, which none of those take, the long-window bodies
 // (nstb_long.cuh): bfloat16 the tensor-core one wherever it has a plan
-// (long_mma.cuh: nstb_plan_bytes), the rest the CUDA-core one.
+// (long_mma.cuh: nstb_plan_bytes), the rest the CUDA-core one; so too where
+// the CUDA-core body would run but its tile fits no block
+// (nstb_rt::smem_bytes; envelope.py: nstb_bytes).
 inline Body body(int ws, int D, int nh, int hd, int H, int is_bf16) {
   Plan P;
-  if (ws * ws > tmar::ROWS || hd > 32)
-    return is_bf16 && long_mma::nstb_plan_bytes(ws, D, nh, hd, H) ? LONG_TC : LONG;
+  const Body lng = is_bf16 && long_mma::nstb_plan_bytes(ws, D, nh, hd, H) ? LONG_TC : LONG;
+  if (ws * ws > tmar::ROWS || hd > 32) return lng;
   if (flagship(ws, D, H, nh, hd)) return FLAGSHIP;
-  return is_bf16 && plan(ws, D, nh, hd, H, &P) ? TENSOR_CORE : CUDA_CORE;
+  if (is_bf16 && plan(ws, D, nh, hd, H, &P)) return TENSOR_CORE;
+  return nstb_rt::smem_bytes(ws * ws, D, nh * hd, H) <= tmar::MAX_SMEM ? CUDA_CORE : lng;
 }
 
 // the window side ws of N = ws² tokens

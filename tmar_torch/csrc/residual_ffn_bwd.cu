@@ -34,8 +34,10 @@
 //
 // The CUDA-core generic body takes D and H at run time (float32 at every
 // other width, and bfloat16 where the tensor-core generic body takes no
-// plan): tiles of 64 rows (32 or 16 for a
-// wide model) in shared memory, weights read from device memory (L2), the
+// plan): tiles of R rows (the most of 64, 32, ..., 1 that fit a block:
+// 16 at D = 256 and hidden 1024, 8 at D = 512 and hidden 2048; where one
+// row's hidden width alone does not fit, the hidden layer in chunks of HC
+// columns, recomputed for the backward) in shared memory, weights read from device memory (L2), the
 // block's sums in its slot of part, products on the CUDA cores in float32;
 // at bfloat16 it rounds where ffn_backward_math does.
 //
@@ -341,19 +343,21 @@ __global__ void __launch_bounds__(THREADS, 1) residual_ffn_bwd_kernel(
 }
 
 // ---- the CUDA-core generic body: any (D, hidden) --------------------------
-// A persistent block walks over tiles of R rows (64, or 32 / 16 where a
-// wide model's tile would not fit: tmar_torch/ops/envelope.py,
-// ffn_bwd_bytes); n1, y, o then do, dz then dy (width D) and u then du, hc
-// (width H) of a tile sit in shared memory in float32, rows padded to an odd
-// length.  The weights are read from device memory through their strides,
+// A persistent block walks over tiles of R rows (64, or the most of 32, 16,
+// ..., 1 where a wide model's tile would not fit: tmar_torch/ops/envelope.py,
+// ffn_envelope and ffn_bwd_bytes); n1, y, o then do, dz then dy (width D) and u then du, hc
+// (HC columns of the hidden layer, all H where they fit) of a tile sit in
+// shared memory in float32, rows padded to an odd length.  With HC < H the
+// forward adds o chunk by chunk, and the backward recomputes each chunk's u
+// and hc before its cotangents.  The weights are read from device memory through their strides,
 // rounded to T's values as they are read.  The block's partial sums live in
 // its own slot of `part` (zeroed first): every element has one owner thread
 // (a column pass, or mm_rt's fixed mapping), which adds each tile's share in
 // place, so neither atomics nor a second owner ever touch it.  At bfloat16 it
 // rounds where ffn_backward_math does (above); at float32 it is the float32
 // backward.
-size_t rt_bytes(int D, int H, int R) {
-  return (size_t)4 * R * (4 * (D + 1) + 2 * (H + 1) + 2);
+size_t rt_bytes(int D, int HC, int R) {
+  return (size_t)4 * R * (4 * (D + 1) + 2 * (HC + 1) + 2);
 }
 
 template <typename T>
@@ -363,9 +367,9 @@ __global__ void __launch_bounds__(THREADS) residual_ffn_bwd_rt(
     const float* __restrict__ w1, int w1_k, int w1_n, const float* __restrict__ bw1,
     const float* __restrict__ w2, int w2_k, int w2_n, const float* __restrict__ bw2,
     const float* __restrict__ g2, T* __restrict__ dx, T* __restrict__ dao,
-    float* __restrict__ part, long M, int D, int H, int R, float eps) {
+    float* __restrict__ part, long M, int D, int H, int R, int HC, float eps) {
   extern __shared__ float smem[];
-  const int LX = D + 1, LH = H + 1;
+  const int LX = D + 1, LH = HC + 1;
   float* sN1 = smem;           // n1
   float* sY = sN1 + R * LX;    // y
   float* sO = sY + R * LX;     // o, n2, then do
@@ -402,19 +406,28 @@ __global__ void __launch_bounds__(THREADS) residual_ffn_bwd_rt(
     }
     __syncthreads();
 
-    // 2. u = T(y) @ T(w1) + bw1;  hc = T(GELU(u))
-    mm_rt(rows, H, D, [&](int m, int k) { return round_as<T>(sY[m * LX + k]); }, w1c,
-          [&](int m, int n, float v) {
-            const float u = v + __ldg(bw1 + n);
-            sU[m * LH + n] = u;
-            sH[m * LH + n] = round_as<T>(act::gelu(u));
-          });
-    __syncthreads();
-
-    // 3. o = hc @ T(w2) + bw2
-    mm_rt(rows, D, H, [&](int m, int k) { return sH[m * LH + k]; }, w2c,
-          [&](int m, int n, float v) { sO[m * LX + n] = v + __ldg(bw2 + n); });
-    __syncthreads();
+    // 2. u = T(y) @ T(w1) + bw1;  hc = T(GELU(u)) of hidden columns [c0, c0 + HC)
+    auto hidden = [&](int c0, int hc) {
+      mm_rt(rows, hc, D, [&](int m, int k) { return round_as<T>(sY[m * LX + k]); },
+            [&](int k, int n) { return w1c(k, c0 + n); },
+            [&](int m, int n, float v) {
+              const float u = v + __ldg(bw1 + c0 + n);
+              sU[m * LH + n] = u;
+              sH[m * LH + n] = round_as<T>(act::gelu(u));
+            });
+      __syncthreads();
+    };
+    // 3. o = hc @ T(w2) + bw2, the chunks' products added in place
+    for (int c0 = 0; c0 < H; c0 += HC) {
+      const int hc = H - c0 < HC ? H - c0 : HC;
+      hidden(c0, hc);
+      mm_rt(rows, D, hc, [&](int m, int k) { return sH[m * LH + k]; },
+            [&](int k, int n) { return w2c(c0 + k, n); },
+            [&](int m, int n, float v) {
+              sO[m * LX + n] = c0 == 0 ? v + __ldg(bw2 + n) : sO[m * LX + n] + v;
+            });
+      __syncthreads();
+    }
 
     // 4. LN2 backward: o -> n2 (rows), dg2 and db2 (columns), n2 -> do (rows)
     for (int r = warp; r < rows; r += THREADS / 32) {
@@ -449,33 +462,38 @@ __global__ void __launch_bounds__(THREADS) residual_ffn_bwd_rt(
     }
     __syncthreads();
 
-    // 5. dbw2 += Σ do;  dw2 += hcᵀ T(do);  du = T(do) @ T(w2)ᵀ · GELU'(u) (over u)
+    // 5. dbw2 += Σ do;  then per hidden chunk (u and hc recomputed where
+    //    the chunks are several): dw2 += hcᵀ T(do);  du = T(do) @ T(w2)ᵀ ·
+    //    GELU'(u) (over u);  6. dbw1 += Σ du;  dw1 += T(y)ᵀ T(du);
+    //    dy = dz + T(du) @ T(w1)ᵀ (over dz)
     for (int c = tid; c < D; c += THREADS) {
       float s = 0.f;
       for (int r = 0; r < rows; ++r) s += sO[r * LX + c];
       my[pDBW2 + c] += s;
     }
-    mm_rt(H, D, rows, [&](int m, int k) { return sH[k * LH + m]; },
-          [&](int k, int n) { return round_as<T>(sO[k * LX + n]); },
-          [&](int m, int n, float v) { my[pDW2 + m * D + n] += v; });
-    mm_rt(rows, H, D, [&](int m, int k) { return round_as<T>(sO[m * LX + k]); },
-          [&](int k, int n) { return w2c(n, k); },
-          [&](int m, int n, float v) { sU[m * LH + n] = v * act::gelu_grad(sU[m * LH + n]); });
-    __syncthreads();
-
-    // 6. dbw1 += Σ du;  dw1 += T(y)ᵀ T(du);  dy = dz + T(du) @ T(w1)ᵀ (over dz)
-    for (int c = tid; c < H; c += THREADS) {
-      float s = 0.f;
-      for (int r = 0; r < rows; ++r) s += sU[r * LH + c];
-      my[pDBW1 + c] += s;
+    for (int c0 = 0; c0 < H; c0 += HC) {
+      const int hc = H - c0 < HC ? H - c0 : HC;
+      if (HC < H) hidden(c0, hc);
+      mm_rt(hc, D, rows, [&](int m, int k) { return sH[k * LH + m]; },
+            [&](int k, int n) { return round_as<T>(sO[k * LX + n]); },
+            [&](int m, int n, float v) { my[pDW2 + (c0 + m) * D + n] += v; });
+      mm_rt(rows, hc, D, [&](int m, int k) { return round_as<T>(sO[m * LX + k]); },
+            [&](int k, int n) { return w2c(c0 + n, k); },
+            [&](int m, int n, float v) { sU[m * LH + n] = v * act::gelu_grad(sU[m * LH + n]); });
+      __syncthreads();
+      for (int c = tid; c < hc; c += THREADS) {
+        float s = 0.f;
+        for (int r = 0; r < rows; ++r) s += sU[r * LH + c];
+        my[pDBW1 + c0 + c] += s;
+      }
+      mm_rt(D, hc, rows, [&](int m, int k) { return round_as<T>(sY[k * LX + m]); },
+            [&](int k, int n) { return round_as<T>(sU[k * LH + n]); },
+            [&](int m, int n, float v) { my[pDW1 + m * H + c0 + n] += v; });
+      mm_rt(rows, D, hc, [&](int m, int k) { return round_as<T>(sU[m * LH + k]); },
+            [&](int k, int n) { return w1c(n, c0 + k); },
+            [&](int m, int n, float v) { sG[m * LX + n] += v; });
+      __syncthreads();
     }
-    mm_rt(D, H, rows, [&](int m, int k) { return round_as<T>(sY[k * LX + m]); },
-          [&](int k, int n) { return round_as<T>(sU[k * LH + n]); },
-          [&](int m, int n, float v) { my[pDW1 + m * H + n] += v; });
-    mm_rt(rows, D, H, [&](int m, int k) { return round_as<T>(sU[m * LH + k]); },
-          [&](int k, int n) { return w1c(n, k); },
-          [&](int m, int n, float v) { sG[m * LX + n] += v; });
-    __syncthreads();
 
     // 7. dg1, db1 (columns);  dx = dy, d attn_out = LN1 backward (rows)
     for (int c = tid; c < D; c += THREADS) {
@@ -847,9 +865,9 @@ int launch(const void* const* p, int w1_k, int w1_n, int w2_k, int w2_n, void* d
 
 template <typename T>
 int launch_rt(const void* const* p, int w1_k, int w1_n, int w2_k, int w2_n, void* dx, void* dao,
-              void* part, void* dparams, long M, int D, int H, int R, float eps, int blocks,
-              cudaStream_t stream) {
-  const size_t bytes = rt_bytes(D, H, R);
+              void* part, void* dparams, long M, int D, int H, int R, int HC, float eps,
+              int blocks, cudaStream_t stream) {
+  const size_t bytes = rt_bytes(D, HC, R);
   auto kern = residual_ffn_bwd_rt<T>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -858,7 +876,7 @@ int launch_rt(const void* const* p, int w1_k, int w1_n, int w2_k, int w2_n, void
       (const T*)p[0], (const T*)p[1], (const T*)p[2], (const float*)p[3],
       (const float*)p[4], (const float*)p[5], w1_k, w1_n, (const float*)p[6],
       (const float*)p[7], w2_k, w2_n, (const float*)p[8], (const float*)p[9], (T*)dx,
-      (T*)dao, (float*)part, M, D, H, R, eps);
+      (T*)dao, (float*)part, M, D, H, R, HC, eps);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   const int size = 5 * D + 2 * D * H + H, dw1 = 2 * D, dw2 = 2 * D + D * H + H;
   reduce_partials_rounded<<<(size + 255) / 256, 256, 0, stream>>>(
@@ -878,17 +896,19 @@ extern "C" {
 // The body is ffn_g::body's: at (D, H) = (64, 128) the tensor-core body
 // (bfloat16; the five activations 16-byte aligned) or the templated one;
 // bfloat16 wherever it has a plan the tensor-core generic body; else the
-// CUDA-core generic body, in tiles of R rows (R <= 64) on `blocks` blocks.
+// CUDA-core generic body, in tiles of R rows (R <= 64) with the hidden layer
+// in chunks of HC columns (HC <= H) on `blocks` blocks.
 // `part` is scratch of tmar_residual_ffn_bwd_workspace's floats.  The
 // parameters are the forward's (b2 is not needed).  Returns a cudaError_t
 // code (0 on a clean launch).
 int tmar_residual_ffn_bwd(const void* x, const void* ao, const void* dz, const void* g1,
                           const void* b1, const void* w1, const void* bw1, const void* w2,
                           const void* bw2, const void* g2, void* dx, void* dao, void* part,
-                          void* dparams, long long M, int D, int H, int R, int w1_k, int w1_n,
-                          int w2_k, int w2_n, float eps, int blocks, int is_bf16,
+                          void* dparams, long long M, int D, int H, int R, int HC, int w1_k,
+                          int w1_n, int w2_k, int w2_n, float eps, int blocks, int is_bf16,
                           void* stream) {
-  if (M < 1 || D < 1 || H < 1 || R < 1 || R > 64 || blocks < 1) return (int)cudaErrorInvalidValue;
+  if (M < 1 || D < 1 || H < 1 || R < 1 || R > ROWS || HC < 1 || HC > H || blocks < 1)
+    return (int)cudaErrorInvalidValue;
   const void* p[10] = {x, ao, dz, g1, b1, w1, bw1, w2, bw2, g2};
   cudaStream_t s = (cudaStream_t)stream;
   switch (ffn_g::body(D, H, is_bf16)) {
@@ -903,11 +923,12 @@ int tmar_residual_ffn_bwd(const void* x, const void* ao, const void* dz, const v
     default:
       break;
   }
+  if (rt_bytes(D, HC, R) > MAX_SMEM) return (int)cudaErrorInvalidValue;
   if (is_bf16)
     return launch_rt<__nv_bfloat16>(p, w1_k, w1_n, w2_k, w2_n, dx, dao, part, dparams, (long)M,
-                                    D, H, R, eps, blocks, s);
+                                    D, H, R, HC, eps, blocks, s);
   return launch_rt<float>(p, w1_k, w1_n, w2_k, w2_n, dx, dao, part, dparams, (long)M, D, H, R,
-                          eps, blocks, s);
+                          HC, eps, blocks, s);
 }
 
 // The floats of scratch (`part`) tmar_residual_ffn_bwd needs for this call
@@ -935,8 +956,8 @@ int tmar_residual_ffn_bwd_workspace(long long M, int D, int H, int blocks, int i
 int tmar_residual_ffn_bwd_body(int D, int H, int is_bf16) { return ffn_g::body(D, H, is_bf16); }
 
 // The shared memory, in bytes, of the CUDA-core generic body's launch at
-// (D, H) in tiles of R rows.
-long long tmar_residual_ffn_bwd_smem(int D, int H, int R) { return (long long)rt_bytes(D, H, R); }
+// width D in tiles of R rows with hidden chunks of HC columns.
+long long tmar_residual_ffn_bwd_smem(int D, int HC, int R) { return (long long)rt_bytes(D, HC, R); }
 
 // The shared memory, in bytes, of the tensor-core generic body's plan at
 // (D, H); -1 where it takes none.

@@ -53,9 +53,13 @@
 //
 // The CUDA-core generic body takes D and H at run time (float32 at every
 // other width, and bfloat16 where the tensor-core generic body takes no
-// plan): a persistent block walks over tiles of 64 rows held in shared
-// memory, sized at launch; the weights are read from device memory (L2)
-// through their strides, so no width is refused for its weights.  Products
+// plan): a persistent block walks over tiles of R rows held in shared
+// memory, sized at launch (R the most of 64, 32, ..., 1 that fit a block:
+// 64 up to the widths of the tensor-core bodies, 32 at D = 256 and hidden
+// 1024, 16 at D = 512 and hidden 2048; where one row's hidden width alone
+// does not fit, the hidden layer in chunks of HC columns); the weights are
+// read from device memory (L2) through their strides, so no width is
+// refused for its weights.  Products
 // on the CUDA cores in float32; at bfloat16 it rounds where ffn_kernel_math
 // does.
 
@@ -178,14 +182,15 @@ __global__ void __launch_bounds__(THREADS, 1) residual_ffn_fwd_kernel(
 }
 
 // ---- the generic body: any (D, hidden) ------------------------------------
-// A persistent block walks over tiles of ROWS rows; y, the hidden layer and
-// fc2's output of a tile sit in shared memory in float32 (rows padded to an
-// odd length), rt_bytes at launch (tmar_torch/ops/envelope.py:
-// ffn_fwd_bytes counts the same).  The weights are read from device memory
+// A persistent block walks over tiles of R rows; y, HC columns of the hidden
+// layer and fc2's output of a tile sit in shared memory in float32 (rows
+// padded to an odd length), rt_bytes at launch (tmar_torch/ops/envelope.py:
+// ffn_fwd_bytes counts the same, ffn_tiles picks R and HC).  fc2's output
+// sums the chunks' products in place, each element by its one owner.  The weights are read from device memory
 // through their strides (L2 holds them), rounded to T's values as they are
 // read.  At bfloat16 it rounds where ffn_kernel_math
 // does: y before fc1, the GELU output before fc2, the output.
-size_t rt_bytes(int D, int H) { return (size_t)4 * ROWS * (2 * (D + 1) + H + 1); }
+size_t rt_bytes(int D, int HC, int R) { return (size_t)4 * R * (2 * (D + 1) + HC + 1); }
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS) residual_ffn_fwd_rt(
@@ -193,18 +198,19 @@ __global__ void __launch_bounds__(THREADS) residual_ffn_fwd_rt(
     const float* __restrict__ b1, const float* __restrict__ w1, int w1_k, int w1_n,
     const float* __restrict__ bw1, const float* __restrict__ w2, int w2_k, int w2_n,
     const float* __restrict__ bw2, const float* __restrict__ g2,
-    const float* __restrict__ b2, T* __restrict__ out, long M, int D, int H, float eps) {
+    const float* __restrict__ b2, T* __restrict__ out, long M, int D, int H, int R, int HC,
+    float eps) {
   extern __shared__ float smem[];
-  const int LX = D + 1, LH = H + 1;
+  const int LX = D + 1, LH = HC + 1;
   float* sY = smem;
-  float* sH = sY + ROWS * LX;
-  float* sF = sH + ROWS * LH;
+  float* sH = sY + R * LX;
+  float* sF = sH + R * LH;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  const long tiles = (M + ROWS - 1) / ROWS;
+  const long tiles = (M + R - 1) / R;
   for (long tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-    const long row0 = tile * ROWS;
-    const int rows = (int)(M - row0 < ROWS ? M - row0 : ROWS);
+    const long row0 = tile * R;
+    const int rows = (int)(M - row0 < R ? M - row0 : R);
 
     // 1. y = x + LN1(attn_out), one warp per row
     for (int r = warp; r < rows; r += THREADS / 32) {
@@ -216,17 +222,27 @@ __global__ void __launch_bounds__(THREADS) residual_ffn_fwd_rt(
     }
     __syncthreads();
 
-    // 2. hidden = T(GELU(T(y) @ T(w1) + bw1))
-    mm_rt(rows, H, D, [&](int m, int k) { return round_as<T>(sY[m * LX + k]); },
-          [&](int k, int n) { return round_as<T>(__ldg(w1 + (size_t)k * w1_k + (size_t)n * w1_n)); },
-          [&](int m, int n, float v) { sH[m * LH + n] = round_as<T>(act::gelu(v + __ldg(bw1 + n))); });
-    __syncthreads();
-
-    // 3. f = hidden @ T(w2) + bw2
-    mm_rt(rows, D, H, [&](int m, int k) { return sH[m * LH + k]; },
-          [&](int k, int n) { return round_as<T>(__ldg(w2 + (size_t)k * w2_k + (size_t)n * w2_n)); },
-          [&](int m, int n, float v) { sF[m * LX + n] = v + __ldg(bw2 + n); });
-    __syncthreads();
+    // 2. hidden = T(GELU(T(y) @ T(w1) + bw1)), HC columns at a time;
+    // 3. f = hidden @ T(w2) + bw2, the chunks' products added in place
+    for (int c0 = 0; c0 < H; c0 += HC) {
+      const int hc = H - c0 < HC ? H - c0 : HC;
+      mm_rt(rows, hc, D, [&](int m, int k) { return round_as<T>(sY[m * LX + k]); },
+            [&](int k, int n) {
+              return round_as<T>(__ldg(w1 + (size_t)k * w1_k + (size_t)(c0 + n) * w1_n));
+            },
+            [&](int m, int n, float v) {
+              sH[m * LH + n] = round_as<T>(act::gelu(v + __ldg(bw1 + c0 + n)));
+            });
+      __syncthreads();
+      mm_rt(rows, D, hc, [&](int m, int k) { return sH[m * LH + k]; },
+            [&](int k, int n) {
+              return round_as<T>(__ldg(w2 + (size_t)(c0 + k) * w2_k + (size_t)n * w2_n));
+            },
+            [&](int m, int n, float v) {
+              sF[m * LX + n] = c0 == 0 ? v + __ldg(bw2 + n) : sF[m * LX + n] + v;
+            });
+      __syncthreads();
+    }
 
     // 4. z = y + LN2(f)
     for (int r = warp; r < rows; r += THREADS / 32) {
@@ -661,8 +677,8 @@ int launch(const void* const* p, int w1_k, int w1_n, int w2_k, int w2_n, void* o
 
 template <typename T>
 int launch_rt(const void* const* p, int w1_k, int w1_n, int w2_k, int w2_n, void* out, long M,
-              int D, int H, float eps, int blocks, cudaStream_t stream) {
-  const size_t bytes = rt_bytes(D, H);
+              int D, int H, int R, int HC, float eps, int blocks, cudaStream_t stream) {
+  const size_t bytes = rt_bytes(D, HC, R);
   auto kern = residual_ffn_fwd_rt<T>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -670,7 +686,7 @@ int launch_rt(const void* const* p, int w1_k, int w1_n, int w2_k, int w2_n, void
   kern<<<blocks, THREADS, bytes, stream>>>(
       (const T*)p[0], (const T*)p[1], (const float*)p[2], (const float*)p[3],
       (const float*)p[4], w1_k, w1_n, (const float*)p[5], (const float*)p[6], w2_k, w2_n,
-      (const float*)p[7], (const float*)p[8], (const float*)p[9], (T*)out, M, D, H, eps);
+      (const float*)p[7], (const float*)p[8], (const float*)p[9], (T*)out, M, D, H, R, HC, eps);
   return (int)cudaGetLastError();
 }
 
@@ -686,15 +702,17 @@ extern "C" {
 // plan the tensor-core generic body (both with x, attn_out and out 16-byte
 // aligned, each on its own persistent grid; the generic one reads `scratch`,
 // tmar_residual_ffn_fwd_workspace's floats, null where that is 0); else the
-// CUDA-core generic body.  `blocks` is the number of persistent blocks of
+// CUDA-core generic body, in tiles of R rows (R <= 64) with the hidden layer
+// in chunks of HC columns (HC <= H), its tile within the card's shared memory.  `blocks` is the number of persistent blocks of
 // the templated and CUDA-core bodies.  Returns a cudaError_t code (0 on a
 // clean launch).
 int tmar_residual_ffn_fwd(const void* x, const void* ao, const void* g1, const void* b1,
                           const void* w1, const void* bw1, const void* w2, const void* bw2,
                           const void* g2, const void* b2, void* out, void* scratch, long long M,
-                          int D, int H, int w1_k, int w1_n, int w2_k, int w2_n, float eps,
-                          int blocks, int is_bf16, void* stream) {
-  if (M < 1 || D < 1 || H < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+                          int D, int H, int R, int HC, int w1_k, int w1_n, int w2_k, int w2_n,
+                          float eps, int blocks, int is_bf16, void* stream) {
+  if (M < 1 || D < 1 || H < 1 || R < 1 || R > ROWS || HC < 1 || HC > H || blocks < 1)
+    return (int)cudaErrorInvalidValue;
   const void* p[10] = {x, ao, g1, b1, w1, bw1, w2, bw2, g2, b2};
   cudaStream_t s = (cudaStream_t)stream;
   switch (ffn_g::body(D, H, is_bf16)) {
@@ -707,9 +725,11 @@ int tmar_residual_ffn_fwd(const void* x, const void* ao, const void* g1, const v
     default:
       break;
   }
+  if (rt_bytes(D, HC, R) > MAX_SMEM) return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    return launch_rt<__nv_bfloat16>(p, w1_k, w1_n, w2_k, w2_n, out, (long)M, D, H, eps, blocks, s);
-  return launch_rt<float>(p, w1_k, w1_n, w2_k, w2_n, out, (long)M, D, H, eps, blocks, s);
+    return launch_rt<__nv_bfloat16>(p, w1_k, w1_n, w2_k, w2_n, out, (long)M, D, H, R, HC, eps,
+                                    blocks, s);
+  return launch_rt<float>(p, w1_k, w1_n, w2_k, w2_n, out, (long)M, D, H, R, HC, eps, blocks, s);
 }
 
 // The body (ffn_g::Body, envelope.py: FFN_BODIES) that runs (D, H) at this
@@ -735,8 +755,9 @@ long long tmar_residual_ffn_fwd_mma_smem(int D, int H) {
   return ffn_g::fwd_plan(D, H, &F) ? (long long)F.bytes : -1;
 }
 
-// The shared memory, in bytes, of the CUDA-core generic body's launch at (D, H).
-long long tmar_residual_ffn_fwd_smem(int D, int H) { return (long long)rt_bytes(D, H); }
+// The shared memory, in bytes, of the CUDA-core generic body's launch at
+// width D in tiles of R rows with hidden chunks of HC columns.
+long long tmar_residual_ffn_fwd_smem(int D, int HC, int R) { return (long long)rt_bytes(D, HC, R); }
 
 const char* tmar_residual_ffn_fwd_error(int err) {
   return cudaGetErrorString((cudaError_t)err);

@@ -464,7 +464,7 @@ int launch(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* d
 // ---- the generic body: any (N <= 64, D, heads, head_dim <= HDM) -------------
 // The forward's tiling (window_attention_fwd.cu): a persistent block walks
 // over tiles of whole windows; x, g and dx of a tile stay in shared memory,
-// and heads are taken hg at a time (rt_bytes; tmar_torch/ops/envelope.py:
+// and heads are taken hg at a time (attn_mma::generic_bwd_bytes; tmar_torch/ops/envelope.py:
 // attention_bwd_bytes counts the same, all heads where they fit): per group q/k/v and their
 // cotangents, rk(dacc), the head outputs, and per (head, row) the two
 // reciprocal norms, lse, delta and the dscale share, in float32.  The weights
@@ -737,17 +737,11 @@ __global__ void __launch_bounds__(THREADS) window_attention_bwd_rt(
   }
 }
 
-size_t rt_bytes(int N, int D, int hd, int hg) {
-  const int G = hg * hd, wpb = ROWS / N;
-  return 4 * ((size_t)3 * ROWS * (D + 1) + (size_t)ROWS * (2 * (3 * G + 1) + 2 * (G + 1)) +
-              (size_t)ROWS * 5 * hg + (wpb > 1 ? (size_t)hg * wpb * N * N : 0));
-}
-
 template <int HDM, typename T>
 int launch_rt(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* dx, void* part,
               void* dparams, int nwin, int N, int D, int nh, int hd, int hg, int wh, int ww,
               int blocks, cudaStream_t stream) {
-  const size_t bytes = rt_bytes(N, D, hd, hg);
+  const size_t bytes = attn_mma::generic_bwd_bytes(N, D, hd, hg);
   auto kern = window_attention_bwd_rt<HDM, T>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -2653,7 +2647,7 @@ int tmar_window_attention_bwd(const void* x, const void* g, const void* wqkv,
 // The shared memory, in bytes, of the generic body's launch with hg heads
 // to a group.
 long long tmar_window_attention_bwd_smem(int N, int D, int head_dim, int hg) {
-  return (long long)rt_bytes(N, D, head_dim, hg);
+  return (long long)attn_mma::generic_bwd_bytes(N, D, head_dim, hg);
 }
 
 // The tensor-core generic body at any bfloat16 geometry it has a plan for,

@@ -264,9 +264,9 @@ int launch(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* o
 // A persistent block walks over tiles of whole windows, 64 / N of them
 // (WPB · N <= 64 rows); x, one group of hg heads' q/k/v and all heads'
 // outputs of a tile sit in shared memory in float32, rows padded to an odd
-// length, rt_bytes sized at launch (tmar_torch/ops/envelope.py:
-// attention_fwd_bytes counts the same and picks hg, all heads where they
-// fit).  The weights are read from device memory through their strides
+// length, attn_mma::generic_fwd_bytes sized at launch
+// (tmar_torch/ops/envelope.py: attention_fwd_bytes counts the same and picks
+// hg, all heads where they fit).  The weights are read from device memory through their strides
 // and rounded to T's values as they are read.  A thread owns one (head,
 // query) row and passes three times over its window's keys: the row max, the
 // softmax sum, then P·V with P normalised, so that P can be rounded where
@@ -274,9 +274,6 @@ int launch(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* o
 // windows _attn_kernel_batched takes) it rounds q_n, k_n, v and P as
 // window_attention_kernel_math does; at N < 32 only the weights and the
 // head outputs (_attn_kernel); at float32 nothing.
-size_t rt_bytes(int D, int nh, int hd, int hg) {
-  return (size_t)4 * ROWS * ((D + 1) + (3 * hg * hd + 1) + (nh * hd + 1));
-}
 
 template <int HDM, typename T>
 __global__ void __launch_bounds__(THREADS) window_attention_fwd_rt(
@@ -391,7 +388,7 @@ template <int HDM, typename T>
 int launch_rt(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* out, void* lse,
               int nwin, int N, int D, int nh, int hd, int hg, int wh, int ww, int blocks,
               cudaStream_t stream) {
-  const size_t bytes = rt_bytes(D, nh, hd, hg);
+  const size_t bytes = attn_mma::generic_fwd_bytes(D, nh, hd, hg);
   auto kern = window_attention_fwd_rt<HDM, T>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -1160,7 +1157,7 @@ long long tmar_window_attention_fwd_long_smem(int N, int D, int num_heads, int h
 // The shared memory, in bytes, of the generic body's launch with hg heads
 // to a group.
 long long tmar_window_attention_fwd_smem(int D, int num_heads, int head_dim, int hg) {
-  return (long long)rt_bytes(D, num_heads, head_dim, hg);
+  return (long long)attn_mma::generic_fwd_bytes(D, num_heads, head_dim, hg);
 }
 
 // The tensor-core generic body at any bfloat16 geometry it has a plan for,

@@ -56,6 +56,28 @@ enum Body {
 
 __host__ __device__ inline int up(int n, int m) { return (n + m - 1) / m * m; }
 
+// The CUDA-core generic bodies' shared memory with heads taken hg at a time
+// (window_attention_fwd.cu's and _bwd.cu's rt_bytes; envelope.py:
+// attention_fwd_bytes, attention_bwd_bytes): K3's x, one group's q/k/v and
+// all heads' outputs of a 64-row tile; K4's x, g and dx, one group's q/k/v
+// and their cotangents, dacc and the outputs, five values per row and head,
+// and with several windows to a tile the group's ds per window.
+inline size_t generic_fwd_bytes(int D, int nh, int hd, int hg) {
+  return (size_t)4 * tmar::ROWS * ((D + 1) + (3 * hg * hd + 1) + (nh * hd + 1));
+}
+inline size_t generic_bwd_bytes(int N, int D, int hd, int hg) {
+  const int G = hg * hd, wpb = tmar::ROWS / N, R = tmar::ROWS;
+  return 4 * ((size_t)3 * R * (D + 1) + (size_t)R * (2 * (3 * G + 1) + 2 * (G + 1)) +
+              (size_t)R * 5 * hg + (wpb > 1 ? (size_t)hg * wpb * N * N : 0));
+}
+// Whether the CUDA-core generic bodies take windows of N <= 64 tokens at
+// (D, heads of hd <= 32): one head's tile of K3 and of K4 fits a block
+// (envelope.py: attention_generic_fits).
+inline bool generic_fits(int N, int D, int nh, int hd) {
+  return generic_fwd_bytes(D, nh, hd, 1) <= tmar::MAX_SMEM &&
+         generic_bwd_bytes(N, D, hd, 1) <= tmar::MAX_SMEM;
+}
+
 // The padded geometry: D to DP, head_dim to HP, the heads to AP = nh·HP
 // columns, the window to NP rows of WW warps.
 struct Geom {
@@ -344,10 +366,12 @@ inline bool short_plan(int N, int D, int nh, int hd, ShortFwd* f, ShortBwd* b) {
 // the tensor-core generic bodies wherever they have a plan; the rest the
 // CUDA-core generic bodies.  Windows of more than 64 tokens and heads wider
 // than 32 channels, which none of those take, the long-window bodies
-// (window_attention_long.cuh) at either type.
+// (window_attention_long.cuh) at either type: bfloat16 the tensor-core one
+// wherever it has a plan; so too where the CUDA-core generic bodies would
+// run but one head's tile fits no block (generic_fits).
 inline Body body(int N, int D, int nh, int hd, int is_bf16) {
-  if (N > tmar::ROWS || hd > 32)
-    return is_bf16 && long_mma::attn_plan_bytes(N, D, nh, hd, true) ? LONG_TC : LONG;
+  const Body lng = is_bf16 && long_mma::attn_plan_bytes(N, D, nh, hd, true) ? LONG_TC : LONG;
+  if (N > tmar::ROWS || hd > 32) return lng;
   if (is_bf16 && N == 64 && D == 64 && ((nh == 6 && hd == 10) || (nh == 4 && hd == 16)))
     return FLAGSHIP;
 #define TMAR_TEMPLATED(NN, DD, NH, HD) \
@@ -361,7 +385,8 @@ inline Body body(int N, int D, int nh, int hd, int is_bf16) {
     if (short_plan(N, D, nh, hd, &f, &b)) return SHORT;
   }
   Plan P;
-  return is_bf16 && plan(N, D, nh, hd, &P) ? TENSOR_CORE : CUDA_CORE;
+  if (is_bf16 && plan(N, D, nh, hd, &P)) return TENSOR_CORE;
+  return generic_fits(N, D, nh, hd) ? CUDA_CORE : lng;
 }
 
 // The barrier of one window's warps (named barrier 1 + group).

@@ -64,7 +64,7 @@ constexpr int QB = WARPS * RPW; // query rows of an attn_fwd block
 constexpr int KT = 64;          // keys (or queries) of a staged tile
 constexpr int GROWS = 32;       // token rows of a rows_gemm tile, at most
 constexpr int GRB = 8;          // rows a thread of rows_gemm holds (the tile padded to them)
-constexpr int SUM_ROWS = 32;    // token rows of a param_sums step
+constexpr int SUM_ROWS = 32;    // token rows of a param_sums step, at most
 
 __host__ __device__ inline int odd(int n) { return n | 1; }
 
@@ -89,8 +89,15 @@ inline size_t rows_bytes(int N, int hd) {
 inline size_t cols_bytes(int hd) {
   return (size_t)4 * (2 * KT * odd(hd) + 2 * KT + WARPS * (4 * hd + 2 * KT));
 }
-inline size_t sums_bytes(int D, int A) {
-  return (size_t)4 * SUM_ROWS * (2 * odd(D) + odd(3 * A) + odd(A));
+inline size_t sums_bytes(int D, int A, int rows) {
+  return (size_t)4 * rows * (2 * odd(D) + odd(3 * A) + odd(A));
+}
+// the token rows of a param_sums step at (D, A): the most of 32, 16, ..., 1
+// that fit a block (envelope.py: long_sum_rows)
+inline int sum_rows(int D, int A) {
+  int r = SUM_ROWS;
+  while (r > 1 && sums_bytes(D, A, r) > tmar::MAX_SMEM) r /= 2;
+  return r;
 }
 // the largest block of K3's (bwd false) or K4's launches
 inline size_t plan_bytes(int N, int D, int nh, int hd, bool bwd) {
@@ -99,7 +106,7 @@ inline size_t plan_bytes(int N, int D, int nh, int hd, bool bwd) {
   const int ks[2] = {D, A};
   for (int k : ks) b = gemm_bytes(k, gemm_rows(k)) > b ? gemm_bytes(k, gemm_rows(k)) : b;
   if (!bwd) return b;
-  const size_t more[4] = {rows_bytes(N, hd), cols_bytes(hd), sums_bytes(D, A),
+  const size_t more[4] = {rows_bytes(N, hd), cols_bytes(hd), sums_bytes(D, A, sum_rows(D, A)),
                           gemm_bytes(3 * A, gemm_rows(3 * A))};
   for (size_t m : more) b = m > b ? m : b;
   return b;
@@ -429,7 +436,7 @@ int fwd(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* out,
 // partials [P][SUMS] with SUMS = D·3A + 3A + A·D + D.
 struct BwdLayout {
   long T;
-  int A, RB, G, P, SUMS;
+  int A, RB, G, P, SR, SUMS;
   size_t qkv, inv, dacc, o, dqkv, delta, dsc, dbp, part, total;
 };
 
@@ -442,7 +449,8 @@ inline BwdLayout bwd_layout(int nwin, int N, int D, int nh, int hd) {
   L.T = (long)nwin * N, L.A = nh * hd, L.RB = (N + WARPS - 1) / WARPS;
   const int g = (ROWS_BLOCKS + L.RB * nh - 1) / (L.RB * nh);
   L.G = g < nwin ? g : nwin;
-  const long steps = (L.T + SUM_ROWS - 1) / SUM_ROWS;
+  L.SR = sum_rows(D, L.A);
+  const long steps = (L.T + L.SR - 1) / L.SR;
   L.P = (int)(steps < 264 ? steps : 264);
   L.SUMS = D * 3 * L.A + 3 * L.A + L.A * D + D;
   L.qkv = 0;
@@ -665,7 +673,7 @@ __global__ void __launch_bounds__(NT) attn_bwd_cols(
   }
 }
 
-// Block b of P: the token sums of its share of the rows, 32 at a time, into
+// Block b of P: the token sums of its share of the rows, SR at a time, into
 // its own slot part[b] = [dwqkv D·3A | dbqkv 3A | dwproj A·D | dbproj D]:
 // dwqkv += rk(x)ᵀ·rk(dqkv), dbqkv += dqkv, dwproj += rk(o)ᵀ·rk(g), dbproj +=
 // g.  An element has one owner thread, which adds the steps in order.
@@ -674,20 +682,20 @@ __global__ void __launch_bounds__(NT) param_sums(const T* __restrict__ x, const 
                                                  const float* __restrict__ dqkv,
                                                  const float* __restrict__ o,
                                                  float* __restrict__ part, long T_, int D, int A,
-                                                 int SUMS, bool rk) {
+                                                 int SUMS, int SR, bool rk) {
   extern __shared__ float sm[];
   const int L3 = 3 * A, LD = odd(D), LQ = odd(L3), LA = odd(A);
-  float* sx = sm;                      // rk(x) [32][LD]
-  float* sg = sx + SUM_ROWS * LD;      // g [32][LD]
-  float* sdq = sg + SUM_ROWS * LD;     // dqkv [32][LQ], unrounded
-  float* so = sdq + SUM_ROWS * LQ;     // rk(o) [32][LA]
+  float* sx = sm;                // rk(x) [SR][LD]
+  float* sg = sx + SR * LD;      // g [SR][LD]
+  float* sdq = sg + SR * LD;     // dqkv [SR][LQ], unrounded
+  float* so = sdq + SR * LQ;     // rk(o) [SR][LA]
   float* slot = part + (size_t)blockIdx.x * SUMS;
   const int E1 = D * L3, E2 = E1 + L3, E3 = E2 + A * D;
   for (int e = threadIdx.x; e < SUMS; e += NT) slot[e] = 0.f;
-  const long steps = (T_ + SUM_ROWS - 1) / SUM_ROWS;
+  const long steps = (T_ + SR - 1) / SR;
   for (long st = blockIdx.x; st < steps; st += gridDim.x) {
-    const long t0 = st * SUM_ROWS;
-    const int nr = T_ - t0 < SUM_ROWS ? (int)(T_ - t0) : SUM_ROWS;
+    const long t0 = st * SR;
+    const int nr = T_ - t0 < SR ? (int)(T_ - t0) : SR;
     __syncthreads();
     for (int e = threadIdx.x; e < nr * D; e += NT) {
       const long t = t0 + e / D;
@@ -797,11 +805,11 @@ int bwd(const void* const* p, int wq_k, int wq_n, int wp_k, int wp_n, void* dx, 
                     OutT<T>{(T*)dx, D, nullptr}, s);
   if (err) return err;
   {
-    const size_t bytes = sums_bytes(D, A);
+    const size_t bytes = sums_bytes(D, A, L.SR);
     auto kern = param_sums<T>;
     cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
-    kern<<<L.P, NT, bytes, s>>>(x, g, dqkv, o, part, T_, D, A, L.SUMS, rk);
+    kern<<<L.P, NT, bytes, s>>>(x, g, dqkv, o, part, T_, D, A, L.SUMS, L.SR, rk);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   }
   const long n = L.SUMS + nh + (long)nh * N * N;

@@ -24,8 +24,10 @@ and only that: bfloat16 at the full-width NGswin's 64-token windows
 of 1 to 31 tokens the short-window tensor-core bodies wherever
 ``envelope.attention_short_plan`` has a plan; bfloat16 windows of 32 to 64
 tokens the tensor-core generic bodies wherever
-``envelope.attention_mma_plan`` has a plan; windows of more than 64 tokens
-and heads wider than 32 channels the long-window bodies, over a workspace
+``envelope.attention_mma_plan`` has a plan; windows of more than 64 tokens,
+heads wider than 32 channels, and the widths whose CUDA-core generic tile
+fits no block (``envelope.attention_generic_fits``: D = 256 with 8 heads of
+32) the long-window bodies, over a workspace
 the wrapper allocates: at bfloat16 from 32 tokens up the tensor-core ones
 (``csrc/long_mma.cuh``; ``envelope.attention_long_tc_plan``), else the
 CUDA-core ones (``csrc/window_attention_long.cuh``;
@@ -330,15 +332,18 @@ class _Geometry:
         self.is_bf16 = int(x.dtype == torch.bfloat16)
         self.body = envelope.ATTENTION_BODIES.index(
             envelope.attention_body(self.N, self.D, self.nh, self.hd, x.dtype))
+        # the long-window bodies (windows past 64 tokens, heads past 32
+        # channels, and what the CUDA-core generic bodies' tiles do not fit)
+        self.long = envelope.ATTENTION_BODIES[self.body] in envelope.ATTENTION_BODIES[5:]
         if (self.N, self.D, self.nh, self.hd) in KERNEL_GEOMETRIES:
             # the full-width NGswin's own bodies: at most one block per SM
             self.hg_fwd = self.hg_bwd = self.nh
             self.blocks_fwd = self.blocks_bwd = min(-(-B_ // (envelope.ROWS // self.N)), sms)
-        elif envelope.long_window(self.N, self.hd):
+        elif self.long:
             # either long-window body: checks that every launch fits a
             # block; the grids follow the windows
             self.hg_fwd, _, self.hg_bwd, _ = envelope.attention_envelope(
-                self.N, self.D, self.nh, self.hd, x.device)
+                self.N, self.D, self.nh, self.hd, x.device, x.dtype)
             self.blocks_fwd = self.blocks_bwd = 1
         else:
             self.hg_fwd, fwd_bytes, self.hg_bwd, bwd_bytes = envelope.attention_envelope(
@@ -495,7 +500,7 @@ def _launch(operands, geo):
     out = torch.empty_like(x)
     lse = torch.empty((geo.nwin, geo.nh, geo.N), device=x.device, dtype=torch.float32)
     # the long-window body's qkv and head outputs, as the library sizes them
-    floats = _fwd_workspace_floats(geo) if envelope.long_window(geo.N, geo.hd) else 0
+    floats = _fwd_workspace_floats(geo) if geo.long else 0
     workspace = torch.empty(floats, device=x.device, dtype=torch.float32) if floats else None
     kernels.launch(
         "window_attention_fwd", _FWD_ARGTYPES, x.device,

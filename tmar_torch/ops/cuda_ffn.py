@@ -35,6 +35,7 @@ and dw2 after their sums over rows.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -177,6 +178,8 @@ def fused_residual_ffn(
 
 fused_residual_ffn.launches = 0           # forward kernel
 fused_residual_ffn.backward_launches = 0  # backward kernel
+fused_residual_ffn.launches_by_body = Counter()           # forward, by FFN_BODIES name
+fused_residual_ffn.backward_launches_by_body = Counter()  # backward, by body name
 
 
 class _ResidualFFN(torch.autograd.Function):
@@ -203,9 +206,10 @@ class _ResidualFFN(torch.autograd.Function):
 
 
 class _Geometry:
-    """What the C entry points take besides the tensors: the widths, K6's
-    rows per tile, the weights' strides, eps, the I/O dtype and each
-    kernel's persistent blocks."""
+    """What the C entry points take besides the tensors: the widths, K5's
+    and K6's rows a tile and hidden columns a chunk (``envelope.ffn_tiles``),
+    the weights' strides, eps, the I/O dtype and each kernel's persistent
+    blocks."""
 
     def __init__(self, x, w_1, w_2, eps, sms):
         M, self.D = x.shape
@@ -215,13 +219,22 @@ class _Geometry:
         self.is_bf16 = int(x.dtype == torch.bfloat16)
         if (self.D, self.H) == KERNEL_DIMS:
             # the full-width NGswin's own bodies: one block per SM at most
-            self.rows, self.fwd_blocks = 64, min((M + 63) // 64, sms)
-            self.bwd_blocks = self.fwd_blocks
+            self.fwd_rows = self.rows = 64
+            self.fwd_chunk = self.chunk = self.H
+            self.fwd_blocks = self.bwd_blocks = min((M + 63) // 64, sms)
         else:
-            fwd_bytes, self.rows, bwd_bytes = envelope.ffn_envelope(self.D, self.H, x.device)
-            self.fwd_blocks = envelope.blocks_for((M + 63) // 64, fwd_bytes, sms)
+            fwd_bytes, _, bwd_bytes = envelope.ffn_envelope(self.D, self.H, x.device)
+            self.fwd_rows, self.fwd_chunk, self.rows, self.chunk = envelope.ffn_tiles(
+                self.D, self.H)
+            self.fwd_blocks = envelope.blocks_for(
+                (M + self.fwd_rows - 1) // self.fwd_rows, fwd_bytes, sms)
             self.bwd_blocks = envelope.blocks_for(
                 (M + self.rows - 1) // self.rows, bwd_bytes, sms)
+
+
+def _body_name(geo):
+    """The body K5 and K6 run at this geometry (``envelope.ffn_body``)."""
+    return envelope.ffn_body(geo.D, geo.H, torch.bfloat16 if geo.is_bf16 else torch.float32)
 
 
 def _param_sizes(D, H):
@@ -277,10 +290,11 @@ def _launch(operands, geo):
     kernels.launch(
         "residual_ffn_fwd", _FWD_ARGTYPES, x.device,
         *[t.data_ptr() for t in operands], out.data_ptr(),
-        0 if scratch is None else scratch.data_ptr(), x.shape[0], geo.D, geo.H,
-        *geo.strides, geo.eps, geo.fwd_blocks, geo.is_bf16,
+        0 if scratch is None else scratch.data_ptr(), x.shape[0], geo.D, geo.H, geo.fwd_rows,
+        geo.fwd_chunk, *geo.strides, geo.eps, geo.fwd_blocks, geo.is_bf16,
     )
     fused_residual_ffn.launches += 1
+    fused_residual_ffn.launches_by_body[_body_name(geo)] += 1
     return out
 
 
@@ -317,10 +331,11 @@ def _launch_backward(operands, dz, geo):
     kernels.launch(
         "residual_ffn_bwd", _BWD_ARGTYPES, x.device,
         p[0], p[1], dz.data_ptr(), *p[2:], dx.data_ptr(), dao.data_ptr(), part.data_ptr(),
-        dparams.data_ptr(), x.shape[0], geo.D, geo.H, geo.rows, *geo.strides, geo.eps,
+        dparams.data_ptr(), x.shape[0], geo.D, geo.H, geo.rows, geo.chunk, *geo.strides, geo.eps,
         geo.bwd_blocks, geo.is_bf16,
     )
     fused_residual_ffn.backward_launches += 1
+    fused_residual_ffn.backward_launches_by_body[_body_name(geo)] += 1
     return dx, dao, dparams
 
 
@@ -347,8 +362,8 @@ def _workspace(M, geo):
 
 _P = ctypes.c_void_p
 _TAIL = [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_int, _P]
-_FWD_ARGTYPES = [_P] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 2 + _TAIL
-_BWD_ARGTYPES = [_P] * 14 + [ctypes.c_longlong] + [ctypes.c_int] * 3 + _TAIL
+_FWD_ARGTYPES = [_P] * 12 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + _TAIL
+_BWD_ARGTYPES = [_P] * 14 + [ctypes.c_longlong] + [ctypes.c_int] * 4 + _TAIL
 
 
 def _residual_ffn_cuda(x, attn_out, g1, b1, w1, bw1, w2, bw2, g2, b2, eps):

@@ -17,7 +17,10 @@ generic bodies, which take C, D, the heads and head_dim at run time within
 ``envelope.ngram_envelope``: K1 and K7 at bfloat16 their tensor-core
 generic bodies wherever those have a plan, and the CUDA-core ones elsewhere
 (one rule, ``envelope.ngram_body``, which the CUDA sources apply
-themselves; K1's float32 at the full-width widths is its templated body).  At
+themselves; K1's float32 at the full-width widths is its templated body).
+The CUDA-core ones take any head_dim and pick their cells and positions a
+tile by width (``envelope.ngram_tiles``, the sources' own copy of the
+rule).  At
 bfloat16 all round to bf16 where
 ``_ngram_stripe_kernel`` and ``_ngram_bwd_stripe_kernel`` do, with the
 parameters rounded as ``tmar/nn/ngram.py`` casts them, and return dwqkv,
@@ -35,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from collections import Counter
 from typing import Optional
 
 import torch
@@ -318,6 +322,8 @@ def fused_ngram_context(
 
 fused_ngram_context.launches = 0           # forward kernel
 fused_ngram_context.backward_launches = 0  # backward kernel
+fused_ngram_context.launches_by_body = Counter()           # forward, by NGRAM_BODIES name
+fused_ngram_context.backward_launches_by_body = Counter()  # backward, by body name
 
 
 class _NGramContext(torch.autograd.Function):
@@ -437,6 +443,14 @@ _BWD_ARGTYPES = [_P] * 12 + [ctypes.c_int] * 9 + [_P]
 _workspace_floats = {}  # the backward's integer arguments -> floats of scratch
 
 
+def _body_name(ints, forward):
+    """The body K1 (``forward``) or K7 runs for the entry points' integer
+    arguments (``envelope.ngram_body``)."""
+    C, D, nh, hd, is_bf16 = ints[3:8]
+    return envelope.ngram_body(C, D, nh, hd, torch.bfloat16 if is_bf16 else torch.float32,
+                               forward=forward)
+
+
 def _workspace(ints):
     """The floats of scratch the backward kernel needs for this geometry
     (its slots and the per-block partial sums), asked of the library once."""
@@ -472,6 +486,7 @@ def _launch_backward(operands, g, ints):
         du.data_ptr(), scratch.data_ptr(), dparams.data_ptr(), *ints,
     )
     fused_ngram_context.backward_launches += 1
+    fused_ngram_context.backward_launches_by_body[_body_name(ints, False)] += 1
     return du, dparams
 
 
@@ -481,3 +496,4 @@ def _launch(operands, out, ints):
         *[t.data_ptr() for t in operands], out.data_ptr(), *ints,
     )
     fused_ngram_context.launches += 1
+    fused_ngram_context.launches_by_body[_body_name(ints, True)] += 1

@@ -30,9 +30,10 @@ own bodies, the tensor-core one at bfloat16 and the templated float32 one at
 float32; every other geometry inside ``envelope.nstb_envelope`` runs a
 generic body, at bfloat16 the tensor-core one (``csrc/nstb_generic_mma.cuh``)
 wherever it has a plan, else the CUDA-core one (``csrc/nstb_generic.cuh``);
-windows of more than 64 tokens (HAT's 16x16) and heads wider than 32
-channels run the long-window bodies, over a workspace the wrapper
-allocates: at bfloat16 the tensor-core one wherever
+windows of more than 64 tokens (HAT's 16x16), heads wider than 32
+channels, and the widths whose CUDA-core generic tile fits no block (D =
+256 with 8 heads of 32 and hidden 1024, Swin-B's stage 2) run the
+long-window bodies, over a workspace the wrapper allocates: at bfloat16 the tensor-core one wherever
 ``envelope.nstb_long_tc_plan`` has a plan (``csrc/nstb_long.cuh:
 launch_tc`` over ``csrc/long_mma.cuh``), else the CUDA-core one
 (``csrc/nstb_long.cuh: launch``).  A geometry past the envelope
@@ -310,7 +311,7 @@ def _geometry(name, n_windows, D, wqkv, ffn1, num_heads, window_size, Q, shift, 
     blocks = 0
     body = envelope.nstb_body(N, D, num_heads, hd, H, dtype)
     if body != envelope.NSTB_BODIES[0]:
-        nbytes = envelope.nstb_envelope(N, D, num_heads, hd, H, device)
+        nbytes = envelope.nstb_envelope(N, D, num_heads, hd, H, device, dtype)
     if body == envelope.NSTB_BODIES[2]:  # never a long window: tiles of whole windows
         tiles = -(-n_windows // (envelope.ROWS // N))
         blocks = envelope.blocks_for(tiles, nbytes, kernels.sm_count(device))
@@ -432,7 +433,7 @@ def _workspace(lib, nwin, ints, device):
     the library sizes it (``tmar_*_workspace``: the long-window bodies' qkv
     and head outputs), or None where the body needs none."""
     D, H, ws, nh, hd, is_bf16 = ints[3], ints[4], ints[5], ints[8], ints[9], ints[10]
-    if not envelope.long_window(ws * ws, hd):
+    if _body_name(ints) not in envelope.NSTB_BODIES[3:]:
         return None
     fn = kernels.host_function(lib, f"tmar_{lib}_workspace", [ctypes.c_int] * 7,
                                ctypes.c_longlong)

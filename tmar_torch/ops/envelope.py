@@ -6,19 +6,24 @@ head count, head_dim and the window length at run time and sizes its
 dynamic shared memory at launch.  Each has two: a tensor-core one for
 bfloat16 and a CUDA-core one; ``nstb_body``, ``attention_body``,
 ``ffn_body`` and ``ngram_body`` say which body runs a call.
-What bounds it is the card's opt-in shared memory per block
-(``cudaDevAttrMaxSharedMemoryPerBlockOptin``, 232,448 bytes on an H100) and
-the per-thread head registers (head_dim <= 32).  Windows of more than 64
-tokens and heads wider than 32 channels, which those bodies do not take,
-run K3/K4's and K2/K8's long-window bodies (``attention_long_plan``,
-``nstb_long_plan``), which keep a window in a workspace in device memory
-and are bounded by shared memory alone.  The functions below count
-the shared memory as the CUDA sources do (each source's ``tmar_*_smem``
-query gives its own count, ``built_smem``; a GPU test holds the two equal),
-pick the tile sizes the generic bodies are launched with, and refuse, with
-a ``NotImplementedError`` that names the limit, only what lies past them.
-Weights are read from device memory (L2) by the generic bodies, so their
-size bounds nothing.
+What bounds them is the card's opt-in shared memory per block
+(``cudaDevAttrMaxSharedMemoryPerBlockOptin``, 232,448 bytes on an H100).
+K5/K6 and K1/K7 size their tiles by width at launch (rows of a tile, cells
+of a block: the most that fit, and the FFN's hidden layer in chunks where
+one row does not fit; ``ffn_tiles``, ``ngram_tiles``).  Windows of more than 64 tokens, heads wider than 32
+channels, and every window attention or whole-NSTB geometry whose
+generic tile fits no block run K3/K4's and K2/K8's long-window bodies
+(``attention_long_plan``, ``nstb_long_plan``), which keep a window in a
+workspace in device memory and are bounded by shared memory alone.  So
+every NGswin geometry with D <= 512, hidden <= 4·D, attention heads of up
+to 128 channels, windows of 1 to 16x16 tokens and an n-gram context at
+C = D/2 with heads of up to 128 channels runs on the card.  The functions
+below count the shared memory as the CUDA sources do (each source's
+``tmar_*_smem`` query gives its own count, ``built_smem``; a GPU test
+holds the two equal), pick the tile sizes the generic bodies are launched
+with, and refuse, with a ``NotImplementedError`` that names the bytes, only
+what lies past them.  Weights are read from device memory (L2) by the
+generic bodies, so their size bounds nothing.
 
 A CPU tensor never comes here: it runs the plain versions at any width.
 """
@@ -34,12 +39,12 @@ import torch
 # the opt-in shared memory of one sm_90 block, and of one SM
 H100_SMEM_PER_BLOCK = 232448
 H100_SMEM_PER_SM = 233472
-HEAD_DIM_MAX = 32   # the generic bodies keep a head's row in registers; the long ones take any
-ROWS = 64           # token rows of a window-attention / FFN-forward tile
+HEAD_DIM_MAX = 32   # the widest head of K2-K4's generic bodies and K1/K7's tensor-core ones
+ROWS = 64           # token rows of a window-attention tile, the most of an FFN tile
 THREADS = 256       # threads of a generic block
-NGRAM_TJ = 32       # K1's CUDA-core generic body's cells per block (a grid row's segment)
-NGRAM_BWD_TJ = 16   # K7's cells per pass-1 tile
-NGRAM_BWD_TP = 32   # K7's positions per pass-2 tile
+NGRAM_TJ = 32       # K1's CUDA-core generic body's cells per block, at most (a grid row's segment)
+NGRAM_BWD_TJ = 16   # K7's cells per pass-1 tile, at most
+NGRAM_BWD_TP = 32   # K7's positions per pass-2 tile, at most
 
 
 def smem_limit(device: Optional[torch.device] = None) -> int:
@@ -53,15 +58,20 @@ def smem_limit(device: Optional[torch.device] = None) -> int:
 
 def _refuse(kernel: str, what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{kernel}: {what}.  The kernels take any width whose tiles fit the card's shared "
-        "memory (window attention and the whole NSTB at any window and head_dim, the "
-        "n-gram context at head_dim <= 32); past that only the plain version computes it, "
-        "on the CPU (ROADMAP queue 2)")
+        f"{kernel}: {what}.  The kernels take any geometry whose tiles fit the card's shared "
+        "memory at one row, one cell or one head a tile (every NGswin with D <= 512, hidden "
+        "<= 4·D, heads of up to 128 channels and windows of up to 16x16 tokens among them); "
+        "past that only the plain version computes it, on the CPU")
 
 
-def _head_dim(kernel: str, hd: int) -> None:
-    if not 1 <= hd <= HEAD_DIM_MAX:
-        raise _refuse(kernel, f"head_dim {hd} is past the bound head_dim <= {HEAD_DIM_MAX}")
+def _most(start: int, size) -> int:
+    """The most of start, start / 2, ..., 1 rows (or cells) whose
+    ``size(rows)`` fits a block of the card's shared memory; 1 where none
+    does (the caller's count then names the bytes)."""
+    rows = start
+    while rows > 1 and size(rows) > H100_SMEM_PER_BLOCK:
+        rows //= 2
+    return rows
 
 
 def _fits(kernel: str, nbytes: int, limit: int, what: str) -> int:
@@ -81,30 +91,49 @@ def blocks_for(tiles: int, nbytes: int, sms: int) -> int:
 
 # ---- K5 / K6: residual FFN ---------------------------------------------------
 
-def ffn_fwd_bytes(D: int, H: int) -> int:
-    """K5's generic body: y, hidden and fc2's output of a 64-row tile."""
-    return 4 * ROWS * (2 * (D + 1) + H + 1)
+def ffn_fwd_bytes(D: int, H: int, rows: int = ROWS, hc: Optional[int] = None) -> int:
+    """K5's generic body: y, ``hc`` hidden columns (all H by default) and
+    fc2's output of a tile of ``rows`` rows."""
+    return 4 * rows * (2 * (D + 1) + (hc or H) + 1)
 
 
-def ffn_bwd_bytes(D: int, H: int, rows: int) -> int:
+def ffn_bwd_bytes(D: int, H: int, rows: int, hc: Optional[int] = None) -> int:
     """K6's generic body: n1, y, o, dz of a tile of ``rows`` rows at width D,
-    u and h at the hidden width, the two rows' LayerNorm scales."""
-    return 4 * rows * (4 * (D + 1) + 2 * (H + 1) + 2)
+    u and h at ``hc`` hidden columns (all H by default), the two rows'
+    LayerNorm scales."""
+    return 4 * rows * (4 * (D + 1) + 2 * ((hc or H) + 1) + 2)
+
+
+@functools.lru_cache(maxsize=None)
+def ffn_tiles(D: int, H: int) -> Tuple[int, int, int, int]:
+    """(K5's rows a tile, its hidden columns a chunk, K6's rows, its chunk)
+    of the CUDA-core generic bodies: the most of 64, 32, ..., 1 rows whose
+    tile holds the whole hidden row and fits a block; where one row does not
+    fit (about 58,000 hidden columns in K5, 28,000 in K6, far past 4·D),
+    one row with the most of H, H / 2, ... hidden columns a chunk (K6 then
+    recomputes each chunk's hidden layer for its backward)."""
+    def tile(size):
+        rows = _most(ROWS, lambda r: size(r, H))
+        return rows, H if size(rows, H) <= H100_SMEM_PER_BLOCK else _most(H, lambda c: size(1, c))
+
+    return (*tile(lambda r, c: ffn_fwd_bytes(D, H, r, c)),
+            *tile(lambda r, c: ffn_bwd_bytes(D, H, r, c)))
 
 
 def ffn_envelope(D: int, H: int, device: Optional[torch.device] = None):
-    """-> (K5's bytes, K6's rows per tile, K6's bytes) for (D, hidden), or
-    NotImplementedError naming the limit.  K6 takes 64-row tiles where they
-    fit, else 32 or 16."""
+    """-> (K5's bytes, K6's rows per tile, K6's bytes) for (D, hidden) on
+    ``ffn_tiles``' tiles, or NotImplementedError naming the limit."""
     limit = smem_limit(device)
     kernel = "residual FFN (K5/K6)"
     if D < 1 or H < 1:
         raise ValueError(f"{kernel}: D={D}, hidden={H}")
-    fwd = _fits(kernel, ffn_fwd_bytes(D, H), limit, f"the forward at D={D}, hidden={H}")
-    for rows in (64, 32, 16):
-        if ffn_bwd_bytes(D, H, rows) <= limit:
-            return fwd, rows, ffn_bwd_bytes(D, H, rows)
-    _fits(kernel, ffn_bwd_bytes(D, H, 16), limit, f"the backward at D={D}, hidden={H}")
+    rows5, hc5, rows6, hc6 = ffn_tiles(D, H)
+    what = f"D={D}, hidden={H}"
+    fwd = _fits(kernel, ffn_fwd_bytes(D, H, rows5, hc5), limit,
+                f"the forward at {what}, {rows5} rows, {hc5} hidden columns")
+    bwd = _fits(kernel, ffn_bwd_bytes(D, H, rows6, hc6), limit,
+                f"the backward at {what}, {rows6} rows, {hc6} hidden columns")
+    return fwd, rows6, bwd
 
 
 # the bodies of K5 and K6, in the order of the CUDA sources' codes (ffn_g::Body
@@ -436,18 +465,32 @@ def _long_attn_bytes(N: int, hd: int) -> int:
     return 4 * (LONG_KT * _odd(hd) + LONG_WARPS * LONG_RPW * (N + 2 * hd))
 
 
+def _long_sums_bytes(D: int, A: int, rows: int) -> int:
+    """K4's token-sum step (``attn_long::sums_bytes``): ``rows`` rows of x
+    and g [D | 1], dqkv [3A | 1] and o [A | 1]."""
+    return 4 * rows * (2 * _odd(D) + _odd(3 * A) + _odd(A))
+
+
+def long_sum_rows(D: int, A: int) -> int:
+    """The token rows of a step of K4's long-window token sums
+    (``attn_long::sum_rows``): the most of 32, 16, ..., 1 that fit a block
+    (32 up to D = 296 at A = D)."""
+    return _most(LONG_ROWS, lambda rows: _long_sums_bytes(D, A, rows))
+
+
 def attention_long_bytes(N: int, D: int, nh: int, hd: int) -> Tuple[int, int]:
     """(K3's, K4's) largest block of the long-window bodies' launches
     (``attn_long::plan_bytes``): K3 the qkv and projection products and the
     attention; K4 also the rows pass (k_n and v tiles, per warp its row's
     cos, P, dp and dbias [N] and four head vectors), the columns pass (q_n
     and dacc tiles, lse and delta, per warp four head vectors and two tile
-    rows), the token sums (32 rows of x, g, dqkv and o) and dx's product."""
+    rows), the token sums (``long_sum_rows`` rows of x, g, dqkv and o) and
+    dx's product (its rows sized by its inner width 3A, ``_long_gemm_bytes``)."""
     A = nh * hd
     fwd = max(_long_attn_bytes(N, hd), _long_gemm_bytes(D), _long_gemm_bytes(A))
     rows = 4 * (2 * LONG_KT * _odd(hd) + LONG_WARPS * (4 * N + 4 * hd))
     cols = 4 * (2 * LONG_KT * _odd(hd) + 2 * LONG_KT + LONG_WARPS * (4 * hd + 2 * LONG_KT))
-    sums = 4 * LONG_ROWS * (2 * _odd(D) + _odd(3 * A) + _odd(A))
+    sums = _long_sums_bytes(D, A, long_sum_rows(D, A))
     return fwd, max(fwd, rows, cols, sums, _long_gemm_bytes(3 * A))
 
 
@@ -463,9 +506,21 @@ def attention_long_plan(N: int, D: int, nh: int, hd: int) -> Optional[dict]:
 
 def long_window(N: int, hd: int) -> bool:
     """Whether windows of N tokens with heads of hd channels take the
-    long-window bodies (K3/K4 and K2/K8): past 64 tokens or 32 channels,
-    which no other body takes."""
+    long-window bodies (K3/K4 and K2/K8) whatever the widths: past 64
+    tokens or 32 channels, which no other body takes.  Those bodies also
+    take what the CUDA-core generic bodies' tiles do not fit
+    (``attention_generic_fits``, ``nstb_bytes``): ``attention_body`` and
+    ``nstb_body`` hold the whole rule."""
     return N > ROWS or hd > HEAD_DIM_MAX
+
+
+def attention_generic_fits(N: int, D: int, nh: int, hd: int) -> bool:
+    """Whether K3's and K4's CUDA-core generic bodies take windows of N
+    (<= 64) tokens at width D with nh heads of hd (<= 32): one head's tile
+    of each fits a block (``attn_mma::generic_fits``).  From D = 214 at
+    heads of 32 channels K4's does not."""
+    return (attention_fwd_bytes(D, nh, hd, 1) <= H100_SMEM_PER_BLOCK
+            and attention_bwd_bytes(N, D, hd, 1) <= H100_SMEM_PER_BLOCK)
 
 
 # the tensor-core long-window bodies (csrc/long_mma.cuh: long_mma): the
@@ -604,10 +659,14 @@ def attention_body(N: int, D: int, nh: int, hd: int, dtype: torch.dtype) -> str:
     bodies (``long_window``): at bfloat16 from 32 tokens up the tensor-core
     ones wherever they have a plan (``attention_long_tc_plan``), the rest
     (float32, bf16 windows under 32 tokens, where the JAX kernel keeps q_n,
-    k_n and P float32) the CUDA-core ones."""
+    k_n and P float32) the CUDA-core ones.  Where the CUDA-core generic
+    bodies would run but one head's tile of K3 or K4 fits no block
+    (``attention_generic_fits``: D past 213 at heads of 32), the long-window
+    bodies by the same choice; no other geometry moves."""
     bf16 = dtype == torch.bfloat16
+    long = ATTENTION_BODIES[6 if bf16 and attention_long_tc_plan(N, D, nh, hd) else 5]
     if long_window(N, hd):
-        return ATTENTION_BODIES[6 if bf16 and attention_long_tc_plan(N, D, nh, hd) else 5]
+        return long
     if bf16 and (N, D, nh, hd) in ATTENTION_MMA_GEOMETRIES:
         return ATTENTION_BODIES[0]
     if (N, D, nh, hd) in ATTENTION_KERNEL_GEOMETRIES:
@@ -616,21 +675,28 @@ def attention_body(N: int, D: int, nh: int, hd: int, dtype: torch.dtype) -> str:
         return ATTENTION_BODIES[4]
     if bf16 and attention_mma_plan(N, D, nh, hd) is not None:
         return ATTENTION_BODIES[2]
-    return ATTENTION_BODIES[3]
+    return ATTENTION_BODIES[3] if attention_generic_fits(N, D, nh, hd) else long
+
+
+def attention_long(N: int, D: int, nh: int, hd: int, dtype: torch.dtype = torch.float32) -> bool:
+    """Whether K3/K4 run one of the long-window bodies at this geometry and
+    dtype (``attention_body``)."""
+    return attention_body(N, D, nh, hd, dtype) in ATTENTION_BODIES[5:]
 
 
 def attention_envelope(N: int, D: int, nh: int, hd: int,
-                       device: Optional[torch.device] = None):
+                       device: Optional[torch.device] = None,
+                       dtype: torch.dtype = torch.float32):
     """-> (K3's heads per group, K3's bytes, K4's heads per group, K4's
     bytes): each the most heads whose tile fits, or NotImplementedError
     naming the limit (one head's tile past the card's shared memory).  On
-    the long-window bodies (``long_window``) all heads and the largest
-    block of each kernel's launches (``attention_long_bytes``)."""
+    the long-window bodies (``attention_long`` at ``dtype``) all heads and
+    the largest block of each kernel's launches (``attention_long_bytes``)."""
     limit = smem_limit(device)
     kernel = "window attention (K3/K4)"
     if N < 1 or hd < 1 or D < 1 or nh < 1:
         raise ValueError(f"{kernel}: N={N}, D={D}, heads={nh}x{hd}")
-    if long_window(N, hd):
+    if attention_long(N, D, nh, hd, dtype):
         fwd, bwd = attention_long_bytes(N, D, nh, hd)
         _fits(kernel, bwd, limit, f"the long-window body at N={N}, D={D}, heads={nh}x{hd}")
         return nh, fwd, nh, bwd
@@ -645,40 +711,53 @@ def attention_envelope(N: int, D: int, nh: int, hd: int,
 
 # ---- K1 / K7: the n-gram context ---------------------------------------------
 
-def ngram_fwd_bytes(C: int, nh: int, hd: int) -> int:
-    """K1's generic body: u and q/k/v of the 3 x (TJ + 2) staged positions,
-    the mean tokens and ctx of TJ cells in both directions."""
+def ngram_fwd_bytes(C: int, nh: int, hd: int, tj: int = NGRAM_TJ) -> int:
+    """K1's CUDA-core generic body on blocks of ``tj`` cells: u and q/k/v of
+    the 3 x (tj + 2) staged positions, the mean tokens and ctx of tj cells
+    in both directions."""
     A = nh * hd
-    npos = 3 * (NGRAM_TJ + 2)
-    return 4 * (npos * C + npos * (3 * A + 1) + NGRAM_TJ * 2 * A + NGRAM_TJ * 2 * C)
+    npos = 3 * (tj + 2)
+    return 4 * (npos * C + npos * (3 * A + 1) + tj * 2 * A + tj * 2 * C)
 
 
-def ngram_bwd_bytes(C: int, D: int, nh: int, hd: int):
-    """(pass 1, pass 2) of K7's generic body.  Pass 1: u and q/k/v of the
-    staged positions, g, dctx, dacc, the mean tokens, ctx, ds and the
-    dscale shares of TJ cells; pass 2: u, raw q/k and the cotangents of TP
-    positions."""
+def ngram_bwd_bytes(C: int, D: int, nh: int, hd: int, tj: int = NGRAM_BWD_TJ,
+                    tp: int = NGRAM_BWD_TP):
+    """(pass 1, pass 2) of K7's CUDA-core generic body.  Pass 1 on tiles of
+    ``tj`` cells: u and q/k/v of the staged positions, g, dctx, dacc, the
+    mean tokens, ctx, ds and the dscale shares of tj cells; pass 2 on tiles
+    of ``tp`` positions: u, raw q/k and the cotangents."""
     A = nh * hd
-    tj = NGRAM_BWD_TJ
     npos = 3 * (tj + 2)
     p1 = (npos * C + npos * (3 * A + 1) + tj * D + tj * 2 * C + tj * 2 * A + tj * 2 * A
           + tj * 2 * C + tj * 2 * 16 * nh + tj * 2 * nh)
-    p2 = NGRAM_BWD_TP * ((C + 1) + 2 * (3 * A + 1))
+    p2 = tp * ((C + 1) + 2 * (3 * A + 1))
     return 4 * p1, 4 * p2
+
+
+def ngram_tiles(C: int, D: int, nh: int, hd: int) -> Tuple[int, int, int]:
+    """(K1's cells a block, K7's cells a pass-1 tile, K7's positions a
+    pass-2 tile) of the CUDA-core generic bodies (``ngram_rt_tiles`` in the
+    sources): each the most of 32 (16 for K7's cells), half that, ..., 1
+    that fits a block; the full-width NGswin's and every width up to D =
+    128 keep 32, 16 and 32."""
+    return (_most(NGRAM_TJ, lambda tj: ngram_fwd_bytes(C, nh, hd, tj)),
+            _most(NGRAM_BWD_TJ, lambda tj: ngram_bwd_bytes(C, D, nh, hd, tj=tj)[0]),
+            _most(NGRAM_BWD_TP, lambda tp: ngram_bwd_bytes(C, D, nh, hd, tp=tp)[1]))
 
 
 def ngram_envelope(C: int, D: int, nh: int, hd: int, device: Optional[torch.device] = None):
     """-> (K1's bytes, K7's pass-1 bytes, K7's pass-2 bytes) on a [.., C]
-    unigram grid with a [2C, D] merge, or NotImplementedError naming the
-    limit."""
+    unigram grid with a [2C, D] merge at the tiles ``ngram_tiles`` picks,
+    or NotImplementedError naming the limit.  Any head_dim: the CUDA-core
+    bodies walk a head's channels one at a time."""
     limit = smem_limit(device)
     kernel = "n-gram context (K1/K7)"
-    _head_dim(kernel, hd)
-    if C < 1 or D < 1 or nh < 1:
-        raise ValueError(f"{kernel}: C={C}, D={D}, heads={nh}")
+    if C < 1 or D < 1 or nh < 1 or hd < 1:
+        raise ValueError(f"{kernel}: C={C}, D={D}, heads={nh}x{hd}")
     what = f"C={C}, D={D}, heads={nh}x{hd}"
-    fwd = _fits(kernel, ngram_fwd_bytes(C, nh, hd), limit, f"the forward at {what}")
-    p1, p2 = ngram_bwd_bytes(C, D, nh, hd)
+    tj, tj7, tp7 = ngram_tiles(C, D, nh, hd)
+    fwd = _fits(kernel, ngram_fwd_bytes(C, nh, hd, tj), limit, f"the forward at {what}")
+    p1, p2 = ngram_bwd_bytes(C, D, nh, hd, tj7, tp7)
     _fits(kernel, max(p1, p2), limit, f"the backward at {what}")
     return fwd, p1, p2
 
@@ -805,22 +884,26 @@ def nstb_bytes(N: int, D: int, nh: int, hd: int, H: int) -> int:
 
 
 def nstb_envelope(N: int, D: int, nh: int, hd: int, H: int,
-                  device: Optional[torch.device] = None) -> int:
-    """-> K2's / K8's CUDA-core generic body's bytes for windows of N tokens
-    at width D, nh heads of hd, FFN hidden H, or NotImplementedError naming
-    the limit (the tile past the card's shared memory).  The FFN tail is
-    not cut into chunks: past the card's bytes the refusal names them, as
-    K5's does.  Windows past 64 tokens and head_dim past 32 (``long_window``)
-    take the long-window body: its largest block (``nstb_long_bytes``).
-    This is K2's and K8's envelope at either dtype; inside it ``nstb_body``
-    picks the body."""
+                  device: Optional[torch.device] = None,
+                  dtype: torch.dtype = torch.float32) -> int:
+    """-> the bytes of the body K2 / K8 run for windows of N tokens at width
+    D, nh heads of hd, FFN hidden H and I/O type ``dtype``
+    (``nstb_body``), or NotImplementedError naming the limit (a block past
+    the card's shared memory): the long-window bodies their CUDA-core
+    body's largest block (``nstb_long_bytes``, whose FFN tail takes the
+    most rows that fit), the bf16 tensor-core generic body its plan's
+    (``nstb_mma_plan``), the others the CUDA-core generic body's tile
+    (``nstb_bytes``)."""
     kernel = "whole NSTB (K2/K8)"
     if N < 1 or hd < 1 or D < 1 or nh < 1 or H < 1:
         raise ValueError(f"{kernel}: N={N}, D={D}, heads={nh}x{hd}, hidden={H}")
     what = f"N={N}, D={D}, heads={nh}x{hd}, hidden={H}"
-    if long_window(N, hd):
+    body = nstb_body(N, D, nh, hd, H, dtype)
+    if body in NSTB_BODIES[3:]:
         return _fits(kernel, nstb_long_bytes(N, D, nh, hd, H), smem_limit(device),
                      f"the long-window body at {what}")
+    if body == NSTB_BODIES[1]:
+        return nstb_mma_plan(N, D, nh, hd, H)[1]
     return _fits(kernel, nstb_bytes(N, D, nh, hd, H), smem_limit(device), f"the block at {what}")
 
 
@@ -919,21 +1002,26 @@ def nstb_body(N: int, D: int, nh: int, hd: int, H: int, dtype: torch.dtype) -> s
     CUDA-core generic body.  Windows past 64 tokens and heads wider than 32
     channels (``long_window``) the long-window bodies: bfloat16 the
     tensor-core one wherever it has a plan (``nstb_long_tc_plan``), the rest
-    the CUDA-core one."""
+    the CUDA-core one.  Where the CUDA-core generic body would run but its
+    tile fits no block (``nstb_bytes``: D = 186 at hidden 2·D with 6 heads,
+    D = 256 with 8 heads of 32 and hidden 1024), the long-window bodies by
+    the same choice; no other geometry moves."""
+    bf16 = dtype == torch.bfloat16
+    long = NSTB_BODIES[4 if bf16 and nstb_long_tc_plan(N, D, nh, hd, H) else 3]
     if long_window(N, hd):
-        bf16 = dtype == torch.bfloat16
-        return NSTB_BODIES[4 if bf16 and nstb_long_tc_plan(N, D, nh, hd, H) else 3]
+        return long
     if (N, D, H) == NSTB_FLAGSHIP[:3] and (nh, hd) in NSTB_FLAGSHIP[3:]:
         return NSTB_BODIES[0]
-    if dtype == torch.bfloat16 and nstb_mma_plan(N, D, nh, hd, H) is not None:
+    if bf16 and nstb_mma_plan(N, D, nh, hd, H) is not None:
         return NSTB_BODIES[1]
-    return NSTB_BODIES[2]
+    return NSTB_BODIES[2] if nstb_bytes(N, D, nh, hd, H) <= H100_SMEM_PER_BLOCK else long
 
 
 # ---- the CUDA sources' own counts ----------------------------------------------
 
-# query -> (kernel library, C function, its int arguments): the arguments of
-# ffn_fwd_bytes, ffn_bwd_bytes, (D, hidden) for K6's and for K5's
+# query -> (kernel library, C function, its int arguments): (D, hidden
+# columns a chunk, rows a tile) of ffn_fwd_bytes and ffn_bwd_bytes (the
+# chunk is all of hidden where one row fits), (D, hidden) for K6's and for K5's
 # tensor-core generic body (ffn_mma_plan's and ffn_mma_fwd_plan's bytes, -1
 # without a plan), attention_fwd_bytes, attention_bwd_bytes,
 # (N, D, heads, head_dim) for K3's tensor-core generic body and the same
@@ -951,7 +1039,7 @@ def nstb_body(N: int, D: int, nh: int, hd: int, H: int, dtype: torch.dtype) -> s
 # without a plan), K3 (3) or K4 (4) for the tensor-core ones
 # (attention_long_tc_plan's)
 SMEM_QUERIES = {
-    "ffn_fwd": ("residual_ffn_fwd", "tmar_residual_ffn_fwd_smem", 2),
+    "ffn_fwd": ("residual_ffn_fwd", "tmar_residual_ffn_fwd_smem", 3),
     "ffn_bwd": ("residual_ffn_bwd", "tmar_residual_ffn_bwd_smem", 3),
     "ffn_bwd_mma": ("residual_ffn_bwd", "tmar_residual_ffn_bwd_mma_smem", 2),
     "ffn_fwd_mma": ("residual_ffn_fwd", "tmar_residual_ffn_fwd_mma_smem", 2),
